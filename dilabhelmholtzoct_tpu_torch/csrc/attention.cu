@@ -1,0 +1,424 @@
+// SAM encoder self-attention with decomposed relative-position bias, read
+// straight from the fused qkv projection.
+//
+//   qkv   (B, N, 3C)  feature order (3, heads, 64): q of head h at columns
+//                     h*64, k at C + h*64, v at 2C + h*64
+//   rel_h (B, heads, N, H)   bias factor over key rows
+//   rel_w (B, heads, N, W)   bias factor over key columns
+//   out   (B, N, C)   token order, ready for the output projection
+//
+//   s[q, k] = (q . k) / 8 + rel_h[q, k / W] + rel_w[q, k % W]
+//   out[q]  = softmax_k(s[q, :]) . v
+//
+// Two kernels, both templated on the element type (float: the serving
+// path; __nv_bfloat16: the training slice's embedding precompute). Inputs
+// are widened to f32 in shared memory; every sum is f32; the output is
+// stored in the input type.
+//
+// K1 attn_global_kernel replaces dilabhelmholtzoct_tpu/ops/attention.py
+//    flash_attention_packed, _packed_kernel branch (the 4 global layers,
+//    N = 4096 at ViT-B). One block per (batch, head, 64-query tile) loops
+//    over 64-key tiles with an online softmax (running max, denominator and
+//    output accumulator in registers).
+// K2 attn_windowed_kernel replaces the same function's
+//    _windowed_group_kernel branch (the 8 windowed layers, 25 windows of
+//    14x14 = 196 tokens per image). One block per (window, head, 64-query
+//    tile) holds all keys and values of the window in shared memory and
+//    takes a one-pass softmax.
+//
+// Bound on an H100 SXM (700 W), one layer at B = 1, f32:
+//    K1: 4 * 4096^2 * 64 * 12 = 51.5 GFLOP over the 67 TFLOP/s f32 peak
+//        = 0.77 ms; bytes (qkv 37.7 MB + rel 25.2 MB + out 12.6 MB) over
+//        3.35 TB/s = 0.022 ms. Compute-bound.
+//    K2: 2.95 GFLOP -> 0.044 ms; 67 MB -> 0.020 ms. Compute-bound.
+//    In bf16 the bound is the 989 TFLOP/s tensor-core rate (K1 ~52 us).
+// What this design does about it: both kernels are compute-bound, so they
+// keep every operand of the inner loops in shared memory and registers
+// (a 4x4 register tile of scores and of the output per thread, 16-byte
+// shared loads, padded rows against bank conflicts) and read each qkv byte
+// from device memory once per query tile. They run on the CUDA cores in
+// f32; moving the two products onto the tensor cores (mma.sync / wgmma
+// with TMA loads) is later work.
+//
+// Not carried over from the TPU kernel (Mosaic-only workarounds): head-pair
+// packing into 128 lanes, one-hot selector matmuls that expand the bias,
+// grouping 5 windows per program, pre-transposed k.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int D = 64;          // head dim (every SAM variant)
+constexpr int TQ = 64;         // query rows per block
+constexpr int TK = 64;         // key tokens per tile (K1)
+constexpr int THREADS = 256;   // 16 x 16: thread (ty, tx)
+constexpr int LD = D + 4;      // padded shared row for q / k tiles
+constexpr int KMAX = 256;      // most keys K2 holds (16 x 16 windows)
+constexpr int NJ = KMAX / 16;  // key columns per thread in K2
+
+__device__ __forceinline__ void load4(const float* p, float* v) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+}
+
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* v) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  __nv_bfloat162 a, b;
+  *reinterpret_cast<uint32_t*>(&a) = raw.x;
+  *reinterpret_cast<uint32_t*>(&b) = raw.y;
+  const float2 fa = __bfloat1622float2(a), fb = __bfloat1622float2(b);
+  v[0] = fa.x; v[1] = fa.y; v[2] = fb.x; v[3] = fb.y;
+}
+
+__device__ __forceinline__ void store4(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
+  __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+  __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 raw;
+  raw.x = *reinterpret_cast<uint32_t*>(&a);
+  raw.y = *reinterpret_cast<uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = raw;
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// rows [row0, row0 + nrows) x 64 columns of a row-major matrix with
+// `stride` elements per row -> shared dst (leading dim ld), times `scale`;
+// rows at or past n are zero.
+template <typename T>
+__device__ void load_rows(float* dst, int ld, const T* src, int stride,
+                          int row0, int nrows, int n, float scale) {
+  for (int i = threadIdx.x; i < nrows * (D / 4); i += THREADS) {
+    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    if (row0 + r < n) load4(src + (size_t)(row0 + r) * stride + c, v);
+    float4* d = reinterpret_cast<float4*>(dst + r * ld + c);
+    *d = make_float4(v[0] * scale, v[1] * scale, v[2] * scale, v[3] * scale);
+  }
+}
+
+// the TQ query rows' bias factors (nq valid rows of `len` values) -> shared
+template <typename T>
+__device__ void load_rel(float* dst, const T* src, int len, int nq) {
+  for (int i = threadIdx.x; i < TQ * len; i += THREADS)
+    dst[i] = (i / len < nq) ? to_f32(src[i]) : 0.f;
+}
+
+// max / sum over the 16 threads (tx) that share a query row
+__device__ __forceinline__ float row_max(float x) {
+  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float row_sum(float x) {
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// s[i][j] += q[ty + 16i] . k[tx + 16(j0 + j)] for j < 4 (and j0 + j < nj)
+__device__ __forceinline__ void score_tile(float (*s)[4], const float* Qs,
+                                           const float* Ks, int ty, int tx,
+                                           int j0, int nj) {
+#pragma unroll 4
+  for (int d = 0; d < D; d += 4) {
+    float4 q[4], k[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) q[i] = lds4(Qs + (ty + 16 * i) * LD + d);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (j0 + j < nj) k[j] = lds4(Ks + (tx + 16 * (j0 + j)) * LD + d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (j0 + j < nj)
+          s[i][j] += q[i].x * k[j].x + q[i].y * k[j].y + q[i].z * k[j].z +
+                     q[i].w * k[j].w;
+  }
+}
+
+// acc[i][c] += sum_k P[ty + 16i][k] * V[k][4tx + c] over k < nk (nk % 4 == 0)
+__device__ __forceinline__ void pv_tile(float (*acc)[4], const float* Ps,
+                                        int ldp, const float* Vs, int nk,
+                                        int ty, int tx) {
+  for (int k = 0; k < nk; k += 4) {
+    float4 v[4], p[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) v[u] = lds4(Vs + (k + u) * D + 4 * tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) p[i] = lds4(Ps + (ty + 16 * i) * ldp + k);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float pu[4] = {p[i].x, p[i].y, p[i].z, p[i].w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        acc[i][0] += pu[u] * v[u].x;
+        acc[i][1] += pu[u] * v[u].y;
+        acc[i][2] += pu[u] * v[u].z;
+        acc[i][3] += pu[u] * v[u].w;
+      }
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store_out(T* out, float (*acc)[4],
+                                          const float* l, int b, int n, int C,
+                                          int head, int q0, int ty, int tx) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int q = q0 + ty + 16 * i;
+    if (q >= n) continue;
+    const float inv = 1.f / l[i];
+    const float o[4] = {acc[i][0] * inv, acc[i][1] * inv, acc[i][2] * inv,
+                        acc[i][3] * inv};
+    store4(out + ((size_t)b * n + q) * C + head * D + 4 * tx, o);
+  }
+}
+
+// ---------------------------------------------------------------- K1 ----
+// grid (ceil(N / 64), heads, B), 256 threads. Shared (floats):
+//   Qs TQ*LD | Ks TK*LD | Vs TK*D | Ps TQ*LD | Rh TQ*H | Rw TQ*W
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 2)
+attn_global_kernel(const T* __restrict__ qkv, const T* __restrict__ rel_h,
+                   const T* __restrict__ rel_w, T* __restrict__ out, int n,
+                   int heads, int H, int W, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;
+  float* Ks = Qs + TQ * LD;
+  float* Vs = Ks + TK * LD;
+  float* Ps = Vs + TK * D;
+  float* Rh = Ps + TQ * LD;
+  float* Rw = Rh + TQ * H;
+
+  const int head = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * TQ;
+  const int C = heads * D, stride = 3 * C;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const T* base = qkv + (size_t)b * n * stride;
+  const size_t rel_row = ((size_t)b * heads + head) * n + q0;
+
+  load_rows(Qs, LD, base + head * D, stride, q0, TQ, n, scale);
+  load_rel(Rh, rel_h + rel_row * H, H, n - q0);
+  load_rel(Rw, rel_w + rel_row * W, W, n - q0);
+
+  float m[4], l[4], acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  }
+
+  for (int k0 = 0; k0 < n; k0 += TK) {
+    __syncthreads();  // the previous tile's Ks / Vs / Ps are consumed
+    load_rows(Ks, LD, base + C + head * D, stride, k0, TK, n, 1.f);
+    load_rows(Vs, D, base + 2 * C + head * D, stride, k0, TK, n, 1.f);
+    __syncthreads();
+
+    float s[4][4] = {};
+    score_tile(s, Qs, Ks, ty, tx, 0, 4);
+
+    int kr[4], kc[4];
+    bool kv[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int kg = k0 + tx + 16 * j;
+      kv[j] = kg < n;
+      kr[j] = kg / W;
+      kc[j] = kg - kr[j] * W;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int q = ty + 16 * i;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = kv[j] ? s[i][j] + Rh[q * H + kr[j]] + Rw[q * W + kc[j]]
+                        : -INFINITY;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], row_max(mx));
+      const float alpha = expf(m[i] - m_new);  // 0 on the first tile
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(s[i][j] - m_new);
+        rs += p;
+        Ps[q * LD + tx + 16 * j] = p;
+      }
+      l[i] = l[i] * alpha + row_sum(rs);
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][c] *= alpha;
+    }
+    __syncthreads();
+    pv_tile(acc, Ps, LD, Vs, TK, ty, tx);
+  }
+  store_out(out, acc, l, b, n, C, head, q0, ty, tx);
+}
+
+// ---------------------------------------------------------------- K2 ----
+// grid (ceil(N / 64), heads, windows), 256 threads, N <= KMAX. With
+// NK = N rounded up to 16, shared (floats):
+//   [Qs TQ*LD | Ks NK*LD], reused as Ps TQ*(NK+4) once the scores are in
+//   registers | Vs NK*D | Rh TQ*H | Rw TQ*W
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+attn_windowed_kernel(const T* __restrict__ qkv, const T* __restrict__ rel_h,
+                     const T* __restrict__ rel_w, T* __restrict__ out, int n,
+                     int heads, int H, int W, float scale, int qk_floats) {
+  extern __shared__ __align__(16) float smem[];
+  const int nk = (n + 15) / 16 * 16, nj = nk / 16, ldp = nk + 4;
+  float* Qs = smem;
+  float* Ks = Qs + TQ * LD;
+  float* Ps = smem;
+  float* Vs = smem + qk_floats;
+  float* Rh = Vs + nk * D;
+  float* Rw = Rh + TQ * H;
+
+  const int head = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * TQ;
+  const int C = heads * D, stride = 3 * C;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const T* base = qkv + (size_t)b * n * stride;
+  const size_t rel_row = ((size_t)b * heads + head) * n + q0;
+
+  load_rows(Qs, LD, base + head * D, stride, q0, TQ, n, scale);
+  load_rows(Ks, LD, base + C + head * D, stride, 0, nk, n, 1.f);
+  load_rows(Vs, D, base + 2 * C + head * D, stride, 0, nk, n, 1.f);
+  load_rel(Rh, rel_h + rel_row * H, H, n - q0);
+  load_rel(Rw, rel_w + rel_row * W, W, n - q0);
+  __syncthreads();
+
+  float s[4][NJ];
+#pragma unroll
+  for (int j0 = 0; j0 < NJ; j0 += 4) {
+    float t[4][4] = {};
+    if (j0 < nj) score_tile(t, Qs, Ks, ty, tx, j0, nj);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j0 + j] = t[i][j];
+  }
+
+  float l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int q = ty + 16 * i;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int k = tx + 16 * j;
+      if (k < n) {
+        const int kr = k / W;
+        s[i][j] += Rh[q * H + kr] + Rw[q * W + (k - kr * W)];
+      } else {
+        s[i][j] = -INFINITY;
+      }
+      mx = fmaxf(mx, s[i][j]);
+    }
+    mx = row_max(mx);
+    float rs = 0.f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      s[i][j] = expf(s[i][j] - mx);  // 0 past n
+      rs += s[i][j];
+    }
+    l[i] = row_sum(rs);
+  }
+  __syncthreads();  // every thread is done reading Qs / Ks: reuse as Ps
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      if (j < nj) Ps[(ty + 16 * i) * ldp + tx + 16 * j] = s[i][j];
+  __syncthreads();
+
+  float acc[4][4] = {};
+  pv_tile(acc, Ps, ldp, Vs, nk, ty, tx);
+  store_out(out, acc, l, b, n, C, head, q0, ty, tx);
+}
+
+template <typename T>
+int launch_global(const void* qkv, const void* rel_h, const void* rel_w,
+                  void* out, int batch, int n, int heads, int h, int w,
+                  cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (size_t)(3 * TQ * LD + TK * D + TQ * (h + w));
+  cudaError_t e = cudaFuncSetAttribute(
+      attn_global_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((n + TQ - 1) / TQ, heads, batch);
+  attn_global_kernel<T><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<const T*>(rel_h),
+      static_cast<const T*>(rel_w), static_cast<T*>(out), n, heads, h, w,
+      0.125f);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_windowed(const void* qkv, const void* rel_h, const void* rel_w,
+                    void* out, int batch, int n, int heads, int h, int w,
+                    cudaStream_t stream) {
+  if (n > KMAX) return (int)cudaErrorInvalidValue;
+  const int nk = (n + 15) / 16 * 16;
+  int qk_floats = TQ * LD + nk * LD;
+  if (TQ * (nk + 4) > qk_floats) qk_floats = TQ * (nk + 4);
+  const size_t smem = sizeof(float) * (size_t)(qk_floats + nk * D + TQ * (h + w));
+  cudaError_t e = cudaFuncSetAttribute(
+      attn_windowed_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((n + TQ - 1) / TQ, heads, batch);
+  attn_windowed_kernel<T><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<const T*>(rel_h),
+      static_cast<const T*>(rel_w), static_cast<T*>(out), n, heads, h, w,
+      0.125f, qk_floats);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// C interface (ctypes). dtype: 0 = float32, 1 = bfloat16. Returns the
+// cudaError_t of the launch (0 = success); the caller raises on non-zero.
+extern "C" {
+
+int dhoct_attn_global(const void* qkv, const void* rel_h, const void* rel_w,
+                      void* out, int batch, int n, int heads, int h, int w,
+                      int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 1
+             ? launch_global<__nv_bfloat16>(qkv, rel_h, rel_w, out, batch, n,
+                                            heads, h, w, s)
+             : launch_global<float>(qkv, rel_h, rel_w, out, batch, n, heads,
+                                    h, w, s);
+}
+
+int dhoct_attn_windowed(const void* qkv, const void* rel_h, const void* rel_w,
+                        void* out, int batch, int n, int heads, int h, int w,
+                        int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 1
+             ? launch_windowed<__nv_bfloat16>(qkv, rel_h, rel_w, out, batch,
+                                              n, heads, h, w, s)
+             : launch_windowed<float>(qkv, rel_h, rel_w, out, batch, n, heads,
+                                      h, w, s);
+}
+
+const char* dhoct_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"
