@@ -8,9 +8,9 @@ prints no result line):
 
 1. Device facts: the card's name, and its name and power limit as
    ``nvidia-smi --query-gpu=name,power.limit`` gives them.
-2. Build: every CUDA kernel of the serving path from
-   ``dilabhelmholtzoct_tpu_torch/csrc`` with nvcc for sm_90a (build seconds
-   and the ptxas report).
+2. Build: every CUDA kernel of the serving and training paths from
+   ``dilabhelmholtzoct_tpu_torch/csrc`` with nvcc for sm_90a, one nvcc per
+   source, all started together (build seconds and the ptxas report).
 3. Kernels at SAM ViT-B shapes — K1 global attention (B=1, N=4096, 12 heads)
    and K2 windowed attention (25 windows of 196 tokens, 12 heads) — in f32
    and bf16: each held against its plain PyTorch version on the same card
@@ -22,19 +22,42 @@ prints no result line):
    uint8 image (the exact-2x preprocess), a box, a point and a 3-box request
    through ``SegmentationEngine.segment``. Launch counts are zeroed just
    before and read just after: 4 K1 and 8 K2 launches for the one encode,
-   none for the cached prompts. The box request's probabilities and masks
-   are held against the same engine on ``device="cpu"``.
+   none for the cached prompts, and no K3/K4 launch at all (serving is
+   f32). The box request's probabilities and masks are held against the
+   same engine on ``device="cpu"``.
+5. Kernels of the training path at its shapes (64 (image, prompt) pairs x
+   4096 rows, C = 256, 7 tokens) — K3 upscaler and K4 image->token
+   attention (with pb = 1 and the shared first layer's pb = 8), forward and
+   backward, in f32 and bf16: each held against its plain PyTorch version
+   (relative to the max |value| of each output), then timed with CUDA
+   events beside the bound from the shapes. No single PyTorch call computes
+   either fused chain, so their library_ms is null.
+6. Training at full ViT-B width, bf16, cached embeddings: random weights
+   (non-zero rel-pos), 16 train + 8 valid synthetic 496x512 OCT images with
+   label maps of background + 7 non-touching blobs (bucket 8, 64 pairs per
+   batch of 8). ``precompute_embeddings`` launches K1 x4 and K2 x8 per
+   image; 10 ``make_train_step`` steps on one batch launch K3 fwd/bwd x1 and
+   K4 fwd/bwd x2 each, with a finite, falling loss; one step with the
+   encoder inside (B = 2) launches K1/K2 too.
+7. The card against the CPU: the same first step on 1 image x bucket 8 on
+   both — the loss and the signs of the decoder updates.
+8. The epoch loop: ``training(config, splits=...)`` for 2 epochs, then
+   resumed to 3; finite losses, one checkpoint kept.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with one entry per kernel (K1/K2
+numbers from the serving path in f32, K3/K4 from the training path in bf16);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -46,6 +69,16 @@ PEAK_BYTES = 3.35e12
 F32_ATOL = 1e-4    # kernel vs plain, f32: summation order over <= 4096 keys
 BF16_ATOL = 2e-2   # kernel vs plain, bf16: one bf16 rounding of |out| <~ 2
 PROB_ATOL = 1e-3   # card engine vs CPU engine, probabilities (ViT-B, f32)
+# K3/K4 kernel vs plain, max |diff| / max |plain| per output: f32 summation
+# order; bf16 one flipped rounding of an intermediate (2^-8 relative) before
+# further products
+K34_TOL = {"f32": 1e-4, "bf16": 2e-2}
+STEP_LOSS_RTOL = 2e-2   # bf16 train step, card vs CPU: bf16 roundings of the
+#                         decoder in another summation order
+SIGN_AGREE_MIN = 0.90   # card vs CPU, share of moved decoder weights whose
+#                         first-step update agrees in sign (Adam step 1 is
+#                         ~lr * sign(g); tiny gradients may flip in bf16)
+TRAIN_SHAPES = dict(bp=64, m=4096, n_tok=7, n_out=1)
 
 
 def check(cond, msg):
@@ -169,7 +202,7 @@ def serving_phase(torch, attn):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    attn.reset_launch_counts()  # --- main path starts
+    _reset_counts()  # --- main path starts
     t0 = time.perf_counter()
     bin_box, p_box = engine.segment(img, box, "bbox")
     cold_ms = 1e3 * (time.perf_counter() - t0)
@@ -177,6 +210,9 @@ def serving_phase(torch, attn):
     bin_pt, p_pt = engine.segment(img, point, "points")
     bin_3, p_3 = engine.segment(img, boxes3, "bbox")
     launches = dict(attn.LAUNCHES)  # --- main path ends
+    fused = {k: v for k, v in _counts().items() if k not in launches}
+    check(not any(fused.values()),
+          f"f32 serving launched training kernels: {fused}")
     peak_bytes = torch.cuda.max_memory_allocated()
     print(f"serving launches after the first request {after_encode}, "
           f"after all three {launches}")
@@ -216,6 +252,378 @@ def serving_phase(torch, attn):
     return launches
 
 
+def k3_bound_ms(bp, m, n_out, itemsize, peak, backward):
+    """Least time for one K3 call at C = 256: the products of the chain
+    (forward 2*256*256 + 4*2*64*128 + 2*512*n_out per row; the backward adds
+    the recompute's twin products for d_up, dW1, d_u1g, dW2 and the
+    hypernetwork terms) over the type's peak, against the bytes (up, and dm
+    for the backward, read once; the mask rows or d_up written once)."""
+    fwd = 2 * 256 * 256 + 4 * 2 * 64 * 128 + 2 * 512 * n_out
+    flops = bp * m * (fwd if not backward
+                      else fwd + 2 * (2 * 256 * 256 + 4 * 2 * 64 * 128)
+                      + 2 * 2 * 512 * n_out)
+    out_f32 = 4 * bp * m * n_out * 16
+    nbytes = itemsize * bp * m * 256 + (
+        out_f32 if not backward else out_f32 + itemsize * bp * m * 256)
+    return _bound(flops, nbytes, peak)
+
+
+def k4_bound_ms(bp, pb, m, n_tok, itemsize, peak, backward):
+    """Least time for one K4 call at C = 256, I = 128: the q and out
+    projections and the token attention (2*(2*256*128 + 2*128*n_tok) per
+    row; the backward adds dWo, d_out, dWq, d_keys and the softmax
+    products) over the type's peak, against the bytes (keys per image, pe,
+    and dy for the backward, read once; y, or d_keys, d_qpre, p, d_score and
+    d_out, written once)."""
+    proj, att = 2 * 256 * 128, 2 * 128 * n_tok
+    fwd = 2 * proj + 2 * att
+    flops = bp * m * (fwd if not backward else fwd + 4 * proj + 2 * att)
+    rows_in = (bp // pb) * m * 256 + m * 256
+    if not backward:
+        nbytes = itemsize * (rows_in + bp * m * 256)
+    else:
+        nbytes = itemsize * (rows_in + bp * m * 256          # + dy
+                             + bp * m * (256 + 128 + 64 + 64 + 128))
+    return _bound(flops, nbytes, peak)
+
+
+def _bound(flops, nbytes, peak):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def _check_outputs(torch, name, tname, got, want):
+    """Every output of a kernel against its plain version, each relative to
+    its own scale; returns (max abs error, max relative error)."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    worst_abs = worst_rel = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        check(a.shape == b.shape and a.dtype == b.dtype,
+              f"{name} {tname} output {i}: {a.shape} {a.dtype} vs plain "
+              f"{b.shape} {b.dtype}")
+        check(bool(torch.isfinite(a.float()).all()),
+              f"{name} {tname} output {i} not finite")
+        err = float((a.float() - b.float()).abs().max())
+        rel = err / max(float(b.float().abs().max()), 1e-30)
+        check(rel <= K34_TOL[tname], f"{name} {tname} output {i}: max |kernel "
+                                     f"- plain| / max |plain| = {rel:.3g} > "
+                                     f"{K34_TOL[tname]}")
+        worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+    return worst_abs, worst_rel
+
+
+def k34_kernel_phase(torch):
+    """K3 and K4, forward and backward, against their plain versions at the
+    training shapes in f32 and bf16; returns the bf16 numbers (the training
+    path's type) per kernel for the result line."""
+    from dilabhelmholtzoct_tpu_torch.device import full_fp32
+    from dilabhelmholtzoct_tpu_torch.ops import decoder_attn as i2t
+    from dilabhelmholtzoct_tpu_torch.ops import upscaler as up_op
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    bp, m, n_tok, n_out = (TRAIN_SHAPES[k] for k in ("bp", "m", "n_tok",
+                                                     "n_out"))
+    f32 = torch.float32
+    rows = {}
+
+    def rnd(*shape, k=1.0, dt=f32):
+        return (k * torch.randn(shape, generator=gen, device=dev)).to(dt)
+
+    def run(name, tname, kernel, plain, counter, bound, replaces, iters,
+            tag=""):
+        before = counter[name]
+        out = kernel()
+        torch.cuda.synchronize()
+        check(counter[name] == before + 1,
+              f"{name}{tag} did not launch its kernel")
+        ref = plain()
+        torch.cuda.synchronize()
+        err, rel = _check_outputs(torch, name + tag, tname, out, ref)
+        del out, ref
+        ms = cuda_ms(kernel, iters)
+        plain_ms = cuda_ms(plain, 2)
+        b_ms, b_by = bound
+        print(f"kernel {name}{tag} {tname}: max_abs_err={err:.3g} "
+              f"max_rel_err={rel:.3g} ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} library_ms=null bound_ms={b_ms:.4f} "
+              f"({b_by}) share_of_bound={b_ms / ms:.3f}")
+        if tname == "bf16" and not tag:  # the result line: bf16, pb = 1
+            rows[name] = {
+                "name": name, "route": "cuda",
+                "source": f"dilabhelmholtzoct_tpu_torch/csrc/{replaces[0]}",
+                "replaces": replaces[1], "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None,
+            }
+
+    k3 = "upscaler.cu", "dilabhelmholtzoct_tpu/ops/upscaler.py"
+    k4 = "decoder_attn.cu", "dilabhelmholtzoct_tpu/ops/decoder_attn.py"
+    with full_fp32():
+        for dt, tname in ((f32, "f32"), (torch.bfloat16, "bf16")):
+            peak = PEAK_F32_FLOPS if dt == f32 else PEAK_BF16_FLOPS
+            isz = torch.empty((), dtype=dt).element_size()
+            # K3 at 64 pairs x 4096 rows
+            up_args = (rnd(bp, m, 256, dt=dt), rnd(256, 2, 2, 64, k=0.06,
+                                                   dt=dt),
+                       rnd(64, k=0.1), 1 + rnd(64, k=0.1), rnd(64, k=0.1),
+                       rnd(64, 2, 2, 32, k=0.12, dt=dt), rnd(32, k=0.1),
+                       rnd(bp, n_out, 32, dt=dt))
+            dm = rnd(bp, m, n_out * 16)
+            run("upscale_fwd", tname, lambda: up_op.upscale_fwd_cuda(*up_args),
+                lambda: up_op.upscale_fwd_plain(*up_args), up_op.LAUNCHES,
+                k3_bound_ms(bp, m, n_out, isz, peak, False),
+                (k3[0], f"{k3[1]}:295"), 10)
+            run("upscale_bwd", tname,
+                lambda: up_op.upscale_bwd_cuda(up_args[0], dm, *up_args[1:]),
+                lambda: up_op.upscale_bwd_plain(up_args[0], dm, *up_args[1:]),
+                up_op.LAUNCHES, k3_bound_ms(bp, m, n_out, isz, peak, True),
+                (k3[0], f"{k3[1]}:329"), 5)
+            del up_args, dm
+            # K4 per-pair layer (pb = 1) and shared first layer (pb = 8)
+            for pb in (1, 8):
+                args = (rnd(bp // pb, m, 256, dt=dt), rnd(1, m, 256, dt=dt),
+                        rnd(bp, n_tok, 128, dt=dt), rnd(bp, n_tok, 128, dt=dt),
+                        rnd(256, 128, k=0.06, dt=dt), rnd(128, k=0.1),
+                        rnd(128, 256, k=0.09, dt=dt), rnd(256, k=0.1),
+                        1 + rnd(256, k=0.1), rnd(256, k=0.1))
+                dy = rnd(bp, m, 256, dt=dt)
+                kw = dict(nh=8, pb=pb, eps=1e-6)
+                tag = "" if pb == 1 else "_pb8"
+                run("i2t_fwd", tname, lambda: i2t.i2t_fwd_cuda(*args, **kw),
+                    lambda: i2t.i2t_fwd_plain(*args, **kw), i2t.LAUNCHES,
+                    k4_bound_ms(bp, pb, m, n_tok, isz, peak, False),
+                    (k4[0], f"{k4[1]}:264"), 10, tag)
+                run("i2t_bwd", tname,
+                    lambda: i2t.i2t_bwd_cuda(*args, dy, **kw),
+                    lambda: i2t.i2t_bwd_plain(*args, dy, **kw), i2t.LAUNCHES,
+                    k4_bound_ms(bp, pb, m, n_tok, isz, peak, True),
+                    (k4[0], f"{k4[1]}:287"), 5, tag)
+                del args, dy
+            torch.cuda.empty_cache()
+    return rows
+
+
+def _device_batch(torch, batch, dev, emb=None):
+    out = {k: torch.as_tensor(batch[k]).to(dev)
+           for k in ("prompts", "comp_map", "channel_mask") if k in batch}
+    if emb is not None:
+        out["embeddings"] = emb.index_select(
+            0, torch.as_tensor(batch["indices"], dtype=torch.long).to(dev))
+    else:
+        out["image"] = torch.as_tensor(batch["image"]).to(dev)
+    return out
+
+
+def _counts():
+    from dilabhelmholtzoct_tpu_torch.ops import attention as attn
+    from dilabhelmholtzoct_tpu_torch.ops import decoder_attn as i2t
+    from dilabhelmholtzoct_tpu_torch.ops import upscaler as up_op
+
+    return {**attn.LAUNCHES, **up_op.LAUNCHES, **i2t.LAUNCHES}
+
+
+def _reset_counts():
+    from dilabhelmholtzoct_tpu_torch.ops import attention as attn
+    from dilabhelmholtzoct_tpu_torch.ops import decoder_attn as i2t
+    from dilabhelmholtzoct_tpu_torch.ops import upscaler as up_op
+
+    for mod in (attn, up_op, i2t):
+        mod.reset_launch_counts()
+
+
+def _delta(after, before):
+    return {k: after[k] - before[k] for k in after}
+
+
+STEP_LAUNCHES = {"attn_global": 0, "attn_windowed": 0, "upscale_fwd": 1,
+                 "upscale_bwd": 1, "i2t_fwd": 2, "i2t_bwd": 2}
+
+
+def training_phase(torch):
+    """The training main path at full ViT-B width in bf16; returns the K3/K4
+    launch counts of its 10 cached-embedding steps."""
+    from dilabhelmholtzoct_tpu_torch.data.pipeline import (PromptedDataset,
+                                                           batches)
+    from dilabhelmholtzoct_tpu_torch.inference import synthetic
+    from dilabhelmholtzoct_tpu_torch.models.configs import sam_vit_base
+    from dilabhelmholtzoct_tpu_torch.train import trainer as tr
+
+    dev = torch.device("cuda")
+    cfg = sam_vit_base()
+    sd_host = synthetic.random_params(cfg, seed=0)
+    train_items = synthetic.oct_training_items(16, seed=1)
+    valid_items = synthetic.oct_training_items(8, seed=2)
+    config = tr.TrainConfig(evaluate=False, batch_size=8)  # bf16, lr 1e-3
+    orig_hw = (496, 512)
+    ds = PromptedDataset(train_items, seed=0)
+
+    def fresh(device):
+        sd = {k: v.to(device) for k, v in sd_host.items()}
+        decoder, frozen = tr._split_params(sd)
+        for v in decoder.values():
+            v.requires_grad_(True)
+        return sd, decoder, frozen, tr.make_optimizer(config,
+                                                      decoder.values())
+
+    sd, decoder, frozen, opt = fresh(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()  # --- training main path starts
+    t0 = time.perf_counter()
+    emb = tr.precompute_embeddings(sd, cfg, ds, dtype=torch.bfloat16)
+    pre_s = time.perf_counter() - t0
+    c = _counts()
+    check(c["attn_global"] == 4 * len(ds) and c["attn_windowed"] == 8 * len(ds),
+          f"precompute of {len(ds)} images must launch K1 x4 and K2 x8 per "
+          f"image, got {c}")
+    check(emb.shape == (16, 64, 64, 256) and emb.dtype == torch.bfloat16
+          and bool(torch.isfinite(emb.float()).all()), "bad embeddings")
+    batch = list(batches(ds, 8, with_images=False, num_workers=2))[0]
+    check(batch["channel_mask"].shape == (8, 8)
+          and batch["channel_mask"].min() == 1, "the batch is not 8 x bucket 8")
+    db = _device_batch(torch, batch, dev, emb)
+    step = tr.make_train_step(cfg, config, opt, orig_hw, True)
+    losses, times = [], []
+    _reset_counts()
+    for i in range(10):
+        before = _counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decoder, opt, loss = step(decoder, opt, frozen, db)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        d = _delta(_counts(), before)
+        check(d == STEP_LAUNCHES, f"step {i} launched {d}, want {STEP_LAUNCHES}")
+        losses.append(float(loss))
+    step_launches = {k: v for k, v in _counts().items()
+                     if not k.startswith("attn")}  # --- main path ends
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)), f"non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    med = statistics.median(times[1:])
+    print(f"training ViT-B bf16, 8 images x bucket 8 (64 pairs): precompute "
+          f"{pre_s:.2f} s for {len(ds)} images ({pre_s / len(ds) * 1e3:.1f} "
+          f"ms/image incl. first use), losses {[round(x, 4) for x in losses]}")
+    print(f"training step ms: first {times[0]:.1f}, median of steps 2-10 "
+          f"{med:.2f} ({8e3 / med:.1f} img/s), all "
+          f"{[round(t, 1) for t in times]}; max_memory_allocated "
+          f"{peak / 2**20:.1f} MiB")
+
+    # the encoder inside the step (cache_embeddings=False), B = 2
+    b2 = list(batches(ds, 2, with_images=True, num_workers=2))[0]
+    step_nc = tr.make_train_step(cfg, config, opt, orig_hw, False)
+    before = _counts()
+    decoder, opt, loss = step_nc(decoder, opt, frozen,
+                                 _device_batch(torch, b2, dev))
+    torch.cuda.synchronize()
+    d = _delta(_counts(), before)
+    want = {**STEP_LAUNCHES, "attn_global": 8, "attn_windowed": 16}
+    check(d == want, f"encoder-in-step launched {d}, want {want}")
+    check(bool(np.isfinite(float(loss))), "encoder-in-step loss not finite")
+    print(f"encoder-in-step (B=2) loss {float(loss):.4f}, launches {d}")
+
+    card_vs_cpu(torch, tr, cfg, config, sd_host, fresh, ds, emb, orig_hw)
+    del sd, decoder, frozen, opt, emb, db
+    torch.cuda.empty_cache()
+    epoch_loop(torch, tr, config, sd_host, train_items, valid_items)
+    return step_launches
+
+
+def card_vs_cpu(torch, tr, cfg, config, sd_host, fresh, ds, emb, orig_hw):
+    """One first step on 1 image x bucket 8, on the card and on the host,
+    from the same weights and embeddings."""
+    from dilabhelmholtzoct_tpu_torch.data.pipeline import batches
+
+    b1 = list(batches(ds, 1, with_images=False, num_workers=1))[0]
+    out = {}
+    for name, device in (("card", torch.device("cuda")),
+                         ("cpu", torch.device("cpu"))):
+        _, decoder, frozen, opt = fresh(device)
+        before = {k: v.detach().clone() for k, v in decoder.items()}
+        step = tr.make_train_step(cfg, config, opt, orig_hw, True)
+        db = _device_batch(torch, b1, device, emb.to(device))
+        decoder, opt, loss = step(decoder, opt, frozen, db)
+        out[name] = (float(loss), {k: (v.detach() - before[k]).cpu()
+                                   for k, v in decoder.items()})
+    (l_card, d_card), (l_cpu, d_cpu) = out["card"], out["cpu"]
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    agree = total = 0
+    for k, dc in d_cpu.items():
+        moved = dc.abs() > 1e-3 * config.learning_rate
+        agree += int((torch.sign(dc) == torch.sign(d_card[k]))[moved].sum())
+        total += int(moved.sum())
+    share = agree / max(total, 1)
+    print(f"card vs cpu, first bf16 step on 1 image x bucket 8: loss "
+          f"{l_card:.6f} vs {l_cpu:.6f} (rel {rel:.3g}, rtol "
+          f"{STEP_LOSS_RTOL}); update signs agree on {share:.4f} of {total} "
+          f"moved weights (min {SIGN_AGREE_MIN})")
+    check(rel <= STEP_LOSS_RTOL, "card and CPU step losses differ")
+    check(share >= SIGN_AGREE_MIN, "card and CPU updates disagree in sign")
+
+
+def epoch_loop(torch, tr, config, sd_host, train_items, valid_items):
+    """training(config, splits=...): 2 epochs, then resumed to 3."""
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "weights.pt")
+        torch.save(sd_host, ckpt)
+        cfg_loop = dataclasses.replace(
+            config, checkpoint=os.path.join(tmp, "ck"), epochs=2,
+            ckpt_keep=1, pretrained_checkpoint=ckpt, display_name="smoke",
+            log_jsonl=os.path.join(tmp, "metrics.jsonl"))
+        splits = (train_items, valid_items)
+        t0 = time.perf_counter()
+        r1 = tr.training(cfg_loop, splits=splits)
+        r2 = tr.training(dataclasses.replace(cfg_loop, epochs=3, resume=True),
+                         splits=splits)
+        hist = r1["history"] + r2["history"]
+        check([h["epoch"] for h in hist] == [0, 1, 2],
+              f"epochs run: {[h['epoch'] for h in hist]}")
+        check(all(np.isfinite([h["train_loss"] for h in hist]))
+              and all(np.isfinite([h["valid_loss"] for h in hist])),
+              "non-finite epoch losses")
+        steps = sorted(d for d in os.listdir(r2["checkpoint_dir"])
+                       if d.startswith("step_"))
+        check(steps == ["step_2"], f"checkpoints left: {steps}")
+        runs = [(h["epoch"], round(h["train_loss"], 4),
+                 round(h["valid_loss"], 4)) for h in hist]
+        print(f"epoch loop (epoch, train, valid): {runs} in "
+              f"{time.perf_counter() - t0:.1f} s; checkpoints {steps}")
+
+
+def unported_bounds():
+    """Bounds from the shapes of the TPU kernels still to port, printed for
+    the record (pure arithmetic, nothing runs): K5, the flash backward of
+    K1/K2 (five products against the forward's two) at ViT-B, B = 8, bf16;
+    K6, unpacked flash attention at sam_tiny(image_size=1024)'s global layer
+    (4 heads of 16, N = 4096) in f32; K7, windowed attention on image-layout
+    qkv at ViT-B, B = 1 (K2's work)."""
+    b, c, heads = 8, 768, 12
+    step = 0.0
+    for kind, (n, hw, nb, layers) in {
+            "global": (4096, 64, b, 4),
+            "windowed": (196, 14, 25 * b, 8)}.items():
+        flops = 2.5 * 4.0 * nb * heads * n * n * 64
+        nbytes = 2 * nb * n * (8 * c + 2 * heads * 2 * hw)
+        ms, by = _bound(flops, nbytes, PEAK_BF16_FLOPS)
+        step += layers * ms
+        print(f"bound from shapes (not run) K5 {kind} layer, ViT-B B={b} "
+              f"bf16: {ms:.4f} ms ({by}), {layers} layers x 2 launches")
+    print(f"bound from shapes (not run) K5 per train step: {step:.4f} ms")
+    n, h, d = 4096, 4, 16
+    ms, by = _bound(4.0 * h * n * n * d,
+                    4 * n * (4 * h * d + h * 2 * 64), PEAK_F32_FLOPS)
+    print(f"bound from shapes (not run) K6 sam_tiny(1024) global layer f32: "
+          f"{ms:.4f} ms ({by}), 1 per encode")
+    for isz, peak, tname in ((4, PEAK_F32_FLOPS, "f32"),
+                             (2, PEAK_BF16_FLOPS, "bf16")):
+        ms, by = attention_bound_ms(25, 196, 12, (14, 14), isz, peak)
+        print(f"bound from shapes (not run) K7 ViT-B windowed layer B=1 "
+              f"{tname}: {ms:.4f} ms ({by}), 8 per encode when enabled")
+
+
 def main() -> int:
     import torch
 
@@ -241,8 +649,18 @@ def main() -> int:
                                          or "Compiling" in line):
                 print(f"  {src}: {line.strip()}")
 
+    t0 = time.perf_counter()
     rows = kernel_phase(torch, attn)
     launches = serving_phase(torch, attn)
+    print(f"[phases] K1/K2 + serving {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_rows = k34_kernel_phase(torch)
+    print(f"[phases] K3/K4 kernels {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches.update(training_phase(torch))
+    print(f"[phases] training {time.perf_counter() - t0:.1f} s")
+    rows.update(train_rows)
+    unported_bounds()
     for k, row in rows.items():
         check(launches[k] > 0, f"{k} was not launched on the main path")
         row["launches"] = launches[k]

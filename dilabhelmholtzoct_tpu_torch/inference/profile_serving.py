@@ -30,6 +30,10 @@ def _kind(name: str) -> str:
         return "K1 attn_global"
     if "attn_windowed" in low:
         return "K2 attn_windowed"
+    if "upscale_" in low:
+        return "K3 upscaler"
+    if "i2t_" in low:
+        return "K4 i2t attention"
     if "memcpy" in low or "memset" in low:
         return "copies"
     if "gemm" in low or "cutlass" in low or "xmma" in low:

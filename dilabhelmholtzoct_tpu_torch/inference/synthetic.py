@@ -1,6 +1,6 @@
-"""A seeded serving workload for smoke runs and profiles on the card: random
-SAM weights with non-zero rel-pos tables, one synthetic OCT B-scan, and the
-prompts a user sends (a box, a point, three boxes)."""
+"""Seeded workloads for smoke runs and profiles on the card: random SAM
+weights with non-zero rel-pos tables, synthetic OCT B-scans, the prompts a
+user sends (a box, a point, three boxes), and labelled training items."""
 
 from __future__ import annotations
 
@@ -40,3 +40,22 @@ def oct_image(seed: int = 0) -> np.ndarray:
     img = img * rng.gamma(4.0, 0.25, img.shape)
     return np.repeat(np.clip(img, 0, 255).astype(np.uint8)[..., None], 3,
                      axis=2)
+
+
+def oct_training_items(n: int, seed: int) -> list[dict]:
+    """n synthetic training items {"image", "label"}: the 496x512 B-scan
+    geometry and a label map of background plus 7 non-touching rectangular
+    blobs, one class each, on a 2x4 grid of cells — 8 components per image,
+    so a batch fills prompt bucket 8."""
+    rng = np.random.default_rng(seed)
+    items = []
+    for i in range(n):
+        label = np.zeros((496, 512), np.uint8)
+        for cls, cell in enumerate(rng.permutation(8)[:7], start=1):
+            y0, x0 = (cell // 4) * 248, (cell % 4) * 128
+            h, w = int(rng.integers(30, 200)), int(rng.integers(30, 100))
+            y = y0 + int(rng.integers(8, 240 - h))
+            x = x0 + int(rng.integers(8, 120 - w))
+            label[y:y + h, x:x + w] = cls
+        items.append({"image": oct_image(seed * 1000 + i), "label": label})
+    return items

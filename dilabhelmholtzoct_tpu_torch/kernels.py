@@ -18,12 +18,18 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 # one shared library per source; headers are hashed into every library
-SOURCES = {"attention": "attention.cu"}
+SOURCES = {"attention": "attention.cu", "upscaler": "upscaler.cu",
+           "decoder_attn": "decoder_attn.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# the dtype argument of every C interface
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 # ptxas report (registers, shared memory, spills) of each build in this process
@@ -86,3 +92,30 @@ def library(name: str) -> ctypes.CDLL:
         build([name])
         _LOADED[name] = ctypes.CDLL(str(_lib_path(name)))
     return _LOADED[name]
+
+
+def check_operands(name: str, tensors, dtypes) -> None:
+    """Raise unless every operand lies on the first one's device, has its
+    expected dtype, and is contiguous and 16-byte aligned (the kernels' wide
+    loads assume both)."""
+    if tensors[0].dtype not in DTYPE_CODE:
+        raise TypeError(f"{name}: dtype {tensors[0].dtype} is not float32 or "
+                        "bfloat16")
+    dev = tensors[0].device
+    for t, dt in zip(tensors, dtypes):
+        if t.device != dev:
+            raise ValueError(f"{name}: every operand must be on {dev}")
+        if t.dtype != dt:
+            raise TypeError(f"{name}: operand of dtype {t.dtype}, the kernel "
+                            f"takes {dt}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: operands must be contiguous and "
+                             "16-byte aligned")
+
+
+def raise_on_error(err: int, error_string, name: str) -> None:
+    """Raise for a non-zero cudaError_t returned by a launch (a refused
+    launch never runs, and a later synchronize would not report it)."""
+    if err:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{error_string(err).decode()} (cudaError {err})")

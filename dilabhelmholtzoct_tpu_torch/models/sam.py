@@ -1,6 +1,7 @@
 """SAM (Segment Anything) forward in PyTorch, on an HF-named state_dict.
 
-Port of ``dilabhelmholtzoct_tpu/models/sam.py`` for the serving path:
+Port of ``dilabhelmholtzoct_tpu/models/sam.py`` for the serving and the
+decoder fine-tuning paths:
 
   * ViTDet image encoder (windowed + global attention with decomposed
     relative-position bias, convolutional neck);
@@ -14,8 +15,13 @@ package, so each function here is compared with its JAX counterpart on the
 same inputs. Parameters are the HF ``SamModel`` state_dict (see
 ``models/convert.py``); every function takes it as ``sd``. The encoder's
 attention goes through ``ops/attention.py::flash_attention_packed`` — the
-CUDA kernels on the card, the plain version on the host. The rest is plain
-PyTorch; on the card run it under ``device.full_fp32`` (no TF32).
+CUDA kernels on the card, the plain version on the host. In bf16 (the
+training compute dtype) the decoder's image->token update goes through
+``ops/decoder_attn.py::fused_i2t_ln`` (K4) and the blocked upscaler through
+``ops/upscaler.py::upscale_hyper_masks`` (K3), as the JAX package routes its
+Pallas kernels; f32 stays on the unfused chain. bf16 products sum in f32 and
+round once, where JAX does. The rest is plain PyTorch; on the card run it
+under ``device.full_fp32`` (no TF32).
 """
 
 from __future__ import annotations
@@ -27,6 +33,8 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.attention import flash_attention_packed
+from ..ops.decoder_attn import T_PAD, fused_i2t_ln
+from ..ops.upscaler import upscale_hyper_masks
 from ..ops.preprocess import resize_matrix
 from .configs import DecoderConfig, SamConfig, VisionConfig
 from .convert import params_from_jax
@@ -46,12 +54,16 @@ def layer_norm(x, sd, prefix: str, eps: float):
 
 
 def linear(x, sd, prefix: str):
-    """``x @ W.T + b`` with an HF (out, in) weight; f32 sum, bias added in
-    f32, cast to x's dtype."""
+    """``x @ W.T + b`` with an HF (out, in) weight: the product of x's dtype
+    operands summed in f32, the f32 bias added to the f32 sum, one rounding
+    to x's dtype at the end (the JAX package's ``preferred_element_type=f32``
+    dot). bf16 operands widen exactly to f32, so an f32 product of the
+    widened copies is that sum; an f32 weight with a bf16 x multiplies in
+    f32, as JAX promotes the pair."""
     w, b = sd[f"{prefix}.weight"], sd[f"{prefix}.bias"]
     if x.dtype == torch.float32:
         return F.linear(x, w.float(), b.float())
-    return (F.linear(x, w.to(x.dtype)).float() + b.float()).to(x.dtype)
+    return F.linear(x.float(), w.float(), b.float()).to(x.dtype)
 
 
 def gelu(x):
@@ -163,7 +175,7 @@ def encode_image(sd, pixel_values, cfg: SamConfig):
     xp = xp.permute(0, 1, 3, 2, 4, 5).reshape(bsz, gh, gw, ps * ps * ic)
     w = sd["vision_encoder.patch_embed.projection.weight"]  # (C, 3, ps, ps)
     w_flat = w.permute(2, 3, 1, 0).reshape(ps * ps * ic, -1)
-    x = torch.matmul(xp.float(), w_flat.float()).to(xp.dtype)
+    x = torch.matmul(xp.float(), w_flat.to(xp.dtype).float()).to(xp.dtype)
     x = x + sd["vision_encoder.patch_embed.projection.bias"].to(x.dtype)
     if v.use_abs_pos:
         x = x + sd["vision_encoder.pos_embed"].to(x.dtype)
@@ -172,11 +184,23 @@ def encode_image(sd, pixel_values, cfg: SamConfig):
         x = vision_layer(x, sd, f"vision_encoder.layers.{i}", v, ws)
     # neck: 1x1 conv → LN(channel) → 3x3 conv → LN(channel), bias-free
     w1 = sd["vision_encoder.neck.conv1.weight"][:, :, 0, 0]
-    x = torch.matmul(x.float(), w1.float().T).to(x.dtype)
+    x = torch.matmul(x.float(), w1.to(x.dtype).float().T).to(x.dtype)
     x = layer_norm(x, sd, "vision_encoder.neck.layer_norm1", 1e-6)
     w2 = sd["vision_encoder.neck.conv2.weight"].to(x.dtype)
     x = F.conv2d(x.permute(0, 3, 1, 2), w2, padding=1).permute(0, 2, 3, 1)
     return layer_norm(x, sd, "vision_encoder.neck.layer_norm2", 1e-6)
+
+
+def encode_image_microbatched(sd, pixel_values, cfg: SamConfig,
+                              microbatch: int = 1):
+    """Encode in sequential chunks of ``microbatch`` images, bounding peak
+    memory to one chunk's activations; the same result as ``encode_image``
+    on the whole batch."""
+    b = pixel_values.shape[0]
+    if b <= microbatch:
+        return encode_image(sd, pixel_values, cfg)
+    return torch.cat([encode_image(sd, pixel_values[i:i + microbatch], cfg)
+                      for i in range(0, b, microbatch)])
 
 
 # ---------------------------------------------------------------------------
@@ -186,10 +210,11 @@ def encode_image(sd, pixel_values, cfg: SamConfig):
 
 def _fourier_pos_encode(coords01, pe_matrix):
     """Random-Fourier encoding of [0,1] coordinates: (..., 2) →
-    (..., 2 * num_pos_feats)."""
+    (..., 2 * num_pos_feats). The 2*pi factor is taken in the matrix's dtype,
+    as JAX takes a Python scalar times a bf16 array."""
     c = 2.0 * coords01 - 1.0
     c = torch.matmul(c.to(pe_matrix.dtype), pe_matrix)
-    c = 2.0 * math.pi * c
+    c = torch.tensor(2.0 * math.pi, dtype=c.dtype, device=c.device) * c
     return torch.cat([torch.sin(c), torch.cos(c)], dim=-1)
 
 
@@ -267,6 +292,22 @@ def encode_prompts(sd, cfg: SamConfig, batch_size: int, points=None,
 # ---------------------------------------------------------------------------
 
 
+def _use_fused_i2t(dtype, n_tok: int, internal: int, nh: int,
+                   pe_batch: int) -> bool:
+    """The JAX package's ``_use_fused_i2t`` under "auto" on an accelerator:
+    bf16, <= 8 tokens, heads dividing the width, one shared positional
+    grid. f32 (the serving path) stays on the unfused chain."""
+    return (dtype == torch.bfloat16 and n_tok <= T_PAD and internal % nh == 0
+            and pe_batch == 1)
+
+
+def _use_fused_upscaler(n_pixels: int, dtype) -> bool:
+    """The JAX package's ``_use_fused_upscaler`` under "auto" on an
+    accelerator: bf16 and a grid of at least 1024 cells (blocked decode
+    only, checked by the caller)."""
+    return dtype == torch.bfloat16 and n_pixels >= 1024
+
+
 def _heads(x, n_heads):
     """(B, N, nh*hd) → (B, nh, N, hd)."""
     b, n, c = x.shape
@@ -274,10 +315,18 @@ def _heads(x, n_heads):
 
 
 def _attend(qh, kh, vh):
-    """softmax(q k^T / sqrt(hd)) v, the softmax in f32."""
+    """softmax(q k^T / sqrt(hd)) v: q scaled in its dtype (the scale taken in
+    that dtype, as JAX takes a Python scalar), f32 logits and softmax, the
+    probabilities rounded to v's dtype, the product summed in f32 and
+    rounded once."""
     hd = qh.shape[-1]
-    logits = torch.matmul(qh * hd ** -0.5, kh.transpose(-1, -2)).float()
-    return torch.matmul(torch.softmax(logits, dim=-1).to(vh.dtype), vh)
+    if qh.dtype == torch.float32:
+        logits = torch.matmul(qh * hd ** -0.5, kh.transpose(-1, -2))
+        return torch.matmul(torch.softmax(logits, dim=-1), vh)
+    qs = qh * torch.tensor(hd ** -0.5, dtype=qh.dtype, device=qh.device)
+    logits = torch.matmul(qs.float(), kh.float().transpose(-1, -2))
+    attn = torch.softmax(logits, dim=-1).to(vh.dtype)
+    return torch.matmul(attn.float(), vh.float()).to(vh.dtype)
 
 
 def _decoder_attention(q, k, v, sd, prefix: str, n_heads: int):
@@ -320,10 +369,19 @@ def two_way_block(queries, keys, query_pe, key_pe, sd, prefix: str,
     queries = layer_norm(queries + _mlp(queries, sd, prefix), sd,
                          f"{prefix}.layer_norm3", eps)
 
+    pf = f"{prefix}.cross_attn_image_to_token"
+    if _use_fused_i2t(keys.dtype, queries.shape[1],
+                      sd[f"{pf}.q_proj.weight"].shape[0], nh, key_pe.shape[0]):
+        # fused per-row chain (ops/decoder_attn.py, K4): q projection,
+        # <= 8-token attention, out projection, residual, LayerNorm
+        tok = queries + query_pe
+        keys = fused_i2t_ln(keys, key_pe, linear(tok, sd, f"{pf}.k_proj"),
+                            linear(queries, sd, f"{pf}.v_proj"), sd, prefix,
+                            nh=nh, pb=1, eps=eps)
+        return queries, keys
     q = queries + query_pe
     k = keys + key_pe
-    keys = keys + _decoder_attention(
-        k, q, queries, sd, f"{prefix}.cross_attn_image_to_token", nh)
+    keys = keys + _decoder_attention(k, q, queries, sd, pf, nh)
     keys = layer_norm(keys, sd, f"{prefix}.layer_norm4", eps)
     return queries, keys
 
@@ -363,6 +421,14 @@ def _two_way_block_first_shared(queries, keys_img, query_pe, key_pe, sd,
     # image→token cross-attention, shared q projection
     pf = f"{prefix}.cross_attn_image_to_token"
     tok = queries + query_pe
+    if _use_fused_i2t(keys_img.dtype, t, sd[f"{pf}.q_proj.weight"].shape[0],
+                      nh, key_pe.shape[0]):
+        # fused per-row chain (K4); keys stay per IMAGE at the kernel input
+        # and the per-pair tensor first exists as the kernel's output
+        keys = fused_i2t_ln(keys_img, key_pe, linear(tok, sd, f"{pf}.k_proj"),
+                            linear(queries, sd, f"{pf}.v_proj"), sd, prefix,
+                            nh=nh, pb=pb, eps=eps)
+        return queries, keys
     qh = _heads(linear(k_img, sd, f"{pf}.q_proj"), nh)  # (B, nh, HW, hd)
     hd = qh.shape[-1]
     kh = linear(tok, sd, f"{pf}.k_proj").reshape(b, pb, t, nh, hd).transpose(2, 3)
@@ -474,7 +540,13 @@ def decode_masks(sd, cfg: SamConfig, image_embeddings, image_pe,
     up = keys.reshape(b * pb, g, g, c)
     ct1_b = sd["mask_decoder.upscale_conv1.bias"].to(up.dtype)
     ct2_b = sd["mask_decoder.upscale_conv2.bias"].to(up.dtype)
-    if blocked:
+    if blocked and _use_fused_upscaler(g * g, up.dtype):
+        # fused chain (ops/upscaler.py, K3): the (BP, 4G, 4G, C/8) second
+        # upscale never exists; output lanes (t, d, e, f, g)
+        mf = upscale_hyper_masks(up.reshape(b * pb, g * g, c), sd, hyper_sl)
+        mf = mf.reshape(b, pb, g, g, n_out, 2, 2, 2, 2)
+        masks = torch.movedim(mf, 4, 2)
+    elif blocked:
         u1 = torch.einsum("bhwc,cdeo->bhwdeo", up,
                           _convt_weight(sd, 1, up.dtype)) + ct1_b
         u1 = gelu(layer_norm(u1, sd, "mask_decoder.upscale_layer_norm", 1e-6))

@@ -1,0 +1,339 @@
+"""Fused image->token cross-attention + residual + LayerNorm (K4).
+
+``fused_i2t_ln`` is the port of
+``dilabhelmholtzoct_tpu/ops/decoder_attn.py::fused_i2t_ln``: the image-side
+update of SAM's two-way block,
+
+    keys = LN(keys + Attn(q = keys + pe, k = tok_k, v = tok_v)),
+
+as a per-row chain over the (pairs x grid) image rows with <= 8 prompt
+tokens on the key side. On a CUDA tensor it launches the hand-written
+kernels of ``csrc/decoder_attn.cu``:
+
+  * ``i2t_fwd`` replacing the TPU ``_fused_fwd`` (``_fwd_kernel``);
+  * ``i2t_bwd`` replacing the TPU ``_fused_bwd`` (``_bwd_kernel``): it
+    recomputes the chain per row, returns d_keys per row, the q/out
+    projection and LayerNorm gradients summed over all rows, and the per-row
+    intermediates (d_qpre, p, d_score, d_out) from which the cross-row token
+    and positional gradients are formed outside — as plain ``torch.einsum``,
+    as the JAX package leaves them to XLA (``decoder_attn.py:320-347``).
+
+On a CPU tensor the same ``torch.autograd.Function`` runs ``i2t_fwd_plain``
+/ ``i2t_bwd_plain``, which compute exactly what the kernels return from the
+same inputs. A CUDA tensor never reaches a plain version.
+
+Rounding points (the JAX kernel's, ``decoder_attn.py:86-117``): ``qin =
+keys + pe`` in the input dtype; ``qpre`` in f32, rounded; scores of the
+rounded ``q * scale`` (scale in the input dtype) against k in f32; softmax in
+f32, ``p`` rounded; ``out`` in f32, rounded; ``proj`` in f32, rounded, then
+the residual add in the input dtype; LayerNorm in f32, ``y`` rounded. The
+softmax is shifted by each head's own maximum (the TPU kernel's global row
+maximum was a Mosaic workaround; softmax is shift-invariant).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import kernels
+
+# launch counts of the K4 kernels; a plain integer each, reset by the caller
+LAUNCHES = {"i2t_fwd": 0, "i2t_bwd": 0}
+T_PAD = 8          # token capacity per head (the training paths use 7)
+CHANNELS = 256     # the widths the CUDA kernels take (every SAM decoder)
+INTERNAL = 128
+HEADS = 8
+ROW_TILE = 32      # rows per tile in both kernels (csrc/decoder_attn.cu TM)
+
+_BOUND = False
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _rnd(x32, dtype):
+    return x32.to(dtype).float()
+
+
+def _scale(hd, dtype):
+    """1/sqrt(hd) in the input dtype, as the JAX kernel multiplies by it."""
+    return torch.tensor(hd ** -0.5, dtype=dtype).float().item()
+
+
+def _chain(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, *, nh, pb, eps):
+    dtype = keys.dtype
+    bimg, m, c = keys.shape
+    bp, n_tok, internal = tok_k.shape
+    hd = internal // nh
+    qin = (keys + pe).float()
+    qb = _rnd(qin @ wq.float() + bq, dtype)
+    keys_p = keys
+    if pb > 1:
+        qb = qb.repeat_interleave(pb, 0)
+        keys_p = keys.repeat_interleave(pb, 0)
+    qs = _rnd(qb * _scale(hd, dtype), dtype).reshape(bp, m, nh, hd)
+    k4 = tok_k.float().reshape(bp, n_tok, nh, hd)
+    v4 = tok_v.float().reshape(bp, n_tok, nh, hd)
+    s = torch.einsum("bmhd,bthd->bmht", qs, k4)
+    p = torch.softmax(s, dim=-1)
+    pr = _rnd(p, dtype)
+    outb = _rnd(torch.einsum("bmht,bthd->bmhd", pr, v4).reshape(bp, m, -1),
+                dtype)
+    proj = outb @ wo.float() + bo
+    res = (keys_p + proj.to(dtype)).float()
+    mu = res.mean(-1, keepdim=True)
+    xc = res - mu
+    rstd = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps)
+    yn = xc * rstd
+    return qin, qs, k4, v4, p, pr, outb, rstd, yn
+
+
+def i2t_fwd_plain(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, *, nh: int,
+                  pb: int, eps: float):
+    """Plain PyTorch K4 forward: (B_img * pb, M, C) in keys' dtype."""
+    *_, yn = _chain(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, nh=nh,
+                    pb=pb, eps=eps)
+    return (yn * g + bt).to(keys.dtype)
+
+
+def _pad_tokens(x, bp, m, nh):
+    """(BP, M, nh, n_tok) -> (BP, M, nh * T_PAD), zeros on the pad tokens."""
+    out = x.new_zeros((bp, m, nh, T_PAD))
+    out[..., :x.shape[-1]] = x
+    return out.reshape(bp, m, nh * T_PAD)
+
+
+def i2t_bwd_plain(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, dy, *,
+                  nh: int, pb: int, eps: float):
+    """Plain PyTorch K4 backward, returning exactly what the kernel returns:
+
+    per pair and row, in keys' dtype: d_keys (before the sum over the pb
+    prompts of an image), d_qpre (BP, M, I), p and d_score (BP, M,
+    nh * T_PAD, zero on the pad tokens), d_out (BP, M, I); summed over all
+    rows in f32: dWq (C, I), dbq (I,), dWo (I, C), dbo, dg, dbt (C,)."""
+    dtype = keys.dtype
+    bp, n_tok, internal = tok_k.shape
+    m, c = keys.shape[1:]
+    hd = internal // nh
+    qin, qs, k4, v4, p, pr, outb, rstd, yn = _chain(
+        keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, nh=nh, pb=pb, eps=eps)
+    dy32 = dy.float()
+    dg = (dy32 * yn).sum((0, 1))
+    dbt = dy32.sum((0, 1))
+    dyn = dy32 * g
+    mean_dyn = dyn.mean(-1, keepdim=True)
+    mean_dyy = (dyn * yn).mean(-1, keepdim=True)
+    dres = rstd * (dyn - mean_dyn - yn * mean_dyy)
+    dres_b = _rnd(dres, dtype)
+    dwo = outb.reshape(-1, internal).T @ dres_b.reshape(-1, c)
+    dbo = dres.sum((0, 1))
+    dout_b = _rnd(dres_b @ wo.float().T, dtype)
+    dp = torch.einsum("bmhd,bthd->bmht", dout_b.reshape(bp, m, nh, hd), v4)
+    pdp = p * dp
+    ds_b = _rnd(pdp - p * pdp.sum(-1, keepdim=True), dtype)
+    dqb = torch.einsum("bmht,bthd->bmhd", ds_b, k4).reshape(bp, m, -1) * (
+        hd ** -0.5)
+    dqpre_b = _rnd(dqb, dtype)
+    qin_p = qin.repeat_interleave(pb, 0) if pb > 1 else qin
+    dwq = qin_p.reshape(-1, c).T @ dqpre_b.reshape(-1, internal)
+    dbq = dqb.sum((0, 1))
+    dkeys = (dres_b + dqpre_b @ wq.float().T).to(dtype)
+    return (dkeys, dqpre_b.to(dtype), _pad_tokens(pr, bp, m, nh).to(dtype),
+            _pad_tokens(ds_b, bp, m, nh).to(dtype), dout_b.to(dtype), dwq,
+            dbq, dwo, dbo, dg, dbt)
+
+
+def _bind():
+    global _BOUND
+    lib = kernels.library("decoder_attn")
+    if not _BOUND:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.dhoct_i2t_fwd.argtypes = [p] * 11 + [i] * 5 + [ctypes.c_float, p]
+        lib.dhoct_i2t_bwd.argtypes = [p] * 24 + [i] * 6 + [ctypes.c_float, p]
+        for fn in (lib.dhoct_i2t_fwd, lib.dhoct_i2t_bwd):
+            fn.restype = ctypes.c_int
+        lib.dhoct_i2t_error_string.argtypes = [ctypes.c_int]
+        lib.dhoct_i2t_error_string.restype = ctypes.c_char_p
+        _BOUND = True
+    return lib
+
+
+def _check_args(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, nh, pb):
+    """Shape rules shared by every route; raises on what K4 does not take."""
+    bimg, m, c = keys.shape
+    bp, n_tok, internal = tok_k.shape
+    if n_tok > T_PAD:
+        raise ValueError(f"fused_i2t_ln takes at most {T_PAD} tokens, got "
+                         f"{n_tok}")
+    if internal % nh:
+        raise ValueError(f"internal width {internal} is not a multiple of "
+                         f"{nh} heads")
+    if bp != bimg * pb or tok_v.shape != tok_k.shape:
+        raise ValueError(f"tok_k/tok_v must be ({bimg * pb}, T, I), got "
+                         f"{tuple(tok_k.shape)}, {tuple(tok_v.shape)}")
+    if pe.shape != (1, m, c):
+        raise ValueError(f"pe must be (1, {m}, {c}), got {tuple(pe.shape)}")
+    if wq.shape != (c, internal) or wo.shape != (internal, c):
+        raise ValueError("wq must be (C, I) and wo (I, C)")
+    return bimg, m, c, bp, n_tok, internal
+
+
+def _kernel_widths(c, internal, nh):
+    if (c, internal, nh) != (CHANNELS, INTERNAL, HEADS):
+        raise NotImplementedError(
+            f"the K4 kernels take C={CHANNELS}, I={INTERNAL}, {HEADS} heads; "
+            f"got C={c}, I={internal}, {nh} heads")
+
+
+def i2t_fwd_cuda(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, *, nh: int,
+                 pb: int, eps: float):
+    """Launch ``i2t_fwd`` (csrc/decoder_attn.cu); same contract as
+    ``i2t_fwd_plain``."""
+    bimg, m, c, bp, n_tok, internal = _check_args(
+        keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, nh, pb)
+    _kernel_widths(c, internal, nh)
+    dt, f32 = keys.dtype, torch.float32
+    args = (keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt)
+    kernels.check_operands("i2t_fwd", args,
+                           (dt, dt, dt, dt, dt, f32, dt, f32, f32, f32))
+    lib = _bind()
+    out = torch.empty((bp, m, c), dtype=dt, device=keys.device)
+    with torch.cuda.device(keys.device):
+        stream = torch.cuda.current_stream(keys.device).cuda_stream
+        err = lib.dhoct_i2t_fwd(*(t.data_ptr() for t in args), out.data_ptr(),
+                                bp, m, pb, n_tok, kernels.DTYPE_CODE[dt], eps,
+                                stream)
+    kernels.raise_on_error(err, lib.dhoct_i2t_error_string, "i2t_fwd")
+    LAUNCHES["i2t_fwd"] += 1
+    return out
+
+
+def i2t_bwd_cuda(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, dy, *,
+                 nh: int, pb: int, eps: float):
+    """Launch ``i2t_bwd`` (csrc/decoder_attn.cu); same contract as
+    ``i2t_bwd_plain``. The kernel writes one partial sum of each weight
+    gradient per block; the second pass sums them over the blocks in a fixed
+    order."""
+    bimg, m, c, bp, n_tok, internal = _check_args(
+        keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, nh, pb)
+    _kernel_widths(c, internal, nh)
+    dt, f32 = keys.dtype, torch.float32
+    # the kernel reads both projections along both axes; the transposes
+    # keep every weight load coalesced
+    wqt, wot = wq.t().contiguous(), wo.t().contiguous()
+    args = (keys, pe, tok_k, tok_v, wq, wqt, bq, wo, wot, bo, g, bt, dy)
+    kernels.check_operands("i2t_bwd", args,
+                           (dt,) * 6 + (f32, dt, dt, f32, f32, f32, dt))
+    if dy.shape != (bp, m, c):
+        raise ValueError(f"dy must be {(bp, m, c)}, got {tuple(dy.shape)}")
+    lib = _bind()
+    dev = keys.device
+    with torch.cuda.device(dev):
+        tiles = -(-m // ROW_TILE)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        want = max(1, min(tiles, -(-2 * sms // bp)))
+        splits = -(-tiles // -(-tiles // want))  # every block owns a tile
+        nblk = bp * splits
+        rows = (bp, m)
+        outs = (torch.empty(rows + (c,), dtype=dt, device=dev),
+                torch.empty(rows + (internal,), dtype=dt, device=dev),
+                torch.empty(rows + (nh * T_PAD,), dtype=dt, device=dev),
+                torch.empty(rows + (nh * T_PAD,), dtype=dt, device=dev),
+                torch.empty(rows + (internal,), dtype=dt, device=dev),
+                torch.empty((nblk, internal, c), dtype=f32, device=dev),
+                torch.empty((nblk, internal), dtype=f32, device=dev),
+                torch.empty((nblk, internal, c), dtype=f32, device=dev),
+                torch.empty((nblk, c), dtype=f32, device=dev),
+                torch.empty((nblk, c), dtype=f32, device=dev),
+                torch.empty((nblk, c), dtype=f32, device=dev))
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.dhoct_i2t_bwd(*(t.data_ptr() for t in args),
+                                *(t.data_ptr() for t in outs), bp, m, pb,
+                                n_tok, splits, kernels.DTYPE_CODE[dt], eps,
+                                stream)
+    kernels.raise_on_error(err, lib.dhoct_i2t_error_string, "i2t_bwd")
+    LAUNCHES["i2t_bwd"] += 1
+    dkeys, dqpre, p, ds, dout, dwqt, dbq, dwo, dbo, dg, dbt = outs
+    return (dkeys, dqpre, p, ds, dout, dwqt.sum(0).t(), dbq.sum(0),
+            dwo.sum(0), dbo.sum(0), dg.sum(0), dbt.sum(0))
+
+
+class _FusedI2T(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, nh, pb,
+                eps):
+        args = (keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt)
+        ctx.nh, ctx.pb, ctx.eps = nh, pb, eps
+        ctx.save_for_backward(*args)
+        if keys.device.type == "cuda":
+            return i2t_fwd_cuda(*args, nh=nh, pb=pb, eps=eps)
+        if keys.device.type != "cpu":
+            raise ValueError(f"no K4 kernel for device {keys.device}")
+        _check_args(*args, nh, pb)
+        return i2t_fwd_plain(*args, nh=nh, pb=pb, eps=eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt = ctx.saved_tensors
+        nh, pb = ctx.nh, ctx.pb
+        bwd = i2t_bwd_cuda if keys.device.type == "cuda" else i2t_bwd_plain
+        (dkeys_pair, dqpre, p_rows, ds_rows, dout_rows, dwq, dbq, dwo, dbo,
+         dg, dbt) = bwd(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt,
+                        dy.contiguous(), nh=nh, pb=pb, eps=ctx.eps)
+        # cross-row reductions, outside the kernel as in the JAX package
+        dtype = keys.dtype
+        bimg, m, c = keys.shape
+        bp, n_tok, internal = tok_k.shape
+        hd = internal // nh
+        qb = _rnd((keys + pe).float() @ wq.float() + bq, dtype)
+        if pb > 1:
+            qb = qb.repeat_interleave(pb, 0)
+        q4 = _rnd(qb * _scale(hd, dtype), dtype).reshape(bp, m, nh, hd)
+        ds4 = ds_rows.float().reshape(bp, m, nh, T_PAD)[..., :n_tok]
+        p4 = p_rows.float().reshape(bp, m, nh, T_PAD)[..., :n_tok]
+        do4 = dout_rows.float().reshape(bp, m, nh, hd)
+        d_tok_k = torch.einsum("bmht,bmhd->bthd", ds4, q4).reshape(
+            bp, n_tok, internal)
+        d_tok_v = torch.einsum("bmht,bmhd->bthd", p4, do4).reshape(
+            bp, n_tok, internal)
+        d_pe = None
+        if ctx.needs_input_grad[1]:
+            d_pe = torch.einsum("bmi,ci->mc", dqpre.float(),
+                                wq.float())[None].to(pe.dtype)
+        if pb > 1:
+            dkeys = dkeys_pair.float().reshape(bimg, pb, m, c).sum(1)
+        else:
+            dkeys = dkeys_pair
+        return (dkeys.to(dtype), d_pe, d_tok_k.to(tok_k.dtype),
+                d_tok_v.to(tok_v.dtype), dwq.to(wq.dtype), dbq,
+                dwo.to(wo.dtype), dbo, dg, dbt, None, None, None)
+
+
+def fused_i2t_ln(keys, pe, tok_k, tok_v, sd, prefix: str, *, nh: int,
+                 pb: int = 1, eps: float = 1e-6):
+    """keys = LN(keys + MHA(q=keys+pe, k=tok_k, v=tok_v)), fused per row.
+
+    keys: (B_img, M, C), per IMAGE when pb > 1 (the shared first layer: the
+    per-pair tensor first exists as this op's residual) or per pair with
+    pb == 1; pe: (1, M, C); tok_k / tok_v: (B_img * pb, T <= 8, I), the
+    token-side projections computed outside. ``prefix`` names the two-way
+    layer in the HF state_dict ``sd`` (its ``cross_attn_image_to_token``
+    q/out projections and ``layer_norm4``). Returns (B_img * pb, M, C) in
+    keys' dtype. Weights are cast to keys' dtype, biases and LayerNorm
+    parameters to f32, as the JAX package casts them."""
+    dt, f32 = keys.dtype, torch.float32
+    pf = f"{prefix}.cross_attn_image_to_token"
+    # HF (out, in) weights -> the JAX package's (in, out) layout
+    wq = sd[f"{pf}.q_proj.weight"].to(dt).t()
+    wo = sd[f"{pf}.out_proj.weight"].to(dt).t()
+    return _FusedI2T.apply(
+        keys.contiguous(), pe.contiguous(), tok_k.contiguous(),
+        tok_v.contiguous(), wq.contiguous(),
+        sd[f"{pf}.q_proj.bias"].to(f32), wo.contiguous(),
+        sd[f"{pf}.out_proj.bias"].to(f32),
+        sd[f"{prefix}.layer_norm4.weight"].to(f32),
+        sd[f"{prefix}.layer_norm4.bias"].to(f32), nh, pb, eps)

@@ -1,0 +1,329 @@
+"""Fused mask-decoder upscaler and hypernetwork product (K3).
+
+``upscale_hyper_masks`` is the port of
+``dilabhelmholtzoct_tpu/ops/upscaler.py::upscale_hyper_masks``: SAM's
+``output_upscaling`` chain (2x2 transposed conv -> LayerNorm2d -> GELU ->
+2x2 transposed conv -> GELU) followed by the per-mask-token hypernetwork
+dot, computed per embedding row. Both transposed convolutions have stride ==
+kernel, so each is a per-row product, and the (BP, 4G, 4G, C/8) second
+upscale never exists in device memory. On a CUDA tensor it launches the
+hand-written kernels of ``csrc/upscaler.cu``:
+
+  * ``upscale_fwd`` replacing the TPU ``_fused_fwd`` (``_fwd_kernel``);
+  * ``upscale_bwd`` replacing the TPU ``_fused_bwd`` (``_bwd_kernel``):
+    it recomputes the chain per row and returns d_up together with the
+    per-lane weight gradients summed over all rows and the per-pair
+    hypernetwork gradient.
+
+On a CPU tensor the same ``torch.autograd.Function`` runs
+``upscale_fwd_plain`` / ``upscale_bwd_plain``, which compute exactly what
+the kernels return from the same inputs. A CUDA tensor never reaches a
+plain version: the kernel launches or the wrapper raises.
+
+Lane layouts (as in the JAX package): axis 1 of the first upscale is
+(d, e, c1), 4*C1 lanes; axis 2 of the second is (d, e, f, g, c2), 16*C2
+lanes; the output is (BP, G*G, n_out*16) f32 with lanes (t, d, e, f, g),
+pixel (4h+2d+f, 4w+2e+g).
+
+Rounding points (the JAX kernel's, ``upscaler.py:77-99,119-138``):
+``u1pre = up.W1 + b1`` and its LayerNorm in f32; the LN output rounded to
+the input dtype before a f32 GELU, rounded again (``u1g``);
+``u2pre = u1g.W2 + b2`` in f32, rounded, GELU, rounded (``u2g``); the
+hypernetwork product in f32. GELU is the tanh form for bf16 and the erf form
+for f32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+import torch.nn.functional as F
+
+from .. import kernels
+
+# launch counts of the K3 kernels; a plain integer each, reset by the caller
+LAUNCHES = {"upscale_fwd": 0, "upscale_bwd": 0}
+CHANNELS = 256     # the only decoder width the CUDA kernels take (every SAM)
+MAX_OUT = 4        # mask tokens per pair the kernels take
+ROW_TILE = 32      # rows per tile in both kernels (csrc/upscaler.cu TM)
+
+_BOUND = False
+_SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _gelu(x32, approx: bool):
+    return F.gelu(x32, approximate="tanh" if approx else "none")
+
+
+def _gelu_grad(x32, approx: bool):
+    if approx:
+        x2 = x32 * x32
+        t = torch.tanh(_SQRT_2_OVER_PI * (x32 + 0.044715 * x32 * x2))
+        di = _SQRT_2_OVER_PI * (1.0 + 3.0 * 0.044715 * x2)
+        return 0.5 * (1.0 + t) + 0.5 * x32 * (1.0 - t * t) * di
+    phi = torch.exp(-0.5 * x32 * x32) * (1.0 / math.sqrt(2.0 * math.pi))
+    cdf = 0.5 * (1.0 + torch.erf(x32 * (2.0 ** -0.5)))
+    return cdf + x32 * phi
+
+
+def _rnd(x32, dtype):
+    """Round an f32 tensor to ``dtype`` and widen it back."""
+    return x32.to(dtype).float()
+
+
+def _chain(up, w1, b1, g, bt, w2, b2, eps):
+    """Forward row chain in the kernel's rounding order.
+
+    up (BP, M, C); w1 (C, 2, 2, C1); w2 (C1, 2, 2, C2) in up's dtype; b1, g,
+    bt (C1,) and b2 (C2,) f32. Returns the stages the backward needs, all f32:
+    u1pre-centred xc (BP, M, 4, C1), rstd (BP, M, 4, 1), y, out1, u1g,
+    u2pre rounded (BP, M, 4, 4*C2), u2g."""
+    dtype = up.dtype
+    approx = dtype == torch.bfloat16
+    bp, m, c = up.shape
+    c1, c2 = w1.shape[-1], w2.shape[-1]
+    u1pre = (up.float() @ w1.float().reshape(c, 4 * c1)).reshape(bp, m, 4, c1)
+    u1pre = u1pre + b1
+    mu = u1pre.sum(-1, keepdim=True) * (1.0 / c1)
+    xc = u1pre - mu
+    var = (xc * xc).sum(-1, keepdim=True) * (1.0 / c1)
+    rstd = torch.rsqrt(var + eps)
+    y = xc * rstd
+    out1 = y * g + bt
+    u1g = _rnd(_gelu(_rnd(out1, dtype), approx), dtype)
+    u2pre = torch.einsum("bmsc,cq->bmsq", u1g, w2.float().reshape(c1, 4 * c2))
+    u2pre_r = _rnd(u2pre + b2.repeat(4), dtype)
+    u2g = _rnd(_gelu(u2pre_r, approx), dtype)
+    return xc, rstd, y, out1, u1g, u2pre_r, u2g
+
+
+def upscale_fwd_plain(up, w1, b1, g, bt, w2, b2, hyper, eps: float = 1e-6):
+    """Plain PyTorch K3 forward: (BP, M, n_out*16) f32, lanes (t, d, e, f, g)."""
+    *_, u2g = _chain(up, w1, b1, g, bt, w2, b2, eps)
+    bp, m = up.shape[:2]
+    c2 = w2.shape[-1]
+    u2g = u2g.reshape(bp, m, 4, 4, c2)  # (b, m, de, fg, c2)
+    out = torch.einsum("bmpqc,btc->bmtpq", u2g, hyper.float())
+    return out.reshape(bp, m, -1)
+
+
+def upscale_bwd_plain(up, dm, w1, b1, g, bt, w2, b2, hyper,
+                      eps: float = 1e-6):
+    """Plain PyTorch K3 backward, returning exactly what the kernel returns:
+
+    d_up (BP, M, C) in up's dtype, then per-lane sums over all rows in f32:
+    dW1 (C, 4*C1) lanes (d, e, c1); dW2 (4, C1, 4*C2), one (C1, (f, g, c2))
+    block per (d, e); db1, dg, dbt (4*C1,); db2 (16*C2,) lanes
+    (d, e, f, g, c2); d_hyper (BP, n_out, 16*C2), summed over each pair's
+    rows."""
+    dtype = up.dtype
+    approx = dtype == torch.bfloat16
+    bp, m, c = up.shape
+    c1, c2 = w1.shape[-1], w2.shape[-1]
+    n_out = hyper.shape[1]
+    xc, rstd, y, out1, u1g, u2pre_r, u2g = _chain(up, w1, b1, g, bt, w2, b2,
+                                                  eps)
+    dm5 = dm.float().reshape(bp, m, n_out, 4, 4)  # (b, m, t, de, fg)
+    hyp = hyper.float()  # (b, t, c2)
+    d_u2g = torch.einsum("bmtpq,btc->bmpqc", dm5, hyp).reshape(bp, m, 4, -1)
+    d_ht = torch.einsum("bmtpq,bmpqc->btpqc", dm5,
+                        u2g.reshape(bp, m, 4, 4, c2)).reshape(bp, n_out, -1)
+    d_u2pre = d_u2g * _gelu_grad(u2pre_r, approx)
+    d_u2pre_l = _rnd(d_u2pre, dtype)
+    w2f = w2.float().reshape(c1, 4 * c2)
+    d_u1g = torch.einsum("bmsq,cq->bmsc", d_u2pre_l, w2f)
+    d_out1 = d_u1g * _gelu_grad(_rnd(out1, dtype), approx)
+    dg = (d_out1 * y).sum((0, 1)).reshape(-1)
+    dbt = d_out1.sum((0, 1)).reshape(-1)
+    d_y = d_out1 * g
+    yn = xc * rstd
+    mean_dy = d_y.sum(-1, keepdim=True) * (1.0 / c1)
+    mean_dyy = (d_y * yn).sum(-1, keepdim=True) * (1.0 / c1)
+    d_u1pre = rstd * (d_y - mean_dy - yn * mean_dyy)
+    d_u1pre_l = _rnd(d_u1pre, dtype).reshape(bp, m, 4 * c1)
+    w1f = w1.float().reshape(c, 4 * c1)
+    d_up = (d_u1pre_l @ w1f.T).to(dtype)
+    dw1 = up.float().reshape(-1, c).T @ d_u1pre_l.reshape(-1, 4 * c1)
+    db1 = d_u1pre.sum((0, 1)).reshape(-1)
+    dw2 = torch.einsum("bmsc,bmsq->scq", u1g, d_u2pre_l)
+    db2 = d_u2pre.sum((0, 1)).reshape(-1)
+    return d_up, dw1, dw2, db1, dg, dbt, db2, d_ht
+
+
+def _bind():
+    global _BOUND
+    lib = kernels.library("upscaler")
+    if not _BOUND:
+        p = ctypes.c_void_p
+        i = ctypes.c_int
+        lib.dhoct_upscale_fwd.argtypes = [p] * 9 + [i] * 4 + [ctypes.c_float,
+                                                            p]
+        lib.dhoct_upscale_bwd.argtypes = ([p] * 18 + [i] * 5
+                                          + [ctypes.c_float, p])
+        for fn in (lib.dhoct_upscale_fwd, lib.dhoct_upscale_bwd):
+            fn.restype = ctypes.c_int
+        lib.dhoct_upscale_error_string.argtypes = [ctypes.c_int]
+        lib.dhoct_upscale_error_string.restype = ctypes.c_char_p
+        _BOUND = True
+    return lib
+
+
+def _kernel_shapes(up, w1, w2, hyper):
+    bp, m, c = up.shape
+    if c != CHANNELS or w1.shape != (c, 2, 2, c // 4) or w2.shape != (
+            c // 4, 2, 2, c // 8):
+        raise NotImplementedError(
+            f"the K3 kernels take C = {CHANNELS} (W1 (256, 2, 2, 64), W2 "
+            f"(64, 2, 2, 32)); got up {tuple(up.shape)}, W1 "
+            f"{tuple(w1.shape)}, W2 {tuple(w2.shape)}")
+    n_out = hyper.shape[1]
+    if hyper.shape != (bp, n_out, c // 8) or not 1 <= n_out <= MAX_OUT:
+        raise NotImplementedError(
+            f"hyper must be (BP, n_out <= {MAX_OUT}, C/8), got "
+            f"{tuple(hyper.shape)}")
+    return bp, m, c, n_out
+
+
+def _splits(bp: int, m: int) -> int:
+    """Blocks per pair of the backward: enough to fill the card twice over,
+    at most one per row tile."""
+    tiles = -(-m // ROW_TILE)
+    sms = torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count
+    want = max(1, min(tiles, -(-2 * sms // bp)))
+    per = -(-tiles // want)
+    return -(-tiles // per)  # so that every block owns at least one tile
+
+
+def upscale_fwd_cuda(up, w1, b1, g, bt, w2, b2, hyper, eps: float = 1e-6):
+    """Launch ``upscale_fwd`` (csrc/upscaler.cu); same contract as
+    ``upscale_fwd_plain``."""
+    bp, m, c, n_out = _kernel_shapes(up, w1, w2, hyper)
+    f32, dt = torch.float32, up.dtype
+    args = (up, w1, b1, g, bt, w2, b2, hyper)
+    kernels.check_operands("upscale_fwd", args,
+                           (dt, dt, f32, f32, f32, dt, f32, dt))
+    lib = _bind()
+    out = torch.empty((bp, m, n_out * 16), dtype=f32, device=up.device)
+    stream = torch.cuda.current_stream(up.device).cuda_stream
+    with torch.cuda.device(up.device):
+        err = lib.dhoct_upscale_fwd(*(t.data_ptr() for t in args),
+                                    out.data_ptr(), bp, m, n_out,
+                                    kernels.DTYPE_CODE[dt], eps, stream)
+    kernels.raise_on_error(err, lib.dhoct_upscale_error_string, "upscale_fwd")
+    LAUNCHES["upscale_fwd"] += 1
+    return out
+
+
+def upscale_bwd_cuda(up, dm, w1, b1, g, bt, w2, b2, hyper,
+                     eps: float = 1e-6):
+    """Launch ``upscale_bwd`` (csrc/upscaler.cu); same contract as
+    ``upscale_bwd_plain``. The kernel writes one partial sum of each weight
+    gradient per block; the second pass sums them over the blocks (in a
+    fixed order, so the gradients repeat bit for bit from run to run)."""
+    bp, m, c, n_out = _kernel_shapes(up, w1, w2, hyper)
+    f32, dt = torch.float32, up.dtype
+    # the kernel reads W1 along both axes; W1^T keeps the d_up loads
+    # coalesced
+    w1t = w1.reshape(c, c).t().contiguous()
+    args = (up, dm, w1, w1t, b1, g, bt, w2, b2, hyper)
+    kernels.check_operands("upscale_bwd", args,
+                           (dt, f32, dt, dt, f32, f32, f32, dt, f32, dt))
+    if dm.shape != (bp, m, n_out * 16):
+        raise ValueError(f"dm must be {(bp, m, n_out * 16)}, got "
+                         f"{tuple(dm.shape)}")
+    lib = _bind()
+    dev = up.device
+    with torch.cuda.device(dev):
+        splits = _splits(bp, m)
+        nblk = bp * splits
+        d_up = torch.empty_like(up)
+        dw1 = torch.empty((nblk, c, c), dtype=f32, device=dev)
+        dw2 = torch.empty((nblk, 4, c // 4, c // 2), dtype=f32, device=dev)
+        db1, dg, dbt = (torch.empty((nblk, c), dtype=f32, device=dev)
+                        for _ in range(3))
+        db2 = torch.empty((nblk, 2 * c), dtype=f32, device=dev)
+        dht = torch.empty((bp, splits, n_out, 2 * c), dtype=f32, device=dev)
+        outs = (d_up, dw1, dw2, db1, dg, dbt, db2, dht)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.dhoct_upscale_bwd(*(t.data_ptr() for t in args),
+                                    *(t.data_ptr() for t in outs),
+                                    bp, m, n_out, splits,
+                                    kernels.DTYPE_CODE[dt], eps, stream)
+    kernels.raise_on_error(err, lib.dhoct_upscale_error_string, "upscale_bwd")
+    LAUNCHES["upscale_bwd"] += 1
+    return (d_up, dw1.sum(0), dw2.sum(0), db1.sum(0), dg.sum(0), dbt.sum(0),
+            db2.sum(0), dht.sum(1))
+
+
+def _fwd(*args, eps):
+    if args[0].device.type == "cuda":
+        return upscale_fwd_cuda(*args, eps=eps)
+    if args[0].device.type != "cpu":
+        raise ValueError(f"no upscaler kernel for device {args[0].device}")
+    return upscale_fwd_plain(*args, eps=eps)
+
+
+def _bwd(*args, eps):
+    if args[0].device.type == "cuda":
+        return upscale_bwd_cuda(*args, eps=eps)
+    return upscale_bwd_plain(*args, eps=eps)
+
+
+class _UpscaleHyper(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, up, w1, b1, g, bt, w2, b2, hyper, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(up, w1, b1, g, bt, w2, b2, hyper)
+        return _fwd(up, w1, b1, g, bt, w2, b2, hyper, eps=eps)
+
+    @staticmethod
+    def backward(ctx, dm):
+        up, w1, b1, g, bt, w2, b2, hyper = ctx.saved_tensors
+        c1, c2 = w1.shape[-1], w2.shape[-1]
+        d_up, dw1, dw2, db1, dg, dbt, db2, dht = _bwd(
+            up, dm.contiguous(), w1, b1, g, bt, w2, b2, hyper, eps=ctx.eps)
+        # per-lane sums -> parameter shapes, cast like the JAX custom VJP
+        return (d_up,
+                dw1.reshape(w1.shape).to(w1.dtype),
+                db1.reshape(4, c1).sum(0),
+                dg.reshape(4, c1).sum(0),
+                dbt.reshape(4, c1).sum(0),
+                dw2.reshape(4, c1, 2, 2, c2).sum(0).to(w2.dtype),
+                db2.reshape(16, c2).sum(0),
+                dht.reshape(hyper.shape[0], hyper.shape[1], 16, c2).sum(2)
+                .to(hyper.dtype),
+                None)
+
+
+def upscale_hyper_masks(up_flat, sd, hyper_sl, *, eps: float = 1e-6):
+    """Fused upscale (2x2 convT -> LN2d -> GELU -> 2x2 convT -> GELU) times
+    the hypernetwork vectors.
+
+    up_flat: (BP, G*G, C); sd: the HF-named state_dict (its
+    ``mask_decoder.upscale_*`` entries); hyper_sl: (BP, n_out, C/8).
+    Returns (BP, G*G, n_out*16) f32, lanes (t, d, e, f, g) — the pixel
+    (4h+2d+f, 4w+2e+g) block offset of the blocked decode. Weights are cast
+    to up's dtype, biases and LayerNorm parameters to f32, as the JAX
+    package casts them."""
+    dt = up_flat.dtype
+
+    def convt(n):  # HF (in, out, 2, 2) -> (in, 2, 2, out)
+        return sd[f"mask_decoder.upscale_conv{n}.weight"].to(dt).permute(
+            0, 2, 3, 1).contiguous()
+
+    f32 = torch.float32
+    return _UpscaleHyper.apply(
+        up_flat.contiguous(), convt(1),
+        sd["mask_decoder.upscale_conv1.bias"].to(f32),
+        sd["mask_decoder.upscale_layer_norm.weight"].to(f32),
+        sd["mask_decoder.upscale_layer_norm.bias"].to(f32),
+        convt(2), sd["mask_decoder.upscale_conv2.bias"].to(f32),
+        hyper_sl.to(dt).contiguous(), eps)

@@ -59,3 +59,93 @@ def test_kernels_refuse_other_head_dims(cuda_device):
     rel = torch.zeros((1, 2, 16, 4), device=cuda_device)
     with pytest.raises(NotImplementedError, match="K6"):
         port_attn.flash_attention_packed(qkv, rel, rel, hw=(4, 4), num_heads=2)
+
+
+def _rel_close(got, want, tol, what):
+    """max |got - want| <= tol * max |want| (gradients and masks are sums of
+    many terms: the tolerance is relative to the tensor's scale)."""
+    got, want = got.float().cpu(), want.float().cpu()
+    scale = max(float(want.abs().max()), 1e-6)
+    err = float((got - want).abs().max()) / scale
+    assert err <= tol, f"{what}: max |kernel - plain| / max |plain| = {err:.3g}"
+
+
+# f32: summation order; bf16: a re-ordered f32 sum may flip one rounding to
+# bf16 of an intermediate (one ulp = 2^-8 relative) before further products
+K34_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bp,m,n_out", [(3, 100, 1), (2, 64, 3)])
+def test_upscaler_kernels_match_plain_on_card(cuda_device, dtype, bp, m,
+                                              n_out):
+    from dilabhelmholtzoct_tpu_torch.ops import upscaler as up_op
+
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    r = lambda *s, k=0.3, dt=dtype: (torch.randn(
+        s, generator=gen, device=cuda_device) * k).to(dt)
+    f32 = torch.float32
+    args = (r(bp, m, 256, k=1.0), r(256, 2, 2, 64), r(64, dt=f32),
+            1 + r(64, k=0.1, dt=f32), r(64, dt=f32), r(64, 2, 2, 32),
+            r(32, dt=f32), r(bp, n_out, 32, k=1.0))
+    dm = r(bp, m, n_out * 16, k=1.0, dt=f32)
+    before = dict(up_op.LAUNCHES)
+    out = up_op.upscale_fwd_cuda(*args)
+    grads = up_op.upscale_bwd_cuda(args[0], dm, *args[1:])
+    torch.cuda.synchronize()
+    assert up_op.LAUNCHES["upscale_fwd"] == before["upscale_fwd"] + 1
+    assert up_op.LAUNCHES["upscale_bwd"] == before["upscale_bwd"] + 1
+    _rel_close(out, up_op.upscale_fwd_plain(*args), K34_TOL[dtype], "fwd")
+    want = up_op.upscale_bwd_plain(args[0], dm, *args[1:])
+    names = ("d_up", "dW1", "dW2", "db1", "dg", "dbt", "db2", "d_hyper")
+    for name, a, b in zip(names, grads, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        _rel_close(a, b, K34_TOL[dtype], name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pb,n_tok,m", [(1, 7, 100), (3, 5, 64)])
+def test_decoder_attn_kernels_match_plain_on_card(cuda_device, dtype, pb,
+                                                  n_tok, m):
+    from dilabhelmholtzoct_tpu_torch.ops import decoder_attn as i2t
+
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    r = lambda *s, k=0.2, dt=dtype: (torch.randn(
+        s, generator=gen, device=cuda_device) * k).to(dt)
+    f32, b = torch.float32, 2
+    args = (r(b, m, 256, k=1.0), r(1, m, 256, k=1.0),
+            r(b * pb, n_tok, 128, k=1.0), r(b * pb, n_tok, 128, k=1.0),
+            r(256, 128), r(128, dt=f32), r(128, 256), r(256, dt=f32),
+            1 + r(256, k=0.1, dt=f32), r(256, dt=f32))
+    dy = r(b * pb, m, 256, k=1.0)
+    kw = dict(nh=8, pb=pb, eps=1e-6)
+    before = dict(i2t.LAUNCHES)
+    out = i2t.i2t_fwd_cuda(*args, **kw)
+    grads = i2t.i2t_bwd_cuda(*args, dy, **kw)
+    torch.cuda.synchronize()
+    assert i2t.LAUNCHES["i2t_fwd"] == before["i2t_fwd"] + 1
+    assert i2t.LAUNCHES["i2t_bwd"] == before["i2t_bwd"] + 1
+    _rel_close(out, i2t.i2t_fwd_plain(*args, **kw), K34_TOL[dtype], "fwd")
+    want = i2t.i2t_bwd_plain(*args, dy, **kw)
+    names = ("d_keys", "d_qpre", "p", "d_score", "d_out", "dWq", "dbq",
+             "dWo", "dbo", "dg", "dbt")
+    for name, a, bb in zip(names, grads, want):
+        assert a.shape == bb.shape and a.dtype == bb.dtype, name
+        _rel_close(a, bb, K34_TOL[dtype], name)
+
+
+@pytest.mark.gpu
+def test_k3_k4_refuse_other_widths(cuda_device):
+    from dilabhelmholtzoct_tpu_torch.ops import decoder_attn as i2t
+    from dilabhelmholtzoct_tpu_torch.ops import upscaler as up_op
+
+    z = lambda *s: torch.zeros(s, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="C = 256"):
+        up_op.upscale_fwd_cuda(z(1, 4, 64), z(64, 2, 2, 16), z(16), z(16),
+                               z(16), z(16, 2, 2, 8), z(8), z(1, 1, 8))
+    with pytest.raises(NotImplementedError, match="heads"):
+        i2t.i2t_fwd_cuda(z(1, 4, 256), z(1, 4, 256), z(1, 7, 128),
+                         z(1, 7, 128), z(256, 128), z(128), z(128, 256),
+                         z(256), z(256), z(256), nh=4, pb=1, eps=1e-6)

@@ -213,3 +213,145 @@ def test_rel_pos_resize_matches_jax(rng):
         want = jsam.resize_rel_pos(jnp.asarray(rel), n_out)
         got = psam.resize_rel_pos(torch.tensor(rel), n_out)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# bf16: the training slice's compute dtype
+# ---------------------------------------------------------------------------
+
+
+def _bf16_ulps(a, b):
+    """|a - b| in units of the bf16 spacing at max(|a|, |b|), the spacing
+    floored at 2^-20: below that, two f32 sums of the same terms in another
+    order differ by more than a bf16 spacing of the result."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    mag = np.maximum(np.abs(a), np.abs(b))
+    ulp = 2.0 ** np.maximum(np.floor(np.log2(np.maximum(mag, 1e-30))) - 7,
+                            -20)
+    return np.abs(a - b) / ulp
+
+
+def _linear_double_rounding(x, w, b):
+    """The port's bf16 linear before the repair: the product rounded to
+    bf16, then the f32 bias added and rounded again."""
+    return (torch.nn.functional.linear(x, w.to(x.dtype)).float()
+            + b.float()).to(x.dtype)
+
+
+def test_bf16_linear_matches_jax(rng):
+    """One rounding after the f32 bias add, as JAX's linear. Summation order
+    differs between XLA's and PyTorch's f32 dots, so an output may land one
+    bf16 rounding apart: at most 1 ulp, on under 1% of the outputs. The
+    double rounding before the repair moves far more outputs."""
+    x = rng.normal(size=(4096, 256)).astype(np.float32)
+    w = (rng.normal(size=(256, 128)) * 0.1).astype(np.float32)
+    bias = rng.normal(size=(128,)).astype(np.float32)
+    want = np.asarray(jsam.linear(
+        jnp.asarray(x, jnp.bfloat16),
+        {"w": jnp.asarray(w, jnp.bfloat16), "b": jnp.asarray(bias,
+                                                            jnp.bfloat16)}),
+        np.float32)
+    sd = {"l.weight": torch.tensor(w.T.copy()).to(torch.bfloat16),
+          "l.bias": torch.tensor(bias).to(torch.bfloat16)}
+    xt = torch.tensor(x).to(torch.bfloat16)
+    got = psam.linear(xt, sd, "l").float().numpy()
+    ulps = _bf16_ulps(got, want)
+    assert ulps.max() <= 1.0 and (ulps > 0).mean() < 0.01, (
+        ulps.max(), (ulps > 0).mean())
+    old = _linear_double_rounding(xt, sd["l.weight"], sd["l.bias"])
+    old = old.float().numpy()
+    assert (_bf16_ulps(old, want) > 0).mean() > 0.05
+
+
+def test_bf16_attention_matches_jax(rng):
+    """f32 logits (JAX: preferred_element_type=f32) for 7 queries over 4096
+    keys; before the repair the logits were rounded to bf16 first."""
+    q = rng.normal(size=(1, 8, 7, 16)).astype(np.float32)
+    k = rng.normal(size=(1, 8, 4096, 16)).astype(np.float32)
+    v = rng.normal(size=(1, 8, 4096, 16)).astype(np.float32)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    logits = jnp.einsum("bnqd,bnkd->bnqk", jq * (16 ** -0.5), jk,
+                        preferred_element_type=jnp.float32)
+    attn = jax.nn.softmax(logits, axis=-1).astype(jnp.bfloat16)
+    want = np.asarray(jnp.einsum("bnqk,bnkd->bnqd", attn, jv), np.float32)
+    tq, tk, tv = (torch.tensor(a).to(torch.bfloat16) for a in (q, k, v))
+    got = psam._attend(tq, tk, tv).float().numpy()
+    ulps = _bf16_ulps(got, want)
+    assert ulps.max() <= 1.0 and (ulps > 0).mean() < 0.02, (
+        ulps.max(), (ulps > 0).mean())
+    old_logits = torch.matmul(tq * 0.25, tk.transpose(-1, -2)).float()
+    old = torch.matmul(torch.softmax(old_logits, -1).to(tv.dtype), tv)
+    assert _bf16_ulps(old.float().numpy(), want).max() > 2.0
+
+
+def _cfg_grid32(m=jconfigs):
+    """A decoder on a 32x32 grid (1024 cells): both fused ops engage."""
+    return m.SamConfig(
+        vision=m.VisionConfig(hidden_size=64, num_layers=1, num_heads=1,
+                              image_size=512, patch_size=16, window_size=4,
+                              global_attn_indexes=(0,), mlp_dim=64,
+                              output_channels=32),
+        prompt=m.PromptConfig(hidden_size=32, image_embedding_size=32,
+                              input_image_size=512),
+        decoder=m.DecoderConfig(hidden_size=32, num_layers=2, num_heads=4,
+                                mlp_dim=64, iou_head_hidden_dim=32),
+        num_pos_feats=16)
+
+
+@pytest.mark.parametrize("pb", [1, 3])
+def test_bf16_blocked_decode_matches_jax_fused(rng, pb):
+    """bf16 decode_masks(blocked=True) with K3 and K4 engaged on both sides
+    (JAX under "interpret"). Tolerance: 3e-2 of the mask scale and 3e-2 on
+    the iou scores — bf16 roundings of a two-layer decoder whose summation
+    order differs between the two frameworks."""
+    cfg, pcfg = _cfg_grid32(), _cfg_grid32(pconfigs)
+    tree = _params(cfg)
+    b = 2
+    boxes = rng.uniform(0, 500, (b, pb, 4)).astype(np.float32)
+    emb = rng.normal(size=(b, 32, 32, 32)).astype(np.float32)
+    jp = jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), tree)
+    jsam.set_fused_i2t("interpret")
+    jsam.set_fused_upscaler("interpret")
+    try:
+        js, jd = jsam.encode_prompts(jp, cfg, b, boxes=jnp.asarray(boxes),
+                                     dtype=jnp.bfloat16)
+        j_masks, j_iou = jsam.decode_masks(
+            jp, cfg, jnp.asarray(emb, jnp.bfloat16), jsam.image_wide_pe(jp, cfg),
+            js, jd, blocked=True)
+    finally:
+        jsam.set_fused_i2t("auto")
+        jsam.set_fused_upscaler("auto")
+    from dilabhelmholtzoct_tpu_torch.ops import decoder_attn, upscaler
+
+    sd = {k: v.to(torch.bfloat16) for k, v in params_from_jax(tree).items()}
+    calls = []
+    orig = (upscaler._UpscaleHyper.apply, decoder_attn._FusedI2T.apply)
+    upscaler._UpscaleHyper.apply = lambda *a: (calls.append("k3"),
+                                               orig[0](*a))[1]
+    decoder_attn._FusedI2T.apply = lambda *a: (calls.append("k4"),
+                                               orig[1](*a))[1]
+    try:
+        ps, pd = psam.encode_prompts(sd, pcfg, b, boxes=torch.tensor(boxes),
+                                     dtype=torch.bfloat16)
+        p_masks, p_iou = psam.decode_masks(
+            sd, pcfg, torch.tensor(emb).to(torch.bfloat16),
+            psam.image_wide_pe(sd, pcfg), ps, pd, blocked=True)
+    finally:
+        upscaler._UpscaleHyper.apply, decoder_attn._FusedI2T.apply = orig
+    assert sorted(calls) == ["k3", "k4", "k4"]
+    want = np.asarray(j_masks, np.float32)
+    assert p_masks.shape == want.shape and p_masks.dtype == torch.float32
+    scale = np.abs(want).max()
+    assert np.abs(p_masks.numpy() - want).max() / scale < 3e-2
+    np.testing.assert_allclose(p_iou.float().numpy(),
+                               np.asarray(j_iou, np.float32), atol=3e-2)
+
+
+def test_encode_image_microbatched_equals_one_batch(rng):
+    cfg = _cfg(m=pconfigs)
+    sd = params_from_jax(_params(_cfg()))
+    pix = torch.tensor(rng.normal(size=(3, 128, 128, 3)).astype(np.float32))
+    want = psam.encode_image(sd, pix, cfg)
+    got = psam.encode_image_microbatched(sd, pix, cfg, microbatch=2)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5,
+                               rtol=1e-5)
