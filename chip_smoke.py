@@ -43,10 +43,32 @@ prints no result line):
    both — the loss and the signs of the decoder updates.
 8. The epoch loop: ``training(config, splits=...)`` for 2 epochs, then
    resumed to 3; finite losses, one checkpoint kept.
+9. K5, the attention backward (its dq and dk/dv kernels), and the
+   logsumexp rows K1 / K2 write for it, at ViT-B shapes (global B = 1,
+   25 windows; 12 heads) in f32 and bf16, each output held against its
+   plain version relative to its max |plain|; then each K5 kernel timed
+   with CUDA events at the training shapes (global B = 4, 100 windows)
+   beside its bound, the plain version and the backward of one
+   ``scaled_dot_product_attention`` call with a bias that requires grad
+   (the library yardstick; it computes more: the full (N, N) bias
+   gradient).
+10. Full fine-tuning (``trainable='all'``, bf16, the encoder inside the
+   gradient with every layer checkpointed; BASELINE config 5 geometry):
+   ViT-B at bs 4 for 10 steps on one batch of 496x512 synthetic OCT images
+   (bucket 8), each step launching K1 4 + 4 and K2 8 + 8 (forward and
+   recompute), K5's two kernels 12 each, K3 1 + 1 and K4 2 + 2; a finite,
+   falling loss and a moved patch embedding; then ViT-L (full width and
+   depth) at bs 2 for 3 steps: K1 4 + 4, K2 20 + 20, K5 24 + 24.
+11. The card against the CPU: the first full fine-tune step on 1 image at
+   ViT-B width, its depth cut to 2 layers (one windowed, one global) — the
+   loss and the signs of the updates over every parameter.
+12. The full fine-tune epoch loop: ``training(trainable='all')`` at ViT-B
+   for 1 epoch of 2 steps; finite losses, one checkpoint.
 
 The line before the last is a JSON object with one entry per kernel (K1/K2
-numbers from the serving path in f32, K3/K4 from the training path in bf16);
-the last line is ``{"ok": true, "device": {...}}``.
+numbers from the serving path in f32, K3/K4 from the training path in bf16,
+K5 from the global layer at B = 4 in bf16, its launches counted on the ViT-B
+full fine-tune run); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -216,8 +238,10 @@ def serving_phase(torch, attn):
     peak_bytes = torch.cuda.max_memory_allocated()
     print(f"serving launches after the first request {after_encode}, "
           f"after all three {launches}")
-    check(after_encode == {"attn_global": 4, "attn_windowed": 8},
-          f"one ViT-B encode must launch K1 x4 and K2 x8, got {after_encode}")
+    check(after_encode == {"attn_global": 4, "attn_windowed": 8,
+                           "attn_bwd_dq": 0, "attn_bwd_dkv": 0},
+          f"one ViT-B encode must launch K1 x4 and K2 x8 (and no backward), "
+          f"got {after_encode}")
     check(launches == after_encode,
           "a cached prompt launched encoder attention kernels")
     for b_, p_, n in ((bin_box, p_box, 1), (bin_pt, p_pt, 1), (bin_3, p_3, 3)):
@@ -438,8 +462,9 @@ def _delta(after, before):
     return {k: after[k] - before[k] for k in after}
 
 
-STEP_LAUNCHES = {"attn_global": 0, "attn_windowed": 0, "upscale_fwd": 1,
-                 "upscale_bwd": 1, "i2t_fwd": 2, "i2t_bwd": 2}
+STEP_LAUNCHES = {"attn_global": 0, "attn_windowed": 0, "attn_bwd_dq": 0,
+                 "attn_bwd_dkv": 0, "upscale_fwd": 1, "upscale_bwd": 1,
+                 "i2t_fwd": 2, "i2t_bwd": 2}
 
 
 def training_phase(torch):
@@ -593,30 +618,326 @@ def epoch_loop(torch, tr, config, sd_host, train_items, valid_items):
               f"{time.perf_counter() - t0:.1f} s; checkpoints {steps}")
 
 
+def k5_bound_ms(kind, b, n, heads, hw, itemsize, peak):
+    """Least time for one call of a K5 kernel: its products (the dq kernel
+    s, dp and dq, 3 x 2*N^2*64 per head; the dk/dv kernel s, dp, dv and dk,
+    4 x) over the type's peak, against its bytes (qkv, dO and both bias
+    factors read once, L and D in f32; the dq kernel writes dq and both
+    drel, the dk/dv kernel dk and dv) over 3.35 TB/s."""
+    c, rel = heads * 64, heads * (hw[0] + hw[1])
+    flops = (3 if kind == "dq" else 4) * 2.0 * b * heads * n * n * 64
+    nbytes = (itemsize * b * n * (4 * c + rel) + 4 * 2 * b * heads * n
+              + itemsize * b * n * (c + rel if kind == "dq" else 2 * c))
+    return _bound(flops, nbytes, peak)
+
+
+def _attn_inputs(torch, gen, b, heads, hw, dtype):
+    n, dev = hw[0] * hw[1], torch.device("cuda")
+
+    def rnd(*shape, k=1.0):
+        return (k * torch.randn(shape, generator=gen, device=dev)).to(dtype)
+
+    return (rnd(b, n, 3 * heads * 64, k=0.5), rnd(b, heads, n, hw[0], k=0.3),
+            rnd(b, heads, n, hw[1], k=0.3), rnd(b, n, heads * 64))
+
+
+def k5_kernel_phase(torch, attn):
+    """K5 (and the logsumexp rows K1 / K2 write for it) against the plain
+    versions at ViT-B shapes — global B = 1 (the plain (N, N) intermediates
+    at B = 4 are ~13 GB) and 25 windows, 12 heads — in f32 and bf16; then
+    each K5 kernel timed with CUDA events at the training shapes (global
+    B = 4, 100 windows) beside the bound, the plain version and the
+    backward of ``scaled_dot_product_attention`` with a materialised bias
+    that requires grad. Returns the result-line rows (global layer, bf16)."""
+    from dilabhelmholtzoct_tpu_torch.device import full_fp32
+
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(3)
+    heads, rows = 12, {}
+    src = "dilabhelmholtzoct_tpu_torch/csrc/attention_bwd.cu"
+    replaces = {"dq": "dilabhelmholtzoct_tpu/ops/attention.py:1096",
+                "dkv": "dilabhelmholtzoct_tpu/ops/attention.py:1147"}
+    for kind, b_chk, b_time, hw in (("global", 1, 4, (64, 64)),
+                                    ("windowed", 25, 100, (14, 14))):
+        fwd = "attn_global" if kind == "global" else "attn_windowed"
+        kw = dict(hw=hw, num_heads=heads)
+        for dtype in (torch.float32, torch.bfloat16):
+            f32 = dtype == torch.float32
+            tname = "f32" if f32 else "bf16"
+            peak = PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS
+            with full_fp32():
+                qkv, rel_h, rel_w, g = _attn_inputs(torch, gen, b_chk, heads,
+                                                    hw, dtype)
+                before = dict(attn.LAUNCHES)
+                out, lse = attn.attention_fwd_cuda(qkv, rel_h, rel_w,
+                                                   return_lse=True, **kw)
+                dvec = attn.bwd_dvec(g, out, heads)
+                got = attn.attention_bwd_cuda(qkv, rel_h, rel_w, g, lse, dvec,
+                                              **kw)
+                torch.cuda.synchronize()
+                d = _delta(attn.LAUNCHES, before)
+                want_d = {k: int(k in (fwd, "attn_bwd_dq", "attn_bwd_dkv"))
+                          for k in d}
+                check(d == want_d, f"K5 {kind} {tname} launched {d}")
+                _, want_lse = attn.packed_attention_plain(
+                    qkv, rel_h, rel_w, return_lse=True, **kw)
+                lse_abs, lse_rel = _check_outputs(torch, f"{fwd} lse", tname,
+                                                  lse, want_lse)
+                want = attn.packed_attention_bwd_plain(qkv, rel_h, rel_w, g,
+                                                       lse, dvec, **kw)
+                err, rel = _check_outputs(torch, f"attn_bwd {kind}", tname,
+                                          got, want)
+                print(f"kernel attn_bwd {kind} {tname} B={b_chk}: dqkv/drel "
+                      f"max_abs_err={err:.3g} max_rel_err={rel:.3g}; {fwd} "
+                      f"lse max_abs_err={lse_abs:.3g} rel={lse_rel:.3g}")
+                del qkv, rel_h, rel_w, g, out, lse, dvec, got, want, want_lse
+                torch.cuda.empty_cache()
+
+                # timing at the training shape
+                qkv, rel_h, rel_w, g = _attn_inputs(torch, gen, b_time, heads,
+                                                    hw, dtype)
+                out, lse = attn.attention_fwd_cuda(qkv, rel_h, rel_w,
+                                                   return_lse=True, **kw)
+                dvec = attn.bwd_dvec(g, out, heads)
+                dqkv = torch.empty_like(qkv)
+                args = (qkv, rel_h, rel_w, g, lse, dvec, dqkv)
+                iters = 5 if kind == "global" else 20
+                ms = {"dq": cuda_ms(lambda: attn.attention_bwd_dq_cuda(
+                          *args, **kw), iters),
+                      "dkv": cuda_ms(lambda: attn.attention_bwd_dkv_cuda(
+                          *args, **kw), iters)}
+                plain_ms = cuda_ms(lambda: attn.packed_attention_bwd_plain(
+                    *args[:6], **kw), 2)
+                lib_ms = _sdpa_bwd_ms(torch, qkv, rel_h, rel_w, g, hw, heads)
+            for k in ("dq", "dkv"):
+                bound, bound_by = k5_bound_ms(k, b_time, hw[0] * hw[1], heads,
+                                              hw, qkv.element_size(), peak)
+                print(f"kernel attn_bwd_{k} {kind} {tname} B={b_time}: "
+                      f"ms={ms[k]:.4f} bound_ms={bound:.4f} ({bound_by}) "
+                      f"share_of_bound={bound / ms[k]:.4f}; both kernels "
+                      f"{ms['dq'] + ms['dkv']:.4f} ms, plain_ms (both) "
+                      f"{plain_ms:.4f}, library_ms (SDPA backward with a "
+                      f"bias gradient) {lib_ms:.4f}")
+                if kind == "global" and tname == "bf16":
+                    rows[f"attn_bwd_{k}"] = {
+                        "name": f"attn_bwd_{k}", "route": "cuda",
+                        "source": src, "replaces": replaces[k],
+                        "max_abs_err": err, "ms": ms[k], "plain_ms": plain_ms,
+                        "bound_ms": bound, "bound_by": bound_by,
+                        "library_ms": lib_ms,
+                    }
+            del qkv, rel_h, rel_w, g, out, lse, dvec, dqkv, args
+            torch.cuda.empty_cache()
+    return rows
+
+
+def _sdpa_bwd_ms(torch, qkv, rel_h, rel_w, g, hw, heads):
+    """The library yardstick of K5: the backward alone of one
+    ``scaled_dot_product_attention`` call with the bias materialised and
+    requiring grad. It computes more than K5: the full (N, N) bias
+    gradient, where K5 sums it into drel_h / drel_w."""
+    b, n, _ = qkv.shape
+    x = qkv.view(b, n, 3, heads, 64).permute(2, 0, 3, 1, 4)
+    q, k, v = (x[i].detach().clone().requires_grad_(True) for i in range(3))
+    bias = (rel_h.reshape(b, heads, n, hw[0], 1)
+            + rel_w.reshape(b, heads, n, 1, hw[1])).reshape(b, heads, n, n)
+    bias.requires_grad_(True)
+    out = torch.nn.functional.scaled_dot_product_attention(q, k, v,
+                                                           attn_mask=bias)
+    go = g.view(b, n, heads, 64).transpose(1, 2)
+    ms = cuda_ms(lambda: torch.autograd.grad(out, (q, k, v, bias), go,
+                                             retain_graph=True), 3)
+    del q, k, v, bias, out
+    return ms
+
+
+def ft_launches(cfg):
+    """Launches of one full fine-tune step: K1 / K2 once in the forward and
+    once more in the checkpointed layers' recompute, K5's two kernels once
+    per layer, and the decoder's K3 x1 and K4 x2 forward and backward."""
+    v = cfg.vision
+    n_glob = len(v.global_attn_indexes)
+    return {"attn_global": 2 * n_glob,
+            "attn_windowed": 2 * (v.num_layers - n_glob),
+            "attn_bwd_dq": v.num_layers, "attn_bwd_dkv": v.num_layers,
+            "upscale_fwd": 1, "upscale_bwd": 1, "i2t_fwd": 2, "i2t_bwd": 2}
+
+
+def _full_params(torch, tr, config, sd_host, device):
+    # copies, also on the host: the step updates its tensors in place
+    sd = {k: v.to(device, copy=True) for k, v in sd_host.items()}
+    params, frozen = tr._split_params(sd, "all")
+    for v in params.values():
+        v.requires_grad_(True)
+    return params, frozen, tr.make_optimizer(config, params.values())
+
+
+def full_finetune_run(torch, tr, cfg, sd_host, items, bs, n_steps, label):
+    """``n_steps`` full fine-tune steps (trainable='all', bf16, encoder
+    inside) on one batch of ``bs`` images; checks every step's launch
+    deltas, a finite loss and a moved patch embedding. Returns (launch
+    counts of the run, losses)."""
+    from dilabhelmholtzoct_tpu_torch.data.pipeline import (PromptedDataset,
+                                                           batches)
+
+    dev = torch.device("cuda")
+    config = tr.TrainConfig(evaluate=False, batch_size=bs, trainable="all",
+                            cache_embeddings=False)  # bf16, lr 1e-3
+    batch = list(batches(PromptedDataset(items, seed=0), bs, with_images=True,
+                         num_workers=2))[0]
+    check(batch["channel_mask"].shape == (bs, 8)
+          and batch["channel_mask"].min() == 1, f"the batch is not {bs} x "
+                                                "bucket 8")
+    db = _device_batch(torch, batch, dev)
+    params, frozen, opt = _full_params(torch, tr, config, sd_host, dev)
+    step = tr.make_train_step(cfg, config, opt, (496, 512), False)
+    want = ft_launches(cfg)
+    losses, times = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()  # --- main path starts
+    for i in range(n_steps):
+        before = _counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, frozen, db)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        d = _delta(_counts(), before)
+        check(d == want, f"{label} step {i} launched {d}, want {want}")
+        losses.append(float(loss))
+    launches = _counts()  # --- main path ends
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)), f"{label}: non-finite loss {losses}")
+    k = "vision_encoder.patch_embed.projection.weight"
+    moved = float((params[k].detach().cpu() - sd_host[k]).abs().max())
+    check(moved > 0, f"{label}: the patch embedding did not move")
+    med = statistics.median(times[1:])
+    print(f"full fine-tune {label} bf16, {bs} images x bucket 8: losses "
+          f"{[round(x, 4) for x in losses]}; patch embedding moved by up to "
+          f"{moved:.3g}; launches per step {want}")
+    print(f"full fine-tune {label} step ms: first {times[0]:.1f}, median of "
+          f"steps 2-{n_steps} {med:.2f} ({bs * 1e3 / med:.2f} img/s), all "
+          f"{[round(t, 1) for t in times]}; max_memory_allocated "
+          f"{peak / 2**20:.1f} MiB")
+    del params, frozen, opt, db
+    torch.cuda.empty_cache()
+    return launches, losses
+
+
+def finetune_phase(torch):
+    """The full fine-tune main path (BASELINE config 5 geometry): ViT-B at
+    bs 4 for 10 steps, then ViT-L at bs 2 for 3 steps, the card against the
+    CPU, and the epoch loop. Returns the ViT-B run's launch counts."""
+    from dilabhelmholtzoct_tpu_torch.inference import synthetic
+    from dilabhelmholtzoct_tpu_torch.models.configs import (sam_vit_base,
+                                                            sam_vit_large)
+    from dilabhelmholtzoct_tpu_torch.train import trainer as tr
+
+    cfg = sam_vit_base()
+    sd_host = synthetic.random_params(cfg, seed=0)
+    items = synthetic.oct_training_items(4, seed=3)
+    launches, losses = full_finetune_run(torch, tr, cfg, sd_host, items, 4,
+                                         10, "ViT-B")
+    check(losses[-1] < losses[0], f"ViT-B: the loss did not fall: {losses}")
+    cfg_l = sam_vit_large()
+    full_finetune_run(torch, tr, cfg_l, synthetic.random_params(cfg_l, seed=0),
+                      items[:2], 2, 3, "ViT-L")
+    finetune_card_vs_cpu(torch, tr, cfg)
+    finetune_epoch_loop(torch, tr, sd_host)
+    return launches
+
+
+def finetune_card_vs_cpu(torch, tr, cfg):
+    """The first full fine-tune step on 1 image, at ViT-B width with the
+    depth cut to 2 layers (one windowed, one global) so that the host can
+    run it, on the card and on the CPU from the same weights."""
+    from dilabhelmholtzoct_tpu_torch.data.pipeline import (PromptedDataset,
+                                                           batches)
+    from dilabhelmholtzoct_tpu_torch.inference import synthetic
+
+    cfg2 = dataclasses.replace(cfg, vision=dataclasses.replace(
+        cfg.vision, num_layers=2, global_attn_indexes=(1,)))
+    sd_host = synthetic.random_params(cfg2, seed=1)
+    config = tr.TrainConfig(evaluate=False, batch_size=1, trainable="all",
+                            cache_embeddings=False)
+    b1 = list(batches(PromptedDataset(synthetic.oct_training_items(1, seed=5),
+                                      seed=0), 1, with_images=True,
+                      num_workers=1))[0]
+    out = {}
+    for name, device in (("card", torch.device("cuda")),
+                         ("cpu", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        params, frozen, opt = _full_params(torch, tr, config, sd_host, device)
+        step = tr.make_train_step(cfg2, config, opt, (496, 512), False)
+        params, opt, loss = step(params, opt, frozen,
+                                 _device_batch(torch, b1, device))
+        out[name] = (float(loss), {k: (v.detach().cpu() - sd_host[k])
+                                   for k, v in params.items()})
+        print(f"full fine-tune first step on the {name}: "
+              f"{time.perf_counter() - t0:.1f} s")
+    (l_card, d_card), (l_cpu, d_cpu) = out["card"], out["cpu"]
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    agree = total = 0
+    for k, dc in d_cpu.items():
+        moved = dc.abs() > 1e-3 * config.learning_rate
+        agree += int((torch.sign(dc) == torch.sign(d_card[k]))[moved].sum())
+        total += int(moved.sum())
+    share = agree / max(total, 1)
+    print(f"card vs cpu, first full fine-tune bf16 step on 1 image x bucket "
+          f"8, ViT-B width, depth cut to 2 layers (layer 0 windowed, layer 1 "
+          f"global) of 12: loss {l_card:.6f} vs {l_cpu:.6f} (rel {rel:.3g}, "
+          f"rtol {STEP_LOSS_RTOL}); update signs agree on {share:.4f} of "
+          f"{total} moved weights over all parameters (min {SIGN_AGREE_MIN})")
+    check(rel <= STEP_LOSS_RTOL, "card and CPU full fine-tune losses differ")
+    check(share >= SIGN_AGREE_MIN, "card and CPU full fine-tune updates "
+                                   "disagree in sign")
+
+
+def finetune_epoch_loop(torch, tr, sd_host):
+    """training(trainable='all') at ViT-B for 1 epoch of 2 steps."""
+    from dilabhelmholtzoct_tpu_torch.inference import synthetic
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "weights.pt")
+        torch.save(sd_host, ckpt)
+        config = tr.TrainConfig(
+            evaluate=False, trainable="all", cache_embeddings=False,
+            batch_size=2, epochs=1, ckpt_keep=1, pretrained_checkpoint=ckpt,
+            checkpoint=os.path.join(tmp, "ck"), display_name="smoke_all",
+            log_jsonl=os.path.join(tmp, "metrics.jsonl"))
+        t0 = time.perf_counter()
+        r = tr.training(config, splits=(synthetic.oct_training_items(4, 6),
+                                        synthetic.oct_training_items(2, 7)))
+        hist = r["history"]
+        check([h["epoch"] for h in hist] == [0], f"epochs run: {hist}")
+        losses = [hist[0]["train_loss"], hist[0]["valid_loss"]]
+        check(np.isfinite(losses).all(),
+              "non-finite full fine-tune epoch losses")
+        steps = sorted(d for d in os.listdir(r["checkpoint_dir"])
+                       if d.startswith("step_"))
+        check(steps == ["step_0"], f"checkpoints left: {steps}")
+        print(f"full fine-tune epoch loop: train {hist[0]['train_loss']:.4f}, "
+              f"valid {hist[0]['valid_loss']:.4f} in "
+              f"{time.perf_counter() - t0:.1f} s; checkpoints {steps}")
+
+
 def unported_bounds():
     """Bounds from the shapes of the TPU kernels still to port, printed for
-    the record (pure arithmetic, nothing runs): K5, the flash backward of
-    K1/K2 (five products against the forward's two) at ViT-B, B = 8, bf16;
-    K6, unpacked flash attention at sam_tiny(image_size=1024)'s global layer
-    (4 heads of 16, N = 4096) in f32; K7, windowed attention on image-layout
-    qkv at ViT-B, B = 1 (K2's work)."""
-    b, c, heads = 8, 768, 12
-    step = 0.0
-    for kind, (n, hw, nb, layers) in {
-            "global": (4096, 64, b, 4),
-            "windowed": (196, 14, 25 * b, 8)}.items():
-        flops = 2.5 * 4.0 * nb * heads * n * n * 64
-        nbytes = 2 * nb * n * (8 * c + 2 * heads * 2 * hw)
-        ms, by = _bound(flops, nbytes, PEAK_BF16_FLOPS)
-        step += layers * ms
-        print(f"bound from shapes (not run) K5 {kind} layer, ViT-B B={b} "
-              f"bf16: {ms:.4f} ms ({by}), {layers} layers x 2 launches")
-    print(f"bound from shapes (not run) K5 per train step: {step:.4f} ms")
-    n, h, d = 4096, 4, 16
-    ms, by = _bound(4.0 * h * n * n * d,
-                    4 * n * (4 * h * d + h * 2 * 64), PEAK_F32_FLOPS)
-    print(f"bound from shapes (not run) K6 sam_tiny(1024) global layer f32: "
-          f"{ms:.4f} ms ({by}), 1 per encode")
+    the record (pure arithmetic, nothing runs): K6, unpacked flash attention
+    with any head_dim, on ViT-H's serving encode (16 heads of 80; 4 global
+    layers of 4096 tokens and 28 windowed layers of 25 windows x 196 tokens,
+    B = 1, f32); K7, windowed attention on image-layout qkv at ViT-B, B = 1
+    (K2's work)."""
+    heads, d, total = 16, 80, 0.0
+    for kind, (b, n, hw, layers) in {"global": (1, 4096, 64, 4),
+                                     "windowed": (25, 196, 14, 28)}.items():
+        ms, by = _bound(4.0 * b * heads * n * n * d,
+                        4 * b * n * (4 * heads * d + heads * 2 * hw),
+                        PEAK_F32_FLOPS)
+        total += layers * ms
+        print(f"bound from shapes (not run) K6 ViT-H {kind} layer f32: "
+              f"{ms:.4f} ms ({by}), {layers} per encode")
+    print(f"bound from shapes (not run) K6 per ViT-H encode: {total:.4f} ms")
     for isz, peak, tname in ((4, PEAK_F32_FLOPS, "f32"),
                              (2, PEAK_BF16_FLOPS, "bf16")):
         ms, by = attention_bound_ms(25, 196, 12, (14, 14), isz, peak)
@@ -659,7 +980,15 @@ def main() -> int:
     t0 = time.perf_counter()
     launches.update(training_phase(torch))
     print(f"[phases] training {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    k5_rows = k5_kernel_phase(torch, attn)
+    print(f"[phases] K5 kernels {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ft = finetune_phase(torch)
+    launches.update({k: ft[k] for k in k5_rows})
+    print(f"[phases] full fine-tune {time.perf_counter() - t0:.1f} s")
     rows.update(train_rows)
+    rows.update(k5_rows)
     unported_bounds()
     for k, row in rows.items():
         check(launches[k] > 0, f"{k} was not launched on the main path")

@@ -11,9 +11,12 @@
 //   out[q]  = softmax_k(s[q, :]) . v
 //
 // Two kernels, both templated on the element type (float: the serving
-// path; __nv_bfloat16: the training slice's embedding precompute). Inputs
-// are widened to f32 in shared memory; every sum is f32; the output is
-// stored in the input type.
+// path; __nv_bfloat16: the training path). Inputs are widened to f32 in
+// shared memory; every sum is f32; the output is stored in the input type.
+// Given a non-null `lse` (B, heads, N) f32, each also writes the row's
+// logsumexp m + log(l) in the scaled-score domain (the TPU kernel's
+// return_lse), which the backward K5 (attention_bwd.cu) reads; with a null
+// pointer nothing more is written.
 //
 // K1 attn_global_kernel replaces dilabhelmholtzoct_tpu/ops/attention.py
 //    flash_attention_packed, _packed_kernel branch (the 4 global layers,
@@ -44,78 +47,14 @@
 // packing into 128 lanes, one-hot selector matmuls that expand the bias,
 // grouping 5 windows per program, pre-transposed k.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "attention_common.cuh"
 
 namespace {
 
-constexpr int D = 64;          // head dim (every SAM variant)
-constexpr int TQ = 64;         // query rows per block
-constexpr int TK = 64;         // key tokens per tile (K1)
-constexpr int THREADS = 256;   // 16 x 16: thread (ty, tx)
-constexpr int LD = D + 4;      // padded shared row for q / k tiles
+using namespace attn;
+
 constexpr int KMAX = 256;      // most keys K2 holds (16 x 16 windows)
 constexpr int NJ = KMAX / 16;  // key columns per thread in K2
-
-__device__ __forceinline__ void load4(const float* p, float* v) {
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
-}
-
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* v) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  __nv_bfloat162 a, b;
-  *reinterpret_cast<uint32_t*>(&a) = raw.x;
-  *reinterpret_cast<uint32_t*>(&b) = raw.y;
-  const float2 fa = __bfloat1622float2(a), fb = __bfloat1622float2(b);
-  v[0] = fa.x; v[1] = fa.y; v[2] = fb.x; v[3] = fb.y;
-}
-
-__device__ __forceinline__ void store4(float* p, const float* v) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
-  __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
-  uint2 raw;
-  raw.x = *reinterpret_cast<uint32_t*>(&a);
-  raw.y = *reinterpret_cast<uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = raw;
-}
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-__device__ __forceinline__ float4 lds4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// rows [row0, row0 + nrows) x 64 columns of a row-major matrix with
-// `stride` elements per row -> shared dst (leading dim ld), times `scale`;
-// rows at or past n are zero.
-template <typename T>
-__device__ void load_rows(float* dst, int ld, const T* src, int stride,
-                          int row0, int nrows, int n, float scale) {
-  for (int i = threadIdx.x; i < nrows * (D / 4); i += THREADS) {
-    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
-    float v[4] = {0.f, 0.f, 0.f, 0.f};
-    if (row0 + r < n) load4(src + (size_t)(row0 + r) * stride + c, v);
-    float4* d = reinterpret_cast<float4*>(dst + r * ld + c);
-    *d = make_float4(v[0] * scale, v[1] * scale, v[2] * scale, v[3] * scale);
-  }
-}
-
-// the TQ query rows' bias factors (nq valid rows of `len` values) -> shared
-template <typename T>
-__device__ void load_rel(float* dst, const T* src, int len, int nq) {
-  for (int i = threadIdx.x; i < TQ * len; i += THREADS)
-    dst[i] = (i / len < nq) ? to_f32(src[i]) : 0.f;
-}
 
 // max / sum over the 16 threads (tx) that share a query row
 __device__ __forceinline__ float row_max(float x) {
@@ -127,60 +66,17 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-// s[i][j] += q[ty + 16i] . k[tx + 16(j0 + j)] for j < 4 (and j0 + j < nj)
-__device__ __forceinline__ void score_tile(float (*s)[4], const float* Qs,
-                                           const float* Ks, int ty, int tx,
-                                           int j0, int nj) {
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    float4 q[4], k[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) q[i] = lds4(Qs + (ty + 16 * i) * LD + d);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (j0 + j < nj) k[j] = lds4(Ks + (tx + 16 * (j0 + j)) * LD + d);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (j0 + j < nj)
-          s[i][j] += q[i].x * k[j].x + q[i].y * k[j].y + q[i].z * k[j].z +
-                     q[i].w * k[j].w;
-  }
-}
-
-// acc[i][c] += sum_k P[ty + 16i][k] * V[k][4tx + c] over k < nk (nk % 4 == 0)
-__device__ __forceinline__ void pv_tile(float (*acc)[4], const float* Ps,
-                                        int ldp, const float* Vs, int nk,
-                                        int ty, int tx) {
-  for (int k = 0; k < nk; k += 4) {
-    float4 v[4], p[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) v[u] = lds4(Vs + (k + u) * D + 4 * tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) p[i] = lds4(Ps + (ty + 16 * i) * ldp + k);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float pu[4] = {p[i].x, p[i].y, p[i].z, p[i].w};
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        acc[i][0] += pu[u] * v[u].x;
-        acc[i][1] += pu[u] * v[u].y;
-        acc[i][2] += pu[u] * v[u].z;
-        acc[i][3] += pu[u] * v[u].w;
-      }
-    }
-  }
-}
-
+// out rows and, with lse != null, lse[lse_row + q] = m + log(l)
 template <typename T>
-__device__ __forceinline__ void store_out(T* out, float (*acc)[4],
+__device__ __forceinline__ void store_out(T* out, float* lse, size_t lse_row,
+                                          float (*acc)[4], const float* m,
                                           const float* l, int b, int n, int C,
                                           int head, int q0, int ty, int tx) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int q = q0 + ty + 16 * i;
     if (q >= n) continue;
+    if (lse != nullptr && tx == 0) lse[lse_row + q] = m[i] + logf(l[i]);
     const float inv = 1.f / l[i];
     const float o[4] = {acc[i][0] * inv, acc[i][1] * inv, acc[i][2] * inv,
                         acc[i][3] * inv};
@@ -194,8 +90,9 @@ __device__ __forceinline__ void store_out(T* out, float (*acc)[4],
 template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
 attn_global_kernel(const T* __restrict__ qkv, const T* __restrict__ rel_h,
-                   const T* __restrict__ rel_w, T* __restrict__ out, int n,
-                   int heads, int H, int W, float scale) {
+                   const T* __restrict__ rel_w, T* __restrict__ out,
+                   float* __restrict__ lse, int n, int heads, int H, int W,
+                   float scale) {
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* Ks = Qs + TQ * LD;
@@ -265,9 +162,9 @@ attn_global_kernel(const T* __restrict__ qkv, const T* __restrict__ rel_h,
       for (int c = 0; c < 4; ++c) acc[i][c] *= alpha;
     }
     __syncthreads();
-    pv_tile(acc, Ps, LD, Vs, TK, ty, tx);
+    pv_tile(acc, Ps, LD, Vs, D, TK, ty, tx);
   }
-  store_out(out, acc, l, b, n, C, head, q0, ty, tx);
+  store_out(out, lse, rel_row - q0, acc, m, l, b, n, C, head, q0, ty, tx);
 }
 
 // ---------------------------------------------------------------- K2 ----
@@ -278,8 +175,9 @@ attn_global_kernel(const T* __restrict__ qkv, const T* __restrict__ rel_h,
 template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
 attn_windowed_kernel(const T* __restrict__ qkv, const T* __restrict__ rel_h,
-                     const T* __restrict__ rel_w, T* __restrict__ out, int n,
-                     int heads, int H, int W, float scale, int qk_floats) {
+                     const T* __restrict__ rel_w, T* __restrict__ out,
+                     float* __restrict__ lse, int n, int heads, int H, int W,
+                     float scale, int qk_floats) {
   extern __shared__ __align__(16) float smem[];
   const int nk = (n + 15) / 16 * 16, nj = nk / 16, ldp = nk + 4;
   float* Qs = smem;
@@ -313,7 +211,7 @@ attn_windowed_kernel(const T* __restrict__ qkv, const T* __restrict__ rel_h,
       for (int j = 0; j < 4; ++j) s[i][j0 + j] = t[i][j];
   }
 
-  float l[4];
+  float m[4], l[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int q = ty + 16 * i;
@@ -330,6 +228,7 @@ attn_windowed_kernel(const T* __restrict__ qkv, const T* __restrict__ rel_h,
       mx = fmaxf(mx, s[i][j]);
     }
     mx = row_max(mx);
+    m[i] = mx;
     float rs = 0.f;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
@@ -347,14 +246,14 @@ attn_windowed_kernel(const T* __restrict__ qkv, const T* __restrict__ rel_h,
   __syncthreads();
 
   float acc[4][4] = {};
-  pv_tile(acc, Ps, ldp, Vs, nk, ty, tx);
-  store_out(out, acc, l, b, n, C, head, q0, ty, tx);
+  pv_tile(acc, Ps, ldp, Vs, D, nk, ty, tx);
+  store_out(out, lse, rel_row - q0, acc, m, l, b, n, C, head, q0, ty, tx);
 }
 
 template <typename T>
 int launch_global(const void* qkv, const void* rel_h, const void* rel_w,
-                  void* out, int batch, int n, int heads, int h, int w,
-                  cudaStream_t stream) {
+                  void* out, float* lse, int batch, int n, int heads, int h,
+                  int w, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (size_t)(3 * TQ * LD + TK * D + TQ * (h + w));
   cudaError_t e = cudaFuncSetAttribute(
       attn_global_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -363,15 +262,15 @@ int launch_global(const void* qkv, const void* rel_h, const void* rel_w,
   const dim3 grid((n + TQ - 1) / TQ, heads, batch);
   attn_global_kernel<T><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(qkv), static_cast<const T*>(rel_h),
-      static_cast<const T*>(rel_w), static_cast<T*>(out), n, heads, h, w,
-      0.125f);
+      static_cast<const T*>(rel_w), static_cast<T*>(out), lse, n, heads, h,
+      w, 0.125f);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_windowed(const void* qkv, const void* rel_h, const void* rel_w,
-                    void* out, int batch, int n, int heads, int h, int w,
-                    cudaStream_t stream) {
+                    void* out, float* lse, int batch, int n, int heads, int h,
+                    int w, cudaStream_t stream) {
   if (n > KMAX) return (int)cudaErrorInvalidValue;
   const int nk = (n + 15) / 16 * 16;
   int qk_floats = TQ * LD + nk * LD;
@@ -384,37 +283,40 @@ int launch_windowed(const void* qkv, const void* rel_h, const void* rel_w,
   const dim3 grid((n + TQ - 1) / TQ, heads, batch);
   attn_windowed_kernel<T><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(qkv), static_cast<const T*>(rel_h),
-      static_cast<const T*>(rel_w), static_cast<T*>(out), n, heads, h, w,
-      0.125f, qk_floats);
+      static_cast<const T*>(rel_w), static_cast<T*>(out), lse, n, heads, h,
+      w, 0.125f, qk_floats);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// C interface (ctypes). dtype: 0 = float32, 1 = bfloat16. Returns the
-// cudaError_t of the launch (0 = success); the caller raises on non-zero.
+// C interface (ctypes). dtype: 0 = float32, 1 = bfloat16; lse: null, or
+// (B, heads, N) f32 to receive the row logsumexps. Returns the cudaError_t
+// of the launch (0 = success); the caller raises on non-zero.
 extern "C" {
 
 int dhoct_attn_global(const void* qkv, const void* rel_h, const void* rel_w,
-                      void* out, int batch, int n, int heads, int h, int w,
-                      int dtype, void* stream) {
+                      void* out, void* lse, int batch, int n, int heads,
+                      int h, int w, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   return dtype == 1
-             ? launch_global<__nv_bfloat16>(qkv, rel_h, rel_w, out, batch, n,
-                                            heads, h, w, s)
-             : launch_global<float>(qkv, rel_h, rel_w, out, batch, n, heads,
-                                    h, w, s);
+             ? launch_global<__nv_bfloat16>(qkv, rel_h, rel_w, out, l, batch,
+                                            n, heads, h, w, s)
+             : launch_global<float>(qkv, rel_h, rel_w, out, l, batch, n,
+                                    heads, h, w, s);
 }
 
 int dhoct_attn_windowed(const void* qkv, const void* rel_h, const void* rel_w,
-                        void* out, int batch, int n, int heads, int h, int w,
-                        int dtype, void* stream) {
+                        void* out, void* lse, int batch, int n, int heads,
+                        int h, int w, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   return dtype == 1
-             ? launch_windowed<__nv_bfloat16>(qkv, rel_h, rel_w, out, batch,
-                                              n, heads, h, w, s)
-             : launch_windowed<float>(qkv, rel_h, rel_w, out, batch, n, heads,
-                                      h, w, s);
+             ? launch_windowed<__nv_bfloat16>(qkv, rel_h, rel_w, out, l,
+                                              batch, n, heads, h, w, s)
+             : launch_windowed<float>(qkv, rel_h, rel_w, out, l, batch, n,
+                                      heads, h, w, s);
 }
 
 const char* dhoct_error_string(int code) {

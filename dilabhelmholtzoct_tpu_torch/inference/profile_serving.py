@@ -30,6 +30,8 @@ def _kind(name: str) -> str:
         return "K1 attn_global"
     if "attn_windowed" in low:
         return "K2 attn_windowed"
+    if "attn_bwd" in low:
+        return "K5 attn_bwd"
     if "upscale_" in low:
         return "K3 upscaler"
     if "i2t_" in low:

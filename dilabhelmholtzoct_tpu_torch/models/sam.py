@@ -1,7 +1,7 @@
 """SAM (Segment Anything) forward in PyTorch, on an HF-named state_dict.
 
 Port of ``dilabhelmholtzoct_tpu/models/sam.py`` for the serving and the
-decoder fine-tuning paths:
+fine-tuning paths:
 
   * ViTDet image encoder (windowed + global attention with decomposed
     relative-position bias, convolutional neck);
@@ -15,7 +15,8 @@ package, so each function here is compared with its JAX counterpart on the
 same inputs. Parameters are the HF ``SamModel`` state_dict (see
 ``models/convert.py``); every function takes it as ``sd``. The encoder's
 attention goes through ``ops/attention.py::flash_attention_packed`` — the
-CUDA kernels on the card, the plain version on the host. In bf16 (the
+CUDA kernels on the card (K1 / K2 forward, K5 backward), the plain versions
+on the host. In bf16 (the
 training compute dtype) the decoder's image->token update goes through
 ``ops/decoder_attn.py::fused_i2t_ln`` (K4) and the blocked upscaler through
 ``ops/upscaler.py::upscale_hyper_masks`` (K3), as the JAX package routes its
@@ -31,6 +32,7 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import flash_attention_packed
 from ..ops.decoder_attn import T_PAD, fused_i2t_ln
@@ -163,9 +165,14 @@ def vision_layer(x, sd, prefix: str, cfg: VisionConfig, window_size: int):
     return x + y
 
 
-def encode_image(sd, pixel_values, cfg: SamConfig):
+def encode_image(sd, pixel_values, cfg: SamConfig, *, remat: bool = False):
     """ViTDet encoder: pixel_values (B, H, W, 3) NHWC, preprocessed →
-    image embeddings (B, G, G, output_channels) NHWC."""
+    image embeddings (B, G, G, output_channels) NHWC.
+
+    remat=True checkpoints each transformer layer (the JAX package's
+    ``jax.checkpoint`` per layer, the encoder fine-tuning path): the
+    backward recomputes the layer, so only its input is kept, and its
+    attention runs K1 / K2 once more."""
     v = cfg.vision
     ps = v.patch_size
     bsz, ih, iw, ic = pixel_values.shape
@@ -181,7 +188,11 @@ def encode_image(sd, pixel_values, cfg: SamConfig):
         x = x + sd["vision_encoder.pos_embed"].to(x.dtype)
     for i in range(v.num_layers):
         ws = 0 if i in v.global_attn_indexes else v.window_size
-        x = vision_layer(x, sd, f"vision_encoder.layers.{i}", v, ws)
+        if remat:
+            x = checkpoint(vision_layer, x, sd, f"vision_encoder.layers.{i}",
+                           v, ws, use_reentrant=False)
+        else:
+            x = vision_layer(x, sd, f"vision_encoder.layers.{i}", v, ws)
     # neck: 1x1 conv → LN(channel) → 3x3 conv → LN(channel), bias-free
     w1 = sd["vision_encoder.neck.conv1.weight"][:, :, 0, 0]
     x = torch.matmul(x.float(), w1.to(x.dtype).float().T).to(x.dtype)

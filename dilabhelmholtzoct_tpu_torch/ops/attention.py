@@ -1,23 +1,33 @@
-"""Encoder self-attention over the fused qkv, with decomposed rel-pos bias.
+"""Encoder self-attention over the fused qkv, with decomposed rel-pos bias,
+forward and backward.
 
 ``flash_attention_packed`` is the port of
-``dilabhelmholtzoct_tpu/ops/attention.py::flash_attention_packed``: it reads
-the raw qkv projection (B, N, 3C) and writes token-order (B, N, C). On a CUDA
-tensor it launches a hand-written kernel (``csrc/attention.cu``):
+``dilabhelmholtzoct_tpu/ops/attention.py::flash_attention_packed`` and, when
+a gradient is needed, of its custom VJP ``packed_attention_vjp``: it reads
+the raw qkv projection (B, N, 3C) and writes token-order (B, N, C). On a
+CUDA tensor it launches hand-written kernels:
 
-  * K1 ``attn_global_kernel`` for the global layers (N > WINDOW_MAX_TOKENS;
-    N = 4096 at ViT-B), replacing the TPU ``_packed_kernel``;
-  * K2 ``attn_windowed_kernel`` for the windowed layers (N <= 256; 14x14
-    windows at ViT-B), replacing the TPU ``_windowed_group_kernel``.
+  * K1 ``attn_global_kernel`` (``csrc/attention.cu``) for the global layers
+    (N > WINDOW_MAX_TOKENS; N = 4096 at ViT-B), replacing the TPU
+    ``_packed_kernel``;
+  * K2 ``attn_windowed_kernel`` (same file) for the windowed layers
+    (N <= 256; 14x14 windows at ViT-B), replacing the TPU
+    ``_windowed_group_kernel``. With a gradient to take, K1 / K2 also write
+    the rows' logsumexp (the TPU kernels' ``return_lse``);
+  * K5 ``attn_bwd_dq_kernel`` and ``attn_bwd_dkv_kernel``
+    (``csrc/attention_bwd.cu``) for the backward of either, replacing the
+    TPU ``_flash_packed_bwd`` (``_packed_bwd_dq_kernel``,
+    ``_packed_bwd_dkv_kernel``).
 
 Their bounds on an H100 and what the design does about them are noted at
-the top of the CUDA source. On a CPU tensor the wrapper runs
-``packed_attention_plain``, the same function with a materialised bias and
-an f32 softmax. A CUDA tensor never reaches the plain version: the kernel
+the top of each CUDA source. On a CPU tensor the wrapper runs
+``packed_attention_plain`` and ``packed_attention_bwd_plain``, the same
+functions with a materialised (N, N) bias and f32 arithmetic, rounded where
+the kernels round. A CUDA tensor never reaches a plain version: the kernel
 launches or the wrapper raises.
 
-``LAUNCHES`` counts kernel launches (one per wrapper call that launched), so
-a run can show that its path went through the kernels.
+``LAUNCHES`` counts kernel launches (one per kernel launched), so a run can
+show that its path went through the kernels.
 """
 
 from __future__ import annotations
@@ -28,13 +38,13 @@ import torch
 
 from .. import kernels
 
-# K1 / K2 launch counts; a plain integer each, reset by the caller
-LAUNCHES = {"attn_global": 0, "attn_windowed": 0}
+# K1 / K2 / K5 launch counts; a plain integer each, reset by the caller
+LAUNCHES = {"attn_global": 0, "attn_windowed": 0, "attn_bwd_dq": 0,
+            "attn_bwd_dkv": 0}
 WINDOW_MAX_TOKENS = 256  # K2 holds all keys of a window in shared memory
 HEAD_DIM = 64
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_BOUND = False
+_BOUND = {"attention": False, "attention_bwd": False}
 
 
 def reset_launch_counts() -> None:
@@ -58,70 +68,248 @@ def _check(qkv, rel_h, rel_w, hw, num_heads):
                          f"{tuple(rel_w.shape)}")
 
 
-def packed_attention_plain(qkv, rel_h, rel_w, *, hw, num_heads: int):
-    """Plain PyTorch version: materialised (N, N) bias, f32 softmax, the
-    output cast back to the input dtype (``attention_reference`` math on the
-    packed qkv)."""
-    _check(qkv, rel_h, rel_w, hw, num_heads)
+def _split_heads(qkv, num_heads):
+    """(B, N, 3C) -> q, k, v each (B, heads, N, d) in f32."""
     b, n, c3 = qkv.shape
-    c = c3 // 3
-    d = c // num_heads
-    h, w = hw
+    d = c3 // 3 // num_heads
     x = qkv.float().reshape(b, n, 3, num_heads, d).permute(2, 0, 3, 1, 4)
-    q, k, v = x[0], x[1], x[2]  # (B, heads, N, d)
-    logits = torch.matmul(q * d ** -0.5, k.transpose(-1, -2))
+    return x[0], x[1], x[2]
+
+
+def _merge_heads(x):
+    """(B, heads, N, d) -> (B, N, heads * d)."""
+    b, nh, n, d = x.shape
+    return x.permute(0, 2, 1, 3).reshape(b, n, nh * d)
+
+
+def _scores(qkv, rel_h, rel_w, hw, num_heads):
+    """q, k, v (f32, q already times 1/sqrt(d)) and the (B, heads, N, N) f32
+    scores with the materialised bias."""
+    b, n, _ = qkv.shape
+    h, w = hw
+    q, k, v = _split_heads(qkv, num_heads)
+    q = q * q.shape[-1] ** -0.5
     bias = (rel_h.float().reshape(b, num_heads, n, h, 1)
             + rel_w.float().reshape(b, num_heads, n, 1, w))
-    attn = torch.softmax(logits + bias.reshape(b, num_heads, n, n), dim=-1)
-    out = torch.matmul(attn, v)  # (B, heads, N, d)
-    return out.permute(0, 2, 1, 3).reshape(b, n, c).to(qkv.dtype)
+    s = torch.matmul(q, k.transpose(-1, -2))
+    return q, k, v, s.add_(bias.reshape(b, num_heads, n, n))
 
 
-def _bind():
-    global _BOUND
-    lib = kernels.library("attention")
-    if not _BOUND:
-        sig = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        for fn in (lib.dhoct_attn_global, lib.dhoct_attn_windowed):
+def packed_attention_plain(qkv, rel_h, rel_w, *, hw, num_heads: int,
+                           return_lse: bool = False):
+    """Plain PyTorch version: materialised (N, N) bias, f32 softmax, the
+    output cast back to the input dtype (``attention_reference`` math on the
+    packed qkv). ``return_lse=True`` also returns the rows' logsumexp of the
+    scaled scores, (B, heads, N) f32, as K1 / K2 write it."""
+    _check(qkv, rel_h, rel_w, hw, num_heads)
+    _, _, v, s = _scores(qkv, rel_h, rel_w, hw, num_heads)
+    out = _merge_heads(torch.matmul(torch.softmax(s, dim=-1), v))
+    out = out.to(qkv.dtype)
+    if return_lse:
+        return out, torch.logsumexp(s, dim=-1)
+    return out
+
+
+def _rnd(x, dtype):
+    """x rounded to ``dtype`` and widened back to f32 (identity for f32)."""
+    return x if dtype == torch.float32 else x.to(dtype).float()
+
+
+def bwd_dvec(g_out, out, num_heads: int):
+    """D = rowsum(dO * O) per head, (B, heads, N) f32, from the output
+    cotangent as received and the forward's output (B, N, C) — ``f_bwd`` in
+    the JAX package, an elementwise reduction outside any kernel there
+    too."""
+    b, n, _ = out.shape
+    d = (g_out.float() * out.float()).reshape(b, n, num_heads, -1).sum(-1)
+    return d.transpose(1, 2).contiguous()
+
+
+def packed_attention_bwd_plain(qkv, rel_h, rel_w, g_out, lse, dvec, *, hw,
+                               num_heads: int):
+    """Plain PyTorch version of K5: (dqkv (B, N, 3C), drel_h, drel_w) from the
+    forward's inputs, the output cotangent ``g_out`` (B, N, C) in qkv's
+    dtype, the forward's ``lse`` and ``dvec`` = rowsum(g_out * out) per head,
+    both (B, heads, N) f32.
+
+    Rounds where the TPU kernels round (``_packed_bwd_dq_kernel``,
+    ``_packed_bwd_dkv_kernel``): for dq and drel, ds = rnd(p * (dp - D))
+    with p in f32, dq = rnd(sum / sqrt(d)), drel the f32 sums of that ds;
+    for dk and dv, p_b = rnd(p) first and ds = rnd(p_b * (dp - D)). rnd
+    rounds to qkv's dtype (nothing in f32). Any head_dim d (the kernels
+    take 64)."""
+    _check(qkv, rel_h, rel_w, hw, num_heads)
+    dt = qkv.dtype
+    b, n, _ = qkv.shape
+    h, w = hw
+    q, k, v, p = _scores(qkv, rel_h, rel_w, hw, num_heads)
+    g = g_out.float().reshape(b, n, num_heads, -1).transpose(1, 2)
+    p.sub_(lse[..., None]).exp_()  # f32
+    dp = torch.matmul(g, v.transpose(-1, -2)).sub_(dvec[..., None])
+    ds = _rnd(p * dp, dt)  # the dq kernel's ds
+    dq = (torch.matmul(ds, k) * k.shape[-1] ** -0.5).to(dt)
+    drel_h = ds.reshape(b, num_heads, n, h, w).sum(-1).to(rel_h.dtype)
+    drel_w = ds.reshape(b, num_heads, n, h, w).sum(-2).to(rel_w.dtype)
+    del ds
+    p = _rnd(p, dt)  # the dk/dv kernel's p, then its ds
+    dv = torch.matmul(p.transpose(-1, -2), g).to(dt)
+    ds = _rnd(p.mul_(dp), dt)
+    dk = torch.matmul(ds.transpose(-1, -2), q).to(dt)
+    dqkv = torch.cat([_merge_heads(dq), _merge_heads(dk), _merge_heads(dv)],
+                     dim=-1)
+    return dqkv, drel_h, drel_w
+
+
+def _bind(name):
+    lib = kernels.library(name)
+    if not _BOUND[name]:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        if name == "attention":
+            fns = [(lib.dhoct_attn_global, [p] * 5 + [i] * 6 + [p]),
+                   (lib.dhoct_attn_windowed, [p] * 5 + [i] * 6 + [p])]
+        else:
+            fns = [(lib.dhoct_attn_bwd_dq, [p] * 9 + [i] * 6 + [p]),
+                   (lib.dhoct_attn_bwd_dkv, [p] * 7 + [i] * 6 + [p])]
+        for fn, sig in fns:
             fn.argtypes = sig
             fn.restype = ctypes.c_int
         lib.dhoct_error_string.argtypes = [ctypes.c_int]
         lib.dhoct_error_string.restype = ctypes.c_char_p
-        _BOUND = True
+        _BOUND[name] = True
     return lib
 
 
-def _launch(qkv, rel_h, rel_w, *, hw, num_heads):
-    b, n, c3 = qkv.shape
-    d = c3 // 3 // num_heads
+def _kernel_dims(qkv, num_heads):
+    d = qkv.shape[2] // 3 // num_heads
     if d != HEAD_DIM:
         raise NotImplementedError(
             f"the CUDA attention kernels take head_dim {HEAD_DIM}, got {d}; "
             "the any-head_dim kernel (TPU flash_attention_relpos, K6) is not "
             "ported yet")
-    if qkv.dtype not in _DTYPE_CODE:
-        raise TypeError(f"qkv dtype {qkv.dtype} is not float32 or bfloat16")
-    for t in (qkv, rel_h, rel_w):
-        if t.device != qkv.device or t.dtype != qkv.dtype:
-            raise ValueError("qkv, rel_h and rel_w must share device and dtype")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("qkv, rel_h and rel_w must be contiguous and "
-                             "16-byte aligned")
-    lib = _bind()
-    windowed = n <= WINDOW_MAX_TOKENS
-    fn = lib.dhoct_attn_windowed if windowed else lib.dhoct_attn_global
+
+
+def attention_fwd_cuda(qkv, rel_h, rel_w, *, hw, num_heads: int,
+                       return_lse: bool = False):
+    """Launch K1 (N > WINDOW_MAX_TOKENS) or K2; same contract as
+    ``packed_attention_plain``."""
+    _check(qkv, rel_h, rel_w, hw, num_heads)
+    b, n, c3 = qkv.shape
+    _kernel_dims(qkv, num_heads)
+    kernels.check_operands("attention", (qkv, rel_h, rel_w), (qkv.dtype,) * 3)
+    lib = _bind("attention")
+    name = "attn_windowed" if n <= WINDOW_MAX_TOKENS else "attn_global"
+    fn = getattr(lib, f"dhoct_{name}")
     out = torch.empty((b, n, c3 // 3), dtype=qkv.dtype, device=qkv.device)
+    lse = (torch.empty((b, num_heads, n), dtype=torch.float32,
+                       device=qkv.device) if return_lse else None)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     with torch.cuda.device(qkv.device):
         err = fn(qkv.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
-                 out.data_ptr(), b, n, num_heads, hw[0], hw[1],
-                 _DTYPE_CODE[qkv.dtype], stream)
-    if err:
-        raise RuntimeError(
-            f"{'attn_windowed' if windowed else 'attn_global'} launch failed: "
-            f"{lib.dhoct_error_string(err).decode()} (cudaError {err})")
-    LAUNCHES["attn_windowed" if windowed else "attn_global"] += 1
-    return out
+                 out.data_ptr(), lse.data_ptr() if return_lse else None, b, n,
+                 num_heads, hw[0], hw[1], kernels.DTYPE_CODE[qkv.dtype],
+                 stream)
+    kernels.raise_on_error(err, lib.dhoct_error_string, name)
+    LAUNCHES[name] += 1
+    return (out, lse) if return_lse else out
+
+
+def _bwd_operands(qkv, rel_h, rel_w, g_out, lse, dvec, dqkv, hw,
+                  num_heads):
+    """Check K5's operands; returns (the library, operand pointers, dims)."""
+    _check(qkv, rel_h, rel_w, hw, num_heads)
+    _kernel_dims(qkv, num_heads)
+    b, n, c3 = qkv.shape
+    dt, f32 = qkv.dtype, torch.float32
+    args = (qkv, rel_h, rel_w, g_out, lse, dvec, dqkv)
+    kernels.check_operands("attn_bwd", args, (dt, dt, dt, dt, f32, f32, dt))
+    if (g_out.shape != (b, n, c3 // 3) or lse.shape != (b, num_heads, n)
+            or dvec.shape != lse.shape or dqkv.shape != qkv.shape):
+        raise ValueError(f"g_out must be {(b, n, c3 // 3)}, lse and dvec "
+                         f"{(b, num_heads, n)}, dqkv {tuple(qkv.shape)}; got "
+                         f"{tuple(g_out.shape)}, {tuple(lse.shape)}, "
+                         f"{tuple(dvec.shape)}, {tuple(dqkv.shape)}")
+    dims = (b, n, num_heads, hw[0], hw[1], kernels.DTYPE_CODE[dt])
+    return (_bind("attention_bwd"), [t.data_ptr() for t in args], dims,
+            torch.cuda.current_stream(qkv.device).cuda_stream)
+
+
+def attention_bwd_dq_cuda(qkv, rel_h, rel_w, g_out, lse, dvec, dqkv, *, hw,
+                          num_heads: int):
+    """Launch K5's dq kernel: writes dq into the q columns of ``dqkv``
+    (B, N, 3C) and returns (drel_h, drel_w)."""
+    lib, ptrs, dims, stream = _bwd_operands(qkv, rel_h, rel_w, g_out, lse,
+                                            dvec, dqkv, hw, num_heads)
+    drel_h, drel_w = torch.empty_like(rel_h), torch.empty_like(rel_w)
+    with torch.cuda.device(qkv.device):
+        err = lib.dhoct_attn_bwd_dq(*ptrs, drel_h.data_ptr(),
+                                    drel_w.data_ptr(), *dims, stream)
+    kernels.raise_on_error(err, lib.dhoct_error_string, "attn_bwd_dq")
+    LAUNCHES["attn_bwd_dq"] += 1
+    return drel_h, drel_w
+
+
+def attention_bwd_dkv_cuda(qkv, rel_h, rel_w, g_out, lse, dvec, dqkv, *, hw,
+                           num_heads: int):
+    """Launch K5's dk/dv kernel: writes dk and dv into the k and v columns
+    of ``dqkv`` (B, N, 3C)."""
+    lib, ptrs, dims, stream = _bwd_operands(qkv, rel_h, rel_w, g_out, lse,
+                                            dvec, dqkv, hw, num_heads)
+    with torch.cuda.device(qkv.device):
+        err = lib.dhoct_attn_bwd_dkv(*ptrs, *dims, stream)
+    kernels.raise_on_error(err, lib.dhoct_error_string, "attn_bwd_dkv")
+    LAUNCHES["attn_bwd_dkv"] += 1
+
+
+def attention_bwd_cuda(qkv, rel_h, rel_w, g_out, lse, dvec, *, hw,
+                       num_heads: int):
+    """Launch K5, the dq kernel and then the dk/dv kernel, into one dqkv;
+    same contract as ``packed_attention_bwd_plain``."""
+    dqkv = torch.empty_like(qkv)
+    kw = dict(hw=hw, num_heads=num_heads)
+    drel_h, drel_w = attention_bwd_dq_cuda(qkv, rel_h, rel_w, g_out, lse,
+                                           dvec, dqkv, **kw)
+    attention_bwd_dkv_cuda(qkv, rel_h, rel_w, g_out, lse, dvec, dqkv, **kw)
+    return dqkv, drel_h, drel_w
+
+
+def _device_kind(t):
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no attention kernel for device {t.device}")
+    return t.device.type
+
+
+class _PackedAttention(torch.autograd.Function):
+    """K1 / K2 forward with the logsumexp rows saved, K5 backward (the plain
+    versions of both on a CPU tensor) — the JAX package's
+    ``packed_attention_vjp``."""
+
+    @staticmethod
+    def forward(ctx, qkv, rel_h, rel_w, hw, num_heads):
+        kw = dict(hw=hw, num_heads=num_heads)
+        if _device_kind(qkv) == "cuda":
+            out, lse = attention_fwd_cuda(qkv, rel_h, rel_w, return_lse=True,
+                                          **kw)
+        else:
+            out, lse = packed_attention_plain(qkv, rel_h, rel_w,
+                                              return_lse=True, **kw)
+        ctx.kw = kw
+        ctx.save_for_backward(qkv, rel_h, rel_w, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, g_out):
+        qkv, rel_h, rel_w, out, lse = ctx.saved_tensors
+        dvec = bwd_dvec(g_out, out, ctx.kw["num_heads"])
+        # autograd may hand over a strided cotangent; the kernels take it
+        # contiguous, in qkv's dtype
+        g = g_out.to(qkv.dtype).contiguous()
+        if _device_kind(qkv) == "cuda":
+            dqkv, drh, drw = attention_bwd_cuda(qkv, rel_h, rel_w, g, lse,
+                                                dvec, **ctx.kw)
+        else:
+            dqkv, drh, drw = packed_attention_bwd_plain(qkv, rel_h, rel_w, g,
+                                                        lse, dvec, **ctx.kw)
+        return dqkv, drh.to(rel_h.dtype), drw.to(rel_w.dtype), None, None
 
 
 def flash_attention_packed(qkv, rel_h, rel_w, *, hw, num_heads: int):
@@ -132,12 +320,15 @@ def flash_attention_packed(qkv, rel_h, rel_w, *, hw, num_heads: int):
     rel_w: (B, heads, N, hw[1]) bias factor over key columns
     Returns (B, N, C) in token order, in qkv's dtype.
 
-    CPU tensors take the plain version; CUDA tensors launch K1 (global) or
-    K2 (windowed, N <= 256) and raise if the kernel cannot run."""
-    if qkv.device.type == "cpu":
+    CPU tensors take the plain versions; CUDA tensors launch K1 (global) or
+    K2 (windowed, N <= 256), and K5 in the backward, and raise if a kernel
+    cannot run. Differentiable in qkv, rel_h and rel_w."""
+    kind = _device_kind(qkv)
+    _check(qkv, rel_h, rel_w, hw, num_heads)
+    if torch.is_grad_enabled() and (qkv.requires_grad or rel_h.requires_grad
+                                    or rel_w.requires_grad):
+        return _PackedAttention.apply(qkv, rel_h, rel_w, hw, num_heads)
+    if kind == "cpu":
         return packed_attention_plain(qkv, rel_h, rel_w, hw=hw,
                                       num_heads=num_heads)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"no attention kernel for device {qkv.device}")
-    _check(qkv, rel_h, rel_w, hw, num_heads)
-    return _launch(qkv, rel_h, rel_w, hw=hw, num_heads=num_heads)
+    return attention_fwd_cuda(qkv, rel_h, rel_w, hw=hw, num_heads=num_heads)

@@ -116,7 +116,10 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["bfloat16", "float32"])
     p.add_argument("--trainable", type=str, default="decoder",
                    choices=["decoder", "all"],
-                   help="'all' = full fine-tune incl. encoder (remat)")
+                   help="'all' = full fine-tune incl. the image and prompt "
+                        "encoders: every encoder layer checkpointed, the "
+                        "attention backward on the K5 kernel; implies "
+                        "--cache_embeddings false")
     p.add_argument("--topo_pipeline", type=_str2bool, default=True,
                    help="host pairing mode of the topological loss (a later "
                         "slice of the port)")

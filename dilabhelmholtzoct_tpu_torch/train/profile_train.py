@@ -1,15 +1,24 @@
 """Where the training-step time goes on the card, at SAM ViT-B (bf16).
 
     python -m dilabhelmholtzoct_tpu_torch.train.profile_train [--top 15]
+    python -m dilabhelmholtzoct_tpu_torch.train.profile_train --trainable all
 
-Builds the cached-embedding train step of ``train/trainer.py`` on the seeded
-workload (``inference/synthetic.py``: random ViT-B weights, 8 synthetic OCT
-items of 8 components, so one batch is 8 images x bucket 8 = 64 (image,
-prompt) pairs), precomputes their embeddings, runs three warm-up steps and
-then five steps under ``torch.profiler``. It prints the card's name and power
-limit, the host wall time, the device time summed over kernels and copies,
-the busy share, the device time by kind (K3, K4, matrix products, copies,
-other kernels) and the top kernels. Needs a card.
+Builds a train step of ``train/trainer.py`` on the seeded workload
+(``inference/synthetic.py``: random ViT-B weights, synthetic OCT items of 8
+components each), runs three warm-up steps and then ``--steps`` steps under
+``torch.profiler``:
+
+  * ``--trainable decoder`` (the default): the cached-embedding decoder
+    step on 8 images x bucket 8 = 64 (image, prompt) pairs, after the
+    embedding precompute;
+  * ``--trainable all``: the full fine-tune step as ``chip_smoke.py`` runs
+    it (BASELINE config 5 geometry): 4 images x bucket 8, the encoder
+    inside the gradient with every layer checkpointed.
+
+It prints the card's name and power limit, the host wall time, the device
+time summed over kernels and copies, the busy share, the device time by
+kind (K1-K5, matrix products, copies, other kernels) and the top kernels.
+Needs a card.
 """
 
 from __future__ import annotations
@@ -32,6 +41,11 @@ def main(argv=None) -> int:
                         help="kernels listed per window")
     parser.add_argument("--steps", type=int, default=5,
                         help="train steps inside the profiled window")
+    parser.add_argument("--trainable", choices=["decoder", "all"],
+                        default="decoder",
+                        help="'all': the full fine-tune step (encoder "
+                             "inside, 4 images); 'decoder': the cached-"
+                             "embedding decoder step (8 images)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA device")
@@ -42,22 +56,31 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     cfg = sam_vit_base()
     sd = {k: v.to(dev) for k, v in synthetic.random_params(cfg).items()}
-    ds = PromptedDataset(synthetic.oct_training_items(8, seed=1), seed=0)
-    config = tr.TrainConfig(evaluate=False, batch_size=8)
-    emb = tr.precompute_embeddings(sd, cfg, ds, dtype=torch.bfloat16)
-    batch = list(batches(ds, 8, with_images=False, num_workers=2))[0]
+    full = args.trainable == "all"
+    bs = 4 if full else 8
+    ds = PromptedDataset(synthetic.oct_training_items(bs, seed=1), seed=0)
+    config = tr.TrainConfig(evaluate=False, batch_size=bs,
+                            trainable=args.trainable,
+                            cache_embeddings=not full)
+    batch = list(batches(ds, bs, with_images=full, num_workers=2))[0]
     db = {k: torch.as_tensor(batch[k]).to(dev)
           for k in ("prompts", "comp_map", "channel_mask")}
-    db["embeddings"] = emb
-    decoder, frozen = tr._split_params(sd)
-    for v in decoder.values():
+    if full:
+        db["image"] = torch.as_tensor(batch["image"]).to(dev)
+    else:
+        db["embeddings"] = tr.precompute_embeddings(sd, cfg, ds,
+                                                    dtype=torch.bfloat16)
+    params, frozen = tr._split_params(sd, args.trainable)
+    for v in params.values():
         v.requires_grad_(True)
-    opt = tr.make_optimizer(config, decoder.values())
-    step = tr.make_train_step(cfg, config, opt, (496, 512), True)
+    opt = tr.make_optimizer(config, params.values())
+    step = tr.make_train_step(cfg, config, opt, (496, 512), not full)
     for _ in range(3):
-        step(decoder, opt, frozen, db)
-    profile_window(f"train step bf16, 8 images x bucket 8, x{args.steps}",
-                   lambda: step(decoder, opt, frozen, db), args.steps,
+        step(params, opt, frozen, db)
+    what = ("full fine-tune step bf16, 4 images x bucket 8" if full
+            else "train step bf16, 8 images x bucket 8")
+    profile_window(f"{what}, x{args.steps}",
+                   lambda: step(params, opt, frozen, db), args.steps,
                    args.top)
     return 0
 

@@ -1,30 +1,34 @@
-"""MedSAM-style fine-tuning of the SAM mask decoder, on the card.
+"""Fine-tuning of SAM on the card: MedSAM-style (the mask decoder) or the
+whole model.
 
-Port of ``dilabhelmholtzoct_tpu/train/trainer.py``'s decoder-only path:
-frozen image and prompt encoders, Adam on the ``mask_decoder.*`` parameters,
-DiceCE loss on the postprocessed masks, per-epoch train/validation losses
-with the reference's metric names, per-epoch checkpoints with retention and
-resume, and the reference's ``.pt`` export.
+Port of ``dilabhelmholtzoct_tpu/train/trainer.py``: Adam on the trainable
+entries — ``trainable='decoder'`` (the reference's scope, the
+``mask_decoder.*`` parameters, with frozen image and prompt encoders) or
+``trainable='all'`` (every parameter, encoders included) — DiceCE loss on
+the postprocessed masks, per-epoch train/validation losses with the
+reference's metric names, per-epoch checkpoints with retention and resume,
+and the reference's ``.pt`` export.
 
-Mixed precision as the JAX package's ``_cast_floats``: the decoder's master
+Mixed precision as the JAX package's ``_cast_floats``: the trainable master
 weights are f32 leaf tensors with ``requires_grad``; every float parameter,
 frozen ones included, is cast to the compute dtype inside the forward, so
 the gradients arrive back in f32. The casts are explicit (no autocast,
 which would move the rounding points). In bf16 the decoder runs through the
 hand-written kernels K3 (upscaler) and K4 (image->token attention), forward
-and backward; the embedding precompute runs the frozen encoder through K1
-and K2.
+and backward; the encoder's attention runs K1 / K2, and with
+``trainable='all'`` their backward K5.
 
 With ``cache_embeddings`` (the default) the frozen encoder runs once per
 image before the first epoch (``precompute_embeddings``) and each step
 starts from the cached embeddings; otherwise the encoder runs inside every
-step under ``torch.no_grad()`` (JAX's ``stop_gradient``).
+step: under ``torch.no_grad()`` (JAX's ``stop_gradient``) for the decoder
+fine-tune, inside the gradient with every layer checkpointed for
+``trainable='all'`` (which needs ``cache_embeddings=False``).
 
 Not in this slice (each raises ``NotImplementedError``): the topological
-loss, the evaluation harness (``evaluate``), sample display, encoder
-fine-tuning (``trainable='all'``, it needs the flash-attention backward
-K5), augmentation (``data_transforms``), multi-host / data parallelism and
-profiler traces. With one card ``data_parallel`` is a no-op, as in JAX.
+loss, the evaluation harness (``evaluate``), sample display, augmentation
+(``data_transforms``), multi-host / data parallelism and profiler traces.
+With one card ``data_parallel`` is a no-op, as in JAX.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from ..device import full_fp32, resolve_device
 from ..models.configs import SamConfig, config_for
 from ..models.sam import (
     decode_masks,
+    encode_image,
     encode_image_microbatched,
     encode_prompts,
     image_wide_pe,
@@ -117,12 +122,9 @@ class TrainConfig:
 def _check_supported(config: TrainConfig, *, loop: bool = True) -> None:
     """Raise for the parts of the JAX training path that later slices port;
     ``loop=False`` checks only what a train step itself runs."""
-    later = [
-        (config.topological, "topological=True (the topological loss)"),
-        (config.trainable == "all",
-         "trainable='all' (encoder fine-tuning; needs the flash-attention "
-         "backward kernel K5)"),
-    ]
+    if config.trainable not in ("decoder", "all"):
+        raise ValueError(f"unknown trainable {config.trainable!r}")
+    later = [(config.topological, "topological=True (the topological loss)")]
     if loop:
         later += [
             (config.evaluate, "evaluate=True (the evaluation harness, "
@@ -138,8 +140,10 @@ def _check_supported(config: TrainConfig, *, loop: bool = True) -> None:
             raise NotImplementedError(
                 f"{what} is not ported to PyTorch yet: a later slice of the "
                 "port; pass it off (the CLI: --evaluate false)")
-    if config.trainable != "decoder":
-        raise ValueError(f"unknown trainable {config.trainable!r}")
+    if loop and config.trainable == "all" and config.cache_embeddings:
+        raise ValueError(
+            "trainable='all' requires cache_embeddings=False (the encoder "
+            "trains, so its outputs change every step)")
 
 
 def _dtype(config: TrainConfig) -> torch.dtype:
@@ -160,13 +164,11 @@ def prepare_model(config: TrainConfig) -> tuple[SamConfig, dict]:
 
 
 def _split_params(sd: dict, trainable: str = "decoder") -> tuple[dict, dict]:
-    """(trainable entries, frozen rest): the decoder is every
+    """(trainable entries, frozen rest): "decoder" trains every
     ``mask_decoder.*`` entry, the reference's optimizer scope
-    ``model.mask_decoder.parameters()``."""
-    if trainable != "decoder":
-        raise NotImplementedError(
-            "only trainable='decoder' is ported (encoder fine-tuning needs "
-            "the flash-attention backward kernel K5)")
+    ``model.mask_decoder.parameters()``; "all" trains every entry."""
+    if trainable == "all":
+        return dict(sd), {}
     decoder = {k: v for k, v in sd.items() if k.startswith(DECODER_PREFIX)}
     frozen = {k: v for k, v in sd.items() if not k.startswith(DECODER_PREFIX)}
     return decoder, frozen
@@ -250,37 +252,62 @@ def _encode(sd, cfg, images, dtype, microbatch):
         return encode_image_microbatched(sd, pix, cfg, microbatch).to(dtype)
 
 
+def _zero_missing_grads(optimizer) -> None:
+    """A zero gradient for every optimized tensor the loss did not reach
+    (the iou head, prompt embeddings of unused labels): torch's optimizers
+    skip a ``None`` gradient, optax gets a dense zero one, which weight
+    decay still moves."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+
+
 def make_train_step(cfg: SamConfig, config: TrainConfig, optimizer,
                     orig_hw: tuple[int, int], from_embeddings: bool):
-    """The train step ``step(decoder, optimizer, frozen, batch) ->
-    (decoder, optimizer, loss)``: forward, DiceCE, backward and one
-    optimizer update of the decoder tensors (in place; they are the tensors
-    ``optimizer`` holds). ``loss`` is a detached 0-d tensor on the card, so
-    the caller syncs once per epoch, not per step.
+    """The train step ``step(params, optimizer, frozen, batch) ->
+    (params, optimizer, loss)``: forward, DiceCE, backward and one
+    optimizer update of the trainable tensors ``params`` (in place; they are
+    the tensors ``optimizer`` holds). ``loss`` is a detached 0-d tensor on
+    the card, so the caller syncs once per epoch, not per step.
 
     from_embeddings=True: ``batch["embeddings"]`` holds cached encoder
-    outputs. False: ``batch["image"]`` holds uint8 images and the frozen
-    encoder runs inside the step under ``torch.no_grad()``."""
+    outputs. False: ``batch["image"]`` holds uint8 images and the encoder
+    runs inside the step — frozen, under ``torch.no_grad()``, for
+    ``trainable='decoder'``; inside the gradient, from the same cast
+    parameters as the decoder, every layer checkpointed and without
+    microbatching, for ``trainable='all'`` (the JAX step)."""
     _check_supported(config, loop=False)
     dtype = _dtype(config)
+    train_encoder = config.trainable == "all"
 
-    def step(decoder, optimizer, frozen, batch):
+    def step(params, optimizer, frozen, batch):
         with full_fp32():
+            params_c = _cast_floats(params, dtype)
             if from_embeddings:
                 embeddings = batch["embeddings"].to(dtype)
                 frozen_c = _cast_floats(_prompt_entries(frozen), dtype)
             else:
                 frozen_c = _cast_floats(frozen, dtype)
-                embeddings = _encode(frozen_c, cfg, batch["image"], dtype,
-                                     config.encoder_microbatch)
+                if train_encoder:
+                    pix, _ = preprocess_image(
+                        batch["image"], target_size=cfg.vision.image_size,
+                        dtype=dtype)
+                    embeddings = encode_image(
+                        _merge_params(params_c, frozen_c), pix, cfg,
+                        remat=True)
+                else:
+                    embeddings = _encode(frozen_c, cfg, batch["image"], dtype,
+                                         config.encoder_microbatch)
             masks = _forward_from_embeddings(
-                _cast_floats(decoder, dtype), frozen_c, cfg, embeddings,
-                batch, orig_hw, config.prompt_type)
+                params_c, frozen_c, cfg, embeddings, batch, orig_hw,
+                config.prompt_type)
             loss = _loss_from_masks(masks, batch, config)
             optimizer.zero_grad(set_to_none=True)
             loss.backward()
+            _zero_missing_grads(optimizer)
             optimizer.step()
-        return decoder, optimizer, loss.detach()
+        return params, optimizer, loss.detach()
 
     return step
 
@@ -300,7 +327,8 @@ def make_eval_step(cfg: SamConfig, config: TrainConfig, orig_hw,
                 frozen_c = _cast_floats(_prompt_entries(frozen), dtype)
             else:
                 frozen_c = _cast_floats(frozen, dtype)
-                embeddings = _encode(frozen_c, cfg, batch["image"], dtype,
+                embeddings = _encode(_merge_params(dec_c, frozen_c), cfg,
+                                     batch["image"], dtype,
                                      config.encoder_microbatch)
             masks = _forward_from_embeddings(dec_c, frozen_c, cfg, embeddings,
                                              batch, orig_hw,
@@ -386,10 +414,10 @@ def _training_impl(config: TrainConfig, logger: MultiLogger, splits,
                                seed=config.seed + 1)
     orig_hw = train_ds.image(0).shape[:2]
 
-    decoder, frozen = _split_params(sd, config.trainable)
-    for v in decoder.values():
+    params, frozen = _split_params(sd, config.trainable)
+    for v in params.values():
         v.requires_grad_(True)
-    optimizer = make_optimizer(config, decoder.values())
+    optimizer = make_optimizer(config, params.values())
 
     run_dir = os.path.join(config.checkpoint, config.display_name)
     os.makedirs(run_dir, exist_ok=True)
@@ -398,8 +426,8 @@ def _training_impl(config: TrainConfig, logger: MultiLogger, splits,
         state, _ = ckpt_utils.restore_checkpoint(run_dir)
         if state is not None:
             with torch.no_grad():
-                for k, v in decoder.items():
-                    v.copy_(state["decoder"][k])
+                for k, v in params.items():
+                    v.copy_(state["params"][k])
             optimizer.load_state_dict(state["opt_state"])
             start_epoch = int(state["epoch"]) + 1
             print(f"[resume] from epoch {start_epoch}")
@@ -455,8 +483,8 @@ def _training_impl(config: TrainConfig, logger: MultiLogger, splits,
                              with_images=not use_cache):
             db = device_batch(batch, train_emb, train_cm)
             with timer:
-                decoder, optimizer, loss = train_step(decoder, optimizer,
-                                                      frozen, db)
+                params, optimizer, loss = train_step(params, optimizer,
+                                                     frozen, db)
             losses.append(loss)
         t_train = time.time() - t0
         # one device fetch for the epoch, not one sync per step
@@ -467,8 +495,8 @@ def _training_impl(config: TrainConfig, logger: MultiLogger, splits,
         logger.log({"train/train_loss": train_loss, "train/epoch": epoch})
         timer.log_summary()
 
-        vlosses = [eval_step(decoder, frozen, device_batch(b, valid_emb,
-                                                           valid_cm))
+        vlosses = [eval_step(params, frozen, device_batch(b, valid_emb,
+                                                          valid_cm))
                    for b in batches(valid_ds, config.batch_size, epoch=epoch,
                                     buckets=config.buckets,
                                     with_images=not use_cache)]
@@ -486,13 +514,13 @@ def _training_impl(config: TrainConfig, logger: MultiLogger, splits,
                         "valid_loss": valid_loss, "seconds": dt})
         t_ck = time.time()
         ckpt_utils.save_checkpoint(
-            run_dir, epoch, {"decoder": decoder,
+            run_dir, epoch, {"params": params,
                              "opt_state": optimizer.state_dict(),
                              "epoch": epoch},
             keep=config.ckpt_keep)
         print(f"[epoch {epoch}] ckpt {time.time() - t_ck:.1f}s")
 
-    params_final = _merge_params({k: v.detach() for k, v in decoder.items()},
+    params_final = _merge_params({k: v.detach() for k, v in params.items()},
                                  frozen)
     if config.export_pt:
         name = f"{config.display_name}_{config.time or 'final'}.pt"

@@ -2,7 +2,8 @@
 
 Port of ``dilabhelmholtzoct_tpu/utils/checkpoint.py`` with ``torch.save`` in
 place of Orbax: every epoch writes ``<dir>/step_N/state.pt`` holding the
-decoder's state_dict, the optimizer's state_dict and the epoch number; only
+trained entries of the state_dict (the decoder's, or every entry with
+``trainable='all'``), the optimizer's state_dict and the epoch number; only
 the newest ``keep`` step directories stay. Files are written to a temporary
 name and renamed, so a crash never leaves a half-written checkpoint that
 ``latest_step`` would pick.

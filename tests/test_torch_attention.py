@@ -77,7 +77,7 @@ def test_cpu_wrapper_is_plain_and_launches_nothing(rng):
         torch.tensor(qkv), torch.tensor(rel_h), torch.tensor(rel_w),
         hw=(8, 8), num_heads=2)
     assert torch.equal(got, want)
-    assert port_attn.LAUNCHES == {"attn_global": 0, "attn_windowed": 0}
+    assert not any(port_attn.LAUNCHES.values()), port_attn.LAUNCHES
 
 
 def test_plain_bf16_keeps_dtype_and_f32_math(rng):

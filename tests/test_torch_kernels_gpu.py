@@ -1,5 +1,7 @@
-"""The port's CUDA attention kernels (K1 global, K2 windowed) against their
-plain PyTorch version on the same card tensors.
+"""The port's CUDA kernels against their plain PyTorch versions on the same
+card tensors: encoder attention K1 (global) and K2 (windowed) with their
+logsumexp rows, its backward K5, the upscaler K3 and the image->token
+attention K4.
 
 Needs an NVIDIA card and nvcc; skips without a card. This file imports
 neither JAX nor tests/conftest.py's fixtures, so where JAX is not installed
@@ -51,6 +53,88 @@ def test_kernels_match_plain_on_card(cuda_device, dtype, b, nh, hw):
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), atol=atol,
                                rtol=1e-3)
+
+
+def _attn_inputs(dev, dtype, b, nh, hw, seed=0):
+    rng = np.random.default_rng(seed)
+    n = hw[0] * hw[1]
+    arrays = (rng.normal(size=(b, n, 3 * nh * 64)) * 0.5,
+              rng.normal(size=(b, nh, n, hw[0])) * 0.3,
+              rng.normal(size=(b, nh, n, hw[1])) * 0.3,
+              rng.normal(size=(b, n, nh * 64)))
+    return [torch.tensor(a, dtype=dtype, device=dev) for a in arrays]
+
+
+ATTN_SHAPES = [(1, 12, (64, 64)),   # ViT-B global layer
+               (25, 12, (14, 14)),  # ViT-B windows of one image
+               (3, 2, (9, 7)),      # ragged: one 63-token tile
+               (2, 2, (20, 15))]    # ragged: 300 tokens over 5 tiles
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,nh,hw", ATTN_SHAPES)
+def test_kernel_lse_matches_plain_on_card(cuda_device, dtype, b, nh, hw):
+    """The logsumexp rows K1 / K2 write for the backward: f32 sums over the
+    same widened inputs (atol 2e-4 on values ~ log N + max score)."""
+    qkv, rel_h, rel_w, _ = _attn_inputs(cuda_device, dtype, b, nh, hw)
+    out, lse = port_attn.attention_fwd_cuda(qkv, rel_h, rel_w, hw=hw,
+                                            num_heads=nh, return_lse=True)
+    want_out, want = port_attn.packed_attention_plain(
+        qkv, rel_h, rel_w, hw=hw, num_heads=nh, return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (b, nh, hw[0] * hw[1])
+    np.testing.assert_allclose(lse.cpu().numpy(), want.cpu().numpy(),
+                               atol=2e-4, rtol=1e-5)
+    assert torch.equal(out, port_attn.attention_fwd_cuda(
+        qkv, rel_h, rel_w, hw=hw, num_heads=nh))  # the LSE changes nothing
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,nh,hw", ATTN_SHAPES)
+def test_attention_bwd_kernels_match_plain_on_card(cuda_device, dtype, b, nh,
+                                                   hw):
+    """K5 (both kernels) against ``packed_attention_bwd_plain`` on the same
+    (qkv, rel, dO, L, D), each output relative to its max |plain|."""
+    qkv, rel_h, rel_w, g = _attn_inputs(cuda_device, dtype, b, nh, hw)
+    kw = dict(hw=hw, num_heads=nh)
+    out, lse = port_attn.packed_attention_plain(qkv, rel_h, rel_w,
+                                                return_lse=True, **kw)
+    dvec = port_attn.bwd_dvec(g, out, nh)
+    before = dict(port_attn.LAUNCHES)
+    got = port_attn.attention_bwd_cuda(qkv, rel_h, rel_w, g, lse, dvec, **kw)
+    torch.cuda.synchronize()
+    for name in ("attn_bwd_dq", "attn_bwd_dkv"):
+        assert port_attn.LAUNCHES[name] == before[name] + 1, name
+    want = port_attn.packed_attention_bwd_plain(qkv, rel_h, rel_w, g, lse,
+                                                dvec, **kw)
+    for name, a, bb in zip(("dqkv", "drel_h", "drel_w"), got, want):
+        assert a.shape == bb.shape and a.dtype == bb.dtype, name
+        assert bool(torch.isfinite(a.float()).all()), name
+        _rel_close(a, bb, K34_TOL[dtype], name)
+
+
+@pytest.mark.gpu
+def test_attention_autograd_runs_k5_on_card(cuda_device):
+    """Gradients through ``flash_attention_packed`` on the card (K1 with
+    LSE, then K5) against autograd through the plain version, f32."""
+    qkv, rel_h, rel_w, t = _attn_inputs(cuda_device, torch.float32, 2, 2,
+                                        (20, 15))
+    grads = []
+    for fn in (port_attn.flash_attention_packed,
+               port_attn.packed_attention_plain):
+        before = dict(port_attn.LAUNCHES)
+        args = [x.clone().requires_grad_(True) for x in (qkv, rel_h, rel_w)]
+        (fn(*args, hw=(20, 15), num_heads=2) * t).sum().backward()
+        grads.append([x.grad for x in args])
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in port_attn.LAUNCHES.items()}
+        kernel = fn is port_attn.flash_attention_packed
+        assert launched == {"attn_global": int(kernel), "attn_windowed": 0,
+                            "attn_bwd_dq": int(kernel),
+                            "attn_bwd_dkv": int(kernel)}, launched
+    for name, a, bb in zip(("dqkv", "drel_h", "drel_w"), *grads):
+        _rel_close(a, bb, K34_TOL[torch.float32], name)
 
 
 @pytest.mark.gpu

@@ -60,14 +60,17 @@ def _jax_hf(tree, cfg):
             .items() if k.startswith("mask_decoder.")}
 
 
-def _run_both(cfg_j, cfg_p, tree, batch, dtype, from_embeddings, n_steps):
+def _run_both(cfg_j, cfg_p, tree, batch, dtype, from_embeddings, n_steps,
+              **conf):
     """n_steps of each package's train step from the same parameters on the
-    same batch; returns (jax losses, port losses, jax and port decoder after
-    step 1, decoder before)."""
+    same batch (``conf``: more TrainConfig fields for both); returns (jax
+    losses, port losses, jax and port decoder after step 1, decoder
+    before)."""
     jconf = jtr.TrainConfig(compute_dtype=dtype, learning_rate=LR,
-                            cache_embeddings=from_embeddings)
+                            cache_embeddings=from_embeddings, **conf)
     pconf = ptr.TrainConfig(compute_dtype=dtype, learning_rate=LR,
-                            cache_embeddings=from_embeddings, evaluate=False)
+                            cache_embeddings=from_embeddings, evaluate=False,
+                            **conf)
     dec_j, frozen_j = jtr._split_params(jax.tree.map(jnp.asarray, tree))
     opt_j = jtr.make_optimizer(jconf)
     state_j = opt_j.init(dec_j)
@@ -131,6 +134,35 @@ def test_f32_train_steps_match_jax(from_embeddings):
                                    err_msg=f"step {i}: port {lp} jax {lj}")
     assert lp[-1] < lp[0]
     assert _sign_agreement(j1, p1, before) >= 0.99
+
+
+def _assert_updates_match(jax_after, port_after, before, atol=1e-5):
+    """Every tensor's first-step update, port vs JAX, within atol."""
+    for k, b in before.items():
+        np.testing.assert_allclose((port_after[k] - b).numpy(),
+                                   (jax_after[k] - b).numpy(), atol=atol,
+                                   err_msg=k)
+
+
+def test_weight_decay_updates_match_jax():
+    """One f32 step with weight_decay=0.1: every decoder tensor moves as in
+    JAX, the iou-prediction head included. The loss does not reach that
+    head, so torch's Adam would skip its None gradient, while optax decays
+    it through a dense zero gradient; the step gives every such tensor a
+    zero gradient."""
+    cfg_j, cfg_p = jconfigs.sam_tiny(128), pconfigs.sam_tiny(128)
+    tree = _params(cfg_j, seed=5)
+    batch = _batch(np.random.default_rng(13), 2, 3)
+    pix, _ = jtr.preprocess_image(jnp.asarray(batch["image"]), target_size=128)
+    batch["embeddings"] = np.asarray(
+        jsam.encode_image(jax.tree.map(jnp.asarray, tree), pix, cfg_j))
+    _, _, (j1, p1), before = _run_both(cfg_j, cfg_p, tree, batch, "float32",
+                                       True, 1, weight_decay=0.1)
+    iou = [k for k in before if "iou_prediction_head" in k]
+    assert len(iou) == 6
+    for k in iou:  # decayed, so moved by ~lr
+        assert float((p1[k] - before[k]).abs().min()) > 0.5 * LR, k
+    _assert_updates_match(j1, p1, before)
 
 
 def _cfg_grid32(m):
@@ -232,7 +264,7 @@ def test_training_without_a_card_raises(tmp_path):
 
 @pytest.mark.parametrize("field,value", [("topological", True),
                                          ("evaluate", True),
-                                         ("trainable", "all"),
+                                         ("data_transforms", ("hflip",)),
                                          ("display_mode", "predefined")])
 def test_later_slices_raise(tmp_path, field, value):
     config = _loop_config(tmp_path, **{field: value})
