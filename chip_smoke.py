@@ -8,15 +8,18 @@ prints no result line):
 
 1. Device facts: the card's name, and its name and power limit as
    ``nvidia-smi --query-gpu=name,power.limit`` gives them.
-2. Build: every CUDA kernel of the serving and training paths from
+2. Build: every CUDA kernel of the serving, training and evaluation paths from
    ``dilabhelmholtzoct_tpu_torch/csrc`` with nvcc for sm_90a, one nvcc per
    source, all started together (build seconds and the ptxas report).
 3. Kernels at SAM ViT-B shapes — K1 global attention (B=1, N=4096, 12 heads)
    and K2 windowed attention (25 windows of 196 tokens, 12 heads) — in f32
    and bf16: each held against its plain PyTorch version on the same card
-   tensors, then timed with CUDA events (kernel, plain version, and one
-   ``scaled_dot_product_attention`` call with the materialised bias as the
-   library yardstick), beside the bound computed from the shapes.
+   tensors (f32 within 1e-4; bf16 within 2 bf16 ulps of the case's own
+   output scale, 2 * 2^-8 * max |plain|, printed beside the error; the same
+   limits hold K6 and K7), then timed with CUDA events (kernel, plain
+   version, and one ``scaled_dot_product_attention`` call with the
+   materialised bias as the library yardstick), beside the bound computed
+   from the shapes.
 4. Serving at full ViT-B width: random weights from a seeded
    torch.Generator (non-zero rel-pos tables), a synthetic 496x512 OCT-shaped
    uint8 image (the exact-2x preprocess), a box, a point and a 3-box request
@@ -65,15 +68,46 @@ prints no result line):
 12. The full fine-tune epoch loop: ``training(trainable='all')`` at ViT-B
    for 1 epoch of 2 steps; finite losses, one checkpoint.
 
+13. K6, the any-head-dim attention, at ViT-H shapes (16 heads of 80; the
+   global layer B = 1, N = 4096; 25 windows of 196) and at the test-size
+   model's (4 heads of 16), in f32 and bf16: held against its plain version,
+   then timed beside its bound, the plain version and one
+   ``scaled_dot_product_attention`` call with the materialised bias.
+14. K7, the image-layout windowed attention, at ViT-B (B = 1, 12 heads,
+   64x64, windows of 14) and on a ragged 28x20 grid, in f32 and bf16: held
+   against its plain version and, bit for bit, against K2 on the partitioned
+   windows of the same qkv; timed beside K2's bound. Then one ViT-B layer's
+   windowed attention (LayerNorm output to projected output) through the
+   image-layout route and through the partitioned route (pad, partition,
+   qkv, K2, projection, un-partition, crop): agreement and both times.
+15. Serving at full ViT-H width and depth (32 layers, 1280 wide, 16 heads
+   of 80, f32, random weights with non-zero rel-pos tables): box, point and
+   3-box requests; exactly 32 K6 launches for the one encode, none for the
+   cached prompts, no other kernel; cold and cached ms, peak memory; the box
+   request held against the same engine on the CPU at full depth.
+16. ViT-B serving under ``set_fused_windowed('on')``: one encode launches K1
+   x4, K7 x8 and K2 x0; probabilities within tolerance of the default
+   route's on the card; encode ms of both routes. The switch is reset.
+17. Evaluation: ``evaluate_metrics`` over 8 synthetic OCT items at full
+   ViT-H (32 K6 launches per image) with a finite report; the same call at a
+   depth cut (2 layers: one windowed, one global) on the card against
+   ``device="cpu"``; ``training(evaluate=True)`` for one short ViT-B epoch
+   returns ``metrics``.
+
 The line before the last is a JSON object with one entry per kernel (K1/K2
 numbers from the serving path in f32, K3/K4 from the training path in bf16,
 K5 from the global layer at B = 4 in bf16, its launches counted on the ViT-B
-full fine-tune run); the last line is ``{"ok": true, "device": {...}}``.
+full fine-tune run, K6 from the ViT-H global layer in f32, its launches
+counted on the ViT-H serving run, K7 at ViT-B in f32, its launches counted
+on the ``set_fused_windowed('on')`` encode); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import statistics
@@ -89,8 +123,8 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 F32_ATOL = 1e-4    # kernel vs plain, f32: summation order over <= 4096 keys
-BF16_ATOL = 2e-2   # kernel vs plain, bf16: one bf16 rounding of |out| <~ 2
 PROB_ATOL = 1e-3   # card engine vs CPU engine, probabilities (ViT-B, f32)
+BF16_ULPS = 2      # attention forward vs plain, bf16: ulps of the output scale
 # K3/K4 kernel vs plain, max |diff| / max |plain| per output: f32 summation
 # order; bf16 one flipped rounding of an intermediate (2^-8 relative) before
 # further products
@@ -100,12 +134,27 @@ STEP_LOSS_RTOL = 2e-2   # bf16 train step, card vs CPU: bf16 roundings of the
 SIGN_AGREE_MIN = 0.90   # card vs CPU, share of moved decoder weights whose
 #                         first-step update agrees in sign (Adam step 1 is
 #                         ~lr * sign(g); tiny gradients may flip in bf16)
+EVAL_ATOL = 2e-3   # evaluation report, card vs CPU (2-layer cut): a few of
+#                    254k pixels per mask may cross 0.5 between summation orders
 TRAIN_SHAPES = dict(bp=64, m=4096, n_tok=7, n_out=1)
 
 
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def kernel_tol(ref):
+    """An attention forward kernel (K1, K2, K6, K7) against its plain
+    version: ``F32_ATOL`` in f32; in bf16
+    ``BF16_ULPS`` bf16 ulps of this case's output scale, 2 * 2^-8 * max
+    |plain| (the outputs average thousands of values and are far below 1,
+    so a fixed limit sized for |out| ~ 1 would pass a wrong kernel)."""
+    import torch
+
+    if ref.dtype == torch.float32:
+        return F32_ATOL
+    return BF16_ULPS * 2.0 ** -8 * ref.float().abs().max().item()
 
 
 def cuda_ms(fn, iters):
@@ -124,16 +173,28 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def attention_bound_ms(b, n, heads, hw, itemsize, peak_flops):
+def attention_bound_ms(b, n, heads, hw, itemsize, peak_flops, d=64):
     """Least time for one call: the larger of its operations (q.k and p.v,
-    2 * 2 * N^2 * 64 per head) over the type's peak and its bytes (qkv and
+    2 * 2 * N^2 * d per head) over the type's peak and its bytes (qkv and
     both bias factors read once, the output written once) over 3.35 TB/s."""
-    c = heads * 64
-    flops = 4.0 * b * heads * n * n * 64
+    c = heads * d
+    flops = 4.0 * b * heads * n * n * d
     nbytes = itemsize * b * n * (3 * c + heads * (hw[0] + hw[1]) + c)
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def _sdpa_ms(torch, qkv, rel_h, rel_w, hw, heads, iters=5):
+    """The library yardstick of an attention forward: one
+    ``scaled_dot_product_attention`` call on head-major views of the same
+    qkv with the bias materialised beforehand."""
+    b, n, c3 = qkv.shape
+    x = qkv.view(b, n, 3, heads, c3 // 3 // heads).permute(2, 0, 3, 1, 4)
+    mask = (rel_h.reshape(b, heads, n, hw[0], 1)
+            + rel_w.reshape(b, heads, n, 1, hw[1])).reshape(b, heads, n, n)
+    return cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        x[0], x[1], x[2], attn_mask=mask), iters)
 
 
 def kernel_phase(torch, attn):
@@ -171,32 +232,26 @@ def kernel_phase(torch, attn):
                 ref = attn.packed_attention_plain(*args, **kw)
                 torch.cuda.synchronize()
                 err = (out.float() - ref.float()).abs().max().item()
-                tol = F32_ATOL if dtype == torch.float32 else BF16_ATOL
+                tol = kernel_tol(ref)
                 check(out.dtype == dtype and bool(torch.isfinite(out).all()),
                       f"{name} {dtype}: bad output")
                 check(err <= tol, f"{name} {dtype}: max |kernel - plain| "
-                                  f"{err:.3g} > {tol}")
+                                  f"{err:.3g} > {tol:.3g}")
                 iters = 20 if name == "attn_global" else 50
                 ms = cuda_ms(lambda: attn.flash_attention_packed(*args, **kw),
                              iters)
                 plain_ms = cuda_ms(
                     lambda: attn.packed_attention_plain(*args, **kw), 5)
-                x = qkv.view(b, n, 3, heads, 64).permute(2, 0, 3, 1, 4)
-                mask = (rel_h.reshape(b, heads, n, hw[0], 1)
-                        + rel_w.reshape(b, heads, n, 1, hw[1])).reshape(
-                            b, heads, n, n)
-                lib_ms = cuda_ms(
-                    lambda: torch.nn.functional.scaled_dot_product_attention(
-                        x[0], x[1], x[2], attn_mask=mask), 5)
-                del mask
+                lib_ms = _sdpa_ms(torch, qkv, rel_h, rel_w, hw, heads)
             peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
             bound, bound_by = attention_bound_ms(b, n, heads, hw,
                                                  qkv.element_size(), peak)
             tname = "f32" if dtype == torch.float32 else "bf16"
             print(f"kernel {name} {tname} B={b} N={n} heads={heads}: "
-                  f"max_abs_err={err:.3g} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                  f"library_ms={lib_ms:.4f} bound_ms={bound:.4f} "
-                  f"({bound_by}) share_of_bound={bound / ms:.3f}")
+                  f"max_abs_err={err:.3g} (limit {tol:.3g}) ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+                  f"bound_ms={bound:.4f} ({bound_by}) "
+                  f"share_of_bound={bound / ms:.3f}")
             if dtype == torch.float32:
                 rows[name] = {
                     "name": name, "route": "cuda",
@@ -205,7 +260,7 @@ def kernel_phase(torch, attn):
                     "plain_ms": plain_ms, "bound_ms": bound,
                     "bound_by": bound_by, "library_ms": lib_ms,
                 }
-            del qkv, rel_h, rel_w, out, ref, x
+            del qkv, rel_h, rel_w, out, ref
     torch.cuda.empty_cache()
     return rows
 
@@ -238,10 +293,10 @@ def serving_phase(torch, attn):
     peak_bytes = torch.cuda.max_memory_allocated()
     print(f"serving launches after the first request {after_encode}, "
           f"after all three {launches}")
-    check(after_encode == {"attn_global": 4, "attn_windowed": 8,
-                           "attn_bwd_dq": 0, "attn_bwd_dkv": 0},
-          f"one ViT-B encode must launch K1 x4 and K2 x8 (and no backward), "
-          f"got {after_encode}")
+    check(after_encode == {**dict.fromkeys(attn.LAUNCHES, 0),
+                           "attn_global": 4, "attn_windowed": 8},
+          f"one ViT-B encode must launch K1 x4 and K2 x8 (and no backward, "
+          f"no K6, no K7), got {after_encode}")
     check(launches == after_encode,
           "a cached prompt launched encoder attention kernels")
     for b_, p_, n in ((bin_box, p_box, 1), (bin_pt, p_pt, 1), (bin_3, p_3, 3)):
@@ -463,8 +518,8 @@ def _delta(after, before):
 
 
 STEP_LAUNCHES = {"attn_global": 0, "attn_windowed": 0, "attn_bwd_dq": 0,
-                 "attn_bwd_dkv": 0, "upscale_fwd": 1, "upscale_bwd": 1,
-                 "i2t_fwd": 2, "i2t_bwd": 2}
+                 "attn_bwd_dkv": 0, "attn_relpos": 0, "attn_windowed_image": 0,
+                 "upscale_fwd": 1, "upscale_bwd": 1, "i2t_fwd": 2, "i2t_bwd": 2}
 
 
 def training_phase(torch):
@@ -756,10 +811,9 @@ def ft_launches(cfg):
     per layer, and the decoder's K3 x1 and K4 x2 forward and backward."""
     v = cfg.vision
     n_glob = len(v.global_attn_indexes)
-    return {"attn_global": 2 * n_glob,
+    return {**STEP_LAUNCHES, "attn_global": 2 * n_glob,
             "attn_windowed": 2 * (v.num_layers - n_glob),
-            "attn_bwd_dq": v.num_layers, "attn_bwd_dkv": v.num_layers,
-            "upscale_fwd": 1, "upscale_bwd": 1, "i2t_fwd": 2, "i2t_bwd": 2}
+            "attn_bwd_dq": v.num_layers, "attn_bwd_dkv": v.num_layers}
 
 
 def _full_params(torch, tr, config, sd_host, device):
@@ -921,28 +975,433 @@ def finetune_epoch_loop(torch, tr, sd_host):
               f"{time.perf_counter() - t0:.1f} s; checkpoints {steps}")
 
 
-def unported_bounds():
-    """Bounds from the shapes of the TPU kernels still to port, printed for
-    the record (pure arithmetic, nothing runs): K6, unpacked flash attention
-    with any head_dim, on ViT-H's serving encode (16 heads of 80; 4 global
-    layers of 4096 tokens and 28 windowed layers of 25 windows x 196 tokens,
-    B = 1, f32); K7, windowed attention on image-layout qkv at ViT-B, B = 1
-    (K2's work)."""
-    heads, d, total = 16, 80, 0.0
-    for kind, (b, n, hw, layers) in {"global": (1, 4096, 64, 4),
-                                     "windowed": (25, 196, 14, 28)}.items():
-        ms, by = _bound(4.0 * b * heads * n * n * d,
-                        4 * b * n * (4 * heads * d + heads * 2 * hw),
-                        PEAK_F32_FLOPS)
-        total += layers * ms
-        print(f"bound from shapes (not run) K6 ViT-H {kind} layer f32: "
-              f"{ms:.4f} ms ({by}), {layers} per encode")
-    print(f"bound from shapes (not run) K6 per ViT-H encode: {total:.4f} ms")
-    for isz, peak, tname in ((4, PEAK_F32_FLOPS, "f32"),
-                             (2, PEAK_BF16_FLOPS, "bf16")):
-        ms, by = attention_bound_ms(25, 196, 12, (14, 14), isz, peak)
-        print(f"bound from shapes (not run) K7 ViT-B windowed layer B=1 "
-              f"{tname}: {ms:.4f} ms ({by}), 8 per encode when enabled")
+def k6_kernel_phase(torch, attn):
+    """K6 against its plain version at ViT-H shapes and at the test-size
+    model's, f32 and bf16, timed beside its bound, the plain version and
+    SDPA; returns the result-line row (ViT-H global layer, f32: serving's
+    type)."""
+    from dilabhelmholtzoct_tpu_torch.device import full_fp32
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    cases = [("ViT-H global", 1, (64, 64), 16, 80),
+             ("ViT-H windowed", 25, (14, 14), 16, 80),
+             ("tiny global", 2, (8, 8), 4, 16),
+             ("tiny windowed", 8, (4, 4), 4, 16)]
+    row = None
+    for label, b, hw, heads, d in cases:
+        n = hw[0] * hw[1]
+        for dtype in (torch.float32, torch.bfloat16):
+            f32 = dtype == torch.float32
+            tname = "f32" if f32 else "bf16"
+            qkv = (0.5 * torch.randn((b, n, 3 * heads * d), generator=gen,
+                                     device=dev)).to(dtype)
+            rel_h = (0.3 * torch.randn((b, heads, n, hw[0]), generator=gen,
+                                       device=dev)).to(dtype)
+            rel_w = (0.3 * torch.randn((b, heads, n, hw[1]), generator=gen,
+                                       device=dev)).to(dtype)
+            args, kw = (qkv, rel_h, rel_w), dict(hw=hw, num_heads=heads)
+            with full_fp32():
+                before = dict(attn.LAUNCHES)
+                out = attn.flash_attention_packed(*args, **kw)
+                torch.cuda.synchronize()
+                check(_delta(attn.LAUNCHES, before)
+                      == {**dict.fromkeys(before, 0), "attn_relpos": 1},
+                      f"attn_relpos {label}: launched "
+                      f"{_delta(attn.LAUNCHES, before)}")
+                ref = attn.relpos_attention_plain(*args, **kw)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                tol = kernel_tol(ref)
+                check(out.dtype == dtype and out.shape == (b, n, heads * d)
+                      and bool(torch.isfinite(out).all()),
+                      f"attn_relpos {label} {tname}: bad output")
+                check(err <= tol, f"attn_relpos {label} {tname}: max |kernel "
+                                  f"- plain| {err:.3g} > {tol:.3g}")
+                iters = 20 if n > 1000 else 50
+                ms = cuda_ms(lambda: attn.flash_attention_packed(*args, **kw),
+                             iters)
+                plain_ms = cuda_ms(
+                    lambda: attn.relpos_attention_plain(*args, **kw), 5)
+                lib_ms = _sdpa_ms(torch, qkv, rel_h, rel_w, hw, heads)
+            bound, bound_by = attention_bound_ms(
+                b, n, heads, hw, qkv.element_size(),
+                PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS, d=d)
+            print(f"kernel attn_relpos {label} {tname} B={b} N={n} "
+                  f"heads={heads} d={d}: max_abs_err={err:.3g} (limit "
+                  f"{tol:.3g}) ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+                  f"bound_ms={bound:.4f} ({bound_by}) "
+                  f"share_of_bound={bound / ms:.3f}")
+            if label == "ViT-H global" and f32:
+                row = {"name": "attn_relpos", "route": "cuda",
+                       "source": "dilabhelmholtzoct_tpu_torch/csrc/"
+                                 "attention_relpos.cu",
+                       "replaces": "dilabhelmholtzoct_tpu/ops/attention.py:132",
+                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bound, "bound_by": bound_by,
+                       "library_ms": lib_ms}
+            del qkv, rel_h, rel_w, out, ref, args
+        torch.cuda.empty_cache()
+    return {"attn_relpos": row}
+
+
+def k7_kernel_phase(torch, attn):
+    """K7 against its plain version and against K2 on the partitioned
+    windows (bit for bit) at ViT-B and on a ragged grid, f32 and bf16,
+    timed beside K2's bound; then one ViT-B layer's windowed attention
+    through both routes. Returns the result-line row (ViT-B, f32)."""
+    from dilabhelmholtzoct_tpu_torch.device import full_fp32
+    from dilabhelmholtzoct_tpu_torch.inference import synthetic
+    from dilabhelmholtzoct_tpu_torch.models import sam
+    from dilabhelmholtzoct_tpu_torch.models.configs import sam_vit_base
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    heads, ws, c = 12, 14, 768
+    row = None
+    for label, b, hw in (("ViT-B", 1, (64, 64)), ("ragged", 2, (28, 20))):
+        for dtype in (torch.float32, torch.bfloat16):
+            f32 = dtype == torch.float32
+            tname = "f32" if f32 else "bf16"
+            qkv = (0.5 * torch.randn((b, *hw, 3 * c), generator=gen,
+                                     device=dev)).to(dtype)
+            rel = (0.3 * torch.randn((b, heads, *hw, 2 * ws), generator=gen,
+                                     device=dev)).to(dtype)
+            bias = (0.5 * torch.randn((3 * c,), generator=gen,
+                                      device=dev)).to(dtype)
+            kw = dict(ws=ws, num_heads=heads)
+            with full_fp32():
+                before = dict(attn.LAUNCHES)
+                out = attn.flash_attention_windowed_image(qkv, rel, bias, **kw)
+                torch.cuda.synchronize()
+                check(_delta(attn.LAUNCHES, before)
+                      == {**dict.fromkeys(before, 0), "attn_windowed_image": 1},
+                      f"attn_windowed_image {label}: launched "
+                      f"{_delta(attn.LAUNCHES, before)}")
+                ref = attn.windowed_image_attention_plain(qkv, rel, bias, **kw)
+                err = (out.float() - ref.float()).abs().max().item()
+                tol = kernel_tol(ref)
+                check(out.dtype == dtype and out.shape == (b, *hw, c)
+                      and bool(torch.isfinite(out).all()),
+                      f"attn_windowed_image {label} {tname}: bad output")
+                check(err <= tol, f"attn_windowed_image {label} {tname}: max "
+                                  f"|kernel - plain| {err:.3g} > {tol:.3g}")
+                win, r_h, r_w, padded = attn.partition_image_operands(
+                    qkv, rel, bias, ws)
+                k2 = attn.window_unpartition(
+                    attn.attention_fwd_cuda(win, r_h, r_w, hw=(ws, ws),
+                                            num_heads=heads).reshape(
+                                                -1, ws, ws, c), ws, padded, hw)
+                check(bool(torch.equal(out, k2)),
+                      f"attn_windowed_image {label} {tname} is not bit-equal "
+                      f"to K2 on the partitioned windows")
+                ms = cuda_ms(lambda: attn.flash_attention_windowed_image(
+                    qkv, rel, bias, **kw), 50)
+                plain_ms = cuda_ms(
+                    lambda: attn.windowed_image_attention_plain(
+                        qkv, rel, bias, **kw), 5)
+                k2_ms = cuda_ms(lambda: attn.attention_fwd_cuda(
+                    win, r_h, r_w, hw=(ws, ws), num_heads=heads), 50)
+                lib_ms = _sdpa_ms(torch, win, r_h, r_w, (ws, ws), heads)
+            bound, bound_by = attention_bound_ms(
+                win.shape[0], ws * ws, heads, (ws, ws), qkv.element_size(),
+                PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS)
+            print(f"kernel attn_windowed_image {label} {tname} B={b} "
+                  f"grid={hw} heads={heads} ({win.shape[0]} windows): "
+                  f"max_abs_err={err:.3g} (limit {tol:.3g}) bit-equal to K2; "
+                  f"ms={ms:.4f} "
+                  f"K2_on_partitioned_windows_ms={k2_ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} library_ms (SDPA on the "
+                  f"partitioned windows, partition not counted)="
+                  f"{lib_ms:.4f} bound_ms={bound:.4f} ({bound_by}) "
+                  f"share_of_bound={bound / ms:.3f}")
+            if label == "ViT-B" and f32:
+                row = {"name": "attn_windowed_image", "route": "cuda",
+                       "source": "dilabhelmholtzoct_tpu_torch/csrc/"
+                                 "attention_winimg.cu",
+                       "replaces": "dilabhelmholtzoct_tpu/ops/attention.py:633",
+                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bound, "bound_by": bound_by,
+                       "library_ms": lib_ms}
+            del qkv, rel, bias, out, ref, win, r_h, r_w, k2
+        torch.cuda.empty_cache()
+
+    # one ViT-B layer's windowed attention, both routes on the same input
+    cfg = sam_vit_base()
+    sd_host = synthetic.random_params(cfg, seed=0)
+    pf = "vision_encoder.layers.0.attn"
+    for dtype in (torch.float32, torch.bfloat16):
+        tname = "f32" if dtype == torch.float32 else "bf16"
+        sd = {k: v.to(dev) for k, v in sd_host.items() if k.startswith(pf)}
+        x = torch.randn((1, 64, 64, c), generator=gen, device=dev).to(dtype)
+
+        def fused():
+            return sam._windowed_attention_image(x, sd, pf, cfg.vision, ws)
+
+        def partitioned():
+            win, padded = sam.window_partition(x, ws)
+            return sam.window_unpartition(
+                sam.vision_attention(win, sd, pf, cfg.vision), ws, padded,
+                (64, 64))
+
+        with torch.inference_mode(), full_fp32():
+            before = dict(attn.LAUNCHES)
+            a, p_ = fused(), partitioned()
+            check(_delta(attn.LAUNCHES, before)
+                  == {**dict.fromkeys(before, 0), "attn_windowed_image": 1,
+                      "attn_windowed": 1}, "layer routes: wrong launches")
+            err = (a.float() - p_.float()).abs().max().item()
+            tol = kernel_tol(p_)
+            check(err <= tol, f"layer routes {tname} differ by {err:.3g} "
+                              f"(limit {tol:.3g})")
+            t = {"image": [], "partitioned": []}
+            for name, fn in (("partitioned", partitioned), ("image", fused),
+                             ("image", fused), ("partitioned", partitioned)):
+                t[name].append(cuda_ms(fn, 20))
+        print(f"ViT-B windowed layer attention {tname} B=1 (LN output to "
+              f"projected output): image-layout route (K7) "
+              f"{min(t['image']):.4f} ms (both rounds "
+              f"{[round(v, 4) for v in t['image']]}), partitioned route "
+              f"(pad + partition + qkv + K2 + proj + un-partition) "
+              f"{min(t['partitioned']):.4f} ms "
+              f"({[round(v, 4) for v in t['partitioned']]}); max "
+              f"|difference| {err:.3g} (limit {tol:.3g})")
+        del sd, x
+    torch.cuda.empty_cache()
+    return {"attn_windowed_image": row}
+
+
+def vith_serving_phase(torch, attn, sd):
+    """Serving at full ViT-H; returns the launch counts of its three
+    requests (K6 only)."""
+    from dilabhelmholtzoct_tpu_torch.inference import synthetic
+    from dilabhelmholtzoct_tpu_torch.inference.engine import SegmentationEngine
+    from dilabhelmholtzoct_tpu_torch.models.configs import sam_vit_huge
+
+    cfg = sam_vit_huge()
+    engine = SegmentationEngine(sd, cfg)
+    check(engine.device.type == "cuda", "engine is not on the card")
+    img = synthetic.oct_image(seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()  # --- main path starts
+    t0 = time.perf_counter()
+    bin_box, p_box = engine.segment(img, synthetic.BOX, "bbox")
+    cold_ms = 1e3 * (time.perf_counter() - t0)
+    after_encode = _counts()
+    bin_pt, p_pt = engine.segment(img, synthetic.POINT, "points")
+    bin_3, p_3 = engine.segment(img, synthetic.BOXES3, "bbox")
+    launches = _counts()  # --- main path ends
+    peak_bytes = torch.cuda.max_memory_allocated()
+    want = {**dict.fromkeys(launches, 0),
+            "attn_relpos": cfg.vision.num_layers}
+    check(after_encode == want, f"one ViT-H encode must launch K6 x32 and "
+                                f"nothing else, got {after_encode}")
+    check(launches == after_encode,
+          f"a cached prompt launched kernels: {launches}")
+    for b_, p_, n in ((bin_box, p_box, 1), (bin_pt, p_pt, 1), (bin_3, p_3, 3)):
+        check(b_.shape == p_.shape == (n, 496, 512), f"shape {b_.shape}")
+        check(b_.dtype == np.uint8 and set(np.unique(b_)) <= {0, 1},
+              "masks are not 0/1 uint8")
+        check(bool(np.isfinite(p_).all()) and p_.min() >= 0 and p_.max() <= 1,
+              "probabilities are not finite in [0, 1]")
+    cached = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        engine.segment(img, synthetic.BOX, "bbox")
+        cached.append(1e3 * (time.perf_counter() - t0))
+    warm = []
+    for seed in (1, 2, 3):  # new images: encode + decode past first use
+        other = synthetic.oct_image(seed=seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.segment(other, synthetic.BOX, "bbox")
+        warm.append(1e3 * (time.perf_counter() - t0))
+    print(f"serving ViT-H f32 (32 layers, 1280 wide, 16 heads of 80): "
+          f"launches {launches}; cold encode+decode {cold_ms:.2f} ms, new "
+          f"images after it {[round(w, 2) for w in warm]} ms, cached "
+          f"prompt-to-mask median of 10 {statistics.median(cached):.2f} ms "
+          f"(all {[round(c, 2) for c in cached]}), max_memory_allocated "
+          f"{peak_bytes / 2**20:.1f} MiB")
+    del engine
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cbin, cprob = SegmentationEngine(sd, cfg, device="cpu").segment(
+        img, synthetic.BOX, "bbox")
+    cpu_s = time.perf_counter() - t0
+    diff = float(np.abs(cprob - p_box).max())
+    near = np.abs(cprob - 0.5) <= PROB_ATOL
+    mism = int((cbin != bin_box)[~near].sum())
+    print(f"serving ViT-H vs cpu engine (box) at full depth (32 layers; the "
+          f"CPU request took {cpu_s:.1f} s): max |p_card - p_cpu| = "
+          f"{diff:.3g} (atol {PROB_ATOL}), mask pixels that differ away "
+          f"from 0.5: {mism}, foreground share {bin_box.mean():.4f}")
+    check(diff <= PROB_ATOL, f"ViT-H card probabilities differ from the CPU "
+                             f"engine by {diff:.3g}")
+    check(mism == 0, f"{mism} ViT-H mask pixels differ from the CPU engine")
+    return launches
+
+
+def fused_windowed_phase(torch, attn):
+    """ViT-B serving under ``set_fused_windowed('on')`` against the default
+    route; returns the launch counts of the ``'on'`` encode."""
+    from dilabhelmholtzoct_tpu_torch.device import full_fp32
+    from dilabhelmholtzoct_tpu_torch.inference import synthetic
+    from dilabhelmholtzoct_tpu_torch.inference.engine import SegmentationEngine
+    from dilabhelmholtzoct_tpu_torch.models import sam
+    from dilabhelmholtzoct_tpu_torch.models.configs import sam_vit_base
+    from dilabhelmholtzoct_tpu_torch.ops.preprocess import preprocess_image
+
+    cfg = sam_vit_base()
+    sd = synthetic.random_params(cfg, seed=0)
+    img = synthetic.oct_image(seed=0)
+    _, p_default = SegmentationEngine(sd, cfg).segment(img, synthetic.BOX)
+    try:
+        sam.set_fused_windowed("on")
+        engine = SegmentationEngine(sd, cfg)
+        _reset_counts()  # --- main path starts
+        bin_on, p_on = engine.segment(img, synthetic.BOX, "bbox")
+        launches = _counts()  # --- main path ends
+        want = {**dict.fromkeys(launches, 0), "attn_global": 4,
+                "attn_windowed_image": 8}
+        check(launches == want, f"a ViT-B encode under 'on' must launch K1 "
+                                f"x4, K7 x8 and K2 x0, got {launches}")
+        diff = float(np.abs(p_on - p_default).max())
+        check(p_on.shape == (1, 496, 512) and bool(np.isfinite(p_on).all()),
+              "bad probabilities under 'on'")
+        check(diff <= PROB_ATOL, f"probabilities under 'on' differ from the "
+                                 f"default route's by {diff:.3g}")
+
+        x = torch.from_numpy(img[None]).to(engine.device)
+        times = {"auto": [], "on": []}
+        with torch.inference_mode(), full_fp32():
+            pix, _ = preprocess_image(x, target_size=cfg.vision.image_size)
+            for mode in ("auto", "on", "on", "auto", "auto", "on"):
+                sam.set_fused_windowed(mode)
+                times[mode].append(cuda_ms(
+                    lambda: sam.encode_image(engine.params, pix, cfg), 10))
+    finally:
+        sam.set_fused_windowed("auto")
+    print(f"serving ViT-B f32 under set_fused_windowed('on'): launches "
+          f"{launches}; max |p_on - p_default| = {diff:.3g} (atol "
+          f"{PROB_ATOL}); encode ms (CUDA events, mean of 10, three rounds "
+          f"each, interleaved) default route "
+          f"{[round(t, 3) for t in times['auto']]}, 'on' route "
+          f"{[round(t, 3) for t in times['on']]}")
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _report_numbers(report):
+    """Every number of an evaluation report, flattened to {path: value}."""
+    out = {}
+    for key, val in report.items():
+        if key == "_global":
+            for k, row in val.items():
+                out.update({f"_global/{k}/{i}": x for i, x in enumerate(row)})
+        elif key.startswith("_"):
+            out.update({f"{key}/{k}": x for k, x in val.items()})
+        else:
+            for metric, d in val.items():
+                out.update({f"{key}/{metric}/{k}": x for k, x in d.items()})
+    return out
+
+
+def _quiet(fn, *args, **kw):
+    """``fn(*args, **kw)`` with its printing kept off the output (the
+    evaluation prints the reference's whole per-class report)."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args, **kw)
+
+
+def evaluation_phase(torch, attn, sd_h):
+    """The evaluation harness at full ViT-H on the card, at a depth cut on
+    the card against the CPU, and as the tail of a short ViT-B training
+    run."""
+    from dilabhelmholtzoct_tpu_torch.data.pipeline import PromptedDataset
+    from dilabhelmholtzoct_tpu_torch.eval.harness import evaluate_metrics
+    from dilabhelmholtzoct_tpu_torch.inference import synthetic
+    from dilabhelmholtzoct_tpu_torch.models.configs import sam_vit_huge
+    from dilabhelmholtzoct_tpu_torch.train import trainer as tr
+
+    cfg = sam_vit_huge()
+    config = tr.TrainConfig(base_model="facebook/sam-vit-huge")
+    items = synthetic.oct_training_items(8, seed=11)
+    ds = PromptedDataset(items, seed=0)
+    _reset_counts()  # --- main path starts
+    t0 = time.perf_counter()
+    report = _quiet(evaluate_metrics, sd_h, cfg, config, ds,
+                    orig_hw=(496, 512))
+    eval_s = time.perf_counter() - t0
+    launches = _counts()  # --- main path ends
+    want = {**dict.fromkeys(launches, 0),
+            "attn_relpos": cfg.vision.num_layers * len(ds)}
+    check(launches == want, f"evaluating {len(ds)} images at ViT-H must "
+                            f"launch K6 x32 per image, got {launches}")
+    nums = _report_numbers(report)
+    check(all(np.isfinite(v) for v in nums.values()), "report not finite")
+    check({str(c) for c in range(8)} <= set(report),
+          f"classes in the report: {sorted(report)}")
+    print(f"evaluation ViT-H f32, 8 images x 8 components on the card: "
+          f"{eval_s:.1f} s, launches {launches}; mean IoU "
+          f"{report['_means']['iou']:.4f}, mean Dice "
+          f"{report['_means']['dice']:.4f}, mean AP "
+          f"{report['_means']['ap']:.4f} (random weights)")
+
+    # the card against the CPU at a depth cut that keeps both layer kinds
+    cfg2 = dataclasses.replace(cfg, vision=dataclasses.replace(
+        cfg.vision, num_layers=2, global_attn_indexes=(1,)))
+    sd2 = synthetic.random_params(cfg2, seed=2)
+    ds2 = PromptedDataset(items[:4], seed=0)
+    reports = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        reports[device] = _report_numbers(_quiet(
+            evaluate_metrics, sd2, cfg2, config, ds2, orig_hw=(496, 512),
+            batch_encode=4, device=device))
+        print(f"evaluation at the depth cut on {device}: "
+              f"{time.perf_counter() - t0:.1f} s")
+    check(set(reports["cuda"]) == set(reports["cpu"]), "report keys differ")
+    worst = max(reports["cpu"], key=lambda k: abs(reports["cpu"][k]
+                                                  - reports["cuda"][k]))
+    diff = abs(reports["cpu"][worst] - reports["cuda"][worst])
+    print(f"evaluation card vs cpu, ViT-H width, depth cut to 2 layers "
+          f"(layer 0 windowed, layer 1 global) of 32, 4 images: "
+          f"{len(reports['cpu'])} numbers, max |difference| {diff:.3g} at "
+          f"{worst} (atol {EVAL_ATOL})")
+    check(diff <= EVAL_ATOL, f"evaluation reports differ by {diff:.3g}")
+
+    # training(evaluate=True): one short ViT-B epoch, then the report
+    from dilabhelmholtzoct_tpu_torch.models.configs import sam_vit_base
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "weights.pt")
+        torch.save(synthetic.random_params(sam_vit_base(), seed=0), ckpt)
+        cfg_loop = tr.TrainConfig(
+            evaluate=True, batch_size=4, epochs=1, ckpt_keep=1,
+            pretrained_checkpoint=ckpt, checkpoint=os.path.join(tmp, "ck"),
+            display_name="smoke_eval",
+            log_jsonl=os.path.join(tmp, "metrics.jsonl"))
+        _reset_counts()
+        t0 = time.perf_counter()
+        r = _quiet(tr.training, cfg_loop, splits=(items[:4], items[4:]))
+        c = _counts()
+        check("metrics" in r and all(
+            np.isfinite(v) for v in _report_numbers(r["metrics"]).values()),
+            "training(evaluate=True) returned no finite metrics")
+        # 8 images precomputed in bf16 + 4 evaluated in f32, K1 x4, K2 x8 each
+        check(c["attn_global"] == 4 * 12 and c["attn_windowed"] == 8 * 12
+              and c["attn_relpos"] == 0, f"training + evaluation at ViT-B "
+                                         f"launched {c}")
+        print(f"training(evaluate=True) ViT-B, 1 epoch of 1 step + the "
+              f"report on 4 validation images: "
+              f"{time.perf_counter() - t0:.1f} s, train loss "
+              f"{r['history'][0]['train_loss']:.4f}, mean IoU "
+              f"{r['metrics']['_means']['iou']:.4f}; launches {c}")
+    return launches
 
 
 def main() -> int:
@@ -989,7 +1448,27 @@ def main() -> int:
     print(f"[phases] full fine-tune {time.perf_counter() - t0:.1f} s")
     rows.update(train_rows)
     rows.update(k5_rows)
-    unported_bounds()
+    t0 = time.perf_counter()
+    rows.update(k6_kernel_phase(torch, attn))
+    rows.update(k7_kernel_phase(torch, attn))
+    print(f"[phases] K6/K7 kernels {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    from dilabhelmholtzoct_tpu_torch.inference import synthetic
+    from dilabhelmholtzoct_tpu_torch.models.configs import sam_vit_huge
+
+    sd_h = synthetic.random_params(sam_vit_huge(), seed=0)
+    print(f"[phases] ViT-H random weights {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    vith = vith_serving_phase(torch, attn, sd_h)
+    launches["attn_relpos"] = vith["attn_relpos"]
+    print(f"[phases] ViT-H serving {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    on = fused_windowed_phase(torch, attn)
+    launches["attn_windowed_image"] = on["attn_windowed_image"]
+    print(f"[phases] ViT-B serving under 'on' {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    evaluation_phase(torch, attn, sd_h)
+    print(f"[phases] evaluation {time.perf_counter() - t0:.1f} s")
     for k, row in rows.items():
         check(launches[k] > 0, f"{k} was not launched on the main path")
         row["launches"] = launches[k]

@@ -53,19 +53,6 @@ namespace {
 
 using namespace attn;
 
-constexpr int KMAX = 256;      // most keys K2 holds (16 x 16 windows)
-constexpr int NJ = KMAX / 16;  // key columns per thread in K2
-
-// max / sum over the 16 threads (tx) that share a query row
-__device__ __forceinline__ float row_max(float x) {
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float row_sum(float x) {
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 // out rows and, with lse != null, lse[lse_row + q] = m + log(l)
 template <typename T>
 __device__ __forceinline__ void store_out(T* out, float* lse, size_t lse_row,
@@ -77,10 +64,8 @@ __device__ __forceinline__ void store_out(T* out, float* lse, size_t lse_row,
     const int q = q0 + ty + 16 * i;
     if (q >= n) continue;
     if (lse != nullptr && tx == 0) lse[lse_row + q] = m[i] + logf(l[i]);
-    const float inv = 1.f / l[i];
-    const float o[4] = {acc[i][0] * inv, acc[i][1] * inv, acc[i][2] * inv,
-                        acc[i][3] * inv};
-    store4(out + ((size_t)b * n + q) * C + head * D + 4 * tx, o);
+    store_normalised(out + ((size_t)b * n + q) * C + head * D + 4 * tx,
+                     acc[i], l[i]);
   }
 }
 
@@ -179,7 +164,7 @@ attn_windowed_kernel(const T* __restrict__ qkv, const T* __restrict__ rel_h,
                      float* __restrict__ lse, int n, int heads, int H, int W,
                      float scale, int qk_floats) {
   extern __shared__ __align__(16) float smem[];
-  const int nk = (n + 15) / 16 * 16, nj = nk / 16, ldp = nk + 4;
+  const int nk = (n + 15) / 16 * 16;
   float* Qs = smem;
   float* Ks = Qs + TQ * LD;
   float* Ps = smem;
@@ -200,53 +185,8 @@ attn_windowed_kernel(const T* __restrict__ qkv, const T* __restrict__ rel_h,
   load_rel(Rw, rel_w + rel_row * W, W, n - q0);
   __syncthreads();
 
-  float s[4][NJ];
-#pragma unroll
-  for (int j0 = 0; j0 < NJ; j0 += 4) {
-    float t[4][4] = {};
-    if (j0 < nj) score_tile(t, Qs, Ks, ty, tx, j0, nj);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j0 + j] = t[i][j];
-  }
-
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int q = ty + 16 * i;
-    float mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int k = tx + 16 * j;
-      if (k < n) {
-        const int kr = k / W;
-        s[i][j] += Rh[q * H + kr] + Rw[q * W + (k - kr * W)];
-      } else {
-        s[i][j] = -INFINITY;
-      }
-      mx = fmaxf(mx, s[i][j]);
-    }
-    mx = row_max(mx);
-    m[i] = mx;
-    float rs = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      s[i][j] = expf(s[i][j] - mx);  // 0 past n
-      rs += s[i][j];
-    }
-    l[i] = row_sum(rs);
-  }
-  __syncthreads();  // every thread is done reading Qs / Ks: reuse as Ps
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      if (j < nj) Ps[(ty + 16 * i) * ldp + tx + 16 * j] = s[i][j];
-  __syncthreads();
-
-  float acc[4][4] = {};
-  pv_tile(acc, Ps, ldp, Vs, D, nk, ty, tx);
+  float m[4], l[4], acc[4][4];
+  window_attend(Qs, Ks, Ps, Vs, Rh, Rw, n, H, W, ty, tx, m, l, acc);
   store_out(out, lse, rel_row - q0, acc, m, l, b, n, C, head, q0, ty, tx);
 }
 

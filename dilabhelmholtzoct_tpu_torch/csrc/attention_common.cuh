@@ -1,5 +1,7 @@
 // Tile helpers shared by the encoder attention kernels: the forward K1 / K2
-// (attention.cu) and the backward K5 (attention_bwd.cu).
+// (attention.cu), the backward K5 (attention_bwd.cu), the any-head-dim
+// forward K6 (attention_relpos.cu) and the image-layout windowed forward K7
+// (attention_winimg.cu).
 //
 // Every tile is 64 rows of one head (head dim 64) widened to f32 in shared
 // memory; a block of 256 threads is a 16 x 16 grid of threads (ty, tx) and
@@ -20,6 +22,8 @@ constexpr int TQ = 64;         // query rows per tile
 constexpr int TK = 64;         // key tokens per tile
 constexpr int THREADS = 256;   // 16 x 16: thread (ty, tx)
 constexpr int LD = D + 4;      // padded shared row of a 64-wide tile
+constexpr int KMAX = 256;      // most keys a whole-window kernel holds (16 x 16)
+constexpr int NJ = KMAX / 16;  // key columns per thread in those kernels
 
 __device__ __forceinline__ void load4(const float* p, float* v) {
   const float4 x = *reinterpret_cast<const float4*>(p);
@@ -140,6 +144,91 @@ __device__ __forceinline__ void pv_tile(float (*acc)[4], const float* Ps,
       }
     }
   }
+}
+
+// max / sum over the 16 threads (tx) that share a query row
+__device__ __forceinline__ float row_max(float x) {
+  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float row_sum(float x) {
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// The last step of K1, K2 and K7: one query row's four output columns,
+// acc / l in f32, rounded once to T. Shared so that the kernels that must
+// agree bit for bit (K7 with K2) cannot normalise differently.
+template <typename T>
+__device__ __forceinline__ void store_normalised(T* dst, const float* acc,
+                                                 float l) {
+  const float inv = 1.f / l;
+  const float o[4] = {acc[0] * inv, acc[1] * inv, acc[2] * inv, acc[3] * inv};
+  store4(dst, o);
+}
+
+// One-pass softmax attention of a 64-query tile against all n <= KMAX keys
+// of a window, every operand already in shared memory (the body of K2, and
+// of K7, which differs only in where its rows come from and go to):
+//   Qs TQ x LD (scaled queries) | Ks nk x LD | Vs nk x D, nk = n rounded up
+//   to 16 with zero rows past n | Rh TQ x H | Rw TQ x W bias factors.
+// Ps (TQ x (nk + 4)) may alias Qs / Ks: they are consumed before it is
+// written. Leaves the row maximum m, the denominator l and the
+// un-normalised output tile acc in registers. Every thread of the block
+// must call it (it synchronises).
+__device__ __forceinline__ void window_attend(
+    const float* Qs, const float* Ks, float* Ps, const float* Vs,
+    const float* Rh, const float* Rw, int n, int H, int W, int ty, int tx,
+    float* m, float* l, float (*acc)[4]) {
+  const int nk = (n + 15) / 16 * 16, nj = nk / 16, ldp = nk + 4;
+  float s[4][NJ];
+#pragma unroll
+  for (int j0 = 0; j0 < NJ; j0 += 4) {
+    float t[4][4] = {};
+    if (j0 < nj) score_tile(t, Qs, Ks, ty, tx, j0, nj);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j0 + j] = t[i][j];
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int q = ty + 16 * i;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int k = tx + 16 * j;
+      if (k < n) {
+        const int kr = k / W;
+        s[i][j] += Rh[q * H + kr] + Rw[q * W + (k - kr * W)];
+      } else {
+        s[i][j] = -INFINITY;
+      }
+      mx = fmaxf(mx, s[i][j]);
+    }
+    mx = row_max(mx);
+    m[i] = mx;
+    float rs = 0.f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      s[i][j] = expf(s[i][j] - mx);  // 0 past n
+      rs += s[i][j];
+    }
+    l[i] = row_sum(rs);
+  }
+  __syncthreads();  // every thread is done reading Qs / Ks: reuse as Ps
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      if (j < nj) Ps[(ty + 16 * i) * ldp + tx + 16 * j] = s[i][j];
+  __syncthreads();
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  pv_tile(acc, Ps, ldp, Vs, D, nk, ty, tx);
 }
 
 }  // namespace attn

@@ -1,6 +1,8 @@
-"""Where the serving time goes on the card, at SAM ViT-B (f32).
+"""Where the serving time goes on the card, at SAM ViT-B (f32) or another
+preset (``--base_model facebook/sam-vit-huge``: every encoder layer on K6).
 
-    python -m dilabhelmholtzoct_tpu_torch.inference.profile_serving [--top 12]
+    python -m dilabhelmholtzoct_tpu_torch.inference.profile_serving \
+        [--base_model facebook/sam-vit-base] [--fused_windowed on] [--top 12]
 
 Runs the seeded serving workload (``inference/synthetic.py``) through
 ``SegmentationEngine`` under ``torch.profiler``: one request on a new image
@@ -8,8 +10,8 @@ Runs the seeded serving workload (``inference/synthetic.py``) through
 so one-time start-up costs stay outside the window) and ten cached
 prompt-to-mask requests. For each window it prints the host wall time, the
 device time summed over kernels and copies, the busy share (device time /
-wall), the time by kind (K1, K2, matrix products, convolutions, copies, other
-kernels) and the top kernels by device time. Needs a card.
+wall), the time by kind (K1, K2, K6, K7, matrix products, convolutions,
+copies, other kernels) and the top kernels by device time. Needs a card.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ import time
 
 import torch
 
-from ..models.configs import sam_vit_base
+from ..models.configs import config_for
+from ..models.sam import set_fused_windowed
 from . import synthetic
 from .engine import SegmentationEngine
 
@@ -28,8 +31,12 @@ def _kind(name: str) -> str:
     low = name.lower()
     if "attn_global" in low:
         return "K1 attn_global"
+    if "attn_winimg" in low:
+        return "K7 attn_windowed_image"
     if "attn_windowed" in low:
         return "K2 attn_windowed"
+    if "attn_relpos" in low:
+        return "K6 attn_relpos"
     if "attn_bwd" in low:
         return "K5 attn_bwd"
     if "upscale_" in low:
@@ -87,11 +94,20 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--top", type=int, default=12,
                         help="kernels listed per window")
+    parser.add_argument("--base_model", type=str,
+                        default="facebook/sam-vit-base")
+    parser.add_argument("--fused_windowed", type=str, default="auto",
+                        choices=["auto", "on", "off"],
+                        help="the windowed layers' route "
+                             "(models/sam.py::set_fused_windowed)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving needs a CUDA device")
-    print(f"device: {torch.cuda.get_device_name(0)}; torch {torch.__version__}")
-    cfg = sam_vit_base()
+    print(f"device: {torch.cuda.get_device_name(0)}; torch "
+          f"{torch.__version__}; {args.base_model}, fused_windowed="
+          f"{args.fused_windowed}")
+    set_fused_windowed(args.fused_windowed)
+    cfg = config_for(args.base_model)
     engine = SegmentationEngine(synthetic.random_params(cfg, seed=0), cfg)
     engine.segment(synthetic.oct_image(seed=1), synthetic.BOX)  # start-up
     img = synthetic.oct_image(seed=0)

@@ -24,6 +24,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 # one shared library per source; headers are hashed into every library
 SOURCES = {"attention": "attention.cu", "attention_bwd": "attention_bwd.cu",
+           "attention_relpos": "attention_relpos.cu",
+           "attention_winimg": "attention_winimg.cu",
            "upscaler": "upscaler.cu", "decoder_attn": "decoder_attn.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

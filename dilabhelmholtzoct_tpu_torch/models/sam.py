@@ -15,8 +15,10 @@ package, so each function here is compared with its JAX counterpart on the
 same inputs. Parameters are the HF ``SamModel`` state_dict (see
 ``models/convert.py``); every function takes it as ``sd``. The encoder's
 attention goes through ``ops/attention.py::flash_attention_packed`` — the
-CUDA kernels on the card (K1 / K2 forward, K5 backward), the plain versions
-on the host. In bf16 (the
+CUDA kernels on the card (K1 / K2 forward and K5 backward at head dim 64, K6
+at any other, as ViT-H's 80), the plain versions on the host — and, under
+``set_fused_windowed('on')``, its windowed layers through
+``flash_attention_windowed_image`` (K7). In bf16 (the
 training compute dtype) the decoder's image->token update goes through
 ``ops/decoder_attn.py::fused_i2t_ln`` (K4) and the blocked upscaler through
 ``ops/upscaler.py::upscale_hyper_masks`` (K3), as the JAX package routes its
@@ -34,7 +36,13 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.attention import flash_attention_packed
+from ..ops.attention import (
+    HEAD_DIM,
+    flash_attention_packed,
+    flash_attention_windowed_image,
+    window_partition,
+    window_unpartition,
+)
 from ..ops.decoder_attn import T_PAD, fused_i2t_ln
 from ..ops.upscaler import upscale_hyper_masks
 from ..ops.preprocess import resize_matrix
@@ -121,43 +129,77 @@ def vision_attention(x, sd, prefix: str, cfg: VisionConfig):
     return linear(out.reshape(b, h, w, c), sd, f"{prefix}.proj")
 
 
-def window_partition(x, window_size: int):
-    """(B, H, W, C) → (B*nW, ws, ws, C) with bottom/right zero padding."""
+_FUSED_WINDOWED = "auto"
+
+
+def set_fused_windowed(mode: str):
+    """mode in {'auto', 'on', 'off', 'interpret'} — the JAX package's switch
+    of the same name: with 'on' the windowed layers of a non-checkpointed
+    encode read the image-layout qkv through
+    ``ops/attention.py::flash_attention_windowed_image`` (K7), and the pad,
+    the two window transposes and the crop of the partitioned route never
+    run. 'auto' resolves to off, the JAX package's default (set there after a
+    TPU measurement; which route wins on a given card is for
+    ``chip_smoke.py`` to time, both are kept). 'interpret' names the Pallas
+    interpreter there and means nothing here: it is taken as 'on'.
+    Forward-only; a checkpointed encode (encoder training) keeps the
+    partitioned route, which has the backward."""
+    global _FUSED_WINDOWED
+    if mode not in ("auto", "on", "off", "interpret"):
+        raise ValueError(f"unknown fused-windowed mode {mode!r}")
+    _FUSED_WINDOWED = mode
+
+
+def _use_fused_windowed(cfg: VisionConfig) -> bool:
+    # K7 itself takes any head count; the even-heads test mirrors the JAX
+    # package's routing, so that one switch picks the same route in both
+    if not (cfg.use_rel_pos and cfg.head_dim == HEAD_DIM
+            and cfg.num_heads % 2 == 0):
+        return False
+    return _FUSED_WINDOWED in ("on", "interpret")
+
+
+def _windowed_attention_image(x, sd, prefix: str, cfg: VisionConfig, ws: int):
+    """Windowed self-attention on the LayerNorm output x (B, H, W, C) with no
+    window partition: one qkv projection over the H * W real tokens, the bias
+    factors built in image space from row- and column-tiled tables (the
+    window row of image row r is r % ws, since windows tile at ws strides),
+    K7 on the image layout, then the output projection."""
     b, h, w, c = x.shape
-    pad_h = (window_size - h % window_size) % window_size
-    pad_w = (window_size - w % window_size) % window_size
-    if pad_h or pad_w:
-        x = F.pad(x, (0, 0, 0, pad_w, 0, pad_h))
-    ph, pw = h + pad_h, w + pad_w
-    x = x.reshape(b, ph // window_size, window_size, pw // window_size,
-                  window_size, c)
-    x = x.permute(0, 1, 3, 2, 4, 5)
-    return x.reshape(-1, window_size, window_size, c), (ph, pw)
+    n_heads = cfg.num_heads
+    qkv = linear(x.reshape(b, h * w, c), sd, f"{prefix}.qkv").reshape(
+        b, h, w, 3 * c)
+    rh = rel_pos_table(sd[f"{prefix}.rel_pos_h"], ws, ws).to(x.dtype)
+    rw = rel_pos_table(sd[f"{prefix}.rel_pos_w"], ws, ws).to(x.dtype)
+    rh_t = rh.repeat(-(-h // ws), 1, 1)[:h]  # (H, ws, d)
+    rw_t = rw.repeat(-(-w // ws), 1, 1)[:w]
+    q_img = qkv[..., :c].reshape(b, h, w, n_heads, c // n_heads)
+    rel = torch.cat([torch.einsum("bxyhc,xkc->bhxyk", q_img, rh_t),
+                     torch.einsum("bxyhc,ykc->bhxyk", q_img, rw_t)], dim=-1)
+    out = flash_attention_windowed_image(
+        qkv, rel.contiguous(), sd[f"{prefix}.qkv.bias"], ws=ws,
+        num_heads=n_heads)
+    return linear(out, sd, f"{prefix}.proj")
 
 
-def window_unpartition(windows, window_size: int, padded_hw, hw):
-    ph, pw = padded_hw
-    h, w = hw
-    c = windows.shape[-1]
-    b = windows.shape[0] // ((ph // window_size) * (pw // window_size))
-    x = windows.reshape(b, ph // window_size, pw // window_size, window_size,
-                        window_size, c)
-    x = x.permute(0, 1, 3, 2, 4, 5).reshape(b, ph, pw, c)
-    return x[:, :h, :w, :]
-
-
-def vision_layer(x, sd, prefix: str, cfg: VisionConfig, window_size: int):
+def vision_layer(x, sd, prefix: str, cfg: VisionConfig, window_size: int,
+                 fused_win: bool = False):
     shortcut = x
     x = layer_norm(x, sd, f"{prefix}.layer_norm1", cfg.layer_norm_eps)
-    if window_size > 0:
-        # the pad comes AFTER the LN: pad tokens are zeros that the qkv
-        # projection turns into its bias, and they take part in attention
-        # as unmasked keys (64 → 70 → 25 windows of 196 at ViT-B)
-        hw = (x.shape[1], x.shape[2])
-        x, padded_hw = window_partition(x, window_size)
-    x = vision_attention(x, sd, f"{prefix}.attn", cfg)
-    if window_size > 0:
-        x = window_unpartition(x, window_size, padded_hw, hw)
+    if window_size > 0 and fused_win and _use_fused_windowed(cfg):
+        x = _windowed_attention_image(x, sd, f"{prefix}.attn", cfg,
+                                      window_size)
+    else:
+        if window_size > 0:
+            # the pad comes AFTER the LN: pad tokens are zeros that the qkv
+            # projection turns into its bias, and they take part in
+            # attention as unmasked keys (64 → 70 → 25 windows of 196 at
+            # ViT-B)
+            hw = (x.shape[1], x.shape[2])
+            x, padded_hw = window_partition(x, window_size)
+        x = vision_attention(x, sd, f"{prefix}.attn", cfg)
+        if window_size > 0:
+            x = window_unpartition(x, window_size, padded_hw, hw)
     x = shortcut + x
     y = layer_norm(x, sd, f"{prefix}.layer_norm2", cfg.layer_norm_eps)
     y = linear(gelu(linear(y, sd, f"{prefix}.mlp.lin1")), sd,
@@ -172,7 +214,9 @@ def encode_image(sd, pixel_values, cfg: SamConfig, *, remat: bool = False):
     remat=True checkpoints each transformer layer (the JAX package's
     ``jax.checkpoint`` per layer, the encoder fine-tuning path): the
     backward recomputes the layer, so only its input is kept, and its
-    attention runs K1 / K2 once more."""
+    attention runs K1 / K2 once more. Without it the windowed layers may
+    take the image-layout route (``set_fused_windowed``), which is
+    forward-only."""
     v = cfg.vision
     ps = v.patch_size
     bsz, ih, iw, ic = pixel_values.shape
@@ -192,7 +236,8 @@ def encode_image(sd, pixel_values, cfg: SamConfig, *, remat: bool = False):
             x = checkpoint(vision_layer, x, sd, f"vision_encoder.layers.{i}",
                            v, ws, use_reentrant=False)
         else:
-            x = vision_layer(x, sd, f"vision_encoder.layers.{i}", v, ws)
+            x = vision_layer(x, sd, f"vision_encoder.layers.{i}", v, ws,
+                             fused_win=True)
     # neck: 1x1 conv → LN(channel) → 3x3 conv → LN(channel), bias-free
     w1 = sd["vision_encoder.neck.conv1.weight"][:, :, 0, 0]
     x = torch.matmul(x.float(), w1.to(x.dtype).float().T).to(x.dtype)

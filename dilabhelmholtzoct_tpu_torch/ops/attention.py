@@ -3,9 +3,12 @@ forward and backward.
 
 ``flash_attention_packed`` is the port of
 ``dilabhelmholtzoct_tpu/ops/attention.py::flash_attention_packed`` and, when
-a gradient is needed, of its custom VJP ``packed_attention_vjp``: it reads
-the raw qkv projection (B, N, 3C) and writes token-order (B, N, C). On a
-CUDA tensor it launches hand-written kernels:
+a gradient is needed, of its custom VJP ``packed_attention_vjp``; for the
+models the JAX package sends to ``flash_attention_relpos`` instead (a head
+dim other than 64, or an odd head count) it is the port of that function
+too, without the head-major copies around it. It reads the raw qkv
+projection (B, N, 3C) and writes token-order (B, N, C). On a CUDA tensor it
+launches hand-written kernels:
 
   * K1 ``attn_global_kernel`` (``csrc/attention.cu``) for the global layers
     (N > WINDOW_MAX_TOKENS; N = 4096 at ViT-B), replacing the TPU
@@ -17,11 +20,21 @@ CUDA tensor it launches hand-written kernels:
   * K5 ``attn_bwd_dq_kernel`` and ``attn_bwd_dkv_kernel``
     (``csrc/attention_bwd.cu``) for the backward of either, replacing the
     TPU ``_flash_packed_bwd`` (``_packed_bwd_dq_kernel``,
-    ``_packed_bwd_dkv_kernel``).
+    ``_packed_bwd_dkv_kernel``);
+  * K6 ``attn_relpos_kernel`` (``csrc/attention_relpos.cu``) for every layer
+    of a model off the packed route (ViT-H: 16 heads of 80), replacing the
+    TPU ``_flash_kernel``. Forward only, as there.
+
+``flash_attention_windowed_image`` is the port of the JAX function of that
+name, the windowed layers' attention read from the image-layout qkv
+(B, H, W, 3C) with no window partition around it: K7 ``attn_winimg_kernel``
+(``csrc/attention_winimg.cu``), replacing the TPU
+``_windowed_image_kernel``. Forward only, head dim 64.
 
 Their bounds on an H100 and what the design does about them are noted at
 the top of each CUDA source. On a CPU tensor the wrapper runs
-``packed_attention_plain`` and ``packed_attention_bwd_plain``, the same
+``packed_attention_plain``, ``packed_attention_bwd_plain``,
+``relpos_attention_plain`` and ``windowed_image_attention_plain``, the same
 functions with a materialised (N, N) bias and f32 arithmetic, rounded where
 the kernels round. A CUDA tensor never reaches a plain version: the kernel
 launches or the wrapper raises.
@@ -38,13 +51,16 @@ import torch
 
 from .. import kernels
 
-# K1 / K2 / K5 launch counts; a plain integer each, reset by the caller
+# K1 / K2 / K5 / K6 / K7 launch counts; a plain integer each, reset by the
+# caller
 LAUNCHES = {"attn_global": 0, "attn_windowed": 0, "attn_bwd_dq": 0,
-            "attn_bwd_dkv": 0}
-WINDOW_MAX_TOKENS = 256  # K2 holds all keys of a window in shared memory
-HEAD_DIM = 64
+            "attn_bwd_dkv": 0, "attn_relpos": 0, "attn_windowed_image": 0}
+WINDOW_MAX_TOKENS = 256  # K2 / K7 hold all keys of a window in shared memory
+HEAD_DIM = 64            # K1 / K2 / K5 / K7
+RELPOS_MAX_HEAD_DIM = 128  # K6 takes every multiple of 4 up to this
 
-_BOUND = {"attention": False, "attention_bwd": False}
+_BOUND = {"attention": False, "attention_bwd": False,
+          "attention_relpos": False, "attention_winimg": False}
 
 
 def reset_launch_counts() -> None:
@@ -110,6 +126,103 @@ def packed_attention_plain(qkv, rel_h, rel_w, *, hw, num_heads: int,
     return out
 
 
+def relpos_attention_plain(qkv, rel_h, rel_w, *, hw, num_heads: int):
+    """Plain PyTorch version of K6, rounding where the TPU ``_flash_kernel``
+    rounds: the scale multiplies the f32 score after the q.k product (not q
+    before it), the un-normalised p = exp(s - max) is rounded to qkv's dtype
+    for the p.v product while the denominator sums the f32 p, and the
+    division comes last with one rounding of the output. Any head dim."""
+    _check(qkv, rel_h, rel_w, hw, num_heads)
+    b, n, _ = qkv.shape
+    q, k, v = _split_heads(qkv, num_heads)
+    bias = (rel_h.float().reshape(b, num_heads, n, hw[0], 1)
+            + rel_w.float().reshape(b, num_heads, n, 1, hw[1]))
+    s = torch.matmul(q, k.transpose(-1, -2)) * q.shape[-1] ** -0.5
+    s.add_(bias.reshape(b, num_heads, n, n))
+    p = s.sub_(s.amax(dim=-1, keepdim=True)).exp_()
+    denom = p.sum(dim=-1, keepdim=True)
+    out = torch.matmul(_rnd(p, qkv.dtype), v) / denom
+    return _merge_heads(out).to(qkv.dtype)
+
+
+def window_partition(x, window_size: int):
+    """(B, H, W, C) → (B*nW, ws, ws, C) with bottom/right zero padding."""
+    b, h, w, c = x.shape
+    pad_h = (window_size - h % window_size) % window_size
+    pad_w = (window_size - w % window_size) % window_size
+    if pad_h or pad_w:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad_w, 0, pad_h))
+    ph, pw = h + pad_h, w + pad_w
+    x = x.reshape(b, ph // window_size, window_size, pw // window_size,
+                  window_size, c)
+    x = x.permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(-1, window_size, window_size, c), (ph, pw)
+
+
+def window_unpartition(windows, window_size: int, padded_hw, hw):
+    ph, pw = padded_hw
+    h, w = hw
+    c = windows.shape[-1]
+    b = windows.shape[0] // ((ph // window_size) * (pw // window_size))
+    x = windows.reshape(b, ph // window_size, pw // window_size, window_size,
+                        window_size, c)
+    x = x.permute(0, 1, 3, 2, 4, 5).reshape(b, ph, pw, c)
+    return x[:, :h, :w, :]
+
+
+def _check_image(qkv_img, rel, qkv_bias, ws, num_heads):
+    if qkv_img.dim() != 4 or qkv_img.shape[3] != 3 * num_heads * HEAD_DIM:
+        raise ValueError(
+            f"qkv_img must be (B, H, W, 3 * heads * {HEAD_DIM}), got "
+            f"{tuple(qkv_img.shape)} for {num_heads} heads (the image-layout "
+            f"windowed attention takes head_dim {HEAD_DIM})")
+    b, h, w, c3 = qkv_img.shape
+    if ws * ws > WINDOW_MAX_TOKENS:
+        raise ValueError(f"window {ws}x{ws} holds more than "
+                         f"{WINDOW_MAX_TOKENS} tokens")
+    if tuple(rel.shape) != (b, num_heads, h, w, 2 * ws):
+        raise ValueError(f"rel must be {(b, num_heads, h, w, 2 * ws)}, got "
+                         f"{tuple(rel.shape)}")
+    if tuple(qkv_bias.shape) != (c3,):
+        raise ValueError(f"qkv_bias must be ({c3},), got "
+                         f"{tuple(qkv_bias.shape)}")
+
+
+def partition_image_operands(qkv_img, rel, qkv_bias, ws: int):
+    """K7's operands as the partitioned route sees them: the image-layout
+    qkv padded to whole windows with the bias row (what the qkv projection
+    makes of a zero-padded token) and cut into windows (BnW, ws^2, 3C), the
+    bias factors per window, rel_h and rel_w (BnW, heads, ws^2, ws) with
+    zeros for pad queries (their outputs are dropped), and the padded grid
+    for ``window_unpartition``."""
+    b, h, w, c3 = qkv_img.shape
+    heads = rel.shape[1]
+    ph, pw = -(-h // ws) * ws, -(-w // ws) * ws
+    x = qkv_bias.to(qkv_img.dtype).expand(b, ph, pw, c3).clone()
+    x[:, :h, :w] = qkv_img
+    win, padded_hw = window_partition(x, ws)
+    r, _ = window_partition(rel.permute(0, 2, 3, 1, 4).reshape(b, h, w, -1),
+                            ws)
+    r = r.reshape(-1, ws * ws, heads, 2 * ws).transpose(1, 2)
+    return (win.reshape(-1, ws * ws, c3), r[..., :ws].contiguous(),
+            r[..., ws:].contiguous(), padded_hw)
+
+
+def windowed_image_attention_plain(qkv_img, rel, qkv_bias, *, ws: int,
+                                   num_heads: int):
+    """Plain PyTorch version of K7, by way of the partitioned route:
+    ``partition_image_operands``, ``packed_attention_plain`` per window,
+    un-partition and crop."""
+    _check_image(qkv_img, rel, qkv_bias, ws, num_heads)
+    _, h, w, c3 = qkv_img.shape
+    win, rel_h, rel_w, padded_hw = partition_image_operands(qkv_img, rel,
+                                                            qkv_bias, ws)
+    out = packed_attention_plain(win, rel_h, rel_w, hw=(ws, ws),
+                                 num_heads=num_heads)
+    return window_unpartition(out.reshape(-1, ws, ws, c3 // 3), ws,
+                              padded_hw, (h, w)).contiguous()
+
+
 def _rnd(x, dtype):
     """x rounded to ``dtype`` and widened back to f32 (identity for f32)."""
     return x if dtype == torch.float32 else x.to(dtype).float()
@@ -167,6 +280,10 @@ def _bind(name):
         if name == "attention":
             fns = [(lib.dhoct_attn_global, [p] * 5 + [i] * 6 + [p]),
                    (lib.dhoct_attn_windowed, [p] * 5 + [i] * 6 + [p])]
+        elif name == "attention_relpos":
+            fns = [(lib.dhoct_attn_relpos, [p] * 4 + [i] * 7 + [p])]
+        elif name == "attention_winimg":
+            fns = [(lib.dhoct_attn_windowed_image, [p] * 4 + [i] * 6 + [p])]
         else:
             fns = [(lib.dhoct_attn_bwd_dq, [p] * 9 + [i] * 6 + [p]),
                    (lib.dhoct_attn_bwd_dkv, [p] * 7 + [i] * 6 + [p])]
@@ -179,13 +296,22 @@ def _bind(name):
     return lib
 
 
+def _packed_route(qkv, num_heads) -> bool:
+    """True where the JAX package takes its packed kernels (K1 / K2 here):
+    head_dim 64 and an even head count; every other model goes to K6."""
+    return (qkv.shape[2] // 3 // num_heads == HEAD_DIM
+            and num_heads % 2 == 0)
+
+
 def _kernel_dims(qkv, num_heads):
     d = qkv.shape[2] // 3 // num_heads
     if d != HEAD_DIM:
         raise NotImplementedError(
-            f"the CUDA attention kernels take head_dim {HEAD_DIM}, got {d}; "
-            "the any-head_dim kernel (TPU flash_attention_relpos, K6) is not "
-            "ported yet")
+            f"K1 / K2 and the backward K5 take head_dim {HEAD_DIM}, got {d}. "
+            "flash_attention_packed sends the forward of any other head dim "
+            "to K6 (attn_relpos), which has no backward, as the TPU "
+            "flash_attention_relpos has none: the JAX package trains such "
+            "models through its XLA attention path, which is not ported yet")
 
 
 def attention_fwd_cuda(qkv, rel_h, rel_w, *, hw, num_heads: int,
@@ -211,6 +337,53 @@ def attention_fwd_cuda(qkv, rel_h, rel_w, *, hw, num_heads: int,
     kernels.raise_on_error(err, lib.dhoct_error_string, name)
     LAUNCHES[name] += 1
     return (out, lse) if return_lse else out
+
+
+def attention_relpos_cuda(qkv, rel_h, rel_w, *, hw, num_heads: int):
+    """Launch K6; same contract as ``relpos_attention_plain``."""
+    _check(qkv, rel_h, rel_w, hw, num_heads)
+    b, n, c3 = qkv.shape
+    d = c3 // 3 // num_heads
+    if d % 4 or d > RELPOS_MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"K6 (attn_relpos) takes a head_dim that is a multiple of 4 up "
+            f"to {RELPOS_MAX_HEAD_DIM}, got {d}")
+    kernels.check_operands("attn_relpos", (qkv, rel_h, rel_w),
+                           (qkv.dtype,) * 3)
+    lib = _bind("attention_relpos")
+    out = torch.empty((b, n, c3 // 3), dtype=qkv.dtype, device=qkv.device)
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    with torch.cuda.device(qkv.device):
+        err = lib.dhoct_attn_relpos(
+            qkv.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
+            out.data_ptr(), b, n, num_heads, d, hw[0], hw[1],
+            kernels.DTYPE_CODE[qkv.dtype], stream)
+    kernels.raise_on_error(err, lib.dhoct_error_string, "attn_relpos")
+    LAUNCHES["attn_relpos"] += 1
+    return out
+
+
+def attention_windowed_image_cuda(qkv_img, rel, qkv_bias, *, ws: int,
+                                  num_heads: int):
+    """Launch K7; same contract as ``windowed_image_attention_plain``."""
+    _check_image(qkv_img, rel, qkv_bias, ws, num_heads)
+    b, h, w, c3 = qkv_img.shape
+    bias = qkv_bias.to(qkv_img.dtype).contiguous()
+    kernels.check_operands("attn_windowed_image", (qkv_img, rel, bias),
+                           (qkv_img.dtype,) * 3)
+    lib = _bind("attention_winimg")
+    out = torch.empty((b, h, w, c3 // 3), dtype=qkv_img.dtype,
+                      device=qkv_img.device)
+    stream = torch.cuda.current_stream(qkv_img.device).cuda_stream
+    with torch.cuda.device(qkv_img.device):
+        err = lib.dhoct_attn_windowed_image(
+            qkv_img.data_ptr(), rel.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), b, h, w, num_heads, ws,
+            kernels.DTYPE_CODE[qkv_img.dtype], stream)
+    kernels.raise_on_error(err, lib.dhoct_error_string,
+                           "attn_windowed_image")
+    LAUNCHES["attn_windowed_image"] += 1
+    return out
 
 
 def _bwd_operands(qkv, rel_h, rel_w, g_out, lse, dvec, dqkv, hw,
@@ -320,15 +493,51 @@ def flash_attention_packed(qkv, rel_h, rel_w, *, hw, num_heads: int):
     rel_w: (B, heads, N, hw[1]) bias factor over key columns
     Returns (B, N, C) in token order, in qkv's dtype.
 
-    CPU tensors take the plain versions; CUDA tensors launch K1 (global) or
-    K2 (windowed, N <= 256), and K5 in the backward, and raise if a kernel
-    cannot run. Differentiable in qkv, rel_h and rel_w."""
+    CPU tensors take the plain versions. CUDA tensors launch a kernel or
+    raise: with head_dim 64 and an even head count (the JAX package's packed
+    route) K1 (global) or K2 (windowed, N <= 256), and K5 in the backward;
+    any other model K6, forward only (with a gradient to take it raises
+    ``NotImplementedError``). Differentiable in qkv, rel_h and rel_w."""
     kind = _device_kind(qkv)
     _check(qkv, rel_h, rel_w, hw, num_heads)
+    kw = dict(hw=hw, num_heads=num_heads)
     if torch.is_grad_enabled() and (qkv.requires_grad or rel_h.requires_grad
                                     or rel_w.requires_grad):
         return _PackedAttention.apply(qkv, rel_h, rel_w, hw, num_heads)
+    if _packed_route(qkv, num_heads):
+        if kind == "cpu":
+            return packed_attention_plain(qkv, rel_h, rel_w, **kw)
+        return attention_fwd_cuda(qkv, rel_h, rel_w, **kw)
     if kind == "cpu":
-        return packed_attention_plain(qkv, rel_h, rel_w, hw=hw,
-                                      num_heads=num_heads)
-    return attention_fwd_cuda(qkv, rel_h, rel_w, hw=hw, num_heads=num_heads)
+        return relpos_attention_plain(qkv, rel_h, rel_w, **kw)
+    return attention_relpos_cuda(qkv, rel_h, rel_w, **kw)
+
+
+def flash_attention_windowed_image(qkv_img, rel, qkv_bias, *, ws: int,
+                                   num_heads: int):
+    """Windowed attention over the image-layout qkv projection, with no
+    window partition in device memory.
+
+    qkv_img:  (B, H, W, 3C) qkv projection (bias included) of the H x W real
+              tokens, feature order (3, heads, 64)
+    rel:      (B, heads, H, W, 2 * ws) per-token bias factors over the key
+              rows ([..., :ws]) and key columns ([..., ws:]) of the token's
+              window
+    qkv_bias: (3C,) the projection's bias: the q, k and v of the pad tokens
+              of windows that reach past H or W
+    Returns (B, H, W, C) in qkv_img's dtype. Forward only (the JAX function
+    is too): tensors that require grad are not supported.
+
+    CPU tensors take ``windowed_image_attention_plain``; CUDA tensors launch
+    K7 or raise."""
+    kind = _device_kind(qkv_img)
+    if torch.is_grad_enabled() and (qkv_img.requires_grad or rel.requires_grad
+                                    or qkv_bias.requires_grad):
+        raise NotImplementedError(
+            "flash_attention_windowed_image is forward-only; the partitioned "
+            "route (flash_attention_packed) has the backward")
+    if kind == "cpu":
+        return windowed_image_attention_plain(qkv_img, rel, qkv_bias, ws=ws,
+                                              num_heads=num_heads)
+    return attention_windowed_image_cuda(qkv_img, rel, qkv_bias, ws=ws,
+                                         num_heads=num_heads)

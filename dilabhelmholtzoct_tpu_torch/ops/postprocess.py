@@ -36,6 +36,18 @@ def resize_operators(gl: int, orig_hw: tuple[int, int],
     return _OPERATOR_CACHE[key]
 
 
+def postprocess_masks(low_res_masks: torch.Tensor, orig_hw: tuple[int, int],
+                      *, model_size: int = 1024) -> torch.Tensor:
+    """(B, C, Gl, Gl) low-res logits → (B, C, orig_h, orig_w) f32 logits:
+    the natural-layout form, which the evaluation harness uses."""
+    gl = low_res_masks.shape[-1]
+    r_h, r_w = resize_operators(gl, orig_hw, model_size)
+    dev = low_res_masks.device
+    x = low_res_masks.to(torch.float32)
+    x = torch.einsum("bcgw,Hg->bcHw", x, torch.as_tensor(r_h, device=dev))
+    return torch.einsum("bcHw,Ww->bcHW", x, torch.as_tensor(r_w, device=dev))
+
+
 def postprocess_masks_blocked(blocked_masks: torch.Tensor,
                               orig_hw: tuple[int, int], *,
                               model_size: int = 1024) -> torch.Tensor:

@@ -1,10 +1,11 @@
 """Training CLI of the PyTorch port, with the reference's flag surface.
 
 Port of ``dilabhelmholtzoct_tpu/train/cli.py``: the same flags build the
-same ``TrainConfig``, and training runs on the card. Parts of the loop that
-later slices port (the evaluation harness, the topological loss, display,
-augmentation, multi-host) raise ``NotImplementedError`` when asked for; pass
-``--evaluate false``. Without the ``datasets`` package, call
+same ``TrainConfig``, and training runs on the card and ends, unless
+``--evaluate false``, with the evaluation report on the test split. Parts of
+the loop that later slices port (the topological loss, display,
+augmentation, multi-host) raise ``NotImplementedError`` when asked for.
+Without the ``datasets`` package, call
 ``train.trainer.training(config, splits=...)`` from Python instead.
 
 Flag-name parity with octsam/models/training.py:20-93 (``--base_model
@@ -16,7 +17,7 @@ package's additions. Boolean flags parse properly (the reference's ``type=bool``
 truthiness bug, training.py:42,87, is documented and not replicated).
 
 Usage:
-    python -m dilabhelmholtzoct_tpu_torch.train.cli --evaluate false \
+    python -m dilabhelmholtzoct_tpu_torch.train.cli \
         --data_directory /vol/data --dataset_name my_preprocessed_at_...
 """
 

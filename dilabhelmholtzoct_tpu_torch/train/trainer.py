@@ -25,10 +25,14 @@ step: under ``torch.no_grad()`` (JAX's ``stop_gradient``) for the decoder
 fine-tune, inside the gradient with every layer checkpointed for
 ``trainable='all'`` (which needs ``cache_embeddings=False``).
 
+With ``evaluate`` (the default, as in JAX) the run ends with the per-class
+report of ``eval/harness.py`` on the validation set, returned as
+``metrics``.
+
 Not in this slice (each raises ``NotImplementedError``): the topological
-loss, the evaluation harness (``evaluate``), sample display, augmentation
-(``data_transforms``), multi-host / data parallelism and profiler traces.
-With one card ``data_parallel`` is a no-op, as in JAX.
+loss, sample display, augmentation (``data_transforms``), multi-host / data
+parallelism and profiler traces. With one card ``data_parallel`` is a no-op,
+as in JAX.
 """
 
 from __future__ import annotations
@@ -127,8 +131,6 @@ def _check_supported(config: TrainConfig, *, loop: bool = True) -> None:
     later = [(config.topological, "topological=True (the topological loss)")]
     if loop:
         later += [
-            (config.evaluate, "evaluate=True (the evaluation harness, "
-                              "eval/harness.py + ops/metrics.py)"),
             (config.display_mode != "none",
              "display_mode != 'none' (display)"),
             (bool(config.data_transforms), "data_transforms (augmentation)"),
@@ -139,7 +141,7 @@ def _check_supported(config: TrainConfig, *, loop: bool = True) -> None:
         if on:
             raise NotImplementedError(
                 f"{what} is not ported to PyTorch yet: a later slice of the "
-                "port; pass it off (the CLI: --evaluate false)")
+                "port; pass it off")
     if loop and config.trainable == "all" and config.cache_embeddings:
         raise ValueError(
             "trainable='all' requires cache_embeddings=False (the encoder "
@@ -380,7 +382,10 @@ def training(config: TrainConfig, logger: MultiLogger | None = None, *,
     are read from ``config.dataset`` (needs ``datasets``). ``device``: the
     card unless the caller passes another (``"cpu"``).
 
-    Returns {'params', 'cfg', 'history', 'checkpoint_dir'}."""
+    Returns {'params', 'cfg', 'history', 'checkpoint_dir'}, and 'metrics'
+    (the evaluation report on the validation set, run on ``device`` or,
+    with ``config.eval_device == "cpu"``, on the host) when
+    ``config.evaluate``."""
     _check_supported(config)
     dev = resolve_device(device)
     if logger is None:
@@ -526,5 +531,11 @@ def _training_impl(config: TrainConfig, logger: MultiLogger, splits,
         name = f"{config.display_name}_{config.time or 'final'}.pt"
         ckpt_utils.export_reference_pt(
             params_final, os.path.join(config.checkpoint, name))
-    return {"params": params_final, "cfg": cfg, "history": history,
-            "checkpoint_dir": run_dir}
+    result = {"params": params_final, "cfg": cfg, "history": history,
+              "checkpoint_dir": run_dir}
+    if config.evaluate:
+        from ..eval.harness import evaluate_metrics
+
+        result["metrics"] = evaluate_metrics(
+            params_final, cfg, config, valid_ds, orig_hw=orig_hw, device=dev)
+    return result

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the same
 card tensors: encoder attention K1 (global) and K2 (windowed) with their
-logsumexp rows, its backward K5, the upscaler K3 and the image->token
-attention K4.
+logsumexp rows, its backward K5, the any-head-dim forward K6, the
+image-layout windowed forward K7, the upscaler K3 and the image->token
+attention K4; and one request through a small engine on the card.
 
 Needs an NVIDIA card and nvcc; skips without a card. This file imports
 neither JAX nor tests/conftest.py's fixtures, so where JAX is not installed
@@ -9,8 +10,12 @@ it runs on its own:
 
     python -m pytest tests/test_torch_kernels_gpu.py -q --noconftest
 
-Tolerances: f32 atol 1e-4, rtol 1e-3 (summation order over up to 4096
-keys); bf16 atol 2e-2 (one bf16 rounding of the output)."""
+Tolerances of the attention forwards (K1, K2, K6, K7): f32 atol 1e-4, rtol
+1e-3 (summation order over up to 4096 keys); bf16 two bf16 ulps of the
+case's output scale, 2 * 2^-8 * max |plain| -- about 4e-4 at a 4096-key
+layer, whose outputs average thousands of values and stay below 0.1, so a
+fixed limit sized for |out| ~ 1 would pass a kernel that dropped the bias
+or rounded at another point. The backward and K3 / K4 state theirs."""
 
 import numpy as np
 import pytest
@@ -26,6 +31,19 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
+
+
+def assert_forward_close(got, want):
+    """An attention forward against its plain version, see the module's
+    tolerances."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    g, w = got.float().cpu().numpy(), want.float().cpu().numpy()
+    if got.dtype == torch.float32:
+        np.testing.assert_allclose(g, w, atol=1e-4, rtol=1e-3)
+    else:
+        limit = 2 * 2.0 ** -8 * np.abs(w).max()
+        err = np.abs(g - w).max()
+        assert err <= limit, f"max |kernel - plain| {err:.3g} > {limit:.3g}"
 
 
 @pytest.mark.gpu
@@ -49,10 +67,7 @@ def test_kernels_match_plain_on_card(cuda_device, dtype, b, nh, hw):
     assert port_attn.LAUNCHES[kind] == before + 1
     assert got.dtype == dtype and got.shape == (b, n, nh * 64)
     want = port_attn.packed_attention_plain(*args, hw=hw, num_heads=nh)
-    atol = 1e-4 if dtype == torch.float32 else 2e-2
-    np.testing.assert_allclose(got.float().cpu().numpy(),
-                               want.float().cpu().numpy(), atol=atol,
-                               rtol=1e-3)
+    assert_forward_close(got, want)
 
 
 def _attn_inputs(dev, dtype, b, nh, hw, seed=0):
@@ -132,17 +147,127 @@ def test_attention_autograd_runs_k5_on_card(cuda_device):
         kernel = fn is port_attn.flash_attention_packed
         assert launched == {"attn_global": int(kernel), "attn_windowed": 0,
                             "attn_bwd_dq": int(kernel),
-                            "attn_bwd_dkv": int(kernel)}, launched
+                            "attn_bwd_dkv": int(kernel), "attn_relpos": 0,
+                            "attn_windowed_image": 0}, launched
     for name, a, bb in zip(("dqkv", "drel_h", "drel_w"), *grads):
         _rel_close(a, bb, K34_TOL[torch.float32], name)
 
 
 @pytest.mark.gpu
 def test_kernels_refuse_other_head_dims(cuda_device):
+    """Head dims other than 64 go to K6, which is forward-only and takes
+    multiples of 4 up to 128: a gradient, or a head dim beyond that, raises
+    (never the plain version on a CUDA tensor)."""
     qkv = torch.zeros((1, 16, 3 * 2 * 32), device=cuda_device)
     rel = torch.zeros((1, 2, 16, 4), device=cuda_device)
     with pytest.raises(NotImplementedError, match="K6"):
-        port_attn.flash_attention_packed(qkv, rel, rel, hw=(4, 4), num_heads=2)
+        port_attn.flash_attention_packed(qkv.requires_grad_(True), rel, rel,
+                                         hw=(4, 4), num_heads=2)
+    for d in (132, 18):
+        qkv = torch.zeros((1, 16, 3 * 2 * d), device=cuda_device)
+        with pytest.raises(NotImplementedError, match="multiple of 4"):
+            port_attn.flash_attention_packed(qkv, rel, rel, hw=(4, 4),
+                                             num_heads=2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,nh,d,hw", [
+    (1, 16, 80, (64, 64)),   # ViT-H global layer
+    (25, 16, 80, (14, 14)),  # ViT-H windows of one image, 196 keys
+    (2, 4, 16, (8, 8)),      # the test-size model's global layer, 64 keys
+    (8, 4, 16, (4, 4)),      # ... and its windows, 16 keys
+    (3, 2, 32, (14, 14)),
+    (2, 3, 64, (20, 15)),    # head_dim 64 with an odd head count
+    (1, 2, 128, (9, 7)),     # the widest head, ragged
+    (2, 2, 72, (8, 16))])    # a head dim that is no multiple of 16
+def test_relpos_kernel_matches_plain_on_card(cuda_device, dtype, b, nh, d,
+                                             hw):
+    """K6 against ``relpos_attention_plain`` through the public entry. bf16:
+    the kernel rounds p against the running maximum of its key tiles, the
+    plain version against the row maximum, so single roundings differ."""
+    rng = np.random.default_rng(0)
+    n = hw[0] * hw[1]
+    arrays = (rng.normal(size=(b, n, 3 * nh * d)) * 0.5,
+              rng.normal(size=(b, nh, n, hw[0])) * 0.3,
+              rng.normal(size=(b, nh, n, hw[1])) * 0.3)
+    args = [torch.tensor(a, dtype=dtype, device=cuda_device) for a in arrays]
+    before = dict(port_attn.LAUNCHES)
+    got = port_attn.flash_attention_packed(*args, hw=hw, num_heads=nh)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in port_attn.LAUNCHES.items() if
+                v != before[k]}
+    assert launched == {"attn_relpos": 1}, launched
+    assert got.dtype == dtype and got.shape == (b, n, nh * d)
+    want = port_attn.relpos_attention_plain(*args, hw=hw, num_heads=nh)
+    assert_forward_close(got, want)
+
+
+def _winimg_inputs(dev, dtype, b, nh, hw, ws, seed=0):
+    rng = np.random.default_rng(seed)
+    c = nh * 64
+    arrays = (rng.normal(size=(b, *hw, 3 * c)) * 0.5,
+              rng.normal(size=(b, nh, *hw, 2 * ws)) * 0.3,
+              rng.normal(size=(3 * c,)) * 0.5)
+    return [torch.tensor(a, dtype=dtype, device=dev) for a in arrays]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,nh,hw,ws", [(1, 12, (64, 64), 14),  # ViT-B
+                                        (2, 2, (28, 20), 14),   # ragged W
+                                        (1, 2, (28, 28), 14),   # no pad
+                                        (2, 4, (9, 7), 4)])
+def test_winimg_kernel_matches_plain_and_k2_on_card(cuda_device, dtype, b,
+                                                    nh, hw, ws):
+    """K7 against its plain version (the partitioned route on plain
+    attention), and bit-equal to K2 on the partitioned windows of the same
+    qkv: both run the same code once their rows are in shared memory."""
+    qkv, rel, bias = _winimg_inputs(cuda_device, dtype, b, nh, hw, ws)
+    before = dict(port_attn.LAUNCHES)
+    got = port_attn.flash_attention_windowed_image(qkv, rel, bias, ws=ws,
+                                                   num_heads=nh)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in port_attn.LAUNCHES.items() if
+                v != before[k]}
+    assert launched == {"attn_windowed_image": 1}, launched
+    assert got.dtype == dtype and got.shape == (b, *hw, nh * 64)
+    want = port_attn.windowed_image_attention_plain(qkv, rel, bias, ws=ws,
+                                                    num_heads=nh)
+    assert_forward_close(got, want)
+    # the partitioned route on K2
+    win, rel_h, rel_w, padded = port_attn.partition_image_operands(
+        qkv, rel, bias, ws)
+    k2 = port_attn.attention_fwd_cuda(win, rel_h, rel_w, hw=(ws, ws),
+                                      num_heads=nh)
+    k2 = port_attn.window_unpartition(k2.reshape(-1, ws, ws, nh * 64), ws,
+                                      padded, hw)
+    assert torch.equal(got, k2)
+
+
+@pytest.mark.gpu
+def test_tiny_engine_request_on_card(cuda_device):
+    """A box request through ``SegmentationEngine`` at the test-size model
+    (head_dim 16: K6 for all 3 layers) on the card against the same engine
+    on the CPU, f32."""
+    from dilabhelmholtzoct_tpu_torch.inference import synthetic
+    from dilabhelmholtzoct_tpu_torch.inference.engine import SegmentationEngine
+    from dilabhelmholtzoct_tpu_torch.models.configs import sam_tiny
+
+    cfg = sam_tiny()
+    sd = synthetic.random_params(cfg, seed=0)
+    img = synthetic.oct_image(seed=0)[:120, :128]
+    box = [20, 30, 90, 100]
+    before = dict(port_attn.LAUNCHES)
+    _, probs = SegmentationEngine(sd, cfg, device=cuda_device).segment(
+        img, box, "bbox")
+    launched = {k: v - before[k] for k, v in port_attn.LAUNCHES.items() if
+                v != before[k]}
+    assert launched == {"attn_relpos": 3}, launched
+    _, want = SegmentationEngine(sd, cfg, device="cpu").segment(img, box,
+                                                                "bbox")
+    assert probs.shape == want.shape == (1, 120, 128)
+    np.testing.assert_allclose(probs, want, atol=1e-4)
 
 
 def _rel_close(got, want, tol, what):

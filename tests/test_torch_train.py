@@ -263,7 +263,7 @@ def test_training_without_a_card_raises(tmp_path):
 
 
 @pytest.mark.parametrize("field,value", [("topological", True),
-                                         ("evaluate", True),
+                                         ("multihost", True),
                                          ("data_transforms", ("hflip",)),
                                          ("display_mode", "predefined")])
 def test_later_slices_raise(tmp_path, field, value):
