@@ -10,7 +10,10 @@ prints no result line):
    ``nvidia-smi --query-gpu=name,power.limit`` gives them.
 2. Build: every CUDA kernel of the serving, training and evaluation paths from
    ``dilabhelmholtzoct_tpu_torch/csrc`` with nvcc for sm_90a, one nvcc per
-   source, all started together (build seconds and the ptxas report).
+   source, all started together (build seconds and the ptxas report). Then
+   the bf16 K1 and K5 kernels' SASS (``cuobjdump -sass`` on the built
+   libraries) must hold tensor-core instructions (HMMA, or HGMMA), printed
+   per kernel beside its registers and spills from the ptxas report.
 3. Kernels at SAM ViT-B shapes — K1 global attention (B=1, N=4096, 12 heads)
    and K2 windowed attention (25 windows of 196 tokens, 12 heads) — in f32
    and bf16: each held against its plain PyTorch version on the same card
@@ -95,7 +98,10 @@ prints no result line):
    returns ``metrics``.
 
 The line before the last is a JSON object with one entry per kernel (K1/K2
-numbers from the serving path in f32, K3/K4 from the training path in bf16,
+numbers from the serving path in f32, K1 in bf16 as its own kernel
+(``attn_global_bf16``: the tensor-core kernel, at ViT-B global B = 1, its
+launches counted on the ViT-B full fine-tune run), K3/K4 from the training
+path in bf16,
 K5 from the global layer at B = 4 in bf16, its launches counted on the ViT-B
 full fine-tune run, K6 from the ViT-H global layer in f32, its launches
 counted on the ViT-H serving run, K7 at ViT-B in f32, its launches counted
@@ -197,9 +203,57 @@ def _sdpa_ms(torch, qkv, rel_h, rel_w, hw, heads, iters=5):
         x[0], x[1], x[2], attn_mask=mask), iters)
 
 
+# the bf16 kernels on the tensor cores: library -> kernel names
+MMA_KERNELS = {"attention": ("attn_global_mma_kernel",),
+               "attention_bwd": ("attn_bwd_dq_mma_kernel",
+                                 "attn_bwd_dkv_mma_kernel")}
+
+
+def _ptxas_by_function(log):
+    """{mangled kernel name: "N registers, S bytes spill stores, ..."} from
+    an ``-Xptxas -v`` report."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+            out[fn] = []
+        elif fn and ("registers" in line or "spill" in line):
+            out[fn].append(line.split(":", 1)[-1].strip())
+    return {k: "; ".join(v) for k, v in out.items()}
+
+
+def tensor_core_check(kernels):
+    """Fail unless the SASS of every bf16 K1 / K5 kernel holds tensor-core
+    instructions (HMMA from mma.sync, HGMMA from wgmma); print the count of
+    each instance beside its registers and spills."""
+    cuobjdump = kernels.cuda_tool("cuobjdump")
+    for lib, names in MMA_KERNELS.items():
+        sass = subprocess.run(
+            [cuobjdump, "-sass", str(kernels.library_path(lib))],
+            capture_output=True, text=True, check=True, timeout=300).stdout
+        counts, fn = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :", 1)[1].strip()
+                counts[fn] = 0
+            elif fn and ("HMMA" in line or "HGMMA" in line):
+                counts[fn] += 1
+        report = _ptxas_by_function(kernels.BUILD_LOG.get(lib, ""))
+        for name in names:
+            found = [f for f in counts if name in f]
+            check(found, f"{name} is not in the SASS of {lib}")
+            for f in found:
+                check(counts[f] > 0, f"{f}: no tensor-core instruction in its "
+                                     "SASS")
+                print(f"sass {f}: {counts[f]} tensor-core instructions; "
+                      f"ptxas {report.get(f, 'not rebuilt in this run')}")
+
+
 def kernel_phase(torch, attn):
     """K1 / K2 vs their plain versions at ViT-B shapes; returns the f32
-    numbers per kernel (the serving path's type) for the result line."""
+    numbers per kernel (the serving path's type) and the bf16 K1 numbers
+    (the tensor-core kernel of the precompute and full fine-tune paths)
+    for the result line."""
     from dilabhelmholtzoct_tpu_torch.device import full_fp32
 
     dev = torch.device("cuda")
@@ -252,9 +306,11 @@ def kernel_phase(torch, attn):
                   f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
                   f"bound_ms={bound:.4f} ({bound_by}) "
                   f"share_of_bound={bound / ms:.3f}")
-            if dtype == torch.float32:
-                rows[name] = {
-                    "name": name, "route": "cuda",
+            key = (name if dtype == torch.float32 else
+                   "attn_global_bf16" if name == "attn_global" else None)
+            if key is not None:
+                rows[key] = {
+                    "name": key, "route": "cuda",
                     "source": "dilabhelmholtzoct_tpu_torch/csrc/attention.cu",
                     "replaces": replaces, "max_abs_err": err, "ms": ms,
                     "plain_ms": plain_ms, "bound_ms": bound,
@@ -1428,6 +1484,7 @@ def main() -> int:
             if "ptxas info" in line and ("registers" in line or "spill" in line
                                          or "Compiling" in line):
                 print(f"  {src}: {line.strip()}")
+    tensor_core_check(kernels)
 
     t0 = time.perf_counter()
     rows = kernel_phase(torch, attn)
@@ -1445,6 +1502,7 @@ def main() -> int:
     t0 = time.perf_counter()
     ft = finetune_phase(torch)
     launches.update({k: ft[k] for k in k5_rows})
+    launches["attn_global_bf16"] = ft["attn_global"]
     print(f"[phases] full fine-tune {time.perf_counter() - t0:.1f} s")
     rows.update(train_rows)
     rows.update(k5_rows)

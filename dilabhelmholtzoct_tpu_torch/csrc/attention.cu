@@ -10,66 +10,84 @@
 //   s[q, k] = (q . k) / 8 + rel_h[q, k / W] + rel_w[q, k % W]
 //   out[q]  = softmax_k(s[q, :]) . v
 //
-// Two kernels, both templated on the element type (float: the serving
-// path; __nv_bfloat16: the training path). Inputs are widened to f32 in
-// shared memory; every sum is f32; the output is stored in the input type.
+// Two kernels. K1 has two instances: f32 (the serving path) on the CUDA
+// cores, bf16 (the precompute and full fine-tune paths) on the tensor
+// cores. K2 is templated on the element type: inputs widened to f32 in
+// shared memory, every sum f32, the output stored in the input type.
 // Given a non-null `lse` (B, heads, N) f32, each also writes the row's
 // logsumexp m + log(l) in the scaled-score domain (the TPU kernel's
 // return_lse), which the backward K5 (attention_bwd.cu) reads; with a null
 // pointer nothing more is written.
 //
-// K1 attn_global_kernel replaces dilabhelmholtzoct_tpu/ops/attention.py
-//    flash_attention_packed, _packed_kernel branch (the 4 global layers,
-//    N = 4096 at ViT-B). One block per (batch, head, 64-query tile) loops
-//    over 64-key tiles with an online softmax (running max, denominator and
-//    output accumulator in registers).
+// K1 replaces dilabhelmholtzoct_tpu/ops/attention.py flash_attention_packed,
+//    _packed_kernel branch (the 4 global layers, N = 4096 at ViT-B). One
+//    block per (batch, head, query tile) loops over 64-key tiles with an
+//    online softmax (running max, denominator and output accumulator in
+//    registers).
+//    f32, attn_global_kernel<float>: 256 threads, each a 4x4 register tile
+//    of scores and of the output, operands widened in shared memory.
+//    bf16, attn_global_mma_kernel: 128-query tiles, 4 warps of 32 query
+//    rows; q.k^T and p.v on mma.sync m16n8k16 (bf16 in, f32 accumulators)
+//    with ldmatrix from padded shared tiles; K / V tiles streamed through a
+//    2-stage cp.async ring; the 1/8 scale folded into q (exact); the score
+//    accumulators start at the bias (in registers where a key tile is one
+//    grid row); the online softmax on the fragments (row max and sum over
+//    the lane quad); p rounded to bf16 un-normalised and fed to p.v from
+//    registers; one f32 division by l at the end and one rounding -- the
+//    TPU _packed_kernel's rounding points (p.astype(bf16) before pv, acc / l
+//    last).
 // K2 attn_windowed_kernel replaces the same function's
 //    _windowed_group_kernel branch (the 8 windowed layers, 25 windows of
 //    14x14 = 196 tokens per image). One block per (window, head, 64-query
 //    tile) holds all keys and values of the window in shared memory and
-//    takes a one-pass softmax.
+//    takes a one-pass softmax; in bf16 it rounds p / l before p.v, as the
+//    TPU kernel (attention_common.cuh window_attend).
 //
-// Bound on an H100 SXM (700 W), one layer at B = 1, f32:
-//    K1: 4 * 4096^2 * 64 * 12 = 51.5 GFLOP over the 67 TFLOP/s f32 peak
-//        = 0.77 ms; bytes (qkv 37.7 MB + rel 25.2 MB + out 12.6 MB) over
-//        3.35 TB/s = 0.022 ms. Compute-bound.
-//    K2: 2.95 GFLOP -> 0.044 ms; 67 MB -> 0.020 ms. Compute-bound.
-//    In bf16 the bound is the 989 TFLOP/s tensor-core rate (K1 ~52 us).
-// What this design does about it: both kernels are compute-bound, so they
-// keep every operand of the inner loops in shared memory and registers
-// (a 4x4 register tile of scores and of the output per thread, 16-byte
-// shared loads, padded rows against bank conflicts) and read each qkv byte
-// from device memory once per query tile. They run on the CUDA cores in
-// f32; moving the two products onto the tensor cores (mma.sync / wgmma
-// with TMA loads) is later work.
+// Bound on an H100 SXM (700 W), one layer at B = 1:
+//    K1: 4 * 4096^2 * 64 * 12 = 51.5 GFLOP; f32 over the 67 TFLOP/s peak
+//        = 0.77 ms, bf16 over the 989 TFLOP/s tensor-core rate = 0.052 ms;
+//        bytes (qkv 37.7 MB + rel 25.2 MB + out 12.6 MB in f32, half in
+//        bf16) over 3.35 TB/s = 0.022 / 0.011 ms. Compute-bound.
+//    K2: 2.95 GFLOP -> 0.044 ms in f32; 67 MB -> 0.020 ms. Compute-bound.
+// What this design does about it: every kernel keeps the operands of its
+// inner loops in shared memory and registers and reads each qkv byte from
+// device memory once per query tile. The f32 kernels run on the CUDA cores
+// (full f32 has no tensor-core route without TF32): 16-byte shared loads,
+// padded rows against bank conflicts. The bf16 K1 runs both products on the
+// tensor cores; what stays on the CUDA cores per score is the bias (two
+// shared loads), the exponential and the max / sum, and the next K / V
+// tile's copy overlaps the current tile's work. wgmma with TMA, and K2 on
+// the tensor cores, are later work.
 //
 // Not carried over from the TPU kernel (Mosaic-only workarounds): head-pair
 // packing into 128 lanes, one-hot selector matmuls that expand the bias,
 // grouping 5 windows per program, pre-transposed k.
 
 #include "attention_common.cuh"
+#include "attention_mma.cuh"
 
 namespace {
 
 using namespace attn;
 
-// out rows and, with lse != null, lse[lse_row + q] = m + log(l)
+// out rows acc / den and, with lse != null, lse[lse_row + q] = m + log(l)
 template <typename T>
 __device__ __forceinline__ void store_out(T* out, float* lse, size_t lse_row,
                                           float (*acc)[4], const float* m,
-                                          const float* l, int b, int n, int C,
-                                          int head, int q0, int ty, int tx) {
+                                          const float* l, const float* den,
+                                          int b, int n, int C, int head,
+                                          int q0, int ty, int tx) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int q = q0 + ty + 16 * i;
     if (q >= n) continue;
     if (lse != nullptr && tx == 0) lse[lse_row + q] = m[i] + logf(l[i]);
     store_normalised(out + ((size_t)b * n + q) * C + head * D + 4 * tx,
-                     acc[i], l[i]);
+                     acc[i], den[i]);
   }
 }
 
-// ---------------------------------------------------------------- K1 ----
+// ------------------------------------------------------------ K1 f32 ----
 // grid (ceil(N / 64), heads, B), 256 threads. Shared (floats):
 //   Qs TQ*LD | Ks TK*LD | Vs TK*D | Ps TQ*LD | Rh TQ*H | Rw TQ*W
 template <typename T>
@@ -149,7 +167,190 @@ attn_global_kernel(const T* __restrict__ qkv, const T* __restrict__ rel_h,
     __syncthreads();
     pv_tile(acc, Ps, LD, Vs, D, TK, ty, tx);
   }
-  store_out(out, lse, rel_row - q0, acc, m, l, b, n, C, head, q0, ty, tx);
+  store_out(out, lse, rel_row - q0, acc, m, l, l, b, n, C, head, q0, ty,
+            tx);
+}
+
+// ----------------------------------------------------------- K1 bf16 ----
+// grid (ceil(N / R), heads, B) with R = 16 M WARPS_ query rows per block
+// (M = K1_TILES m16 tiles per warp, WARPS_ = K1_WARPS), 32 WARPS_ threads:
+// warp w owns query rows 16 (M w + m) + g and 16 (M w + m) + g + 8 (m < M,
+// lane = 4 g + t); with M = 2 every K / V fragment it loads from shared
+// memory serves two m16 tiles. Shared (bf16):
+// Qs R x LDS | Ks, Vs stage 0, 1 (64 x LDS) | Rh R x factor_ld(H) | Rw
+// R x factor_ld(W).
+// ROW_TILE (W == 64: every ViT global layer): a 64-key tile is one grid row,
+// so a query row's bias over the tile is one Rh value plus Rw over the 64
+// columns, which the lane holds in registers for the whole loop.
+constexpr int K1_TILES = 2, K1_WARPS = 4;  // M, WARPS_ of the note above
+
+template <bool ROW_TILE>
+__global__ void __launch_bounds__(32 * K1_WARPS, 2)
+attn_global_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
+                       const __nv_bfloat16* __restrict__ rel_h,
+                       const __nv_bfloat16* __restrict__ rel_w,
+                       __nv_bfloat16* __restrict__ out,
+                       float* __restrict__ lse, int n, int heads, int H,
+                       int W) {
+  using namespace mma;
+  constexpr int K1_M = K1_TILES, K1_ROWS = 16 * K1_M * K1_WARPS,
+                NTH = 32 * K1_WARPS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ldh = factor_ld(H), ldw = factor_ld(W);
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Ks = Qs + K1_ROWS * LDS;
+  bf16* Vs = Ks + 2 * TILE_ELEMS;
+  bf16* Rh = Vs + 2 * TILE_ELEMS;
+  bf16* Rw = Rh + K1_ROWS * ldh;
+
+  const int head = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * K1_ROWS;
+  const int C = heads * D, stride = 3 * C;
+  const int lane = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * 16 * K1_M;
+  const int t = lane & 3, g = lane >> 2;
+  const bf16* base = qkv + (size_t)b * n * stride + head * D;
+  const size_t rel_row = ((size_t)b * heads + head) * n + q0;
+  const int nq = min(K1_ROWS, n - q0);
+
+  load_tile_async<NTH>(Qs, base, stride, q0, n, K1_ROWS);
+  load_factors<NTH>(Rh, rel_h + rel_row * H, H, nq, K1_ROWS);
+  load_factors<NTH>(Rw, rel_w + rel_row * W, W, nq, K1_ROWS);
+  load_tile_async<NTH>(Ks, base + C, stride, 0, n);
+  load_tile_async<NTH>(Vs, base + 2 * C, stride, 0, n);
+  cp_commit();
+
+  // ROW_TILE: Rw of the lane's rows at its 16 columns, as bf16 pairs
+  uint32_t rwp[K1_M][ROW_TILE ? TILE / 8 : 1][2];
+  float m[K1_M][2], l[K1_M][2], o[K1_M][D / 8][4] = {};
+#pragma unroll
+  for (int mm = 0; mm < K1_M; ++mm)
+    m[mm][0] = m[mm][1] = -INFINITY, l[mm][0] = l[mm][1] = 0.f;
+
+  const int ntiles = (n + TILE - 1) / TILE;
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = it * TILE;
+    const bf16* Kc = Ks + (it & 1) * TILE_ELEMS;
+    const bf16* Vc = Vs + (it & 1) * TILE_ELEMS;
+    if (it + 1 < ntiles) {  // the stage consumed in the previous iteration
+      load_tile_async<NTH>(Ks + ((it + 1) & 1) * TILE_ELEMS, base + C, stride,
+                           k0 + TILE, n);
+      load_tile_async<NTH>(Vs + ((it + 1) & 1) * TILE_ELEMS, base + 2 * C,
+                           stride, k0 + TILE, n);
+    }
+    cp_commit();
+    cp_wait<1>();  // this tile (and Q, the bias factors) have landed
+    __syncthreads();
+    if (it == 0) {
+      // q / 8 in place: exact in bf16 (a power of two), as the TPU's q * sc
+      const __nv_bfloat162 eighth = __float2bfloat162_rn(0.125f);
+      for (int i = threadIdx.x; i < K1_ROWS * D / 2; i += NTH) {
+        __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(
+            Qs + (i / (D / 2)) * LDS + 2 * (i % (D / 2)));
+        *x = __hmul2(*x, eighth);
+      }
+      __syncthreads();
+      if (ROW_TILE) {
+#pragma unroll
+        for (int mm = 0; mm < K1_M; ++mm)
+#pragma unroll
+          for (int j = 0; j < TILE / 8; ++j)
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+              rwp[mm][ROW_TILE ? j : 0][r] = *reinterpret_cast<const uint32_t*>(
+                  Rw + (r0 + 16 * mm + g + 8 * r) * ldw + 8 * j + 2 * t);
+      }
+    }
+
+    // ROW_TILE: the accumulators start at the bias (no key past n: n = 64 H),
+    // the product adds q.k onto it
+    float s[K1_M][TILE / 8][4];
+#pragma unroll
+    for (int mm = 0; mm < K1_M; ++mm)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float rh = ROW_TILE ? __bfloat162float(
+                                        Rh[(r0 + 16 * mm + g + 8 * r) * ldh + it])
+                                  : 0.f;
+#pragma unroll
+        for (int j = 0; j < TILE / 8; ++j) {
+          const float2 rw = ROW_TILE ? __bfloat1622float2(
+                                           *reinterpret_cast<const __nv_bfloat162*>(
+                                               &rwp[mm][ROW_TILE ? j : 0][r]))
+                                     : make_float2(0.f, 0.f);
+          s[mm][j][2 * r] = rh + rw.x;
+          s[mm][j][2 * r + 1] = rh + rw.y;
+        }
+      }
+    product_nk<K1_M>(s, Qs, r0, Kc, lane);
+    if (!ROW_TILE) {
+      KeyWalk key(k0 + 2 * t, W);
+#pragma unroll
+      for (int j = 0; j < TILE / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool kv = k0 + 8 * j + 2 * t + e < n;
+#pragma unroll
+          for (int mm = 0; mm < K1_M; ++mm)
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int q = r0 + 16 * mm + g + 8 * r;
+              // loads outside the select: no branch around them (a key
+              // past n reads in-bounds shared memory, discarded)
+              const float bias = __bfloat162float(Rh[q * ldh + key.r]) +
+                                 __bfloat162float(Rw[q * ldw + key.c]);
+              float& x = s[mm][j][2 * r + e];
+              x = kv ? x + bias : -INFINITY;
+            }
+          key.step(e);
+        }
+    }
+
+    uint32_t pk[K1_M][TILE / 8][2];
+#pragma unroll
+    for (int mm = 0; mm < K1_M; ++mm)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < TILE / 8; ++j)
+          mx = fmaxf(mx, fmaxf(s[mm][j][2 * r], s[mm][j][2 * r + 1]));
+        // key 0 of the first tile is real: m_new is finite from there on
+        const float m_new = fmaxf(m[mm][r], quad_max(mx));
+        const float alpha = exp2_approx((m[mm][r] - m_new) * LOG2E);
+        const float mb = m_new * LOG2E;
+        float rs = 0.f;
+#pragma unroll
+        for (int j = 0; j < TILE / 8; ++j) {
+          const float p0 = exp2_approx(fmaf(s[mm][j][2 * r], LOG2E, -mb));
+          const float p1 = exp2_approx(fmaf(s[mm][j][2 * r + 1], LOG2E, -mb));
+          rs += p0 + p1;                    // the denominator sums f32 p
+          pk[mm][j][r] = pack_bf16(p0, p1);  // p.v takes it rounded
+        }
+        l[mm][r] = l[mm][r] * alpha + rs;  // the lane's share; quad sum last
+        m[mm][r] = m_new;
+#pragma unroll
+        for (int dn = 0; dn < D / 8; ++dn) {
+          o[mm][dn][2 * r] *= alpha;
+          o[mm][dn][2 * r + 1] *= alpha;
+        }
+      }
+    product_kn<K1_M>(o, pk, Vc, lane);
+    __syncthreads();  // every warp is done with this stage
+  }
+
+#pragma unroll
+  for (int mm = 0; mm < K1_M; ++mm)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float lr = quad_sum(l[mm][r]);
+      const int q = q0 + r0 + 16 * mm + g + 8 * r;
+      if (q >= n) continue;
+      if (lse != nullptr && t == 0) lse[rel_row - q0 + q] = m[mm][r] + logf(lr);
+      bf16* dst = out + ((size_t)b * n + q) * C + head * D + 2 * t;
+#pragma unroll
+      for (int dn = 0; dn < D / 8; ++dn)
+        *reinterpret_cast<uint32_t*>(dst + 8 * dn) =
+            pack_bf16(o[mm][dn][2 * r] / lr, o[mm][dn][2 * r + 1] / lr);
+    }
 }
 
 // ---------------------------------------------------------------- K2 ----
@@ -185,26 +386,64 @@ attn_windowed_kernel(const T* __restrict__ qkv, const T* __restrict__ rel_h,
   load_rel(Rw, rel_w + rel_row * W, W, n - q0);
   __syncthreads();
 
-  float m[4], l[4], acc[4][4];
-  window_attend(Qs, Ks, Ps, Vs, Rh, Rw, n, H, W, ty, tx, m, l, acc);
-  store_out(out, lse, rel_row - q0, acc, m, l, b, n, C, head, q0, ty, tx);
+  float m[4], l[4], acc[4][4], den[4];
+  window_attend<T>(Qs, Ks, Ps, Vs, Rh, Rw, n, H, W, ty, tx, m, l, acc);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) den[i] = window_den<T>(l[i]);
+  store_out(out, lse, rel_row - q0, acc, m, l, den, b, n, C, head, q0, ty,
+            tx);
 }
 
-template <typename T>
-int launch_global(const void* qkv, const void* rel_h, const void* rel_w,
-                  void* out, float* lse, int batch, int n, int heads, int h,
-                  int w, cudaStream_t stream) {
+int launch_global_f32(const void* qkv, const void* rel_h, const void* rel_w,
+                      void* out, float* lse, int batch, int n, int heads,
+                      int h, int w, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (size_t)(3 * TQ * LD + TK * D + TQ * (h + w));
   cudaError_t e = cudaFuncSetAttribute(
-      attn_global_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attn_global_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((n + TQ - 1) / TQ, heads, batch);
-  attn_global_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(rel_h),
-      static_cast<const T*>(rel_w), static_cast<T*>(out), lse, n, heads, h,
-      w, 0.125f);
+  attn_global_kernel<float><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(qkv), static_cast<const float*>(rel_h),
+      static_cast<const float*>(rel_w), static_cast<float*>(out), lse, n,
+      heads, h, w, 0.125f);
   return (int)cudaGetLastError();
+}
+
+template <bool ROW_TILE>
+int launch_global_mma(const void* qkv, const void* rel_h, const void* rel_w,
+                      void* out, float* lse, int batch, int n, int heads,
+                      int h, int w, cudaStream_t stream) {
+  using namespace mma;
+  constexpr int rows = 16 * K1_TILES * K1_WARPS;
+  const size_t smem = sizeof(bf16) * (size_t)(rows * LDS + 4 * TILE_ELEMS +
+                                              rows * (factor_ld(h) +
+                                                      factor_ld(w)));
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  auto kernel = attn_global_mma_kernel<ROW_TILE>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((n + rows - 1) / rows, heads, batch);
+  kernel<<<grid, 32 * K1_WARPS, smem, stream>>>(
+      static_cast<const bf16*>(qkv), static_cast<const bf16*>(rel_h),
+      static_cast<const bf16*>(rel_w), static_cast<bf16*>(out), lse, n,
+      heads, h, w);
+  return (int)cudaGetLastError();
+}
+
+// The block's shape (K1_TILES, K1_WARPS above): of the shapes timed on an
+// H100 at ViT-B's global layer, B = 1 and B = 4 (one or two m16 tiles per
+// warp, 2 to 8 warps, a 3-stage ring), 2 tiles x 4 warps was the fastest
+// at both sizes.
+int launch_global_bf16(const void* qkv, const void* rel_h, const void* rel_w,
+                       void* out, float* lse, int batch, int n, int heads,
+                       int h, int w, cudaStream_t stream) {
+  return w == mma::TILE
+             ? launch_global_mma<true>(qkv, rel_h, rel_w, out, lse, batch, n,
+                                       heads, h, w, stream)
+             : launch_global_mma<false>(qkv, rel_h, rel_w, out, lse, batch, n,
+                                        heads, h, w, stream);
 }
 
 template <typename T>
@@ -240,11 +479,10 @@ int dhoct_attn_global(const void* qkv, const void* rel_h, const void* rel_w,
                       int h, int w, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  return dtype == 1
-             ? launch_global<__nv_bfloat16>(qkv, rel_h, rel_w, out, l, batch,
-                                            n, heads, h, w, s)
-             : launch_global<float>(qkv, rel_h, rel_w, out, l, batch, n,
-                                    heads, h, w, s);
+  return dtype == 1 ? launch_global_bf16(qkv, rel_h, rel_w, out, l, batch,
+                                         n, heads, h, w, s)
+                    : launch_global_f32(qkv, rel_h, rel_w, out, l, batch, n,
+                                        heads, h, w, s);
 }
 
 int dhoct_attn_windowed(const void* qkv, const void* rel_h, const void* rel_w,

@@ -167,15 +167,37 @@ __device__ __forceinline__ void store_normalised(T* dst, const float* acc,
   store4(dst, o);
 }
 
+// The windowed kernels' (K2, K7) p as it enters the p.v product, and what
+// their output is divided by at the end: in f32 p itself and l; in bf16 the
+// TPU _windowed_group_kernel's point, p / l rounded to bf16 (its
+// (p / l).astype(bf16)), and nothing left to divide.
+template <typename T>
+__device__ __forceinline__ float window_p(float p, float l) {
+  return p;
+}
+template <>
+__device__ __forceinline__ float window_p<__nv_bfloat16>(float p, float l) {
+  return round_to<__nv_bfloat16>(p / l);
+}
+template <typename T>
+__device__ __forceinline__ float window_den(float l) {
+  return l;
+}
+template <>
+__device__ __forceinline__ float window_den<__nv_bfloat16>(float l) {
+  return 1.f;
+}
+
 // One-pass softmax attention of a 64-query tile against all n <= KMAX keys
 // of a window, every operand already in shared memory (the body of K2, and
 // of K7, which differs only in where its rows come from and go to):
 //   Qs TQ x LD (scaled queries) | Ks nk x LD | Vs nk x D, nk = n rounded up
 //   to 16 with zero rows past n | Rh TQ x H | Rw TQ x W bias factors.
 // Ps (TQ x (nk + 4)) may alias Qs / Ks: they are consumed before it is
-// written. Leaves the row maximum m, the denominator l and the
-// un-normalised output tile acc in registers. Every thread of the block
-// must call it (it synchronises).
+// written. Leaves the row maximum m, the denominator l and the output tile
+// acc in registers, acc still to be divided by window_den<T>(l). Every
+// thread of the block must call it (it synchronises).
+template <typename T>
 __device__ __forceinline__ void window_attend(
     const float* Qs, const float* Ks, float* Ps, const float* Vs,
     const float* Rh, const float* Rw, int n, int H, int W, int ty, int tx,
@@ -222,7 +244,8 @@ __device__ __forceinline__ void window_attend(
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
-      if (j < nj) Ps[(ty + 16 * i) * ldp + tx + 16 * j] = s[i][j];
+      if (j < nj)
+        Ps[(ty + 16 * i) * ldp + tx + 16 * j] = window_p<T>(s[i][j], l[i]);
   __syncthreads();
 
 #pragma unroll

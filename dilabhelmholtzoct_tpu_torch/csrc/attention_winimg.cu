@@ -116,14 +116,14 @@ attn_winimg_kernel(const T* __restrict__ qkv, const T* __restrict__ rel,
   __syncthreads();
 
   float m[4], l[4], acc[4][4];
-  window_attend(Qs, Ks, Ps, Vs, Rh, Rw, n, ws, ws, ty, tx, m, l, acc);
+  window_attend<T>(Qs, Ks, Ps, Vs, Rh, Rw, n, ws, ws, ty, tx, m, l, acc);
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int o = Tok[q0 + ty + 16 * i];
     if (o < 0) continue;  // only real positions are written
     store_normalised(out + ((size_t)b * H * W + o) * C + head * D + 4 * tx,
-                     acc[i], l[i]);
+                     acc[i], window_den<T>(l[i]));
   }
 }
 

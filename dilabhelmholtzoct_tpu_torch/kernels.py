@@ -38,18 +38,20 @@ _LOADED: dict[str, ctypes.CDLL] = {}
 BUILD_LOG: dict[str, str] = {}
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str = "nvcc") -> str:
+    """The path of a CUDA toolkit program (``nvcc``, ``cuobjdump``)."""
     home = os.environ.get("CUDA_HOME")
-    for cand in ((Path(home) / "bin" / "nvcc") if home else None,
-                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+    for cand in ((Path(home) / "bin" / name) if home else None,
+                 shutil.which(name), f"/usr/local/cuda/bin/{name}"):
         if cand and Path(cand).is_file():
             return str(cand)
     raise FileNotFoundError(
-        "nvcc not found (set CUDA_HOME); the CUDA kernels are built on the "
+        f"{name} not found (set CUDA_HOME); the CUDA kernels are built on the "
         "machine with the card")
 
 
-def _lib_path(name: str) -> Path:
+def library_path(name: str) -> Path:
+    """Where the library of ``SOURCES[name]`` is (or will be) built."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in sorted(CSRC.glob("*.cuh")) + [CSRC / SOURCES[name]]:
         h.update(p.name.encode())
@@ -62,15 +64,15 @@ def build(names=None) -> float:
     ``nvcc`` process each, all started together. Returns the wall seconds;
     raises with the compiler's output when a build fails."""
     names = list(SOURCES) if names is None else list(names)
-    todo = [n for n in names if not _lib_path(n).exists()]
+    todo = [n for n in names if not library_path(n).exists()]
     t0 = time.perf_counter()
     if not todo:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
+    nvcc = cuda_tool()
     procs = {}
     for n in todo:
-        tmp = _lib_path(n).with_suffix(f".{os.getpid()}.tmp")
+        tmp = library_path(n).with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
                str(CSRC / SOURCES[n])]
         procs[n] = (tmp, subprocess.Popen(
@@ -82,7 +84,7 @@ def build(names=None) -> float:
         if proc.returncode != 0:
             failed.append(f"{SOURCES[n]} (nvcc exit {proc.returncode}):\n{log}")
         else:
-            os.replace(tmp, _lib_path(n))  # atomic: readers never see half
+            os.replace(tmp, library_path(n))  # atomic: readers never see half
     if failed:
         raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
     return time.perf_counter() - t0
@@ -92,7 +94,7 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library for ``SOURCES[name]``, built first if needed."""
     if name not in _LOADED:
         build([name])
-        _LOADED[name] = ctypes.CDLL(str(_lib_path(name)))
+        _LOADED[name] = ctypes.CDLL(str(library_path(name)))
     return _LOADED[name]
 
 

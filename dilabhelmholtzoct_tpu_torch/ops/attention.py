@@ -116,11 +116,27 @@ def packed_attention_plain(qkv, rel_h, rel_w, *, hw, num_heads: int,
     """Plain PyTorch version: materialised (N, N) bias, f32 softmax, the
     output cast back to the input dtype (``attention_reference`` math on the
     packed qkv). ``return_lse=True`` also returns the rows' logsumexp of the
-    scaled scores, (B, heads, N) f32, as K1 / K2 write it."""
+    scaled scores, (B, heads, N) f32, as K1 / K2 write it.
+
+    In bf16 the probabilities are rounded where the TPU kernels round them
+    before the p.v product: the global route (N > WINDOW_MAX_TOKENS,
+    ``_packed_kernel``) rounds the un-normalised p = exp(s - max) and divides
+    the f32 product by the f32 denominator last; the windowed route
+    (``_windowed_group_kernel``, and ``_windowed_image_kernel`` through
+    ``windowed_image_attention_plain``) rounds the normalised p / l."""
     _check(qkv, rel_h, rel_w, hw, num_heads)
     _, _, v, s = _scores(qkv, rel_h, rel_w, hw, num_heads)
-    out = _merge_heads(torch.matmul(torch.softmax(s, dim=-1), v))
-    out = out.to(qkv.dtype)
+    if qkv.dtype == torch.float32:
+        out = torch.matmul(torch.softmax(s, dim=-1), v)
+    else:
+        p = (s - s.amax(dim=-1, keepdim=True)).exp_()
+        denom = p.sum(dim=-1, keepdim=True)
+        if s.shape[-1] <= WINDOW_MAX_TOKENS:
+            out = torch.matmul(_rnd(p.div_(denom), qkv.dtype), v)
+        else:
+            out = torch.matmul(_rnd(p, qkv.dtype), v).div_(denom)
+        del p
+    out = _merge_heads(out).to(qkv.dtype)
     if return_lse:
         return out, torch.logsumexp(s, dim=-1)
     return out
@@ -211,8 +227,10 @@ def partition_image_operands(qkv_img, rel, qkv_bias, ws: int):
 def windowed_image_attention_plain(qkv_img, rel, qkv_bias, *, ws: int,
                                    num_heads: int):
     """Plain PyTorch version of K7, by way of the partitioned route:
-    ``partition_image_operands``, ``packed_attention_plain`` per window,
-    un-partition and crop."""
+    ``partition_image_operands``, ``packed_attention_plain`` per window (in
+    bf16 its windowed rounding point, the TPU ``_windowed_image_kernel``'s:
+    the normalised p / l rounded before the p.v product), un-partition and
+    crop."""
     _check_image(qkv_img, rel, qkv_bias, ws, num_heads)
     _, h, w, c3 = qkv_img.shape
     win, rel_h, rel_w, padded_hw = partition_image_operands(qkv_img, rel,

@@ -3,7 +3,11 @@ package's ``flash_attention_packed`` (Pallas kernels in interpret mode, the
 way tests/test_attention.py runs them on the CPU) and ``attention_reference``.
 
 Tolerance, f32: atol 2e-5, rtol 1e-4 — tests/test_attention.py's own for the
-same function; the two differ only in summation order."""
+same function; the two differ only in summation order. bf16 rounding points:
+two bf16 ulps of the output scale, 2 * 2^-8 * max |out|, and at least 99% of
+the outputs bit-equal to the interpret-mode Pallas kernel at shapes where it
+takes one key block (its running maximum is then the row maximum); each of
+the other rounding points reaches less than 90%."""
 
 import numpy as np
 import pytest
@@ -18,6 +22,7 @@ from dilabhelmholtzoct_tpu.ops.attention import (
 from dilabhelmholtzoct_tpu_torch.ops import attention as port_attn
 
 ATOL, RTOL = 2e-5, 1e-4
+BF16_ULP = 2.0 ** -8
 
 
 def _inputs(rng, b, nh, hw, scale=1.0):
@@ -92,6 +97,52 @@ def test_plain_bf16_keeps_dtype_and_f32_math(rng):
     want = port_attn.packed_attention_plain(*rounded, hw=(14, 14), num_heads=2)
     np.testing.assert_allclose(got.float().numpy(), want.numpy(), atol=2e-2,
                                rtol=1e-2)
+
+
+def _rounded_at(qkv, rel_h, rel_w, hw, nh, point):
+    """The plain attention with p rounded to bf16 at another point: "f32"
+    never ("attention_reference"'s f32 softmax), "unnorm" the un-normalised
+    p with the division last (the global route's), "norm" p / l (the
+    windowed routes')."""
+    _, _, v, s = port_attn._scores(qkv, rel_h, rel_w, hw, nh)
+    p = (s - s.amax(-1, keepdim=True)).exp()
+    denom = p.sum(-1, keepdim=True)
+    if point == "f32":
+        out = torch.matmul(p / denom, v)
+    elif point == "unnorm":
+        out = torch.matmul(p.to(torch.bfloat16).float(), v) / denom
+    else:
+        out = torch.matmul((p / denom).to(torch.bfloat16).float(), v)
+    return port_attn._merge_heads(out).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,hw,point,wrong", [
+    (1, (32, 32), "unnorm", ("f32", "norm")),  # global: _packed_kernel
+    (25, (14, 14), "norm", ("f32", "unnorm")),  # 25 windows: grouped kernel
+])
+def test_plain_bf16_rounding_points(rng, b, hw, point, wrong):
+    """bf16: the plain version rounds p where the TPU kernel of its route
+    rounds it (global: un-normalised, divided last; windowed: normalised),
+    so nearly every output is bit-equal to the interpret-mode Pallas
+    kernel; the f32 softmax or the other route's point are not."""
+    qkv, rel_h, rel_w = _inputs(rng, b, 2, hw, scale=0.5)
+    want = jax_packed(*(jnp.asarray(a, dtype=jnp.bfloat16)
+                        for a in (qkv, rel_h, rel_w)),
+                      hw=hw, num_heads=2, interpret=True)
+    want = np.asarray(want.astype(jnp.float32))
+    got = _port(qkv, rel_h, rel_w, hw, 2, dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=2 * BF16_ULP * np.abs(want).max())
+    assert (got == want).mean() >= 0.99
+    tensors = [torch.tensor(a, dtype=torch.bfloat16)
+               for a in (qkv, rel_h, rel_w)]
+    assert torch.equal(_rounded_at(*tensors, hw, 2, point),
+                       torch.tensor(got, dtype=torch.bfloat16))
+    for other in wrong:
+        bad = _rounded_at(*tensors, hw, 2, other).float().numpy()
+        assert (bad == want).mean() < 0.9, other
 
 
 def test_wrapper_rejects_bad_shapes(rng):

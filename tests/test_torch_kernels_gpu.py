@@ -51,7 +51,9 @@ def assert_forward_close(got, want):
 @pytest.mark.parametrize("b,nh,hw", [(1, 12, (64, 64)),   # K1, ViT-B global
                                      (25, 12, (14, 14)),  # K2, ViT-B windows
                                      (3, 2, (9, 7)),      # K2, ragged 63 keys
-                                     (2, 2, (20, 15))])   # K1, ragged tiles
+                                     (2, 2, (20, 15)),    # K1, ragged tiles
+                                     (2, 2, (30, 34)),    # K1, ragged grid
+                                     (1, 2, (64, 64))])   # K1, 2 heads
 def test_kernels_match_plain_on_card(cuda_device, dtype, b, nh, hw):
     rng = np.random.default_rng(0)
     n = hw[0] * hw[1]
@@ -83,7 +85,9 @@ def _attn_inputs(dev, dtype, b, nh, hw, seed=0):
 ATTN_SHAPES = [(1, 12, (64, 64)),   # ViT-B global layer
                (25, 12, (14, 14)),  # ViT-B windows of one image
                (3, 2, (9, 7)),      # ragged: one 63-token tile
-               (2, 2, (20, 15))]    # ragged: 300 tokens over 5 tiles
+               (2, 2, (20, 15)),    # ragged: 300 tokens over 5 tiles
+               (2, 2, (30, 34)),    # ragged global grid: 1020 tokens, W != 64
+               (1, 2, (64, 64))]    # 4096 tokens at 2 heads
 
 
 @pytest.mark.gpu
@@ -127,6 +131,10 @@ def test_attention_bwd_kernels_match_plain_on_card(cuda_device, dtype, b, nh,
         assert a.shape == bb.shape and a.dtype == bb.dtype, name
         assert bool(torch.isfinite(a.float()).all()), name
         _rel_close(a, bb, K34_TOL[dtype], name)
+    # no atomics: a second run gives the same bits
+    again = port_attn.attention_bwd_cuda(qkv, rel_h, rel_w, g, lse, dvec, **kw)
+    for name, a, bb in zip(("dqkv", "drel_h", "drel_w"), got, again):
+        assert torch.equal(a, bb), name
 
 
 @pytest.mark.gpu
@@ -151,6 +159,39 @@ def test_attention_autograd_runs_k5_on_card(cuda_device):
                             "attn_windowed_image": 0}, launched
     for name, a, bb in zip(("dqkv", "drel_h", "drel_w"), *grads):
         _rel_close(a, bb, K34_TOL[torch.float32], name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,nh,hw", [(2, 2, (30, 34)),    # K1, ragged grid
+                                     (4, 2, (14, 14)),    # K2, windows
+                                     (1, 2, (64, 64))])   # K1, 4096 tokens
+def test_attention_autograd_bf16_runs_k5_on_card(cuda_device, b, nh, hw):
+    """bf16 gradients through ``flash_attention_packed`` on the card (K1's
+    tensor-core kernel or K2 with the LSE rows, then K5's tensor-core
+    kernels) against the plain versions of the same forward and backward,
+    each output relative to its max |plain|."""
+    qkv, rel_h, rel_w, t = _attn_inputs(cuda_device, torch.bfloat16, b, nh,
+                                        hw)
+    kw = dict(hw=hw, num_heads=nh)
+    fwd = ("attn_windowed" if hw[0] * hw[1] <= port_attn.WINDOW_MAX_TOKENS
+           else "attn_global")
+    before = dict(port_attn.LAUNCHES)
+    args = [x.clone().requires_grad_(True) for x in (qkv, rel_h, rel_w)]
+    out = port_attn.flash_attention_packed(*args, **kw)
+    out.backward(t)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in port_attn.LAUNCHES.items() if
+                v != before[k]}
+    assert launched == {fwd: 1, "attn_bwd_dq": 1, "attn_bwd_dkv": 1}, launched
+    want_out, lse = port_attn.packed_attention_plain(qkv, rel_h, rel_w,
+                                                     return_lse=True, **kw)
+    assert_forward_close(out.detach(), want_out)
+    dvec = port_attn.bwd_dvec(t, want_out, nh)
+    want = port_attn.packed_attention_bwd_plain(qkv, rel_h, rel_w, t, lse,
+                                                dvec, **kw)
+    for name, x, w in zip(("dqkv", "drel_h", "drel_w"), args, want):
+        assert x.grad.dtype == torch.bfloat16, name
+        _rel_close(x.grad, w, K34_TOL[torch.bfloat16], name)
 
 
 @pytest.mark.gpu

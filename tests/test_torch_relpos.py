@@ -67,9 +67,11 @@ def test_relpos_attention_matches_jax_interpret(rng, d, hw):
 
 
 def _wrong_rounding(qkv, rel_h, rel_w, hw, nh, kind):
-    """K1 / K2's rounding points, which K6 must not take: "fold" scales q
-    before the product (rounding it to qkv's dtype), "norm" divides p by the
-    denominator before rounding it."""
+    """Rounding points of the packed kernels, which K6 must not take: "fold"
+    scales q before the product (rounding it to qkv's dtype; K1 / K2 / K7
+    fold 1/8, exact at head dim 64 but not at 80), "norm" divides p by the
+    denominator before rounding it (K2 / K7, the windowed routes; K1, the
+    global route, rounds the un-normalised p as K6 does)."""
     dt = qkv.dtype
     b, n, _ = qkv.shape
     q, k, v = port_attn._split_heads(qkv, nh)

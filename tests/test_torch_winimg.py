@@ -7,7 +7,11 @@ layer parameters and input; and vs the port's own partitioned route.
 Grids (28, 28) (whole windows of 14), (20, 20) and (28, 20) (tail windows
 with pad tokens, which take the qkv bias row), with 2 heads and with 4 (two
 head pairs for the TPU kernel). Tolerance atol 5e-5, rtol 1e-4:
-tests/test_attention.py's own for the fused against the partitioned route."""
+tests/test_attention.py's own for the fused against the partitioned route.
+bf16, the attention alone on a 70x70 image (25 windows): two bf16 ulps of
+the output scale, and at least 99% of the outputs bit-equal to the
+interpret-mode Pallas kernel, which the f32 softmax or the global route's
+rounding point do not reach (less than 90%)."""
 
 import numpy as np
 import pytest
@@ -18,6 +22,10 @@ import jax.numpy as jnp
 
 from dilabhelmholtzoct_tpu.models import configs as jconfigs
 from dilabhelmholtzoct_tpu.models import sam as jsam
+from dilabhelmholtzoct_tpu.ops.attention import (
+    _WIN_SLOT,
+    flash_attention_windowed_image as jax_windowed_image,
+)
 from dilabhelmholtzoct_tpu_torch.models import configs as pconfigs
 from dilabhelmholtzoct_tpu_torch.models import sam as psam
 from dilabhelmholtzoct_tpu_torch.ops import attention as port_attn
@@ -144,6 +152,56 @@ def test_windowed_image_plain_is_the_partitioned_attention(rng, dtype):
         qkv, rel, torch.zeros_like(bias), ws=WS, num_heads=heads)
     assert not torch.equal(other[1, 14:, 14:], want)
     assert torch.equal(other[:, :14, :14], got[:, :14, :14])
+
+
+def _jax_windowed_image(qkv, rel, bias, ws, nh):
+    """The JAX kernel on the same operands: W spread so window x's ws
+    columns open a 16-column slot (``models/sam.py::_windowed_attention_image``
+    's gather), the kernel in interpret mode, the real columns gathered
+    back."""
+    w = qkv.shape[2]
+    w_s = -(-w // ws) * _WIN_SLOT
+    spread = np.minimum((np.arange(w_s) // _WIN_SLOT) * ws
+                        + np.minimum(np.arange(w_s) % _WIN_SLOT, ws - 1),
+                        w - 1)
+    out = jax_windowed_image(
+        jnp.asarray(qkv[:, :, spread], dtype=jnp.bfloat16),
+        jnp.asarray(rel[:, :, :, spread], dtype=jnp.bfloat16),
+        jnp.asarray(bias, dtype=jnp.bfloat16), ws=ws, wdt=w, num_heads=nh,
+        interpret=True)
+    compact = (np.arange(w) // ws) * _WIN_SLOT + np.arange(w) % ws
+    return np.asarray(out.astype(jnp.float32))[:, :, compact]
+
+
+def test_windowed_image_plain_bf16_rounding_point(rng):
+    """bf16: the normalised p / l rounded before the p.v product, as the TPU
+    ``_windowed_image_kernel`` rounds it."""
+    heads, hw = 2, (70, 70)
+    c = 64 * heads
+    arrays = ((rng.normal(size=(1, *hw, 3 * c)) * 0.5).astype(np.float32),
+              (rng.normal(size=(1, heads, *hw, 2 * WS)) * 0.3
+               ).astype(np.float32),
+              (rng.normal(size=(3 * c,)) * 0.5).astype(np.float32))
+    want = _jax_windowed_image(*arrays, WS, heads)
+    qkv, rel, bias = (torch.tensor(a, dtype=torch.bfloat16) for a in arrays)
+    got = port_attn.flash_attention_windowed_image(qkv, rel, bias, ws=WS,
+                                                   num_heads=heads)
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=2 * 2.0 ** -8 * np.abs(want).max())
+    assert (got == want).mean() >= 0.99
+    win, rel_h, rel_w, padded = port_attn.partition_image_operands(
+        qkv, rel, bias, WS)
+    _, _, v, s = port_attn._scores(win, rel_h, rel_w, (WS, WS), heads)
+    p = (s - s.amax(-1, keepdim=True)).exp()
+    denom = p.sum(-1, keepdim=True)
+    for wrong in (torch.matmul(p / denom, v),
+                  torch.matmul(p.to(torch.bfloat16).float(), v) / denom):
+        out = port_attn._merge_heads(wrong).to(torch.bfloat16)
+        out = port_attn.window_unpartition(out.reshape(-1, WS, WS, c), WS,
+                                           padded, hw)
+        assert (out.float().numpy() == want).mean() < 0.9
 
 
 def test_fused_windowed_switch():
