@@ -11,9 +11,9 @@ prints no result line):
 2. Build: every CUDA kernel of the serving, training and evaluation paths from
    ``dilabhelmholtzoct_tpu_torch/csrc`` with nvcc for sm_90a, one nvcc per
    source, all started together (build seconds and the ptxas report). Then
-   the bf16 K1 and K5 kernels' SASS (``cuobjdump -sass`` on the built
-   libraries) must hold tensor-core instructions (HMMA, or HGMMA), printed
-   per kernel beside its registers and spills from the ptxas report.
+   the bf16 K1, K2, K5, K6 and K7 kernels' SASS (``cuobjdump -sass`` on the
+   built libraries) must hold tensor-core instructions (HMMA, or HGMMA) and
+   their ptxas reports no spills, printed per kernel beside its registers.
 3. Kernels at SAM ViT-B shapes — K1 global attention (B=1, N=4096, 12 heads)
    and K2 windowed attention (25 windows of 196 tokens, 12 heads) — in f32
    and bf16: each held against its plain PyTorch version on the same card
@@ -72,9 +72,10 @@ prints no result line):
    for 1 epoch of 2 steps; finite losses, one checkpoint.
 
 13. K6, the any-head-dim attention, at ViT-H shapes (16 heads of 80; the
-   global layer B = 1, N = 4096; 25 windows of 196) and at the test-size
-   model's (4 heads of 16), in f32 and bf16: held against its plain version,
-   then timed beside its bound, the plain version and one
+   global layer B = 1, N = 4096; 25 windows of 196), at the test-size
+   model's (4 heads of 16) and at head dims whose rows the bf16 kernel pads
+   (20 and 48), in f32 and bf16: held against its plain version, then timed
+   beside its bound, the plain version and one
    ``scaled_dot_product_attention`` call with the materialised bias.
 14. K7, the image-layout windowed attention, at ViT-B (B = 1, 12 heads,
    64x64, windows of 14) and on a ragged 28x20 grid, in f32 and bf16: held
@@ -90,23 +91,34 @@ prints no result line):
    request held against the same engine on the CPU at full depth.
 16. ViT-B serving under ``set_fused_windowed('on')``: one encode launches K1
    x4, K7 x8 and K2 x0; probabilities within tolerance of the default
-   route's on the card; encode ms of both routes. The switch is reset.
+   route's on the card; a bf16 encode under each route (K2 x8 or K7 x8),
+   the embeddings within 2e-2 of their max of each other; encode ms of both
+   routes in f32 and in bf16. The switch is reset.
 17. Evaluation: ``evaluate_metrics`` over 8 synthetic OCT items at full
    ViT-H (32 K6 launches per image) with a finite report; the same call at a
    depth cut (2 layers: one windowed, one global) on the card against
    ``device="cpu"``; ``training(evaluate=True)`` for one short ViT-B epoch
    returns ``metrics``.
+18. Decoder fine-tuning at full ViT-H (``TrainConfig(base_model=
+   'facebook/sam-vit-huge')``, bf16, ``prepare_model``'s seeded random
+   weights): the precompute of 16 synthetic images launches K6 exactly x32
+   per image and nothing else; one epoch of 2 cached-embedding steps, each
+   K3 x1 and K4 x2 forward and backward; precompute ms per image, step ms
+   and peak memory; ``training()`` for 1 epoch (16 + 8 images, 2 steps);
+   the bf16 embeddings of 2 images at a 2-layer cut (full width) on the
+   card against the CPU, within ``EMB_ULPS`` bf16 ulps of their scale.
 
 The line before the last is a JSON object with one entry per kernel (K1/K2
-numbers from the serving path in f32, K1 in bf16 as its own kernel
-(``attn_global_bf16``: the tensor-core kernel, at ViT-B global B = 1, its
-launches counted on the ViT-B full fine-tune run), K3/K4 from the training
-path in bf16,
-K5 from the global layer at B = 4 in bf16, its launches counted on the ViT-B
-full fine-tune run, K6 from the ViT-H global layer in f32, its launches
-counted on the ViT-H serving run, K7 at ViT-B in f32, its launches counted
-on the ``set_fused_windowed('on')`` encode); the last line is
-``{"ok": true, "device": {...}}``.
+numbers from the serving path in f32; K1 and K2 in bf16 as their own
+kernels (``attn_global_bf16``, ``attn_windowed_bf16``: the tensor-core
+kernels, at ViT-B B = 1, their launches counted on the ViT-B full
+fine-tune run); K3/K4 from the training path in bf16; K5 from the global
+layer at B = 4 in bf16, its launches counted on the ViT-B full fine-tune
+run; K6 from the ViT-H global layer in f32, its launches counted on the
+ViT-H serving run, and in bf16 (``attn_relpos_bf16``), its launches
+counted on the ViT-H bf16 precompute and steps; K7 at ViT-B in f32, its
+launches counted on the ``set_fused_windowed('on')`` encode); the last line
+is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -204,9 +216,12 @@ def _sdpa_ms(torch, qkv, rel_h, rel_w, hw, heads, iters=5):
 
 
 # the bf16 kernels on the tensor cores: library -> kernel names
-MMA_KERNELS = {"attention": ("attn_global_mma_kernel",),
+MMA_KERNELS = {"attention": ("attn_global_mma_kernel",
+                             "attn_windowed_mma_kernel"),
                "attention_bwd": ("attn_bwd_dq_mma_kernel",
-                                 "attn_bwd_dkv_mma_kernel")}
+                                 "attn_bwd_dkv_mma_kernel"),
+               "attention_relpos": ("attn_relpos_mma_kernel",),
+               "attention_winimg": ("attn_winimg_mma_kernel",)}
 
 
 def _ptxas_by_function(log):
@@ -223,9 +238,10 @@ def _ptxas_by_function(log):
 
 
 def tensor_core_check(kernels):
-    """Fail unless the SASS of every bf16 K1 / K5 kernel holds tensor-core
-    instructions (HMMA from mma.sync, HGMMA from wgmma); print the count of
-    each instance beside its registers and spills."""
+    """Fail unless the SASS of every bf16 K1 / K2 / K5 / K6 / K7 kernel
+    holds tensor-core instructions (HMMA from mma.sync, HGMMA from wgmma)
+    and its ptxas report shows no spills; print the count of each instance
+    beside its registers and spills."""
     cuobjdump = kernels.cuda_tool("cuobjdump")
     for lib, names in MMA_KERNELS.items():
         sass = subprocess.run(
@@ -245,15 +261,19 @@ def tensor_core_check(kernels):
             for f in found:
                 check(counts[f] > 0, f"{f}: no tensor-core instruction in its "
                                      "SASS")
+                rep = report.get(f, "not rebuilt in this run")
+                check(f not in report or ("0 bytes spill stores" in rep
+                                          and "0 bytes spill loads" in rep),
+                      f"{f} spills: {rep}")
                 print(f"sass {f}: {counts[f]} tensor-core instructions; "
-                      f"ptxas {report.get(f, 'not rebuilt in this run')}")
+                      f"ptxas {rep}")
 
 
 def kernel_phase(torch, attn):
-    """K1 / K2 vs their plain versions at ViT-B shapes; returns the f32
-    numbers per kernel (the serving path's type) and the bf16 K1 numbers
-    (the tensor-core kernel of the precompute and full fine-tune paths)
-    for the result line."""
+    """K1 / K2 vs their plain versions at ViT-B shapes; returns the numbers
+    of each kernel for the result line: f32 (the serving path's type) under
+    its name, bf16 (the tensor-core kernels of the precompute and full
+    fine-tune paths) as ``<name>_bf16``."""
     from dilabhelmholtzoct_tpu_torch.device import full_fp32
 
     dev = torch.device("cuda")
@@ -306,16 +326,14 @@ def kernel_phase(torch, attn):
                   f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
                   f"bound_ms={bound:.4f} ({bound_by}) "
                   f"share_of_bound={bound / ms:.3f}")
-            key = (name if dtype == torch.float32 else
-                   "attn_global_bf16" if name == "attn_global" else None)
-            if key is not None:
-                rows[key] = {
-                    "name": key, "route": "cuda",
-                    "source": "dilabhelmholtzoct_tpu_torch/csrc/attention.cu",
-                    "replaces": replaces, "max_abs_err": err, "ms": ms,
-                    "plain_ms": plain_ms, "bound_ms": bound,
-                    "bound_by": bound_by, "library_ms": lib_ms,
-                }
+            key = name if dtype == torch.float32 else f"{name}_bf16"
+            rows[key] = {
+                "name": key, "route": "cuda",
+                "source": "dilabhelmholtzoct_tpu_torch/csrc/attention.cu",
+                "replaces": replaces, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+                "library_ms": lib_ms,
+            }
             del qkv, rel_h, rel_w, out, ref
     torch.cuda.empty_cache()
     return rows
@@ -1032,10 +1050,11 @@ def finetune_epoch_loop(torch, tr, sd_host):
 
 
 def k6_kernel_phase(torch, attn):
-    """K6 against its plain version at ViT-H shapes and at the test-size
-    model's, f32 and bf16, timed beside its bound, the plain version and
-    SDPA; returns the result-line row (ViT-H global layer, f32: serving's
-    type)."""
+    """K6 against its plain version at ViT-H shapes, at the test-size
+    model's and at head dims whose rows the bf16 kernel pads (20: 8-byte
+    copies, rows of 32; 48), f32 and bf16, timed beside its bound, the plain
+    version and SDPA; returns the result-line rows of the ViT-H global
+    layer: f32 (serving's type) and bf16 (the precompute's)."""
     from dilabhelmholtzoct_tpu_torch.device import full_fp32
 
     dev = torch.device("cuda")
@@ -1043,8 +1062,10 @@ def k6_kernel_phase(torch, attn):
     cases = [("ViT-H global", 1, (64, 64), 16, 80),
              ("ViT-H windowed", 25, (14, 14), 16, 80),
              ("tiny global", 2, (8, 8), 4, 16),
-             ("tiny windowed", 8, (4, 4), 4, 16)]
-    row = None
+             ("tiny windowed", 8, (4, 4), 4, 16),
+             ("d=20 global", 1, (64, 64), 8, 20),
+             ("d=48 windowed", 25, (14, 14), 8, 48)]
+    rows = {}
     for label, b, hw, heads, d in cases:
         n = hw[0] * hw[1]
         for dtype in (torch.float32, torch.bfloat16):
@@ -1089,17 +1110,19 @@ def k6_kernel_phase(torch, attn):
                   f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
                   f"bound_ms={bound:.4f} ({bound_by}) "
                   f"share_of_bound={bound / ms:.3f}")
-            if label == "ViT-H global" and f32:
-                row = {"name": "attn_relpos", "route": "cuda",
-                       "source": "dilabhelmholtzoct_tpu_torch/csrc/"
-                                 "attention_relpos.cu",
-                       "replaces": "dilabhelmholtzoct_tpu/ops/attention.py:132",
-                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                       "bound_ms": bound, "bound_by": bound_by,
-                       "library_ms": lib_ms}
+            if label == "ViT-H global":
+                key = "attn_relpos" if f32 else "attn_relpos_bf16"
+                rows[key] = {
+                    "name": key, "route": "cuda",
+                    "source": "dilabhelmholtzoct_tpu_torch/csrc/"
+                              "attention_relpos.cu",
+                    "replaces": "dilabhelmholtzoct_tpu/ops/attention.py:132",
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound, "bound_by": bound_by,
+                    "library_ms": lib_ms}
             del qkv, rel_h, rel_w, out, ref, args
         torch.cuda.empty_cache()
-    return {"attn_relpos": row}
+    return rows
 
 
 def k7_kernel_phase(torch, attn):
@@ -1330,22 +1353,53 @@ def fused_windowed_phase(torch, attn):
         check(diff <= PROB_ATOL, f"probabilities under 'on' differ from the "
                                  f"default route's by {diff:.3g}")
 
+        # both routes in f32 (serving) and in bf16 (the precompute's
+        # encode, K2 / K7 on the tensor cores), timed in interleaved rounds
         x = torch.from_numpy(img[None]).to(engine.device)
-        times = {"auto": [], "on": []}
+        times = {(m, t): [] for m in ("auto", "on") for t in ("f32", "bf16")}
         with torch.inference_mode(), full_fp32():
-            pix, _ = preprocess_image(x, target_size=cfg.vision.image_size)
+            pix = {t: preprocess_image(x, target_size=cfg.vision.image_size,
+                                       dtype=dt)[0]
+                   for t, dt in (("f32", torch.float32),
+                                 ("bf16", torch.bfloat16))}
+            emb = {}
+            for mode, k2, k7 in (("auto", 8, 0), ("on", 0, 8)):
+                sam.set_fused_windowed(mode)
+                before = _counts()
+                emb[mode] = sam.encode_image(engine.params, pix["bf16"], cfg)
+                torch.cuda.synchronize()
+                d = {k: v for k, v in _delta(_counts(), before).items() if v}
+                want_bf = {"attn_global": 4, "attn_windowed": k2,
+                           "attn_windowed_image": k7}
+                check(d == {k: v for k, v in want_bf.items() if v},
+                      f"a bf16 ViT-B encode under {mode!r} launched {d}")
+            ref = emb["auto"].float()
+            bf_rel = ((emb["on"].float() - ref).abs().max()
+                      / ref.abs().max()).item()
+            check(emb["on"].dtype == torch.bfloat16
+                  and bool(torch.isfinite(emb["on"].float()).all())
+                  and bf_rel <= K34_TOL["bf16"],
+                  f"bf16 embeddings under 'on' differ from the default "
+                  f"route's by {bf_rel:.3g} of their max")
             for mode in ("auto", "on", "on", "auto", "auto", "on"):
                 sam.set_fused_windowed(mode)
-                times[mode].append(cuda_ms(
-                    lambda: sam.encode_image(engine.params, pix, cfg), 10))
+                for t in ("f32", "bf16"):
+                    times[(mode, t)].append(cuda_ms(
+                        lambda: sam.encode_image(engine.params, pix[t], cfg),
+                        10))
     finally:
         sam.set_fused_windowed("auto")
     print(f"serving ViT-B f32 under set_fused_windowed('on'): launches "
           f"{launches}; max |p_on - p_default| = {diff:.3g} (atol "
-          f"{PROB_ATOL}); encode ms (CUDA events, mean of 10, three rounds "
-          f"each, interleaved) default route "
-          f"{[round(t, 3) for t in times['auto']]}, 'on' route "
-          f"{[round(t, 3) for t in times['on']]}")
+          f"{PROB_ATOL}); bf16 encode under 'on' vs default: max |difference| "
+          f"/ max |default| = {bf_rel:.3g} (limit {K34_TOL['bf16']}: bf16 "
+          f"roundings flip between two GEMM shapes and carry through 12 "
+          f"layers)")
+    for t in ("f32", "bf16"):
+        print(f"ViT-B encode ms {t} (CUDA events, mean of 10, three rounds "
+              f"each, interleaved): default route "
+              f"{[round(v, 3) for v in times[('auto', t)]]}, 'on' route "
+              f"{[round(v, 3) for v in times[('on', t)]]}")
     del engine
     torch.cuda.empty_cache()
     return launches
@@ -1460,6 +1514,143 @@ def evaluation_phase(torch, attn, sd_h):
     return launches
 
 
+EMB_ULPS = 4  # bf16 embeddings, card vs CPU (2-layer cut): bf16 ulps of
+#               their scale, 2^-8 * max |cpu|; the mean within half of one
+
+
+def vith_decoder_phase(torch):
+    """MedSAM-style decoder fine-tuning at full ViT-H (32 layers, 1280 wide,
+    16 heads of 80) in bf16 from ``prepare_model``'s seeded random weights:
+    the precompute of the 16 training images (K6 x32 per image, nothing
+    else) and one epoch of 2 cached-embedding steps (K3 x1, K4 x2, forward
+    and backward, each); ``training()`` itself for 1 epoch of 2 steps; the
+    card against the CPU on the embeddings of 2 images at a 2-layer cut.
+    Returns the launch counts of the precompute and the steps."""
+    from dilabhelmholtzoct_tpu_torch.data.pipeline import (PromptedDataset,
+                                                           batches)
+    from dilabhelmholtzoct_tpu_torch.inference import synthetic
+    from dilabhelmholtzoct_tpu_torch.train import trainer as tr
+
+    dev = torch.device("cuda")
+    config = tr.TrainConfig(base_model="facebook/sam-vit-huge",
+                            trainable="decoder", evaluate=False, batch_size=8,
+                            epochs=1)  # bf16, lr 1e-3
+    t0 = time.perf_counter()
+    cfg, sd_host = tr.prepare_model(config)
+    init_s = time.perf_counter() - t0
+    v = cfg.vision
+    check((v.num_layers, v.hidden_size, v.num_heads) == (32, 1280, 16),
+          f"not ViT-H: {v}")
+    train_items = synthetic.oct_training_items(16, seed=1)
+    valid_items = synthetic.oct_training_items(8, seed=2)
+    ds = PromptedDataset(train_items, seed=0)
+    sd = {k: x.to(dev) for k, x in sd_host.items()}
+    decoder, frozen = tr._split_params(sd)
+    for x in decoder.values():
+        x.requires_grad_(True)
+    opt = tr.make_optimizer(config, decoder.values())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()  # --- main path starts
+    t0 = time.perf_counter()
+    emb = tr.precompute_embeddings(sd, cfg, ds, dtype=torch.bfloat16,
+                                   verbose=False)
+    pre_s = time.perf_counter() - t0
+    c = _counts()
+    check(c == {**dict.fromkeys(c, 0), "attn_relpos": v.num_layers * len(ds)},
+          f"the ViT-H bf16 precompute of {len(ds)} images must launch K6 x32 "
+          f"per image and nothing else, got {c}")
+    check(emb.shape == (16, 64, 64, 256) and emb.dtype == torch.bfloat16
+          and bool(torch.isfinite(emb.float()).all()), "bad ViT-H embeddings")
+    step = tr.make_train_step(cfg, config, opt, (496, 512), True)
+    losses, times = [], []
+    for batch in batches(ds, 8, with_images=False, num_workers=2):
+        db = _device_batch(torch, batch, dev, emb)
+        before = _counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decoder, opt, loss = step(decoder, opt, frozen, db)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        d = _delta(_counts(), before)
+        check(d == STEP_LAUNCHES, f"ViT-H step launched {d}, want "
+                                  f"{STEP_LAUNCHES}")
+        losses.append(float(loss))
+    launches = _counts()  # --- main path ends
+    peak = torch.cuda.max_memory_allocated()
+    check(len(losses) == 2 and all(np.isfinite(losses)),
+          f"ViT-H steps: losses {losses}")
+    print(f"training ViT-H bf16 (32 layers, 1280 wide, 16 heads of 80; "
+          f"prepare_model {init_s:.1f} s): precompute {pre_s * 1e3:.1f} ms "
+          f"for {len(ds)} images ({pre_s / len(ds) * 1e3:.2f} ms/image incl. "
+          f"first use); 1 epoch of 2 steps, ms {[round(t, 2) for t in times]}"
+          f", losses {[round(x, 4) for x in losses]}; max_memory_allocated "
+          f"{peak / 2**20:.1f} MiB; launches {launches}")
+    t0 = time.perf_counter()  # a second precompute pass, past first use
+    tr.precompute_embeddings(sd, cfg, ds, dtype=torch.bfloat16, verbose=False)
+    warm_s = time.perf_counter() - t0
+    print(f"ViT-H bf16 precompute, second pass: {warm_s * 1e3:.1f} ms for "
+          f"{len(ds)} images ({warm_s / len(ds) * 1e3:.2f} ms/image)")
+    del sd, decoder, frozen, opt, emb
+    torch.cuda.empty_cache()
+
+    # training() itself: 16 + 8 images precomputed, 2 steps, 1 validation
+    with tempfile.TemporaryDirectory() as tmp:
+        loop = dataclasses.replace(
+            config, checkpoint=os.path.join(tmp, "ck"), ckpt_keep=1,
+            display_name="smoke_vith",
+            log_jsonl=os.path.join(tmp, "metrics.jsonl"))
+        _reset_counts()
+        t0 = time.perf_counter()
+        r = _quiet(tr.training, loop, splits=(train_items, valid_items))
+        c = _counts()
+        want = {**dict.fromkeys(c, 0), "attn_relpos": v.num_layers * 24,
+                "upscale_fwd": 3, "upscale_bwd": 2, "i2t_fwd": 6,
+                "i2t_bwd": 4}
+        check(c == want, f"training() at ViT-H launched {c}, want {want}")
+        hist = r["history"]
+        check([h["epoch"] for h in hist] == [0]
+              and np.isfinite([hist[0]["train_loss"],
+                               hist[0]["valid_loss"]]).all(),
+              f"training() at ViT-H: {hist}")
+        print(f"training() ViT-H bf16, 1 epoch of 2 steps + 1 validation "
+              f"batch: {time.perf_counter() - t0:.1f} s (prepare_model "
+              f"included), train {hist[0]['train_loss']:.4f}, valid "
+              f"{hist[0]['valid_loss']:.4f}; launches {c}")
+    del r
+    torch.cuda.empty_cache()
+
+    # the card against the CPU at a depth cut that keeps both layer kinds
+    cfg2 = dataclasses.replace(cfg, vision=dataclasses.replace(
+        v, num_layers=2, global_attn_indexes=(1,)))
+    sd2 = synthetic.random_params(cfg2, seed=3)
+    ds2 = PromptedDataset(train_items[:2], seed=0)
+    embs = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        before = _counts()
+        embs[device] = tr.precompute_embeddings(
+            {k: x.to(device) for k, x in sd2.items()}, cfg2, ds2,
+            dtype=torch.bfloat16, verbose=False).float().cpu()
+        d = {k: x for k, x in _delta(_counts(), before).items() if x}
+        check(d == ({"attn_relpos": 4} if device == "cuda" else {}),
+              f"2-layer precompute on {device} launched {d}")
+        print(f"ViT-H bf16 precompute at the depth cut on {device}: "
+              f"{time.perf_counter() - t0:.1f} s")
+    ulp = 2.0 ** -8 * embs["cpu"].abs().max().item()
+    diff = (embs["cuda"] - embs["cpu"]).abs()
+    print(f"ViT-H bf16 embeddings card vs cpu, full width, depth cut to 2 "
+          f"layers (layer 0 windowed, layer 1 global) of 32, 2 images: max "
+          f"|difference| {diff.max().item():.3g} = "
+          f"{diff.max().item() / ulp:.3f} ulps of the scale (limit "
+          f"{EMB_ULPS}), mean {diff.mean().item() / ulp:.3f} ulps (limit 0.5)"
+          f", bit-equal share {(diff == 0).float().mean().item():.4f}")
+    check(diff.max().item() <= EMB_ULPS * ulp
+          and diff.mean().item() <= 0.5 * ulp,
+          "ViT-H bf16 embeddings differ between the card and the CPU")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1503,6 +1694,7 @@ def main() -> int:
     ft = finetune_phase(torch)
     launches.update({k: ft[k] for k in k5_rows})
     launches["attn_global_bf16"] = ft["attn_global"]
+    launches["attn_windowed_bf16"] = ft["attn_windowed"]
     print(f"[phases] full fine-tune {time.perf_counter() - t0:.1f} s")
     rows.update(train_rows)
     rows.update(k5_rows)
@@ -1527,6 +1719,11 @@ def main() -> int:
     t0 = time.perf_counter()
     evaluation_phase(torch, attn, sd_h)
     print(f"[phases] evaluation {time.perf_counter() - t0:.1f} s")
+    del sd_h
+    t0 = time.perf_counter()
+    launches["attn_relpos_bf16"] = vith_decoder_phase(torch)["attn_relpos"]
+    print(f"[phases] ViT-H bf16 decoder fine-tune "
+          f"{time.perf_counter() - t0:.1f} s")
     for k, row in rows.items():
         check(launches[k] > 0, f"{k} was not launched on the main path")
         row["launches"] = launches[k]

@@ -10,14 +10,13 @@
 //   s[q, k] = (q . k) / 8 + rel_h[q, k / W] + rel_w[q, k % W]
 //   out[q]  = softmax_k(s[q, :]) . v
 //
-// Two kernels. K1 has two instances: f32 (the serving path) on the CUDA
-// cores, bf16 (the precompute and full fine-tune paths) on the tensor
-// cores. K2 is templated on the element type: inputs widened to f32 in
-// shared memory, every sum f32, the output stored in the input type.
-// Given a non-null `lse` (B, heads, N) f32, each also writes the row's
-// logsumexp m + log(l) in the scaled-score domain (the TPU kernel's
-// return_lse), which the backward K5 (attention_bwd.cu) reads; with a null
-// pointer nothing more is written.
+// Two kernels, each with an f32 instance (the serving path) on the CUDA
+// cores and a bf16 one (the precompute and full fine-tune paths) on the
+// tensor cores. The f32 kernels widen their inputs to f32 in shared memory
+// and take every sum in f32. Given a non-null `lse` (B, heads, N) f32, each
+// also writes the row's logsumexp m + log(l) in the scaled-score domain (the
+// TPU kernel's return_lse), which the backward K5 (attention_bwd.cu) reads;
+// with a null pointer nothing more is written.
 //
 // K1 replaces dilabhelmholtzoct_tpu/ops/attention.py flash_attention_packed,
 //    _packed_kernel branch (the 4 global layers, N = 4096 at ViT-B). One
@@ -36,28 +35,40 @@
 //    registers; one f32 division by l at the end and one rounding -- the
 //    TPU _packed_kernel's rounding points (p.astype(bf16) before pv, acc / l
 //    last).
-// K2 attn_windowed_kernel replaces the same function's
-//    _windowed_group_kernel branch (the 8 windowed layers, 25 windows of
-//    14x14 = 196 tokens per image). One block per (window, head, 64-query
-//    tile) holds all keys and values of the window in shared memory and
-//    takes a one-pass softmax; in bf16 it rounds p / l before p.v, as the
-//    TPU kernel (attention_common.cuh window_attend).
+// K2 replaces the same function's _windowed_group_kernel branch (the 8
+//    windowed layers, 25 windows of 14x14 = 196 tokens per image), with a
+//    one-pass softmax over all keys of a window.
+//    f32, attn_windowed_kernel: one block of 256 threads per (window, head,
+//    64-query tile) holds all keys and values of the window in shared
+//    memory (attention_common.cuh window_attend).
+//    bf16, attn_windowed_mma_kernel: one block of 4 warps per (window,
+//    head) loads the window's k and v once, and its warps take the 13 m16
+//    query tiles in turn, each staging its tile's q rows
+//    (attention_mma.cuh window_tiles_mma): q.k^T, then the bias as a second
+//    product (the query rows' factors times a one-hot over the keys, which
+//    also masks the keys past N) onto the same 26 n8 score tiles in
+//    registers; the row max and sum over the lane quad; p / l rounded to
+//    bf16 before p.v (the TPU kernel's rounding point); every product on
+//    mma.sync.
 //
 // Bound on an H100 SXM (700 W), one layer at B = 1:
 //    K1: 4 * 4096^2 * 64 * 12 = 51.5 GFLOP; f32 over the 67 TFLOP/s peak
 //        = 0.77 ms, bf16 over the 989 TFLOP/s tensor-core rate = 0.052 ms;
 //        bytes (qkv 37.7 MB + rel 25.2 MB + out 12.6 MB in f32, half in
 //        bf16) over 3.35 TB/s = 0.022 / 0.011 ms. Compute-bound.
-//    K2: 2.95 GFLOP -> 0.044 ms in f32; 67 MB -> 0.020 ms. Compute-bound.
+//    K2: 2.95 GFLOP -> 0.044 ms in f32 (compute-bound); in bf16 0.003 ms of
+//        products against 33.5 MB -> 0.010 ms (bound by bytes).
 // What this design does about it: every kernel keeps the operands of its
 // inner loops in shared memory and registers and reads each qkv byte from
-// device memory once per query tile. The f32 kernels run on the CUDA cores
-// (full f32 has no tensor-core route without TF32): 16-byte shared loads,
-// padded rows against bank conflicts. The bf16 K1 runs both products on the
-// tensor cores; what stays on the CUDA cores per score is the bias (two
-// shared loads), the exponential and the max / sum, and the next K / V
-// tile's copy overlaps the current tile's work. wgmma with TMA, and K2 on
-// the tensor cores, are later work.
+// device memory once per query tile (the bf16 K2 once per window and head).
+// The f32 kernels run on the CUDA cores (full f32 has no tensor-core route
+// without TF32): 16-byte shared loads, padded rows against bank conflicts.
+// The bf16 kernels run their products on the tensor cores. What stays on
+// the CUDA cores per score is, in K1, the bias (two shared loads), in both
+// the exponential and the max / sum. In K1 the next K / V tile's copy
+// overlaps the current tile's work; in K2 the next query tile's, and the
+// two blocks an SM holds overlap one's loads with the other's products.
+// wgmma with TMA is later work.
 //
 // Not carried over from the TPU kernel (Mosaic-only workarounds): head-pair
 // packing into 128 lanes, one-hot selector matmuls that expand the bias,
@@ -70,20 +81,19 @@ namespace {
 
 using namespace attn;
 
-// out rows acc / den and, with lse != null, lse[lse_row + q] = m + log(l)
+// out rows acc / l and, with lse != null, lse[lse_row + q] = m + log(l)
 template <typename T>
 __device__ __forceinline__ void store_out(T* out, float* lse, size_t lse_row,
                                           float (*acc)[4], const float* m,
-                                          const float* l, const float* den,
-                                          int b, int n, int C, int head,
-                                          int q0, int ty, int tx) {
+                                          const float* l, int b, int n, int C,
+                                          int head, int q0, int ty, int tx) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int q = q0 + ty + 16 * i;
     if (q >= n) continue;
     if (lse != nullptr && tx == 0) lse[lse_row + q] = m[i] + logf(l[i]);
     store_normalised(out + ((size_t)b * n + q) * C + head * D + 4 * tx,
-                     acc[i], den[i]);
+                     acc[i], l[i]);
   }
 }
 
@@ -167,8 +177,7 @@ attn_global_kernel(const T* __restrict__ qkv, const T* __restrict__ rel_h,
     __syncthreads();
     pv_tile(acc, Ps, LD, Vs, D, TK, ty, tx);
   }
-  store_out(out, lse, rel_row - q0, acc, m, l, l, b, n, C, head, q0, ty,
-            tx);
+  store_out(out, lse, rel_row - q0, acc, m, l, b, n, C, head, q0, ty, tx);
 }
 
 // ----------------------------------------------------------- K1 bf16 ----
@@ -240,13 +249,7 @@ attn_global_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
     cp_wait<1>();  // this tile (and Q, the bias factors) have landed
     __syncthreads();
     if (it == 0) {
-      // q / 8 in place: exact in bf16 (a power of two), as the TPU's q * sc
-      const __nv_bfloat162 eighth = __float2bfloat162_rn(0.125f);
-      for (int i = threadIdx.x; i < K1_ROWS * D / 2; i += NTH) {
-        __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(
-            Qs + (i / (D / 2)) * LDS + 2 * (i % (D / 2)));
-        *x = __hmul2(*x, eighth);
-      }
+      scale_eighth<NTH>(Qs, K1_ROWS);  // q / 8 in place, exact
       __syncthreads();
       if (ROW_TILE) {
 #pragma unroll
@@ -353,15 +356,15 @@ attn_global_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
     }
 }
 
-// ---------------------------------------------------------------- K2 ----
+// ------------------------------------------------------------ K2 f32 ----
 // grid (ceil(N / 64), heads, windows), 256 threads, N <= KMAX. With
 // NK = N rounded up to 16, shared (floats):
 //   [Qs TQ*LD | Ks NK*LD], reused as Ps TQ*(NK+4) once the scores are in
 //   registers | Vs NK*D | Rh TQ*H | Rw TQ*W
-template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
-attn_windowed_kernel(const T* __restrict__ qkv, const T* __restrict__ rel_h,
-                     const T* __restrict__ rel_w, T* __restrict__ out,
+attn_windowed_kernel(const float* __restrict__ qkv,
+                     const float* __restrict__ rel_h,
+                     const float* __restrict__ rel_w, float* __restrict__ out,
                      float* __restrict__ lse, int n, int heads, int H, int W,
                      float scale, int qk_floats) {
   extern __shared__ __align__(16) float smem[];
@@ -376,7 +379,7 @@ attn_windowed_kernel(const T* __restrict__ qkv, const T* __restrict__ rel_h,
   const int head = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * TQ;
   const int C = heads * D, stride = 3 * C;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const T* base = qkv + (size_t)b * n * stride;
+  const float* base = qkv + (size_t)b * n * stride;
   const size_t rel_row = ((size_t)b * heads + head) * n + q0;
 
   load_rows(Qs, LD, base + head * D, stride, q0, TQ, n, scale);
@@ -386,12 +389,98 @@ attn_windowed_kernel(const T* __restrict__ qkv, const T* __restrict__ rel_h,
   load_rel(Rw, rel_w + rel_row * W, W, n - q0);
   __syncthreads();
 
-  float m[4], l[4], acc[4][4], den[4];
-  window_attend<T>(Qs, Ks, Ps, Vs, Rh, Rw, n, H, W, ty, tx, m, l, acc);
+  float m[4], l[4], acc[4][4];
+  window_attend(Qs, Ks, Ps, Vs, Rh, Rw, n, H, W, ty, tx, m, l, acc);
+  store_out(out, lse, rel_row - q0, acc, m, l, b, n, C, head, q0, ty, tx);
+}
+
+// ----------------------------------------------------------- K2 bf16 ----
+// grid (1, heads, windows), 32 WIN_WARPS threads: one block per (window,
+// head) loads the window's k and v (NK = N rounded up to 16 rows, zero
+// past N), the query rows' bias factors F and the one-hot E of the bias
+// product, and its warps take the NK / 16 m16 query tiles in turn (warp w:
+// tiles w, w + WIN_WARPS, ...), each tile's q rows staged by the warp
+// (attention_mma.cuh window_tiles_mma / window_tile_mma). Shared (bf16):
+//   Ks | Vs NK x LDS | F NK x (FK + 8) | E (uint4) | Qw WIN_WARPS x 2 x 16 x LDS
+// NJ bounds NK / 16 at compile time: the EXACT instance takes NK = 208
+// (the SAM windows of 14 x 14: 13 tiles, no guarded product), the other
+// any NK up to KMAX.
+constexpr int WIN_WARPS = 4;
+
+template <int NJ, bool EXACT>
+__global__ void __launch_bounds__(32 * WIN_WARPS, 2)
+attn_windowed_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
+                         const __nv_bfloat16* __restrict__ rel_h,
+                         const __nv_bfloat16* __restrict__ rel_w,
+                         __nv_bfloat16* __restrict__ out,
+                         float* __restrict__ lse, int n, int heads, int H,
+                         int W) {
+  using namespace mma;
+  constexpr int NTH = 32 * WIN_WARPS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nj = (n + 15) / 16, nk = 16 * nj;
+  const int fk16 = win_fk16(H, W), fk = 16 * fk16, fld = fk + 8;
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + nk * LDS;
+  bf16* F = Vs + nk * LDS;
+  uint4* E = reinterpret_cast<uint4*>(F + nk * fld);
+  bf16* Qw = reinterpret_cast<bf16*>(E + fk16 * nj * 32);
+
+  const int head = blockIdx.y, b = blockIdx.z;
+  const int C = heads * D, stride = 3 * C;
+  const int t = (threadIdx.x & 31) & 3, g = (threadIdx.x & 31) >> 2;
+  const bf16* base = qkv + (size_t)b * n * stride + head * D;
+  const size_t rel_row = ((size_t)b * heads + head) * n;
+
+  load_tile_async<NTH>(Ks, base + C, stride, 0, n, nk);
+  load_tile_async<NTH>(Vs, base + 2 * C, stride, 0, n, nk);
+  // F's factor columns: [rel_h | rel_w] of each query row, zero past n; by
+  // 4-byte copies where both rows are whole words (H, W even: every SAM
+  // window), else by plain loads
+  const bf16* fh = rel_h + rel_row * H;
+  const bf16* fw = rel_w + rel_row * W;
+  if (H % 2 == 0 && W % 2 == 0) {
+    const int words = (H + W) / 2;
+    for (int i = threadIdx.x; i < nk * words; i += NTH) {
+      const int r = i / words, f = 2 * (i - r * words);
+      const bool ok = r < n;
+      cp_async4(F + r * fld + f,
+                ok ? (f < H ? fh + r * H + f : fw + r * W + f - H) : fh, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < nk * (H + W); i += NTH) {
+      const int r = i / (H + W), f = i - r * (H + W);
+      F[r * fld + f] = r >= n ? __float2bfloat16(0.f)
+                       : f < H ? fh[r * H + f] : fw[r * W + f - H];
+    }
+  }
+  cp_commit();
+  fill_mask_columns<NTH>(F, fld, nk, H + W, fk);
+  build_onehot<NTH>(E, n, nj, H, W);
+
+  auto stage_q = [&](bf16* dst, int row0) {
+    for (int i = threadIdx.x & 31; i < 16 * (D / 8); i += 32) {
+      const int r = i >> 3, c = (i & 7) * 8;
+      const bool ok = row0 + r < n;
+      cp_async16(dst + r * LDS + c,
+                 base + (ok ? (size_t)(row0 + r) * stride + c : 0), ok);
+    }
+  };
+  auto store = [&](int row0, float (*o)[4], const float* m, const float* l) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) den[i] = window_den<T>(l[i]);
-  store_out(out, lse, rel_row - q0, acc, m, l, den, b, n, C, head, q0, ty,
-            tx);
+    for (int r = 0; r < 2; ++r) {
+      const int q = row0 + g + 8 * r;
+      if (q >= n) continue;
+      if (lse != nullptr && t == 0) lse[rel_row + q] = m[r] + logf(l[r]);
+      bf16* dst = out + ((size_t)b * n + q) * C + head * D + 2 * t;
+#pragma unroll
+      for (int dn = 0; dn < D / 8; ++dn)
+        *reinterpret_cast<uint32_t*>(dst + 8 * dn) =
+            pack_bf16(o[dn][2 * r], o[dn][2 * r + 1]);
+    }
+  };
+  window_tiles_mma<NJ, EXACT, NTH>(Qw, Ks, Vs, F, fld, E, fk16, nj, stage_q,
+                                   store);
 }
 
 int launch_global_f32(const void* qkv, const void* rel_h, const void* rel_w,
@@ -446,24 +535,43 @@ int launch_global_bf16(const void* qkv, const void* rel_h, const void* rel_w,
                                         heads, h, w, stream);
 }
 
-template <typename T>
-int launch_windowed(const void* qkv, const void* rel_h, const void* rel_w,
-                    void* out, float* lse, int batch, int n, int heads, int h,
-                    int w, cudaStream_t stream) {
+int launch_windowed_f32(const void* qkv, const void* rel_h,
+                        const void* rel_w, void* out, float* lse, int batch,
+                        int n, int heads, int h, int w, cudaStream_t stream) {
   if (n > KMAX) return (int)cudaErrorInvalidValue;
   const int nk = (n + 15) / 16 * 16;
   int qk_floats = TQ * LD + nk * LD;
   if (TQ * (nk + 4) > qk_floats) qk_floats = TQ * (nk + 4);
   const size_t smem = sizeof(float) * (size_t)(qk_floats + nk * D + TQ * (h + w));
   cudaError_t e = cudaFuncSetAttribute(
-      attn_windowed_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attn_windowed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((n + TQ - 1) / TQ, heads, batch);
-  attn_windowed_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(rel_h),
-      static_cast<const T*>(rel_w), static_cast<T*>(out), lse, n, heads, h,
-      w, 0.125f, qk_floats);
+  attn_windowed_kernel<<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(qkv), static_cast<const float*>(rel_h),
+      static_cast<const float*>(rel_w), static_cast<float*>(out), lse, n,
+      heads, h, w, 0.125f, qk_floats);
+  return (int)cudaGetLastError();
+}
+
+int launch_windowed_bf16(const void* qkv, const void* rel_h,
+                         const void* rel_w, void* out, float* lse, int batch,
+                         int n, int heads, int h, int w, cudaStream_t stream) {
+  using namespace mma;
+  if (n > KMAX) return (int)cudaErrorInvalidValue;
+  const int nk = (n + 15) / 16 * 16;
+  const size_t smem = window_smem(n, h, w, WIN_WARPS);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  auto kernel = nk == 208 ? attn_windowed_mma_kernel<13, true>
+                          : attn_windowed_mma_kernel<KMAX / 16, false>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<dim3(1, heads, batch), 32 * WIN_WARPS, smem, stream>>>(
+      static_cast<const bf16*>(qkv), static_cast<const bf16*>(rel_h),
+      static_cast<const bf16*>(rel_w), static_cast<bf16*>(out), lse, n,
+      heads, h, w);
   return (int)cudaGetLastError();
 }
 
@@ -490,11 +598,10 @@ int dhoct_attn_windowed(const void* qkv, const void* rel_h, const void* rel_w,
                         int h, int w, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  return dtype == 1
-             ? launch_windowed<__nv_bfloat16>(qkv, rel_h, rel_w, out, l,
-                                              batch, n, heads, h, w, s)
-             : launch_windowed<float>(qkv, rel_h, rel_w, out, l, batch, n,
-                                      heads, h, w, s);
+  return dtype == 1 ? launch_windowed_bf16(qkv, rel_h, rel_w, out, l, batch,
+                                           n, heads, h, w, s)
+                    : launch_windowed_f32(qkv, rel_h, rel_w, out, l, batch, n,
+                                          heads, h, w, s);
 }
 
 const char* dhoct_error_string(int code) {

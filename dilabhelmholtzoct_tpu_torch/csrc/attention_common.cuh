@@ -1,7 +1,8 @@
-// Tile helpers shared by the encoder attention kernels: the forward K1 / K2
-// (attention.cu), the backward K5 (attention_bwd.cu), the any-head-dim
-// forward K6 (attention_relpos.cu) and the image-layout windowed forward K7
-// (attention_winimg.cu).
+// Tile helpers shared by the encoder attention kernels on the CUDA cores:
+// the forward K1 / K2 (attention.cu), the backward K5 (attention_bwd.cu),
+// the any-head-dim forward K6 (attention_relpos.cu) and the image-layout
+// windowed forward K7 (attention_winimg.cu), in f32 (the tensor-core bf16
+// kernels build on attention_mma.cuh).
 //
 // Every tile is 64 rows of one head (head dim 64) widened to f32 in shared
 // memory; a block of 256 threads is a 16 x 16 grid of threads (ty, tx) and
@@ -156,9 +157,9 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-// The last step of K1, K2 and K7: one query row's four output columns,
-// acc / l in f32, rounded once to T. Shared so that the kernels that must
-// agree bit for bit (K7 with K2) cannot normalise differently.
+// The last step of the f32 K1, K2 and K7: one query row's four output
+// columns, acc / l, stored. Shared so that the kernels that must agree bit
+// for bit (K7 with K2) cannot normalise differently.
 template <typename T>
 __device__ __forceinline__ void store_normalised(T* dst, const float* acc,
                                                  float l) {
@@ -167,37 +168,16 @@ __device__ __forceinline__ void store_normalised(T* dst, const float* acc,
   store4(dst, o);
 }
 
-// The windowed kernels' (K2, K7) p as it enters the p.v product, and what
-// their output is divided by at the end: in f32 p itself and l; in bf16 the
-// TPU _windowed_group_kernel's point, p / l rounded to bf16 (its
-// (p / l).astype(bf16)), and nothing left to divide.
-template <typename T>
-__device__ __forceinline__ float window_p(float p, float l) {
-  return p;
-}
-template <>
-__device__ __forceinline__ float window_p<__nv_bfloat16>(float p, float l) {
-  return round_to<__nv_bfloat16>(p / l);
-}
-template <typename T>
-__device__ __forceinline__ float window_den(float l) {
-  return l;
-}
-template <>
-__device__ __forceinline__ float window_den<__nv_bfloat16>(float l) {
-  return 1.f;
-}
-
 // One-pass softmax attention of a 64-query tile against all n <= KMAX keys
-// of a window, every operand already in shared memory (the body of K2, and
-// of K7, which differs only in where its rows come from and go to):
+// of a window, every operand already in shared memory (the f32 body of K2,
+// and of K7, which differs only in where its rows come from and go to; in
+// bf16 both run attention_mma.cuh window_tile_mma):
 //   Qs TQ x LD (scaled queries) | Ks nk x LD | Vs nk x D, nk = n rounded up
 //   to 16 with zero rows past n | Rh TQ x H | Rw TQ x W bias factors.
 // Ps (TQ x (nk + 4)) may alias Qs / Ks: they are consumed before it is
 // written. Leaves the row maximum m, the denominator l and the output tile
-// acc in registers, acc still to be divided by window_den<T>(l). Every
-// thread of the block must call it (it synchronises).
-template <typename T>
+// acc in registers, acc still to be divided by l. Every thread of the block
+// must call it (it synchronises).
 __device__ __forceinline__ void window_attend(
     const float* Qs, const float* Ks, float* Ps, const float* Vs,
     const float* Rh, const float* Rw, int n, int H, int W, int ty, int tx,
@@ -244,8 +224,7 @@ __device__ __forceinline__ void window_attend(
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
-      if (j < nj)
-        Ps[(ty + 16 * i) * ldp + tx + 16 * j] = window_p<T>(s[i][j], l[i]);
+      if (j < nj) Ps[(ty + 16 * i) * ldp + tx + 16 * j] = s[i][j];
   __syncthreads();
 
 #pragma unroll

@@ -50,6 +50,9 @@ from .configs import DecoderConfig, SamConfig, VisionConfig
 from .convert import params_from_jax
 
 SHARED_PE = "shared_image_embedding.positional_embedding"
+# HF's second name of the same tensor (SamModel ties the two); the model
+# reads only SHARED_PE, and writers derive this one from it
+PROMPT_PE = "prompt_encoder.shared_embedding.positional_embedding"
 
 # ---------------------------------------------------------------------------
 # Small building blocks

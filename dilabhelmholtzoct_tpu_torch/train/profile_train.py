@@ -1,7 +1,10 @@
-"""Where the training-step time goes on the card, at SAM ViT-B (bf16).
+"""Where the training time goes on the card, at SAM ViT-B (bf16) or another
+preset (``--base_model facebook/sam-vit-huge``: every encoder layer on K6).
 
     python -m dilabhelmholtzoct_tpu_torch.train.profile_train [--top 15]
     python -m dilabhelmholtzoct_tpu_torch.train.profile_train --trainable all
+    python -m dilabhelmholtzoct_tpu_torch.train.profile_train --precompute \
+        [--base_model facebook/sam-vit-huge]
 
 Builds a train step of ``train/trainer.py`` on the seeded workload
 (``inference/synthetic.py``: random ViT-B weights, synthetic OCT items of 8
@@ -13,7 +16,10 @@ components each), runs three warm-up steps and then ``--steps`` steps under
     embedding precompute;
   * ``--trainable all``: the full fine-tune step as ``chip_smoke.py`` runs
     it (BASELINE config 5 geometry): 4 images x bucket 8, the encoder
-    inside the gradient with every layer checkpointed.
+    inside the gradient with every layer checkpointed;
+  * ``--precompute``: instead of steps, one bf16 embedding precompute of
+    the 8 images (the frozen encoder of decoder fine-tuning) after a first
+    one outside the window.
 
 It prints the card's name and power limit, the host wall time, the device
 time summed over kernels and copies, the busy share, the device time by
@@ -31,7 +37,7 @@ import torch
 from ..data.pipeline import PromptedDataset, batches
 from ..inference import synthetic
 from ..inference.profile_serving import profile_window
-from ..models.configs import sam_vit_base
+from ..models.configs import config_for
 from . import trainer as tr
 
 
@@ -46,16 +52,29 @@ def main(argv=None) -> int:
                         help="'all': the full fine-tune step (encoder "
                              "inside, 4 images); 'decoder': the cached-"
                              "embedding decoder step (8 images)")
+    parser.add_argument("--base_model", type=str,
+                        default="facebook/sam-vit-base")
+    parser.add_argument("--precompute", action="store_true",
+                        help="profile the bf16 embedding precompute of the 8 "
+                             "images instead of train steps")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
-    print(f"device: {smi}; torch {torch.__version__}")
+    print(f"device: {smi}; torch {torch.__version__}; {args.base_model}")
     dev = torch.device("cuda")
-    cfg = sam_vit_base()
+    cfg = config_for(args.base_model)
     sd = {k: v.to(dev) for k, v in synthetic.random_params(cfg).items()}
+    if args.precompute:
+        ds = PromptedDataset(synthetic.oct_training_items(8, seed=1), seed=0)
+        tr.precompute_embeddings(sd, cfg, ds, dtype=torch.bfloat16)
+        profile_window("embedding precompute bf16, 8 images",
+                       lambda: tr.precompute_embeddings(
+                           sd, cfg, ds, dtype=torch.bfloat16, verbose=False),
+                       1, args.top)
+        return 0
     full = args.trainable == "all"
     bs = 4 if full else 8
     ds = PromptedDataset(synthetic.oct_training_items(bs, seed=1), seed=0)

@@ -52,6 +52,8 @@ from ..data.store import load_split
 from ..device import full_fp32, resolve_device
 from ..models.configs import SamConfig, config_for
 from ..models.sam import (
+    PROMPT_PE,
+    SHARED_PE,
     decode_masks,
     encode_image,
     encode_image_microbatched,
@@ -168,9 +170,12 @@ def prepare_model(config: TrainConfig) -> tuple[SamConfig, dict]:
 def _split_params(sd: dict, trainable: str = "decoder") -> tuple[dict, dict]:
     """(trainable entries, frozen rest): "decoder" trains every
     ``mask_decoder.*`` entry, the reference's optimizer scope
-    ``model.mask_decoder.parameters()``; "all" trains every entry."""
+    ``model.mask_decoder.parameters()``; "all" trains every entry but
+    ``PROMPT_PE``, the second name of the one shared positional embedding
+    (JAX's one ``shared_pe`` leaf): writers derive it with
+    ``tie_shared_pe``."""
     if trainable == "all":
-        return dict(sd), {}
+        return {k: v for k, v in sd.items() if k != PROMPT_PE}, {}
     decoder = {k: v for k, v in sd.items() if k.startswith(DECODER_PREFIX)}
     frozen = {k: v for k, v in sd.items() if not k.startswith(DECODER_PREFIX)}
     return decoder, frozen
@@ -178,6 +183,15 @@ def _split_params(sd: dict, trainable: str = "decoder") -> tuple[dict, dict]:
 
 def _merge_params(decoder: dict, frozen: dict) -> dict:
     return {**frozen, **decoder}
+
+
+def tie_shared_pe(sd: dict) -> dict:
+    """``sd`` with ``PROMPT_PE`` set to the ``SHARED_PE`` tensor, as JAX
+    writes its one ``shared_pe`` leaf under both HF names; ``sd`` as it is
+    when it holds no ``SHARED_PE`` (the decoder's entries)."""
+    if SHARED_PE not in sd:
+        return sd
+    return {**sd, PROMPT_PE: sd[SHARED_PE]}
 
 
 def make_optimizer(config: TrainConfig, params) -> torch.optim.Optimizer:
@@ -519,14 +533,14 @@ def _training_impl(config: TrainConfig, logger: MultiLogger, splits,
                         "valid_loss": valid_loss, "seconds": dt})
         t_ck = time.time()
         ckpt_utils.save_checkpoint(
-            run_dir, epoch, {"params": params,
+            run_dir, epoch, {"params": tie_shared_pe(params),
                              "opt_state": optimizer.state_dict(),
                              "epoch": epoch},
             keep=config.ckpt_keep)
         print(f"[epoch {epoch}] ckpt {time.time() - t_ck:.1f}s")
 
-    params_final = _merge_params({k: v.detach() for k, v in params.items()},
-                                 frozen)
+    params_final = tie_shared_pe(_merge_params(
+        {k: v.detach() for k, v in params.items()}, frozen))
     if config.export_pt:
         name = f"{config.display_name}_{config.time or 'final'}.pt"
         ckpt_utils.export_reference_pt(

@@ -24,6 +24,7 @@ from dilabhelmholtzoct_tpu.models import sam as jsam
 from dilabhelmholtzoct_tpu.train import trainer as jtr
 from dilabhelmholtzoct_tpu_torch.models import configs as pconfigs
 from dilabhelmholtzoct_tpu_torch.models.convert import params_from_jax
+from dilabhelmholtzoct_tpu_torch.models.sam import PROMPT_PE, SHARED_PE
 from dilabhelmholtzoct_tpu_torch.train import trainer as ptr
 from dilabhelmholtzoct_tpu_torch.utils import checkpoint as ckpt_utils
 from test_torch_train import (
@@ -68,7 +69,7 @@ def _run_all(tree, batch, dtype, n_steps, **conf):
     sd = params_from_jax(tree)
     before = {k: v.clone() for k, v in sd.items()}
     p_p, frozen_p = ptr._split_params(sd, "all")
-    assert not frozen_p and set(p_p) == set(sd)
+    assert not frozen_p and set(p_p) == set(sd) - {PROMPT_PE}
     for v in p_p.values():
         v.requires_grad_(True)
     opt_p = ptr.make_optimizer(pconf, p_p.values())
@@ -85,7 +86,8 @@ def _run_all(tree, batch, dtype, n_steps, **conf):
             lp.append(float(loss))
             if i == 0:
                 first = (params_from_jax(jax.tree.map(np.asarray, p_j)),
-                         {k: v.detach().clone() for k, v in p_p.items()})
+                         ptr.tie_shared_pe({k: v.detach().clone()
+                                            for k, v in p_p.items()}))
     finally:
         jsam.set_flash_attention("auto")
     return lj, lp, first, before
@@ -140,6 +142,25 @@ def test_weight_decay_full_finetune_matches_jax():
     _assert_updates_match(j1, p1, before)
 
 
+def test_shared_pe_one_tensor_matches_jax():
+    """One f32 step at weight decay 0: the optimizer holds one shared
+    positional embedding, and both HF names equal each other and JAX's
+    ``shared_pe`` after the same step (within ``_assert_updates_match``'s
+    f32 tolerance), the embedding having moved."""
+    tree = _params(_cfg(jconfigs), seed=6)
+    batch = _batch(np.random.default_rng(24), 2, 3)
+    _, _, (j1, p1), before = _run_all(tree, batch, "float32", 1,
+                                      weight_decay=0.0)
+    torch.testing.assert_close(before[SHARED_PE], before[PROMPT_PE])
+    assert float((p1[SHARED_PE] - before[SHARED_PE]).abs().max()) > 0.5 * LR
+    np.testing.assert_array_equal(p1[PROMPT_PE].numpy(),
+                                  p1[SHARED_PE].numpy())
+    np.testing.assert_array_equal(j1[PROMPT_PE].numpy(),
+                                  j1[SHARED_PE].numpy())
+    _assert_updates_match({k: j1[k] for k in (SHARED_PE, PROMPT_PE)}, p1,
+                          {k: before[k] for k in (SHARED_PE, PROMPT_PE)})
+
+
 pconfigs.register_preset("finetune-test", lambda: _cfg(pconfigs))
 
 
@@ -173,6 +194,29 @@ def test_training_full_finetune_cpu(tmp_path):
                            splits=(_items(4, 0), _items(2, 1)), device="cpu")
     assert [h["epoch"] for h in resumed["history"]] == [1]
     assert os.listdir(result["checkpoint_dir"]).count("step_1") == 1
+
+
+def test_shared_pe_one_value_in_checkpoint_and_export(tmp_path):
+    """training(trainable='all', export_pt=True) at weight decay 0: the
+    optimizer's state holds one shared positional embedding; the epoch's
+    step_0/state.pt, the exported .pt and the returned parameters hold one
+    moved value under both HF names."""
+    config = _loop_config(tmp_path, export_pt=True)
+    _, sd0 = ptr.prepare_model(config)
+    result = ptr.training(config, splits=(_items(4, 0), _items(2, 1)),
+                          device="cpu")
+    state, step = ckpt_utils.restore_checkpoint(result["checkpoint_dir"])
+    assert step == 0
+    n_opt = len(state["opt_state"]["param_groups"][0]["params"])
+    assert n_opt == len(sd0) - 1
+    exported = torch.load(str(tmp_path / "ck" / "run_final.pt"),
+                          weights_only=True)
+    for sd in (state["params"], exported, result["params"]):
+        np.testing.assert_array_equal(sd[PROMPT_PE].numpy(),
+                                      sd[SHARED_PE].numpy())
+        np.testing.assert_array_equal(sd[SHARED_PE].numpy(),
+                                      result["params"][SHARED_PE].numpy())
+    assert not torch.allclose(result["params"][SHARED_PE], sd0[SHARED_PE])
 
 
 def test_full_finetune_rejects_cached_embeddings(tmp_path):

@@ -244,6 +244,79 @@ def test_relpos_kernel_matches_plain_on_card(cuda_device, dtype, b, nh, d,
     assert_forward_close(got, want)
 
 
+def _relpos_inputs(dev, dtype, b, nh, d, hw, seed=0):
+    rng = np.random.default_rng(seed)
+    n = hw[0] * hw[1]
+    arrays = (rng.normal(size=(b, n, 3 * nh * d)) * 0.5,
+              rng.normal(size=(b, nh, n, hw[0])) * 0.3,
+              rng.normal(size=(b, nh, n, hw[1])) * 0.3)
+    return [torch.tensor(a, dtype=dtype, device=dev) for a in arrays]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 20, 48, 80, 128])
+@pytest.mark.parametrize("b,nh,hw", [(1, 2, (64, 64)),   # global, W = 64
+                                     (4, 2, (14, 14)),   # windows, 196 keys
+                                     (1, 3, (30, 34))])  # global, W != 64
+def test_relpos_mma_kernel_head_dims_on_card(cuda_device, d, b, nh, hw):
+    """The bf16 K6 on the tensor cores at head dims that take the padded
+    rows (20: 8-byte copies, padded to 32; 48: padded to 48 + 8; 80: the
+    ViT-H head) against ``relpos_attention_plain``, on both bias routes
+    (a key tile that is one grid row, and the generic lookups with keys
+    masked past N), and twice with identical bits."""
+    args = _relpos_inputs(cuda_device, torch.bfloat16, b, nh, d, hw)
+    before = port_attn.LAUNCHES["attn_relpos"]
+    got = port_attn.flash_attention_packed(*args, hw=hw, num_heads=nh)
+    torch.cuda.synchronize()
+    assert port_attn.LAUNCHES["attn_relpos"] == before + 1
+    assert got.shape == (b, hw[0] * hw[1], nh * d)
+    assert bool(torch.isfinite(got.float()).all())
+    want = port_attn.relpos_attention_plain(*args, hw=hw, num_heads=nh)
+    assert_forward_close(got, want)
+    assert torch.equal(got, port_attn.flash_attention_packed(
+        *args, hw=hw, num_heads=nh))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,nh,hw", [(25, 12, (14, 14)),  # ViT-B windows
+                                     (6, 2, (3, 3)),      # 9 keys of 16
+                                     (5, 3, (4, 4)),      # one m16 tile
+                                     (3, 2, (16, 16)),    # 256 keys, 16 tiles
+                                     (2, 2, (9, 7))])     # 63 keys
+def test_windowed_mma_kernel_on_card(cuda_device, b, nh, hw):
+    """The bf16 K2 on the tensor cores (one block per window and head)
+    against ``packed_attention_plain``: output within two bf16 ulps of its
+    scale and the logsumexp rows within atol 2e-4; the LSE changes nothing,
+    and a second run gives the same bits."""
+    qkv, rel_h, rel_w, _ = _attn_inputs(cuda_device, torch.bfloat16, b, nh,
+                                        hw)
+    kw = dict(hw=hw, num_heads=nh)
+    before = port_attn.LAUNCHES["attn_windowed"]
+    out, lse = port_attn.attention_fwd_cuda(qkv, rel_h, rel_w,
+                                            return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert port_attn.LAUNCHES["attn_windowed"] == before + 1
+    want_out, want_lse = port_attn.packed_attention_plain(
+        qkv, rel_h, rel_w, return_lse=True, **kw)
+    assert_forward_close(out, want_out)
+    np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(),
+                               atol=2e-4, rtol=1e-5)
+    again = port_attn.attention_fwd_cuda(qkv, rel_h, rel_w, **kw)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hw,ws", [((64, 64), 14), ((28, 20), 14),
+                                   ((9, 7), 4)])
+def test_winimg_mma_kernel_deterministic_on_card(cuda_device, hw, ws):
+    """The bf16 K7 twice on the same inputs: identical bits."""
+    qkv, rel, bias = _winimg_inputs(cuda_device, torch.bfloat16, 2, 3, hw, ws)
+    kw = dict(ws=ws, num_heads=3)
+    a = port_attn.flash_attention_windowed_image(qkv, rel, bias, **kw)
+    b = port_attn.flash_attention_windowed_image(qkv, rel, bias, **kw)
+    assert torch.equal(a, b)
+
+
 def _winimg_inputs(dev, dtype, b, nh, hw, ws, seed=0):
     rng = np.random.default_rng(seed)
     c = nh * 64

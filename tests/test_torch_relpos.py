@@ -179,3 +179,71 @@ def test_encoder_off_the_packed_route_matches_jax(rng, case):
     assert got.shape == (2, 8, 8, 32)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
                                rtol=1e-4)
+
+
+def _items(n, seed, hw=(48, 64)):
+    """{'image', 'label'} items: random uint8 images, three box labels."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        lab = np.zeros(hw, np.uint8)
+        for c in range(1, 4):
+            y, x = int(rng.integers(2, 30)), int(rng.integers(2, 44))
+            lab[y:y + 14, x:x + 18] = c
+        out.append({"image": rng.integers(0, 255, (*hw, 3), dtype=np.uint8),
+                    "label": lab})
+    return out
+
+
+def test_bf16_precompute_vith_shaped_matches_jax(rng, monkeypatch):
+    """The bf16 embedding precompute of a ViT-H-shaped cut (2 layers, one
+    windowed and one global, heads of 80) goes through K6's plain version
+    once per layer and image, and agrees with the JAX package's precompute
+    at the same dtype, its Pallas kernel in interpret mode: within 4 bf16
+    ulps of the output scale (4 * 2^-8 * max |out|), and on average within
+    half of one. The two frameworks sum the f32 products of the linears in
+    another order, so a bf16 rounding may flip in each layer and in the
+    neck: about 70% of the outputs differ by an ulp of their own."""
+    from dilabhelmholtzoct_tpu.data.pipeline import PromptedDataset as JDS
+    from dilabhelmholtzoct_tpu.train import trainer as jtr
+    from dilabhelmholtzoct_tpu_torch.data.pipeline import PromptedDataset
+    from dilabhelmholtzoct_tpu_torch.train import trainer as ptr
+
+    def cut(m):
+        cfg = _cfg_d80(4, m)
+        return cfg.__class__(**{**cfg.__dict__, "vision": cfg.vision.__class__(
+            **{**cfg.vision.__dict__, "num_layers": 2,
+               "global_attn_indexes": (1,)})})
+
+    cfg_j, cfg_p = cut(jconfigs), cut(pconfigs)
+    assert cfg_p.vision.hidden_size // cfg_p.vision.num_heads == 80
+    tree = _params(cfg_j, seed=3)
+    items = _items(3, 5)
+    jsam.set_flash_attention("interpret")
+    try:
+        want = np.asarray(jtr.precompute_embeddings(
+            jax.tree.map(jnp.asarray, tree), cfg_j, JDS(items, seed=3),
+            batch_size=2, dtype=jnp.bfloat16, verbose=False).astype(
+                jnp.float32))
+    finally:
+        jsam.set_flash_attention("auto")
+    calls = []
+    plain = port_attn.relpos_attention_plain
+
+    def counted(*a, **kw):
+        calls.append(kw["hw"])
+        return plain(*a, **kw)
+
+    monkeypatch.setattr(port_attn, "relpos_attention_plain", counted)
+    port_attn.reset_launch_counts()
+    got = ptr.precompute_embeddings(
+        params_from_jax(tree), cfg_p, PromptedDataset(items, seed=3),
+        batch_size=2, dtype=torch.bfloat16, verbose=False)
+    assert not any(port_attn.LAUNCHES.values()), port_attn.LAUNCHES
+    assert sorted(set(calls)) == [(4, 4), (8, 8)]
+    assert len(calls) == 2 * len(items)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    got = got.float().numpy()
+    ulp = BF16_ULP * np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=0, atol=4 * ulp)
+    assert np.abs(got - want).mean() <= 0.5 * ulp
