@@ -12,8 +12,10 @@ prints no result line):
    ``dilabhelmholtzoct_tpu_torch/csrc`` with nvcc for sm_90a, one nvcc per
    source, all started together (build seconds and the ptxas report). Then
    the bf16 K1, K2, K5, K6 and K7 kernels' SASS (``cuobjdump -sass`` on the
-   built libraries) must hold tensor-core instructions (HMMA, or HGMMA) and
-   their ptxas reports no spills, printed per kernel beside its registers.
+   built libraries) must hold tensor-core instructions (HMMA, or HGMMA), the
+   f32 K2, K5 and K7 kernels' (split TF32) TF32 ones (HMMA.1688.F32.TF32),
+   and their ptxas reports no spills, printed per kernel beside its
+   registers.
 3. Kernels at SAM ViT-B shapes — K1 global attention (B=1, N=4096, 12 heads)
    and K2 windowed attention (25 windows of 196 tokens, 12 heads) — in f32
    and bf16: each held against its plain PyTorch version on the same card
@@ -22,7 +24,9 @@ prints no result line):
    limits hold K6 and K7), then timed with CUDA events (kernel, plain
    version, and one ``scaled_dot_product_attention`` call with the
    materialised bias as the library yardstick), beside the bound computed
-   from the shapes.
+   from the shapes (the f32 K2 on the tensor cores against the split-TF32
+   rate, 495 / 3 TFLOP/s, with its bound over the CUDA cores' 67 beside
+   it; the f32 K1 runs on the CUDA cores).
 4. Serving at full ViT-B width: random weights from a seeded
    torch.Generator (non-zero rel-pos tables), a synthetic 496x512 OCT-shaped
    uint8 image (the exact-2x preprocess), a box, a point and a 3-box request
@@ -52,7 +56,8 @@ prints no result line):
 9. K5, the attention backward (its dq and dk/dv kernels), and the
    logsumexp rows K1 / K2 write for it, at ViT-B shapes (global B = 1,
    25 windows; 12 heads) in f32 and bf16, each output held against its
-   plain version relative to its max |plain|; then each K5 kernel timed
+   plain version relative to its max |plain|, and the same bits on a second
+   run (f32: split TF32 on the tensor cores); then each K5 kernel timed
    with CUDA events at the training shapes (global B = 4, 100 windows)
    beside its bound, the plain version and the backward of one
    ``scaled_dot_product_attention`` call with a bias that requires grad
@@ -70,6 +75,11 @@ prints no result line):
    loss and the signs of the updates over every parameter.
 12. The full fine-tune epoch loop: ``training(trainable='all')`` at ViT-B
    for 1 epoch of 2 steps; finite losses, one checkpoint.
+12b. The f32 full fine-tune (``compute_dtype='float32'``): ViT-B at bs 4
+   for 5 steps on one batch, each step K1 x8, K2 x16 and K5's two kernels
+   x12 in f32 and no K3 / K4; a falling loss, the median step ms; the card
+   against the CPU at the 2-layer cut (loss within ``F32_STEP_LOSS_RTOL``,
+   update signs).
 
 13. K6, the any-head-dim attention, at ViT-H shapes (16 heads of 80; the
    global layer B = 1, N = 4096; 25 windows of 196), at the test-size
@@ -114,9 +124,11 @@ kernels (``attn_global_bf16``, ``attn_windowed_bf16``: the tensor-core
 kernels, at ViT-B B = 1, their launches counted on the ViT-B full
 fine-tune run); K3/K4 from the training path in bf16; K5 from the global
 layer at B = 4 in bf16, its launches counted on the ViT-B full fine-tune
-run; K6 from the ViT-H global layer in f32, its launches counted on the
-ViT-H serving run, and in bf16 (``attn_relpos_bf16``), its launches
-counted on the ViT-H bf16 precompute and steps; K7 at ViT-B in f32, its
+run, and in f32 (``attn_bwd_dq_f32``, ``attn_bwd_dkv_f32``), its launches
+counted on the f32 full fine-tune run; K6 from the ViT-H global layer in
+f32, its launches counted on the ViT-H serving run, and in bf16
+(``attn_relpos_bf16``), its launches counted on the ViT-H bf16 precompute
+and steps; K7 at ViT-B in f32, its
 launches counted on the ``set_fused_windowed('on')`` encode); the last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -139,6 +151,9 @@ import numpy as np
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+# f32 products on the tensor cores in split TF32 (hi.hi + hi.lo + lo.hi):
+# three TF32 products at 495 TFLOP/s for each f32 one
+PEAK_TF32X3_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12
 F32_ATOL = 1e-4    # kernel vs plain, f32: summation order over <= 4096 keys
 PROB_ATOL = 1e-3   # card engine vs CPU engine, probabilities (ViT-B, f32)
@@ -149,6 +164,9 @@ BF16_ULPS = 2      # attention forward vs plain, bf16: ulps of the output scale
 K34_TOL = {"f32": 1e-4, "bf16": 2e-2}
 STEP_LOSS_RTOL = 2e-2   # bf16 train step, card vs CPU: bf16 roundings of the
 #                         decoder in another summation order
+F32_STEP_LOSS_RTOL = 1e-4  # f32 full fine-tune step, card vs CPU: f32 sums in
+#                            another order (the split-TF32 products keep f32's
+#                            digits; TF32 is off for the library calls)
 SIGN_AGREE_MIN = 0.90   # card vs CPU, share of moved decoder weights whose
 #                         first-step update agrees in sign (Adam step 1 is
 #                         ~lr * sign(g); tiny gradients may flip in bf16)
@@ -215,13 +233,18 @@ def _sdpa_ms(torch, qkv, rel_h, rel_w, hw, heads, iters=5):
         x[0], x[1], x[2], attn_mask=mask), iters)
 
 
-# the bf16 kernels on the tensor cores: library -> kernel names
+# the kernels on the tensor cores: library -> kernel names, bf16 (HMMA on
+# bf16) and f32 in split TF32 (HMMA.1688.F32.TF32)
 MMA_KERNELS = {"attention": ("attn_global_mma_kernel",
                              "attn_windowed_mma_kernel"),
                "attention_bwd": ("attn_bwd_dq_mma_kernel",
                                  "attn_bwd_dkv_mma_kernel"),
                "attention_relpos": ("attn_relpos_mma_kernel",),
                "attention_winimg": ("attn_winimg_mma_kernel",)}
+TF32_KERNELS = {"attention": ("attn_windowed_tf32_kernel",),
+                "attention_bwd": ("attn_bwd_dq_tf32_kernel",
+                                  "attn_bwd_dkv_tf32_kernel"),
+                "attention_winimg": ("attn_winimg_tf32_kernel",)}
 
 
 def _ptxas_by_function(log):
@@ -238,12 +261,13 @@ def _ptxas_by_function(log):
 
 
 def tensor_core_check(kernels):
-    """Fail unless the SASS of every bf16 K1 / K2 / K5 / K6 / K7 kernel
-    holds tensor-core instructions (HMMA from mma.sync, HGMMA from wgmma)
-    and its ptxas report shows no spills; print the count of each instance
-    beside its registers and spills."""
+    """Fail unless the SASS of every tensor-core kernel -- bf16 K1 / K2 /
+    K5 / K6 / K7, and f32 K2 / K5 / K7 in split TF32 -- holds tensor-core
+    instructions (HMMA from mma.sync, HGMMA from wgmma; TF32 ones for the
+    f32 kernels) and its ptxas report shows no spills; print the count of
+    each instance beside its registers and spills."""
     cuobjdump = kernels.cuda_tool("cuobjdump")
-    for lib, names in MMA_KERNELS.items():
+    for lib in MMA_KERNELS:
         sass = subprocess.run(
             [cuobjdump, "-sass", str(kernels.library_path(lib))],
             capture_output=True, text=True, check=True, timeout=300).stdout
@@ -251,22 +275,39 @@ def tensor_core_check(kernels):
         for line in sass.splitlines():
             if "Function :" in line:
                 fn = line.split("Function :", 1)[1].strip()
-                counts[fn] = 0
+                counts[fn] = [0, 0]
             elif fn and ("HMMA" in line or "HGMMA" in line):
-                counts[fn] += 1
+                counts[fn][0] += 1
+                counts[fn][1] += "TF32" in line
         report = _ptxas_by_function(kernels.BUILD_LOG.get(lib, ""))
-        for name in names:
+        for name in MMA_KERNELS[lib] + TF32_KERNELS.get(lib, ()):
+            tf32 = name in TF32_KERNELS.get(lib, ())
             found = [f for f in counts if name in f]
             check(found, f"{name} is not in the SASS of {lib}")
             for f in found:
-                check(counts[f] > 0, f"{f}: no tensor-core instruction in its "
-                                     "SASS")
+                n_mma, n_tf32 = counts[f]
+                check(n_mma > 0 and (n_tf32 > 0 if tf32 else True),
+                      f"{f}: no {'TF32 ' if tf32 else ''}tensor-core "
+                      "instruction in its SASS")
                 rep = report.get(f, "not rebuilt in this run")
                 check(f not in report or ("0 bytes spill stores" in rep
                                           and "0 bytes spill loads" in rep),
                       f"{f} spills: {rep}")
-                print(f"sass {f}: {counts[f]} tensor-core instructions; "
-                      f"ptxas {rep}")
+                print(f"sass {f}: {n_mma} tensor-core instructions"
+                      f"{f' ({n_tf32} on TF32)' if tf32 else ''}; ptxas "
+                      f"{rep}")
+
+
+def _cuda_core_bound(row, ms, split, bound):
+    """For an f32 kernel in split TF32: its bound over the CUDA cores' f32
+    rate kept in the row beside the split-TF32 one (``bound_cuda_cores_ms``)
+    and the text for its line, so that a share above 1 against the CUDA
+    cores is not read as a share of the tensor cores' bound."""
+    if not split:
+        return ""
+    row["bound_cuda_cores_ms"] = bound[0]
+    return (f"; bound over the CUDA cores (67 TFLOP/s f32) {bound[0]:.4f} "
+            f"({bound[1]}), share {bound[0] / ms:.3f}")
 
 
 def kernel_phase(torch, attn):
@@ -317,16 +358,16 @@ def kernel_phase(torch, attn):
                 plain_ms = cuda_ms(
                     lambda: attn.packed_attention_plain(*args, **kw), 5)
                 lib_ms = _sdpa_ms(torch, qkv, rel_h, rel_w, hw, heads)
-            peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+            f32 = dtype == torch.float32
+            # K2's f32 kernel runs on the tensor cores in split TF32, K1's on
+            # the CUDA cores
+            split = f32 and name == "attn_windowed"
+            peak = (PEAK_TF32X3_FLOPS if split else PEAK_F32_FLOPS) if f32 \
+                else PEAK_BF16_FLOPS
             bound, bound_by = attention_bound_ms(b, n, heads, hw,
                                                  qkv.element_size(), peak)
-            tname = "f32" if dtype == torch.float32 else "bf16"
-            print(f"kernel {name} {tname} B={b} N={n} heads={heads}: "
-                  f"max_abs_err={err:.3g} (limit {tol:.3g}) ms={ms:.4f} "
-                  f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-                  f"bound_ms={bound:.4f} ({bound_by}) "
-                  f"share_of_bound={bound / ms:.3f}")
-            key = name if dtype == torch.float32 else f"{name}_bf16"
+            tname = "f32" if f32 else "bf16"
+            key = name if f32 else f"{name}_bf16"
             rows[key] = {
                 "name": key, "route": "cuda",
                 "source": "dilabhelmholtzoct_tpu_torch/csrc/attention.cu",
@@ -334,6 +375,14 @@ def kernel_phase(torch, attn):
                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
                 "library_ms": lib_ms,
             }
+            print(f"kernel {name} {tname} B={b} N={n} heads={heads}: "
+                  f"max_abs_err={err:.3g} (limit {tol:.3g}) ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+                  f"bound_ms={bound:.4f} ({bound_by}"
+                  f"{', split TF32' if split else ''}) "
+                  f"share_of_bound={bound / ms:.3f}"
+                  + _cuda_core_bound(rows[key], ms, split, attention_bound_ms(
+                      b, n, heads, hw, qkv.element_size(), PEAK_F32_FLOPS)))
             del qkv, rel_h, rel_w, out, ref
     torch.cuda.empty_cache()
     return rows
@@ -777,7 +826,9 @@ def k5_kernel_phase(torch, attn):
     each K5 kernel timed with CUDA events at the training shapes (global
     B = 4, 100 windows) beside the bound, the plain version and the
     backward of ``scaled_dot_product_attention`` with a materialised bias
-    that requires grad. Returns the result-line rows (global layer, bf16)."""
+    that requires grad. Returns the result-line rows of the global layer:
+    bf16 under the kernels' names (the full fine-tune path), f32 (split TF32
+    on the tensor cores) as ``attn_bwd_dq_f32`` / ``attn_bwd_dkv_f32``."""
     from dilabhelmholtzoct_tpu_torch.device import full_fp32
 
     gen = torch.Generator(device=torch.device("cuda")).manual_seed(3)
@@ -792,7 +843,8 @@ def k5_kernel_phase(torch, attn):
         for dtype in (torch.float32, torch.bfloat16):
             f32 = dtype == torch.float32
             tname = "f32" if f32 else "bf16"
-            peak = PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS
+            # both types on the tensor cores, f32 in split TF32
+            peak = PEAK_TF32X3_FLOPS if f32 else PEAK_BF16_FLOPS
             with full_fp32():
                 qkv, rel_h, rel_w, g = _attn_inputs(torch, gen, b_chk, heads,
                                                     hw, dtype)
@@ -815,9 +867,16 @@ def k5_kernel_phase(torch, attn):
                                                        lse, dvec, **kw)
                 err, rel = _check_outputs(torch, f"attn_bwd {kind}", tname,
                                           got, want)
+                # no atomics, a fixed summation order: the same bits again
+                again = attn.attention_bwd_cuda(qkv, rel_h, rel_w, g, lse,
+                                                dvec, **kw)
+                check(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+                      f"attn_bwd {kind} {tname}: a second run differs")
                 print(f"kernel attn_bwd {kind} {tname} B={b_chk}: dqkv/drel "
-                      f"max_abs_err={err:.3g} max_rel_err={rel:.3g}; {fwd} "
-                      f"lse max_abs_err={lse_abs:.3g} rel={lse_rel:.3g}")
+                      f"max_abs_err={err:.3g} max_rel_err={rel:.3g} (limit "
+                      f"{K34_TOL[tname]}), the same bits on a second run; "
+                      f"{fwd} lse max_abs_err={lse_abs:.3g} rel={lse_rel:.3g}")
+                del again
                 del qkv, rel_h, rel_w, g, out, lse, dvec, got, want, want_lse
                 torch.cuda.empty_cache()
 
@@ -840,20 +899,23 @@ def k5_kernel_phase(torch, attn):
             for k in ("dq", "dkv"):
                 bound, bound_by = k5_bound_ms(k, b_time, hw[0] * hw[1], heads,
                                               hw, qkv.element_size(), peak)
+                row = {"name": f"attn_bwd_{k}" + ("_f32" if f32 else ""),
+                       "route": "cuda", "source": src,
+                       "replaces": replaces[k], "max_abs_err": err,
+                       "ms": ms[k], "plain_ms": plain_ms, "bound_ms": bound,
+                       "bound_by": bound_by, "library_ms": lib_ms}
                 print(f"kernel attn_bwd_{k} {kind} {tname} B={b_time}: "
-                      f"ms={ms[k]:.4f} bound_ms={bound:.4f} ({bound_by}) "
+                      f"ms={ms[k]:.4f} bound_ms={bound:.4f} ({bound_by}"
+                      f"{', split TF32' if f32 else ''}) "
                       f"share_of_bound={bound / ms[k]:.4f}; both kernels "
                       f"{ms['dq'] + ms['dkv']:.4f} ms, plain_ms (both) "
                       f"{plain_ms:.4f}, library_ms (SDPA backward with a "
-                      f"bias gradient) {lib_ms:.4f}")
-                if kind == "global" and tname == "bf16":
-                    rows[f"attn_bwd_{k}"] = {
-                        "name": f"attn_bwd_{k}", "route": "cuda",
-                        "source": src, "replaces": replaces[k],
-                        "max_abs_err": err, "ms": ms[k], "plain_ms": plain_ms,
-                        "bound_ms": bound, "bound_by": bound_by,
-                        "library_ms": lib_ms,
-                    }
+                      f"bias gradient) {lib_ms:.4f}"
+                      + _cuda_core_bound(row, ms[k], f32, k5_bound_ms(
+                          k, b_time, hw[0] * hw[1], heads, hw,
+                          qkv.element_size(), PEAK_F32_FLOPS)))
+                if kind == "global":
+                    rows[row["name"]] = row
             del qkv, rel_h, rel_w, g, out, lse, dvec, dqkv, args
             torch.cuda.empty_cache()
     return rows
@@ -879,13 +941,16 @@ def _sdpa_bwd_ms(torch, qkv, rel_h, rel_w, g, hw, heads):
     return ms
 
 
-def ft_launches(cfg):
+def ft_launches(cfg, compute_dtype="bfloat16"):
     """Launches of one full fine-tune step: K1 / K2 once in the forward and
     once more in the checkpointed layers' recompute, K5's two kernels once
-    per layer, and the decoder's K3 x1 and K4 x2 forward and backward."""
+    per layer, and in bf16 the decoder's K3 x1 and K4 x2 forward and
+    backward (in f32 the decoder takes its plain route, as in JAX)."""
     v = cfg.vision
     n_glob = len(v.global_attn_indexes)
-    return {**STEP_LAUNCHES, "attn_global": 2 * n_glob,
+    decoder = (STEP_LAUNCHES if compute_dtype == "bfloat16" else
+               dict.fromkeys(STEP_LAUNCHES, 0))
+    return {**decoder, "attn_global": 2 * n_glob,
             "attn_windowed": 2 * (v.num_layers - n_glob),
             "attn_bwd_dq": v.num_layers, "attn_bwd_dkv": v.num_layers}
 
@@ -899,17 +964,20 @@ def _full_params(torch, tr, config, sd_host, device):
     return params, frozen, tr.make_optimizer(config, params.values())
 
 
-def full_finetune_run(torch, tr, cfg, sd_host, items, bs, n_steps, label):
-    """``n_steps`` full fine-tune steps (trainable='all', bf16, encoder
-    inside) on one batch of ``bs`` images; checks every step's launch
-    deltas, a finite loss and a moved patch embedding. Returns (launch
-    counts of the run, losses)."""
+def full_finetune_run(torch, tr, cfg, sd_host, items, bs, n_steps, label,
+                      compute_dtype="bfloat16"):
+    """``n_steps`` full fine-tune steps (trainable='all', encoder inside) on
+    one batch of ``bs`` images in ``compute_dtype``; checks every step's
+    launch deltas, a finite loss and a moved patch embedding. Returns
+    (launch counts of the run, losses)."""
     from dilabhelmholtzoct_tpu_torch.data.pipeline import (PromptedDataset,
                                                            batches)
 
     dev = torch.device("cuda")
     config = tr.TrainConfig(evaluate=False, batch_size=bs, trainable="all",
-                            cache_embeddings=False)  # bf16, lr 1e-3
+                            cache_embeddings=False,
+                            compute_dtype=compute_dtype)  # lr 1e-3
+    tname = "bf16" if compute_dtype == "bfloat16" else "f32"
     batch = list(batches(PromptedDataset(items, seed=0), bs, with_images=True,
                          num_workers=2))[0]
     check(batch["channel_mask"].shape == (bs, 8)
@@ -918,7 +986,7 @@ def full_finetune_run(torch, tr, cfg, sd_host, items, bs, n_steps, label):
     db = _device_batch(torch, batch, dev)
     params, frozen, opt = _full_params(torch, tr, config, sd_host, dev)
     step = tr.make_train_step(cfg, config, opt, (496, 512), False)
-    want = ft_launches(cfg)
+    want = ft_launches(cfg, compute_dtype)
     losses, times = [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -940,10 +1008,11 @@ def full_finetune_run(torch, tr, cfg, sd_host, items, bs, n_steps, label):
     moved = float((params[k].detach().cpu() - sd_host[k]).abs().max())
     check(moved > 0, f"{label}: the patch embedding did not move")
     med = statistics.median(times[1:])
-    print(f"full fine-tune {label} bf16, {bs} images x bucket 8: losses "
+    print(f"full fine-tune {label} {tname}, {bs} images x bucket 8: losses "
           f"{[round(x, 4) for x in losses]}; patch embedding moved by up to "
           f"{moved:.3g}; launches per step {want}")
-    print(f"full fine-tune {label} step ms: first {times[0]:.1f}, median of "
+    print(f"full fine-tune {label} {tname} step ms: first {times[0]:.1f}, "
+          f"median of "
           f"steps 2-{n_steps} {med:.2f} ({bs * 1e3 / med:.2f} img/s), all "
           f"{[round(t, 1) for t in times]}; max_memory_allocated "
           f"{peak / 2**20:.1f} MiB")
@@ -975,10 +1044,32 @@ def finetune_phase(torch):
     return launches
 
 
-def finetune_card_vs_cpu(torch, tr, cfg):
+def finetune_f32_phase(torch):
+    """The f32 full fine-tune (``compute_dtype='float32'``, a training
+    configuration of the JAX package): ViT-B at bs 4 for 5 steps on one
+    batch, each step K1 x8, K2 x16 and K5's two kernels x12 in f32 (split
+    TF32 on the tensor cores for K2 and K5) and no K3 / K4; then the card
+    against the CPU at the 2-layer cut. Returns the run's launch counts."""
+    from dilabhelmholtzoct_tpu_torch.inference import synthetic
+    from dilabhelmholtzoct_tpu_torch.models.configs import sam_vit_base
+    from dilabhelmholtzoct_tpu_torch.train import trainer as tr
+
+    cfg = sam_vit_base()
+    sd_host = synthetic.random_params(cfg, seed=0)
+    items = synthetic.oct_training_items(4, seed=3)
+    launches, losses = full_finetune_run(torch, tr, cfg, sd_host, items, 4, 5,
+                                         "ViT-B", "float32")
+    check(losses[-1] < losses[0], f"ViT-B f32: the loss did not fall: "
+                                  f"{losses}")
+    finetune_card_vs_cpu(torch, tr, cfg, "float32")
+    return launches
+
+
+def finetune_card_vs_cpu(torch, tr, cfg, compute_dtype="bfloat16"):
     """The first full fine-tune step on 1 image, at ViT-B width with the
     depth cut to 2 layers (one windowed, one global) so that the host can
-    run it, on the card and on the CPU from the same weights."""
+    run it, on the card and on the CPU from the same weights, in
+    ``compute_dtype``."""
     from dilabhelmholtzoct_tpu_torch.data.pipeline import (PromptedDataset,
                                                            batches)
     from dilabhelmholtzoct_tpu_torch.inference import synthetic
@@ -987,7 +1078,10 @@ def finetune_card_vs_cpu(torch, tr, cfg):
         cfg.vision, num_layers=2, global_attn_indexes=(1,)))
     sd_host = synthetic.random_params(cfg2, seed=1)
     config = tr.TrainConfig(evaluate=False, batch_size=1, trainable="all",
-                            cache_embeddings=False)
+                            cache_embeddings=False,
+                            compute_dtype=compute_dtype)
+    tname = "bf16" if compute_dtype == "bfloat16" else "f32"
+    rtol = STEP_LOSS_RTOL if compute_dtype == "bfloat16" else F32_STEP_LOSS_RTOL
     b1 = list(batches(PromptedDataset(synthetic.oct_training_items(1, seed=5),
                                       seed=0), 1, with_images=True,
                       num_workers=1))[0]
@@ -1011,12 +1105,12 @@ def finetune_card_vs_cpu(torch, tr, cfg):
         agree += int((torch.sign(dc) == torch.sign(d_card[k]))[moved].sum())
         total += int(moved.sum())
     share = agree / max(total, 1)
-    print(f"card vs cpu, first full fine-tune bf16 step on 1 image x bucket "
-          f"8, ViT-B width, depth cut to 2 layers (layer 0 windowed, layer 1 "
-          f"global) of 12: loss {l_card:.6f} vs {l_cpu:.6f} (rel {rel:.3g}, "
-          f"rtol {STEP_LOSS_RTOL}); update signs agree on {share:.4f} of "
+    print(f"card vs cpu, first full fine-tune {tname} step on 1 image x "
+          f"bucket 8, ViT-B width, depth cut to 2 layers (layer 0 windowed, "
+          f"layer 1 global) of 12: loss {l_card:.8f} vs {l_cpu:.8f} (rel "
+          f"{rel:.3g}, rtol {rtol}); update signs agree on {share:.4f} of "
           f"{total} moved weights over all parameters (min {SIGN_AGREE_MIN})")
-    check(rel <= STEP_LOSS_RTOL, "card and CPU full fine-tune losses differ")
+    check(rel <= rtol, f"card and CPU full fine-tune {tname} losses differ")
     check(share >= SIGN_AGREE_MIN, "card and CPU full fine-tune updates "
                                    "disagree in sign")
 
@@ -1183,9 +1277,17 @@ def k7_kernel_phase(torch, attn):
                 k2_ms = cuda_ms(lambda: attn.attention_fwd_cuda(
                     win, r_h, r_w, hw=(ws, ws), num_heads=heads), 50)
                 lib_ms = _sdpa_ms(torch, win, r_h, r_w, (ws, ws), heads)
+            # both types on the tensor cores, f32 in split TF32
             bound, bound_by = attention_bound_ms(
                 win.shape[0], ws * ws, heads, (ws, ws), qkv.element_size(),
-                PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS)
+                PEAK_TF32X3_FLOPS if f32 else PEAK_BF16_FLOPS)
+            k7_row = {"name": "attn_windowed_image", "route": "cuda",
+                      "source": "dilabhelmholtzoct_tpu_torch/csrc/"
+                                "attention_winimg.cu",
+                      "replaces": "dilabhelmholtzoct_tpu/ops/attention.py:633",
+                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound, "bound_by": bound_by,
+                      "library_ms": lib_ms}
             print(f"kernel attn_windowed_image {label} {tname} B={b} "
                   f"grid={hw} heads={heads} ({win.shape[0]} windows): "
                   f"max_abs_err={err:.3g} (limit {tol:.3g}) bit-equal to K2; "
@@ -1193,16 +1295,14 @@ def k7_kernel_phase(torch, attn):
                   f"K2_on_partitioned_windows_ms={k2_ms:.4f} "
                   f"plain_ms={plain_ms:.4f} library_ms (SDPA on the "
                   f"partitioned windows, partition not counted)="
-                  f"{lib_ms:.4f} bound_ms={bound:.4f} ({bound_by}) "
-                  f"share_of_bound={bound / ms:.3f}")
+                  f"{lib_ms:.4f} bound_ms={bound:.4f} ({bound_by}"
+                  f"{', split TF32' if f32 else ''}) "
+                  f"share_of_bound={bound / ms:.3f}"
+                  + _cuda_core_bound(k7_row, ms, f32, attention_bound_ms(
+                      win.shape[0], ws * ws, heads, (ws, ws),
+                      qkv.element_size(), PEAK_F32_FLOPS)))
             if label == "ViT-B" and f32:
-                row = {"name": "attn_windowed_image", "route": "cuda",
-                       "source": "dilabhelmholtzoct_tpu_torch/csrc/"
-                                 "attention_winimg.cu",
-                       "replaces": "dilabhelmholtzoct_tpu/ops/attention.py:633",
-                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                       "bound_ms": bound, "bound_by": bound_by,
-                       "library_ms": lib_ms}
+                row = k7_row
             del qkv, rel, bias, out, ref, win, r_h, r_w, k2
         torch.cuda.empty_cache()
 
@@ -1692,10 +1792,15 @@ def main() -> int:
     print(f"[phases] K5 kernels {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     ft = finetune_phase(torch)
-    launches.update({k: ft[k] for k in k5_rows})
+    launches.update({k: ft[k] for k in ("attn_bwd_dq", "attn_bwd_dkv")})
     launches["attn_global_bf16"] = ft["attn_global"]
     launches["attn_windowed_bf16"] = ft["attn_windowed"]
     print(f"[phases] full fine-tune {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ft32 = finetune_f32_phase(torch)
+    launches.update({f"{k}_f32": ft32[k] for k in ("attn_bwd_dq",
+                                                    "attn_bwd_dkv")})
+    print(f"[phases] f32 full fine-tune {time.perf_counter() - t0:.1f} s")
     rows.update(train_rows)
     rows.update(k5_rows)
     t0 = time.perf_counter()

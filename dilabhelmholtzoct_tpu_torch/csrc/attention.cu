@@ -10,13 +10,14 @@
 //   s[q, k] = (q . k) / 8 + rel_h[q, k / W] + rel_w[q, k % W]
 //   out[q]  = softmax_k(s[q, :]) . v
 //
-// Two kernels, each with an f32 instance (the serving path) on the CUDA
-// cores and a bf16 one (the precompute and full fine-tune paths) on the
-// tensor cores. The f32 kernels widen their inputs to f32 in shared memory
-// and take every sum in f32. Given a non-null `lse` (B, heads, N) f32, each
-// also writes the row's logsumexp m + log(l) in the scaled-score domain (the
-// TPU kernel's return_lse), which the backward K5 (attention_bwd.cu) reads;
-// with a null pointer nothing more is written.
+// Two kernels, each with an f32 instance (the serving path) and a bf16 one
+// (the precompute and full fine-tune paths). The f32 kernels take every
+// sum in f32: K1's on the CUDA cores, K2's on the tensor cores in split
+// TF32 (attention_tf32.cuh); the bf16 ones run on the tensor cores. Given
+// a non-null `lse` (B, heads, N) f32, each also writes the row's logsumexp
+// m + log(l) in the scaled-score domain (the TPU kernel's return_lse),
+// which the backward K5 (attention_bwd.cu) reads; with a null pointer
+// nothing more is written.
 //
 // K1 replaces dilabhelmholtzoct_tpu/ops/attention.py flash_attention_packed,
 //    _packed_kernel branch (the 4 global layers, N = 4096 at ViT-B). One
@@ -38,36 +39,41 @@
 // K2 replaces the same function's _windowed_group_kernel branch (the 8
 //    windowed layers, 25 windows of 14x14 = 196 tokens per image), with a
 //    one-pass softmax over all keys of a window.
-//    f32, attn_windowed_kernel: one block of 256 threads per (window, head,
-//    64-query tile) holds all keys and values of the window in shared
-//    memory (attention_common.cuh window_attend).
-//    bf16, attn_windowed_mma_kernel: one block of 4 warps per (window,
-//    head) loads the window's k and v once, and its warps take the 13 m16
-//    query tiles in turn, each staging its tile's q rows
-//    (attention_mma.cuh window_tiles_mma): q.k^T, then the bias as a second
-//    product (the query rows' factors times a one-hot over the keys, which
-//    also masks the keys past N) onto the same 26 n8 score tiles in
-//    registers; the row max and sum over the lane quad; p / l rounded to
-//    bf16 before p.v (the TPU kernel's rounding point); every product on
-//    mma.sync.
+//    Both types: one block per (window, head) loads the window's k and v
+//    once, and its warps take the 13 m16 query tiles in turn, each staging
+//    its tile's q rows: q.k^T, then the bias as a second product (the
+//    query rows' factors times a one-hot over the keys, which also masks
+//    the keys past N) onto the same 26 n8 score tiles in registers; the
+//    row max and sum over the lane quad; every product on mma.sync.
+//    f32, attn_windowed_tf32_kernel: 8 warps (attention_tf32.cuh
+//    window_tiles_tf32), k and v in f32 in shared memory, each tile's
+//    factors staged beside its q rows; split TF32 (hi.hi + hi.lo + lo.hi,
+//    two products for the bias, whose one-hot is exact); p in f32, o / l
+//    last.
+//    bf16, attn_windowed_mma_kernel: 4 warps (attention_mma.cuh
+//    window_tiles_mma); p / l rounded to bf16 before p.v (the TPU kernel's
+//    rounding point).
 //
 // Bound on an H100 SXM (700 W), one layer at B = 1:
 //    K1: 4 * 4096^2 * 64 * 12 = 51.5 GFLOP; f32 over the 67 TFLOP/s peak
 //        = 0.77 ms, bf16 over the 989 TFLOP/s tensor-core rate = 0.052 ms;
 //        bytes (qkv 37.7 MB + rel 25.2 MB + out 12.6 MB in f32, half in
 //        bf16) over 3.35 TB/s = 0.022 / 0.011 ms. Compute-bound.
-//    K2: 2.95 GFLOP -> 0.044 ms in f32 (compute-bound); in bf16 0.003 ms of
-//        products against 33.5 MB -> 0.010 ms (bound by bytes).
+//    K2: 2.95 GFLOP -> 0.018 ms in f32 over the split-TF32 rate (495 / 3
+//        = 165 TFLOP/s; 0.044 ms over the CUDA cores' 67), against 67 MB
+//        -> 0.020 ms (bound by bytes); in bf16 0.003 ms of products against
+//        33.5 MB -> 0.010 ms (bound by bytes).
 // What this design does about it: every kernel keeps the operands of its
 // inner loops in shared memory and registers and reads each qkv byte from
 // device memory once per query tile (the bf16 K2 once per window and head).
-// The f32 kernels run on the CUDA cores (full f32 has no tensor-core route
-// without TF32): 16-byte shared loads, padded rows against bank conflicts.
-// The bf16 kernels run their products on the tensor cores. What stays on
-// the CUDA cores per score is, in K1, the bias (two shared loads), in both
-// the exponential and the max / sum. In K1 the next K / V tile's copy
-// overlaps the current tile's work; in K2 the next query tile's, and the
-// two blocks an SM holds overlap one's loads with the other's products.
+// The f32 K1 runs on the CUDA cores: 16-byte shared loads, padded rows
+// against bank conflicts. The other kernels run their products on the
+// tensor cores. What stays on the CUDA cores per score is, in K1, the bias
+// (two shared loads), in all the exponential and the max / sum. In K1 the
+// next K / V tile's copy overlaps the current tile's work; in the bf16 K2
+// the next query tile's, and the two blocks an SM holds overlap one's loads
+// with the other's products (the f32 K2's 8 warps, one block per SM, stage
+// their tiles in turn).
 // wgmma with TMA is later work.
 //
 // Not carried over from the TPU kernel (Mosaic-only workarounds): head-pair
@@ -76,6 +82,7 @@
 
 #include "attention_common.cuh"
 #include "attention_mma.cuh"
+#include "attention_tf32.cuh"
 
 namespace {
 
@@ -357,41 +364,78 @@ attn_global_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
 }
 
 // ------------------------------------------------------------ K2 f32 ----
-// grid (ceil(N / 64), heads, windows), 256 threads, N <= KMAX. With
-// NK = N rounded up to 16, shared (floats):
-//   [Qs TQ*LD | Ks NK*LD], reused as Ps TQ*(NK+4) once the scores are in
-//   registers | Vs NK*D | Rh TQ*H | Rw TQ*W
-__global__ void __launch_bounds__(THREADS, 1)
-attn_windowed_kernel(const float* __restrict__ qkv,
-                     const float* __restrict__ rel_h,
-                     const float* __restrict__ rel_w, float* __restrict__ out,
-                     float* __restrict__ lse, int n, int heads, int H, int W,
-                     float scale, int qk_floats) {
+// grid (1, heads, windows), 32 win_warps(EXACT) threads: one block per
+// (window, head) loads the window's k and v in f32 (NK = N rounded up to 16
+// rows, zero past N) and builds the one-hot E of the bias product, and its
+// warps take the NK / 16 m16 query tiles in turn, each staging its tile's
+// q rows and bias factors (attention_tf32.cuh window_tiles_tf32 /
+// window_tile_tf32), every product in split TF32. Shared (f32):
+//   Ks | Vs NK x LDF | E (uint2) | Qw warps x 16 x LDF | Fw warps x 16 x
+//   (FK + 4)
+// NJ bounds NK / 16 at compile time: the EXACT instance takes NK = 208 (the
+// SAM windows of 14 x 14: 13 tiles, no guarded product), the other any NK
+// up to KMAX.
+template <int NJ, bool EXACT>
+__global__ void __launch_bounds__(32 * tf32::win_warps(EXACT), 1)
+attn_windowed_tf32_kernel(const float* __restrict__ qkv,
+                          const float* __restrict__ rel_h,
+                          const float* __restrict__ rel_w,
+                          float* __restrict__ out, float* __restrict__ lse,
+                          int n, int heads, int H, int W) {
+  using namespace tf32;
+  constexpr int WARPS_ = win_warps(EXACT), NTH = 32 * WARPS_;
   extern __shared__ __align__(16) float smem[];
-  const int nk = (n + 15) / 16 * 16;
-  float* Qs = smem;
-  float* Ks = Qs + TQ * LD;
-  float* Ps = smem;
-  float* Vs = smem + qk_floats;
-  float* Rh = Vs + nk * D;
-  float* Rw = Rh + TQ * H;
+  const int nj = (n + 15) / 16, nk = 16 * nj, fld = 8 * win_fk8(H, W) + 4;
+  float* Ks = smem;
+  float* Vs = Ks + nk * LDF;
+  uint2* E = reinterpret_cast<uint2*>(Vs + nk * LDF);
+  float* Qw = reinterpret_cast<float*>(E + win_fk8(H, W) * 2 * nj * 32);
+  float* Fw = Qw + WARPS_ * 16 * LDF;
 
-  const int head = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * TQ;
+  const int head = blockIdx.y, b = blockIdx.z;
   const int C = heads * D, stride = 3 * C;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const float* base = qkv + (size_t)b * n * stride;
-  const size_t rel_row = ((size_t)b * heads + head) * n + q0;
+  const int lane = threadIdx.x & 31, t = lane & 3, g = lane >> 2;
+  const float* base = qkv + (size_t)b * n * stride + head * D;
+  const size_t rel_row = ((size_t)b * heads + head) * n;
+  const float* fh = rel_h + rel_row * H;
+  const float* fw = rel_w + rel_row * W;
 
-  load_rows(Qs, LD, base + head * D, stride, q0, TQ, n, scale);
-  load_rows(Ks, LD, base + C + head * D, stride, 0, nk, n, 1.f);
-  load_rows(Vs, D, base + 2 * C + head * D, stride, 0, nk, n, 1.f);
-  load_rel(Rh, rel_h + rel_row * H, H, n - q0);
-  load_rel(Rw, rel_w + rel_row * W, W, n - q0);
-  __syncthreads();
+  load_tile<NTH>(Ks, base + C, stride, 0, n, nk);
+  load_tile<NTH>(Vs, base + 2 * C, stride, 0, n, nk);
+  mma::cp_commit();
 
-  float m[4], l[4], acc[4][4];
-  window_attend(Qs, Ks, Ps, Vs, Rh, Rw, n, H, W, ty, tx, m, l, acc);
-  store_out(out, lse, rel_row - q0, acc, m, l, b, n, C, head, q0, ty, tx);
+  // the warp's 16 q rows, and their factor columns [rel_h | rel_w] (zero
+  // past n) by 4-byte copies
+  auto stage = [&](float* qt, float* ft, int row0) {
+    for (int i = lane; i < 16 * (D / 4); i += 32) {
+      const int r = i >> 4, c = (i & 15) * 4;
+      const bool ok = row0 + r < n;
+      mma::cp_async16(qt + r * LDF + c,
+                      base + (ok ? (size_t)(row0 + r) * stride + c : 0), ok);
+    }
+    for (int i = lane; i < 16 * (H + W); i += 32) {
+      const int r = i / (H + W), f = i - r * (H + W), q = row0 + r;
+      const bool ok = q < n;
+      mma::cp_async4(ft + r * fld + f,
+                     ok ? (f < H ? fh + q * H + f : fw + q * W + f - H) : fh,
+                     ok);
+    }
+  };
+  auto store = [&](int row0, float (*o)[4], const float* m, const float* l) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int q = row0 + g + 8 * r;
+      if (q >= n) continue;
+      if (lse != nullptr && t == 0) lse[rel_row + q] = m[r] + logf(l[r]);
+      float* dst = out + ((size_t)b * n + q) * C + head * D + 2 * t;
+#pragma unroll
+      for (int dn = 0; dn < D / 8; ++dn)
+        *reinterpret_cast<float2*>(dst + 8 * dn) =
+            make_float2(o[dn][2 * r], o[dn][2 * r + 1]);
+    }
+  };
+  window_tiles_tf32<NJ, EXACT, NTH>(Qw, Fw, Ks, Vs, E, n, nj, H, W, stage,
+                                    store);
 }
 
 // ----------------------------------------------------------- K2 bf16 ----
@@ -539,19 +583,19 @@ int launch_windowed_f32(const void* qkv, const void* rel_h,
                         const void* rel_w, void* out, float* lse, int batch,
                         int n, int heads, int h, int w, cudaStream_t stream) {
   if (n > KMAX) return (int)cudaErrorInvalidValue;
-  const int nk = (n + 15) / 16 * 16;
-  int qk_floats = TQ * LD + nk * LD;
-  if (TQ * (nk + 4) > qk_floats) qk_floats = TQ * (nk + 4);
-  const size_t smem = sizeof(float) * (size_t)(qk_floats + nk * D + TQ * (h + w));
+  const bool exact = (n + 15) / 16 == 13;
+  const size_t smem = tf32::window_smem(n, h, w, tf32::win_warps(exact));
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  auto kernel = exact ? attn_windowed_tf32_kernel<13, true>
+                      : attn_windowed_tf32_kernel<KMAX / 16, false>;
   cudaError_t e = cudaFuncSetAttribute(
-      attn_windowed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((n + TQ - 1) / TQ, heads, batch);
-  attn_windowed_kernel<<<grid, THREADS, smem, stream>>>(
+  kernel<<<dim3(1, heads, batch), 32 * tf32::win_warps(exact), smem,
+           stream>>>(
       static_cast<const float*>(qkv), static_cast<const float*>(rel_h),
       static_cast<const float*>(rel_w), static_cast<float*>(out), lse, n,
-      heads, h, w, 0.125f, qk_floats);
+      heads, h, w);
   return (int)cudaGetLastError();
 }
 

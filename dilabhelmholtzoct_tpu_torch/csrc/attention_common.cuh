@@ -1,8 +1,8 @@
-// Tile helpers shared by the encoder attention kernels on the CUDA cores:
-// the forward K1 / K2 (attention.cu), the backward K5 (attention_bwd.cu),
-// the any-head-dim forward K6 (attention_relpos.cu) and the image-layout
-// windowed forward K7 (attention_winimg.cu), in f32 (the tensor-core bf16
-// kernels build on attention_mma.cuh).
+// Tile helpers of the f32 encoder attention kernels on the CUDA cores: the
+// global forward K1 (attention.cu) and the any-head-dim forward K6
+// (attention_relpos.cu); and the constants every attention kernel shares
+// (the tensor-core kernels build on attention_mma.cuh, bf16, and
+// attention_tf32.cuh, f32 in split TF32).
 //
 // Every tile is 64 rows of one head (head dim 64) widened to f32 in shared
 // memory; a block of 256 threads is a 16 x 16 grid of threads (ty, tx) and
@@ -24,7 +24,6 @@ constexpr int TK = 64;         // key tokens per tile
 constexpr int THREADS = 256;   // 16 x 16: thread (ty, tx)
 constexpr int LD = D + 4;      // padded shared row of a 64-wide tile
 constexpr int KMAX = 256;      // most keys a whole-window kernel holds (16 x 16)
-constexpr int NJ = KMAX / 16;  // key columns per thread in those kernels
 
 __device__ __forceinline__ void load4(const float* p, float* v) {
   const float4 x = *reinterpret_cast<const float4*>(p);
@@ -56,21 +55,6 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);
-}
-
-// x rounded to T and widened back (the identity for float)
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
 }
 
 __device__ __forceinline__ float4 lds4(const float* p) {
@@ -157,80 +141,14 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-// The last step of the f32 K1, K2 and K7: one query row's four output
-// columns, acc / l, stored. Shared so that the kernels that must agree bit
-// for bit (K7 with K2) cannot normalise differently.
+// The last step of the f32 K1: one query row's four output columns,
+// acc / l, stored.
 template <typename T>
 __device__ __forceinline__ void store_normalised(T* dst, const float* acc,
                                                  float l) {
   const float inv = 1.f / l;
   const float o[4] = {acc[0] * inv, acc[1] * inv, acc[2] * inv, acc[3] * inv};
   store4(dst, o);
-}
-
-// One-pass softmax attention of a 64-query tile against all n <= KMAX keys
-// of a window, every operand already in shared memory (the f32 body of K2,
-// and of K7, which differs only in where its rows come from and go to; in
-// bf16 both run attention_mma.cuh window_tile_mma):
-//   Qs TQ x LD (scaled queries) | Ks nk x LD | Vs nk x D, nk = n rounded up
-//   to 16 with zero rows past n | Rh TQ x H | Rw TQ x W bias factors.
-// Ps (TQ x (nk + 4)) may alias Qs / Ks: they are consumed before it is
-// written. Leaves the row maximum m, the denominator l and the output tile
-// acc in registers, acc still to be divided by l. Every thread of the block
-// must call it (it synchronises).
-__device__ __forceinline__ void window_attend(
-    const float* Qs, const float* Ks, float* Ps, const float* Vs,
-    const float* Rh, const float* Rw, int n, int H, int W, int ty, int tx,
-    float* m, float* l, float (*acc)[4]) {
-  const int nk = (n + 15) / 16 * 16, nj = nk / 16, ldp = nk + 4;
-  float s[4][NJ];
-#pragma unroll
-  for (int j0 = 0; j0 < NJ; j0 += 4) {
-    float t[4][4] = {};
-    if (j0 < nj) score_tile(t, Qs, Ks, ty, tx, j0, nj);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j0 + j] = t[i][j];
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int q = ty + 16 * i;
-    float mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int k = tx + 16 * j;
-      if (k < n) {
-        const int kr = k / W;
-        s[i][j] += Rh[q * H + kr] + Rw[q * W + (k - kr * W)];
-      } else {
-        s[i][j] = -INFINITY;
-      }
-      mx = fmaxf(mx, s[i][j]);
-    }
-    mx = row_max(mx);
-    m[i] = mx;
-    float rs = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      s[i][j] = expf(s[i][j] - mx);  // 0 past n
-      rs += s[i][j];
-    }
-    l[i] = row_sum(rs);
-  }
-  __syncthreads();  // every thread is done reading Qs / Ks: reuse as Ps
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      if (j < nj) Ps[(ty + 16 * i) * ldp + tx + 16 * j] = s[i][j];
-  __syncthreads();
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  pv_tile(acc, Ps, ldp, Vs, D, nk, ty, tx);
 }
 
 }  // namespace attn

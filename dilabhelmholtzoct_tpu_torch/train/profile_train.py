@@ -3,6 +3,8 @@ preset (``--base_model facebook/sam-vit-huge``: every encoder layer on K6).
 
     python -m dilabhelmholtzoct_tpu_torch.train.profile_train [--top 15]
     python -m dilabhelmholtzoct_tpu_torch.train.profile_train --trainable all
+    python -m dilabhelmholtzoct_tpu_torch.train.profile_train --trainable all \
+        --compute_dtype float32
     python -m dilabhelmholtzoct_tpu_torch.train.profile_train --precompute \
         [--base_model facebook/sam-vit-huge]
 
@@ -17,6 +19,9 @@ components each), runs three warm-up steps and then ``--steps`` steps under
   * ``--trainable all``: the full fine-tune step as ``chip_smoke.py`` runs
     it (BASELINE config 5 geometry): 4 images x bucket 8, the encoder
     inside the gradient with every layer checkpointed;
+  * ``--compute_dtype float32`` (with either ``--trainable``): the step in
+    f32 (the encoder attention's K2 / K5 in split TF32 on the tensor cores,
+    K1 on the CUDA cores; the decoder's plain route) instead of bf16;
   * ``--precompute``: instead of steps, one bf16 embedding precompute of
     the 8 images (the frozen encoder of decoder fine-tuning) after a first
     one outside the window.
@@ -54,6 +59,10 @@ def main(argv=None) -> int:
                              "embedding decoder step (8 images)")
     parser.add_argument("--base_model", type=str,
                         default="facebook/sam-vit-base")
+    parser.add_argument("--compute_dtype", choices=["bfloat16", "float32"],
+                        default="bfloat16",
+                        help="the train step's compute dtype (the precompute "
+                             "stays bf16)")
     parser.add_argument("--precompute", action="store_true",
                         help="profile the bf16 embedding precompute of the 8 "
                              "images instead of train steps")
@@ -80,7 +89,8 @@ def main(argv=None) -> int:
     ds = PromptedDataset(synthetic.oct_training_items(bs, seed=1), seed=0)
     config = tr.TrainConfig(evaluate=False, batch_size=bs,
                             trainable=args.trainable,
-                            cache_embeddings=not full)
+                            cache_embeddings=not full,
+                            compute_dtype=args.compute_dtype)
     batch = list(batches(ds, bs, with_images=full, num_workers=2))[0]
     db = {k: torch.as_tensor(batch[k]).to(dev)
           for k in ("prompts", "comp_map", "channel_mask")}
@@ -96,8 +106,9 @@ def main(argv=None) -> int:
     step = tr.make_train_step(cfg, config, opt, (496, 512), not full)
     for _ in range(3):
         step(params, opt, frozen, db)
-    what = ("full fine-tune step bf16, 4 images x bucket 8" if full
-            else "train step bf16, 8 images x bucket 8")
+    tname = "bf16" if args.compute_dtype == "bfloat16" else "f32"
+    what = (f"full fine-tune step {tname}, 4 images x bucket 8" if full
+            else f"train step {tname}, 8 images x bucket 8")
     profile_window(f"{what}, x{args.steps}",
                    lambda: step(params, opt, frozen, db), args.steps,
                    args.top)

@@ -359,6 +359,49 @@ def test_winimg_kernel_matches_plain_and_k2_on_card(cuda_device, dtype, b,
     assert torch.equal(got, k2)
 
 
+# the f32 kernels on the tensor cores in split TF32: library -> kernels
+TF32_KERNELS = {"attention": ("attn_windowed_tf32_kernel",),
+                "attention_bwd": ("attn_bwd_dq_tf32_kernel",
+                                  "attn_bwd_dkv_tf32_kernel"),
+                "attention_winimg": ("attn_winimg_tf32_kernel",)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lib", sorted(TF32_KERNELS))
+def test_f32_kernels_on_tf32_tensor_cores(cuda_device, lib):
+    """The f32 K2, K5 and K7 instances hold TF32 tensor-core instructions
+    (HMMA.1688.F32.TF32) in their SASS and use no local memory (no spills,
+    no stack), from ``cuobjdump`` on the built library."""
+    import subprocess
+
+    from dilabhelmholtzoct_tpu_torch import kernels
+
+    kernels.library(lib)  # built at first use
+    path = str(kernels.library_path(lib))
+    tool = kernels.cuda_tool("cuobjdump")
+    sass = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    usage = subprocess.run([tool, "-res-usage", path], capture_output=True,
+                           text=True, check=True, timeout=300).stdout
+    tf32, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            tf32[fn] = 0
+        elif fn and "HMMA" in line and "TF32" in line:
+            tf32[fn] += 1
+    lines = usage.splitlines()
+    for name in TF32_KERNELS[lib]:
+        found = [f for f in tf32 if name in f]
+        assert found, f"{name} is not in the SASS of {lib}"
+        for f in found:
+            assert tf32[f] > 0, f"{f}: no TF32 tensor-core instruction"
+            # the resource line follows the function's name
+            res = next(lines[i + 1] for i, x in enumerate(lines)
+                       if f in x and i + 1 < len(lines))
+            assert "STACK:0 " in res and "LOCAL:0 " in res, f"{f}: {res}"
+
+
 @pytest.mark.gpu
 def test_tiny_engine_request_on_card(cuda_device):
     """A box request through ``SegmentationEngine`` at the test-size model
