@@ -13,20 +13,22 @@ prints no result line):
    source, all started together (build seconds and the ptxas report). Then
    the bf16 K1, K2, K5, K6 and K7 kernels' SASS (``cuobjdump -sass`` on the
    built libraries) must hold tensor-core instructions (HMMA, or HGMMA), the
-   f32 K2, K5 and K7 kernels' (split TF32) TF32 ones (HMMA.1688.F32.TF32),
+   f32 K1, K2, K5, K6 and K7 kernels' (split TF32) TF32 ones
+   (HMMA.1688.F32.TF32),
    and their ptxas reports no spills, printed per kernel beside its
    registers.
 3. Kernels at SAM ViT-B shapes — K1 global attention (B=1, N=4096, 12 heads)
    and K2 windowed attention (25 windows of 196 tokens, 12 heads) — in f32
-   and bf16: each held against its plain PyTorch version on the same card
-   tensors (f32 within 1e-4; bf16 within 2 bf16 ulps of the case's own
-   output scale, 2 * 2^-8 * max |plain|, printed beside the error; the same
-   limits hold K6 and K7), then timed with CUDA events (kernel, plain
-   version, and one ``scaled_dot_product_attention`` call with the
-   materialised bias as the library yardstick), beside the bound computed
-   from the shapes (the f32 K2 on the tensor cores against the split-TF32
-   rate, 495 / 3 TFLOP/s, with its bound over the CUDA cores' 67 beside
-   it; the f32 K1 runs on the CUDA cores).
+   and bf16, and K1 in f32 at B=4 (the f32 full fine-tune's shape): each
+   held against its plain PyTorch version on the same card tensors (f32
+   within 1e-4; bf16 within 2 bf16 ulps of the case's own output scale,
+   2 * 2^-8 * max |plain|, printed beside the error; the same limits hold
+   K6 and K7) and bit-equal to itself on a second run, then timed with
+   CUDA events (kernel, plain version, and one
+   ``scaled_dot_product_attention`` call with the materialised bias as the
+   library yardstick), beside the bound computed from the shapes (the f32
+   kernels on the tensor cores against the split-TF32 rate, 495 / 3
+   TFLOP/s, with their bound over the CUDA cores' 67 beside it).
 4. Serving at full ViT-B width: random weights from a seeded
    torch.Generator (non-zero rel-pos tables), a synthetic 496x512 OCT-shaped
    uint8 image (the exact-2x preprocess), a box, a point and a 3-box request
@@ -83,10 +85,12 @@ prints no result line):
 
 13. K6, the any-head-dim attention, at ViT-H shapes (16 heads of 80; the
    global layer B = 1, N = 4096; 25 windows of 196), at the test-size
-   model's (4 heads of 16) and at head dims whose rows the bf16 kernel pads
-   (20 and 48), in f32 and bf16: held against its plain version, then timed
-   beside its bound, the plain version and one
-   ``scaled_dot_product_attention`` call with the materialised bias.
+   model's (4 heads of 16) and at head dims whose rows the kernels pad
+   (20 and 48), in f32 (split TF32) and bf16: held against its plain
+   version and bit-equal to itself on a second run, then timed beside its
+   bound (f32: the split-TF32 rate, the CUDA cores' beside it), the plain
+   version and one ``scaled_dot_product_attention`` call with the
+   materialised bias.
 14. K7, the image-layout windowed attention, at ViT-B (B = 1, 12 heads,
    64x64, windows of 14) and on a ragged 28x20 grid, in f32 and bf16: held
    against its plain version and, bit for bit, against K2 on the partitioned
@@ -119,16 +123,19 @@ prints no result line):
    card against the CPU, within ``EMB_ULPS`` bf16 ulps of their scale.
 
 The line before the last is a JSON object with one entry per kernel (K1/K2
-numbers from the serving path in f32; K1 and K2 in bf16 as their own
+numbers from the serving path in f32; K1 in f32 at B = 4
+(``attn_global_b4``), its launches counted on the f32 full fine-tune run;
+K1 and K2 in bf16 as their own
 kernels (``attn_global_bf16``, ``attn_windowed_bf16``: the tensor-core
 kernels, at ViT-B B = 1, their launches counted on the ViT-B full
 fine-tune run); K3/K4 from the training path in bf16; K5 from the global
 layer at B = 4 in bf16, its launches counted on the ViT-B full fine-tune
 run, and in f32 (``attn_bwd_dq_f32``, ``attn_bwd_dkv_f32``), its launches
-counted on the f32 full fine-tune run; K6 from the ViT-H global layer in
-f32, its launches counted on the ViT-H serving run, and in bf16
-(``attn_relpos_bf16``), its launches counted on the ViT-H bf16 precompute
-and steps; K7 at ViT-B in f32, its
+counted on the f32 full fine-tune run; K6 from the ViT-H global layer
+(``attn_relpos``) and windowed layer (``attn_relpos_windowed``) in f32,
+their launches (one kernel, one count) counted on the ViT-H serving run,
+and in bf16 (``attn_relpos_bf16``, ``attn_relpos_windowed_bf16``), counted
+on the ViT-H bf16 precompute and steps; K7 at ViT-B in f32, its
 launches counted on the ``set_fused_windowed('on')`` encode); the last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -241,9 +248,11 @@ MMA_KERNELS = {"attention": ("attn_global_mma_kernel",
                                  "attn_bwd_dkv_mma_kernel"),
                "attention_relpos": ("attn_relpos_mma_kernel",),
                "attention_winimg": ("attn_winimg_mma_kernel",)}
-TF32_KERNELS = {"attention": ("attn_windowed_tf32_kernel",),
+TF32_KERNELS = {"attention": ("attn_global_tf32_kernel",
+                              "attn_windowed_tf32_kernel"),
                 "attention_bwd": ("attn_bwd_dq_tf32_kernel",
                                   "attn_bwd_dkv_tf32_kernel"),
+                "attention_relpos": ("attn_relpos_tf32_kernel",),
                 "attention_winimg": ("attn_winimg_tf32_kernel",)}
 
 
@@ -262,7 +271,8 @@ def _ptxas_by_function(log):
 
 def tensor_core_check(kernels):
     """Fail unless the SASS of every tensor-core kernel -- bf16 K1 / K2 /
-    K5 / K6 / K7, and f32 K2 / K5 / K7 in split TF32 -- holds tensor-core
+    K5 / K6 / K7, and f32 K1 / K2 / K5 / K6 / K7 in split TF32 -- holds
+    tensor-core
     instructions (HMMA from mma.sync, HGMMA from wgmma; TF32 ones for the
     f32 kernels) and its ptxas report shows no spills; print the count of
     each instance beside its registers and spills."""
@@ -311,25 +321,32 @@ def _cuda_core_bound(row, ms, split, bound):
 
 
 def kernel_phase(torch, attn):
-    """K1 / K2 vs their plain versions at ViT-B shapes; returns the numbers
-    of each kernel for the result line: f32 (the serving path's type) under
-    its name, bf16 (the tensor-core kernels of the precompute and full
-    fine-tune paths) as ``<name>_bf16``."""
+    """K1 / K2 vs their plain versions at ViT-B shapes, and the same bits on
+    a second run; returns the numbers of each kernel for the result line:
+    f32 (the serving path's type) under its name, bf16 (the tensor-core
+    kernels of the precompute and full fine-tune paths) as
+    ``<name>_bf16``, and the f32 K1 at B = 4 (the f32 full fine-tune's
+    shape) as ``attn_global_b4``."""
     from dilabhelmholtzoct_tpu_torch.device import full_fp32
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
+    both = (torch.float32, torch.bfloat16)
+    # (the f32 row's key, the kernel's counter, B, grid, the TPU kernel,
+    # types)
     cases = [
-        ("attn_global", 1, (64, 64),
-         "dilabhelmholtzoct_tpu/ops/attention.py:819"),
-        ("attn_windowed", 25, (14, 14),
-         "dilabhelmholtzoct_tpu/ops/attention.py:770"),
+        ("attn_global", "attn_global", 1, (64, 64),
+         "dilabhelmholtzoct_tpu/ops/attention.py:819", both),
+        ("attn_windowed", "attn_windowed", 25, (14, 14),
+         "dilabhelmholtzoct_tpu/ops/attention.py:770", both),
+        ("attn_global_b4", "attn_global", 4, (64, 64),
+         "dilabhelmholtzoct_tpu/ops/attention.py:819", (torch.float32,)),
     ]
     heads = 12
     rows = {}
-    for name, b, hw, replaces in cases:
+    for f32_key, name, b, hw, replaces, dtypes in cases:
         n = hw[0] * hw[1]
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             qkv = torch.randn((b, n, 3 * heads * 64), generator=gen,
                               device=dev).to(dtype)
             rel_h = (0.3 * torch.randn((b, heads, n, hw[0]), generator=gen,
@@ -352,22 +369,21 @@ def kernel_phase(torch, attn):
                       f"{name} {dtype}: bad output")
                 check(err <= tol, f"{name} {dtype}: max |kernel - plain| "
                                   f"{err:.3g} > {tol:.3g}")
+                check(torch.equal(out, attn.flash_attention_packed(*args, **kw)),
+                      f"{name} {dtype}: a second run gave other bits")
                 iters = 20 if name == "attn_global" else 50
                 ms = cuda_ms(lambda: attn.flash_attention_packed(*args, **kw),
                              iters)
                 plain_ms = cuda_ms(
                     lambda: attn.packed_attention_plain(*args, **kw), 5)
                 lib_ms = _sdpa_ms(torch, qkv, rel_h, rel_w, hw, heads)
-            f32 = dtype == torch.float32
-            # K2's f32 kernel runs on the tensor cores in split TF32, K1's on
-            # the CUDA cores
-            split = f32 and name == "attn_windowed"
-            peak = (PEAK_TF32X3_FLOPS if split else PEAK_F32_FLOPS) if f32 \
-                else PEAK_BF16_FLOPS
+            # the f32 kernels run on the tensor cores in split TF32
+            split = dtype == torch.float32
+            peak = PEAK_TF32X3_FLOPS if split else PEAK_BF16_FLOPS
             bound, bound_by = attention_bound_ms(b, n, heads, hw,
                                                  qkv.element_size(), peak)
-            tname = "f32" if f32 else "bf16"
-            key = name if f32 else f"{name}_bf16"
+            tname = "f32" if split else "bf16"
+            key = f32_key if split else f"{name}_bf16"
             rows[key] = {
                 "name": key, "route": "cuda",
                 "source": "dilabhelmholtzoct_tpu_torch/csrc/attention.cu",
@@ -1048,7 +1064,7 @@ def finetune_f32_phase(torch):
     """The f32 full fine-tune (``compute_dtype='float32'``, a training
     configuration of the JAX package): ViT-B at bs 4 for 5 steps on one
     batch, each step K1 x8, K2 x16 and K5's two kernels x12 in f32 (split
-    TF32 on the tensor cores for K2 and K5) and no K3 / K4; then the card
+    TF32 on the tensor cores) and no K3 / K4; then the card
     against the CPU at the 2-layer cut. Returns the run's launch counts."""
     from dilabhelmholtzoct_tpu_torch.inference import synthetic
     from dilabhelmholtzoct_tpu_torch.models.configs import sam_vit_base
@@ -1145,10 +1161,11 @@ def finetune_epoch_loop(torch, tr, sd_host):
 
 def k6_kernel_phase(torch, attn):
     """K6 against its plain version at ViT-H shapes, at the test-size
-    model's and at head dims whose rows the bf16 kernel pads (20: 8-byte
-    copies, rows of 32; 48), f32 and bf16, timed beside its bound, the plain
-    version and SDPA; returns the result-line rows of the ViT-H global
-    layer: f32 (serving's type) and bf16 (the precompute's)."""
+    model's and at head dims whose rows the kernels pad (20: padded to 24
+    in f32, to 32 in bf16 with 8-byte copies; 48), f32 and bf16, and the
+    same bits on a second run, timed beside its bound, the plain version
+    and SDPA; returns the result-line rows of the ViT-H global and windowed
+    layers: f32 (serving's type) and bf16 (the precompute's)."""
     from dilabhelmholtzoct_tpu_torch.device import full_fp32
 
     dev = torch.device("cuda")
@@ -1189,31 +1206,42 @@ def k6_kernel_phase(torch, attn):
                       f"attn_relpos {label} {tname}: bad output")
                 check(err <= tol, f"attn_relpos {label} {tname}: max |kernel "
                                   f"- plain| {err:.3g} > {tol:.3g}")
+                check(torch.equal(out, attn.flash_attention_packed(*args, **kw)),
+                      f"attn_relpos {label} {tname}: a second run gave other "
+                      "bits")
                 iters = 20 if n > 1000 else 50
                 ms = cuda_ms(lambda: attn.flash_attention_packed(*args, **kw),
                              iters)
                 plain_ms = cuda_ms(
                     lambda: attn.relpos_attention_plain(*args, **kw), 5)
                 lib_ms = _sdpa_ms(torch, qkv, rel_h, rel_w, hw, heads)
+            # the f32 kernel runs on the tensor cores in split TF32
             bound, bound_by = attention_bound_ms(
                 b, n, heads, hw, qkv.element_size(),
-                PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS, d=d)
+                PEAK_TF32X3_FLOPS if f32 else PEAK_BF16_FLOPS, d=d)
+            # the result line's rows: the ViT-H global and windowed layers
+            key = ("attn_relpos" + ("_windowed" if b > 1 else "")
+                   + ("" if f32 else "_bf16")) if label.startswith("ViT-H") \
+                else None
+            row = {"name": key, "route": "cuda",
+                   "source": "dilabhelmholtzoct_tpu_torch/csrc/"
+                             "attention_relpos.cu",
+                   "replaces": "dilabhelmholtzoct_tpu/ops/attention.py:132",
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound, "bound_by": bound_by,
+                   "library_ms": lib_ms}
             print(f"kernel attn_relpos {label} {tname} B={b} N={n} "
                   f"heads={heads} d={d}: max_abs_err={err:.3g} (limit "
                   f"{tol:.3g}) ms={ms:.4f} "
                   f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-                  f"bound_ms={bound:.4f} ({bound_by}) "
-                  f"share_of_bound={bound / ms:.3f}")
-            if label == "ViT-H global":
-                key = "attn_relpos" if f32 else "attn_relpos_bf16"
-                rows[key] = {
-                    "name": key, "route": "cuda",
-                    "source": "dilabhelmholtzoct_tpu_torch/csrc/"
-                              "attention_relpos.cu",
-                    "replaces": "dilabhelmholtzoct_tpu/ops/attention.py:132",
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound, "bound_by": bound_by,
-                    "library_ms": lib_ms}
+                  f"bound_ms={bound:.4f} ({bound_by}"
+                  f"{', split TF32' if f32 else ''}) "
+                  f"share_of_bound={bound / ms:.3f}"
+                  + _cuda_core_bound(row, ms, f32, attention_bound_ms(
+                      b, n, heads, hw, qkv.element_size(), PEAK_F32_FLOPS,
+                      d=d)))
+            if key is not None:
+                rows[key] = row
             del qkv, rel_h, rel_w, out, ref, args
         torch.cuda.empty_cache()
     return rows
@@ -1800,6 +1828,7 @@ def main() -> int:
     ft32 = finetune_f32_phase(torch)
     launches.update({f"{k}_f32": ft32[k] for k in ("attn_bwd_dq",
                                                     "attn_bwd_dkv")})
+    launches["attn_global_b4"] = ft32["attn_global"]
     print(f"[phases] f32 full fine-tune {time.perf_counter() - t0:.1f} s")
     rows.update(train_rows)
     rows.update(k5_rows)
@@ -1815,7 +1844,9 @@ def main() -> int:
     print(f"[phases] ViT-H random weights {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     vith = vith_serving_phase(torch, attn, sd_h)
+    # one kernel (one count) serves the global and the windowed layers
     launches["attn_relpos"] = vith["attn_relpos"]
+    launches["attn_relpos_windowed"] = vith["attn_relpos"]
     print(f"[phases] ViT-H serving {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     on = fused_windowed_phase(torch, attn)
@@ -1827,6 +1858,7 @@ def main() -> int:
     del sd_h
     t0 = time.perf_counter()
     launches["attn_relpos_bf16"] = vith_decoder_phase(torch)["attn_relpos"]
+    launches["attn_relpos_windowed_bf16"] = launches["attn_relpos_bf16"]
     print(f"[phases] ViT-H bf16 decoder fine-tune "
           f"{time.perf_counter() - t0:.1f} s")
     for k, row in rows.items():

@@ -10,10 +10,10 @@
 //   s[q, k] = (q . k) / 8 + rel_h[q, k / W] + rel_w[q, k % W]
 //   out[q]  = softmax_k(s[q, :]) . v
 //
-// Two kernels, each with an f32 instance (the serving path) and a bf16 one
-// (the precompute and full fine-tune paths). The f32 kernels take every
-// sum in f32: K1's on the CUDA cores, K2's on the tensor cores in split
-// TF32 (attention_tf32.cuh); the bf16 ones run on the tensor cores. Given
+// Two kernels, each with an f32 instance (the serving and f32 fine-tune
+// paths) and a bf16 one (the precompute and full fine-tune paths), all on
+// the tensor cores: the f32 ones in split TF32 (attention_tf32.cuh), every
+// sum in f32; the bf16 ones on mma.sync m16n8k16. Given
 // a non-null `lse` (B, heads, N) f32, each also writes the row's logsumexp
 // m + log(l) in the scaled-score domain (the TPU kernel's return_lse),
 // which the backward K5 (attention_bwd.cu) reads; with a null pointer
@@ -24,8 +24,13 @@
 //    block per (batch, head, query tile) loops over 64-key tiles with an
 //    online softmax (running max, denominator and output accumulator in
 //    registers).
-//    f32, attn_global_kernel<float>: 256 threads, each a 4x4 register tile
-//    of scores and of the output, operands widened in shared memory.
+//    f32, attn_global_tf32_kernel: the flash body K6 shares
+//    (attention_tf32.cuh flash_tf32): 8 warps of one m16 query tile (128
+//    rows; 4 on ragged grids); K / V tiles through a 2-stage cp.async ring
+//    in f32 rows of 68 floats, q.k^T and p.v in split TF32 with each
+//    fragment split as it is loaded; s = acc / 8 + bias on the
+//    accumulators (the same bits as q / 8); the online softmax on the
+//    fragments, p in f32 fed to p.v from registers; o / l last.
 //    bf16, attn_global_mma_kernel: 128-query tiles, 4 warps of 32 query
 //    rows; q.k^T and p.v on mma.sync m16n8k16 (bf16 in, f32 accumulators)
 //    with ldmatrix from padded shared tiles; K / V tiles streamed through a
@@ -55,21 +60,22 @@
 //    rounding point).
 //
 // Bound on an H100 SXM (700 W), one layer at B = 1:
-//    K1: 4 * 4096^2 * 64 * 12 = 51.5 GFLOP; f32 over the 67 TFLOP/s peak
-//        = 0.77 ms, bf16 over the 989 TFLOP/s tensor-core rate = 0.052 ms;
-//        bytes (qkv 37.7 MB + rel 25.2 MB + out 12.6 MB in f32, half in
-//        bf16) over 3.35 TB/s = 0.022 / 0.011 ms. Compute-bound.
+//    K1: 4 * 4096^2 * 64 * 12 = 51.5 GFLOP; f32 over the split-TF32 rate
+//        (495 / 3 = 165 TFLOP/s) = 0.31 ms (over the CUDA cores' 67: 0.77),
+//        bf16 over the 989 TFLOP/s tensor-core rate = 0.052 ms; bytes (qkv
+//        37.7 MB + rel 25.2 MB + out 12.6 MB in f32, half in bf16) over
+//        3.35 TB/s = 0.022 / 0.011 ms. Compute-bound.
 //    K2: 2.95 GFLOP -> 0.018 ms in f32 over the split-TF32 rate (495 / 3
 //        = 165 TFLOP/s; 0.044 ms over the CUDA cores' 67), against 67 MB
 //        -> 0.020 ms (bound by bytes); in bf16 0.003 ms of products against
 //        33.5 MB -> 0.010 ms (bound by bytes).
 // What this design does about it: every kernel keeps the operands of its
 // inner loops in shared memory and registers and reads each qkv byte from
-// device memory once per query tile (the bf16 K2 once per window and head).
-// The f32 K1 runs on the CUDA cores: 16-byte shared loads, padded rows
-// against bank conflicts. The other kernels run their products on the
-// tensor cores. What stays on the CUDA cores per score is, in K1, the bias
-// (two shared loads), in all the exponential and the max / sum. In K1 the
+// device memory once per query tile (the bf16 K2 once per window and head),
+// and runs its products on the tensor cores. What stays on the CUDA cores
+// per score is the bias, the exponential and the max / sum, and in f32 the
+// split of each operand as its fragment is loaded (each value once per
+// warp). In K1 the
 // next K / V tile's copy overlaps the current tile's work; in the bf16 K2
 // the next query tile's, and the two blocks an SM holds overlap one's loads
 // with the other's products (the f32 K2's 8 warps, one block per SM, stage
@@ -80,7 +86,6 @@
 // packing into 128 lanes, one-hot selector matmuls that expand the bias,
 // grouping 5 windows per program, pre-transposed k.
 
-#include "attention_common.cuh"
 #include "attention_mma.cuh"
 #include "attention_tf32.cuh"
 
@@ -88,103 +93,29 @@ namespace {
 
 using namespace attn;
 
-// out rows acc / l and, with lse != null, lse[lse_row + q] = m + log(l)
-template <typename T>
-__device__ __forceinline__ void store_out(T* out, float* lse, size_t lse_row,
-                                          float (*acc)[4], const float* m,
-                                          const float* l, int b, int n, int C,
-                                          int head, int q0, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int q = q0 + ty + 16 * i;
-    if (q >= n) continue;
-    if (lse != nullptr && tx == 0) lse[lse_row + q] = m[i] + logf(l[i]);
-    store_normalised(out + ((size_t)b * n + q) * C + head * D + 4 * tx,
-                     acc[i], l[i]);
-  }
-}
-
 // ------------------------------------------------------------ K1 f32 ----
-// grid (ceil(N / 64), heads, B), 256 threads. Shared (floats):
-//   Qs TQ*LD | Ks TK*LD | Vs TK*D | Ps TQ*LD | Rh TQ*H | Rw TQ*W
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 2)
-attn_global_kernel(const T* __restrict__ qkv, const T* __restrict__ rel_h,
-                   const T* __restrict__ rel_w, T* __restrict__ out,
-                   float* __restrict__ lse, int n, int heads, int H, int W,
-                   float scale) {
+// grid (ceil(N / ROWS), heads, B), 32 WARPS threads: the flash body of
+// attention_tf32.cuh (flash_tf32) at d = 64 with scale 1/8 and the LSE
+// rows. A block of 8 warps (128 query rows) shares each K / V tile where a
+// key tile is one grid row (every ViT global layer); the ragged grids,
+// whose N is small, take 4 (more blocks).
+template <bool ROW_TILE>
+using K1F = tf32::Flash<D, ROW_TILE ? 8 : 4>;
+
+template <bool ROW_TILE>
+__global__ void __launch_bounds__(K1F<ROW_TILE>::NTH, 1)
+attn_global_tf32_kernel(const float* __restrict__ qkv,
+                        const float* __restrict__ rel_h,
+                        const float* __restrict__ rel_w,
+                        float* __restrict__ out, float* __restrict__ lse,
+                        int n, int heads, int H, int W) {
   extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + TQ * LD;
-  float* Vs = Ks + TK * LD;
-  float* Ps = Vs + TK * D;
-  float* Rh = Ps + TQ * LD;
-  float* Rw = Rh + TQ * H;
-
-  const int head = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * TQ;
-  const int C = heads * D, stride = 3 * C;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const T* base = qkv + (size_t)b * n * stride;
-  const size_t rel_row = ((size_t)b * heads + head) * n + q0;
-
-  load_rows(Qs, LD, base + head * D, stride, q0, TQ, n, scale);
-  load_rel(Rh, rel_h + rel_row * H, H, n - q0);
-  load_rel(Rw, rel_w + rel_row * W, W, n - q0);
-
-  float m[4], l[4], acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < n; k0 += TK) {
-    __syncthreads();  // the previous tile's Ks / Vs / Ps are consumed
-    load_rows(Ks, LD, base + C + head * D, stride, k0, TK, n, 1.f);
-    load_rows(Vs, D, base + 2 * C + head * D, stride, k0, TK, n, 1.f);
-    __syncthreads();
-
-    float s[4][4] = {};
-    score_tile(s, Qs, Ks, ty, tx, 0, 4);
-
-    int kr[4], kc[4];
-    bool kv[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int kg = k0 + tx + 16 * j;
-      kv[j] = kg < n;
-      kr[j] = kg / W;
-      kc[j] = kg - kr[j] * W;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int q = ty + 16 * i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = kv[j] ? s[i][j] + Rh[q * H + kr[j]] + Rw[q * W + kc[j]]
-                        : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float alpha = expf(m[i] - m_new);  // 0 on the first tile
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        rs += p;
-        Ps[q * LD + tx + 16 * j] = p;
-      }
-      l[i] = l[i] * alpha + row_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-    pv_tile(acc, Ps, LD, Vs, D, TK, ty, tx);
-  }
-  store_out(out, lse, rel_row - q0, acc, m, l, b, n, C, head, q0, ty, tx);
+  const int head = blockIdx.y, b = blockIdx.z, C = heads * D;
+  const size_t row = (size_t)b * heads + head;  // (batch, head)
+  tf32::flash_tf32<K1F<ROW_TILE>, ROW_TILE>(
+      smem, qkv + (size_t)b * n * 3 * C + head * D, C, rel_h + row * n * H,
+      rel_w + row * n * W, out + (size_t)b * n * C + head * D,
+      lse != nullptr ? lse + row * n : nullptr, n, D, H, W, 0.125f);
 }
 
 // ----------------------------------------------------------- K1 bf16 ----
@@ -527,20 +458,33 @@ attn_windowed_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
                                    store);
 }
 
+template <bool ROW_TILE>
+int launch_global_tf32(const void* qkv, const void* rel_h, const void* rel_w,
+                       void* out, float* lse, int batch, int n, int heads,
+                       int h, int w, cudaStream_t stream) {
+  using F = K1F<ROW_TILE>;
+  const size_t smem = F::smem(h, w);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  auto kernel = attn_global_tf32_kernel<ROW_TILE>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((n + F::ROWS - 1) / F::ROWS, heads, batch);
+  kernel<<<grid, F::NTH, smem, stream>>>(
+      static_cast<const float*>(qkv), static_cast<const float*>(rel_h),
+      static_cast<const float*>(rel_w), static_cast<float*>(out), lse, n,
+      heads, h, w);
+  return (int)cudaGetLastError();
+}
+
 int launch_global_f32(const void* qkv, const void* rel_h, const void* rel_w,
                       void* out, float* lse, int batch, int n, int heads,
                       int h, int w, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)(3 * TQ * LD + TK * D + TQ * (h + w));
-  cudaError_t e = cudaFuncSetAttribute(
-      attn_global_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((n + TQ - 1) / TQ, heads, batch);
-  attn_global_kernel<float><<<grid, THREADS, smem, stream>>>(
-      static_cast<const float*>(qkv), static_cast<const float*>(rel_h),
-      static_cast<const float*>(rel_w), static_cast<float*>(out), lse, n,
-      heads, h, w, 0.125f);
-  return (int)cudaGetLastError();
+  return w == mma::TILE
+             ? launch_global_tf32<true>(qkv, rel_h, rel_w, out, lse, batch, n,
+                                        heads, h, w, stream)
+             : launch_global_tf32<false>(qkv, rel_h, rel_w, out, lse, batch,
+                                         n, heads, h, w, stream);
 }
 
 template <bool ROW_TILE>

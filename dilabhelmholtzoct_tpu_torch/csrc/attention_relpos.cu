@@ -22,14 +22,20 @@
 // denominator comes last, in f32, with one rounding of the output. Every
 // sum is f32. One block per (batch, head, query tile) streams 64-key tiles
 // with an online softmax; keys past N in the last tile (N = 196 in the
-// windowed layers) are masked to -inf. Two kernels:
+// windowed layers) are masked to -inf, and rows past N are neither stored
+// nor counted. Two kernels, both on the tensor cores, for every d that is a
+// multiple of 4 up to 128:
 //
-//    f32, attn_relpos_kernel<ND>: 256 threads (16 x 16: ty, tx) per 64-query
-//    tile, inputs widened to f32 in shared memory; a thread owns a 4 x 4
-//    tile of the scores and, of the output, rows ty + 16 i and head-dim
-//    columns tx + 16 j for j < ND = ceil(d / 16): instantiated for
-//    ND = 1..8, so it takes every d that is a multiple of 4 up to 128
-//    (16-byte shared rows, 8-byte loads).
+//    f32, attn_relpos_tf32_kernel<DP, ROW_TILE>: the flash body K1 shares
+//    (attention_tf32.cuh flash_tf32; in f32 the rounding of p is the
+//    identity, and d^-1/2 multiplies the f32 accumulator): q.k^T and p.v in
+//    split TF32 (hi.hi + hi.lo + lo.hi on mma.sync m16n8k8, f32
+//    accumulators, each fragment split as it is loaded) from shared rows of
+//    DP = ceil(d / 8) * 8 columns, zero past d, padded to DP + 4 floats;
+//    one m16 query tile per warp, 8 warps where ROW_TILE and DP <= 80 (the
+//    ViT-H global layers: 128 rows share each K / V tile), else 4; K / V
+//    tiles through a 2-stage cp.async ring in 16-byte pieces; p in f32 fed
+//    to p.v from registers; o / l last.
 //    bf16, attn_relpos_mma_kernel<DP, ROW_TILE>: K1's tensor-core design
 //    (attention.cu attn_global_mma_kernel) for any head dim: 4 warps of
 //    M m16 query tiles (M = 2 up to DP = 80, the ViT-H head: 128 query
@@ -48,185 +54,62 @@
 //
 // Bound on an H100 SXM (700 W), ViT-H (16 heads of 80), B = 1:
 //    global layer, N = 4096: 4 * 4096^2 * 80 * 16 = 85.9 GFLOP over the
-//        67 TFLOP/s f32 peak = 1.28 ms, over the 989 TFLOP/s bf16 rate
-//        = 0.087 ms; bytes (qkv 62.9 MB + rel 33.6 MB + out 21.0 MB in f32,
-//        half in bf16) over 3.35 TB/s = 0.035 / 0.018 ms. Compute-bound.
-//    windowed layer, 25 windows of 196: 4.9 GFLOP -> 0.073 ms in f32
-//        (compute-bound); in bf16 0.005 ms of products against 55 MB ->
-//        0.016 ms (bound by bytes).
+//        split-TF32 rate (495 / 3 = 165 TFLOP/s) = 0.52 ms (over the CUDA
+//        cores' 67 TFLOP/s f32 peak: 1.28 ms), over the 989 TFLOP/s bf16
+//        rate = 0.087 ms; bytes (qkv 62.9 MB + rel 33.6 MB + out 21.0 MB in
+//        f32, half in bf16) over 3.35 TB/s = 0.035 / 0.018 ms.
+//        Compute-bound.
+//    windowed layer, 25 windows of 196: 4.9 GFLOP -> 0.030 ms in f32 over
+//        the split-TF32 rate (0.073 over the CUDA cores; compute-bound; the
+//        64-key tiles over 196 keys compute 256 / 196 = 1.3x of it twice:
+//        1.7x); in bf16 0.005 ms of products against 55 MB -> 0.016 ms
+//        (bound by bytes).
 // What this design does about it: as K1, every operand of the two inner
-// products sits in shared memory and each qkv byte is read from device
-// memory once per query tile. The f32 kernel's p.v product reads v by single
-// floats (the strided column ownership that lets one code path serve every
-// d), so it needs more shared loads per multiply-add than K1's; its products
-// run on the CUDA cores in f32. The bf16 kernel runs both products on the
-// tensor cores; what stays on the CUDA cores per score is the scale and the
-// bias, the exponential and the max / sum, and the next K / V tile's copy
-// overlaps the current tile's work. wgmma with TMA is later work.
+// products sits in shared memory, each qkv byte is read from device memory
+// once per query tile, and both products run on the tensor cores; what
+// stays on the CUDA cores per score is the scale and the bias, the
+// exponential and the max / sum (and in f32 the split of each operand as
+// its fragment is loaded), and the next K / V tile's copy overlaps the
+// current tile's work. wgmma with TMA is later work.
 //
 // Not carried over from the TPU kernel (Mosaic-only needs): the head-major
 // (B*heads, N, d) copies of q, k and v and of the output, the one-hot
 // selector matmuls that expand the bias, whole-N k / v blocks in VMEM.
 
-#include "attention_common.cuh"
 #include "attention_mma.cuh"
+#include "attention_tf32.cuh"
 
 namespace {
 
 using namespace attn;
 
-constexpr int MAX_ND = 8;      // head dim <= 128
-constexpr int LDP = TK + 4;    // padded shared row of the p tile
-
-// rows [row0, row0 + nrows) x d columns of a row-major matrix with `stride`
-// elements per row -> shared dst (leading dim ld >= d, a multiple of 4);
-// rows at or past n and columns at or past d are zero.
-__device__ void load_rows_d(float* dst, int ld, int width, const float* src,
-                            int stride, int row0, int nrows, int n, int d) {
-  const int w4 = width / 4;
-  for (int i = threadIdx.x; i < nrows * w4; i += THREADS) {
-    const int r = i / w4, c = (i % w4) * 4;
-    float v[4] = {0.f, 0.f, 0.f, 0.f};
-    if (row0 + r < n && c < d) load4(src + (size_t)(row0 + r) * stride + c, v);
-    *reinterpret_cast<float4*>(dst + r * ld + c) =
-        make_float4(v[0], v[1], v[2], v[3]);
-  }
-}
-
-// s[i][j] = A[ty + 16i] . B[tx + 16j] over d columns; leading dim ld
-__device__ __forceinline__ void score_tile_d(float (*s)[4], const float* As,
-                                             const float* Bs, int ld, int d,
-                                             int ty, int tx) {
-#pragma unroll 2
-  for (int c = 0; c < d; c += 4) {
-    float4 a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = lds4(As + (ty + 16 * i) * ld + c);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = lds4(Bs + (tx + 16 * j) * ld + c);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        s[i][j] += a[i].x * b[j].x + a[i].y * b[j].y + a[i].z * b[j].z +
-                   a[i].w * b[j].w;
-  }
-}
+constexpr int MAX_D = 128;  // head dim: a multiple of 4 up to this
 
 // ------------------------------------------------------------------ f32 ----
-// grid (ceil(N / 64), heads, B), 256 threads. With ld = d + 4 and
-// ldv = 16 * ND, shared (floats):
-//   Qs TQ*ld | Ks TK*ld | Vs TK*ldv | Ps TQ*LDP | Rh TQ*H | Rw TQ*W
-template <int ND>
-__global__ void __launch_bounds__(THREADS)
-attn_relpos_kernel(const float* __restrict__ qkv,
-                   const float* __restrict__ rel_h,
-                   const float* __restrict__ rel_w, float* __restrict__ out, int n,
-                   int heads, int d, int H, int W, float scale) {
+// The flash body's block (attention_tf32.cuh flash_tf32) for DP = d
+// rounded up to 8 columns: 8 warps (128 query rows share each K / V tile)
+// where a key tile is one grid row (the global layers) and the shared
+// memory holds them (DP <= 80: ViT-H), else 4 (the windowed layers: twice
+// the blocks for their 196 rows)
+template <int DP, bool ROW_TILE>
+using K6F = tf32::Flash<DP, ROW_TILE && DP <= 80 ? 8 : 4>;
+
+// grid (ceil(N / ROWS), heads, B), 32 WARPS threads: the flash body with
+// scale d^-1/2 on the accumulator, no LSE rows
+template <int DP, bool ROW_TILE>
+__global__ void __launch_bounds__(K6F<DP, ROW_TILE>::NTH, 1)
+attn_relpos_tf32_kernel(const float* __restrict__ qkv,
+                        const float* __restrict__ rel_h,
+                        const float* __restrict__ rel_w,
+                        float* __restrict__ out, int n, int heads, int d,
+                        int H, int W, float scale) {
   extern __shared__ __align__(16) float smem[];
-  const int ld = d + 4, ldv = 16 * ND;
-  float* Qs = smem;
-  float* Ks = Qs + TQ * ld;
-  float* Vs = Ks + TK * ld;
-  float* Ps = Vs + TK * ldv;
-  float* Rh = Ps + TQ * LDP;
-  float* Rw = Rh + TQ * H;
-
-  const int head = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * TQ;
-  const int C = heads * d, stride = 3 * C;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const float* base = qkv + (size_t)b * n * stride;
-  const size_t rel_row = ((size_t)b * heads + head) * n + q0;
-
-  load_rows_d(Qs, ld, d, base + head * d, stride, q0, TQ, n, d);
-  load_rel(Rh, rel_h + rel_row * H, H, n - q0);
-  load_rel(Rw, rel_w + rel_row * W, W, n - q0);
-
-  float m[4], l[4], acc[4][ND];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < ND; ++j) acc[i][j] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < n; k0 += TK) {
-    __syncthreads();  // the previous tile's Ks / Vs / Ps are consumed
-    load_rows_d(Ks, ld, d, base + C + head * d, stride, k0, TK, n, d);
-    load_rows_d(Vs, ldv, ldv, base + 2 * C + head * d, stride, k0, TK, n, d);
-    __syncthreads();
-
-    float s[4][4] = {};
-    score_tile_d(s, Qs, Ks, ld, d, ty, tx);
-
-    int kr[4], kc[4];
-    bool kv[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int kg = k0 + tx + 16 * j;
-      kv[j] = kg < n;
-      kr[j] = kg / W;
-      kc[j] = kg - kr[j] * W;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int q = ty + 16 * i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = kv[j] ? s[i][j] * scale + Rh[q * H + kr[j]] + Rw[q * W + kc[j]]
-                        : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float alpha = expf(m[i] - m_new);  // 0 on the first tile
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        rs += p;
-        Ps[q * LDP + tx + 16 * j] = p;
-      }
-      l[i] = l[i] * alpha + row_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < ND; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();
-
-    // acc[i][j] += sum_k P[ty + 16i][k] * V[k][tx + 16j]
-    for (int k = 0; k < TK; k += 4) {
-      float4 p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = lds4(Ps + (ty + 16 * i) * LDP + k);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        float v[ND];
-#pragma unroll
-        for (int j = 0; j < ND; ++j) v[j] = Vs[(k + u) * ldv + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float pu = u == 0 ? p[i].x : u == 1 ? p[i].y
-                         : u == 2 ? p[i].z : p[i].w;
-#pragma unroll
-          for (int j = 0; j < ND; ++j) acc[i][j] += pu * v[j];
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int q = q0 + ty + 16 * i;
-    if (q >= n) continue;
-    float* o = out + ((size_t)b * n + q) * C + head * d;
-#pragma unroll
-    for (int j = 0; j < ND; ++j) {
-      const int c = tx + 16 * j;
-      if (c < d) o[c] = acc[i][j] / l[i];
-    }
-  }
+  const int head = blockIdx.y, b = blockIdx.z, C = heads * d;
+  const size_t row = (size_t)b * heads + head;  // (batch, head)
+  tf32::flash_tf32<K6F<DP, ROW_TILE>, ROW_TILE>(
+      smem, qkv + (size_t)b * n * 3 * C + head * d, C, rel_h + row * n * H,
+      rel_w + row * n * W, out + (size_t)b * n * C + head * d, nullptr, n, d,
+      H, W, scale);
 }
 
 // ----------------------------------------------------------------- bf16 ----
@@ -382,22 +265,34 @@ attn_relpos_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
     }
 }
 
-template <int ND>
-int launch_f32_nd(const void* qkv, const void* rel_h, const void* rel_w,
-                  void* out, int batch, int n, int heads, int d, int h, int w,
-                  cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)(2 * TQ * (d + 4) + TK * 16 * ND +
-                                               TQ * LDP + TQ * (h + w));
+template <int DP, bool ROW_TILE>
+int launch_tf32_dp(const void* qkv, const void* rel_h, const void* rel_w,
+                   void* out, int batch, int n, int heads, int d, int h, int w,
+                   cudaStream_t stream) {
+  using F = K6F<DP, ROW_TILE>;
+  const size_t smem = F::smem(h, w);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  auto kernel = attn_relpos_tf32_kernel<DP, ROW_TILE>;
   cudaError_t e = cudaFuncSetAttribute(
-      attn_relpos_kernel<ND>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((n + TQ - 1) / TQ, heads, batch);
-  attn_relpos_kernel<ND><<<grid, THREADS, smem, stream>>>(
+  const dim3 grid((n + F::ROWS - 1) / F::ROWS, heads, batch);
+  kernel<<<grid, F::NTH, smem, stream>>>(
       static_cast<const float*>(qkv), static_cast<const float*>(rel_h),
       static_cast<const float*>(rel_w), static_cast<float*>(out), n, heads, d,
       h, w, 1.f / sqrtf((float)d));
   return (int)cudaGetLastError();
+}
+
+template <int DP>
+int launch_tf32(const void* qkv, const void* rel_h, const void* rel_w,
+                void* out, int batch, int n, int heads, int d, int h, int w,
+                cudaStream_t stream) {
+  return w == mma::TILE
+             ? launch_tf32_dp<DP, true>(qkv, rel_h, rel_w, out, batch, n,
+                                        heads, d, h, w, stream)
+             : launch_tf32_dp<DP, false>(qkv, rel_h, rel_w, out, batch, n,
+                                         heads, d, h, w, stream);
 }
 
 template <int DP, bool ROW_TILE>
@@ -436,17 +331,29 @@ int launch_mma(const void* qkv, const void* rel_h, const void* rel_w,
 int launch(const void* qkv, const void* rel_h, const void* rel_w, void* out,
            int batch, int n, int heads, int d, int h, int w, bool bf16,
            cudaStream_t stream) {
-  if (d < 4 || d % 4 || d > 16 * MAX_ND) return (int)cudaErrorInvalidValue;
-  switch ((d + 15) / 16) {
+  if (d < 4 || d % 4 || d > MAX_D) return (int)cudaErrorInvalidValue;
+  if (bf16) {
+    switch ((d + 15) / 16) {
 #define DHOCT_ND(ND)                                                        \
   case ND:                                                                  \
-    return bf16 ? launch_mma<16 * ND>(qkv, rel_h, rel_w, out, batch, n,     \
-                                      heads, d, h, w, stream)               \
-                : launch_f32_nd<ND>(qkv, rel_h, rel_w, out, batch, n,       \
-                                    heads, d, h, w, stream);
-    DHOCT_ND(1) DHOCT_ND(2) DHOCT_ND(3) DHOCT_ND(4)
-    DHOCT_ND(5) DHOCT_ND(6) DHOCT_ND(7) DHOCT_ND(8)
+    return launch_mma<16 * ND>(qkv, rel_h, rel_w, out, batch, n, heads, d,  \
+                               h, w, stream);
+      DHOCT_ND(1) DHOCT_ND(2) DHOCT_ND(3) DHOCT_ND(4)
+      DHOCT_ND(5) DHOCT_ND(6) DHOCT_ND(7) DHOCT_ND(8)
 #undef DHOCT_ND
+    }
+  } else {
+    switch ((d + 7) / 8) {
+#define DHOCT_N8(N8)                                                        \
+  case N8:                                                                  \
+    return launch_tf32<8 * N8>(qkv, rel_h, rel_w, out, batch, n, heads, d,  \
+                               h, w, stream);
+      DHOCT_N8(1) DHOCT_N8(2) DHOCT_N8(3) DHOCT_N8(4)
+      DHOCT_N8(5) DHOCT_N8(6) DHOCT_N8(7) DHOCT_N8(8)
+      DHOCT_N8(9) DHOCT_N8(10) DHOCT_N8(11) DHOCT_N8(12)
+      DHOCT_N8(13) DHOCT_N8(14) DHOCT_N8(15) DHOCT_N8(16)
+#undef DHOCT_N8
+    }
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -10,7 +10,8 @@ too, without the head-major copies around it. It reads the raw qkv
 projection (B, N, 3C) and writes token-order (B, N, C). On a CUDA tensor it
 launches hand-written kernels:
 
-  * K1 ``attn_global_kernel`` (``csrc/attention.cu``) for the global layers
+  * K1 ``attn_global_tf32_kernel`` / ``attn_global_mma_kernel`` (f32 /
+    bf16, ``csrc/attention.cu``) for the global layers
     (N > WINDOW_MAX_TOKENS; N = 4096 at ViT-B), replacing the TPU
     ``_packed_kernel``;
   * K2 ``attn_windowed_kernel`` (same file) for the windowed layers
@@ -21,7 +22,8 @@ launches hand-written kernels:
     (``csrc/attention_bwd.cu``) for the backward of either, replacing the
     TPU ``_flash_packed_bwd`` (``_packed_bwd_dq_kernel``,
     ``_packed_bwd_dkv_kernel``);
-  * K6 ``attn_relpos_kernel`` (``csrc/attention_relpos.cu``) for every layer
+  * K6 ``attn_relpos_tf32_kernel`` / ``attn_relpos_mma_kernel``
+    (``csrc/attention_relpos.cu``) for every layer
     of a model off the packed route (ViT-H: 16 heads of 80), replacing the
     TPU ``_flash_kernel``. Forward only, as there.
 

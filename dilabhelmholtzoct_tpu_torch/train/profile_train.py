@@ -20,8 +20,8 @@ components each), runs three warm-up steps and then ``--steps`` steps under
     it (BASELINE config 5 geometry): 4 images x bucket 8, the encoder
     inside the gradient with every layer checkpointed;
   * ``--compute_dtype float32`` (with either ``--trainable``): the step in
-    f32 (the encoder attention's K2 / K5 in split TF32 on the tensor cores,
-    K1 on the CUDA cores; the decoder's plain route) instead of bf16;
+    f32 (the encoder attention's K1 / K2 / K5 in split TF32 on the tensor
+    cores; the decoder's plain route) instead of bf16;
   * ``--precompute``: instead of steps, one bf16 embedding precompute of
     the 8 images (the frozen encoder of decoder fine-tuning) after a first
     one outside the window.

@@ -70,6 +70,9 @@ def test_kernels_match_plain_on_card(cuda_device, dtype, b, nh, hw):
     assert got.dtype == dtype and got.shape == (b, n, nh * 64)
     want = port_attn.packed_attention_plain(*args, hw=hw, num_heads=nh)
     assert_forward_close(got, want)
+    # no atomics: a second run gives the same bits
+    assert torch.equal(got, port_attn.flash_attention_packed(
+        *args, hw=hw, num_heads=nh))
 
 
 def _attn_inputs(dev, dtype, b, nh, hw, seed=0):
@@ -224,9 +227,11 @@ def test_kernels_refuse_other_head_dims(cuda_device):
     (2, 2, 72, (8, 16))])    # a head dim that is no multiple of 16
 def test_relpos_kernel_matches_plain_on_card(cuda_device, dtype, b, nh, d,
                                              hw):
-    """K6 against ``relpos_attention_plain`` through the public entry. bf16:
-    the kernel rounds p against the running maximum of its key tiles, the
-    plain version against the row maximum, so single roundings differ."""
+    """K6 against ``relpos_attention_plain`` through the public entry, and
+    the same bits on a second run (f32: the split-TF32 flash body, bf16:
+    the mma kernel). bf16: the kernel rounds p against the running maximum
+    of its key tiles, the plain version against the row maximum, so single
+    roundings differ."""
     rng = np.random.default_rng(0)
     n = hw[0] * hw[1]
     arrays = (rng.normal(size=(b, n, 3 * nh * d)) * 0.5,
@@ -242,6 +247,8 @@ def test_relpos_kernel_matches_plain_on_card(cuda_device, dtype, b, nh, d,
     assert got.dtype == dtype and got.shape == (b, n, nh * d)
     want = port_attn.relpos_attention_plain(*args, hw=hw, num_heads=nh)
     assert_forward_close(got, want)
+    assert torch.equal(got, port_attn.flash_attention_packed(
+        *args, hw=hw, num_heads=nh))
 
 
 def _relpos_inputs(dev, dtype, b, nh, d, hw, seed=0):
@@ -360,18 +367,20 @@ def test_winimg_kernel_matches_plain_and_k2_on_card(cuda_device, dtype, b,
 
 
 # the f32 kernels on the tensor cores in split TF32: library -> kernels
-TF32_KERNELS = {"attention": ("attn_windowed_tf32_kernel",),
+TF32_KERNELS = {"attention": ("attn_global_tf32_kernel",
+                              "attn_windowed_tf32_kernel"),
                 "attention_bwd": ("attn_bwd_dq_tf32_kernel",
                                   "attn_bwd_dkv_tf32_kernel"),
+                "attention_relpos": ("attn_relpos_tf32_kernel",),
                 "attention_winimg": ("attn_winimg_tf32_kernel",)}
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("lib", sorted(TF32_KERNELS))
 def test_f32_kernels_on_tf32_tensor_cores(cuda_device, lib):
-    """The f32 K2, K5 and K7 instances hold TF32 tensor-core instructions
-    (HMMA.1688.F32.TF32) in their SASS and use no local memory (no spills,
-    no stack), from ``cuobjdump`` on the built library."""
+    """The f32 K1, K2, K5, K6 and K7 instances hold TF32 tensor-core
+    instructions (HMMA.1688.F32.TF32) in their SASS and use no local memory
+    (no spills, no stack), from ``cuobjdump`` on the built library."""
     import subprocess
 
     from dilabhelmholtzoct_tpu_torch import kernels

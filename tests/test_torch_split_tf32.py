@@ -1,6 +1,7 @@
 """The error of the split-TF32 products of the f32 encoder attention kernels
-on the tensor cores (``csrc/attention_tf32.cuh``: K5's backward and the
-windowed body of K2 / K7), emulated on the CPU.
+on the tensor cores (``csrc/attention_tf32.cuh``: K5's backward, the
+windowed body of K2 / K7 and the flash body of K1 / K6), emulated on the
+CPU.
 
 A kernel splits each f32 operand x as hi = tf32(x) (rounded as
 ``cvt.rna.tf32.f32`` rounds: to nearest on the 13 low mantissa bits, ties
@@ -61,13 +62,13 @@ def mm_single(a, b):
     return tf32_rna(a) @ tf32_rna(b)
 
 
-def _inputs(b, nh, hw, seed=0):
+def _inputs(b, nh, hw, seed=0, d=64):
     rng = np.random.default_rng(seed)
     n = hw[0] * hw[1]
-    arrays = (rng.normal(size=(b, n, 3 * nh * 64)) * 0.5,
+    arrays = (rng.normal(size=(b, n, 3 * nh * d)) * 0.5,
               rng.normal(size=(b, nh, n, hw[0])) * 0.3,
               rng.normal(size=(b, nh, n, hw[1])) * 0.3,
-              rng.normal(size=(b, n, nh * 64)))
+              rng.normal(size=(b, n, nh * d)))
     return [torch.tensor(a, dtype=torch.float32) for a in arrays]
 
 
@@ -201,3 +202,64 @@ def test_split_tf32_windowed_forward_error(b, nh, hw):
     split_err = _errors(emulated_windowed_fwd(*args, mm_split), want)
     single_err = _errors(emulated_windowed_fwd(*args, mm_single), want)
     _assert_split_beats_single(split_err, single_err, ("out", "lse"))
+
+
+def emulated_flash_fwd(qkv, rel_h, rel_w, nh, mm, scale, tile=64):
+    """The flash body of K1 and K6 (``attention_tf32.cuh::flash_tf32``):
+    the head dim zero-padded to a multiple of 8, 64-key tiles, each tile's
+    s = scale * (q . k^T) + bias through ``mm`` (the last tile ends at N:
+    the kernel's -inf past N gives those keys p = 0), an
+    online softmax (running max m, the denominator l and the output rescaled
+    by exp(m_old - m_new)), p in f32 into p.v through ``mm``, and o / l
+    last. Returns (out, lse)."""
+    q, k, v = (_heads(t, nh) for t in qkv.chunk(3, dim=-1))
+    d = q.shape[-1]
+    pad = (0, -d % 8)
+    q, k, v = (torch.nn.functional.pad(t, pad) for t in (q, k, v))
+    bias = _bias(rel_h, rel_w)
+    n = q.shape[2]
+    m = torch.full(q.shape[:-1] + (1,), -torch.inf)
+    l = torch.zeros_like(m)
+    o = torch.zeros_like(q)
+    for k0 in range(0, n, tile):
+        s = mm(q, k[..., k0:k0 + tile, :].transpose(-1, -2)) * scale
+        s = s + bias[..., k0:k0 + tile]
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + mm(p, v[..., k0:k0 + tile, :])
+        m = m_new
+    return _merge(o[..., :d] / l), (m + torch.log(l))[..., 0]
+
+
+@pytest.mark.parametrize("b,nh,d,hw", [(1, 2, 64, (64, 64)),   # K1 global
+                                       (1, 2, 80, (64, 64)),   # K6 ViT-H
+                                       (4, 2, 80, (14, 14)),   # K6 windows
+                                       (2, 2, 20, (12, 10))],  # d padded to 24
+                         ids=["k1_global_64x64_d64", "k6_global_64x64_d80",
+                              "k6_windows_14x14_d80", "k6_grid_12x10_d20"])
+def test_split_tf32_flash_forward_error(b, nh, d, hw):
+    """The flash body (K1 f32, K6 f32) in split TF32 against the plain f32
+    versions: K1 (d = 64) the output and the logsumexp rows of
+    ``packed_attention_plain``, q scaled by 1/8 (exact: the same bits as
+    the kernel's 1/8 on the accumulator); K6 the output of
+    ``relpos_attention_plain``, d^-1/2 on the accumulator. The windows'
+    last tile holds 196 - 192 = 4 keys, the 12 x 10 grid's 120 - 64 = 56."""
+    qkv, rel_h, rel_w, _ = _inputs(b, nh, hw, d=d)
+    kw = dict(hw=hw, num_heads=nh)
+    args = (qkv, rel_h, rel_w, nh)
+    if d == 64:
+        want = port_attn.packed_attention_plain(*args[:3], return_lse=True,
+                                                **kw)
+        q8 = qkv.clone()
+        q8[..., :nh * d] *= 0.125
+        run = lambda mm: emulated_flash_fwd(q8, rel_h, rel_w, nh, mm, 1.0)
+        names = ("out", "lse")
+    else:
+        want = (port_attn.relpos_attention_plain(*args[:3], **kw),)
+        run = lambda mm: emulated_flash_fwd(*args, mm, d ** -0.5)[:1]
+        names = ("out",)
+    split_err = _errors(run(mm_split), want)
+    single_err = _errors(run(mm_single), want)
+    _assert_split_beats_single(split_err, single_err, names)
