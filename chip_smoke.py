@@ -247,7 +247,9 @@ MMA_KERNELS = {"attention": ("attn_global_mma_kernel",
                "attention_bwd": ("attn_bwd_dq_mma_kernel",
                                  "attn_bwd_dkv_mma_kernel"),
                "attention_relpos": ("attn_relpos_mma_kernel",),
-               "attention_winimg": ("attn_winimg_mma_kernel",)}
+               "attention_winimg": ("attn_winimg_mma_kernel",),
+               "upscaler": ("upscale_bwd_rows_kernel", "upscale_bwd_dw_kernel"),
+               "decoder_attn": ("i2t_bwd_rows_kernel", "i2t_bwd_dw_kernel")}
 TF32_KERNELS = {"attention": ("attn_global_tf32_kernel",
                               "attn_windowed_tf32_kernel"),
                 "attention_bwd": ("attn_bwd_dq_tf32_kernel",
@@ -271,8 +273,8 @@ def _ptxas_by_function(log):
 
 def tensor_core_check(kernels):
     """Fail unless the SASS of every tensor-core kernel -- bf16 K1 / K2 /
-    K5 / K6 / K7, and f32 K1 / K2 / K5 / K6 / K7 in split TF32 -- holds
-    tensor-core
+    K5 / K6 / K7 and both launches of the bf16 K3 / K4 backwards, and f32
+    K1 / K2 / K5 / K6 / K7 in split TF32 -- holds tensor-core
     instructions (HMMA from mma.sync, HGMMA from wgmma; TF32 ones for the
     f32 kernels) and its ptxas report shows no spills; print the count of
     each instance beside its registers and spills."""
@@ -470,38 +472,60 @@ def serving_phase(torch, attn):
     return launches
 
 
-def k3_bound_ms(bp, m, n_out, itemsize, peak, backward):
+def k3_bound_ms(bp, m, n_out, itemsize, peak, backward, part=None):
     """Least time for one K3 call at C = 256: the products of the chain
     (forward 2*256*256 + 4*2*64*128 + 2*512*n_out per row; the backward adds
     the recompute's twin products for d_up, dW1, d_u1g, dW2 and the
     hypernetwork terms) over the type's peak, against the bytes (up, and dm
-    for the backward, read once; the mask rows or d_up written once)."""
-    fwd = 2 * 256 * 256 + 4 * 2 * 64 * 128 + 2 * 512 * n_out
-    flops = bp * m * (fwd if not backward
-                      else fwd + 2 * (2 * 256 * 256 + 4 * 2 * 64 * 128)
-                      + 2 * 2 * 512 * n_out)
-    out_f32 = 4 * bp * m * n_out * 16
-    nbytes = itemsize * bp * m * 256 + (
-        out_f32 if not backward else out_f32 + itemsize * bp * m * 256)
+    for the backward, read once; the mask rows or d_up written once).
+    ``part`` bounds one launch of the bf16 backward: "rows" (the chain, d_up,
+    d_u1g and the hypernetwork terms; its bf16 scratch rows u1g, rnd(d_u2pre)
+    and rnd(d_u1pre) written) or "dw" (dW1 and dW2 from up and the scratch,
+    read once; the weight gradients written once)."""
+    first, second = 2 * 256 * 256, 4 * 2 * 64 * 128
+    fwd = first + second + 2 * 512 * n_out
+    rows, scratch = bp * m, itemsize * bp * m * (256 + 512 + 256)
+    out_f32 = 4 * rows * n_out * 16
+    if part == "dw":
+        return _bound(rows * (first + second), itemsize * rows * 256 + scratch
+                      + 4 * (256 * 256 + 4 * 64 * 128), peak)
+    if part == "rows":
+        return _bound(rows * (fwd + first + second + 2 * 512 * n_out),
+                      2 * itemsize * rows * 256 + out_f32 + scratch, peak)
+    flops = rows * (fwd if not backward
+                    else fwd + 2 * (first + second) + 2 * 2 * 512 * n_out)
+    nbytes = itemsize * rows * 256 + (
+        out_f32 if not backward else out_f32 + itemsize * rows * 256)
     return _bound(flops, nbytes, peak)
 
 
-def k4_bound_ms(bp, pb, m, n_tok, itemsize, peak, backward):
+def k4_bound_ms(bp, pb, m, n_tok, itemsize, peak, backward, part=None):
     """Least time for one K4 call at C = 256, I = 128: the q and out
     projections and the token attention (2*(2*256*128 + 2*128*n_tok) per
     row; the backward adds dWo, d_out, dWq, d_keys and the softmax
     products) over the type's peak, against the bytes (keys per image, pe,
     and dy for the backward, read once; y, or d_keys, d_qpre, p, d_score and
-    d_out, written once)."""
+    d_out, written once). ``part`` bounds one launch of the bf16 backward:
+    "rows" (all but dWo and dWq; its bf16 scratch rows rnd(out) and
+    rnd(d_res) written) or "dw" (dWo and dWq from the keys, pe, d_qpre and
+    the scratch, read once; the weight gradients written once)."""
     proj, att = 2 * 256 * 128, 2 * 128 * n_tok
     fwd = 2 * proj + 2 * att
-    flops = bp * m * (fwd if not backward else fwd + 4 * proj + 2 * att)
     rows_in = (bp // pb) * m * 256 + m * 256
+    row_out = bp * m * (256 + 128 + 64 + 64 + 128)
+    if part == "dw":
+        return _bound(bp * m * 2 * proj,
+                      itemsize * (rows_in + bp * m * (128 + 128 + 256))
+                      + 4 * 2 * 128 * 256, peak)
+    if part == "rows":
+        return _bound(bp * m * (fwd + 2 * proj + 2 * att),
+                      itemsize * (rows_in + bp * m * 256 + row_out
+                                  + bp * m * (128 + 256)), peak)
+    flops = bp * m * (fwd if not backward else fwd + 4 * proj + 2 * att)
     if not backward:
         nbytes = itemsize * (rows_in + bp * m * 256)
     else:
-        nbytes = itemsize * (rows_in + bp * m * 256          # + dy
-                             + bp * m * (256 + 128 + 64 + 64 + 128))
+        nbytes = itemsize * (rows_in + bp * m * 256 + row_out)  # + dy
     return _bound(flops, nbytes, peak)
 
 
@@ -534,8 +558,13 @@ def _check_outputs(torch, name, tname, got, want):
 
 def k34_kernel_phase(torch):
     """K3 and K4, forward and backward, against their plain versions at the
-    training shapes in f32 and bf16; returns the bf16 numbers (the training
-    path's type) per kernel for the result line."""
+    training shapes in f32 and bf16. In bf16 each backward is two launches,
+    the row pass and the weight pass: each is held against its plain twin
+    (the weight pass on the row pass's own scratch rows), the composed
+    backward against ``*_bwd_plain`` and against itself on a second run
+    (the same bits), and each launch is timed beside its bound. Returns the
+    bf16 numbers (the training path's type) per launch for the result
+    line."""
     from dilabhelmholtzoct_tpu_torch.device import full_fp32
     from dilabhelmholtzoct_tpu_torch.ops import decoder_attn as i2t
     from dilabhelmholtzoct_tpu_torch.ops import upscaler as up_op
@@ -551,7 +580,9 @@ def k34_kernel_phase(torch):
         return (k * torch.randn(shape, generator=gen, device=dev)).to(dt)
 
     def run(name, tname, kernel, plain, counter, bound, replaces, iters,
-            tag=""):
+            tag="", row=None, twice=False):
+        """``name`` is the launch count the kernel call adds one to; ``row``
+        the result line's entry it fills (bf16, pb = 1)."""
         before = counter[name]
         out = kernel()
         torch.cuda.synchronize()
@@ -560,27 +591,36 @@ def k34_kernel_phase(torch):
         ref = plain()
         torch.cuda.synchronize()
         err, rel = _check_outputs(torch, name + tag, tname, out, ref)
-        del out, ref
+        del ref
+        same = ""
+        if twice:
+            again = kernel()
+            check(all(torch.equal(a, b) for a, b in zip(out, again)),
+                  f"{row or name}{tag} {tname}: a second run gave other bits")
+            same, again = " same bits on a second run;", None
+        del out
         ms = cuda_ms(kernel, iters)
         plain_ms = cuda_ms(plain, 2)
         b_ms, b_by = bound
-        print(f"kernel {name}{tag} {tname}: max_abs_err={err:.3g} "
-              f"max_rel_err={rel:.3g} ms={ms:.4f} "
+        print(f"kernel {row or name}{tag} {tname}: max_abs_err={err:.3g} "
+              f"max_rel_err={rel:.3g};{same} ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} library_ms=null bound_ms={b_ms:.4f} "
               f"({b_by}) share_of_bound={b_ms / ms:.3f}")
-        if tname == "bf16" and not tag:  # the result line: bf16, pb = 1
-            rows[name] = {
-                "name": name, "route": "cuda",
+        if row and tname == "bf16" and not tag:
+            rows[row] = {
+                "name": row, "route": "cuda",
                 "source": f"dilabhelmholtzoct_tpu_torch/csrc/{replaces[0]}",
                 "replaces": replaces[1], "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": None,
             }
+        return ms
 
     k3 = "upscaler.cu", "dilabhelmholtzoct_tpu/ops/upscaler.py"
     k4 = "decoder_attn.cu", "dilabhelmholtzoct_tpu/ops/decoder_attn.py"
     with full_fp32():
         for dt, tname in ((f32, "f32"), (torch.bfloat16, "bf16")):
+            bf = dt == torch.bfloat16
             peak = PEAK_F32_FLOPS if dt == f32 else PEAK_BF16_FLOPS
             isz = torch.empty((), dtype=dt).element_size()
             # K3 at 64 pairs x 4096 rows
@@ -590,16 +630,40 @@ def k34_kernel_phase(torch):
                        rnd(64, 2, 2, 32, k=0.12, dt=dt), rnd(32, k=0.1),
                        rnd(bp, n_out, 32, dt=dt))
             dm = rnd(bp, m, n_out * 16)
+            bwd_args = (up_args[0], dm) + up_args[1:]
             run("upscale_fwd", tname, lambda: up_op.upscale_fwd_cuda(*up_args),
                 lambda: up_op.upscale_fwd_plain(*up_args), up_op.LAUNCHES,
                 k3_bound_ms(bp, m, n_out, isz, peak, False),
-                (k3[0], f"{k3[1]}:295"), 10)
-            run("upscale_bwd", tname,
-                lambda: up_op.upscale_bwd_cuda(up_args[0], dm, *up_args[1:]),
-                lambda: up_op.upscale_bwd_plain(up_args[0], dm, *up_args[1:]),
-                up_op.LAUNCHES, k3_bound_ms(bp, m, n_out, isz, peak, True),
-                (k3[0], f"{k3[1]}:329"), 5)
-            del up_args, dm
+                (k3[0], f"{k3[1]}:295"), 10, row="upscale_fwd")
+            total = run("upscale_bwd", tname,
+                        lambda: up_op.upscale_bwd_cuda(*bwd_args),
+                        lambda: up_op.upscale_bwd_plain(*bwd_args),
+                        up_op.LAUNCHES,
+                        k3_bound_ms(bp, m, n_out, isz, peak, True),
+                        (k3[0], f"{k3[1]}:329"), 5, twice=bf,
+                        row=None if bf else "upscale_bwd")
+            if bf:
+                got = up_op.upscale_bwd_rows_cuda(*bwd_args)
+                scratch = (up_args[0],) + got[1:4]
+                del got
+                t_rows = run(
+                    "upscale_bwd", tname,
+                    lambda: up_op.upscale_bwd_rows_cuda(*bwd_args),
+                    lambda: up_op.upscale_bwd_rows_plain(*bwd_args),
+                    up_op.LAUNCHES,
+                    k3_bound_ms(bp, m, n_out, isz, peak, True, "rows"),
+                    (k3[0], f"{k3[1]}:329"), 5, row="upscale_bwd")
+                t_dw = run(
+                    "upscale_bwd_dw", tname,
+                    lambda: up_op.upscale_bwd_dw_cuda(*scratch),
+                    lambda: up_op.upscale_bwd_dw_plain(*scratch),
+                    up_op.LAUNCHES,
+                    k3_bound_ms(bp, m, n_out, isz, peak, True, "dw"),
+                    (k3[0], f"{k3[1]}:329"), 5, row="upscale_bwd_dw")
+                print(f"K3 bf16 backward: {total:.4f} ms composed (row pass "
+                      f"{t_rows:.4f} + weight pass {t_dw:.4f} timed alone)")
+                del scratch
+            del up_args, dm, bwd_args
             # K4 per-pair layer (pb = 1) and shared first layer (pb = 8)
             for pb in (1, 8):
                 args = (rnd(bp // pb, m, 256, dt=dt), rnd(1, m, 256, dt=dt),
@@ -613,12 +677,36 @@ def k34_kernel_phase(torch):
                 run("i2t_fwd", tname, lambda: i2t.i2t_fwd_cuda(*args, **kw),
                     lambda: i2t.i2t_fwd_plain(*args, **kw), i2t.LAUNCHES,
                     k4_bound_ms(bp, pb, m, n_tok, isz, peak, False),
-                    (k4[0], f"{k4[1]}:264"), 10, tag)
-                run("i2t_bwd", tname,
-                    lambda: i2t.i2t_bwd_cuda(*args, dy, **kw),
-                    lambda: i2t.i2t_bwd_plain(*args, dy, **kw), i2t.LAUNCHES,
-                    k4_bound_ms(bp, pb, m, n_tok, isz, peak, True),
-                    (k4[0], f"{k4[1]}:287"), 5, tag)
+                    (k4[0], f"{k4[1]}:264"), 10, tag, row="i2t_fwd")
+                total = run("i2t_bwd", tname,
+                            lambda: i2t.i2t_bwd_cuda(*args, dy, **kw),
+                            lambda: i2t.i2t_bwd_plain(*args, dy, **kw),
+                            i2t.LAUNCHES,
+                            k4_bound_ms(bp, pb, m, n_tok, isz, peak, True),
+                            (k4[0], f"{k4[1]}:287"), 5, tag, twice=bf,
+                            row=None if bf else "i2t_bwd")
+                if bf:
+                    got = i2t.i2t_bwd_rows_cuda(*args, dy, **kw)
+                    scratch = (args[0], args[1], got[1], got[5], got[6])
+                    del got
+                    t_rows = run(
+                        "i2t_bwd", tname,
+                        lambda: i2t.i2t_bwd_rows_cuda(*args, dy, **kw),
+                        lambda: i2t.i2t_bwd_rows_plain(*args, dy, **kw),
+                        i2t.LAUNCHES,
+                        k4_bound_ms(bp, pb, m, n_tok, isz, peak, True, "rows"),
+                        (k4[0], f"{k4[1]}:287"), 5, tag, row="i2t_bwd")
+                    t_dw = run(
+                        "i2t_bwd_dw", tname,
+                        lambda: i2t.i2t_bwd_dw_cuda(*scratch, pb=pb),
+                        lambda: i2t.i2t_bwd_dw_plain(*scratch, pb=pb),
+                        i2t.LAUNCHES,
+                        k4_bound_ms(bp, pb, m, n_tok, isz, peak, True, "dw"),
+                        (k4[0], f"{k4[1]}:287"), 5, tag, row="i2t_bwd_dw")
+                    print(f"K4{tag} bf16 backward: {total:.4f} ms composed "
+                          f"(row pass {t_rows:.4f} + weight pass {t_dw:.4f} "
+                          "timed alone)")
+                    del scratch
                 del args, dy
             torch.cuda.empty_cache()
     return rows
@@ -658,7 +746,8 @@ def _delta(after, before):
 
 STEP_LAUNCHES = {"attn_global": 0, "attn_windowed": 0, "attn_bwd_dq": 0,
                  "attn_bwd_dkv": 0, "attn_relpos": 0, "attn_windowed_image": 0,
-                 "upscale_fwd": 1, "upscale_bwd": 1, "i2t_fwd": 2, "i2t_bwd": 2}
+                 "upscale_fwd": 1, "upscale_bwd": 1, "upscale_bwd_dw": 1,
+                 "i2t_fwd": 2, "i2t_bwd": 2, "i2t_bwd_dw": 2}
 
 
 def training_phase(torch):
@@ -1733,8 +1822,8 @@ def vith_decoder_phase(torch):
         r = _quiet(tr.training, loop, splits=(train_items, valid_items))
         c = _counts()
         want = {**dict.fromkeys(c, 0), "attn_relpos": v.num_layers * 24,
-                "upscale_fwd": 3, "upscale_bwd": 2, "i2t_fwd": 6,
-                "i2t_bwd": 4}
+                "upscale_fwd": 3, "upscale_bwd": 2, "upscale_bwd_dw": 2,
+                "i2t_fwd": 6, "i2t_bwd": 4, "i2t_bwd_dw": 4}
         check(c == want, f"training() at ViT-H launched {c}, want {want}")
         hist = r["history"]
         check([h["epoch"] for h in hist] == [0]

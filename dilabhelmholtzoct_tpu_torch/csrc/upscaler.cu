@@ -17,20 +17,32 @@
 // upscale_fwd_kernel replaces dilabhelmholtzoct_tpu/ops/upscaler.py
 //    _fused_fwd (:295, body _fwd_kernel :119-138). One block per (pair,
 //    32-row tile).
-// upscale_bwd_kernel replaces the same file's _fused_bwd (:329, body
-//    _bwd_kernel :141-243). It recomputes the chain per row and writes d_up
-//    per row; the weight gradients are summed over rows inside each block
-//    (one block per (pair, split), looping over its row tiles) into one
-//    partial sum per block, which the wrapper adds up over the blocks in a
-//    fixed order — a second pass, no atomics, so the gradients repeat bit
-//    for bit from run to run.
+// The backward replaces the same file's _fused_bwd (:329, body _bwd_kernel
+//    :141-243): it recomputes the chain per row, writes d_up per row, and
+//    sums the weight and vector gradients over rows. The JAX kernel carries
+//    them in output blocks across its sequential grid; here blocks run in
+//    parallel, so every sum over rows is one partial per block, warp or
+//    tile, added up by the wrapper in a fixed order -- no atomics, so the
+//    gradients repeat bit for bit from run to run.
+//    * bf16 (the training path): two launches on the tensor cores
+//      (decoder_mma.cuh). upscale_bwd_rows_kernel is the row pass:
+//      persistent 4-warp blocks with W1 and W2 in shared memory, a warp per
+//      16-row tile, the chain per (d, e) block of 64 lanes; it writes u1g,
+//      rnd(d_u2pre) and rnd(d_u1pre) per row as bf16 scratch.
+//      upscale_bwd_dw_kernel is the weight pass: dW1 = sum_r up^T
+//      rnd(d_u1pre) (two 128-row output tiles) and dW2[de] = sum_r
+//      u1g[de]^T rnd(d_u2pre)[de], split-K over row chunks.
+//    * f32: upscale_bwd_kernel, one fused SIMT kernel, one block per (pair,
+//      split) looping over 32-row tiles (not on a main path: the JAX
+//      package routes K3 only in bf16).
 //
 // Bound on an H100 SXM (700 W) at the training shapes (64 pairs x 4096 rows,
 //    bf16): forward 198 kFLOP/row = 51.8 GFLOP over 989 TFLOP/s = 0.052 ms
 //    (bytes: up 134 MB in, 16.8 MB out = 0.045 ms); backward 592 kFLOP/row =
 //    155 GFLOP = 0.157 ms (bytes ~285 MB = 0.085 ms). Operation-bound on
 //    the tensor-core rate; on the CUDA cores (67 TFLOP/s f32) the bound is
-//    15x higher.
+//    15x higher. The bf16 backward's scratch (536 MB written and read once)
+//    adds 0.32 ms of bytes.
 // What this design does about it: the 268 MB second upscale stays in shared
 //    memory and registers (as on the TPU); each row tile keeps its inputs
 //    and every intermediate in shared memory, the products are f32 SIMT
@@ -38,7 +50,11 @@
 //    16-byte broadcast loads of the row operand). The second product runs
 //    per (d, e) block of W2 (64 x 128), not as the TPU's 256 x 512 Kronecker
 //    expansion; LayerNorm reduces its 64 lanes with warp shuffles, not
-//    selector matmuls. Tensor cores (mma.sync / wgmma) are later work.
+//    selector matmuls. The forward and the f32 backward run on the CUDA
+//    cores; the bf16 backward runs every product on the tensor cores
+//    (first and second products, d_u1g = rnd(d_u2pre) . W2^T, d_up =
+//    rnd(d_u1pre) . W1^T as m16n8k16 over the warp's accumulators), with the
+//    LayerNorms, GELUs and their backwards in f32 registers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,6 +62,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "decoder_mma.cuh"
 
 namespace {
 
@@ -84,10 +102,6 @@ template <typename T>
 __device__ __forceinline__ void st(T* p, float x);
 template <>
 __device__ __forceinline__ void st<float>(float* p, float x) { *p = x; }
-template <>
-__device__ __forceinline__ void st<__nv_bfloat16>(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 constexpr float kSqrt2OverPi = 0.7978845608028654f;
 constexpr float kKappa = 0.044715f;
@@ -516,6 +530,443 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
+// ------------------------------------------ bf16 backward, two passes ----
+using dec::bf16;
+using dec::ld_bf2;
+using dec::st_bf2;
+
+constexpr int LD1 = L1 + 8;   // shared row of W1 [C][L1] and of a warp's tile
+constexpr int LD2 = LQ + 8;   // shared row of W2 [C1][LQ]
+constexpr int SLOTS = 4;          // tiles in flight per block: a warp pair each
+constexpr int RT = 64 * SLOTS;     // threads per row-pass block
+constexpr int CS = 4 * LQ + L1;    // a slot's per-column sums: db2, db1
+constexpr size_t ROWS_SMEM =
+    sizeof(bf16) * (size_t)(C * LD1 + C1 * LD2 + SLOTS * 2 * 16 * LD1) +
+    sizeof(float) * (size_t)SLOTS * CS;
+
+// gelu (tanh form) of x and its derivative from one tanh
+__device__ __forceinline__ float gelu_and_grad(float x, float* grad) {
+  const float t = tanhf(kSqrt2OverPi * (x + kKappa * x * x * x));
+  *grad = 0.5f * (1.f + t) +
+          0.5f * x * (1.f - t * t) * (kSqrt2OverPi * (1.f + 3.f * kKappa * x * x));
+  return 0.5f * x * (1.f + t);
+}
+
+// acc[(de) block] += v where de is known only at run time: a select per
+// block, so the accumulators stay in registers
+template <int N>
+__device__ __forceinline__ void add_at(float (&acc)[4 * N], int de, int i,
+                                       float v) {
+#pragma unroll
+  for (int d = 0; d < 4; ++d)
+    if (d == de) acc[d * N + i] += v;
+}
+
+// The row pass. A pair of warps shares each 16-row tile (a slot): warp
+// `sub` of the pair takes the (d, e) blocks 2 sub, 2 sub + 1 and the d_up
+// channels 128 sub.., so a block holds 8 warps on 4 slots. Shared memory:
+// W1 [C][LD1] and W2 [C1][LD2] (k by n for the forward products, n by k
+// for the backward ones), per slot its tile's up rows and rnd(d_u1pre)
+// rows [16][LD1] each, and its per-column sums of db2 and db1 (group_sum8
+// layout, each entry owned by one lane; dg and dbt in registers). Per
+// (d, e) block: the 64 lanes of the first product, their LayerNorm and
+// GELU, the second product by halves of 64 lanes (two (f, g)), its GELU,
+// the hypernetwork terms, d_u2pre and its share of d_u1g; then back to
+// rnd(d_u1pre). No accumulator is wider than 64 registers. Lane = 4 g + t
+// holds rows g and g + 8 of every accumulator n-tile, columns 2t, 2t + 1.
+__global__ void __launch_bounds__(RT, 1)
+    upscale_bwd_rows_kernel(const bf16* up, const float* dm, const bf16* w1,
+                            const float* b1, const float* g, const float* bt,
+                            const bf16* w2, const float* b2, const bf16* hyper,
+                            bf16* d_up, bf16* u1g_rows, bf16* d2_rows,
+                            bf16* du1_rows, float* db1_p, float* dg_p,
+                            float* dbt_p, float* db2_p, float* dht_t, int bp,
+                            int m, int n_out, float eps) {
+  using namespace dec;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* w1_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* w2_s = w1_s + C * LD1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int slot = warp >> 1, sub = warp & 1, pl = 32 * sub + lane;
+  const int gq = lane >> 2, tq = lane & 3;
+  bf16* u_s = w2_s + C1 * LD2 + slot * 2 * 16 * LD1;
+  bf16* d_s = u_s + 16 * LD1;
+  float* cs0 = reinterpret_cast<float*>(w2_s + C1 * LD2 + SLOTS * 2 * 16 * LD1);
+  float* cs = cs0 + slot * CS;  // db2 [4 LQ], db1 [L1]
+  // the pair's own barrier (0 is __syncthreads)
+  auto pair_sync = [&] {
+    asm volatile("bar.sync %0, 64;\n" ::"r"(1 + slot) : "memory");
+  };
+
+  block_weights_async<C, L1, LD1, RT>(w1_s, w1);
+  block_weights_async<C1, LQ, LD2, RT>(w2_s, w2);
+  cp_commit();
+  for (int i = threadIdx.x; i < SLOTS * CS; i += RT) cs0[i] = 0.f;
+  cp_wait<0>();
+  __syncthreads();
+
+  const int tpp = (m + 15) / 16, ntiles = bp * tpp, lanes = n_out * 16;
+  float a_dg[8], a_dbt[8];  // per (d, e) two groups (group_sum8 layout)
+#pragma unroll
+  for (int i = 0; i < 8; ++i) a_dg[i] = a_dbt[i] = 0.f;
+
+  for (int tile = blockIdx.x * SLOTS + slot; tile < ntiles;
+       tile += gridDim.x * SLOTS) {
+    const RowTile tl(tile, tpp, m);
+    const int valid = min(16, m - tl.row0);
+    const bool ok0 = gq < valid, ok1 = gq + 8 < valid;
+    const size_t r0 = tl.prow0 + gq, r1 = r0 + 8;  // the lane's two rows
+    slot_rows_async<C, LD1>(u_s, up + tl.prow0 * C, valid, pl);
+    cp_commit();
+    cp_wait<0>();
+    pair_sync();
+    const bf16* hy = hyper + (size_t)tl.pair * n_out * C2;
+    const float* dm0 = dm + r0 * lanes;
+    const float* dm1 = dm + r1 * lanes;
+
+#pragma unroll 1
+    for (int de = 2 * sub; de < 2 * sub + 2; ++de) {
+      // first product, the 64 lanes (de, c1): u1pre = up . W1 + b1
+      float a1[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) a1[j][0] = a1[j][1] = a1[j][2] = a1[j][3] = 0.f;
+#pragma unroll 4
+      for (int kk = 0; kk < C / 16; ++kk) {
+        uint32_t a[4];
+        load_a<LD1>(a, u_s, 0, 16 * kk, lane);
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t b[4];
+          load_b_kn<LD1>(b, w1_s, 16 * kk, C1 * de + 16 * np, lane);
+          mma16816(a1[2 * np], a, b[0], b[1]);
+          mma16816(a1[2 * np + 1], a, b[2], b[3]);
+        }
+      }
+      // LayerNorm over the 64 lanes of rows g and g + 8: y in place
+      float su0 = 0.f, su1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * tq;
+        a1[j][0] += b1[c];
+        a1[j][1] += b1[c + 1];
+        a1[j][2] += b1[c];
+        a1[j][3] += b1[c + 1];
+        su0 += a1[j][0] + a1[j][1];
+        su1 += a1[j][2] + a1[j][3];
+      }
+      const float mu0 = quad_sum(su0) * (1.f / C1);
+      const float mu1 = quad_sum(su1) * (1.f / C1);
+      float v0 = 0.f, v1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        a1[j][0] -= mu0;
+        a1[j][1] -= mu0;
+        a1[j][2] -= mu1;
+        a1[j][3] -= mu1;
+        v0 = fmaf(a1[j][0], a1[j][0], fmaf(a1[j][1], a1[j][1], v0));
+        v1 = fmaf(a1[j][2], a1[j][2], fmaf(a1[j][3], a1[j][3], v1));
+      }
+      const float rs0 = rsqrtf(quad_sum(v0) * (1.f / C1) + eps);
+      const float rs1 = rsqrtf(quad_sum(v1) * (1.f / C1) + eps);
+      // u1g = rnd(gelu(rnd(y g + bt))): A fragments of the second product
+      // (one k16 step per two n-tiles) and the scratch rows
+      uint32_t ua[4][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * tq;
+        const float g0 = g[c], g1 = g[c + 1], t0 = bt[c], t1 = bt[c + 1];
+        a1[j][0] *= rs0;
+        a1[j][1] *= rs0;
+        a1[j][2] *= rs1;
+        a1[j][3] *= rs1;
+        ua[j / 2][(j & 1) * 2] =
+            pack_bf16(gelu<bf16>(round_bf16(a1[j][0] * g0 + t0)),
+                      gelu<bf16>(round_bf16(a1[j][1] * g1 + t1)));
+        ua[j / 2][(j & 1) * 2 + 1] =
+            pack_bf16(gelu<bf16>(round_bf16(a1[j][2] * g0 + t0)),
+                      gelu<bf16>(round_bf16(a1[j][3] * g1 + t1)));
+        if (ok0) *reinterpret_cast<uint32_t*>(u1g_rows + r0 * L1 + C1 * de + c) = ua[j / 2][(j & 1) * 2];
+        if (ok1) *reinterpret_cast<uint32_t*>(u1g_rows + r1 * L1 + C1 * de + c) = ua[j / 2][(j & 1) * 2 + 1];
+      }
+      // the second product by halves of 64 lanes (f, g, c2); per half: its
+      // GELU, the hypernetwork terms, d_u2pre, and d_u1g += rnd(d_u2pre) .
+      // W2^T over those lanes
+      float a3[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) a3[j][0] = a3[j][1] = a3[j][2] = a3[j][3] = 0.f;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float a2[8][4];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) a2[j][0] = a2[j][1] = a2[j][2] = a2[j][3] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < C1 / 16; ++kk)
+#pragma unroll
+          for (int np = 0; np < 4; ++np) {
+            uint32_t b[4];
+            load_b_kn<LD2>(b, w2_s, 16 * kk, 64 * half + 16 * np, lane);
+            mma16816(a2[2 * np], ua[kk], b[0], b[1]);
+            mma16816(a2[2 * np + 1], ua[kk], b[2], b[3]);
+          }
+        uint32_t da[4][4];  // rnd(d_u2pre): A fragments, k16 steps of q
+#pragma unroll
+        for (int hg = 0; hg < 2; ++hg) {  // a group of 4 n-tiles is one (f, g)
+          const int fg = 2 * half + hg;
+          float dmv[2][MAXT];
+#pragma unroll
+          for (int t = 0; t < MAXT; ++t) {
+            const int l = t * 16 + de * 4 + fg;
+            dmv[0][t] = (t < n_out && ok0) ? dm0[l] : 0.f;
+            dmv[1][t] = (t < n_out && ok1) ? dm1[l] : 0.f;
+          }
+          float ug[4][4], vb2[8];
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const int j = 4 * hg + jj, c2 = 8 * jj + 2 * tq;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {  // rows g (e < 2), g + 8; column e & 1
+              const float u2r = round_bf16(a2[j][e] + b2[c2 + (e & 1)]);
+              float grad;
+              ug[jj][e] = round_bf16(gelu_and_grad(u2r, &grad));
+              float du = 0.f;
+#pragma unroll
+              for (int t = 0; t < MAXT; ++t)
+                if (t < n_out)
+                  du = fmaf(dmv[e >> 1][t],
+                            __bfloat162float(hy[t * C2 + c2 + (e & 1)]), du);
+              a2[j][e] = du * grad;  // d_u2pre, f32
+            }
+            vb2[2 * jj] = a2[j][0] + a2[j][2];
+            vb2[2 * jj + 1] = a2[j][1] + a2[j][3];
+            da[j / 2][(j & 1) * 2] = pack_bf16(a2[j][0], a2[j][1]);
+            da[j / 2][(j & 1) * 2 + 1] = pack_bf16(a2[j][2], a2[j][3]);
+            const int q = LQ * de + 64 * half + 8 * j + 2 * tq;
+            if (ok0) *reinterpret_cast<uint32_t*>(d2_rows + r0 * 4 * LQ + q) = da[j / 2][(j & 1) * 2];
+            if (ok1) *reinterpret_cast<uint32_t*>(d2_rows + r1 * 4 * LQ + q) = da[j / 2][(j & 1) * 2 + 1];
+          }
+          cs[LQ * de + 32 * fg + group_col(0, lane)] += group_sum8(vb2, lane);
+          // d_hyper of this tile: sum over its rows of dm * u2g
+          float* ht = dht_t + (size_t)tile * n_out * 4 * LQ + LQ * de +
+                      32 * fg + group_col(0, lane);
+#pragma unroll
+          for (int t = 0; t < MAXT; ++t)
+            if (t < n_out) {
+              float vh[8];
+#pragma unroll
+              for (int jj = 0; jj < 4; ++jj) {
+                vh[2 * jj] = dmv[0][t] * ug[jj][0] + dmv[1][t] * ug[jj][2];
+                vh[2 * jj + 1] = dmv[0][t] * ug[jj][1] + dmv[1][t] * ug[jj][3];
+              }
+              ht[(size_t)t * 4 * LQ] = group_sum8(vh, lane);
+            }
+        }
+#pragma unroll
+        for (int kq = 0; kq < 4; ++kq)
+#pragma unroll
+          for (int np = 0; np < C1 / 16; ++np) {
+            uint32_t b[4];
+            load_b_nk<LD2>(b, w2_s, 16 * np, 64 * half + 16 * kq, lane);
+            mma16816(a3[2 * np], da[kq], b[0], b[1]);
+            mma16816(a3[2 * np + 1], da[kq], b[2], b[3]);
+          }
+      }
+      // GELU and LayerNorm-affine backward: d_out1 in place
+      float sa0 = 0.f, sb0 = 0.f, sa1 = 0.f, sb1 = 0.f;
+#pragma unroll
+      for (int grp = 0; grp < 2; ++grp) {
+        float vg[8], vt[8];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int j = 4 * grp + jj, c = 8 * j + 2 * tq;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float gc = g[c + (e & 1)];
+            const float y = a1[j][e];
+            const float d1 = a3[j][e] * gelu_grad<bf16>(round_bf16(y * gc + bt[c + (e & 1)]));
+            a3[j][e] = d1;
+            const float dyv = d1 * gc;
+            if (e < 2) {
+              sa0 += dyv;
+              sb0 = fmaf(dyv, y, sb0);
+            } else {
+              sa1 += dyv;
+              sb1 = fmaf(dyv, y, sb1);
+            }
+          }
+          vg[2 * jj] = a3[j][0] * a1[j][0] + a3[j][2] * a1[j][2];
+          vg[2 * jj + 1] = a3[j][1] * a1[j][1] + a3[j][3] * a1[j][3];
+          vt[2 * jj] = a3[j][0] + a3[j][2];
+          vt[2 * jj + 1] = a3[j][1] + a3[j][3];
+        }
+        add_at<2>(a_dg, de, grp, group_sum8(vg, lane));
+        add_at<2>(a_dbt, de, grp, group_sum8(vt, lane));
+      }
+      const float m10 = quad_sum(sa0) * (1.f / C1), m20 = quad_sum(sb0) * (1.f / C1);
+      const float m11 = quad_sum(sa1) * (1.f / C1), m21 = quad_sum(sb1) * (1.f / C1);
+      // d_u1pre = rstd (d_y - mean d_y - y mean(d_y y)) -> rnd: d_s and the
+      // scratch rows
+#pragma unroll
+      for (int grp = 0; grp < 2; ++grp) {
+        float vd[8];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int j = 4 * grp + jj, c = 8 * j + 2 * tq;
+          const float g0 = g[c], g1 = g[c + 1];
+          const float e0 = rs0 * (a3[j][0] * g0 - m10 - a1[j][0] * m20);
+          const float e1 = rs0 * (a3[j][1] * g1 - m10 - a1[j][1] * m20);
+          const float e2 = rs1 * (a3[j][2] * g0 - m11 - a1[j][2] * m21);
+          const float e3 = rs1 * (a3[j][3] * g1 - m11 - a1[j][3] * m21);
+          vd[2 * jj] = e0 + e2;
+          vd[2 * jj + 1] = e1 + e3;
+          st_bf2(d_s + gq * LD1 + C1 * de + c, e0, e1);
+          st_bf2(d_s + (gq + 8) * LD1 + C1 * de + c, e2, e3);
+          if (ok0) st_bf2(du1_rows + r0 * L1 + C1 * de + c, e0, e1);
+          if (ok1) st_bf2(du1_rows + r1 * L1 + C1 * de + c, e2, e3);
+        }
+        cs[4 * LQ + C1 * de + 32 * grp + group_col(0, lane)] += group_sum8(vd, lane);
+      }
+    }
+    pair_sync();  // d_s holds all four (d, e) blocks
+
+    // d_up = rnd(d_u1pre) . W1^T, this warp's 128 channels
+    {
+      const int half = sub;
+      float a4[16][4];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) a4[j][0] = a4[j][1] = a4[j][2] = a4[j][3] = 0.f;
+#pragma unroll 2
+      for (int kk = 0; kk < L1 / 16; ++kk) {
+        uint32_t a[4];
+        load_a<LD1>(a, d_s, 0, 16 * kk, lane);
+#pragma unroll
+        for (int np = 0; np < 8; ++np) {
+          uint32_t b[4];
+          load_b_nk<LD1>(b, w1_s, 128 * half + 16 * np, 16 * kk, lane);
+          mma16816(a4[2 * np], a, b[0], b[1]);
+          mma16816(a4[2 * np + 1], a, b[2], b[3]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int c = 128 * half + 8 * j + 2 * tq;
+        if (ok0) st_bf2(d_up + r0 * C + c, a4[j][0], a4[j][1]);
+        if (ok1) st_bf2(d_up + r1 * C + c, a4[j][2], a4[j][3]);
+      }
+    }
+    pair_sync();  // u_s and d_s are refilled by the next tile
+  }
+
+  pair_sync();
+  const size_t wg = (size_t)blockIdx.x * SLOTS + slot;
+#pragma unroll
+  for (int de = 0; de < 4; ++de)
+    if (de >> 1 == sub)
+#pragma unroll
+      for (int grp = 0; grp < 2; ++grp) {
+        const int col = C1 * de + group_col(grp, lane);
+        dg_p[wg * L1 + col] = a_dg[de * 2 + grp];
+        dbt_p[wg * L1 + col] = a_dbt[de * 2 + grp];
+      }
+  for (int i = pl; i < 4 * LQ; i += 64) db2_p[wg * 4 * LQ + i] = cs[i];
+  for (int i = pl; i < L1; i += 64) db1_p[wg * L1 + i] = cs[4 * LQ + i];
+}
+
+// The weight pass: block (chunk, kind) sums over the chunk's rows
+//   kind 0, 1: dW1 rows 128 kind.. [C][L1] = up[:, 128 kind..]^T . rnd(d_u1pre)
+//   kind 2:    dW2 [4][C1][LQ], dW2[de] = u1g[de]^T . rnd(d_u2pre)[de]
+// into part[chunk] = [dW1 | dW2]; warp w owns a 64 x 64 tile of it
+constexpr int DW_LDA = L1 + 8, DW_LDB = 4 * LQ + 8;
+constexpr int DW_STAGE = dec::DW_SR * (DW_LDA + DW_LDB);
+constexpr size_t DW_SMEM = sizeof(bf16) * (size_t)dec::DW_STAGES * DW_STAGE;
+constexpr int DW_PART = C * L1 + 4 * C1 * LQ;  // floats per chunk
+
+__global__ void __launch_bounds__(dec::DW_THREADS, 1)
+    upscale_bwd_dw_kernel(const bf16* up, const bf16* u1g_rows,
+                          const bf16* d2_rows, const bf16* du1_rows,
+                          float* part, int rows, int chunk) {
+  using namespace dec;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
+  const int kind = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int lo = blockIdx.x * chunk, hi = min(rows, lo + chunk);
+  float acc[4][8][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 8; ++b) acc[a][b][0] = acc[a][b][1] = acc[a][b][2] = acc[a][b][3] = 0.f;
+
+  // X: up columns 128 kind.. (128 wide) or u1g (256); Y: rnd(d_u1pre) (256)
+  // or rnd(d_u2pre) (512)
+  const bool w2k = kind == 2;
+  const int xw = w2k ? L1 : C / 2, yw = w2k ? 4 * LQ : L1;
+  const int xstride = w2k ? L1 : C;
+  const bf16* xsrc = w2k ? u1g_rows : up + (C / 2) * kind;
+  const bf16* ysrc = w2k ? d2_rows : du1_rows;
+  auto load = [&](int st, int r0) {
+    bf16* xs = ring + st * DW_STAGE;
+    bf16* ys = xs + DW_SR * DW_LDA;
+    for (int i = threadIdx.x; i < DW_SR * (xw / 8); i += DW_THREADS) {
+      const int r = i / (xw / 8), c = (i - r * (xw / 8)) * 8;
+      const bool ok = r0 + r < hi;
+      cp_async16(xs + r * DW_LDA + c, xsrc + (ok ? (size_t)(r0 + r) * xstride + c : 0), ok);
+    }
+    for (int i = threadIdx.x; i < DW_SR * (yw / 8); i += DW_THREADS) {
+      const int r = i / (yw / 8), c = (i - r * (yw / 8)) * 8;
+      const bool ok = r0 + r < hi;
+      cp_async16(ys + r * DW_LDB + c, ysrc + (ok ? (size_t)(r0 + r) * yw + c : 0), ok);
+    }
+  };
+  auto prep = [](int) { return false; };
+  const int a0 = w2k ? C1 * (warp / 2) : 64 * (warp / 4);
+  const int b0 = w2k ? LQ * (warp / 2) + 64 * (warp % 2) : 64 * (warp % 4);
+  auto mma = [&](int st) {
+    const bf16* xs = ring + st * DW_STAGE;
+    dw_stage_mma<DW_LDA, DW_LDB>(acc, xs, a0, xs + DW_SR * DW_LDA, b0, lane);
+  };
+  dw_ring(lo, hi, load, prep, mma);
+  float* out = part + (size_t)blockIdx.x * DW_PART;
+  if (w2k)
+    dw_store(out + C * L1 + (warp / 2) * C1 * LQ + 64 * (warp % 2), LQ, acc,
+             lane);
+  else
+    dw_store(out + ((C / 2) * kind + a0) * L1 + b0, L1, acc, lane);
+}
+
+int launch_bwd_rows(void* const* a, int bp, int m, int n_out, int blocks,
+                    float eps, cudaStream_t stream) {
+  if (n_out < 1 || n_out > MAXT || blocks < 1 || m < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      upscale_bwd_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)ROWS_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  auto in = [&](int i) { return static_cast<const bf16*>(a[i]); };
+  auto out = [&](int i) { return static_cast<bf16*>(a[i]); };
+  auto f = [&](int i) { return static_cast<float*>(a[i]); };
+  upscale_bwd_rows_kernel<<<blocks, RT, ROWS_SMEM, stream>>>(
+      in(0), f(1), in(2), f(3), f(4), f(5), in(6), f(7), in(8), out(9),
+      out(10), out(11), out(12), f(13), f(14), f(15), f(16), f(17), bp, m,
+      n_out, eps);
+  return (int)cudaGetLastError();
+}
+
+int launch_bwd_dw(void* const* a, int rows, int chunk, int nchunks,
+                  cudaStream_t stream) {
+  if (chunk < 1 || chunk % dec::DW_SR || nchunks < 1 ||
+      (nchunks - 1) * chunk >= rows || nchunks * chunk < rows)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      upscale_bwd_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)DW_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  upscale_bwd_dw_kernel<<<dim3(nchunks, 3), dec::DW_THREADS, DW_SMEM,
+                          stream>>>(
+      static_cast<const bf16*>(a[0]), static_cast<const bf16*>(a[1]),
+      static_cast<const bf16*>(a[2]), static_cast<const bf16*>(a[3]),
+      static_cast<float*>(a[4]), rows, chunk);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_fwd(const void* up, const void* w1, const void* b1, const void* g,
                const void* bt, const void* w2, const void* b2,
@@ -586,6 +1037,8 @@ int dhoct_upscale_fwd(const void* up, const void* w1, const void* b1,
                                         bp, m, n_out, eps, s);
 }
 
+// The f32 backward (upscale_bwd_kernel); dtype must be 0: the bf16
+// backward is the two launches below.
 int dhoct_upscale_bwd(const void* up, const void* dm, const void* w1,
                       const void* w1t, const void* b1, const void* g,
                       const void* bt, const void* w2, const void* b2,
@@ -593,15 +1046,30 @@ int dhoct_upscale_bwd(const void* up, const void* dm, const void* w1,
                       void* db1p, void* dgp, void* dbtp, void* db2p,
                       void* dhtp, int bp, int m, int n_out, int splits,
                       int dtype, float eps, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 1
-             ? launch_bwd<__nv_bfloat16>(up, dm, w1, w1t, b1, g, bt, w2, b2,
-                                         hyper, d_up, dw1p, dw2p, db1p, dgp,
-                                         dbtp, db2p, dhtp, bp, m, n_out,
-                                         splits, eps, s)
-             : launch_bwd<float>(up, dm, w1, w1t, b1, g, bt, w2, b2, hyper,
-                                 d_up, dw1p, dw2p, db1p, dgp, dbtp, db2p,
-                                 dhtp, bp, m, n_out, splits, eps, s);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  return launch_bwd<float>(up, dm, w1, w1t, b1, g, bt, w2, b2, hyper, d_up,
+                           dw1p, dw2p, db1p, dgp, dbtp, db2p, dhtp, bp, m,
+                           n_out, splits, eps,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 row pass (upscale_bwd_rows_kernel) on `blocks` persistent
+// blocks. a[18]: up, dm, w1, b1, g, bt, w2, b2, hyper; outputs d_up, the
+// u1g, rnd(d_u2pre) and rnd(d_u1pre) scratch rows, per-warp partials of
+// db1, dg, dbt, db2, and per-tile partials of d_hyper.
+int dhoct_upscale_bwd_rows(void* const* a, int bp, int m, int n_out,
+                           int blocks, float eps, void* stream) {
+  return launch_bwd_rows(a, bp, m, n_out, blocks, eps,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 weight pass (upscale_bwd_dw_kernel). a[5]: up, u1g, rnd(d_u2pre)
+// and rnd(d_u1pre) rows, and the partials [nchunks][dW1 | dW2] of row
+// chunks of `chunk` rows.
+int dhoct_upscale_bwd_dw(void* const* a, int rows, int chunk, int nchunks,
+                         void* stream) {
+  return launch_bwd_dw(a, rows, chunk, nchunks,
+                       static_cast<cudaStream_t>(stream));
 }
 
 const char* dhoct_upscale_error_string(int code) {

@@ -117,6 +117,26 @@ def check_operands(name: str, tensors, dtypes) -> None:
                              "16-byte aligned")
 
 
+def row_chunks(rows: int, parts: int, align: int) -> list[tuple[int, int]]:
+    """Split ``rows`` into at most ``parts`` consecutive ranges whose sizes
+    are one multiple of ``align`` (the last range may be shorter): the row
+    chunks of a weight-gradient pass, one partial sum each, added up in
+    this order."""
+    size = -(-rows // parts)
+    size = -(-size // align) * align
+    return [(lo, min(rows, lo + size)) for lo in range(0, rows, size)]
+
+
+def pointers(tensors):
+    """The tensors' device pointers as one ctypes array (a ``void* const*``
+    argument of a C interface)."""
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+def sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def raise_on_error(err: int, error_string, name: str) -> None:
     """Raise for a non-zero cudaError_t returned by a launch (a refused
     launch never runs, and a later synchronize would not report it)."""

@@ -11,16 +11,22 @@ tokens on the key side. On a CUDA tensor it launches the hand-written
 kernels of ``csrc/decoder_attn.cu``:
 
   * ``i2t_fwd`` replacing the TPU ``_fused_fwd`` (``_fwd_kernel``);
-  * ``i2t_bwd`` replacing the TPU ``_fused_bwd`` (``_bwd_kernel``): it
+  * the backward replacing the TPU ``_fused_bwd`` (``_bwd_kernel``): it
     recomputes the chain per row, returns d_keys per row, the q/out
     projection and LayerNorm gradients summed over all rows, and the per-row
     intermediates (d_qpre, p, d_score, d_out) from which the cross-row token
     and positional gradients are formed outside — as plain ``torch.einsum``,
     as the JAX package leaves them to XLA (``decoder_attn.py:320-347``).
+    In bf16 it is two launches on the tensor cores: ``i2t_bwd_rows`` (the
+    row pass; it also writes rnd(out) and rnd(d_res) per row as bf16
+    scratch) and ``i2t_bwd_dw`` (the weight pass: dWo and dWq as split-K
+    products over row chunks). In f32 it is one fused kernel (``i2t_bwd``).
 
 On a CPU tensor the same ``torch.autograd.Function`` runs ``i2t_fwd_plain``
 / ``i2t_bwd_plain``, which compute exactly what the kernels return from the
-same inputs. A CUDA tensor never reaches a plain version.
+same inputs; ``i2t_bwd_plain`` is the composition of the two passes' plain
+twins, ``i2t_bwd_rows_plain`` and ``i2t_bwd_dw_plain``. A CUDA tensor never
+reaches a plain version.
 
 Rounding points (the JAX kernel's, ``decoder_attn.py:86-117``): ``qin =
 keys + pe`` in the input dtype; ``qpre`` in f32, rounded; scores of the
@@ -40,12 +46,14 @@ import torch
 from .. import kernels
 
 # launch counts of the K4 kernels; a plain integer each, reset by the caller
-LAUNCHES = {"i2t_fwd": 0, "i2t_bwd": 0}
+LAUNCHES = {"i2t_fwd": 0, "i2t_bwd": 0, "i2t_bwd_dw": 0}
 T_PAD = 8          # token capacity per head (the training paths use 7)
 CHANNELS = 256     # the widths the CUDA kernels take (every SAM decoder)
 INTERNAL = 128
 HEADS = 8
-ROW_TILE = 32      # rows per tile in both kernels (csrc/decoder_attn.cu TM)
+ROW_TILE = 32      # rows per tile of the forward and the f32 backward (TM)
+ROW_SLOTS = 4      # tiles in flight per row-pass block, a warp each
+DW_ROWS = 32       # rows per stage of the weight pass (dec::DW_SR)
 
 _BOUND = False
 
@@ -107,14 +115,11 @@ def _pad_tokens(x, bp, m, nh):
     return out.reshape(bp, m, nh * T_PAD)
 
 
-def i2t_bwd_plain(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, dy, *,
-                  nh: int, pb: int, eps: float):
-    """Plain PyTorch K4 backward, returning exactly what the kernel returns:
-
-    per pair and row, in keys' dtype: d_keys (before the sum over the pb
-    prompts of an image), d_qpre (BP, M, I), p and d_score (BP, M,
-    nh * T_PAD, zero on the pad tokens), d_out (BP, M, I); summed over all
-    rows in f32: dWq (C, I), dbq (I,), dWo (I, C), dbo, dg, dbt (C,)."""
+def _bwd_rows(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, dy, *, nh, pb,
+              eps):
+    """The row part of the backward in f32, at the kernel's rounding points:
+    the per-row outputs and scratch rows (each already rounded to keys'
+    dtype, so casting them to it loses nothing), then the per-lane sums."""
     dtype = keys.dtype
     bp, n_tok, internal = tok_k.shape
     m, c = keys.shape[1:]
@@ -129,7 +134,6 @@ def i2t_bwd_plain(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, dy, *,
     mean_dyy = (dyn * yn).mean(-1, keepdim=True)
     dres = rstd * (dyn - mean_dyn - yn * mean_dyy)
     dres_b = _rnd(dres, dtype)
-    dwo = outb.reshape(-1, internal).T @ dres_b.reshape(-1, c)
     dbo = dres.sum((0, 1))
     dout_b = _rnd(dres_b @ wo.float().T, dtype)
     dp = torch.einsum("bmhd,bthd->bmht", dout_b.reshape(bp, m, nh, hd), v4)
@@ -138,13 +142,60 @@ def i2t_bwd_plain(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, dy, *,
     dqb = torch.einsum("bmht,bthd->bmhd", ds_b, k4).reshape(bp, m, -1) * (
         hd ** -0.5)
     dqpre_b = _rnd(dqb, dtype)
-    qin_p = qin.repeat_interleave(pb, 0) if pb > 1 else qin
-    dwq = qin_p.reshape(-1, c).T @ dqpre_b.reshape(-1, internal)
     dbq = dqb.sum((0, 1))
-    dkeys = (dres_b + dqpre_b @ wq.float().T).to(dtype)
-    return (dkeys, dqpre_b.to(dtype), _pad_tokens(pr, bp, m, nh).to(dtype),
-            _pad_tokens(ds_b, bp, m, nh).to(dtype), dout_b.to(dtype), dwq,
-            dbq, dwo, dbo, dg, dbt)
+    dkeys = dres_b + dqpre_b @ wq.float().T
+    rows = (dkeys, dqpre_b, _pad_tokens(pr, bp, m, nh),
+            _pad_tokens(ds_b, bp, m, nh), dout_b, outb, dres_b)
+    return rows, (dbq, dbo, dg, dbt)
+
+
+def i2t_bwd_rows_plain(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, dy, *,
+                       nh: int, pb: int, eps: float):
+    """Plain PyTorch twin of the row pass ``i2t_bwd_rows``: per pair and
+    row, in keys' dtype, d_keys (before the sum over the pb prompts of an
+    image), d_qpre (BP, M, I), p and d_score (BP, M, nh * T_PAD, zero on the
+    pad tokens), d_out (BP, M, I), and the weight pass's scratch rnd(out)
+    (BP, M, I) and rnd(d_res) (BP, M, C); summed over all rows in f32: dbq
+    (I,), dbo, dg, dbt (C,)."""
+    rows, sums = _bwd_rows(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, dy,
+                           nh=nh, pb=pb, eps=eps)
+    return tuple(x.to(keys.dtype) for x in rows) + sums
+
+
+def i2t_bwd_dw_plain(keys, pe, dqpre, out_rows, dres_rows, *, pb: int,
+                     parts: int = 1):
+    """Plain PyTorch twin of the weight pass ``i2t_bwd_dw``: dWq (C, I) =
+    sum_r rnd(keys[pair / pb] + pe)^T rnd(d_qpre) and dWo (I, C) = sum_r
+    rnd(out)^T rnd(d_res) in f32, summed over ``parts`` row chunks in the
+    kernel's order (``kernels.row_chunks``)."""
+    bp, m, internal = dqpre.shape
+    c = keys.shape[-1]
+    qin = (keys + pe).float()
+    if pb > 1:
+        qin = qin.repeat_interleave(pb, 0)
+    n = bp * m
+    a = (dqpre.float().reshape(n, internal), out_rows.float().reshape(n, -1))
+    b = (qin.reshape(n, c), dres_rows.float().reshape(n, c))
+    dwqt, dwo = (sum(x[lo:hi].T @ y[lo:hi]
+                     for lo, hi in kernels.row_chunks(n, parts, DW_ROWS))
+                 for x, y in zip(a, b))
+    return dwqt.T, dwo
+
+
+def i2t_bwd_plain(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, dy, *,
+                  nh: int, pb: int, eps: float):
+    """Plain PyTorch K4 backward, returning exactly what the kernels return:
+
+    per pair and row, in keys' dtype: d_keys (before the sum over the pb
+    prompts of an image), d_qpre (BP, M, I), p and d_score (BP, M,
+    nh * T_PAD, zero on the pad tokens), d_out (BP, M, I); summed over all
+    rows in f32: dWq (C, I), dbq (I,), dWo (I, C), dbo, dg, dbt (C,). The
+    composition of the row pass's and the weight pass's plain twins."""
+    (dkeys, dqpre, p, ds, dout, out_rows, dres_rows, dbq, dbo, dg,
+     dbt) = i2t_bwd_rows_plain(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt,
+                               dy, nh=nh, pb=pb, eps=eps)
+    dwq, dwo = i2t_bwd_dw_plain(keys, pe, dqpre, out_rows, dres_rows, pb=pb)
+    return dkeys, dqpre, p, ds, dout, dwq, dbq, dwo, dbo, dg, dbt
 
 
 def _bind():
@@ -154,7 +205,10 @@ def _bind():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.dhoct_i2t_fwd.argtypes = [p] * 11 + [i] * 5 + [ctypes.c_float, p]
         lib.dhoct_i2t_bwd.argtypes = [p] * 24 + [i] * 6 + [ctypes.c_float, p]
-        for fn in (lib.dhoct_i2t_fwd, lib.dhoct_i2t_bwd):
+        lib.dhoct_i2t_bwd_rows.argtypes = [p] + [i] * 5 + [ctypes.c_float, p]
+        lib.dhoct_i2t_bwd_dw.argtypes = [p] + [i] * 5 + [p]
+        for fn in (lib.dhoct_i2t_fwd, lib.dhoct_i2t_bwd,
+                   lib.dhoct_i2t_bwd_rows, lib.dhoct_i2t_bwd_dw):
             fn.restype = ctypes.c_int
         lib.dhoct_i2t_error_string.argtypes = [ctypes.c_int]
         lib.dhoct_i2t_error_string.restype = ctypes.c_char_p
@@ -212,12 +266,90 @@ def i2t_fwd_cuda(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, *, nh: int,
     return out
 
 
+def i2t_bwd_rows_cuda(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, dy, *,
+                      nh: int, pb: int, eps: float):
+    """Launch the bf16 row pass ``i2t_bwd_rows`` (csrc/decoder_attn.cu) on
+    one persistent block per SM; same contract as ``i2t_bwd_rows_plain``.
+    The kernel writes one partial of each per-lane sum per slot (a warp
+    pair); they are summed here in a fixed order."""
+    bimg, m, c, bp, n_tok, internal = _check_args(
+        keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, nh, pb)
+    _kernel_widths(c, internal, nh)
+    dt, f32 = keys.dtype, torch.float32
+    if dt != torch.bfloat16:
+        raise TypeError("i2t_bwd_rows takes bfloat16 (the f32 backward is "
+                        "the fused i2t_bwd kernel)")
+    args = (keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, dy)
+    kernels.check_operands("i2t_bwd_rows", args,
+                           (dt,) * 5 + (f32, dt, f32, f32, f32, dt))
+    if dy.shape != (bp, m, c):
+        raise ValueError(f"dy must be {(bp, m, c)}, got {tuple(dy.shape)}")
+    lib = _bind()
+    dev = keys.device
+    with torch.cuda.device(dev):
+        tiles = bp * -(-m // 16)
+        blocks = min(kernels.sm_count(dev), -(-tiles // ROW_SLOTS))
+        nw = blocks * ROW_SLOTS
+        rows = (bp, m)
+        outs = tuple(torch.empty(rows + (w,), dtype=dt, device=dev)
+                     for w in (c, internal, nh * T_PAD, nh * T_PAD, internal,
+                               internal, c))
+        sums = tuple(torch.empty((nw, w), dtype=f32, device=dev)
+                     for w in (internal, c, c, c))
+        err = lib.dhoct_i2t_bwd_rows(kernels.pointers(args + outs + sums), bp, m,
+                                     pb, n_tok, blocks, eps,
+                                     torch.cuda.current_stream(dev).cuda_stream)
+    kernels.raise_on_error(err, lib.dhoct_i2t_error_string, "i2t_bwd_rows")
+    LAUNCHES["i2t_bwd"] += 1
+    return outs + tuple(x.sum(0) for x in sums)
+
+
+def i2t_bwd_dw_cuda(keys, pe, dqpre, out_rows, dres_rows, *, pb: int):
+    """Launch the bf16 weight pass ``i2t_bwd_dw`` (csrc/decoder_attn.cu):
+    one block per (row chunk, weight), about one per SM; same contract as
+    ``i2t_bwd_dw_plain``. The per-chunk partials are summed here in a fixed
+    order."""
+    bp, m, internal = dqpre.shape
+    c = keys.shape[-1]
+    dt = keys.dtype
+    args = (keys, pe, dqpre, out_rows, dres_rows)
+    kernels.check_operands("i2t_bwd_dw", args, (torch.bfloat16,) * 5)
+    if (keys.shape != (bp // pb, m, c) or pe.shape != (1, m, c)
+            or out_rows.shape != (bp, m, internal)
+            or dres_rows.shape != (bp, m, c)
+            or (c, internal) != (CHANNELS, INTERNAL)):
+        raise ValueError("i2t_bwd_dw: keys (BP / pb, M, 256), pe (1, M, 256),"
+                         " d_qpre and rnd(out) (BP, M, 128), rnd(d_res) (BP, "
+                         "M, 256)")
+    lib = _bind()
+    dev = keys.device
+    with torch.cuda.device(dev):
+        chunks = kernels.row_chunks(bp * m, max(1, kernels.sm_count(dev) // 2),
+                                    DW_ROWS)
+        part = torch.empty((2, len(chunks), internal, c), dtype=torch.float32,
+                           device=dev)
+        err = lib.dhoct_i2t_bwd_dw(kernels.pointers(args + (part,)), bp, m, pb,
+                                   chunks[0][1], len(chunks),
+                                   torch.cuda.current_stream(dev).cuda_stream)
+    kernels.raise_on_error(err, lib.dhoct_i2t_error_string, "i2t_bwd_dw")
+    LAUNCHES["i2t_bwd_dw"] += 1
+    dwo, dwqt = part.sum(1)
+    return dwqt.t(), dwo
+
+
 def i2t_bwd_cuda(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, dy, *,
                  nh: int, pb: int, eps: float):
-    """Launch ``i2t_bwd`` (csrc/decoder_attn.cu); same contract as
-    ``i2t_bwd_plain``. The kernel writes one partial sum of each weight
-    gradient per block; the second pass sums them over the blocks in a fixed
-    order."""
+    """The K4 backward on the card (csrc/decoder_attn.cu); same contract as
+    ``i2t_bwd_plain``. bf16: the row pass and the weight pass; f32: the
+    fused ``i2t_bwd`` kernel, which writes one partial sum of each weight
+    gradient per block, summed here in a fixed order."""
+    if keys.dtype == torch.bfloat16:
+        (dkeys, dqpre, p, ds, dout, out_rows, dres_rows, dbq, dbo, dg,
+         dbt) = i2t_bwd_rows_cuda(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g,
+                                  bt, dy, nh=nh, pb=pb, eps=eps)
+        dwq, dwo = i2t_bwd_dw_cuda(keys, pe, dqpre, out_rows, dres_rows,
+                                   pb=pb)
+        return dkeys, dqpre, p, ds, dout, dwq, dbq, dwo, dbo, dg, dbt
     bimg, m, c, bp, n_tok, internal = _check_args(
         keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, nh, pb)
     _kernel_widths(c, internal, nh)
@@ -234,7 +366,7 @@ def i2t_bwd_cuda(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, dy, *,
     dev = keys.device
     with torch.cuda.device(dev):
         tiles = -(-m // ROW_TILE)
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        sms = kernels.sm_count(dev)
         want = max(1, min(tiles, -(-2 * sms // bp)))
         splits = -(-tiles // -(-tiles // want))  # every block owns a tile
         nblk = bp * splits

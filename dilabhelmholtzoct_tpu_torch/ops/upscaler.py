@@ -10,15 +10,21 @@ upscale never exists in device memory. On a CUDA tensor it launches the
 hand-written kernels of ``csrc/upscaler.cu``:
 
   * ``upscale_fwd`` replacing the TPU ``_fused_fwd`` (``_fwd_kernel``);
-  * ``upscale_bwd`` replacing the TPU ``_fused_bwd`` (``_bwd_kernel``):
-    it recomputes the chain per row and returns d_up together with the
+  * the backward replacing the TPU ``_fused_bwd`` (``_bwd_kernel``): it
+    recomputes the chain per row and returns d_up together with the
     per-lane weight gradients summed over all rows and the per-pair
-    hypernetwork gradient.
+    hypernetwork gradient. In bf16 it is two launches on the tensor cores:
+    ``upscale_bwd_rows`` (the row pass; it also writes u1g, rnd(d_u2pre)
+    and rnd(d_u1pre) per row as bf16 scratch) and ``upscale_bwd_dw`` (the
+    weight pass: dW1 and dW2 as split-K products over row chunks). In f32
+    it is one fused kernel (``upscale_bwd``).
 
 On a CPU tensor the same ``torch.autograd.Function`` runs
 ``upscale_fwd_plain`` / ``upscale_bwd_plain``, which compute exactly what
-the kernels return from the same inputs. A CUDA tensor never reaches a
-plain version: the kernel launches or the wrapper raises.
+the kernels return from the same inputs; ``upscale_bwd_plain`` is the
+composition of the two passes' plain twins, ``upscale_bwd_rows_plain`` and
+``upscale_bwd_dw_plain``. A CUDA tensor never reaches a plain version: the
+kernel launches or the wrapper raises.
 
 Lane layouts (as in the JAX package): axis 1 of the first upscale is
 (d, e, c1), 4*C1 lanes; axis 2 of the second is (d, e, f, g, c2), 16*C2
@@ -44,10 +50,12 @@ import torch.nn.functional as F
 from .. import kernels
 
 # launch counts of the K3 kernels; a plain integer each, reset by the caller
-LAUNCHES = {"upscale_fwd": 0, "upscale_bwd": 0}
+LAUNCHES = {"upscale_fwd": 0, "upscale_bwd": 0, "upscale_bwd_dw": 0}
 CHANNELS = 256     # the only decoder width the CUDA kernels take (every SAM)
 MAX_OUT = 4        # mask tokens per pair the kernels take
-ROW_TILE = 32      # rows per tile in both kernels (csrc/upscaler.cu TM)
+ROW_TILE = 32      # rows per tile of the forward and the f32 backward (TM)
+ROW_SLOTS = 4      # tiles in flight per row-pass block, a warp pair each
+DW_ROWS = 32       # rows per stage of the weight pass (dec::DW_SR)
 
 _BOUND = False
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
@@ -114,15 +122,10 @@ def upscale_fwd_plain(up, w1, b1, g, bt, w2, b2, hyper, eps: float = 1e-6):
     return out.reshape(bp, m, -1)
 
 
-def upscale_bwd_plain(up, dm, w1, b1, g, bt, w2, b2, hyper,
-                      eps: float = 1e-6):
-    """Plain PyTorch K3 backward, returning exactly what the kernel returns:
-
-    d_up (BP, M, C) in up's dtype, then per-lane sums over all rows in f32:
-    dW1 (C, 4*C1) lanes (d, e, c1); dW2 (4, C1, 4*C2), one (C1, (f, g, c2))
-    block per (d, e); db1, dg, dbt (4*C1,); db2 (16*C2,) lanes
-    (d, e, f, g, c2); d_hyper (BP, n_out, 16*C2), summed over each pair's
-    rows."""
+def _bwd_rows(up, dm, w1, b1, g, bt, w2, b2, hyper, eps):
+    """The row part of the backward in f32, at the kernel's rounding points:
+    d_up and the scratch rows (each already rounded to up's dtype, so
+    casting them to it loses nothing), then the per-lane sums."""
     dtype = up.dtype
     approx = dtype == torch.bfloat16
     bp, m, c = up.shape
@@ -149,11 +152,56 @@ def upscale_bwd_plain(up, dm, w1, b1, g, bt, w2, b2, hyper,
     d_u1pre = rstd * (d_y - mean_dy - yn * mean_dyy)
     d_u1pre_l = _rnd(d_u1pre, dtype).reshape(bp, m, 4 * c1)
     w1f = w1.float().reshape(c, 4 * c1)
-    d_up = (d_u1pre_l @ w1f.T).to(dtype)
-    dw1 = up.float().reshape(-1, c).T @ d_u1pre_l.reshape(-1, 4 * c1)
+    d_up = d_u1pre_l @ w1f.T
     db1 = d_u1pre.sum((0, 1)).reshape(-1)
-    dw2 = torch.einsum("bmsc,bmsq->scq", u1g, d_u2pre_l)
     db2 = d_u2pre.sum((0, 1)).reshape(-1)
+    rows = (d_up, u1g.reshape(bp, m, -1), d_u2pre_l.reshape(bp, m, -1),
+            d_u1pre_l)
+    return rows, (db1, dg, dbt, db2, d_ht)
+
+
+def upscale_bwd_rows_plain(up, dm, w1, b1, g, bt, w2, b2, hyper,
+                           eps: float = 1e-6):
+    """Plain PyTorch twin of the row pass ``upscale_bwd_rows``: per row, in
+    up's dtype, d_up (BP, M, C) and the weight pass's scratch u1g (BP, M,
+    4*C1, lanes (d, e, c1)), rnd(d_u2pre) (BP, M, 16*C2, lanes (d, e, f, g,
+    c2)) and rnd(d_u1pre) (BP, M, 4*C1); summed over all rows in f32: db1,
+    dg, dbt (4*C1,), db2 (16*C2,), d_hyper (BP, n_out, 16*C2) per pair."""
+    rows, sums = _bwd_rows(up, dm, w1, b1, g, bt, w2, b2, hyper, eps)
+    return tuple(x.to(up.dtype) for x in rows) + sums
+
+
+def upscale_bwd_dw_plain(up, u1g_rows, d2_rows, du1_rows, *, parts: int = 1):
+    """Plain PyTorch twin of the weight pass ``upscale_bwd_dw``: dW1 (C,
+    4*C1) = sum_r up^T rnd(d_u1pre) and dW2 (4, C1, 4*C2), dW2[de] = sum_r
+    u1g[de]^T rnd(d_u2pre)[de], in f32, summed over ``parts`` row chunks in
+    the kernel's order (``kernels.row_chunks``)."""
+    bp, m, c = up.shape
+    n = bp * m
+    x1, y1 = up.float().reshape(n, c), du1_rows.float().reshape(n, -1)
+    x2 = u1g_rows.float().reshape(n, 4, -1)
+    y2 = d2_rows.float().reshape(n, 4, -1)
+    chunks = kernels.row_chunks(n, parts, DW_ROWS)
+    dw1 = sum(x1[lo:hi].T @ y1[lo:hi] for lo, hi in chunks)
+    dw2 = sum(torch.einsum("rsc,rsq->scq", x2[lo:hi], y2[lo:hi])
+              for lo, hi in chunks)
+    return dw1, dw2
+
+
+def upscale_bwd_plain(up, dm, w1, b1, g, bt, w2, b2, hyper,
+                      eps: float = 1e-6):
+    """Plain PyTorch K3 backward, returning exactly what the kernels return:
+
+    d_up (BP, M, C) in up's dtype, then per-lane sums over all rows in f32:
+    dW1 (C, 4*C1) lanes (d, e, c1); dW2 (4, C1, 4*C2), one (C1, (f, g, c2))
+    block per (d, e); db1, dg, dbt (4*C1,); db2 (16*C2,) lanes
+    (d, e, f, g, c2); d_hyper (BP, n_out, 16*C2), summed over each pair's
+    rows. The composition of the row pass's and the weight pass's plain
+    twins."""
+    (d_up, u1g_rows, d2_rows, du1_rows, db1, dg, dbt, db2,
+     d_ht) = upscale_bwd_rows_plain(up, dm, w1, b1, g, bt, w2, b2, hyper,
+                                    eps=eps)
+    dw1, dw2 = upscale_bwd_dw_plain(up, u1g_rows, d2_rows, du1_rows)
     return d_up, dw1, dw2, db1, dg, dbt, db2, d_ht
 
 
@@ -167,7 +215,11 @@ def _bind():
                                                             p]
         lib.dhoct_upscale_bwd.argtypes = ([p] * 18 + [i] * 5
                                           + [ctypes.c_float, p])
-        for fn in (lib.dhoct_upscale_fwd, lib.dhoct_upscale_bwd):
+        lib.dhoct_upscale_bwd_rows.argtypes = [p] + [i] * 4 + [
+            ctypes.c_float, p]
+        lib.dhoct_upscale_bwd_dw.argtypes = [p] + [i] * 3 + [p]
+        for fn in (lib.dhoct_upscale_fwd, lib.dhoct_upscale_bwd,
+                   lib.dhoct_upscale_bwd_rows, lib.dhoct_upscale_bwd_dw):
             fn.restype = ctypes.c_int
         lib.dhoct_upscale_error_string.argtypes = [ctypes.c_int]
         lib.dhoct_upscale_error_string.restype = ctypes.c_char_p
@@ -192,11 +244,10 @@ def _kernel_shapes(up, w1, w2, hyper):
 
 
 def _splits(bp: int, m: int) -> int:
-    """Blocks per pair of the backward: enough to fill the card twice over,
-    at most one per row tile."""
+    """Blocks per pair of the f32 backward: enough to fill the card twice
+    over, at most one per row tile."""
     tiles = -(-m // ROW_TILE)
-    sms = torch.cuda.get_device_properties(
-        torch.cuda.current_device()).multi_processor_count
+    sms = kernels.sm_count(torch.cuda.current_device())
     want = max(1, min(tiles, -(-2 * sms // bp)))
     per = -(-tiles // want)
     return -(-tiles // per)  # so that every block owns at least one tile
@@ -222,12 +273,87 @@ def upscale_fwd_cuda(up, w1, b1, g, bt, w2, b2, hyper, eps: float = 1e-6):
     return out
 
 
+def upscale_bwd_rows_cuda(up, dm, w1, b1, g, bt, w2, b2, hyper,
+                          eps: float = 1e-6):
+    """Launch the bf16 row pass ``upscale_bwd_rows`` (csrc/upscaler.cu) on
+    one persistent block per SM; same contract as
+    ``upscale_bwd_rows_plain``. The kernel writes one partial of each
+    per-lane sum per slot (a warp pair) and of d_hyper per 16-row tile;
+    they are summed here in a fixed order."""
+    bp, m, c, n_out = _kernel_shapes(up, w1, w2, hyper)
+    f32, dt = torch.float32, up.dtype
+    if dt != torch.bfloat16:
+        raise TypeError("upscale_bwd_rows takes bfloat16 (the f32 backward "
+                        "is the fused upscale_bwd kernel)")
+    args = (up, dm, w1, b1, g, bt, w2, b2, hyper)
+    kernels.check_operands("upscale_bwd_rows", args,
+                           (dt, f32, dt, f32, f32, f32, dt, f32, dt))
+    if dm.shape != (bp, m, n_out * 16):
+        raise ValueError(f"dm must be {(bp, m, n_out * 16)}, got "
+                         f"{tuple(dm.shape)}")
+    lib = _bind()
+    dev = up.device
+    with torch.cuda.device(dev):
+        tpp = -(-m // 16)
+        blocks = min(kernels.sm_count(dev), -(-bp * tpp // ROW_SLOTS))
+        nw = blocks * ROW_SLOTS
+        rows = tuple(torch.empty((bp, m, w), dtype=dt, device=dev)
+                     for w in (c, c, 2 * c, c))  # d_up, u1g, d_u2pre, d_u1pre
+        sums = tuple(torch.empty((nw, w), dtype=f32, device=dev)
+                     for w in (c, c, c, 2 * c))  # db1, dg, dbt, db2
+        dht = torch.empty((bp, tpp, n_out, 2 * c), dtype=f32, device=dev)
+        err = lib.dhoct_upscale_bwd_rows(
+            kernels.pointers(args + rows + sums + (dht,)), bp, m, n_out, blocks, eps,
+            torch.cuda.current_stream(dev).cuda_stream)
+    kernels.raise_on_error(err, lib.dhoct_upscale_error_string,
+                           "upscale_bwd_rows")
+    LAUNCHES["upscale_bwd"] += 1
+    return rows + tuple(x.sum(0) for x in sums) + (dht.sum(1),)
+
+
+def upscale_bwd_dw_cuda(up, u1g_rows, d2_rows, du1_rows):
+    """Launch the bf16 weight pass ``upscale_bwd_dw`` (csrc/upscaler.cu):
+    one block per (row chunk, output tile), about one per SM; same contract
+    as ``upscale_bwd_dw_plain``. The per-chunk partials are summed here in
+    a fixed order."""
+    bp, m, c = up.shape
+    args = (up, u1g_rows, d2_rows, du1_rows)
+    kernels.check_operands("upscale_bwd_dw", args, (torch.bfloat16,) * 4)
+    if (c != CHANNELS or u1g_rows.shape != (bp, m, c)
+            or d2_rows.shape != (bp, m, 2 * c)
+            or du1_rows.shape != (bp, m, c)):
+        raise ValueError("upscale_bwd_dw: up, u1g and rnd(d_u1pre) (BP, M, "
+                         "256), rnd(d_u2pre) (BP, M, 512)")
+    lib = _bind()
+    dev = up.device
+    with torch.cuda.device(dev):
+        chunks = kernels.row_chunks(bp * m, max(1, kernels.sm_count(dev) // 3),
+                                    DW_ROWS)
+        part = torch.empty((len(chunks), c * c + c * c // 2),
+                           dtype=torch.float32, device=dev)
+        err = lib.dhoct_upscale_bwd_dw(
+            kernels.pointers(args + (part,)), bp * m, chunks[0][1], len(chunks),
+            torch.cuda.current_stream(dev).cuda_stream)
+    kernels.raise_on_error(err, lib.dhoct_upscale_error_string,
+                           "upscale_bwd_dw")
+    LAUNCHES["upscale_bwd_dw"] += 1
+    dw = part.sum(0)
+    return dw[:c * c].reshape(c, c), dw[c * c:].reshape(4, c // 4, c // 2)
+
+
 def upscale_bwd_cuda(up, dm, w1, b1, g, bt, w2, b2, hyper,
                      eps: float = 1e-6):
-    """Launch ``upscale_bwd`` (csrc/upscaler.cu); same contract as
-    ``upscale_bwd_plain``. The kernel writes one partial sum of each weight
-    gradient per block; the second pass sums them over the blocks (in a
-    fixed order, so the gradients repeat bit for bit from run to run)."""
+    """The K3 backward on the card (csrc/upscaler.cu); same contract as
+    ``upscale_bwd_plain``. bf16: the row pass and the weight pass; f32: the
+    fused ``upscale_bwd`` kernel, which writes one partial sum of each
+    weight gradient per block, summed here in a fixed order (so the
+    gradients repeat bit for bit from run to run)."""
+    if up.dtype == torch.bfloat16:
+        (d_up, u1g_rows, d2_rows, du1_rows, db1, dg, dbt, db2,
+         dht) = upscale_bwd_rows_cuda(up, dm, w1, b1, g, bt, w2, b2, hyper,
+                                      eps=eps)
+        dw1, dw2 = upscale_bwd_dw_cuda(up, u1g_rows, d2_rows, du1_rows)
+        return d_up, dw1, dw2, db1, dg, dbt, db2, dht
     bp, m, c, n_out = _kernel_shapes(up, w1, w2, hyper)
     f32, dt = torch.float32, up.dtype
     # the kernel reads W1 along both axes; W1^T keeps the d_up loads

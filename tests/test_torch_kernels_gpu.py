@@ -2,7 +2,9 @@
 card tensors: encoder attention K1 (global) and K2 (windowed) with their
 logsumexp rows, its backward K5, the any-head-dim forward K6, the
 image-layout windowed forward K7, the upscaler K3 and the image->token
-attention K4; and one request through a small engine on the card.
+attention K4 (the bf16 backwards of both as their two launches, the row
+pass and the weight pass, each against its plain twin); and one request
+through a small engine on the card.
 
 Needs an NVIDIA card and nvcc; skips without a card. This file imports
 neither JAX nor tests/conftest.py's fixtures, so where JAX is not installed
@@ -509,6 +511,90 @@ def test_decoder_attn_kernels_match_plain_on_card(cuda_device, dtype, pb,
     for name, a, bb in zip(names, grads, want):
         assert a.shape == bb.shape and a.dtype == bb.dtype, name
         _rel_close(a, bb, K34_TOL[dtype], name)
+
+
+def _same_bits(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pb,n_tok,m", [(1, 7, 100), (8, 5, 37), (2, 8, 64)])
+def test_i2t_bwd_mma_passes_on_card(cuda_device, pb, n_tok, m):
+    """The bf16 K4 backward's row pass (``i2t_bwd_rows``) against its plain
+    twin, and its weight pass (``i2t_bwd_dw``) against its twin on the
+    same scratch rows (products exact, f32 summation order: 1e-4 of max
+    |dW|), on a ragged m; both the same bits on a second call."""
+    from dilabhelmholtzoct_tpu_torch.ops import decoder_attn as i2t
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    bf = torch.bfloat16
+    r = lambda *s, k=0.2, dt=bf: (torch.randn(
+        s, generator=gen, device=cuda_device) * k).to(dt)
+    f32, b = torch.float32, 2
+    args = (r(b, m, 256, k=1.0), r(1, m, 256, k=1.0),
+            r(b * pb, n_tok, 128, k=1.0), r(b * pb, n_tok, 128, k=1.0),
+            r(256, 128), r(128, dt=f32), r(128, 256), r(256, dt=f32),
+            1 + r(256, k=0.1, dt=f32), r(256, dt=f32))
+    dy = r(b * pb, m, 256, k=1.0)
+    kw = dict(nh=8, pb=pb, eps=1e-6)
+    before = dict(i2t.LAUNCHES)
+    rows = i2t.i2t_bwd_rows_cuda(*args, dy, **kw)
+    scratch = (args[0], args[1], rows[1], rows[5], rows[6])
+    dw = i2t.i2t_bwd_dw_cuda(*scratch, pb=pb)
+    torch.cuda.synchronize()
+    assert i2t.LAUNCHES["i2t_bwd"] == before["i2t_bwd"] + 1
+    assert i2t.LAUNCHES["i2t_bwd_dw"] == before["i2t_bwd_dw"] + 1
+    names = ("d_keys", "d_qpre", "p", "d_score", "d_out", "out_rows",
+             "dres_rows", "dbq", "dbo", "dg", "dbt")
+    want = i2t.i2t_bwd_rows_plain(*args, dy, **kw)
+    for name, a, w in zip(names, rows, want):
+        assert a.shape == w.shape and a.dtype == w.dtype, name
+        _rel_close(a, w, K34_TOL[bf], name)
+    for name, a, w in zip(("dWq", "dWo"), dw,
+                          i2t.i2t_bwd_dw_plain(*scratch, pb=pb)):
+        assert a.shape == w.shape and a.dtype == w.dtype, name
+        _rel_close(a, w, K34_TOL[f32], name)
+    assert _same_bits(rows, i2t.i2t_bwd_rows_cuda(*args, dy, **kw))
+    assert _same_bits(dw, i2t.i2t_bwd_dw_cuda(*scratch, pb=pb))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bp,m,n_out", [(3, 100, 1), (2, 37, 4), (5, 64, 3)])
+def test_upscale_bwd_mma_passes_on_card(cuda_device, bp, m, n_out):
+    """The bf16 K3 backward's row pass (``upscale_bwd_rows``) against its
+    plain twin, and its weight pass (``upscale_bwd_dw``) against its twin
+    on the same scratch rows (1e-4 of max |dW|), on a ragged m; both the
+    same bits on a second call."""
+    from dilabhelmholtzoct_tpu_torch.ops import upscaler as up_op
+
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    bf, f32 = torch.bfloat16, torch.float32
+    r = lambda *s, k=0.3, dt=bf: (torch.randn(
+        s, generator=gen, device=cuda_device) * k).to(dt)
+    args = (r(bp, m, 256, k=1.0), r(256, 2, 2, 64), r(64, dt=f32),
+            1 + r(64, k=0.1, dt=f32), r(64, dt=f32), r(64, 2, 2, 32),
+            r(32, dt=f32), r(bp, n_out, 32, k=1.0))
+    dm = r(bp, m, n_out * 16, k=1.0, dt=f32)
+    before = dict(up_op.LAUNCHES)
+    rows = up_op.upscale_bwd_rows_cuda(args[0], dm, *args[1:])
+    scratch = (args[0],) + rows[1:4]
+    dw = up_op.upscale_bwd_dw_cuda(*scratch)
+    torch.cuda.synchronize()
+    assert up_op.LAUNCHES["upscale_bwd"] == before["upscale_bwd"] + 1
+    assert up_op.LAUNCHES["upscale_bwd_dw"] == before["upscale_bwd_dw"] + 1
+    names = ("d_up", "u1g_rows", "d2_rows", "du1_rows", "db1", "dg", "dbt",
+             "db2", "d_hyper")
+    want = up_op.upscale_bwd_rows_plain(args[0], dm, *args[1:])
+    for name, a, w in zip(names, rows, want):
+        assert a.shape == w.shape and a.dtype == w.dtype, name
+        _rel_close(a, w, K34_TOL[bf], name)
+    for name, a, w in zip(("dW1", "dW2"), dw,
+                          up_op.upscale_bwd_dw_plain(*scratch)):
+        assert a.shape == w.shape and a.dtype == w.dtype, name
+        _rel_close(a, w, K34_TOL[f32], name)
+    assert _same_bits(rows, up_op.upscale_bwd_rows_cuda(args[0], dm,
+                                                        *args[1:]))
+    assert _same_bits(dw, up_op.upscale_bwd_dw_cuda(*scratch))
 
 
 @pytest.mark.gpu

@@ -173,4 +173,5 @@ def test_cpu_route_launches_nothing(rng):
     p = _params(rng, 256)
     p_up.upscale_hyper_masks(torch.zeros((1, 4, 256)), _sd(p),
                              torch.zeros((1, 1, 32)))
-    assert p_up.LAUNCHES == {"upscale_fwd": 0, "upscale_bwd": 0}
+    assert p_up.LAUNCHES == {"upscale_fwd": 0, "upscale_bwd": 0,
+                             "upscale_bwd_dw": 0}
