@@ -248,8 +248,10 @@ MMA_KERNELS = {"attention": ("attn_global_mma_kernel",
                                  "attn_bwd_dkv_mma_kernel"),
                "attention_relpos": ("attn_relpos_mma_kernel",),
                "attention_winimg": ("attn_winimg_mma_kernel",),
-               "upscaler": ("upscale_bwd_rows_kernel", "upscale_bwd_dw_kernel"),
-               "decoder_attn": ("i2t_bwd_rows_kernel", "i2t_bwd_dw_kernel")}
+               "upscaler": ("upscale_fwd_mma_kernel", "upscale_bwd_rows_kernel",
+                            "upscale_bwd_dw_kernel"),
+               "decoder_attn": ("i2t_fwd_mma_kernel", "i2t_bwd_rows_kernel",
+                                "i2t_bwd_dw_kernel")}
 TF32_KERNELS = {"attention": ("attn_global_tf32_kernel",
                               "attn_windowed_tf32_kernel"),
                 "attention_bwd": ("attn_bwd_dq_tf32_kernel",
@@ -273,7 +275,8 @@ def _ptxas_by_function(log):
 
 def tensor_core_check(kernels):
     """Fail unless the SASS of every tensor-core kernel -- bf16 K1 / K2 /
-    K5 / K6 / K7 and both launches of the bf16 K3 / K4 backwards, and f32
+    K5 / K6 / K7, the bf16 K3 / K4 forwards and both launches of their
+    backwards, and f32
     K1 / K2 / K5 / K6 / K7 in split TF32 -- holds tensor-core
     instructions (HMMA from mma.sync, HGMMA from wgmma; TF32 ones for the
     f32 kernels) and its ptxas report shows no spills; print the count of
@@ -558,7 +561,9 @@ def _check_outputs(torch, name, tname, got, want):
 
 def k34_kernel_phase(torch):
     """K3 and K4, forward and backward, against their plain versions at the
-    training shapes in f32 and bf16. In bf16 each backward is two launches,
+    training shapes in f32 and bf16. In bf16 each forward runs on the tensor
+    cores and gives the same bits on a second run (K4's share of outputs
+    bit-equal to ``i2t_fwd_plain`` printed); each backward is two launches,
     the row pass and the weight pass: each is held against its plain twin
     (the weight pass on the row pass's own scratch rows), the composed
     backward against ``*_bwd_plain`` and against itself on a second run
@@ -580,9 +585,12 @@ def k34_kernel_phase(torch):
         return (k * torch.randn(shape, generator=gen, device=dev)).to(dt)
 
     def run(name, tname, kernel, plain, counter, bound, replaces, iters,
-            tag="", row=None, twice=False):
+            tag="", row=None, twice=False, bits=False):
         """``name`` is the launch count the kernel call adds one to; ``row``
-        the result line's entry it fills (bf16, pb = 1)."""
+        the result line's entry it fills (bf16, pb = 1); ``replaces`` the
+        kernel's source file, its name and the TPU kernel's call site;
+        ``bits`` prints the share of outputs bit-equal to the plain
+        version."""
         before = counter[name]
         out = kernel()
         torch.cuda.synchronize()
@@ -591,13 +599,18 @@ def k34_kernel_phase(torch):
         ref = plain()
         torch.cuda.synchronize()
         err, rel = _check_outputs(torch, name + tag, tname, out, ref)
-        del ref
         same = ""
+        if bits:
+            same = (" bit-equal to plain "
+                    f"{float((out == ref).float().mean()):.5f};")
+        del ref
         if twice:
             again = kernel()
-            check(all(torch.equal(a, b) for a, b in zip(out, again)),
+            pairs = zip(out, again) if isinstance(out, tuple) else [(out,
+                                                                     again)]
+            check(all(torch.equal(a, b) for a, b in pairs),
                   f"{row or name}{tag} {tname}: a second run gave other bits")
-            same, again = " same bits on a second run;", None
+            same, again = same + " same bits on a second run;", None
         del out
         ms = cuda_ms(kernel, iters)
         plain_ms = cuda_ms(plain, 2)
@@ -610,7 +623,8 @@ def k34_kernel_phase(torch):
             rows[row] = {
                 "name": row, "route": "cuda",
                 "source": f"dilabhelmholtzoct_tpu_torch/csrc/{replaces[0]}",
-                "replaces": replaces[1], "max_abs_err": err, "ms": ms,
+                "kernel": replaces[1], "replaces": replaces[2],
+                "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": None,
             }
@@ -618,6 +632,12 @@ def k34_kernel_phase(torch):
 
     k3 = "upscaler.cu", "dilabhelmholtzoct_tpu/ops/upscaler.py"
     k4 = "decoder_attn.cu", "dilabhelmholtzoct_tpu/ops/decoder_attn.py"
+    k3_fwd = k3[0], "upscale_fwd_mma_kernel", f"{k3[1]}:295"
+    k3_bwd = k3[0], "upscale_bwd_rows_kernel", f"{k3[1]}:329"
+    k3_dw = k3[0], "upscale_bwd_dw_kernel", f"{k3[1]}:329"
+    k4_fwd = k4[0], "i2t_fwd_mma_kernel", f"{k4[1]}:264"
+    k4_bwd = k4[0], "i2t_bwd_rows_kernel", f"{k4[1]}:287"
+    k4_dw = k4[0], "i2t_bwd_dw_kernel", f"{k4[1]}:287"
     with full_fp32():
         for dt, tname in ((f32, "f32"), (torch.bfloat16, "bf16")):
             bf = dt == torch.bfloat16
@@ -633,14 +653,14 @@ def k34_kernel_phase(torch):
             bwd_args = (up_args[0], dm) + up_args[1:]
             run("upscale_fwd", tname, lambda: up_op.upscale_fwd_cuda(*up_args),
                 lambda: up_op.upscale_fwd_plain(*up_args), up_op.LAUNCHES,
-                k3_bound_ms(bp, m, n_out, isz, peak, False),
-                (k3[0], f"{k3[1]}:295"), 10, row="upscale_fwd")
+                k3_bound_ms(bp, m, n_out, isz, peak, False), k3_fwd, 10,
+                row="upscale_fwd", twice=bf)
             total = run("upscale_bwd", tname,
                         lambda: up_op.upscale_bwd_cuda(*bwd_args),
                         lambda: up_op.upscale_bwd_plain(*bwd_args),
                         up_op.LAUNCHES,
                         k3_bound_ms(bp, m, n_out, isz, peak, True),
-                        (k3[0], f"{k3[1]}:329"), 5, twice=bf,
+                        k3_bwd, 5, twice=bf,
                         row=None if bf else "upscale_bwd")
             if bf:
                 got = up_op.upscale_bwd_rows_cuda(*bwd_args)
@@ -652,14 +672,14 @@ def k34_kernel_phase(torch):
                     lambda: up_op.upscale_bwd_rows_plain(*bwd_args),
                     up_op.LAUNCHES,
                     k3_bound_ms(bp, m, n_out, isz, peak, True, "rows"),
-                    (k3[0], f"{k3[1]}:329"), 5, row="upscale_bwd")
+                    k3_bwd, 5, row="upscale_bwd")
                 t_dw = run(
                     "upscale_bwd_dw", tname,
                     lambda: up_op.upscale_bwd_dw_cuda(*scratch),
                     lambda: up_op.upscale_bwd_dw_plain(*scratch),
                     up_op.LAUNCHES,
                     k3_bound_ms(bp, m, n_out, isz, peak, True, "dw"),
-                    (k3[0], f"{k3[1]}:329"), 5, row="upscale_bwd_dw")
+                    k3_dw, 5, row="upscale_bwd_dw")
                 print(f"K3 bf16 backward: {total:.4f} ms composed (row pass "
                       f"{t_rows:.4f} + weight pass {t_dw:.4f} timed alone)")
                 del scratch
@@ -676,14 +696,14 @@ def k34_kernel_phase(torch):
                 tag = "" if pb == 1 else "_pb8"
                 run("i2t_fwd", tname, lambda: i2t.i2t_fwd_cuda(*args, **kw),
                     lambda: i2t.i2t_fwd_plain(*args, **kw), i2t.LAUNCHES,
-                    k4_bound_ms(bp, pb, m, n_tok, isz, peak, False),
-                    (k4[0], f"{k4[1]}:264"), 10, tag, row="i2t_fwd")
+                    k4_bound_ms(bp, pb, m, n_tok, isz, peak, False), k4_fwd,
+                    10, tag, row="i2t_fwd", twice=bf, bits=bf)
                 total = run("i2t_bwd", tname,
                             lambda: i2t.i2t_bwd_cuda(*args, dy, **kw),
                             lambda: i2t.i2t_bwd_plain(*args, dy, **kw),
                             i2t.LAUNCHES,
                             k4_bound_ms(bp, pb, m, n_tok, isz, peak, True),
-                            (k4[0], f"{k4[1]}:287"), 5, tag, twice=bf,
+                            k4_bwd, 5, tag, twice=bf,
                             row=None if bf else "i2t_bwd")
                 if bf:
                     got = i2t.i2t_bwd_rows_cuda(*args, dy, **kw)
@@ -695,14 +715,14 @@ def k34_kernel_phase(torch):
                         lambda: i2t.i2t_bwd_rows_plain(*args, dy, **kw),
                         i2t.LAUNCHES,
                         k4_bound_ms(bp, pb, m, n_tok, isz, peak, True, "rows"),
-                        (k4[0], f"{k4[1]}:287"), 5, tag, row="i2t_bwd")
+                        k4_bwd, 5, tag, row="i2t_bwd")
                     t_dw = run(
                         "i2t_bwd_dw", tname,
                         lambda: i2t.i2t_bwd_dw_cuda(*scratch, pb=pb),
                         lambda: i2t.i2t_bwd_dw_plain(*scratch, pb=pb),
                         i2t.LAUNCHES,
                         k4_bound_ms(bp, pb, m, n_tok, isz, peak, True, "dw"),
-                        (k4[0], f"{k4[1]}:287"), 5, tag, row="i2t_bwd_dw")
+                        k4_dw, 5, tag, row="i2t_bwd_dw")
                     print(f"K4{tag} bf16 backward: {total:.4f} ms composed "
                           f"(row pass {t_rows:.4f} + weight pass {t_dw:.4f} "
                           "timed alone)")

@@ -14,9 +14,14 @@
 // rnd() is the rounding to the input type (identity for float): the JAX
 // package's rounding points (ops/decoder_attn.py:86-117).
 //
-// i2t_fwd_kernel replaces dilabhelmholtzoct_tpu/ops/decoder_attn.py
-//    _fused_fwd (:264, body _fwd_kernel :120-130). One block per (pair,
-//    32-row tile).
+// The forward replaces dilabhelmholtzoct_tpu/ops/decoder_attn.py
+//    _fused_fwd (:264, body _fwd_kernel :120-130, math _chain :86-117).
+//    * bf16 (the training path): i2t_fwd_mma_kernel on the tensor cores,
+//      persistent 8-warp blocks with Wq and Wo in shared memory; a warp
+//      pair walks units of 16 image rows and the pb pairs of each image
+//      (the q projection once per image tile).
+//    * f32: i2t_fwd_kernel, one SIMT block per (pair, 32-row tile) (not on
+//      a main path: the JAX package routes K4 only in bf16).
 // The backward replaces the same file's _fused_bwd (:287, body _bwd_kernel
 //    :133-218): it recomputes the chain, runs the LayerNorm and softmax
 //    backward per row, writes d_keys and the per-row d_qpre, p, d_score and
@@ -29,8 +34,8 @@
 //    gradients repeat bit for bit.
 //    * bf16 (the training path): two launches on the tensor cores
 //      (decoder_mma.cuh). i2t_bwd_rows_kernel is the row pass: persistent
-//      4-warp blocks with Wq and Wo in shared memory, a warp per 16-row
-//      tile; it also writes rnd(out) and rnd(d_res) per row as bf16
+//      8-warp blocks with Wq and Wo in shared memory, a warp pair per
+//      16-row tile; it also writes rnd(out) and rnd(d_res) per row as bf16
 //      scratch. i2t_bwd_dw_kernel is the weight pass: dWo = sum_r
 //      rnd(out)^T rnd(d_res) and dWq^T = sum_r rnd(d_qpre)^T rnd(keys +
 //      pe), split-K over row chunks.
@@ -46,21 +51,25 @@
 //    bytes (keys, dy in; d_keys, d_qpre, p, d_score, d_out out) ~603 MB =
 //    0.18 ms: byte-bound; the weight pass's bf16 scratch (201 MB written
 //    and read) adds 0.12 ms of bytes.
-// What the forward (and the f32 backward) does about it: every
-//    intermediate of the chain stays in shared memory or registers, so
-//    device memory sees only the rows in and out. The two projections are
-//    f32 SIMT register tiles (one column per thread over the tile's rows,
-//    16-byte broadcast loads of the row operand); the attention runs one
-//    thread per (row, head) with the 8 tokens in registers, a per-head
-//    softmax, and k/v tiles padded to 17 floats per head against bank
+// What the kernels do about it: every intermediate of the chain stays in
+//    shared memory or registers, so device memory sees only the rows in and
+//    out. The bf16 kernels run every product on the tensor cores (mma.sync
+//    bf16 -> f32, chained from accumulator to A fragment where the operand
+//    is a rounding point of the JAX kernel, so each tensor-core term is
+//    exact): q and out projections as m16n8k16 over the warp's 16 x 128
+//    (or 16 x 64) accumulators; per head the scores (one m16n8k16, head dim
+//    16 x 8 tokens) and p . v (m16n8k8 over the 8 tokens); the backward
+//    adds d_out = d_res . Wo^T, d_keys = d_qpre . Wq^T + d_res, d_p = d_out
+//    . v^T and d_score . k. The softmax over <= 8 tokens, the LayerNorm and
+//    their backwards run in f32 registers over a lane quad. The forward
+//    copies the next unit's pe and keys rows while the current unit
+//    computes, and writes y as 16-byte row segments (quad_transpose). The
+//    f32 kernels are SIMT register tiles (one column per thread over the
+//    tile's rows, 16-byte broadcast loads of the row operand); their
+//    attention runs one thread per (row, head) with the 8 tokens in
+//    registers and k/v tiles padded to 17 floats per head against bank
 //    conflicts -- not the TPU's block-diagonal K'/V' expansions with iota
-//    masks, nor its pre-transposed padded k. The bf16 backward runs every
-//    product on the tensor cores: q and out projections, d_out = d_res .
-//    Wo^T and d_keys = d_qpre . Wq^T + d_res as m16n8k16 over the warp's
-//    16 x 256 (or 16 x 128) accumulators; per head the scores (one
-//    m16n8k16, head dim 16 x 8 tokens), p . v and d_score . k (m16n8k8 over
-//    the 8 tokens) and d_p = d_out . v^T; the softmax over <= 8 tokens,
-//    LayerNorm and their backwards in f32 registers over a lane quad.
+//    masks, nor its pre-transposed padded k.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -87,28 +96,16 @@ template <typename T>
 __device__ __forceinline__ float ld(const T* p);
 template <>
 __device__ __forceinline__ float ld<float>(const float* p) { return __ldg(p); }
-template <>
-__device__ __forceinline__ float ld<__nv_bfloat16>(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 
 template <typename T>
 __device__ __forceinline__ float rnd(float x);
 template <>
 __device__ __forceinline__ float rnd<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float rnd<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 
 template <typename T>
 __device__ __forceinline__ void st(T* p, float x);
 template <>
 __device__ __forceinline__ void st<float>(float* p, float x) { *p = x; }
-template <>
-__device__ __forceinline__ void st<__nv_bfloat16>(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -581,7 +578,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// ------------------------------------------ bf16 backward, two passes ----
+// ------------------------------- bf16 forward and backward, tensor cores ----
 using dec::bf16;
 using dec::ld_bf2;
 using dec::st_bf2;
@@ -592,9 +589,309 @@ constexpr int SLOTS = 4;          // tiles in flight per block: a warp pair each
 constexpr int RT = 64 * SLOTS;     // threads per row-pass block
 constexpr int LDI = I + 8;         // shared row of a slot's [16][I] tile
 constexpr int SLOT_BF16 = 2 * 16 * LDO + 16 * LDI;
+constexpr size_t WEIGHTS_BF16 = (size_t)C * LDQ + (size_t)I * LDO;
 constexpr size_t ROWS_SMEM =
-    sizeof(bf16) * (size_t)(C * LDQ + I * LDO + SLOTS * SLOT_BF16) +
+    sizeof(bf16) * (WEIGHTS_BF16 + SLOTS * SLOT_BF16) +
     sizeof(float) * (size_t)SLOTS * 6 * 2 * 16;
+constexpr size_t FWD_MMA_SMEM =
+    sizeof(bf16) * (WEIGHTS_BF16 + SLOTS * SLOT_BF16) +
+    sizeof(float) * (size_t)SLOTS * 2 * 2 * 16;
+
+// The forward chain's pieces that the forward kernel and the backward's row
+// pass share. A warp pair owns a 16-row tile; warp `sub` takes the heads
+// 4 sub.. (I lanes i0 = 64 sub..) and the C columns c0 = 128 sub... Lane =
+// 4 g + t holds rows g and g + 8 of every accumulator n-tile, columns 2t,
+// 2t + 1.
+
+// q projection of the warp's 64 lanes, qin = rnd(keys + pe) formed in the A
+// fragments (keys x_s, pe e_s, [16][LDO]); qs = rnd(rnd(qpre + bq) *
+// rnd(1/4)) returned as A fragments, one k16 step per head
+__device__ __forceinline__ void q_heads(uint32_t (&qf)[4][4], const bf16* x_s,
+                                        const bf16* e_s, const bf16* wq_s,
+                                        const float* bq, int i0, int lane) {
+  using namespace dec;
+  const int tq = lane & 3;
+  const float scale_in = round_bf16(1.f / sqrtf((float)HD));
+  float acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll 4
+  for (int kk = 0; kk < C / 16; ++kk) {
+    uint32_t a[4], e[4];
+    load_a<LDO>(a, x_s, 0, 16 * kk, lane);
+    load_a<LDO>(e, e_s, 0, 16 * kk, lane);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 kf = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&a[j]));
+      const float2 pf = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&e[j]));
+      a[j] = pack_bf16(kf.x + pf.x, kf.y + pf.y);
+    }
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t b[4];
+      load_b_kn<LDQ>(b, wq_s, 16 * kk, i0 + 16 * np, lane);
+      mma16816(acc[2 * np], a, b[0], b[1]);
+      mma16816(acc[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = i0 + 8 * j + 2 * tq;
+    const float b0 = bq[col], b1 = bq[col + 1];
+    qf[j / 2][(j & 1) * 2] =
+        pack_bf16(round_bf16(acc[j][0] + b0) * scale_in,
+                  round_bf16(acc[j][1] + b1) * scale_in);
+    qf[j / 2][(j & 1) * 2 + 1] =
+        pack_bf16(round_bf16(acc[j][2] + b0) * scale_in,
+                  round_bf16(acc[j][3] + b1) * scale_in);
+  }
+}
+
+// head h: scores of qs (its A fragment qh) against the pair's tokens tk
+// (one m16n8k16: head dim 16 x 8 tokens) and their softmax in f32 over a
+// lane quad, -inf past n_tok: p[0..1] row g, p[2..3] row g + 8, tokens 2t,
+// 2t + 1
+__device__ __forceinline__ void head_softmax(float (&p)[4], const uint32_t* qh,
+                                             const bf16* tk, int h, int n_tok,
+                                             int lane) {
+  using namespace dec;
+  const int gq = lane >> 2, tq = lane & 3;
+  const bool tg = gq < n_tok, t0 = 2 * tq < n_tok, t1 = 2 * tq + 1 < n_tok;
+  float sc[4] = {0.f, 0.f, 0.f, 0.f};
+  mma16816(sc, qh, tg ? ld_u32(tk + gq * I + 16 * h + 2 * tq) : 0u,
+           tg ? ld_u32(tk + gq * I + 16 * h + 8 + 2 * tq) : 0u);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float x0 = t0 ? sc[2 * r] : -INFINITY, x1 = t1 ? sc[2 * r + 1] : -INFINITY;
+    const float mx = quad_max(fmaxf(x0, x1));
+    x0 = t0 ? expf(x0 - mx) : 0.f;
+    x1 = t1 ? expf(x1 - mx) : 0.f;
+    const float inv = 1.f / quad_sum(x0 + x1);
+    p[2 * r] = x0 * inv;
+    p[2 * r + 1] = x1 * inv;
+  }
+}
+
+// head h: rnd(out) = rnd(rnd(p) . v) over the pair's tokens tv (m16n8k8),
+// the head's 16 lanes as packed bf16 pairs: w[n][r] rows g (r = 0), g + 8,
+// lanes 16 h + 8 n + 2t, + 1
+__device__ __forceinline__ void head_out(uint32_t (&w)[2][2],
+                                         const float (&p)[4], const bf16* tv,
+                                         int h, int n_tok, int lane) {
+  using namespace dec;
+  const int gq = lane >> 2, tq = lane & 3;
+  const bool t0 = 2 * tq < n_tok, t1 = 2 * tq + 1 < n_tok;
+  const bf16 zero = __float2bfloat16(0.f);
+  const uint32_t pa0 = pack_bf16(p[0], p[1]), pa1 = pack_bf16(p[2], p[3]);
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+    const int d = 16 * h + 8 * n + gq;
+    float o[4] = {0.f, 0.f, 0.f, 0.f};
+    mma1688(o, pa0, pa1,
+            pack_raw(t0 ? tv[2 * tq * I + d] : zero,
+                     t1 ? tv[(2 * tq + 1) * I + d] : zero));
+    w[n][0] = pack_bf16(o[0], o[1]);
+    w[n][1] = pack_bf16(o[2], o[3]);
+  }
+}
+
+// acc (16 rows x the warp's 128 columns c0..) = rnd(out) . Wo, rnd(out) of
+// all heads in o_s [16][LDI]
+__device__ __forceinline__ void out_product(float (&acc)[16][4],
+                                            const bf16* o_s, const bf16* wo_s,
+                                            int c0, int lane) {
+  using namespace dec;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll 2
+  for (int kk = 0; kk < I / 16; ++kk) {
+    uint32_t a[4];
+    load_a<LDI>(a, o_s, 0, 16 * kk, lane);
+#pragma unroll
+    for (int np = 0; np < 8; ++np) {
+      uint32_t b[4];
+      load_b_kn<LDO>(b, wo_s, 16 * kk, c0 + 16 * np, lane);
+      mma16816(acc[2 * np], a, b[0], b[1]);
+      mma16816(acc[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// The bf16 forward. Persistent blocks of SLOTS warp pairs (one block per
+// SM) hold Wq [C][LDQ] and Wo [I][LDO] in shared memory. A pair walks units
+// of 16 image rows: unit u is row tile u % tpp of image u / tpp, and the pb
+// pairs of that image share its keys, pe, qin and qs, so the unit loads its
+// keys and pe rows once and computes the q projection once (qs stays in
+// registers), then runs the attention, out projection, residual and
+// LayerNorm for each of the pb pairs. Per slot: the unit's keys [16][LDO]
+// (the residual reads them for every pair), its pe [16][LDO] (free after
+// the q projection: the next unit's pe is copied in while this unit's
+// pairs run; the next keys follow once the last pair has read them), the
+// rnd(out) rows [16][LDI] that cross the pair's halves, and the two warps'
+// LayerNorm sums. y leaves registers as 16-byte row segments: a quad
+// transpose gives each lane 8 neighbouring columns of a row.
+__global__ void __launch_bounds__(RT, 1)
+    i2t_fwd_mma_kernel(const bf16* keys, const bf16* pe, const bf16* tok_k,
+                       const bf16* tok_v, const bf16* wq, const float* bq,
+                       const bf16* wo, const float* bo, const float* g,
+                       const float* bt, bf16* out, int bp, int m, int pb,
+                       int n_tok, float eps) {
+  using namespace dec;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* wq_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* wo_s = wq_s + C * LDQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int slot = warp >> 1, sub = warp & 1, pl = 32 * sub + lane;
+  const int gq = lane >> 2, tq = lane & 3;
+  bf16* x_s = wo_s + I * LDO + slot * SLOT_BF16;
+  bf16* e_s = x_s + 16 * LDO;
+  bf16* o_s = e_s + 16 * LDO;
+  float* st_s = reinterpret_cast<float*>(wo_s + I * LDO + SLOTS * SLOT_BF16) +
+                slot * 2 * 2 * 16;  // [quantity][sub][row]
+  auto pair_sync = [&] {  // the pair's own barrier (0 is __syncthreads)
+    asm volatile("bar.sync %0, 64;\n" ::"r"(1 + slot) : "memory");
+  };
+  // the sum of quantity q of rows g, g + 8 over the pair's two warps (each
+  // already quad-reduced over its columns), added in a fixed order
+  auto pair_sum = [&](int q, float (&v)[2]) {
+    if (tq == 0) {
+      st_s[(q * 2 + sub) * 16 + gq] = v[0];
+      st_s[(q * 2 + sub) * 16 + gq + 8] = v[1];
+    }
+    pair_sync();
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      v[r] = st_s[(q * 2) * 16 + gq + 8 * r] + st_s[(q * 2 + 1) * 16 + gq + 8 * r];
+  };
+
+  const int tpp = (m + 15) / 16, units = (bp / pb) * tpp;
+  const int stride = gridDim.x * SLOTS;
+  const int i0 = 64 * sub, c0 = 128 * sub;
+  auto load_keys = [&](int u) {
+    const int img = u / tpp, row0 = (u - img * tpp) * 16;
+    slot_rows_async<C, LDO>(x_s, keys + ((size_t)img * m + row0) * C,
+                            min(16, m - row0), pl);
+  };
+  auto load_pe = [&](int u) {
+    const int row0 = (u % tpp) * 16;
+    slot_rows_async<C, LDO>(e_s, pe + (size_t)row0 * C, min(16, m - row0), pl);
+  };
+
+  int unit = blockIdx.x * SLOTS + slot;
+  block_weights_async<C, I, LDQ, RT>(wq_s, wq);
+  block_weights_async<I, C, LDO, RT>(wo_s, wo);
+  if (unit < units) {
+    load_keys(unit);
+    load_pe(unit);
+  }
+  cp_commit();
+  cp_wait<0>();
+  __syncthreads();
+
+  for (; unit < units; unit += stride) {
+    cp_wait<0>();
+    pair_sync();  // the unit's keys and pe rows landed
+    const int img = unit / tpp, row0 = (unit - img * tpp) * 16;
+    const int valid = min(16, m - row0);
+    const bool ok0 = gq < valid, ok1 = gq + 8 < valid;
+    const int next = unit + stride;
+    uint32_t qf[4][4];
+    q_heads(qf, x_s, e_s, wq_s, bq, i0, lane);
+    pair_sync();  // both warps are done with pe
+    if (next < units) load_pe(next);
+    cp_commit();
+
+    for (int j = 0; j < pb; ++j) {
+      const int pair = img * pb + j;
+      const bf16* tk = tok_k + (size_t)pair * n_tok * I;
+      const bf16* tv = tok_v + (size_t)pair * n_tok * I;
+      // per head: softmax, rnd(out) -> o_s
+#pragma unroll
+      for (int hh = 0; hh < 4; ++hh) {
+        const int h = 4 * sub + hh;
+        float p[4];
+        head_softmax(p, qf[hh], tk, h, n_tok, lane);
+        uint32_t w[2][2];
+        head_out(w, p, tv, h, n_tok, lane);
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const int col = 16 * h + 8 * n + 2 * tq;
+          *reinterpret_cast<uint32_t*>(o_s + gq * LDI + col) = w[n][0];
+          *reinterpret_cast<uint32_t*>(o_s + (gq + 8) * LDI + col) = w[n][1];
+        }
+      }
+      pair_sync();  // o_s holds rnd(out) of all heads
+
+      // res = rnd(keys + rnd(rnd(out) . Wo + bo)), this warp's columns
+      float acc[16][4];
+      out_product(acc, o_s, wo_s, c0, lane);
+      float s[2] = {0.f, 0.f};
+#pragma unroll
+      for (int jn = 0; jn < 16; ++jn) {
+        const int col = c0 + 8 * jn + 2 * tq;
+        const float2 k0 = ld_bf2(x_s + gq * LDO + col);
+        const float2 k1 = ld_bf2(x_s + (gq + 8) * LDO + col);
+        const float b0 = bo[col], b1 = bo[col + 1];
+        acc[jn][0] = round_bf16(k0.x + round_bf16(acc[jn][0] + b0));
+        acc[jn][1] = round_bf16(k0.y + round_bf16(acc[jn][1] + b1));
+        acc[jn][2] = round_bf16(k1.x + round_bf16(acc[jn][2] + b0));
+        acc[jn][3] = round_bf16(k1.y + round_bf16(acc[jn][3] + b1));
+        s[0] += acc[jn][0] + acc[jn][1];
+        s[1] += acc[jn][2] + acc[jn][3];
+      }
+      // LayerNorm over the 256 columns of rows g, g + 8 (f32): mean, then
+      // the centred variance
+      s[0] = quad_sum(s[0]);
+      s[1] = quad_sum(s[1]);
+      pair_sum(0, s);  // also: both warps have read the keys
+      if (j == pb - 1) {
+        if (next < units) load_keys(next);
+        cp_commit();
+      }
+      const float mu0 = s[0] * (1.f / C), mu1 = s[1] * (1.f / C);
+      s[0] = s[1] = 0.f;
+#pragma unroll
+      for (int jn = 0; jn < 16; ++jn) {
+        acc[jn][0] -= mu0;
+        acc[jn][1] -= mu0;
+        acc[jn][2] -= mu1;
+        acc[jn][3] -= mu1;
+        s[0] = fmaf(acc[jn][0], acc[jn][0], fmaf(acc[jn][1], acc[jn][1], s[0]));
+        s[1] = fmaf(acc[jn][2], acc[jn][2], fmaf(acc[jn][3], acc[jn][3], s[1]));
+      }
+      s[0] = quad_sum(s[0]);
+      s[1] = quad_sum(s[1]);
+      pair_sum(1, s);
+      const float rs0 = rsqrtf(s[0] * (1.f / C) + eps);
+      const float rs1 = rsqrtf(s[1] * (1.f / C) + eps);
+      // y = rnd(yn g + bt) (a product and a sum, each rounded, as the plain
+      // version); four n-tiles per 16-byte segment of each row
+      bf16* y0 = out + ((size_t)pair * m + row0 + gq) * C;
+      bf16* y1 = y0 + 8 * C;
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        uint32_t w0[4], w1[4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int jn = 4 * a + jj, col = c0 + 8 * jn + 2 * tq;
+          const float g0 = g[col], g1 = g[col + 1];
+          const float t0 = bt[col], t1 = bt[col + 1];
+          w0[jj] = pack_bf16(__fadd_rn(__fmul_rn(__fmul_rn(acc[jn][0], rs0), g0), t0),
+                             __fadd_rn(__fmul_rn(__fmul_rn(acc[jn][1], rs0), g1), t1));
+          w1[jj] = pack_bf16(__fadd_rn(__fmul_rn(__fmul_rn(acc[jn][2], rs1), g0), t0),
+                             __fadd_rn(__fmul_rn(__fmul_rn(acc[jn][3], rs1), g1), t1));
+        }
+        quad_transpose(w0, tq);
+        quad_transpose(w1, tq);
+        const int col = c0 + 32 * a + 8 * tq;
+        if (ok0) *reinterpret_cast<uint4*>(y0 + col) = make_uint4(w0[0], w0[1], w0[2], w0[3]);
+        if (ok1) *reinterpret_cast<uint4*>(y1 + col) = make_uint4(w1[0], w1[1], w1[2], w1[3]);
+      }
+    }
+  }
+}
 
 // The row pass. A pair of warps shares each 16-row tile (a slot): warp
 // `sub` of the pair takes the heads 4 sub.. (the I lanes 64 sub..) and the
@@ -656,7 +953,6 @@ __global__ void __launch_bounds__(RT, 1)
   cp_wait<0>();
   __syncthreads();
 
-  const float scale_in = round_bf16(1.f / sqrtf((float)HD));
   const float scale_f32 = 1.f / sqrtf((float)HD);
   const int tpp = (m + 15) / 16, ntiles = bp * tpp;
   const int c0 = 128 * sub, i0 = 64 * sub;  // this warp's columns of C, I
@@ -682,45 +978,9 @@ __global__ void __launch_bounds__(RT, 1)
     cp_wait<0>();
     pair_sync();
 
-    // q projection, this warp's 64 lanes: qin = rnd(keys + pe) formed in
-    // the A fragments
-    float acc[16][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll 4
-    for (int kk = 0; kk < C / 16; ++kk) {
-      uint32_t a[4], e[4];
-      load_a<LDO>(a, x_s, 0, 16 * kk, lane);
-      load_a<LDO>(e, e_s, 0, 16 * kk, lane);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 kf = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&a[j]));
-        const float2 pf = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&e[j]));
-        a[j] = pack_bf16(kf.x + pf.x, kf.y + pf.y);
-      }
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t b[4];
-        load_b_kn<LDQ>(b, wq_s, 16 * kk, i0 + 16 * np, lane);
-        mma16816(acc[2 * np], a, b[0], b[1]);
-        mma16816(acc[2 * np + 1], a, b[2], b[3]);
-      }
-    }
-    // qs = rnd(rnd(qpre + bq) * scale) as A fragments, one k16 step per head
+    // q projection, this warp's 64 lanes -> qs as per-head A fragments
     uint32_t qf[4][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = i0 + 8 * j + 2 * tq;
-      const float b0 = bq[col], b1 = bq[col + 1];
-      qf[j / 2][(j & 1) * 2] =
-          pack_bf16(round_bf16(acc[j][0] + b0) * scale_in,
-                    round_bf16(acc[j][1] + b1) * scale_in);
-      qf[j / 2][(j & 1) * 2 + 1] =
-          pack_bf16(round_bf16(acc[j][2] + b0) * scale_in,
-                    round_bf16(acc[j][3] + b1) * scale_in);
-    }
+    q_heads(qf, x_s, e_s, wq_s, bq, i0, lane);
     pair_sync();  // pe is read by both warps: e_s holds p from here on
 
     // per head: scores, softmax (p kept in f32), out = rnd(rnd(p) . v) ->
@@ -731,60 +991,31 @@ __global__ void __launch_bounds__(RT, 1)
 #pragma unroll
     for (int hh = 0; hh < 4; ++hh) {
       const int h = 4 * sub + hh;
-      float sc[4] = {0.f, 0.f, 0.f, 0.f};
-      mma16816(sc, qf[hh], tg ? ld_u32(tk + gq * I + 16 * h + 2 * tq) : 0u,
-               tg ? ld_u32(tk + gq * I + 16 * h + 8 + 2 * tq) : 0u);
       float p[4];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float x0 = t0 ? sc[2 * r] : -INFINITY, x1 = t1 ? sc[2 * r + 1] : -INFINITY;
-        const float mx = quad_max(fmaxf(x0, x1));
-        x0 = t0 ? expf(x0 - mx) : 0.f;
-        x1 = t1 ? expf(x1 - mx) : 0.f;
-        const float inv = 1.f / quad_sum(x0 + x1);
-        p[2 * r] = x0 * inv;
-        p[2 * r + 1] = x1 * inv;
-      }
+      head_softmax(p, qf[hh], tk, h, n_tok, lane);
       *reinterpret_cast<float2*>(p_s + gq * NH * TP + h * TP + 2 * tq) =
           make_float2(p[0], p[1]);
       *reinterpret_cast<float2*>(p_s + (gq + 8) * NH * TP + h * TP + 2 * tq) =
           make_float2(p[2], p[3]);
       if (ok0) st_bf2(p_out + r0 * (NH * TP) + h * TP + 2 * tq, p[0], p[1]);
       if (ok1) st_bf2(p_out + r1 * (NH * TP) + h * TP + 2 * tq, p[2], p[3]);
-      const uint32_t pa0 = pack_bf16(p[0], p[1]), pa1 = pack_bf16(p[2], p[3]);
+      uint32_t w[2][2];
+      head_out(w, p, tv, h, n_tok, lane);
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
-        const int d = 16 * h + 8 * n + gq;
-        float o[4] = {0.f, 0.f, 0.f, 0.f};
-        mma1688(o, pa0, pa1,
-                pack_raw(t0 ? tv[2 * tq * I + d] : zero,
-                         t1 ? tv[(2 * tq + 1) * I + d] : zero));
-        const uint32_t w0 = pack_bf16(o[0], o[1]), w1 = pack_bf16(o[2], o[3]);
         const int col = 16 * h + 8 * n + 2 * tq;
-        *reinterpret_cast<uint32_t*>(o_s + gq * LDI + col) = w0;
-        *reinterpret_cast<uint32_t*>(o_s + (gq + 8) * LDI + col) = w1;
-        if (ok0) *reinterpret_cast<uint32_t*>(out_rows + r0 * I + col) = w0;
-        if (ok1) *reinterpret_cast<uint32_t*>(out_rows + r1 * I + col) = w1;
+        *reinterpret_cast<uint32_t*>(o_s + gq * LDI + col) = w[n][0];
+        *reinterpret_cast<uint32_t*>(o_s + (gq + 8) * LDI + col) = w[n][1];
+        if (ok0) *reinterpret_cast<uint32_t*>(out_rows + r0 * I + col) = w[n][0];
+        if (ok1) *reinterpret_cast<uint32_t*>(out_rows + r1 * I + col) = w[n][1];
       }
     }
     pair_sync();  // o_s holds rnd(out) of all heads
 
     // out projection, this warp's 128 columns; res = rnd(keys + rnd(proj +
     // bo)) over its keys in x_s, and its part of the row sums
-#pragma unroll
-    for (int j = 0; j < 16; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll 2
-    for (int kk = 0; kk < I / 16; ++kk) {
-      uint32_t a[4];
-      load_a<LDI>(a, o_s, 0, 16 * kk, lane);
-#pragma unroll
-      for (int np = 0; np < 8; ++np) {
-        uint32_t b[4];
-        load_b_kn<LDO>(b, wo_s, 16 * kk, c0 + 16 * np, lane);
-        mma16816(acc[2 * np], a, b[0], b[1]);
-        mma16816(acc[2 * np + 1], a, b[2], b[3]);
-      }
-    }
+    float acc[16][4];
+    out_product(acc, o_s, wo_s, c0, lane);
     float st[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
@@ -1111,26 +1342,43 @@ int launch_bwd_dw(void* const* a, int bp, int m, int pb, int chunk,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_fwd(const void* keys, const void* pe, const void* tok_k,
-               const void* tok_v, const void* wq, const void* bq,
-               const void* wo, const void* bo, const void* g, const void* bt,
-               void* out, int bp, int m, int pb, int n_tok, float eps,
-               cudaStream_t stream) {
-  if (n_tok < 1 || n_tok > TP || pb < 1 || bp % pb)
-    return (int)cudaErrorInvalidValue;
+int launch_fwd_f32(const void* keys, const void* pe, const void* tok_k,
+                   const void* tok_v, const void* wq, const void* bq,
+                   const void* wo, const void* bo, const void* g,
+                   const void* bt, void* out, int bp, int m, int pb,
+                   int n_tok, float eps, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      i2t_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      i2t_fwd_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)FWD_SMEM);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((m + TM - 1) / TM, bp);
-  i2t_fwd_kernel<T><<<grid, THREADS, FWD_SMEM, stream>>>(
-      static_cast<const T*>(keys), static_cast<const T*>(pe),
-      static_cast<const T*>(tok_k), static_cast<const T*>(tok_v),
-      static_cast<const T*>(wq), static_cast<const float*>(bq),
-      static_cast<const T*>(wo), static_cast<const float*>(bo),
+  i2t_fwd_kernel<float><<<grid, THREADS, FWD_SMEM, stream>>>(
+      static_cast<const float*>(keys), static_cast<const float*>(pe),
+      static_cast<const float*>(tok_k), static_cast<const float*>(tok_v),
+      static_cast<const float*>(wq), static_cast<const float*>(bq),
+      static_cast<const float*>(wo), static_cast<const float*>(bo),
       static_cast<const float*>(g), static_cast<const float*>(bt),
-      static_cast<T*>(out), m, pb, n_tok, eps);
+      static_cast<float*>(out), m, pb, n_tok, eps);
+  return (int)cudaGetLastError();
+}
+
+int launch_fwd_mma(const void* keys, const void* pe, const void* tok_k,
+                   const void* tok_v, const void* wq, const void* bq,
+                   const void* wo, const void* bo, const void* g,
+                   const void* bt, void* out, int bp, int m, int pb,
+                   int n_tok, int blocks, float eps, cudaStream_t stream) {
+  if (blocks < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      i2t_fwd_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)FWD_MMA_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  i2t_fwd_mma_kernel<<<blocks, RT, FWD_MMA_SMEM, stream>>>(
+      static_cast<const bf16*>(keys), static_cast<const bf16*>(pe),
+      static_cast<const bf16*>(tok_k), static_cast<const bf16*>(tok_v),
+      static_cast<const bf16*>(wq), static_cast<const float*>(bq),
+      static_cast<const bf16*>(wo), static_cast<const float*>(bo),
+      static_cast<const float*>(g), static_cast<const float*>(bt),
+      static_cast<bf16*>(out), bp, m, pb, n_tok, eps);
   return (int)cudaGetLastError();
 }
 
@@ -1170,18 +1418,21 @@ int launch_bwd(void* const* a, int bp, int m, int pb, int n_tok, int splits,
 // cudaError_t of the launch (0 = success); the caller raises on non-zero.
 extern "C" {
 
+// The forward: bf16 on `blocks` persistent blocks (i2t_fwd_mma_kernel),
+// f32 one block per (pair, 32-row tile) (i2t_fwd_kernel; `blocks` unused).
 int dhoct_i2t_fwd(const void* keys, const void* pe, const void* tok_k,
                   const void* tok_v, const void* wq, const void* bq,
                   const void* wo, const void* bo, const void* g,
                   const void* bt, void* out, int bp, int m, int pb, int n_tok,
-                  int dtype, float eps, void* stream) {
+                  int blocks, int dtype, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_tok < 1 || n_tok > TP || pb < 1 || bp % pb || m < 1)
+    return (int)cudaErrorInvalidValue;
   return dtype == 1
-             ? launch_fwd<__nv_bfloat16>(keys, pe, tok_k, tok_v, wq, bq, wo,
-                                         bo, g, bt, out, bp, m, pb, n_tok,
-                                         eps, s)
-             : launch_fwd<float>(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g,
-                                 bt, out, bp, m, pb, n_tok, eps, s);
+             ? launch_fwd_mma(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt,
+                              out, bp, m, pb, n_tok, blocks, eps, s)
+             : launch_fwd_f32(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt,
+                              out, bp, m, pb, n_tok, eps, s);
 }
 
 // The f32 backward (i2t_bwd_kernel). Operands in order: keys, pe, tok_k,

@@ -119,6 +119,30 @@ __device__ __forceinline__ int group_col(int grp, int lane) {
   return 8 * (4 * grp + (g >> 1)) + 2 * (lane & 3) + (g & 1);
 }
 
+// A 4 x 4 transpose of 32-bit words within each lane quad: on entry lane t
+// holds x[j] = word (t, j), on exit x[s] = word (s, t). For packed
+// accumulators of four neighbouring n-tiles (word j: n-tile j, columns
+// 2t, 2t + 1 of one row), lane t ends with the eight columns of n-tile t:
+// a 16-byte row segment. Two exchanges (lanes t ^ 2, then t ^ 1), each
+// swapping the two words whose index differs from t in that bit.
+__device__ __forceinline__ void quad_transpose(uint32_t (&x)[4], int t) {
+#pragma unroll
+  for (int mask = 2; mask >= 1; mask >>= 1) {
+    const bool hi = t & mask;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (u & mask) continue;
+      // the pair (u, u | mask): swap the word whose bit differs from t's
+      const uint32_t send = hi ? x[u] : x[u | mask];
+      const uint32_t got = __shfl_xor_sync(0xffffffffu, send, mask);
+      if (hi)
+        x[u] = got;
+      else
+        x[u | mask] = got;
+    }
+  }
+}
+
 // The tiles of the row pass: 16-row tiles of each pair's m rows, pair-major;
 // slot s of the grid (a warp pair) takes tiles s, s + (slots of the grid), ...
 struct RowTile {

@@ -14,9 +14,14 @@
 // (identity for float) and gelu the tanh form for bf16, the erf form for f32
 // (the JAX package's rounding points, ops/upscaler.py:77-138).
 //
-// upscale_fwd_kernel replaces dilabhelmholtzoct_tpu/ops/upscaler.py
-//    _fused_fwd (:295, body _fwd_kernel :119-138). One block per (pair,
-//    32-row tile).
+// The forward replaces dilabhelmholtzoct_tpu/ops/upscaler.py _fused_fwd
+//    (:295, body _fwd_kernel :119-138, math _chain_fwd :77-99).
+//    * bf16 (the training path): upscale_fwd_mma_kernel on the tensor
+//      cores, persistent 8-warp blocks with W1 and W2 in shared memory, a
+//      warp pair per 16-row tile, the next tile's rows copied in while
+//      this one computes.
+//    * f32: upscale_fwd_kernel, one SIMT block per (pair, 32-row tile) (not
+//      on a main path: the JAX package routes K3 only in bf16).
 // The backward replaces the same file's _fused_bwd (:329, body _bwd_kernel
 //    :141-243): it recomputes the chain per row, writes d_up per row, and
 //    sums the weight and vector gradients over rows. The JAX kernel carries
@@ -26,9 +31,9 @@
 //    gradients repeat bit for bit from run to run.
 //    * bf16 (the training path): two launches on the tensor cores
 //      (decoder_mma.cuh). upscale_bwd_rows_kernel is the row pass:
-//      persistent 4-warp blocks with W1 and W2 in shared memory, a warp per
-//      16-row tile, the chain per (d, e) block of 64 lanes; it writes u1g,
-//      rnd(d_u2pre) and rnd(d_u1pre) per row as bf16 scratch.
+//      persistent 8-warp blocks with W1 and W2 in shared memory, a warp
+//      pair per 16-row tile, the chain per (d, e) block of 64 lanes; it
+//      writes u1g, rnd(d_u2pre) and rnd(d_u1pre) per row as bf16 scratch.
 //      upscale_bwd_dw_kernel is the weight pass: dW1 = sum_r up^T
 //      rnd(d_u1pre) (two 128-row output tiles) and dW2[de] = sum_r
 //      u1g[de]^T rnd(d_u2pre)[de], split-K over row chunks.
@@ -44,17 +49,20 @@
 //    15x higher. The bf16 backward's scratch (536 MB written and read once)
 //    adds 0.32 ms of bytes.
 // What this design does about it: the 268 MB second upscale stays in shared
-//    memory and registers (as on the TPU); each row tile keeps its inputs
-//    and every intermediate in shared memory, the products are f32 SIMT
-//    register tiles (one output column per thread over the tile's 32 rows,
-//    16-byte broadcast loads of the row operand). The second product runs
-//    per (d, e) block of W2 (64 x 128), not as the TPU's 256 x 512 Kronecker
-//    expansion; LayerNorm reduces its 64 lanes with warp shuffles, not
-//    selector matmuls. The forward and the f32 backward run on the CUDA
-//    cores; the bf16 backward runs every product on the tensor cores
-//    (first and second products, d_u1g = rnd(d_u2pre) . W2^T, d_up =
-//    rnd(d_u1pre) . W1^T as m16n8k16 over the warp's accumulators), with the
-//    LayerNorms, GELUs and their backwards in f32 registers.
+//    memory and registers (as on the TPU). The bf16 kernels run every
+//    product on the tensor cores (mma.sync bf16 -> f32; each operand a bf16
+//    rounding point of the JAX kernel, so each term is exact): the first
+//    and second products per (d, e) block (the second by halves of 64
+//    lanes), the hypernetwork sum over c2 as m16n8k16 against hyper^T, and
+//    in the backward d_u1g = rnd(d_u2pre) . W2^T and d_up = rnd(d_u1pre) .
+//    W1^T; the LayerNorms, GELUs and their backwards run in f32 registers
+//    over a lane quad. The f32 kernels keep each row tile's inputs and
+//    every intermediate in shared memory; their products are SIMT register
+//    tiles (one output column per thread over the tile's 32 rows, 16-byte
+//    broadcast loads of the row operand). The second product runs per
+//    (d, e) block of W2 (64 x 128), not as the TPU's 256 x 512 Kronecker
+//    expansion; LayerNorm reduces its 64 lanes with shuffles, not selector
+//    matmuls.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,19 +92,11 @@ template <typename T>
 __device__ __forceinline__ float ld(const T* p);
 template <>
 __device__ __forceinline__ float ld<float>(const float* p) { return __ldg(p); }
-template <>
-__device__ __forceinline__ float ld<__nv_bfloat16>(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 
 template <typename T>
 __device__ __forceinline__ float rnd(float x);
 template <>
 __device__ __forceinline__ float rnd<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float rnd<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 
 template <typename T>
 __device__ __forceinline__ void st(T* p, float x);
@@ -543,6 +543,8 @@ constexpr int CS = 4 * LQ + L1;    // a slot's per-column sums: db2, db1
 constexpr size_t ROWS_SMEM =
     sizeof(bf16) * (size_t)(C * LD1 + C1 * LD2 + SLOTS * 2 * 16 * LD1) +
     sizeof(float) * (size_t)SLOTS * CS;
+constexpr size_t FWD_MMA_SMEM =
+    sizeof(bf16) * (size_t)(C * LD1 + C1 * LD2 + SLOTS * 2 * 16 * LD1);
 
 // gelu (tanh form) of x and its derivative from one tanh
 __device__ __forceinline__ float gelu_and_grad(float x, float* grad) {
@@ -560,6 +562,216 @@ __device__ __forceinline__ void add_at(float (&acc)[4 * N], int de, int i,
 #pragma unroll
   for (int d = 0; d < 4; ++d)
     if (d == de) acc[d * N + i] += v;
+}
+
+// The forward chain's pieces that the forward kernel and the backward's row
+// pass share. Lane = 4 g + t holds rows g and g + 8 of every accumulator
+// n-tile, columns 2t, 2t + 1.
+
+// (d, e) block de of the first upscale for a 16-row tile: u1pre = up . W1
+// + b1 over its 64 lanes (up u_s [16][LD1], W1 w1_s), the LayerNorm over
+// them (mean, then the centred variance; f32): y in a1, 1/std of rows g,
+// g + 8 in rs; and u1g = rnd(gelu(rnd(y g + bt))) as the A fragments of
+// the second product (one k16 step per two n-tiles)
+__device__ __forceinline__ void first_block(float (&a1)[8][4], float (&rs)[2],
+                                            uint32_t (&ua)[4][4],
+                                            const bf16* u_s, const bf16* w1_s,
+                                            const float* b1, const float* g,
+                                            const float* bt, int de,
+                                            float eps, int lane) {
+  using namespace dec;
+  const int tq = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) a1[j][0] = a1[j][1] = a1[j][2] = a1[j][3] = 0.f;
+#pragma unroll 4
+  for (int kk = 0; kk < C / 16; ++kk) {
+    uint32_t a[4];
+    load_a<LD1>(a, u_s, 0, 16 * kk, lane);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t b[4];
+      load_b_kn<LD1>(b, w1_s, 16 * kk, C1 * de + 16 * np, lane);
+      mma16816(a1[2 * np], a, b[0], b[1]);
+      mma16816(a1[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+  float su0 = 0.f, su1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = 8 * j + 2 * tq;
+    a1[j][0] += b1[c];
+    a1[j][1] += b1[c + 1];
+    a1[j][2] += b1[c];
+    a1[j][3] += b1[c + 1];
+    su0 += a1[j][0] + a1[j][1];
+    su1 += a1[j][2] + a1[j][3];
+  }
+  const float mu0 = quad_sum(su0) * (1.f / C1);
+  const float mu1 = quad_sum(su1) * (1.f / C1);
+  float v0 = 0.f, v1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    a1[j][0] -= mu0;
+    a1[j][1] -= mu0;
+    a1[j][2] -= mu1;
+    a1[j][3] -= mu1;
+    v0 = fmaf(a1[j][0], a1[j][0], fmaf(a1[j][1], a1[j][1], v0));
+    v1 = fmaf(a1[j][2], a1[j][2], fmaf(a1[j][3], a1[j][3], v1));
+  }
+  rs[0] = rsqrtf(quad_sum(v0) * (1.f / C1) + eps);
+  rs[1] = rsqrtf(quad_sum(v1) * (1.f / C1) + eps);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = 8 * j + 2 * tq;
+    const float g0 = g[c], g1 = g[c + 1], t0 = bt[c], t1 = bt[c + 1];
+    a1[j][0] *= rs[0];
+    a1[j][1] *= rs[0];
+    a1[j][2] *= rs[1];
+    a1[j][3] *= rs[1];
+    ua[j / 2][(j & 1) * 2] =
+        pack_bf16(gelu<bf16>(round_bf16(a1[j][0] * g0 + t0)),
+                  gelu<bf16>(round_bf16(a1[j][1] * g1 + t1)));
+    ua[j / 2][(j & 1) * 2 + 1] =
+        pack_bf16(gelu<bf16>(round_bf16(a1[j][2] * g0 + t0)),
+                  gelu<bf16>(round_bf16(a1[j][3] * g1 + t1)));
+  }
+}
+
+// the second product of one (d, e) block by halves of 64 lanes (f, g, c2):
+// a2 = u1g . W2[:, 64 half..] (f32)
+__device__ __forceinline__ void second_half(float (&a2)[8][4],
+                                            const uint32_t (&ua)[4][4],
+                                            const bf16* w2_s, int half,
+                                            int lane) {
+  using namespace dec;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) a2[j][0] = a2[j][1] = a2[j][2] = a2[j][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < C1 / 16; ++kk)
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t b[4];
+      load_b_kn<LD2>(b, w2_s, 16 * kk, 64 * half + 16 * np, lane);
+      mma16816(a2[2 * np], ua[kk], b[0], b[1]);
+      mma16816(a2[2 * np + 1], ua[kk], b[2], b[3]);
+    }
+}
+
+// The bf16 forward. Persistent blocks of SLOTS warp pairs (one block per
+// SM) hold W1 [C][LD1] and W2 [C1][LD2] in shared memory; a pair walks
+// 16-row tiles, warp `sub` taking the (d, e) blocks 2 sub, 2 sub + 1. Per
+// slot two stages of up rows [16][LD1]: the next tile's rows are copied in
+// while this tile computes. Per (d, e) block: the first product, its
+// LayerNorm and GELU (u1g kept as A fragments); once both warps are done
+// with the up rows their stage holds the tile's output rows [16][n_out *
+// 16] (f32); then by halves of 64 lanes (two (f, g)): the second product,
+// u2g = rnd(gelu(rnd(u2pre + b2))), and the hypernetwork sum over c2 as
+// m16n8k16 products of u2g (16 rows x 32 c2 per (f, g)) against hyper^T
+// (32 c2 x 8 mask tokens, zero past n_out). The tile's output rows are
+// contiguous in device memory and leave in 16-byte stores.
+__global__ void __launch_bounds__(RT, 1)
+    upscale_fwd_mma_kernel(const bf16* up, const bf16* w1, const float* b1,
+                           const float* g, const float* bt, const bf16* w2,
+                           const float* b2, const bf16* hyper, float* out,
+                           int bp, int m, int n_out, float eps) {
+  using namespace dec;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* w1_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* w2_s = w1_s + C * LD1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int slot = warp >> 1, sub = warp & 1, pl = 32 * sub + lane;
+  const int gq = lane >> 2, tq = lane & 3;
+  bf16* stage0 = w2_s + C1 * LD2 + slot * 2 * 16 * LD1;
+  auto pair_sync = [&] {  // the pair's own barrier (0 is __syncthreads)
+    asm volatile("bar.sync %0, 64;\n" ::"r"(1 + slot) : "memory");
+  };
+  const int tpp = (m + 15) / 16, ntiles = bp * tpp, lanes = n_out * 16;
+  const int stride = gridDim.x * SLOTS;
+  auto load = [&](int tile, bf16* dst) {
+    const RowTile tl(tile, tpp, m);
+    slot_rows_async<C, LD1>(dst, up + tl.prow0 * C, min(16, m - tl.row0), pl);
+  };
+
+  int tile = blockIdx.x * SLOTS + slot;
+  block_weights_async<C, L1, LD1, RT>(w1_s, w1);
+  block_weights_async<C1, LQ, LD2, RT>(w2_s, w2);
+  if (tile < ntiles) load(tile, stage0);
+  cp_commit();
+  cp_wait<0>();
+  __syncthreads();
+
+  for (int it = 0; tile < ntiles; tile += stride, ++it) {
+    bf16* u_s = stage0 + (it & 1) * 16 * LD1;
+    cp_wait<0>();
+    pair_sync();  // the tile's up rows landed; the other stage is free
+    if (tile + stride < ntiles)
+      load(tile + stride, stage0 + ((it + 1) & 1) * 16 * LD1);
+    cp_commit();
+    const RowTile tl(tile, tpp, m);
+    const int valid = min(16, m - tl.row0);
+
+    uint32_t ua[2][4][4];
+#pragma unroll
+    for (int d = 0; d < 2; ++d) {
+      float a1[8][4], rs[2];
+      first_block(a1, rs, ua[d], u_s, w1_s, b1, g, bt, 2 * sub + d, eps,
+                  lane);
+    }
+    // hyper^T as B fragments, one per k16 step of c2: column = mask token
+    const bf16* hy = hyper + ((size_t)tl.pair * n_out + gq) * C2;
+    const bool tok = gq < n_out;
+    uint32_t hb[2][2];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      hb[kk][0] = tok ? ld_u32(hy + 16 * kk + 2 * tq) : 0u;
+      hb[kk][1] = tok ? ld_u32(hy + 16 * kk + 8 + 2 * tq) : 0u;
+    }
+    pair_sync();  // both warps are done with the up rows
+    float* o_s = reinterpret_cast<float*>(u_s);  // [16][lanes]
+    const bool t0 = 2 * tq < n_out, t1 = 2 * tq + 1 < n_out;
+#pragma unroll
+    for (int d = 0; d < 2; ++d) {
+      const int de = 2 * sub + d;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float a2[8][4];
+        second_half(a2, ua[d], w2_s, half, lane);
+#pragma unroll
+        for (int hg = 0; hg < 2; ++hg) {  // a group of 4 n-tiles is one (f, g)
+          const int fg = 2 * half + hg;
+          uint32_t ha[2][4];  // u2g of (f, g): A fragments, k16 steps of c2
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const int j = 4 * hg + jj, c2 = 8 * jj + 2 * tq;
+            const float b0 = b2[c2], b1v = b2[c2 + 1];
+            ha[jj / 2][(jj & 1) * 2] =
+                pack_bf16(gelu<bf16>(round_bf16(a2[j][0] + b0)),
+                          gelu<bf16>(round_bf16(a2[j][1] + b1v)));
+            ha[jj / 2][(jj & 1) * 2 + 1] =
+                pack_bf16(gelu<bf16>(round_bf16(a2[j][2] + b0)),
+                          gelu<bf16>(round_bf16(a2[j][3] + b1v)));
+          }
+          float o[4] = {0.f, 0.f, 0.f, 0.f};
+          mma16816(o, ha[0], hb[0][0], hb[0][1]);
+          mma16816(o, ha[1], hb[1][0], hb[1][1]);
+          // o: rows g (o[0..1]), g + 8 (o[2..3]); tokens 2t, 2t + 1
+          const int l = 2 * tq * 16 + de * 4 + fg;
+          if (t0) {
+            o_s[gq * lanes + l] = o[0];
+            o_s[(gq + 8) * lanes + l] = o[2];
+          }
+          if (t1) {
+            o_s[gq * lanes + l + 16] = o[1];
+            o_s[(gq + 8) * lanes + l + 16] = o[3];
+          }
+        }
+      }
+    }
+    pair_sync();  // o_s holds the tile's output rows
+    const float4* src = reinterpret_cast<const float4*>(o_s);
+    float4* dst = reinterpret_cast<float4*>(out + tl.prow0 * lanes);
+    for (int i = pl; i < valid * lanes / 4; i += 64) dst[i] = src[i];
+  }
 }
 
 // The row pass. A pair of warps shares each 16-row tile (a slot): warp
@@ -626,65 +838,15 @@ __global__ void __launch_bounds__(RT, 1)
 
 #pragma unroll 1
     for (int de = 2 * sub; de < 2 * sub + 2; ++de) {
-      // first product, the 64 lanes (de, c1): u1pre = up . W1 + b1
-      float a1[8][4];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) a1[j][0] = a1[j][1] = a1[j][2] = a1[j][3] = 0.f;
-#pragma unroll 4
-      for (int kk = 0; kk < C / 16; ++kk) {
-        uint32_t a[4];
-        load_a<LD1>(a, u_s, 0, 16 * kk, lane);
-#pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          uint32_t b[4];
-          load_b_kn<LD1>(b, w1_s, 16 * kk, C1 * de + 16 * np, lane);
-          mma16816(a1[2 * np], a, b[0], b[1]);
-          mma16816(a1[2 * np + 1], a, b[2], b[3]);
-        }
-      }
-      // LayerNorm over the 64 lanes of rows g and g + 8: y in place
-      float su0 = 0.f, su1 = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = 8 * j + 2 * tq;
-        a1[j][0] += b1[c];
-        a1[j][1] += b1[c + 1];
-        a1[j][2] += b1[c];
-        a1[j][3] += b1[c + 1];
-        su0 += a1[j][0] + a1[j][1];
-        su1 += a1[j][2] + a1[j][3];
-      }
-      const float mu0 = quad_sum(su0) * (1.f / C1);
-      const float mu1 = quad_sum(su1) * (1.f / C1);
-      float v0 = 0.f, v1 = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        a1[j][0] -= mu0;
-        a1[j][1] -= mu0;
-        a1[j][2] -= mu1;
-        a1[j][3] -= mu1;
-        v0 = fmaf(a1[j][0], a1[j][0], fmaf(a1[j][1], a1[j][1], v0));
-        v1 = fmaf(a1[j][2], a1[j][2], fmaf(a1[j][3], a1[j][3], v1));
-      }
-      const float rs0 = rsqrtf(quad_sum(v0) * (1.f / C1) + eps);
-      const float rs1 = rsqrtf(quad_sum(v1) * (1.f / C1) + eps);
-      // u1g = rnd(gelu(rnd(y g + bt))): A fragments of the second product
-      // (one k16 step per two n-tiles) and the scratch rows
+      // first product, the 64 lanes (de, c1), its LayerNorm (y in a1) and
+      // u1g as the second product's A fragments; u1g to the scratch rows
+      float a1[8][4], rs[2];
       uint32_t ua[4][4];
+      first_block(a1, rs, ua, u_s, w1_s, b1, g, bt, de, eps, lane);
+      const float rs0 = rs[0], rs1 = rs[1];
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int c = 8 * j + 2 * tq;
-        const float g0 = g[c], g1 = g[c + 1], t0 = bt[c], t1 = bt[c + 1];
-        a1[j][0] *= rs0;
-        a1[j][1] *= rs0;
-        a1[j][2] *= rs1;
-        a1[j][3] *= rs1;
-        ua[j / 2][(j & 1) * 2] =
-            pack_bf16(gelu<bf16>(round_bf16(a1[j][0] * g0 + t0)),
-                      gelu<bf16>(round_bf16(a1[j][1] * g1 + t1)));
-        ua[j / 2][(j & 1) * 2 + 1] =
-            pack_bf16(gelu<bf16>(round_bf16(a1[j][2] * g0 + t0)),
-                      gelu<bf16>(round_bf16(a1[j][3] * g1 + t1)));
         if (ok0) *reinterpret_cast<uint32_t*>(u1g_rows + r0 * L1 + C1 * de + c) = ua[j / 2][(j & 1) * 2];
         if (ok1) *reinterpret_cast<uint32_t*>(u1g_rows + r1 * L1 + C1 * de + c) = ua[j / 2][(j & 1) * 2 + 1];
       }
@@ -697,17 +859,7 @@ __global__ void __launch_bounds__(RT, 1)
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         float a2[8][4];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) a2[j][0] = a2[j][1] = a2[j][2] = a2[j][3] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < C1 / 16; ++kk)
-#pragma unroll
-          for (int np = 0; np < 4; ++np) {
-            uint32_t b[4];
-            load_b_kn<LD2>(b, w2_s, 16 * kk, 64 * half + 16 * np, lane);
-            mma16816(a2[2 * np], ua[kk], b[0], b[1]);
-            mma16816(a2[2 * np + 1], ua[kk], b[2], b[3]);
-          }
+        second_half(a2, ua, w2_s, half, lane);
         uint32_t da[4][4];  // rnd(d_u2pre): A fragments, k16 steps of q
 #pragma unroll
         for (int hg = 0; hg < 2; ++hg) {  // a group of 4 n-tiles is one (f, g)
@@ -967,23 +1119,39 @@ int launch_bwd_dw(void* const* a, int rows, int chunk, int nchunks,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_fwd(const void* up, const void* w1, const void* b1, const void* g,
-               const void* bt, const void* w2, const void* b2,
-               const void* hyper, void* out, int bp, int m, int n_out,
-               float eps, cudaStream_t stream) {
-  if (n_out < 1 || n_out > MAXT) return (int)cudaErrorInvalidValue;
+int launch_fwd_f32(const void* up, const void* w1, const void* b1,
+                   const void* g, const void* bt, const void* w2,
+                   const void* b2, const void* hyper, void* out, int bp, int m,
+                   int n_out, float eps, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      upscale_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      upscale_fwd_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)FWD_SMEM);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((m + TM - 1) / TM, bp);
-  upscale_fwd_kernel<T><<<grid, THREADS, FWD_SMEM, stream>>>(
-      static_cast<const T*>(up), static_cast<const T*>(w1),
+  upscale_fwd_kernel<float><<<grid, THREADS, FWD_SMEM, stream>>>(
+      static_cast<const float*>(up), static_cast<const float*>(w1),
       static_cast<const float*>(b1), static_cast<const float*>(g),
-      static_cast<const float*>(bt), static_cast<const T*>(w2),
-      static_cast<const float*>(b2), static_cast<const T*>(hyper),
+      static_cast<const float*>(bt), static_cast<const float*>(w2),
+      static_cast<const float*>(b2), static_cast<const float*>(hyper),
       static_cast<float*>(out), m, n_out, eps);
+  return (int)cudaGetLastError();
+}
+
+int launch_fwd_mma(const void* up, const void* w1, const void* b1,
+                   const void* g, const void* bt, const void* w2,
+                   const void* b2, const void* hyper, void* out, int bp, int m,
+                   int n_out, int blocks, float eps, cudaStream_t stream) {
+  if (blocks < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      upscale_fwd_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)FWD_MMA_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  upscale_fwd_mma_kernel<<<blocks, RT, FWD_MMA_SMEM, stream>>>(
+      static_cast<const bf16*>(up), static_cast<const bf16*>(w1),
+      static_cast<const float*>(b1), static_cast<const float*>(g),
+      static_cast<const float*>(bt), static_cast<const bf16*>(w2),
+      static_cast<const float*>(b2), static_cast<const bf16*>(hyper),
+      static_cast<float*>(out), bp, m, n_out, eps);
   return (int)cudaGetLastError();
 }
 
@@ -1025,16 +1193,20 @@ int launch_bwd(const void* up, const void* dm, const void* w1,
 // cudaError_t of the launch (0 = success); the caller raises on non-zero.
 extern "C" {
 
+// The forward: bf16 on `blocks` persistent blocks (upscale_fwd_mma_kernel),
+// f32 one block per (pair, 32-row tile) (upscale_fwd_kernel; `blocks`
+// unused).
 int dhoct_upscale_fwd(const void* up, const void* w1, const void* b1,
                       const void* g, const void* bt, const void* w2,
                       const void* b2, const void* hyper, void* out, int bp,
-                      int m, int n_out, int dtype, float eps, void* stream) {
+                      int m, int n_out, int blocks, int dtype, float eps,
+                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 1 ? launch_fwd<__nv_bfloat16>(up, w1, b1, g, bt, w2, b2,
-                                                hyper, out, bp, m, n_out, eps,
-                                                s)
-                    : launch_fwd<float>(up, w1, b1, g, bt, w2, b2, hyper, out,
-                                        bp, m, n_out, eps, s);
+  if (n_out < 1 || n_out > MAXT || m < 1) return (int)cudaErrorInvalidValue;
+  return dtype == 1 ? launch_fwd_mma(up, w1, b1, g, bt, w2, b2, hyper, out,
+                                     bp, m, n_out, blocks, eps, s)
+                    : launch_fwd_f32(up, w1, b1, g, bt, w2, b2, hyper, out,
+                                     bp, m, n_out, eps, s);
 }
 
 // The f32 backward (upscale_bwd_kernel); dtype must be 0: the bf16

@@ -10,7 +10,10 @@ as a per-row chain over the (pairs x grid) image rows with <= 8 prompt
 tokens on the key side. On a CUDA tensor it launches the hand-written
 kernels of ``csrc/decoder_attn.cu``:
 
-  * ``i2t_fwd`` replacing the TPU ``_fused_fwd`` (``_fwd_kernel``);
+  * ``i2t_fwd`` replacing the TPU ``_fused_fwd`` (``_fwd_kernel``): in
+    bf16 on the tensor cores (``i2t_fwd_mma_kernel``, one persistent block
+    per SM; the pb pairs of an image share one q projection), in f32 a SIMT
+    kernel (``i2t_fwd_kernel``);
   * the backward replacing the TPU ``_fused_bwd`` (``_bwd_kernel``): it
     recomputes the chain per row, returns d_keys per row, the q/out
     projection and LayerNorm gradients summed over all rows, and the per-row
@@ -51,8 +54,8 @@ T_PAD = 8          # token capacity per head (the training paths use 7)
 CHANNELS = 256     # the widths the CUDA kernels take (every SAM decoder)
 INTERNAL = 128
 HEADS = 8
-ROW_TILE = 32      # rows per tile of the forward and the f32 backward (TM)
-ROW_SLOTS = 4      # tiles in flight per row-pass block, a warp each
+ROW_TILE = 32      # rows per tile of the f32 forward and backward (TM)
+ROW_SLOTS = 4      # tiles in flight per bf16 block, a warp pair each
 DW_ROWS = 32       # rows per stage of the weight pass (dec::DW_SR)
 
 _BOUND = False
@@ -203,7 +206,7 @@ def _bind():
     lib = kernels.library("decoder_attn")
     if not _BOUND:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dhoct_i2t_fwd.argtypes = [p] * 11 + [i] * 5 + [ctypes.c_float, p]
+        lib.dhoct_i2t_fwd.argtypes = [p] * 11 + [i] * 6 + [ctypes.c_float, p]
         lib.dhoct_i2t_bwd.argtypes = [p] * 24 + [i] * 6 + [ctypes.c_float, p]
         lib.dhoct_i2t_bwd_rows.argtypes = [p] + [i] * 5 + [ctypes.c_float, p]
         lib.dhoct_i2t_bwd_dw.argtypes = [p] + [i] * 5 + [p]
@@ -246,7 +249,8 @@ def _kernel_widths(c, internal, nh):
 def i2t_fwd_cuda(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, *, nh: int,
                  pb: int, eps: float):
     """Launch ``i2t_fwd`` (csrc/decoder_attn.cu); same contract as
-    ``i2t_fwd_plain``."""
+    ``i2t_fwd_plain``. bf16: one persistent block per SM (at most one per
+    ROW_SLOTS units of 16 image rows)."""
     bimg, m, c, bp, n_tok, internal = _check_args(
         keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, nh, pb)
     _kernel_widths(c, internal, nh)
@@ -255,12 +259,15 @@ def i2t_fwd_cuda(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, *, nh: int,
     kernels.check_operands("i2t_fwd", args,
                            (dt, dt, dt, dt, dt, f32, dt, f32, f32, f32))
     lib = _bind()
-    out = torch.empty((bp, m, c), dtype=dt, device=keys.device)
-    with torch.cuda.device(keys.device):
-        stream = torch.cuda.current_stream(keys.device).cuda_stream
+    dev = keys.device
+    out = torch.empty((bp, m, c), dtype=dt, device=dev)
+    with torch.cuda.device(dev):
+        units = bimg * -(-m // 16)
+        blocks = min(kernels.sm_count(dev), -(-units // ROW_SLOTS))
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.dhoct_i2t_fwd(*(t.data_ptr() for t in args), out.data_ptr(),
-                                bp, m, pb, n_tok, kernels.DTYPE_CODE[dt], eps,
-                                stream)
+                                bp, m, pb, n_tok, blocks,
+                                kernels.DTYPE_CODE[dt], eps, stream)
     kernels.raise_on_error(err, lib.dhoct_i2t_error_string, "i2t_fwd")
     LAUNCHES["i2t_fwd"] += 1
     return out

@@ -9,7 +9,9 @@ kernel, so each is a per-row product, and the (BP, 4G, 4G, C/8) second
 upscale never exists in device memory. On a CUDA tensor it launches the
 hand-written kernels of ``csrc/upscaler.cu``:
 
-  * ``upscale_fwd`` replacing the TPU ``_fused_fwd`` (``_fwd_kernel``);
+  * ``upscale_fwd`` replacing the TPU ``_fused_fwd`` (``_fwd_kernel``): in
+    bf16 on the tensor cores (``upscale_fwd_mma_kernel``, one persistent
+    block per SM), in f32 a SIMT kernel (``upscale_fwd_kernel``);
   * the backward replacing the TPU ``_fused_bwd`` (``_bwd_kernel``): it
     recomputes the chain per row and returns d_up together with the
     per-lane weight gradients summed over all rows and the per-pair
@@ -53,8 +55,8 @@ from .. import kernels
 LAUNCHES = {"upscale_fwd": 0, "upscale_bwd": 0, "upscale_bwd_dw": 0}
 CHANNELS = 256     # the only decoder width the CUDA kernels take (every SAM)
 MAX_OUT = 4        # mask tokens per pair the kernels take
-ROW_TILE = 32      # rows per tile of the forward and the f32 backward (TM)
-ROW_SLOTS = 4      # tiles in flight per row-pass block, a warp pair each
+ROW_TILE = 32      # rows per tile of the f32 forward and backward (TM)
+ROW_SLOTS = 4      # tiles in flight per bf16 block, a warp pair each
 DW_ROWS = 32       # rows per stage of the weight pass (dec::DW_SR)
 
 _BOUND = False
@@ -211,7 +213,7 @@ def _bind():
     if not _BOUND:
         p = ctypes.c_void_p
         i = ctypes.c_int
-        lib.dhoct_upscale_fwd.argtypes = [p] * 9 + [i] * 4 + [ctypes.c_float,
+        lib.dhoct_upscale_fwd.argtypes = [p] * 9 + [i] * 5 + [ctypes.c_float,
                                                             p]
         lib.dhoct_upscale_bwd.argtypes = ([p] * 18 + [i] * 5
                                           + [ctypes.c_float, p])
@@ -255,18 +257,21 @@ def _splits(bp: int, m: int) -> int:
 
 def upscale_fwd_cuda(up, w1, b1, g, bt, w2, b2, hyper, eps: float = 1e-6):
     """Launch ``upscale_fwd`` (csrc/upscaler.cu); same contract as
-    ``upscale_fwd_plain``."""
+    ``upscale_fwd_plain``. bf16: one persistent block per SM (at most one
+    per ROW_SLOTS 16-row tiles)."""
     bp, m, c, n_out = _kernel_shapes(up, w1, w2, hyper)
     f32, dt = torch.float32, up.dtype
     args = (up, w1, b1, g, bt, w2, b2, hyper)
     kernels.check_operands("upscale_fwd", args,
                            (dt, dt, f32, f32, f32, dt, f32, dt))
     lib = _bind()
-    out = torch.empty((bp, m, n_out * 16), dtype=f32, device=up.device)
-    stream = torch.cuda.current_stream(up.device).cuda_stream
-    with torch.cuda.device(up.device):
+    dev = up.device
+    out = torch.empty((bp, m, n_out * 16), dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        blocks = min(kernels.sm_count(dev), -(-bp * -(-m // 16) // ROW_SLOTS))
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.dhoct_upscale_fwd(*(t.data_ptr() for t in args),
-                                    out.data_ptr(), bp, m, n_out,
+                                    out.data_ptr(), bp, m, n_out, blocks,
                                     kernels.DTYPE_CODE[dt], eps, stream)
     kernels.raise_on_error(err, lib.dhoct_upscale_error_string, "upscale_fwd")
     LAUNCHES["upscale_fwd"] += 1

@@ -2,9 +2,10 @@
 card tensors: encoder attention K1 (global) and K2 (windowed) with their
 logsumexp rows, its backward K5, the any-head-dim forward K6, the
 image-layout windowed forward K7, the upscaler K3 and the image->token
-attention K4 (the bf16 backwards of both as their two launches, the row
-pass and the weight pass, each against its plain twin); and one request
-through a small engine on the card.
+attention K4 (their bf16 forwards on the tensor cores; the bf16 backwards
+of both as their two launches, the row pass and the weight pass, each
+against its plain twin); and one request through a small engine on the
+card.
 
 Needs an NVIDIA card and nvcc; skips without a card. This file imports
 neither JAX nor tests/conftest.py's fixtures, so where JAX is not installed
@@ -515,6 +516,62 @@ def test_decoder_attn_kernels_match_plain_on_card(cuda_device, dtype, pb,
 
 def _same_bits(a, b):
     return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pb,n_tok,m", [(1, 7, 100), (8, 5, 37), (2, 8, 64)])
+def test_i2t_fwd_mma_on_card(cuda_device, pb, n_tok, m):
+    """The bf16 K4 forward on the tensor cores (``i2t_fwd_mma_kernel``)
+    against ``i2t_fwd_plain`` (K34_TOL: 2e-2 of max |y|), on a ragged m,
+    with the pb pairs of an image sharing one q projection; the same bits
+    on a second call."""
+    from dilabhelmholtzoct_tpu_torch.ops import decoder_attn as i2t
+
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    bf = torch.bfloat16
+    r = lambda *s, k=0.2, dt=bf: (torch.randn(
+        s, generator=gen, device=cuda_device) * k).to(dt)
+    f32, b = torch.float32, 2
+    args = (r(b, m, 256, k=1.0), r(1, m, 256, k=1.0),
+            r(b * pb, n_tok, 128, k=1.0), r(b * pb, n_tok, 128, k=1.0),
+            r(256, 128), r(128, dt=f32), r(128, 256), r(256, dt=f32),
+            1 + r(256, k=0.1, dt=f32), r(256, dt=f32))
+    kw = dict(nh=8, pb=pb, eps=1e-6)
+    before = i2t.LAUNCHES["i2t_fwd"]
+    got = i2t.i2t_fwd_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    assert i2t.LAUNCHES["i2t_fwd"] == before + 1
+    want = i2t.i2t_fwd_plain(*args, **kw)
+    assert got.shape == want.shape == (b * pb, m, 256)
+    assert got.dtype == want.dtype == bf
+    _rel_close(got, want, K34_TOL[bf], "y")
+    assert torch.equal(got, i2t.i2t_fwd_cuda(*args, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bp,m,n_out", [(3, 100, 1), (2, 37, 4), (5, 64, 3)])
+def test_upscale_fwd_mma_on_card(cuda_device, bp, m, n_out):
+    """The bf16 K3 forward on the tensor cores (``upscale_fwd_mma_kernel``)
+    against ``upscale_fwd_plain`` (K34_TOL: 2e-2 of max |out|), on a ragged
+    m and 1-4 mask tokens; the same bits on a second call."""
+    from dilabhelmholtzoct_tpu_torch.ops import upscaler as up_op
+
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    bf, f32 = torch.bfloat16, torch.float32
+    r = lambda *s, k=0.3, dt=bf: (torch.randn(
+        s, generator=gen, device=cuda_device) * k).to(dt)
+    args = (r(bp, m, 256, k=1.0), r(256, 2, 2, 64), r(64, dt=f32),
+            1 + r(64, k=0.1, dt=f32), r(64, dt=f32), r(64, 2, 2, 32),
+            r(32, dt=f32), r(bp, n_out, 32, k=1.0))
+    before = up_op.LAUNCHES["upscale_fwd"]
+    got = up_op.upscale_fwd_cuda(*args)
+    torch.cuda.synchronize()
+    assert up_op.LAUNCHES["upscale_fwd"] == before + 1
+    want = up_op.upscale_fwd_plain(*args)
+    assert got.shape == want.shape == (bp, m, n_out * 16)
+    assert got.dtype == want.dtype == f32
+    _rel_close(got, want, K34_TOL[bf], "masks")
+    assert torch.equal(got, up_op.upscale_fwd_cuda(*args))
 
 
 @pytest.mark.gpu
