@@ -11,10 +11,9 @@ prints no result line):
 2. Build: every CUDA kernel of the serving, training and evaluation paths from
    ``dilabhelmholtzoct_tpu_torch/csrc`` with nvcc for sm_90a, one nvcc per
    source, all started together (build seconds and the ptxas report). Then
-   the bf16 K1, K2, K5, K6 and K7 kernels' SASS (``cuobjdump -sass`` on the
-   built libraries) must hold tensor-core instructions (HMMA, or HGMMA), the
-   f32 K1, K2, K5, K6 and K7 kernels' (split TF32) TF32 ones
-   (HMMA.1688.F32.TF32),
+   the bf16 K1-K7 kernels' SASS (``cuobjdump -sass`` on the built
+   libraries) must hold tensor-core instructions (HMMA, or HGMMA), the f32
+   K1-K7 kernels' (split TF32) TF32 ones (HMMA.1688.F32.TF32),
    and their ptxas reports no spills, printed per kernel beside its
    registers.
 3. Kernels at SAM ViT-B shapes — K1 global attention (B=1, N=4096, 12 heads)
@@ -39,10 +38,13 @@ prints no result line):
    same engine on ``device="cpu"``.
 5. Kernels of the training path at its shapes (64 (image, prompt) pairs x
    4096 rows, C = 256, 7 tokens) — K3 upscaler and K4 image->token
-   attention (with pb = 1 and the shared first layer's pb = 8), forward and
-   backward, in f32 and bf16: each held against its plain PyTorch version
-   (relative to the max |value| of each output), then timed with CUDA
-   events beside the bound from the shapes. No single PyTorch call computes
+   attention (with pb = 1 and the shared first layer's pb = 8), the
+   forward, the backward's row pass and weight pass and the whole
+   backward, in f32 (split TF32) and bf16: each held against its plain
+   PyTorch version (relative to the max |value| of each output, within
+   ``K34_TOL``) and bit-equal to itself on a second run, then timed with
+   CUDA events beside the bound from the shapes (f32: split TF32's rate,
+   the CUDA cores' bound beside it). No single PyTorch call computes
    either fused chain, so their library_ms is null.
 6. Training at full ViT-B width, bf16, cached embeddings: random weights
    (non-zero rel-pos), 16 train + 8 valid synthetic 496x512 OCT images with
@@ -51,6 +53,14 @@ prints no result line):
    image; 10 ``make_train_step`` steps on one batch launch K3 fwd/bwd x1 and
    K4 fwd/bwd x2 each, with a finite, falling loss; one step with the
    encoder inside (B = 2) launches K1/K2 too.
+6b. f32 decoder fine-tuning on the fused route: ViT-B, cached f32
+   embeddings of 8 images x bucket 8 (64 pairs), ``compute_dtype=
+   'float32'`` under ``set_fused_i2t('on')`` and
+   ``set_fused_upscaler('interpret')``: 8 steps, each launching the f32 K4
+   x2 and K3 x1 (forward, row pass and weight pass) and nothing else, a
+   falling loss; the same 8 steps under 'auto' (the unfused chain, no
+   K3 / K4), both median steps printed; the first-step losses of the two
+   routes within ``F32_STEP_LOSS_RTOL``. Both switches end at 'auto'.
 7. The card against the CPU: the same first step on 1 image x bucket 8 on
    both — the loss and the signs of the decoder updates.
 8. The epoch loop: ``training(config, splits=...)`` for 2 epochs, then
@@ -128,7 +138,9 @@ numbers from the serving path in f32; K1 in f32 at B = 4
 K1 and K2 in bf16 as their own
 kernels (``attn_global_bf16``, ``attn_windowed_bf16``: the tensor-core
 kernels, at ViT-B B = 1, their launches counted on the ViT-B full
-fine-tune run); K3/K4 from the training path in bf16; K5 from the global
+fine-tune run); K3/K4 from the training path in bf16, and in f32
+(``*_f32``, split TF32, with ``bound_cuda_cores_ms``) counted on the f32
+fused decoder run; K5 from the global
 layer at B = 4 in bf16, its launches counted on the ViT-B full fine-tune
 run, and in f32 (``attn_bwd_dq_f32``, ``attn_bwd_dkv_f32``), its launches
 counted on the f32 full fine-tune run; K6 from the ViT-H global layer
@@ -171,7 +183,8 @@ BF16_ULPS = 2      # attention forward vs plain, bf16: ulps of the output scale
 K34_TOL = {"f32": 1e-4, "bf16": 2e-2}
 STEP_LOSS_RTOL = 2e-2   # bf16 train step, card vs CPU: bf16 roundings of the
 #                         decoder in another summation order
-F32_STEP_LOSS_RTOL = 1e-4  # f32 full fine-tune step, card vs CPU: f32 sums in
+F32_STEP_LOSS_RTOL = 1e-4  # f32 full fine-tune step, card vs CPU, and f32
+#                            decoder step, fused route vs 'auto': f32 sums in
 #                            another order (the split-TF32 products keep f32's
 #                            digits; TF32 is off for the library calls)
 SIGN_AGREE_MIN = 0.90   # card vs CPU, share of moved decoder weights whose
@@ -257,7 +270,13 @@ TF32_KERNELS = {"attention": ("attn_global_tf32_kernel",
                 "attention_bwd": ("attn_bwd_dq_tf32_kernel",
                                   "attn_bwd_dkv_tf32_kernel"),
                 "attention_relpos": ("attn_relpos_tf32_kernel",),
-                "attention_winimg": ("attn_winimg_tf32_kernel",)}
+                "attention_winimg": ("attn_winimg_tf32_kernel",),
+                "upscaler": ("upscale_fwd_tf32_kernel",
+                             "upscale_bwd_rows_tf32_kernel",
+                             "upscale_bwd_dw_tf32_kernel"),
+                "decoder_attn": ("i2t_fwd_tf32_kernel",
+                                 "i2t_bwd_rows_tf32_kernel",
+                                 "i2t_bwd_dw_tf32_kernel")}
 
 
 def _ptxas_by_function(log):
@@ -275,8 +294,8 @@ def _ptxas_by_function(log):
 
 def tensor_core_check(kernels):
     """Fail unless the SASS of every tensor-core kernel -- bf16 K1 / K2 /
-    K5 / K6 / K7, the bf16 K3 / K4 forwards and both launches of their
-    backwards, and f32
+    K5 / K6 / K7, the K3 / K4 forwards and both launches of their
+    backwards in bf16 and in f32, and f32
     K1 / K2 / K5 / K6 / K7 in split TF32 -- holds tensor-core
     instructions (HMMA from mma.sync, HGMMA from wgmma; TF32 ones for the
     f32 kernels) and its ptxas report shows no spills; print the count of
@@ -481,10 +500,12 @@ def k3_bound_ms(bp, m, n_out, itemsize, peak, backward, part=None):
     the recompute's twin products for d_up, dW1, d_u1g, dW2 and the
     hypernetwork terms) over the type's peak, against the bytes (up, and dm
     for the backward, read once; the mask rows or d_up written once).
-    ``part`` bounds one launch of the bf16 backward: "rows" (the chain, d_up,
-    d_u1g and the hypernetwork terms; its bf16 scratch rows u1g, rnd(d_u2pre)
-    and rnd(d_u1pre) written) or "dw" (dW1 and dW2 from up and the scratch,
-    read once; the weight gradients written once)."""
+    ``part`` bounds one launch of the backward: "rows" (the chain, d_up,
+    d_u1g and the hypernetwork terms; its scratch rows u1g, rnd(d_u2pre)
+    and rnd(d_u1pre) written, in the input dtype: f32 rows in f32) or "dw"
+    (dW1 and dW2 from up and the scratch, read once; the weight gradients
+    written once). ``peak``: the type's rate (f32: split TF32 on the
+    tensor cores, or the CUDA cores' for the line beside it)."""
     first, second = 2 * 256 * 256, 4 * 2 * 64 * 128
     fwd = first + second + 2 * 512 * n_out
     rows, scratch = bp * m, itemsize * bp * m * (256 + 512 + 256)
@@ -508,10 +529,11 @@ def k4_bound_ms(bp, pb, m, n_tok, itemsize, peak, backward, part=None):
     row; the backward adds dWo, d_out, dWq, d_keys and the softmax
     products) over the type's peak, against the bytes (keys per image, pe,
     and dy for the backward, read once; y, or d_keys, d_qpre, p, d_score and
-    d_out, written once). ``part`` bounds one launch of the bf16 backward:
-    "rows" (all but dWo and dWq; its bf16 scratch rows rnd(out) and
-    rnd(d_res) written) or "dw" (dWo and dWq from the keys, pe, d_qpre and
-    the scratch, read once; the weight gradients written once)."""
+    d_out, written once). ``part`` bounds one launch of the backward:
+    "rows" (all but dWo and dWq; its scratch rows rnd(out) and rnd(d_res)
+    written, in the input dtype) or "dw" (dWo and dWq from the keys, pe,
+    d_qpre and the scratch, read once; the weight gradients written once).
+    ``peak`` as in ``k3_bound_ms``."""
     proj, att = 2 * 256 * 128, 2 * 128 * n_tok
     fwd = 2 * proj + 2 * att
     rows_in = (bp // pb) * m * 256 + m * 256
@@ -561,15 +583,16 @@ def _check_outputs(torch, name, tname, got, want):
 
 def k34_kernel_phase(torch):
     """K3 and K4, forward and backward, against their plain versions at the
-    training shapes in f32 and bf16. In bf16 each forward runs on the tensor
-    cores and gives the same bits on a second run (K4's share of outputs
-    bit-equal to ``i2t_fwd_plain`` printed); each backward is two launches,
-    the row pass and the weight pass: each is held against its plain twin
-    (the weight pass on the row pass's own scratch rows), the composed
-    backward against ``*_bwd_plain`` and against itself on a second run
-    (the same bits), and each launch is timed beside its bound. Returns the
-    bf16 numbers (the training path's type) per launch for the result
-    line."""
+    training shapes in f32 and bf16, on the tensor cores (f32 in split
+    TF32). Each forward gives the same bits on a second run (bf16: K4's
+    share of outputs bit-equal to ``i2t_fwd_plain`` printed); each backward
+    is two launches, the row pass and the weight pass: each is held against
+    its plain twin (the weight pass on the row pass's own scratch rows), the
+    composed backward against ``*_bwd_plain`` and against itself on a second
+    run (the same bits), and each launch is timed beside its bound (f32:
+    split TF32's rate, the CUDA cores' bound beside it). Returns the numbers
+    per launch for the result line: bf16 rows under the launch names, f32
+    rows under the names with ``_f32``."""
     from dilabhelmholtzoct_tpu_torch.device import full_fp32
     from dilabhelmholtzoct_tpu_torch.ops import decoder_attn as i2t
     from dilabhelmholtzoct_tpu_torch.ops import upscaler as up_op
@@ -585,12 +608,13 @@ def k34_kernel_phase(torch):
         return (k * torch.randn(shape, generator=gen, device=dev)).to(dt)
 
     def run(name, tname, kernel, plain, counter, bound, replaces, iters,
-            tag="", row=None, twice=False, bits=False):
+            tag="", row=None, bits=False, cores=None):
         """``name`` is the launch count the kernel call adds one to; ``row``
-        the result line's entry it fills (bf16, pb = 1); ``replaces`` the
-        kernel's source file, its name and the TPU kernel's call site;
-        ``bits`` prints the share of outputs bit-equal to the plain
-        version."""
+        the result line's entry it fills (pb = 1; ``_f32`` added in f32);
+        ``replaces`` the kernel's source file, its name and the TPU kernel's
+        call site; ``bits`` prints the share of outputs bit-equal to the
+        plain version; ``cores`` the f32 bound over the CUDA cores. Every
+        launch must give the same bits on a second run."""
         before = counter[name]
         out = kernel()
         torch.cuda.synchronize()
@@ -604,45 +628,66 @@ def k34_kernel_phase(torch):
             same = (" bit-equal to plain "
                     f"{float((out == ref).float().mean()):.5f};")
         del ref
-        if twice:
-            again = kernel()
-            pairs = zip(out, again) if isinstance(out, tuple) else [(out,
-                                                                     again)]
-            check(all(torch.equal(a, b) for a, b in pairs),
-                  f"{row or name}{tag} {tname}: a second run gave other bits")
-            same, again = same + " same bits on a second run;", None
+        again = kernel()
+        pairs = zip(out, again) if isinstance(out, tuple) else [(out, again)]
+        check(all(torch.equal(a, b) for a, b in pairs),
+              f"{row or name}{tag} {tname}: a second run gave other bits")
+        same, again = same + " same bits on a second run;", None
         del out
         ms = cuda_ms(kernel, iters)
         plain_ms = cuda_ms(plain, 2)
         b_ms, b_by = bound
+        key = None if row is None or tag else row + (
+            "" if tname == "bf16" else "_f32")
+        entry = {}
+        core_txt = _cuda_core_bound(entry, ms, cores is not None, cores)
         print(f"kernel {row or name}{tag} {tname}: max_abs_err={err:.3g} "
               f"max_rel_err={rel:.3g};{same} ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} library_ms=null bound_ms={b_ms:.4f} "
-              f"({b_by}) share_of_bound={b_ms / ms:.3f}")
-        if row and tname == "bf16" and not tag:
-            rows[row] = {
-                "name": row, "route": "cuda",
+              f"({b_by}{'; split TF32' if cores else ''}) "
+              f"share_of_bound={b_ms / ms:.3f}{core_txt}")
+        if key:
+            entry.update({
+                "name": key, "route": "cuda",
                 "source": f"dilabhelmholtzoct_tpu_torch/csrc/{replaces[0]}",
-                "kernel": replaces[1], "replaces": replaces[2],
+                "kernel": replaces[1][tname], "replaces": replaces[2],
                 "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": None,
-            }
+            })
+            rows[key] = entry
         return ms
 
     k3 = "upscaler.cu", "dilabhelmholtzoct_tpu/ops/upscaler.py"
     k4 = "decoder_attn.cu", "dilabhelmholtzoct_tpu/ops/decoder_attn.py"
-    k3_fwd = k3[0], "upscale_fwd_mma_kernel", f"{k3[1]}:295"
-    k3_bwd = k3[0], "upscale_bwd_rows_kernel", f"{k3[1]}:329"
-    k3_dw = k3[0], "upscale_bwd_dw_kernel", f"{k3[1]}:329"
-    k4_fwd = k4[0], "i2t_fwd_mma_kernel", f"{k4[1]}:264"
-    k4_bwd = k4[0], "i2t_bwd_rows_kernel", f"{k4[1]}:287"
-    k4_dw = k4[0], "i2t_bwd_dw_kernel", f"{k4[1]}:287"
+    names = lambda bf, f: {"bf16": bf, "f32": f}
+    k3_fwd = k3[0], names("upscale_fwd_mma_kernel",
+                          "upscale_fwd_tf32_kernel"), f"{k3[1]}:295"
+    k3_bwd = k3[0], names("upscale_bwd_rows_kernel",
+                          "upscale_bwd_rows_tf32_kernel"), f"{k3[1]}:329"
+    k3_dw = k3[0], names("upscale_bwd_dw_kernel",
+                         "upscale_bwd_dw_tf32_kernel"), f"{k3[1]}:329"
+    k4_fwd = k4[0], names("i2t_fwd_mma_kernel",
+                          "i2t_fwd_tf32_kernel"), f"{k4[1]}:264"
+    k4_bwd = k4[0], names("i2t_bwd_rows_kernel",
+                          "i2t_bwd_rows_tf32_kernel"), f"{k4[1]}:287"
+    k4_dw = k4[0], names("i2t_bwd_dw_kernel",
+                         "i2t_bwd_dw_tf32_kernel"), f"{k4[1]}:287"
     with full_fp32():
         for dt, tname in ((f32, "f32"), (torch.bfloat16, "bf16")):
             bf = dt == torch.bfloat16
-            peak = PEAK_F32_FLOPS if dt == f32 else PEAK_BF16_FLOPS
+            peak = PEAK_BF16_FLOPS if bf else PEAK_TF32X3_FLOPS
             isz = torch.empty((), dtype=dt).element_size()
+
+            def bounds(fn, *a):
+                """(bound over the type's peak, f32 bound over the CUDA
+                cores or None)"""
+                return fn(*a, peak), (None if bf else fn(*a, PEAK_F32_FLOPS))
+
+            def k3b(backward, part=None):
+                return bounds(lambda pk: k3_bound_ms(bp, m, n_out, isz, pk,
+                                                     backward, part))
+
             # K3 at 64 pairs x 4096 rows
             up_args = (rnd(bp, m, 256, dt=dt), rnd(256, 2, 2, 64, k=0.06,
                                                    dt=dt),
@@ -651,39 +696,33 @@ def k34_kernel_phase(torch):
                        rnd(bp, n_out, 32, dt=dt))
             dm = rnd(bp, m, n_out * 16)
             bwd_args = (up_args[0], dm) + up_args[1:]
+            b, c = k3b(False)
             run("upscale_fwd", tname, lambda: up_op.upscale_fwd_cuda(*up_args),
                 lambda: up_op.upscale_fwd_plain(*up_args), up_op.LAUNCHES,
-                k3_bound_ms(bp, m, n_out, isz, peak, False), k3_fwd, 10,
-                row="upscale_fwd", twice=bf)
+                b, k3_fwd, 10, row="upscale_fwd", cores=c)
+            b, c = k3b(True)
             total = run("upscale_bwd", tname,
                         lambda: up_op.upscale_bwd_cuda(*bwd_args),
                         lambda: up_op.upscale_bwd_plain(*bwd_args),
-                        up_op.LAUNCHES,
-                        k3_bound_ms(bp, m, n_out, isz, peak, True),
-                        k3_bwd, 5, twice=bf,
-                        row=None if bf else "upscale_bwd")
-            if bf:
-                got = up_op.upscale_bwd_rows_cuda(*bwd_args)
-                scratch = (up_args[0],) + got[1:4]
-                del got
-                t_rows = run(
-                    "upscale_bwd", tname,
-                    lambda: up_op.upscale_bwd_rows_cuda(*bwd_args),
-                    lambda: up_op.upscale_bwd_rows_plain(*bwd_args),
-                    up_op.LAUNCHES,
-                    k3_bound_ms(bp, m, n_out, isz, peak, True, "rows"),
-                    k3_bwd, 5, row="upscale_bwd")
-                t_dw = run(
-                    "upscale_bwd_dw", tname,
-                    lambda: up_op.upscale_bwd_dw_cuda(*scratch),
-                    lambda: up_op.upscale_bwd_dw_plain(*scratch),
-                    up_op.LAUNCHES,
-                    k3_bound_ms(bp, m, n_out, isz, peak, True, "dw"),
-                    k3_dw, 5, row="upscale_bwd_dw")
-                print(f"K3 bf16 backward: {total:.4f} ms composed (row pass "
-                      f"{t_rows:.4f} + weight pass {t_dw:.4f} timed alone)")
-                del scratch
-            del up_args, dm, bwd_args
+                        up_op.LAUNCHES, b, k3_bwd, 5, cores=c)
+            got = up_op.upscale_bwd_rows_cuda(*bwd_args)
+            scratch = (up_args[0],) + got[1:4]
+            del got
+            b, c = k3b(True, "rows")
+            t_rows = run("upscale_bwd", tname,
+                         lambda: up_op.upscale_bwd_rows_cuda(*bwd_args),
+                         lambda: up_op.upscale_bwd_rows_plain(*bwd_args),
+                         up_op.LAUNCHES, b, k3_bwd, 5, row="upscale_bwd",
+                         cores=c)
+            b, c = k3b(True, "dw")
+            t_dw = run("upscale_bwd_dw", tname,
+                       lambda: up_op.upscale_bwd_dw_cuda(*scratch),
+                       lambda: up_op.upscale_bwd_dw_plain(*scratch),
+                       up_op.LAUNCHES, b, k3_dw, 5, row="upscale_bwd_dw",
+                       cores=c)
+            print(f"K3 {tname} backward: {total:.4f} ms composed (row pass "
+                  f"{t_rows:.4f} + weight pass {t_dw:.4f} timed alone)")
+            del up_args, dm, bwd_args, scratch
             # K4 per-pair layer (pb = 1) and shared first layer (pb = 8)
             for pb in (1, 8):
                 args = (rnd(bp // pb, m, 256, dt=dt), rnd(1, m, 256, dt=dt),
@@ -694,40 +733,40 @@ def k34_kernel_phase(torch):
                 dy = rnd(bp, m, 256, dt=dt)
                 kw = dict(nh=8, pb=pb, eps=1e-6)
                 tag = "" if pb == 1 else "_pb8"
+
+                def k4b(backward, part=None):
+                    return bounds(lambda pk: k4_bound_ms(
+                        bp, pb, m, n_tok, isz, pk, backward, part))
+
+                b, c = k4b(False)
                 run("i2t_fwd", tname, lambda: i2t.i2t_fwd_cuda(*args, **kw),
                     lambda: i2t.i2t_fwd_plain(*args, **kw), i2t.LAUNCHES,
-                    k4_bound_ms(bp, pb, m, n_tok, isz, peak, False), k4_fwd,
-                    10, tag, row="i2t_fwd", twice=bf, bits=bf)
+                    b, k4_fwd, 10, tag, row="i2t_fwd", bits=bf, cores=c)
+                b, c = k4b(True)
                 total = run("i2t_bwd", tname,
                             lambda: i2t.i2t_bwd_cuda(*args, dy, **kw),
                             lambda: i2t.i2t_bwd_plain(*args, dy, **kw),
-                            i2t.LAUNCHES,
-                            k4_bound_ms(bp, pb, m, n_tok, isz, peak, True),
-                            k4_bwd, 5, tag, twice=bf,
-                            row=None if bf else "i2t_bwd")
-                if bf:
-                    got = i2t.i2t_bwd_rows_cuda(*args, dy, **kw)
-                    scratch = (args[0], args[1], got[1], got[5], got[6])
-                    del got
-                    t_rows = run(
-                        "i2t_bwd", tname,
-                        lambda: i2t.i2t_bwd_rows_cuda(*args, dy, **kw),
-                        lambda: i2t.i2t_bwd_rows_plain(*args, dy, **kw),
-                        i2t.LAUNCHES,
-                        k4_bound_ms(bp, pb, m, n_tok, isz, peak, True, "rows"),
-                        k4_bwd, 5, tag, row="i2t_bwd")
-                    t_dw = run(
-                        "i2t_bwd_dw", tname,
-                        lambda: i2t.i2t_bwd_dw_cuda(*scratch, pb=pb),
-                        lambda: i2t.i2t_bwd_dw_plain(*scratch, pb=pb),
-                        i2t.LAUNCHES,
-                        k4_bound_ms(bp, pb, m, n_tok, isz, peak, True, "dw"),
-                        k4_dw, 5, tag, row="i2t_bwd_dw")
-                    print(f"K4{tag} bf16 backward: {total:.4f} ms composed "
-                          f"(row pass {t_rows:.4f} + weight pass {t_dw:.4f} "
-                          "timed alone)")
-                    del scratch
-                del args, dy
+                            i2t.LAUNCHES, b, k4_bwd, 5, tag, cores=c)
+                got = i2t.i2t_bwd_rows_cuda(*args, dy, **kw)
+                scratch = (args[0], args[1], got[1], got[5], got[6])
+                del got
+                b, c = k4b(True, "rows")
+                t_rows = run(
+                    "i2t_bwd", tname,
+                    lambda: i2t.i2t_bwd_rows_cuda(*args, dy, **kw),
+                    lambda: i2t.i2t_bwd_rows_plain(*args, dy, **kw),
+                    i2t.LAUNCHES, b, k4_bwd, 5, tag, row="i2t_bwd", cores=c)
+                b, c = k4b(True, "dw")
+                t_dw = run(
+                    "i2t_bwd_dw", tname,
+                    lambda: i2t.i2t_bwd_dw_cuda(*scratch, pb=pb),
+                    lambda: i2t.i2t_bwd_dw_plain(*scratch, pb=pb),
+                    i2t.LAUNCHES, b, k4_dw, 5, tag, row="i2t_bwd_dw",
+                    cores=c)
+                print(f"K4{tag} {tname} backward: {total:.4f} ms composed "
+                      f"(row pass {t_rows:.4f} + weight pass {t_dw:.4f} "
+                      "timed alone)")
+                del args, dy, scratch
             torch.cuda.empty_cache()
     return rows
 
@@ -858,6 +897,105 @@ def training_phase(torch):
     torch.cuda.empty_cache()
     epoch_loop(torch, tr, config, sd_host, train_items, valid_items)
     return step_launches
+
+
+F32_FUSED_STEPS = 8  # steps of each route in the f32 fused decoder phase
+
+
+def decoder_f32_fused_phase(torch):
+    """f32 decoder fine-tuning on the fused route: ViT-B (full width, the
+    decoder's 256 channels and 8 heads), ``compute_dtype='float32'``,
+    ``trainable='decoder'``, cached embeddings of 8 images x bucket 8 (64
+    pairs per step) through ``make_train_step``, under
+    ``set_fused_i2t('on')`` and ``set_fused_upscaler('interpret')``: each
+    step launches the f32 K4 twice and K3 once (forward, row pass and
+    weight pass each) and nothing else, the loss falls; the same steps from
+    the same weights under 'auto' (the unfused f32 chain, no K3 / K4) give
+    the median step beside it, and the two first-step losses agree within
+    ``F32_STEP_LOSS_RTOL``. Both switches are back at 'auto' on exit.
+    Returns the fused run's K3 / K4 launch counts."""
+    from dilabhelmholtzoct_tpu_torch.data.pipeline import (PromptedDataset,
+                                                           batches)
+    from dilabhelmholtzoct_tpu_torch.inference import synthetic
+    from dilabhelmholtzoct_tpu_torch.models import sam as psam
+    from dilabhelmholtzoct_tpu_torch.models.configs import sam_vit_base
+    from dilabhelmholtzoct_tpu_torch.train import trainer as tr
+
+    dev = torch.device("cuda")
+    cfg = sam_vit_base()
+    sd_host = synthetic.random_params(cfg, seed=0)
+    config = tr.TrainConfig(evaluate=False, batch_size=8,
+                            compute_dtype="float32")  # decoder, lr 1e-3
+    ds = PromptedDataset(synthetic.oct_training_items(8, seed=1), seed=0)
+    sd = {k: v.to(dev) for k, v in sd_host.items()}
+    emb = tr.precompute_embeddings(sd, cfg, ds, dtype=torch.float32,
+                                   verbose=False)
+    del sd
+    batch = list(batches(ds, 8, with_images=False, num_workers=2))[0]
+    check(batch["channel_mask"].shape == (8, 8)
+          and batch["channel_mask"].min() == 1, "the batch is not 8 x bucket 8")
+    db = _device_batch(torch, batch, dev, emb)
+    fused = {"upscale_fwd": 1, "upscale_bwd": 1, "upscale_bwd_dw": 1,
+             "i2t_fwd": 2, "i2t_bwd": 2, "i2t_bwd_dw": 2}
+    out = {}
+    try:
+        for route, modes in (("fused", ("on", "interpret")),
+                             ("auto", ("auto", "auto"))):
+            psam.set_fused_i2t(modes[0])
+            psam.set_fused_upscaler(modes[1])
+            sd = {k: v.to(dev, copy=True) for k, v in sd_host.items()}
+            decoder, frozen = tr._split_params(sd)
+            for v in decoder.values():
+                v.requires_grad_(True)
+            opt = tr.make_optimizer(config, decoder.values())
+            step = tr.make_train_step(cfg, config, opt, (496, 512), True)
+            want = {k: (v if route == "fused" else 0)
+                    for k, v in STEP_LAUNCHES.items()
+                    if not k.startswith("attn")}
+            losses, times = [], []
+            torch.cuda.synchronize()
+            _reset_counts()  # --- main path starts
+            for i in range(F32_FUSED_STEPS):
+                before = _counts()
+                t0 = time.perf_counter()
+                decoder, opt, loss = step(decoder, opt, frozen, db)
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+                d = _delta(_counts(), before)
+                check(d == {**dict.fromkeys(d, 0), **want},
+                      f"f32 {route} step {i} launched {d}, want {want}")
+                losses.append(float(loss))
+            launches = {k: v for k, v in _counts().items()
+                        if k in fused}  # --- main path ends
+            check(all(np.isfinite(losses)), f"f32 {route}: losses {losses}")
+            check(losses[-1] < losses[0],
+                  f"f32 {route}: the loss did not fall: {losses}")
+            med = statistics.median(times[1:])
+            out[route] = (losses, med, launches)
+            print(f"f32 decoder fine-tune ViT-B, 8 images x bucket 8 (64 "
+                  f"pairs), route {route} (set_fused_i2t({modes[0]!r}), "
+                  f"set_fused_upscaler({modes[1]!r})): losses "
+                  f"{[round(x, 6) for x in losses]}; step ms first "
+                  f"{times[0]:.1f}, median of steps 2-{F32_FUSED_STEPS} "
+                  f"{med:.2f} ({8e3 / med:.1f} img/s), all "
+                  f"{[round(t, 1) for t in times]}; launches {launches}")
+            del sd, decoder, frozen, opt, step
+            torch.cuda.empty_cache()
+    finally:
+        psam.set_fused_i2t("auto")
+        psam.set_fused_upscaler("auto")
+    l_fused, l_auto = out["fused"][0][0], out["auto"][0][0]
+    rel = abs(l_fused - l_auto) / abs(l_auto)
+    print(f"f32 decoder step, fused route against 'auto': first-step loss "
+          f"{l_fused:.8f} vs {l_auto:.8f} (rel {rel:.3g}, rtol "
+          f"{F32_STEP_LOSS_RTOL}); median step {out['fused'][1]:.2f} vs "
+          f"{out['auto'][1]:.2f} ms")
+    check(rel <= F32_STEP_LOSS_RTOL,
+          "the f32 fused and unfused decoder steps' losses differ")
+    check(out["fused"][2] == {k: F32_FUSED_STEPS * v
+                              for k, v in fused.items()},
+          f"fused launches {out['fused'][2]}")
+    return out["fused"][2]
 
 
 def card_vs_cpu(torch, tr, cfg, config, sd_host, fresh, ds, emb, orig_hw):
@@ -1924,6 +2062,11 @@ def main() -> int:
     t0 = time.perf_counter()
     launches.update(training_phase(torch))
     print(f"[phases] training {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches.update({f"{k}_f32": v
+                     for k, v in decoder_f32_fused_phase(torch).items()})
+    print(f"[phases] f32 fused decoder fine-tune "
+          f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     k5_rows = k5_kernel_phase(torch, attn)
     print(f"[phases] K5 kernels {time.perf_counter() - t0:.1f} s")

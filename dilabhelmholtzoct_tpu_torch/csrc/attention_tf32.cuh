@@ -4,7 +4,8 @@
 // attn_global_tf32_kernel) and K6 (attention_relpos.cu,
 // attn_relpos_tf32_kernel): flash_tf32, and the windowed body shared by K2
 // (attention.cu, attn_windowed_tf32_kernel) and K7 (attention_winimg.cu,
-// attn_winimg_tf32_kernel): window_tiles_tf32.
+// attn_winimg_tf32_kernel): window_tiles_tf32. The shape-independent
+// primitives (split, mma1688, Frag, mma3, load_a, acc_a) are split_tf32.cuh's.
 //
 // f32 has no tensor-core type of its own, and TF32 keeps 10 mantissa bits
 // (about three digits). Each f32 operand x is split as hi = tf32(x)
@@ -36,6 +37,7 @@
 #pragma once
 
 #include "attention_mma.cuh"
+#include "split_tf32.cuh"
 
 namespace attn {
 namespace tf32 {
@@ -45,64 +47,14 @@ constexpr int LDF = D + 4;  // padded shared row (floats)
 constexpr int TILE_FLOATS = TILE * LDF;
 constexpr uint32_t TF32_ONE = 0x3F800000u;  // 1.0f, exact in TF32
 
-// x = hi + lo: hi rounded to TF32 as cvt.rna.tf32.f32 rounds a finite x
-// (half a TF32 ulp added to the sign-magnitude bits, the 13 low bits
-// cleared: to nearest, ties away from zero), lo the exact f32 remainder.
-// cvt.rna itself compiles to four instructions on sm_90 (an add, a test
-// for inf / nan, a select and the mask); this is two.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// c += a . b on the tensor cores (16 x 8 += 16 x 8 . 8 x 8, TF32 in)
-__device__ __forceinline__ void mma1688(float* c, const uint32_t* a,
-                                        uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// a split A fragment
-struct Frag {
-  uint32_t hi[4], lo[4];
-};
-
-__device__ __forceinline__ void split_frag(Frag& f, float x0, float x1,
-                                           float x2, float x3) {
-  split(x0, f.hi[0], f.lo[0]);
-  split(x1, f.hi[1], f.lo[1]);
-  split(x2, f.hi[2], f.lo[2]);
-  split(x3, f.hi[3], f.lo[3]);
-}
-
-// c += a . b in split TF32, b given as the lane's two f32 values (split
-// here): the small terms first
-__device__ __forceinline__ void mma3(float* c, const Frag& a, float b0,
-                                     float b1) {
-  uint32_t h0, l0, h1, l1;
-  split(b0, h0, l0);
-  split(b1, h1, l1);
-  mma1688(c, a.lo, h0, h1);
-  mma1688(c, a.hi, l0, l1);
-  mma1688(c, a.hi, h0, h1);
-}
-
-// The A fragment at rows r0.., columns k0.. of a row-major tile (ld floats
-// per row), times `scale` (a power of two: exact), split
-__device__ __forceinline__ void load_a(Frag& f, const float* tile, int ld,
-                                       int r0, int k0, int lane,
-                                       float scale = 1.f) {
-  const float* p = tile + (r0 + (lane >> 2)) * ld + k0 + (lane & 3);
-  split_frag(f, p[0] * scale, p[8 * ld] * scale, p[4] * scale,
-             p[8 * ld + 4] * scale);
-}
-
-// An accumulator tile as the A fragment of the next product (k permuted)
-__device__ __forceinline__ void acc_a(Frag& f, const float* c) {
-  split_frag(f, c[0], c[2], c[1], c[3]);
-}
+// the shape-independent primitives (split_tf32.cuh)
+using stf32::acc_a;
+using stf32::Frag;
+using stf32::load_a;
+using stf32::mma1688;
+using stf32::mma3;
+using stf32::split;
+using stf32::split_frag;
 
 // acc[dn][16][64] += P . B: P the NT accumulator tiles p[j] (16 x 8 NT, k
 // permuted), B a [8 NT][64] tile stored [k][n] -- p.v, ds.k, p^T.dO, ds^T.q

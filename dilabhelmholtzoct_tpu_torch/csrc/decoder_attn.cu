@@ -15,68 +15,64 @@
 // package's rounding points (ops/decoder_attn.py:86-117).
 //
 // The forward replaces dilabhelmholtzoct_tpu/ops/decoder_attn.py
-//    _fused_fwd (:264, body _fwd_kernel :120-130, math _chain :86-117).
+//    _fused_fwd (:264, body _fwd_kernel :120-130, math _chain :86-117):
+//    persistent 8-warp blocks; a warp pair walks units of image rows and
+//    the pb pairs of each image (the q projection once per image tile).
 //    * bf16 (the training path): i2t_fwd_mma_kernel on the tensor cores,
-//      persistent 8-warp blocks with Wq and Wo in shared memory; a warp
-//      pair walks units of 16 image rows and the pb pairs of each image
-//      (the q projection once per image tile).
-//    * f32: i2t_fwd_kernel, one SIMT block per (pair, 32-row tile) (not on
-//      a main path: the JAX package routes K4 only in bf16).
+//      Wq and Wo in shared memory, units of 16 rows.
+//    * f32 (reached with set_fused_i2t('on')): i2t_fwd_tf32_kernel in split
+//      TF32 (decoder_tf32.cuh), units of 64 rows whose 4 slots stream Wq and
+//      Wo through a shared cp.async ring.
 // The backward replaces the same file's _fused_bwd (:287, body _bwd_kernel
-//    :133-218): it recomputes the chain, runs the LayerNorm and softmax
-//    backward per row, writes d_keys and the per-row d_qpre, p, d_score and
-//    d_out (the token and positional gradients are einsums over these rows
-//    outside the kernel, as in the JAX package), and sums dWq, dbq, dWo,
-//    dbo and the LayerNorm gradients over rows. The JAX kernel carries dW
-//    in one output block across its sequential grid; here blocks run in
-//    parallel, so every sum over rows is one partial per block (or warp),
-//    added up by the wrapper in a fixed order -- no atomics, so the
-//    gradients repeat bit for bit.
-//    * bf16 (the training path): two launches on the tensor cores
-//      (decoder_mma.cuh). i2t_bwd_rows_kernel is the row pass: persistent
-//      8-warp blocks with Wq and Wo in shared memory, a warp pair per
-//      16-row tile; it also writes rnd(out) and rnd(d_res) per row as bf16
-//      scratch. i2t_bwd_dw_kernel is the weight pass: dWo = sum_r
-//      rnd(out)^T rnd(d_res) and dWq^T = sum_r rnd(d_qpre)^T rnd(keys +
-//      pe), split-K over row chunks.
-//    * f32: i2t_bwd_kernel, one fused SIMT kernel, one block per (pair,
-//      split) looping over 32-row tiles (not on a main path: the JAX
-//      package routes K4 only in bf16).
+//    :133-218) with two launches: a row pass recomputes the chain, runs the
+//    LayerNorm and softmax backward per row, writes d_keys and the per-row
+//    d_qpre, p, d_score and d_out (the token and positional gradients are
+//    einsums over these rows outside the kernel, as in the JAX package),
+//    the scratch rows rnd(out) and rnd(d_res), and sums dbq, dbo and the
+//    LayerNorm gradients; a weight pass forms dWo = sum_r rnd(out)^T
+//    rnd(d_res) and dWq^T = sum_r rnd(d_qpre)^T rnd(keys + pe), split-K over
+//    row chunks. The JAX kernel carries dW in one output block across its
+//    sequential grid; here blocks run in parallel, so every sum over rows is
+//    one partial per slot (or chunk), added up by the wrapper in a fixed
+//    order -- no atomics, so the gradients repeat bit for bit.
+//    * bf16: i2t_bwd_rows_kernel (Wq and Wo in shared memory, a warp pair
+//      per 16-row tile) and i2t_bwd_dw_kernel (decoder_mma.cuh).
+//    * f32: i2t_bwd_rows_tf32_kernel (super-tiles of 64 rows streaming Wq,
+//      Wo, Wo^T and Wq^T) and i2t_bwd_dw_tf32_kernel, in split TF32; rnd()
+//      is the identity, so the scratch rows are f32.
 //
-// Bound on an H100 SXM (700 W) at the training shapes (64 pairs x 4096 rows,
-//    bf16): forward 135 kFLOP/row = 35.3 GFLOP over 989 TFLOP/s = 0.036 ms,
-//    bytes (keys in, y out, ~270 MB per pair layer) 0.081 ms: byte-bound;
-//    with the shared first layer (pb = 8) the keys read is per image and
-//    the bound is ~0.045 ms. Backward ~400 kFLOP/row = 105 GFLOP = 0.106 ms,
-//    bytes (keys, dy in; d_keys, d_qpre, p, d_score, d_out out) ~603 MB =
-//    0.18 ms: byte-bound; the weight pass's bf16 scratch (201 MB written
-//    and read) adds 0.12 ms of bytes.
+// Bound on an H100 SXM (700 W) at the training shapes (64 pairs x 4096
+//    rows): forward 135 kFLOP/row = 35.3 GFLOP, over 989 TFLOP/s (bf16) =
+//    0.036 ms against ~0.08 ms of bytes (keys in, y out): byte-bound; in
+//    f32 over split TF32's 165 TFLOP/s (495 / 3) 0.214 ms against 0.16 ms
+//    of bytes: operation-bound. Backward ~400 kFLOP/row = 105 GFLOP (bf16
+//    0.106 ms, f32 split 0.64 ms) against bytes (keys, dy in; d_keys, d_qpre,
+//    p, d_score, d_out out) ~0.18 ms in bf16, 0.36 in f32; the scratch rows
+//    between the two launches add 201 MB written and read in bf16, 403 MB
+//    in f32 (chip_smoke.py::k4_bound_ms bounds each launch with them).
 // What the kernels do about it: every intermediate of the chain stays in
 //    shared memory or registers, so device memory sees only the rows in and
-//    out. The bf16 kernels run every product on the tensor cores (mma.sync
-//    bf16 -> f32, chained from accumulator to A fragment where the operand
-//    is a rounding point of the JAX kernel, so each tensor-core term is
-//    exact): q and out projections as m16n8k16 over the warp's 16 x 128
-//    (or 16 x 64) accumulators; per head the scores (one m16n8k16, head dim
-//    16 x 8 tokens) and p . v (m16n8k8 over the 8 tokens); the backward
-//    adds d_out = d_res . Wo^T, d_keys = d_qpre . Wq^T + d_res, d_p = d_out
-//    . v^T and d_score . k. The softmax over <= 8 tokens, the LayerNorm and
-//    their backwards run in f32 registers over a lane quad. The forward
-//    copies the next unit's pe and keys rows while the current unit
-//    computes, and writes y as 16-byte row segments (quad_transpose). The
-//    f32 kernels are SIMT register tiles (one column per thread over the
-//    tile's rows, 16-byte broadcast loads of the row operand); their
-//    attention runs one thread per (row, head) with the 8 tokens in
-//    registers and k/v tiles padded to 17 floats per head against bank
-//    conflicts -- not the TPU's block-diagonal K'/V' expansions with iota
-//    masks, nor its pre-transposed padded k.
+//    out. Every product runs on the tensor cores, chained from accumulator
+//    to A fragment where the operand needs no trip through shared memory:
+//    q and out projections over the warp's 16 x 64 (or 16 x 128)
+//    accumulators; per head the scores (head dim 16 x 8 tokens) and p . v
+//    over the 8 tokens; the backward adds d_out = d_res . Wo^T, d_keys =
+//    d_qpre . Wq^T + d_res, d_p = d_out . v^T and d_score . k. bf16 runs
+//    them as mma.sync bf16 -> f32 (each operand a rounding point of the
+//    JAX kernel, so each term is exact); f32 as hi.hi + hi.lo + lo.hi on
+//    m16n8k8 TF32, the per-head products too (4 of every 270 kFLOP of a
+//    row: splitting them costs less than a second path through FMAs). The
+//    softmax over <= 8 tokens, the LayerNorm and their backwards run in f32
+//    registers over a lane quad and the warp pair. In f32 the weights
+//    (256 KB) do not fit in shared memory beside the rows; streaming them
+//    per 64-row super-tile reads each weight byte from L2 once for 64 rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "decoder_mma.cuh"
+#include "decoder_tf32.cuh"
 
 namespace {
 
@@ -84,499 +80,7 @@ constexpr int C = 256;            // channels
 constexpr int I = 128;            // internal lanes
 constexpr int NH = 8;             // heads
 constexpr int HD = I / NH;        // 16
-constexpr int HP = HD + 1;        // padded head stride in shared memory
 constexpr int TP = 8;             // token capacity
-constexpr int TM = 32;            // rows per tile
-constexpr int THREADS = 256;
-constexpr int RPW = TM / (THREADS / 32);  // rows per warp in the LayerNorms
-static_assert(THREADS == C && THREADS == 2 * I && THREADS == TM * NH,
-              "thread maps assume 256 threads");
-
-template <typename T>
-__device__ __forceinline__ float ld(const T* p);
-template <>
-__device__ __forceinline__ float ld<float>(const float* p) { return __ldg(p); }
-
-template <typename T>
-__device__ __forceinline__ float rnd(float x);
-template <>
-__device__ __forceinline__ float rnd<float>(float x) { return x; }
-
-template <typename T>
-__device__ __forceinline__ void st(T* p, float x);
-template <>
-__device__ __forceinline__ void st<float>(float* p, float x) { *p = x; }
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float4 lds4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// the pair's n_tok tokens of k and v -> shared [TP][NH][HP], zeros past
-// n_tok
-template <typename T>
-__device__ void load_tokens(float* tk_s, float* tv_s, const T* tok_k,
-                            const T* tok_v, int n_tok) {
-  for (int i = threadIdx.x; i < TP * I; i += THREADS) {
-    const int t = i / I, l = i % I;
-    const int o = t * NH * HP + (l / HD) * HP + l % HD;
-    tk_s[o] = t < n_tok ? ld(tok_k + (size_t)t * I + l) : 0.f;
-    tv_s[o] = t < n_tok ? ld(tok_v + (size_t)t * I + l) : 0.f;
-  }
-}
-
-// qin_s[r][c] = rnd(keys + pe); with keys_s (optional) the keys themselves
-template <typename T>
-__device__ void load_qin(float* qin_s, float* keys_s, const T* keys_img,
-                         const T* pe, int row0, int m) {
-  for (int i = threadIdx.x; i < TM * C; i += THREADS) {
-    const int r = i / C, c = i % C;
-    float kv = 0.f, pv = 0.f;
-    if (row0 + r < m) {
-      kv = ld(keys_img + (size_t)(row0 + r) * C + c);
-      pv = ld(pe + (size_t)(row0 + r) * C + c);
-    }
-    qin_s[i] = rnd<T>(kv + pv);
-    if (keys_s) keys_s[i] = kv;
-  }
-}
-
-// q_s[r][h][d] = rnd(rnd(qin . Wq + bq) * scale); thread (i, row half)
-template <typename T>
-__device__ void q_projection(float* q_s, const float* qin_s, const T* wq,
-                             const float* bq, float scale) {
-  const int i = threadIdx.x % I, r0 = (threadIdx.x / I) * (TM / 2);
-  float acc[TM / 2];
-#pragma unroll
-  for (int r = 0; r < TM / 2; ++r) acc[r] = 0.f;
-  for (int c = 0; c < C; c += 4) {
-    float w[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) w[u] = ld(wq + (size_t)(c + u) * I + i);
-#pragma unroll
-    for (int r = 0; r < TM / 2; ++r) {
-      const float4 a = lds4(qin_s + (r0 + r) * C + c);
-      acc[r] = fmaf(a.x, w[0], acc[r]);
-      acc[r] = fmaf(a.y, w[1], acc[r]);
-      acc[r] = fmaf(a.z, w[2], acc[r]);
-      acc[r] = fmaf(a.w, w[3], acc[r]);
-    }
-  }
-  const float b = bq[i];
-#pragma unroll
-  for (int r = 0; r < TM / 2; ++r)
-    q_s[(r0 + r) * NH * HP + (i / HD) * HP + i % HD] =
-        rnd<T>(rnd<T>(acc[r] + b) * scale);
-}
-
-// thread (row r, head h): scores over the tokens, per-head softmax (p kept
-// in f32 for the backward), out = rnd(rnd(p) . v) -> o_s[r][h * HD + d]
-template <typename T>
-__device__ void attend(float (&p)[TP], float* o_s, const float* q_s,
-                       const float* tk_s, const float* tv_s, int n_tok) {
-  const int r = threadIdx.x / NH, h = threadIdx.x % NH;
-  float q[HD];
-#pragma unroll
-  for (int d = 0; d < HD; ++d) q[d] = q_s[r * NH * HP + h * HP + d];
-  float mx = -INFINITY;
-#pragma unroll
-  for (int t = 0; t < TP; ++t) {
-    float s = -INFINITY;
-    if (t < n_tok) {
-      s = 0.f;
-#pragma unroll
-      for (int d = 0; d < HD; ++d) s = fmaf(q[d], tk_s[t * NH * HP + h * HP + d], s);
-    }
-    p[t] = s;
-    mx = fmaxf(mx, s);
-  }
-  float den = 0.f;
-#pragma unroll
-  for (int t = 0; t < TP; ++t) {
-    p[t] = t < n_tok ? expf(p[t] - mx) : 0.f;
-    den += p[t];
-  }
-  const float inv = 1.f / den;
-  float o[HD];
-#pragma unroll
-  for (int d = 0; d < HD; ++d) o[d] = 0.f;
-#pragma unroll
-  for (int t = 0; t < TP; ++t) {
-    p[t] *= inv;
-    const float pr = rnd<T>(p[t]);
-#pragma unroll
-    for (int d = 0; d < HD; ++d)
-      o[d] = fmaf(pr, tv_s[t * NH * HP + h * HP + d], o[d]);
-  }
-#pragma unroll
-  for (int d = 0; d < HD; ++d) o_s[r * I + h * HD + d] = rnd<T>(o[d]);
-}
-
-// res[r][c] = rnd(keys + rnd(o . Wo + bo)), in place over keys_s; thread c
-template <typename T>
-__device__ void out_projection(float* keys_s, const float* o_s, const T* wo,
-                               const float* bo) {
-  const int c = threadIdx.x;
-  float acc[TM];
-#pragma unroll
-  for (int r = 0; r < TM; ++r) acc[r] = 0.f;
-  for (int i = 0; i < I; i += 4) {
-    float w[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) w[u] = ld(wo + (size_t)(i + u) * C + c);
-#pragma unroll
-    for (int r = 0; r < TM; ++r) {
-      const float4 a = lds4(o_s + r * I + i);
-      acc[r] = fmaf(a.x, w[0], acc[r]);
-      acc[r] = fmaf(a.y, w[1], acc[r]);
-      acc[r] = fmaf(a.z, w[2], acc[r]);
-      acc[r] = fmaf(a.w, w[3], acc[r]);
-    }
-  }
-  const float b = bo[c];
-#pragma unroll
-  for (int r = 0; r < TM; ++r)
-    keys_s[r * C + c] = rnd<T>(keys_s[r * C + c] + rnd<T>(acc[r] + b));
-}
-
-constexpr size_t FWD_SMEM = sizeof(float) * (size_t)(
-    2 * TM * C + TM * NH * HP + 2 * TP * NH * HP + TM * I);
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    i2t_fwd_kernel(const T* keys, const T* pe, const T* tok_k,
-                   const T* tok_v, const T* wq, const float* bq, const T* wo,
-                   const float* bo, const float* g, const float* bt, T* out,
-                   int m, int pb, int n_tok, float eps) {
-  extern __shared__ float smem[];
-  float* qin_s = smem;                // [TM][C]
-  float* res_s = qin_s + TM * C;      // [TM][C] keys, then res
-  float* q_s = res_s + TM * C;        // [TM][NH][HP]
-  float* tk_s = q_s + TM * NH * HP;   // [TP][NH][HP]
-  float* tv_s = tk_s + TP * NH * HP;  // [TP][NH][HP]
-  float* o_s = tv_s + TP * NH * HP;   // [TM][I]
-  const int pair = blockIdx.y, row0 = blockIdx.x * TM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  load_tokens(tk_s, tv_s, tok_k + (size_t)pair * n_tok * I,
-              tok_v + (size_t)pair * n_tok * I, n_tok);
-  load_qin(qin_s, res_s, keys + (size_t)(pair / pb) * m * C, pe, row0, m);
-  __syncthreads();
-  q_projection<T>(q_s, qin_s, wq, bq, rnd<T>(1.f / sqrtf((float)HD)));
-  __syncthreads();
-  float p[TP];
-  attend<T>(p, o_s, q_s, tk_s, tv_s, n_tok);
-  __syncthreads();
-  out_projection<T>(res_s, o_s, wo, bo);
-  __syncthreads();
-  for (int rr = 0; rr < RPW; ++rr) {
-    const int r = warp * RPW + rr;
-    float x[C / 32];
-    float s = 0.f;
-#pragma unroll
-    for (int k = 0; k < C / 32; ++k) {
-      x[k] = res_s[r * C + lane + 32 * k];
-      s += x[k];
-    }
-    const float mu = warp_sum(s) * (1.f / C);
-    float v = 0.f;
-#pragma unroll
-    for (int k = 0; k < C / 32; ++k) {
-      x[k] -= mu;
-      v = fmaf(x[k], x[k], v);
-    }
-    const float rs = rsqrtf(warp_sum(v) * (1.f / C) + eps);
-    if (row0 + r < m) {
-      T* dst = out + ((size_t)pair * m + row0 + r) * C;
-#pragma unroll
-      for (int k = 0; k < C / 32; ++k) {
-        const int c = lane + 32 * k;
-        st(dst + c, x[k] * rs * g[c] + bt[c]);
-      }
-    }
-  }
-}
-
-constexpr size_t BWD_SMEM = sizeof(float) * (size_t)(
-    3 * TM * C + 2 * TM * NH * HP + 2 * TP * NH * HP + 2 * TM * I);
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 1)
-    i2t_bwd_kernel(const T* keys, const T* pe, const T* tok_k,
-                   const T* tok_v, const T* wq, const T* wqt, const float* bq,
-                   const T* wo, const T* wot, const float* bo, const float* g,
-                   const float* bt, const T* dy, T* dkeys, T* dqpre, T* p_out,
-                   T* ds_out, T* dout, float* dwqt_p, float* dbq_p,
-                   float* dwo_p, float* dbo_p, float* dg_p, float* dbt_p,
-                   int m, int pb, int n_tok, int splits, float eps) {
-  extern __shared__ float smem[];
-  float* qin_s = smem;                // [TM][C]
-  float* res_s = qin_s + TM * C;      // [TM][C] keys -> res -> y normalised
-  float* dres_s = res_s + TM * C;     // [TM][C] rnd(d_res)
-  float* q_s = dres_s + TM * C;       // [TM][NH][HP] q * scale
-  float* do_s = q_s + TM * NH * HP;   // [TM][NH][HP] rnd(d_out)
-  float* tk_s = do_s + TM * NH * HP;  // [TP][NH][HP]
-  float* tv_s = tk_s + TP * NH * HP;  // [TP][NH][HP]
-  float* o_s = tv_s + TP * NH * HP;   // [TM][I] rnd(out)
-  float* dq_s = o_s + TM * I;         // [TM][I] rnd(d_qpre)
-
-  const int pair = blockIdx.y, split = blockIdx.x;
-  const int blk = pair * splits + split;
-  const int ntiles = (m + TM - 1) / TM;
-  const int per = (ntiles + splits - 1) / splits;
-  const int t0 = split * per, t1 = min(ntiles, t0 + per);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int ar = tid / NH, ah = tid % NH;  // (row, head) of the attention
-  const float scale_in = rnd<T>(1.f / sqrtf((float)HD));
-  const float scale_f32 = 1.f / sqrtf((float)HD);
-  const T* keys_img = keys + (size_t)(pair / pb) * m * C;
-
-  load_tokens(tk_s, tv_s, tok_k + (size_t)pair * n_tok * I,
-              tok_v + (size_t)pair * n_tok * I, n_tok);
-
-  float dg[C / 32], dbt[C / 32], dbo[C / 32];  // columns lane + 32 k
-#pragma unroll
-  for (int k = 0; k < C / 32; ++k) dg[k] = dbt[k] = dbo[k] = 0.f;
-  float dbq[HD];  // lanes ah * HD + d
-#pragma unroll
-  for (int d = 0; d < HD; ++d) dbq[d] = 0.f;
-
-  for (int tile = t0; tile < t1; ++tile) {
-    const int row0 = tile * TM;
-    const bool first = tile == t0;
-    __syncthreads();  // the previous tile is done with shared memory
-    load_qin(qin_s, res_s, keys_img, pe, row0, m);
-    __syncthreads();
-    q_projection<T>(q_s, qin_s, wq, bq, scale_in);
-    __syncthreads();
-    float p[TP];
-    attend<T>(p, o_s, q_s, tk_s, tv_s, n_tok);
-    __syncthreads();
-    out_projection<T>(res_s, o_s, wo, bo);
-    __syncthreads();
-
-    // LayerNorm recompute and backward, one warp per RPW rows
-    for (int rr = 0; rr < RPW; ++rr) {
-      const int r = warp * RPW + rr;
-      const bool valid = row0 + r < m;
-      float x[C / 32];
-      float s = 0.f;
-#pragma unroll
-      for (int k = 0; k < C / 32; ++k) {
-        x[k] = res_s[r * C + lane + 32 * k];
-        s += x[k];
-      }
-      const float mu = warp_sum(s) * (1.f / C);
-      float v = 0.f;
-#pragma unroll
-      for (int k = 0; k < C / 32; ++k) {
-        x[k] -= mu;
-        v = fmaf(x[k], x[k], v);
-      }
-      const float rs = rsqrtf(warp_sum(v) * (1.f / C) + eps);
-      float dyn[C / 32];
-      float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-      for (int k = 0; k < C / 32; ++k) {
-        const int c = lane + 32 * k;
-        x[k] *= rs;  // y normalised
-        const float dyv =
-            valid ? ld(dy + ((size_t)pair * m + row0 + r) * C + c) : 0.f;
-        dg[k] = fmaf(dyv, x[k], dg[k]);
-        dbt[k] += dyv;
-        dyn[k] = dyv * g[c];
-        s1 += dyn[k];
-        s2 = fmaf(dyn[k], x[k], s2);
-      }
-      const float mdy = warp_sum(s1) * (1.f / C);
-      const float mdyy = warp_sum(s2) * (1.f / C);
-#pragma unroll
-      for (int k = 0; k < C / 32; ++k) {
-        const float dr = rs * (dyn[k] - mdy - x[k] * mdyy);
-        dbo[k] += dr;
-        dres_s[r * C + lane + 32 * k] = rnd<T>(dr);
-      }
-    }
-    __syncthreads();
-
-    // dWo[i][c] partial (thread c) and d_out (thread (i, row half))
-    {
-      const int c = tid;
-      float dcol[TM];
-#pragma unroll
-      for (int r = 0; r < TM; ++r) dcol[r] = dres_s[r * C + c];
-      float* dst = dwo_p + (size_t)blk * I * C + c;
-#pragma unroll 1
-      for (int i = 0; i < I; i += 4) {
-        float s[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int r = 0; r < TM; ++r) {
-          const float4 a = lds4(o_s + r * I + i);
-          s[0] = fmaf(a.x, dcol[r], s[0]);
-          s[1] = fmaf(a.y, dcol[r], s[1]);
-          s[2] = fmaf(a.z, dcol[r], s[2]);
-          s[3] = fmaf(a.w, dcol[r], s[3]);
-        }
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          float* q = dst + (size_t)(i + u) * C;
-          *q = first ? s[u] : *q + s[u];
-        }
-      }
-    }
-    {
-      const int i = tid % I, r0 = (tid / I) * (TM / 2);
-      float acc[TM / 2];
-#pragma unroll
-      for (int r = 0; r < TM / 2; ++r) acc[r] = 0.f;
-      for (int c = 0; c < C; c += 4) {
-        float w[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) w[u] = ld(wot + (size_t)(c + u) * I + i);
-#pragma unroll
-        for (int r = 0; r < TM / 2; ++r) {
-          const float4 a = lds4(dres_s + (r0 + r) * C + c);
-          acc[r] = fmaf(a.x, w[0], acc[r]);
-          acc[r] = fmaf(a.y, w[1], acc[r]);
-          acc[r] = fmaf(a.z, w[2], acc[r]);
-          acc[r] = fmaf(a.w, w[3], acc[r]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < TM / 2; ++r) {
-        const float v = rnd<T>(acc[r]);
-        do_s[(r0 + r) * NH * HP + (i / HD) * HP + i % HD] = v;
-        if (row0 + r0 + r < m)
-          st(dout + ((size_t)pair * m + row0 + r0 + r) * I + i, v);
-      }
-    }
-    __syncthreads();
-
-    // softmax backward and d_qpre, thread (row, head)
-    {
-      float dsb[TP];
-      float pdp_sum = 0.f;
-#pragma unroll
-      for (int t = 0; t < TP; ++t) {
-        float dp = 0.f;
-#pragma unroll
-        for (int d = 0; d < HD; ++d)
-          dp = fmaf(do_s[ar * NH * HP + ah * HP + d],
-                    tv_s[t * NH * HP + ah * HP + d], dp);
-        dsb[t] = p[t] * dp;
-        pdp_sum += dsb[t];
-      }
-      const bool valid = row0 + ar < m;
-      const size_t prow = ((size_t)pair * m + row0 + ar) * (NH * TP) + ah * TP;
-#pragma unroll
-      for (int t = 0; t < TP; ++t) {
-        dsb[t] = rnd<T>(dsb[t] - p[t] * pdp_sum);  // p == 0 on pad tokens
-        if (valid) {
-          st(p_out + prow + t, p[t]);
-          st(ds_out + prow + t, dsb[t]);
-        }
-      }
-#pragma unroll
-      for (int d = 0; d < HD; ++d) {
-        float a = 0.f;
-#pragma unroll
-        for (int t = 0; t < TP; ++t)
-          a = fmaf(dsb[t], tk_s[t * NH * HP + ah * HP + d], a);
-        a *= scale_f32;
-        dbq[d] += a;
-        const float ab = rnd<T>(a);
-        dq_s[ar * I + ah * HD + d] = ab;
-        if (valid)
-          st(dqpre + ((size_t)pair * m + row0 + ar) * I + ah * HD + d, ab);
-      }
-    }
-    __syncthreads();
-
-    // dWq^T[i][c] partial and d_keys, thread c
-    {
-      const int c = tid;
-      float qcol[TM];
-#pragma unroll
-      for (int r = 0; r < TM; ++r) qcol[r] = qin_s[r * C + c];
-      float* dst = dwqt_p + (size_t)blk * I * C + c;
-#pragma unroll 1
-      for (int i = 0; i < I; i += 4) {
-        float s[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int r = 0; r < TM; ++r) {
-          const float4 a = lds4(dq_s + r * I + i);
-          s[0] = fmaf(a.x, qcol[r], s[0]);
-          s[1] = fmaf(a.y, qcol[r], s[1]);
-          s[2] = fmaf(a.z, qcol[r], s[2]);
-          s[3] = fmaf(a.w, qcol[r], s[3]);
-        }
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          float* q = dst + (size_t)(i + u) * C;
-          *q = first ? s[u] : *q + s[u];
-        }
-      }
-      float acc[TM];
-#pragma unroll
-      for (int r = 0; r < TM; ++r) acc[r] = 0.f;
-      for (int i = 0; i < I; i += 4) {
-        float w[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) w[u] = ld(wqt + (size_t)(i + u) * C + c);
-#pragma unroll
-        for (int r = 0; r < TM; ++r) {
-          const float4 a = lds4(dq_s + r * I + i);
-          acc[r] = fmaf(a.x, w[0], acc[r]);
-          acc[r] = fmaf(a.y, w[1], acc[r]);
-          acc[r] = fmaf(a.z, w[2], acc[r]);
-          acc[r] = fmaf(a.w, w[3], acc[r]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < TM; ++r)
-        if (row0 + r < m)
-          st(dkeys + ((size_t)pair * m + row0 + r) * C + c,
-             dres_s[r * C + c] + acc[r]);
-    }
-  }
-
-  // the block's per-lane sums: combine the threads that share a lane in a
-  // fixed order (shared memory is free once the last tile is done)
-  __syncthreads();
-  float* red = smem;  // [8 warps][3][C], then [TM][I]
-#pragma unroll
-  for (int k = 0; k < C / 32; ++k) {
-    const int c = lane + 32 * k;
-    red[(warp * 3 + 0) * C + c] = dg[k];
-    red[(warp * 3 + 1) * C + c] = dbt[k];
-    red[(warp * 3 + 2) * C + c] = dbo[k];
-  }
-  __syncthreads();
-  {
-    float s0 = 0.f, s1 = 0.f, s2 = 0.f;
-    for (int w = 0; w < THREADS / 32; ++w) {
-      s0 += red[(w * 3 + 0) * C + tid];
-      s1 += red[(w * 3 + 1) * C + tid];
-      s2 += red[(w * 3 + 2) * C + tid];
-    }
-    dg_p[(size_t)blk * C + tid] = s0;
-    dbt_p[(size_t)blk * C + tid] = s1;
-    dbo_p[(size_t)blk * C + tid] = s2;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int d = 0; d < HD; ++d) red[ar * I + ah * HD + d] = dbq[d];
-  __syncthreads();
-  if (tid < I) {
-    float s = 0.f;
-    for (int r = 0; r < TM; ++r) s += red[r * I + tid];
-    dbq_p[(size_t)blk * I + tid] = s;
-  }
-}
 
 // ------------------------------- bf16 forward and backward, tensor cores ----
 using dec::bf16;
@@ -1342,26 +846,6 @@ int launch_bwd_dw(void* const* a, int bp, int m, int pb, int chunk,
   return (int)cudaGetLastError();
 }
 
-int launch_fwd_f32(const void* keys, const void* pe, const void* tok_k,
-                   const void* tok_v, const void* wq, const void* bq,
-                   const void* wo, const void* bo, const void* g,
-                   const void* bt, void* out, int bp, int m, int pb,
-                   int n_tok, float eps, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      i2t_fwd_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)FWD_SMEM);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((m + TM - 1) / TM, bp);
-  i2t_fwd_kernel<float><<<grid, THREADS, FWD_SMEM, stream>>>(
-      static_cast<const float*>(keys), static_cast<const float*>(pe),
-      static_cast<const float*>(tok_k), static_cast<const float*>(tok_v),
-      static_cast<const float*>(wq), static_cast<const float*>(bq),
-      static_cast<const float*>(wo), static_cast<const float*>(bo),
-      static_cast<const float*>(g), static_cast<const float*>(bt),
-      static_cast<float*>(out), m, pb, n_tok, eps);
-  return (int)cudaGetLastError();
-}
-
 int launch_fwd_mma(const void* keys, const void* pe, const void* tok_k,
                    const void* tok_v, const void* wq, const void* bq,
                    const void* wo, const void* bo, const void* g,
@@ -1382,33 +866,677 @@ int launch_fwd_mma(const void* keys, const void* pe, const void* tok_k,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_bwd(void* const* a, int bp, int m, int pb, int n_tok, int splits,
-               float eps, cudaStream_t stream) {
-  const int ntiles = (m + TM - 1) / TM;
-  // every block must own at least one tile: its partial sums are written,
-  // never accumulated into a zeroed buffer
-  if (n_tok < 1 || n_tok > TP || pb < 1 || bp % pb || splits < 1 ||
-      (splits - 1) * ((ntiles + splits - 1) / splits) >= ntiles)
+
+// ---------------------------- f32 forward and backward, split TF32 ----
+// The f32 kernels: the bf16 ones' warp pairs and chain, on super-tiles of
+// 64 rows (decoder_tf32.cuh: dec32::stream_product streams each weight
+// through a cp.async ring, every byte serving the super-tile's 64 rows).
+// Shared memory: the super-tile's keys rows (then res, then d_res) and pe
+// rows (then p: [16][LDP] per slot) [64][LDX], its rnd(out) (then d_qpre)
+// rows [64][LDO32], the weight ring and the LayerNorm row sums. Warp `sub`
+// of a slot's pair takes the heads 4 sub.. (I lanes 64 sub..) and the C
+// columns 128 sub.., as in bf16.
+using attn::mma::cp_commit;
+using attn::mma::cp_wait;
+using stf32::acc_a;
+using stf32::Frag;
+using stf32::load_a;
+using stf32::mma3;
+using stf32::split_frag;
+
+constexpr int LDX = C + 4;        // keys / pe / res / d_res rows (floats)
+constexpr int LDO32 = I + 4;      // rnd(out) / d_qpre rows
+constexpr int LDP = NH * TP + 8;  // p rows (float2 at bank 8g + 2t)
+constexpr int WQ_KS = 32;         // Wq-shaped ([C][I]) stage rows
+constexpr int WO_KS = 16;         // Wo-shaped ([I][C]) stage rows
+constexpr int RING32 = dec32::STAGES * WQ_KS * (I + 8);
+static_assert(WQ_KS * (I + 8) >= WO_KS * (C + 8), "ring stage size");
+constexpr size_t TF32_SMEM =
+    sizeof(float) * ((size_t)dec32::ROWS * (2 * LDX + LDO32) + RING32 +
+                     dec32::SLOTS * 6 * 2 * 16);
+// the row pass adds its per-column sums of dg and dbt per slot
+constexpr size_t ROWS_TF32_SMEM =
+    TF32_SMEM + sizeof(float) * dec32::SLOTS * 2 * C;
+
+// (qin . Wq + bq) / 4 of the warp's 16 rows, lanes i0.. (8 n-tiles), qin =
+// keys + pe formed in the A fragments (keys xs, pe es: the slot's rows)
+__device__ __forceinline__ void q_proj32(float (&q)[8][4], const float* xs,
+                                         const float* es, const float* wq,
+                                         const float* bq, float* ring, int i0,
+                                         int lane) {
+  const int tq = lane & 3;
+  dec32::zero<8>(q);
+  dec32::stream_product<C, I, WQ_KS, 8>(
+      q, wq, ring, i0,
+      [&](Frag& a, int k0) {
+        const int o = (lane >> 2) * LDX + k0 + tq;
+        split_frag(a, xs[o] + es[o], xs[o + 8 * LDX] + es[o + 8 * LDX],
+                   xs[o + 4] + es[o + 4], xs[o + 8 * LDX + 4] + es[o + 8 * LDX + 4]);
+      },
+      lane);
+  const float scale = 1.f / sqrtf((float)HD);  // 1/4: exact
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = i0 + 8 * j + 2 * tq;
+    const float b0 = bq[col], b1 = bq[col + 1];
+    q[j][0] = (q[j][0] + b0) * scale;
+    q[j][1] = (q[j][1] + b1) * scale;
+    q[j][2] = (q[j][2] + b0) * scale;
+    q[j][3] = (q[j][3] + b1) * scale;
+  }
+}
+
+// head h: sc = x . tok^T over the head's 16 lanes (x the two accumulator
+// n-tiles xh, k permuted; tok the pair's [n_tok][I] rows, zero past n_tok):
+// sc[0..1] row g, sc[2..3] row g + 8, tokens 2t, 2t + 1 -- the scores
+// qs . k^T and, in the backward, d_p = d_out . v^T
+__device__ __forceinline__ void head_dots32(float (&sc)[4],
+                                            const float (*xh)[4],
+                                            const float* tok, int h,
+                                            int n_tok, int lane) {
+  const int gq = lane >> 2, tq = lane & 3;
+  const bool tg = gq < n_tok;
+  sc[0] = sc[1] = sc[2] = sc[3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    Frag a;
+    acc_a(a, xh[kk]);
+    const float2 b = tg ? dec32::ld2(tok + gq * I + 16 * h + 8 * kk + 2 * tq)
+                        : make_float2(0.f, 0.f);
+    mma3(sc, a, b.x, b.y);
+  }
+}
+
+// softmax over the tokens of sc (f32, per row over a lane quad, -inf past
+// n_tok), in place
+__device__ __forceinline__ void softmax32(float (&sc)[4], int n_tok,
+                                          int lane) {
+  using attn::mma::quad_max;
+  using attn::mma::quad_sum;
+  const int tq = lane & 3;
+  const bool t0 = 2 * tq < n_tok, t1 = 2 * tq + 1 < n_tok;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float x0 = t0 ? sc[2 * r] : -INFINITY, x1 = t1 ? sc[2 * r + 1] : -INFINITY;
+    const float mx = quad_max(fmaxf(x0, x1));
+    x0 = t0 ? expf(x0 - mx) : 0.f;
+    x1 = t1 ? expf(x1 - mx) : 0.f;
+    const float inv = 1.f / quad_sum(x0 + x1);
+    sc[2 * r] = x0 * inv;
+    sc[2 * r + 1] = x1 * inv;
+  }
+}
+
+// head h: o[n] = w . tok over the tokens (w rows x tokens in accumulator
+// layout, k permuted), n-tile n: lanes 16 h + 8 n.. -- p . v and, in the
+// backward, d_score . k
+__device__ __forceinline__ void head_mix32(float (&o)[2][4],
+                                           const float (&w)[4],
+                                           const float* tok, int h,
+                                           int n_tok, int lane) {
+  const int gq = lane >> 2, tq = lane & 3;
+  const bool t0 = 2 * tq < n_tok, t1 = 2 * tq + 1 < n_tok;
+  Frag a;
+  acc_a(a, w);
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+    const int d = 16 * h + 8 * n + gq;
+    o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+    mma3(o[n], a, t0 ? tok[2 * tq * I + d] : 0.f,
+         t1 ? tok[(2 * tq + 1) * I + d] : 0.f);
+  }
+}
+
+// The f32 forward. Persistent blocks of 8 warps walk units of 64 image
+// rows (the rows of one image; its pb pairs share keys, pe and the q
+// projection, which stays in registers); per pair: the head scores,
+// softmax and p . v (rnd(out) -> the slot's rows), the out projection,
+// residual and LayerNorm, y stored from registers as 8-byte pairs.
+__global__ void __launch_bounds__(dec32::THREADS, 1)
+    i2t_fwd_tf32_kernel(const float* keys, const float* pe,
+                        const float* tok_k, const float* tok_v,
+                        const float* wq, const float* bq, const float* wo,
+                        const float* bo, const float* g, const float* bt,
+                        float* out, int bp, int m, int pb, int n_tok,
+                        float eps) {
+  using attn::mma::quad_sum;
+  extern __shared__ __align__(16) float smem32[];
+  float* x_s = smem32;
+  float* e_s = x_s + dec32::ROWS * LDX;
+  float* o_s = e_s + dec32::ROWS * LDX;
+  float* ring = o_s + dec32::ROWS * LDO32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int slot = warp >> 1, sub = warp & 1;
+  const int gq = lane >> 2, tq = lane & 3;
+  const float* xs = x_s + slot * 16 * LDX;
+  const float* es = e_s + slot * 16 * LDX;
+  float* os = o_s + slot * 16 * LDO32;
+  float* st_s = ring + RING32 + slot * 2 * 2 * 16;  // [quantity][sub][row]
+  auto pair_sync = [&] {  // the pair's own barrier (0 is __syncthreads)
+    asm volatile("bar.sync %0, 64;\n" ::"r"(1 + slot) : "memory");
+  };
+  auto pair_sum = [&](int q, float (&v)[2]) {
+    if (tq == 0) {
+      st_s[(q * 2 + sub) * 16 + gq] = v[0];
+      st_s[(q * 2 + sub) * 16 + gq + 8] = v[1];
+    }
+    pair_sync();
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      v[r] = st_s[(q * 2) * 16 + gq + 8 * r] + st_s[(q * 2 + 1) * 16 + gq + 8 * r];
+  };
+
+  const int tps = (m + dec32::ROWS - 1) / dec32::ROWS;
+  const int units = (bp / pb) * tps;
+  const int i0 = 64 * sub, c0 = 128 * sub;
+  for (int unit = blockIdx.x; unit < units; unit += gridDim.x) {
+    const int img = unit / tps, srow0 = (unit - img * tps) * dec32::ROWS;
+    const int row0 = srow0 + 16 * slot, valid = min(16, m - row0);
+    const bool ok0 = gq < valid, ok1 = gq + 8 < valid;
+    __syncthreads();  // the previous unit is done with the rows
+    dec32::rows_async<C, LDX>(x_s, keys + ((size_t)img * m + srow0) * C,
+                              m - srow0);
+    dec32::rows_async<C, LDX>(e_s, pe + (size_t)srow0 * C, m - srow0);
+    cp_commit();
+    float q[8][4];
+    q_proj32(q, xs, es, wq, bq, ring, i0, lane);
+
+    for (int j = 0; j < pb; ++j) {
+      const int pair = img * pb + j;
+      const float* tk = tok_k + (size_t)pair * n_tok * I;
+      const float* tv = tok_v + (size_t)pair * n_tok * I;
+#pragma unroll
+      for (int hh = 0; hh < 4; ++hh) {
+        const int h = 4 * sub + hh;
+        float p[4], o[2][4];
+        head_dots32(p, q + 2 * hh, tk, h, n_tok, lane);
+        softmax32(p, n_tok, lane);
+        head_mix32(o, p, tv, h, n_tok, lane);
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const int col = 16 * h + 8 * n + 2 * tq;
+          dec32::st2(os + gq * LDO32 + col, o[n][0], o[n][1]);
+          dec32::st2(os + (gq + 8) * LDO32 + col, o[n][2], o[n][3]);
+        }
+      }
+      // res = keys + (rnd(out) . Wo + bo), this warp's 128 columns
+      float acc[16][4];
+      dec32::zero<16>(acc);
+      dec32::stream_product<I, C, WO_KS, 16>(
+          acc, wo, ring, c0,
+          [&](Frag& a, int k0) { load_a(a, os, LDO32, 0, k0, lane); }, lane);
+      float s[2] = {0.f, 0.f};
+#pragma unroll
+      for (int jn = 0; jn < 16; ++jn) {
+        const int col = c0 + 8 * jn + 2 * tq;
+        const float2 k0 = dec32::ld2(xs + gq * LDX + col);
+        const float2 k1 = dec32::ld2(xs + (gq + 8) * LDX + col);
+        const float b0 = bo[col], b1 = bo[col + 1];
+        acc[jn][0] = k0.x + (acc[jn][0] + b0);
+        acc[jn][1] = k0.y + (acc[jn][1] + b1);
+        acc[jn][2] = k1.x + (acc[jn][2] + b0);
+        acc[jn][3] = k1.y + (acc[jn][3] + b1);
+        s[0] += acc[jn][0] + acc[jn][1];
+        s[1] += acc[jn][2] + acc[jn][3];
+      }
+      s[0] = quad_sum(s[0]);
+      s[1] = quad_sum(s[1]);
+      pair_sum(0, s);
+      const float mu0 = s[0] * (1.f / C), mu1 = s[1] * (1.f / C);
+      s[0] = s[1] = 0.f;
+#pragma unroll
+      for (int jn = 0; jn < 16; ++jn) {
+        acc[jn][0] -= mu0;
+        acc[jn][1] -= mu0;
+        acc[jn][2] -= mu1;
+        acc[jn][3] -= mu1;
+        s[0] = fmaf(acc[jn][0], acc[jn][0], fmaf(acc[jn][1], acc[jn][1], s[0]));
+        s[1] = fmaf(acc[jn][2], acc[jn][2], fmaf(acc[jn][3], acc[jn][3], s[1]));
+      }
+      s[0] = quad_sum(s[0]);
+      s[1] = quad_sum(s[1]);
+      pair_sum(1, s);
+      const float rs0 = rsqrtf(s[0] * (1.f / C) + eps);
+      const float rs1 = rsqrtf(s[1] * (1.f / C) + eps);
+      float* y0 = out + ((size_t)pair * m + row0 + gq) * C;
+      float* y1 = y0 + 8 * C;
+#pragma unroll
+      for (int jn = 0; jn < 16; ++jn) {
+        const int col = c0 + 8 * jn + 2 * tq;
+        const float g0 = g[col], g1 = g[col + 1];
+        const float t0 = bt[col], t1 = bt[col + 1];
+        if (ok0)
+          dec32::st2(y0 + col, acc[jn][0] * rs0 * g0 + t0,
+                     acc[jn][1] * rs0 * g1 + t1);
+        if (ok1)
+          dec32::st2(y1 + col, acc[jn][2] * rs1 * g0 + t0,
+                     acc[jn][3] * rs1 * g1 + t1);
+      }
+    }
+  }
+}
+
+// The f32 row pass: super-tiles of 64 rows of one pair. Per slot: the q
+// projection (qs in registers), per head the scores, softmax (p to the
+// slot's p rows and p_out) and p . v (rnd(out) to its rows and the
+// scratch), the out projection, residual, LayerNorm and its backward
+// (d_res over the keys rows and to the scratch), d_out = d_res . Wo^T, per
+// head d_p, the softmax backward and d_qpre = d_score . k / 4 (over the
+// rnd(out) rows and to the rows), d_keys = d_res + d_qpre . Wq^T. The
+// backward's products stream Wo^T and Wq^T, which the caller passes
+// row-major, so every stage is read as [k][n]. Per-column sums as in bf16:
+// group_sum8 per tile, one partial per slot.
+__global__ void __launch_bounds__(dec32::THREADS, 1)
+    i2t_bwd_rows_tf32_kernel(const float* keys, const float* pe,
+                             const float* tok_k, const float* tok_v,
+                             const float* wq, const float* bq,
+                             const float* wo, const float* bo,
+                             const float* g, const float* bt,
+                             const float* dy, float* dkeys, float* dqpre,
+                             float* p_out, float* ds_out, float* dout,
+                             float* out_rows, float* dres_rows, float* dbq_p,
+                             float* dbo_p, float* dg_p, float* dbt_p,
+                             const float* wqt, const float* wot, int bp,
+                             int m, int pb, int n_tok, float eps) {
+  using attn::mma::quad_sum;
+  using dec::group_col;
+  using dec::group_sum8;
+  extern __shared__ __align__(16) float smem32[];
+  float* x_s = smem32;
+  float* e_s = x_s + dec32::ROWS * LDX;
+  float* o_s = e_s + dec32::ROWS * LDX;
+  float* ring = o_s + dec32::ROWS * LDO32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int slot = warp >> 1, sub = warp & 1;
+  const int gq = lane >> 2, tq = lane & 3;
+  float* xs = x_s + slot * 16 * LDX;
+  float* es = e_s + slot * 16 * LDX;
+  float* ps = es;  // p rows [16][LDP] once the q projection has read pe
+  float* os = o_s + slot * 16 * LDO32;
+  float* st_s = ring + RING32 + slot * 6 * 2 * 16;  // [quantity][sub][row]
+  // per-column sums of dg and dbt over the slot's tiles, each entry one
+  // lane's (dbo and dbq stay in registers)
+  float* cs0 = ring + RING32 + dec32::SLOTS * 6 * 2 * 16;
+  float* cs = cs0 + slot * 2 * C;
+  for (int i = threadIdx.x; i < dec32::SLOTS * 2 * C; i += dec32::THREADS)
+    cs0[i] = 0.f;
+  auto pair_sync = [&] {
+    asm volatile("bar.sync %0, 64;\n" ::"r"(1 + slot) : "memory");
+  };
+  // the two warps' sums of quantities q, q + 1 of rows g, g + 8, added in a
+  // fixed order
+  auto pair_sums = [&](int q, float (&v)[2][2]) {
+    if (tq == 0)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        st_s[((q + i) * 2 + sub) * 16 + gq] = v[i][0];
+        st_s[((q + i) * 2 + sub) * 16 + gq + 8] = v[i][1];
+      }
+    pair_sync();
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        v[i][r] = st_s[((q + i) * 2) * 16 + gq + 8 * r] +
+                  st_s[((q + i) * 2 + 1) * 16 + gq + 8 * r];
+  };
+
+  const float scale = 1.f / sqrtf((float)HD);
+  const int tps = (m + dec32::ROWS - 1) / dec32::ROWS, ntiles = bp * tps;
+  const int c0 = 128 * sub, i0 = 64 * sub;
+  float a_dbo[4], a_dbq[2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) a_dbo[i] = 0.f;
+  a_dbq[0] = a_dbq[1] = 0.f;
+
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int pair = tile / tps, srow0 = (tile - pair * tps) * dec32::ROWS;
+    const int row0 = srow0 + 16 * slot, valid = min(16, m - row0);
+    const bool ok0 = gq < valid, ok1 = gq + 8 < valid;
+    const size_t r0 = (size_t)pair * m + row0 + gq, r1 = r0 + 8;
+    __syncthreads();  // the previous tile is done with the rows
+    dec32::rows_async<C, LDX>(
+        x_s, keys + ((size_t)(pair / pb) * m + srow0) * C, m - srow0);
+    dec32::rows_async<C, LDX>(e_s, pe + (size_t)srow0 * C, m - srow0);
+    cp_commit();
+    float q[8][4];
+    q_proj32(q, xs, es, wq, bq, ring, i0, lane);
+
+    // per head: scores, softmax (p kept in f32), rnd(out) = rnd(p) . v
+    const float* tk = tok_k + (size_t)pair * n_tok * I;
+    const float* tv = tok_v + (size_t)pair * n_tok * I;
+#pragma unroll
+    for (int hh = 0; hh < 4; ++hh) {
+      const int h = 4 * sub + hh;
+      float p[4], o[2][4];
+      head_dots32(p, q + 2 * hh, tk, h, n_tok, lane);
+      softmax32(p, n_tok, lane);
+      dec32::st2(ps + gq * LDP + h * TP + 2 * tq, p[0], p[1]);
+      dec32::st2(ps + (gq + 8) * LDP + h * TP + 2 * tq, p[2], p[3]);
+      if (ok0) dec32::st2(p_out + r0 * (NH * TP) + h * TP + 2 * tq, p[0], p[1]);
+      if (ok1) dec32::st2(p_out + r1 * (NH * TP) + h * TP + 2 * tq, p[2], p[3]);
+      head_mix32(o, p, tv, h, n_tok, lane);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const int col = 16 * h + 8 * n + 2 * tq;
+        dec32::st2(os + gq * LDO32 + col, o[n][0], o[n][1]);
+        dec32::st2(os + (gq + 8) * LDO32 + col, o[n][2], o[n][3]);
+        if (ok0) dec32::st2(out_rows + r0 * I + col, o[n][0], o[n][1]);
+        if (ok1) dec32::st2(out_rows + r1 * I + col, o[n][2], o[n][3]);
+      }
+    }
+
+    // res = keys + (rnd(out) . Wo + bo), this warp's 128 columns
+    float acc[16][4];
+    dec32::zero<16>(acc);
+    dec32::stream_product<I, C, WO_KS, 16>(
+        acc, wo, ring, c0,
+        [&](Frag& a, int k0) { load_a(a, os, LDO32, 0, k0, lane); }, lane);
+    float st[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = c0 + 8 * j + 2 * tq;
+      const float2 k0 = dec32::ld2(xs + gq * LDX + col);
+      const float2 k1 = dec32::ld2(xs + (gq + 8) * LDX + col);
+      const float b0 = bo[col], b1 = bo[col + 1];
+      acc[j][0] = k0.x + (acc[j][0] + b0);
+      acc[j][1] = k0.y + (acc[j][1] + b1);
+      acc[j][2] = k1.x + (acc[j][2] + b0);
+      acc[j][3] = k1.y + (acc[j][3] + b1);
+      st[0][0] += acc[j][0] + acc[j][1];
+      st[0][1] += acc[j][2] + acc[j][3];
+    }
+    st[0][0] = quad_sum(st[0][0]);
+    st[0][1] = quad_sum(st[0][1]);
+    pair_sums(0, st);
+    const float mu0 = st[0][0] * (1.f / C), mu1 = st[0][1] * (1.f / C);
+    st[0][0] = st[0][1] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      acc[j][0] -= mu0;
+      acc[j][1] -= mu0;
+      acc[j][2] -= mu1;
+      acc[j][3] -= mu1;
+      st[0][0] = fmaf(acc[j][0], acc[j][0], fmaf(acc[j][1], acc[j][1], st[0][0]));
+      st[0][1] = fmaf(acc[j][2], acc[j][2], fmaf(acc[j][3], acc[j][3], st[0][1]));
+    }
+    st[0][0] = quad_sum(st[0][0]);
+    st[0][1] = quad_sum(st[0][1]);
+    pair_sums(2, st);
+    const float rs0 = rsqrtf(st[0][0] * (1.f / C) + eps);
+    const float rs1 = rsqrtf(st[0][1] * (1.f / C) + eps);
+    const float* dy0 = dy + r0 * C;
+    const float* dy1 = dy + r1 * C;
+    float sm[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // sum dyn, sum dyn yn
+#pragma unroll
+    for (int gg = 0; gg < 4; ++gg) {
+      float vg[8], vb[8];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = 4 * gg + jj, col = c0 + 8 * j + 2 * tq;
+        acc[j][0] *= rs0;  // yn
+        acc[j][1] *= rs0;
+        acc[j][2] *= rs1;
+        acc[j][3] *= rs1;
+        const float2 d0 = ok0 ? dec32::ld2(dy0 + col) : make_float2(0.f, 0.f);
+        const float2 d1 = ok1 ? dec32::ld2(dy1 + col) : make_float2(0.f, 0.f);
+        const float g0 = g[col], g1 = g[col + 1];
+        vg[2 * jj] = d0.x * acc[j][0] + d1.x * acc[j][2];
+        vg[2 * jj + 1] = d0.y * acc[j][1] + d1.y * acc[j][3];
+        vb[2 * jj] = d0.x + d1.x;
+        vb[2 * jj + 1] = d0.y + d1.y;
+        sm[0][0] += d0.x * g0 + d0.y * g1;
+        sm[1][0] = fmaf(d0.x * g0, acc[j][0], fmaf(d0.y * g1, acc[j][1], sm[1][0]));
+        sm[0][1] += d1.x * g0 + d1.y * g1;
+        sm[1][1] = fmaf(d1.x * g0, acc[j][2], fmaf(d1.y * g1, acc[j][3], sm[1][1]));
+      }
+      const int col = group_col(4 * sub + gg, lane);
+      cs[col] += group_sum8(vg, lane);
+      cs[C + col] += group_sum8(vb, lane);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sm[i][0] = quad_sum(sm[i][0]);
+      sm[i][1] = quad_sum(sm[i][1]);
+    }
+    pair_sums(4, sm);
+    const float mdy0 = sm[0][0] * (1.f / C), mdyy0 = sm[1][0] * (1.f / C);
+    const float mdy1 = sm[0][1] * (1.f / C), mdyy1 = sm[1][1] * (1.f / C);
+    // d_res = rstd (dyn - mean dyn - yn mean(dyn yn)) over the keys rows and
+    // to the scratch rows
+#pragma unroll
+    for (int gg = 0; gg < 4; ++gg) {
+      float vo[8];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = 4 * gg + jj, col = c0 + 8 * j + 2 * tq;
+        const float2 d0 = ok0 ? dec32::ld2(dy0 + col) : make_float2(0.f, 0.f);
+        const float2 d1 = ok1 ? dec32::ld2(dy1 + col) : make_float2(0.f, 0.f);
+        const float g0 = g[col], g1 = g[col + 1];
+        const float e0 = rs0 * (d0.x * g0 - mdy0 - acc[j][0] * mdyy0);
+        const float e1 = rs0 * (d0.y * g1 - mdy0 - acc[j][1] * mdyy0);
+        const float e2 = rs1 * (d1.x * g0 - mdy1 - acc[j][2] * mdyy1);
+        const float e3 = rs1 * (d1.y * g1 - mdy1 - acc[j][3] * mdyy1);
+        vo[2 * jj] = e0 + e2;
+        vo[2 * jj + 1] = e1 + e3;
+        dec32::st2(xs + gq * LDX + col, e0, e1);
+        dec32::st2(xs + (gq + 8) * LDX + col, e2, e3);
+        if (ok0) dec32::st2(dres_rows + r0 * C + col, e0, e1);
+        if (ok1) dec32::st2(dres_rows + r1 * C + col, e2, e3);
+      }
+      a_dbo[gg] += group_sum8(vo, lane);
+    }
+
+    // d_out = d_res . Wo^T, this warp's 64 lanes
+    float d[8][4];
+    dec32::zero<8>(d);
+    dec32::stream_product<C, I, WQ_KS, 8>(
+        d, wot, ring, i0,
+        [&](Frag& a, int k0) { load_a(a, xs, LDX, 0, k0, lane); }, lane);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = i0 + 8 * j + 2 * tq;
+      if (ok0) dec32::st2(dout + r0 * I + col, d[j][0], d[j][1]);
+      if (ok1) dec32::st2(dout + r1 * I + col, d[j][2], d[j][3]);
+    }
+
+    // per head: d_p = d_out . v^T, the softmax backward, d_qpre = (d_score
+    // . k) / 4 over the rnd(out) rows and to the rows
+    float vq[8];
+#pragma unroll
+    for (int hh = 0; hh < 4; ++hh) {
+      const int h = 4 * sub + hh;
+      float dp[4];
+      head_dots32(dp, d + 2 * hh, tv, h, n_tok, lane);
+      const float2 pa = dec32::ld2(ps + gq * LDP + h * TP + 2 * tq);
+      const float2 pc = dec32::ld2(ps + (gq + 8) * LDP + h * TP + 2 * tq);
+      const float p[4] = {pa.x, pa.y, pc.x, pc.y};
+      float ds[4];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float x0 = p[2 * r] * dp[2 * r], x1 = p[2 * r + 1] * dp[2 * r + 1];
+        const float sum = quad_sum(x0 + x1);
+        ds[2 * r] = x0 - p[2 * r] * sum;  // p == 0 past n_tok
+        ds[2 * r + 1] = x1 - p[2 * r + 1] * sum;
+      }
+      if (ok0) dec32::st2(ds_out + r0 * (NH * TP) + h * TP + 2 * tq, ds[0], ds[1]);
+      if (ok1) dec32::st2(ds_out + r1 * (NH * TP) + h * TP + 2 * tq, ds[2], ds[3]);
+      float dq[2][4];
+      head_mix32(dq, ds, tk, h, n_tok, lane);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dq[n][e] *= scale;
+        vq[(hh & 1) * 4 + 2 * n] = dq[n][0] + dq[n][2];
+        vq[(hh & 1) * 4 + 2 * n + 1] = dq[n][1] + dq[n][3];
+        const int col = 16 * h + 8 * n + 2 * tq;
+        dec32::st2(os + gq * LDO32 + col, dq[n][0], dq[n][1]);
+        dec32::st2(os + (gq + 8) * LDO32 + col, dq[n][2], dq[n][3]);
+        if (ok0) dec32::st2(dqpre + r0 * I + col, dq[n][0], dq[n][1]);
+        if (ok1) dec32::st2(dqpre + r1 * I + col, dq[n][2], dq[n][3]);
+      }
+      if (hh & 1) a_dbq[hh / 2] += group_sum8(vq, lane);
+    }
+
+    // d_keys = d_res + d_qpre . Wq^T, this warp's 128 columns
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = c0 + 8 * j + 2 * tq;
+      const float2 e0 = dec32::ld2(xs + gq * LDX + col);
+      const float2 e1 = dec32::ld2(xs + (gq + 8) * LDX + col);
+      acc[j][0] = e0.x;
+      acc[j][1] = e0.y;
+      acc[j][2] = e1.x;
+      acc[j][3] = e1.y;
+    }
+    dec32::stream_product<I, C, WO_KS, 16>(
+        acc, wqt, ring, c0,
+        [&](Frag& a, int k0) { load_a(a, os, LDO32, 0, k0, lane); }, lane);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = c0 + 8 * j + 2 * tq;
+      if (ok0) dec32::st2(dkeys + r0 * C + col, acc[j][0], acc[j][1]);
+      if (ok1) dec32::st2(dkeys + r1 * C + col, acc[j][2], acc[j][3]);
+    }
+  }
+
+  __syncthreads();  // cs holds the slot's sums
+  const size_t wg = (size_t)blockIdx.x * dec32::SLOTS + slot;
+#pragma unroll
+  for (int gg = 0; gg < 4; ++gg)
+    dbo_p[wg * C + group_col(4 * sub + gg, lane)] = a_dbo[gg];
+#pragma unroll
+  for (int gg = 0; gg < 2; ++gg)
+    dbq_p[wg * I + group_col(2 * sub + gg, lane)] = a_dbq[gg];
+  for (int i = 32 * sub + lane; i < C; i += 64) {
+    dg_p[wg * C + i] = cs[i];
+    dbt_p[wg * C + i] = cs[C + i];
+  }
+}
+
+// The f32 weight pass: block (chunk, kind, half) sums over the chunk's rows
+//   kind 0: dWo   [I][C] = rnd(out)^T . rnd(d_res)
+//   kind 1: dWq^T [I][C] = d_qpre^T . (keys[pair / pb] + pe)
+// the C columns 128 half.. of it into part[kind][chunk]; warp w owns rows
+// 32 (w / 2).., columns 64 (w % 2).. of the half
+constexpr int DW32_LD = I + 8;  // rows of 128 floats: X, and half of Y
+static_assert(I == C / 2, "X rows and half a Y row have one width");
+constexpr int DW32_STAGE = dec::DW_SR * 3 * DW32_LD;  // X, Y, pe
+constexpr size_t DW32_SMEM = sizeof(float) * (size_t)dec::DW_STAGES * DW32_STAGE;
+
+__global__ void __launch_bounds__(dec::DW_THREADS, 1)
+    i2t_bwd_dw_tf32_kernel(const float* keys, const float* pe,
+                           const float* dqpre, const float* out_rows,
+                           const float* dres_rows, float* part, int m, int pb,
+                           int rows, int chunk) {
+  using attn::mma::cp_async16;
+  extern __shared__ __align__(16) float smem32[];
+  const int kind = blockIdx.y >> 1, half = blockIdx.y & 1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int lo = blockIdx.x * chunk, hi = min(rows, lo + chunk);
+  const float* xsrc = kind ? dqpre : out_rows;
+  const int cy = (C / 2) * half;  // the half's first column of C
+  float acc[2][8][4];
+#pragma unroll
+  for (int a = 0; a < 2; ++a) dec32::zero<8>(acc[a]);
+
+  auto load = [&](int st, int r0) {
+    float* xs = smem32 + st * DW32_STAGE;
+    float* ys = xs + dec::DW_SR * DW32_LD;
+    float* es = ys + dec::DW_SR * DW32_LD;
+    for (int i = threadIdx.x; i < dec::DW_SR * (I / 4); i += dec::DW_THREADS) {
+      const int r = i / (I / 4), c = (i % (I / 4)) * 4;
+      const int row = r0 + r;
+      const bool ok = row < hi;
+      cp_async16(xs + r * DW32_LD + c, xsrc + (ok ? (size_t)row * I + c : 0), ok);
+      if (kind == 0) {
+        cp_async16(ys + r * DW32_LD + c,
+                   dres_rows + (ok ? (size_t)row * C + cy + c : 0), ok);
+      } else {
+        const int pair = ok ? row / m : 0, rr = ok ? row - pair * m : 0;
+        cp_async16(ys + r * DW32_LD + c,
+                   keys + ((size_t)(pair / pb) * m + rr) * C + cy + c, ok);
+        cp_async16(es + r * DW32_LD + c, pe + (size_t)rr * C + cy + c, ok);
+      }
+    }
+  };
+  auto prep = [&](int st) {  // kind 1: keys -> keys + pe in place
+    if (kind == 0) return false;
+    float* ys = smem32 + st * DW32_STAGE + dec::DW_SR * DW32_LD;
+    const float* es = ys + dec::DW_SR * DW32_LD;
+    for (int i = threadIdx.x; i < dec::DW_SR * I; i += dec::DW_THREADS) {
+      const int r = i / I, c = i % I;
+      ys[r * DW32_LD + c] += es[r * DW32_LD + c];
+    }
+    return true;
+  };
+  const int a0 = 32 * (warp / 2), b0 = 64 * (warp % 2);
+  auto mma = [&](int st) {
+    const float* xs = smem32 + st * DW32_STAGE;
+    dec32::dw_stage_tf32<DW32_LD, DW32_LD>(acc, xs, a0, xs + dec::DW_SR * DW32_LD,
+                                           b0, lane);
+  };
+  dec::dw_ring(lo, hi, load, prep, mma);
+  dec32::dw_store32(part + ((size_t)kind * gridDim.x + blockIdx.x) * I * C +
+                        (size_t)a0 * C + cy + b0,
+                    C, acc, lane);
+}
+
+int launch_fwd_tf32(const void* keys, const void* pe, const void* tok_k,
+                    const void* tok_v, const void* wq, const void* bq,
+                    const void* wo, const void* bo, const void* g,
+                    const void* bt, void* out, int bp, int m, int pb,
+                    int n_tok, int blocks, float eps, cudaStream_t stream) {
+  if (blocks < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      i2t_fwd_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)TF32_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  i2t_fwd_tf32_kernel<<<blocks, dec32::THREADS, TF32_SMEM, stream>>>(
+      static_cast<const float*>(keys), static_cast<const float*>(pe),
+      static_cast<const float*>(tok_k), static_cast<const float*>(tok_v),
+      static_cast<const float*>(wq), static_cast<const float*>(bq),
+      static_cast<const float*>(wo), static_cast<const float*>(bo),
+      static_cast<const float*>(g), static_cast<const float*>(bt),
+      static_cast<float*>(out), bp, m, pb, n_tok, eps);
+  return (int)cudaGetLastError();
+}
+
+int launch_bwd_rows_tf32(void* const* a, int bp, int m, int pb, int n_tok,
+                         int blocks, float eps, cudaStream_t stream) {
+  if (n_tok < 1 || n_tok > TP || pb < 1 || bp % pb || blocks < 1 || m < 1)
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      i2t_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)BWD_SMEM);
+      i2t_bwd_rows_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)ROWS_TF32_SMEM);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(splits, bp);
-  i2t_bwd_kernel<T><<<grid, THREADS, BWD_SMEM, stream>>>(
-      static_cast<const T*>(a[0]), static_cast<const T*>(a[1]),
-      static_cast<const T*>(a[2]), static_cast<const T*>(a[3]),
-      static_cast<const T*>(a[4]), static_cast<const T*>(a[5]),
-      static_cast<const float*>(a[6]), static_cast<const T*>(a[7]),
-      static_cast<const T*>(a[8]), static_cast<const float*>(a[9]),
-      static_cast<const float*>(a[10]), static_cast<const float*>(a[11]),
-      static_cast<const T*>(a[12]), static_cast<T*>(a[13]),
-      static_cast<T*>(a[14]), static_cast<T*>(a[15]), static_cast<T*>(a[16]),
-      static_cast<T*>(a[17]), static_cast<float*>(a[18]),
-      static_cast<float*>(a[19]), static_cast<float*>(a[20]),
-      static_cast<float*>(a[21]), static_cast<float*>(a[22]),
-      static_cast<float*>(a[23]), m, pb, n_tok, splits, eps);
+  auto in = [&](int i) { return static_cast<const float*>(a[i]); };
+  auto out = [&](int i) { return static_cast<float*>(a[i]); };
+  i2t_bwd_rows_tf32_kernel<<<blocks, dec32::THREADS, ROWS_TF32_SMEM,
+                             stream>>>(
+      in(0), in(1), in(2), in(3), in(4), in(5), in(6), in(7), in(8), in(9),
+      in(10), out(11), out(12), out(13), out(14), out(15), out(16), out(17),
+      out(18), out(19), out(20), out(21), in(22), in(23), bp, m, pb, n_tok,
+      eps);
+  return (int)cudaGetLastError();
+}
+
+int launch_bwd_dw_tf32(void* const* a, int bp, int m, int pb, int chunk,
+                       int nchunks, cudaStream_t stream) {
+  const int rows = bp * m;
+  if (pb < 1 || bp % pb || chunk < 1 || chunk % dec::DW_SR || nchunks < 1 ||
+      (nchunks - 1) * chunk >= rows || nchunks * chunk < rows)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      i2t_bwd_dw_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)DW32_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  i2t_bwd_dw_tf32_kernel<<<dim3(nchunks, 4), dec::DW_THREADS, DW32_SMEM,
+                           stream>>>(
+      static_cast<const float*>(a[0]), static_cast<const float*>(a[1]),
+      static_cast<const float*>(a[2]), static_cast<const float*>(a[3]),
+      static_cast<const float*>(a[4]), static_cast<float*>(a[5]), m, pb,
+      rows, chunk);
   return (int)cudaGetLastError();
 }
 
@@ -1418,8 +1546,8 @@ int launch_bwd(void* const* a, int bp, int m, int pb, int n_tok, int splits,
 // cudaError_t of the launch (0 = success); the caller raises on non-zero.
 extern "C" {
 
-// The forward: bf16 on `blocks` persistent blocks (i2t_fwd_mma_kernel),
-// f32 one block per (pair, 32-row tile) (i2t_fwd_kernel; `blocks` unused).
+// The forward on `blocks` persistent blocks: bf16 i2t_fwd_mma_kernel, f32
+// i2t_fwd_tf32_kernel.
 int dhoct_i2t_fwd(const void* keys, const void* pe, const void* tok_k,
                   const void* tok_v, const void* wq, const void* bq,
                   const void* wo, const void* bo, const void* g,
@@ -1431,44 +1559,31 @@ int dhoct_i2t_fwd(const void* keys, const void* pe, const void* tok_k,
   return dtype == 1
              ? launch_fwd_mma(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt,
                               out, bp, m, pb, n_tok, blocks, eps, s)
-             : launch_fwd_f32(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt,
-                              out, bp, m, pb, n_tok, eps, s);
+             : launch_fwd_tf32(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt,
+                               out, bp, m, pb, n_tok, blocks, eps, s);
 }
 
-// The f32 backward (i2t_bwd_kernel). Operands in order: keys, pe, tok_k,
-// tok_v, wq, wq^T, bq, wo, wo^T, bo, g, bt, dy; outputs: d_keys, d_qpre, p,
-// d_score, d_out, dWq^T, dbq, dWo, dbo, dg, dbt partials. dtype must be 0:
-// the bf16 backward is the two launches below.
-int dhoct_i2t_bwd(void* a0, void* a1, void* a2, void* a3, void* a4, void* a5,
-                  void* a6, void* a7, void* a8, void* a9, void* a10,
-                  void* a11, void* a12, void* o0, void* o1, void* o2,
-                  void* o3, void* o4, void* o5, void* o6, void* o7, void* o8,
-                  void* o9, void* o10, int bp, int m, int pb, int n_tok,
-                  int splits, int dtype, float eps, void* stream) {
-  void* const a[24] = {a0, a1, a2, a3, a4, a5, a6, a7, a8, a9, a10, a11,
-                       a12, o0, o1, o2, o3, o4, o5, o6, o7, o8, o9, o10};
-  if (dtype != 0) return (int)cudaErrorInvalidValue;
-  return launch_bwd<float>(a, bp, m, pb, n_tok, splits, eps,
-                           static_cast<cudaStream_t>(stream));
-}
-
-// The bf16 row pass (i2t_bwd_rows_kernel) on `blocks` persistent blocks.
-// a[22]: keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, dy; outputs d_keys,
-// d_qpre, p, d_score, d_out, the rnd(out) and rnd(d_res) scratch rows, and
-// per-warp partials of dbq, dbo, dg, dbt.
+// The row pass on `blocks` persistent blocks (bf16 i2t_bwd_rows_kernel, f32
+// i2t_bwd_rows_tf32_kernel). a: keys, pe, tok_k, tok_v, wq, bq, wo, bo, g,
+// bt, dy; outputs d_keys, d_qpre, p, d_score, d_out, the rnd(out) and
+// rnd(d_res) scratch rows, and per-slot partials of dbq, dbo, dg, dbt; f32
+// also takes wq^T and wo^T (a[22], a[23]).
 int dhoct_i2t_bwd_rows(void* const* a, int bp, int m, int pb, int n_tok,
-                       int blocks, float eps, void* stream) {
-  return launch_bwd_rows(a, bp, m, pb, n_tok, blocks, eps,
-                         static_cast<cudaStream_t>(stream));
+                       int blocks, int dtype, float eps, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 1
+             ? launch_bwd_rows(a, bp, m, pb, n_tok, blocks, eps, s)
+             : launch_bwd_rows_tf32(a, bp, m, pb, n_tok, blocks, eps, s);
 }
 
-// The bf16 weight pass (i2t_bwd_dw_kernel). a[6]: keys, pe, d_qpre,
-// rnd(out), rnd(d_res), and the partials [2][nchunks][I][C] (dWo, dWq^T)
-// of row chunks of `chunk` rows.
+// The weight pass (bf16 i2t_bwd_dw_kernel, f32 i2t_bwd_dw_tf32_kernel).
+// a[6]: keys, pe, d_qpre, rnd(out), rnd(d_res), and the partials
+// [2][nchunks][I][C] (dWo, dWq^T) of row chunks of `chunk` rows.
 int dhoct_i2t_bwd_dw(void* const* a, int bp, int m, int pb, int chunk,
-                     int nchunks, void* stream) {
-  return launch_bwd_dw(a, bp, m, pb, chunk, nchunks,
-                       static_cast<cudaStream_t>(stream));
+                     int nchunks, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 1 ? launch_bwd_dw(a, bp, m, pb, chunk, nchunks, s)
+                    : launch_bwd_dw_tf32(a, bp, m, pb, chunk, nchunks, s);
 }
 
 const char* dhoct_i2t_error_string(int code) {

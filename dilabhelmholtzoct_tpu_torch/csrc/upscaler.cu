@@ -15,54 +15,54 @@
 // (the JAX package's rounding points, ops/upscaler.py:77-138).
 //
 // The forward replaces dilabhelmholtzoct_tpu/ops/upscaler.py _fused_fwd
-//    (:295, body _fwd_kernel :119-138, math _chain_fwd :77-99).
+//    (:295, body _fwd_kernel :119-138, math _chain_fwd :77-99): persistent
+//    8-warp blocks, a warp pair per 16-row slot.
 //    * bf16 (the training path): upscale_fwd_mma_kernel on the tensor
-//      cores, persistent 8-warp blocks with W1 and W2 in shared memory, a
-//      warp pair per 16-row tile, the next tile's rows copied in while
-//      this one computes.
-//    * f32: upscale_fwd_kernel, one SIMT block per (pair, 32-row tile) (not
-//      on a main path: the JAX package routes K3 only in bf16).
+//      cores, W1 and W2 in shared memory, the next tile's rows copied in
+//      while this one computes.
+//    * f32 (reached with set_fused_upscaler('interpret')):
+//      upscale_fwd_tf32_kernel in split TF32 (decoder_tf32.cuh), super-tiles
+//      of 64 rows streaming W1 through a cp.async ring, W2 in the ring's
+//      space once the first product is done.
 // The backward replaces the same file's _fused_bwd (:329, body _bwd_kernel
-//    :141-243): it recomputes the chain per row, writes d_up per row, and
-//    sums the weight and vector gradients over rows. The JAX kernel carries
-//    them in output blocks across its sequential grid; here blocks run in
-//    parallel, so every sum over rows is one partial per block, warp or
-//    tile, added up by the wrapper in a fixed order -- no atomics, so the
+//    :141-243) with two launches: a row pass recomputes the chain per row,
+//    writes d_up per row and the scratch rows u1g, rnd(d_u2pre) and
+//    rnd(d_u1pre), and sums the vector gradients over rows; a weight pass
+//    forms dW1 = sum_r up^T rnd(d_u1pre) and dW2[de] = sum_r u1g[de]^T
+//    rnd(d_u2pre)[de], split-K over row chunks. The JAX kernel carries the
+//    sums in output blocks across its sequential grid; here blocks run in
+//    parallel, so every sum over rows is one partial per slot, tile or
+//    chunk, added up by the wrapper in a fixed order -- no atomics, so the
 //    gradients repeat bit for bit from run to run.
-//    * bf16 (the training path): two launches on the tensor cores
-//      (decoder_mma.cuh). upscale_bwd_rows_kernel is the row pass:
-//      persistent 8-warp blocks with W1 and W2 in shared memory, a warp
-//      pair per 16-row tile, the chain per (d, e) block of 64 lanes; it
-//      writes u1g, rnd(d_u2pre) and rnd(d_u1pre) per row as bf16 scratch.
-//      upscale_bwd_dw_kernel is the weight pass: dW1 = sum_r up^T
-//      rnd(d_u1pre) (two 128-row output tiles) and dW2[de] = sum_r
-//      u1g[de]^T rnd(d_u2pre)[de], split-K over row chunks.
-//    * f32: upscale_bwd_kernel, one fused SIMT kernel, one block per (pair,
-//      split) looping over 32-row tiles (not on a main path: the JAX
-//      package routes K3 only in bf16).
+//    * bf16: upscale_bwd_rows_kernel (W1 and W2 in shared memory, a warp
+//      pair per 16-row tile) and upscale_bwd_dw_kernel (decoder_mma.cuh).
+//    * f32: upscale_bwd_rows_tf32_kernel (super-tiles of 64 rows streaming
+//      W1 and W1^T) and upscale_bwd_dw_tf32_kernel, in split TF32; rnd() is
+//      the identity, so the scratch rows are f32.
 //
-// Bound on an H100 SXM (700 W) at the training shapes (64 pairs x 4096 rows,
-//    bf16): forward 198 kFLOP/row = 51.8 GFLOP over 989 TFLOP/s = 0.052 ms
-//    (bytes: up 134 MB in, 16.8 MB out = 0.045 ms); backward 592 kFLOP/row =
-//    155 GFLOP = 0.157 ms (bytes ~285 MB = 0.085 ms). Operation-bound on
-//    the tensor-core rate; on the CUDA cores (67 TFLOP/s f32) the bound is
-//    15x higher. The bf16 backward's scratch (536 MB written and read once)
-//    adds 0.32 ms of bytes.
+// Bound on an H100 SXM (700 W) at the training shapes (64 pairs x 4096 rows):
+//    forward 198 kFLOP/row = 51.8 GFLOP, over 989 TFLOP/s (bf16) = 0.052 ms,
+//    over split TF32's 165 TFLOP/s (f32, 495 / 3) 0.31 ms (bytes: up in,
+//    masks out, 0.045 ms in bf16, 0.085 in f32); backward 592 kFLOP/row =
+//    155 GFLOP = 0.157 ms in bf16, 0.94 ms in split TF32 (bytes ~0.09 /
+//    0.17 ms). Operation-bound; on the CUDA cores (67 TFLOP/s f32) the
+//    bound is 2.5x the split-TF32 one. The scratch rows between the two
+//    launches (written and read once) add 536 MB in bf16, 1.07 GB in f32
+//    (chip_smoke.py::k3_bound_ms bounds each launch with them).
 // What this design does about it: the 268 MB second upscale stays in shared
-//    memory and registers (as on the TPU). The bf16 kernels run every
-//    product on the tensor cores (mma.sync bf16 -> f32; each operand a bf16
-//    rounding point of the JAX kernel, so each term is exact): the first
-//    and second products per (d, e) block (the second by halves of 64
-//    lanes), the hypernetwork sum over c2 as m16n8k16 against hyper^T, and
+//    memory and registers (as on the TPU). Every product runs on the tensor
+//    cores: the first and second products per (d, e) block (the second by
+//    halves of 64 lanes), the hypernetwork sum over c2 against hyper^T, and
 //    in the backward d_u1g = rnd(d_u2pre) . W2^T and d_up = rnd(d_u1pre) .
-//    W1^T; the LayerNorms, GELUs and their backwards run in f32 registers
-//    over a lane quad. The f32 kernels keep each row tile's inputs and
-//    every intermediate in shared memory; their products are SIMT register
-//    tiles (one output column per thread over the tile's 32 rows, 16-byte
-//    broadcast loads of the row operand). The second product runs per
-//    (d, e) block of W2 (64 x 128), not as the TPU's 256 x 512 Kronecker
-//    expansion; LayerNorm reduces its 64 lanes with shuffles, not selector
-//    matmuls.
+//    W1^T; bf16 as mma.sync bf16 -> f32 (each operand a bf16 rounding point
+//    of the JAX kernel, so each term is exact), f32 as hi.hi + hi.lo + lo.hi
+//    on m16n8k8 TF32 with the GELU in its erf form and exact derivative.
+//    The LayerNorms, GELUs and their backwards run in f32 registers over a
+//    lane quad. The second product runs per (d, e) block of W2 (64 x 128),
+//    not as the TPU's 256 x 512 Kronecker expansion; LayerNorm reduces its
+//    64 lanes with shuffles, not selector matmuls. In f32, W1 (256 KB)
+//    does not fit in shared memory; streaming it per 64-row super-tile
+//    reads each byte from L2 once for 64 rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,7 +71,7 @@
 
 #include <type_traits>
 
-#include "decoder_mma.cuh"
+#include "decoder_tf32.cuh"
 
 namespace {
 
@@ -80,28 +80,7 @@ constexpr int C1 = C / 4;       // channels after the first upscale
 constexpr int C2 = C / 8;       // channels after the second upscale
 constexpr int L1 = 4 * C1;      // lanes (d, e, c1) of the first upscale
 constexpr int LQ = 4 * C2;      // lanes (f, g, c2) of one (d, e) block
-constexpr int LDW2 = LQ + 1;    // padded shared row of W2
-constexpr int TM = 32;          // rows per tile
-constexpr int THREADS = 256;
 constexpr int MAXT = 4;         // mask tokens per pair
-constexpr int RPW = TM / (THREADS / 32);  // rows per warp in the LayerNorms
-static_assert(THREADS == C && THREADS == L1 && THREADS == 2 * LQ,
-              "thread-to-column maps assume 256 threads");
-
-template <typename T>
-__device__ __forceinline__ float ld(const T* p);
-template <>
-__device__ __forceinline__ float ld<float>(const float* p) { return __ldg(p); }
-
-template <typename T>
-__device__ __forceinline__ float rnd(float x);
-template <>
-__device__ __forceinline__ float rnd<float>(float x) { return x; }
-
-template <typename T>
-__device__ __forceinline__ void st(T* p, float x);
-template <>
-__device__ __forceinline__ void st<float>(float* p, float x) { *p = x; }
 
 constexpr float kSqrt2OverPi = 0.7978845608028654f;
 constexpr float kKappa = 0.044715f;
@@ -123,411 +102,6 @@ __device__ __forceinline__ float gelu_grad(float x) {
   }
   const float phi = expf(-0.5f * x * x) * 0.3989422804014327f;
   return 0.5f * (1.f + erff(x * 0.7071067811865476f)) + x * phi;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float4 lds4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// rows [row0, row0 + TM) of the pair's (m, width) matrix -> shared f32
-// (zeros past m)
-template <typename T>
-__device__ void load_tile(float* dst, const T* src, int width, int row0,
-                          int m) {
-  for (int i = threadIdx.x; i < TM * width; i += THREADS) {
-    const int r = i / width;
-    dst[i] = (row0 + r < m) ? ld(src + (size_t)(row0 + r) * width + i % width)
-                            : 0.f;
-  }
-}
-
-template <typename T>
-__device__ void load_common(float* w2_s, float* hy_s, const T* w2,
-                            const T* hyper, int n_out) {
-  for (int i = threadIdx.x; i < C1 * LQ; i += THREADS)
-    w2_s[(i / LQ) * LDW2 + i % LQ] = ld(w2 + i);
-  for (int i = threadIdx.x; i < n_out * C2; i += THREADS)
-    hy_s[i] = ld(hyper + i);
-}
-
-// u1pre[r][j] = sum_k up[r][k] W1[k][j] + b1[j % C1]; thread j = column
-template <typename T>
-__device__ void first_product(float* u1_s, const float* up_s, const T* w1,
-                              const float* b1) {
-  const int j = threadIdx.x;
-  float acc[TM];
-#pragma unroll
-  for (int r = 0; r < TM; ++r) acc[r] = 0.f;
-  for (int k = 0; k < C; k += 4) {
-    float w[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) w[i] = ld(w1 + (size_t)(k + i) * L1 + j);
-#pragma unroll
-    for (int r = 0; r < TM; ++r) {
-      const float4 a = lds4(up_s + r * C + k);
-      acc[r] = fmaf(a.x, w[0], acc[r]);
-      acc[r] = fmaf(a.y, w[1], acc[r]);
-      acc[r] = fmaf(a.z, w[2], acc[r]);
-      acc[r] = fmaf(a.w, w[3], acc[r]);
-    }
-  }
-  const float bj = b1[j % C1];
-#pragma unroll
-  for (int r = 0; r < TM; ++r) u1_s[r * L1 + j] = acc[r] + bj;
-}
-
-// LayerNorm over each 64-lane (d, e) segment, then u1g = rnd(gelu(rnd(.))).
-// u1_s holds u1pre on entry and u1g on exit; with y_s the normalised y and
-// rstd_s the per-(row, segment) 1/std are kept for the backward.
-template <typename T>
-__device__ void layer_norm_gelu(float* u1_s, float* y_s, float* rstd_s,
-                                const float* g, const float* bt, float eps) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const float ga = g[lane], gb = g[lane + 32];
-  const float ba = bt[lane], bb = bt[lane + 32];
-  for (int rr = 0; rr < RPW; ++rr) {
-    const int r = warp * RPW + rr;
-    for (int s = 0; s < 4; ++s) {
-      float* x = u1_s + r * L1 + s * C1;
-      const float a = x[lane], b = x[lane + 32];
-      const float mu = warp_sum(a + b) * (1.f / C1);
-      const float ca = a - mu, cb = b - mu;
-      const float var = warp_sum(ca * ca + cb * cb) * (1.f / C1);
-      const float rs = rsqrtf(var + eps);
-      const float ya = ca * rs, yb = cb * rs;
-      if (y_s) {
-        y_s[r * L1 + s * C1 + lane] = ya;
-        y_s[r * L1 + s * C1 + lane + 32] = yb;
-        if (lane == 0) rstd_s[r * 4 + s] = rs;
-      }
-      x[lane] = rnd<T>(gelu<T>(rnd<T>(ya * ga + ba)));
-      x[lane + 32] = rnd<T>(gelu<T>(rnd<T>(yb * gb + bb)));
-    }
-  }
-}
-
-// u2pre for the thread's column q of both (d, e) blocks it owns (de =
-// 2 * half + d), all TM rows: acc[d][r] = u1g[r][de] . W2[:, q] (f32)
-__device__ __forceinline__ void second_product(float (&acc)[2][TM],
-                                               const float* u1_s,
-                                               const float* w2_s, int half,
-                                               int q) {
-#pragma unroll
-  for (int d = 0; d < 2; ++d)
-#pragma unroll
-    for (int r = 0; r < TM; ++r) acc[d][r] = 0.f;
-  for (int c = 0; c < C1; c += 4) {
-    float w[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) w[i] = w2_s[(c + i) * LDW2 + q];
-#pragma unroll
-    for (int d = 0; d < 2; ++d) {
-      const int de = 2 * half + d;
-#pragma unroll
-      for (int r = 0; r < TM; ++r) {
-        const float4 a = lds4(u1_s + r * L1 + de * C1 + c);
-        acc[d][r] = fmaf(a.x, w[0], acc[d][r]);
-        acc[d][r] = fmaf(a.y, w[1], acc[d][r]);
-        acc[d][r] = fmaf(a.z, w[2], acc[d][r]);
-        acc[d][r] = fmaf(a.w, w[3], acc[d][r]);
-      }
-    }
-  }
-}
-
-constexpr size_t FWD_SMEM =
-    sizeof(float) * (size_t)(TM * C + TM * L1 + C1 * LDW2 + MAXT * C2);
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    upscale_fwd_kernel(const T* up, const T* w1, const float* b1,
-                       const float* g, const float* bt, const T* w2,
-                       const float* b2, const T* hyper, float* out, int m,
-                       int n_out, float eps) {
-  extern __shared__ float smem[];
-  float* up_s = smem;
-  float* u1_s = up_s + TM * C;
-  float* w2_s = u1_s + TM * L1;
-  float* hy_s = w2_s + C1 * LDW2;
-  const int pair = blockIdx.y, row0 = blockIdx.x * TM;
-  const int tid = threadIdx.x, lane = tid % 32;
-
-  load_tile(up_s, up + (size_t)pair * m * C, C, row0, m);
-  load_common(w2_s, hy_s, w2, hyper + (size_t)pair * n_out * C2, n_out);
-  __syncthreads();
-  first_product(u1_s, up_s, w1, b1);
-  __syncthreads();
-  layer_norm_gelu<T>(u1_s, nullptr, nullptr, g, bt, eps);
-  __syncthreads();
-
-  const int half = tid / LQ, q = tid % LQ, fg = q / C2, c2 = q % C2;
-  float acc[2][TM];
-  second_product(acc, u1_s, w2_s, half, q);
-  const float bq = b2[c2];
-  const int lanes = n_out * 16;
-#pragma unroll
-  for (int d = 0; d < 2; ++d) {
-    const int de = 2 * half + d;
-#pragma unroll
-    for (int r = 0; r < TM; ++r) {
-      const float u = rnd<T>(gelu<T>(rnd<T>(acc[d][r] + bq)));
-      for (int t = 0; t < n_out; ++t) {
-        // a warp holds the 32 c2 lanes of one (de, fg): the sum over c2 is
-        // a warp reduction
-        const float v = warp_sum(u * hy_s[t * C2 + c2]);
-        if (lane == 0 && row0 + r < m)
-          out[((size_t)pair * m + row0 + r) * lanes + t * 16 + de * 4 + fg] =
-              v;
-      }
-    }
-  }
-}
-
-constexpr size_t BWD_SMEM =
-    sizeof(float) * (size_t)(3 * TM * C + TM * 4 * LQ + TM * MAXT * 16 +
-                             C1 * LDW2 + MAXT * C2 + 3 * TM * 4);
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 1)
-    upscale_bwd_kernel(const T* up, const float* dm, const T* w1,
-                       const T* w1t, const float* b1, const float* g,
-                       const float* bt, const T* w2, const float* b2,
-                       const T* hyper, T* d_up, float* dw1p, float* dw2p,
-                       float* db1p, float* dgp, float* dbtp, float* db2p,
-                       float* dhtp, int m, int n_out, int splits, float eps) {
-  extern __shared__ float smem[];
-  float* up_s = smem;                   // [TM][C]
-  float* y_s = up_s + TM * C;           // [TM][L1] normalised y
-  float* g1_s = y_s + TM * L1;          // [TM][L1] u1g, then d_y, d_u1pre
-  float* d2_s = g1_s + TM * L1;         // [TM][4 * LQ] rnd(d_u2pre)
-  float* dm_s = d2_s + TM * 4 * LQ;     // [TM][MAXT * 16]
-  float* w2_s = dm_s + TM * MAXT * 16;  // [C1][LDW2]
-  float* hy_s = w2_s + C1 * LDW2;       // [MAXT][C2]
-  float* rstd_s = hy_s + MAXT * C2;     // [TM][4]
-  float* mdy_s = rstd_s + TM * 4;       // [TM][4]
-  float* mdyy_s = mdy_s + TM * 4;       // [TM][4]
-
-  const int pair = blockIdx.y, split = blockIdx.x;
-  const int blk = pair * splits + split;
-  const int ntiles = (m + TM - 1) / TM;
-  const int per = (ntiles + splits - 1) / splits;
-  const int t0 = split * per;
-  const int t1 = min(ntiles, t0 + per);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int half = tid / LQ, q = tid % LQ, fg = q / C2, c2 = q % C2;
-  const int j = tid, jde = j / C1, jc = j % C1;
-  const int lanes = n_out * 16;
-
-  load_common(w2_s, hy_s, w2, hyper + (size_t)pair * n_out * C2, n_out);
-  const T* up_p = up + (size_t)pair * m * C;
-
-  float db1 = 0.f, dg = 0.f, dbt = 0.f;  // lane j
-  float db2[2] = {0.f, 0.f};             // lanes (de, q)
-  float dht[MAXT][2];
-#pragma unroll
-  for (int t = 0; t < MAXT; ++t) dht[t][0] = dht[t][1] = 0.f;
-
-  for (int tile = t0; tile < t1; ++tile) {
-    const int row0 = tile * TM;
-    const bool first = tile == t0;
-    __syncthreads();  // the previous tile is done with shared memory
-    load_tile(up_s, up_p, C, row0, m);
-    for (int i = tid; i < TM * MAXT * 16; i += THREADS) {
-      const int r = i / (MAXT * 16), l = i % (MAXT * 16);
-      dm_s[i] = (l < lanes && row0 + r < m)
-                    ? dm[((size_t)pair * m + row0 + r) * lanes + l]
-                    : 0.f;
-    }
-    __syncthreads();
-    first_product(g1_s, up_s, w1, b1);
-    __syncthreads();
-    layer_norm_gelu<T>(g1_s, y_s, rstd_s, g, bt, eps);
-    __syncthreads();
-
-    // second product, its GELU and the hypernetwork gradients
-    {
-      float acc[2][TM];
-      second_product(acc, g1_s, w2_s, half, q);
-      const float bq = b2[c2];
-#pragma unroll
-      for (int d = 0; d < 2; ++d) {
-        const int de = 2 * half + d;
-#pragma unroll
-        for (int r = 0; r < TM; ++r) {
-          const float u2r = rnd<T>(acc[d][r] + bq);
-          const float u2g = rnd<T>(gelu<T>(u2r));
-          float du = 0.f;
-#pragma unroll
-          for (int t = 0; t < MAXT; ++t) {  // static indices into dht
-            if (t < n_out) {
-              const float dmv = dm_s[r * MAXT * 16 + t * 16 + de * 4 + fg];
-              du = fmaf(dmv, hy_s[t * C2 + c2], du);
-              dht[t][d] = fmaf(dmv, u2g, dht[t][d]);
-            }
-          }
-          const float d2 = du * gelu_grad<T>(u2r);
-          db2[d] += d2;
-          d2_s[r * 4 * LQ + de * LQ + q] = rnd<T>(d2);
-        }
-      }
-    }
-    __syncthreads();
-
-    // dW2[de][c][q] partial: sum_r u1g[r][de, c] * d2[r][de, q]
-#pragma unroll 1
-    for (int d = 0; d < 2; ++d) {
-      const int de = 2 * half + d;
-      float dcol[TM];
-#pragma unroll
-      for (int r = 0; r < TM; ++r) dcol[r] = d2_s[r * 4 * LQ + de * LQ + q];
-      float* dst = dw2p + ((size_t)blk * 4 + de) * C1 * LQ + q;
-#pragma unroll 1
-      for (int c = 0; c < C1; c += 4) {
-        float s[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int r = 0; r < TM; ++r) {
-          const float4 a = lds4(g1_s + r * L1 + de * C1 + c);
-          s[0] = fmaf(a.x, dcol[r], s[0]);
-          s[1] = fmaf(a.y, dcol[r], s[1]);
-          s[2] = fmaf(a.z, dcol[r], s[2]);
-          s[3] = fmaf(a.w, dcol[r], s[3]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float* p = dst + (size_t)(c + i) * LQ;
-          *p = first ? s[i] : *p + s[i];
-        }
-      }
-    }
-
-    // d_u1g[r][j] = sum_q d2[r][jde, q] W2[jc][q]; then the GELU and the
-    // LayerNorm affine backward, d_y kept in registers
-    float dy[TM];
-    {
-#pragma unroll
-      for (int r = 0; r < TM; ++r) dy[r] = 0.f;
-      for (int qq = 0; qq < LQ; qq += 4) {
-        float w[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) w[i] = w2_s[jc * LDW2 + qq + i];
-#pragma unroll
-        for (int r = 0; r < TM; ++r) {
-          const float4 a = lds4(d2_s + r * 4 * LQ + jde * LQ + qq);
-          dy[r] = fmaf(a.x, w[0], dy[r]);
-          dy[r] = fmaf(a.y, w[1], dy[r]);
-          dy[r] = fmaf(a.z, w[2], dy[r]);
-          dy[r] = fmaf(a.w, w[3], dy[r]);
-        }
-      }
-      const float gj = g[jc], bj = bt[jc];
-#pragma unroll
-      for (int r = 0; r < TM; ++r) {
-        const float y = y_s[r * L1 + j];
-        const float d_out1 = dy[r] * gelu_grad<T>(rnd<T>(y * gj + bj));
-        dg = fmaf(d_out1, y, dg);
-        dbt += d_out1;
-        dy[r] = d_out1 * gj;
-      }
-    }
-    __syncthreads();  // the dW2 pass is done reading u1g
-#pragma unroll
-    for (int r = 0; r < TM; ++r) g1_s[r * L1 + j] = dy[r];
-    __syncthreads();
-
-    // LayerNorm backward: per-(row, segment) means of d_y and d_y * y
-    for (int rr = 0; rr < RPW; ++rr) {
-      const int r = warp * RPW + rr;
-      for (int s = 0; s < 4; ++s) {
-        const int o = r * L1 + s * C1 + lane;
-        const float a = g1_s[o], b = g1_s[o + 32];
-        const float s1 = warp_sum(a + b);
-        const float s2 = warp_sum(a * y_s[o] + b * y_s[o + 32]);
-        if (lane == 0) {
-          mdy_s[r * 4 + s] = s1 * (1.f / C1);
-          mdyy_s[r * 4 + s] = s2 * (1.f / C1);
-        }
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < TM; ++r) {
-      const int sidx = r * 4 + jde;
-      const float du = rstd_s[sidx] * (dy[r] - mdy_s[sidx] -
-                                       y_s[r * L1 + j] * mdyy_s[sidx]);
-      db1 += du;
-      g1_s[r * L1 + j] = rnd<T>(du);
-    }
-    __syncthreads();
-
-    // d_up[r][k] = sum_j d_u1pre[r][j] W1[k][j] (W1^T rows: coalesced in k)
-    {
-      const int k = tid;
-      float acc[TM];
-#pragma unroll
-      for (int r = 0; r < TM; ++r) acc[r] = 0.f;
-      for (int jj = 0; jj < L1; jj += 4) {
-        float w[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) w[i] = ld(w1t + (size_t)(jj + i) * C + k);
-#pragma unroll
-        for (int r = 0; r < TM; ++r) {
-          const float4 a = lds4(g1_s + r * L1 + jj);
-          acc[r] = fmaf(a.x, w[0], acc[r]);
-          acc[r] = fmaf(a.y, w[1], acc[r]);
-          acc[r] = fmaf(a.z, w[2], acc[r]);
-          acc[r] = fmaf(a.w, w[3], acc[r]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < TM; ++r)
-        if (row0 + r < m)
-          st(d_up + ((size_t)pair * m + row0 + r) * C + k, acc[r]);
-    }
-
-    // dW1[k][j] partial: sum_r up[r][k] * d_u1pre[r][j]
-    {
-      float dcol[TM];
-#pragma unroll
-      for (int r = 0; r < TM; ++r) dcol[r] = g1_s[r * L1 + j];
-      float* dst = dw1p + (size_t)blk * C * L1 + j;
-#pragma unroll 1
-      for (int k = 0; k < C; k += 4) {
-        float s[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int r = 0; r < TM; ++r) {
-          const float4 a = lds4(up_s + r * C + k);
-          s[0] = fmaf(a.x, dcol[r], s[0]);
-          s[1] = fmaf(a.y, dcol[r], s[1]);
-          s[2] = fmaf(a.z, dcol[r], s[2]);
-          s[3] = fmaf(a.w, dcol[r], s[3]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float* p = dst + (size_t)(k + i) * L1;
-          *p = first ? s[i] : *p + s[i];
-        }
-      }
-    }
-  }
-
-  db1p[(size_t)blk * L1 + j] = db1;
-  dgp[(size_t)blk * L1 + j] = dg;
-  dbtp[(size_t)blk * L1 + j] = dbt;
-#pragma unroll
-  for (int d = 0; d < 2; ++d) {
-    const int lane2 = (2 * half + d) * LQ + q;
-    db2p[(size_t)blk * 4 * LQ + lane2] = db2[d];
-#pragma unroll
-    for (int t = 0; t < MAXT; ++t)
-      if (t < n_out)
-        dhtp[(((size_t)pair * splits + split) * n_out + t) * 4 * LQ + lane2] =
-            dht[t][d];
-  }
 }
 
 // ------------------------------------------ bf16 backward, two passes ----
@@ -1119,24 +693,6 @@ int launch_bwd_dw(void* const* a, int rows, int chunk, int nchunks,
   return (int)cudaGetLastError();
 }
 
-int launch_fwd_f32(const void* up, const void* w1, const void* b1,
-                   const void* g, const void* bt, const void* w2,
-                   const void* b2, const void* hyper, void* out, int bp, int m,
-                   int n_out, float eps, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      upscale_fwd_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)FWD_SMEM);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((m + TM - 1) / TM, bp);
-  upscale_fwd_kernel<float><<<grid, THREADS, FWD_SMEM, stream>>>(
-      static_cast<const float*>(up), static_cast<const float*>(w1),
-      static_cast<const float*>(b1), static_cast<const float*>(g),
-      static_cast<const float*>(bt), static_cast<const float*>(w2),
-      static_cast<const float*>(b2), static_cast<const float*>(hyper),
-      static_cast<float*>(out), m, n_out, eps);
-  return (int)cudaGetLastError();
-}
-
 int launch_fwd_mma(const void* up, const void* w1, const void* b1,
                    const void* g, const void* bt, const void* w2,
                    const void* b2, const void* hyper, void* out, int bp, int m,
@@ -1155,35 +711,607 @@ int launch_fwd_mma(const void* up, const void* w1, const void* b1,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_bwd(const void* up, const void* dm, const void* w1,
-               const void* w1t, const void* b1, const void* g, const void* bt,
-               const void* w2, const void* b2, const void* hyper, void* d_up,
-               void* dw1p, void* dw2p, void* db1p, void* dgp, void* dbtp,
-               void* db2p, void* dhtp, int bp, int m, int n_out, int splits,
-               float eps, cudaStream_t stream) {
-  const int ntiles = (m + TM - 1) / TM;
-  // every block must own at least one tile: its partial sums are written,
-  // never accumulated into a zeroed buffer
-  if (n_out < 1 || n_out > MAXT || splits < 1 ||
-      (splits - 1) * ((ntiles + splits - 1) / splits) >= ntiles)
+
+// ---------------------------- f32 forward and backward, split TF32 ----
+// The f32 kernels: super-tiles of 64 rows, a warp pair per 16-row slot,
+// warp `sub` taking the (d, e) blocks 2 sub, 2 sub + 1 (decoder_tf32.cuh).
+// W1 (256 KB) is streamed per super-tile (dec32::stream_product); W2 (32
+// KB) is copied into the ring's space once the first product is done, and
+// read from there by the second product (and, in the backward, by d_u1g).
+// Shared memory per slot: its rows [16][LDT] (up, then u1g, then
+// rnd(d_u1pre)); the row pass adds the LayerNorm outputs y [16][LDY] and
+// its per-column sums.
+using attn::mma::cp_commit;
+using attn::mma::cp_wait;
+using stf32::acc_a;
+using stf32::Frag;
+using stf32::load_a;
+using stf32::mma3;
+using stf32::mma3s;
+using stf32::split;
+
+constexpr int LDT = C + 4;     // up / u1g / d_u1pre rows (A fragments)
+constexpr int LDY = L1 + 8;    // y rows (float2 at bank 8g + 2t)
+constexpr int LDW2F = LQ + 8;  // W2 [C1][LQ] rows
+constexpr int W1_KS = 16;      // W1 / W1^T stage rows
+constexpr int RING32 = dec32::STAGES * W1_KS * (L1 + 8);
+static_assert(RING32 >= C1 * LDW2F, "W2 fits in the ring's space");
+constexpr size_t FWD_TF32_SMEM =
+    sizeof(float) * ((size_t)dec32::ROWS * (LDT + MAXT * 16) + RING32);
+constexpr int CS32 = CS + 2 * L1;  // a slot's sums: db2, db1, dg, dbt
+constexpr size_t ROWS_TF32_SMEM =
+    sizeof(float) * ((size_t)dec32::ROWS * (LDT + LDY) + RING32 +
+                     dec32::SLOTS * CS32);
+
+// W2 [C1][LQ] -> the ring's space, rows of LDW2F, asynchronously
+__device__ __forceinline__ void w2_async(float* w2s, const float* w2) {
+  for (int i = threadIdx.x; i < C1 * (LQ / 4); i += dec32::THREADS) {
+    const int r = i / (LQ / 4), c = (i - r * (LQ / 4)) * 4;
+    attn::mma::cp_async16(w2s + r * LDW2F + c, w2 + r * LQ + c, true);
+  }
+}
+
+// The first upscale of the warp's 16 rows (up in ts), its (d, e) blocks
+// 2 sub, 2 sub + 1 (columns 128 sub..: n-tiles 8 d..): u1pre = up . W1 +
+// b1, then per block the LayerNorm over its 64 lanes (mean, then the
+// centred variance; f32). On exit a holds y and rs[d] the 1/std of rows g,
+// g + 8 of block d. Ends with a barrier (the ring and ts are free).
+__device__ __forceinline__ void first_upscale32(float (&a)[16][4],
+                                                float (&rs)[2][2],
+                                                const float* ts,
+                                                const float* w1,
+                                                const float* b1, float* ring,
+                                                int sub, float eps, int lane) {
+  using attn::mma::quad_sum;
+  const int tq = lane & 3;
+  dec32::zero<16>(a);
+  dec32::stream_product<C, L1, W1_KS, 16>(
+      a, w1, ring, 128 * sub,
+      [&](Frag& f, int k0) { load_a(f, ts, LDT, 0, k0, lane); }, lane);
+#pragma unroll
+  for (int d = 0; d < 2; ++d) {
+    float su0 = 0.f, su1 = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      float* x = a[8 * d + jj];
+      const int c = 8 * jj + 2 * tq;
+      x[0] += b1[c];
+      x[1] += b1[c + 1];
+      x[2] += b1[c];
+      x[3] += b1[c + 1];
+      su0 += x[0] + x[1];
+      su1 += x[2] + x[3];
+    }
+    const float mu0 = quad_sum(su0) * (1.f / C1);
+    const float mu1 = quad_sum(su1) * (1.f / C1);
+    float v0 = 0.f, v1 = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      float* x = a[8 * d + jj];
+      x[0] -= mu0;
+      x[1] -= mu0;
+      x[2] -= mu1;
+      x[3] -= mu1;
+      v0 = fmaf(x[0], x[0], fmaf(x[1], x[1], v0));
+      v1 = fmaf(x[2], x[2], fmaf(x[3], x[3], v1));
+    }
+    rs[d][0] = rsqrtf(quad_sum(v0) * (1.f / C1) + eps);
+    rs[d][1] = rsqrtf(quad_sum(v1) * (1.f / C1) + eps);
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      float* x = a[8 * d + jj];
+      x[0] *= rs[d][0];
+      x[1] *= rs[d][0];
+      x[2] *= rs[d][1];
+      x[3] *= rs[d][1];
+    }
+  }
+}
+
+// the second upscale of block de by halves of 64 lanes (f, g, c2): a2 =
+// u1g[de] . W2[:, 64 half..] (u1g in ts, W2 in w2s)
+__device__ __forceinline__ void second_half32(float (&a2)[8][4],
+                                              const float* ts,
+                                              const float* w2s, int de,
+                                              int half, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  dec32::zero<8>(a2);
+#pragma unroll
+  for (int kk = 0; kk < C1 / 8; ++kk) {
+    Frag a;
+    load_a(a, ts, LDT, 0, C1 * de + 8 * kk, lane);
+    const float* b = w2s + (8 * kk + t) * LDW2F + 64 * half + g;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) mma3(a2[j], a, b[8 * j], b[4 * LDW2F + 8 * j]);
+  }
+}
+
+// hyper^T of the pair as split B fragments of the hypernetwork product
+// (k = c2 permuted: rows 8 kk + 2t, + 1; column = mask token g, zero past
+// n_out): hb[kk] = {hi, lo of row 2t, hi, lo of row 2t + 1}
+__device__ __forceinline__ void hyper_frags(uint32_t (&hb)[4][4],
+                                            const float* hy, int n_out,
+                                            int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const float2 v = g < n_out ? dec32::ld2(hy + g * C2 + 8 * kk + 2 * t)
+                               : make_float2(0.f, 0.f);
+    split(v.x, hb[kk][0], hb[kk][1]);
+    split(v.y, hb[kk][2], hb[kk][3]);
+  }
+}
+
+// out[t] = sum_c2 u2g[c2] hyper[t, c2] for one (f, g): u2g the four
+// accumulator n-tiles u (32 c2, k permuted): o[0..1] row g, o[2..3] row
+// g + 8, tokens 2t, 2t + 1
+__device__ __forceinline__ void hyper_dot32(float (&o)[4],
+                                            const float (*u)[4],
+                                            const uint32_t (&hb)[4][4]) {
+  o[0] = o[1] = o[2] = o[3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    Frag a;
+    acc_a(a, u[kk]);
+    mma3s(o, a, hb[kk][0], hb[kk][1], hb[kk][2], hb[kk][3]);
+  }
+}
+
+// The f32 forward. Per super-tile: the first upscale (W1 streamed), its
+// LayerNorm and GELU (erf) into the slot's rows over up; W2 into the
+// ring's space; per (d, e) block and half of 64 lanes the second upscale,
+// its GELU and the hypernetwork sums (split mma against hyper^T), staged as
+// the super-tile's output rows and stored as 16-byte rows.
+__global__ void __launch_bounds__(dec32::THREADS, 1)
+    upscale_fwd_tf32_kernel(const float* up, const float* w1,
+                            const float* b1, const float* g, const float* bt,
+                            const float* w2, const float* b2,
+                            const float* hyper, float* out, int bp, int m,
+                            int n_out, float eps) {
+  extern __shared__ __align__(16) float smem32[];
+  float* t_s = smem32;
+  float* o_s = t_s + dec32::ROWS * LDT;  // [ROWS][lanes]
+  float* ring = o_s + dec32::ROWS * MAXT * 16;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int slot = warp >> 1, sub = warp & 1;
+  const int gq = lane >> 2, tq = lane & 3;
+  float* ts = t_s + slot * 16 * LDT;
+  const int lanes = n_out * 16;
+  float* os = o_s + slot * 16 * lanes;
+  const int tps = (m + dec32::ROWS - 1) / dec32::ROWS, ntiles = bp * tps;
+  const bool t0 = 2 * tq < n_out, t1 = 2 * tq + 1 < n_out;
+
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int pair = tile / tps, srow0 = (tile - pair * tps) * dec32::ROWS;
+    const size_t prow0 = (size_t)pair * m + srow0;
+    __syncthreads();  // the previous tile is done with the rows
+    dec32::rows_async<C, LDT>(t_s, up + prow0 * C, m - srow0);
+    cp_commit();
+    float a[16][4], rs[2][2];
+    first_upscale32(a, rs, ts, w1, b1, ring, sub, eps, lane);
+    w2_async(ring, w2);
+    cp_commit();
+    // u1g = gelu(y g + bt) over up, this warp's two blocks
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = 8 * (j & 7) + 2 * tq, col = 128 * sub + 8 * j + 2 * tq;
+      const float g0 = g[c], g1 = g[c + 1], e0 = bt[c], e1 = bt[c + 1];
+      dec32::st2(ts + gq * LDT + col, gelu<float>(a[j][0] * g0 + e0),
+                 gelu<float>(a[j][1] * g1 + e1));
+      dec32::st2(ts + (gq + 8) * LDT + col, gelu<float>(a[j][2] * g0 + e0),
+                 gelu<float>(a[j][3] * g1 + e1));
+    }
+    uint32_t hb[4][4];
+    hyper_frags(hb, hyper + (size_t)pair * n_out * C2, n_out, lane);
+    cp_wait<0>();
+    __syncthreads();  // W2 landed
+
+#pragma unroll
+    for (int d = 0; d < 2; ++d) {
+      const int de = 2 * sub + d;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float a2[8][4];
+        second_half32(a2, ts, ring, de, half, lane);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c2 = 8 * (j & 3) + 2 * tq;
+          const float b0 = b2[c2], b1v = b2[c2 + 1];
+          a2[j][0] = gelu<float>(a2[j][0] + b0);
+          a2[j][1] = gelu<float>(a2[j][1] + b1v);
+          a2[j][2] = gelu<float>(a2[j][2] + b0);
+          a2[j][3] = gelu<float>(a2[j][3] + b1v);
+        }
+#pragma unroll
+        for (int hg = 0; hg < 2; ++hg) {  // a group of 4 n-tiles is one (f, g)
+          const int fg = 2 * half + hg;
+          float o[4];
+          hyper_dot32(o, a2 + 4 * hg, hb);
+          const int l = 2 * tq * 16 + de * 4 + fg;
+          if (t0) {
+            os[gq * lanes + l] = o[0];
+            os[(gq + 8) * lanes + l] = o[2];
+          }
+          if (t1) {
+            os[gq * lanes + l + 16] = o[1];
+            os[(gq + 8) * lanes + l + 16] = o[3];
+          }
+        }
+      }
+    }
+    __syncthreads();  // the output rows are staged
+    const float4* src = reinterpret_cast<const float4*>(o_s);
+    float4* dst = reinterpret_cast<float4*>(out + prow0 * lanes);
+    const int n4 = min(dec32::ROWS, m - srow0) * lanes / 4;
+    for (int i = threadIdx.x; i < n4; i += dec32::THREADS) dst[i] = src[i];
+  }
+}
+
+// The f32 row pass. Per super-tile: the first upscale (W1 streamed), y to
+// the slot's y rows, u1g over up and to the scratch rows; W2 into the
+// ring's space. Per (d, e) block of the warp: by halves of 64 lanes the
+// second upscale, its GELU, the hypernetwork terms and d_u2pre (to the
+// scratch rows), and d_u1g += d_u2pre . W2^T (d_u2pre from the
+// accumulators, k permuted: W2's rows read as float2 pairs); then the GELU
+// and LayerNorm backward, rnd(d_u1pre) over the block's u1g and to the
+// scratch rows. Then d_up = rnd(d_u1pre) . W1^T (W1^T streamed). Per-column
+// sums as in bf16: group_sum8 per tile, one partial per slot, d_hyper one
+// partial per 16-row tile.
+__global__ void __launch_bounds__(dec32::THREADS, 1)
+    upscale_bwd_rows_tf32_kernel(const float* up, const float* dm,
+                                 const float* w1, const float* b1,
+                                 const float* g, const float* bt,
+                                 const float* w2, const float* b2,
+                                 const float* hyper, float* d_up,
+                                 float* u1g_rows, float* d2_rows,
+                                 float* du1_rows, float* db1_p, float* dg_p,
+                                 float* dbt_p, float* db2_p, float* dht_t,
+                                 const float* w1t, int bp, int m, int n_out,
+                                 float eps) {
+  using attn::mma::quad_sum;
+  using dec::group_col;
+  using dec::group_sum8;
+  extern __shared__ __align__(16) float smem32[];
+  float* t_s = smem32;
+  float* y_s = t_s + dec32::ROWS * LDT;
+  float* ring = y_s + dec32::ROWS * LDY;
+  float* cs0 = ring + RING32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int slot = warp >> 1, sub = warp & 1, pl = 32 * sub + lane;
+  const int gq = lane >> 2, tq = lane & 3;
+  float* ts = t_s + slot * 16 * LDT;
+  float* ys = y_s + slot * 16 * LDY;
+  // per-column sums over the slot's tiles, each entry one lane's: db2
+  // [4 LQ], db1, dg, dbt [L1]
+  float* cs = cs0 + slot * CS32;
+  for (int i = threadIdx.x; i < dec32::SLOTS * CS32; i += dec32::THREADS)
+    cs0[i] = 0.f;
+
+  const int tps = (m + dec32::ROWS - 1) / dec32::ROWS, ntiles = bp * tps;
+  const int tpp16 = (m + 15) / 16, lanes = n_out * 16;
+
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int pair = tile / tps, srow0 = (tile - pair * tps) * dec32::ROWS;
+    const int row0 = srow0 + 16 * slot, valid = min(16, m - row0);
+    const bool ok0 = gq < valid, ok1 = gq + 8 < valid;
+    const size_t r0 = (size_t)pair * m + row0 + gq, r1 = r0 + 8;
+    __syncthreads();  // the previous tile is done with the rows and sums
+    dec32::rows_async<C, LDT>(t_s, up + ((size_t)pair * m + srow0) * C,
+                              m - srow0);
+    cp_commit();
+    float rs[2][2];
+    {
+      float a[16][4];
+      first_upscale32(a, rs, ts, w1, b1, ring, sub, eps, lane);
+      w2_async(ring, w2);
+      cp_commit();
+      // y to the y rows; u1g = gelu(y g + bt) over up and to the scratch
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int c = 8 * (j & 7) + 2 * tq, col = 128 * sub + 8 * j + 2 * tq;
+        const float g0 = g[c], g1 = g[c + 1], e0 = bt[c], e1 = bt[c + 1];
+        dec32::st2(ys + gq * LDY + col, a[j][0], a[j][1]);
+        dec32::st2(ys + (gq + 8) * LDY + col, a[j][2], a[j][3]);
+        const float u0 = gelu<float>(a[j][0] * g0 + e0);
+        const float u1 = gelu<float>(a[j][1] * g1 + e1);
+        const float u2 = gelu<float>(a[j][2] * g0 + e0);
+        const float u3 = gelu<float>(a[j][3] * g1 + e1);
+        dec32::st2(ts + gq * LDT + col, u0, u1);
+        dec32::st2(ts + (gq + 8) * LDT + col, u2, u3);
+        if (ok0) dec32::st2(u1g_rows + r0 * L1 + col, u0, u1);
+        if (ok1) dec32::st2(u1g_rows + r1 * L1 + col, u2, u3);
+      }
+    }
+    cp_wait<0>();
+    __syncthreads();  // W2 landed
+    const float* w2s = ring;
+    const float* hy = hyper + (size_t)pair * n_out * C2;
+    const float* dm0 = dm + r0 * lanes;
+    const float* dm1 = dm + r1 * lanes;
+
+#pragma unroll 1
+    for (int d = 0; d < 2; ++d) {
+      const int de = 2 * sub + d;
+      // the block's 1/std of rows g, g + 8 (selects: d is not unrolled)
+      const float rs0 = d ? rs[1][0] : rs[0][0], rs1 = d ? rs[1][1] : rs[0][1];
+      float a3[8][4];  // d_u1g of the block's 64 lanes
+      dec32::zero<8>(a3);
+#pragma unroll 1
+      for (int half = 0; half < 2; ++half) {
+        float a2[8][4];
+        second_half32(a2, ts, w2s, de, half, lane);
+#pragma unroll
+        for (int hg = 0; hg < 2; ++hg) {  // a group of 4 n-tiles is one (f, g)
+          const int fg = 2 * half + hg;
+          float dmv[2][MAXT];
+#pragma unroll
+          for (int t = 0; t < MAXT; ++t) {
+            const int l = t * 16 + de * 4 + fg;
+            dmv[0][t] = (t < n_out && ok0) ? dm0[l] : 0.f;
+            dmv[1][t] = (t < n_out && ok1) ? dm1[l] : 0.f;
+          }
+          float ug[4][4], vb2[8];
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const int j = 4 * hg + jj, c2 = 8 * jj + 2 * tq;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {  // rows g (e < 2), g + 8; column e & 1
+              const float u2 = a2[j][e] + b2[c2 + (e & 1)];
+              ug[jj][e] = gelu<float>(u2);
+              float du = 0.f;
+#pragma unroll
+              for (int t = 0; t < MAXT; ++t)
+                if (t < n_out)
+                  du = fmaf(dmv[e >> 1][t], hy[t * C2 + c2 + (e & 1)], du);
+              a2[j][e] = du * gelu_grad<float>(u2);  // d_u2pre
+            }
+            vb2[2 * jj] = a2[j][0] + a2[j][2];
+            vb2[2 * jj + 1] = a2[j][1] + a2[j][3];
+            const int q = LQ * de + 64 * half + 8 * j + 2 * tq;
+            if (ok0) dec32::st2(d2_rows + r0 * 4 * LQ + q, a2[j][0], a2[j][1]);
+            if (ok1) dec32::st2(d2_rows + r1 * 4 * LQ + q, a2[j][2], a2[j][3]);
+          }
+          cs[LQ * de + 32 * fg + group_col(0, lane)] += group_sum8(vb2, lane);
+          // d_hyper of this 16-row tile: sum over its rows of dm * u2g
+          if (valid > 0) {
+            float* ht = dht_t + ((size_t)pair * tpp16 + row0 / 16) * n_out * 4 * LQ +
+                        LQ * de + 32 * fg + group_col(0, lane);
+#pragma unroll
+            for (int t = 0; t < MAXT; ++t)
+              if (t < n_out) {
+                float vh[8];
+#pragma unroll
+                for (int jj = 0; jj < 4; ++jj) {
+                  vh[2 * jj] = dmv[0][t] * ug[jj][0] + dmv[1][t] * ug[jj][2];
+                  vh[2 * jj + 1] = dmv[0][t] * ug[jj][1] + dmv[1][t] * ug[jj][3];
+                }
+                ht[(size_t)t * 4 * LQ] = group_sum8(vh, lane);
+              }
+          }
+        }
+        // d_u1g += d_u2pre . W2^T over this half's 64 lanes: A from the
+        // accumulators (k = q permuted), B = W2[c1][q] as float2 pairs
+#pragma unroll
+        for (int kq = 0; kq < 8; ++kq) {
+          Frag a;
+          acc_a(a, a2[kq]);
+          const float* b = w2s + gq * LDW2F + 64 * half + 8 * kq + 2 * tq;
+#pragma unroll
+          for (int jn = 0; jn < 8; ++jn) {
+            const float2 v = dec32::ld2(b + 8 * jn * LDW2F);
+            mma3(a3[jn], a, v.x, v.y);
+          }
+        }
+      }
+      // GELU and LayerNorm-affine backward: d_out1 in place (y read from
+      // its rows where it is needed: registers are the scarce resource)
+      float sa0 = 0.f, sb0 = 0.f, sa1 = 0.f, sb1 = 0.f;
+      const float* y0 = ys + gq * LDY + C1 * de;
+      const float* y1 = y0 + 8 * LDY;
+#pragma unroll
+      for (int grp = 0; grp < 2; ++grp) {
+        float vg[8], vt[8];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int j = 4 * grp + jj, c = 8 * j + 2 * tq;
+          const float2 ya = dec32::ld2(y0 + c), yb = dec32::ld2(y1 + c);
+          const float y[4] = {ya.x, ya.y, yb.x, yb.y};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float gc = g[c + (e & 1)];
+            const float d1 = a3[j][e] * gelu_grad<float>(y[e] * gc + bt[c + (e & 1)]);
+            a3[j][e] = d1;
+            const float dyv = d1 * gc;
+            if (e < 2) {
+              sa0 += dyv;
+              sb0 = fmaf(dyv, y[e], sb0);
+            } else {
+              sa1 += dyv;
+              sb1 = fmaf(dyv, y[e], sb1);
+            }
+          }
+          vg[2 * jj] = a3[j][0] * y[0] + a3[j][2] * y[2];
+          vg[2 * jj + 1] = a3[j][1] * y[1] + a3[j][3] * y[3];
+          vt[2 * jj] = a3[j][0] + a3[j][2];
+          vt[2 * jj + 1] = a3[j][1] + a3[j][3];
+        }
+        const int col = C1 * de + 32 * grp + group_col(0, lane);
+        cs[4 * LQ + L1 + col] += group_sum8(vg, lane);
+        cs[4 * LQ + 2 * L1 + col] += group_sum8(vt, lane);
+      }
+      const float m10 = quad_sum(sa0) * (1.f / C1), m20 = quad_sum(sb0) * (1.f / C1);
+      const float m11 = quad_sum(sa1) * (1.f / C1), m21 = quad_sum(sb1) * (1.f / C1);
+      // d_u1pre = rstd (d_y - mean d_y - y mean(d_y y)) over the block's
+      // u1g and to the scratch rows
+#pragma unroll
+      for (int grp = 0; grp < 2; ++grp) {
+        float vd[8];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int j = 4 * grp + jj, c = 8 * j + 2 * tq;
+          const float2 ya = dec32::ld2(y0 + c), yb = dec32::ld2(y1 + c);
+          const float g0 = g[c], g1 = g[c + 1];
+          const float e0 = rs0 * (a3[j][0] * g0 - m10 - ya.x * m20);
+          const float e1 = rs0 * (a3[j][1] * g1 - m10 - ya.y * m20);
+          const float e2 = rs1 * (a3[j][2] * g0 - m11 - yb.x * m21);
+          const float e3 = rs1 * (a3[j][3] * g1 - m11 - yb.y * m21);
+          vd[2 * jj] = e0 + e2;
+          vd[2 * jj + 1] = e1 + e3;
+          dec32::st2(ts + gq * LDT + C1 * de + c, e0, e1);
+          dec32::st2(ts + (gq + 8) * LDT + C1 * de + c, e2, e3);
+          if (ok0) dec32::st2(du1_rows + r0 * L1 + C1 * de + c, e0, e1);
+          if (ok1) dec32::st2(du1_rows + r1 * L1 + C1 * de + c, e2, e3);
+        }
+        cs[4 * LQ + C1 * de + 32 * grp + group_col(0, lane)] += group_sum8(vd, lane);
+      }
+    }
+    __syncthreads();  // the rows hold rnd(d_u1pre); W2's space is free
+
+    // d_up = rnd(d_u1pre) . W1^T, this warp's 128 channels
+    float a4[16][4];
+    dec32::zero<16>(a4);
+    dec32::stream_product<L1, C, W1_KS, 16>(
+        a4, w1t, ring, 128 * sub,
+        [&](Frag& f, int k0) { load_a(f, ts, LDT, 0, k0, lane); }, lane);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = 128 * sub + 8 * j + 2 * tq;
+      if (ok0) dec32::st2(d_up + r0 * C + c, a4[j][0], a4[j][1]);
+      if (ok1) dec32::st2(d_up + r1 * C + c, a4[j][2], a4[j][3]);
+    }
+  }
+
+  __syncthreads();
+  const size_t wg = (size_t)blockIdx.x * dec32::SLOTS + slot;
+  for (int i = pl; i < 4 * LQ; i += 64) db2_p[wg * 4 * LQ + i] = cs[i];
+  for (int i = pl; i < L1; i += 64) {
+    db1_p[wg * L1 + i] = cs[4 * LQ + i];
+    dg_p[wg * L1 + i] = cs[4 * LQ + L1 + i];
+    dbt_p[wg * L1 + i] = cs[4 * LQ + 2 * L1 + i];
+  }
+}
+
+// The f32 weight pass: block (chunk, kind) sums over the chunk's rows
+//   kind 0-3: dW1 [C][L1] rows 128 (kind / 2).., columns 128 (kind % 2).. =
+//             up[:, rows]^T . rnd(d_u1pre)[:, columns]
+//   kind 4, 5: dW2 [4][C1][LQ] of the (d, e) blocks 2 (kind - 4), + 1:
+//             dW2[de] = u1g[de]^T . rnd(d_u2pre)[de]
+// into part[chunk] = [dW1 | dW2]; warp w owns a 32 x 64 tile of the block
+constexpr int DW32_LDX = 128 + 8, DW32_LDY = 256 + 8;
+constexpr int DW32_STAGE = dec::DW_SR * (DW32_LDX + DW32_LDY);
+constexpr size_t DW32_SMEM = sizeof(float) * (size_t)dec::DW_STAGES * DW32_STAGE;
+
+__global__ void __launch_bounds__(dec::DW_THREADS, 1)
+    upscale_bwd_dw_tf32_kernel(const float* up, const float* u1g_rows,
+                               const float* d2_rows, const float* du1_rows,
+                               float* part, int rows, int chunk) {
+  using attn::mma::cp_async16;
+  extern __shared__ __align__(16) float smem32[];
+  const int kind = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int lo = blockIdx.x * chunk, hi = min(rows, lo + chunk);
+  float acc[2][8][4];
+#pragma unroll
+  for (int a = 0; a < 2; ++a) dec32::zero<8>(acc[a]);
+
+  // X: 128 columns of up or u1g; Y: 128 columns of rnd(d_u1pre) or 256 of
+  // rnd(d_u2pre)
+  const bool w2k = kind >= 4;
+  const int yw = w2k ? 2 * LQ : L1 / 2;
+  const float* xsrc = w2k ? u1g_rows + 2 * C1 * (kind - 4) : up + 128 * (kind >> 1);
+  const int xstride = w2k ? L1 : C;
+  const float* ysrc = w2k ? d2_rows + 2 * LQ * (kind - 4) : du1_rows + 128 * (kind & 1);
+  const int ystride = w2k ? 4 * LQ : L1;
+  auto load = [&](int st, int r0) {
+    float* xs = smem32 + st * DW32_STAGE;
+    float* ys = xs + dec::DW_SR * DW32_LDX;
+    for (int i = threadIdx.x; i < dec::DW_SR * 32; i += dec::DW_THREADS) {
+      const int r = i / 32, c = (i - r * 32) * 4;
+      const bool ok = r0 + r < hi;
+      cp_async16(xs + r * DW32_LDX + c,
+                 xsrc + (ok ? (size_t)(r0 + r) * xstride + c : 0), ok);
+    }
+    for (int i = threadIdx.x; i < dec::DW_SR * (yw / 4); i += dec::DW_THREADS) {
+      const int r = i / (yw / 4), c = (i - r * (yw / 4)) * 4;
+      const bool ok = r0 + r < hi;
+      cp_async16(ys + r * DW32_LDY + c,
+                 ysrc + (ok ? (size_t)(r0 + r) * ystride + c : 0), ok);
+    }
+  };
+  auto prep = [](int) { return false; };
+  // dW1: rows 32 (w / 2).., columns 64 (w % 2)..; dW2: block de = w / 4,
+  // rows 32 ((w / 2) % 2).. of its C1, columns 64 (w % 2).. of its LQ
+  const int mrow = w2k ? 32 * ((warp >> 1) & 1) : 32 * (warp >> 1);
+  const int a0 = w2k ? C1 * (warp >> 2) + mrow : mrow;
+  const int b0 = w2k ? LQ * (warp >> 2) + 64 * (warp & 1) : 64 * (warp & 1);
+  auto mma = [&](int st) {
+    const float* xs = smem32 + st * DW32_STAGE;
+    dec32::dw_stage_tf32<DW32_LDX, DW32_LDY>(acc, xs, a0,
+                                             xs + dec::DW_SR * DW32_LDX, b0,
+                                             lane);
+  };
+  dec::dw_ring(lo, hi, load, prep, mma);
+  float* out = part + (size_t)blockIdx.x * DW_PART;
+  if (w2k)
+    dec32::dw_store32(out + C * L1 + (size_t)(2 * (kind - 4) + (warp >> 2)) * C1 * LQ +
+                          mrow * LQ + 64 * (warp & 1),
+                      LQ, acc, lane);
+  else
+    dec32::dw_store32(out + (size_t)(128 * (kind >> 1) + mrow) * L1 +
+                          128 * (kind & 1) + b0,
+                      L1, acc, lane);
+}
+
+int launch_fwd_tf32(const void* up, const void* w1, const void* b1,
+                    const void* g, const void* bt, const void* w2,
+                    const void* b2, const void* hyper, void* out, int bp,
+                    int m, int n_out, int blocks, float eps,
+                    cudaStream_t stream) {
+  if (blocks < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      upscale_fwd_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)FWD_TF32_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  upscale_fwd_tf32_kernel<<<blocks, dec32::THREADS, FWD_TF32_SMEM, stream>>>(
+      static_cast<const float*>(up), static_cast<const float*>(w1),
+      static_cast<const float*>(b1), static_cast<const float*>(g),
+      static_cast<const float*>(bt), static_cast<const float*>(w2),
+      static_cast<const float*>(b2), static_cast<const float*>(hyper),
+      static_cast<float*>(out), bp, m, n_out, eps);
+  return (int)cudaGetLastError();
+}
+
+int launch_bwd_rows_tf32(void* const* a, int bp, int m, int n_out,
+                         int blocks, float eps, cudaStream_t stream) {
+  if (n_out < 1 || n_out > MAXT || blocks < 1 || m < 1)
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      upscale_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)BWD_SMEM);
+      upscale_bwd_rows_tf32_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ROWS_TF32_SMEM);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(splits, bp);
-  upscale_bwd_kernel<T><<<grid, THREADS, BWD_SMEM, stream>>>(
-      static_cast<const T*>(up), static_cast<const float*>(dm),
-      static_cast<const T*>(w1), static_cast<const T*>(w1t),
-      static_cast<const float*>(b1), static_cast<const float*>(g),
-      static_cast<const float*>(bt), static_cast<const T*>(w2),
-      static_cast<const float*>(b2), static_cast<const T*>(hyper),
-      static_cast<T*>(d_up), static_cast<float*>(dw1p),
-      static_cast<float*>(dw2p), static_cast<float*>(db1p),
-      static_cast<float*>(dgp), static_cast<float*>(dbtp),
-      static_cast<float*>(db2p), static_cast<float*>(dhtp), m, n_out, splits,
-      eps);
+  auto in = [&](int i) { return static_cast<const float*>(a[i]); };
+  auto out = [&](int i) { return static_cast<float*>(a[i]); };
+  upscale_bwd_rows_tf32_kernel<<<blocks, dec32::THREADS, ROWS_TF32_SMEM,
+                                 stream>>>(
+      in(0), in(1), in(2), in(3), in(4), in(5), in(6), in(7), in(8), out(9),
+      out(10), out(11), out(12), out(13), out(14), out(15), out(16), out(17),
+      in(18), bp, m, n_out, eps);
+  return (int)cudaGetLastError();
+}
+
+int launch_bwd_dw_tf32(void* const* a, int rows, int chunk, int nchunks,
+                       cudaStream_t stream) {
+  if (chunk < 1 || chunk % dec::DW_SR || nchunks < 1 ||
+      (nchunks - 1) * chunk >= rows || nchunks * chunk < rows)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      upscale_bwd_dw_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)DW32_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  upscale_bwd_dw_tf32_kernel<<<dim3(nchunks, 6), dec::DW_THREADS, DW32_SMEM,
+                               stream>>>(
+      static_cast<const float*>(a[0]), static_cast<const float*>(a[1]),
+      static_cast<const float*>(a[2]), static_cast<const float*>(a[3]),
+      static_cast<float*>(a[4]), rows, chunk);
   return (int)cudaGetLastError();
 }
 
@@ -1193,9 +1321,8 @@ int launch_bwd(const void* up, const void* dm, const void* w1,
 // cudaError_t of the launch (0 = success); the caller raises on non-zero.
 extern "C" {
 
-// The forward: bf16 on `blocks` persistent blocks (upscale_fwd_mma_kernel),
-// f32 one block per (pair, 32-row tile) (upscale_fwd_kernel; `blocks`
-// unused).
+// The forward on `blocks` persistent blocks: bf16 upscale_fwd_mma_kernel,
+// f32 upscale_fwd_tf32_kernel.
 int dhoct_upscale_fwd(const void* up, const void* w1, const void* b1,
                       const void* g, const void* bt, const void* w2,
                       const void* b2, const void* hyper, void* out, int bp,
@@ -1205,43 +1332,31 @@ int dhoct_upscale_fwd(const void* up, const void* w1, const void* b1,
   if (n_out < 1 || n_out > MAXT || m < 1) return (int)cudaErrorInvalidValue;
   return dtype == 1 ? launch_fwd_mma(up, w1, b1, g, bt, w2, b2, hyper, out,
                                      bp, m, n_out, blocks, eps, s)
-                    : launch_fwd_f32(up, w1, b1, g, bt, w2, b2, hyper, out,
-                                     bp, m, n_out, eps, s);
+                    : launch_fwd_tf32(up, w1, b1, g, bt, w2, b2, hyper, out,
+                                      bp, m, n_out, blocks, eps, s);
 }
 
-// The f32 backward (upscale_bwd_kernel); dtype must be 0: the bf16
-// backward is the two launches below.
-int dhoct_upscale_bwd(const void* up, const void* dm, const void* w1,
-                      const void* w1t, const void* b1, const void* g,
-                      const void* bt, const void* w2, const void* b2,
-                      const void* hyper, void* d_up, void* dw1p, void* dw2p,
-                      void* db1p, void* dgp, void* dbtp, void* db2p,
-                      void* dhtp, int bp, int m, int n_out, int splits,
-                      int dtype, float eps, void* stream) {
-  if (dtype != 0) return (int)cudaErrorInvalidValue;
-  return launch_bwd<float>(up, dm, w1, w1t, b1, g, bt, w2, b2, hyper, d_up,
-                           dw1p, dw2p, db1p, dgp, dbtp, db2p, dhtp, bp, m,
-                           n_out, splits, eps,
-                           static_cast<cudaStream_t>(stream));
-}
-
-// The bf16 row pass (upscale_bwd_rows_kernel) on `blocks` persistent
-// blocks. a[18]: up, dm, w1, b1, g, bt, w2, b2, hyper; outputs d_up, the
-// u1g, rnd(d_u2pre) and rnd(d_u1pre) scratch rows, per-warp partials of
-// db1, dg, dbt, db2, and per-tile partials of d_hyper.
+// The row pass on `blocks` persistent blocks (bf16 upscale_bwd_rows_kernel,
+// f32 upscale_bwd_rows_tf32_kernel). a: up, dm, w1, b1, g, bt, w2, b2,
+// hyper; outputs d_up, the u1g, rnd(d_u2pre) and rnd(d_u1pre) scratch rows,
+// per-slot partials of db1, dg, dbt, db2, and per-16-row-tile partials of
+// d_hyper; f32 also takes W1^T [L1][C] (a[18]).
 int dhoct_upscale_bwd_rows(void* const* a, int bp, int m, int n_out,
-                           int blocks, float eps, void* stream) {
-  return launch_bwd_rows(a, bp, m, n_out, blocks, eps,
-                         static_cast<cudaStream_t>(stream));
+                           int blocks, int dtype, float eps, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 1 ? launch_bwd_rows(a, bp, m, n_out, blocks, eps, s)
+                    : launch_bwd_rows_tf32(a, bp, m, n_out, blocks, eps, s);
 }
 
-// The bf16 weight pass (upscale_bwd_dw_kernel). a[5]: up, u1g, rnd(d_u2pre)
-// and rnd(d_u1pre) rows, and the partials [nchunks][dW1 | dW2] of row
-// chunks of `chunk` rows.
+// The weight pass (bf16 upscale_bwd_dw_kernel, f32
+// upscale_bwd_dw_tf32_kernel). a[5]: up, u1g, rnd(d_u2pre) and
+// rnd(d_u1pre) rows, and the partials [nchunks][dW1 | dW2] of row chunks
+// of `chunk` rows.
 int dhoct_upscale_bwd_dw(void* const* a, int rows, int chunk, int nchunks,
-                         void* stream) {
-  return launch_bwd_dw(a, rows, chunk, nchunks,
-                       static_cast<cudaStream_t>(stream));
+                         int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 1 ? launch_bwd_dw(a, rows, chunk, nchunks, s)
+                    : launch_bwd_dw_tf32(a, rows, chunk, nchunks, s);
 }
 
 const char* dhoct_upscale_error_string(int code) {

@@ -30,6 +30,7 @@ under ``device.full_fp32`` (no TF32).
 from __future__ import annotations
 
 import math
+import warnings
 
 import numpy as np
 import torch
@@ -351,20 +352,73 @@ def encode_prompts(sd, cfg: SamConfig, batch_size: int, points=None,
 # ---------------------------------------------------------------------------
 
 
+# The JAX package's decoder routing switches (``models/sam.py``
+# ``set_fused_i2t`` / ``set_fused_upscaler``), with its four modes and rules.
+# 'interpret' names the Pallas interpreter there; here it is the fused route
+# under that mode's dtype rule: the kernel on a CUDA tensor, its plain
+# version on a CPU tensor, never the plain version on the card.
+_FUSED_MODES = ("auto", "on", "off", "interpret")
+_FUSED_I2T = "auto"
+_FUSED_UPSCALER = "auto"
+
+
+def set_fused_i2t(mode: str):
+    """mode in {'auto', 'on', 'off', 'interpret'} — the fused image→token
+    cross-attention + residual + LayerNorm (``ops/decoder_attn.py``, K4):
+    'auto' takes it in bf16, 'on' and 'interpret' in any dtype (f32
+    included), 'off' never; every mode needs <= 8 tokens, heads dividing the
+    width and one shared positional grid."""
+    global _FUSED_I2T
+    if mode not in _FUSED_MODES:
+        raise ValueError(f"unknown fused-i2t mode {mode!r}")
+    _FUSED_I2T = mode
+
+
+def set_fused_upscaler(mode: str):
+    """mode in {'auto', 'on', 'off', 'interpret'} — the fused upscaler and
+    hypernetwork product (``ops/upscaler.py``, K3) of the blocked decode:
+    'auto' takes it in bf16 on grids of >= 1024 cells, 'on' in bf16 at any
+    grid (for other dtypes it warns and keeps the einsum chain, as the JAX
+    package does), 'interpret' in any dtype (f32 included), 'off' never."""
+    global _FUSED_UPSCALER
+    if mode not in _FUSED_MODES:
+        raise ValueError(f"unknown fused-upscaler mode {mode!r}")
+    _FUSED_UPSCALER = mode
+
+
 def _use_fused_i2t(dtype, n_tok: int, internal: int, nh: int,
                    pe_batch: int) -> bool:
-    """The JAX package's ``_use_fused_i2t`` under "auto" on an accelerator:
-    bf16, <= 8 tokens, heads dividing the width, one shared positional
-    grid. f32 (the serving path) stays on the unfused chain."""
-    return (dtype == torch.bfloat16 and n_tok <= T_PAD and internal % nh == 0
-            and pe_batch == 1)
+    """The JAX package's ``_use_fused_i2t``; its 'auto' as on an
+    accelerator."""
+    if _FUSED_I2T == "off":
+        return False
+    if not (n_tok <= T_PAD and internal % nh == 0 and pe_batch == 1):
+        return False
+    if _FUSED_I2T in ("on", "interpret"):
+        return True
+    return dtype == torch.bfloat16
 
 
 def _use_fused_upscaler(n_pixels: int, dtype) -> bool:
-    """The JAX package's ``_use_fused_upscaler`` under "auto" on an
-    accelerator: bf16 and a grid of at least 1024 cells (blocked decode
-    only, checked by the caller)."""
-    return dtype == torch.bfloat16 and n_pixels >= 1024
+    """The JAX package's ``_use_fused_upscaler``; its 'auto' as on an
+    accelerator (blocked decode only, checked by the caller)."""
+    if _FUSED_UPSCALER == "off":
+        return False
+    if _FUSED_UPSCALER == "interpret":
+        return True
+    if dtype != torch.bfloat16:
+        if _FUSED_UPSCALER == "on":
+            warnings.warn(
+                "set_fused_upscaler('on') ignored for non-bf16 inputs, as in "
+                "the JAX package (whose f32 erf GELU has no Mosaic "
+                "lowering): using the einsum chain (use 'interpret' to "
+                "force the fused kernel)",
+                stacklevel=3,
+            )
+        return False
+    if _FUSED_UPSCALER == "on":
+        return True
+    return n_pixels >= 1024
 
 
 def _heads(x, n_heads):

@@ -10,20 +10,24 @@ as a per-row chain over the (pairs x grid) image rows with <= 8 prompt
 tokens on the key side. On a CUDA tensor it launches the hand-written
 kernels of ``csrc/decoder_attn.cu``:
 
-  * ``i2t_fwd`` replacing the TPU ``_fused_fwd`` (``_fwd_kernel``): in
-    bf16 on the tensor cores (``i2t_fwd_mma_kernel``, one persistent block
-    per SM; the pb pairs of an image share one q projection), in f32 a SIMT
-    kernel (``i2t_fwd_kernel``);
+  * ``i2t_fwd`` replacing the TPU ``_fused_fwd`` (``_fwd_kernel``), one
+    persistent block per SM, the pb pairs of an image sharing one q
+    projection: in bf16 ``i2t_fwd_mma_kernel``, in f32
+    ``i2t_fwd_tf32_kernel`` (split TF32: hi.hi + hi.lo + lo.hi on the TF32
+    tensor cores, f32 accuracy);
   * the backward replacing the TPU ``_fused_bwd`` (``_bwd_kernel``): it
     recomputes the chain per row, returns d_keys per row, the q/out
     projection and LayerNorm gradients summed over all rows, and the per-row
     intermediates (d_qpre, p, d_score, d_out) from which the cross-row token
     and positional gradients are formed outside — as plain ``torch.einsum``,
     as the JAX package leaves them to XLA (``decoder_attn.py:320-347``).
-    In bf16 it is two launches on the tensor cores: ``i2t_bwd_rows`` (the
-    row pass; it also writes rnd(out) and rnd(d_res) per row as bf16
-    scratch) and ``i2t_bwd_dw`` (the weight pass: dWo and dWq as split-K
-    products over row chunks). In f32 it is one fused kernel (``i2t_bwd``).
+    It is two launches on the tensor cores, in bf16 and in f32 (split
+    TF32): ``i2t_bwd_rows`` (the row pass; it also writes rnd(out) and
+    rnd(d_res) per row as scratch in the input dtype) and ``i2t_bwd_dw``
+    (the weight pass: dWo and dWq as split-K products over row chunks).
+
+The JAX package routes here only in bf16 unless ``set_fused_i2t('on')``
+forces it (``models/sam.py``); the f32 kernels serve that route.
 
 On a CPU tensor the same ``torch.autograd.Function`` runs ``i2t_fwd_plain``
 / ``i2t_bwd_plain``, which compute exactly what the kernels return from the
@@ -54,8 +58,8 @@ T_PAD = 8          # token capacity per head (the training paths use 7)
 CHANNELS = 256     # the widths the CUDA kernels take (every SAM decoder)
 INTERNAL = 128
 HEADS = 8
-ROW_TILE = 32      # rows per tile of the f32 forward and backward (TM)
-ROW_SLOTS = 4      # tiles in flight per bf16 block, a warp pair each
+ROW_SLOTS = 4      # 16-row tiles in flight per block, a warp pair each
+F32_ROWS = 64      # rows of an f32 super-tile (dec32::ROWS)
 DW_ROWS = 32       # rows per stage of the weight pass (dec::DW_SR)
 
 _BOUND = False
@@ -207,11 +211,10 @@ def _bind():
     if not _BOUND:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.dhoct_i2t_fwd.argtypes = [p] * 11 + [i] * 6 + [ctypes.c_float, p]
-        lib.dhoct_i2t_bwd.argtypes = [p] * 24 + [i] * 6 + [ctypes.c_float, p]
-        lib.dhoct_i2t_bwd_rows.argtypes = [p] + [i] * 5 + [ctypes.c_float, p]
-        lib.dhoct_i2t_bwd_dw.argtypes = [p] + [i] * 5 + [p]
-        for fn in (lib.dhoct_i2t_fwd, lib.dhoct_i2t_bwd,
-                   lib.dhoct_i2t_bwd_rows, lib.dhoct_i2t_bwd_dw):
+        lib.dhoct_i2t_bwd_rows.argtypes = [p] + [i] * 6 + [ctypes.c_float, p]
+        lib.dhoct_i2t_bwd_dw.argtypes = [p] + [i] * 6 + [p]
+        for fn in (lib.dhoct_i2t_fwd, lib.dhoct_i2t_bwd_rows,
+                   lib.dhoct_i2t_bwd_dw):
             fn.restype = ctypes.c_int
         lib.dhoct_i2t_error_string.argtypes = [ctypes.c_int]
         lib.dhoct_i2t_error_string.restype = ctypes.c_char_p
@@ -246,11 +249,21 @@ def _kernel_widths(c, internal, nh):
             f"got C={c}, I={internal}, {nh} heads")
 
 
+def _blocks(dev, dt, pairs, m):
+    """Persistent blocks of a K4 row kernel: one per SM, at most one per
+    ROW_SLOTS 16-row tiles (bf16) or per 64-row super-tile (f32) of
+    ``pairs`` pairs (or images)."""
+    if dt == torch.bfloat16:
+        work = -(-pairs * -(-m // 16) // ROW_SLOTS)
+    else:
+        work = pairs * -(-m // F32_ROWS)
+    return min(kernels.sm_count(dev), work)
+
+
 def i2t_fwd_cuda(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, *, nh: int,
                  pb: int, eps: float):
     """Launch ``i2t_fwd`` (csrc/decoder_attn.cu); same contract as
-    ``i2t_fwd_plain``. bf16: one persistent block per SM (at most one per
-    ROW_SLOTS units of 16 image rows)."""
+    ``i2t_fwd_plain``, on one persistent block per SM (``_blocks``)."""
     bimg, m, c, bp, n_tok, internal = _check_args(
         keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, nh, pb)
     _kernel_widths(c, internal, nh)
@@ -262,8 +275,7 @@ def i2t_fwd_cuda(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, *, nh: int,
     dev = keys.device
     out = torch.empty((bp, m, c), dtype=dt, device=dev)
     with torch.cuda.device(dev):
-        units = bimg * -(-m // 16)
-        blocks = min(kernels.sm_count(dev), -(-units // ROW_SLOTS))
+        blocks = _blocks(dev, dt, bimg, m)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.dhoct_i2t_fwd(*(t.data_ptr() for t in args), out.data_ptr(),
                                 bp, m, pb, n_tok, blocks,
@@ -275,17 +287,15 @@ def i2t_fwd_cuda(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, *, nh: int,
 
 def i2t_bwd_rows_cuda(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, dy, *,
                       nh: int, pb: int, eps: float):
-    """Launch the bf16 row pass ``i2t_bwd_rows`` (csrc/decoder_attn.cu) on
-    one persistent block per SM; same contract as ``i2t_bwd_rows_plain``.
-    The kernel writes one partial of each per-lane sum per slot (a warp
-    pair); they are summed here in a fixed order."""
+    """Launch the row pass ``i2t_bwd_rows`` (csrc/decoder_attn.cu) on one
+    persistent block per SM (``_blocks``); same contract as
+    ``i2t_bwd_rows_plain``. The kernel writes one partial of each per-lane
+    sum per slot (a warp pair); they are summed here in a fixed order. The
+    f32 kernel also reads Wq^T and Wo^T, made here."""
     bimg, m, c, bp, n_tok, internal = _check_args(
         keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, nh, pb)
     _kernel_widths(c, internal, nh)
     dt, f32 = keys.dtype, torch.float32
-    if dt != torch.bfloat16:
-        raise TypeError("i2t_bwd_rows takes bfloat16 (the f32 backward is "
-                        "the fused i2t_bwd kernel)")
     args = (keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, dy)
     kernels.check_operands("i2t_bwd_rows", args,
                            (dt,) * 5 + (f32, dt, f32, f32, f32, dt))
@@ -294,8 +304,7 @@ def i2t_bwd_rows_cuda(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, dy, *,
     lib = _bind()
     dev = keys.device
     with torch.cuda.device(dev):
-        tiles = bp * -(-m // 16)
-        blocks = min(kernels.sm_count(dev), -(-tiles // ROW_SLOTS))
+        blocks = _blocks(dev, dt, bp, m)
         nw = blocks * ROW_SLOTS
         rows = (bp, m)
         outs = tuple(torch.empty(rows + (w,), dtype=dt, device=dev)
@@ -303,24 +312,27 @@ def i2t_bwd_rows_cuda(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, dy, *,
                                internal, c))
         sums = tuple(torch.empty((nw, w), dtype=f32, device=dev)
                      for w in (internal, c, c, c))
-        err = lib.dhoct_i2t_bwd_rows(kernels.pointers(args + outs + sums), bp, m,
-                                     pb, n_tok, blocks, eps,
-                                     torch.cuda.current_stream(dev).cuda_stream)
+        wts = () if dt == torch.bfloat16 else (wq.t().contiguous(),
+                                                wo.t().contiguous())
+        err = lib.dhoct_i2t_bwd_rows(
+            kernels.pointers(args + outs + sums + wts), bp, m, pb, n_tok,
+            blocks, kernels.DTYPE_CODE[dt], eps,
+            torch.cuda.current_stream(dev).cuda_stream)
     kernels.raise_on_error(err, lib.dhoct_i2t_error_string, "i2t_bwd_rows")
     LAUNCHES["i2t_bwd"] += 1
     return outs + tuple(x.sum(0) for x in sums)
 
 
 def i2t_bwd_dw_cuda(keys, pe, dqpre, out_rows, dres_rows, *, pb: int):
-    """Launch the bf16 weight pass ``i2t_bwd_dw`` (csrc/decoder_attn.cu):
-    one block per (row chunk, weight), about one per SM; same contract as
-    ``i2t_bwd_dw_plain``. The per-chunk partials are summed here in a fixed
-    order."""
+    """Launch the weight pass ``i2t_bwd_dw`` (csrc/decoder_attn.cu): one
+    block per (row chunk, weight) in bf16, per (row chunk, weight, half of
+    C) in f32, about one per SM; same contract as ``i2t_bwd_dw_plain``. The
+    per-chunk partials are summed here in a fixed order."""
     bp, m, internal = dqpre.shape
     c = keys.shape[-1]
     dt = keys.dtype
     args = (keys, pe, dqpre, out_rows, dres_rows)
-    kernels.check_operands("i2t_bwd_dw", args, (torch.bfloat16,) * 5)
+    kernels.check_operands("i2t_bwd_dw", args, (dt,) * 5)
     if (keys.shape != (bp // pb, m, c) or pe.shape != (1, m, c)
             or out_rows.shape != (bp, m, internal)
             or dres_rows.shape != (bp, m, c)
@@ -331,12 +343,17 @@ def i2t_bwd_dw_cuda(keys, pe, dqpre, out_rows, dres_rows, *, pb: int):
     lib = _bind()
     dev = keys.device
     with torch.cuda.device(dev):
-        chunks = kernels.row_chunks(bp * m, max(1, kernels.sm_count(dev) // 2),
-                                    DW_ROWS)
+        per_chunk = 2 if dt == torch.bfloat16 else 4  # blocks of a chunk
+        chunks = kernels.row_chunks(
+            bp * m, max(1, kernels.sm_count(dev) // per_chunk), DW_ROWS)
         part = torch.empty((2, len(chunks), internal, c), dtype=torch.float32,
                            device=dev)
+        # the nominal chunk, a multiple of DW_ROWS (a lone chunk may be
+        # shorter: fewer than DW_ROWS rows in all)
+        size = -(-chunks[0][1] // DW_ROWS) * DW_ROWS
         err = lib.dhoct_i2t_bwd_dw(kernels.pointers(args + (part,)), bp, m, pb,
-                                   chunks[0][1], len(chunks),
+                                   size, len(chunks),
+                                   kernels.DTYPE_CODE[dt],
                                    torch.cuda.current_stream(dev).cuda_stream)
     kernels.raise_on_error(err, lib.dhoct_i2t_error_string, "i2t_bwd_dw")
     LAUNCHES["i2t_bwd_dw"] += 1
@@ -346,59 +363,13 @@ def i2t_bwd_dw_cuda(keys, pe, dqpre, out_rows, dres_rows, *, pb: int):
 
 def i2t_bwd_cuda(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, dy, *,
                  nh: int, pb: int, eps: float):
-    """The K4 backward on the card (csrc/decoder_attn.cu); same contract as
-    ``i2t_bwd_plain``. bf16: the row pass and the weight pass; f32: the
-    fused ``i2t_bwd`` kernel, which writes one partial sum of each weight
-    gradient per block, summed here in a fixed order."""
-    if keys.dtype == torch.bfloat16:
-        (dkeys, dqpre, p, ds, dout, out_rows, dres_rows, dbq, dbo, dg,
-         dbt) = i2t_bwd_rows_cuda(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g,
-                                  bt, dy, nh=nh, pb=pb, eps=eps)
-        dwq, dwo = i2t_bwd_dw_cuda(keys, pe, dqpre, out_rows, dres_rows,
-                                   pb=pb)
-        return dkeys, dqpre, p, ds, dout, dwq, dbq, dwo, dbo, dg, dbt
-    bimg, m, c, bp, n_tok, internal = _check_args(
-        keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, nh, pb)
-    _kernel_widths(c, internal, nh)
-    dt, f32 = keys.dtype, torch.float32
-    # the kernel reads both projections along both axes; the transposes
-    # keep every weight load coalesced
-    wqt, wot = wq.t().contiguous(), wo.t().contiguous()
-    args = (keys, pe, tok_k, tok_v, wq, wqt, bq, wo, wot, bo, g, bt, dy)
-    kernels.check_operands("i2t_bwd", args,
-                           (dt,) * 6 + (f32, dt, dt, f32, f32, f32, dt))
-    if dy.shape != (bp, m, c):
-        raise ValueError(f"dy must be {(bp, m, c)}, got {tuple(dy.shape)}")
-    lib = _bind()
-    dev = keys.device
-    with torch.cuda.device(dev):
-        tiles = -(-m // ROW_TILE)
-        sms = kernels.sm_count(dev)
-        want = max(1, min(tiles, -(-2 * sms // bp)))
-        splits = -(-tiles // -(-tiles // want))  # every block owns a tile
-        nblk = bp * splits
-        rows = (bp, m)
-        outs = (torch.empty(rows + (c,), dtype=dt, device=dev),
-                torch.empty(rows + (internal,), dtype=dt, device=dev),
-                torch.empty(rows + (nh * T_PAD,), dtype=dt, device=dev),
-                torch.empty(rows + (nh * T_PAD,), dtype=dt, device=dev),
-                torch.empty(rows + (internal,), dtype=dt, device=dev),
-                torch.empty((nblk, internal, c), dtype=f32, device=dev),
-                torch.empty((nblk, internal), dtype=f32, device=dev),
-                torch.empty((nblk, internal, c), dtype=f32, device=dev),
-                torch.empty((nblk, c), dtype=f32, device=dev),
-                torch.empty((nblk, c), dtype=f32, device=dev),
-                torch.empty((nblk, c), dtype=f32, device=dev))
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.dhoct_i2t_bwd(*(t.data_ptr() for t in args),
-                                *(t.data_ptr() for t in outs), bp, m, pb,
-                                n_tok, splits, kernels.DTYPE_CODE[dt], eps,
-                                stream)
-    kernels.raise_on_error(err, lib.dhoct_i2t_error_string, "i2t_bwd")
-    LAUNCHES["i2t_bwd"] += 1
-    dkeys, dqpre, p, ds, dout, dwqt, dbq, dwo, dbo, dg, dbt = outs
-    return (dkeys, dqpre, p, ds, dout, dwqt.sum(0).t(), dbq.sum(0),
-            dwo.sum(0), dbo.sum(0), dg.sum(0), dbt.sum(0))
+    """The K4 backward on the card (csrc/decoder_attn.cu): the row pass and
+    the weight pass; same contract as ``i2t_bwd_plain``."""
+    (dkeys, dqpre, p, ds, dout, out_rows, dres_rows, dbq, dbo, dg,
+     dbt) = i2t_bwd_rows_cuda(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt,
+                              dy, nh=nh, pb=pb, eps=eps)
+    dwq, dwo = i2t_bwd_dw_cuda(keys, pe, dqpre, out_rows, dres_rows, pb=pb)
+    return dkeys, dqpre, p, ds, dout, dwq, dbq, dwo, dbo, dg, dbt
 
 
 class _FusedI2T(torch.autograd.Function):

@@ -9,17 +9,22 @@ kernel, so each is a per-row product, and the (BP, 4G, 4G, C/8) second
 upscale never exists in device memory. On a CUDA tensor it launches the
 hand-written kernels of ``csrc/upscaler.cu``:
 
-  * ``upscale_fwd`` replacing the TPU ``_fused_fwd`` (``_fwd_kernel``): in
-    bf16 on the tensor cores (``upscale_fwd_mma_kernel``, one persistent
-    block per SM), in f32 a SIMT kernel (``upscale_fwd_kernel``);
+  * ``upscale_fwd`` replacing the TPU ``_fused_fwd`` (``_fwd_kernel``), one
+    persistent block per SM: in bf16 ``upscale_fwd_mma_kernel``, in f32
+    ``upscale_fwd_tf32_kernel`` (split TF32: hi.hi + hi.lo + lo.hi on the
+    TF32 tensor cores, f32 accuracy);
   * the backward replacing the TPU ``_fused_bwd`` (``_bwd_kernel``): it
     recomputes the chain per row and returns d_up together with the
     per-lane weight gradients summed over all rows and the per-pair
-    hypernetwork gradient. In bf16 it is two launches on the tensor cores:
-    ``upscale_bwd_rows`` (the row pass; it also writes u1g, rnd(d_u2pre)
-    and rnd(d_u1pre) per row as bf16 scratch) and ``upscale_bwd_dw`` (the
-    weight pass: dW1 and dW2 as split-K products over row chunks). In f32
-    it is one fused kernel (``upscale_bwd``).
+    hypernetwork gradient. It is two launches on the tensor cores, in bf16
+    and in f32 (split TF32): ``upscale_bwd_rows`` (the row pass; it also
+    writes u1g, rnd(d_u2pre) and rnd(d_u1pre) per row as scratch in the
+    input dtype) and ``upscale_bwd_dw`` (the weight pass: dW1 and dW2 as
+    split-K products over row chunks).
+
+The JAX package routes here only in bf16 unless
+``set_fused_upscaler('interpret')`` forces it (``models/sam.py``); the f32
+kernels serve that route.
 
 On a CPU tensor the same ``torch.autograd.Function`` runs
 ``upscale_fwd_plain`` / ``upscale_bwd_plain``, which compute exactly what
@@ -55,8 +60,8 @@ from .. import kernels
 LAUNCHES = {"upscale_fwd": 0, "upscale_bwd": 0, "upscale_bwd_dw": 0}
 CHANNELS = 256     # the only decoder width the CUDA kernels take (every SAM)
 MAX_OUT = 4        # mask tokens per pair the kernels take
-ROW_TILE = 32      # rows per tile of the f32 forward and backward (TM)
-ROW_SLOTS = 4      # tiles in flight per bf16 block, a warp pair each
+ROW_SLOTS = 4      # 16-row tiles in flight per block, a warp pair each
+F32_ROWS = 64      # rows of an f32 super-tile (dec32::ROWS)
 DW_ROWS = 32       # rows per stage of the weight pass (dec::DW_SR)
 
 _BOUND = False
@@ -215,13 +220,11 @@ def _bind():
         i = ctypes.c_int
         lib.dhoct_upscale_fwd.argtypes = [p] * 9 + [i] * 5 + [ctypes.c_float,
                                                             p]
-        lib.dhoct_upscale_bwd.argtypes = ([p] * 18 + [i] * 5
-                                          + [ctypes.c_float, p])
-        lib.dhoct_upscale_bwd_rows.argtypes = [p] + [i] * 4 + [
+        lib.dhoct_upscale_bwd_rows.argtypes = [p] + [i] * 5 + [
             ctypes.c_float, p]
-        lib.dhoct_upscale_bwd_dw.argtypes = [p] + [i] * 3 + [p]
-        for fn in (lib.dhoct_upscale_fwd, lib.dhoct_upscale_bwd,
-                   lib.dhoct_upscale_bwd_rows, lib.dhoct_upscale_bwd_dw):
+        lib.dhoct_upscale_bwd_dw.argtypes = [p] + [i] * 4 + [p]
+        for fn in (lib.dhoct_upscale_fwd, lib.dhoct_upscale_bwd_rows,
+                   lib.dhoct_upscale_bwd_dw):
             fn.restype = ctypes.c_int
         lib.dhoct_upscale_error_string.argtypes = [ctypes.c_int]
         lib.dhoct_upscale_error_string.restype = ctypes.c_char_p
@@ -245,20 +248,19 @@ def _kernel_shapes(up, w1, w2, hyper):
     return bp, m, c, n_out
 
 
-def _splits(bp: int, m: int) -> int:
-    """Blocks per pair of the f32 backward: enough to fill the card twice
-    over, at most one per row tile."""
-    tiles = -(-m // ROW_TILE)
-    sms = kernels.sm_count(torch.cuda.current_device())
-    want = max(1, min(tiles, -(-2 * sms // bp)))
-    per = -(-tiles // want)
-    return -(-tiles // per)  # so that every block owns at least one tile
+def _blocks(dev, dt, bp: int, m: int) -> int:
+    """Persistent blocks of a K3 row kernel: one per SM, at most one per
+    ROW_SLOTS 16-row tiles (bf16) or per 64-row super-tile (f32)."""
+    if dt == torch.bfloat16:
+        work = -(-bp * -(-m // 16) // ROW_SLOTS)
+    else:
+        work = bp * -(-m // F32_ROWS)
+    return min(kernels.sm_count(dev), work)
 
 
 def upscale_fwd_cuda(up, w1, b1, g, bt, w2, b2, hyper, eps: float = 1e-6):
     """Launch ``upscale_fwd`` (csrc/upscaler.cu); same contract as
-    ``upscale_fwd_plain``. bf16: one persistent block per SM (at most one
-    per ROW_SLOTS 16-row tiles)."""
+    ``upscale_fwd_plain``, on one persistent block per SM (``_blocks``)."""
     bp, m, c, n_out = _kernel_shapes(up, w1, w2, hyper)
     f32, dt = torch.float32, up.dtype
     args = (up, w1, b1, g, bt, w2, b2, hyper)
@@ -268,7 +270,7 @@ def upscale_fwd_cuda(up, w1, b1, g, bt, w2, b2, hyper, eps: float = 1e-6):
     dev = up.device
     out = torch.empty((bp, m, n_out * 16), dtype=f32, device=dev)
     with torch.cuda.device(dev):
-        blocks = min(kernels.sm_count(dev), -(-bp * -(-m // 16) // ROW_SLOTS))
+        blocks = _blocks(dev, dt, bp, m)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.dhoct_upscale_fwd(*(t.data_ptr() for t in args),
                                     out.data_ptr(), bp, m, n_out, blocks,
@@ -280,16 +282,14 @@ def upscale_fwd_cuda(up, w1, b1, g, bt, w2, b2, hyper, eps: float = 1e-6):
 
 def upscale_bwd_rows_cuda(up, dm, w1, b1, g, bt, w2, b2, hyper,
                           eps: float = 1e-6):
-    """Launch the bf16 row pass ``upscale_bwd_rows`` (csrc/upscaler.cu) on
-    one persistent block per SM; same contract as
+    """Launch the row pass ``upscale_bwd_rows`` (csrc/upscaler.cu) on one
+    persistent block per SM (``_blocks``); same contract as
     ``upscale_bwd_rows_plain``. The kernel writes one partial of each
     per-lane sum per slot (a warp pair) and of d_hyper per 16-row tile;
-    they are summed here in a fixed order."""
+    they are summed here in a fixed order. The f32 kernel also reads W1^T,
+    made here."""
     bp, m, c, n_out = _kernel_shapes(up, w1, w2, hyper)
     f32, dt = torch.float32, up.dtype
-    if dt != torch.bfloat16:
-        raise TypeError("upscale_bwd_rows takes bfloat16 (the f32 backward "
-                        "is the fused upscale_bwd kernel)")
     args = (up, dm, w1, b1, g, bt, w2, b2, hyper)
     kernels.check_operands("upscale_bwd_rows", args,
                            (dt, f32, dt, f32, f32, f32, dt, f32, dt))
@@ -300,15 +300,18 @@ def upscale_bwd_rows_cuda(up, dm, w1, b1, g, bt, w2, b2, hyper,
     dev = up.device
     with torch.cuda.device(dev):
         tpp = -(-m // 16)
-        blocks = min(kernels.sm_count(dev), -(-bp * tpp // ROW_SLOTS))
+        blocks = _blocks(dev, dt, bp, m)
         nw = blocks * ROW_SLOTS
         rows = tuple(torch.empty((bp, m, w), dtype=dt, device=dev)
                      for w in (c, c, 2 * c, c))  # d_up, u1g, d_u2pre, d_u1pre
         sums = tuple(torch.empty((nw, w), dtype=f32, device=dev)
                      for w in (c, c, c, 2 * c))  # db1, dg, dbt, db2
         dht = torch.empty((bp, tpp, n_out, 2 * c), dtype=f32, device=dev)
+        wts = () if dt == torch.bfloat16 else (w1.reshape(c, c).t()
+                                                .contiguous(),)
         err = lib.dhoct_upscale_bwd_rows(
-            kernels.pointers(args + rows + sums + (dht,)), bp, m, n_out, blocks, eps,
+            kernels.pointers(args + rows + sums + (dht,) + wts), bp, m, n_out,
+            blocks, kernels.DTYPE_CODE[dt], eps,
             torch.cuda.current_stream(dev).cuda_stream)
     kernels.raise_on_error(err, lib.dhoct_upscale_error_string,
                            "upscale_bwd_rows")
@@ -317,13 +320,15 @@ def upscale_bwd_rows_cuda(up, dm, w1, b1, g, bt, w2, b2, hyper,
 
 
 def upscale_bwd_dw_cuda(up, u1g_rows, d2_rows, du1_rows):
-    """Launch the bf16 weight pass ``upscale_bwd_dw`` (csrc/upscaler.cu):
-    one block per (row chunk, output tile), about one per SM; same contract
-    as ``upscale_bwd_dw_plain``. The per-chunk partials are summed here in
-    a fixed order."""
+    """Launch the weight pass ``upscale_bwd_dw`` (csrc/upscaler.cu): one
+    block per (row chunk, output tile) -- 3 tiles of the weight gradients
+    in bf16, 6 in f32 --, about one per SM; same contract as
+    ``upscale_bwd_dw_plain``. The per-chunk partials are summed here in a
+    fixed order."""
     bp, m, c = up.shape
+    dt = up.dtype
     args = (up, u1g_rows, d2_rows, du1_rows)
-    kernels.check_operands("upscale_bwd_dw", args, (torch.bfloat16,) * 4)
+    kernels.check_operands("upscale_bwd_dw", args, (dt,) * 4)
     if (c != CHANNELS or u1g_rows.shape != (bp, m, c)
             or d2_rows.shape != (bp, m, 2 * c)
             or du1_rows.shape != (bp, m, c)):
@@ -332,13 +337,17 @@ def upscale_bwd_dw_cuda(up, u1g_rows, d2_rows, du1_rows):
     lib = _bind()
     dev = up.device
     with torch.cuda.device(dev):
-        chunks = kernels.row_chunks(bp * m, max(1, kernels.sm_count(dev) // 3),
-                                    DW_ROWS)
+        per_chunk = 3 if dt == torch.bfloat16 else 6  # blocks of a chunk
+        chunks = kernels.row_chunks(
+            bp * m, max(1, kernels.sm_count(dev) // per_chunk), DW_ROWS)
         part = torch.empty((len(chunks), c * c + c * c // 2),
                            dtype=torch.float32, device=dev)
+        # the nominal chunk, a multiple of DW_ROWS (a lone chunk may be
+        # shorter: fewer than DW_ROWS rows in all)
+        size = -(-chunks[0][1] // DW_ROWS) * DW_ROWS
         err = lib.dhoct_upscale_bwd_dw(
-            kernels.pointers(args + (part,)), bp * m, chunks[0][1], len(chunks),
-            torch.cuda.current_stream(dev).cuda_stream)
+            kernels.pointers(args + (part,)), bp * m, size, len(chunks),
+            kernels.DTYPE_CODE[dt], torch.cuda.current_stream(dev).cuda_stream)
     kernels.raise_on_error(err, lib.dhoct_upscale_error_string,
                            "upscale_bwd_dw")
     LAUNCHES["upscale_bwd_dw"] += 1
@@ -348,50 +357,14 @@ def upscale_bwd_dw_cuda(up, u1g_rows, d2_rows, du1_rows):
 
 def upscale_bwd_cuda(up, dm, w1, b1, g, bt, w2, b2, hyper,
                      eps: float = 1e-6):
-    """The K3 backward on the card (csrc/upscaler.cu); same contract as
-    ``upscale_bwd_plain``. bf16: the row pass and the weight pass; f32: the
-    fused ``upscale_bwd`` kernel, which writes one partial sum of each
-    weight gradient per block, summed here in a fixed order (so the
-    gradients repeat bit for bit from run to run)."""
-    if up.dtype == torch.bfloat16:
-        (d_up, u1g_rows, d2_rows, du1_rows, db1, dg, dbt, db2,
-         dht) = upscale_bwd_rows_cuda(up, dm, w1, b1, g, bt, w2, b2, hyper,
-                                      eps=eps)
-        dw1, dw2 = upscale_bwd_dw_cuda(up, u1g_rows, d2_rows, du1_rows)
-        return d_up, dw1, dw2, db1, dg, dbt, db2, dht
-    bp, m, c, n_out = _kernel_shapes(up, w1, w2, hyper)
-    f32, dt = torch.float32, up.dtype
-    # the kernel reads W1 along both axes; W1^T keeps the d_up loads
-    # coalesced
-    w1t = w1.reshape(c, c).t().contiguous()
-    args = (up, dm, w1, w1t, b1, g, bt, w2, b2, hyper)
-    kernels.check_operands("upscale_bwd", args,
-                           (dt, f32, dt, dt, f32, f32, f32, dt, f32, dt))
-    if dm.shape != (bp, m, n_out * 16):
-        raise ValueError(f"dm must be {(bp, m, n_out * 16)}, got "
-                         f"{tuple(dm.shape)}")
-    lib = _bind()
-    dev = up.device
-    with torch.cuda.device(dev):
-        splits = _splits(bp, m)
-        nblk = bp * splits
-        d_up = torch.empty_like(up)
-        dw1 = torch.empty((nblk, c, c), dtype=f32, device=dev)
-        dw2 = torch.empty((nblk, 4, c // 4, c // 2), dtype=f32, device=dev)
-        db1, dg, dbt = (torch.empty((nblk, c), dtype=f32, device=dev)
-                        for _ in range(3))
-        db2 = torch.empty((nblk, 2 * c), dtype=f32, device=dev)
-        dht = torch.empty((bp, splits, n_out, 2 * c), dtype=f32, device=dev)
-        outs = (d_up, dw1, dw2, db1, dg, dbt, db2, dht)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.dhoct_upscale_bwd(*(t.data_ptr() for t in args),
-                                    *(t.data_ptr() for t in outs),
-                                    bp, m, n_out, splits,
-                                    kernels.DTYPE_CODE[dt], eps, stream)
-    kernels.raise_on_error(err, lib.dhoct_upscale_error_string, "upscale_bwd")
-    LAUNCHES["upscale_bwd"] += 1
-    return (d_up, dw1.sum(0), dw2.sum(0), db1.sum(0), dg.sum(0), dbt.sum(0),
-            db2.sum(0), dht.sum(1))
+    """The K3 backward on the card (csrc/upscaler.cu): the row pass and the
+    weight pass; same contract as ``upscale_bwd_plain`` (the gradients
+    repeat bit for bit from run to run: no atomics)."""
+    (d_up, u1g_rows, d2_rows, du1_rows, db1, dg, dbt, db2,
+     dht) = upscale_bwd_rows_cuda(up, dm, w1, b1, g, bt, w2, b2, hyper,
+                                  eps=eps)
+    dw1, dw2 = upscale_bwd_dw_cuda(up, u1g_rows, d2_rows, du1_rows)
+    return d_up, dw1, dw2, db1, dg, dbt, db2, dht
 
 
 def _fwd(*args, eps):

@@ -2,10 +2,10 @@
 card tensors: encoder attention K1 (global) and K2 (windowed) with their
 logsumexp rows, its backward K5, the any-head-dim forward K6, the
 image-layout windowed forward K7, the upscaler K3 and the image->token
-attention K4 (their bf16 forwards on the tensor cores; the bf16 backwards
-of both as their two launches, the row pass and the weight pass, each
-against its plain twin); and one request through a small engine on the
-card.
+attention K4 (their forwards on the tensor cores, bf16 and f32 in split
+TF32; the backwards of both as their two launches, the row pass and the
+weight pass, each against its plain twin); and one request through a small
+engine on the card.
 
 Needs an NVIDIA card and nvcc; skips without a card. This file imports
 neither JAX nor tests/conftest.py's fixtures, so where JAX is not installed
@@ -375,13 +375,19 @@ TF32_KERNELS = {"attention": ("attn_global_tf32_kernel",
                 "attention_bwd": ("attn_bwd_dq_tf32_kernel",
                                   "attn_bwd_dkv_tf32_kernel"),
                 "attention_relpos": ("attn_relpos_tf32_kernel",),
-                "attention_winimg": ("attn_winimg_tf32_kernel",)}
+                "attention_winimg": ("attn_winimg_tf32_kernel",),
+                "upscaler": ("upscale_fwd_tf32_kernel",
+                             "upscale_bwd_rows_tf32_kernel",
+                             "upscale_bwd_dw_tf32_kernel"),
+                "decoder_attn": ("i2t_fwd_tf32_kernel",
+                                 "i2t_bwd_rows_tf32_kernel",
+                                 "i2t_bwd_dw_tf32_kernel")}
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("lib", sorted(TF32_KERNELS))
 def test_f32_kernels_on_tf32_tensor_cores(cuda_device, lib):
-    """The f32 K1, K2, K5, K6 and K7 instances hold TF32 tensor-core
+    """The f32 K1, K2, K3, K4, K5, K6 and K7 kernels hold TF32 tensor-core
     instructions (HMMA.1688.F32.TF32) in their SASS and use no local memory
     (no spills, no stack), from ``cuobjdump`` on the built library."""
     import subprocess
@@ -575,12 +581,14 @@ def test_upscale_fwd_mma_on_card(cuda_device, bp, m, n_out):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("pb,n_tok,m", [(1, 7, 100), (8, 5, 37), (2, 8, 64)])
+@pytest.mark.parametrize("pb,n_tok,m", [(1, 7, 100), (8, 5, 37), (2, 8, 64),
+                                        (1, 1, 5)])
 def test_i2t_bwd_mma_passes_on_card(cuda_device, pb, n_tok, m):
     """The bf16 K4 backward's row pass (``i2t_bwd_rows``) against its plain
     twin, and its weight pass (``i2t_bwd_dw``) against its twin on the
     same scratch rows (products exact, f32 summation order: 1e-4 of max
-    |dW|), on a ragged m; both the same bits on a second call."""
+    |dW|), on a ragged m (m = 5: fewer rows than one weight-pass stage);
+    both the same bits on a second call."""
     from dilabhelmholtzoct_tpu_torch.ops import decoder_attn as i2t
 
     gen = torch.Generator(device=cuda_device).manual_seed(3)
@@ -616,7 +624,8 @@ def test_i2t_bwd_mma_passes_on_card(cuda_device, pb, n_tok, m):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("bp,m,n_out", [(3, 100, 1), (2, 37, 4), (5, 64, 3)])
+@pytest.mark.parametrize("bp,m,n_out", [(3, 100, 1), (2, 37, 4), (5, 64, 3),
+                                        (2, 5, 1)])
 def test_upscale_bwd_mma_passes_on_card(cuda_device, bp, m, n_out):
     """The bf16 K3 backward's row pass (``upscale_bwd_rows``) against its
     plain twin, and its weight pass (``upscale_bwd_dw``) against its twin
@@ -667,3 +676,89 @@ def test_k3_k4_refuse_other_widths(cuda_device):
         i2t.i2t_fwd_cuda(z(1, 4, 256), z(1, 4, 256), z(1, 7, 128),
                          z(1, 7, 128), z(256, 128), z(128), z(128, 256),
                          z(256), z(256), z(256), nh=4, pb=1, eps=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pb,n_tok,m", [(1, 7, 100), (8, 5, 37), (8, 7, 64),
+                                        (2, 8, 130), (1, 1, 5)])
+def test_i2t_tf32_launches_on_card(cuda_device, pb, n_tok, m):
+    """The f32 K4 in split TF32: the forward (``i2t_fwd_tf32_kernel``), the
+    row pass and the weight pass each against its plain twin (K34_TOL: 1e-4
+    of max |plain|; the weight pass on the row pass's own scratch rows), on
+    ragged m and with the pb = 8 shared first layer; the same bits on a
+    second call; m = 5 leaves three of a super-tile's four slots empty."""
+    from dilabhelmholtzoct_tpu_torch.ops import decoder_attn as i2t
+
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    f32, b = torch.float32, 2
+    r = lambda *s, k=0.2: torch.randn(s, generator=gen,
+                                      device=cuda_device) * k
+    args = (r(b, m, 256, k=1.0), r(1, m, 256, k=1.0),
+            r(b * pb, n_tok, 128, k=1.0), r(b * pb, n_tok, 128, k=1.0),
+            r(256, 128), r(128), r(128, 256), r(256), 1 + r(256, k=0.1),
+            r(256))
+    dy = r(b * pb, m, 256, k=1.0)
+    kw = dict(nh=8, pb=pb, eps=1e-6)
+    before = dict(i2t.LAUNCHES)
+    y = i2t.i2t_fwd_cuda(*args, **kw)
+    rows = i2t.i2t_bwd_rows_cuda(*args, dy, **kw)
+    scratch = (args[0], args[1], rows[1], rows[5], rows[6])
+    dw = i2t.i2t_bwd_dw_cuda(*scratch, pb=pb)
+    torch.cuda.synchronize()
+    assert {k: i2t.LAUNCHES[k] - before[k] for k in before} == {
+        "i2t_fwd": 1, "i2t_bwd": 1, "i2t_bwd_dw": 1}
+    _rel_close(y, i2t.i2t_fwd_plain(*args, **kw), K34_TOL[f32], "y")
+    names = ("d_keys", "d_qpre", "p", "d_score", "d_out", "out_rows",
+             "dres_rows", "dbq", "dbo", "dg", "dbt")
+    for name, a, w in zip(names, rows,
+                          i2t.i2t_bwd_rows_plain(*args, dy, **kw)):
+        assert a.shape == w.shape and a.dtype == w.dtype == f32, name
+        _rel_close(a, w, K34_TOL[f32], name)
+    for name, a, w in zip(("dWq", "dWo"), dw,
+                          i2t.i2t_bwd_dw_plain(*scratch, pb=pb)):
+        assert a.shape == w.shape and a.dtype == w.dtype, name
+        _rel_close(a, w, K34_TOL[f32], name)
+    assert torch.equal(y, i2t.i2t_fwd_cuda(*args, **kw))
+    assert _same_bits(rows, i2t.i2t_bwd_rows_cuda(*args, dy, **kw))
+    assert _same_bits(dw, i2t.i2t_bwd_dw_cuda(*scratch, pb=pb))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bp,m,n_out", [(3, 100, 1), (2, 37, 4), (5, 64, 3),
+                                        (2, 130, 2), (2, 5, 1)])
+def test_upscale_tf32_launches_on_card(cuda_device, bp, m, n_out):
+    """The f32 K3 in split TF32: the forward (``upscale_fwd_tf32_kernel``),
+    the row pass and the weight pass each against its plain twin (1e-4 of
+    max |plain|; the weight pass on the row pass's own scratch rows), on
+    ragged m and 1-4 mask tokens; the same bits on a second call."""
+    from dilabhelmholtzoct_tpu_torch.ops import upscaler as up_op
+
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    f32 = torch.float32
+    r = lambda *s, k=0.3: torch.randn(s, generator=gen,
+                                      device=cuda_device) * k
+    args = (r(bp, m, 256, k=1.0), r(256, 2, 2, 64), r(64), 1 + r(64, k=0.1),
+            r(64), r(64, 2, 2, 32), r(32), r(bp, n_out, 32, k=1.0))
+    dm = r(bp, m, n_out * 16, k=1.0)
+    bw = (args[0], dm) + args[1:]
+    before = dict(up_op.LAUNCHES)
+    out = up_op.upscale_fwd_cuda(*args)
+    rows = up_op.upscale_bwd_rows_cuda(*bw)
+    scratch = (args[0],) + rows[1:4]
+    dw = up_op.upscale_bwd_dw_cuda(*scratch)
+    torch.cuda.synchronize()
+    assert {k: up_op.LAUNCHES[k] - before[k] for k in before} == {
+        "upscale_fwd": 1, "upscale_bwd": 1, "upscale_bwd_dw": 1}
+    _rel_close(out, up_op.upscale_fwd_plain(*args), K34_TOL[f32], "masks")
+    names = ("d_up", "u1g_rows", "d2_rows", "du1_rows", "db1", "dg", "dbt",
+             "db2", "d_hyper")
+    for name, a, w in zip(names, rows, up_op.upscale_bwd_rows_plain(*bw)):
+        assert a.shape == w.shape and a.dtype == w.dtype == f32, name
+        _rel_close(a, w, K34_TOL[f32], name)
+    for name, a, w in zip(("dW1", "dW2"), dw,
+                          up_op.upscale_bwd_dw_plain(*scratch)):
+        assert a.shape == w.shape and a.dtype == w.dtype, name
+        _rel_close(a, w, K34_TOL[f32], name)
+    assert torch.equal(out, up_op.upscale_fwd_cuda(*args))
+    assert _same_bits(rows, up_op.upscale_bwd_rows_cuda(*bw))
+    assert _same_bits(dw, up_op.upscale_bwd_dw_cuda(*scratch))

@@ -27,7 +27,10 @@ import numpy as np
 import pytest
 import torch
 
+from dilabhelmholtzoct_tpu_torch import kernels
 from dilabhelmholtzoct_tpu_torch.ops import attention as port_attn
+from dilabhelmholtzoct_tpu_torch.ops import decoder_attn as port_i2t
+from dilabhelmholtzoct_tpu_torch.ops import upscaler as port_up
 
 SPLIT_TOL = 1e-5  # of max |plain|, per output
 GAIN_MIN = 10.0   # single-TF32 error / split-TF32 error, per output
@@ -263,3 +266,209 @@ def test_split_tf32_flash_forward_error(b, nh, d, hw):
     split_err = _errors(run(mm_split), want)
     single_err = _errors(run(mm_single), want)
     _assert_split_beats_single(split_err, single_err, names)
+
+
+# --------------------------------------------------- the decoder: K3, K4 ----
+# The f32 K3 / K4 kernels (csrc/decoder_tf32.cuh) at their widths, against
+# the f32 plain twins: every output within chip_smoke.py's K34_TOL['f32'],
+# 1e-4 of max |plain| (the kernels' own limit), and split TF32 at least
+# GAIN_MIN times closer than single TF32 over the outputs. Elementwise steps
+# (softmax, LayerNorm, GELU and their backwards, the hypernetwork terms of
+# the backward) are exact f32 in the kernels and here.
+K34_F32 = 1e-4
+
+
+def _assert_k34(split_err, single_err, names):
+    for name, e in zip(names, split_err):
+        assert e <= K34_F32, (
+            f"{name}: split TF32 max |emulated - plain| / max |plain| = "
+            f"{e:.3g} > {K34_F32}")
+    assert max(single_err) >= GAIN_MIN * max(split_err), (
+        f"single TF32 {max(single_err):.3g} is not {GAIN_MIN}x the split "
+        f"error {max(split_err):.3g}")
+
+
+def _f32(rng, *shape, k=1.0):
+    return torch.tensor(rng.normal(size=shape) * k, dtype=torch.float32)
+
+
+def _layer_norm(x, eps):
+    xc = x - x.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps)
+    return xc * rstd, rstd
+
+
+def _ln_backward(d_y, yn, rstd):
+    return rstd * (d_y - d_y.mean(-1, keepdim=True)
+                   - yn * (d_y * yn).mean(-1, keepdim=True))
+
+
+def emulated_k4(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, dy, *, pb,
+                mm, eps=1e-6):
+    """The f32 K4 kernels' arithmetic: the q and out projections, each
+    head's scores and p . v, and in the backward d_out = d_res . Wo^T,
+    d_p = d_out . v^T, d_score . k and d_qpre . Wq^T through ``mm``.
+    Returns (y, the row pass's per-row outputs and per-column sums)."""
+    nh, hd = 8, 16
+    bp, n_tok, internal = tok_k.shape
+    m = keys.shape[1]
+    heads = lambda x, n: x.reshape(bp, n, nh, hd).transpose(1, 2)
+    q = (mm(keys + pe, wq) + bq) * 0.25
+    keys_p = keys
+    if pb > 1:
+        q, keys_p = q.repeat_interleave(pb, 0), keys.repeat_interleave(pb, 0)
+    q4, k4, v4 = heads(q, m), heads(tok_k, n_tok), heads(tok_v, n_tok)
+    p = torch.softmax(mm(q4, k4.transpose(-1, -2)), -1)  # (bp, nh, m, t)
+    out = mm(p, v4).transpose(1, 2).reshape(bp, m, internal)
+    yn, rstd = _layer_norm(keys_p + (mm(out, wo) + bo), eps)
+    dres = _ln_backward(dy * g, yn, rstd)
+    dout = mm(dres, wo.T)
+    dp = mm(heads(dout, m), v4.transpose(-1, -2))
+    ds = p * dp - p * (p * dp).sum(-1, keepdim=True)
+    dq = (mm(ds, k4) * 0.25).transpose(1, 2).reshape(bp, m, internal)
+    dkeys = dres + mm(dq, wq.T)
+    pad = lambda x: port_i2t._pad_tokens(x.transpose(1, 2), bp, m, nh)
+    rows = (dkeys, dq, pad(p), pad(ds), dout, out, dres)
+    sums = (dq.sum((0, 1)), dres.sum((0, 1)), (dy * yn).sum((0, 1)),
+            dy.sum((0, 1)))
+    return yn * g + bt, rows + sums
+
+
+def emulated_k3(up, w1, b1, g, bt, w2, b2, hyper, dm, *, mm, eps=1e-6):
+    """The f32 K3 kernels' arithmetic: the two upscales, the hypernetwork
+    sum over c2 (split TF32 against hyper^T), and in the backward d_u1g =
+    d_u2pre . W2^T and d_up = d_u1pre . W1^T through ``mm``; the GELU in
+    its erf form. Returns (masks, the row pass's outputs and sums)."""
+    bp, m, c = up.shape
+    c1, c2 = w1.shape[-1], w2.shape[-1]
+    n_out = hyper.shape[1]
+    gelu = lambda x: torch.nn.functional.gelu(x)
+    grad = lambda x: port_up._gelu_grad(x, False)
+    u1pre = mm(up, w1.reshape(c, 4 * c1)).reshape(bp, m, 4, c1) + b1
+    y, rstd = _layer_norm(u1pre, eps)
+    out1 = y * g + bt
+    u1g = gelu(out1)
+    u2pre = mm(u1g, w2.reshape(c1, 4 * c2)) + b2.repeat(4)  # (bp, m, 4, 4 c2)
+    u2g = gelu(u2pre)
+    masks = mm(u2g.reshape(bp, m * 16, c2), hyper.transpose(1, 2))
+    masks = masks.reshape(bp, m, 16, n_out).transpose(2, 3).reshape(bp, m, -1)
+    dm5 = dm.reshape(bp, m, n_out, 4, 4)
+    d_u2g = torch.einsum("bmtpq,btc->bmpqc", dm5, hyper).reshape(bp, m, 4, -1)
+    d_ht = torch.einsum("bmtpq,bmpqc->btpqc", dm5,
+                        u2g.reshape(bp, m, 4, 4, c2)).reshape(bp, n_out, -1)
+    d_u2pre = d_u2g * grad(u2pre)
+    d_out1 = mm(d_u2pre, w2.reshape(c1, 4 * c2).T) * grad(out1)
+    d_u1pre = _ln_backward(d_out1 * g, y, rstd).reshape(bp, m, 4 * c1)
+    d_up = mm(d_u1pre, w1.reshape(c, 4 * c1).T)
+    rows = (d_up, u1g.reshape(bp, m, -1), d_u2pre.reshape(bp, m, -1),
+            d_u1pre)
+    sums = (d_u1pre.sum((0, 1)), (d_out1 * y).sum((0, 1)).reshape(-1),
+            d_out1.sum((0, 1)).reshape(-1), d_u2pre.sum((0, 1)).reshape(-1),
+            d_ht)
+    return masks, rows + sums
+
+
+def _k4_case(rng, bimg, pb, n_tok, m):
+    bp = bimg * pb
+    args = (_f32(rng, bimg, m, 256), _f32(rng, 1, m, 256),
+            _f32(rng, bp, n_tok, 128), _f32(rng, bp, n_tok, 128),
+            _f32(rng, 256, 128, k=0.06), _f32(rng, 128, k=0.1),
+            _f32(rng, 128, 256, k=0.09), _f32(rng, 256, k=0.1),
+            1 + _f32(rng, 256, k=0.1), _f32(rng, 256, k=0.1))
+    return args, _f32(rng, bp, m, 256)
+
+
+def _k3_case(rng, bp, m, n_out):
+    args = (_f32(rng, bp, m, 256), _f32(rng, 256, 2, 2, 64, k=0.06),
+            _f32(rng, 64, k=0.1), 1 + _f32(rng, 64, k=0.1),
+            _f32(rng, 64, k=0.1), _f32(rng, 64, 2, 2, 32, k=0.12),
+            _f32(rng, 32, k=0.1), _f32(rng, bp, n_out, 32))
+    return args, _f32(rng, bp, m, n_out * 16)
+
+
+@pytest.mark.parametrize("pb,n_tok", [(1, 7), (3, 5)], ids=["pb1", "pb3"])
+def test_split_tf32_k4_chain_error(pb, n_tok):
+    """K4's forward (y) and row pass (d_keys, d_qpre, p, d_score, d_out, the
+    rnd(out) and d_res rows, dbq, dbo, dg, dbt) in split TF32 against
+    ``i2t_fwd_plain`` / ``i2t_bwd_rows_plain``, on a ragged 37 rows."""
+    args, dy = _k4_case(np.random.default_rng(11), 2, pb, n_tok, 37)
+    kw = dict(nh=8, pb=pb, eps=1e-6)
+    want = (port_i2t.i2t_fwd_plain(*args, **kw),
+            *port_i2t.i2t_bwd_rows_plain(*args, dy, **kw))
+    run = lambda mm: (lambda r: (r[0], *r[1]))(
+        emulated_k4(*args, dy, pb=pb, mm=mm))
+    names = ("y", "d_keys", "d_qpre", "p", "d_score", "d_out", "out_rows",
+             "dres_rows", "dbq", "dbo", "dg", "dbt")
+    _assert_k34(_errors(run(mm_split), want), _errors(run(mm_single), want),
+                names)
+
+
+@pytest.mark.parametrize("n_out", [1, 3])
+def test_split_tf32_k3_chain_error(n_out):
+    """K3's forward (masks) and row pass (d_up, u1g, d_u2pre, d_u1pre rows,
+    db1, dg, dbt, db2, d_hyper) in split TF32 against
+    ``upscale_fwd_plain`` / ``upscale_bwd_rows_plain``, on a ragged 37
+    rows."""
+    args, dm = _k3_case(np.random.default_rng(12), 3, 37, n_out)
+    want = (port_up.upscale_fwd_plain(*args),
+            *port_up.upscale_bwd_rows_plain(args[0], dm, *args[1:]))
+    run = lambda mm: (lambda r: (r[0], *r[1]))(
+        emulated_k3(*args, dm, mm=mm))
+    names = ("masks", "d_up", "u1g", "d_u2pre", "d_u1pre", "db1", "dg", "dbt",
+             "db2", "d_hyper")
+    _assert_k34(_errors(run(mm_split), want), _errors(run(mm_single), want),
+                names)
+
+
+def emulated_dw(x, y, parts, mm):
+    """A weight pass's split-K sum x^T . y over rows: the row chunks of
+    ``kernels.row_chunks``, each summed stage by stage (32 rows into fresh
+    accumulators, added in f32, as ``dw_stage_tf32``), the chunks' partials
+    added in order."""
+    total = 0.0
+    for lo, hi in kernels.row_chunks(x.shape[0], parts, port_i2t.DW_ROWS):
+        acc = 0.0
+        for s in range(lo, hi, port_i2t.DW_ROWS):
+            e = min(hi, s + port_i2t.DW_ROWS)
+            acc = acc + mm(x[s:e].T, y[s:e])
+        total = total + acc
+    return total
+
+
+@pytest.mark.parametrize("op,parts", [("k4", 1), ("k4", 3), ("k3", 1),
+                                      ("k3", 3)])
+def test_split_tf32_weight_pass_error(op, parts):
+    """The weight passes (K4: dWq, dWo; K3: dW1, dW2) as split-K sums over
+    the kernels' row chunks in split TF32, on the row pass's own scratch
+    rows, against ``i2t_bwd_dw_plain`` / ``upscale_bwd_dw_plain`` (one
+    product over all rows): 2 x 37 and 3 x 37 rows, in 1 or 3 chunks."""
+    rng = np.random.default_rng(13)
+    if op == "k4":
+        pb = 2
+        args, dy = _k4_case(rng, 1, pb, 7, 37)
+        rows = port_i2t.i2t_bwd_rows_plain(*args, dy, nh=8, pb=pb, eps=1e-6)
+        keys, pe = args[:2]
+        dqpre, out_rows, dres = rows[1], rows[5], rows[6]
+        want = port_i2t.i2t_bwd_dw_plain(keys, pe, dqpre, out_rows, dres,
+                                         pb=pb)
+        qin = (keys + pe).repeat_interleave(pb, 0).reshape(-1, 256)
+        flat = lambda t: t.reshape(-1, t.shape[-1])
+
+        def run(mm):
+            return (emulated_dw(flat(dqpre), qin, parts, mm).T,
+                    emulated_dw(flat(out_rows), flat(dres), parts, mm))
+    else:
+        args, dm = _k3_case(rng, 3, 37, 2)
+        rows = port_up.upscale_bwd_rows_plain(args[0], dm, *args[1:])
+        up, u1g, d2, du1 = (args[0],) + rows[1:4]
+        want = port_up.upscale_bwd_dw_plain(up, u1g, d2, du1)
+        n = up.shape[0] * up.shape[1]
+        x2, y2 = u1g.reshape(n, 4, -1), d2.reshape(n, 4, -1)
+
+        def run(mm):
+            return (emulated_dw(up.reshape(n, -1), du1.reshape(n, -1), parts,
+                                mm),
+                    torch.stack([emulated_dw(x2[:, de], y2[:, de], parts, mm)
+                                 for de in range(4)]))
+    _assert_k34(_errors(run(mm_split), want), _errors(run(mm_single), want),
+                ("dW_a", "dW_b"))
