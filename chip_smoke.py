@@ -61,6 +61,21 @@ prints no result line):
    falling loss; the same 8 steps under 'auto' (the unfused chain, no
    K3 / K4), both median steps printed; the first-step losses of the two
    routes within ``F32_STEP_LOSS_RTOL``. Both switches end at 'auto'.
+6c. Decoder fine-tuning with the topological loss (``topological=True``,
+   bf16, ViT-B, cached embeddings of 8 images x bucket 8 = 64 pairs, interp
+   50, lambda 0.1, H1): T1 (``cubical_pairs``) and T2
+   (``wasserstein_match``, ``csrc/topology.cu``) on the step's own grids
+   and on 64 pred and 64 true grids of 50x50 sigmoid noise (hundreds of
+   bars on both sides of each matching), against their plain twins
+   (``ops/topology_ref.py``) and the host library (``ops/native.py``):
+   bars exactly equal, matching cost within ``TOPO_COST_RTOL`` of the twin
+   and equal to the host's, the same bits on a second run; each timed beside
+   the twin and the host library. Then 8 steps of each mode from the same
+   weights: ``topo_device`` (K3 x1, K4 x2, T1 x1, T2 x1 per step), host
+   sync and host pipelined (with ``flush``), and without the term; falling
+   losses, the median step of each; the device and sync first-step losses
+   within ``TOPO_LOSS_RTOL``, the pipelined first step equal to the sync
+   one; one device-mode step on the card against the CPU.
 7. The card against the CPU: the same first step on 1 image x bucket 8 on
    both — the loss and the signs of the decoder updates.
 8. The epoch loop: ``training(config, splits=...)`` for 2 epochs, then
@@ -148,7 +163,9 @@ counted on the f32 full fine-tune run; K6 from the ViT-H global layer
 their launches (one kernel, one count) counted on the ViT-H serving run,
 and in bf16 (``attn_relpos_bf16``, ``attn_relpos_windowed_bf16``), counted
 on the ViT-H bf16 precompute and steps; K7 at ViT-B in f32, its
-launches counted on the ``set_fused_windowed('on')`` encode); the last line
+launches counted on the ``set_fused_windowed('on')`` encode; T1 / T2 on the
+topological step's grids, their launches counted on its device mode's 8
+steps, with the host library's time beside them); the last line
 is ``{"ok": true, "device": {...}}``.
 """
 
@@ -213,10 +230,10 @@ def kernel_tol(ref):
     return BF16_ULPS * 2.0 ** -8 * ref.float().abs().max().item()
 
 
-def cuda_ms(fn, iters):
+def cuda_ms(fn, iters, warmup=3):
     import torch
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -785,17 +802,20 @@ def _device_batch(torch, batch, dev, emb=None):
 def _counts():
     from dilabhelmholtzoct_tpu_torch.ops import attention as attn
     from dilabhelmholtzoct_tpu_torch.ops import decoder_attn as i2t
+    from dilabhelmholtzoct_tpu_torch.ops import topology_device as topo
     from dilabhelmholtzoct_tpu_torch.ops import upscaler as up_op
 
-    return {**attn.LAUNCHES, **up_op.LAUNCHES, **i2t.LAUNCHES}
+    return {**attn.LAUNCHES, **up_op.LAUNCHES, **i2t.LAUNCHES,
+            **topo.LAUNCHES}
 
 
 def _reset_counts():
     from dilabhelmholtzoct_tpu_torch.ops import attention as attn
     from dilabhelmholtzoct_tpu_torch.ops import decoder_attn as i2t
+    from dilabhelmholtzoct_tpu_torch.ops import topology_device as topo
     from dilabhelmholtzoct_tpu_torch.ops import upscaler as up_op
 
-    for mod in (attn, up_op, i2t):
+    for mod in (attn, up_op, i2t, topo):
         mod.reset_launch_counts()
 
 
@@ -806,7 +826,8 @@ def _delta(after, before):
 STEP_LAUNCHES = {"attn_global": 0, "attn_windowed": 0, "attn_bwd_dq": 0,
                  "attn_bwd_dkv": 0, "attn_relpos": 0, "attn_windowed_image": 0,
                  "upscale_fwd": 1, "upscale_bwd": 1, "upscale_bwd_dw": 1,
-                 "i2t_fwd": 2, "i2t_bwd": 2, "i2t_bwd_dw": 2}
+                 "i2t_fwd": 2, "i2t_bwd": 2, "i2t_bwd_dw": 2,
+                 "cubical_pairs": 0, "wasserstein_match": 0}
 
 
 def training_phase(torch):
@@ -996,6 +1017,302 @@ def decoder_f32_fused_phase(torch):
                               for k, v in fused.items()},
           f"fused launches {out['fused'][2]}")
     return out["fused"][2]
+
+
+TOPO_STEPS = 8  # steps of each mode in the topological phase
+# device mode against host sync mode, first step: one algorithm gives the
+# same pairing and matching, so only f32 sums of the loss may differ
+TOPO_LOSS_RTOL = 2e-5
+# T2 against its plain twin: each row's matching cost (scipy may pick
+# another matching of equal cost; the f32 cost entries are the same)
+TOPO_COST_RTOL = 1e-6
+TOPO_STEP_LAUNCHES = {**STEP_LAUNCHES, "cubical_pairs": 1,
+                      "wasserstein_match": 1}
+
+
+def _match_cost(torch, flat, pb, pd, matched, target, const_term, q=2.0):
+    """Each row's matching cost (what the loss takes the q-th root of), in
+    f64 on the host."""
+    flat, pb, pd = flat.double().cpu(), pb.long().cpu(), pd.long().cpu()
+    valid = pb >= 0
+    b = flat.gather(1, pb.clamp(min=0))
+    d = flat.gather(1, pd.clamp(min=0))
+    t = target.double().cpu()
+    c_match = torch.maximum((b - t[..., 0]).abs(), (d - t[..., 1]).abs()) ** q
+    c_diag = ((d - b).abs() / 2) ** q
+    cost = torch.where(matched.cpu().bool() & valid, c_match,
+                       torch.where(valid, c_diag, 0.0))
+    return cost.sum(1) + const_term.double().cpu()
+
+
+def _host_ms(fn, reps=5):
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def topo_kernel_checks(torch, sp, st, label, t2_runs=10, t2_warmup=3):
+    """T1 and T2 on (N, h, w) pred grids ``sp`` and true grids ``st`` on the
+    card, as ``device_pairing`` launches them (T1 once over both, T2 once):
+    T1's bars (indices, order and counts) exactly equal to its plain twin's
+    and to the host library's, T2's matching cost per row within
+    ``TOPO_COST_RTOL`` of its twin's and equal to the host library's
+    matching, both the same bits on a second run; each timed with CUDA
+    events beside the twin and the host library on the same batch (T2 over
+    ``t2_runs`` launches after ``t2_warmup``). Returns the result line's
+    rows."""
+    from dilabhelmholtzoct_tpu_torch.ops import native
+    from dilabhelmholtzoct_tpu_torch.ops import topology_device as ptd
+
+    n, h, w = sp.shape
+    k = 512
+    grids = torch.cat([sp, st]).float().contiguous()
+    before = ptd.LAUNCHES["cubical_pairs"]
+    b, d, c = ptd.cubical_pairs_cuda(grids, 1, k)
+    torch.cuda.synchronize()
+    check(ptd.LAUNCHES["cubical_pairs"] == before + 1, "T1 did not launch")
+    again = ptd.cubical_pairs_cuda(grids, 1, k)
+    check(all(torch.equal(x, y) for x, y in zip((b, d, c), again)),
+          f"T1 on {label}: a second run gave other bits")
+    g_host = grids.cpu()
+    t0 = time.perf_counter()
+    twin = ptd.cubical_pairs_plain(g_host, 1, k)
+    t1_plain = 1e3 * (time.perf_counter() - t0)
+    check(all(torch.equal(x.cpu(), y) for x, y in zip((b, d, c), twin)),
+          f"T1 on {label}: bars differ from the plain twin's")
+    g_np = g_host.numpy()
+    host = native.cubical_pairs_batch(g_np, k)
+    check(np.array_equal(host["h1_birth"], b.cpu().numpy())
+          and np.array_equal(host["h1_death"], d.cpu().numpy())
+          and np.array_equal(host["counts"][:, 1], c.cpu().numpy()),
+          f"T1 on {label}: bars differ from the host library's")
+    t1_host = _host_ms(lambda: native.cubical_pairs_batch(g_np, k))
+
+    t_flat = st.reshape(n, -1).float()
+    tb = t_flat.gather(1, b[n:].clamp(min=0).long())
+    td = t_flat.gather(1, d[n:].clamp(min=0).long())
+    true_bars = torch.stack([tb, td], -1).contiguous()
+    flat = sp.reshape(n, -1).float().contiguous()
+    args = (flat, b[:n], d[:n], c[:n], true_bars, c[n:].clone())
+    before = ptd.LAUNCHES["wasserstein_match"]
+    m, tg, ct = ptd.wasserstein_match_cuda(*args, 2.0)
+    torch.cuda.synchronize()
+    check(ptd.LAUNCHES["wasserstein_match"] == before + 1,
+          "T2 did not launch")
+    again = ptd.wasserstein_match_cuda(*args, 2.0)
+    check(all(torch.equal(x, y) for x, y in zip((m, tg, ct), again)),
+          f"T2 on {label}: a second run gave other bits")
+    args_h = tuple(a.cpu() for a in args)
+    t0 = time.perf_counter()
+    tw = ptd.wasserstein_match_plain(*args_h, 2.0)
+    t2_plain = 1e3 * (time.perf_counter() - t0)
+    cost = _match_cost(torch, flat, b[:n], d[:n], m, tg, ct)
+    cost_twin = _match_cost(torch, flat, b[:n], d[:n], *tw)
+    rel = float(((cost - cost_twin).abs()
+                 / cost_twin.abs().clamp(min=1e-30)).max())
+    check(rel <= TOPO_COST_RTOL, f"T2 on {label}: matching cost differs from "
+                                 f"the twin's by {rel:.3g} (rtol "
+                                 f"{TOPO_COST_RTOL})")
+    nt = c[n:].cpu().numpy()
+    diagrams = [true_bars[i, :nt[i]].cpu().numpy() for i in range(n)]
+    host_in = (flat.cpu().numpy(), b[:n].cpu().numpy(), d[:n].cpu().numpy(),
+               c[:n].cpu().numpy(), diagrams, 2.0, k)
+    hm = native.wasserstein_match_batch(*host_in)
+    check(all(np.array_equal(x.cpu().numpy(), y)
+              for x, y in zip((m, tg, ct), hm)),
+          f"T2 on {label}: the matching differs from the host library's")
+    t2_host = _host_ms(lambda: native.wasserstein_match_batch(*host_in))
+
+    t1_ms = cuda_ms(lambda: ptd.cubical_pairs_cuda(grids, 1, k), 10)
+    t2_ms = cuda_ms(lambda: ptd.wasserstein_match_cuda(*args, 2.0), t2_runs,
+                    t2_warmup)
+    # bytes: each input read once, each output written once. T1 reads every
+    # grid and writes its fixed-shape bars. T2 needs, of its padded inputs,
+    # only this run's bars: each pred bar's two indices and two pixel values,
+    # each true bar's two values, and the counts; it writes its fixed-shape
+    # outputs. Its operations: each pred / true pair's cost once (two
+    # differences, their larger, its square, less the diagonal cost: 5
+    # f32 operations), the least an optimal matching must look at.
+    t1_bytes = 4 * grids.numel() + 4 * (2 * 2 * n * k + 2 * n)
+    pc, tc = c[:n].long().cpu(), c[n:].long().cpu()
+    t2_bytes = 16 * int(pc.sum()) + 8 * int(tc.sum()) + 4 * 2 * n \
+        + n * k + 4 * (2 * n * k + n)
+    t2_ops = 5 * int((pc * tc).sum())
+    bounds = {"cubical_pairs": _bound(0, t1_bytes, PEAK_F32_FLOPS),
+              "wasserstein_match": _bound(t2_ops, t2_bytes, PEAK_F32_FLOPS)}
+    bars = c.cpu().numpy()
+    print(f"topology kernels on {label} ({n} pred + {n} true grids of {h}x"
+          f"{w}, H1; pred bars per grid {int(bars[:n].min())}-"
+          f"{int(bars[:n].max())}, true {int(nt.min())}-{int(nt.max())}): "
+          f"T1 bars equal to the twin's and the host library's, same bits "
+          f"on a second run; T2 cost within {rel:.3g} of the twin's (rtol "
+          f"{TOPO_COST_RTOL}), equal to the host library's matching")
+    rows = {}
+    for name, kern, ms, plain_ms, host_ms, line in (
+            ("cubical_pairs", "cubical_pairs_kernel", t1_ms, t1_plain,
+             t1_host, 305),
+            ("wasserstein_match", "wasserstein_match_kernel", t2_ms, t2_plain,
+             t2_host, 333)):
+        bound, bound_by = bounds[name]
+        print(f"kernel {name} ({label}): max_abs_err=0 ms={ms:.4f} "
+              f"plain_ms={plain_ms:.1f} host_library_ms={host_ms:.3f} "
+              f"library_ms=null bound_ms={bound:.6f} ({bound_by}) "
+              f"share_of_bound={bound / ms:.6f}")
+        rows[name] = {
+            "name": name, "route": "cuda",
+            "source": "dilabhelmholtzoct_tpu_torch/csrc/topology.cu",
+            "kernel": kern,
+            "replaces": f"dilabhelmholtzoct_tpu/ops/topology_device.py:{line}"
+                        " (XLA, no Pallas kernel)",
+            "max_abs_err": 0.0 if name == "cubical_pairs" else rel,
+            "ms": ms, "plain_ms": plain_ms, "host_library_ms": host_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+    return rows
+
+
+def topo_phase(torch):
+    """Decoder fine-tuning with the topological loss: bf16, ViT-B (full
+    width), cached embeddings of 8 images x bucket 8 (64 pairs), topo_interp
+    50, lambda 0.1, H1 (the JAX defaults). T1 / T2 against their twins and
+    the host library on the step's own grids and on 64 pred and 64 true
+    grids of 50x50 sigmoid noise; ``TOPO_STEPS`` steps of each mode from the same weights:
+    ``topo_device`` (each step K3 x1, K4 x2, T1 x1 and T2 x1, exactly), the
+    host modes, synchronous and pipelined (with ``flush``; no T1 / T2), and
+    the same steps without the term; the first-step losses of the device
+    and the sync host mode within ``TOPO_LOSS_RTOL``; one device-mode step
+    on the card against the CPU (``card_vs_cpu``). Returns (the result
+    line's rows, the device mode's launch counts)."""
+    from dilabhelmholtzoct_tpu_torch.data.pipeline import (PromptedDataset,
+                                                           batches)
+    from dilabhelmholtzoct_tpu_torch.data.sampling import (
+        gt_masks_from_comp_map)
+    from dilabhelmholtzoct_tpu_torch.device import full_fp32
+    from dilabhelmholtzoct_tpu_torch.inference import synthetic
+    from dilabhelmholtzoct_tpu_torch.models.configs import sam_vit_base
+    from dilabhelmholtzoct_tpu_torch.ops.topology import downsample_grid
+    from dilabhelmholtzoct_tpu_torch.train import trainer as tr
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    cfg = sam_vit_base()
+    sd_host = synthetic.random_params(cfg, seed=0)
+    config = tr.TrainConfig(evaluate=False, batch_size=8, topological=True,
+                            topo_interp=50, topo_lamda=0.1, topo_feat_d=1)
+    orig_hw = (496, 512)
+    ds = PromptedDataset(synthetic.oct_training_items(8, seed=1), seed=0)
+    sd = {k: v.to(dev) for k, v in sd_host.items()}
+    emb = tr.precompute_embeddings(sd, cfg, ds, dtype=bf16, verbose=False)
+    batch = list(batches(ds, 8, with_images=False, num_workers=2))[0]
+    check(batch["channel_mask"].shape == (8, 8)
+          and batch["channel_mask"].min() == 1, "the batch is not 8 x bucket 8")
+    db = _device_batch(torch, batch, dev, emb)
+
+    # the grids the first step pairs (its forward, at the initial weights)
+    decoder, frozen = tr._split_params(sd)
+    with torch.no_grad(), full_fp32():
+        masks = tr._forward_from_embeddings(
+            tr._cast_floats(decoder, bf16),
+            tr._cast_floats(tr._prompt_entries(frozen), bf16), cfg,
+            db["embeddings"], db, orig_hw, config.prompt_type)
+        gt = gt_masks_from_comp_map(db["comp_map"], masks.shape[1])
+        sp = downsample_grid(torch.sigmoid(masks.float()), 50).reshape(
+            -1, 50, 50)
+        st = downsample_grid(gt, 50).reshape(-1, 50, 50)
+    del sd, decoder, frozen, masks
+    rows = topo_kernel_checks(torch, sp, st, "the step's grids")
+    # both diagrams large (hundreds of bars a side): T2's loaded matching
+    gen = torch.Generator(device=dev).manual_seed(5)
+    noise = torch.sigmoid(torch.randn((2, 64, 50, 50), generator=gen,
+                                      device=dev))
+    # T2 takes seconds here and has run twice in the checks: one timed launch
+    topo_kernel_checks(torch, noise[0], noise[1],
+                       "64 pred and 64 true grids of 50x50 sigmoid noise",
+                       t2_runs=1, t2_warmup=0)
+
+    def fresh(device, conf=config):
+        sd_m = {k: v.to(device, copy=True) for k, v in sd_host.items()}
+        decoder, frozen = tr._split_params(sd_m)
+        for v in decoder.values():
+            v.requires_grad_(True)
+        return sd_m, decoder, frozen, tr.make_optimizer(conf, decoder.values())
+
+    modes = (("device", dict(topo_device=True)),
+             ("host sync", dict(topo_device=False, topo_pipeline=False)),
+             ("host pipelined", dict(topo_device=False, topo_pipeline=True)),
+             ("no topological term", dict(topological=False)))
+    out = {}
+    for mode, kw in modes:
+        conf = dataclasses.replace(config, **kw)
+        _, decoder, frozen, opt = fresh(dev, conf)
+        step = tr.make_train_step(cfg, conf, opt, orig_hw, True)
+        want = TOPO_STEP_LAUNCHES if mode == "device" else STEP_LAUNCHES
+        if mode == "host pipelined":  # each call also runs the next
+            # batch's forward for its grids (K3 x1, K4 x2); the first call
+            # only that
+            grids_fwd = {**dict.fromkeys(want, 0), "upscale_fwd": 1,
+                         "i2t_fwd": 2}
+            want = {k: v + grids_fwd[k] for k, v in want.items()}
+        losses, times = [], []
+        torch.cuda.synchronize()
+        _reset_counts()  # --- main path starts
+        for i in range(TOPO_STEPS):
+            if hasattr(step, "set_host_batch"):
+                step.set_host_batch(batch)
+            before = _counts()
+            t0 = time.perf_counter()
+            decoder, opt, loss = step(decoder, opt, frozen, db)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            d = _delta(_counts(), before)
+            first_deferred = mode == "host pipelined" and i == 0
+            check(d == (grids_fwd if first_deferred else want),
+                  f"{mode} step {i} launched {d}")
+            check((loss is None) == first_deferred,
+                  f"{mode} step {i} returned loss {loss}")
+            if loss is not None:
+                losses.append(float(loss))
+        if hasattr(step, "flush"):
+            before = _counts()
+            decoder, opt, loss = step.flush(decoder, opt, frozen)
+            d = _delta(_counts(), before)
+            check(d == STEP_LAUNCHES, f"flush launched {d}")
+            losses.append(float(loss))
+        launches = _counts()  # --- main path ends
+        check(len(losses) == TOPO_STEPS and all(np.isfinite(losses)),
+              f"{mode}: losses {losses}")
+        check(losses[-1] < losses[0], f"{mode}: the loss did not fall: "
+                                      f"{losses}")
+        med = statistics.median(times[1:])
+        out[mode] = (losses, med, launches)
+        print(f"topological decoder fine-tune ViT-B bf16, 8 images x bucket "
+              f"8 (64 pairs), interp 50, lambda 0.1, H1, mode {mode}: losses "
+              f"{[round(x, 6) for x in losses]}; step ms first "
+              f"{times[0]:.1f}, median of steps 2-{TOPO_STEPS} {med:.2f} "
+              f"({8e3 / med:.1f} img/s), all {[round(t, 1) for t in times]}")
+        del decoder, frozen, opt, step
+        torch.cuda.empty_cache()
+    l_dev, l_sync = out["device"][0][0], out["host sync"][0][0]
+    rel = abs(l_dev - l_sync) / abs(l_sync)
+    print(f"topological step, device mode against host sync mode: first-step "
+          f"loss {l_dev:.8f} vs {l_sync:.8f} (rel {rel:.3g}, rtol "
+          f"{TOPO_LOSS_RTOL}); median step ms: device {out['device'][1]:.2f}, "
+          f"host sync {out['host sync'][1]:.2f}, host pipelined "
+          f"{out['host pipelined'][1]:.2f}, without the term "
+          f"{out['no topological term'][1]:.2f}")
+    check(rel <= TOPO_LOSS_RTOL,
+          "the device and host sync modes' first-step losses differ")
+    launches = out["device"][2]
+    check(launches["cubical_pairs"] == launches["wasserstein_match"]
+          == TOPO_STEPS, f"device mode launches {launches}")
+    check(out["host pipelined"][0][0] == l_sync,
+          "the pipelined first step differs from the sync first step")
+    card_vs_cpu(torch, tr, cfg, config, sd_host, fresh, ds, emb, orig_hw)
+    del emb, db
+    torch.cuda.empty_cache()
+    return rows, launches
 
 
 def card_vs_cpu(torch, tr, cfg, config, sd_host, fresh, ds, emb, orig_hw):
@@ -2068,6 +2385,11 @@ def main() -> int:
     print(f"[phases] f32 fused decoder fine-tune "
           f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    topo_rows, topo_launches = topo_phase(torch)
+    launches.update({k: topo_launches[k] for k in topo_rows})
+    print(f"[phases] topological decoder fine-tune "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     k5_rows = k5_kernel_phase(torch, attn)
     print(f"[phases] K5 kernels {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -2083,6 +2405,7 @@ def main() -> int:
     launches["attn_global_b4"] = ft32["attn_global"]
     print(f"[phases] f32 full fine-tune {time.perf_counter() - t0:.1f} s")
     rows.update(train_rows)
+    rows.update(topo_rows)
     rows.update(k5_rows)
     t0 = time.perf_counter()
     rows.update(k6_kernel_phase(torch, attn))

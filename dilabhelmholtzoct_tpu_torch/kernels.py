@@ -22,11 +22,13 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-# one shared library per source; headers are hashed into every library
+# one shared library per source; headers (*.cuh, and the *.h shared with the
+# host library) are hashed into every library
 SOURCES = {"attention": "attention.cu", "attention_bwd": "attention_bwd.cu",
            "attention_relpos": "attention_relpos.cu",
            "attention_winimg": "attention_winimg.cu",
-           "upscaler": "upscaler.cu", "decoder_attn": "decoder_attn.cu"}
+           "upscaler": "upscaler.cu", "decoder_attn": "decoder_attn.cu",
+           "topology": "topology.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -53,7 +55,8 @@ def cuda_tool(name: str = "nvcc") -> str:
 def library_path(name: str) -> Path:
     """Where the library of ``SOURCES[name]`` is (or will be) built."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(CSRC.glob("*.cuh")) + [CSRC / SOURCES[name]]:
+    headers = sorted(CSRC.glob("*.cuh")) + sorted(CSRC.glob("*.h"))
+    for p in headers + [CSRC / SOURCES[name]]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"

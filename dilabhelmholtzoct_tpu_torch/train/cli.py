@@ -3,8 +3,8 @@
 Port of ``dilabhelmholtzoct_tpu/train/cli.py``: the same flags build the
 same ``TrainConfig``, and training runs on the card and ends, unless
 ``--evaluate false``, with the evaluation report on the test split. Parts of
-the loop that later slices port (the topological loss, display,
-augmentation, multi-host) raise ``NotImplementedError`` when asked for.
+the loop that later slices port (display, augmentation, multi-host)
+raise ``NotImplementedError`` when asked for.
 Without the ``datasets`` package, call
 ``train.trainer.training(config, splits=...)`` from Python instead.
 
@@ -106,7 +106,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "placement (training_utils.py:83-85)")
     p.add_argument("--prompt", type=str, default="bboxes",
                    choices=["bboxes", "points"])
-    p.add_argument("--top", action="store_true")
+    p.add_argument("--top", action="store_true",
+                   help="add the topological loss (cubical persistence + "
+                        "Wasserstein, lambda 0.1, 50x50 grids, H1)")
     # knobs beyond the reference's flags
     p.add_argument("--cache_embeddings", type=_str2bool, default=True)
     p.add_argument("--data_transforms", type=str, default="",
@@ -122,11 +124,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "attention backward on the K5 kernel; implies "
                         "--cache_embeddings false")
     p.add_argument("--topo_pipeline", type=_str2bool, default=True,
-                   help="host pairing mode of the topological loss (a later "
-                        "slice of the port)")
+                   help="with --topo_device false: pair on the host behind "
+                        "a one-batch delay (the pairing one update stale); "
+                        "false = synchronous host pairing")
     p.add_argument("--topo_device", type=_str2bool, default=True,
-                   help="on-device pairing of the topological loss (a later "
-                        "slice of the port)")
+                   help="pair and match on the card inside the step "
+                        "(kernels T1 / T2); false = on the host (the C++ "
+                        "library, --topo_pipeline picks pipelined or sync)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--resume", type=_str2bool, default=False)
     p.add_argument("--multihost", type=_str2bool, default=False,

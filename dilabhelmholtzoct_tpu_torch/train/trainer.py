@@ -29,10 +29,21 @@ With ``evaluate`` (the default, as in JAX) the run ends with the per-class
 report of ``eval/harness.py`` on the validation set, returned as
 ``metrics``.
 
-Not in this slice (each raises ``NotImplementedError``): the topological
-loss, sample display, augmentation (``data_transforms``), multi-host / data
-parallelism and profiler traces. With one card ``data_parallel`` is a no-op,
-as in JAX.
+With ``topological`` the loss gains the topological term
+(``ops/topology.py``), in the JAX package's three modes: ``topo_device``
+(the default) pairs and matches on the card inside the step
+(``ops/topology_device.py``, kernels T1 / T2); otherwise the host pairs
+(``ops/native.py``), synchronously (``topo_pipeline=False``: one forward,
+its detached grids to the host, the pairing, the loss and the backward) or
+pipelined with a one-batch delay (the default host mode: each call pairs the
+previous batch while this one's grids copy to the host; the first call
+returns ``loss=None`` and ``step.flush`` runs the last batch). Both host
+modes cache the ground-truth diagrams across epochs and skip bucket-padding
+rows; the epoch loop feeds each host batch through ``set_host_batch``.
+
+Not in this slice (each raises ``NotImplementedError``): sample display,
+augmentation (``data_transforms``), multi-host / data parallelism and
+profiler traces. With one card ``data_parallel`` is a no-op, as in JAX.
 """
 
 from __future__ import annotations
@@ -64,6 +75,14 @@ from ..models.sam import (
 from ..ops.losses import segmentation_loss
 from ..ops.postprocess import postprocess_masks_blocked
 from ..ops.preprocess import preprocess_image, rescale_boxes, rescale_coords
+from ..ops.topology import (
+    downsample_grid,
+    host_pairing,
+    pairing_to,
+    topo_loss_from_pairing,
+    true_diagrams_from_grids,
+)
+from ..ops.topology_device import topo_loss_device
 from ..utils import checkpoint as ckpt_utils
 from ..utils.logging import MultiLogger, make_logger
 from ..utils.profiling import StepTimer
@@ -130,21 +149,20 @@ def _check_supported(config: TrainConfig, *, loop: bool = True) -> None:
     ``loop=False`` checks only what a train step itself runs."""
     if config.trainable not in ("decoder", "all"):
         raise ValueError(f"unknown trainable {config.trainable!r}")
-    later = [(config.topological, "topological=True (the topological loss)")]
-    if loop:
-        later += [
-            (config.display_mode != "none",
-             "display_mode != 'none' (display)"),
-            (bool(config.data_transforms), "data_transforms (augmentation)"),
-            (config.multihost, "multihost (data parallelism)"),
-            (bool(config.profile_dir), "profile_dir (training traces)"),
-        ]
+    if not loop:
+        return
+    later = [
+        (config.display_mode != "none", "display_mode != 'none' (display)"),
+        (bool(config.data_transforms), "data_transforms (augmentation)"),
+        (config.multihost, "multihost (data parallelism)"),
+        (bool(config.profile_dir), "profile_dir (training traces)"),
+    ]
     for on, what in later:
         if on:
             raise NotImplementedError(
                 f"{what} is not ported to PyTorch yet: a later slice of the "
                 "port; pass it off")
-    if loop and config.trainable == "all" and config.cache_embeddings:
+    if config.trainable == "all" and config.cache_embeddings:
         raise ValueError(
             "trainable='all' requires cache_embeddings=False (the encoder "
             "trains, so its outputs change every step)")
@@ -246,10 +264,137 @@ def _forward_from_embeddings(decoder, frozen, cfg: SamConfig, embeddings,
                                      model_size=size)
 
 
-def _loss_from_masks(masks, batch, config: TrainConfig):
-    """DiceCE (or one of its parts) against the component masks."""
+def _loss_from_masks(masks, batch, config: TrainConfig, pairing=None):
+    """DiceCE (or one of its parts) against the component masks, plus the
+    topological term of the sigmoid of the f32 masks: paired on the device
+    with ``topo_device``, else from the host's ``pairing`` when one is
+    given."""
     gt = gt_masks_from_comp_map(batch["comp_map"], masks.shape[1])
-    return segmentation_loss(config.loss)(masks, gt, batch["channel_mask"])
+    loss = segmentation_loss(config.loss)(masks, gt, batch["channel_mask"])
+    if config.topological and config.topo_device:
+        loss = loss + topo_loss_device(
+            torch.sigmoid(masks.float()), gt, config.topo_lamda,
+            interp=config.topo_interp, feat_d=config.topo_feat_d,
+            channel_mask=batch["channel_mask"])
+    elif config.topological and pairing is not None:
+        loss = loss + topo_loss_from_pairing(
+            torch.sigmoid(masks.float()), pairing, config.topo_lamda,
+            interp=config.topo_interp, channel_mask=batch["channel_mask"])
+    return loss
+
+
+_EMPTY_DIAG = np.zeros((0, 2), np.float32)
+
+
+class _TopoHostPairer:
+    """The host half of the topological loss, one per step function (train
+    and eval): the cross-epoch cache of ground-truth diagrams (exact: the
+    targets are the component masks, constant across epochs; off under
+    augmentation), the skip of bucket-padding rows, and on a cache hit the
+    copy of the active rows' pred grids only. Callers feed the host batch
+    (sample indices and channel mask) through ``set_host_batch`` before each
+    step; without it every step pairs both grids, uncached."""
+
+    def __init__(self, config: TrainConfig):
+        self.config = config
+        self.use_cache = config.topo_true_cache and not config.data_transforms
+        self.cache: dict[int, list] = {}
+        self.meta = None
+
+    def set_host_batch(self, batch) -> None:
+        idxs = batch.get("indices")
+        self.meta = (None if idxs is None else [int(i) for i in
+                                                np.asarray(idxs)],
+                     np.asarray(batch["channel_mask"]))
+
+    def cache_hit(self, meta) -> bool:
+        if not (self.use_cache and meta is not None and meta[0] is not None):
+            return False
+        # padding rows (all-zero channel_mask) need no cached diagrams
+        counts = np.asarray(meta[1]).sum(axis=1)
+        return all(ix in self.cache
+                   for ix, cnt in zip(meta[0], counts) if cnt > 0)
+
+    def grids(self, masks, batch, meta):
+        """The detached downsampled grids to pair: (pred (R, i, i), true
+        (N, i, i) or None on a cache hit, rows): on a cache hit with padding
+        rows, ``rows`` lists the active rows and pred holds only those."""
+        interp = self.config.topo_interp
+        with torch.no_grad():
+            pred = downsample_grid(torch.sigmoid(masks.detach().float()),
+                                   interp)
+            n = pred.shape[0] * pred.shape[1]
+            pred = pred.reshape(n, *pred.shape[2:])
+            if self.cache_hit(meta):
+                rows = np.flatnonzero(np.asarray(meta[1]).reshape(-1) > 0)
+                if len(rows) == n:
+                    return pred, None, None
+                return pred.index_select(0, torch.as_tensor(
+                    rows, device=pred.device)), None, rows
+            gt = gt_masks_from_comp_map(batch["comp_map"], masks.shape[1])
+            true = downsample_grid(gt, interp)
+            return pred, true.reshape(n, *true.shape[2:]), None
+
+    @staticmethod
+    def to_host(grids, non_blocking: bool = False):
+        """The grids on the host, with the device the pairing goes back to:
+        (pred, true, rows, device, event). With ``non_blocking`` a card's
+        grids copy into pinned memory behind an event, which ``pair``
+        waits on."""
+        pred, true, rows = grids
+        dev = pred.device
+        if dev.type != "cuda":
+            return pred, true, rows, dev, None
+        if not non_blocking:
+            return (pred.cpu(), None if true is None else true.cpu(), rows,
+                    dev, None)
+
+        def copy(x):
+            out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            return out.copy_(x, non_blocking=True)
+
+        pred_h = copy(pred)
+        true_h = None if true is None else copy(true)
+        event = torch.cuda.Event()
+        event.record()
+        return pred_h, true_h, rows, dev, event
+
+    def _cached(self, ix: int, slot: int):
+        slots = self.cache.get(ix, [])
+        return slots[slot] if slot < len(slots) else _EMPTY_DIAG
+
+    def pair(self, host, meta) -> dict:
+        """The pairing of grids on the host (``to_host``), as tensors on
+        their device."""
+        pred, true, rows, dev, event = host
+        if event is not None:
+            event.synchronize()
+        pred = pred.numpy()
+        true = None if true is None else true.numpy()
+        feat_d = self.config.topo_feat_d
+        if meta is None or meta[0] is None or not self.use_cache:
+            return pairing_to(host_pairing(
+                pred, true, feat_d=feat_d,
+                row_mask=None if meta is None else meta[1].reshape(-1)), dev)
+        idxs, cmask = meta
+        bucket = cmask.shape[1]
+        if true is None:  # cache hit
+            if rows is not None:  # only the active rows were copied
+                full = np.zeros((cmask.size, *pred.shape[1:]), np.float32)
+                full[rows] = pred
+                pred = full
+            diagrams = [self._cached(ix, s) for ix in idxs
+                        for s in range(bucket)]
+        else:  # miss: the true diagrams once, into the cache
+            diagrams = true_diagrams_from_grids(true, feat_d)
+            for bi, ix in enumerate(idxs):
+                cnt = int(cmask[bi].sum())
+                if cnt:  # never padding rows: their index names no sample
+                    self.cache[ix] = [diagrams[bi * bucket + s]
+                                      for s in range(cnt)]
+        return pairing_to(host_pairing(
+            pred, None, feat_d=feat_d, true_diagrams=diagrams,
+            row_mask=cmask.reshape(-1)), dev)
 
 
 def _prompt_entries(frozen: dict) -> dict:
@@ -292,66 +437,140 @@ def make_train_step(cfg: SamConfig, config: TrainConfig, optimizer,
     runs inside the step — frozen, under ``torch.no_grad()``, for
     ``trainable='decoder'``; inside the gradient, from the same cast
     parameters as the decoder, every layer checkpointed and without
-    microbatching, for ``trainable='all'`` (the JAX step)."""
+    microbatching, for ``trainable='all'`` (the JAX step).
+
+    With ``topological`` and not ``topo_device`` the step pairs on the host
+    and has ``set_host_batch`` (the host batch before each call); pipelined
+    (``topo_pipeline``) it returns ``loss=None`` for the batch it defers and
+    has ``flush(params, optimizer, frozen)``, which runs the last one."""
     _check_supported(config, loop=False)
     dtype = _dtype(config)
     train_encoder = config.trainable == "all"
 
-    def step(params, optimizer, frozen, batch):
-        with full_fp32():
-            params_c = _cast_floats(params, dtype)
-            if from_embeddings:
-                embeddings = batch["embeddings"].to(dtype)
-                frozen_c = _cast_floats(_prompt_entries(frozen), dtype)
+    def masks_of(params, frozen, batch, remat=True):
+        params_c = _cast_floats(params, dtype)
+        if from_embeddings:
+            embeddings = batch["embeddings"].to(dtype)
+            frozen_c = _cast_floats(_prompt_entries(frozen), dtype)
+        else:
+            frozen_c = _cast_floats(frozen, dtype)
+            if train_encoder:
+                pix, _ = preprocess_image(
+                    batch["image"], target_size=cfg.vision.image_size,
+                    dtype=dtype)
+                embeddings = encode_image(
+                    _merge_params(params_c, frozen_c), pix, cfg, remat=remat)
             else:
-                frozen_c = _cast_floats(frozen, dtype)
-                if train_encoder:
-                    pix, _ = preprocess_image(
-                        batch["image"], target_size=cfg.vision.image_size,
-                        dtype=dtype)
-                    embeddings = encode_image(
-                        _merge_params(params_c, frozen_c), pix, cfg,
-                        remat=True)
-                else:
-                    embeddings = _encode(frozen_c, cfg, batch["image"], dtype,
-                                         config.encoder_microbatch)
-            masks = _forward_from_embeddings(
-                params_c, frozen_c, cfg, embeddings, batch, orig_hw,
-                config.prompt_type)
-            loss = _loss_from_masks(masks, batch, config)
-            optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            _zero_missing_grads(optimizer)
-            optimizer.step()
+                embeddings = _encode(frozen_c, cfg, batch["image"], dtype,
+                                     config.encoder_microbatch)
+        return _forward_from_embeddings(params_c, frozen_c, cfg, embeddings,
+                                        batch, orig_hw, config.prompt_type)
+
+    def update(params, optimizer, frozen, batch, pairing=None):
+        with full_fp32():
+            masks = masks_of(params, frozen, batch)
+            return _apply(params, optimizer, _loss_from_masks(
+                masks, batch, config, pairing))
+
+    def _apply(params, optimizer, loss):
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        _zero_missing_grads(optimizer)
+        optimizer.step()
         return params, optimizer, loss.detach()
 
-    return step
+    if not config.topological or config.topo_device:
+        return update
+
+    pairer = _TopoHostPairer(config)
+    if not config.topo_pipeline:
+        # one forward: its detached grids go to the host for the pairing,
+        # and the loss and backward use the same masks (JAX runs the
+        # forward twice at the same parameters, to the same numbers)
+        def topo_step(params, optimizer, frozen, batch):
+            meta = pairer.meta
+            with full_fp32():
+                masks = masks_of(params, frozen, batch)
+                pairing = pairer.pair(pairer.to_host(
+                    pairer.grids(masks, batch, meta)), meta)
+                return _apply(params, optimizer, _loss_from_masks(
+                    masks, batch, config, pairing))
+
+        topo_step.set_host_batch = pairer.set_host_batch
+        return topo_step
+
+    # Pipelined: batch k's grids come from a no-grad forward at the current
+    # parameters and copy to the host while the host pairs batch k-1, whose
+    # full step then runs with that pairing (one update stale; the loss and
+    # gradient values use the current parameters).
+    state = {"pending": None}
+
+    def run_pending(params, optimizer, frozen):
+        prev, state["pending"] = state["pending"], None
+        if prev is None:
+            return params, optimizer, None
+        batch, host, meta = prev
+        return update(params, optimizer, frozen, batch,
+                      pairer.pair(host, meta))
+
+    def topo_step_pipelined(params, optimizer, frozen, batch):
+        meta = pairer.meta
+        with torch.no_grad(), full_fp32():
+            grids = pairer.grids(masks_of(params, frozen, batch, remat=False),
+                                 batch, meta)
+        host = pairer.to_host(grids, non_blocking=True)
+        out = run_pending(params, optimizer, frozen)
+        state["pending"] = (batch, host, meta)
+        return out
+
+    topo_step_pipelined.flush = run_pending
+    topo_step_pipelined.set_host_batch = pairer.set_host_batch
+    return topo_step_pipelined
 
 
 def make_eval_step(cfg: SamConfig, config: TrainConfig, orig_hw,
                    from_embeddings: bool):
     """``step(decoder, frozen, batch) -> loss``: the train step's forward and
-    loss, in the same compute dtype, without gradients."""
+    loss, in the same compute dtype, without gradients. With
+    ``topological`` on the host it pairs synchronously through a pairer of
+    its own (``set_host_batch``)."""
     dtype = _dtype(config)
 
-    @torch.no_grad()
-    def step(decoder, frozen, batch):
-        with full_fp32():
-            dec_c = _cast_floats(decoder, dtype)
-            if from_embeddings:
-                embeddings = batch["embeddings"].to(dtype)
-                frozen_c = _cast_floats(_prompt_entries(frozen), dtype)
-            else:
-                frozen_c = _cast_floats(frozen, dtype)
-                embeddings = _encode(_merge_params(dec_c, frozen_c), cfg,
-                                     batch["image"], dtype,
-                                     config.encoder_microbatch)
-            masks = _forward_from_embeddings(dec_c, frozen_c, cfg, embeddings,
-                                             batch, orig_hw,
-                                             config.prompt_type)
-            return _loss_from_masks(masks, batch, config)
+    def masks_of(decoder, frozen, batch):
+        dec_c = _cast_floats(decoder, dtype)
+        if from_embeddings:
+            embeddings = batch["embeddings"].to(dtype)
+            frozen_c = _cast_floats(_prompt_entries(frozen), dtype)
+        else:
+            frozen_c = _cast_floats(frozen, dtype)
+            embeddings = _encode(_merge_params(dec_c, frozen_c), cfg,
+                                 batch["image"], dtype,
+                                 config.encoder_microbatch)
+        return _forward_from_embeddings(dec_c, frozen_c, cfg, embeddings,
+                                        batch, orig_hw, config.prompt_type)
 
-    return step
+    if not config.topological or config.topo_device:
+        @torch.no_grad()
+        def step(decoder, frozen, batch):
+            with full_fp32():
+                return _loss_from_masks(masks_of(decoder, frozen, batch),
+                                        batch, config)
+
+        return step
+
+    pairer = _TopoHostPairer(config)
+
+    @torch.no_grad()
+    def topo_step(decoder, frozen, batch):
+        meta = pairer.meta
+        with full_fp32():
+            masks = masks_of(decoder, frozen, batch)
+            pairing = pairer.pair(pairer.to_host(
+                pairer.grids(masks, batch, meta)), meta)
+            return _loss_from_masks(masks, batch, config, pairing)
+
+    topo_step.set_host_batch = pairer.set_host_batch
+    return topo_step
 
 
 def precompute_embeddings(sd: dict, cfg: SamConfig,
@@ -500,11 +719,19 @@ def _training_impl(config: TrainConfig, logger: MultiLogger, splits,
                              shuffle=config.shuffle, seed=config.seed,
                              epoch=epoch, buckets=config.buckets,
                              with_images=not use_cache):
+            if hasattr(train_step, "set_host_batch"):
+                train_step.set_host_batch(batch)  # the GT-diagram cache
             db = device_batch(batch, train_emb, train_cm)
             with timer:
                 params, optimizer, loss = train_step(params, optimizer,
                                                      frozen, db)
-            losses.append(loss)
+            if loss is not None:  # the pipelined host mode defers a batch
+                losses.append(loss)
+        if hasattr(train_step, "flush"):
+            params, optimizer, loss = train_step.flush(params, optimizer,
+                                                       frozen)
+            if loss is not None:
+                losses.append(loss)
         t_train = time.time() - t0
         # one device fetch for the epoch, not one sync per step
         total = float(torch.stack(losses).sum()) if losses else 0.0
@@ -514,11 +741,13 @@ def _training_impl(config: TrainConfig, logger: MultiLogger, splits,
         logger.log({"train/train_loss": train_loss, "train/epoch": epoch})
         timer.log_summary()
 
-        vlosses = [eval_step(params, frozen, device_batch(b, valid_emb,
-                                                          valid_cm))
-                   for b in batches(valid_ds, config.batch_size, epoch=epoch,
-                                    buckets=config.buckets,
-                                    with_images=not use_cache)]
+        vlosses = []
+        for b in batches(valid_ds, config.batch_size, epoch=epoch,
+                         buckets=config.buckets, with_images=not use_cache):
+            if hasattr(eval_step, "set_host_batch"):
+                eval_step.set_host_batch(b)
+            vlosses.append(eval_step(params, frozen,
+                                     device_batch(b, valid_emb, valid_cm)))
         vtotal = float(torch.stack(vlosses).sum()) if vlosses else 0.0
         t_val = time.time() - t0 - t_train - t_sync
         valid_loss = vtotal / max(len(vlosses), 1)

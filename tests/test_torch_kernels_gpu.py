@@ -4,8 +4,9 @@ logsumexp rows, its backward K5, the any-head-dim forward K6, the
 image-layout windowed forward K7, the upscaler K3 and the image->token
 attention K4 (their forwards on the tensor cores, bf16 and f32 in split
 TF32; the backwards of both as their two launches, the row pass and the
-weight pass, each against its plain twin); and one request through a small
-engine on the card.
+weight pass, each against its plain twin); the topological loss's pairing
+T1 and matching T2 against their numpy twins and the host library; and one
+request through a small engine on the card.
 
 Needs an NVIDIA card and nvcc; skips without a card. This file imports
 neither JAX nor tests/conftest.py's fixtures, so where JAX is not installed
@@ -762,3 +763,185 @@ def test_upscale_tf32_launches_on_card(cuda_device, bp, m, n_out):
     assert torch.equal(out, up_op.upscale_fwd_cuda(*args))
     assert _same_bits(rows, up_op.upscale_bwd_rows_cuda(*bw))
     assert _same_bits(dw, up_op.upscale_bwd_dw_cuda(*scratch))
+
+
+# ---------------------------------------------------------------------------
+# T1 / T2, the topological loss's pairing and matching (csrc/topology.cu),
+# against their plain twins (ops/topology_ref.py) and the host library
+# (ops/native.py, g++): one algorithm (csrc/persistence_core.h), so the bars
+# are equal index for index and in the same order, and the matching is the
+# host library's; against the twin (scipy) the matching cost per row holds
+# within rtol 1e-6 (another matching of equal cost may be picked).
+# ---------------------------------------------------------------------------
+
+
+def _sigmoid_noise(rng, n, h=50, w=50):
+    return (1 / (1 + np.exp(-rng.normal(size=(n, h, w))))).astype(np.float32)
+
+
+TOPO_GRIDS = {
+    # case: (grids from a seeded rng, max_bars)
+    "noise_64x50x50": (lambda rng: _sigmoid_noise(rng, 64), 512),
+    "one_grid": (lambda rng: _sigmoid_noise(rng, 1), 512),
+    "plateaus": (lambda rng: (np.round(rng.random((6, 30, 20)) * 3) / 3)
+                 .astype(np.float32), 512),
+    "saturated": (lambda rng: np.minimum(
+        _sigmoid_noise(rng, 4) * 1.5, 1.0).astype(np.float32), 512),
+    "constant": (lambda rng: np.full((3, 12, 12), 0.5, np.float32), 512),
+    "thin": (lambda rng: rng.random((4, 1, 37)).astype(np.float32), 512),
+    # above the cap: the kept bars and their order decided by kept_before,
+    # ties of equal persistence included (quantized values)
+    "above_cap": (lambda rng: _sigmoid_noise(rng, 8), 64),
+    "above_cap_ties": (lambda rng: (np.round(rng.random((8, 40, 40)) * 6)
+                                    / 6).astype(np.float32), 16),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("feat_d", [0, 1])
+@pytest.mark.parametrize("case", sorted(TOPO_GRIDS))
+def test_cubical_pairs_on_card(cuda_device, case, feat_d):
+    from dilabhelmholtzoct_tpu_torch.ops import native
+    from dilabhelmholtzoct_tpu_torch.ops import topology_device as ptd
+
+    make, k = TOPO_GRIDS[case]
+    grids = make(np.random.default_rng(sorted(TOPO_GRIDS).index(case)))
+    g = torch.tensor(grids, device=cuda_device)
+    before = ptd.LAUNCHES["cubical_pairs"]
+    got = ptd.device_cubical_pairs(g, feat_d, k)
+    torch.cuda.synchronize()
+    assert ptd.LAUNCHES["cubical_pairs"] == before + 1
+    twin = ptd.cubical_pairs_plain(torch.tensor(grids), feat_d, k)
+    host = native.cubical_pairs_batch(grids, k)
+    want_host = (host[f"h{feat_d}_birth"], host[f"h{feat_d}_death"],
+                 host["counts"][:, feat_d])
+    for a, b, c in zip(got, twin, want_host):
+        assert a.dtype == torch.int32
+        np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
+        np.testing.assert_array_equal(a.cpu().numpy(), c)
+    if case.startswith("above_cap"):
+        assert int(got[2].min()) == k  # the cap did act
+    assert all(torch.equal(a, b) for a, b in zip(
+        got, ptd.device_cubical_pairs(g, feat_d, k)))
+
+
+def _row_costs(flat, pb, pd, matched, target, const_term, q=2.0):
+    flat = flat.double().cpu()
+    pb, pd = pb.long().cpu(), pd.long().cpu()
+    valid = pb >= 0
+    b = flat.gather(1, pb.clamp(min=0))
+    d = flat.gather(1, pd.clamp(min=0))
+    t = target.double().cpu()
+    cm = torch.maximum((b - t[..., 0]).abs(), (d - t[..., 1]).abs()) ** q
+    cd = ((d - b).abs() / 2) ** q
+    cost = torch.where(matched.cpu().bool() & valid, cm,
+                       torch.where(valid, cd, 0.0))
+    return (cost.sum(1) + const_term.double().cpu()).numpy()
+
+
+def _blob_targets(rng, n, h=50, w=50):
+    """Near-binary ground truth: rings (one H1 bar each) and blobs."""
+    out = np.zeros((n, h, w), np.float32)
+    for i in range(n):
+        y, x = rng.integers(5, h // 2, 2)
+        out[i, y:y + 18, x:x + 18] = 1.0
+        if i % 2:
+            out[i, y + 6:y + 12, x + 6:x + 12] = 0.0  # a hole
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("feat_d", [0, 1])
+@pytest.mark.parametrize("n,true_kind,q", [(64, "blobs", 2.0),
+                                           (1, "blobs", 2.0),
+                                           (8, "noise", 2.0),
+                                           (8, "blobs", 1.0)])
+def test_wasserstein_match_on_card(cuda_device, n, true_kind, q, feat_d):
+    """T2 on the pairing of pred noise grids against ground-truth-like
+    targets (or noise, both diagrams large), as ``device_pairing`` calls
+    it."""
+    from dilabhelmholtzoct_tpu_torch.ops import native
+    from dilabhelmholtzoct_tpu_torch.ops import topology_device as ptd
+
+    rng = np.random.default_rng(n + feat_d)
+    sp = torch.tensor(_sigmoid_noise(rng, n), device=cuda_device)
+    st = torch.tensor(_blob_targets(rng, n) if true_kind == "blobs"
+                      else _sigmoid_noise(rng, n), device=cuda_device)
+    b, d, c = ptd.device_cubical_pairs(torch.cat([sp, st]), feat_d)
+    flat_t = st.reshape(n, -1)
+    true_bars = torch.stack([flat_t.gather(1, b[n:].clamp(min=0).long()),
+                             flat_t.gather(1, d[n:].clamp(min=0).long())],
+                            -1).contiguous()
+    args = (sp.reshape(n, -1).contiguous(), b[:n], d[:n], c[:n], true_bars,
+            c[n:].clone())  # a slice at row n is not 16-byte aligned
+    before = ptd.LAUNCHES["wasserstein_match"]
+    got = ptd.wasserstein_match_cuda(*args, q)
+    torch.cuda.synchronize()
+    assert ptd.LAUNCHES["wasserstein_match"] == before + 1
+    assert all(torch.equal(x, y)
+               for x, y in zip(got, ptd.wasserstein_match_cuda(*args, q)))
+    twin = ptd.wasserstein_match_plain(*(a.cpu() for a in args), q)
+    np.testing.assert_allclose(_row_costs(args[0], b[:n], d[:n], *got, q),
+                               _row_costs(args[0], b[:n], d[:n], *twin, q),
+                               rtol=1e-6)
+    nt = c[n:].cpu().numpy()
+    host = native.wasserstein_match_batch(
+        args[0].cpu().numpy(), b[:n].cpu().numpy(), d[:n].cpu().numpy(),
+        c[:n].cpu().numpy(), [true_bars[i, :nt[i]].cpu().numpy()
+                              for i in range(n)], q, b.shape[1])
+    for x, y in zip(got, host):
+        np.testing.assert_array_equal(x.cpu().numpy(), y)
+
+
+@pytest.mark.gpu
+def test_topology_kernels_refuse_beyond_shared_memory(cuda_device):
+    """Operands beyond one block's shared memory: the C entries refuse them
+    before any launch, the wrappers raise NotImplementedError and count
+    nothing."""
+    from dilabhelmholtzoct_tpu_torch.ops import topology_device as ptd
+
+    before = dict(ptd.LAUNCHES)
+    with pytest.raises(NotImplementedError, match="topo_interp"):
+        ptd.cubical_pairs_cuda(
+            torch.zeros((1, 200, 200), device=cuda_device), 1)
+    k = 4096
+    idx = torch.zeros((1, k), dtype=torch.int32, device=cuda_device)
+    cnt = torch.ones((1,), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="4096 pred"):
+        ptd.wasserstein_match_cuda(
+            torch.zeros((1, 64), device=cuda_device), idx, idx.clone(), cnt,
+            torch.zeros((1, k, 2), device=cuda_device), cnt.clone(), 2.0)
+    assert ptd.LAUNCHES == before
+
+
+@pytest.mark.gpu
+def test_topo_loss_device_on_card(cuda_device):
+    """``topo_loss_device`` on the card (T1 x1, T2 x1) against the host
+    pairing's ``topo_loss`` on the same card tensors and against the CPU
+    twin: loss rtol 2e-5, gradient rtol 1e-4 / atol 1e-6."""
+    from dilabhelmholtzoct_tpu_torch.ops import topology as pt
+    from dilabhelmholtzoct_tpu_torch.ops import topology_device as ptd
+
+    rng = np.random.default_rng(3)
+    pred = _sigmoid_noise(rng, 8, 64, 64).reshape(2, 4, 64, 64)
+    true = _blob_targets(rng, 8, 64, 64).reshape(2, 4, 64, 64)
+    cm = np.ones((2, 4), np.float32)
+    cm[1, 3] = 0.0
+    kw = dict(lamda=0.1, interp=50, feat_d=1, loss_q=2)
+    out = {}
+    for name, fn, dev in (("card", ptd.topo_loss_device, cuda_device),
+                          ("host", pt.topo_loss, cuda_device),
+                          ("cpu", ptd.topo_loss_device, "cpu")):
+        p = torch.tensor(pred, device=dev, requires_grad=True)
+        before = dict(ptd.LAUNCHES)
+        loss = fn(p, torch.tensor(true, device=dev),
+                  channel_mask=torch.tensor(cm, device=dev), **kw)
+        loss.backward()
+        launched = {k: v - before[k] for k, v in ptd.LAUNCHES.items()}
+        assert launched == dict.fromkeys(
+            launched, 1 if name == "card" else 0), (name, launched)
+        out[name] = (float(loss), p.grad.cpu().numpy())
+    for name in ("host", "cpu"):
+        np.testing.assert_allclose(out["card"][0], out[name][0], rtol=2e-5)
+        np.testing.assert_allclose(out["card"][1], out[name][1], rtol=1e-4,
+                                   atol=1e-6)

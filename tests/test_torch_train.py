@@ -262,7 +262,7 @@ def test_training_without_a_card_raises(tmp_path):
                      splits=(_items(2, 0), _items(2, 1)))
 
 
-@pytest.mark.parametrize("field,value", [("topological", True),
+@pytest.mark.parametrize("field,value", [("profile_dir", "traces"),
                                          ("multihost", True),
                                          ("data_transforms", ("hflip",)),
                                          ("display_mode", "predefined")])
