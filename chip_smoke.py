@@ -76,6 +76,24 @@ prints no result line):
    losses, the median step of each; the device and sync first-step losses
    within ``TOPO_LOSS_RTOL``, the pipelined first step equal to the sync
    one; one device-mode step on the card against the CPU.
+6d. The training run from raw items with every data option
+   (``data_path_phase``): ``training()`` at full ViT-B width and depth,
+   bf16, seeded weights, 16 train + 8 valid synthetic items, batch 4, 2
+   epochs, ``cache_embeddings=False`` (the frozen encoder in every step),
+   all six augmentations, ``pseudocolor='Jet'``, ``display_mode=
+   'predefined'`` (items 0 and 1 of each split, before the first epoch and
+   after each) and ``profile_dir``: exact K1 / K2 / K3 / K4 launch counts
+   derived from the step count, the batch, ``encoder_microbatch`` and the
+   display's f32 encodes; finite losses; the epoch-0 trace names a port
+   kernel; the display panels (496 x 1536) when PIL imports; the median
+   uncached step ms and images/s with the card's name and power limit.
+   Then every host batch the run's loader built byte-equal to a second
+   ``PromptedDataset`` with the same options on the CPU; the augmented
+   step on the card against the CPU at a 2-layer cut (``STEP_LOSS_RTOL``,
+   ``SIGN_AGREE_MIN``); ``sam_forward`` with a box and a (1, 256, 256, 1)
+   mask input at ViT-B, f32, from a cached embedding, on the card against
+   the CPU (``PROB_ATOL``), its dense embedding unlike the no-mask row, and
+   the bf16 forward finite.
 7. The card against the CPU: the same first step on 1 image x bucket 8 on
    both — the loss and the signs of the decoder updates.
 8. The epoch loop: ``training(config, splits=...)`` for 2 epochs, then
@@ -1315,6 +1333,18 @@ def topo_phase(torch):
     return rows, launches
 
 
+def sign_agreement(torch, d_cpu, d_card, lr):
+    """(share, count) of the weights the CPU step moved (by more than 1e-3
+    of the learning rate: Adam's first step moves each by ~lr) that the
+    card's step moved the same way."""
+    agree = total = 0
+    for k, dc in d_cpu.items():
+        moved = dc.abs() > 1e-3 * lr
+        agree += int((torch.sign(dc) == torch.sign(d_card[k]))[moved].sum())
+        total += int(moved.sum())
+    return agree / max(total, 1), total
+
+
 def card_vs_cpu(torch, tr, cfg, config, sd_host, fresh, ds, emb, orig_hw):
     """One first step on 1 image x bucket 8, on the card and on the host,
     from the same weights and embeddings."""
@@ -1333,12 +1363,7 @@ def card_vs_cpu(torch, tr, cfg, config, sd_host, fresh, ds, emb, orig_hw):
                                    for k, v in decoder.items()})
     (l_card, d_card), (l_cpu, d_cpu) = out["card"], out["cpu"]
     rel = abs(l_card - l_cpu) / abs(l_cpu)
-    agree = total = 0
-    for k, dc in d_cpu.items():
-        moved = dc.abs() > 1e-3 * config.learning_rate
-        agree += int((torch.sign(dc) == torch.sign(d_card[k]))[moved].sum())
-        total += int(moved.sum())
-    share = agree / max(total, 1)
+    share, total = sign_agreement(torch, d_cpu, d_card, config.learning_rate)
     print(f"card vs cpu, first bf16 step on 1 image x bucket 8: loss "
           f"{l_card:.6f} vs {l_cpu:.6f} (rel {rel:.3g}, rtol "
           f"{STEP_LOSS_RTOL}); update signs agree on {share:.4f} of {total} "
@@ -1374,6 +1399,262 @@ def epoch_loop(torch, tr, config, sd_host, train_items, valid_items):
                  round(h["valid_loss"], 4)) for h in hist]
         print(f"epoch loop (epoch, train, valid): {runs} in "
               f"{time.perf_counter() - t0:.1f} s; checkpoints {steps}")
+
+
+DATA_OPS = ("hflip", "vflip", "brightness", "contrast", "gaussian_noise",
+            "shift")
+# the port's bf16 kernels on the uncached step: one of them must appear in
+# the epoch-0 trace for it to be the card's
+TRACE_KERNELS = ("attn_global_mma_kernel", "attn_windowed_mma_kernel",
+                 "i2t_fwd_mma_kernel", "upscale_fwd_mma_kernel")
+
+
+def _same_batches(built, ref, what):
+    check(len(built) == len(ref), f"{what}: {len(built)} batches, want "
+                                  f"{len(ref)}")
+    for i, (b, r) in enumerate(zip(built, ref)):
+        check(set(b) == set(r), f"{what} batch {i}: keys {sorted(b)}")
+        for k in r:
+            check(b[k].dtype == r[k].dtype and b[k].shape == r[k].shape
+                  and np.array_equal(b[k], r[k]),
+                  f"{what} batch {i}: {k} differs from the CPU dataset's")
+
+
+def _trace_kernels(trace_dir):
+    """(file, size in bytes, {port kernel name: events}) of the one trace
+    under trace_dir."""
+    files = os.listdir(trace_dir)
+    check(len(files) == 1 and files[0].endswith(".pt.trace.json"),
+          f"profile_dir holds {files}, want one trace of epoch 0")
+    path = os.path.join(trace_dir, files[0])
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    found = dict.fromkeys(TRACE_KERNELS, 0)
+    for e in events:
+        if e.get("cat") == "kernel":
+            for k in TRACE_KERNELS:
+                found[k] += k in e.get("name", "")
+    return files[0], os.path.getsize(path), found
+
+
+def data_path_phase(torch):
+    """The training run from raw items at full ViT-B width and depth, bf16,
+    the encoder inside the step (``cache_embeddings=False``), with every
+    data option: augmentation, the 'Jet' colormap, sample display and the
+    epoch-0 trace; then the host batches against a CPU dataset, the
+    augmented step on the card against the CPU (2-layer cut), and prompt
+    mask inputs on the card against the CPU. Returns the run's launches."""
+    from dilabhelmholtzoct_tpu_torch.data.augment import make_augmenter
+    from dilabhelmholtzoct_tpu_torch.data.pipeline import (PromptedDataset,
+                                                           batches)
+    from dilabhelmholtzoct_tpu_torch.inference import synthetic
+    from dilabhelmholtzoct_tpu_torch.models.configs import sam_vit_base
+    from dilabhelmholtzoct_tpu_torch.train import trainer as tr
+
+    cfg = sam_vit_base()
+    sd_host = synthetic.random_params(cfg, seed=0)
+    train_items = synthetic.oct_training_items(16, seed=1)
+    valid_items = synthetic.oct_training_items(8, seed=2)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "weights.pt")
+        torch.save(sd_host, ckpt)
+        config = tr.TrainConfig(
+            checkpoint=os.path.join(tmp, "ck"), display_name="data",
+            pretrained_checkpoint=ckpt, epochs=2, batch_size=4,
+            evaluate=False, ckpt_keep=1, cache_embeddings=False,
+            data_transforms=DATA_OPS, pseudocolor="Jet",
+            display_mode="predefined", display_idx=(0, 1),
+            profile_dir=os.path.join(tmp, "trace"),
+            log_jsonl=os.path.join(tmp, "metrics.jsonl"))
+        built = []  # (dataset, batches() keywords, batch) the run's loader made
+
+        def recording(ds, batch_size, **kw):
+            for b in batches(ds, batch_size, **kw):
+                built.append((ds, kw, b))
+                yield b
+
+        tr.batches = recording
+        torch.cuda.synchronize()
+        _reset_counts()  # --- data path starts
+        t0 = time.perf_counter()
+        try:
+            result = tr.training(config, splits=(train_items, valid_items))
+        finally:
+            tr.batches = batches
+        torch.cuda.synchronize()
+        got = _counts()  # --- data path ends
+        run_s = time.perf_counter() - t0
+
+        bs = config.batch_size
+        steps = config.epochs * -(-len(train_items) // bs)
+        vsteps = config.epochs * -(-len(valid_items) // bs)
+        chunks = -(-bs // config.encoder_microbatch)  # encodes per batch
+        shown = (config.epochs + 1) * 2 * len(config.display_idx)
+        encodes = (steps + vsteps) * chunks + shown
+        want = {**dict.fromkeys(got, 0),
+                "attn_global": 4 * encodes, "attn_windowed": 8 * encodes,
+                "upscale_fwd": steps + vsteps, "upscale_bwd": steps,
+                "upscale_bwd_dw": steps, "i2t_fwd": 2 * (steps + vsteps),
+                "i2t_bwd": 2 * steps, "i2t_bwd_dw": 2 * steps}
+        print(f"data path (ViT-B bf16, uncached, {len(DATA_OPS)} "
+              f"augmentations, 'Jet', display, trace): {steps} train steps + "
+              f"{vsteps} valid batches of {bs}, {shown} f32 display encodes, "
+              f"launches {got} in {run_s:.1f} s")
+        check(got == want, f"the data path launched {got}, want {want}")
+        hist = result["history"]
+        check([h["epoch"] for h in hist] == [0, 1]
+              and all(np.isfinite([h["train_loss"] for h in hist]))
+              and all(np.isfinite([h["valid_loss"] for h in hist])),
+              f"data path epochs {hist}")
+
+        name, size, found = _trace_kernels(config.profile_dir)
+        print(f"epoch-0 trace {name}: {size / 2**20:.1f} MiB, port kernel "
+              f"events {found}")
+        check(any(found.values()), "the trace names none of the port's "
+                                   "kernels: it is not the card's")
+
+        disp = os.path.join(result["checkpoint_dir"], "display")
+        try:
+            from PIL import Image
+        except ImportError:
+            Image = None
+            print(f"PIL absent: no display panels written ({shown} display "
+                  f"inferences ran on the card, counted above)")
+        if Image is not None:
+            names = sorted(f"{s}_e{e}_i{i}.png" for s in ("train", "test")
+                           for e in range(-1, config.epochs)
+                           for i in config.display_idx)
+            check(sorted(os.listdir(disp)) == names,
+                  f"display panels {sorted(os.listdir(disp))}")
+            for n in names:
+                shape = np.asarray(Image.open(os.path.join(disp, n))).shape
+                check(shape == (496, 1536, 3), f"{n} has shape {shape}")
+            print(f"display panels {len(names)} of (496, 1536, 3)")
+
+        perf = []
+        with open(config.log_jsonl) as f:
+            for line in f:
+                rec = json.loads(line)
+                if "perf/train/step_ms_p50" in rec:
+                    perf.append(rec["perf/train/step_ms_p50"])
+        check(len(perf) == config.epochs, f"step timings {perf}")
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60).stdout.strip()
+        print(f"uncached augmented bf16 step, ViT-B, batch {bs} (4 encodes + "
+              f"{bs} x bucket 8 decoder pairs): median {perf[-1]:.2f} ms "
+              f"({bs * 1e3 / perf[-1]:.1f} img/s) over epoch {config.epochs - 1}"
+              f"'s steps 2-{steps // config.epochs} (epoch 0 under the trace "
+              f"{perf[0]:.2f} ms); {smi}")
+
+    # the host batches against a second dataset with the same options
+    train_ref = PromptedDataset(train_items, prompt_type=config.prompt_type,
+                                pseudocolor="Jet", seed=config.seed,
+                                augment=make_augmenter(DATA_OPS))
+    valid_ref = PromptedDataset(valid_items, prompt_type=config.prompt_type,
+                                pseudocolor="Jet", seed=config.seed + 1)
+    runs = {}
+    for ds, kw, b in built:
+        runs.setdefault((ds.augment is not None, kw["epoch"]),
+                        (kw, []))[1].append(b)
+    check(sorted(runs) == [(a, e) for a in (False, True)
+                           for e in range(config.epochs)],
+          f"loader runs {sorted(runs)}")
+    for (aug, epoch), (kw, got_b) in sorted(runs.items()):
+        ref = list(batches(train_ref if aug else valid_ref, bs, **kw))
+        _same_batches(got_b, ref, f"{'train' if aug else 'valid'} epoch "
+                                  f"{epoch}")
+    n_b = sum(len(v[1]) for v in runs.values())
+    print(f"host batches: {n_b} batches of the run byte-equal to a CPU "
+          f"PromptedDataset's (images, prompts, component maps, masks, "
+          f"indices)")
+
+    # the augmented step, card against CPU, at a 2-layer cut
+    cfg2 = dataclasses.replace(cfg, vision=dataclasses.replace(
+        cfg.vision, num_layers=2, global_attn_indexes=(1,)))
+    sd2 = synthetic.random_params(cfg2, seed=1)
+    b0 = runs[(True, 0)][1][0]
+    b2 = {k: b0[k][:2] for k in ("image", "prompts", "comp_map",
+                                 "channel_mask")}
+    out = {}
+    for name, device in (("card", torch.device("cuda")),
+                         ("cpu", torch.device("cpu"))):
+        decoder, frozen = tr._split_params({k: v.to(device, copy=True)
+                                            for k, v in sd2.items()})
+        for v in decoder.values():
+            v.requires_grad_(True)
+        opt = tr.make_optimizer(config, decoder.values())
+        step = tr.make_train_step(cfg2, config, opt, (496, 512), False)
+        t0 = time.perf_counter()
+        decoder, opt, loss = step(decoder, opt, frozen,
+                                  _device_batch(torch, b2, device))
+        out[name] = (float(loss), {k: (v.detach().cpu() - sd2[k])
+                                   for k, v in decoder.items()})
+        print(f"augmented step on the {name}: "
+              f"{time.perf_counter() - t0:.1f} s")
+    (l_card, d_card), (l_cpu, d_cpu) = out["card"], out["cpu"]
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    share, total = sign_agreement(torch, d_cpu, d_card, config.learning_rate)
+    print(f"card vs cpu, augmented uncached bf16 step on 2 images x bucket "
+          f"8, ViT-B width, depth cut to 2 layers: loss {l_card:.6f} vs "
+          f"{l_cpu:.6f} (rel {rel:.3g}, rtol {STEP_LOSS_RTOL}); update signs "
+          f"agree on {share:.4f} of {total} moved weights (min "
+          f"{SIGN_AGREE_MIN})")
+    check(rel <= STEP_LOSS_RTOL, "card and CPU augmented step losses differ")
+    check(share >= SIGN_AGREE_MIN, "card and CPU augmented updates disagree "
+                                   "in sign")
+    mask_inputs_check(torch, cfg, sd_host)
+    return got
+
+
+def mask_inputs_check(torch, cfg, sd_host):
+    """``sam_forward`` at ViT-B, f32, from a cached embedding with a box and
+    a (1, 256, 256, 1) mask input, on the card against the CPU (the
+    probabilities within ``PROB_ATOL``); the dense embedding differs from the
+    no-mask row; the same forward in bf16 is finite."""
+    from dilabhelmholtzoct_tpu_torch.device import full_fp32
+    from dilabhelmholtzoct_tpu_torch.inference import synthetic
+    from dilabhelmholtzoct_tpu_torch.models import sam as psam
+
+    rng = np.random.default_rng(7)
+    g = cfg.prompt.image_embedding_size
+    emb = rng.normal(size=(1, g, g, cfg.prompt.hidden_size)).astype(np.float32)
+    masks = (rng.normal(size=(1, 4 * g, 4 * g, 1)) * 3).astype(np.float32)
+    boxes = np.asarray([[synthetic.BOX]], np.float32) * 2  # 1024 frame
+    out = {}
+    for name, device in (("card", torch.device("cuda")),
+                         ("cpu", torch.device("cpu"))):
+        sd = {k: v.to(device) for k, v in sd_host.items()
+              if not k.startswith("vision_encoder.")}
+        args = dict(image_embeddings=torch.tensor(emb, device=device),
+                    boxes=torch.tensor(boxes, device=device),
+                    mask_inputs=torch.tensor(masks, device=device))
+        with torch.no_grad(), full_fp32():
+            fwd = psam.sam_forward(sd, cfg, **args)
+            _, dense = psam.encode_prompts(sd, cfg, 1,
+                                           mask_inputs=args["mask_inputs"])
+        out[name] = (torch.sigmoid(fwd["pred_masks"]).cpu().numpy(),
+                     (dense - sd["prompt_encoder.no_mask_embed.weight"][0])
+                     .abs().max().item())
+        if name == "card":
+            sd16 = {k: v.to(torch.bfloat16) for k, v in sd.items()}
+            with torch.no_grad():
+                fwd16 = psam.sam_forward(sd16, cfg, **{
+                    k: v.to(torch.bfloat16) if k != "boxes" else v
+                    for k, v in args.items()})
+            finite16 = bool(torch.isfinite(fwd16["pred_masks"].float()).all())
+    diff = float(np.abs(out["card"][0] - out["cpu"][0]).max())
+    print(f"mask inputs, ViT-B f32 from a cached embedding: max |p_card - "
+          f"p_cpu| {diff:.3g} (atol {PROB_ATOL}); max |dense - no-mask row| "
+          f"{out['card'][1]:.3g}; bf16 forward finite {finite16}")
+    check(out["card"][0].shape == (1, 1, 1, 4 * g, 4 * g),
+          f"mask-input masks of shape {out['card'][0].shape}")
+    check(diff <= PROB_ATOL, "mask-input probabilities differ from the CPU")
+    check(out["card"][1] > 1e-2 and out["cpu"][1] > 1e-2,
+          "the dense embedding is the no-mask row: the mask branch did not "
+          "run")
+    check(finite16, "the bf16 mask-input forward is not finite")
 
 
 def k5_bound_ms(kind, b, n, heads, hw, itemsize, peak):
@@ -1679,12 +1960,7 @@ def finetune_card_vs_cpu(torch, tr, cfg, compute_dtype="bfloat16"):
               f"{time.perf_counter() - t0:.1f} s")
     (l_card, d_card), (l_cpu, d_cpu) = out["card"], out["cpu"]
     rel = abs(l_card - l_cpu) / abs(l_cpu)
-    agree = total = 0
-    for k, dc in d_cpu.items():
-        moved = dc.abs() > 1e-3 * config.learning_rate
-        agree += int((torch.sign(dc) == torch.sign(d_card[k]))[moved].sum())
-        total += int(moved.sum())
-    share = agree / max(total, 1)
+    share, total = sign_agreement(torch, d_cpu, d_card, config.learning_rate)
     print(f"card vs cpu, first full fine-tune {tname} step on 1 image x "
           f"bucket 8, ViT-B width, depth cut to 2 layers (layer 0 windowed, "
           f"layer 1 global) of 12: loss {l_card:.8f} vs {l_cpu:.8f} (rel "
@@ -2379,6 +2655,9 @@ def main() -> int:
     t0 = time.perf_counter()
     launches.update(training_phase(torch))
     print(f"[phases] training {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    data_path_phase(torch)
+    print(f"[phases] data path {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     launches.update({f"{k}_f32": v
                      for k, v in decoder_f32_fused_phase(torch).items()})

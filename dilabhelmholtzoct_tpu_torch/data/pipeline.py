@@ -4,7 +4,8 @@ Port of ``dilabhelmholtzoct_tpu/data/pipeline.py``: prompt sampling runs in
 a thread pool while the card computes, and batches come out in static
 bucketed shapes (``data/sampling.collate``). Each item's randomness comes
 from ``SeedSequence([seed, epoch, idx])``, so a run is reproducible and the
-same seeds give the JAX package's prompts draw for draw.
+same seeds give the JAX package's augmentations and prompts draw for
+draw.
 """
 
 from __future__ import annotations
@@ -20,30 +21,37 @@ from .sampling import (
     collate,
     extract_components,
     prompts_from_extraction,
+    sample_prompts,
 )
 from .store import item_arrays
+from ..ops.preprocess import colormap_lut
 
 
 class PromptedDataset:
     """Per-item prompt sampling over a stored split (any indexable sequence
     of {'image', 'label'} items).
 
-    The component labelling of each label map is cached across epochs (it
-    is a pure function of the map); only the jitter / point draws are fresh
-    per epoch. Colormap pseudocolouring is not ported yet: ``pseudocolor``
-    other than None / 'grayscale' raises."""
+    ``__getitem__`` draws everything of one access from
+    ``SeedSequence([seed, epoch, idx])``: the augmentation (``augment``, a
+    ``data/augment.Augmenter``) first, then the prompts; the pseudocolor map
+    (``pseudocolor``, a name of ``ops/preprocess.COLORMAP_NAMES``) is applied
+    to channel 0 after the augmentation. The component labelling of each
+    label map is cached across epochs (a pure function of the map; only the
+    jitter / point draws are fresh per epoch), except under augmentation,
+    where the map changes every access."""
 
     def __init__(self, dataset, *, prompt_type: str = "bboxes",
-                 pseudocolor: str | None = None, seed: int = 0):
-        if pseudocolor not in (None, "grayscale"):
-            raise NotImplementedError(
-                f"pseudocolor {pseudocolor!r}: the colormap LUTs are not "
-                "ported yet (None or 'grayscale' only)")
+                 pseudocolor: str | None = None, seed: int = 0,
+                 augment=None):
         self.dataset = dataset
         self.prompt_type = prompt_type
+        self._lut = (None if pseudocolor in (None, "grayscale")
+                     else colormap_lut(pseudocolor))
         self._seed = seed
         self._epoch = 0
-        self._comp_cache: dict[int, tuple] = {}
+        self.augment = augment
+        self._comp_cache: dict[int, tuple] | None = (
+            {} if augment is None else None)
         # label-only view: HF datasets decode every column on row access,
         # and prompt sampling needs only the label map
         self._labels_only = None
@@ -59,8 +67,13 @@ class PromptedDataset:
     def set_epoch(self, epoch: int):
         self._epoch = epoch
 
+    def _colored(self, image: np.ndarray) -> np.ndarray:
+        return image if self._lut is None else self._lut[image[:, :, 0]]
+
     def image(self, idx: int) -> np.ndarray:
-        return item_arrays(self.dataset[int(idx)])[0]
+        """The stored image, pseudocolored, not augmented (the embedding
+        precompute's input)."""
+        return self._colored(item_arrays(self.dataset[int(idx)])[0])
 
     def _rng(self, idx: int) -> np.random.Generator:
         return np.random.default_rng(
@@ -73,6 +86,10 @@ class PromptedDataset:
         return item_arrays(self.dataset[int(idx)])[1]
 
     def _sample_cached(self, idx: int, rng, label=None) -> PromptedSample:
+        if self._comp_cache is None:
+            if label is None:
+                label = self._label(idx)
+            return sample_prompts(label, self.prompt_type, rng)
         hit = self._comp_cache.get(idx)
         if hit is None:
             if label is None:
@@ -81,19 +98,31 @@ class PromptedDataset:
             self._comp_cache[idx] = hit
         return prompts_from_extraction(hit[0], hit[1], self.prompt_type, rng)
 
+    def _refuse_augment(self, what: str):
+        if self.augment is not None:
+            raise ValueError(
+                f"{what} is unavailable with data augmentation (the "
+                "augmented image and labels change every access); set "
+                "cache_embeddings=False")
+
     def sample(self, idx: int) -> PromptedSample:
         """Prompts only, no image decode (the embedding-cache path)."""
+        self._refuse_augment("sample()")
         return self._sample_cached(int(idx), self._rng(idx))
 
     def comp_map(self, idx: int) -> np.ndarray:
         """(H, W) int32 component-slot map of one item (RNG-free), so the
         trainer can stage every map on the card once."""
+        self._refuse_augment("comp_map()")
         return self._sample_cached(int(idx), np.random.default_rng(0)).comp_map
 
     def __getitem__(self, idx: int) -> tuple[np.ndarray, PromptedSample]:
         image, label = item_arrays(self.dataset[int(idx)])
-        return image, self._sample_cached(int(idx), self._rng(idx),
-                                          label=label)
+        rng = self._rng(idx)
+        if self.augment is not None:
+            image, label = self.augment(image, label, rng)
+        return self._colored(image), self._sample_cached(int(idx), rng,
+                                                         label=label)
 
 
 def batches(dataset: PromptedDataset, batch_size: int, *,

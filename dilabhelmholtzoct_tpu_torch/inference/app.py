@@ -10,7 +10,8 @@ Run:
         --checkpoint /path/to/finetuned.pt [--share] [--device cuda]
 
 Gradio is optional and imported only by ``main``; ``segment_event`` works
-without it.
+without it. ``inference/app_organoid.py`` is the same app with whole-pickled
+``.pth`` checkpoints accepted by default.
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ def build_demo(engine: SegmentationEngine):
     )
 
 
-def main(argv=None):
+def main(argv=None, *, allow_pickled_module_default: bool = False):
     parser = argparse.ArgumentParser()
     parser.add_argument("--base_model", type=str,
                         default="facebook/sam-vit-base")
@@ -65,6 +66,7 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="'cuda' (default) or 'cpu'")
     parser.add_argument("--allow_pickled_module", action="store_true",
+                        default=allow_pickled_module_default,
                         help="accept whole-pickled-module .pth checkpoints; "
                              "pickles can execute code, so opt-in")
     args = parser.parse_args(argv)

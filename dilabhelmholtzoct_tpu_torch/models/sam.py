@@ -6,7 +6,8 @@ fine-tuning paths:
   * ViTDet image encoder (windowed + global attention with decomposed
     relative-position bias, convolutional neck);
   * prompt encoder (random-Fourier positional encoding, point and box
-    embeddings, the broadcast no-mask dense embedding);
+    embeddings, the dense embedding of a mask input or the broadcast
+    no-mask one);
   * two-way-transformer mask decoder (iou head, hypernetwork MLPs, the
     transposed-conv upscaler in the natural or the blocked layout).
 
@@ -325,11 +326,33 @@ def embed_boxes(sd, boxes, cfg: SamConfig):
     return emb + offs[None, None]
 
 
+def embed_mask_input(sd, masks, cfg: SamConfig):
+    """masks (B, H, W, 1) NHWC low-res mask input -> dense (B, G, G, C):
+    a stride-2 conv, LayerNorm (f32), GELU, a stride-2 conv, LayerNorm,
+    GELU and a 1x1 conv, in masks' dtype. Each conv is ``F.conv2d`` on the
+    HF (out, in, kh, kw) weight without its bias, the bias added after the
+    conv's rounding to masks' dtype, as the JAX package adds it."""
+    pf = "prompt_encoder.mask_embed"
+    eps = cfg.prompt.layer_norm_eps
+
+    def conv(x, name, stride):
+        y = F.conv2d(x.permute(0, 3, 1, 2),
+                     sd[f"{pf}.{name}.weight"].to(x.dtype), stride=stride)
+        return y.permute(0, 2, 3, 1) + sd[f"{pf}.{name}.bias"].to(x.dtype)
+
+    x = conv(masks, "conv1", 2)
+    x = gelu(layer_norm(x, sd, f"{pf}.layer_norm1", eps))
+    x = conv(x, "conv2", 2)
+    x = gelu(layer_norm(x, sd, f"{pf}.layer_norm2", eps))
+    return conv(x, "conv3", 1)
+
+
 def encode_prompts(sd, cfg: SamConfig, batch_size: int, points=None,
-                   labels=None, boxes=None, dtype=torch.float32):
+                   labels=None, boxes=None, mask_inputs=None,
+                   dtype=torch.float32):
     """Returns (sparse (B, P, T, C) or None, dense (B, G, G, C)). The dense
-    prompt is the broadcast no-mask embedding (mask inputs are not on the
-    serving path)."""
+    prompt is ``embed_mask_input(mask_inputs)`` when a (B, 4G, 4G, 1) mask
+    input is given, else the broadcast no-mask embedding."""
     sparse = None
     if points is not None:
         if labels is None:
@@ -340,8 +363,11 @@ def encode_prompts(sd, cfg: SamConfig, batch_size: int, points=None,
         box_emb = embed_boxes(sd, boxes, cfg)
         sparse = box_emb if sparse is None else torch.cat([sparse, box_emb], 2)
     g = cfg.prompt.image_embedding_size
-    dense = _embed_row(sd, "no_mask_embed").to(dtype).expand(
-        batch_size, g, g, cfg.prompt.hidden_size)
+    if mask_inputs is not None:
+        dense = embed_mask_input(sd, mask_inputs, cfg).to(dtype)
+    else:
+        dense = _embed_row(sd, "no_mask_embed").to(dtype).expand(
+            batch_size, g, g, cfg.prompt.hidden_size)
     if sparse is not None:
         sparse = sparse.to(dtype)
     return sparse, dense
@@ -695,15 +721,18 @@ def decode_masks(sd, cfg: SamConfig, image_embeddings, image_pe,
 
 
 def sam_forward(sd, cfg: SamConfig, pixel_values=None, image_embeddings=None,
-                points=None, labels=None, boxes=None,
+                points=None, labels=None, boxes=None, mask_inputs=None,
                 multimask_output: bool = False):
-    """Full SAM forward (HF ``SamModel.forward``'s contract, NHWC tensors);
-    pred_masks are the low-res logits before the postprocess."""
+    """Full SAM forward (HF ``SamModel.forward``'s contract, NHWC tensors;
+    ``mask_inputs`` (B, 4G, 4G, 1) low-res masks, as HF's
+    ``input_masks``); pred_masks are the low-res logits before the
+    postprocess."""
     if image_embeddings is None:
         image_embeddings = encode_image(sd, pixel_values, cfg)
     b = image_embeddings.shape[0]
     sparse, dense = encode_prompts(sd, cfg, b, points=points, labels=labels,
-                                   boxes=boxes, dtype=image_embeddings.dtype)
+                                   boxes=boxes, mask_inputs=mask_inputs,
+                                   dtype=image_embeddings.dtype)
     pe = image_wide_pe(sd, cfg)
     masks, iou = decode_masks(sd, cfg, image_embeddings, pe, sparse, dense,
                               multimask_output)

@@ -11,12 +11,21 @@ The general resize is a separable linear map: ``resize_matrix`` builds the
 (triangle kernel, edge renormalisation and, when downscaling with
 ``antialias=True``, the widened kernel), and the image is resized by two
 full-f32 products.
+
+The pseudocolor maps (``COLORMAP_NAMES``, ``colormap_lut``,
+``apply_pseudocolor``) are the reference's 23 OpenCV colormaps as (256, 3)
+uint8 lookup tables, applied to channel 0; the tables ship as data in
+``ops/colormaps.py``.
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 import torch
+
+from . import colormaps
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -112,3 +121,38 @@ def rescale_boxes(boxes: torch.Tensor, orig_hw, target_size: int = 1024):
     shape = boxes.shape
     return rescale_coords(boxes.reshape(*shape[:-1], 2, 2), orig_hw,
                           target_size).reshape(shape)
+
+
+# ---------------------------------------------------------------------------
+# Pseudocolor maps: the reference's 23 OpenCV colormaps as 256x3 lookup tables
+# ---------------------------------------------------------------------------
+
+COLORMAP_NAMES = colormaps.NAMES + ("grayscale",)
+
+
+@lru_cache(maxsize=None)
+def colormap_lut(name: str) -> np.ndarray:
+    """(256, 3) uint8 table of a colormap of ``COLORMAP_NAMES``, read-only.
+
+    The channel order is cv2's BGR, as the reference reads its images with
+    cv2 and applies ``cv2.applyColorMap`` without converting to RGB;
+    'grayscale' is the identity map."""
+    if name == "grayscale":
+        g = np.arange(256, dtype=np.uint8)
+        lut = np.stack([g, g, g], axis=-1)
+    elif name in colormaps.NAMES:
+        lut = colormaps.table(name)
+    else:
+        raise ValueError(f"unknown colormap {name!r}; known: {COLORMAP_NAMES}")
+    lut.setflags(write=False)
+    return lut
+
+
+def apply_pseudocolor(gray, lut):
+    """gray: (..., H, W) uint8 channel-0 intensities; lut: (256, 3) uint8 ->
+    (..., H, W, 3) uint8 (``cv2.applyColorMap(image[:, :, 0], colormap)``).
+    A tensor gathers on its own device, an array indexes in numpy."""
+    if isinstance(gray, torch.Tensor):
+        table = torch.tensor(np.asarray(lut), device=gray.device)
+        return table[gray.long()]
+    return np.asarray(lut)[gray]

@@ -2,10 +2,11 @@
 
 Port of ``dilabhelmholtzoct_tpu/train/cli.py``: the same flags build the
 same ``TrainConfig``, and training runs on the card and ends, unless
-``--evaluate false``, with the evaluation report on the test split. Parts of
-the loop that later slices port (display, augmentation, multi-host)
-raise ``NotImplementedError`` when asked for.
-Without the ``datasets`` package, call
+``--evaluate false``, with the evaluation report on the test split.
+``--multihost true`` raises ``NotImplementedError`` (a later slice).
+The dataset comes from ``python -m
+dilabhelmholtzoct_tpu_torch.data.preprocessing``. Without the ``datasets``
+package, call
 ``train.trainer.training(config, splits=...)`` from Python instead.
 
 Flag-name parity with octsam/models/training.py:20-93 (``--base_model
@@ -27,18 +28,9 @@ import argparse
 import os
 
 from ..data.store import timestamp
+from ..ops.preprocess import COLORMAP_NAMES
 from ..utils.flags import str2bool as _str2bool  # shared strict parser
 from .trainer import TrainConfig, training
-
-# the JAX package's colormap names (ops/preprocess.py): the flag keeps its
-# choices; PromptedDataset raises for all but grayscale until the LUTs are
-# ported
-COLORMAP_NAMES = (
-    "Autumn", "Bone", "Cividis", "Cool", "Deepgreen", "Hot", "HSV",
-    "Inferno", "Jet", "Magma", "Ocean", "Parula", "Pink", "Plasma",
-    "Rainbow", "Viridis", "Winter", "Spring", "Summer",
-    "Twilight shifted", "Twilight", "Turbo", "grayscale",
-)
 
 # 14-class custom OCT label names (training.py:146-163)
 CUSTOM_MASK_DICT = {

@@ -7,6 +7,7 @@ preset (``--base_model facebook/sam-vit-huge``: every encoder layer on K6).
         --compute_dtype float32
     python -m dilabhelmholtzoct_tpu_torch.train.profile_train --precompute \
         [--base_model facebook/sam-vit-huge]
+    python -m dilabhelmholtzoct_tpu_torch.train.profile_train --uncached
 
 Builds a train step of ``train/trainer.py`` on the seeded workload
 (``inference/synthetic.py``: random ViT-B weights, synthetic OCT items of 8
@@ -19,6 +20,9 @@ components each), runs three warm-up steps and then ``--steps`` steps under
   * ``--trainable all``: the full fine-tune step as ``chip_smoke.py`` runs
     it (BASELINE config 5 geometry): 4 images x bucket 8, the encoder
     inside the gradient with every layer checkpointed;
+  * ``--uncached``: the decoder step with the frozen encoder inside it
+    (``cache_embeddings=False``, the path of ``data_transforms``) on 4
+    images x bucket 8, as ``chip_smoke.py``'s data path runs it;
   * ``--compute_dtype float32`` (with either ``--trainable``): the step in
     f32 (the encoder attention's K1 / K2 / K5 in split TF32 on the tensor
     cores; the decoder's plain route) instead of bf16;
@@ -63,6 +67,9 @@ def main(argv=None) -> int:
                         default="bfloat16",
                         help="the train step's compute dtype (the precompute "
                              "stays bf16)")
+    parser.add_argument("--uncached", action="store_true",
+                        help="the decoder step with the frozen encoder "
+                             "inside (4 images, cache_embeddings=False)")
     parser.add_argument("--precompute", action="store_true",
                         help="profile the bf16 embedding precompute of the 8 "
                              "images instead of train steps")
@@ -85,16 +92,17 @@ def main(argv=None) -> int:
                        1, args.top)
         return 0
     full = args.trainable == "all"
-    bs = 4 if full else 8
+    with_images = full or args.uncached
+    bs = 4 if with_images else 8
     ds = PromptedDataset(synthetic.oct_training_items(bs, seed=1), seed=0)
     config = tr.TrainConfig(evaluate=False, batch_size=bs,
                             trainable=args.trainable,
-                            cache_embeddings=not full,
+                            cache_embeddings=not with_images,
                             compute_dtype=args.compute_dtype)
-    batch = list(batches(ds, bs, with_images=full, num_workers=2))[0]
+    batch = list(batches(ds, bs, with_images=with_images, num_workers=2))[0]
     db = {k: torch.as_tensor(batch[k]).to(dev)
           for k in ("prompts", "comp_map", "channel_mask")}
-    if full:
+    if with_images:
         db["image"] = torch.as_tensor(batch["image"]).to(dev)
     else:
         db["embeddings"] = tr.precompute_embeddings(sd, cfg, ds,
@@ -103,12 +111,13 @@ def main(argv=None) -> int:
     for v in params.values():
         v.requires_grad_(True)
     opt = tr.make_optimizer(config, params.values())
-    step = tr.make_train_step(cfg, config, opt, (496, 512), not full)
+    step = tr.make_train_step(cfg, config, opt, (496, 512), not with_images)
     for _ in range(3):
         step(params, opt, frozen, db)
     tname = "bf16" if args.compute_dtype == "bfloat16" else "f32"
     what = (f"full fine-tune step {tname}, 4 images x bucket 8" if full
-            else f"train step {tname}, 8 images x bucket 8")
+            else f"uncached train step {tname}, 4 images x bucket 8"
+            if args.uncached else f"train step {tname}, 8 images x bucket 8")
     profile_window(f"{what}, x{args.steps}",
                    lambda: step(params, opt, frozen, db), args.steps,
                    args.top)

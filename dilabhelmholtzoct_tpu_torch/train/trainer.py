@@ -41,14 +41,23 @@ returns ``loss=None`` and ``step.flush`` runs the last batch). Both host
 modes cache the ground-truth diagrams across epochs and skip bucket-padding
 rows; the epoch loop feeds each host batch through ``set_host_batch``.
 
-Not in this slice (each raises ``NotImplementedError``): sample display,
-augmentation (``data_transforms``), multi-host / data parallelism and
-profiler traces. With one card ``data_parallel`` is a no-op, as in JAX.
+With ``data_transforms`` the train split is augmented on the host
+(``data/augment.py``; it needs ``cache_embeddings=False``, as in JAX), and
+``pseudocolor`` maps both splits through a colormap LUT. With
+``display_mode`` other than 'none' the sample overlays of
+``train/display.py`` are made before the first epoch and after each
+epoch's checkpoint; with ``profile_dir`` the first epoch run is traced
+(``utils/profiling.profile_trace``).
+
+Not in this slice: multi-host / data parallelism (``multihost`` raises
+``NotImplementedError``). With one card ``data_parallel`` is a no-op, as in
+JAX.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import os
 import time
@@ -57,6 +66,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..data.augment import make_augmenter
 from ..data.pipeline import PromptedDataset, batches
 from ..data.sampling import DEFAULT_BUCKETS, gt_masks_from_comp_map
 from ..data.store import load_split
@@ -85,7 +95,8 @@ from ..ops.topology import (
 from ..ops.topology_device import topo_loss_device
 from ..utils import checkpoint as ckpt_utils
 from ..utils.logging import MultiLogger, make_logger
-from ..utils.profiling import StepTimer
+from ..utils.profiling import StepTimer, profile_trace
+from .display import display_samples
 
 DECODER_PREFIX = "mask_decoder."
 
@@ -145,23 +156,21 @@ class TrainConfig:
 
 
 def _check_supported(config: TrainConfig, *, loop: bool = True) -> None:
-    """Raise for the parts of the JAX training path that later slices port;
-    ``loop=False`` checks only what a train step itself runs."""
+    """Raise for configurations the run cannot take, and for multihost, which
+    a later slice ports; ``loop=False`` checks only what a train step itself
+    runs."""
     if config.trainable not in ("decoder", "all"):
         raise ValueError(f"unknown trainable {config.trainable!r}")
     if not loop:
         return
-    later = [
-        (config.display_mode != "none", "display_mode != 'none' (display)"),
-        (bool(config.data_transforms), "data_transforms (augmentation)"),
-        (config.multihost, "multihost (data parallelism)"),
-        (bool(config.profile_dir), "profile_dir (training traces)"),
-    ]
-    for on, what in later:
-        if on:
-            raise NotImplementedError(
-                f"{what} is not ported to PyTorch yet: a later slice of the "
-                "port; pass it off")
+    if config.multihost:
+        raise NotImplementedError(
+            "multihost (data parallelism) is not ported to PyTorch yet: a "
+            "later slice of the port; pass it off")
+    if config.data_transforms and config.cache_embeddings:
+        raise ValueError(
+            "data_transforms requires cache_embeddings=False (augmented "
+            "images invalidate cached encoder outputs)")
     if config.trainable == "all" and config.cache_embeddings:
         raise ValueError(
             "trainable='all' requires cache_embeddings=False (the encoder "
@@ -646,7 +655,8 @@ def _training_impl(config: TrainConfig, logger: MultiLogger, splits,
                   load_split(config.dataset, "test"))
     train_ds = PromptedDataset(splits[0], prompt_type=config.prompt_type,
                                pseudocolor=config.pseudocolor,
-                               seed=config.seed)
+                               seed=config.seed,
+                               augment=make_augmenter(config.data_transforms))
     valid_ds = PromptedDataset(splits[1], prompt_type=config.prompt_type,
                                pseudocolor=config.pseudocolor,
                                seed=config.seed + 1)
@@ -710,28 +720,41 @@ def _training_impl(config: TrainConfig, logger: MultiLogger, splits,
             out["image"] = torch.as_tensor(batch["image"]).to(dev)
         return out
 
+    def run_display(epoch):
+        if config.display_mode == "none":
+            return
+        full = _merge_params({k: v.detach() for k, v in params.items()},
+                             frozen)
+        for split, ds in (("train", train_ds), ("test", valid_ds)):
+            display_samples(full, cfg, config, ds, split, logger, run_dir,
+                            epoch=epoch, orig_hw=orig_hw, device=dev)
+
     history = []
     timer = StepTimer(logger, prefix="perf/train", device=dev)
+    run_display(start_epoch - 1)
     for epoch in range(start_epoch, config.epochs):
         t0 = time.time()
         losses = []
-        for batch in batches(train_ds, config.batch_size,
-                             shuffle=config.shuffle, seed=config.seed,
-                             epoch=epoch, buckets=config.buckets,
-                             with_images=not use_cache):
-            if hasattr(train_step, "set_host_batch"):
-                train_step.set_host_batch(batch)  # the GT-diagram cache
-            db = device_batch(batch, train_emb, train_cm)
-            with timer:
-                params, optimizer, loss = train_step(params, optimizer,
-                                                     frozen, db)
-            if loss is not None:  # the pipelined host mode defers a batch
-                losses.append(loss)
-        if hasattr(train_step, "flush"):
-            params, optimizer, loss = train_step.flush(params, optimizer,
-                                                       frozen)
-            if loss is not None:
-                losses.append(loss)
+        trace = (profile_trace(config.profile_dir, dev)
+                 if epoch == start_epoch else contextlib.nullcontext())
+        with trace:
+            for batch in batches(train_ds, config.batch_size,
+                                 shuffle=config.shuffle, seed=config.seed,
+                                 epoch=epoch, buckets=config.buckets,
+                                 with_images=not use_cache):
+                if hasattr(train_step, "set_host_batch"):
+                    train_step.set_host_batch(batch)  # the GT-diagram cache
+                db = device_batch(batch, train_emb, train_cm)
+                with timer:
+                    params, optimizer, loss = train_step(params, optimizer,
+                                                         frozen, db)
+                if loss is not None:  # the pipelined host mode defers one
+                    losses.append(loss)
+            if hasattr(train_step, "flush"):
+                params, optimizer, loss = train_step.flush(params, optimizer,
+                                                           frozen)
+                if loss is not None:
+                    losses.append(loss)
         t_train = time.time() - t0
         # one device fetch for the epoch, not one sync per step
         total = float(torch.stack(losses).sum()) if losses else 0.0
@@ -766,7 +789,8 @@ def _training_impl(config: TrainConfig, logger: MultiLogger, splits,
                              "opt_state": optimizer.state_dict(),
                              "epoch": epoch},
             keep=config.ckpt_keep)
-        print(f"[epoch {epoch}] ckpt {time.time() - t_ck:.1f}s")
+        run_display(epoch)
+        print(f"[epoch {epoch}] ckpt+display {time.time() - t_ck:.1f}s")
 
     params_final = tie_shared_pe(_merge_params(
         {k: v.detach() for k, v in params.items()}, frozen))

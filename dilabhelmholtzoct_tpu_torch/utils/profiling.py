@@ -1,18 +1,41 @@
-"""Step timing on the card.
+"""Traces and step timing on the card.
 
-Port of ``dilabhelmholtzoct_tpu/utils/profiling.py``'s ``StepTimer``: per-step
-wall times with p50 / p95 / max summaries through the logging facade. The
-card runs asynchronously, so the timer synchronises the device before it
-reads the clock at each end of a step; a host clock without that measures
-the enqueue.
+Port of ``dilabhelmholtzoct_tpu/utils/profiling.py``: ``profile_trace``
+records the enclosed block with ``torch.profiler`` (host activity, and the
+card's kernels when it runs there) and writes a Chrome trace that TensorBoard
+and Perfetto read; ``StepTimer`` keeps per-step wall times with p50 / p95 /
+max summaries through the logging facade. The card runs asynchronously, so
+the timer synchronises the device before it reads the clock at each end of a
+step; a host clock without that measures the enqueue.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
 import torch
+
+
+@contextlib.contextmanager
+def profile_trace(logdir: str | None, device=None):
+    """Trace the enclosed block into ``logdir`` (a no-op when logdir is
+    None or empty): CPU activity always, the card's (CUDA) too when
+    ``device`` is a CUDA device. The trace is written when the block ends,
+    as ``<host>_<pid>.<ns>.pt.trace.json``."""
+    if not logdir:
+        yield
+        return
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    activities = [ProfilerActivity.CPU]
+    if device is not None and torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(logdir)):
+        yield
 
 
 class StepTimer:

@@ -114,8 +114,14 @@ def test_batches_match_jax(prompt_type, with_images):
 
 
 def test_pseudocolor_luts_not_ported():
-    with pytest.raises(NotImplementedError, match="colormap"):
-        ppipe.PromptedDataset(_items(1), pseudocolor="Bone")
+    """The LUTs are ported now: 'Bone' colours the image as the JAX
+    package's dataset does, and a name outside COLORMAP_NAMES raises."""
+    items = _items(1)
+    got = ppipe.PromptedDataset(items, pseudocolor="Bone").image(0)
+    _same(got, jpipe.PromptedDataset(items, pseudocolor="Bone").image(0),
+          "image")
+    with pytest.raises(ValueError, match="colormap"):
+        ppipe.PromptedDataset(items, pseudocolor="NoSuchMap")
 
 
 def test_gt_masks_from_comp_map_matches_jax():

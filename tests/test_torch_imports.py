@@ -1,6 +1,8 @@
 """Import hygiene of the port: no module of ``dilabhelmholtzoct_tpu_torch``
 and not ``chip_smoke.py`` imports JAX or the JAX package, and none imports
-``triton`` at module level (the CPU hosts that run the tests have none)."""
+at module level ``triton`` (the CPU hosts that run the tests have none) or
+``cv2``, ``PIL``, ``datasets``, ``gradio`` and ``wandb`` (the card machine
+has none of these)."""
 
 import ast
 import pathlib
@@ -11,6 +13,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "dilabhelmholtzoct_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "dilabhelmholtzoct_tpu")
+# imported only inside the functions that use them
+NOT_AT_MODULE_LEVEL = ("cv2", "PIL", "datasets", "gradio", "wandb")
 
 
 def _imports(tree):
@@ -60,3 +64,18 @@ def test_no_jax_and_no_module_level_triton(path):
         assert not _forbidden(name), f"{path.name} imports {name}"
         assert not (top and name.split(".")[0] == "triton"), (
             f"{path.name} imports triton at module level")
+
+
+def test_scanner_flags_module_level_host_packages():
+    src = ("import cv2\nfrom PIL import Image\nimport datasets.arrow\n"
+           "def f():\n    import wandb\n    import gradio as gr\n")
+    top = [n for n, t in _imports(ast.parse(src)) if t]
+    assert top == ["cv2", "PIL", "datasets.arrow"]
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT)
+                         .as_posix())
+def test_no_module_level_cv2_pil_datasets_gradio_wandb(path):
+    for name, top in _imports(ast.parse(path.read_text(), str(path))):
+        assert not (top and name.split(".")[0] in NOT_AT_MODULE_LEVEL), (
+            f"{path.name} imports {name} at module level")

@@ -5,8 +5,9 @@ image-layout windowed forward K7, the upscaler K3 and the image->token
 attention K4 (their forwards on the tensor cores, bf16 and f32 in split
 TF32; the backwards of both as their two launches, the row pass and the
 weight pass, each against its plain twin); the topological loss's pairing
-T1 and matching T2 against their numpy twins and the host library; and one
-request through a small engine on the card.
+T1 and matching T2 against their numpy twins and the host library; one
+request through a small engine on the card; and, card against CPU, prompt
+mask inputs and one augmented uncached bf16 train step.
 
 Needs an NVIDIA card and nvcc; skips without a card. This file imports
 neither JAX nor tests/conftest.py's fixtures, so where JAX is not installed
@@ -945,3 +946,114 @@ def test_topo_loss_device_on_card(cuda_device):
         np.testing.assert_allclose(out["card"][0], out[name][0], rtol=2e-5)
         np.testing.assert_allclose(out["card"][1], out[name][1], rtol=1e-4,
                                    atol=1e-6)
+
+
+def _small_encoder_vitb_decoder():
+    """The test-size encoder (3 layers of 4 heads of 16: K6) in front of
+    ViT-B's prompt encoder and decoder (256 wide, 8 heads: the widths the
+    bf16 K4 kernels take) on an 8x8 grid."""
+    import dataclasses
+
+    from dilabhelmholtzoct_tpu_torch.models.configs import (sam_tiny,
+                                                            sam_vit_base)
+
+    base, tiny = sam_vit_base(), sam_tiny()
+    return dataclasses.replace(
+        base, vision=dataclasses.replace(tiny.vision, output_channels=256),
+        prompt=dataclasses.replace(base.prompt, image_embedding_size=8,
+                                   input_image_size=128))
+
+
+@pytest.mark.gpu
+def test_mask_inputs_on_card(cuda_device):
+    """``embed_mask_input`` (cuDNN convs under ``full_fp32``) and
+    ``sam_forward(mask_inputs=)`` at ``_small_encoder_vitb_decoder`` (K6
+    for the 3 encoder layers) on the card against the CPU, f32: the dense
+    embedding within 1e-5, the masks within atol 3e-4 / rtol 1e-3 (the
+    port's sam_forward tolerance against JAX); a bf16 forward (K4 in the
+    decoder) is finite."""
+    from dilabhelmholtzoct_tpu_torch.device import full_fp32
+    from dilabhelmholtzoct_tpu_torch.inference import synthetic
+    from dilabhelmholtzoct_tpu_torch.models import sam as psam
+
+    cfg = _small_encoder_vitb_decoder()
+    sd = synthetic.random_params(cfg, seed=1)
+    rng = np.random.default_rng(2)
+    g = cfg.prompt.image_embedding_size
+    masks = (rng.normal(size=(2, 4 * g, 4 * g, 1)) * 3).astype(np.float32)
+    pix = rng.normal(size=(2, 128, 128, 3)).astype(np.float32)
+    boxes = rng.uniform(0, 120, (2, 1, 4)).astype(np.float32)
+    out = {}
+    for name, dev in (("card", cuda_device), ("cpu", torch.device("cpu"))):
+        sdd = {k: v.to(dev) for k, v in sd.items()}
+        with torch.no_grad(), full_fp32():
+            dense = psam.embed_mask_input(sdd, torch.tensor(masks, device=dev),
+                                          cfg)
+            fwd = psam.sam_forward(sdd, cfg,
+                                   pixel_values=torch.tensor(pix, device=dev),
+                                   boxes=torch.tensor(boxes, device=dev),
+                                   mask_inputs=torch.tensor(masks, device=dev))
+        out[name] = (dense.cpu().numpy(), fwd["pred_masks"].cpu().numpy())
+    np.testing.assert_allclose(out["card"][0], out["cpu"][0], atol=1e-5,
+                               rtol=1e-5)
+    np.testing.assert_allclose(out["card"][1], out["cpu"][1], atol=3e-4,
+                               rtol=1e-3)
+    sd16 = {k: v.to(cuda_device, torch.bfloat16) for k, v in sd.items()}
+    with torch.no_grad():
+        fwd16 = psam.sam_forward(
+            sd16, cfg, pixel_values=torch.tensor(pix, device=cuda_device,
+                                                 dtype=torch.bfloat16),
+            boxes=torch.tensor(boxes, device=cuda_device),
+            mask_inputs=torch.tensor(masks, device=cuda_device,
+                                     dtype=torch.bfloat16))
+    assert bool(torch.isfinite(fwd16["pred_masks"].float()).all())
+
+
+@pytest.mark.gpu
+def test_augmented_uncached_bf16_step_on_card(cuda_device):
+    """One bf16 decoder step with the encoder inside (K6, and K4 in the
+    decoder, at ``_small_encoder_vitb_decoder``) on a batch of an
+    augmented, 'Jet'-coloured dataset, on the card
+    and on the CPU from the same weights: the loss within 2e-2 relative and
+    at least 90% of the moved decoder weights moved the same way
+    (chip_smoke.py's STEP_LOSS_RTOL and SIGN_AGREE_MIN)."""
+    from dilabhelmholtzoct_tpu_torch.data.augment import make_augmenter
+    from dilabhelmholtzoct_tpu_torch.data.pipeline import (PromptedDataset,
+                                                           batches)
+    from dilabhelmholtzoct_tpu_torch.inference import synthetic
+    from dilabhelmholtzoct_tpu_torch.train import trainer as tr
+
+    cfg = _small_encoder_vitb_decoder()
+    sd = synthetic.random_params(cfg, seed=3)
+    items = [{"image": it["image"][:120, :128], "label": it["label"][:120, :128]}
+             for it in synthetic.oct_training_items(2, seed=4)]
+    ops = ("hflip", "vflip", "brightness", "contrast", "gaussian_noise",
+           "shift")
+    ds = PromptedDataset(items, pseudocolor="Jet", seed=5,
+                         augment=make_augmenter(ops))
+    batch = next(iter(batches(ds, 2, epoch=1, num_workers=1)))
+    config = tr.TrainConfig(cache_embeddings=False, data_transforms=ops,
+                            pseudocolor="Jet", evaluate=False)
+    out = {}
+    for name, dev in (("card", cuda_device), ("cpu", torch.device("cpu"))):
+        decoder, frozen = tr._split_params({k: v.to(dev, copy=True)
+                                            for k, v in sd.items()})
+        for v in decoder.values():
+            v.requires_grad_(True)
+        before = {k: v.detach().clone() for k, v in decoder.items()}
+        opt = tr.make_optimizer(config, decoder.values())
+        step = tr.make_train_step(cfg, config, opt, (120, 128), False)
+        db = {k: torch.as_tensor(batch[k]).to(dev)
+              for k in ("image", "prompts", "comp_map", "channel_mask")}
+        decoder, opt, loss = step(decoder, opt, frozen, db)
+        out[name] = (float(loss), {k: (v.detach() - before[k]).cpu()
+                                   for k, v in decoder.items()})
+    (l_card, d_card), (l_cpu, d_cpu) = out["card"], out["cpu"]
+    assert np.isfinite(l_card)
+    assert abs(l_card - l_cpu) <= 2e-2 * abs(l_cpu), (l_card, l_cpu)
+    agree = total = 0
+    for k, dc in d_cpu.items():
+        moved = dc.abs() > 1e-3 * config.learning_rate
+        agree += int((torch.sign(dc) == torch.sign(d_card[k]))[moved].sum())
+        total += int(moved.sum())
+    assert total > 0 and agree / total >= 0.90, (agree, total)

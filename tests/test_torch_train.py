@@ -262,10 +262,7 @@ def test_training_without_a_card_raises(tmp_path):
                      splits=(_items(2, 0), _items(2, 1)))
 
 
-@pytest.mark.parametrize("field,value", [("profile_dir", "traces"),
-                                         ("multihost", True),
-                                         ("data_transforms", ("hflip",)),
-                                         ("display_mode", "predefined")])
+@pytest.mark.parametrize("field,value", [("multihost", True)])
 def test_later_slices_raise(tmp_path, field, value):
     config = _loop_config(tmp_path, **{field: value})
     with pytest.raises(NotImplementedError, match="later slice"):
@@ -280,6 +277,9 @@ def test_later_slices_raise(tmp_path, field, value):
     ["--compute_dtype", "float32", "--cache_embeddings", "false",
      "--epochs", "3", "--seed", "4", "--resume", "true",
      "--display_name", "named", "--optimizer", "adamw"],
+    ["--data_transforms", "hflip, shift,gaussian_noise", "--display_mode",
+     "random_equal", "--display_idx", "2,5", "--display_train_nr", "3",
+     "--pseudocolor", "Twilight shifted", "--dataset", "dme"],
 ])
 def test_cli_builds_the_jax_config(tmp_path, argv):
     from dilabhelmholtzoct_tpu.train import cli as jcli
