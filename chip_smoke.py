@@ -65,12 +65,15 @@ prints no result line):
    bf16, ViT-B, cached embeddings of 8 images x bucket 8 = 64 pairs, interp
    50, lambda 0.1, H1): T1 (``cubical_pairs``) and T2
    (``wasserstein_match``, ``csrc/topology.cu``) on the step's own grids
-   and on 64 pred and 64 true grids of 50x50 sigmoid noise (hundreds of
-   bars on both sides of each matching), against their plain twins
-   (``ops/topology_ref.py``) and the host library (``ops/native.py``):
-   bars exactly equal, matching cost within ``TOPO_COST_RTOL`` of the twin
-   and equal to the host's, the same bits on a second run; each timed beside
-   the twin and the host library. Then 8 steps of each mode from the same
+   (H1) and on 64 pred and 64 true grids of 50x50 sigmoid noise (H0 and
+   H1; hundreds of bars on both sides of each matching), against their
+   plain twins (``ops/topology_ref.py``), the host library
+   (``ops/native.py``) and their own phases run on the host
+   (``native.*_parallel``, which also count the merge pixels each T1 walk
+   visits and the Dijkstra steps of each T2 row, printed): bars exactly
+   equal, matching cost within ``TOPO_COST_RTOL`` of the twin and equal to
+   the host's, the same bits on a second run; each timed beside the twin
+   and the host library. Then 8 steps of each mode from the same
    weights: ``topo_device`` (K3 x1, K4 x2, T1 x1, T2 x1 per step), host
    sync and host pipelined (with ``flush``), and without the term; falling
    losses, the median step of each; the device and sync first-step losses
@@ -1072,41 +1075,64 @@ def _host_ms(fn, reps=5):
     return statistics.median(times)
 
 
-def topo_kernel_checks(torch, sp, st, label, t2_runs=10, t2_warmup=3):
+def _spread(a):
+    a = np.asarray(a)
+    return f"{int(a.min())}/{int(np.median(a))}/{int(a.max())}"
+
+
+def topo_kernel_checks(torch, sp, st, label, feat_ds=(1,), t2_runs=10,
+                       t2_warmup=3):
     """T1 and T2 on (N, h, w) pred grids ``sp`` and true grids ``st`` on the
     card, as ``device_pairing`` launches them (T1 once over both, T2 once):
-    T1's bars (indices, order and counts) exactly equal to its plain twin's
-    and to the host library's, T2's matching cost per row within
+    T1 on each pass of ``feat_ds`` (H1, the loss's, feeds T2), its bars
+    (indices, order and counts) exactly equal to its plain twin's, to the
+    host library's and to its own phases run on the host
+    (``native.cubical_pairs_parallel``, which also gives the merge pixels
+    its walk visits per grid); T2's matching cost per row within
     ``TOPO_COST_RTOL`` of its twin's and equal to the host library's
-    matching, both the same bits on a second run; each timed with CUDA
-    events beside the twin and the host library on the same batch (T2 over
-    ``t2_runs`` launches after ``t2_warmup``). Returns the result line's
-    rows."""
+    matching and to its phases on the host (``native.
+    wasserstein_match_parallel``: the Dijkstra steps per row); both the same
+    bits on a second run; each timed with CUDA events beside the twin and
+    the host library on the same batch (T2 over ``t2_runs`` launches after
+    ``t2_warmup``). Returns the result line's rows (T1: the H1 pass)."""
     from dilabhelmholtzoct_tpu_torch.ops import native
     from dilabhelmholtzoct_tpu_torch.ops import topology_device as ptd
 
     n, h, w = sp.shape
     k = 512
     grids = torch.cat([sp, st]).float().contiguous()
-    before = ptd.LAUNCHES["cubical_pairs"]
-    b, d, c = ptd.cubical_pairs_cuda(grids, 1, k)
-    torch.cuda.synchronize()
-    check(ptd.LAUNCHES["cubical_pairs"] == before + 1, "T1 did not launch")
-    again = ptd.cubical_pairs_cuda(grids, 1, k)
-    check(all(torch.equal(x, y) for x, y in zip((b, d, c), again)),
-          f"T1 on {label}: a second run gave other bits")
     g_host = grids.cpu()
-    t0 = time.perf_counter()
-    twin = ptd.cubical_pairs_plain(g_host, 1, k)
-    t1_plain = 1e3 * (time.perf_counter() - t0)
-    check(all(torch.equal(x.cpu(), y) for x, y in zip((b, d, c), twin)),
-          f"T1 on {label}: bars differ from the plain twin's")
     g_np = g_host.numpy()
     host = native.cubical_pairs_batch(g_np, k)
-    check(np.array_equal(host["h1_birth"], b.cpu().numpy())
-          and np.array_equal(host["h1_death"], d.cpu().numpy())
-          and np.array_equal(host["counts"][:, 1], c.cpu().numpy()),
-          f"T1 on {label}: bars differ from the host library's")
+    t1 = {}
+    for fd in feat_ds:
+        before = ptd.LAUNCHES["cubical_pairs"]
+        got = ptd.cubical_pairs_cuda(grids, fd, k)
+        torch.cuda.synchronize()
+        check(ptd.LAUNCHES["cubical_pairs"] == before + 1, "T1 did not launch")
+        again = ptd.cubical_pairs_cuda(grids, fd, k)
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"T1 H{fd} on {label}: a second run gave other bits")
+        t0 = time.perf_counter()
+        twin = ptd.cubical_pairs_plain(g_host, fd, k)
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        got_np = [x.cpu().numpy() for x in got]
+        check(all(np.array_equal(x, y.numpy()) for x, y in zip(got_np, twin)),
+              f"T1 H{fd} on {label}: bars differ from the plain twin's")
+        check(np.array_equal(host[f"h{fd}_birth"], got_np[0])
+              and np.array_equal(host[f"h{fd}_death"], got_np[1])
+              and np.array_equal(host["counts"][:, fd], got_np[2]),
+              f"T1 H{fd} on {label}: bars differ from the host library's")
+        *phases, merges = native.cubical_pairs_parallel(g_np, fd, k, 512)
+        check(all(np.array_equal(x, y) for x, y in zip(got_np, phases)),
+              f"T1 H{fd} on {label}: bars differ from its phases on the host")
+        ms = cuda_ms(lambda: ptd.cubical_pairs_cuda(grids, fd, k), 10)
+        t1[fd] = (got, ms, plain_ms)
+        print(f"T1 H{fd} on {label}: merge pixels per grid (min/median/max) "
+              f"pred {_spread(merges[:n])}, true {_spread(merges[n:])}; bars "
+              f"pred {_spread(got_np[2][:n])}, true {_spread(got_np[2][n:])};"
+              f" card ms {ms:.4f}, plain ms {plain_ms:.1f}")
+    (b, d, c), t1_ms, t1_plain = t1[1]
     t1_host = _host_ms(lambda: native.cubical_pairs_batch(g_np, k))
 
     t_flat = st.reshape(n, -1).float()
@@ -1139,12 +1165,15 @@ def topo_kernel_checks(torch, sp, st, label, t2_runs=10, t2_warmup=3):
     host_in = (flat.cpu().numpy(), b[:n].cpu().numpy(), d[:n].cpu().numpy(),
                c[:n].cpu().numpy(), diagrams, 2.0, k)
     hm = native.wasserstein_match_batch(*host_in)
-    check(all(np.array_equal(x.cpu().numpy(), y)
-              for x, y in zip((m, tg, ct), hm)),
+    got_np = [x.cpu().numpy() for x in (m, tg, ct)]
+    check(all(np.array_equal(x, y) for x, y in zip(got_np, hm)),
           f"T2 on {label}: the matching differs from the host library's")
+    *phases, steps = native.wasserstein_match_parallel(
+        *(a.numpy() for a in args_h), 2.0, 256)
+    check(all(np.array_equal(x, y) for x, y in zip(got_np, phases)),
+          f"T2 on {label}: the matching differs from its phases on the host")
     t2_host = _host_ms(lambda: native.wasserstein_match_batch(*host_in))
 
-    t1_ms = cuda_ms(lambda: ptd.cubical_pairs_cuda(grids, 1, k), 10)
     t2_ms = cuda_ms(lambda: ptd.wasserstein_match_cuda(*args, 2.0), t2_runs,
                     t2_warmup)
     # bytes: each input read once, each output written once. T1 reads every
@@ -1161,13 +1190,13 @@ def topo_kernel_checks(torch, sp, st, label, t2_runs=10, t2_warmup=3):
     t2_ops = 5 * int((pc * tc).sum())
     bounds = {"cubical_pairs": _bound(0, t1_bytes, PEAK_F32_FLOPS),
               "wasserstein_match": _bound(t2_ops, t2_bytes, PEAK_F32_FLOPS)}
-    bars = c.cpu().numpy()
     print(f"topology kernels on {label} ({n} pred + {n} true grids of {h}x"
-          f"{w}, H1; pred bars per grid {int(bars[:n].min())}-"
-          f"{int(bars[:n].max())}, true {int(nt.min())}-{int(nt.max())}): "
-          f"T1 bars equal to the twin's and the host library's, same bits "
-          f"on a second run; T2 cost within {rel:.3g} of the twin's (rtol "
-          f"{TOPO_COST_RTOL}), equal to the host library's matching")
+          f"{w}; H1 bars pred {_spread(pc)}, true {_spread(tc)}): T1 bars "
+          f"equal to the twin's, the host library's and its phases' on the "
+          f"host, same bits on a second run; T2 cost within {rel:.3g} of "
+          f"the twin's (rtol {TOPO_COST_RTOL}), equal to the host library's "
+          f"matching and its phases' on the host; Dijkstra steps per row "
+          f"(min/median/max) {_spread(steps)}, all rows {int(steps.sum())}")
     rows = {}
     for name, kern, ms, plain_ms, host_ms, line in (
             ("cubical_pairs", "cubical_pairs_kernel", t1_ms, t1_plain,
@@ -1245,10 +1274,9 @@ def topo_phase(torch):
     gen = torch.Generator(device=dev).manual_seed(5)
     noise = torch.sigmoid(torch.randn((2, 64, 50, 50), generator=gen,
                                       device=dev))
-    # T2 takes seconds here and has run twice in the checks: one timed launch
     topo_kernel_checks(torch, noise[0], noise[1],
                        "64 pred and 64 true grids of 50x50 sigmoid noise",
-                       t2_runs=1, t2_warmup=0)
+                       feat_ds=(0, 1), t2_runs=5, t2_warmup=1)
 
     def fresh(device, conf=config):
         sd_m = {k: v.to(device, copy=True) for k, v in sd_host.items()}

@@ -1,8 +1,10 @@
 // The combinatorial half of the topological loss, written once for two
 // builds: the host library (persistence_host.cc, g++) and the card's kernels
-// (topology.cu, nvcc for sm_90a). Both call these functions, so the host
-// pairing and the on-device pairing give the same bars in the same order,
-// and the same matchings, by construction.
+// (topology.cu, nvcc for sm_90a). The host library runs sublevel_pairs and
+// min_cost_assign below; the kernels run the block-parallel phases of
+// persistence_parallel.h on the same orders, costs and roundings, whose
+// results equal these two functions' (the same bars in the same order, the
+// same matchings).
 //
 // Replaces nothing written in Pallas. The algorithm is the one of the JAX
 // package's host library and of its XLA device pairing

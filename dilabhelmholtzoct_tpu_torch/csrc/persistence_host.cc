@@ -6,8 +6,10 @@
 //
 //   g++ -O3 -fPIC -shared -std=c++17 -pthread -ffp-contract=off
 //
-// The card's kernels (topology.cu) run the same core functions, so the two
-// give the same bars and the same matchings.
+// The card's kernels (topology.cu) run the phases of persistence_parallel.h,
+// whose results equal these core functions'. The *_parallel entries run
+// those phases here, over a virtual thread count, one virtual thread after
+// another: the CPU tests hold the kernels' algorithm to the core's with them.
 
 #include <algorithm>
 #include <atomic>
@@ -16,6 +18,7 @@
 #include <vector>
 
 #include "persistence_core.h"
+#include "persistence_parallel.h"
 
 namespace {
 
@@ -96,6 +99,134 @@ void emit(const float* val, int nbars, PairScratch& S, int max_bars,
   }
 }
 
+// T1's phases (persistence_parallel.h) over one pass of a grid, as
+// topology.cu's cubical_pairs_kernel runs them, on `nthreads` virtual
+// threads; the walk's lanes one after another.
+struct PhasePairScratch {
+  std::vector<float> val, pers, uval, uval_p;
+  std::vector<uint64_t> ukey;
+  std::vector<int32_t> basin, parent, merge, bar_b, bar_d, roots, uroot,
+      ucount, upix, offset;
+  std::vector<int16_t> slots;
+  std::vector<uint8_t> flag;
+
+  ppar::PairBlock carve(int h, int w, bool h1, int nthreads) {
+    const int n = h * w;
+    const int cap = pcore::bar_capacity(n);
+    val.resize(n);
+    pers.resize(cap);
+    basin.resize(n + 1);
+    parent.resize(n + 1);
+    merge.resize(ppar::pow2_at_least(n));
+    slots.resize(static_cast<size_t>(ppar::slot_count(h1)) * n);
+    bar_b.resize(cap);
+    bar_d.resize(cap);
+    flag.resize(n);
+    offset.resize(nthreads + 1);
+    const int round_slots = ppar::WALK_ROUND_MAX * ppar::WALK_SLOTS;
+    roots.assign(round_slots, -1);
+    uroot.assign(round_slots, -1);
+    ukey.assign(round_slots, 0);
+    uval.assign(round_slots, 0.0f);
+    ucount.assign(ppar::WALK_ROUND_MAX, 0);
+    upix.assign(ppar::WALK_ROUND_MAX, 0);
+    uval_p.assign(ppar::WALK_ROUND_MAX, 0.0f);
+    return ppar::PairBlock{h, w, n, h1, val.data(), basin.data(),
+                           parent.data(), flag.data(), merge.data(),
+                           slots.data(), bar_b.data(), bar_d.data(),
+                           roots.data(), uroot.data(), ukey.data(),
+                           uval.data(), ucount.data(), upix.data(),
+                           uval_p.data()};
+  }
+};
+
+// Returns the merge pixels' count; bars into out_b / out_d / *count.
+int pass_in_phases(const float* grid, int h, int w, bool h1, int nthreads,
+                   int max_bars, PhasePairScratch& S, int32_t* out_b,
+                   int32_t* out_d, int32_t* count) {
+  const ppar::PairBlock P = S.carve(h, w, h1, nthreads);
+  const int T = nthreads;
+  for (int t = 0; t < T; ++t) ppar::pairs_load(grid, P, t, T);
+  for (int t = 0; t < T; ++t) ppar::pairs_pointers(P, t, T);
+  for (bool moved = true; moved;) {
+    moved = false;
+    for (int t = 0; t < T; ++t)
+      if (ppar::pairs_jump(P, t, T)) moved = true;
+  }
+  S.offset[0] = 0;
+  for (int t = 0; t < T; ++t)
+    S.offset[t + 1] = S.offset[t] + ppar::pairs_flag_merges(P, t, T);
+  const int m = S.offset[T];
+  for (int t = 0; t < T; ++t) ppar::pairs_scatter(P, S.offset[t], t, T);
+  for (int t = 0; t < T; ++t) ppar::pairs_pad(P, m, t, T);
+  const int p2 = ppar::pow2_at_least(m);
+  for (int k = 2; k <= p2; k <<= 1)
+    for (int j = k >> 1; j > 0; j >>= 1)
+      for (int t = 0; t < T; ++t) ppar::pairs_bitonic_step(P, p2, k, j, t, T);
+  for (int t = 0; t < T; ++t) ppar::pairs_slots(P, m, t, T);
+  const int cap = pcore::bar_capacity(P.n);
+  const int round = ppar::walk_round(h1), slots = ppar::slot_count(h1);
+  int nbars = 0;
+  for (int t0 = 0; t0 < m; t0 += round) {
+    const int pixels = std::min(round, m - t0);
+    for (int g = 0; g < pixels; ++g)
+      for (int e = 0; e < slots; ++e) ppar::walk_slot(P, t0 + g, g, e);
+    bool unite[ppar::WALK_ROUND_MAX];
+    for (int g = 0; g < pixels; ++g)
+      unite[g] = ppar::walk_distinct(P, t0 + g, g);
+    for (int g = 0; g < pixels; ++g)
+      if (unite[g]) nbars = ppar::walk_unite(P, g, nbars, cap);
+  }
+  if (nbars > max_bars)
+    for (int t = 0; t < T; ++t)
+      ppar::pairs_persistence(P, nbars, S.pers.data(), t, T);
+  for (int t = 0; t < T; ++t)
+    ppar::pairs_emit(P, nbars, S.pers.data(), max_bars, out_b, out_d, t, T);
+  *count = std::min(nbars, max_bars);
+  return m;
+}
+
+// T2's phases over one row, as topology.cu's wasserstein_match_kernel runs
+// them, on `nthreads` virtual threads; returns the Dijkstra steps taken.
+int row_in_phases(const float* pg, const int32_t* pb, const int32_t* pd,
+                  int nb, const float* tb, int nt, float q, int k,
+                  int nthreads, const pcore::MatchScratch& s, int8_t* matched,
+                  float* target, float* const_term) {
+  const int T = nthreads;
+  for (int t = 0; t < T; ++t)
+    ppar::match_setup(pg, pb, pd, nb, tb, nt, q, s, t, T);
+  int steps = 0;
+  if (nt > 0) {
+    const bool rows_true = nt <= nb;
+    const int ns = rows_true ? nt : nb;
+    const int nc = nb + nt;
+    const pcore::ReducedCost cost{&s, tb, nb, nt, q, rows_true};
+    for (int t = 0; t < T; ++t) ppar::assign_init(ns, nc, s, t, T);
+    for (int cur = 0; cur < ns; ++cur) {
+      ppar::SearchState st{};
+      for (int t = 0; t < T; ++t) st = ppar::search_init(cur, ns, nc, s, t, T);
+      while (st.sink == -1) {
+        ppar::ColBest first{pcore::inf_d(), -1};
+        for (int t = 0; t < T; ++t) {
+          const ppar::ColBest c = ppar::relax_columns(cost, st, nc, s, t, T);
+          if (ppar::col_before(c, first)) first = c;
+        }
+        ++steps;
+        if (first.key < 0) break;
+        for (int t = 0; t < T; ++t) ppar::take_column(first, st, s, t, T);
+      }
+      if (st.sink == -1) break;
+      for (int t = 0; t < T; ++t)
+        ppar::dual_update(cur, st.min_val, ns, nc, s, t, T);
+      ppar::augment(cur, st.sink, s);
+    }
+  }
+  for (int t = 0; t < T; ++t)
+    ppar::match_write(tb, nb, nt, k, nt > 0, s, matched, target, t, T);
+  *const_term = ppar::match_const_term(nb, nt, s);
+  return steps;
+}
+
 }  // namespace
 
 extern "C" {
@@ -150,6 +281,52 @@ void wasserstein_match_batch(const float* grids, int n_rows, int hw,
         pcore::match_row(grids + static_cast<int64_t>(g) * hw, p_birth + row,
                          p_death + row, nb, true_bars + 2 * t_off[g], nt, qf,
                          matched + row, target + 2 * row, &const_term[g], s);
+      });
+}
+
+// T1's kernel algorithm on the host (pass_in_phases): grids (n_grids, h, w)
+// f32, the feat_d pass (0: H0, 1: H1), on nthreads virtual threads ->
+// birth / death (n_grids, max_bars) int32 (-1 padding), count (n_grids,),
+// merges (n_grids,): the merge pixels the walk visited.
+void cubical_pairs_parallel(const float* grids, int n_grids, int h, int w,
+                            int feat_d, int max_bars, int nthreads,
+                            int32_t* birth, int32_t* death, int32_t* count,
+                            int32_t* merges) {
+  const int n = h * w;
+  parallel_for<PhasePairScratch>(n_grids, [&](int g, PhasePairScratch& S) {
+    const int64_t off = static_cast<int64_t>(g) * max_bars;
+    merges[g] = pass_in_phases(grids + static_cast<int64_t>(g) * n, h, w,
+                               feat_d == 1, nthreads, max_bars, S,
+                               birth + off, death + off, &count[g]);
+  });
+}
+
+// T2's kernel algorithm on the host (row_in_phases), in the kernel's layout:
+// grids (n_rows, hw) f32, p_birth / p_death (n_rows, k) int32, p_count
+// (n_rows,), true_bars (n_rows, t_max, 2) f32, t_count (n_rows,), on
+// nthreads virtual threads -> matched (n_rows, k) int8, target (n_rows, k,
+// 2) f32, const_term (n_rows,) f32, steps (n_rows,): the Dijkstra steps.
+void wasserstein_match_parallel(const float* grids, int n_rows, int hw,
+                                const int32_t* p_birth, const int32_t* p_death,
+                                const int32_t* p_count, const float* true_bars,
+                                const int32_t* t_count, int t_max, double q,
+                                int k, int nthreads, int8_t* matched,
+                                float* target, float* const_term,
+                                int32_t* steps) {
+  const float qf = static_cast<float>(q);
+  parallel_for<std::vector<uint64_t>>(
+      n_rows, [&](int g, std::vector<uint64_t>& scratch) {
+        const int nb = std::min(p_count[g], k);
+        const int nt = std::min(t_count[g], t_max);
+        scratch.resize(pcore::match_scratch_bytes(nb, nt) / 8 + 1);
+        const pcore::MatchScratch s =
+            pcore::carve_match_scratch(scratch.data(), nb, nt);
+        const int64_t row = static_cast<int64_t>(g) * k;
+        steps[g] = row_in_phases(
+            grids + static_cast<int64_t>(g) * hw, p_birth + row,
+            p_death + row, nb, true_bars + 2 * static_cast<int64_t>(g) * t_max,
+            nt, qf, k, nthreads, s, matched + row, target + 2 * row,
+            &const_term[g]);
       });
 }
 

@@ -6,87 +6,129 @@
 //   * T1 cubical_pairs_kernel: device_cubical_pairs (:305) and its
 //     _pairing_pass (:104). The JAX module restructures the union-find for a
 //     vector machine (Jacobi basin propagation, sorted edge dedup,
-//     lane-lockstep Kruskal); here each block runs the sequential union-find
-//     of persistence_core.h on one grid, which the host library
-//     (persistence_host.cc) runs too, so the bars are the host's, in the
-//     host's order.
+//     lane-lockstep Kruskal) and emits bars in edge-weight order; here the
+//     bars are the host library's (persistence_host.cc on
+//     pcore::sublevel_pairs), index for index and in its order.
 //   * T2 wasserstein_match_kernel: device_wasserstein_match (:333), the
-//     lane-lockstep Jonker-Volgenant; here one block per row runs the core's
-//     match_row (f64 duals), the host library's matching.
+//     lane-lockstep Jonker-Volgenant; here the host library's
+//     pcore::min_cost_assign (f64 duals), match for match.
 //
-// T1, one block of 256 threads per grid, everything in shared memory
-// (~98 KB for a 50x50 grid; opted in above 48 KB):
-//   1. the pass's values (the grid for H0, its negation for H1) and one
-//      sort code per pixel, (key << 32) | index (persistence_core.h);
-//   2. a bitonic sort of the codes over the block: the unique codes give the
-//      one order "by value, ties by index" that the host's radix sort gives;
-//   3. order and rank, and the union-find arrays set to -1, by all threads;
-//   4. thread 0 runs pcore::sublevel_pairs (H0: 8-connected; H1:
-//      4-connected with the outside node);
-//   5. the capped emit by all threads: the bars in emission order when they
-//      fit, else each bar's rank under pcore::kept_before (O(bars) per
-//      bar), the first max_bars scattered to their rank. H1 bars swapped.
-// T2, one block of 32 threads per row: the threads zero the row's outputs,
-//   thread 0 runs pcore::match_row with its scratch in shared memory
-//   (pcore::match_scratch_bytes: ~40 KB at 512 bars a side).
+// Both run the phases of persistence_parallel.h, which the host library runs
+// too over a virtual thread count (its *_parallel entries, for the CPU
+// tests), with barriers between them.
 //
-// What bounds them: neither is bound by bytes (a 50x50 grid is 10 KB) or by
-// operations; both are bound by the latency of one thread walking the
-// union-find (~2500 pixels x up to 8 neighbours, each a few dependent
-// shared-memory loads) or the augmenting paths. The design keeps every
-// array of that walk in shared memory and runs all grids of a step (pred
-// and true, 2N blocks) in one launch, one block per SM. A simple kernel
-// that is right first; its speed is for a later change.
+// T1, one block of T1_THREADS per grid, everything in shared memory (~89 KB
+// for a 50x50 grid in H1, ~104 KB in H0): the pass's values;
+// steepest-descent pointers and pointer jumping to the basin roots (all
+// threads); the merge pixels flagged per thread chunk, a block scan of the
+// counts and the scatter (index order, no atomics), a bitonic sort of them
+// into the filtration's order, and their slots' basins; the walk over the
+// merge pixels in rounds of 25 (H1) or 16 (H0): a lane of warps 0-3 for each
+// slot of each pixel finds its root, a lane of warp 0 for each pixel lists
+// its distinct roots, and thread 0 replays the elder rule over those of the
+// pixels with two or more, which a warp vote picks; the capped emit by all
+// threads, H1 bars swapped.
+//
+// T2, one block of T2_THREADS per row, its scratch in shared memory
+// (pcore::match_scratch_bytes: ~40 KB at 512 bars a side): each thread owns
+// the columns j == tid (mod T2_THREADS) for the initialisation, every
+// Dijkstra step's relaxation and the dual update; a step's argmin is a warp
+// shuffle reduction and one barrier over the warps' firsts in (distance,
+// assigned, column) order, which every thread then reads; thread 0 walks
+// the augmenting path back.
+//
+// What bounds them: not bytes (a 50x50 grid is 10 KB) nor operations, but
+// the serial chain left. T1: thread 0's unions, one pixel after another
+// (a few hundred a grid for 50x50 noise and for the step's pred grids; the
+// rest of the merge pixels, ~1.4k-1.7k, go by in parallel rounds). T2: the
+// Dijkstra steps, each a relaxation of nc / 256 columns a thread, a
+// reduction and a barrier (one step a row for the step's rows, with 0-1 true
+// bars; tens of thousands a row for two noise diagrams of ~460 bars). All
+// grids (rows) of a step run in one launch, a block each.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "persistence_core.h"
+#include "persistence_parallel.h"
 
 namespace {
 
-constexpr int T1_THREADS = 256;
-constexpr int T2_THREADS = 32;
+constexpr int T1_THREADS = 512;
+constexpr int T2_THREADS = 256;
+constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr int MAX_SMEM = 232448;  // what one block may opt in to on sm_90
 // returned for operands whose shared memory exceeds MAX_SMEM (the wrappers
 // raise NotImplementedError for it)
 constexpr int ERR_SMEM = 1000;
 
-__host__ __device__ inline int pow2_at_least(int n) {
-  int p = 1;
-  while (p < n) p <<= 1;
-  return p;
+// Opt kernel in to `dynamic` bytes of shared memory beside its static ones:
+// cudaSuccess, ERR_SMEM when the two exceed MAX_SMEM, or the CUDA error.
+template <class Kernel>
+int opt_in_smem(Kernel kernel, size_t dynamic) {
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dynamic + attr.sharedSizeBytes > MAX_SMEM) return ERR_SMEM;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(dynamic)));
 }
 
-// Byte offsets of T1's arrays in dynamic shared memory for an n-cell grid.
+// Byte offsets of T1's arrays in dynamic shared memory for an n-cell grid
+// and the pass (H1 or H0: its slot count). The cap's persistences overlay
+// the slots, which the walk no longer needs.
 struct T1Layout {
-  size_t keys, order, val, rank, parent, birth, bar_b, bar_d, pers, total;
+  size_t val, basin, parent, merge, bar_b, bar_d, slots, flag, total;
 };
 
-__host__ __device__ inline T1Layout t1_layout(int n) {
+__host__ __device__ inline T1Layout t1_layout(int n, bool h1) {
   const size_t cap = pcore::bar_capacity(n);
   T1Layout L;
   size_t off = 0;
-  L.keys = off;
-  off += sizeof(uint64_t) * pow2_at_least(n);
-  L.order = off;
-  off += sizeof(int32_t) * n;
   L.val = off;
   off += sizeof(float) * n;
-  L.rank = off;
-  off += sizeof(int32_t) * n;
+  L.basin = off;
+  off += sizeof(int32_t) * (n + 1);
   L.parent = off;
   off += sizeof(int32_t) * (n + 1);
-  L.birth = off;
-  off += sizeof(int32_t) * (n + 1);
+  L.merge = off;
+  off += sizeof(int32_t) * ppar::pow2_at_least(n);
   L.bar_b = off;
   off += sizeof(int32_t) * cap;
   L.bar_d = off;
   off += sizeof(int32_t) * cap;
-  L.pers = off;
-  off += sizeof(float) * cap;
+  L.slots = off;  // over sizeof(float) * cap bytes: the persistences fit
+  off += sizeof(int16_t) * ppar::slot_count(h1) * n;
+  L.flag = off;
+  off += n;
   L.total = off;
   return L;
+}
+
+// Exclusive prefix sum of v over the block (T1_THREADS threads, in thread
+// order); *total gets the sum. Two barriers.
+__device__ int block_exclusive_scan(int v, int* warp_sums, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  constexpr int WARPS = T1_THREADS / 32;
+  int x = v;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(FULL_MASK, x, off);
+    if (lane >= off) x += y;
+  }
+  if (lane == 31) warp_sums[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int s = lane < WARPS ? warp_sums[lane] : 0;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(FULL_MASK, s, off);
+      if (lane >= off) s += y;
+    }
+    __syncwarp();
+    if (lane < WARPS) warp_sums[lane] = s;
+  }
+  __syncthreads();
+  *total = warp_sums[WARPS - 1];
+  return (warp ? warp_sums[warp - 1] : 0) + x - v;
 }
 
 __global__ void __launch_bounds__(T1_THREADS)
@@ -95,90 +137,122 @@ __global__ void __launch_bounds__(T1_THREADS)
                          int32_t* __restrict__ out_d,
                          int32_t* __restrict__ out_c) {
   extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int ROUND_SLOTS = ppar::WALK_ROUND_MAX * ppar::WALK_SLOTS;
+  __shared__ int32_t s_roots[ROUND_SLOTS];  // -1 in slots not the pass's
+  __shared__ int32_t s_uroot[ROUND_SLOTS];
+  __shared__ uint64_t s_ukey[ROUND_SLOTS];
+  __shared__ float s_uval[ROUND_SLOTS];
+  __shared__ int32_t s_ucount[ppar::WALK_ROUND_MAX];
+  __shared__ int32_t s_upix[ppar::WALK_ROUND_MAX];
+  __shared__ float s_uval_p[ppar::WALK_ROUND_MAX];
+  __shared__ int s_scan[T1_THREADS / 32];
   __shared__ int s_nbars;
   const int n = h * w;
-  const int p2 = pow2_at_least(n);
   const int cap = pcore::bar_capacity(n);
-  const T1Layout L = t1_layout(n);
-  uint64_t* keys = reinterpret_cast<uint64_t*>(smem + L.keys);
-  int32_t* order = reinterpret_cast<int32_t*>(smem + L.order);
-  float* val = reinterpret_cast<float*>(smem + L.val);
-  int32_t* rank = reinterpret_cast<int32_t*>(smem + L.rank);
-  int32_t* parent = reinterpret_cast<int32_t*>(smem + L.parent);
-  int32_t* birth = reinterpret_cast<int32_t*>(smem + L.birth);
-  int32_t* bar_b = reinterpret_cast<int32_t*>(smem + L.bar_b);
-  int32_t* bar_d = reinterpret_cast<int32_t*>(smem + L.bar_d);
-  float* pers = reinterpret_cast<float*>(smem + L.pers);
   const bool h1 = feat_d == 1;
-  const float* grid = grids + static_cast<int64_t>(blockIdx.x) * n;
+  const T1Layout L = t1_layout(n, h1);
+  ppar::PairBlock P;
+  P.h = h;
+  P.w = w;
+  P.n = n;
+  P.h1 = h1;
+  P.val = reinterpret_cast<float*>(smem + L.val);
+  P.basin = reinterpret_cast<int32_t*>(smem + L.basin);
+  P.parent = reinterpret_cast<int32_t*>(smem + L.parent);
+  P.flag = smem + L.flag;
+  P.merge = reinterpret_cast<int32_t*>(smem + L.merge);
+  P.slots = reinterpret_cast<int16_t*>(smem + L.slots);
+  P.bar_b = reinterpret_cast<int32_t*>(smem + L.bar_b);
+  P.bar_d = reinterpret_cast<int32_t*>(smem + L.bar_d);
+  P.roots = s_roots;
+  P.uroot = s_uroot;
+  P.ukey = s_ukey;
+  P.uval = s_uval;
+  P.ucount = s_ucount;
+  P.upix = s_upix;
+  P.uval_p = s_uval_p;
   const int tid = threadIdx.x;
 
-  for (int i = tid; i < p2; i += T1_THREADS) {
-    if (i < n) {
-      const float v = h1 ? -grid[i] : grid[i];
-      val[i] = v;
-      keys[i] = pcore::sort_code(v, i);
-    } else {
-      keys[i] = ~0ull;  // after every pixel
-    }
-  }
+  if (tid < ROUND_SLOTS) s_roots[tid] = -1;
+  ppar::pairs_load(grids + static_cast<int64_t>(blockIdx.x) * n, P, tid,
+                   T1_THREADS);
   __syncthreads();
+  ppar::pairs_pointers(P, tid, T1_THREADS);
+  __syncthreads();
+  while (__syncthreads_or(ppar::pairs_jump(P, tid, T1_THREADS))) {
+  }
+  int m;
+  const int offset = block_exclusive_scan(
+      ppar::pairs_flag_merges(P, tid, T1_THREADS), s_scan, &m);
+  ppar::pairs_scatter(P, offset, tid, T1_THREADS);
+  ppar::pairs_pad(P, m, tid, T1_THREADS);
+  __syncthreads();
+  const int p2 = ppar::pow2_at_least(m);
   for (int k = 2; k <= p2; k <<= 1) {
     for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = tid; i < p2; i += T1_THREADS) {
-        const int ixj = i ^ j;
-        if (ixj > i) {
-          const uint64_t a = keys[i], b = keys[ixj];
-          if ((a > b) == ((i & k) == 0)) {
-            keys[i] = b;
-            keys[ixj] = a;
-          }
-        }
-      }
+      ppar::pairs_bitonic_step(P, p2, k, j, tid, T1_THREADS);
       __syncthreads();
     }
   }
-  for (int i = tid; i <= n; i += T1_THREADS) {
-    if (i < n) {
-      const int32_t p = static_cast<int32_t>(keys[i] & 0xFFFFFFFFu);
-      order[i] = p;
-      rank[p] = i;
-    }
-    parent[i] = -1;
-    birth[i] = -1;
-  }
+  ppar::pairs_slots(P, m, tid, T1_THREADS);
   __syncthreads();
-  if (tid == 0)
-    s_nbars = pcore::sublevel_pairs(val, h, w, /*eight=*/!h1, /*outside=*/h1,
-                                    order, rank, parent, birth, bar_b, bar_d,
-                                    cap, nullptr);
+  {  // the walk, by warps 0-3 (the block keeps its barriers)
+    const int slots = ppar::slot_count(h1), round = ppar::walk_round(h1);
+    const int g = tid / slots, e = tid % slots;  // this lane's pixel, slot
+    int nbars = 0;
+    for (int t0 = 0; t0 < m; t0 += round) {
+      if (tid < ppar::WALK_THREADS && g < round && t0 + g < m)
+        ppar::walk_slot(P, t0 + g, g, e);
+      __syncthreads();
+      if (tid < 32) {  // round <= 32: the pixels' lanes are warp 0's
+        unsigned todo = __ballot_sync(
+            FULL_MASK, tid < round && t0 + tid < m &&
+                           ppar::walk_distinct(P, t0 + tid, tid));
+        __syncwarp();
+        if (tid == 0) {
+          for (; todo; todo &= todo - 1)
+            nbars = ppar::walk_unite(P, __ffs(todo) - 1, nbars, cap);
+        }
+        __syncwarp();
+      }
+      __syncthreads();
+    }
+    if (tid == 0) s_nbars = nbars;
+  }
   __syncthreads();
   const int nbars = s_nbars;
-  int32_t* ob = out_b + static_cast<int64_t>(blockIdx.x) * max_bars;
-  int32_t* od = out_d + static_cast<int64_t>(blockIdx.x) * max_bars;
-  if (nbars <= max_bars) {
-    for (int i = tid; i < max_bars; i += T1_THREADS) {
-      const int32_t b = i < nbars ? bar_b[i] : -1;
-      const int32_t d = i < nbars ? bar_d[i] : -1;
-      ob[i] = h1 ? d : b;
-      od[i] = h1 ? b : d;
-    }
-  } else {  // the cap: the max_bars first under kept_before, in that order
-    for (int i = tid; i < nbars; i += T1_THREADS)
-      pers[i] = pcore::persistence(val, bar_b[i], bar_d[i]);
+  float* pers = reinterpret_cast<float*>(smem + L.slots);
+  if (nbars > max_bars) {
+    ppar::pairs_persistence(P, nbars, pers, tid, T1_THREADS);
     __syncthreads();
-    for (int i = tid; i < nbars; i += T1_THREADS) {
-      const float pi = pers[i];
-      int r = 0;
-      for (int j = 0; j < nbars && r < max_bars; ++j)
-        r += pcore::kept_before(pers[j], j, pi, i);
-      if (r < max_bars) {
-        ob[r] = h1 ? bar_d[i] : bar_b[i];
-        od[r] = h1 ? bar_b[i] : bar_d[i];
-      }
-    }
   }
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * max_bars;
+  ppar::pairs_emit(P, nbars, pers, max_bars, out_b + row, out_d + row, tid,
+                   T1_THREADS);
   if (tid == 0) out_c[blockIdx.x] = nbars < max_bars ? nbars : max_bars;
+}
+
+// The block's first column in ppar::col_before order from each thread's
+// first: a warp shuffle reduction, then every thread reduces the warps'
+// (slots[parity], alternating: a warp may write the next step's slots while
+// another still reads this step's). One barrier.
+__device__ ppar::ColBest block_first(ppar::ColBest b, ppar::ColBest* slots,
+                                     int parity) {
+  constexpr int WARPS = T2_THREADS / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int off = 16; off > 0; off >>= 1) {
+    ppar::ColBest o;
+    o.dist = __shfl_down_sync(FULL_MASK, b.dist, off);
+    o.key = __shfl_down_sync(FULL_MASK, b.key, off);
+    if (ppar::col_before(o, b)) b = o;
+  }
+  ppar::ColBest* mine = slots + parity * WARPS;
+  if (lane == 0) mine[warp] = b;
+  __syncthreads();
+  ppar::ColBest best = mine[0];
+  for (int i = 1; i < WARPS; ++i)
+    if (ppar::col_before(mine[i], best)) best = mine[i];
+  return best;
 }
 
 __global__ void __launch_bounds__(T2_THREADS) wasserstein_match_kernel(
@@ -188,22 +262,45 @@ __global__ void __launch_bounds__(T2_THREADS) wasserstein_match_kernel(
     int t_max, float q, int k, int8_t* __restrict__ matched,
     float* __restrict__ target, float* __restrict__ const_term) {
   extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ ppar::ColBest s_first[2 * (T2_THREADS / 32)];
   const int64_t g = blockIdx.x;
   const int64_t row = g * k;
-  for (int j = threadIdx.x; j < k; j += T2_THREADS) {
-    matched[row + j] = 0;
-    target[2 * (row + j)] = 0.0f;
-    target[2 * (row + j) + 1] = 0.0f;
-  }
-  __syncthreads();
-  if (threadIdx.x != 0) return;
+  const int tid = threadIdx.x;
   const int nb = min(p_count[g], k);
   const int nt = min(t_count[g], t_max);
-  float c = 0.0f;
-  pcore::match_row(grids + g * hw, p_b + row, p_d + row, nb,
-                   true_bars + 2 * g * t_max, nt, q, matched + row,
-                   target + 2 * row, &c, pcore::carve_match_scratch(smem, nb, nt));
-  const_term[g] = c;
+  const float* tb = true_bars + 2 * g * t_max;
+  const pcore::MatchScratch s = pcore::carve_match_scratch(smem, nb, nt);
+  ppar::match_setup(grids + g * hw, p_b + row, p_d + row, nb, tb, nt, q, s,
+                    tid, T2_THREADS);
+  if (nt > 0) {  // else nothing is matched and the constant is 0
+    const bool rows_true = nt <= nb;
+    const int ns = rows_true ? nt : nb;
+    const int nc = nb + nt;
+    const pcore::ReducedCost cost{&s, tb, nb, nt, q, rows_true};
+    ppar::assign_init(ns, nc, s, tid, T2_THREADS);
+    __syncthreads();
+    int parity = 0;
+    for (int cur = 0; cur < ns; ++cur) {
+      ppar::SearchState st = ppar::search_init(cur, ns, nc, s, tid,
+                                               T2_THREADS);
+      while (st.sink == -1) {
+        const ppar::ColBest first = block_first(
+            ppar::relax_columns(cost, st, nc, s, tid, T2_THREADS), s_first,
+            parity);
+        parity ^= 1;
+        if (first.key < 0) break;  // no finite column: never for this matrix
+        ppar::take_column(first, st, s, tid, T2_THREADS);
+      }
+      if (st.sink == -1) break;
+      ppar::dual_update(cur, st.min_val, ns, nc, s, tid, T2_THREADS);
+      __syncthreads();
+      if (tid == 0) ppar::augment(cur, st.sink, s);
+      __syncthreads();
+    }
+  }
+  ppar::match_write(tb, nb, nt, k, nt > 0, s, matched + row, target + 2 * row,
+                    tid, T2_THREADS);
+  if (tid == 0) const_term[g] = ppar::match_const_term(nb, nt, s);
 }
 
 }  // namespace
@@ -219,12 +316,9 @@ int dhoct_cubical_pairs(const float* grids, int n_grids, int h, int w,
   if (n_grids < 1 || h < 1 || w < 1 || max_bars < 1 ||
       (feat_d != 0 && feat_d != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = t1_layout(h * w).total;
-  if (smem > MAX_SMEM) return ERR_SMEM;
-  cudaError_t e = cudaFuncSetAttribute(
-      cubical_pairs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
+  const size_t smem = t1_layout(h * w, feat_d == 1).total;
+  const int err = opt_in_smem(cubical_pairs_kernel, smem);
+  if (err) return err;
   cubical_pairs_kernel<<<n_grids, T1_THREADS, smem,
                          static_cast<cudaStream_t>(stream)>>>(
       grids, h, w, feat_d, max_bars, birth, death, count);
@@ -244,11 +338,8 @@ int dhoct_wasserstein_match(const float* grids, int n_rows, int hw,
   if (n_rows < 1 || k < 1 || t_max < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = pcore::match_scratch_bytes(k, t_max);
-  if (smem > MAX_SMEM) return ERR_SMEM;
-  cudaError_t e = cudaFuncSetAttribute(
-      wasserstein_match_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
+  const int err = opt_in_smem(wasserstein_match_kernel, smem);
+  if (err) return err;
   wasserstein_match_kernel<<<n_rows, T2_THREADS, smem,
                              static_cast<cudaStream_t>(stream)>>>(
       grids, hw, p_birth, p_death, p_count, true_bars, t_count, t_max, q, k,

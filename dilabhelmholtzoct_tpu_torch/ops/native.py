@@ -2,9 +2,12 @@
 
 Port of ``dilabhelmholtzoct_tpu/ops/native.py``'s persistence entries
 (``cubical_pairs_batch``, ``wasserstein_match_batch``), over the port's own
-sources: ``csrc/persistence_host.cc`` on the shared algorithm of
-``csrc/persistence_core.h``, which the card's kernels (``csrc/topology.cu``)
-run too.
+sources: ``csrc/persistence_host.cc`` on the algorithm of
+``csrc/persistence_core.h``. The card's kernels (``csrc/topology.cu``) run
+the block-parallel phases of ``csrc/persistence_parallel.h``;
+``cubical_pairs_parallel`` and ``wasserstein_match_parallel`` run those
+phases here, over a virtual thread count, so the CPU tests can hold the
+kernels' algorithm to the core's.
 
 The library is built at first use with g++ into ``build/native/`` beside
 the package (a directory git ignores), named by a hash of the sources and
@@ -27,7 +30,8 @@ import numpy as np
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "native"
-SOURCES = ("persistence_host.cc", "persistence_core.h")
+SOURCES = ("persistence_host.cc", "persistence_core.h",
+           "persistence_parallel.h")
 CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-pthread",
              "-ffp-contract=off")
 
@@ -79,6 +83,12 @@ def library() -> ctypes.CDLL:
         lib.wasserstein_match_batch.argtypes = [p, i, i, p, p, p, p, p,
                                                 ctypes.c_double, i, p, p, p]
         lib.wasserstein_match_batch.restype = None
+        lib.cubical_pairs_parallel.argtypes = [p, i, i, i, i, i, i, p, p, p,
+                                               p]
+        lib.cubical_pairs_parallel.restype = None
+        lib.wasserstein_match_parallel.argtypes = [
+            p, i, i, p, p, p, p, p, i, ctypes.c_double, i, i, p, p, p, p]
+        lib.wasserstein_match_parallel.restype = None
         _LIB = lib
     return _LIB
 
@@ -143,3 +153,55 @@ def wasserstein_match_batch(grids, p_birth, p_death, p_count, true_diagrams,
             _ptr(p_count), _ptr(true_bars), _ptr(t_off), float(q), max_bars,
             _ptr(matched), _ptr(target), _ptr(const_term))
     return matched, target, const_term
+
+
+def cubical_pairs_parallel(grids, feat_d: int, max_bars: int = 32,
+                           threads: int = 256):
+    """T1's algorithm (``csrc/topology.cu::cubical_pairs_kernel``'s phases)
+    on the host, over ``threads`` virtual threads: the ``feat_d`` pass (0:
+    H0, 1: H1, bars swapped) of (N, H, W) f32 grids. Returns (birth, death
+    (N, max_bars) int32, -1 padded; count (N,) int32; merges (N,) int32,
+    the merge pixels its walk visited)."""
+    grids = np.ascontiguousarray(grids, np.float32)
+    n, h, w = grids.shape
+    if h * w >= 1 << 15:  # the phases keep pixel indices in 16 bits
+        raise ValueError(f"a {h}x{w} grid has 2^15 pixels or more")
+    birth = np.empty((n, max_bars), np.int32)
+    death = np.empty((n, max_bars), np.int32)
+    count = np.empty((n,), np.int32)
+    merges = np.empty((n,), np.int32)
+    if n:
+        library().cubical_pairs_parallel(
+            _ptr(grids), n, h, w, feat_d, max_bars, threads, _ptr(birth),
+            _ptr(death), _ptr(count), _ptr(merges))
+    return birth, death, count, merges
+
+
+def wasserstein_match_parallel(grids, p_birth, p_death, p_count, true_bars,
+                               t_count, q: float, threads: int = 256):
+    """T2's algorithm (``csrc/topology.cu::wasserstein_match_kernel``'s
+    phases) on the host, over ``threads`` virtual threads, in the kernel's
+    layout: grids (n, HW) f32; p_birth / p_death (n, K) int32; p_count (n,)
+    int32; true_bars (n, T, 2) f32; t_count (n,) int32. Returns (matched
+    (n, K) int8, target (n, K, 2) f32, const_term (n,) f32, steps (n,)
+    int32, the Dijkstra steps of each row)."""
+    grids = np.ascontiguousarray(grids, np.float32)
+    n = grids.shape[0]
+    grids = grids.reshape(n, -1)
+    p_birth = np.ascontiguousarray(p_birth, np.int32)
+    p_death = np.ascontiguousarray(p_death, np.int32)
+    p_count = np.ascontiguousarray(p_count, np.int32)
+    true_bars = np.ascontiguousarray(true_bars, np.float32)
+    t_count = np.ascontiguousarray(t_count, np.int32)
+    k = p_birth.shape[1]
+    matched = np.empty((n, k), np.int8)
+    target = np.empty((n, k, 2), np.float32)
+    const_term = np.empty((n,), np.float32)
+    steps = np.empty((n,), np.int32)
+    if n:
+        library().wasserstein_match_parallel(
+            _ptr(grids), n, grids.shape[1], _ptr(p_birth), _ptr(p_death),
+            _ptr(p_count), _ptr(true_bars), _ptr(t_count),
+            true_bars.shape[1], float(q), k, threads, _ptr(matched),
+            _ptr(target), _ptr(const_term), _ptr(steps))
+    return matched, target, const_term, steps

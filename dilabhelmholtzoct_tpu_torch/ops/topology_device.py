@@ -7,20 +7,27 @@ host round trip and no pipelining. Same names and contracts:
 ``device_pairing`` (:487) and ``topo_loss_device`` (:526).
 
 On a CUDA tensor the two combinatorial functions launch the hand-written
-kernels of ``csrc/topology.cu``:
+kernels of ``csrc/topology.cu``, which run the block-parallel phases of
+``csrc/persistence_parallel.h``:
 
   * ``cubical_pairs`` (T1, ``cubical_pairs_kernel``): one block per grid,
-    a bitonic sort of the pixels and the sequential union-find of
-    ``csrc/persistence_core.h`` in shared memory, the bar cap;
+    in shared memory: steepest-descent basins by pointer jumping, the merge
+    pixels (those whose earlier neighbours lie in two basins or more)
+    compacted and sorted, a walk over them that finds their basins' roots
+    in parallel rounds and replays the union-find's elder rule one merge
+    pixel after another, the bar cap;
   * ``wasserstein_match`` (T2, ``wasserstein_match_kernel``): one block per
-    row running the core's reduced Jonker-Volgenant assignment (f64 duals).
+    row, the reduced Jonker-Volgenant assignment (f64 duals) with each
+    Dijkstra step's column loops spread over the block.
 
-The JAX module restructured the union-find for a vector machine (Jacobi
-basin propagation, sorted edge dedup, lane-lockstep Kruskal); the port
-keeps the math, not that workaround: the kernels run the algorithm of the
-host library (``ops/native.py``), so the card and the host give the same
-bars in the same order. ``device_pairing`` launches T1 once for the pred and
-the true grids together and T2 once.
+Their results equal the host library's (``ops/native.py`` on
+``csrc/persistence_core.h``'s sequential union-find and assignment): the
+same bars in the same order, the same matchings. The JAX module's device
+pairing uses the same basin idea but emits its bars in another order; the
+port's contract is the host's order. ``native.cubical_pairs_parallel`` /
+``native.wasserstein_match_parallel`` run the kernels' phases on the host
+for the CPU tests. ``device_pairing`` launches T1 once for the pred and the
+true grids together and T2 once.
 
 On a CPU tensor the same functions run the plain twin,
 ``ops/topology_ref.py`` (numpy + scipy): the same bars in the same order

@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from dilabhelmholtzoct_tpu_torch.ops import attention as port_attn
+from test_torch_topology_parallel import _blobs, _downsampled_mask
 
 
 @pytest.fixture
@@ -769,15 +770,23 @@ def test_upscale_tf32_launches_on_card(cuda_device, bp, m, n_out):
 # ---------------------------------------------------------------------------
 # T1 / T2, the topological loss's pairing and matching (csrc/topology.cu),
 # against their plain twins (ops/topology_ref.py) and the host library
-# (ops/native.py, g++): one algorithm (csrc/persistence_core.h), so the bars
-# are equal index for index and in the same order, and the matching is the
-# host library's; against the twin (scipy) the matching cost per row holds
-# within rtol 1e-6 (another matching of equal cost may be picked).
+# (ops/native.py, g++): the kernels' block-parallel phases
+# (csrc/persistence_parallel.h) give the results of the host's sequential
+# algorithm (csrc/persistence_core.h), so the bars are equal index for index
+# and in the same order, and the matching is the host library's; against
+# the twin (scipy) the matching cost per row holds within rtol 1e-6 (another
+# matching of equal cost may be picked). Plateaus, thin grids, the cap and
+# exact cost ties are where a parallel pairing or matching could go astray.
 # ---------------------------------------------------------------------------
 
 
 def _sigmoid_noise(rng, n, h=50, w=50):
     return (1 / (1 + np.exp(-rng.normal(size=(n, h, w))))).astype(np.float32)
+
+
+def _quantized(x, step=0.25):
+    """Few distinct values: equal costs in T2, equal persistences in T1."""
+    return (np.round(x / step) * step).astype(np.float32)
 
 
 TOPO_GRIDS = {
@@ -786,13 +795,20 @@ TOPO_GRIDS = {
     "one_grid": (lambda rng: _sigmoid_noise(rng, 1), 512),
     "plateaus": (lambda rng: (np.round(rng.random((6, 30, 20)) * 3) / 3)
                  .astype(np.float32), 512),
+    # near-binary plateaus (many basins, few bars) and the step's true
+    # grids: binary masks through the loss's downsample
+    "blobs_plateaus": (lambda rng: _blobs(rng, 8), 512),
+    "downsampled_mask": (lambda rng: _downsampled_mask(rng, 8), 512),
     "saturated": (lambda rng: np.minimum(
         _sigmoid_noise(rng, 4) * 1.5, 1.0).astype(np.float32), 512),
     "constant": (lambda rng: np.full((3, 12, 12), 0.5, np.float32), 512),
     "thin": (lambda rng: rng.random((4, 1, 37)).astype(np.float32), 512),
+    "thin_column": (lambda rng: rng.random((4, 50, 1)).astype(np.float32),
+                    512),
     # above the cap: the kept bars and their order decided by kept_before,
     # ties of equal persistence included (quantized values)
     "above_cap": (lambda rng: _sigmoid_noise(rng, 8), 64),
+    "above_cap_512": (lambda rng: _sigmoid_noise(rng, 4, 72, 72), 512),
     "above_cap_ties": (lambda rng: (np.round(rng.random((8, 40, 40)) * 6)
                                     / 6).astype(np.float32), 16),
 }
@@ -856,18 +872,28 @@ def _blob_targets(rng, n, h=50, w=50):
 @pytest.mark.parametrize("n,true_kind,q", [(64, "blobs", 2.0),
                                            (1, "blobs", 2.0),
                                            (8, "noise", 2.0),
-                                           (8, "blobs", 1.0)])
+                                           (8, "blobs", 1.0),
+                                           (8, "ties", 2.0),
+                                           (8, "ties", 1.0),
+                                           (8, "empty", 2.0)])
 def test_wasserstein_match_on_card(cuda_device, n, true_kind, q, feat_d):
     """T2 on the pairing of pred noise grids against ground-truth-like
-    targets (or noise, both diagrams large), as ``device_pairing`` calls
-    it."""
+    targets (or noise, both diagrams large, so rows of either orientation;
+    or quantized noise against quantized noise, exact cost ties; or empty
+    targets, no true bar), as ``device_pairing`` calls it."""
     from dilabhelmholtzoct_tpu_torch.ops import native
     from dilabhelmholtzoct_tpu_torch.ops import topology_device as ptd
 
     rng = np.random.default_rng(n + feat_d)
-    sp = torch.tensor(_sigmoid_noise(rng, n), device=cuda_device)
-    st = torch.tensor(_blob_targets(rng, n) if true_kind == "blobs"
-                      else _sigmoid_noise(rng, n), device=cuda_device)
+    pred = _sigmoid_noise(rng, n)
+    true = {"blobs": lambda: _blob_targets(rng, n),
+            "noise": lambda: _sigmoid_noise(rng, n),
+            "ties": lambda: _quantized(_sigmoid_noise(rng, n)),
+            "empty": lambda: np.zeros((n, 50, 50), np.float32)}[true_kind]()
+    if true_kind == "ties":
+        pred = _quantized(pred)
+    sp = torch.tensor(pred, device=cuda_device)
+    st = torch.tensor(true, device=cuda_device)
     b, d, c = ptd.device_cubical_pairs(torch.cat([sp, st]), feat_d)
     flat_t = st.reshape(n, -1)
     true_bars = torch.stack([flat_t.gather(1, b[n:].clamp(min=0).long()),
@@ -892,6 +918,8 @@ def test_wasserstein_match_on_card(cuda_device, n, true_kind, q, feat_d):
                               for i in range(n)], q, b.shape[1])
     for x, y in zip(got, host):
         np.testing.assert_array_equal(x.cpu().numpy(), y)
+    if true_kind == "empty":
+        assert not got[0].any() and not got[2].any()
 
 
 @pytest.mark.gpu
