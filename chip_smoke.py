@@ -97,6 +97,19 @@ prints no result line):
    mask input at ViT-B, f32, from a cached embedding, on the card against
    the CPU (``PROB_ATOL``), its dense embedding unlike the no-mask row, and
    the bf16 forward finite.
+6e. Data parallelism (``dp_phase``; ``parallel/``, ``multihost``):
+   ``training()`` with ``multihost=True`` in an NCCL group of one (ViT-B,
+   bf16, cached, 8 + 8 images: 64 pairs, one epoch), its history bit-equal
+   to the same run in one process and its launches exact (K1 x64, K2
+   x128, K3 / K4 of one train and one valid step); then two ranks sharing
+   ``cuda:0`` over gloo (NCCL takes one rank per card), each a process,
+   ``DP_STEPS`` Adam decoder steps on its half of 7 images padded to 8
+   (32 and 9 channels), K3 x1 / K4 x2 forward and backward per step and
+   rank: the ranks bit-equal, the first step's loss, gradients and the
+   signs of its Adam updates against the single-process full-batch step
+   (``DP_LOSS_RTOL``, ``DP_GRAD_RTOL``, ``DP_SIGN_AGREE_MIN``),
+   step ms per rank beside one process's; over NCCL with one rank per card
+   where the machine has two cards, else one line saying it did not run.
 7. The card against the CPU: the same first step on 1 image x bucket 8 on
    both — the loss and the signs of the decoder updates.
 8. The epoch loop: ``training(config, splits=...)`` for 2 epochs, then
@@ -167,6 +180,15 @@ prints no result line):
    and peak memory; ``training()`` for 1 epoch (16 + 8 images, 2 steps);
    the bf16 embeddings of 2 images at a 2-layer cut (full width) on the
    card against the CPU, within ``EMB_ULPS`` bf16 ulps of their scale.
+19. ViT-H encoder fine-tuning (``vith_finetune_phase``): ``trainable=
+   'all'``, bf16, batch 2, ``VITH_FT_STEPS`` steps under
+   ``set_flash_attention('off')`` (the materialized attention route in
+   every encoder layer): no attention kernel launched, K3 x1 / K4 x2
+   forward and backward per step, finite losses, the median step and the
+   peak memory; the first step card vs CPU at a 2-layer cut (ViT-H width);
+   the 'auto' route with a gradient raises, naming the switch (K6 is
+   forward-only); a ViT-B f32 encode under 'off' against 'auto' (K1 x4,
+   K2 x8) within ``F32_ATOL`` of the embeddings' scale, both timed.
 
 The line before the last is a JSON object with one entry per kernel (K1/K2
 numbers from the serving path in f32; K1 in f32 at B = 4
@@ -1854,11 +1876,12 @@ def _full_params(torch, tr, config, sd_host, device):
 
 
 def full_finetune_run(torch, tr, cfg, sd_host, items, bs, n_steps, label,
-                      compute_dtype="bfloat16"):
+                      compute_dtype="bfloat16", want=None):
     """``n_steps`` full fine-tune steps (trainable='all', encoder inside) on
     one batch of ``bs`` images in ``compute_dtype``; checks every step's
-    launch deltas, a finite loss and a moved patch embedding. Returns
-    (launch counts of the run, losses)."""
+    launch deltas (``want``, by default ``ft_launches``), a finite loss and
+    a moved patch embedding. Returns (launch counts of the run, losses,
+    median step ms of steps 2 on, peak memory bytes)."""
     from dilabhelmholtzoct_tpu_torch.data.pipeline import (PromptedDataset,
                                                            batches)
 
@@ -1875,7 +1898,7 @@ def full_finetune_run(torch, tr, cfg, sd_host, items, bs, n_steps, label,
     db = _device_batch(torch, batch, dev)
     params, frozen, opt = _full_params(torch, tr, config, sd_host, dev)
     step = tr.make_train_step(cfg, config, opt, (496, 512), False)
-    want = ft_launches(cfg, compute_dtype)
+    want = ft_launches(cfg, compute_dtype) if want is None else want
     losses, times = [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1907,7 +1930,7 @@ def full_finetune_run(torch, tr, cfg, sd_host, items, bs, n_steps, label,
           f"{peak / 2**20:.1f} MiB")
     del params, frozen, opt, db
     torch.cuda.empty_cache()
-    return launches, losses
+    return launches, losses, med, peak
 
 
 def finetune_phase(torch):
@@ -1922,8 +1945,8 @@ def finetune_phase(torch):
     cfg = sam_vit_base()
     sd_host = synthetic.random_params(cfg, seed=0)
     items = synthetic.oct_training_items(4, seed=3)
-    launches, losses = full_finetune_run(torch, tr, cfg, sd_host, items, 4,
-                                         10, "ViT-B")
+    launches, losses, _, _ = full_finetune_run(torch, tr, cfg, sd_host,
+                                               items, 4, 10, "ViT-B")
     check(losses[-1] < losses[0], f"ViT-B: the loss did not fall: {losses}")
     cfg_l = sam_vit_large()
     full_finetune_run(torch, tr, cfg_l, synthetic.random_params(cfg_l, seed=0),
@@ -1946,8 +1969,9 @@ def finetune_f32_phase(torch):
     cfg = sam_vit_base()
     sd_host = synthetic.random_params(cfg, seed=0)
     items = synthetic.oct_training_items(4, seed=3)
-    launches, losses = full_finetune_run(torch, tr, cfg, sd_host, items, 4, 5,
-                                         "ViT-B", "float32")
+    launches, losses, _, _ = full_finetune_run(torch, tr, cfg, sd_host,
+                                               items, 4, 5, "ViT-B",
+                                               "float32")
     check(losses[-1] < losses[0], f"ViT-B f32: the loss did not fall: "
                                   f"{losses}")
     finetune_card_vs_cpu(torch, tr, cfg, "float32")
@@ -1955,8 +1979,9 @@ def finetune_f32_phase(torch):
 
 
 def finetune_card_vs_cpu(torch, tr, cfg, compute_dtype="bfloat16"):
-    """The first full fine-tune step on 1 image, at ViT-B width with the
-    depth cut to 2 layers (one windowed, one global) so that the host can
+    """The first full fine-tune step on 1 image, at the width of ``cfg``
+    (ViT-B, or ViT-H under ``set_flash_attention('off')``) with the depth
+    cut to 2 layers (one windowed, one global) so that the host can
     run it, on the card and on the CPU from the same weights, in
     ``compute_dtype``."""
     from dilabhelmholtzoct_tpu_torch.data.pipeline import (PromptedDataset,
@@ -1990,8 +2015,9 @@ def finetune_card_vs_cpu(torch, tr, cfg, compute_dtype="bfloat16"):
     rel = abs(l_card - l_cpu) / abs(l_cpu)
     share, total = sign_agreement(torch, d_cpu, d_card, config.learning_rate)
     print(f"card vs cpu, first full fine-tune {tname} step on 1 image x "
-          f"bucket 8, ViT-B width, depth cut to 2 layers (layer 0 windowed, "
-          f"layer 1 global) of 12: loss {l_card:.8f} vs {l_cpu:.8f} (rel "
+          f"bucket 8, width {cfg.vision.hidden_size}, depth cut to 2 layers "
+          f"(layer 0 windowed, layer 1 global) of {cfg.vision.num_layers}: "
+          f"loss {l_card:.8f} vs {l_cpu:.8f} (rel "
           f"{rel:.3g}, rtol {rtol}); update signs agree on {share:.4f} of "
           f"{total} moved weights over all parameters (min {SIGN_AGREE_MIN})")
     check(rel <= rtol, f"card and CPU full fine-tune {tname} losses differ")
@@ -2647,6 +2673,347 @@ def vith_decoder_phase(torch):
     return launches
 
 
+DP_STEPS = 5  # steps of each rank and of the single process in dp_phase
+DP_LOSS_RTOL = 1e-3  # two ranks vs one process, bf16 decoder step: each
+#                      rank's GEMMs see half the rows, so f32 sums run in
+#                      another order and a few bf16 roundings flip
+DP_GRAD_RTOL = 1e-2  # the same, the whole decoder gradient: L2 error over
+#                      its norm. The gradient of a weight's bf16 copy is
+#                      rounded to bf16 on each rank's partial sum, and on
+#                      the whole batch's in one process (2^-8 relative
+#                      each); partials that cancel move single elements
+#                      more, and the gradients that are zero but for
+#                      rounding (the key projections' biases: softmax
+#                      ignores a constant per row) are noise, so no
+#                      per-element bound holds
+DP_SIGN_AGREE_MIN = 0.99  # the same, share of the weights Adam's first
+#                           step moved that move the same way
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return str(s.getsockname()[1])
+
+
+def dp_step_run(torch, data, batch, dev):
+    """``DP_STEPS`` bf16 decoder steps (the trainer's Adam, lr 1e-3) at ViT-B
+    from
+    ``data``'s weights and embeddings on ``batch`` (host arrays, pad rows
+    with the -1 sentinel), on ``dev``: in a process group each on this
+    rank's rows. Each step must launch ``STEP_LAUNCHES``. Returns the first
+    step's loss, gradients (summed over the ranks) and updated decoder, and
+    the median of steps 2 on (ms)."""
+    from dilabhelmholtzoct_tpu_torch.models.configs import sam_vit_base
+    from dilabhelmholtzoct_tpu_torch.train import trainer as tr
+
+    cfg = sam_vit_base()
+    config = tr.TrainConfig(evaluate=False)  # bf16, Adam, lr 1e-3
+    sd = {k: v.to(dev, copy=True) for k, v in data["sd"].items()}
+    decoder, frozen = tr._split_params(sd)
+    for v in decoder.values():
+        v.requires_grad_(True)
+    opt = tr.make_optimizer(config, decoder.values())
+    idx = torch.as_tensor(np.maximum(batch["indices"], 0),
+                          dtype=torch.long).to(dev)
+    db = {k: torch.as_tensor(batch[k]).to(dev)
+          for k in ("prompts", "comp_map", "channel_mask")}
+    db["embeddings"] = data["emb"].to(dev).index_select(0, idx)
+    step = tr.make_train_step(cfg, config, opt, (496, 512), True)
+    times, first = [], None
+    for i in range(DP_STEPS):
+        before = _counts()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        decoder, opt, loss = step(decoder, opt, frozen, db)
+        torch.cuda.synchronize(dev)
+        times.append(1e3 * (time.perf_counter() - t0))
+        d = _delta(_counts(), before)
+        check(d == STEP_LAUNCHES, f"DP step {i} on {dev} launched {d}, "
+                                  f"want {STEP_LAUNCHES}")
+        if i == 0:
+            first = (float(loss), {k: v.grad.cpu() for k, v in decoder.items()},
+                     {k: v.detach().cpu() for k, v in decoder.items()})
+    return {"loss": first[0], "grads": first[1], "params": first[2],
+            "ms": statistics.median(times[1:]), "launches": _counts()}
+
+
+def dp_worker(argv):
+    """One rank of ``dp_phase``'s two-rank step (``chip_smoke.py --dp-worker
+    <rank> <port> <backend> <dir>``): joins the group, takes its rows of the
+    padded batch in ``<dir>/inputs.pt`` and writes ``<dir>/rank<r>.pt``."""
+    import torch
+
+    from dilabhelmholtzoct_tpu_torch.parallel import distributed as dist
+    from dilabhelmholtzoct_tpu_torch.parallel import mesh
+
+    rank, port, backend, tmp = int(argv[0]), argv[1], argv[2], argv[3]
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    os.environ["LOCAL_RANK"] = str(dev.index)
+    check(dist.initialize(f"localhost:{port}", 2, rank, backend=backend),
+          "no group of two")
+    try:
+        data = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+        padded, _ = mesh.pad_to_multiple(data["batch"], 2)
+        _reset_counts()
+        out = dp_step_run(torch, data, mesh.shard_batch(padded), dev)
+        torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        dist.shutdown()
+
+
+def _dp_pair(torch, tmp, backend):
+    """Run the two ranks of ``backend`` as processes; their results."""
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp-worker", str(r),
+         port, backend, tmp], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in (0, 1)]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"{backend} rank {r} failed (rc "
+                                 f"{p.returncode}):\n{out[-4000:]}")
+    return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+            for r in (0, 1)]
+
+
+def _dp_compare(torch, ranks, single, before, label):
+    """Both ranks against each other (bit for bit) and against the
+    single-process full-batch step from the weights ``before``."""
+    r0, r1 = ranks
+    check(r0["loss"] == r1["loss"] and all(
+        torch.equal(r0[part][k], r1[part][k]) for part in ("grads", "params")
+        for k in r0["params"]), f"{label}: the ranks disagree")
+    rel = abs(r0["loss"] - single["loss"]) / abs(single["loss"])
+    keys = list(single["grads"])
+    g1 = torch.cat([single["grads"][k].flatten() for k in keys])
+    g2 = torch.cat([r0["grads"][k].flatten() for k in keys])
+    g_rel = ((g2 - g1).norm() / g1.norm()).item()
+    share, total = sign_agreement(
+        torch, {k: single["params"][k] - before[k] for k in keys},
+        {k: r0["params"][k] - before[k] for k in keys}, 1e-3)
+    print(f"DP {label}: loss {r0['loss']:.6f} vs one process "
+          f"{single['loss']:.6f} (rel {rel:.3g}, rtol {DP_LOSS_RTOL}); "
+          f"gradient L2 error {g_rel:.3g} of its norm (limit {DP_GRAD_RTOL});"
+          f" update signs agree on {share:.5f} of {total} moved weights (min "
+          f"{DP_SIGN_AGREE_MIN}); step ms per rank {r0['ms']:.2f} / "
+          f"{r1['ms']:.2f} (median of steps 2-{DP_STEPS}) vs one process "
+          f"{single['ms']:.2f}; launches per rank {r0['launches']}")
+    check(rel <= DP_LOSS_RTOL, f"{label}: loss differs from one process")
+    check(g_rel <= DP_GRAD_RTOL, f"{label}: gradients differ from one process")
+    check(share >= DP_SIGN_AGREE_MIN,
+          f"{label}: updates differ in sign from one process")
+    for r in ranks:
+        check(r["launches"] == {k: DP_STEPS * v
+                                for k, v in STEP_LAUNCHES.items()},
+              f"{label}: a rank launched {r['launches']}")
+
+
+def dp_phase(torch):
+    """Data parallelism (``parallel/``, ``multihost``): (1) ``training()``
+    with ``multihost=True`` in an NCCL group of one (ViT-B, bf16, cached,
+    8 + 8 images of 8 components: 64 pairs, one epoch) against the same run
+    in one process, history bit for bit; (2) two ranks sharing ``cuda:0``
+    over gloo (NCCL takes one rank per card) on a batch of 7 images padded
+    to 8 whose halves hold 32 and 9 channels: ``DP_STEPS`` bf16 decoder
+    steps per rank, each K3 x1 / K4 x2 forward and backward, against the
+    single-process full-batch step; (3) the same over NCCL, one rank per
+    card, where the machine has two cards. Returns the per-rank launch
+    counts of (1)."""
+    from dilabhelmholtzoct_tpu_torch.data.pipeline import (PromptedDataset,
+                                                           batches)
+    from dilabhelmholtzoct_tpu_torch.inference import synthetic
+    from dilabhelmholtzoct_tpu_torch.models.configs import sam_vit_base
+    from dilabhelmholtzoct_tpu_torch.parallel import distributed as dist
+    from dilabhelmholtzoct_tpu_torch.parallel import mesh
+    from dilabhelmholtzoct_tpu_torch.train import trainer as tr
+
+    cfg = sam_vit_base()
+    sd_host = synthetic.random_params(cfg, seed=0)
+    splits = (synthetic.oct_training_items(8, seed=1),
+              synthetic.oct_training_items(8, seed=2))
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": _free_port(),
+           "WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0"}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "weights.pt")
+        torch.save(sd_host, ckpt)
+        base = tr.TrainConfig(
+            evaluate=False, batch_size=8, epochs=1, ckpt_keep=1,
+            pretrained_checkpoint=ckpt, checkpoint=os.path.join(tmp, "ck"),
+            log_jsonl=os.path.join(tmp, "metrics.jsonl"))
+        t0 = time.perf_counter()
+        single = tr.training(dataclasses.replace(base, display_name="one"),
+                             splits=splits)
+        t_one = time.perf_counter() - t0
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            _reset_counts()  # --- DP main path starts
+            t0 = time.perf_counter()
+            dp = tr.training(dataclasses.replace(
+                base, multihost=True, display_name="dp"), splits=splits)
+            t_dp = time.perf_counter() - t0
+            launches = _counts()  # --- DP main path ends
+            check(dist.is_initialized() and dist.process_count() == 1,
+                  "multihost=True did not join the group of one")
+            backend = torch.distributed.get_backend()
+        finally:
+            dist.shutdown()
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    key = [(h["epoch"], h["train_loss"], h["valid_loss"])
+           for h in single["history"]]
+    got = [(h["epoch"], h["train_loss"], h["valid_loss"])
+           for h in dp["history"]]
+    print(f"DP group of one ({backend}) through training(multihost=True): "
+          f"history {got} vs one process {key} in {t_dp:.1f} s (one process "
+          f"{t_one:.1f} s); launches {launches}")
+    check(backend == "nccl", f"the group of one runs {backend}, not NCCL")
+    check(got == key, "the NCCL group of one is not bit-equal to one process")
+    want = {"attn_global": 4 * 16, "attn_windowed": 8 * 16,
+            "upscale_fwd": 2, "upscale_bwd": 1, "upscale_bwd_dw": 1,
+            "i2t_fwd": 4, "i2t_bwd": 2, "i2t_bwd_dw": 2}
+    check(all(launches[k] == v for k, v in want.items()),
+          f"DP run of one launched {launches}, want {want}")
+
+    # (2) two ranks on one card over gloo, against one process
+    ds = PromptedDataset(synthetic.oct_training_items(7, seed=4), seed=0)
+    batch = list(batches(ds, 7, with_images=False, num_workers=2))[0]
+    batch = {k: batch[k] for k in ("prompts", "comp_map", "channel_mask",
+                                   "indices")}
+    batch["channel_mask"][4:, 3:] = 0.0  # rank 1's rows: 9 of 32 channels
+    gen = torch.Generator().manual_seed(11)
+    emb = torch.randn((7, 64, 64, 256), generator=gen).to(torch.bfloat16)
+    data = {"sd": {k: v for k, v in sd_host.items()
+                   if not k.startswith("vision_encoder.")},
+            "emb": emb, "batch": batch}
+    padded, _ = mesh.pad_to_multiple(batch, 2)
+    single = dp_step_run(torch, data, padded, torch.device("cuda", 0))
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(data, os.path.join(tmp, "inputs.pt"))
+        t0 = time.perf_counter()
+        ranks = _dp_pair(torch, tmp, "gloo")
+        print(f"DP two ranks on one card (gloo): "
+              f"{time.perf_counter() - t0:.1f} s with the processes' start")
+        before = {k: v for k, v in data["sd"].items()
+                  if k.startswith(tr.DECODER_PREFIX)}
+        _dp_compare(torch, ranks, single, before, "gloo, 2 ranks on cuda:0")
+        if torch.cuda.device_count() >= 2:
+            _dp_compare(torch, _dp_pair(torch, tmp, "nccl"), single, before,
+                        "NCCL, one rank per card")
+        else:
+            print(f"DP over NCCL with one rank per card: not run "
+                  f"({torch.cuda.device_count()} card)")
+    return launches
+
+
+VITH_FT_STEPS = 3
+
+
+def vith_finetune_phase(torch, sd_h):
+    """ViT-H encoder fine-tuning (``trainable='all'``, bf16, batch 2) under
+    ``set_flash_attention('off')``: the materialized attention route in
+    every encoder layer, no attention kernel, the decoder's K3 x1 / K4 x2
+    forward and backward per step; finite losses, the step time and the
+    peak memory; the first step card vs CPU at a 2-layer cut; the 'auto'
+    route with a gradient raises (K6 is forward-only); and a ViT-B f32
+    encode under 'off' against 'auto' (K1 / K2)."""
+    from dilabhelmholtzoct_tpu_torch.data.pipeline import (PromptedDataset,
+                                                           batches)
+    from dilabhelmholtzoct_tpu_torch.device import full_fp32
+    from dilabhelmholtzoct_tpu_torch.inference import synthetic
+    from dilabhelmholtzoct_tpu_torch.models import sam as psam
+    from dilabhelmholtzoct_tpu_torch.models.configs import (sam_vit_base,
+                                                            sam_vit_huge)
+    from dilabhelmholtzoct_tpu_torch.ops.preprocess import preprocess_image
+    from dilabhelmholtzoct_tpu_torch.train import trainer as tr
+
+    cfg = sam_vit_huge()
+    items = synthetic.oct_training_items(2, seed=3)
+    want = {**STEP_LAUNCHES}  # the encoder launches no attention kernel
+    psam.set_flash_attention("off")
+    try:
+        launches, losses, med, peak = full_finetune_run(
+            torch, tr, cfg, sd_h, items, 2, VITH_FT_STEPS, "ViT-H 'off'",
+            want=want)
+        finetune_card_vs_cpu(torch, tr, cfg)
+    finally:
+        psam.set_flash_attention("auto")
+    print(f"ViT-H trainable='all' bf16 bs 2 under 'off': median step "
+          f"{med:.2f} ms ({2e3 / med:.2f} img/s), peak {peak / 2**30:.2f} "
+          f"GiB of {torch.cuda.get_device_properties(0).total_memory / 2**30:.1f}")
+
+    # 'auto' sends ViT-H to K6, which has no backward
+    config = tr.TrainConfig(evaluate=False, batch_size=1, trainable="all",
+                            cache_embeddings=False)
+    cut = dataclasses.replace(cfg, vision=dataclasses.replace(
+        cfg.vision, num_layers=2, global_attn_indexes=(1,)))
+    sd_cut = {k: v for k, v in sd_h.items()
+              if not k.startswith("vision_encoder.layers.")
+              or int(k.split(".")[2]) < 2}
+    params, frozen, opt = _full_params(torch, tr, config, sd_cut,
+                                       torch.device("cuda"))
+    step = tr.make_train_step(cut, config, opt, (496, 512), False)
+    b1 = list(batches(PromptedDataset(items[:1], seed=0), 1,
+                      with_images=True, num_workers=1))[0]
+    try:
+        step(params, opt, frozen, _device_batch(torch, b1,
+                                                torch.device("cuda")))
+        raised = None
+    except NotImplementedError as e:
+        raised = str(e)
+    check(raised is not None and "set_flash_attention('off')" in raised,
+          f"the 'auto' route with a gradient at head dim 80 did not raise "
+          f"with the switch named: {raised!r}")
+    print(f"'auto' with a gradient at ViT-H raises: {raised.splitlines()[0]}")
+    del params, frozen, opt
+    torch.cuda.empty_cache()
+
+    # a ViT-B f32 encode: the materialized route against K1 / K2
+    cfg_b = sam_vit_base()
+    sd_b = {k: v.cuda() for k, v in
+            synthetic.random_params(cfg_b, seed=0).items()}
+    img = torch.as_tensor(synthetic.oct_training_items(1, seed=9)[0]["image"])
+    pix, _ = preprocess_image(img[None].cuda(), target_size=1024)
+    out, times = {}, {}
+    for mode in ("auto", "off"):
+        psam.set_flash_attention(mode)
+        try:
+            with torch.no_grad(), full_fp32():
+                before = _counts()
+                for _ in range(2):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out[mode] = psam.encode_image(sd_b, pix, cfg_b)
+                    torch.cuda.synchronize()
+                    times[mode] = 1e3 * (time.perf_counter() - t0)
+                d = _delta(_counts(), before)
+        finally:
+            psam.set_flash_attention("auto")
+        n_attn = d["attn_global"] + d["attn_windowed"]
+        check(n_attn == (24 if mode == "auto" else 0),
+              f"ViT-B encode under {mode!r} launched {d}")
+    diff = (out["off"] - out["auto"]).abs().max().item()
+    scale = out["auto"].abs().max().item()
+    print(f"ViT-B f32 encode, 'off' (materialized) vs 'auto' (K1 x4, K2 x8): "
+          f"max |difference| {diff:.3g} of max |value| {scale:.3g} (limit "
+          f"{F32_ATOL} relative); encode ms 'auto' {times['auto']:.2f}, "
+          f"'off' {times['off']:.2f}")
+    check(diff <= F32_ATOL * scale, "ViT-B encode differs between routes")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2697,6 +3064,9 @@ def main() -> int:
     print(f"[phases] topological decoder fine-tune "
           f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    dp_phase(torch)
+    print(f"[phases] data parallelism {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     k5_rows = k5_kernel_phase(torch, attn)
     print(f"[phases] K5 kernels {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -2737,6 +3107,10 @@ def main() -> int:
     t0 = time.perf_counter()
     evaluation_phase(torch, attn, sd_h)
     print(f"[phases] evaluation {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    vith_finetune_phase(torch, sd_h)
+    print(f"[phases] ViT-H encoder fine-tune under 'off' "
+          f"{time.perf_counter() - t0:.1f} s")
     del sd_h
     t0 = time.perf_counter()
     launches["attn_relpos_bf16"] = vith_decoder_phase(torch)["attn_relpos"]
@@ -2753,4 +3127,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"]:
+        dp_worker(sys.argv[2:])
+        sys.exit(0)
     sys.exit(main())

@@ -17,7 +17,9 @@ same inputs. Parameters are the HF ``SamModel`` state_dict (see
 ``models/convert.py``); every function takes it as ``sd``. The encoder's
 attention goes through ``ops/attention.py::flash_attention_packed`` — the
 CUDA kernels on the card (K1 / K2 forward and K5 backward at head dim 64, K6
-at any other, as ViT-H's 80), the plain versions on the host — and, under
+at any other, as ViT-H's 80), the plain versions on the host — at >= 196
+tokens (``set_flash_attention``; below, and under 'off', the materialized
+route in plain PyTorch, which also trains ViT-H's encoder) and, under
 ``set_fused_windowed('on')``, its windowed layers through
 ``flash_attention_windowed_image`` (K7). In bf16 (the
 training compute dtype) the decoder's image->token update goes through
@@ -112,12 +114,70 @@ def rel_pos_table(rel_pos, q_size: int, k_size: int):
     return rel_pos[torch.as_tensor(idx.astype(np.int64), device=rel_pos.device)]
 
 
+# The JAX package's encoder attention switch (``models/sam.py``
+# ``set_flash_attention``), with its four modes and its rule. 'interpret'
+# names the Pallas interpreter there; here it is the flash route, as 'on':
+# the kernel on a CUDA tensor, its plain version on a CPU tensor.
+_FLASH_MODE = "auto"
+_FLASH_MIN_TOKENS = 196  # SAM's 14 x 14 windows take the flash route too
+
+
+def set_flash_attention(mode: str):
+    """mode in {'auto', 'on', 'off', 'interpret'} — the encoder attention's
+    route: the flash route (``ops/attention.py::flash_attention_packed``:
+    K1 / K2 and K5 at head dim 64 with an even head count, K6 at any other)
+    or the materialized route (``_materialized_attention``: f32 logits with
+    the full (B, heads, N, N) rel-pos bias, plain PyTorch under autograd,
+    the JAX package's XLA path). 'auto' takes the flash route at >= 196
+    tokens, as the JAX package does on an accelerator; 'on' and 'interpret'
+    always; 'off' never. Training the encoder at a head dim other than 64
+    (ViT-H, ``trainable='all'``) needs 'off': K6 has no backward, as the
+    JAX package's has none."""
+    global _FLASH_MODE
+    if mode not in ("auto", "on", "off", "interpret"):
+        raise ValueError(f"unknown flash-attention mode {mode!r}")
+    _FLASH_MODE = mode
+
+
+def _use_flash(n_tokens: int) -> bool:
+    """The JAX package's ``_use_flash``; its 'auto' as on an accelerator."""
+    if _FLASH_MODE == "off":
+        return False
+    if _FLASH_MODE in ("on", "interpret"):
+        return True
+    return n_tokens >= _FLASH_MIN_TOKENS
+
+
+def _materialized_attention(qkv, rel_h, rel_w, hw, n_heads: int):
+    """The JAX package's attention off the flash route (``vision_attention``
+    under ``set_flash_attention('off')``): q scaled in its dtype, the logits
+    of the products summed in f32, plus the decomposed rel-pos bias (built
+    in q's dtype from rel_h / rel_w, or none when they are None), an f32
+    softmax rounded to v's dtype, and the product with v summed in f32 and
+    rounded once. qkv (B, N, 3C) -> (B, N, C)."""
+    b, n, c3 = qkv.shape
+    d = c3 // 3 // n_heads
+    q, k, v = qkv.reshape(b, n, 3, n_heads, d).permute(2, 0, 3, 1, 4)
+    scale = torch.tensor(d ** -0.5, dtype=qkv.dtype, device=qkv.device)
+    logits = torch.matmul((q * scale).float(), k.float().transpose(-1, -2))
+    if rel_h is not None:
+        h, w = hw
+        bias = (rel_h.reshape(b, n_heads, n, h, 1)
+                + rel_w.reshape(b, n_heads, n, 1, w))
+        logits = logits + bias.reshape(b, n_heads, n, n).float()
+    attn = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.matmul(attn.float(), v.float()).to(v.dtype)
+    return out.permute(0, 2, 1, 3).reshape(b, n, c3 // 3)
+
+
 def vision_attention(x, sd, prefix: str, cfg: VisionConfig):
     """Multi-head self-attention with decomposed rel-pos bias on
-    x (B, H, W, C); B is batch x windows for windowed layers."""
+    x (B, H, W, C); B is batch x windows for windowed layers. The route is
+    ``set_flash_attention``'s."""
     b, h, w, c = x.shape
     n_heads = cfg.num_heads
     qkv = linear(x.reshape(b, h * w, c), sd, f"{prefix}.qkv")  # (B, HW, 3C)
+    rel_h = rel_w = None
     if cfg.use_rel_pos:
         rh = rel_pos_table(sd[f"{prefix}.rel_pos_h"], h, h).to(x.dtype)
         rw = rel_pos_table(sd[f"{prefix}.rel_pos_w"], w, w).to(x.dtype)
@@ -126,11 +186,11 @@ def vision_attention(x, sd, prefix: str, cfg: VisionConfig):
             b, n_heads, h * w, h).contiguous()
         rel_w = torch.einsum("bxyhc,ykc->bhxyk", q_nat, rw).reshape(
             b, n_heads, h * w, w).contiguous()
+    if cfg.use_rel_pos and _use_flash(h * w):
+        out = flash_attention_packed(qkv, rel_h, rel_w, hw=(h, w),
+                                     num_heads=n_heads)
     else:
-        rel_h = qkv.new_zeros((b, n_heads, h * w, h))
-        rel_w = qkv.new_zeros((b, n_heads, h * w, w))
-    out = flash_attention_packed(qkv, rel_h, rel_w, hw=(h, w),
-                                 num_heads=n_heads)
+        out = _materialized_attention(qkv, rel_h, rel_w, (h, w), n_heads)
     return linear(out.reshape(b, h, w, c), sd, f"{prefix}.proj")
 
 

@@ -330,8 +330,9 @@ def _kernel_dims(qkv, num_heads):
             f"K1 / K2 and the backward K5 take head_dim {HEAD_DIM}, got {d}. "
             "flash_attention_packed sends the forward of any other head dim "
             "to K6 (attn_relpos), which has no backward, as the TPU "
-            "flash_attention_relpos has none: the JAX package trains such "
-            "models through its XLA attention path, which is not ported yet")
+            "flash_attention_relpos has none: train such a model on the "
+            "materialized route, models.set_flash_attention('off'), as the "
+            "JAX package does")
 
 
 def attention_fwd_cuda(qkv, rel_h, rel_w, *, hw, num_heads: int,

@@ -9,6 +9,11 @@ targets when the channel dim is > 1, ``BCEWithLogitsLoss`` when it is 1.
 (the rest are bucket padding): masked channels leave the Dice mean, the
 softmax and the target sum, and a row with no channel at all (a padding
 row of the last batch) leaves the CE denominator.
+
+Under data parallelism (``parallel/distributed.py``) each rank's loss is its
+local numerator over the global batch's denominator (``global_count``,
+``mean_share``), as the JAX package's sharded step computes the loss of the
+whole padded batch; with no process group the helpers are the identity.
 """
 
 from __future__ import annotations
@@ -17,6 +22,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel.distributed import global_count, mean_share
 
 SMOOTH_NR = 1e-5
 SMOOTH_DR = 1e-5
@@ -33,9 +40,9 @@ def dice_loss(logits, targets, channel_mask=None):
     denominator = t.sum(axes) + probs.sum(axes)
     f = 1.0 - (2.0 * intersection + SMOOTH_NR) / (denominator + SMOOTH_DR)
     if channel_mask is None:
-        return f.mean()
+        return mean_share(f)
     m = channel_mask.float()
-    return (f * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return (f * m).sum() / torch.clamp(global_count(m.sum()), min=1.0)
 
 
 def softmax_ce_prob_targets(logits, targets, channel_mask=None):
@@ -44,7 +51,7 @@ def softmax_ce_prob_targets(logits, targets, channel_mask=None):
     x = logits.float()
     t = targets.float()
     if channel_mask is None:
-        return -(t * F.log_softmax(x, dim=1)).sum(1).mean()
+        return mean_share(-(t * F.log_softmax(x, dim=1)).sum(1))
     m = channel_mask.bool()
     mb = m.reshape(m.shape + (1,) * (logits.dim() - 2))
     x = torch.where(mb, x, -math.inf)
@@ -55,7 +62,7 @@ def softmax_ce_prob_targets(logits, targets, channel_mask=None):
     # rows with no channel are padding and stay out of the denominator
     row_valid = m.any(1).float()
     n_pix = float(math.prod(per_pixel.shape[1:]))
-    denom = torch.clamp(row_valid.sum() * n_pix, min=1.0)
+    denom = torch.clamp(global_count(row_valid.sum()) * n_pix, min=1.0)
     rshape = (-1,) + (1,) * (per_pixel.dim() - 1)
     return (per_pixel * row_valid.reshape(rshape)).sum() / denom
 
@@ -64,7 +71,7 @@ def bce_with_logits(logits, targets):
     x = logits.float()
     t = targets.float()
     loss = torch.clamp(x, min=0) - x * t + torch.log1p(torch.exp(-x.abs()))
-    return loss.mean()
+    return mean_share(loss)
 
 
 def dice_ce_loss(logits, targets, channel_mask=None):

@@ -16,7 +16,8 @@ pairing -> loss. Everything that carries a gradient -- the resize, the
 gathered birth / death values, the matched costs -- is torch on the input's
 device, so the gradient flows only through the pixel values at the paired
 indices, as in torch_topological. ``ops/topology_device.py`` computes the
-same pairing on the card.
+same pairing on the card. Under data parallelism the batch mean is over the
+global batch (``parallel/distributed.py``), as in the losses.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel.distributed import global_count, mean_share
 from .native import cubical_pairs_batch, wasserstein_match_batch
 
 # Bar capacity per diagram. Uniform sigmoid noise on 50x50 grids -- the
@@ -203,10 +205,10 @@ def _reduce_topo(w_per, pred_g, pairing, lamda, loss_q, loss_r, channel_mask,
         cm = channel_mask.float()
         w_per = w_per * cm
         row_valid = (cm.sum(1) > 0).float()
-        n_valid = row_valid.sum().clamp(min=1.0)
+        n_valid = global_count(row_valid.sum()).clamp(min=1.0)
         loss = (w_per.sum(1) * row_valid).sum() / n_valid
     else:
-        loss = w_per.sum(1).mean()
+        loss = mean_share(w_per.sum(1))
     if loss_r:
         # the total-persistence term (topological_loss.py:88-94), reduced
         # over the same channels as the main term
@@ -219,7 +221,7 @@ def _reduce_topo(w_per, pred_g, pairing, lamda, loss_q, loss_r, channel_mask,
         if channel_mask is not None:
             loss = loss + ((pers_row * cm).sum(1) * row_valid).sum() / n_valid
         else:
-            loss = loss + pers_row.sum(1).mean()
+            loss = loss + mean_share(pers_row.sum(1))
     return lamda * loss
 
 

@@ -3,8 +3,10 @@
 Port of ``dilabhelmholtzoct_tpu/train/cli.py``: the same flags build the
 same ``TrainConfig``, and training runs on the card and ends, unless
 ``--evaluate false``, with the evaluation report on the test split.
-``--multihost true`` raises ``NotImplementedError`` (a later slice).
-The dataset comes from ``python -m
+Data parallelism runs one process per card: ``torchrun --nproc_per_node N
+-m dilabhelmholtzoct_tpu_torch.train.cli ...`` (``data_parallel`` is on by
+default; ``--multihost true`` asks for the group explicitly and warns when
+the env names none). The dataset comes from ``python -m
 dilabhelmholtzoct_tpu_torch.data.preprocessing``. Without the ``datasets``
 package, call
 ``train.trainer.training(config, splits=...)`` from Python instead.
@@ -126,8 +128,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--resume", type=_str2bool, default=False)
     p.add_argument("--multihost", type=_str2bool, default=False,
-                   help="multi-process data parallelism (a later slice of "
-                        "the port)")
+                   help="join the torch.distributed group for multi-process "
+                        "DP (coordinator via MASTER_ADDR / MASTER_PORT / "
+                        "WORLD_SIZE / RANK, as torchrun sets them)")
     return p
 
 

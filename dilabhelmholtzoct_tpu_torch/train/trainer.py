@@ -49,9 +49,18 @@ With ``data_transforms`` the train split is augmented on the host
 epoch's checkpoint; with ``profile_dir`` the first epoch run is traced
 (``utils/profiling.profile_trace``).
 
-Not in this slice: multi-host / data parallelism (``multihost`` raises
-``NotImplementedError``). With one card ``data_parallel`` is a no-op, as in
-JAX.
+Data parallelism (``parallel/``) runs one process per card over
+``torch.distributed``: ``training`` joins the group with ``multihost`` (the
+explicit path, from the env ``torchrun`` sets), or with ``data_parallel`` in
+a process that ``torchrun`` started as one of a group (``WORLD_SIZE`` > 1),
+and runs on ``cuda:LOCAL_RANK`` (NCCL; gloo for ``device="cpu"``). Every
+rank iterates the same seeded batches, pads each to a multiple of the rank
+count and takes its own rows; the loss is each rank's numerator over the
+global batch's denominator, and the step sums the gradients and the loss
+over the ranks in one all-reduce before the optimizer, so every rank holds
+the JAX package's sharded step: the single-device step on the padded
+global batch. Rank 0 alone logs, writes checkpoints, exports and evaluates.
+In a single process without ``torchrun`` ``data_parallel`` is a no-op.
 """
 
 from __future__ import annotations
@@ -93,6 +102,8 @@ from ..ops.topology import (
     true_diagrams_from_grids,
 )
 from ..ops.topology_device import topo_loss_device
+from ..parallel import distributed as dist
+from ..parallel.mesh import pad_to_multiple, replicate, shard_batch
 from ..utils import checkpoint as ckpt_utils
 from ..utils.logging import MultiLogger, make_logger
 from ..utils.profiling import StepTimer, profile_trace
@@ -156,17 +167,20 @@ class TrainConfig:
 
 
 def _check_supported(config: TrainConfig, *, loop: bool = True) -> None:
-    """Raise for configurations the run cannot take, and for multihost, which
-    a later slice ports; ``loop=False`` checks only what a train step itself
-    runs."""
+    """Raise for configurations the run cannot take; ``loop=False`` checks
+    only what a train step itself runs."""
     if config.trainable not in ("decoder", "all"):
         raise ValueError(f"unknown trainable {config.trainable!r}")
     if not loop:
         return
-    if config.multihost:
-        raise NotImplementedError(
-            "multihost (data parallelism) is not ported to PyTorch yet: a "
-            "later slice of the port; pass it off")
+    if config.topological and config.multihost and not config.topo_device:
+        # the JAX package's rule (its host pairing needs fully-addressable
+        # grids there); topo_device composes with multihost
+        raise ValueError(
+            "topological=True with the host pairing protocol is "
+            "incompatible with multihost=True (the pairing needs fully-"
+            "addressable grids); use topo_device=True (on-device "
+            "persistence) or run topo training single-host")
     if config.data_transforms and config.cache_embeddings:
         raise ValueError(
             "data_transforms requires cache_embeddings=False (augmented "
@@ -451,7 +465,11 @@ def make_train_step(cfg: SamConfig, config: TrainConfig, optimizer,
     With ``topological`` and not ``topo_device`` the step pairs on the host
     and has ``set_host_batch`` (the host batch before each call); pipelined
     (``topo_pipeline``) it returns ``loss=None`` for the batch it defers and
-    has ``flush(params, optimizer, frozen)``, which runs the last one."""
+    has ``flush(params, optimizer, frozen)``, which runs the last one.
+
+    In a process group (data parallelism) ``batch`` holds this rank's rows:
+    the gradients and the returned loss are summed over the ranks before
+    the update, so each is the whole padded batch's."""
     _check_supported(config, loop=False)
     dtype = _dtype(config)
     train_encoder = config.trainable == "all"
@@ -485,8 +503,12 @@ def make_train_step(cfg: SamConfig, config: TrainConfig, optimizer,
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         _zero_missing_grads(optimizer)
+        loss = loss.detach()
+        # data parallelism: the global gradients and loss (identity alone)
+        dist.all_reduce_sum_([loss] + [p.grad for g in optimizer.param_groups
+                                       for p in g["params"]])
         optimizer.step()
-        return params, optimizer, loss.detach()
+        return params, optimizer, loss
 
     if not config.topological or config.topo_device:
         return update
@@ -542,7 +564,8 @@ def make_eval_step(cfg: SamConfig, config: TrainConfig, orig_hw,
     """``step(decoder, frozen, batch) -> loss``: the train step's forward and
     loss, in the same compute dtype, without gradients. With
     ``topological`` on the host it pairs synchronously through a pairer of
-    its own (``set_host_batch``)."""
+    its own (``set_host_batch``). In a process group the loss is summed over
+    the ranks: the whole padded batch's."""
     dtype = _dtype(config)
 
     def masks_of(decoder, frozen, batch):
@@ -558,12 +581,16 @@ def make_eval_step(cfg: SamConfig, config: TrainConfig, orig_hw,
         return _forward_from_embeddings(dec_c, frozen_c, cfg, embeddings,
                                         batch, orig_hw, config.prompt_type)
 
+    def global_loss(loss):
+        dist.all_reduce_sum_([loss])  # data parallelism (identity alone)
+        return loss
+
     if not config.topological or config.topo_device:
         @torch.no_grad()
         def step(decoder, frozen, batch):
             with full_fp32():
-                return _loss_from_masks(masks_of(decoder, frozen, batch),
-                                        batch, config)
+                return global_loss(_loss_from_masks(
+                    masks_of(decoder, frozen, batch), batch, config))
 
         return step
 
@@ -576,7 +603,8 @@ def make_eval_step(cfg: SamConfig, config: TrainConfig, orig_hw,
             masks = masks_of(decoder, frozen, batch)
             pairing = pairer.pair(pairer.to_host(
                 pairer.grids(masks, batch, meta)), meta)
-            return _loss_from_masks(masks, batch, config, pairing)
+            return global_loss(_loss_from_masks(masks, batch, config,
+                                                pairing))
 
     topo_step.set_host_batch = pairer.set_host_batch
     return topo_step
@@ -627,9 +655,11 @@ def training(config: TrainConfig, logger: MultiLogger | None = None, *,
     Returns {'params', 'cfg', 'history', 'checkpoint_dir'}, and 'metrics'
     (the evaluation report on the validation set, run on ``device`` or,
     with ``config.eval_device == "cpu"``, on the host) when
-    ``config.evaluate``."""
+    ``config.evaluate`` (on rank 0 alone under data parallelism)."""
     _check_supported(config)
-    dev = resolve_device(device)
+    dev = _join_group(config, device)
+    if logger is None and dist.process_index() != 0:
+        logger = make_logger(quiet=True)
     if logger is None:
         logger = make_logger(
             jsonl_path=config.log_jsonl or os.path.join(
@@ -646,10 +676,31 @@ def training(config: TrainConfig, logger: MultiLogger | None = None, *,
         logger.finish()
 
 
+def _join_group(config: TrainConfig, device) -> torch.device:
+    """Join the data-parallel group where the run asks for one:
+    ``multihost`` (explicit: it warns and goes on alone without the env),
+    or ``data_parallel`` in a process that ``torchrun`` started as one of a
+    group. Returns the device this rank runs on: ``device``, else
+    ``cuda:LOCAL_RANK`` in a group and ``cuda`` alone."""
+    join = config.multihost or (
+        config.data_parallel and int(os.environ.get("WORLD_SIZE", "1")) > 1)
+    if not join:
+        return resolve_device(device)
+    dev = resolve_device(f"cuda:{dist.local_rank()}" if device is None
+                         else device)
+    dist.initialize(explicit=config.multihost,
+                    backend="nccl" if dev.type == "cuda" else "gloo")
+    if dist.is_initialized():
+        print(f"[dp] data-parallel over {dist.process_count()} ranks")
+    return dev
+
+
 def _training_impl(config: TrainConfig, logger: MultiLogger, splits,
                    dev: torch.device) -> dict:
+    primary = dist.process_index() == 0
     cfg, sd = prepare_model(config)
     sd = {k: v.to(dev) for k, v in sd.items()}
+    replicate(sd.values())  # rank 0's weights on every rank
     if splits is None:
         splits = (load_split(config.dataset, "train"),
                   load_split(config.dataset, "test"))
@@ -668,9 +719,10 @@ def _training_impl(config: TrainConfig, logger: MultiLogger, splits,
     optimizer = make_optimizer(config, params.values())
 
     run_dir = os.path.join(config.checkpoint, config.display_name)
-    os.makedirs(run_dir, exist_ok=True)
+    if primary:
+        os.makedirs(run_dir, exist_ok=True)
     start_epoch = 0
-    if config.resume:
+    if config.resume:  # every rank restores the same checkpoint
         state, _ = ckpt_utils.restore_checkpoint(run_dir)
         if state is not None:
             with torch.no_grad():
@@ -702,6 +754,19 @@ def _training_impl(config: TrainConfig, logger: MultiLogger, splits,
     train_step = make_train_step(cfg, config, optimizer, orig_hw, use_cache)
     eval_step = make_eval_step(cfg, config, orig_hw, use_cache)
 
+    def local_batch(batch):
+        """Under data parallelism, the host batch padded to the rank count
+        (before the topological pairer sees it, so its rows are the
+        step's), then this rank's rows; the batch as it is alone."""
+        if not dist.is_initialized():
+            return batch
+        padded, _ = pad_to_multiple(
+            {k: v for k, v in batch.items()
+             if k in ("prompts", "comp_map", "channel_mask", "point_labels",
+                      "indices", "image")},
+            dist.process_count())
+        return shard_batch(padded)
+
     def device_batch(batch, emb, cm):
         keys = ["prompts", "channel_mask", "point_labels"]
         if cm is None:
@@ -721,7 +786,7 @@ def _training_impl(config: TrainConfig, logger: MultiLogger, splits,
         return out
 
     def run_display(epoch):
-        if config.display_mode == "none":
+        if config.display_mode == "none" or not primary:
             return
         full = _merge_params({k: v.detach() for k, v in params.items()},
                              frozen)
@@ -742,6 +807,7 @@ def _training_impl(config: TrainConfig, logger: MultiLogger, splits,
                                  shuffle=config.shuffle, seed=config.seed,
                                  epoch=epoch, buckets=config.buckets,
                                  with_images=not use_cache):
+                batch = local_batch(batch)
                 if hasattr(train_step, "set_host_batch"):
                     train_step.set_host_batch(batch)  # the GT-diagram cache
                 db = device_batch(batch, train_emb, train_cm)
@@ -767,6 +833,7 @@ def _training_impl(config: TrainConfig, logger: MultiLogger, splits,
         vlosses = []
         for b in batches(valid_ds, config.batch_size, epoch=epoch,
                          buckets=config.buckets, with_images=not use_cache):
+            b = local_batch(b)
             if hasattr(eval_step, "set_host_batch"):
                 eval_step.set_host_batch(b)
             vlosses.append(eval_step(params, frozen,
@@ -784,25 +851,28 @@ def _training_impl(config: TrainConfig, logger: MultiLogger, splits,
         history.append({"epoch": epoch, "train_loss": train_loss,
                         "valid_loss": valid_loss, "seconds": dt})
         t_ck = time.time()
-        ckpt_utils.save_checkpoint(
-            run_dir, epoch, {"params": tie_shared_pe(params),
-                             "opt_state": optimizer.state_dict(),
-                             "epoch": epoch},
-            keep=config.ckpt_keep)
+        if primary:  # the parameters are the same on every rank
+            ckpt_utils.save_checkpoint(
+                run_dir, epoch, {"params": tie_shared_pe(params),
+                                 "opt_state": optimizer.state_dict(),
+                                 "epoch": epoch},
+                keep=config.ckpt_keep)
         run_display(epoch)
+        dist.barrier()
         print(f"[epoch {epoch}] ckpt+display {time.time() - t_ck:.1f}s")
 
     params_final = tie_shared_pe(_merge_params(
         {k: v.detach() for k, v in params.items()}, frozen))
-    if config.export_pt:
+    if config.export_pt and primary:
         name = f"{config.display_name}_{config.time or 'final'}.pt"
         ckpt_utils.export_reference_pt(
             params_final, os.path.join(config.checkpoint, name))
     result = {"params": params_final, "cfg": cfg, "history": history,
               "checkpoint_dir": run_dir}
-    if config.evaluate:
+    if config.evaluate and primary:
         from ..eval.harness import evaluate_metrics
 
         result["metrics"] = evaluate_metrics(
             params_final, cfg, config, valid_ds, orig_hw=orig_hw, device=dev)
+    dist.barrier()
     return result

@@ -24,6 +24,7 @@ from dilabhelmholtzoct_tpu.models import sam as jsam
 from dilabhelmholtzoct_tpu.train import trainer as jtr
 from dilabhelmholtzoct_tpu_torch.models import configs as pconfigs
 from dilabhelmholtzoct_tpu_torch.models.convert import params_from_jax
+from dilabhelmholtzoct_tpu_torch.models import sam as psam
 from dilabhelmholtzoct_tpu_torch.models.sam import PROMPT_PE, SHARED_PE
 from dilabhelmholtzoct_tpu_torch.train import trainer as ptr
 from dilabhelmholtzoct_tpu_torch.utils import checkpoint as ckpt_utils
@@ -78,6 +79,7 @@ def _run_all(tree, batch, dtype, n_steps, **conf):
 
     lj, lp, first = [], [], None
     jsam.set_flash_attention("interpret")
+    psam.set_flash_attention("interpret")  # the twins below 196 tokens
     try:
         for i in range(n_steps):
             p_j, state_j, loss = step_j(p_j, state_j, frozen_j, jb)
@@ -90,6 +92,7 @@ def _run_all(tree, batch, dtype, n_steps, **conf):
                                             for k, v in p_p.items()}))
     finally:
         jsam.set_flash_attention("auto")
+        psam.set_flash_attention("auto")
     return lj, lp, first, before
 
 

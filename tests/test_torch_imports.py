@@ -45,6 +45,8 @@ def test_scan_covers_the_package():
     assert "chip_smoke.py" in names
     assert "dilabhelmholtzoct_tpu_torch/ops/attention.py" in names
     assert "dilabhelmholtzoct_tpu_torch/inference/engine.py" in names
+    assert "dilabhelmholtzoct_tpu_torch/parallel/distributed.py" in names
+    assert "dilabhelmholtzoct_tpu_torch/parallel/mesh.py" in names
 
 
 def test_scanner_flags_what_it_should():

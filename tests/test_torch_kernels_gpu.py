@@ -430,6 +430,7 @@ def test_tiny_engine_request_on_card(cuda_device):
     on the CPU, f32."""
     from dilabhelmholtzoct_tpu_torch.inference import synthetic
     from dilabhelmholtzoct_tpu_torch.inference.engine import SegmentationEngine
+    from dilabhelmholtzoct_tpu_torch.models import sam as psam
     from dilabhelmholtzoct_tpu_torch.models.configs import sam_tiny
 
     cfg = sam_tiny()
@@ -437,13 +438,17 @@ def test_tiny_engine_request_on_card(cuda_device):
     img = synthetic.oct_image(seed=0)[:120, :128]
     box = [20, 30, 90, 100]
     before = dict(port_attn.LAUNCHES)
-    _, probs = SegmentationEngine(sd, cfg, device=cuda_device).segment(
-        img, box, "bbox")
-    launched = {k: v - before[k] for k, v in port_attn.LAUNCHES.items() if
-                v != before[k]}
+    psam.set_flash_attention("on")  # the flash route below 196 tokens
+    try:
+        _, probs = SegmentationEngine(sd, cfg, device=cuda_device).segment(
+            img, box, "bbox")
+        launched = {k: v - before[k] for k, v in port_attn.LAUNCHES.items()
+                    if v != before[k]}
+        _, want = SegmentationEngine(sd, cfg, device="cpu").segment(
+            img, box, "bbox")
+    finally:
+        psam.set_flash_attention("auto")
     assert launched == {"attn_relpos": 3}, launched
-    _, want = SegmentationEngine(sd, cfg, device="cpu").segment(img, box,
-                                                                "bbox")
     assert probs.shape == want.shape == (1, 120, 128)
     np.testing.assert_allclose(probs, want, atol=1e-4)
 

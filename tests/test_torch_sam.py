@@ -105,12 +105,14 @@ def test_encode_image_matches_jax(rng, mode, window_size):
     tree = _params(cfg)
     pix = rng.normal(size=(2, 128, 128, 3)).astype(np.float32)
     jsam.set_flash_attention(mode)
+    psam.set_flash_attention(mode)
     try:
         want = jsam.encode_image(_jx(tree), jnp.asarray(pix), cfg)
+        got = psam.encode_image(params_from_jax(tree), torch.tensor(pix),
+                                _cfg(window_size, pconfigs))
     finally:
         jsam.set_flash_attention("auto")
-    got = psam.encode_image(params_from_jax(tree), torch.tensor(pix),
-                            _cfg(window_size, pconfigs))
+        psam.set_flash_attention("auto")
     assert got.shape == (2, 8, 8, 32)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-5,
                                rtol=1e-4)

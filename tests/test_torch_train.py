@@ -263,11 +263,21 @@ def test_training_without_a_card_raises(tmp_path):
 
 
 @pytest.mark.parametrize("field,value", [("multihost", True)])
-def test_later_slices_raise(tmp_path, field, value):
-    config = _loop_config(tmp_path, **{field: value})
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ptr.training(config, splits=(_items(2, 0), _items(2, 1)),
-                     device="cpu")
+def test_later_slices_raise(tmp_path, monkeypatch, field, value):
+    """``multihost`` is ported: what raises with it is the JAX package's own
+    refusal, the host topological pairing; without the env that names a
+    group the run warns and trains alone, as JAX's."""
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(k, raising=False)
+    splits = (_items(2, 0), _items(2, 1))
+    config = _loop_config(tmp_path, epochs=1, **{field: value})
+    with pytest.raises(ValueError, match="incompatible with multihost"):
+        ptr.training(dataclasses.replace(config, topological=True,
+                                         topo_device=False),
+                     splits=splits, device="cpu")
+    with pytest.warns(RuntimeWarning, match="continuing SINGLE-process"):
+        result = ptr.training(config, splits=splits, device="cpu")
+    assert [h["epoch"] for h in result["history"]] == [0]
 
 
 @pytest.mark.parametrize("argv", [
