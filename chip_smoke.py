@@ -16,6 +16,12 @@ prints no result line):
    K1-K7 kernels' (split TF32) TF32 ones (HMMA.1688.F32.TF32),
    and their ptxas reports no spills, printed per kernel beside its
    registers.
+2b. The component engine of prompt extraction (``components_phase``; the
+   host library's ``csrc/components_host.cc``): built, and bit-equal to its
+   scipy twins on the 24 label maps of the training phases and on one map
+   above the 256-component cap (component map, values, boxes, sizes,
+   total, and the boxes and points drawn from one seed); the host ms per
+   map of each.
 3. Kernels at SAM ViT-B shapes — K1 global attention (B=1, N=4096, 12 heads)
    and K2 windowed attention (25 windows of 196 tokens, 12 heads) — in f32
    and bf16, and K1 in f32 at B=4 (the f32 full fine-tune's shape): each
@@ -78,7 +84,16 @@ prints no result line):
    sync and host pipelined (with ``flush``), and without the term; falling
    losses, the median step of each; the device and sync first-step losses
    within ``TOPO_LOSS_RTOL``, the pipelined first step equal to the sync
-   one; one device-mode step on the card against the CPU.
+   one; ``T1_LARGE_STEPS`` device-mode steps at ``topo_interp=
+   T1_LARGE_INTERP``, past one block's shared memory (each T1 launch on
+   its global route); one device-mode step on the card against the CPU.
+6c'. T1's global route (``t1_large_phase``): at 100x100, 128x128 and
+   255x255, in H0 and H1, 8 grids of sigmoid noise and 8 of blobs; the
+   route taken (a 50x50 grid keeps the shared one), bars, counts and cap
+   equal to the host library's and, on 2 grids, the twin's, the same bits
+   on a second run, the time beside the bytes bound; one T2 launch on the
+   255x255 noise grids' H1 bars (512 a side) held by its cost against the
+   twin and equal to the host library's matching.
 6d. The training run from raw items with every data option
    (``data_path_phase``): ``training()`` at full ViT-B width and depth,
    bf16, seeded weights, 16 train + 8 valid synthetic items, batch 4, 2
@@ -96,7 +111,13 @@ prints no result line):
    ``SIGN_AGREE_MIN``); ``sam_forward`` with a box and a (1, 256, 256, 1)
    mask input at ViT-B, f32, from a cached embedding, on the card against
    the CPU (``PROB_ATOL``), its dense embedding unlike the no-mask row, and
-   the bf16 forward finite.
+   the bf16 forward finite. The prompt extraction runs on the component
+   engine.
+6d'. BASELINE config 3 in training (``points_bone_phase``): ``training()``
+   at ViT-B, bf16, cached embeddings, ``prompt_type='points'``,
+   ``pseudocolor='Bone'``, 1 epoch of 2 steps of batch 8: exact launches
+   (the precompute's K1 / K2, K3 x1 and K4 x2 a step), finite losses, the
+   component engine's extraction and point picks on its host path.
 6e. Data parallelism (``dp_phase``; ``parallel/``, ``multihost``):
    ``training()`` with ``multihost=True`` in an NCCL group of one (ViT-B,
    bf16, cached, 8 + 8 images: 64 pairs, one epoch), its history bit-equal
@@ -107,9 +128,13 @@ prints no result line):
    (32 and 9 channels), K3 x1 / K4 x2 forward and backward per step and
    rank: the ranks bit-equal, the first step's loss, gradients and the
    signs of its Adam updates against the single-process full-batch step
-   (``DP_LOSS_RTOL``, ``DP_GRAD_RTOL``, ``DP_SIGN_AGREE_MIN``),
-   step ms per rank beside one process's; over NCCL with one rank per card
-   where the machine has two cards, else one line saying it did not run.
+   (``DP_LOSS_RTOL``, ``DP_GRAD_RTOL``, ``DP_SIGN_AGREE_MIN``), and the
+   gradient against the exact per-rank oracle (``dp_rank_oracle``: each
+   rank's rows in this process with the global denominators, summed in
+   f32; within ``DP_ORACLE_ULPS`` f32 ulps, the largest difference
+   printed), step ms per rank beside one process's; over NCCL with one
+   rank per card where the machine has two cards, else one line saying it
+   did not run.
 7. The card against the CPU: the same first step on 1 image x bucket 8 on
    both — the loss and the signs of the decoder updates.
 8. The epoch loop: ``training(config, splits=...)`` for 2 epochs, then
@@ -1242,6 +1267,189 @@ def topo_kernel_checks(torch, sp, st, label, feat_ds=(1,), t2_runs=10,
     return rows
 
 
+def _blob_grids(rng, n, size):
+    """Near-binary (n, size, size) grids: plateaus of 0 and 1 (three
+    rectangles each, every other grid's with a hole) with a little noise on
+    5% of the pixels, as trained predictions."""
+    out = np.zeros((n, size, size), np.float32)
+    scale = size / 50
+    for i in range(n):
+        for _ in range(3):
+            dy, dx = (rng.integers(6, 12, 2) * scale).astype(int)
+            y, x = rng.integers(0, size - dy), rng.integers(0, size - dx)
+            out[i, y:y + dy, x:x + dx] = 1.0
+            if i % 2:
+                out[i, y + 2:y + dy - 2, x + 2:x + dx - 2] = 0.0
+        few = rng.random((size, size)) < 0.05
+        out[i][few] = np.clip(out[i][few] + rng.normal(size=few.sum()) * 0.1,
+                              0.0, 1.0)
+    return out
+
+
+T1_LARGE_SIZES = (100, 128, 255)  # every one past one block's shared memory
+T1_LARGE_INTERP = 128  # topo_interp of the topological phase's global-route
+T1_LARGE_STEPS = 2     # steps
+
+
+def t1_large_phase(torch):
+    """T1 on grids past one block's shared memory (its global route): at
+    each of ``T1_LARGE_SIZES`` in H0 and H1, 8 grids of sigmoid noise and 8
+    of blobs; the route (a 50x50 grid keeps the shared one), the bars,
+    counts and cap equal to the host library's, to the plain twin's on 2 of
+    the grids, and the same bits on a second run; timed with CUDA events
+    beside the bytes bound. Then one T2 launch on the 255x255 noise grids'
+    H1 bars, 512 a side: its matching cost against the twin's
+    (``TOPO_COST_RTOL``) and its matching equal to the host library's."""
+    from dilabhelmholtzoct_tpu_torch.ops import native
+    from dilabhelmholtzoct_tpu_torch.ops import topology_device as ptd
+
+    dev = torch.device("cuda")
+    k = 512
+    for fd in (0, 1):
+        check(ptd.t1_scratch_bytes(50, 50, fd) == 0,
+              f"a 50x50 grid in H{fd} does not take T1's shared route")
+    rng = np.random.default_rng(17)
+    for size in T1_LARGE_SIZES:
+        noise = 1 / (1 + np.exp(-rng.normal(size=(8, size, size))))
+        grids = np.concatenate([noise.astype(np.float32),
+                                _blob_grids(rng, 8, size)])
+        n = len(grids)
+        g = torch.tensor(grids, device=dev)
+        host = native.cubical_pairs_batch(grids, k)
+        for fd in (0, 1):
+            stride = ptd.t1_scratch_bytes(size, size, fd)
+            check(stride > 0, f"a {size}x{size} grid in H{fd} does not take "
+                              f"T1's global route")
+            before = dict(ptd.T1_ROUTES)
+            got = ptd.cubical_pairs_cuda(g, fd, k)
+            torch.cuda.synchronize()
+            check(ptd.T1_ROUTES == {"shared": before["shared"],
+                                    "global": before["global"] + 1},
+                  f"T1 at {size}x{size}: routes {ptd.T1_ROUTES}, before "
+                  f"{before}")
+            got_np = [x.cpu().numpy() for x in got]
+            check(np.array_equal(host[f"h{fd}_birth"], got_np[0])
+                  and np.array_equal(host[f"h{fd}_death"], got_np[1])
+                  and np.array_equal(host["counts"][:, fd], got_np[2]),
+                  f"T1 H{fd} at {size}x{size}: bars differ from the host "
+                  f"library's")
+            again = ptd.cubical_pairs_cuda(g, fd, k)
+            check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                  f"T1 H{fd} at {size}x{size}: a second run gave other bits")
+            pick = [0, 8]  # one noise grid, one blob grid
+            t0 = time.perf_counter()
+            twin = ptd.cubical_pairs_plain(torch.from_numpy(grids[pick]), fd,
+                                           k)
+            plain_ms = 1e3 * (time.perf_counter() - t0) / len(pick)
+            check(all(np.array_equal(x[pick], y.numpy())
+                      for x, y in zip(got_np, twin)),
+                  f"T1 H{fd} at {size}x{size}: bars differ from the twin's")
+            ms = cuda_ms(lambda: ptd.cubical_pairs_cuda(g, fd, k), 5, 1)
+            bound, bound_by = _bound(0, 4 * grids.size + 4 * (2 * n * k + n),
+                                     PEAK_F32_FLOPS)
+            print(f"T1 global route H{fd}, {n} grids of {size}x{size} (8 "
+                  f"noise, 8 blobs; scratch {stride / 2**20:.2f} MiB a grid):"
+                  f" bars equal to the host library's and, on 2 grids, the "
+                  f"twin's; bars noise {_spread(got_np[2][:8])}, blobs "
+                  f"{_spread(got_np[2][8:])}; ms={ms:.4f} "
+                  f"plain_ms_per_grid={plain_ms:.1f} bound_ms={bound:.6f} "
+                  f"({bound_by}) share_of_bound={bound / ms:.6f}")
+        if size != 255:
+            continue
+        b, d, c = got  # the H1 pass: noise grids 0-3 against noise 4-7
+        flat_t = g[4:8].reshape(4, -1)
+        true_bars = torch.stack(
+            [flat_t.gather(1, b[4:8].clamp(min=0).long()),
+             flat_t.gather(1, d[4:8].clamp(min=0).long())], -1).contiguous()
+        args = (g[:4].reshape(4, -1).contiguous(), b[:4].contiguous(),
+                d[:4].contiguous(), c[:4].clone(), true_bars, c[4:8].clone())
+        check(int(c[:8].min()) == k, "the 255x255 noise grids hold fewer "
+                                     f"than {k} H1 bars")
+        before = ptd.LAUNCHES["wasserstein_match"]
+        m, tg, ct = ptd.wasserstein_match_cuda(*args, 2.0)
+        torch.cuda.synchronize()
+        check(ptd.LAUNCHES["wasserstein_match"] == before + 1,
+              "T2 did not launch")
+        args_h = tuple(a.cpu() for a in args)
+        tw = ptd.wasserstein_match_plain(*args_h, 2.0)
+        cost = _match_cost(torch, args[0], args[1], args[2], m, tg, ct)
+        cost_twin = _match_cost(torch, args[0], args[1], args[2], *tw)
+        rel = float(((cost - cost_twin).abs()
+                     / cost_twin.abs().clamp(min=1e-30)).max())
+        check(rel <= TOPO_COST_RTOL, f"T2 on 255x255 bars: cost differs "
+                                     f"from the twin's by {rel:.3g}")
+        hm = native.wasserstein_match_batch(
+            *(a.numpy() for a in args_h[:4]),
+            [x.numpy() for x in args_h[4]], 2.0, k)
+        check(all(np.array_equal(x.cpu().numpy(), y)
+                  for x, y in zip((m, tg, ct), hm)),
+              "T2 on 255x255 bars: the matching differs from the host "
+              "library's")
+        print(f"T2 on the H1 bars of 4 + 4 noise grids of 255x255 ({k} a "
+              f"side): cost within {rel:.3g} of the twin's (rtol "
+              f"{TOPO_COST_RTOL}), matching equal to the host library's")
+
+
+def components_phase():
+    """The component engine of prompt extraction (``csrc/components_host.cc``
+    in the host library) against its scipy twins on the 24 label maps of the
+    data phases and on one map of ~500 components, above the 256 cap: the
+    component map, values, boxes, sizes and total, and the boxes and points
+    drawn from one seed, bit for bit; each one's host ms per map (median of
+    5, extraction and a point draw)."""
+    from dilabhelmholtzoct_tpu_torch.data import sampling
+    from dilabhelmholtzoct_tpu_torch.inference import synthetic
+    from dilabhelmholtzoct_tpu_torch.ops import native
+
+    t0 = time.perf_counter()
+    native.library()
+    build_s = time.perf_counter() - t0
+    maps = [it["label"] for it in (synthetic.oct_training_items(16, seed=1)
+                                   + synthetic.oct_training_items(8, seed=2))]
+    rng = np.random.default_rng(11)
+    above = np.zeros((496, 512), np.uint8)
+    for _ in range(600):
+        y, x = rng.integers(0, 493), rng.integers(0, 509)
+        above[y:y + 3, x:x + 3] = rng.integers(1, 4)
+    for lab in maps + [above]:
+        got = sampling.extract_components(lab)
+        want = sampling.extract_components_plain(lab)
+        check(all(a.dtype == b.dtype and np.array_equal(a, b)
+                  for a, b in zip(got[:4], want[:4])) and got[4] == want[4],
+              "the component engine's extraction differs from the twin's")
+        for kind in ("bboxes", "points"):
+            a = sampling.prompts_from_extraction(
+                got, lab.shape, kind, np.random.default_rng(7))
+            b = sampling.prompts_from_extraction_plain(
+                want, lab.shape, kind, np.random.default_rng(7))
+            check(np.array_equal(a.bboxes, b.bboxes),
+                  f"the component engine's {kind} differ from the twin's")
+    total = sampling.extract_components(above)[4]
+    check(total > sampling.MAX_COMPONENTS, f"the map above the cap holds "
+                                           f"{total} components")
+
+    def draw(extract, prompts, lab):
+        return lambda: prompts(extract(lab), lab.shape, "points",
+                               np.random.default_rng(7))
+
+    times = {}
+    for name, ex, pr in (
+            ("engine", sampling.extract_components,
+             sampling.prompts_from_extraction),
+            ("twin", sampling.extract_components_plain,
+             sampling.prompts_from_extraction_plain)):
+        per_map = [_host_ms(draw(ex, pr, lab)) for lab in maps]
+        times[name] = (statistics.median(per_map),
+                       _host_ms(draw(ex, pr, above)))
+    print(f"component engine (host library built or loaded in {build_s:.1f} "
+          f"s): extraction and point draws bit-equal to the scipy twins on "
+          f"{len(maps)} maps of 496x512 and one of {total} components (cap "
+          f"{sampling.MAX_COMPONENTS}); host ms per map (median of 5; median "
+          f"over the {len(maps)} maps / the map above the cap): engine "
+          f"{times['engine'][0]:.3f} / {times['engine'][1]:.3f}, twin "
+          f"{times['twin'][0]:.3f} / {times['twin'][1]:.3f}")
+
+
 def topo_phase(torch):
     """Decoder fine-tuning with the topological loss: bf16, ViT-B (full
     width), cached embeddings of 8 images x bucket 8 (64 pairs), topo_interp
@@ -1377,6 +1585,39 @@ def topo_phase(torch):
           == TOPO_STEPS, f"device mode launches {launches}")
     check(out["host pipelined"][0][0] == l_sync,
           "the pipelined first step differs from the sync first step")
+
+    # topo_interp past one block's shared memory: T1's global route on the
+    # step's 64 + 64 grids of T1_LARGE_INTERP^2
+    from dilabhelmholtzoct_tpu_torch.ops import topology_device as ptd
+
+    conf = dataclasses.replace(config, topo_interp=T1_LARGE_INTERP)
+    _, decoder, frozen, opt = fresh(dev, conf)
+    step = tr.make_train_step(cfg, conf, opt, orig_hw, True)
+    routes = dict(ptd.T1_ROUTES)
+    losses, times = [], []
+    for i in range(T1_LARGE_STEPS):
+        before = _counts()
+        t0 = time.perf_counter()
+        decoder, opt, loss = step(decoder, opt, frozen, db)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        d = _delta(_counts(), before)
+        check(d == TOPO_STEP_LAUNCHES, f"interp {T1_LARGE_INTERP} step {i} "
+                                       f"launched {d}")
+        losses.append(float(loss))
+    check(ptd.T1_ROUTES == {"shared": routes["shared"],
+                            "global": routes["global"] + T1_LARGE_STEPS},
+          f"interp {T1_LARGE_INTERP}: T1 routes {ptd.T1_ROUTES}, before "
+          f"{routes}")
+    check(all(np.isfinite(losses)), f"interp {T1_LARGE_INTERP}: losses "
+                                    f"{losses}")
+    print(f"topological decoder fine-tune, device mode at interp "
+          f"{T1_LARGE_INTERP} (T1's global route on 128 grids of "
+          f"{T1_LARGE_INTERP}x{T1_LARGE_INTERP} a step): losses "
+          f"{[round(x, 6) for x in losses]}, step ms "
+          f"{[round(t, 1) for t in times]}, T1 launches "
+          f"{T1_LARGE_STEPS} on the global route")
+    del decoder, frozen, opt, step
     card_vs_cpu(torch, tr, cfg, config, sd_host, fresh, ds, emb, orig_hw)
     del emb, db
     torch.cuda.empty_cache()
@@ -1655,6 +1896,79 @@ def data_path_phase(torch):
     check(share >= SIGN_AGREE_MIN, "card and CPU augmented updates disagree "
                                    "in sign")
     mask_inputs_check(torch, cfg, sd_host)
+    return got
+
+
+def points_bone_phase(torch):
+    """BASELINE config 3 in training: ``training()`` at full ViT-B width and
+    depth, bf16, cached embeddings, ``prompt_type='points'`` and
+    ``pseudocolor='Bone'``, 16 train + 8 valid synthetic items, batch 8, 1
+    epoch of 2 steps. The launches exactly: the precompute's K1 x4 and K2 x8
+    per image of both splits, K3 x1 and K4 x2 forward and backward a train
+    step, their forwards on the valid batch; finite losses; the component
+    engine's extraction (once per item) and point picks (once per item and
+    epoch) on the run's host path. Returns the run's launches."""
+    from dilabhelmholtzoct_tpu_torch.inference import synthetic
+    from dilabhelmholtzoct_tpu_torch.models.configs import sam_vit_base
+    from dilabhelmholtzoct_tpu_torch.ops import native
+    from dilabhelmholtzoct_tpu_torch.train import trainer as tr
+
+    cfg = sam_vit_base()
+    sd_host = synthetic.random_params(cfg, seed=0)
+    splits = (synthetic.oct_training_items(16, seed=1),
+              synthetic.oct_training_items(8, seed=2))
+    calls = {"extract_components": 0, "component_pixel_at": 0}
+    wrapped = {}
+
+    def counting(name):
+        fn = getattr(native, name)
+
+        def call(*a, **kw):
+            calls[name] += 1  # under the GIL: the loader's threads
+            return fn(*a, **kw)
+        return fn, call
+
+    for name in calls:
+        wrapped[name], call = counting(name)
+        setattr(native, name, call)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt = os.path.join(tmp, "weights.pt")
+            torch.save(sd_host, ckpt)
+            config = tr.TrainConfig(
+                checkpoint=os.path.join(tmp, "ck"), display_name="points",
+                pretrained_checkpoint=ckpt, epochs=1, batch_size=8,
+                evaluate=False, ckpt_keep=1, prompt_type="points",
+                pseudocolor="Bone", log_jsonl=os.path.join(tmp, "m.jsonl"))
+            torch.cuda.synchronize()
+            _reset_counts()  # --- config 3 starts
+            t0 = time.perf_counter()
+            result = tr.training(config, splits=splits)
+            torch.cuda.synchronize()
+            got = _counts()  # --- config 3 ends
+            run_s = time.perf_counter() - t0
+    finally:
+        for name, fn in wrapped.items():
+            setattr(native, name, fn)
+    images = len(splits[0]) + len(splits[1])
+    steps = len(splits[0]) // config.batch_size
+    vsteps = -(-len(splits[1]) // config.batch_size)
+    want = {**dict.fromkeys(got, 0),
+            "attn_global": 4 * images, "attn_windowed": 8 * images,
+            "upscale_fwd": steps + vsteps, "upscale_bwd": steps,
+            "upscale_bwd_dw": steps, "i2t_fwd": 2 * (steps + vsteps),
+            "i2t_bwd": 2 * steps, "i2t_bwd_dw": 2 * steps}
+    hist = result["history"]
+    print(f"config 3 (ViT-B bf16, cached, points, 'Bone'): training() "
+          f"{steps} train steps + {vsteps} valid batch of "
+          f"{config.batch_size}, history {hist}, launches {got} in "
+          f"{run_s:.1f} s; component engine calls {calls}")
+    check(got == want, f"config 3 launched {got}, want {want}")
+    check(len(hist) == 1 and np.isfinite(hist[0]["train_loss"])
+          and np.isfinite(hist[0]["valid_loss"]), f"config 3 epochs {hist}")
+    check(calls["extract_components"] == images
+          and calls["component_pixel_at"] >= images,
+          f"config 3's host path made engine calls {calls}")
     return got
 
 
@@ -2785,9 +3099,63 @@ def _dp_pair(torch, tmp, backend):
             for r in (0, 1)]
 
 
-def _dp_compare(torch, ranks, single, before, label):
-    """Both ranks against each other (bit for bit) and against the
-    single-process full-batch step from the weights ``before``."""
+DP_ORACLE_ULPS = 4  # the two ranks' all-reduced gradient against each
+#                    rank's gradient computed in one process and summed in
+#                    f32 in rank order: the same bf16 arithmetic on the same
+#                    rows, so equal but for the sum's order (none for two)
+
+
+def dp_rank_oracle(torch, data, padded, dev):
+    """The two-rank step's first gradient computed in this process: each
+    rank's rows of the padded batch through ``dp_step_run`` with no group,
+    its loss over the global batch's denominators (every ``global_count``
+    answers the sum of the two ranks' values, in rank order, each recorded
+    from a first pass over that rank's rows) and no all-reduce; the two
+    gradients summed in f32, rank 0's first. Returns {name: gradient}."""
+    from dilabhelmholtzoct_tpu_torch.ops import losses
+    from dilabhelmholtzoct_tpu_torch.parallel import distributed as dist
+
+    half = next(iter(padded.values())).shape[0] // 2
+    rows = [{k: v[r * half:(r + 1) * half] for k, v in padded.items()}
+            for r in (0, 1)]
+    seen = [[], []]
+    state = {"rank": 0, "replay": False, "i": 0}
+
+    def global_count(x):
+        if not state["replay"]:
+            seen[state["rank"]].append(x.detach().clone())
+            return x
+        i = state["i"]
+        state["i"] += 1
+        return seen[0][i] + seen[1][i]
+
+    saved = (dist.is_initialized, dist.global_count, dist.all_reduce_sum_,
+             losses.global_count)
+    dist.is_initialized = lambda: True
+    dist.global_count = losses.global_count = global_count
+    dist.all_reduce_sum_ = lambda tensors: None
+    grads = []
+    try:
+        for replay in (False, True):
+            for r in (0, 1):
+                state.update(rank=r, replay=replay, i=0)
+                out = dp_step_run(torch, data, rows[r], dev)
+                if replay:
+                    grads.append(out["grads"])
+    finally:
+        (dist.is_initialized, dist.global_count, dist.all_reduce_sum_,
+         losses.global_count) = saved
+    check(len(seen[0]) == len(seen[1]) > 0,
+          f"the ranks' denominators differ in number: {len(seen[0])} / "
+          f"{len(seen[1])}")
+    return {k: grads[0][k] + grads[1][k] for k in grads[0]}
+
+
+def _dp_compare(torch, ranks, single, before, label, oracle):
+    """Both ranks against each other (bit for bit), against the
+    single-process full-batch step from the weights ``before``, and their
+    gradient against ``oracle`` (``dp_rank_oracle``) within
+    ``DP_ORACLE_ULPS`` f32 ulps per element."""
     r0, r1 = ranks
     check(r0["loss"] == r1["loss"] and all(
         torch.equal(r0[part][k], r1[part][k]) for part in ("grads", "params")
@@ -2811,6 +3179,19 @@ def _dp_compare(torch, ranks, single, before, label):
     check(g_rel <= DP_GRAD_RTOL, f"{label}: gradients differ from one process")
     check(share >= DP_SIGN_AGREE_MIN,
           f"{label}: updates differ in sign from one process")
+    o = torch.cat([oracle[k].flatten() for k in keys])
+    mag = o.abs()
+    ulp = torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag
+    diff = (g2 - o).abs()
+    worst = float((diff / ulp).max())
+    print(f"DP {label}: gradient against the per-rank oracle (each rank's "
+          f"rows in one process, global denominators, summed in f32): max "
+          f"|difference| {float(diff.max()):.3g}, {worst:.3g} f32 ulps of the "
+          f"element (limit {DP_ORACLE_ULPS}); {int((diff > 0).sum())} of "
+          f"{o.numel()} elements differ")
+    check(worst <= DP_ORACLE_ULPS,
+          f"{label}: gradient differs from the per-rank oracle by {worst:.3g}"
+          f" ulps")
     for r in ranks:
         check(r["launches"] == {k: DP_STEPS * v
                                 for k, v in STEP_LAUNCHES.items()},
@@ -2908,10 +3289,12 @@ def dp_phase(torch):
               f"{time.perf_counter() - t0:.1f} s with the processes' start")
         before = {k: v for k, v in data["sd"].items()
                   if k.startswith(tr.DECODER_PREFIX)}
-        _dp_compare(torch, ranks, single, before, "gloo, 2 ranks on cuda:0")
+        oracle = dp_rank_oracle(torch, data, padded, torch.device("cuda", 0))
+        _dp_compare(torch, ranks, single, before, "gloo, 2 ranks on cuda:0",
+                    oracle)
         if torch.cuda.device_count() >= 2:
             _dp_compare(torch, _dp_pair(torch, tmp, "nccl"), single, before,
-                        "NCCL, one rank per card")
+                        "NCCL, one rank per card", oracle)
         else:
             print(f"DP over NCCL with one rank per card: not run "
                   f"({torch.cuda.device_count()} card)")
@@ -3041,6 +3424,9 @@ def main() -> int:
     tensor_core_check(kernels)
 
     t0 = time.perf_counter()
+    components_phase()
+    print(f"[phases] component engine {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     rows = kernel_phase(torch, attn)
     launches = serving_phase(torch, attn)
     print(f"[phases] K1/K2 + serving {time.perf_counter() - t0:.1f} s")
@@ -3054,6 +3440,10 @@ def main() -> int:
     data_path_phase(torch)
     print(f"[phases] data path {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    points_bone_phase(torch)
+    print(f"[phases] config 3, points and 'Bone' "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     launches.update({f"{k}_f32": v
                      for k, v in decoder_f32_fused_phase(torch).items()})
     print(f"[phases] f32 fused decoder fine-tune "
@@ -3063,6 +3453,9 @@ def main() -> int:
     launches.update({k: topo_launches[k] for k in topo_rows})
     print(f"[phases] topological decoder fine-tune "
           f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    t1_large_phase(torch)
+    print(f"[phases] T1's global route {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     dp_phase(torch)
     print(f"[phases] data parallelism {time.perf_counter() - t0:.1f} s")

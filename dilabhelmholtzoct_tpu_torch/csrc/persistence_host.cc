@@ -101,16 +101,19 @@ void emit(const float* val, int nbars, PairScratch& S, int max_bars,
 
 // T1's phases (persistence_parallel.h) over one pass of a grid, as
 // topology.cu's cubical_pairs_kernel runs them, on `nthreads` virtual
-// threads; the walk's lanes one after another.
+// threads; the walk's lanes one after another. The slots are int16_t below
+// 2^15 pixels and int32_t from there, as the kernel's.
 struct PhasePairScratch {
   std::vector<float> val, pers, uval, uval_p;
   std::vector<uint64_t> ukey;
   std::vector<int32_t> basin, parent, merge, bar_b, bar_d, roots, uroot,
       ucount, upix, offset;
-  std::vector<int16_t> slots;
+  std::vector<int16_t> slots16;
+  std::vector<int32_t> slots32;
   std::vector<uint8_t> flag;
 
-  ppar::PairBlock carve(int h, int w, bool h1, int nthreads) {
+  template <class Slot>
+  ppar::PairBlock<Slot> carve(int h, int w, bool h1, int nthreads) {
     const int n = h * w;
     const int cap = pcore::bar_capacity(n);
     val.resize(n);
@@ -118,6 +121,7 @@ struct PhasePairScratch {
     basin.resize(n + 1);
     parent.resize(n + 1);
     merge.resize(ppar::pow2_at_least(n));
+    std::vector<Slot>& slots = slot_vector(Slot{});
     slots.resize(static_cast<size_t>(ppar::slot_count(h1)) * n);
     bar_b.resize(cap);
     bar_d.resize(cap);
@@ -131,20 +135,24 @@ struct PhasePairScratch {
     ucount.assign(ppar::WALK_ROUND_MAX, 0);
     upix.assign(ppar::WALK_ROUND_MAX, 0);
     uval_p.assign(ppar::WALK_ROUND_MAX, 0.0f);
-    return ppar::PairBlock{h, w, n, h1, val.data(), basin.data(),
-                           parent.data(), flag.data(), merge.data(),
-                           slots.data(), bar_b.data(), bar_d.data(),
-                           roots.data(), uroot.data(), ukey.data(),
-                           uval.data(), ucount.data(), upix.data(),
-                           uval_p.data()};
+    return ppar::PairBlock<Slot>{h, w, n, h1, val.data(), basin.data(),
+                                 parent.data(), flag.data(), merge.data(),
+                                 slots.data(), bar_b.data(), bar_d.data(),
+                                 roots.data(), uroot.data(), ukey.data(),
+                                 uval.data(), ucount.data(), upix.data(),
+                                 uval_p.data()};
   }
+
+  std::vector<int16_t>& slot_vector(int16_t) { return slots16; }
+  std::vector<int32_t>& slot_vector(int32_t) { return slots32; }
 };
 
 // Returns the merge pixels' count; bars into out_b / out_d / *count.
+template <class Slot>
 int pass_in_phases(const float* grid, int h, int w, bool h1, int nthreads,
                    int max_bars, PhasePairScratch& S, int32_t* out_b,
                    int32_t* out_d, int32_t* count) {
-  const ppar::PairBlock P = S.carve(h, w, h1, nthreads);
+  const ppar::PairBlock<Slot> P = S.carve<Slot>(h, w, h1, nthreads);
   const int T = nthreads;
   for (int t = 0; t < T; ++t) ppar::pairs_load(grid, P, t, T);
   for (int t = 0; t < T; ++t) ppar::pairs_pointers(P, t, T);
@@ -285,9 +293,10 @@ void wasserstein_match_batch(const float* grids, int n_rows, int hw,
 }
 
 // T1's kernel algorithm on the host (pass_in_phases): grids (n_grids, h, w)
-// f32, the feat_d pass (0: H0, 1: H1), on nthreads virtual threads ->
-// birth / death (n_grids, max_bars) int32 (-1 padding), count (n_grids,),
-// merges (n_grids,): the merge pixels the walk visited.
+// f32 of up to 65534 cells (the caller checks), the feat_d pass (0: H0,
+// 1: H1), on nthreads virtual threads -> birth / death (n_grids, max_bars)
+// int32 (-1 padding), count (n_grids,), merges (n_grids,): the merge pixels
+// the walk visited.
 void cubical_pairs_parallel(const float* grids, int n_grids, int h, int w,
                             int feat_d, int max_bars, int nthreads,
                             int32_t* birth, int32_t* death, int32_t* count,
@@ -295,9 +304,11 @@ void cubical_pairs_parallel(const float* grids, int n_grids, int h, int w,
   const int n = h * w;
   parallel_for<PhasePairScratch>(n_grids, [&](int g, PhasePairScratch& S) {
     const int64_t off = static_cast<int64_t>(g) * max_bars;
-    merges[g] = pass_in_phases(grids + static_cast<int64_t>(g) * n, h, w,
-                               feat_d == 1, nthreads, max_bars, S,
-                               birth + off, death + off, &count[g]);
+    const auto pass = ppar::slot_is_narrow(n) ? pass_in_phases<int16_t>
+                                              : pass_in_phases<int32_t>;
+    merges[g] = pass(grids + static_cast<int64_t>(g) * n, h, w, feat_d == 1,
+                     nthreads, max_bars, S, birth + off, death + off,
+                     &count[g]);
   });
 }
 

@@ -80,7 +80,10 @@ DH_HD inline int chunk_lo(int n, int tid, int nthreads) {
 constexpr int WALK_SLOTS = 9;
 
 // One pass's arrays (h x w = n pixels; entry n of basin / parent is the
-// outside node).
+// outside node). Slot is the type of the merge pixels' slots, which hold
+// basin ids up to n: int16_t below 2^15 pixels, int32_t from there (the
+// kernel's and the host's callers pick it with slot_is_narrow).
+template <class Slot>
 struct PairBlock {
   int h, w, n;
   bool h1;  // H1: 4-connected with the outside node; else H0, 8-connected
@@ -89,7 +92,7 @@ struct PairBlock {
   int32_t* parent;   // n + 1: the union-find over the basin roots
   uint8_t* flag;     // n: merge pixel
   int32_t* merge;    // pow2_at_least(n): the merge pixels (n pads the sort)
-  int16_t* slots;    // slot_count(h1) per merge pixel: the slot's basin or -1
+  Slot* slots;       // slot_count(h1) per merge pixel: the slot's basin or -1
   int32_t* bar_b;    // pcore::bar_capacity(n)
   int32_t* bar_d;    // pcore::bar_capacity(n)
   // a walk round's slots, WALK_SLOTS for each of its pixels (slots the
@@ -104,18 +107,25 @@ struct PairBlock {
   float* uval_p;     // WALK_ROUND_MAX: its value
 };
 
+// Whether an n-pixel grid's basin ids (0..n, n the outside node) fit
+// int16_t slots.
+DH_HD inline bool slot_is_narrow(int n) { return n < (1 << 15); }
+
 // The pass's slots: [slot_lo, slot_lo + slot_count): H1 the outside node
 // and 4 neighbours, H0 8 neighbours.
 DH_HD inline int slot_lo(bool h1) { return h1 ? 0 : 1; }
 DH_HD inline int slot_count(bool h1) { return h1 ? 5 : 8; }
 
-DH_HD inline uint64_t code_of(const PairBlock& P, int32_t p) {
+template <class Slot>
+DH_HD inline uint64_t code_of(const PairBlock<Slot>& P, int32_t p) {
   return pcore::sort_code(P.val[p], p);
 }
 
 // The neighbour of p in slot j that precedes p in the filtration (slot 0:
 // the outside node, for a border pixel in H1), else -1.
-DH_HD inline int32_t earlier_neighbour(const PairBlock& P, int32_t p, int j) {
+template <class Slot>
+DH_HD inline int32_t earlier_neighbour(const PairBlock<Slot>& P, int32_t p,
+                                       int j) {
   const int y = p / P.w, x = p % P.w;
   if (j == 0) {
     const bool border = y == 0 || x == 0 || y == P.h - 1 || x == P.w - 1;
@@ -130,15 +140,18 @@ DH_HD inline int32_t earlier_neighbour(const PairBlock& P, int32_t p, int j) {
 }
 
 // 1. the pass's values (the grid, or its negation for H1)
-DH_HD inline void pairs_load(const float* grid, const PairBlock& P, int tid,
-                             int nthreads) {
+template <class Slot>
+DH_HD inline void pairs_load(const float* grid, const PairBlock<Slot>& P,
+                             int tid, int nthreads) {
   for (int i = tid; i < P.n; i += nthreads)
     P.val[i] = P.h1 ? -grid[i] : grid[i];
 }
 
 // 2. each pixel's pointer to its lowest-coded earlier neighbour (the outside
 // node before any pixel), itself when it has none; the union-find reset
-DH_HD inline void pairs_pointers(const PairBlock& P, int tid, int nthreads) {
+template <class Slot>
+DH_HD inline void pairs_pointers(const PairBlock<Slot>& P, int tid,
+                                 int nthreads) {
   const int lo = slot_lo(P.h1), hi = lo + slot_count(P.h1);
   for (int p = tid; p <= P.n; p += nthreads) {
     int32_t best = p;
@@ -165,7 +178,9 @@ DH_HD inline void pairs_pointers(const PairBlock& P, int tid, int nthreads) {
 // thread's did: every pointer is then a basin root. (Rounds may read
 // pointers another thread moved in the same round: those are ancestors
 // too, so the roots are the same.)
-DH_HD inline bool pairs_jump(const PairBlock& P, int tid, int nthreads) {
+template <class Slot>
+DH_HD inline bool pairs_jump(const PairBlock<Slot>& P, int tid,
+                             int nthreads) {
   bool moved = false;
   for (int p = tid; p < P.n; p += nthreads) {
     const int32_t b = P.basin[p];
@@ -179,7 +194,9 @@ DH_HD inline bool pairs_jump(const PairBlock& P, int tid, int nthreads) {
 }
 
 // 4a. flag the merge pixels of thread tid's chunk; returns their count
-DH_HD inline int pairs_flag_merges(const PairBlock& P, int tid, int nthreads) {
+template <class Slot>
+DH_HD inline int pairs_flag_merges(const PairBlock<Slot>& P, int tid,
+                                   int nthreads) {
   const int lo = chunk_lo(P.n, tid, nthreads);
   const int hi = chunk_lo(P.n, tid + 1, nthreads);
   const int jlo = slot_lo(P.h1), jhi = jlo + slot_count(P.h1);
@@ -204,7 +221,8 @@ DH_HD inline int pairs_flag_merges(const PairBlock& P, int tid, int nthreads) {
 
 // 4b. thread tid's merge pixels, in index order, from `offset` on (the
 // exclusive scan of the counts of 4a)
-DH_HD inline void pairs_scatter(const PairBlock& P, int offset, int tid,
+template <class Slot>
+DH_HD inline void pairs_scatter(const PairBlock<Slot>& P, int offset, int tid,
                                 int nthreads) {
   const int lo = chunk_lo(P.n, tid, nthreads);
   const int hi = chunk_lo(P.n, tid + 1, nthreads);
@@ -213,19 +231,23 @@ DH_HD inline void pairs_scatter(const PairBlock& P, int offset, int tid,
 }
 
 // 5a. the sort's padding: entries [m, pow2_at_least(m)) after every pixel
-DH_HD inline void pairs_pad(const PairBlock& P, int m, int tid, int nthreads) {
+template <class Slot>
+DH_HD inline void pairs_pad(const PairBlock<Slot>& P, int m, int tid,
+                            int nthreads) {
   const int p2 = pow2_at_least(m);
   for (int i = m + tid; i < p2; i += nthreads) P.merge[i] = P.n;
 }
 
-DH_HD inline uint64_t merge_key(const PairBlock& P, int32_t p) {
+template <class Slot>
+DH_HD inline uint64_t merge_key(const PairBlock<Slot>& P, int32_t p) {
   return p < P.n ? code_of(P, p) : ~0ull;
 }
 
 // 5b. one compare-exchange step (k, j) of the bitonic sort of the p2 merge
 // entries by code; the codes are unique, so the order is the filtration's
-DH_HD inline void pairs_bitonic_step(const PairBlock& P, int p2, int k, int j,
-                                     int tid, int nthreads) {
+template <class Slot>
+DH_HD inline void pairs_bitonic_step(const PairBlock<Slot>& P, int p2, int k,
+                                     int j, int tid, int nthreads) {
   for (int i = tid; i < p2; i += nthreads) {
     const int ixj = i ^ j;
     if (ixj <= i) continue;
@@ -238,16 +260,16 @@ DH_HD inline void pairs_bitonic_step(const PairBlock& P, int p2, int k, int j,
 }
 
 // 5c. the slots of the sorted merge pixels: the basin of the earlier
-// neighbour in each of the pass's slots, -1 where there is none (a grid that
-// fits shared memory has well under 2^15 pixels)
-DH_HD inline void pairs_slots(const PairBlock& P, int m, int tid,
+// neighbour in each of the pass's slots, -1 where there is none
+template <class Slot>
+DH_HD inline void pairs_slots(const PairBlock<Slot>& P, int m, int tid,
                               int nthreads) {
   const int lo = slot_lo(P.h1), count = slot_count(P.h1);
   for (int t = tid; t < m; t += nthreads) {
     const int32_t p = P.merge[t];
     for (int e = 0; e < count; ++e) {
       const int32_t q = earlier_neighbour(P, p, lo + e);
-      P.slots[t * count + e] = static_cast<int16_t>(q < 0 ? -1 : P.basin[q]);
+      P.slots[t * count + e] = static_cast<Slot>(q < 0 ? -1 : P.basin[q]);
     }
   }
 }
@@ -277,18 +299,21 @@ DH_HD inline int32_t find_root(int32_t* parent, int32_t x) {
 
 // The elder rule's order of roots: the outside node first, then by sort
 // code. A root is its component's birth pixel.
-DH_HD inline uint64_t root_key(const PairBlock& P, int32_t r) {
+template <class Slot>
+DH_HD inline uint64_t root_key(const PairBlock<Slot>& P, int32_t r) {
   return r == P.n ? 0 : code_of(P, r) + 1;
 }
 
 // The value of root r (0 for the outside node).
-DH_HD inline float root_val(const PairBlock& P, int32_t r) {
+template <class Slot>
+DH_HD inline float root_val(const PairBlock<Slot>& P, int32_t r) {
   return r < P.n ? P.val[r] : 0.0f;
 }
 
 // 6a. the walk at the t-th merge pixel, g-th of its round, the pass's e-th
 // slot: the union-find root of the slot's basin (-1 for none).
-DH_HD inline void walk_slot(const PairBlock& P, int t, int g, int e) {
+template <class Slot>
+DH_HD inline void walk_slot(const PairBlock<Slot>& P, int t, int g, int e) {
   const int count = slot_count(P.h1);
   const int32_t b = P.slots[t * count + e];
   P.roots[g * WALK_SLOTS + slot_lo(P.h1) + e] =
@@ -300,7 +325,8 @@ DH_HD inline void walk_slot(const PairBlock& P, int t, int g, int e) {
 // values, and p's value, for walk_unite; true when there are two or more.
 // One root stays one through the round (unions only join components): its
 // unite would do nothing.
-DH_HD inline bool walk_distinct(const PairBlock& P, int t, int g) {
+template <class Slot>
+DH_HD inline bool walk_distinct(const PairBlock<Slot>& P, int t, int g) {
   int32_t r[WALK_SLOTS];
   PPAR_UNROLL
   for (int j = 0; j < WALK_SLOTS; ++j) r[j] = P.roots[g * WALK_SLOTS + j];
@@ -331,7 +357,9 @@ DH_HD inline bool walk_distinct(const PairBlock& P, int t, int g) {
 // key so far), and the younger of the two (the larger key) dies at p: a bar
 // unless its birth value equals p's, and its root goes under the elder.
 // Appends to bar_b / bar_d (at most cap kept); returns the new bar count.
-DH_HD inline int walk_unite(const PairBlock& P, int g, int nbars, int cap) {
+template <class Slot>
+DH_HD inline int walk_unite(const PairBlock<Slot>& P, int g, int nbars,
+                            int cap) {
   const int count = P.ucount[g];
   const int32_t p = P.upix[g];
   const float vp = P.uval_p[g];
@@ -377,8 +405,9 @@ DH_HD inline int walk_unite(const PairBlock& P, int g, int nbars, int cap) {
 
 // 7a. the cap's persistences (into pers, nbars of them), when nbars >
 // max_bars
-DH_HD inline void pairs_persistence(const PairBlock& P, int nbars, float* pers,
-                                    int tid, int nthreads) {
+template <class Slot>
+DH_HD inline void pairs_persistence(const PairBlock<Slot>& P, int nbars,
+                                    float* pers, int tid, int nthreads) {
   for (int i = tid; i < nbars; i += nthreads)
     pers[i] = pcore::persistence(P.val, P.bar_b[i], P.bar_d[i]);
 }
@@ -387,9 +416,10 @@ DH_HD inline void pairs_persistence(const PairBlock& P, int nbars, float* pers,
 // max_bars first under pcore::kept_before, in that order (each bar's place
 // counted over all bars); -1 padding; in H1 each (b, d) written as (d, b)
 // (the superlevel -> H1 swap). pers from 7a when nbars > max_bars.
-DH_HD inline void pairs_emit(const PairBlock& P, int nbars, const float* pers,
-                             int max_bars, int32_t* out_b, int32_t* out_d,
-                             int tid, int nthreads) {
+template <class Slot>
+DH_HD inline void pairs_emit(const PairBlock<Slot>& P, int nbars,
+                             const float* pers, int max_bars, int32_t* out_b,
+                             int32_t* out_d, int tid, int nthreads) {
   const bool swap = P.h1;
   if (nbars <= max_bars) {
     for (int i = tid; i < max_bars; i += nthreads) {

@@ -17,8 +17,15 @@
 // too over a virtual thread count (its *_parallel entries, for the CPU
 // tests), with barriers between them.
 //
-// T1, one block of T1_THREADS per grid, everything in shared memory (~89 KB
-// for a 50x50 grid in H1, ~104 KB in H0): the pass's values;
+// T1, one block of T1_THREADS per grid, its arrays in shared memory where
+// they fit (~89 KB for a 50x50 grid in H1, ~104 KB in H0; up to 76x76 in
+// H0 and 84x84 in H1), else in the grid's slice of a global scratch buffer
+// that the wrapper allocates (the global route, up to 65534 cells: ~3.5 MB a
+// grid at 255x255 in H0, so ~450 MB for 128 grids; the walk's round arrays
+// stay in shared memory). One kernel source, the route a template
+// parameter, and so the slots' type: int16_t below 2^15 pixels, int32_t from
+// there (on the global route int16_t slots take 2-4% off T1 at 100x100 and
+// 128x128 on an H100, PERF.md). The phases: the pass's values;
 // steepest-descent pointers and pointer jumping to the basin roots (all
 // threads); the merge pixels flagged per thread chunk, a block scan of the
 // counts and the scatter (index order, no atomics), a bitonic sort of them
@@ -74,13 +81,20 @@ int opt_in_smem(Kernel kernel, size_t dynamic) {
       static_cast<int>(dynamic)));
 }
 
-// Byte offsets of T1's arrays in dynamic shared memory for an n-cell grid
-// and the pass (H1 or H0: its slot count). The cap's persistences overlay
-// the slots, which the walk no longer needs.
+// The most cells a grid may have: JAX's device pairing's capacity
+// (dilabhelmholtzoct_tpu/ops/topology_device.py:_MAXCELLS); ops/native.py
+// holds the same number.
+constexpr int MAX_CELLS = (1 << 16) - 2;
+
+// Byte offsets of T1's arrays (in dynamic shared memory, or in a grid's
+// slice of the global scratch) for an n-cell grid, the pass (H1 or H0: its
+// slot count) and the slots' type. The cap's persistences overlay the
+// slots, which the walk no longer needs.
 struct T1Layout {
   size_t val, basin, parent, merge, bar_b, bar_d, slots, flag, total;
 };
 
+template <class Slot>
 __host__ __device__ inline T1Layout t1_layout(int n, bool h1) {
   const size_t cap = pcore::bar_capacity(n);
   T1Layout L;
@@ -98,7 +112,7 @@ __host__ __device__ inline T1Layout t1_layout(int n, bool h1) {
   L.bar_d = off;
   off += sizeof(int32_t) * cap;
   L.slots = off;  // over sizeof(float) * cap bytes: the persistences fit
-  off += sizeof(int16_t) * ppar::slot_count(h1) * n;
+  off += sizeof(Slot) * ppar::slot_count(h1) * n;
   L.flag = off;
   off += n;
   L.total = off;
@@ -131,12 +145,18 @@ __device__ int block_exclusive_scan(int v, int* warp_sums, int* total) {
   return (warp ? warp_sums[warp - 1] : 0) + x - v;
 }
 
+// T1: kShared keeps the grid's arrays in dynamic shared memory; else they
+// are at scratch + blockIdx.x * stride in global memory.
+template <bool kShared, class Slot>
 __global__ void __launch_bounds__(T1_THREADS)
     cubical_pairs_kernel(const float* __restrict__ grids, int h, int w,
                          int feat_d, int max_bars, int32_t* __restrict__ out_b,
                          int32_t* __restrict__ out_d,
-                         int32_t* __restrict__ out_c) {
+                         int32_t* __restrict__ out_c,
+                         unsigned char* __restrict__ scratch, int64_t stride) {
   extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* const base =
+      kShared ? smem : scratch + static_cast<int64_t>(blockIdx.x) * stride;
   constexpr int ROUND_SLOTS = ppar::WALK_ROUND_MAX * ppar::WALK_SLOTS;
   __shared__ int32_t s_roots[ROUND_SLOTS];  // -1 in slots not the pass's
   __shared__ int32_t s_uroot[ROUND_SLOTS];
@@ -150,20 +170,20 @@ __global__ void __launch_bounds__(T1_THREADS)
   const int n = h * w;
   const int cap = pcore::bar_capacity(n);
   const bool h1 = feat_d == 1;
-  const T1Layout L = t1_layout(n, h1);
-  ppar::PairBlock P;
+  const T1Layout L = t1_layout<Slot>(n, h1);
+  ppar::PairBlock<Slot> P;
   P.h = h;
   P.w = w;
   P.n = n;
   P.h1 = h1;
-  P.val = reinterpret_cast<float*>(smem + L.val);
-  P.basin = reinterpret_cast<int32_t*>(smem + L.basin);
-  P.parent = reinterpret_cast<int32_t*>(smem + L.parent);
-  P.flag = smem + L.flag;
-  P.merge = reinterpret_cast<int32_t*>(smem + L.merge);
-  P.slots = reinterpret_cast<int16_t*>(smem + L.slots);
-  P.bar_b = reinterpret_cast<int32_t*>(smem + L.bar_b);
-  P.bar_d = reinterpret_cast<int32_t*>(smem + L.bar_d);
+  P.val = reinterpret_cast<float*>(base + L.val);
+  P.basin = reinterpret_cast<int32_t*>(base + L.basin);
+  P.parent = reinterpret_cast<int32_t*>(base + L.parent);
+  P.flag = base + L.flag;
+  P.merge = reinterpret_cast<int32_t*>(base + L.merge);
+  P.slots = reinterpret_cast<Slot*>(base + L.slots);
+  P.bar_b = reinterpret_cast<int32_t*>(base + L.bar_b);
+  P.bar_d = reinterpret_cast<int32_t*>(base + L.bar_d);
   P.roots = s_roots;
   P.uroot = s_uroot;
   P.ukey = s_ukey;
@@ -221,7 +241,7 @@ __global__ void __launch_bounds__(T1_THREADS)
   }
   __syncthreads();
   const int nbars = s_nbars;
-  float* pers = reinterpret_cast<float*>(smem + L.slots);
+  float* pers = reinterpret_cast<float*>(base + L.slots);
   if (nbars > max_bars) {
     ppar::pairs_persistence(P, nbars, pers, tid, T1_THREADS);
     __syncthreads();
@@ -307,21 +327,69 @@ __global__ void __launch_bounds__(T2_THREADS) wasserstein_match_kernel(
 
 extern "C" {
 
-// T1 over n_grids (h, w) f32 grids: the feat_d pass (0: H0, 1: H1) ->
-// birth / death (n_grids, max_bars) int32 flat pixel indices (-1 padding)
-// and count (n_grids,) int32.
+// T1's route for one (h, w) grid of the feat_d pass: 0 into *stride when the
+// grid takes the shared-memory route (its layout fits beside the kernel's
+// static arrays), else the bytes of its slice of the global scratch (a
+// multiple of 256). Returns 0 or a CUDA error.
+int dhoct_t1_scratch_bytes(int h, int w, int feat_d, int64_t* stride) {
+  const int n = h * w;
+  if (h < 1 || w < 1 || n > MAX_CELLS || (feat_d != 0 && feat_d != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool h1 = feat_d == 1;
+  *stride = 0;
+  if (ppar::slot_is_narrow(n)) {
+    cudaFuncAttributes attr;
+    const cudaError_t e =
+        cudaFuncGetAttributes(&attr, cubical_pairs_kernel<true, int16_t>);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (t1_layout<int16_t>(n, h1).total + attr.sharedSizeBytes <=
+        static_cast<size_t>(MAX_SMEM))
+      return 0;
+  }
+  const size_t bytes = ppar::slot_is_narrow(n)
+                           ? t1_layout<int16_t>(n, h1).total
+                           : t1_layout<int32_t>(n, h1).total;
+  *stride = static_cast<int64_t>((bytes + 255) / 256 * 256);
+  return 0;
+}
+
+// T1 over n_grids (h, w) f32 grids of up to MAX_CELLS cells: the feat_d pass
+// (0: H0, 1: H1) -> birth / death (n_grids, max_bars) int32 flat pixel
+// indices (-1 padding) and count (n_grids,) int32. stride: what
+// dhoct_t1_scratch_bytes gave for the grids, which picks the route; on the
+// global route scratch holds n_grids slices of it, else it is unused.
 int dhoct_cubical_pairs(const float* grids, int n_grids, int h, int w,
                         int feat_d, int max_bars, int32_t* birth,
-                        int32_t* death, int32_t* count, void* stream) {
-  if (n_grids < 1 || h < 1 || w < 1 || max_bars < 1 ||
-      (feat_d != 0 && feat_d != 1))
+                        int32_t* death, int32_t* count, void* scratch,
+                        int64_t stride, void* stream) {
+  const int n = h * w;
+  if (h < 1 || w < 1 || n > MAX_CELLS || (feat_d != 0 && feat_d != 1) ||
+      n_grids < 1 || max_bars < 1 || stride < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = t1_layout(h * w, feat_d == 1).total;
-  const int err = opt_in_smem(cubical_pairs_kernel, smem);
-  if (err) return err;
-  cubical_pairs_kernel<<<n_grids, T1_THREADS, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      grids, h, w, feat_d, max_bars, birth, death, count);
+  const bool h1 = feat_d == 1;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!stride) {
+    if (!ppar::slot_is_narrow(n))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem = t1_layout<int16_t>(n, h1).total;
+    const int err = opt_in_smem(cubical_pairs_kernel<true, int16_t>, smem);
+    if (err) return err;
+    cubical_pairs_kernel<true, int16_t><<<n_grids, T1_THREADS, smem, st>>>(
+        grids, h, w, feat_d, max_bars, birth, death, count, nullptr, 0);
+  } else {
+    const bool narrow = ppar::slot_is_narrow(n);
+    const size_t bytes = narrow ? t1_layout<int16_t>(n, h1).total
+                                : t1_layout<int32_t>(n, h1).total;
+    if (!scratch || static_cast<size_t>(stride) < bytes)
+      return static_cast<int>(cudaErrorInvalidValue);
+    auto* buf = static_cast<unsigned char*>(scratch);
+    if (narrow)
+      cubical_pairs_kernel<false, int16_t><<<n_grids, T1_THREADS, 0, st>>>(
+          grids, h, w, feat_d, max_bars, birth, death, count, buf, stride);
+    else
+      cubical_pairs_kernel<false, int32_t><<<n_grids, T1_THREADS, 0, st>>>(
+          grids, h, w, feat_d, max_bars, birth, death, count, buf, stride);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,10 +2,18 @@
 
 Port of ``dilabhelmholtzoct_tpu/data/sampling.py`` (the port imports nothing
 of the JAX package). Per class value present in the label map (background 0
-included), connected components under the 3x3 all-ones structure
-(``scipy.ndimage.label``); per component a box from its min/max x/y with
-+-10 px jitter clamped to the image, or one uniformly drawn pixel; the
-components as one slot map (``comp_map``, slots 1..n in prompt order).
+included), connected components under the 3x3 all-ones structure; per
+component a box from its min/max x/y with +-10 px jitter clamped to the
+image, or one uniformly drawn pixel; the components as one slot map
+(``comp_map``, slots 1..n in prompt order).
+
+The components come from the host library's component engine
+(``ops/native.py`` on ``csrc/components_host.cc``: one union-find pass over
+the class map, and one pass for the point picks), as the JAX package's come
+from its C++ library. A library that cannot be built raises; nothing falls
+back. ``label_components_plain``, ``extract_components_plain`` and
+``prompts_from_extraction_plain`` are the scipy / numpy twins the tests
+hold the engine to.
 
 The labelling is split from the random draws so the input pipeline can
 cache it across epochs (it is a pure function of the label map): the
@@ -13,8 +21,8 @@ cache it across epochs (it is a pure function of the label map): the
 ``sample_prompts`` gives, draw for draw. The draw order is the reference's:
 per component, for boxes ``x_min, x_max, y_min, y_max``, each
 ``rng.integers(-10, 10)``; for points ``rng.integers(0, size)`` picking the
-pixel of that rank in row-major order. The JAX package's C++ union-find
-gives the same components as scipy; that engine is not ported yet.
+pixel of that rank in row-major order (all ranks drawn first, in slot
+order, then picked in one pass).
 
 Batches are padded to static bucket sizes, with ``channel_mask`` marking the
 channels a ragged batch would hold.
@@ -28,6 +36,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 from scipy import ndimage
+
+from ..ops import native
 
 _STRUCTURE = np.ones((3, 3), dtype=np.int32)
 
@@ -69,14 +79,46 @@ def bucket_for(n: int, buckets=DEFAULT_BUCKETS) -> int:
     return buckets[-1]
 
 
+def label_components(binary_mask: np.ndarray):
+    """8-connected components of a (H, W) mask (3x3 ones structure) on the
+    component engine: (labels (H, W) int32, 1..n in raster order of each
+    component's first pixel, as ``scipy.ndimage.label`` numbers them; n)."""
+    return native.label_components_8(binary_mask)
+
+
+def label_components_plain(binary_mask: np.ndarray):
+    """Plain twin of ``label_components``: ``scipy.ndimage.label``."""
+    labels, n = ndimage.label(np.ascontiguousarray(binary_mask),
+                              structure=_STRUCTURE)
+    return labels.astype(np.int32), int(n)
+
+
+def _class_map(label: np.ndarray) -> np.ndarray:
+    """The label map as the engine takes it: uint8, C order; raises for
+    class values outside 0..255."""
+    if label.dtype != np.uint8 and label.size and (
+            label.min() < 0 or label.max() > 255):
+        raise ValueError("class values must lie in 0..255, got "
+                         f"{label.min()}..{label.max()}")
+    return np.ascontiguousarray(label, np.uint8)
+
+
 def extract_components(label: np.ndarray, max_comps: int = MAX_COMPONENTS):
-    """The RNG-free half of prompt sampling, from a (H, W) integer label map.
+    """The RNG-free half of prompt sampling, from a (H, W) integer label map
+    (class values 0..255), on the component engine.
 
     Returns (comp_map (H, W) int32 slots 1..n, values (n,) int32, boxes
     (n, 4) int32 as (x0, y0, x1, y1) inclusive, sizes (n,) int32, total
-    found). Slots follow ``np.unique`` order of the class values, then
-    scipy's label order (raster order of each component's first pixel);
-    components past ``max_comps`` are counted in ``total`` only."""
+    found). Slots follow the ascending class values, then scipy's label
+    order (raster order of each component's first pixel); components past
+    ``max_comps`` are counted in ``total`` only."""
+    return native.extract_components(_class_map(label), max_comps)
+
+
+def extract_components_plain(label: np.ndarray,
+                             max_comps: int = MAX_COMPONENTS):
+    """Plain twin of ``extract_components``: ``scipy.ndimage.label`` per
+    class value and one full-image mask per component."""
     h, w = label.shape
     comp_map = np.zeros((h, w), np.int32)
     values, boxes, sizes = [], [], []
@@ -99,20 +141,27 @@ def extract_components(label: np.ndarray, max_comps: int = MAX_COMPONENTS):
             np.asarray(sizes, np.int32), total)
 
 
-def prompts_from_extraction(extraction, shape, prompt_type: str,
-                            rng: np.random.Generator) -> PromptedSample:
-    """The random half: jittered boxes or uniform points from a (possibly
-    cached) ``extract_components`` result, in the reference's draw order."""
+def component_pixel_at_plain(comp_map: np.ndarray, ranks) -> np.ndarray:
+    """Plain twin of ``native.component_pixel_at``: per slot, its pixels in
+    raster order (``np.flatnonzero``) and the one of the given rank."""
+    w = comp_map.shape[1]
+    flat = comp_map.reshape(-1)
+    out = np.zeros((len(ranks), 2), np.int32)
+    for s, rank in enumerate(ranks):
+        idx = np.flatnonzero(flat == s + 1)[int(rank)]
+        out[s] = (idx % w, idx // w)
+    return out
+
+
+def _prompts(extraction, shape, prompt_type, rng, pixel_at) -> PromptedSample:
     h, w = shape
     comp_map, values, boxes, sizes, _ = extraction
     n = len(values)
     if prompt_type == "points":
-        prompts = np.zeros((n, 1, 2), np.float32)
-        flat = comp_map.reshape(-1)
-        for s in range(n):
-            rank = int(rng.integers(0, int(sizes[s])))
-            idx = np.flatnonzero(flat == s + 1)[rank]
-            prompts[s, 0] = (idx % w, idx // w)
+        ranks = np.asarray([int(rng.integers(0, int(sz))) for sz in sizes],
+                           np.int64)
+        prompts = pixel_at(comp_map, ranks).astype(np.float32).reshape(
+            n, 1, 2)
     else:
         prompts = np.zeros((n, 4), np.float32)
         for s in range(n):
@@ -124,6 +173,23 @@ def prompts_from_extraction(extraction, shape, prompt_type: str,
             prompts[s] = (jx0, jy0, jx1, jy1)
     return PromptedSample(bboxes=prompts, comp_map=comp_map,
                           mask_values=values.astype(np.int32))
+
+
+def prompts_from_extraction(extraction, shape, prompt_type: str,
+                            rng: np.random.Generator) -> PromptedSample:
+    """The random half: jittered boxes or uniform points from a (possibly
+    cached) ``extract_components`` result, in the reference's draw order;
+    the points picked by the component engine."""
+    return _prompts(extraction, shape, prompt_type, rng,
+                    native.component_pixel_at)
+
+
+def prompts_from_extraction_plain(extraction, shape, prompt_type: str,
+                                  rng: np.random.Generator) -> PromptedSample:
+    """Plain twin of ``prompts_from_extraction``: the same draws, the points
+    picked by ``component_pixel_at_plain``."""
+    return _prompts(extraction, shape, prompt_type, rng,
+                    component_pixel_at_plain)
 
 
 def sample_prompts(ground_truth_mask: np.ndarray, prompt_type: str,

@@ -11,11 +11,16 @@ kernels of ``csrc/topology.cu``, which run the block-parallel phases of
 ``csrc/persistence_parallel.h``:
 
   * ``cubical_pairs`` (T1, ``cubical_pairs_kernel``): one block per grid,
-    in shared memory: steepest-descent basins by pointer jumping, the merge
-    pixels (those whose earlier neighbours lie in two basins or more)
-    compacted and sorted, a walk over them that finds their basins' roots
-    in parallel rounds and replays the union-find's elder rule one merge
-    pixel after another, the bar cap;
+    its arrays in shared memory where they fit (up to 76x76 in H0, 84x84
+    in H1), else in the grid's slice of a global scratch buffer that the
+    wrapper allocates through PyTorch's caching allocator (the global route,
+    up to ``native.MAX_CELLS`` = 65534 cells, JAX's capacity: ~3.5 MB a
+    grid at 255x255 in H0, ~450 MB for 128 grids): steepest-descent
+    basins by pointer jumping, the merge pixels (those whose earlier
+    neighbours lie in two basins or more) compacted and sorted, a walk
+    over them that finds their basins' roots in parallel rounds and
+    replays the union-find's elder rule one merge pixel after another, the
+    bar cap;
   * ``wasserstein_match`` (T2, ``wasserstein_match_kernel``): one block per
     row, the reduced Jonker-Volgenant assignment (f64 duals) with each
     Dijkstra step's column loops spread over the block.
@@ -41,17 +46,20 @@ values from the pred grid, so the gradient flows through those pixels only.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
 from .. import kernels
-from . import topology_ref
+from . import native, topology_ref
 from .topology import (MAX_BARS, _gather, _reduce_topo,
                        _wasserstein_per_diagram, resize_align_corners)
 
 # launch counts of T1 / T2; a plain integer each, reset by the caller
 LAUNCHES = {"cubical_pairs": 0, "wasserstein_match": 0}
+# T1's launches by route: its arrays in shared memory, or in global scratch
+T1_ROUTES = {"shared": 0, "global": 0}
 # csrc/topology.cu's code for operands that need more shared memory than
 # one block has
 ERR_SMEM = 1000
@@ -60,8 +68,9 @@ _BOUND = False
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, T1_ROUTES):
+        for k in counts:
+            counts[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -138,7 +147,10 @@ def _bind():
     lib = kernels.library("topology")
     if not _BOUND:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dhoct_cubical_pairs.argtypes = [p, i, i, i, i, i, p, p, p, p]
+        lib.dhoct_cubical_pairs.argtypes = [p, i, i, i, i, i, p, p, p, p,
+                                            ctypes.c_int64, p]
+        lib.dhoct_t1_scratch_bytes.argtypes = [i, i, i, p]
+        lib.dhoct_t1_scratch_bytes.restype = ctypes.c_int
         lib.dhoct_wasserstein_match.argtypes = (
             [p, i, i, p, p, p, p, p, i, ctypes.c_float, i, p, p, p, p])
         for fn in (lib.dhoct_cubical_pairs, lib.dhoct_wasserstein_match):
@@ -155,10 +167,27 @@ def _raise_on_error(err: int, lib, name: str, too_large: str) -> None:
     kernels.raise_on_error(err, lib.dhoct_topology_error_string, name)
 
 
+@functools.lru_cache(maxsize=None)
+def t1_scratch_bytes(h: int, w: int, feat_d: int) -> int:
+    """T1's route for one (h, w) grid of the ``feat_d`` pass: 0 when the
+    grid takes the shared-memory route, else the bytes of its slice of the
+    global scratch. Loads (builds) the kernel library."""
+    lib = _bind()
+    stride = ctypes.c_int64(0)
+    err = lib.dhoct_t1_scratch_bytes(h, w, feat_d, ctypes.byref(stride))
+    kernels.raise_on_error(err, lib.dhoct_topology_error_string,
+                           "cubical_pairs")
+    return stride.value
+
+
 def cubical_pairs_cuda(grids: torch.Tensor, feat_d: int,
                        max_bars: int = MAX_BARS):
     """Launch T1 (``cubical_pairs_kernel``) on (N, H, W) f32 grids on the
-    card; same contract as ``cubical_pairs_plain``."""
+    card; same contract as ``cubical_pairs_plain``. Grids past one block's
+    shared memory take the global route, with N slices of
+    ``t1_scratch_bytes`` allocated here on the grids' device (up to
+    ``native.MAX_CELLS`` cells, which ``device_cubical_pairs`` checks; the
+    C entry refuses more before any launch)."""
     n, h, w = grids.shape
     kernels.check_operands("cubical_pairs", (grids,), (torch.float32,))
     lib = _bind()
@@ -167,14 +196,18 @@ def cubical_pairs_cuda(grids: torch.Tensor, feat_d: int,
     death = torch.empty_like(birth)
     count = torch.empty((n,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
+        stride = t1_scratch_bytes(h, w, feat_d)
+        scratch = (torch.empty((n * stride,), dtype=torch.uint8, device=dev)
+                   if stride else None)
         err = lib.dhoct_cubical_pairs(
             grids.data_ptr(), n, h, w, feat_d, max_bars, birth.data_ptr(),
             death.data_ptr(), count.data_ptr(),
+            scratch.data_ptr() if stride else None, stride,
             torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on_error(err, lib, "cubical_pairs",
-                    f"a {h}x{w} grid needs more shared memory than one "
-                    "block has; downsample it (topo_interp)")
+    kernels.raise_on_error(err, lib.dhoct_topology_error_string,
+                           "cubical_pairs")
     LAUNCHES["cubical_pairs"] += 1
+    T1_ROUTES["global" if stride else "shared"] += 1
     return birth, death, count
 
 
@@ -236,8 +269,10 @@ def device_cubical_pairs(grids: torch.Tensor, feat_d: int,
     4-connected, with the outside node, bars swapped). Returns (birth, death
     (N, max_bars) int32 flat pixel indices, -1 padded; count (N,) int32) on
     the grids' device; empty for feat_d not in {0, 1} (no 2-dimensional
-    features on a 2-D grid)."""
+    features on a 2-D grid). Grids of more than ``native.MAX_CELLS``
+    cells raise ValueError, on any device."""
     n = grids.shape[0]
+    native.check_cells(*grids.shape[1:])
     if feat_d not in (0, 1) or n == 0:
         empty = torch.full((n, max_bars), -1, dtype=torch.int32,
                            device=grids.device)

@@ -5,7 +5,9 @@ image-layout windowed forward K7, the upscaler K3 and the image->token
 attention K4 (their forwards on the tensor cores, bf16 and f32 in split
 TF32; the backwards of both as their two launches, the row pass and the
 weight pass, each against its plain twin); the topological loss's pairing
-T1 and matching T2 against their numpy twins and the host library; one
+T1 (on its shared-memory route and, for grids past one block's shared
+memory, its global one) and matching T2 against their numpy twins and the
+host library; one
 request through a small engine on the card; and, card against CPU, prompt
 mask inputs and one augmented uncached bf16 train step.
 
@@ -927,17 +929,105 @@ def test_wasserstein_match_on_card(cuda_device, n, true_kind, q, feat_d):
         assert not got[0].any() and not got[2].any()
 
 
+def _noise_and_blobs(rng, size):
+    """4 grids of sigmoid noise, then 4 of blobs, size x size."""
+    return np.concatenate([_sigmoid_noise(rng, 4, size, size),
+                           _blobs(rng, 4, size, size)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("feat_d", [0, 1])
+@pytest.mark.parametrize("size", [100, 128, 182, 255])
+def test_cubical_pairs_global_route_on_card(cuda_device, size, feat_d):
+    """Grids past one block's shared memory take T1's global route (its
+    arrays in a global scratch buffer; int32 slots from 182x182): one
+    launch, the bars, counts and cap equal to the host library's, the same
+    bits on a second run."""
+    from dilabhelmholtzoct_tpu_torch.ops import native
+    from dilabhelmholtzoct_tpu_torch.ops import topology_device as ptd
+
+    grids = _noise_and_blobs(np.random.default_rng(size + feat_d), size)
+    g = torch.tensor(grids, device=cuda_device)
+    assert ptd.t1_scratch_bytes(size, size, feat_d) > 0
+    before = dict(ptd.T1_ROUTES)
+    got = ptd.device_cubical_pairs(g, feat_d)
+    torch.cuda.synchronize()
+    assert ptd.T1_ROUTES == {"shared": before["shared"],
+                             "global": before["global"] + 1}
+    host = native.cubical_pairs_batch(grids, ptd.MAX_BARS)
+    for a, b in zip(got, (host[f"h{feat_d}_birth"], host[f"h{feat_d}_death"],
+                          host["counts"][:, feat_d])):
+        np.testing.assert_array_equal(a.cpu().numpy(), b)
+    assert int(got[2][:4].min()) == ptd.MAX_BARS  # noise: the cap acts
+    assert all(torch.equal(a, b) for a, b in zip(
+        got, ptd.device_cubical_pairs(g, feat_d)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("feat_d", [0, 1])
+def test_cubical_pairs_shared_route_on_card(cuda_device, feat_d):
+    """A 50x50 grid (the loss's default topo_interp) keeps T1's
+    shared-memory route, equal to the host library."""
+    from dilabhelmholtzoct_tpu_torch.ops import native
+    from dilabhelmholtzoct_tpu_torch.ops import topology_device as ptd
+
+    grids = _noise_and_blobs(np.random.default_rng(feat_d), 50)
+    assert ptd.t1_scratch_bytes(50, 50, feat_d) == 0
+    before = dict(ptd.T1_ROUTES)
+    got = ptd.device_cubical_pairs(torch.tensor(grids, device=cuda_device),
+                                   feat_d)
+    torch.cuda.synchronize()
+    assert ptd.T1_ROUTES == {"shared": before["shared"] + 1,
+                             "global": before["global"]}
+    host = native.cubical_pairs_batch(grids, ptd.MAX_BARS)
+    np.testing.assert_array_equal(got[0].cpu().numpy(),
+                                  host[f"h{feat_d}_birth"])
+    np.testing.assert_array_equal(got[2].cpu().numpy(),
+                                  host["counts"][:, feat_d])
+
+
+@pytest.mark.gpu
+def test_wasserstein_match_512_a_side_on_card(cuda_device):
+    """T2 on the H1 bars of 255x255 noise grids, 512 a side (the cap):
+    its scratch does not grow with the grid; the matching equals the host
+    library's and its cost the twin's within rtol 1e-6."""
+    from dilabhelmholtzoct_tpu_torch.ops import native
+    from dilabhelmholtzoct_tpu_torch.ops import topology_device as ptd
+
+    g = torch.tensor(_sigmoid_noise(np.random.default_rng(9), 8, 255, 255),
+                     device=cuda_device)
+    b, d, c = ptd.device_cubical_pairs(g, 1)
+    assert int(c.min()) == 512
+    flat_t = g[4:].reshape(4, -1)
+    true_bars = torch.stack([flat_t.gather(1, b[4:].long()),
+                             flat_t.gather(1, d[4:].long())], -1).contiguous()
+    args = (g[:4].reshape(4, -1).contiguous(), b[:4].contiguous(),
+            d[:4].contiguous(), c[:4].clone(), true_bars, c[4:].clone())
+    got = ptd.wasserstein_match_cuda(*args, 2.0)
+    torch.cuda.synchronize()
+    host = native.wasserstein_match_batch(
+        *(a.cpu().numpy() for a in args[:4]),
+        [t.cpu().numpy() for t in true_bars], 2.0, 512)
+    for x, y in zip(got, host):
+        np.testing.assert_array_equal(x.cpu().numpy(), y)
+    twin = ptd.wasserstein_match_plain(*(a.cpu() for a in args), 2.0)
+    np.testing.assert_allclose(_row_costs(args[0], b[:4], d[:4], *got),
+                               _row_costs(args[0], b[:4], d[:4], *twin),
+                               rtol=1e-6)
+
+
 @pytest.mark.gpu
 def test_topology_kernels_refuse_beyond_shared_memory(cuda_device):
-    """Operands beyond one block's shared memory: the C entries refuse them
-    before any launch, the wrappers raise NotImplementedError and count
-    nothing."""
+    """What cannot run is refused before any launch, and nothing is
+    counted: a T1 grid past JAX's capacity of 65534 cells (ValueError; a
+    200x200 grid runs, on the global route), and a T2 operand past one
+    block's shared memory (NotImplementedError)."""
     from dilabhelmholtzoct_tpu_torch.ops import topology_device as ptd
 
     before = dict(ptd.LAUNCHES)
-    with pytest.raises(NotImplementedError, match="topo_interp"):
-        ptd.cubical_pairs_cuda(
-            torch.zeros((1, 200, 200), device=cuda_device), 1)
+    with pytest.raises(ValueError, match="65534 cells"):
+        ptd.device_cubical_pairs(
+            torch.zeros((1, 256, 256), device=cuda_device), 1)
     k = 4096
     idx = torch.zeros((1, k), dtype=torch.int32, device=cuda_device)
     cnt = torch.ones((1,), dtype=torch.int32, device=cuda_device)
@@ -946,6 +1036,9 @@ def test_topology_kernels_refuse_beyond_shared_memory(cuda_device):
             torch.zeros((1, 64), device=cuda_device), idx, idx.clone(), cnt,
             torch.zeros((1, k, 2), device=cuda_device), cnt.clone(), 2.0)
     assert ptd.LAUNCHES == before
+    ptd.cubical_pairs_cuda(torch.zeros((1, 200, 200), device=cuda_device), 1)
+    assert ptd.LAUNCHES == {**before,
+                            "cubical_pairs": before["cubical_pairs"] + 1}
 
 
 @pytest.mark.gpu

@@ -295,6 +295,59 @@ def test_zero_lambda_returns_zero():
             jnp.zeros((1, 1, 8, 8)), jnp.zeros((1, 1, 8, 8)), 0.0)
 
 
+def _large_grids(size, seed):
+    """A grid of sigmoid noise and one of blobs (plateaus), size x size."""
+    from test_torch_topology_parallel import _blobs
+
+    rng = np.random.default_rng(seed)
+    return np.concatenate([_sigmoid_noise(rng, (1, size, size)),
+                           _blobs(rng, 1, size, size)])
+
+
+@pytest.mark.parametrize("size", [215, 255])
+def test_large_grids_match_jax_native(size):
+    """Past one block's shared memory (the card's global route, int32
+    slots): the kernel's phases (``native.cubical_pairs_parallel``, 256
+    virtual threads) against the JAX package's native
+    ``cubical_pairs_batch``: uncapped, index for index in both passes; at
+    the 512 cap, the kept bars' persistence values."""
+    from dilabhelmholtzoct_tpu.ops import native as jnative
+
+    grids = _large_grids(size, size)
+    for k in (40000, 512):  # 40000: above every bar count here
+        want = jnative.cubical_pairs_batch(grids, k)
+        for dim in (0, 1):
+            b, d, c, _ = native.cubical_pairs_parallel(grids, dim, k, 256)
+            np.testing.assert_array_equal(c, want["counts"][:, dim])
+            wb, wd = want[f"h{dim}_birth"], want[f"h{dim}_death"]
+            if k > 512:
+                assert (c < k).all()
+                np.testing.assert_array_equal(b, wb)
+                np.testing.assert_array_equal(d, wd)
+                continue
+            for i, g in enumerate(grids.reshape(len(grids), -1)):
+                n = c[i]
+                np.testing.assert_array_equal(
+                    np.sort(np.abs(g[d[i, :n]] - g[b[i, :n]])),
+                    np.sort(np.abs(g[wd[i, :n]] - g[wb[i, :n]])))
+
+
+def test_100x100_h1_matches_jax_device_pairing():
+    """A 100x100 grid of noise and one of blobs, H1, capped at 512: the
+    port's ``device_cubical_pairs`` on the CPU (the plain twin) and the
+    card's phases (``native.cubical_pairs_parallel``) give the bar pairs of
+    JAX's ``device_cubical_pairs`` (its own order: compared as sets)."""
+    grids = _large_grids(100, 100)
+    jb, jd, jc = map(np.asarray, jtd.device_cubical_pairs(
+        jnp.asarray(grids), 1, pt.MAX_BARS))
+    twin = [t.numpy() for t in ptd.device_cubical_pairs(
+        torch.from_numpy(grids), 1, pt.MAX_BARS)]
+    phases = native.cubical_pairs_parallel(grids, 1, pt.MAX_BARS, 256)[:3]
+    want = _pairs(jb, jd, jc)
+    assert _pairs(*twin) == want and _pairs(*phases) == want
+    assert jc[0] == pt.MAX_BARS > jc[1]  # the cap acts on the noise grid
+
+
 def test_device_functions_on_cpu_and_unknown_devices():
     """On CPU tensors the device functions run the plain twin (no launch);
     ``device_pairing`` returns the host pairing's dict on the grids'

@@ -4,7 +4,10 @@ library's ``cubical_pairs_parallel`` / ``wasserstein_match_parallel`` run
 those phases over 1, 32 and 256 virtual threads, and must equal the host
 library's sequential algorithm (``native.cubical_pairs_batch`` on
 ``sublevel_pairs``, ``native.wasserstein_match_batch`` on
-``min_cost_assign``) and the plain twin ``cubical_pairs_plain``.
+``min_cost_assign``) and the plain twin ``cubical_pairs_plain``. Grids of
+100x100 to 255x255 (the card's global route; int32 slots from 182x182, the
+first of 2^15 pixels or more) run at 32 and 256 virtual threads against the
+host library only: the twin's pure-Python union-find takes seconds there.
 
 Inputs are made with numpy from a seed. Tolerance: none. The bars must be
 equal index for index and in emission order, with the same counts and the
@@ -76,9 +79,22 @@ T1_CASES = {
 }
 
 
-@pytest.mark.parametrize("threads", THREADS)
-@pytest.mark.parametrize("feat_d", [0, 1])
-@pytest.mark.parametrize("case", sorted(T1_CASES))
+def _noise_and_blobs(size):
+    """One grid of sigmoid noise and one of blobs, size x size."""
+    return lambda rng: np.concatenate([_sigmoid_noise(rng, (1, size, size)),
+                                       _blobs(rng, 1, size, size)])
+
+
+# past one block's shared memory (the card's global route)
+LARGE = (100, 128, 182, 215, 255)
+T1_CASES.update({f"large_{s}x{s}": (_noise_and_blobs(s), 512) for s in LARGE})
+T1_PARAMS = [(case, feat_d, threads) for case in sorted(T1_CASES)
+             for feat_d in (0, 1)
+             for threads in (THREADS if not case.startswith("large")
+                             else (32, 256))]
+
+
+@pytest.mark.parametrize("case,feat_d,threads", T1_PARAMS)
 def test_t1_phases_equal_sublevel_pairs(case, feat_d, threads):
     make, k = T1_CASES[case]
     grids = make(np.random.default_rng(sorted(T1_CASES).index(case)))
@@ -88,9 +104,10 @@ def test_t1_phases_equal_sublevel_pairs(case, feat_d, threads):
     np.testing.assert_array_equal(birth, host[f"h{feat_d}_birth"])
     np.testing.assert_array_equal(death, host[f"h{feat_d}_death"])
     np.testing.assert_array_equal(count, host["counts"][:, feat_d])
-    twin = ptd.cubical_pairs_plain(torch.from_numpy(grids), feat_d, k)
-    for got, want in zip((birth, death, count), twin):
-        np.testing.assert_array_equal(got, want.numpy())
+    if not case.startswith("large"):
+        twin = ptd.cubical_pairs_plain(torch.from_numpy(grids), feat_d, k)
+        for got, want in zip((birth, death, count), twin):
+            np.testing.assert_array_equal(got, want.numpy())
     if case.startswith("above_cap"):
         assert (count == k).all()  # the cap did act
     if case == "constant":
@@ -100,8 +117,17 @@ def test_t1_phases_equal_sublevel_pairs(case, feat_d, threads):
 
 
 def test_t1_phases_refuse_grids_beyond_16_bit_indices():
-    with pytest.raises(ValueError, match="2\\^15"):
-        native.cubical_pairs_parallel(np.zeros((1, 256, 128), np.float32), 1)
+    """JAX's capacity, 65534 cells (two of the 2^16 ids reserved): a
+    256x256 grid raises ValueError in the phases and in
+    ``device_cubical_pairs`` on the CPU, where 255x255 and 65534 cells
+    run."""
+    for fn in (lambda g: native.cubical_pairs_parallel(g, 1),
+               lambda g: ptd.device_cubical_pairs(torch.from_numpy(g), 0)):
+        with pytest.raises(ValueError, match="65534 cells"):
+            fn(np.zeros((1, 256, 256), np.float32))
+    got = native.cubical_pairs_parallel(np.zeros((1, 2, 32767), np.float32),
+                                        0)
+    assert got[2][0] == 0
 
 
 def _bars(rng, n, nb, nt, hw, quantum=None):
