@@ -13,9 +13,12 @@ prints no result line):
    source, all started together (build seconds and the ptxas report). Then
    the bf16 K1-K7 kernels' SASS (``cuobjdump -sass`` on the built
    libraries) must hold tensor-core instructions (HMMA, or HGMMA), the f32
-   K1-K7 kernels' (split TF32) TF32 ones (HMMA.1688.F32.TF32),
-   and their ptxas reports no spills, printed per kernel beside its
-   registers.
+   K1-K7 kernels' (split TF32) TF32 ones (HMMA.1688.F32.TF32), the two
+   kernels on wgmma and TMA (the bf16 K6 ``attn_relpos_wgmma_kernel`` and
+   the f32 K4 weight pass ``i2t_bwd_dw_tf32_kernel``) HGMMA (TF32 in the
+   weight pass) and TMA loads (UTMALDG), and their ptxas reports no spills,
+   printed per kernel beside its registers and its counts of HMMA, HGMMA
+   and UTMALDG.
 2b. The component engine of prompt extraction (``components_phase``; the
    host library's ``csrc/components_host.cc``): built, and bit-equal to its
    scipy twins on the 24 label maps of the training phases and on one map
@@ -51,7 +54,9 @@ prints no result line):
    ``K34_TOL``) and bit-equal to itself on a second run, then timed with
    CUDA events beside the bound from the shapes (f32: split TF32's rate,
    the CUDA cores' bound beside it). No single PyTorch call computes
-   either fused chain, so their library_ms is null.
+   either fused chain, so their library_ms is null; the weight passes' is
+   their cuBLAS products alone (``x^T @ y`` on the kernel's own operands,
+   under ``full_fp32``).
 6. Training at full ViT-B width, bf16, cached embeddings: random weights
    (non-zero rel-pos), 16 train + 8 valid synthetic 496x512 OCT images with
    label maps of background + 7 non-touching blobs (bucket 8, 64 pairs per
@@ -338,13 +343,14 @@ def _sdpa_ms(torch, qkv, rel_h, rel_w, hw, heads, iters=5):
         x[0], x[1], x[2], attn_mask=mask), iters)
 
 
-# the kernels on the tensor cores: library -> kernel names, bf16 (HMMA on
-# bf16) and f32 in split TF32 (HMMA.1688.F32.TF32)
+# the kernels on the tensor cores: library -> kernel names, bf16 (HMMA or
+# HGMMA on bf16) and f32 in split TF32 (HMMA.1688.F32.TF32, or HGMMA on
+# TF32)
 MMA_KERNELS = {"attention": ("attn_global_mma_kernel",
                              "attn_windowed_mma_kernel"),
                "attention_bwd": ("attn_bwd_dq_mma_kernel",
                                  "attn_bwd_dkv_mma_kernel"),
-               "attention_relpos": ("attn_relpos_mma_kernel",),
+               "attention_relpos_wgmma": ("attn_relpos_wgmma_kernel",),
                "attention_winimg": ("attn_winimg_mma_kernel",),
                "upscaler": ("upscale_fwd_mma_kernel", "upscale_bwd_rows_kernel",
                             "upscale_bwd_dw_kernel"),
@@ -362,6 +368,9 @@ TF32_KERNELS = {"attention": ("attn_global_tf32_kernel",
                 "decoder_attn": ("i2t_fwd_tf32_kernel",
                                  "i2t_bwd_rows_tf32_kernel",
                                  "i2t_bwd_dw_tf32_kernel")}
+# the kernels on wgmma with TMA loads: HGMMA and UTMALDG in their SASS
+WGMMA_KERNELS = {"attention_relpos_wgmma": ("attn_relpos_wgmma_kernel",),
+                 "decoder_attn": ("i2t_bwd_dw_tf32_kernel",)}
 
 
 def _ptxas_by_function(log):
@@ -383,10 +392,11 @@ def tensor_core_check(kernels):
     backwards in bf16 and in f32, and f32
     K1 / K2 / K5 / K6 / K7 in split TF32 -- holds tensor-core
     instructions (HMMA from mma.sync, HGMMA from wgmma; TF32 ones for the
-    f32 kernels) and its ptxas report shows no spills; print the count of
+    f32 kernels), the wgmma kernels (``WGMMA_KERNELS``) HGMMA and TMA loads
+    (UTMALDG), and its ptxas report shows no spills; print the counts of
     each instance beside its registers and spills."""
     cuobjdump = kernels.cuda_tool("cuobjdump")
-    for lib in MMA_KERNELS:
+    for lib in sorted(set(MMA_KERNELS) | set(TF32_KERNELS)):
         sass = subprocess.run(
             [cuobjdump, "-sass", str(kernels.library_path(lib))],
             capture_output=True, text=True, check=True, timeout=300).stdout
@@ -394,27 +404,35 @@ def tensor_core_check(kernels):
         for line in sass.splitlines():
             if "Function :" in line:
                 fn = line.split("Function :", 1)[1].strip()
-                counts[fn] = [0, 0]
-            elif fn and ("HMMA" in line or "HGMMA" in line):
-                counts[fn][0] += 1
-                counts[fn][1] += "TF32" in line
+                counts[fn] = dict.fromkeys(("HMMA", "HGMMA", "TF32",
+                                            "UTMALDG"), 0)
+            elif fn:
+                c = counts[fn]
+                for op in ("HMMA", "HGMMA", "UTMALDG"):
+                    c[op] += op in line
+                c["TF32"] += ("MMA" in line) and ("TF32" in line)
         report = _ptxas_by_function(kernels.BUILD_LOG.get(lib, ""))
-        for name in MMA_KERNELS[lib] + TF32_KERNELS.get(lib, ()):
+        for name in MMA_KERNELS.get(lib, ()) + TF32_KERNELS.get(lib, ()):
             tf32 = name in TF32_KERNELS.get(lib, ())
+            wgmma = name in WGMMA_KERNELS.get(lib, ())
             found = [f for f in counts if name in f]
             check(found, f"{name} is not in the SASS of {lib}")
             for f in found:
-                n_mma, n_tf32 = counts[f]
-                check(n_mma > 0 and (n_tf32 > 0 if tf32 else True),
+                c = counts[f]
+                check(c["HMMA"] + c["HGMMA"] > 0
+                      and (c["TF32"] > 0 if tf32 else True),
                       f"{f}: no {'TF32 ' if tf32 else ''}tensor-core "
                       "instruction in its SASS")
+                check(not wgmma or (c["HGMMA"] > 0 and c["UTMALDG"] > 0),
+                      f"{f}: no HGMMA (wgmma) or no UTMALDG (TMA load) in "
+                      "its SASS")
                 rep = report.get(f, "not rebuilt in this run")
                 check(f not in report or ("0 bytes spill stores" in rep
                                           and "0 bytes spill loads" in rep),
                       f"{f} spills: {rep}")
-                print(f"sass {f}: {n_mma} tensor-core instructions"
-                      f"{f' ({n_tf32} on TF32)' if tf32 else ''}; ptxas "
-                      f"{rep}")
+                on_tf32 = f" ({c['TF32']} on TF32)" if tf32 else ""
+                print(f"sass {f}: HMMA {c['HMMA']}, HGMMA {c['HGMMA']}"
+                      f"{on_tf32}, UTMALDG {c['UTMALDG']}; ptxas {rep}")
 
 
 def _cuda_core_bound(row, ms, split, bound):
@@ -693,13 +711,16 @@ def k34_kernel_phase(torch):
         return (k * torch.randn(shape, generator=gen, device=dev)).to(dt)
 
     def run(name, tname, kernel, plain, counter, bound, replaces, iters,
-            tag="", row=None, bits=False, cores=None):
+            tag="", row=None, bits=False, cores=None, library=None):
         """``name`` is the launch count the kernel call adds one to; ``row``
         the result line's entry it fills (pb = 1; ``_f32`` added in f32);
         ``replaces`` the kernel's source file, its name and the TPU kernel's
         call site; ``bits`` prints the share of outputs bit-equal to the
-        plain version; ``cores`` the f32 bound over the CUDA cores. Every
-        launch must give the same bits on a second run."""
+        plain version; ``cores`` the f32 bound over the CUDA cores;
+        ``library`` the PyTorch call timed as the yardstick, where one
+        computes the same function (the weight passes: their cuBLAS
+        products alone). Every launch must give the same bits on a second
+        run."""
         before = counter[name]
         out = kernel()
         torch.cuda.synchronize()
@@ -721,14 +742,17 @@ def k34_kernel_phase(torch):
         del out
         ms = cuda_ms(kernel, iters)
         plain_ms = cuda_ms(plain, 2)
+        lib_ms = None if library is None else cuda_ms(library, iters)
         b_ms, b_by = bound
         key = None if row is None or tag else row + (
             "" if tname == "bf16" else "_f32")
         entry = {}
         core_txt = _cuda_core_bound(entry, ms, cores is not None, cores)
+        lib_txt = "null" if lib_ms is None else f"{lib_ms:.4f}"
         print(f"kernel {row or name}{tag} {tname}: max_abs_err={err:.3g} "
               f"max_rel_err={rel:.3g};{same} ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} library_ms=null bound_ms={b_ms:.4f} "
+              f"plain_ms={plain_ms:.4f} library_ms={lib_txt} "
+              f"bound_ms={b_ms:.4f} "
               f"({b_by}{'; split TF32' if cores else ''}) "
               f"share_of_bound={b_ms / ms:.3f}{core_txt}")
         if key:
@@ -738,7 +762,7 @@ def k34_kernel_phase(torch):
                 "kernel": replaces[1][tname], "replaces": replaces[2],
                 "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": None,
+                "library_ms": lib_ms,
             })
             rows[key] = entry
         return ms
@@ -800,11 +824,19 @@ def k34_kernel_phase(torch):
                          up_op.LAUNCHES, b, k3_bwd, 5, row="upscale_bwd",
                          cores=c)
             b, c = k3b(True, "dw")
+            # the yardstick: dW1 = up^T d_u1pre and the four dW2 blocks as
+            # cuBLAS products of the kernel's own operands
+            n_r = bp * m
+            x1, y1 = scratch[0].reshape(n_r, -1), scratch[3].reshape(n_r, -1)
+            x2 = scratch[1].reshape(n_r, 4, -1).permute(1, 2, 0).contiguous()
+            y2 = scratch[2].reshape(n_r, 4, -1).permute(1, 0, 2).contiguous()
             t_dw = run("upscale_bwd_dw", tname,
                        lambda: up_op.upscale_bwd_dw_cuda(*scratch),
                        lambda: up_op.upscale_bwd_dw_plain(*scratch),
                        up_op.LAUNCHES, b, k3_dw, 5, row="upscale_bwd_dw",
-                       cores=c)
+                       cores=c, library=lambda: (x1.T @ y1,
+                                                 torch.bmm(x2, y2)))
+            del x1, y1, x2, y2
             print(f"K3 {tname} backward: {total:.4f} ms composed (row pass "
                   f"{t_rows:.4f} + weight pass {t_dw:.4f} timed alone)")
             del up_args, dm, bwd_args, scratch
@@ -842,12 +874,19 @@ def k34_kernel_phase(torch):
                     lambda: i2t.i2t_bwd_rows_plain(*args, dy, **kw),
                     i2t.LAUNCHES, b, k4_bwd, 5, tag, row="i2t_bwd", cores=c)
                 b, c = k4b(True, "dw")
+                # the yardstick: dWq^T = d_qpre^T (keys + pe) and dWo =
+                # rnd(out)^T rnd(d_res) as two cuBLAS products, the sum and
+                # repeat of keys + pe made beforehand
+                flat = lambda t: t.reshape(bp * m, -1)
+                qin = flat((args[0] + args[1]).repeat_interleave(pb, 0))
+                dq, orow, dres = (flat(t) for t in scratch[2:])
                 t_dw = run(
                     "i2t_bwd_dw", tname,
                     lambda: i2t.i2t_bwd_dw_cuda(*scratch, pb=pb),
                     lambda: i2t.i2t_bwd_dw_plain(*scratch, pb=pb),
                     i2t.LAUNCHES, b, k4_dw, 5, tag, row="i2t_bwd_dw",
-                    cores=c)
+                    cores=c, library=lambda: (dq.T @ qin, orow.T @ dres))
+                del qin, dq, orow, dres
                 print(f"K4{tag} {tname} backward: {total:.4f} ms composed "
                       f"(row pass {t_rows:.4f} + weight pass {t_dw:.4f} "
                       "timed alone)")
@@ -2433,7 +2472,10 @@ def k6_kernel_phase(torch, attn):
                 else None
             row = {"name": key, "route": "cuda",
                    "source": "dilabhelmholtzoct_tpu_torch/csrc/"
-                             "attention_relpos.cu",
+                             + ("attention_relpos.cu" if f32 else
+                                "attention_relpos_wgmma.cu"),
+                   "kernel": ("attn_relpos_tf32_kernel" if f32 else
+                              "attn_relpos_wgmma_kernel"),
                    "replaces": "dilabhelmholtzoct_tpu/ops/attention.py:132",
                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bound, "bound_by": bound_by,
@@ -3519,8 +3561,81 @@ def main() -> int:
     return 0
 
 
+def redesign_times(torch):
+    """The kernels redesigned on wgmma and TMA, timed at their main-path
+    shapes through the public wrappers alone, so that the same function
+    times an older tree's kernels: the bf16 K6 at a ViT-H global layer
+    (N = 4096) and windowed layer (25 windows of 196), 16 heads of 80, and
+    the f32 K4 weight pass at 64 pairs x 4096 rows, pb 1 and 8. Returns
+    {case: ms}."""
+    from dilabhelmholtzoct_tpu_torch.device import full_fp32
+    from dilabhelmholtzoct_tpu_torch.ops import attention as attn
+    from dilabhelmholtzoct_tpu_torch.ops import decoder_attn as i2t
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    rnd = lambda *s, k=1.0: k * torch.randn(s, generator=gen, device=dev)
+    out = {}
+    for case, b, hw in (("k6_bf16_global", 1, (64, 64)),
+                        ("k6_bf16_windowed", 25, (14, 14))):
+        n, heads = hw[0] * hw[1], 16
+        qkv = rnd(b, n, 3 * heads * 80, k=0.5).bfloat16()
+        rel_h = rnd(b, heads, n, hw[0], k=0.3).bfloat16()
+        rel_w = rnd(b, heads, n, hw[1], k=0.3).bfloat16()
+        out[case] = cuda_ms(lambda: attn.attention_relpos_cuda(
+            qkv, rel_h, rel_w, hw=hw, num_heads=heads), 50)
+    bp, m = TRAIN_SHAPES["bp"], TRAIN_SHAPES["m"]
+    with full_fp32():
+        for pb in (1, 8):
+            args = (rnd(bp // pb, m, 256), rnd(1, m, 256), rnd(bp, m, 128),
+                    rnd(bp, m, 128), rnd(bp, m, 256))
+            out[f"k4_dw_f32_pb{pb}"] = cuda_ms(
+                lambda: i2t.i2t_bwd_dw_cuda(*args, pb=pb), 20)
+            del args
+    return out
+
+
+def redesign_ab(other_root):
+    """The redesigned kernels of another tree (A: an older checkout, e.g.
+    the parent commit's ``git archive``) against this tree's (B) on one
+    card, in turns A B B A, each turn a fresh process that imports the
+    package from its tree (``--redesign-times ROOT``) and builds its
+    kernels there. Prints each turn's times and each side's mean."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    print(smi)
+    runs = {"A": [], "B": []}
+    for side in "ABBA":
+        root = os.path.abspath(other_root) if side == "A" else here
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--redesign-times",
+             root], capture_output=True, text=True, timeout=1500)
+        check(proc.returncode == 0, f"turn {side} ({root}) failed:\n"
+                                    f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+        ms = json.loads(proc.stdout.strip().splitlines()[-1])
+        runs[side].append(ms)
+        print(f"turn {side} ({root}): " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in ms.items()))
+    for side, turns in runs.items():
+        print(f"mean {side}: " + ", ".join(
+            f"{k} {statistics.mean(t[k] for t in turns):.4f} ms"
+            for k in turns[0]))
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-worker"]:
         dp_worker(sys.argv[2:])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--redesign-times"]:
+        sys.path.insert(0, sys.argv[2])
+        import torch as _torch
+
+        print(json.dumps(redesign_times(_torch)))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--redesign-ab"]:
+        redesign_ab(sys.argv[2])
         sys.exit(0)
     sys.exit(main())

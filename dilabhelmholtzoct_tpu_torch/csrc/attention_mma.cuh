@@ -1,20 +1,17 @@
-// Tensor-core building blocks of the bf16 encoder attention kernels: the
-// forward K1 (attention.cu, attn_global_mma_kernel), the backward K5
-// (attention_bwd.cu, attn_bwd_dq_mma_kernel / attn_bwd_dkv_mma_kernel), the
-// any-head-dim forward K6 (attention_relpos.cu, attn_relpos_mma_kernel) and
-// the windowed body shared by K2 (attention.cu, attn_windowed_mma_kernel)
-// and K7 (attention_winimg.cu, attn_winimg_mma_kernel): window_tile_mma.
+// Tensor-core building blocks of the bf16 encoder attention kernels on
+// mma.sync: the forward K1 (attention.cu, attn_global_mma_kernel), the
+// backward K5 (attention_bwd.cu, attn_bwd_dq_mma_kernel /
+// attn_bwd_dkv_mma_kernel) and the windowed body shared by K2
+// (attention.cu, attn_windowed_mma_kernel) and K7 (attention_winimg.cu,
+// attn_winimg_mma_kernel): window_tile_mma. (The bf16 K6 on wgmma,
+// attention_relpos_wgmma.cu, takes its softmax helpers from here.)
 //
 // Every tile holds rows of one head in bf16 in shared memory. At head dim
 // 64 (K1, K2, K5, K7) rows are padded to LDS = 72 elements (144 bytes): the
 // eight 16-byte rows that one ldmatrix phase reads then start on eight
-// different bank groups, so the loads are free of bank conflicts. K6 takes
-// any head dim d: its rows hold DP = d rounded up to 16 columns, the ones
-// past d zero (a zero column adds nothing to q.k, and the p.v columns past
-// d are never stored), padded to DP + 8 elements, an odd count of 16-byte
-// units for every DP (ViT-H, d = 80: 88 elements, 176 bytes). The helpers
-// below take that row length (LD) and the head dim (DK / DN) as template
-// arguments whose defaults are the head-dim-64 tiling. A block is 4 warps; a
+// different bank groups, so the loads are free of bank conflicts. The
+// fragment loads take the row length (LD) as a template argument whose
+// default is that tiling (K4's kernels share them). A block is 4 warps; a
 // warp owns 16-row tiles and computes with
 // mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 (f32 accumulators).
 //
@@ -52,13 +49,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async8(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 8 : 0));
 }
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
@@ -147,24 +137,23 @@ __device__ __forceinline__ void load_b_kn(uint32_t* b, const bf16* tile,
 }
 
 // acc[m][16][64] += A_m . B^T for M m-tiles of 16 rows, A_m the rows
-// r0 + 16 m.. of a row-major shared tile, B a [64][DK] tile stored [n][k]
-// (DK = the head dim, a multiple of 16; LD elements per row): the score
-// product q.k^T (or dO.v^T, k.q^T, v.dO^T). Every B fragment loaded serves
-// all M m-tiles.
-template <int M, int DK = D, int LD = LDS>
+// r0 + 16 m.. of a row-major shared tile, B a [64][D] tile stored [n][k]:
+// the score product q.k^T (or dO.v^T, k.q^T, v.dO^T). Every B fragment
+// loaded serves all M m-tiles.
+template <int M>
 __device__ __forceinline__ void product_nk(float (*acc)[TILE / 8][4],
                                                 const bf16* a_tile, int r0,
                                                 const bf16* b_tile, int lane) {
 #pragma unroll
-  for (int kk = 0; kk < DK / 16; ++kk) {
+  for (int kk = 0; kk < D / 16; ++kk) {
     uint32_t a[M][4];
 #pragma unroll
     for (int m = 0; m < M; ++m)
-      load_a<LD>(a[m], a_tile, r0 + 16 * m, 16 * kk, lane);
+      load_a(a[m], a_tile, r0 + 16 * m, 16 * kk, lane);
 #pragma unroll
     for (int np = 0; np < TILE / 16; ++np) {
       uint32_t b[4];
-      load_b_nk<LD>(b, b_tile, 16 * np, 16 * kk, lane);
+      load_b_nk(b, b_tile, 16 * np, 16 * kk, lane);
 #pragma unroll
       for (int m = 0; m < M; ++m) {
         mma16816(acc[m][2 * np], a[m], b[0], b[1]);
@@ -174,20 +163,19 @@ __device__ __forceinline__ void product_nk(float (*acc)[TILE / 8][4],
   }
 }
 
-// acc[m][16][DN] += P_m[16][64 keys] . B[64 keys][DN] for M m-tiles, P_m
+// acc[m][16][D] += P_m[16][64 keys] . B[64 keys][D] for M m-tiles, P_m
 // given as its 8 accumulator n-tiles packed to bf16 (pk[m][n-tile][0] rows
-// g, [1] rows g + 8), B a tile stored [k][n] (DN = the head dim, a multiple
-// of 16; LD elements per row): p.v, ds.k, p^T.dO, ds^T.q.
-template <int M, int DN = D, int LD = LDS>
-__device__ __forceinline__ void product_kn(float (*acc)[DN / 8][4],
+// g, [1] rows g + 8), B a tile stored [k][n]: p.v, ds.k, p^T.dO, ds^T.q.
+template <int M>
+__device__ __forceinline__ void product_kn(float (*acc)[D / 8][4],
                                            const uint32_t (*pk)[TILE / 8][2],
                                            const bf16* b_tile, int lane) {
 #pragma unroll
   for (int kk = 0; kk < TILE / 16; ++kk)
 #pragma unroll
-    for (int np = 0; np < DN / 16; ++np) {
+    for (int np = 0; np < D / 16; ++np) {
       uint32_t b[4];
-      load_b_kn<LD>(b, b_tile, 16 * kk, 16 * np, lane);
+      load_b_kn(b, b_tile, 16 * kk, 16 * np, lane);
 #pragma unroll
       for (int m = 0; m < M; ++m) {
         const uint32_t a[4] = {pk[m][2 * kk][0], pk[m][2 * kk][1],
@@ -210,32 +198,6 @@ __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src,
     const bool ok = row0 + r < n;
     cp_async16(dst + r * LDS + c, src + (size_t)(ok ? row0 + r : 0) * stride + c,
                ok);
-  }
-}
-
-// rows [row0, row0 + rows) x d columns (`stride` elements per row, d a
-// multiple of 4) -> shared rows of LD elements holding DP columns, the ones
-// at or past d and the rows at or past n zero, asynchronously, by a block
-// of NTH threads: in 16-byte pieces where d is a multiple of 8 (then every
-// row start is 16-byte aligned), else in 8-byte pieces
-template <int LD, int DP, int NTH = NT>
-__device__ __forceinline__ void load_rows_async(bf16* dst, const bf16* src,
-                                                int stride, int row0, int n,
-                                                int rows, int d) {
-  if (d % 8 == 0) {
-    for (int i = threadIdx.x; i < rows * (DP / 8); i += NTH) {
-      const int r = i / (DP / 8), c = (i - r * (DP / 8)) * 8;
-      const bool ok = row0 + r < n && c < d;
-      cp_async16(dst + r * LD + c,
-                 src + (ok ? (size_t)(row0 + r) * stride + c : 0), ok);
-    }
-  } else {
-    for (int i = threadIdx.x; i < rows * (DP / 4); i += NTH) {
-      const int r = i / (DP / 4), c = (i - r * (DP / 4)) * 4;
-      const bool ok = row0 + r < n && c < d;
-      cp_async8(dst + r * LD + c,
-                src + (ok ? (size_t)(row0 + r) * stride + c : 0), ok);
-    }
   }
 }
 

@@ -38,8 +38,9 @@
 //    * bf16: i2t_bwd_rows_kernel (Wq and Wo in shared memory, a warp pair
 //      per 16-row tile) and i2t_bwd_dw_kernel (decoder_mma.cuh).
 //    * f32: i2t_bwd_rows_tf32_kernel (super-tiles of 64 rows streaming Wq,
-//      Wo, Wo^T and Wq^T) and i2t_bwd_dw_tf32_kernel, in split TF32; rnd()
-//      is the identity, so the scratch rows are f32.
+//      Wo, Wo^T and Wq^T) and i2t_bwd_dw_tf32_kernel (on TF32 wgmma, its
+//      rows landed by TMA), in split TF32; rnd() is the identity, so the
+//      scratch rows are f32.
 //
 // Bound on an H100 SXM (700 W) at the training shapes (64 pairs x 4096
 //    rows): forward 135 kFLOP/row = 35.3 GFLOP, over 989 TFLOP/s (bf16) =
@@ -66,6 +67,11 @@
 //    registers over a lane quad and the warp pair. In f32 the weights
 //    (256 KB) do not fit in shared memory beside the rows; streaming them
 //    per 64-row super-tile reads each weight byte from L2 once for 64 rows.
+//    The f32 weight pass (dWo, dWq: 34 GFLOP at 64 pairs x 4096 rows, 103
+//    with the split, 0.208 ms at split TF32's rate, against 808 MB of
+//    rows read once: 0.241 ms; byte-bound) runs on TF32 wgmma m64n256k8
+//    with TMA loads into a 4-stage mbarrier ring: each row is read from
+//    device memory once, each element split once (see the kernel).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,6 +79,7 @@
 #include <stdint.h>
 
 #include "decoder_tf32.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -1414,72 +1421,193 @@ __global__ void __launch_bounds__(dec32::THREADS, 1)
   }
 }
 
-// The f32 weight pass: block (chunk, kind, half) sums over the chunk's rows
+// The f32 weight pass on wgmma and TMA: block units (chunk, kind) sum over
+// the chunk's rows
 //   kind 0: dWo   [I][C] = rnd(out)^T . rnd(d_res)
 //   kind 1: dWq^T [I][C] = d_qpre^T . (keys[pair / pb] + pe)
-// the C columns 128 half.. of it into part[kind][chunk]; warp w owns rows
-// 32 (w / 2).., columns 64 (w % 2).. of the half
-constexpr int DW32_LD = I + 8;  // rows of 128 floats: X, and half of Y
-static_assert(I == C / 2, "X rows and half a Y row have one width");
-constexpr int DW32_STAGE = dec::DW_SR * 3 * DW32_LD;  // X, Y, pe
-constexpr size_t DW32_SMEM = sizeof(float) * (size_t)dec::DW_STAGES * DW32_STAGE;
+// into part[kind][chunk], as one product of M = I = 128 rows x N = C = 256
+// columns over K = the chunk's rows. Persistent blocks walk the units with
+// a producer warp and two consumer warpgroups, warpgroup w owning output
+// rows 64 w.. x all 256 columns (128 f32 accumulators a thread).
+//   producer: per stage of dw32::KR = 16 rows, the X rows (rnd(out) or
+//     d_qpre, 16 x 128 f32) and the Y rows (rnd(d_res), 16 x 256) by TMA;
+//     for kind 1 the keys rows of each row's image and the pe rows, 1 KB
+//     each, by bulk copies on the same mbarrier; a ring of dw32::STAGES.
+//   consumers: TF32 wgmma reads shared operands K-major only, and K (the
+//     row index) is the slow one in both operands. So Y (kind 1: keys + pe,
+//     added here in f32 as the plain twin adds them) is split once per
+//     element into hi and lo and written transposed, K-major without
+//     swizzle, into one of two B buffers by the 256 consumer threads (a
+//     thread a column, 16-byte stores of 4 rows); X is the register A
+//     operand, each element loaded and split by the one thread whose
+//     fragment holds it. Per k-step of 8 rows, wgmma m64n256k8 three times
+//     (lo.hi, hi.lo, hi.hi) into the one f32 accumulator; the next stage's
+//     transpose runs while the products are in flight. Rows past the chunk
+//     enter as zero A values (a kind-1 row past the last is a copy of the
+//     last row: finite).
+// The partials are summed by the wrapper in a fixed order: no atomics, the
+// same bits every run.
+namespace dw32 {
 
-__global__ void __launch_bounds__(dec::DW_THREADS, 1)
-    i2t_bwd_dw_tf32_kernel(const float* keys, const float* pe,
-                           const float* dqpre, const float* out_rows,
-                           const float* dres_rows, float* part, int m, int pb,
-                           int rows, int chunk) {
-  using attn::mma::cp_async16;
-  extern __shared__ __align__(16) float smem32[];
-  const int kind = blockIdx.y >> 1, half = blockIdx.y & 1;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int lo = blockIdx.x * chunk, hi = min(rows, lo + chunk);
-  const float* xsrc = kind ? dqpre : out_rows;
-  const int cy = (C / 2) * half;  // the half's first column of C
-  float acc[2][8][4];
+constexpr int KR = 16;                     // rows of a stage: two k-steps
+constexpr int STAGES = 4;
+constexpr int CONSUMERS = 256, NTH = CONSUMERS + 32;
+constexpr int X_BYTES = KR * I * 4;        // 8 KB
+constexpr int Y_BYTES = KR * C * 4;        // 16 KB, and as much of pe
+constexpr int STAGE_BYTES = X_BYTES + 2 * Y_BYTES;
+constexpr int KSTEP_BYTES = C * 8 * 4;     // one k-step of Y^T, hi or lo
+constexpr int B_BYTES = 2 * (KR / 8) * KSTEP_BYTES;  // a stage's hi and lo
+constexpr size_t SMEM = 2048 + (size_t)STAGES * STAGE_BYTES + 2 * B_BYTES;
+static_assert(KR == 16, "kind 1: one lane per keys row and per pe row");
+static_assert(SMEM <= 232448, "shared memory of the f32 weight pass");
+
+// rows 0..15 of a stage's Y (plus pe for kind 1) -> its B buffer: split
+// into TF32 hi and lo, K-major without swizzle (core matrices of 8 columns
+// x 4 rows, 128 bytes; LBO 128 between the two row halves of a k-step, SBO
+// 256 between 8-column groups), hi then lo per k-step. Thread c of the 256
+// consumers takes column c.
+__device__ __forceinline__ void transpose_split(const unsigned char* stage,
+                                               unsigned char* bbuf, int kind,
+                                               int c) {
+  const float* y = reinterpret_cast<const float*>(stage + X_BYTES);
+  const float* e = y + KR * C;
 #pragma unroll
-  for (int a = 0; a < 2; ++a) dec32::zero<8>(acc[a]);
+  for (int q = 0; q < KR / 4; ++q) {
+    uint32_t h[4], l[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int r = 4 * q + k;
+      stf32::split(kind ? y[r * C + c] + e[r * C + c] : y[r * C + c], h[k],
+                   l[k]);
+    }
+    unsigned char* dst = bbuf + (q >> 1) * 2 * KSTEP_BYTES + (c >> 3) * 256 +
+                         (q & 1) * 128 + (c & 7) * 16;
+    *reinterpret_cast<uint4*>(dst) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(dst + KSTEP_BYTES) =
+        make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
 
-  auto load = [&](int st, int r0) {
-    float* xs = smem32 + st * DW32_STAGE;
-    float* ys = xs + dec::DW_SR * DW32_LD;
-    float* es = ys + dec::DW_SR * DW32_LD;
-    for (int i = threadIdx.x; i < dec::DW_SR * (I / 4); i += dec::DW_THREADS) {
-      const int r = i / (I / 4), c = (i % (I / 4)) * 4;
-      const int row = r0 + r;
-      const bool ok = row < hi;
-      cp_async16(xs + r * DW32_LD + c, xsrc + (ok ? (size_t)row * I + c : 0), ok);
-      if (kind == 0) {
-        cp_async16(ys + r * DW32_LD + c,
-                   dres_rows + (ok ? (size_t)row * C + cy + c : 0), ok);
-      } else {
-        const int pair = ok ? row / m : 0, rr = ok ? row - pair * m : 0;
-        cp_async16(ys + r * DW32_LD + c,
-                   keys + ((size_t)(pair / pb) * m + rr) * C + cy + c, ok);
-        cp_async16(es + r * DW32_LD + c, pe + (size_t)rr * C + cy + c, ok);
+}  // namespace dw32
+
+__global__ void __launch_bounds__(dw32::NTH, 1)
+    i2t_bwd_dw_tf32_kernel(const __grid_constant__ CUtensorMap tm_out,
+                           const __grid_constant__ CUtensorMap tm_dqpre,
+                           const __grid_constant__ CUtensorMap tm_dres,
+                           const float* keys, const float* pe, float* part,
+                           int m, int pb, int rows, int chunk, int nchunks) {
+  using namespace hop;
+  using namespace dw32;
+  extern __shared__ __align__(16) unsigned char smem_tma[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_tma) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(base);
+  uint64_t* empty = full + STAGES;
+  unsigned char* stages = base + 1024;
+  unsigned char* bbufs = stages + STAGES * STAGE_BYTES;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, CONSUMERS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int units = 2 * nchunks;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (warp == CONSUMERS / 32) {  // --------------------------- producer ----
+    int it = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const int kind = u & 1, lo = (u >> 1) * chunk;
+      const int hi = min(rows, lo + chunk);
+      for (int r0 = lo; r0 < hi; r0 += KR, ++it) {
+        const int st = it % STAGES;
+        unsigned char* x = stages + st * STAGE_BYTES;
+        mbar_wait(empty + st, ((it / STAGES) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(full + st, X_BYTES + (kind ? 2 : 1) * Y_BYTES);
+          tma_load_2d(x, kind ? &tm_dqpre : &tm_out, full + st, 0, r0);
+          if (kind == 0) tma_load_2d(x + X_BYTES, &tm_dres, full + st, 0, r0);
+        }
+        __syncwarp();
+        if (kind) {  // lane i: keys row r0 + i; lane 16 + i: its pe row
+          const int i = lane & (KR - 1);
+          const int row = min(r0 + i, rows - 1), pair = row / m;
+          const int rr = row - pair * m;
+          if (lane < KR)
+            bulk_load(x + X_BYTES + i * C * 4,
+                      keys + ((size_t)(pair / pb) * m + rr) * C, C * 4,
+                      full + st);
+          else
+            bulk_load(x + X_BYTES + Y_BYTES + i * C * 4, pe + (size_t)rr * C,
+                      C * 4, full + st);
+        }
       }
     }
-  };
-  auto prep = [&](int st) {  // kind 1: keys -> keys + pe in place
-    if (kind == 0) return false;
-    float* ys = smem32 + st * DW32_STAGE + dec::DW_SR * DW32_LD;
-    const float* es = ys + dec::DW_SR * DW32_LD;
-    for (int i = threadIdx.x; i < dec::DW_SR * I; i += dec::DW_THREADS) {
-      const int r = i / I, c = i % I;
-      ys[r * DW32_LD + c] += es[r * DW32_LD + c];
+    return;
+  }
+
+  // --------------------------------------------------------- consumers ----
+  const int ct = threadIdx.x, wgi = ct >> 7;
+  const int g = lane >> 2, t = lane & 3;
+  const int i0 = 64 * wgi + 16 * (warp & 3) + g;  // output rows i0, i0 + 8
+  float acc[128];
+  int it = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int kind = u & 1, chunk_i = u >> 1, lo = chunk_i * chunk;
+    const int hi = min(rows, lo + chunk), nst = (hi - lo + KR - 1) / KR;
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    mbar_wait(full + it % STAGES, (it / STAGES) & 1);
+    transpose_split(stages + (it % STAGES) * STAGE_BYTES, bbufs, kind, ct);
+    fence_proxy_async();
+    named_sync(1, CONSUMERS);
+    for (int s = 0; s < nst; ++s, ++it) {
+      const int st = it % STAGES;
+      const float* x =
+          reinterpret_cast<const float*>(stages + st * STAGE_BYTES);
+      uint32_t ah[KR / 8][4], al[KR / 8][4];  // split A fragments of X^T
+#pragma unroll
+      for (int kk = 0; kk < KR / 8; ++kk)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int r = 8 * kk + t + 4 * (q >> 1), col = i0 + 8 * (q & 1);
+          const float v = lo + s * KR + r < hi ? x[r * I + col] : 0.f;
+          stf32::split(v, ah[kk][q], al[kk][q]);
+        }
+      mbar_arrive(empty + st);  // X in registers, Y already transposed
+      const unsigned char* b = bbufs + (s & 1) * B_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KR / 8; ++kk) {
+        const uint64_t bh = desc(b + 2 * kk * KSTEP_BYTES, 128, 256,
+                                 LAYOUT_NONE);
+        const uint64_t bl = desc(b + (2 * kk + 1) * KSTEP_BYTES, 128, 256,
+                                 LAYOUT_NONE);
+        mma_tf32_rs<256>(acc, al[kk], bh, 1);  // the small terms first
+        mma_tf32_rs<256>(acc, ah[kk], bl, 1);
+        mma_tf32_rs<256>(acc, ah[kk], bh, 1);
+      }
+      wgmma_commit();
+      if (s + 1 < nst) {  // the next stage's B while these run
+        const int nx = it + 1;
+        mbar_wait(full + nx % STAGES, (nx / STAGES) & 1);
+        transpose_split(stages + (nx % STAGES) * STAGE_BYTES,
+                        bbufs + ((s + 1) & 1) * B_BYTES, kind, ct);
+        fence_proxy_async();
+      }
+      wgmma_wait<0>();
+      named_sync(1, CONSUMERS);  // B written, both buffers' products done
     }
-    return true;
-  };
-  const int a0 = 32 * (warp / 2), b0 = 64 * (warp % 2);
-  auto mma = [&](int st) {
-    const float* xs = smem32 + st * DW32_STAGE;
-    dec32::dw_stage_tf32<DW32_LD, DW32_LD>(acc, xs, a0, xs + dec::DW_SR * DW32_LD,
-                                           b0, lane);
-  };
-  dec::dw_ring(lo, hi, load, prep, mma);
-  dec32::dw_store32(part + ((size_t)kind * gridDim.x + blockIdx.x) * I * C +
-                        (size_t)a0 * C + cy + b0,
-                    C, acc, lane);
+    float* out = part + ((size_t)(kind * nchunks + chunk_i) * I + i0) * C;
+#pragma unroll
+    for (int j = 0; j < C / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        dec32::st2(out + (size_t)(8 * h) * C + 8 * j + 2 * t,
+                   acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  }
 }
 
 int launch_fwd_tf32(const void* keys, const void* pe, const void* tok_k,
@@ -1522,21 +1650,31 @@ int launch_bwd_rows_tf32(void* const* a, int bp, int m, int pb, int n_tok,
 }
 
 int launch_bwd_dw_tf32(void* const* a, int bp, int m, int pb, int chunk,
-                       int nchunks, cudaStream_t stream) {
+                       int nchunks, int blocks, cudaStream_t stream) {
   const int rows = bp * m;
-  if (pb < 1 || bp % pb || chunk < 1 || chunk % dec::DW_SR || nchunks < 1 ||
-      (nchunks - 1) * chunk >= rows || nchunks * chunk < rows)
+  if (pb < 1 || bp % pb || chunk < 1 || chunk % dw32::KR || nchunks < 1 ||
+      (nchunks - 1) * chunk >= rows || nchunks * chunk < rows || blocks < 1)
     return (int)cudaErrorInvalidValue;
+  // row-major (rows, width) f32, boxes of DW32_KR rows
+  CUtensorMap maps[3];
+  const int widths[3] = {I, I, C};
+  const void* srcs[3] = {a[3], a[2], a[4]};  // rnd(out), d_qpre, rnd(d_res)
+  for (int i = 0; i < 3; ++i) {
+    const cuuint64_t dims[2] = {(cuuint64_t)widths[i], (cuuint64_t)rows};
+    const cuuint64_t strides[1] = {4ull * widths[i]};
+    const cuuint32_t box[2] = {(cuuint32_t)widths[i], (cuuint32_t)dw32::KR};
+    if (!hop::tensor_map(maps + i, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, srcs[i],
+                         dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE))
+      return (int)cudaErrorInvalidValue;
+  }
   cudaError_t e = cudaFuncSetAttribute(
       i2t_bwd_dw_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)DW32_SMEM);
+      (int)dw32::SMEM);
   if (e != cudaSuccess) return (int)e;
-  i2t_bwd_dw_tf32_kernel<<<dim3(nchunks, 4), dec::DW_THREADS, DW32_SMEM,
-                           stream>>>(
-      static_cast<const float*>(a[0]), static_cast<const float*>(a[1]),
-      static_cast<const float*>(a[2]), static_cast<const float*>(a[3]),
-      static_cast<const float*>(a[4]), static_cast<float*>(a[5]), m, pb,
-      rows, chunk);
+  i2t_bwd_dw_tf32_kernel<<<blocks, dw32::NTH, dw32::SMEM, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<const float*>(a[0]),
+      static_cast<const float*>(a[1]), static_cast<float*>(a[5]), m, pb,
+      rows, chunk, nchunks);
   return (int)cudaGetLastError();
 }
 
@@ -1578,12 +1716,14 @@ int dhoct_i2t_bwd_rows(void* const* a, int bp, int m, int pb, int n_tok,
 
 // The weight pass (bf16 i2t_bwd_dw_kernel, f32 i2t_bwd_dw_tf32_kernel).
 // a[6]: keys, pe, d_qpre, rnd(out), rnd(d_res), and the partials
-// [2][nchunks][I][C] (dWo, dWq^T) of row chunks of `chunk` rows.
+// [2][nchunks][I][C] (dWo, dWq^T) of row chunks of `chunk` rows; f32 runs
+// on `blocks` persistent blocks (bf16: one per chunk and weight).
 int dhoct_i2t_bwd_dw(void* const* a, int bp, int m, int pb, int chunk,
-                     int nchunks, int dtype, void* stream) {
+                     int nchunks, int blocks, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 1 ? launch_bwd_dw(a, bp, m, pb, chunk, nchunks, s)
-                    : launch_bwd_dw_tf32(a, bp, m, pb, chunk, nchunks, s);
+  return dtype == 1
+             ? launch_bwd_dw(a, bp, m, pb, chunk, nchunks, s)
+             : launch_bwd_dw_tf32(a, bp, m, pb, chunk, nchunks, blocks, s);
 }
 
 const char* dhoct_i2t_error_string(int code) {

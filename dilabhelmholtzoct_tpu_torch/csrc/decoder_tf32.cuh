@@ -1,6 +1,6 @@
 // Split-TF32 building blocks of the f32 decoder kernels on the tensor cores:
 // the image->token attention K4 (decoder_attn.cu, i2t_fwd_tf32_kernel,
-// i2t_bwd_rows_tf32_kernel, i2t_bwd_dw_tf32_kernel) and the upscaler K3
+// i2t_bwd_rows_tf32_kernel) and the upscaler K3
 // (upscaler.cu, upscale_fwd_tf32_kernel, upscale_bwd_rows_tf32_kernel,
 // upscale_bwd_dw_tf32_kernel).
 //
@@ -17,10 +17,11 @@
 // A fragment, row g col t, hits bank 4g + t). Stages hold rows of N + 8
 // floats (8 mod 32: a B fragment, row t col g, hits bank 8t + g).
 //
-// The weight passes (dw_stage_tf32) are the bf16 ones' split-K products
+// K3's f32 weight pass (dw_stage_tf32) is the bf16 one's split-K product
 // over row chunks (decoder_mma.cuh: dw_ring), each warp a 32 x 64 tile of
 // one 128 x 128 output block (64 f32 accumulators), A = X^T read from the
-// row-major chunk (bank 8t + g at rows of 128 + 8 floats).
+// row-major chunk (bank 8t + g at rows of 128 + 8 floats). (K4's f32
+// weight pass runs on wgmma: decoder_attn.cu, i2t_bwd_dw_tf32_kernel.)
 
 #pragma once
 

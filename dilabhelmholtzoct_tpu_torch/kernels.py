@@ -10,6 +10,7 @@ use, never at import: the host that runs the CPU tests has no ``nvcc``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -26,6 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 # host library) are hashed into every library
 SOURCES = {"attention": "attention.cu", "attention_bwd": "attention_bwd.cu",
            "attention_relpos": "attention_relpos.cu",
+           "attention_relpos_wgmma": "attention_relpos_wgmma.cu",
            "attention_winimg": "attention_winimg.cu",
            "upscaler": "upscaler.cu", "decoder_attn": "decoder_attn.cu",
            "topology": "topology.cu"}
@@ -138,6 +140,15 @@ def pointers(tensors):
 
 def sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def on_device(device):
+    """A context that makes ``device`` the current CUDA device for a launch,
+    or nothing where it is current already (the usual case: one process
+    per card), which spares a launch's host path the device switch."""
+    if torch.cuda.current_device() == device.index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def raise_on_error(err: int, error_string, name: str) -> None:

@@ -22,10 +22,12 @@ launches hand-written kernels:
     (``csrc/attention_bwd.cu``) for the backward of either, replacing the
     TPU ``_flash_packed_bwd`` (``_packed_bwd_dq_kernel``,
     ``_packed_bwd_dkv_kernel``);
-  * K6 ``attn_relpos_tf32_kernel`` / ``attn_relpos_mma_kernel``
-    (``csrc/attention_relpos.cu``) for every layer
-    of a model off the packed route (ViT-H: 16 heads of 80), replacing the
-    TPU ``_flash_kernel``. Forward only, as there.
+  * K6 ``attn_relpos_tf32_kernel`` (f32, ``csrc/attention_relpos.cu``) /
+    ``attn_relpos_wgmma_kernel`` (bf16, on wgmma and TMA,
+    ``csrc/attention_relpos_wgmma.cu``, launched on the plan of
+    ``relpos_plan``) for every layer of a model off the packed route
+    (ViT-H: 16 heads of 80), replacing the TPU ``_flash_kernel``. Forward
+    only, as there.
 
 ``flash_attention_windowed_image`` is the port of the JAX function of that
 name, the windowed layers' attention read from the image-layout qkv
@@ -48,6 +50,8 @@ show that its path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -62,7 +66,86 @@ HEAD_DIM = 64            # K1 / K2 / K5 / K7
 RELPOS_MAX_HEAD_DIM = 128  # K6 takes every multiple of 4 up to this
 
 _BOUND = {"attention": False, "attention_bwd": False,
-          "attention_relpos": False, "attention_winimg": False}
+          "attention_relpos": False, "attention_relpos_wgmma": False,
+          "attention_winimg": False}
+SMEM_MAX = 232448  # shared memory a block may use on an H100
+RELPOS_SMEM_FIXED = 1024 + 128  # wg::SMEM_FIXED: alignment slack, mbarriers
+
+
+@dataclasses.dataclass(frozen=True)
+class RelposPlan:
+    """The launch plan of the bf16 K6 (``attn_relpos_wgmma_kernel``):
+    ``route`` "windowed" (N <= WINDOW_MAX_TOKENS) or "global", the head dim
+    rounded up to 16 columns (``dp``), the key tile (``nk``: 224 a whole
+    window of at most 14 x 16 grid cells, or 112 its first or last 7 grid
+    rows past dp = 80; 128 two grid rows of 64; else 64), the tiles per
+    unit of 128 query rows, the depths of the K / V ring
+    and of the unit (Q and bias rows) ring, and the shared memory of a
+    block in bytes."""
+    route: str
+    dp: int
+    nk: int
+    tiles: int
+    kv_stages: int
+    u_stages: int
+    smem: int
+
+
+def _relpos_slabs(dp):
+    """The column slabs of a bf16 K6 head of ``dp`` columns: 64-column ones
+    (128-byte swizzle), then a 32- and a 16-column one where dp % 64 holds
+    them (``wg::slab_width``)."""
+    return [64] * (dp // 64) + [w for w in (32, 16) if dp & w]
+
+
+def _relpos_stage_bytes(dp, nk, h, w):
+    """(unit stage, K / V stage) bytes: ``wg::Layout`` of
+    csrc/attention_relpos_wgmma.cu (a unit stage's Q slabs of 128 rows and
+    its bias rows; K and V of NK key slots)."""
+    up = lambda x, m: -(-x // m) * m
+    tile = lambda rows: sum(up(rows * sw * 2, 1024) for sw in _relpos_slabs(dp))
+    rel = up(2 * (128 * h + 16), 16) + up(2 * (128 * w + 16), 16)
+    return tile(128) + rel, 2 * tile(nk)
+
+
+@functools.lru_cache(maxsize=None)
+def relpos_plan(d: int, n: int, hw) -> RelposPlan:
+    """The bf16 K6's plan for head dim ``d`` over an ``hw`` grid of ``n``
+    tokens: the deepest rings that fit in a block's shared memory. A unit
+    of one tile (a window) takes two unit and two K / V stages where they
+    fit (the next unit loads while this one computes); a unit of several
+    tiles up to four K / V stages, three at least where they fit, two at
+    the least (it issues a tile's S before it releases the tile before).
+    Raises where none fits."""
+    if d < 4 or d % 4 or d > RELPOS_MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"K6 (attn_relpos) takes a head_dim that is a multiple of 4 up "
+            f"to {RELPOS_MAX_HEAD_DIM}, got {d}")
+    dp = -(-d // 16) * 16
+    h, w = hw
+    if h <= 14 and w <= 16:  # a window: 14 grid rows a tile, 7 past DP 80
+        rows = 14 if dp <= 80 else 7
+        nk, tiles = 16 * rows, -(-h // rows)
+    elif w == 64 and h % 2 == 0:
+        nk, tiles = 128, n // 128
+    else:
+        nk, tiles = 64, -(-n // 64)
+    unit, kv = _relpos_stage_bytes(dp, nk, h, w)
+    # a unit of one tile double-buffers units; a unit of several tiles
+    # issues a tile's S before it releases the tile before, so it wants
+    # three K / V stages (two at least) to keep a load in flight
+    depths = (((2, 2), (2, 1), (1, 1)) if tiles == 1 else
+              ((2, 4), (2, 3), (1, 4), (1, 3), (2, 2), (1, 2)))
+    for u_stages, kv_stages in depths:
+        smem = RELPOS_SMEM_FIXED + u_stages * unit + kv_stages * kv
+        if smem <= SMEM_MAX:
+            return RelposPlan(
+                "windowed" if n <= WINDOW_MAX_TOKENS else "global", dp, nk,
+                tiles, kv_stages, u_stages, smem)
+    raise NotImplementedError(
+        f"K6 bf16: no plan fits in shared memory for head_dim {d} over a "
+        f"{hw} grid (one stage takes {RELPOS_SMEM_FIXED + unit + kv} "
+        "bytes)")
 
 
 def reset_launch_counts() -> None:
@@ -301,7 +384,9 @@ def _bind(name):
             fns = [(lib.dhoct_attn_global, [p] * 5 + [i] * 6 + [p]),
                    (lib.dhoct_attn_windowed, [p] * 5 + [i] * 6 + [p])]
         elif name == "attention_relpos":
-            fns = [(lib.dhoct_attn_relpos, [p] * 4 + [i] * 7 + [p])]
+            fns = [(lib.dhoct_attn_relpos, [p] * 4 + [i] * 6 + [p])]
+        elif name == "attention_relpos_wgmma":
+            fns = [(lib.dhoct_attn_relpos_bf16, [p] * 4 + [i] * 11 + [p])]
         elif name == "attention_winimg":
             fns = [(lib.dhoct_attn_windowed_image, [p] * 4 + [i] * 6 + [p])]
         else:
@@ -361,7 +446,13 @@ def attention_fwd_cuda(qkv, rel_h, rel_w, *, hw, num_heads: int,
 
 
 def attention_relpos_cuda(qkv, rel_h, rel_w, *, hw, num_heads: int):
-    """Launch K6; same contract as ``relpos_attention_plain``."""
+    """Launch K6 (f32 ``attn_relpos_tf32_kernel``, bf16
+    ``attn_relpos_wgmma_kernel`` on the plan of ``relpos_plan``, one
+    persistent block per SM at most); same contract as
+    ``relpos_attention_plain``. The bf16 kernel reads each head in slabs of
+    16 columns: where the head dim is no multiple of 16, qkv is first
+    copied with each head padded to ``dp`` columns of zeros, for the same
+    kernel (no ViT's head: 64 and 80 are multiples)."""
     _check(qkv, rel_h, rel_w, hw, num_heads)
     b, n, c3 = qkv.shape
     d = c3 // 3 // num_heads
@@ -371,14 +462,27 @@ def attention_relpos_cuda(qkv, rel_h, rel_w, *, hw, num_heads: int):
             f"to {RELPOS_MAX_HEAD_DIM}, got {d}")
     kernels.check_operands("attn_relpos", (qkv, rel_h, rel_w),
                            (qkv.dtype,) * 3)
-    lib = _bind("attention_relpos")
     out = torch.empty((b, n, c3 // 3), dtype=qkv.dtype, device=qkv.device)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    with torch.cuda.device(qkv.device):
-        err = lib.dhoct_attn_relpos(
-            qkv.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
-            out.data_ptr(), b, n, num_heads, d, hw[0], hw[1],
-            kernels.DTYPE_CODE[qkv.dtype], stream)
+    with kernels.on_device(qkv.device):
+        if qkv.dtype == torch.float32:
+            lib = _bind("attention_relpos")
+            err = lib.dhoct_attn_relpos(
+                qkv.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
+                out.data_ptr(), b, n, num_heads, d, hw[0], hw[1], stream)
+        else:
+            plan = relpos_plan(d, n, tuple(hw))
+            src = qkv if d == plan.dp else torch.nn.functional.pad(
+                qkv.view(b, n, 3 * num_heads, d), (0, plan.dp - d)).view(
+                    b, n, 3 * num_heads * plan.dp)
+            units = b * num_heads * -(-n // 128)
+            lib = _bind("attention_relpos_wgmma")
+            err = lib.dhoct_attn_relpos_bf16(
+                src.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
+                out.data_ptr(), b, n, num_heads, d, hw[0], hw[1],
+                src.shape[2] // (3 * num_heads), plan.nk, plan.kv_stages,
+                plan.u_stages, min(units, kernels.sm_count(qkv.device)),
+                stream)
     kernels.raise_on_error(err, lib.dhoct_error_string, "attn_relpos")
     LAUNCHES["attn_relpos"] += 1
     return out

@@ -24,7 +24,8 @@ kernels of ``csrc/decoder_attn.cu``:
     It is two launches on the tensor cores, in bf16 and in f32 (split
     TF32): ``i2t_bwd_rows`` (the row pass; it also writes rnd(out) and
     rnd(d_res) per row as scratch in the input dtype) and ``i2t_bwd_dw``
-    (the weight pass: dWo and dWq as split-K products over row chunks).
+    (the weight pass: dWo and dWq as split-K products over row chunks,
+    ``dw_plan``; in f32 on Hopper's TF32 wgmma with TMA loads).
 
 The JAX package routes here only in bf16 unless ``set_fused_i2t('on')``
 forces it (``models/sam.py``); the f32 kernels serve that route.
@@ -60,7 +61,8 @@ INTERNAL = 128
 HEADS = 8
 ROW_SLOTS = 4      # 16-row tiles in flight per block, a warp pair each
 F32_ROWS = 64      # rows of an f32 super-tile (dec32::ROWS)
-DW_ROWS = 32       # rows per stage of the weight pass (dec::DW_SR)
+DW_ROWS = 32       # rows per stage of the bf16 weight pass (dec::DW_SR)
+DW32_ROWS = 16     # rows per stage of the f32 weight pass (dw32::KR)
 
 _BOUND = False
 
@@ -169,22 +171,40 @@ def i2t_bwd_rows_plain(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, dy, *,
     return tuple(x.to(keys.dtype) for x in rows) + sums
 
 
+def dw_plan(rows: int, dtype, sm_count: int):
+    """The weight pass's launch plan over ``rows`` rows: its row chunks (one
+    partial sum each, added up in this order; about sm_count / 2 of them,
+    each a multiple of the stage's rows but the last), the nominal chunk
+    (a lone chunk may be shorter: fewer rows than a stage in all) and the
+    blocks: bf16 one per (chunk, weight); f32 (``dw32::KR`` = 16-row
+    stages) persistent blocks over the (chunk, weight) units, one per SM at
+    most."""
+    align = DW32_ROWS if dtype == torch.float32 else DW_ROWS
+    chunks = kernels.row_chunks(rows, max(1, sm_count // 2), align)
+    size = -(-chunks[0][1] // align) * align
+    units = 2 * len(chunks)
+    return chunks, size, units if dtype == torch.bfloat16 else min(
+        units, sm_count)
+
+
 def i2t_bwd_dw_plain(keys, pe, dqpre, out_rows, dres_rows, *, pb: int,
                      parts: int = 1):
     """Plain PyTorch twin of the weight pass ``i2t_bwd_dw``: dWq (C, I) =
     sum_r rnd(keys[pair / pb] + pe)^T rnd(d_qpre) and dWo (I, C) = sum_r
     rnd(out)^T rnd(d_res) in f32, summed over ``parts`` row chunks in the
-    kernel's order (``kernels.row_chunks``)."""
+    kernel's order (``dw_plan``: chunks aligned to the stage of the input
+    dtype's kernel)."""
     bp, m, internal = dqpre.shape
     c = keys.shape[-1]
     qin = (keys + pe).float()
     if pb > 1:
         qin = qin.repeat_interleave(pb, 0)
     n = bp * m
+    align = DW32_ROWS if dqpre.dtype == torch.float32 else DW_ROWS
     a = (dqpre.float().reshape(n, internal), out_rows.float().reshape(n, -1))
     b = (qin.reshape(n, c), dres_rows.float().reshape(n, c))
     dwqt, dwo = (sum(x[lo:hi].T @ y[lo:hi]
-                     for lo, hi in kernels.row_chunks(n, parts, DW_ROWS))
+                     for lo, hi in kernels.row_chunks(n, parts, align))
                  for x, y in zip(a, b))
     return dwqt.T, dwo
 
@@ -212,7 +232,7 @@ def _bind():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.dhoct_i2t_fwd.argtypes = [p] * 11 + [i] * 6 + [ctypes.c_float, p]
         lib.dhoct_i2t_bwd_rows.argtypes = [p] + [i] * 6 + [ctypes.c_float, p]
-        lib.dhoct_i2t_bwd_dw.argtypes = [p] + [i] * 6 + [p]
+        lib.dhoct_i2t_bwd_dw.argtypes = [p] + [i] * 7 + [p]
         for fn in (lib.dhoct_i2t_fwd, lib.dhoct_i2t_bwd_rows,
                    lib.dhoct_i2t_bwd_dw):
             fn.restype = ctypes.c_int
@@ -324,10 +344,11 @@ def i2t_bwd_rows_cuda(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, dy, *,
 
 
 def i2t_bwd_dw_cuda(keys, pe, dqpre, out_rows, dres_rows, *, pb: int):
-    """Launch the weight pass ``i2t_bwd_dw`` (csrc/decoder_attn.cu): one
-    block per (row chunk, weight) in bf16, per (row chunk, weight, half of
-    C) in f32, about one per SM; same contract as ``i2t_bwd_dw_plain``. The
-    per-chunk partials are summed here in a fixed order."""
+    """Launch the weight pass ``i2t_bwd_dw`` (csrc/decoder_attn.cu) on the
+    plan of ``dw_plan``: bf16 ``i2t_bwd_dw_kernel``, f32
+    ``i2t_bwd_dw_tf32_kernel`` (wgmma and TMA); same contract as
+    ``i2t_bwd_dw_plain``. The per-chunk partials are summed here in a fixed
+    order."""
     bp, m, internal = dqpre.shape
     c = keys.shape[-1]
     dt = keys.dtype
@@ -343,16 +364,11 @@ def i2t_bwd_dw_cuda(keys, pe, dqpre, out_rows, dres_rows, *, pb: int):
     lib = _bind()
     dev = keys.device
     with torch.cuda.device(dev):
-        per_chunk = 2 if dt == torch.bfloat16 else 4  # blocks of a chunk
-        chunks = kernels.row_chunks(
-            bp * m, max(1, kernels.sm_count(dev) // per_chunk), DW_ROWS)
+        chunks, size, blocks = dw_plan(bp * m, dt, kernels.sm_count(dev))
         part = torch.empty((2, len(chunks), internal, c), dtype=torch.float32,
                            device=dev)
-        # the nominal chunk, a multiple of DW_ROWS (a lone chunk may be
-        # shorter: fewer than DW_ROWS rows in all)
-        size = -(-chunks[0][1] // DW_ROWS) * DW_ROWS
         err = lib.dhoct_i2t_bwd_dw(kernels.pointers(args + (part,)), bp, m, pb,
-                                   size, len(chunks),
+                                   size, len(chunks), blocks,
                                    kernels.DTYPE_CODE[dt],
                                    torch.cuda.current_stream(dev).cuda_stream)
     kernels.raise_on_error(err, lib.dhoct_i2t_error_string, "i2t_bwd_dw")

@@ -293,6 +293,63 @@ def test_relpos_mma_kernel_head_dims_on_card(cuda_device, d, b, nh, hw):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 20, 48, 80, 128])
+@pytest.mark.parametrize("b,nh,hw", [(8, 2, (4, 4)),      # 8 windows of 16
+                                     (25, 2, (14, 14)),   # 25 windows of 196
+                                     (1, 2, (64, 64))])   # N = 4096
+def test_relpos_wgmma_kernel_on_card(cuda_device, d, b, nh, hw):
+    """The bf16 K6 on wgmma and TMA (``attn_relpos_wgmma_kernel``) on each
+    of its key tiles -- a whole window of 224 slots (two of 7 grid rows past
+    dp = 80), two grid rows of 64 -- at head dims that take one slab (16),
+    padded heads (20 -> 32, the wrapper's zero columns), 48 = 32 + 16,
+    ViT-H's 80 = 64 + 16 and 128 = 64 + 64, against
+    ``relpos_attention_plain``, one launch, and twice with identical
+    bits."""
+    n = hw[0] * hw[1]
+    plan = port_attn.relpos_plan(d, n, hw)
+    assert plan.nk == ((224 if plan.dp <= 80 else 112) if n <= 256 else 128)
+    args = _relpos_inputs(cuda_device, torch.bfloat16, b, nh, d, hw, seed=3)
+    before = port_attn.LAUNCHES["attn_relpos"]
+    got = port_attn.attention_relpos_cuda(*args, hw=hw, num_heads=nh)
+    torch.cuda.synchronize()
+    assert port_attn.LAUNCHES["attn_relpos"] == before + 1
+    assert bool(torch.isfinite(got.float()).all())
+    assert_forward_close(got, port_attn.relpos_attention_plain(
+        *args, hw=hw, num_heads=nh))
+    assert torch.equal(got, port_attn.attention_relpos_cuda(
+        *args, hw=hw, num_heads=nh))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bp,m,pb", [(8, 37, 1),    # 296 rows
+                                     (8, 43, 8),    # 344 rows, one image
+                                     (3, 5, 1),     # 15 rows: one stage
+                                     (16, 521, 8)])  # 8336 rows, 66 chunks
+def test_i2t_dw_tf32_wgmma_on_card(cuda_device, bp, m, pb):
+    """The f32 K4 weight pass on wgmma and TMA (``i2t_bwd_dw_tf32_kernel``)
+    against ``i2t_bwd_dw_plain`` (1e-4 of max |plain|), on row counts that
+    are no multiple of its 16-row stage and with pb = 1 and 8, one launch,
+    and the same bits on a second call."""
+    from dilabhelmholtzoct_tpu_torch.device import full_fp32
+    from dilabhelmholtzoct_tpu_torch.ops import decoder_attn as i2t
+
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    r = lambda *s: torch.randn(s, generator=gen, device=cuda_device)
+    args = (r(bp // pb, m, 256), r(1, m, 256), r(bp, m, 128), r(bp, m, 128),
+            r(bp, m, 256))
+    with full_fp32():
+        before = i2t.LAUNCHES["i2t_bwd_dw"]
+        got = i2t.i2t_bwd_dw_cuda(*args, pb=pb)
+        torch.cuda.synchronize()
+        assert i2t.LAUNCHES["i2t_bwd_dw"] == before + 1
+        for name, a, w in zip(("dWq", "dWo"), got,
+                              i2t.i2t_bwd_dw_plain(*args, pb=pb)):
+            assert a.shape == w.shape and a.dtype == w.dtype, name
+            _rel_close(a, w, K34_TOL[torch.float32], name)
+        assert _same_bits(got, i2t.i2t_bwd_dw_cuda(*args, pb=pb))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("b,nh,hw", [(25, 12, (14, 14)),  # ViT-B windows
                                      (6, 2, (3, 3)),      # 9 keys of 16
                                      (5, 3, (4, 4)),      # one m16 tile
@@ -393,8 +450,9 @@ TF32_KERNELS = {"attention": ("attn_global_tf32_kernel",
 @pytest.mark.parametrize("lib", sorted(TF32_KERNELS))
 def test_f32_kernels_on_tf32_tensor_cores(cuda_device, lib):
     """The f32 K1, K2, K3, K4, K5, K6 and K7 kernels hold TF32 tensor-core
-    instructions (HMMA.1688.F32.TF32) in their SASS and use no local memory
-    (no spills, no stack), from ``cuobjdump`` on the built library."""
+    instructions (HMMA.1688.F32.TF32 from mma.sync; HGMMA on TF32 in the K4
+    weight pass on wgmma) in their SASS and use no local memory (no spills,
+    no stack), from ``cuobjdump`` on the built library."""
     import subprocess
 
     from dilabhelmholtzoct_tpu_torch import kernels
@@ -411,7 +469,7 @@ def test_f32_kernels_on_tf32_tensor_cores(cuda_device, lib):
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
             tf32[fn] = 0
-        elif fn and "HMMA" in line and "TF32" in line:
+        elif fn and "MMA" in line and "TF32" in line:  # HMMA or HGMMA
             tf32[fn] += 1
     lines = usage.splitlines()
     for name in TF32_KERNELS[lib]:

@@ -421,7 +421,7 @@ def test_split_tf32_k3_chain_error(n_out):
 
 
 def emulated_dw(x, y, parts, mm):
-    """A weight pass's split-K sum x^T . y over rows: the row chunks of
+    """K3's weight pass's split-K sum x^T . y over rows: the row chunks of
     ``kernels.row_chunks``, each summed stage by stage (32 rows into fresh
     accumulators, added in f32, as ``dw_stage_tf32``), the chunks' partials
     added in order."""
@@ -435,13 +435,42 @@ def emulated_dw(x, y, parts, mm):
     return total
 
 
+def chain_split(acc, a, b):
+    """acc + a . b as the f32 K4 weight pass adds one TF32 k-step into its
+    accumulator: lo.hi, then hi.lo, then hi.hi, each added in f32."""
+    ah, al = split(a)
+    bh, bl = split(b)
+    return ((acc + al @ bh) + ah @ bl) + ah @ bh
+
+
+def chain_single(acc, a, b):
+    return acc + tf32_rna(a) @ tf32_rna(b)
+
+
+def emulated_dw_chain(x, y, parts, chain):
+    """The f32 K4 weight pass's split-K sum x^T . y over rows: the row
+    chunks of ``kernels.row_chunks`` aligned to its stage
+    (``DW32_ROWS``), each chunk one accumulator chain of 8-row k-steps
+    (``chain``), the chunks' partials added in order."""
+    total = 0.0
+    for lo, hi in kernels.row_chunks(x.shape[0], parts,
+                                     port_i2t.DW32_ROWS):
+        acc = torch.zeros(x.shape[1], y.shape[1])
+        for s in range(lo, hi, 8):
+            acc = chain(acc, x[s:min(hi, s + 8)].T, y[s:min(hi, s + 8)])
+        total = total + acc
+    return total
+
+
 @pytest.mark.parametrize("op,parts", [("k4", 1), ("k4", 3), ("k3", 1),
                                       ("k3", 3)])
 def test_split_tf32_weight_pass_error(op, parts):
-    """The weight passes (K4: dWq, dWo; K3: dW1, dW2) as split-K sums over
-    the kernels' row chunks in split TF32, on the row pass's own scratch
-    rows, against ``i2t_bwd_dw_plain`` / ``upscale_bwd_dw_plain`` (one
-    product over all rows): 2 x 37 and 3 x 37 rows, in 1 or 3 chunks."""
+    """The weight passes (K4: dWq, dWo, one accumulator chain of TF32
+    k-steps per chunk as the f32 K4 weight pass on wgmma; K3: dW1, dW2) as
+    split-K sums over the kernels' row chunks in split TF32, on the row
+    pass's own scratch rows, against ``i2t_bwd_dw_plain`` /
+    ``upscale_bwd_dw_plain`` (one product over all rows): 2 x 37 and 3 x
+    37 rows, in 1 or 3 chunks."""
     rng = np.random.default_rng(13)
     if op == "k4":
         pb = 2
@@ -455,8 +484,10 @@ def test_split_tf32_weight_pass_error(op, parts):
         flat = lambda t: t.reshape(-1, t.shape[-1])
 
         def run(mm):
-            return (emulated_dw(flat(dqpre), qin, parts, mm).T,
-                    emulated_dw(flat(out_rows), flat(dres), parts, mm))
+            chain = chain_split if mm is mm_split else chain_single
+            return (emulated_dw_chain(flat(dqpre), qin, parts, chain).T,
+                    emulated_dw_chain(flat(out_rows), flat(dres), parts,
+                                      chain))
     else:
         args, dm = _k3_case(rng, 3, 37, 2)
         rows = port_up.upscale_bwd_rows_plain(args[0], dm, *args[1:])

@@ -1,0 +1,135 @@
+"""The launch plans of the two kernels on wgmma and TMA, as pure functions
+pinned on the CPU: ``ops.attention.relpos_plan`` (the bf16 K6,
+``csrc/attention_relpos_wgmma.cu``: key tile, ring depths and shared
+memory) and ``ops.decoder_attn.dw_plan`` (the K4 weight pass: its row
+chunks and blocks; the f32 one on wgmma). The kernels themselves run only
+on the card (``tests/test_torch_kernels_gpu.py``)."""
+
+import pytest
+import torch
+
+from dilabhelmholtzoct_tpu_torch import kernels
+from dilabhelmholtzoct_tpu_torch.ops import attention as port_attn
+from dilabhelmholtzoct_tpu_torch.ops import decoder_attn as port_i2t
+
+GRIDS_UP_TO_256 = [(h, w) for h in range(1, 257) for w in range(1, 257)
+                   if h * w <= 256]
+
+
+def _stage_bytes(dp, nk, h, w):
+    """``wg::Layout`` written out: slabs of 64, then 32 and 16 columns,
+    each padded to 1 KB; a unit stage holds Q (128 rows) and 128 rows of
+    each bias factor (+ 16 elements of slack), a K / V stage K and V."""
+    up = lambda x, m: -(-x // m) * m
+    widths = [64] * (dp // 64) + [x for x in (32, 16) if dp % 64 & x]
+    tile = lambda rows: sum(up(rows * x * 2, 1024) for x in widths)
+    rel = up(2 * (128 * h + 16), 16) + up(2 * (128 * w + 16), 16)
+    return tile(128) + rel, 2 * tile(nk)
+
+
+@pytest.mark.parametrize("d", range(4, 129, 4))
+def test_relpos_plan_every_head_dim_and_window(d):
+    """Every head dim K6 takes (multiples of 4 up to 128) has a plan on
+    every grid of N <= 256 tokens (the windowed route): the key tile is one
+    whole window of 224 slots where the grid fits 14 x 16 cells (past
+    dp = 80 tiles of 7 grid rows, with two K / V stages), two grid rows of
+    64 where W = 64 and H is even, else tiles of 64; the rings fit in 227 KB with at least one stage each, and
+    the shared memory is the layout's own sum."""
+    dp = -(-d // 16) * 16
+    for h, w in GRIDS_UP_TO_256:
+        n = h * w
+        plan = port_attn.relpos_plan(d, n, (h, w))
+        assert plan.route == "windowed" and plan.dp == dp
+        if h <= 14 and w <= 16:
+            rows = 14 if dp <= 80 else 7
+            assert (plan.nk, plan.tiles) == (16 * rows, -(-h // rows)), (h, w)
+            assert plan.kv_stages >= 2 or plan.tiles == 1
+        elif w == 64 and h % 2 == 0:
+            assert (plan.nk, plan.tiles) == (128, n // 128), (h, w)
+        else:
+            assert (plan.nk, plan.tiles) == (64, -(-n // 64)), (h, w)
+        unit, kv = _stage_bytes(dp, plan.nk, h, w)
+        assert plan.smem == (1152 + plan.u_stages * unit
+                             + plan.kv_stages * kv)
+        assert plan.smem <= port_attn.SMEM_MAX
+        assert 1 <= plan.kv_stages <= 4 and 1 <= plan.u_stages <= 2
+
+
+@pytest.mark.parametrize("d,hw,want", [
+    # ViT-H: a window of 14 x 14 (one tile, units double-buffered) and the
+    # global layer of 64 x 64 (three K / V stages)
+    (80, (14, 14), ("windowed", 80, 224, 1, 2, 2, 199936)),
+    (80, (64, 64), ("global", 80, 128, 32, 3, 2, 230656)),
+    # the widest head: windows in two tiles of 7 grid rows, three K / V
+    # stages beside one unit stage; on the global layer two K / V stages
+    (128, (14, 14), ("windowed", 128, 112, 2, 3, 1, 213184)),
+    (128, (64, 64), ("global", 128, 128, 32, 2, 1, 197824)),
+    # padded heads, a ragged global grid, the test-size model's layers
+    (20, (30, 34), ("global", 32, 64, 16, 4, 2, 83200)),
+    (16, (4, 4), ("windowed", 16, 224, 1, 2, 2, 42240)),
+    (16, (8, 8), ("windowed", 16, 224, 1, 2, 2, 46336)),
+    (112, (16, 16), ("windowed", 112, 64, 4, 4, 2, 189696)),
+])
+def test_relpos_plan_pinned(d, hw, want):
+    """The plans of the main path's and the test shapes, pinned: route,
+    columns, key tile, tiles per unit, K / V and unit stages, bytes."""
+    p = port_attn.relpos_plan(d, hw[0] * hw[1], hw)
+    assert (p.route, p.dp, p.nk, p.tiles, p.kv_stages, p.u_stages,
+            p.smem) == want
+
+
+def test_relpos_plan_row_tile_needs_an_even_grid_height():
+    """Two grid rows of 64 make a 128-key tile only where the grid has an
+    even number of rows; an odd one streams 64-key tiles, and a head dim
+    K6 does not take raises."""
+    assert port_attn.relpos_plan(64, 63 * 64, (63, 64)).nk == 64
+    assert port_attn.relpos_plan(64, 62 * 64, (62, 64)).nk == 128
+    for d in (2, 6, 130, 132):
+        with pytest.raises(NotImplementedError, match="K6"):
+            port_attn.relpos_plan(d, 196, (14, 14))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,sms", [(64 * 4096, 132), (8 * 4096, 132),
+                                      (296, 132), (15, 132), (1000, 7),
+                                      (344, 1)])
+def test_dw_plan_chunks_cover_the_rows_in_order(dtype, rows, sms):
+    """The weight pass's chunks cover rows 0..rows-1 once, in order, about
+    sm / 2 of them, each a multiple of the stage (16 rows in f32, 32 in
+    bf16) but the last; the nominal chunk is that multiple; f32 runs on
+    at most one persistent block per SM, bf16 on one per chunk and
+    weight."""
+    chunks, size, blocks = port_i2t.dw_plan(rows, dtype, sms)
+    align = 16 if dtype == torch.float32 else 32
+    assert align == (port_i2t.DW32_ROWS if dtype == torch.float32
+                     else port_i2t.DW_ROWS)
+    assert chunks[0][0] == 0 and chunks[-1][1] == rows
+    assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+    assert all((hi - lo) % align == 0 for lo, hi in chunks[:-1])
+    assert len(chunks) <= max(1, sms // 2) and size % align == 0
+    assert all(hi - lo <= size for lo, hi in chunks)
+    assert chunks == kernels.row_chunks(rows, max(1, sms // 2), align)
+    units = 2 * len(chunks)
+    assert blocks == (min(units, sms) if dtype == torch.float32 else units)
+
+
+def test_dw_plain_follows_the_f32_stage():
+    """``i2t_bwd_dw_plain`` sums its chunks in the kernel's order: at f32
+    chunks aligned to 16 rows, at bf16 to 32 (the same sum over all rows,
+    to f32 rounding)."""
+    g = torch.Generator().manual_seed(0)
+    bp, m, pb = 2, 37, 2
+    keys = torch.randn((bp // pb, m, 256), generator=g)
+    pe = torch.randn((1, m, 256), generator=g)
+    dq, orow = (torch.randn((bp, m, 128), generator=g) for _ in range(2))
+    dres = torch.randn((bp, m, 256), generator=g)
+    args = (keys, pe, dq, orow, dres)
+    one = port_i2t.i2t_bwd_dw_plain(*args, pb=pb)
+    three = port_i2t.i2t_bwd_dw_plain(*args, pb=pb, parts=3)
+    x, y = dq.reshape(-1, 128), (keys + pe).repeat_interleave(pb, 0)
+    y = y.reshape(-1, 256)
+    by_hand = sum(x[lo:hi].T @ y[lo:hi] for lo, hi in ((0, 32), (32, 64),
+                                                        (64, 74)))
+    assert torch.equal(three[0], by_hand.T)
+    for a, b in zip(one, three):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4)
