@@ -319,6 +319,29 @@ def cuda_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def device_ms_by_kernel(fn, names, reps=20):
+    """Device ms a call of ``fn`` spends in each kernel whose name holds one
+    of ``names``, from ``torch.profiler`` over ``reps`` calls; None where
+    the profiler saw no device time for it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = {n: 0.0 for n in names}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        t = e.self_cuda_time_total if t is None else t
+        for n in names:
+            if n in e.key:
+                us[n] += t
+    return {n: us[n] / 1e3 / reps if us[n] > 0 else None for n in names}
+
+
 def attention_bound_ms(b, n, heads, hw, itemsize, peak_flops, d=64):
     """Least time for one call: the larger of its operations (q.k and p.v,
     2 * 2 * N^2 * d per head) over the type's peak and its bytes (qkv and
@@ -349,13 +372,13 @@ def _sdpa_ms(torch, qkv, rel_h, rel_w, hw, heads, iters=5):
 MMA_KERNELS = {"attention": ("attn_global_mma_kernel",
                              "attn_windowed_mma_kernel"),
                "attention_bwd": ("attn_bwd_dq_mma_kernel",
-                                 "attn_bwd_dkv_mma_kernel"),
+                                 "attn_bwd_dkv_wgmma_kernel"),
                "attention_relpos_wgmma": ("attn_relpos_wgmma_kernel",),
                "attention_winimg": ("attn_winimg_mma_kernel",),
                "upscaler": ("upscale_fwd_mma_kernel", "upscale_bwd_rows_kernel",
                             "upscale_bwd_dw_kernel"),
                "decoder_attn": ("i2t_fwd_mma_kernel", "i2t_bwd_rows_kernel",
-                                "i2t_bwd_dw_kernel")}
+                                "i2t_bwd_dw_wgmma_kernel")}
 TF32_KERNELS = {"attention": ("attn_global_tf32_kernel",
                               "attn_windowed_tf32_kernel"),
                 "attention_bwd": ("attn_bwd_dq_tf32_kernel",
@@ -370,7 +393,9 @@ TF32_KERNELS = {"attention": ("attn_global_tf32_kernel",
                                  "i2t_bwd_dw_tf32_kernel")}
 # the kernels on wgmma with TMA loads: HGMMA and UTMALDG in their SASS
 WGMMA_KERNELS = {"attention_relpos_wgmma": ("attn_relpos_wgmma_kernel",),
-                 "decoder_attn": ("i2t_bwd_dw_tf32_kernel",)}
+                 "attention_bwd": ("attn_bwd_dkv_wgmma_kernel",),
+                 "decoder_attn": ("i2t_bwd_dw_tf32_kernel",
+                                  "i2t_bwd_dw_wgmma_kernel")}
 
 
 def _ptxas_by_function(log):
@@ -780,7 +805,7 @@ def k34_kernel_phase(torch):
                           "i2t_fwd_tf32_kernel"), f"{k4[1]}:264"
     k4_bwd = k4[0], names("i2t_bwd_rows_kernel",
                           "i2t_bwd_rows_tf32_kernel"), f"{k4[1]}:287"
-    k4_dw = k4[0], names("i2t_bwd_dw_kernel",
+    k4_dw = k4[0], names("i2t_bwd_dw_wgmma_kernel",
                          "i2t_bwd_dw_tf32_kernel"), f"{k4[1]}:287"
     with full_fp32():
         for dt, tname in ((f32, "f32"), (torch.bfloat16, "bf16")):
@@ -890,6 +915,16 @@ def k34_kernel_phase(torch):
                 print(f"K4{tag} {tname} backward: {total:.4f} ms composed "
                       f"(row pass {t_rows:.4f} + weight pass {t_dw:.4f} "
                       "timed alone)")
+                if bf:  # the bf16 weight pass: its two kernels apart
+                    split = device_ms_by_kernel(
+                        lambda: i2t.i2t_bwd_dw_cuda(*scratch, pb=pb),
+                        ("i2t_bwd_dw_wgmma_kernel", "i2t_dw_sum_kernel"))
+                    txt = ", ".join(
+                        f"{k} " + ("not measured" if v is None
+                                   else f"{v:.4f} ms")
+                        for k, v in split.items())
+                    print(f"K4{tag} {tname} weight pass, device time a call "
+                          f"(torch.profiler, 20 calls): {txt}")
                 del args, dy, scratch
             torch.cuda.empty_cache()
     return rows
@@ -3565,9 +3600,10 @@ def redesign_times(torch):
     """The kernels redesigned on wgmma and TMA, timed at their main-path
     shapes through the public wrappers alone, so that the same function
     times an older tree's kernels: the bf16 K6 at a ViT-H global layer
-    (N = 4096) and windowed layer (25 windows of 196), 16 heads of 80, and
-    the f32 K4 weight pass at 64 pairs x 4096 rows, pb 1 and 8. Returns
-    {case: ms}."""
+    (N = 4096) and windowed layer (25 windows of 196), 16 heads of 80; the
+    K4 weight pass at 64 pairs x 4096 rows, pb 1 and 8, in f32 and in
+    bf16; K5's bf16 dk/dv kernel at a ViT-B global layer (B = 4) and
+    windowed layer (100 windows of 196), 12 heads. Returns {case: ms}."""
     from dilabhelmholtzoct_tpu_torch.device import full_fp32
     from dilabhelmholtzoct_tpu_torch.ops import attention as attn
     from dilabhelmholtzoct_tpu_torch.ops import decoder_attn as i2t
@@ -3592,6 +3628,28 @@ def redesign_times(torch):
             out[f"k4_dw_f32_pb{pb}"] = cuda_ms(
                 lambda: i2t.i2t_bwd_dw_cuda(*args, pb=pb), 20)
             del args
+    for pb in (1, 8):
+        args = tuple(x.bfloat16() for x in (
+            rnd(bp // pb, m, 256), rnd(1, m, 256), rnd(bp, m, 128),
+            rnd(bp, m, 128), rnd(bp, m, 256)))
+        out[f"k4_dw_bf16_pb{pb}"] = cuda_ms(
+            lambda: i2t.i2t_bwd_dw_cuda(*args, pb=pb), 20)
+        del args
+    for case, b, hw, iters in (("k5_dkv_bf16_global", 4, (64, 64), 5),
+                               ("k5_dkv_bf16_windowed", 100, (14, 14), 20)):
+        n, heads = hw[0] * hw[1], 12
+        kw = dict(hw=hw, num_heads=heads)
+        qkv = rnd(b, n, 3 * heads * 64, k=0.5).bfloat16()
+        rel_h = rnd(b, heads, n, hw[0], k=0.3).bfloat16()
+        rel_w = rnd(b, heads, n, hw[1], k=0.3).bfloat16()
+        g = rnd(b, n, heads * 64).bfloat16()
+        o, lse = attn.attention_fwd_cuda(qkv, rel_h, rel_w, return_lse=True,
+                                         **kw)
+        args = (qkv, rel_h, rel_w, g, lse, attn.bwd_dvec(g, o, heads),
+                torch.empty_like(qkv))
+        out[case] = cuda_ms(lambda: attn.attention_bwd_dkv_cuda(*args, **kw),
+                            iters)
+        del qkv, rel_h, rel_w, g, o, lse, args
     return out
 
 

@@ -23,8 +23,8 @@
 //     registers (or drel in shared memory). The block owns its query rows:
 //     no atomics, a fixed summation order, a deterministic result.
 //   the dk/dv kernel (_packed_bwd_dkv_kernel): one block per (batch, head,
-//     128-key tile) loops over 64-query tiles and accumulates dk and dv in
-//     registers.
+//     128 keys) loops over 64-query tiles and accumulates dk and dv in
+//     registers (bf16: persistent blocks walk such units).
 // Both serve every N (global 64x64 = 4096, 14x14 = 196 windows, ragged
 // grids): the last tile of either kind is masked, so K5 needs no windowed
 // variant. Windows that the partition zero-padded are ordinary inputs here:
@@ -40,8 +40,8 @@
 // type's training path, compute_dtype='float32'): attn_bwd_dq_tf32_kernel /
 // attn_bwd_dkv_tf32_kernel, every product in split TF32 (attention_tf32.cuh:
 // hi.hi + hi.lo + lo.hi, f32 accuracy). bf16 (the full fine-tune path):
-// attn_bwd_dq_mma_kernel / attn_bwd_dkv_mma_kernel, mma.sync m16n8k16
-// (attention_mma.cuh).
+// attn_bwd_dq_mma_kernel, mma.sync m16n8k16 (attention_mma.cuh), and
+// attn_bwd_dkv_wgmma_kernel, Hopper's wgmma with TMA loads (hopper.cuh).
 //
 // Bound on an H100 SXM (700 W), one global layer at B = 4, 12 heads:
 //    dq kernel: 3 products (s, dp, dq) = 6 * 4096^2 * 64 * 48 = 309 GFLOP;
@@ -50,19 +50,18 @@
 //    split-TF32 rate (495 / 3 = 165 TFLOP/s): 1.87 + 2.50 ms (over the 67
 //    TFLOP/s of the CUDA cores: 4.62 + 6.15); the bytes (qkv, dO, rel, L, D
 //    in, dqkv and drel out: ~0.3 GB in bf16) take 0.09 ms. Compute-bound.
-// What this design does about it: warps of 16 rows, the other side's tiles
-//    streamed through a 2-stage cp.async ring from padded shared rows. The
-//    dq kernel recomputes s and p per key tile, takes dp = dO.v^T, ds = p *
-//    (dp - D) (bf16: rounded) and dq += ds.k with ds fed from registers;
-//    drel sums ds in a fixed order: where a key tile is one grid row (W =
-//    64, every ViT's global layer) from registers (the row sum over the
-//    lane quad for drel_h, a per-lane accumulator for drel_w), else through
-//    a shared tile, one thread per slot in key order. The dk/dv kernel (8
-//    warps, 128 keys per block) computes s^T = k.q^T so that p^T and ds^T
-//    land in registers with keys as rows: dv += p^T.dO, dk += ds^T.q, times
-//    1/8 at the end (exact); bf16 rounds p first, p_b = bf16(p), and takes
-//    ds = bf16(p_b * (dp - D)).
-//    bf16: 4 warps per dq block, ldmatrix from rows of 72 bf16.
+// What the mma.sync kernels do about it: warps of 16 rows, the other
+//    side's tiles streamed through a 2-stage cp.async ring from padded
+//    shared rows. The dq kernel recomputes s and p per key tile, takes dp =
+//    dO.v^T, ds = p * (dp - D) (bf16: rounded) and dq += ds.k with ds fed
+//    from registers; drel sums ds in a fixed order: where a key tile is one
+//    grid row (W = 64, every ViT's global layer) from registers (the row
+//    sum over the lane quad for drel_h, a per-lane accumulator for drel_w),
+//    else through a shared tile, one thread per slot in key order. The f32
+//    dk/dv kernel (8 warps, 128 keys per block) computes s^T = k.q^T so that
+//    p^T and ds^T land in registers with keys as rows: dv += p^T.dO, dk +=
+//    ds^T.q, times 1/8 at the end (exact).
+//    bf16 dq: 4 warps per block, ldmatrix from rows of 72 bf16.
 //    f32: operands stay f32 in shared memory (rows of 68 floats: every
 //    fragment load on 32 banks) and are split into hi / lo TF32 as their
 //    fragments are loaded (an A fragment once per k step for all its n
@@ -74,10 +73,32 @@
 //    of a shared tile.
 //    Each qkv and dO byte is read from device memory once per tile of the
 //    other side.
-// A fused single kernel and wgmma with TMA are later work.
+// What the bf16 dk/dv kernel does about it (attn_bwd_dkv_wgmma_kernel,
+//    below): all four products on wgmma, the only way to the tensor cores'
+//    full rate (0.42 ms of operations at ViT-B's global layer, B = 4),
+//    their operands landed by TMA in the layouts wgmma reads (no thread
+//    spends registers or instructions on a copy, no ldmatrix); producer
+//    warps keep up to 6 query tiles and the next unit's K and V in flight;
+//    the two score products as one m64n64k16 chain each with keys as rows,
+//    so p_b^T and ds^T are register A fragments of the two gradient
+//    products; per pair of scores one exponential each and one packing
+//    conversion for p_b and one for ds (the conversions run on the same
+//    slow pipe as the exponential); the elementwise work of one warpgroup
+//    runs beside the other's products, and a tile's scores go out with the
+//    previous tile's gradient products (operand fences keep other
+//    instructions out of the wgmma pipeline, which ptxas would otherwise
+//    serialize). A 14 x 14 window (196 keys) is two units of a persistent
+//    block's walk, whose loads overlap the unit before (the mma.sync kernel
+//    took two blocks, each reading the window's queries from device memory
+//    and waiting for them). What stays on the CUDA cores per score: the
+//    scale and the bias, the exponential, the roundings, the masks.
+// A fused single kernel and the dq kernel on wgmma are later work.
+
+#include <type_traits>
 
 #include "attention_mma.cuh"
 #include "attention_tf32.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -324,9 +345,10 @@ attn_bwd_dq_tf32_kernel(const float* __restrict__ qkv,
 
 // ------------------------------------------------------ dk / dv, f32 ----
 // grid (ceil(N / 128), heads, B), 256 threads: warp w owns key rows
-// 16 w + g and 16 w + g + 8 of the block's 128 keys, as the bf16 kernel
-// below; every product in split TF32, a 64-query tile in two halves of QH
-// = 32 queries (half the score registers live). Shared (f32): Ks | Vs
+// 16 w + g and 16 w + g + 8 of the block's 128 keys (the keys are the
+// rows of every product); every product in split TF32, a 64-query tile in
+// two halves of QH = 32 queries (half the score registers live). Shared
+// (f32): Ks | Vs
 // (128 x LDF) | Qs stage 0, 1 | Gs stage 0, 1 (64 x LDF) | Rh stage 0, 1
 // (64 x factor_ld(H)) | Rw stage 0, 1 (64 x factor_ld(W)) | Ls stage 0, 1 |
 // Ds stage 0, 1 (64 each)
@@ -723,158 +745,487 @@ attn_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
   }
 }
 
-// --------------------------------------------------------- dk / dv, bf16 ----
-// grid (ceil(N / 128), heads, B), 256 threads: warp w owns key rows
-// 16 w + g and 16 w + g + 8 of the block's 128 keys, so each query tile (q,
-// dO and the bias factors, as many bytes again as q and dO) is read once
-// per 128 keys. Shared (bf16): Ks | Vs (128 x LDS) | Qs stage 0, 1 | Gs
-// stage 0, 1 (64 x LDS) | Rh stage 0, 1 (64 x factor_ld(H)) | Rw stage 0, 1
-// (64 x factor_ld(W)); then (f32) Ls stage 0, 1 | Ds stage 0, 1 (64 each)
-size_t dkv_mma_smem_bytes(int h, int w) {
-  using namespace mma;
-  return sizeof(bf16) * (size_t)(2 * DKV_KEYS * LDS + 4 * TILE_ELEMS +
-                                 2 * TILE * (factor_ld(h) + factor_ld(w))) +
-         sizeof(float) * 4 * TILE;
+// ------------------------------------------- dk / dv, bf16, wgmma + TMA ----
+// attn_bwd_dkv_wgmma_kernel<ROW_TILE>: persistent blocks over units of (batch,
+// head, 128 keys), 384 threads: two consumer warpgroups and two producer
+// warps (of a warpgroup that gives its registers back); warpgroup w owns
+// keys 64 w.. of a unit.
+//   producers: per unit, K and V (TMA, rows past N zero) into a ring of two
+//     K / V stages; per 64-query tile of the unit, Q and dO (TMA), the
+//     tile's L, D (cp.async, 4 bytes a query, zero past N) and, by the
+//     second warp, its bias factors into a ring of query stages (the
+//     deepest that fits), running ahead across units (the next unit's K,
+//     V and first tiles load while this one computes). ROW_TILE: the
+//     tile's rel_w rows by TMA (one box of 64 x 64, 128-byte swizzle) and
+//     of rel_h the two values the unit's warpgroups take (cp.async, 4
+//     bytes a query); else both factors' rows by cp.async: padded rows
+//     where a row is a multiple of 8 values, else the contiguous run with
+//     its alignment slack. Each stage has a full and an empty mbarrier.
+//   consumers: per query tile, S^T = K . Q^T and dP^T = V . dO^T as two
+//     wgmma m64n64k16 chains (both operands K-major in shared memory), so
+//     keys are the accumulator rows; on the accumulators s = S^T / 8 +
+//     rel_h + rel_w, p_b = bf16(exp(s - L)), ds = bf16(p_b (dP^T - D)), 0
+//     for a query past N, each pair of query columns rounded and packed by
+//     one conversion into the A fragment word of p_b^T or ds^T, the A
+//     operands of dV += p_b^T . dO and dK += ds^T . Q (wgmma m64n64k16, B
+//     MN-major through the transpose bit). A tile's S^T and dP^T go out
+//     with the previous tile's dV and dK products, and the two warpgroups
+//     take turns issuing (named barriers), so one warpgroup's exponentials
+//     run beside the other's products. dk = dK / 8 after the f32 sum, dv
+//     and dk rounded once, staged in the warpgroup's half of the finished
+//     K / V stage and written in whole 128-byte rows; a unit owns its
+//     keys: no atomics. A column group of queries past N skips the
+//     elementwise work.
+//   A 14 x 14 window (N = 196) is two units; the second reads the
+//   window's query tiles from L2, loaded there by the first, and both
+//   overlap the loads of their block's next unit.
+// ROW_TILE (W == 64 and an even H, every ViT global layer): a warpgroup's
+// 64 keys are one grid row, so rel_h is one value a query and a lane reads
+// rel_w at fixed columns of the swizzled box; else each key's grid (row,
+// column) is looked up in the staged factor rows.
+namespace dkv {
+
+using mma::bf16;
+
+constexpr int KEYS = 128, QT = 64;     // keys of a unit, queries of a tile
+constexpr int TILE_BYTES = QT * D * 2;  // 64 rows of one head, 8 KB
+constexpr int KV_BYTES = 2 * KEYS * D * 2;  // a unit's K and V
+constexpr int CONSUMERS = 256, NTH = CONSUMERS + 128;
+// 168 registers a thread at launch (a sub-partition's 16K over its three
+// warps); the producer's warpgroup gives back all but 56, the consumers
+// take them (128 x 56 + 256 x 224 = 384 x 168): a consumer holds S^T,
+// dP^T, dK and dV (4 x 32 f32) and p_b^T, ds^T (2 x 16 packed)
+constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 224;
+constexpr int KV_STAGES = 2, MAX_STAGES = 6;
+// named barriers 1, 2: the warpgroups' turns; 3, 4: a warpgroup's own
+// (its dk, dv staged)
+constexpr int TURN = 1, OUT = 3;
+constexpr int SMEM_FIXED = 1024 + 128;  // alignment slack, mbarriers
+
+__host__ __device__ constexpr int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
+// a tile's factor rows in shared memory: rows of len + 8 values (16 bytes
+// of padding: the rows a warp reads at once start on other banks) where
+// len is a multiple of 8, else the contiguous run of the tile's rows with
+// 8 values of slack at each end (its copy starts and ends on 16 bytes)
+__host__ __device__ constexpr bool padded(int len) { return len % 8 == 0; }
+__host__ __device__ constexpr int factor_bytes(int len) {
+  return padded(len) ? 2 * QT * (len + 8) : round_up(2 * (QT * len + 16), 16);
+}
+// a query stage: Q | dO (TILE_BYTES each) | rel_h rows | rel_w rows | L |
+// D (f32), rounded up to 1 KB (the next stage's Q is 1024-aligned for its
+// swizzle); ROW_TILE: Q | dO | rel_w (a swizzled 64 x 64 box) | rel_h (two
+// values a query) | L | D
+struct Layout {
+  int rh, rw, l, d, stage;
+  __host__ __device__ Layout(int h, int w, bool row_tile)
+      : rh(row_tile ? 3 * TILE_BYTES : 2 * TILE_BYTES),
+        rw(row_tile ? 2 * TILE_BYTES : rh + factor_bytes(h)),
+        l(row_tile ? rh + QT * 4 : rw + factor_bytes(w)),
+        d(l + 4 * QT),
+        stage(round_up(d + 4 * QT, 1024)) {}
+  __host__ __device__ size_t smem(int stages) const {
+    return SMEM_FIXED + (size_t)KV_STAGES * KV_BYTES + (size_t)stages * stage;
+  }
+};
+
+struct Args {
+  const bf16* rel_h;
+  const bf16* rel_w;
+  const float* lse;
+  const float* dvec;
+  bf16* dqkv;
+  long long rel_h_len, rel_w_len;  // elements of rel_h, rel_w
+  int n, heads, H, W, qtiles, stages, kblocks, units;
+};
+
+// `rows` factor rows of `len` values from element e0 of src (len_all
+// elements) -> dst, by the 32 lanes of a warp with cp.async: padded rows
+// (rows past nq zero), or the contiguous run from e0 rounded down to 8
+// (element e0 at dst[e0 % 8]; zero past len_all)
+__device__ __forceinline__ void copy_factors(unsigned char* dst,
+                                             const bf16* src, long long e0,
+                                             int len, int nq,
+                                             long long len_all, int lane) {
+  if (padded(len)) {
+    const int pieces = len / 8;
+    for (int i = lane; i < QT * pieces; i += 32) {
+      const int r = i / pieces, c = (i - r * pieces) * 8;
+      const bool ok = r < nq;
+      hop::cp_async16_fill(dst + 2 * (r * (len + 8) + c),
+                           src + (ok ? e0 + (long long)r * len + c : 0),
+                           ok ? 16 : 0);
+    }
+  } else {
+    const long long a0 = e0 & ~7LL;
+    const int pieces = (int)((e0 + (long long)QT * len - a0 + 7) >> 3);
+    for (int i = lane; i < pieces; i += 32) {
+      const long long e = a0 + 8LL * i;
+      const int bytes =
+          e >= len_all ? 0 : (int)min(16LL, 2 * (len_all - e));
+      hop::cp_async16_fill(dst + 16 * i, src + (bytes ? e : 0), bytes);
+    }
+  }
 }
 
-// ROW_TILE (W == 64): a warp's 16 keys lie in one grid row, so both of a
-// lane's keys take the same Rh value of a query.
+}  // namespace dkv
+
 template <bool ROW_TILE>
-__global__ void __launch_bounds__(DKV_NT, 1)
-attn_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
-                        const __nv_bfloat16* __restrict__ rel_h,
-                        const __nv_bfloat16* __restrict__ rel_w,
-                        const __nv_bfloat16* __restrict__ g,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ dvec,
-                        __nv_bfloat16* __restrict__ dqkv, int n, int heads,
-                        int H, int W) {
-  using namespace mma;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + DKV_KEYS * LDS;
-  bf16* Qs = Vs + DKV_KEYS * LDS;
-  bf16* Gs = Qs + 2 * TILE_ELEMS;
-  const int ldh = factor_ld(H), ldw = factor_ld(W);
-  bf16* Rh = Gs + 2 * TILE_ELEMS;
-  bf16* Rw = Rh + 2 * TILE * ldh;
-  float* Ls = reinterpret_cast<float*>(Rw + 2 * TILE * ldw);
-  float* Ds = Ls + 2 * TILE;
-
-  const int head = blockIdx.y, b = blockIdx.z, k0 = blockIdx.x * DKV_KEYS;
-  const int C = heads * D, stride = 3 * C;
-  const int lane = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * 16;
-  const int t = lane & 3;
-  const bf16* base = qkv + (size_t)b * n * stride + head * D;
-  const bf16* gbase = g + (size_t)b * n * C + head * D;
-  const size_t head_row = ((size_t)b * heads + head) * n;
-
-  // one query tile's operands into stage st
-  auto load_q_tile = [&](int st, int q0) {
-    const int nq = min(TILE, n - q0);
-    load_tile_async<DKV_NT>(Qs + st * TILE_ELEMS, base, stride, q0, n);
-    load_tile_async<DKV_NT>(Gs + st * TILE_ELEMS, gbase, C, q0, n);
-    load_factors<DKV_NT>(Rh + st * TILE * ldh, rel_h + (head_row + q0) * H, H,
-                         nq);
-    load_factors<DKV_NT>(Rw + st * TILE * ldw, rel_w + (head_row + q0) * W, W,
-                         nq);
-    const int i = threadIdx.x & (TILE - 1);
-    const bool ok = i < nq;
-    const size_t src = head_row + q0 + (ok ? i : 0);
-    if (threadIdx.x < TILE)
-      cp_async4(Ls + st * TILE + i, lse + src, ok);
-    else if (threadIdx.x < 2 * TILE)
-      cp_async4(Ds + st * TILE + i, dvec + src, ok);
-  };
-
-  load_tile_async<DKV_NT>(Ks, base + C, stride, k0, n, DKV_KEYS);
-  load_tile_async<DKV_NT>(Vs, base + 2 * C, stride, k0, n, DKV_KEYS);
-  load_q_tile(0, 0);
-  cp_commit();
-
-  // the lane's two keys: grid row and column
-  int kr[2], kc[2];
-  bool kv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = k0 + r0 + (lane >> 2) + 8 * r;
-    kv[r] = key < n;
-    kr[r] = kv[r] ? key / W : 0;  // a key past n reads row 0, unused
-    kc[r] = kv[r] ? key - kr[r] * W : 0;
+__global__ void __launch_bounds__(dkv::NTH, 1)
+attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_kv,
+                          const __grid_constant__ CUtensorMap tm_g,
+                          const __grid_constant__ CUtensorMap tm_rw,
+                          const dkv::Args a) {
+  using namespace hop;
+  using namespace dkv;
+  using mma::exp2_approx;
+  using mma::LOG2E;
+  using mma::pack_bf16;
+  const Layout L(a.H, a.W, ROW_TILE);
+  extern __shared__ __align__(16) unsigned char smem_tma[];
+  // 1024-aligned, by an offset from the shared array: every access below
+  // stays a shared-memory one
+  unsigned char* base = smem_tma + ((1024 - (smem(smem_tma) & 1023)) & 1023);
+  unsigned char* kvs = base;  // K / V stage i: K (16 KB), then V
+  unsigned char* stages = kvs + KV_STAGES * KV_BYTES;
+  uint64_t* kvfull = reinterpret_cast<uint64_t*>(stages + a.stages * L.stage);
+  uint64_t* kvempty = kvfull + KV_STAGES;
+  uint64_t* full = kvempty + KV_STAGES;
+  uint64_t* empty = full + MAX_STAGES;
+  const int C = a.heads * D;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < KV_STAGES; ++i) {
+      mbar_init(kvfull + i, 1);
+      mbar_init(kvempty + i, CONSUMERS / 32);  // a lane of each warp
+    }
+    for (int i = 0; i < a.stages; ++i) {
+      // the TMA lane's arrive + the cp.async ones of both producer warps
+      mbar_init(full + i, 65);
+      mbar_init(empty + i, CONSUMERS / 32);
+    }
+    mbar_fence_init();
   }
+  __syncthreads();
 
-  float dk[D / 8][4] = {}, dv[D / 8][4] = {};
-  const int ntiles = (n + TILE - 1) / TILE;
-  for (int it = 0; it < ntiles; ++it) {
-    const int q0 = it * TILE, st = it & 1;
-    if (it + 1 < ntiles) load_q_tile(st ^ 1, q0 + TILE);
-    cp_commit();
-    cp_wait<1>();
-    __syncthreads();
-    const bf16* Qc = Qs + st * TILE_ELEMS;
-    const bf16* Gc = Gs + st * TILE_ELEMS;
-    const bf16* Rhc = Rh + st * TILE * ldh;
-    const bf16* Rwc = Rw + st * TILE * ldw;
-    const float* Lc = Ls + st * TILE;
-    const float* Dc = Ds + st * TILE;
-
-    float s[TILE / 8][4] = {}, dp[TILE / 8][4] = {};  // [key][query]
-    product_nk<1>(&s, Ks, r0, Qc, lane);   // k.q^T
-    product_nk<1>(&dp, Vs, r0, Gc, lane);  // v.dO^T
-#pragma unroll
-    for (int j = 0; j < TILE / 8; ++j) {
-      const float2 L2 = *reinterpret_cast<const float2*>(Lc + 8 * j + 2 * t);
-      const float2 D2 = *reinterpret_cast<const float2*>(Dc + 8 * j + 2 * t);
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int q = 8 * j + 2 * t + e;
-        const bool qv = q0 + q < n;
-        const float Lb = (e ? L2.y : L2.x) * LOG2E, Dq = e ? D2.y : D2.x;
-        const float rh0 = __bfloat162float(Rhc[q * ldh + kr[0]]);
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          // computed for every slot, then selected: with a branch around
-          // the loads the kernel ran far slower on the H100
-          const float rh =
-              ROW_TILE || r == 0 ? rh0
-                                 : __bfloat162float(Rhc[q * ldh + kr[r]]);
-          const float sv = fmaf(s[j][2 * r + e], 0.125f,
-                                rh + __bfloat162float(Rwc[q * ldw + kc[r]]));
-          const float p = round_bf16(exp2_approx(fmaf(sv, LOG2E, -Lb)));
-          const float ds = round_bf16(p * (dp[j][2 * r + e] - Dq));
-          const bool ok = qv && kv[r];
-          s[j][2 * r + e] = ok ? p : 0.f;  // p_b
-          dp[j][2 * r + e] = ok ? ds : 0.f;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // this warp is done with a stage (its products waited on): one arrive
+  auto release = [&](uint64_t* bar) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+  if (warp >= CONSUMERS / 32) {  // ----------------------------- producer ----
+    setmaxnreg_dec<PRODUCER_REGS>();
+    // two warps load: the first K, V and a tile's Q, dO (TMA), L and D;
+    // the second the tile's bias factors
+    const int pw = warp - CONSUMERS / 32;
+    if (pw > 1) return;
+    int it = 0, uu = 0;
+    for (int u = blockIdx.x; u < a.units; u += gridDim.x, ++uu) {
+      const int kb = u % a.kblocks, bh = u / a.kblocks;
+      const int head = bh % a.heads, b = bh / a.heads, k0 = kb * KEYS;
+      const long long head_row = (long long)bh * a.n;
+      const int ks = uu % KV_STAGES;
+      if (pw == 0) mbar_wait(kvempty + ks, ((uu / KV_STAGES) & 1) ^ 1);
+      if (pw == 0 && lane == 0) {
+        unsigned char* kv = kvs + ks * KV_BYTES;
+        mbar_expect_tx(kvfull + ks, KV_BYTES);
+        tma_load_3d(kv, &tm_kv, kvfull + ks, C + head * D, k0, b);
+        tma_load_3d(kv + KV_BYTES / 2, &tm_kv, kvfull + ks, 2 * C + head * D,
+                    k0, b);
+      }
+      for (int t = 0; t < a.qtiles; ++t, ++it) {
+        const int st = it % a.stages, q0 = t * QT;
+        unsigned char* sg = stages + st * L.stage;
+        mbar_wait(empty + st, ((it / a.stages) & 1) ^ 1);
+        const int nq = min(QT, a.n - q0);
+        const long long row = head_row + q0;
+        if (pw == 0) {
+          if (lane == 0) {
+            mbar_expect_tx(full + st, (ROW_TILE ? 3 : 2) * TILE_BYTES);
+            tma_load_3d(sg, &tm_q, full + st, head * D, q0, b);
+            tma_load_3d(sg + TILE_BYTES, &tm_g, full + st, head * D, q0, b);
+            if (ROW_TILE)
+              tma_load_2d(sg + L.rw, &tm_rw, full + st, 0, (int)row);
+          }
+          float* ls = reinterpret_cast<float*>(sg + L.l);
+          float* ds = reinterpret_cast<float*>(sg + L.d);
+          for (int i = lane; i < QT; i += 32) {
+            const bool ok = i < nq;
+            mma::cp_async4(ls + i, a.lse + row + (ok ? i : 0), ok);
+            mma::cp_async4(ds + i, a.dvec + row + (ok ? i : 0), ok);
+          }
+        } else if (ROW_TILE) {
+          // rel_h at the unit's grid rows kr, kr + 1 (kr even, H even)
+          uint32_t* rh2 = reinterpret_cast<uint32_t*>(sg + L.rh);
+          const int kr = k0 / 64;
+          for (int q = lane; q < QT; q += 32) {
+            const bool ok = q < nq && kr < a.H;
+            mma::cp_async4(rh2 + q,
+                           a.rel_h + (ok ? (row + q) * a.H + kr : 0), ok);
+          }
+        } else {
+          copy_factors(sg + L.rh, a.rel_h, row * a.H, a.H, nq, a.rel_h_len,
+                       lane);
+          copy_factors(sg + L.rw, a.rel_w, row * a.W, a.W, nq, a.rel_w_len,
+                       lane);
         }
+        mbar_arrive_cp_async(full + st);
       }
     }
-    uint32_t pp[TILE / 8][2], pd[TILE / 8][2];
-#pragma unroll
-    for (int j = 0; j < TILE / 8; ++j) {
-      pp[j][0] = pack_bf16(s[j][0], s[j][1]);  // exact: both are rounded
-      pp[j][1] = pack_bf16(s[j][2], s[j][3]);
-      pd[j][0] = pack_bf16(dp[j][0], dp[j][1]);
-      pd[j][1] = pack_bf16(dp[j][2], dp[j][3]);
-    }
-    product_kn<1>(&dv, &pp, Gc, lane);  // dv += p_b^T.dO
-    product_kn<1>(&dk, &pd, Qc, lane);  // dk += ds^T.q
-    __syncthreads();  // every warp is done with this stage
+    return;
   }
 
+  // --------------------------------------------------------- consumers ----
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int wgi = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int ldh = padded(a.H) ? a.H + 8 : a.H;
+  const int ldw = padded(a.W) ? a.W + 8 : a.W;
+  // the two warpgroups take turns issuing their products: barrier TURN +
+  // wgi is this warpgroup's turn, the other arrives on it after each of
+  // its issues (warpgroup 0 goes first)
+  if (wgi == 1) named_arrive(TURN, CONSUMERS);
+  int it = 0, uu = 0;
+  for (int u = blockIdx.x; u < a.units; u += gridDim.x, ++uu) {
+    const int kb = u % a.kblocks, bh = u / a.kblocks;
+    const int head = bh % a.heads, b = bh / a.heads;
+    const long long head_row = (long long)bh * a.n;
+    const int ks = uu % KV_STAGES;
+    const unsigned char* kw = kvs + ks * KV_BYTES + wgi * TILE_BYTES;
+    const unsigned char* vw = kw + KV_BYTES / 2;
+    const int k0 = kb * KEYS + 64 * wgi;  // the warpgroup's keys
+    // the lane's keys k0 + 16 (warp % 4) + g + 8 h (accumulator rows) at
+    // grid row kr[h], column kc[h] (0 past N: unused); ROW_TILE: kcs[h][e]
+    // is the byte offset of the key's rel_w in swizzled box row q, for e
+    // = q % 2 (q % 8 = 2 t + e for every query column of the lane)
+    int kr[2], kc[2], kcs[2][2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (!kv[r]) continue;
-    const int key = k0 + r0 + (lane >> 2) + 8 * r;
-    bf16* dst = dqkv + ((size_t)b * n + key) * stride + head * D + 2 * t;
+    for (int h = 0; h < 2; ++h) {
+      const int key = k0 + 16 * (warp & 3) + g + 8 * h;
+      kr[h] = key < a.n ? key / a.W : 0;
+      kc[h] = key < a.n ? key - kr[h] * a.W : 0;
 #pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      // dk = ds^T.(q / 8): the scale after the f32 sum, exact
-      *reinterpret_cast<uint32_t*>(dst + C + 8 * dn) =
-          pack_bf16(dk[dn][2 * r] * 0.125f, dk[dn][2 * r + 1] * 0.125f);
-      *reinterpret_cast<uint32_t*>(dst + 2 * C + 8 * dn) =
-          pack_bf16(dv[dn][2 * r], dv[dn][2 * r + 1]);
+      for (int e = 0; e < 2; ++e)
+        kcs[h][e] = ((((key - k0) >> 3) ^ (2 * t + e)) << 4) |
+                    (((key - k0) & 7) << 1);
     }
+    float dk[D / 2], dv[D / 2];
+    uint32_t pp[QT / 16][4], pd[QT / 16][4];  // p_b^T, ds^T as A fragments
+    auto stage = [&](int tile) {
+      return stages + ((it + tile) % a.stages) * L.stage;
+    };
+
+    // p_b and ds of query tile `tile` from S^T (s) and dP^T (dp): each
+    // key's pair of query columns q, q + 1 (e = 0, 1) rounded to bf16 and
+    // packed at once; the word of A fragment k16-step k, register i goes to
+    // s[8 k + i] (dp[8 k + i]), a slot read before. FULL: no query of the
+    // tile is past N (no masks; else column groups past N are zero)
+    auto grads_body = [&](auto full, float* s, float* dp, int tile) {
+      constexpr bool FULL = decltype(full)::value;
+      const unsigned char* sg = stage(tile);
+      const int q0 = tile * QT, nq = min(QT, a.n - q0);
+      const long long row = head_row + q0;
+      const bf16* rh = reinterpret_cast<const bf16*>(sg + L.rh) +
+                       (ROW_TILE ? wgi : padded(a.H) ? 0 : (row * a.H) & 7);
+      const bf16* rw = reinterpret_cast<const bf16*>(sg + L.rw) +
+                       (ROW_TILE || padded(a.W) ? 0 : (row * a.W) & 7);
+      const float* ls = reinterpret_cast<const float*>(sg + L.l);
+      const float* dsv = reinterpret_cast<const float*>(sg + L.d);
+#pragma unroll
+      for (int j = 0; j < QT / 8; ++j) {
+        if (!FULL && 8 * j >= nq) {  // no query of the group: p_b = ds = 0
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int slot = 8 * (j >> 1) + 2 * (j & 1) + h;
+            s[slot] = dp[slot] = 0.f;
+          }
+          continue;
+        }
+        const int q2 = 8 * j + 2 * t;
+        const float2 l2 = *reinterpret_cast<const float2*>(ls + q2);
+        const float2 d2 = *reinterpret_cast<const float2*>(dsv + q2);
+        const float lb[2] = {l2.x * LOG2E, l2.y * LOG2E};
+        const float dq[2] = {d2.x, d2.y};
+        // ROW_TILE: rel_h log2 e - L of each query (both keys share it);
+        // else rel_h of the lane's first key
+        float c0[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          c0[e] = ROW_TILE
+                      ? fmaf(__bfloat162float(rh[2 * (q2 + e)]), LOG2E, -lb[e])
+                      : __bfloat162float(rh[(q2 + e) * ldh + kr[0]]);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float p[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int q = q2 + e;
+            const float x = s[4 * j + 2 * h + e];
+            float y;  // log2 of p: (S / 8 + rel_h + rel_w) log2 e - L
+            if (ROW_TILE) {
+              const float bw = __bfloat162float(
+                  *reinterpret_cast<const bf16*>(
+                      reinterpret_cast<const unsigned char*>(rw) + q * 128 +
+                      kcs[h][e]));
+              y = fmaf(x, 0.125f * LOG2E, fmaf(bw, LOG2E, c0[e]));
+            } else {
+              const float bh =
+                  h == 0 ? c0[e] : __bfloat162float(rh[q * ldh + kr[h]]);
+              const float sv = fmaf(
+                  x, 0.125f, bh + __bfloat162float(rw[q * ldw + kc[h]]));
+              y = fmaf(sv, LOG2E, -lb[e]);
+            }
+            p[e] = exp2_approx(y);
+            if (!FULL && q >= nq) p[e] = 0.f;
+          }
+          // p_b, rounded once; ds = bf16(p_b (dp - D)) from its halves
+          const uint32_t pw = pack_bf16(p[0], p[1]);
+          const uint32_t dw = pack_bf16(
+              __uint_as_float(pw << 16) * (dp[4 * j + 2 * h] - dq[0]),
+              __uint_as_float(pw & 0xffff0000u) *
+                  (dp[4 * j + 2 * h + 1] - dq[1]));
+          const int slot = 8 * (j >> 1) + 2 * (j & 1) + h;
+          s[slot] = __uint_as_float(pw);
+          dp[slot] = __uint_as_float(dw);
+        }
+      }
+    };
+    auto grads = [&](float* s, float* dp, int tile) {
+      if ((tile + 1) * QT <= a.n)
+        grads_body(std::true_type{}, s, dp, tile);
+      else
+        grads_body(std::false_type{}, s, dp, tile);
+    };
+    // the A fragments of k16-step k: the words grads left in s and dp
+    auto pack = [&](const float* s, const float* dp) {
+#pragma unroll
+      for (int k = 0; k < QT / 16; ++k)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          pp[k][i] = __float_as_uint(s[8 * k + i]);
+          pd[k][i] = __float_as_uint(dp[8 * k + i]);
+        }
+    };
+    // S^T = K . Q^T and dP^T = V . dO^T of the tile in stage sg
+    auto scores = [&](float* s, float* dp, const unsigned char* sg) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        mma_bf16_ss<QT>(s, desc(kw + 32 * kk, 16, 1024, LAYOUT_SW128),
+                        desc(sg + 32 * kk, 16, 1024, LAYOUT_SW128), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        mma_bf16_ss<QT>(dp, desc(vw + 32 * kk, 16, 1024, LAYOUT_SW128),
+                        desc(sg + TILE_BYTES + 32 * kk, 16, 1024,
+                             LAYOUT_SW128),
+                        kk > 0);
+    };
+    // dV += p_b^T . dO and dK += ds^T . Q of the tile in stage sg
+    auto grad_products = [&](const unsigned char* sg, bool acc) {
+#pragma unroll
+      for (int k = 0; k < QT / 16; ++k)
+        mma_bf16_rs_mn<D>(dv, pp[k],
+                          desc(sg + TILE_BYTES + 2048 * k, 16, 1024,
+                               LAYOUT_SW128),
+                          acc || k > 0);
+#pragma unroll
+      for (int k = 0; k < QT / 16; ++k)
+        mma_bf16_rs_mn<D>(dk, pd[k],
+                          desc(sg + 2048 * k, 16, 1024, LAYOUT_SW128),
+                          acc || k > 0);
+    };
+    auto full_bar = [&](int tile) { return full + (it + tile) % a.stages; };
+    auto parity = [&](int tile) { return ((it + tile) / a.stages) & 1; };
+
+    mbar_wait(kvfull + ks, (uu / KV_STAGES) & 1);
+    {  // the first tile: its scores alone
+      float s[QT / 2], dp[QT / 2];
+      mbar_wait(full_bar(0), parity(0));
+      named_sync(TURN + wgi, CONSUMERS);
+      wgmma_fence();
+      scores(s, dp, stage(0));
+      wgmma_commit();
+      named_arrive(TURN + (wgi ^ 1), CONSUMERS);
+      wgmma_wait<0>();
+      fence_operands(s);
+      fence_operands(dp);
+      grads(s, dp, 0);
+      pack(s, dp);
+    }
+    // each further tile: one turn issues its scores and the previous
+    // tile's gradient products; its p_b and ds are formed while those run
+    for (int tile = 1; tile < a.qtiles; ++tile) {
+      float s[QT / 2], dp[QT / 2];
+      mbar_wait(full_bar(tile), parity(tile));
+      fence_operands(pp);
+      fence_operands(pd);
+      fence_operands(dk);
+      fence_operands(dv);
+      named_sync(TURN + wgi, CONSUMERS);
+      wgmma_fence();
+      scores(s, dp, stage(tile));
+      wgmma_commit();
+      grad_products(stage(tile - 1), tile > 1);
+      wgmma_commit();
+      named_arrive(TURN + (wgi ^ 1), CONSUMERS);
+      wgmma_wait<1>();  // the scores are in; the products may still run
+      fence_operands(s);
+      fence_operands(dp);
+      grads(s, dp, tile);
+      wgmma_wait<0>();  // the previous tile's products are done
+      fence_operands(pp);  // read by them until here
+      fence_operands(pd);
+      release(empty + (it + tile - 1) % a.stages);
+      pack(s, dp);
+    }
+    // the last tile's gradient products
+    fence_operands(pp);
+    fence_operands(pd);
+    fence_operands(dk);
+    fence_operands(dv);
+    named_sync(TURN + wgi, CONSUMERS);
+    wgmma_fence();
+    grad_products(stage(a.qtiles - 1), a.qtiles > 1);
+    wgmma_commit();
+    named_arrive(TURN + (wgi ^ 1), CONSUMERS);
+    wgmma_wait<0>();
+    fence_operands(dk);
+    fence_operands(dv);
+    release(empty + (it + a.qtiles - 1) % a.stages);
+    it += a.qtiles;
+
+    // dk and dv through the warpgroup's half of the K / V stage (done with:
+    // the unit's products are waited on), 64 rows of 128 bytes each in the
+    // 128-byte swizzle, then out in whole rows, 16 bytes a thread
+    unsigned char* kst = const_cast<unsigned char*>(kw);
+    unsigned char* vst = const_cast<unsigned char*>(vw);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * (warp & 3) + g + 8 * h;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int off = r * 128 + ((j ^ (r & 7)) << 4) + 4 * t;
+        // dk = ds^T.(q / 8): the scale after the f32 sum, exact
+        *reinterpret_cast<uint32_t*>(kst + off) =
+            pack_bf16(dk[4 * j + 2 * h] * 0.125f,
+                      dk[4 * j + 2 * h + 1] * 0.125f);
+        *reinterpret_cast<uint32_t*>(vst + off) =
+            pack_bf16(dv[4 * j + 2 * h], dv[4 * j + 2 * h + 1]);
+      }
+    }
+    named_sync(OUT + wgi, 128);
+    for (int i = threadIdx.x & 127; i < 2 * 64 * 8; i += 128) {
+      const int v = i >> 9, r = (i >> 3) & 63, c = i & 7;
+      if (k0 + r >= a.n) continue;
+      const uint4 x = *reinterpret_cast<const uint4*>(
+          (v ? vst : kst) + r * 128 + ((c ^ (r & 7)) << 4));
+      *reinterpret_cast<uint4*>(a.dqkv + ((size_t)b * a.n + k0 + r) * 3 * C +
+                                (v + 1) * C + head * D + 8 * c) = x;
+    }
+    fence_proxy_async();  // before TMA writes the stage again
+    release(kvempty + ks);
   }
+  if (wgi == 0) named_sync(TURN, CONSUMERS);  // warpgroup 1's last arrive
 }
 
 int launch_dq_f32(const void* qkv, const void* rel_h, const void* rel_w,
@@ -942,23 +1293,62 @@ int launch_dq_bf16(const void* qkv, const void* rel_h, const void* rel_w,
   return (int)cudaGetLastError();
 }
 
+// `blocks` persistent blocks (one an SM) over the units; the query ring
+// is the deepest (up to MAX_STAGES) that fits beside the K / V stages, and
+// at least two (a consumer holds one tile while it waits for the next)
 int launch_dkv_bf16(const void* qkv, const void* rel_h, const void* rel_w,
                     const void* g, const float* lse, const float* dvec,
                     void* dqkv, int batch, int n, int heads, int h, int w,
-                    cudaStream_t stream) {
+                    int blocks, cudaStream_t stream) {
   using mma::bf16;
-  const size_t smem = dkv_mma_smem_bytes(h, w);
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
-  auto kernel = w == mma::TILE ? attn_bwd_dkv_mma_kernel<true>
-                               : attn_bwd_dkv_mma_kernel<false>;
+  const bool row_tile = w == 64 && h % 2 == 0;
+  const dkv::Layout L(h, w, row_tile);
+  int stages = dkv::MAX_STAGES;
+  while (stages > 2 && L.smem(stages) > 232448) --stages;
+  const size_t smem = L.smem(stages);
+  if (n < 1 || n != h * w || blocks < 1 || smem > 232448)
+    return (int)cudaErrorInvalidValue;
+  // qkv as (3C, N, B): boxes of one head's 64 columns x 64 query rows (Q)
+  // or x 128 key rows (K, V); g as (C, N, B), boxes of 64 x 64
+  const int c = heads * attn::D;
+  CUtensorMap maps[4] = {};
+  const cuuint64_t dq[3] = {(cuuint64_t)(3 * c), (cuuint64_t)n,
+                            (cuuint64_t)batch};
+  const cuuint64_t sq[2] = {6ull * c, 6ull * c * n};
+  const cuuint64_t dg[3] = {(cuuint64_t)c, (cuuint64_t)n, (cuuint64_t)batch};
+  const cuuint64_t sg[2] = {2ull * c, 2ull * c * n};
+  const cuuint32_t box_q[3] = {attn::D, dkv::QT, 1};
+  const cuuint32_t box_kv[3] = {attn::D, dkv::KEYS, 1};
+  const auto bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  if (!hop::tensor_map(maps, bf, 3, qkv, dq, sq, box_q, sw) ||
+      !hop::tensor_map(maps + 1, bf, 3, qkv, dq, sq, box_kv, sw) ||
+      !hop::tensor_map(maps + 2, bf, 3, g, dg, sg, box_q, sw))
+    return (int)cudaErrorInvalidValue;
+  // ROW_TILE: rel_w as (64, B heads N), boxes of 64 x 64 query rows
+  const cuuint64_t dw[2] = {64, (cuuint64_t)batch * heads * n};
+  const cuuint64_t sw_[1] = {128};
+  const cuuint32_t box_w[2] = {64, dkv::QT};
+  if (row_tile && !hop::tensor_map(maps + 3, bf, 2, rel_w, dw, sw_, box_w, sw))
+    return (int)cudaErrorInvalidValue;
+  dkv::Args a;
+  a.rel_h = static_cast<const bf16*>(rel_h);
+  a.rel_w = static_cast<const bf16*>(rel_w);
+  a.lse = lse, a.dvec = dvec;
+  a.dqkv = static_cast<bf16*>(dqkv);
+  a.rel_h_len = (long long)batch * heads * n * h;
+  a.rel_w_len = (long long)batch * heads * n * w;
+  a.n = n, a.heads = heads, a.H = h, a.W = w;
+  a.qtiles = (n + dkv::QT - 1) / dkv::QT, a.stages = stages;
+  a.kblocks = (n + dkv::KEYS - 1) / dkv::KEYS;
+  a.units = batch * heads * a.kblocks;
+  auto kernel = row_tile ? attn_bwd_dkv_wgmma_kernel<true>
+                         : attn_bwd_dkv_wgmma_kernel<false>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((n + DKV_KEYS - 1) / DKV_KEYS, heads, batch);
-  kernel<<<grid, DKV_NT, smem, stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(rel_h),
-      static_cast<const bf16*>(rel_w), static_cast<const bf16*>(g), lse, dvec,
-      static_cast<bf16*>(dqkv), n, heads, h, w);
+  kernel<<<min(blocks, a.units), dkv::NTH, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], a);
   return (int)cudaGetLastError();
 }
 
@@ -986,16 +1376,18 @@ int dhoct_attn_bwd_dq(const void* qkv, const void* rel_h, const void* rel_w,
                        batch, n, heads, h, w, s);
 }
 
+// blocks: the bf16 kernel's persistent blocks (the card's SMs); the f32
+// kernel ignores it
 int dhoct_attn_bwd_dkv(const void* qkv, const void* rel_h, const void* rel_w,
                        const void* g, const void* lse, const void* dvec,
                        void* dqkv, int batch, int n, int heads, int h, int w,
-                       int dtype, void* stream) {
+                       int dtype, int blocks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dv = static_cast<const float*>(dvec);
   if (dtype == 1)
     return launch_dkv_bf16(qkv, rel_h, rel_w, g, l, dv, dqkv, batch, n, heads,
-                           h, w, s);
+                           h, w, blocks, s);
   return launch_dkv_f32(qkv, rel_h, rel_w, g, l, dv, dqkv, batch, n, heads, h,
                         w, s);
 }

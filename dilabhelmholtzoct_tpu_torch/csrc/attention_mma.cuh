@@ -1,7 +1,7 @@
 // Tensor-core building blocks of the bf16 encoder attention kernels on
-// mma.sync: the forward K1 (attention.cu, attn_global_mma_kernel), the
-// backward K5 (attention_bwd.cu, attn_bwd_dq_mma_kernel /
-// attn_bwd_dkv_mma_kernel) and the windowed body shared by K2
+// mma.sync: the forward K1 (attention.cu, attn_global_mma_kernel), K5's
+// dq kernel (attention_bwd.cu, attn_bwd_dq_mma_kernel; its dk/dv kernel
+// runs on wgmma) and the windowed body shared by K2
 // (attention.cu, attn_windowed_mma_kernel) and K7 (attention_winimg.cu,
 // attn_winimg_mma_kernel): window_tile_mma. (The bf16 K6 on wgmma,
 // attention_relpos_wgmma.cu, takes its softmax helpers from here.)

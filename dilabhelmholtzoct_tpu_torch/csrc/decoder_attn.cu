@@ -33,10 +33,12 @@
 //    rnd(d_res) and dWq^T = sum_r rnd(d_qpre)^T rnd(keys + pe), split-K over
 //    row chunks. The JAX kernel carries dW in one output block across its
 //    sequential grid; here blocks run in parallel, so every sum over rows is
-//    one partial per slot (or chunk), added up by the wrapper in a fixed
-//    order -- no atomics, so the gradients repeat bit for bit.
+//    one partial per slot (or chunk), added up in a fixed order (by the
+//    wrapper, or for the bf16 weight pass by i2t_dw_sum_kernel in the same
+//    call) -- no atomics, so the gradients repeat bit for bit.
 //    * bf16: i2t_bwd_rows_kernel (Wq and Wo in shared memory, a warp pair
-//      per 16-row tile) and i2t_bwd_dw_kernel (decoder_mma.cuh).
+//      per 16-row tile) and i2t_bwd_dw_wgmma_kernel (on bf16 wgmma, both
+//      operands landed by TMA, see the kernel).
 //    * f32: i2t_bwd_rows_tf32_kernel (super-tiles of 64 rows streaming Wq,
 //      Wo, Wo^T and Wq^T) and i2t_bwd_dw_tf32_kernel (on TF32 wgmma, its
 //      rows landed by TMA), in split TF32; rnd() is the identity, so the
@@ -71,7 +73,14 @@
 //    with the split, 0.208 ms at split TF32's rate, against 808 MB of
 //    rows read once: 0.241 ms; byte-bound) runs on TF32 wgmma m64n256k8
 //    with TMA loads into a 4-stage mbarrier ring: each row is read from
-//    device memory once, each element split once (see the kernel).
+//    device memory once, each element split once (see the kernel). The
+//    bf16 one (34 GFLOP, 0.035 ms, against 403 MB at pb 1: 0.121 ms, and
+//    287 MB at pb 8, where an image's keys serve 8 pairs: 0.086 ms;
+//    byte-bound) has to stream at the memory's rate: its rows come by TMA
+//    in 24-40 KB stages, straight into the layout bf16 wgmma reads (no
+//    thread touches an operand but for kind 1's keys + pe), and its blocks
+//    are split between the two weights by the bytes each reads, so that
+//    one wave of blocks ends together.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -749,72 +758,169 @@ __global__ void __launch_bounds__(RT, 1)
     dbq_p[wg * I + group_col(2 * sub + gg, lane)] = a_dbq[gg];
 }
 
-// The weight pass: block (chunk, kind) sums over the chunk's rows
+// The bf16 weight pass on wgmma and TMA (i2t_bwd_dw_wgmma_kernel): block u
+// sums, over the rows of its unit (a run of stages of one weight),
 //   kind 0: dWo   [I][C] = rnd(out)^T . rnd(d_res)
 //   kind 1: dWq^T [I][C] = rnd(d_qpre)^T . rnd(keys[pair / pb] + pe)
-// into part[kind][chunk]; warp w owns rows 64 (w / 4).., columns 64 (w % 4)..
-constexpr int DW_LDA = I + 8, DW_LDB = C + 8;
-constexpr int DW_STAGE = dec::DW_SR * (DW_LDA + 2 * DW_LDB);  // A, B, pe
-constexpr size_t DW_SMEM = sizeof(bf16) * (size_t)dec::DW_STAGES * DW_STAGE;
+// into part[u], as one product of M = I = 128 rows x N = C = 256 columns
+// over K = the unit's rows. Units 0..nchunks0-1 are dWo's chunks, the rest
+// dWq^T's (ops/decoder_attn.py: dw_plan_bf16 gives dWq^T, which reads 1280
+// bytes a row against dWo's 768, more and shorter chunks, so that the two
+// kinds end together on one wave of blocks).
+// A stage is dwb::SR = 32 rows of one pair: a pair's rows are cut into
+// stages from its first row (its last stage may be shorter), and every
+// tile comes by TMA as a box of a 3-D view (width, M, pairs) whose rows
+// past M read as zero, so no row of a stage needs masking.
+//   producer warp: per stage, X (rnd(out) or d_qpre: 2 boxes of 64 columns
+//     x 32 rows) and Y (rnd(d_res), 4 boxes; kind 1: keys of the pair's
+//     image and pe, 4 boxes each), all in the 128-byte swizzle, into a ring
+//     of 8 stages of 24 KB (kind 0) or 5 of 40 KB (kind 1): 120-160 KB in
+//     flight a block, enough to stream at the memory's rate.
+//   consumers, two warpgroups: warpgroup w owns dW rows 64 w.. x all 256
+//     columns (128 f32 accumulators a thread). bf16 wgmma reads both
+//     operands MN-major from shared memory through its transpose bits, and
+//     K (the row index) is the slow index of both tiles, so the boxes are
+//     the operands as they land: X's box w is A = X^T, Y's four boxes are B
+//     (LBO the 4 KB between them), one m64n256k16 per 16 rows. Kind 1 first
+//     adds keys and pe in f32 and rounds the sum once to bf16, in place, as
+//     the plain twin does (every consumer thread 4 x 16 bytes a stage), and
+//     fences those writes for the async proxy. A stage's products run while
+//     the next stage is added; the stage is given back once they are done.
+// The partials are summed in unit order by i2t_dw_sum_kernel, launched
+// after it: no atomics, the same bits every run.
+namespace dwb {
 
-__global__ void __launch_bounds__(dec::DW_THREADS, 1)
-    i2t_bwd_dw_kernel(const bf16* keys, const bf16* pe, const bf16* dqpre,
-                      const bf16* out_rows, const bf16* dres_rows,
-                      float* part, int m, int pb, int rows, int chunk) {
-  using namespace dec;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
-  const int kind = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int lo = blockIdx.x * chunk, hi = min(rows, lo + chunk);
-  const bf16* xsrc = kind ? dqpre : out_rows;
-  float acc[4][8][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 8; ++b) acc[a][b][0] = acc[a][b][1] = acc[a][b][2] = acc[a][b][3] = 0.f;
+constexpr int SR = 32;                         // rows of a stage
+constexpr int BOX = SR * 128;                  // 64 bf16 columns x SR rows
+constexpr int X_BYTES = (I / 64) * BOX;        // 8 KB
+constexpr int Y_BYTES = (C / 64) * BOX;        // 16 KB, and as much of pe
+constexpr int STAGE0 = X_BYTES + Y_BYTES;      // dWo: 24 KB
+constexpr int STAGE1 = X_BYTES + 2 * Y_BYTES;  // dWq^T: 40 KB
+constexpr int STAGES0 = 8, STAGES1 = 5;
+constexpr int RING = STAGES1 * STAGE1;
+constexpr int CONSUMERS = 256, NTH = CONSUMERS + 32;
+constexpr size_t SMEM = 2048 + (size_t)RING;  // alignment slack, barriers
+static_assert(STAGES0 * STAGE0 <= RING, "the dWo ring fits dWq^T's");
+static_assert(SMEM <= 232448, "shared memory of the bf16 weight pass");
 
-  auto load = [&](int st, int r0) {
-    bf16* xs = ring + st * DW_STAGE;
-    bf16* ys = xs + DW_SR * DW_LDA;
-    bf16* es = ys + DW_SR * DW_LDB;
-    for (int i = threadIdx.x; i < DW_SR * (I / 8); i += DW_THREADS) {
-      const int r = i / (I / 8), c = (i % (I / 8)) * 8;
-      const bool ok = r0 + r < hi;
-      cp_async16(xs + r * DW_LDA + c, xsrc + (ok ? (size_t)(r0 + r) * I + c : 0), ok);
+// rnd(keys + pe) in place of keys over a kind-1 stage's Y (keys and pe
+// land in the same swizzled layout, so element i of one pairs with element
+// i of the other), thread c of the consumers 4 x 16 bytes
+__device__ __forceinline__ void add_pe(unsigned char* y, int c) {
+  uint4* k = reinterpret_cast<uint4*>(y);
+  const uint4* e = reinterpret_cast<const uint4*>(y + Y_BYTES);
+#pragma unroll
+  for (int i = c; i < Y_BYTES / 16; i += CONSUMERS) {
+    uint4 a = k[i];
+    const uint4 b = e[i];
+    uint32_t* av = reinterpret_cast<uint32_t*>(&a);
+    const uint32_t* bv = reinterpret_cast<const uint32_t*>(&b);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 x = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(av + j));
+      const float2 z = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(bv + j));
+      const __nv_bfloat162 sum = __floats2bfloat162_rn(x.x + z.x, x.y + z.y);
+      av[j] = *reinterpret_cast<const uint32_t*>(&sum);
     }
-    for (int i = threadIdx.x; i < DW_SR * (C / 8); i += DW_THREADS) {
-      const int r = i / (C / 8), c = (i % (C / 8)) * 8;
-      const int row = r0 + r;
-      const bool ok = row < hi;
-      if (kind == 0) {
-        cp_async16(ys + r * DW_LDB + c, dres_rows + (ok ? (size_t)row * C + c : 0), ok);
-      } else {
-        const int pair = ok ? row / m : 0, rr = ok ? row - pair * m : 0;
-        cp_async16(ys + r * DW_LDB + c,
-                   keys + ((size_t)(pair / pb) * m + rr) * C + c, ok);
-        cp_async16(es + r * DW_LDB + c, pe + (size_t)rr * C + c, ok);
+    k[i] = a;
+  }
+}
+
+}  // namespace dwb
+
+__global__ void __launch_bounds__(dwb::NTH, 1)
+    i2t_bwd_dw_wgmma_kernel(const __grid_constant__ CUtensorMap tm_out,
+                            const __grid_constant__ CUtensorMap tm_dqpre,
+                            const __grid_constant__ CUtensorMap tm_dres,
+                            const __grid_constant__ CUtensorMap tm_keys,
+                            const __grid_constant__ CUtensorMap tm_pe,
+                            float* part, int m, int pb, int stages_total,
+                            int chunk0, int nchunks0, int chunk1) {
+  using namespace hop;
+  using namespace dwb;
+  extern __shared__ __align__(16) unsigned char smem_tma[];
+  // 1024-aligned, by an offset from the shared array (shared accesses)
+  unsigned char* base = smem_tma + ((1024 - (smem(smem_tma) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base);
+  uint64_t* empty = full + STAGES0;
+  unsigned char* ring = base + 1024;
+  const int u = blockIdx.x, kind = u >= nchunks0 ? 1 : 0;
+  const int chunk = kind ? chunk1 : chunk0;
+  const int s0 = (kind ? u - nchunks0 : u) * chunk;
+  const int nst = min(stages_total, s0 + chunk) - s0;
+  const int depth = kind ? STAGES1 : STAGES0;
+  const int sbytes = kind ? STAGE1 : STAGE0;
+  const int spp = (m + SR - 1) / SR;  // stages of a pair
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < depth; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, CONSUMERS / 32);  // a lane of each warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (warp == CONSUMERS / 32) {  // ----------------------------- producer ----
+    if (lane != 0) return;
+    for (int it = 0; it < nst; ++it) {
+      const int st = it % depth, s = s0 + it;
+      const int pair = s / spp, r0 = (s - pair * spp) * SR;
+      unsigned char* x = ring + st * sbytes;
+      mbar_wait(empty + st, ((it / depth) & 1) ^ 1);
+      mbar_expect_tx(full + st, sbytes);
+      for (int h = 0; h < I / 64; ++h)
+        tma_load_3d(x + h * BOX, kind ? &tm_dqpre : &tm_out, full + st,
+                    64 * h, r0, pair);
+      for (int h = 0; h < C / 64; ++h) {
+        unsigned char* y = x + X_BYTES + h * BOX;
+        if (kind) {
+          tma_load_3d(y, &tm_keys, full + st, 64 * h, r0, pair / pb);
+          tma_load_3d(y + Y_BYTES, &tm_pe, full + st, 64 * h, r0, 0);
+        } else {
+          tma_load_3d(y, &tm_dres, full + st, 64 * h, r0, pair);
+        }
       }
     }
-  };
-  auto prep = [&](int st) {  // kind 1: keys -> rnd(keys + pe) in place
-    if (kind == 0) return false;
-    bf16* ys = ring + st * DW_STAGE + DW_SR * DW_LDA;
-    const bf16* es = ys + DW_SR * DW_LDB;
-    for (int i = threadIdx.x; i < DW_SR * C / 2; i += DW_THREADS) {
-      const int r = i / (C / 2), c = (i % (C / 2)) * 2;
-      const float2 k = ld_bf2(ys + r * DW_LDB + c), p = ld_bf2(es + r * DW_LDB + c);
-      st_bf2(ys + r * DW_LDB + c, k.x + p.x, k.y + p.y);
+    return;
+  }
+
+  // --------------------------------------------------------- consumers ----
+  const int wgi = threadIdx.x >> 7, g = lane >> 2, t = lane & 3;
+  const int i0 = 64 * wgi + 16 * (warp & 3) + g;  // output rows i0, i0 + 8
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  for (int it = 0; it < nst; ++it) {
+    const int st = it % depth;
+    unsigned char* x = ring + st * sbytes;
+    mbar_wait(full + st, (it / depth) & 1);
+    if (kind) {
+      add_pe(x + X_BYTES, threadIdx.x);
+      fence_proxy_async();
+      named_sync(1, CONSUMERS);  // the whole B tile is written
     }
-    return true;
-  };
-  const int a0 = 64 * (warp / 4), b0 = 64 * (warp % 4);
-  auto mma = [&](int st) {
-    const bf16* xs = ring + st * DW_STAGE;
-    dw_stage_mma<DW_LDA, DW_LDB>(acc, xs, a0, xs + DW_SR * DW_LDA, b0, lane);
-  };
-  dw_ring(lo, hi, load, prep, mma);
-  dw_store(part + ((size_t)kind * gridDim.x + blockIdx.x) * I * C + a0 * C + b0,
-           C, acc, lane);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < SR / 16; ++kk)
+      mma_bf16_ss_mn<256>(
+          acc, desc(x + wgi * BOX + 2048 * kk, BOX, 1024, LAYOUT_SW128),
+          desc(x + X_BYTES + 2048 * kk, BOX, 1024, LAYOUT_SW128), 1);
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's products are done
+    __syncwarp();
+    if (it > 0 && lane == 0) mbar_arrive(empty + (it - 1) % depth);
+  }
+  wgmma_wait<0>();
+  float* out = part + ((size_t)u * I + i0) * C;
+#pragma unroll
+  for (int j = 0; j < C / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      dec32::st2(out + (size_t)(8 * h) * C + 8 * j + 2 * t,
+                 acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
 }
 
 int launch_bwd_rows(void* const* a, int bp, int m, int pb, int n_tok,
@@ -835,21 +941,82 @@ int launch_bwd_rows(void* const* a, int bp, int m, int pb, int n_tok,
   return (int)cudaGetLastError();
 }
 
-int launch_bwd_dw(void* const* a, int bp, int m, int pb, int chunk,
-                  int nchunks, cudaStream_t stream) {
-  const int rows = bp * m;
-  if (pb < 1 || bp % pb || chunk < 1 || chunk % dec::DW_SR || nchunks < 1 ||
-      (nchunks - 1) * chunk >= rows || nchunks * chunk < rows)
+// out[kind] = the sum of the kind's partials (units 0..n0-1 for dWo, then
+// n0..n0+n1-1 for dWq^T), unit by unit in order: a thread a float4 column.
+// The partials were just written and sit in L2; with one float4 column a
+// thread there are only 16 K threads, so each issues SUM_LOADS partials'
+// loads before it adds them in order, to keep enough bytes in flight.
+constexpr int SUM_LOADS = 16, SUM_THREADS = 256;
+__global__ void __launch_bounds__(SUM_THREADS)
+    i2t_dw_sum_kernel(const float4* __restrict__ part, float4* __restrict__ out,
+                      int n0, int n1) {
+  constexpr int COLS = I * C / 4;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= 2 * COLS) return;
+  const int kind = i >= COLS ? 1 : 0, col = i - kind * COLS;
+  const int hi = kind ? n0 + n1 : n0;
+  const float4* p = part + col;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  auto add = [&](const float4 x) {
+    acc.x += x.x, acc.y += x.y, acc.z += x.z, acc.w += x.w;
+  };
+  int u = kind ? n0 : 0;
+  for (; u + SUM_LOADS <= hi; u += SUM_LOADS) {
+    float4 x[SUM_LOADS];
+#pragma unroll
+    for (int j = 0; j < SUM_LOADS; ++j)
+      x[j] = __ldg(p + (size_t)(u + j) * COLS);
+#pragma unroll
+    for (int j = 0; j < SUM_LOADS; ++j) add(x[j]);
+  }
+  for (; u < hi; ++u) add(__ldg(p + (size_t)u * COLS));
+  out[i] = acc;
+}
+
+// a: keys, pe, d_qpre, rnd(out), rnd(d_res), part, out. chunk0 / chunk1:
+// stages a dWo / dWq^T unit (the last of each kind may hold fewer),
+// nchunks0 / nchunks1 their units; one block a unit, then the partials
+// summed into out [2][I][C] (dWo, dWq^T).
+int launch_bwd_dw(void* const* a, int bp, int m, int pb, int chunk0,
+                  int nchunks0, int chunk1, int nchunks1,
+                  cudaStream_t stream) {
+  const int total = bp * ((m + dwb::SR - 1) / dwb::SR);
+  auto covers = [&](int chunk, int n) {
+    return chunk >= 1 && n >= 1 && (n - 1) * chunk < total &&
+           n * chunk >= total;
+  };
+  if (pb < 1 || bp % pb || m < 1 || !covers(chunk0, nchunks0) ||
+      !covers(chunk1, nchunks1))
     return (int)cudaErrorInvalidValue;
+  // (width, M, pairs or images) bf16, boxes of 64 columns x SR rows
+  CUtensorMap maps[5];
+  const int widths[5] = {I, I, C, C, C};
+  const int planes[5] = {bp, bp, bp, bp / pb, 1};
+  const void* srcs[5] = {a[3], a[2], a[4], a[0], a[1]};
+  for (int i = 0; i < 5; ++i) {
+    const cuuint64_t dims[3] = {(cuuint64_t)widths[i], (cuuint64_t)m,
+                                (cuuint64_t)planes[i]};
+    const cuuint64_t strides[2] = {2ull * widths[i], 2ull * widths[i] * m};
+    const cuuint32_t box[3] = {64, (cuuint32_t)dwb::SR, 1};
+    if (!hop::tensor_map(maps + i, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                         srcs[i], dims, strides, box,
+                         CU_TENSOR_MAP_SWIZZLE_128B))
+      return (int)cudaErrorInvalidValue;
+  }
   cudaError_t e = cudaFuncSetAttribute(
-      i2t_bwd_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)DW_SMEM);
+      i2t_bwd_dw_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)dwb::SMEM);
   if (e != cudaSuccess) return (int)e;
-  i2t_bwd_dw_kernel<<<dim3(nchunks, 2), dec::DW_THREADS, DW_SMEM, stream>>>(
-      static_cast<const bf16*>(a[0]), static_cast<const bf16*>(a[1]),
-      static_cast<const bf16*>(a[2]), static_cast<const bf16*>(a[3]),
-      static_cast<const bf16*>(a[4]), static_cast<float*>(a[5]), m, pb, rows,
-      chunk);
+  i2t_bwd_dw_wgmma_kernel<<<nchunks0 + nchunks1, dwb::NTH, dwb::SMEM,
+                            stream>>>(maps[0], maps[1], maps[2], maps[3],
+                                      maps[4], static_cast<float*>(a[5]), m,
+                                      pb, total, chunk0, nchunks0, chunk1);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  i2t_dw_sum_kernel<<<(2 * I * C / 4 + SUM_THREADS - 1) / SUM_THREADS,
+                      SUM_THREADS, 0, stream>>>(
+      static_cast<const float4*>(a[5]), static_cast<float4*>(a[6]), nchunks0,
+      nchunks1);
   return (int)cudaGetLastError();
 }
 
@@ -1714,15 +1881,20 @@ int dhoct_i2t_bwd_rows(void* const* a, int bp, int m, int pb, int n_tok,
              : launch_bwd_rows_tf32(a, bp, m, pb, n_tok, blocks, eps, s);
 }
 
-// The weight pass (bf16 i2t_bwd_dw_kernel, f32 i2t_bwd_dw_tf32_kernel).
-// a[6]: keys, pe, d_qpre, rnd(out), rnd(d_res), and the partials
-// [2][nchunks][I][C] (dWo, dWq^T) of row chunks of `chunk` rows; f32 runs
-// on `blocks` persistent blocks (bf16: one per chunk and weight).
+// The weight pass (bf16 i2t_bwd_dw_wgmma_kernel, f32 i2t_bwd_dw_tf32_kernel).
+// a: keys, pe, d_qpre, rnd(out), rnd(d_res), and the partials. f32: row
+// chunks of `chunk` rows, partials [2][nchunks][I][C] (dWo, dWq^T), on
+// `blocks` persistent blocks (chunk1, nchunks1 unused); the caller sums
+// them. bf16: units of `chunk` stages of dWo (nchunks of them), then of
+// `chunk1` stages of dWq^T (nchunks1), partials [nchunks + nchunks1][I][C],
+// one block a unit (blocks unused), summed in unit order into a[6], [2][I]
+// [C] (dWo, dWq^T).
 int dhoct_i2t_bwd_dw(void* const* a, int bp, int m, int pb, int chunk,
-                     int nchunks, int blocks, int dtype, void* stream) {
+                     int nchunks, int chunk1, int nchunks1, int blocks,
+                     int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 1
-             ? launch_bwd_dw(a, bp, m, pb, chunk, nchunks, s)
+             ? launch_bwd_dw(a, bp, m, pb, chunk, nchunks, chunk1, nchunks1, s)
              : launch_bwd_dw_tf32(a, bp, m, pb, chunk, nchunks, blocks, s);
 }
 

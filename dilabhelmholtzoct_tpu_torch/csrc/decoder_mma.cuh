@@ -1,7 +1,7 @@
 // Tensor-core building blocks of the bf16 decoder backward kernels: the
-// image->token attention K4 (decoder_attn.cu, i2t_bwd_rows_kernel /
-// i2t_bwd_dw_kernel) and the upscaler K3 (upscaler.cu,
-// upscale_bwd_rows_kernel / upscale_bwd_dw_kernel).
+// image->token attention K4 (decoder_attn.cu, i2t_bwd_rows_kernel; its
+// weight pass runs on wgmma, i2t_bwd_dw_wgmma_kernel) and the upscaler K3
+// (upscaler.cu, upscale_bwd_rows_kernel / upscale_bwd_dw_kernel).
 //
 // Each backward is two launches:
 //   * a row pass: persistent blocks of 8 warps (one block per SM) hold the
@@ -17,12 +17,12 @@
 //     over a tile's 16 rows by group_sum8 and over the pair's tiles in
 //     registers or shared memory: one partial per pair, summed by the
 //     wrapper.
-//   * a weight pass (dw_* below): a split-K product over rows. A block of 8
-//     warps owns a chunk of rows and one 128 x 256 output tile (64 x 64 per
-//     warp, 128 accumulator registers), streams the chunk through a
-//     cp.async ring of DW_STAGES stages of DW_SR rows and writes one f32
-//     partial; the wrapper sums the partials in a fixed order. No atomics:
-//     the gradients repeat bit for bit.
+//   * a weight pass (dw_* below, K3's): a split-K product over rows. A
+//     block of 8 warps owns a chunk of rows and one 128 x 256 output tile
+//     (64 x 64 per warp, 128 accumulator registers), streams the chunk
+//     through a cp.async ring of DW_STAGES stages of DW_SR rows and writes
+//     one f32 partial; the wrapper sums the partials in a fixed order. No
+//     atomics: the gradients repeat bit for bit.
 // The row pass writes the operands of the weight gradients as bf16 rows.
 // Each is a bf16 rounding point of the JAX kernel, so the bf16 scratch
 // loses nothing and every tensor-core term is exact; only the order of

@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks of the port's wgmma + TMA kernels: the
-// bf16 K6 (attention_relpos_wgmma.cu, attn_relpos_wgmma_kernel) and the f32
-// K4 weight pass (decoder_attn.cu, i2t_bwd_dw_tf32_kernel).
+// bf16 K6 (attention_relpos_wgmma.cu, attn_relpos_wgmma_kernel), the bf16
+// K5 dk/dv kernel (attention_bwd.cu, attn_bwd_dkv_wgmma_kernel) and the K4
+// weight pass in both types (decoder_attn.cu, i2t_bwd_dw_wgmma_kernel and
+// i2t_bwd_dw_tf32_kernel).
 //
 // * mbarriers: init, arrive, arrive with an expected transaction count,
 //   a wait on a phase's parity, and the arrive that fires when a thread's
@@ -11,10 +13,16 @@
 //   mbarrier; the host encoder is looked up at run time
 //   (cudaGetDriverEntryPoint), so no library links against libcuda.
 // * wgmma: shared-memory matrix descriptors, fence / commit / wait, and the
-//   instruction shapes the two kernels issue (m64nNk16 bf16 with both
-//   operands in shared memory or A in registers and B MN-major; m64n256k8
-//   TF32 with A in registers), each an asm block listing its N / 2 f32
-//   accumulators.
+//   instruction shapes the kernels issue, each an asm block listing its
+//   N / 2 f32 accumulators:
+//     mma_bf16_ss<64 | 112 | 128 | 224>  bf16, both operands in shared
+//       memory, K-major (K6's and K5's score products);
+//     mma_bf16_ss_mn<256>  bf16, both operands in shared memory, MN-major
+//       (the K4 weight pass: X^T . Y with K the row index of both);
+//     mma_bf16_rs_mn<16 | 32 | 64>  bf16, A in registers, B MN-major (K6's
+//       p . v, K5's p^T . dO and ds^T . q);
+//     mma_tf32_rs<256>  TF32, A in registers, B K-major (the f32 K4 weight
+//       pass).
 //
 // Accumulator layout of a wgmma m64nN f32 tile (PTX ISA, "Register
 // fragment: wgmma .m64nNk*"): warp w of the warpgroup, lane = 4 g + t,
@@ -250,6 +258,25 @@ __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
+// pins registers at this point of the program: their values are defined
+// before it and taken from it after, so the compiler moves no instruction
+// that defines or reads them across (a "memory" clobber orders memory
+// only). Placed before wgmma_fence on a product's register operands, and
+// after wgmma_wait on its accumulators, it keeps other instructions out of
+// the wgmma pipeline, which ptxas would otherwise serialize.
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N, int M>
+__device__ __forceinline__ void fence_operands(uint32_t (&r)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
 // wait until at most N committed groups are pending; their accumulators
 // may be read only after it
 template <int N>
@@ -261,6 +288,9 @@ __device__ __forceinline__ void wgmma_wait() {
 // (acc ? d : 0) + A . B, each operand a descriptor: bf16, both K-major
 template <int N>
 __device__ void mma_bf16_ss(float* d, uint64_t da, uint64_t db, int acc);
+// bf16, both operands MN-major (transposed): A stored [K][M], B [K][N]
+template <int N>
+__device__ void mma_bf16_ss_mn(float* d, uint64_t da, uint64_t db, int acc);
 // bf16, A from registers, B MN-major (transposed)
 template <int N>
 __device__ void mma_bf16_rs_mn(float* d, const uint32_t (&a)[4], uint64_t db,
@@ -410,6 +440,65 @@ __device__ __forceinline__ void mma_bf16_ss<224>(float* d, uint64_t da,
       "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
       "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
       "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void mma_bf16_ss_mn<256>(float* d, uint64_t da,
+                                                   uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 1, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+      "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+      "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+      "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+      "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+      "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+      "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+      "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+      "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+      "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+      "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+      "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+      "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+      "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+      "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+      "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+      "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(da), "l"(db), "r"(acc));
 }
 

@@ -391,7 +391,7 @@ def _bind(name):
             fns = [(lib.dhoct_attn_windowed_image, [p] * 4 + [i] * 6 + [p])]
         else:
             fns = [(lib.dhoct_attn_bwd_dq, [p] * 9 + [i] * 6 + [p]),
-                   (lib.dhoct_attn_bwd_dkv, [p] * 7 + [i] * 6 + [p])]
+                   (lib.dhoct_attn_bwd_dkv, [p] * 7 + [i] * 7 + [p])]
         for fn, sig in fns:
             fn.argtypes = sig
             fn.restype = ctypes.c_int
@@ -549,11 +549,15 @@ def attention_bwd_dq_cuda(qkv, rel_h, rel_w, g_out, lse, dvec, dqkv, *, hw,
 def attention_bwd_dkv_cuda(qkv, rel_h, rel_w, g_out, lse, dvec, dqkv, *, hw,
                            num_heads: int):
     """Launch K5's dk/dv kernel: writes dk and dv into the k and v columns
-    of ``dqkv`` (B, N, 3C)."""
+    of ``dqkv`` (B, N, 3C). bf16 ``attn_bwd_dkv_wgmma_kernel`` on one
+    persistent block an SM (the library sizes its ring of query stages),
+    f32 ``attn_bwd_dkv_tf32_kernel``."""
     lib, ptrs, dims, stream = _bwd_operands(qkv, rel_h, rel_w, g_out, lse,
                                             dvec, dqkv, hw, num_heads)
+    blocks = (kernels.sm_count(qkv.device) if qkv.dtype == torch.bfloat16
+              else 0)
     with torch.cuda.device(qkv.device):
-        err = lib.dhoct_attn_bwd_dkv(*ptrs, *dims, stream)
+        err = lib.dhoct_attn_bwd_dkv(*ptrs, *dims, blocks, stream)
     kernels.raise_on_error(err, lib.dhoct_error_string, "attn_bwd_dkv")
     LAUNCHES["attn_bwd_dkv"] += 1
 

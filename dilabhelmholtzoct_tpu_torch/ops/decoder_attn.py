@@ -25,7 +25,8 @@ kernels of ``csrc/decoder_attn.cu``:
     TF32): ``i2t_bwd_rows`` (the row pass; it also writes rnd(out) and
     rnd(d_res) per row as scratch in the input dtype) and ``i2t_bwd_dw``
     (the weight pass: dWo and dWq as split-K products over row chunks,
-    ``dw_plan``; in f32 on Hopper's TF32 wgmma with TMA loads).
+    ``dw_plan_bf16`` / ``dw_plan_f32``; on Hopper's wgmma with TMA loads,
+    in bf16 ``i2t_bwd_dw_wgmma_kernel``, in f32 ``i2t_bwd_dw_tf32_kernel``).
 
 The JAX package routes here only in bf16 unless ``set_fused_i2t('on')``
 forces it (``models/sam.py``); the f32 kernels serve that route.
@@ -48,6 +49,7 @@ maximum was a Mosaic workaround; softmax is shift-invariant).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -61,8 +63,12 @@ INTERNAL = 128
 HEADS = 8
 ROW_SLOTS = 4      # 16-row tiles in flight per block, a warp pair each
 F32_ROWS = 64      # rows of an f32 super-tile (dec32::ROWS)
-DW_ROWS = 32       # rows per stage of the bf16 weight pass (dec::DW_SR)
+DW_ROWS = 32       # rows per stage of the bf16 weight pass (dwb::SR), a
+                   # pair's rows cut into stages from its first row
 DW32_ROWS = 16     # rows per stage of the f32 weight pass (dw32::KR)
+# the bytes a row of each bf16 weight pass reads: dWo rnd(out) and
+# rnd(d_res), 256 + 512; dWq^T d_qpre, keys and pe, 256 + 512 + 512
+DW_ROW_BYTES = (768, 1280)
 
 _BOUND = False
 
@@ -171,41 +177,72 @@ def i2t_bwd_rows_plain(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, dy, *,
     return tuple(x.to(keys.dtype) for x in rows) + sums
 
 
-def dw_plan(rows: int, dtype, sm_count: int):
-    """The weight pass's launch plan over ``rows`` rows: its row chunks (one
-    partial sum each, added up in this order; about sm_count / 2 of them,
-    each a multiple of the stage's rows but the last), the nominal chunk
-    (a lone chunk may be shorter: fewer rows than a stage in all) and the
-    blocks: bf16 one per (chunk, weight); f32 (``dw32::KR`` = 16-row
-    stages) persistent blocks over the (chunk, weight) units, one per SM at
-    most."""
-    align = DW32_ROWS if dtype == torch.float32 else DW_ROWS
-    chunks = kernels.row_chunks(rows, max(1, sm_count // 2), align)
-    size = -(-chunks[0][1] // align) * align
-    units = 2 * len(chunks)
-    return chunks, size, units if dtype == torch.bfloat16 else min(
-        units, sm_count)
+def dw_stage_chunks(bp: int, m: int, parts: int):
+    """The bf16 weight pass's chunks over ``bp`` pairs of ``m`` rows: the
+    rows of each pair cut into stages of ``DW_ROWS`` from its first row
+    (its last stage may be shorter), the stages in order split into at
+    most ``parts`` runs of one size (the last may be shorter). Returns the
+    runs as row ranges [(lo, hi)] in order, and the stages of a run."""
+    spp = -(-m // DW_ROWS)
+    total = bp * spp
+    size = -(-total // parts)
+    start = lambda s: (s // spp) * m + min((s % spp) * DW_ROWS, m)
+    return [(start(a), start(min(total, a + size)))
+            for a in range(0, total, size)], size
+
+
+@functools.lru_cache(maxsize=None)
+def dw_plan_f32(rows: int, sm_count: int):
+    """The f32 weight pass's launch plan over ``rows`` rows (``dw32::KR`` =
+    16-row stages): the row chunks (one partial sum each, added up in this
+    order; about sm_count / 2 of them, each a multiple of the stage's rows
+    but the last), the nominal chunk (a lone chunk may be shorter: fewer
+    rows than a stage in all) and persistent blocks over the (chunk,
+    weight) units, one per SM at most."""
+    chunks = kernels.row_chunks(rows, max(1, sm_count // 2), DW32_ROWS)
+    size = -(-chunks[0][1] // DW32_ROWS) * DW32_ROWS
+    return chunks, size, min(2 * len(chunks), sm_count)
+
+
+@functools.lru_cache(maxsize=None)
+def dw_plan_bf16(bp: int, m: int, sm_count: int):
+    """The bf16 weight pass's launch plan over ``bp`` pairs of ``m`` rows:
+    each weight its own chunks of whole stages (``dw_stage_chunks``), one
+    block each, the SMs shared between the weights by the bytes a row of
+    each reads (``DW_ROW_BYTES``: dWq^T gets 5/8 of them), so that one wave
+    of blocks ends together. Returns ((dWo's chunks, dWq^T's chunks),
+    (stages of a dWo chunk, of a dWq^T chunk), blocks)."""
+    share = DW_ROW_BYTES[1] / sum(DW_ROW_BYTES)
+    n1 = max(1, min(sm_count - 1, round(sm_count * share)))
+    n0 = max(1, sm_count - n1)
+    (c0, s0), (c1, s1) = (dw_stage_chunks(bp, m, n) for n in (n0, n1))
+    return (c0, c1), (s0, s1), len(c0) + len(c1)
 
 
 def i2t_bwd_dw_plain(keys, pe, dqpre, out_rows, dres_rows, *, pb: int,
-                     parts: int = 1):
+                     parts=None):
     """Plain PyTorch twin of the weight pass ``i2t_bwd_dw``: dWq (C, I) =
     sum_r rnd(keys[pair / pb] + pe)^T rnd(d_qpre) and dWo (I, C) = sum_r
-    rnd(out)^T rnd(d_res) in f32, summed over ``parts`` row chunks in the
-    kernel's order (``dw_plan``: chunks aligned to the stage of the input
-    dtype's kernel)."""
+    rnd(out)^T rnd(d_res) in f32, summed over row chunks in the kernel's
+    order. f32: ``parts`` (an int, default 1) chunks aligned to its 16-row
+    stage, the same for both weights. bf16: ``parts`` a (dWo's, dWq^T's)
+    pair of chunk counts as ``dw_plan_bf16`` gives them (default (1, 1)),
+    each weight's chunks those of ``dw_stage_chunks``."""
     bp, m, internal = dqpre.shape
     c = keys.shape[-1]
     qin = (keys + pe).float()
     if pb > 1:
         qin = qin.repeat_interleave(pb, 0)
     n = bp * m
-    align = DW32_ROWS if dqpre.dtype == torch.float32 else DW_ROWS
-    a = (dqpre.float().reshape(n, internal), out_rows.float().reshape(n, -1))
-    b = (qin.reshape(n, c), dres_rows.float().reshape(n, c))
-    dwqt, dwo = (sum(x[lo:hi].T @ y[lo:hi]
-                     for lo, hi in kernels.row_chunks(n, parts, align))
-                 for x, y in zip(a, b))
+    if dqpre.dtype == torch.float32:
+        chunks = (kernels.row_chunks(n, parts or 1, DW32_ROWS),) * 2
+    else:
+        n0, n1 = parts or (1, 1)
+        chunks = tuple(dw_stage_chunks(bp, m, k)[0] for k in (n0, n1))
+    xy = ((out_rows.float().reshape(n, -1), dres_rows.float().reshape(n, c)),
+          (dqpre.float().reshape(n, internal), qin.reshape(n, c)))
+    dwo, dwqt = (sum(x[lo:hi].T @ y[lo:hi] for lo, hi in ch)
+                 for (x, y), ch in zip(xy, chunks))
     return dwqt.T, dwo
 
 
@@ -232,7 +269,7 @@ def _bind():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.dhoct_i2t_fwd.argtypes = [p] * 11 + [i] * 6 + [ctypes.c_float, p]
         lib.dhoct_i2t_bwd_rows.argtypes = [p] + [i] * 6 + [ctypes.c_float, p]
-        lib.dhoct_i2t_bwd_dw.argtypes = [p] + [i] * 7 + [p]
+        lib.dhoct_i2t_bwd_dw.argtypes = [p] + [i] * 9 + [p]
         for fn in (lib.dhoct_i2t_fwd, lib.dhoct_i2t_bwd_rows,
                    lib.dhoct_i2t_bwd_dw):
             fn.restype = ctypes.c_int
@@ -345,10 +382,11 @@ def i2t_bwd_rows_cuda(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, dy, *,
 
 def i2t_bwd_dw_cuda(keys, pe, dqpre, out_rows, dres_rows, *, pb: int):
     """Launch the weight pass ``i2t_bwd_dw`` (csrc/decoder_attn.cu) on the
-    plan of ``dw_plan``: bf16 ``i2t_bwd_dw_kernel``, f32
-    ``i2t_bwd_dw_tf32_kernel`` (wgmma and TMA); same contract as
-    ``i2t_bwd_dw_plain``. The per-chunk partials are summed here in a fixed
-    order."""
+    plan of ``dw_plan_bf16`` / ``dw_plan_f32``: bf16
+    ``i2t_bwd_dw_wgmma_kernel``, f32
+    ``i2t_bwd_dw_tf32_kernel`` (both on wgmma and TMA); same contract as
+    ``i2t_bwd_dw_plain``. The per-chunk partials are summed in a fixed
+    order: in bf16 by the library's ``i2t_dw_sum_kernel``, in f32 here."""
     bp, m, internal = dqpre.shape
     c = keys.shape[-1]
     dt = keys.dtype
@@ -363,17 +401,24 @@ def i2t_bwd_dw_cuda(keys, pe, dqpre, out_rows, dres_rows, *, pb: int):
                          "M, 256)")
     lib = _bind()
     dev = keys.device
-    with torch.cuda.device(dev):
-        chunks, size, blocks = dw_plan(bp * m, dt, kernels.sm_count(dev))
-        part = torch.empty((2, len(chunks), internal, c), dtype=torch.float32,
-                           device=dev)
-        err = lib.dhoct_i2t_bwd_dw(kernels.pointers(args + (part,)), bp, m, pb,
-                                   size, len(chunks), blocks,
+    with kernels.on_device(dev):
+        f32, sms = torch.float32, kernels.sm_count(dev)
+        if dt == torch.bfloat16:  # dWo's units, then dWq^T's, summed there
+            chunks, (size, size1), blocks = dw_plan_bf16(bp, m, sms)
+            n0, n1 = (len(x) for x in chunks)
+            part = torch.empty((n0 + n1, internal, c), dtype=f32, device=dev)
+            out = (torch.empty((2, internal, c), dtype=f32, device=dev),)
+        else:
+            chunks, size, blocks = dw_plan_f32(bp * m, sms)
+            n0, n1, size1, out = len(chunks), 0, 0, ()
+            part = torch.empty((2, n0, internal, c), dtype=f32, device=dev)
+        err = lib.dhoct_i2t_bwd_dw(kernels.pointers(args + (part,) + out), bp,
+                                   m, pb, size, n0, size1, n1, blocks,
                                    kernels.DTYPE_CODE[dt],
                                    torch.cuda.current_stream(dev).cuda_stream)
     kernels.raise_on_error(err, lib.dhoct_i2t_error_string, "i2t_bwd_dw")
     LAUNCHES["i2t_bwd_dw"] += 1
-    dwo, dwqt = part.sum(1)
+    dwo, dwqt = out[0] if out else part.sum(1)
     return dwqt.t(), dwo
 
 

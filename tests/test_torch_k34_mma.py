@@ -172,7 +172,8 @@ def test_i2t_weight_pass_chunks_match_one_matmul(pb, m):
     scratch = (args[0], args[1], rows[1], rows[5], rows[6])
     n = rows[1].shape[0] * m
     assert len(kernels.row_chunks(n, K4_PARTS, p_i2t.DW_ROWS)) > 1
-    chunked = p_i2t.i2t_bwd_dw_plain(*scratch, pb=pb, parts=K4_PARTS)
+    chunked = p_i2t.i2t_bwd_dw_plain(*scratch, pb=pb,
+                                     parts=(K4_PARTS, K4_PARTS))
     whole = p_i2t.i2t_bwd_dw_plain(*scratch, pb=pb)
     for name, a, b in zip(("dWq", "dWo"), chunked, whole):
         _assert_close(a, b, 1e-5, name)

@@ -4,7 +4,9 @@ logsumexp rows, its backward K5, the any-head-dim forward K6, the
 image-layout windowed forward K7, the upscaler K3 and the image->token
 attention K4 (their forwards on the tensor cores, bf16 and f32 in split
 TF32; the backwards of both as their two launches, the row pass and the
-weight pass, each against its plain twin); the topological loss's pairing
+weight pass, each against its plain twin; the kernels on wgmma and TMA --
+the bf16 K6, K5's bf16 dk/dv kernel, both K4 weight passes -- on their
+own plans); the topological loss's pairing
 T1 (on its shared-memory route and, for grids past one block's shared
 memory, its global one) and matching T2 against their numpy twins and the
 host library; one
@@ -146,6 +148,46 @@ def test_attention_bwd_kernels_match_plain_on_card(cuda_device, dtype, b, nh,
     again = port_attn.attention_bwd_cuda(qkv, rel_h, rel_w, g, lse, dvec, **kw)
     for name, a, bb in zip(("dqkv", "drel_h", "drel_w"), got, again):
         assert torch.equal(a, bb), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,nh,hw", ATTN_SHAPES + [
+    (2, 2, (4, 64)),    # W = 64, even H: two rounds of 128 keys
+    (2, 2, (3, 64))])   # W = 64, odd H: the factor rows looked up
+def test_attention_dkv_wgmma_on_card(cuda_device, b, nh, hw):
+    """K5's bf16 dk/dv kernel on wgmma and TMA (``attn_bwd_dkv_wgmma_kernel``)
+    alone, on each kind of grid (a window's keys in units of 128 whose
+    query tiles a second unit finds in L2, a global grid's 128 keys a unit
+    over a streamed ring; W = 64 and W != 64, the ragged 63 / 300 /
+    1020-token grids): the k and v columns of dqkv against
+    ``packed_attention_bwd_plain`` (``K34_TOL`` of max |plain|), the q
+    columns untouched, one launch, and the same bits on a second run."""
+    qkv, rel_h, rel_w, g = _attn_inputs(cuda_device, torch.bfloat16, b, nh,
+                                        hw, seed=5)
+    kw = dict(hw=hw, num_heads=nh)
+    out, lse = port_attn.packed_attention_plain(qkv, rel_h, rel_w,
+                                                return_lse=True, **kw)
+    dvec = port_attn.bwd_dvec(g, out, nh)
+
+    def dkv():
+        dqkv = torch.full_like(qkv, 7.0)
+        port_attn.attention_bwd_dkv_cuda(qkv, rel_h, rel_w, g, lse, dvec,
+                                         dqkv, **kw)
+        return dqkv
+
+    before = port_attn.LAUNCHES["attn_bwd_dkv"]
+    got = dkv()
+    torch.cuda.synchronize()
+    assert port_attn.LAUNCHES["attn_bwd_dkv"] == before + 1
+    want = port_attn.packed_attention_bwd_plain(qkv, rel_h, rel_w, g, lse,
+                                                dvec, **kw)[0]
+    c = nh * 64
+    assert bool((got[..., :c] == 7.0).all())
+    for name, cols in (("dk", slice(c, 2 * c)), ("dv", slice(2 * c, None))):
+        assert bool(torch.isfinite(got[..., cols].float()).all()), name
+        _rel_close(got[..., cols], want[..., cols], K34_TOL[torch.bfloat16],
+                   name)
+    assert torch.equal(got, dkv())
 
 
 @pytest.mark.gpu
@@ -347,6 +389,41 @@ def test_i2t_dw_tf32_wgmma_on_card(cuda_device, bp, m, pb):
             assert a.shape == w.shape and a.dtype == w.dtype, name
             _rel_close(a, w, K34_TOL[torch.float32], name)
         assert _same_bits(got, i2t.i2t_bwd_dw_cuda(*args, pb=pb))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bp,m,pb", [(8, 37, 1),    # 296 rows, short stages
+                                     (8, 43, 8),    # 344 rows, one image
+                                     (1, 5, 1),     # one chunk of 5 rows
+                                     (3, 100, 1),   # full and short stages
+                                     (16, 521, 8),  # 8336 rows
+                                     (4, 4096, 2)])  # the main path's pairs
+def test_i2t_dw_bf16_wgmma_on_card(cuda_device, bp, m, pb):
+    """The bf16 K4 weight pass on wgmma and TMA (``i2t_bwd_dw_wgmma_kernel``)
+    against ``i2t_bwd_dw_plain`` on the plan's chunks (its products exact,
+    the f32 sums in another order: 1e-4 of max |plain|), on pair lengths
+    that are no multiple of its 32-row stage, pb = 1, 2 and 8, and a lone
+    chunk shorter than one stage; one launch, the same bits on a second
+    call."""
+    from dilabhelmholtzoct_tpu_torch import kernels
+    from dilabhelmholtzoct_tpu_torch.ops import decoder_attn as i2t
+
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    r = lambda *s: torch.randn(s, generator=gen,
+                               device=cuda_device).bfloat16()
+    args = (r(bp // pb, m, 256), r(1, m, 256), r(bp, m, 128), r(bp, m, 128),
+            r(bp, m, 256))
+    chunks, _, _ = i2t.dw_plan_bf16(bp, m, kernels.sm_count(cuda_device))
+    before = i2t.LAUNCHES["i2t_bwd_dw"]
+    got = i2t.i2t_bwd_dw_cuda(*args, pb=pb)
+    torch.cuda.synchronize()
+    assert i2t.LAUNCHES["i2t_bwd_dw"] == before + 1
+    want = i2t.i2t_bwd_dw_plain(*args, pb=pb,
+                                parts=tuple(len(c) for c in chunks))
+    for name, a, w in zip(("dWq", "dWo"), got, want):
+        assert a.shape == w.shape and a.dtype == w.dtype, name
+        _rel_close(a, w, K34_TOL[torch.float32], name)
+    assert _same_bits(got, i2t.i2t_bwd_dw_cuda(*args, pb=pb))
 
 
 @pytest.mark.gpu

@@ -426,10 +426,10 @@ def emulated_dw(x, y, parts, mm):
     accumulators, added in f32, as ``dw_stage_tf32``), the chunks' partials
     added in order."""
     total = 0.0
-    for lo, hi in kernels.row_chunks(x.shape[0], parts, port_i2t.DW_ROWS):
+    for lo, hi in kernels.row_chunks(x.shape[0], parts, port_up.DW_ROWS):
         acc = 0.0
-        for s in range(lo, hi, port_i2t.DW_ROWS):
-            e = min(hi, s + port_i2t.DW_ROWS)
+        for s in range(lo, hi, port_up.DW_ROWS):
+            e = min(hi, s + port_up.DW_ROWS)
             acc = acc + mm(x[s:e].T, y[s:e])
         total = total + acc
     return total

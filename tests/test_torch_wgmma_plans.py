@@ -1,9 +1,10 @@
-"""The launch plans of the two kernels on wgmma and TMA, as pure functions
+"""The launch plans of the kernels on wgmma and TMA, as pure functions
 pinned on the CPU: ``ops.attention.relpos_plan`` (the bf16 K6,
 ``csrc/attention_relpos_wgmma.cu``: key tile, ring depths and shared
-memory) and ``ops.decoder_attn.dw_plan`` (the K4 weight pass: its row
-chunks and blocks; the f32 one on wgmma). The kernels themselves run only
-on the card (``tests/test_torch_kernels_gpu.py``)."""
+memory) and ``ops.decoder_attn.dw_plan_f32`` / ``dw_plan_bf16`` (the K4
+weight pass in both types: its row chunks and blocks), with the order in
+which the weight pass's plain twin sums those chunks. The kernels
+themselves run only on the card (``tests/test_torch_kernels_gpu.py``)."""
 
 import pytest
 import torch
@@ -94,23 +95,63 @@ def test_relpos_plan_row_tile_needs_an_even_grid_height():
                                       (296, 132), (15, 132), (1000, 7),
                                       (344, 1)])
 def test_dw_plan_chunks_cover_the_rows_in_order(dtype, rows, sms):
-    """The weight pass's chunks cover rows 0..rows-1 once, in order, about
-    sm / 2 of them, each a multiple of the stage (16 rows in f32, 32 in
-    bf16) but the last; the nominal chunk is that multiple; f32 runs on
-    at most one persistent block per SM, bf16 on one per chunk and
-    weight."""
-    chunks, size, blocks = port_i2t.dw_plan(rows, dtype, sms)
-    align = 16 if dtype == torch.float32 else 32
-    assert align == (port_i2t.DW32_ROWS if dtype == torch.float32
-                     else port_i2t.DW_ROWS)
-    assert chunks[0][0] == 0 and chunks[-1][1] == rows
-    assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
-    assert all((hi - lo) % align == 0 for lo, hi in chunks[:-1])
-    assert len(chunks) <= max(1, sms // 2) and size % align == 0
-    assert all(hi - lo <= size for lo, hi in chunks)
-    assert chunks == kernels.row_chunks(rows, max(1, sms // 2), align)
-    units = 2 * len(chunks)
-    assert blocks == (min(units, sms) if dtype == torch.float32 else units)
+    """The weight pass's chunks cover rows 0..rows-1 once, in order. f32:
+    about sm / 2 of them, each a multiple of its 16-row stage but the last;
+    the nominal chunk is that multiple; at most one persistent block per
+    SM. bf16 (one pair of ``rows`` rows here): each weight its own chunks
+    of whole 32-row stages, one block per chunk, one wave of blocks at
+    most (two at least), and dWq^T, which reads 1280 bytes a row against
+    dWo's 768, with about 5 / 3 as many chunks."""
+    if dtype == torch.float32:
+        chunks, size, blocks = port_i2t.dw_plan_f32(rows, sms)
+        align = 16
+        assert align == port_i2t.DW32_ROWS
+        assert chunks[0][0] == 0 and chunks[-1][1] == rows
+        assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+        assert all((hi - lo) % align == 0 for lo, hi in chunks[:-1])
+        assert len(chunks) <= max(1, sms // 2) and size % align == 0
+        assert all(hi - lo <= size for lo, hi in chunks)
+        assert chunks == kernels.row_chunks(rows, max(1, sms // 2), align)
+        assert blocks == min(2 * len(chunks), sms)
+        return
+    assert port_i2t.DW_ROWS == 32
+    chunks, size, blocks = port_i2t.dw_plan_bf16(1, rows, sms)
+    stages = -(-rows // 32)
+    assert blocks == len(chunks[0]) + len(chunks[1]) <= max(2, sms)
+    for ch, per in zip(chunks, size):
+        assert ch[0][0] == 0 and ch[-1][1] == rows
+        assert all(a[1] == b[0] for a, b in zip(ch, ch[1:]))
+        assert all(hi - lo == 32 * per for lo, hi in ch[:-1])
+        assert 0 < ch[-1][1] - ch[-1][0] <= 32 * per
+        assert len(ch) == -(-stages // per)
+    if sms >= 8 and stages >= 2 * sms:  # enough to balance: within 10%
+        work = [b * -(-stages // len(ch)) for b, ch in
+                zip(port_i2t.DW_ROW_BYTES, chunks)]
+        assert max(work) <= 1.1 * min(work), work
+
+
+def test_dw_plan_bf16_stages_start_at_each_pair():
+    """bf16: a pair's rows are cut into 32-row stages from its first row,
+    so a chunk starts at a pair's start or 32 k rows after it, and the
+    plan's chunks of 64 pairs of 4096 rows (the main path) are those of one
+    run of 262144 rows; pairs of 37 rows take two stages each."""
+    chunks, size, blocks = port_i2t.dw_plan_bf16(64, 4096, 132)
+    assert (chunks, size) == port_i2t.dw_plan_bf16(1, 64 * 4096, 132)[:2]
+    assert [len(c) for c in chunks] == [50, 82] and size == (164, 100)
+    assert blocks == 132
+    got, per = port_i2t.dw_stage_chunks(8, 37, 3)  # 16 stages of 32 / 5
+    assert per == 6 and got == [(0, 111), (111, 222), (222, 296)]
+    got, per = port_i2t.dw_stage_chunks(3, 100, 4)  # 12 stages
+    assert per == 3 and got == [(0, 96), (96, 164), (164, 232),
+                                (232, 300)]
+    got, per = port_i2t.dw_stage_chunks(2, 130, 2)  # 10 stages
+    assert per == 5 and got == [(0, 130), (130, 260)]
+    for bp, m, parts in ((16, 521, 50), (1, 5, 82), (4, 4096, 7)):
+        got, per = port_i2t.dw_stage_chunks(bp, m, parts)
+        starts = {p * m + 32 * k for p in range(bp) for k in range(-(-m // 32))}
+        assert got[0][0] == 0 and got[-1][1] == bp * m
+        assert all(a[1] == b[0] for a, b in zip(got, got[1:]))
+        assert all(lo in starts for lo, _ in got) and len(got) <= parts
 
 
 def test_dw_plain_follows_the_f32_stage():
@@ -133,3 +174,79 @@ def test_dw_plain_follows_the_f32_stage():
     assert torch.equal(three[0], by_hand.T)
     for a, b in zip(one, three):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4)
+
+
+def test_dw_plain_follows_the_bf16_stage():
+    """``i2t_bwd_dw_plain`` on bf16 rows sums the bf16 kernel's chunks
+    (``dw_stage_chunks``: whole 32-row stages of each pair), a (dWo,
+    dWq^T) pair of chunk counts as ``dw_plan_bf16`` gives them: the same
+    sum over all rows to f32 rounding."""
+    g = torch.Generator().manual_seed(1)
+    bp, m, pb = 4, 37, 2
+    r = lambda *s: torch.randn(s, generator=g).bfloat16()
+    keys, pe = r(bp // pb, m, 256), r(1, m, 256)
+    dq, orow, dres = r(bp, m, 128), r(bp, m, 128), r(bp, m, 256)
+    args = (keys, pe, dq, orow, dres)
+    one = port_i2t.i2t_bwd_dw_plain(*args, pb=pb)
+    three = port_i2t.i2t_bwd_dw_plain(*args, pb=pb, parts=(3, 3))
+    pair = port_i2t.i2t_bwd_dw_plain(*args, pb=pb, parts=(2, 3))
+    x = dq.float().reshape(-1, 128)
+    y = (keys + pe).float().repeat_interleave(pb, 0).reshape(-1, 256)
+    xo, yo = orow.float().reshape(-1, 128), dres.float().reshape(-1, 256)
+    # 4 pairs of 37 rows: stages of 32 and 5 rows, 8 in all; 3 parts of 3
+    # stages (the last 2), 2 parts of 4
+    three_rows = ((0, 69), (69, 111), (111, 148))
+    by_hand = sum(x[lo:hi].T @ y[lo:hi] for lo, hi in three_rows)
+    assert torch.equal(three[0], by_hand.T)
+    by_hand = sum(xo[lo:hi].T @ yo[lo:hi] for lo, hi in ((0, 74), (74, 148)))
+    assert torch.equal(pair[1], by_hand)
+    by_hand = sum(x[lo:hi].T @ y[lo:hi] for lo, hi in three_rows)
+    assert torch.equal(pair[0], by_hand.T)
+    for a, b in zip(one, three):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("bp,m,sms", [(64, 4096, 132), (64, 4096, 114),
+                                      (8, 4096, 132), (16, 521, 78),
+                                      (3, 100, 16), (2, 37, 3), (1, 5, 132),
+                                      (4, 64, 1)])
+def test_dw_plan_bf16_on_every_card(bp, m, sms):
+    """The bf16 plan on cards of other SM counts and on other pair shapes:
+    each weight's chunks are runs of whole stages of one size (the last may
+    be shorter) that start where a pair or one of its 32-row stages
+    starts, cover all rows in order, one block each; no more blocks than
+    SMs (two at least, one per weight); dWq^T, which reads more bytes a
+    row, never gets fewer chunks than dWo."""
+    (c0, c1), (s0, s1), blocks = port_i2t.dw_plan_bf16(bp, m, sms)
+    starts = {p * m + 32 * k for p in range(bp) for k in range(-(-m // 32))}
+    spp, rows = -(-m // 32), bp * m
+    for ch, per in ((c0, s0), (c1, s1)):
+        assert ch[0][0] == 0 and ch[-1][1] == rows
+        assert all(a[1] == b[0] for a, b in zip(ch, ch[1:]))
+        assert all(lo in starts for lo, _ in ch)
+        assert len(ch) == -(-bp * spp // per)
+    assert blocks == len(c0) + len(c1) <= max(2, sms)
+    assert len(c1) >= len(c0)
+
+
+@pytest.mark.parametrize("bp,m,pb,sms", [(4, 37, 2, 7), (8, 43, 8, 13),
+                                         (1, 5, 1, 132), (3, 100, 1, 5),
+                                         (2, 130, 2, 3), (6, 64, 3, 132)])
+def test_dw_plain_bf16_sums_the_plan_in_order(bp, m, pb, sms):
+    """The bf16 plain twin on the counts ``dw_plan_bf16`` gives: each
+    weight is the sum of its chunks' products taken in the plan's order,
+    bit for bit, as ``i2t_dw_sum_kernel`` adds the kernel's partials."""
+    g = torch.Generator().manual_seed(bp * 1000 + m)
+    r = lambda *s: torch.randn(s, generator=g).bfloat16()
+    keys, pe = r(bp // pb, m, 256), r(1, m, 256)
+    dq, orow, dres = r(bp, m, 128), r(bp, m, 128), r(bp, m, 256)
+    chunks, _, _ = port_i2t.dw_plan_bf16(bp, m, sms)
+    dwq, dwo = port_i2t.i2t_bwd_dw_plain(keys, pe, dq, orow, dres, pb=pb,
+                                         parts=tuple(len(c) for c in chunks))
+    x = dq.float().reshape(-1, 128)
+    y = (keys + pe).float().repeat_interleave(pb, 0).reshape(-1, 256)
+    xo, yo = orow.float().reshape(-1, 128), dres.float().reshape(-1, 256)
+    assert torch.equal(dwo, sum(xo[lo:hi].T @ yo[lo:hi]
+                                for lo, hi in chunks[0]))
+    assert torch.equal(dwq, sum(x[lo:hi].T @ y[lo:hi]
+                                for lo, hi in chunks[1]).T)
