@@ -13,10 +13,12 @@ prints no result line):
    source, all started together (build seconds and the ptxas report). Then
    the bf16 K1-K7 kernels' SASS (``cuobjdump -sass`` on the built
    libraries) must hold tensor-core instructions (HMMA, or HGMMA), the f32
-   K1-K7 kernels' (split TF32) TF32 ones (HMMA.1688.F32.TF32), the two
-   kernels on wgmma and TMA (the bf16 K6 ``attn_relpos_wgmma_kernel`` and
-   the f32 K4 weight pass ``i2t_bwd_dw_tf32_kernel``) HGMMA (TF32 in the
-   weight pass) and TMA loads (UTMALDG), and their ptxas reports no spills,
+   K1-K7 kernels' (split TF32) TF32 ones (HMMA.1688.F32.TF32), the
+   kernels on wgmma and TMA (``WGMMA_KERNELS``: the bf16 K6 and K1
+   ``attn_relpos_wgmma_kernel``, K5's bf16 ``attn_bwd_dq_wgmma_kernel``
+   and ``attn_bwd_dkv_wgmma_kernel``, both K4 weight passes) HGMMA (TF32
+   in the f32 weight pass) and TMA loads (UTMALDG), and their ptxas
+   reports no spills,
    printed per kernel beside its registers and its counts of HMMA, HGMMA
    and UTMALDG.
 2b. The component engine of prompt extraction (``components_phase``; the
@@ -369,9 +371,8 @@ def _sdpa_ms(torch, qkv, rel_h, rel_w, hw, heads, iters=5):
 # the kernels on the tensor cores: library -> kernel names, bf16 (HMMA or
 # HGMMA on bf16) and f32 in split TF32 (HMMA.1688.F32.TF32, or HGMMA on
 # TF32)
-MMA_KERNELS = {"attention": ("attn_global_mma_kernel",
-                             "attn_windowed_mma_kernel"),
-               "attention_bwd": ("attn_bwd_dq_mma_kernel",
+MMA_KERNELS = {"attention": ("attn_windowed_mma_kernel",),
+               "attention_bwd": ("attn_bwd_dq_wgmma_kernel",
                                  "attn_bwd_dkv_wgmma_kernel"),
                "attention_relpos_wgmma": ("attn_relpos_wgmma_kernel",),
                "attention_winimg": ("attn_winimg_mma_kernel",),
@@ -391,9 +392,11 @@ TF32_KERNELS = {"attention": ("attn_global_tf32_kernel",
                 "decoder_attn": ("i2t_fwd_tf32_kernel",
                                  "i2t_bwd_rows_tf32_kernel",
                                  "i2t_bwd_dw_tf32_kernel")}
-# the kernels on wgmma with TMA loads: HGMMA and UTMALDG in their SASS
+# the kernels on wgmma with TMA loads: HGMMA and UTMALDG in their SASS (the
+# bf16 K1 is an instance of attn_relpos_wgmma_kernel)
 WGMMA_KERNELS = {"attention_relpos_wgmma": ("attn_relpos_wgmma_kernel",),
-                 "attention_bwd": ("attn_bwd_dkv_wgmma_kernel",),
+                 "attention_bwd": ("attn_bwd_dq_wgmma_kernel",
+                                   "attn_bwd_dkv_wgmma_kernel"),
                  "decoder_attn": ("i2t_bwd_dw_tf32_kernel",
                                   "i2t_bwd_dw_wgmma_kernel")}
 
@@ -536,9 +539,12 @@ def kernel_phase(torch, attn):
                                                  qkv.element_size(), peak)
             tname = "f32" if split else "bf16"
             key = f32_key if split else f"{name}_bf16"
+            # the bf16 K1 is the bf16 K6's kernel
+            src = ("attention_relpos_wgmma.cu" if name == "attn_global"
+                   and not split else "attention.cu")
             rows[key] = {
                 "name": key, "route": "cuda",
-                "source": "dilabhelmholtzoct_tpu_torch/csrc/attention.cu",
+                "source": f"dilabhelmholtzoct_tpu_torch/csrc/{src}",
                 "replaces": replaces, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
                 "library_ms": lib_ms,
@@ -1770,7 +1776,7 @@ DATA_OPS = ("hflip", "vflip", "brightness", "contrast", "gaussian_noise",
             "shift")
 # the port's bf16 kernels on the uncached step: one of them must appear in
 # the epoch-0 trace for it to be the card's
-TRACE_KERNELS = ("attn_global_mma_kernel", "attn_windowed_mma_kernel",
+TRACE_KERNELS = ("attn_relpos_wgmma_kernel", "attn_windowed_mma_kernel",
                  "i2t_fwd_mma_kernel", "upscale_fwd_mma_kernel")
 
 
@@ -3602,8 +3608,9 @@ def redesign_times(torch):
     times an older tree's kernels: the bf16 K6 at a ViT-H global layer
     (N = 4096) and windowed layer (25 windows of 196), 16 heads of 80; the
     K4 weight pass at 64 pairs x 4096 rows, pb 1 and 8, in f32 and in
-    bf16; K5's bf16 dk/dv kernel at a ViT-B global layer (B = 4) and
-    windowed layer (100 windows of 196), 12 heads. Returns {case: ms}."""
+    bf16; K5's bf16 dk/dv and dq kernels at a ViT-B global layer (B = 4)
+    and windowed layer (100 windows of 196), 12 heads; the bf16 K1 with its
+    logsumexp rows at the global layer, B = 1 and 4. Returns {case: ms}."""
     from dilabhelmholtzoct_tpu_torch.device import full_fp32
     from dilabhelmholtzoct_tpu_torch.ops import attention as attn
     from dilabhelmholtzoct_tpu_torch.ops import decoder_attn as i2t
@@ -3635,8 +3642,8 @@ def redesign_times(torch):
         out[f"k4_dw_bf16_pb{pb}"] = cuda_ms(
             lambda: i2t.i2t_bwd_dw_cuda(*args, pb=pb), 20)
         del args
-    for case, b, hw, iters in (("k5_dkv_bf16_global", 4, (64, 64), 5),
-                               ("k5_dkv_bf16_windowed", 100, (14, 14), 20)):
+    for case, b, hw, iters in (("bf16_global", 4, (64, 64), 5),
+                               ("bf16_windowed", 100, (14, 14), 20)):
         n, heads = hw[0] * hw[1], 12
         kw = dict(hw=hw, num_heads=heads)
         qkv = rnd(b, n, 3 * heads * 64, k=0.5).bfloat16()
@@ -3647,8 +3654,19 @@ def redesign_times(torch):
                                          **kw)
         args = (qkv, rel_h, rel_w, g, lse, attn.bwd_dvec(g, o, heads),
                 torch.empty_like(qkv))
-        out[case] = cuda_ms(lambda: attn.attention_bwd_dkv_cuda(*args, **kw),
-                            iters)
+        out[f"k5_dkv_{case}"] = cuda_ms(
+            lambda: attn.attention_bwd_dkv_cuda(*args, **kw), iters)
+        out[f"k5_dq_{case}"] = cuda_ms(
+            lambda: attn.attention_bwd_dq_cuda(*args, **kw), iters)
+        if case == "bf16_global":  # the bf16 K1 with its LSE rows, B = 4
+            out["k1_bf16_global_b4"] = cuda_ms(
+                lambda: attn.attention_fwd_cuda(
+                    qkv, rel_h, rel_w, return_lse=True, **kw), 20)
+            one = (qkv[:1], rel_h[:1], rel_w[:1])
+            out["k1_bf16_global_b1"] = cuda_ms(
+                lambda: attn.attention_fwd_cuda(*one, return_lse=True, **kw),
+                50)
+            del one
         del qkv, rel_h, rel_w, g, o, lse, args
     return out
 

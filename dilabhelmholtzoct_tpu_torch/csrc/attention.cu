@@ -10,14 +10,16 @@
 //   s[q, k] = (q . k) / 8 + rel_h[q, k / W] + rel_w[q, k % W]
 //   out[q]  = softmax_k(s[q, :]) . v
 //
-// Two kernels, each with an f32 instance (the serving and f32 fine-tune
-// paths) and a bf16 one (the precompute and full fine-tune paths), all on
-// the tensor cores: the f32 ones in split TF32 (attention_tf32.cuh), every
-// sum in f32; the bf16 ones on mma.sync m16n8k16. Given
-// a non-null `lse` (B, heads, N) f32, each also writes the row's logsumexp
-// m + log(l) in the scaled-score domain (the TPU kernel's return_lse),
-// which the backward K5 (attention_bwd.cu) reads; with a null pointer
-// nothing more is written.
+// Two kernels. K2 has an f32 instance (the serving and f32 fine-tune
+// paths) and a bf16 one (the precompute and full fine-tune paths); K1 here
+// is f32 only: the bf16 K1 is the bf16 K6 on wgmma and TMA
+// (attention_relpos_wgmma.cu), which computes the same function at head
+// dim 64 (ops/attention.py: attention_fwd_cuda). All on the tensor cores:
+// the f32 ones in split TF32 (attention_tf32.cuh), every sum in f32; the
+// bf16 K2 on mma.sync m16n8k16. Given a non-null `lse` (B, heads, N) f32,
+// each also writes the row's logsumexp m + log(l) in the scaled-score
+// domain (the TPU kernel's return_lse), which the backward K5
+// (attention_bwd.cu) reads; with a null pointer nothing more is written.
 //
 // K1 replaces dilabhelmholtzoct_tpu/ops/attention.py flash_attention_packed,
 //    _packed_kernel branch (the 4 global layers, N = 4096 at ViT-B). One
@@ -31,16 +33,6 @@
 //    fragment split as it is loaded; s = acc / 8 + bias on the
 //    accumulators (the same bits as q / 8); the online softmax on the
 //    fragments, p in f32 fed to p.v from registers; o / l last.
-//    bf16, attn_global_mma_kernel: 128-query tiles, 4 warps of 32 query
-//    rows; q.k^T and p.v on mma.sync m16n8k16 (bf16 in, f32 accumulators)
-//    with ldmatrix from padded shared tiles; K / V tiles streamed through a
-//    2-stage cp.async ring; the 1/8 scale folded into q (exact); the score
-//    accumulators start at the bias (in registers where a key tile is one
-//    grid row); the online softmax on the fragments (row max and sum over
-//    the lane quad); p rounded to bf16 un-normalised and fed to p.v from
-//    registers; one f32 division by l at the end and one rounding -- the
-//    TPU _packed_kernel's rounding points (p.astype(bf16) before pv, acc / l
-//    last).
 // K2 replaces the same function's _windowed_group_kernel branch (the 8
 //    windowed layers, 25 windows of 14x14 = 196 tokens per image), with a
 //    one-pass softmax over all keys of a window.
@@ -61,10 +53,9 @@
 //
 // Bound on an H100 SXM (700 W), one layer at B = 1:
 //    K1: 4 * 4096^2 * 64 * 12 = 51.5 GFLOP; f32 over the split-TF32 rate
-//        (495 / 3 = 165 TFLOP/s) = 0.31 ms (over the CUDA cores' 67: 0.77),
-//        bf16 over the 989 TFLOP/s tensor-core rate = 0.052 ms; bytes (qkv
-//        37.7 MB + rel 25.2 MB + out 12.6 MB in f32, half in bf16) over
-//        3.35 TB/s = 0.022 / 0.011 ms. Compute-bound.
+//        (495 / 3 = 165 TFLOP/s) = 0.31 ms (over the CUDA cores' 67: 0.77);
+//        bytes (qkv 37.7 MB + rel 25.2 MB + out 12.6 MB) over 3.35 TB/s =
+//        0.022 ms. Compute-bound.
 //    K2: 2.95 GFLOP -> 0.018 ms in f32 over the split-TF32 rate (495 / 3
 //        = 165 TFLOP/s; 0.044 ms over the CUDA cores' 67), against 67 MB
 //        -> 0.020 ms (bound by bytes); in bf16 0.003 ms of products against
@@ -79,8 +70,7 @@
 // next K / V tile's copy overlaps the current tile's work; in the bf16 K2
 // the next query tile's, and the two blocks an SM holds overlap one's loads
 // with the other's products (the f32 K2's 8 warps, one block per SM, stage
-// their tiles in turn).
-// wgmma with TMA is later work.
+// their tiles in turn). K2 on wgmma with TMA is later work.
 //
 // Not carried over from the TPU kernel (Mosaic-only workarounds): head-pair
 // packing into 128 lanes, one-hot selector matmuls that expand the bias,
@@ -116,182 +106,6 @@ attn_global_tf32_kernel(const float* __restrict__ qkv,
       smem, qkv + (size_t)b * n * 3 * C + head * D, C, rel_h + row * n * H,
       rel_w + row * n * W, out + (size_t)b * n * C + head * D,
       lse != nullptr ? lse + row * n : nullptr, n, D, H, W, 0.125f);
-}
-
-// ----------------------------------------------------------- K1 bf16 ----
-// grid (ceil(N / R), heads, B) with R = 16 M WARPS_ query rows per block
-// (M = K1_TILES m16 tiles per warp, WARPS_ = K1_WARPS), 32 WARPS_ threads:
-// warp w owns query rows 16 (M w + m) + g and 16 (M w + m) + g + 8 (m < M,
-// lane = 4 g + t); with M = 2 every K / V fragment it loads from shared
-// memory serves two m16 tiles. Shared (bf16):
-// Qs R x LDS | Ks, Vs stage 0, 1 (64 x LDS) | Rh R x factor_ld(H) | Rw
-// R x factor_ld(W).
-// ROW_TILE (W == 64: every ViT global layer): a 64-key tile is one grid row,
-// so a query row's bias over the tile is one Rh value plus Rw over the 64
-// columns, which the lane holds in registers for the whole loop.
-constexpr int K1_TILES = 2, K1_WARPS = 4;  // M, WARPS_ of the note above
-
-template <bool ROW_TILE>
-__global__ void __launch_bounds__(32 * K1_WARPS, 2)
-attn_global_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
-                       const __nv_bfloat16* __restrict__ rel_h,
-                       const __nv_bfloat16* __restrict__ rel_w,
-                       __nv_bfloat16* __restrict__ out,
-                       float* __restrict__ lse, int n, int heads, int H,
-                       int W) {
-  using namespace mma;
-  constexpr int K1_M = K1_TILES, K1_ROWS = 16 * K1_M * K1_WARPS,
-                NTH = 32 * K1_WARPS;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ldh = factor_ld(H), ldw = factor_ld(W);
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + K1_ROWS * LDS;
-  bf16* Vs = Ks + 2 * TILE_ELEMS;
-  bf16* Rh = Vs + 2 * TILE_ELEMS;
-  bf16* Rw = Rh + K1_ROWS * ldh;
-
-  const int head = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * K1_ROWS;
-  const int C = heads * D, stride = 3 * C;
-  const int lane = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * 16 * K1_M;
-  const int t = lane & 3, g = lane >> 2;
-  const bf16* base = qkv + (size_t)b * n * stride + head * D;
-  const size_t rel_row = ((size_t)b * heads + head) * n + q0;
-  const int nq = min(K1_ROWS, n - q0);
-
-  load_tile_async<NTH>(Qs, base, stride, q0, n, K1_ROWS);
-  load_factors<NTH>(Rh, rel_h + rel_row * H, H, nq, K1_ROWS);
-  load_factors<NTH>(Rw, rel_w + rel_row * W, W, nq, K1_ROWS);
-  load_tile_async<NTH>(Ks, base + C, stride, 0, n);
-  load_tile_async<NTH>(Vs, base + 2 * C, stride, 0, n);
-  cp_commit();
-
-  // ROW_TILE: Rw of the lane's rows at its 16 columns, as bf16 pairs
-  uint32_t rwp[K1_M][ROW_TILE ? TILE / 8 : 1][2];
-  float m[K1_M][2], l[K1_M][2], o[K1_M][D / 8][4] = {};
-#pragma unroll
-  for (int mm = 0; mm < K1_M; ++mm)
-    m[mm][0] = m[mm][1] = -INFINITY, l[mm][0] = l[mm][1] = 0.f;
-
-  const int ntiles = (n + TILE - 1) / TILE;
-  for (int it = 0; it < ntiles; ++it) {
-    const int k0 = it * TILE;
-    const bf16* Kc = Ks + (it & 1) * TILE_ELEMS;
-    const bf16* Vc = Vs + (it & 1) * TILE_ELEMS;
-    if (it + 1 < ntiles) {  // the stage consumed in the previous iteration
-      load_tile_async<NTH>(Ks + ((it + 1) & 1) * TILE_ELEMS, base + C, stride,
-                           k0 + TILE, n);
-      load_tile_async<NTH>(Vs + ((it + 1) & 1) * TILE_ELEMS, base + 2 * C,
-                           stride, k0 + TILE, n);
-    }
-    cp_commit();
-    cp_wait<1>();  // this tile (and Q, the bias factors) have landed
-    __syncthreads();
-    if (it == 0) {
-      scale_eighth<NTH>(Qs, K1_ROWS);  // q / 8 in place, exact
-      __syncthreads();
-      if (ROW_TILE) {
-#pragma unroll
-        for (int mm = 0; mm < K1_M; ++mm)
-#pragma unroll
-          for (int j = 0; j < TILE / 8; ++j)
-#pragma unroll
-            for (int r = 0; r < 2; ++r)
-              rwp[mm][ROW_TILE ? j : 0][r] = *reinterpret_cast<const uint32_t*>(
-                  Rw + (r0 + 16 * mm + g + 8 * r) * ldw + 8 * j + 2 * t);
-      }
-    }
-
-    // ROW_TILE: the accumulators start at the bias (no key past n: n = 64 H),
-    // the product adds q.k onto it
-    float s[K1_M][TILE / 8][4];
-#pragma unroll
-    for (int mm = 0; mm < K1_M; ++mm)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float rh = ROW_TILE ? __bfloat162float(
-                                        Rh[(r0 + 16 * mm + g + 8 * r) * ldh + it])
-                                  : 0.f;
-#pragma unroll
-        for (int j = 0; j < TILE / 8; ++j) {
-          const float2 rw = ROW_TILE ? __bfloat1622float2(
-                                           *reinterpret_cast<const __nv_bfloat162*>(
-                                               &rwp[mm][ROW_TILE ? j : 0][r]))
-                                     : make_float2(0.f, 0.f);
-          s[mm][j][2 * r] = rh + rw.x;
-          s[mm][j][2 * r + 1] = rh + rw.y;
-        }
-      }
-    product_nk<K1_M>(s, Qs, r0, Kc, lane);
-    if (!ROW_TILE) {
-      KeyWalk key(k0 + 2 * t, W);
-#pragma unroll
-      for (int j = 0; j < TILE / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const bool kv = k0 + 8 * j + 2 * t + e < n;
-#pragma unroll
-          for (int mm = 0; mm < K1_M; ++mm)
-#pragma unroll
-            for (int r = 0; r < 2; ++r) {
-              const int q = r0 + 16 * mm + g + 8 * r;
-              // loads outside the select: no branch around them (a key
-              // past n reads in-bounds shared memory, discarded)
-              const float bias = __bfloat162float(Rh[q * ldh + key.r]) +
-                                 __bfloat162float(Rw[q * ldw + key.c]);
-              float& x = s[mm][j][2 * r + e];
-              x = kv ? x + bias : -INFINITY;
-            }
-          key.step(e);
-        }
-    }
-
-    uint32_t pk[K1_M][TILE / 8][2];
-#pragma unroll
-    for (int mm = 0; mm < K1_M; ++mm)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float mx = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < TILE / 8; ++j)
-          mx = fmaxf(mx, fmaxf(s[mm][j][2 * r], s[mm][j][2 * r + 1]));
-        // key 0 of the first tile is real: m_new is finite from there on
-        const float m_new = fmaxf(m[mm][r], quad_max(mx));
-        const float alpha = exp2_approx((m[mm][r] - m_new) * LOG2E);
-        const float mb = m_new * LOG2E;
-        float rs = 0.f;
-#pragma unroll
-        for (int j = 0; j < TILE / 8; ++j) {
-          const float p0 = exp2_approx(fmaf(s[mm][j][2 * r], LOG2E, -mb));
-          const float p1 = exp2_approx(fmaf(s[mm][j][2 * r + 1], LOG2E, -mb));
-          rs += p0 + p1;                    // the denominator sums f32 p
-          pk[mm][j][r] = pack_bf16(p0, p1);  // p.v takes it rounded
-        }
-        l[mm][r] = l[mm][r] * alpha + rs;  // the lane's share; quad sum last
-        m[mm][r] = m_new;
-#pragma unroll
-        for (int dn = 0; dn < D / 8; ++dn) {
-          o[mm][dn][2 * r] *= alpha;
-          o[mm][dn][2 * r + 1] *= alpha;
-        }
-      }
-    product_kn<K1_M>(o, pk, Vc, lane);
-    __syncthreads();  // every warp is done with this stage
-  }
-
-#pragma unroll
-  for (int mm = 0; mm < K1_M; ++mm)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float lr = quad_sum(l[mm][r]);
-      const int q = q0 + r0 + 16 * mm + g + 8 * r;
-      if (q >= n) continue;
-      if (lse != nullptr && t == 0) lse[rel_row - q0 + q] = m[mm][r] + logf(lr);
-      bf16* dst = out + ((size_t)b * n + q) * C + head * D + 2 * t;
-#pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn)
-        *reinterpret_cast<uint32_t*>(dst + 8 * dn) =
-            pack_bf16(o[mm][dn][2 * r] / lr, o[mm][dn][2 * r + 1] / lr);
-    }
 }
 
 // ------------------------------------------------------------ K2 f32 ----
@@ -487,42 +301,6 @@ int launch_global_f32(const void* qkv, const void* rel_h, const void* rel_w,
                                          n, heads, h, w, stream);
 }
 
-template <bool ROW_TILE>
-int launch_global_mma(const void* qkv, const void* rel_h, const void* rel_w,
-                      void* out, float* lse, int batch, int n, int heads,
-                      int h, int w, cudaStream_t stream) {
-  using namespace mma;
-  constexpr int rows = 16 * K1_TILES * K1_WARPS;
-  const size_t smem = sizeof(bf16) * (size_t)(rows * LDS + 4 * TILE_ELEMS +
-                                              rows * (factor_ld(h) +
-                                                      factor_ld(w)));
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
-  auto kernel = attn_global_mma_kernel<ROW_TILE>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((n + rows - 1) / rows, heads, batch);
-  kernel<<<grid, 32 * K1_WARPS, smem, stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(rel_h),
-      static_cast<const bf16*>(rel_w), static_cast<bf16*>(out), lse, n,
-      heads, h, w);
-  return (int)cudaGetLastError();
-}
-
-// The block's shape (K1_TILES, K1_WARPS above): of the shapes timed on an
-// H100 at ViT-B's global layer, B = 1 and B = 4 (one or two m16 tiles per
-// warp, 2 to 8 warps, a 3-stage ring), 2 tiles x 4 warps was the fastest
-// at both sizes.
-int launch_global_bf16(const void* qkv, const void* rel_h, const void* rel_w,
-                       void* out, float* lse, int batch, int n, int heads,
-                       int h, int w, cudaStream_t stream) {
-  return w == mma::TILE
-             ? launch_global_mma<true>(qkv, rel_h, rel_w, out, lse, batch, n,
-                                       heads, h, w, stream)
-             : launch_global_mma<false>(qkv, rel_h, rel_w, out, lse, batch, n,
-                                        heads, h, w, stream);
-}
-
 int launch_windowed_f32(const void* qkv, const void* rel_h,
                         const void* rel_w, void* out, float* lse, int batch,
                         int n, int heads, int h, int w, cudaStream_t stream) {
@@ -570,15 +348,15 @@ int launch_windowed_bf16(const void* qkv, const void* rel_h,
 // of the launch (0 = success); the caller raises on non-zero.
 extern "C" {
 
+// f32 only: the bf16 K1 is attention_relpos_wgmma.cu's kernel
+// (dhoct_attn_relpos_bf16 with its lse rows)
 int dhoct_attn_global(const void* qkv, const void* rel_h, const void* rel_w,
                       void* out, void* lse, int batch, int n, int heads,
                       int h, int w, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* l = static_cast<float*>(lse);
-  return dtype == 1 ? launch_global_bf16(qkv, rel_h, rel_w, out, l, batch,
-                                         n, heads, h, w, s)
-                    : launch_global_f32(qkv, rel_h, rel_w, out, l, batch, n,
-                                        heads, h, w, s);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  return launch_global_f32(qkv, rel_h, rel_w, out, static_cast<float*>(lse),
+                           batch, n, heads, h, w,
+                           static_cast<cudaStream_t>(stream));
 }
 
 int dhoct_attn_windowed(const void* qkv, const void* rel_h, const void* rel_w,

@@ -18,10 +18,11 @@
 //
 // Replaces dilabhelmholtzoct_tpu/ops/attention.py::_flash_packed_bwd, as two
 // kernels like the TPU's:
-//   the dq kernel (_packed_bwd_dq_kernel): one block per (batch, head,
-//     query tile) loops over 64-key tiles and accumulates dq and drel in
-//     registers (or drel in shared memory). The block owns its query rows:
-//     no atomics, a fixed summation order, a deterministic result.
+//   the dq kernel (_packed_bwd_dq_kernel): each block (f32) or unit of a
+//     persistent block (bf16) owns a tile of query rows, loops over key
+//     tiles and accumulates dq and drel in registers (or drel in shared
+//     memory): no atomics, a fixed summation order, a deterministic
+//     result.
 //   the dk/dv kernel (_packed_bwd_dkv_kernel): one block per (batch, head,
 //     128 keys) loops over 64-query tiles and accumulates dk and dv in
 //     registers (bf16: persistent blocks walk such units).
@@ -40,8 +41,8 @@
 // type's training path, compute_dtype='float32'): attn_bwd_dq_tf32_kernel /
 // attn_bwd_dkv_tf32_kernel, every product in split TF32 (attention_tf32.cuh:
 // hi.hi + hi.lo + lo.hi, f32 accuracy). bf16 (the full fine-tune path):
-// attn_bwd_dq_mma_kernel, mma.sync m16n8k16 (attention_mma.cuh), and
-// attn_bwd_dkv_wgmma_kernel, Hopper's wgmma with TMA loads (hopper.cuh).
+// attn_bwd_dq_wgmma_kernel and attn_bwd_dkv_wgmma_kernel, Hopper's wgmma
+// with TMA loads (hopper.cuh).
 //
 // Bound on an H100 SXM (700 W), one global layer at B = 4, 12 heads:
 //    dq kernel: 3 products (s, dp, dq) = 6 * 4096^2 * 64 * 48 = 309 GFLOP;
@@ -50,49 +51,50 @@
 //    split-TF32 rate (495 / 3 = 165 TFLOP/s): 1.87 + 2.50 ms (over the 67
 //    TFLOP/s of the CUDA cores: 4.62 + 6.15); the bytes (qkv, dO, rel, L, D
 //    in, dqkv and drel out: ~0.3 GB in bf16) take 0.09 ms. Compute-bound.
-// What the mma.sync kernels do about it: warps of 16 rows, the other
-//    side's tiles streamed through a 2-stage cp.async ring from padded
-//    shared rows. The dq kernel recomputes s and p per key tile, takes dp =
-//    dO.v^T, ds = p * (dp - D) (bf16: rounded) and dq += ds.k with ds fed
-//    from registers; drel sums ds in a fixed order: where a key tile is one
-//    grid row (W = 64, every ViT's global layer) from registers (the row
-//    sum over the lane quad for drel_h, a per-lane accumulator for drel_w),
-//    else through a shared tile, one thread per slot in key order. The f32
-//    dk/dv kernel (8 warps, 128 keys per block) computes s^T = k.q^T so that
-//    p^T and ds^T land in registers with keys as rows: dv += p^T.dO, dk +=
-//    ds^T.q, times 1/8 at the end (exact).
-//    bf16 dq: 4 warps per block, ldmatrix from rows of 72 bf16.
-//    f32: operands stay f32 in shared memory (rows of 68 floats: every
-//    fragment load on 32 banks) and are split into hi / lo TF32 as their
-//    fragments are loaded (an A fragment once per k step for all its n
-//    tiles); p and ds are never rounded. A key (or query) tile goes in two
-//    halves of 32 and the two score products share one k loop: fewer
-//    registers live, more accumulator chains in flight. The dq block holds
-//    8 warps (128 query rows) wherever the shared memory allows (every ViT
-//    layer), else 4; where ROW_TILE it sums drel_w in the lanes' own slots
-//    of a shared tile.
+//    The windowed layer (100 windows of 196, B = 4) is bound by its bytes.
+// What the f32 kernels do about it: warps of 16 rows, the other side's
+//    tiles streamed through a 2-stage cp.async ring from padded shared
+//    rows. The dq kernel recomputes s and p per key tile, takes dp =
+//    dO.v^T, ds = p * (dp - D) and dq += ds.k with ds fed from registers;
+//    drel sums ds in a fixed order: where a key tile is one grid row (W =
+//    64, every ViT's global layer) from registers (the row sum over the
+//    lane quad for drel_h) and the lanes' own slots of a shared tile
+//    (drel_w), else through a shared tile, one thread per slot in key
+//    order. The dk/dv kernel (8 warps, 128 keys per block) computes s^T =
+//    k.q^T so that p^T and ds^T land in registers with keys as rows: dv +=
+//    p^T.dO, dk += ds^T.q, times 1/8 at the end (exact). Operands stay f32
+//    in shared memory (rows of 68 floats: every fragment load on 32 banks)
+//    and are split into hi / lo TF32 as their fragments are loaded (an A
+//    fragment once per k step for all its n tiles); p and ds are never
+//    rounded. A key (or query) tile goes in two halves of 32 and the two
+//    score products share one k loop: fewer registers live, more
+//    accumulator chains in flight. The dq block holds 8 warps (128 query
+//    rows) wherever the shared memory allows (every ViT layer), else 4.
 //    Each qkv and dO byte is read from device memory once per tile of the
 //    other side.
-// What the bf16 dk/dv kernel does about it (attn_bwd_dkv_wgmma_kernel,
-//    below): all four products on wgmma, the only way to the tensor cores'
-//    full rate (0.42 ms of operations at ViT-B's global layer, B = 4),
-//    their operands landed by TMA in the layouts wgmma reads (no thread
-//    spends registers or instructions on a copy, no ldmatrix); producer
-//    warps keep up to 6 query tiles and the next unit's K and V in flight;
-//    the two score products as one m64n64k16 chain each with keys as rows,
-//    so p_b^T and ds^T are register A fragments of the two gradient
-//    products; per pair of scores one exponential each and one packing
-//    conversion for p_b and one for ds (the conversions run on the same
+// What the bf16 kernels do about it (attn_bwd_dq_wgmma_kernel,
+//    attn_bwd_dkv_wgmma_kernel, below): every product on wgmma, the only
+//    way to the tensor cores' full rate, their operands landed by TMA in
+//    the layouts wgmma reads (no thread spends registers or instructions on
+//    a copy, no ldmatrix); persistent blocks whose producer keeps the next
+//    tiles and the next unit's rows in flight; the two score products as
+//    one chain each, with the kernel's own side (queries for dq, keys for
+//    dk/dv) as the accumulator rows, so that ds (and p_b) are register A
+//    fragments of the gradient products; per pair of scores one packing
+//    conversion for each rounded value (the conversions run on the same
 //    slow pipe as the exponential); the elementwise work of one warpgroup
-//    runs beside the other's products, and a tile's scores go out with the
-//    previous tile's gradient products (operand fences keep other
-//    instructions out of the wgmma pipeline, which ptxas would otherwise
-//    serialize). A 14 x 14 window (196 keys) is two units of a persistent
-//    block's walk, whose loads overlap the unit before (the mma.sync kernel
-//    took two blocks, each reading the window's queries from device memory
-//    and waiting for them). What stays on the CUDA cores per score: the
-//    scale and the bias, the exponential, the roundings, the masks.
-// A fused single kernel and the dq kernel on wgmma are later work.
+//    runs beside the other's products (the dk/dv kernel's warpgroups take
+//    turns issuing, the dq kernel's issue as they come), and a tile's
+//    scores go out with the previous tile's gradient products (operand
+//    fences keep other instructions out of the wgmma pipeline, which ptxas
+//    would otherwise serialize). A 14 x 14 window is two units of a persistent block's
+//    walk, whose loads overlap the unit before (the mma.sync kernels before
+//    them took two (dk/dv) or four (dq) blocks, each reading the window
+//    from device memory and waiting for it); the dq kernel reads the
+//    window's keys in two tiles of 7 grid rows and sums drel in registers.
+//    What stays on the CUDA cores per score: the scale and the bias, the
+//    exponential, the roundings, the masks, the drel sums.
+// A fused single kernel is later work.
 
 #include <type_traits>
 
@@ -506,242 +508,6 @@ attn_bwd_dkv_tf32_kernel(const float* __restrict__ qkv,
       *reinterpret_cast<float2*>(dst + 2 * C + 8 * dn) =
           make_float2(dv[dn][2 * r], dv[dn][2 * r + 1]);
     }
-  }
-}
-
-// ------------------------------------------------- dq / drel, bf16 ----
-// grid (ceil(N / 64), heads, B), 128 threads: warp w owns query rows
-// 16 w + g and 16 w + g + 8 of the tile (lane = 4 g + t). Shared (bf16):
-//   Qs | Gs | Ks stage 0, 1 | Vs stage 0, 1 (64 x LDS) | Rh 64 x
-//   factor_ld(H) | Rw 64 x factor_ld(W); unless ROW_TILE, then (f32) Ss
-//   64 x SLD | dRh 64 x H | dRw 64 x W.
-// ROW_TILE (W == 64, every ViT global layer): a 64-key tile is one grid
-// row: the bias of a query row over the tile is one Rh value plus Rw over
-// the 64 columns (in the lane's registers for the whole loop), drel_h[q][r]
-// is the tile's row sum and drel_w[q][c] gathers the same column of every
-// tile, in registers.
-constexpr int SLD = mma::TILE + 4;
-
-size_t dq_mma_smem_bytes(int h, int w) {
-  using namespace mma;
-  size_t bytes = sizeof(bf16) * (size_t)(6 * TILE_ELEMS +
-                                         TILE * (factor_ld(h) + factor_ld(w)));
-  if (w != TILE) bytes += sizeof(float) * (size_t)(TILE * SLD + TILE * (h + w));
-  return bytes;
-}
-
-template <bool ROW_TILE>
-__global__ void __launch_bounds__(mma::NT, 2)
-attn_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
-                       const __nv_bfloat16* __restrict__ rel_h,
-                       const __nv_bfloat16* __restrict__ rel_w,
-                       const __nv_bfloat16* __restrict__ g,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ dvec,
-                       __nv_bfloat16* __restrict__ dqkv,
-                       __nv_bfloat16* __restrict__ drel_h,
-                       __nv_bfloat16* __restrict__ drel_w, int n, int heads,
-                       int H, int W) {
-  using namespace mma;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Gs = Qs + TILE_ELEMS;
-  bf16* Ks = Gs + TILE_ELEMS;
-  bf16* Vs = Ks + 2 * TILE_ELEMS;
-  const int ldh = factor_ld(H), ldw = factor_ld(W);
-  bf16* Rh = Vs + 2 * TILE_ELEMS;
-  bf16* Rw = Rh + TILE * ldh;
-  float* Ss = reinterpret_cast<float*>(Rw + TILE * ldw);
-  float* dRh = Ss + TILE * SLD;
-  float* dRw = dRh + TILE * H;
-
-  const int head = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * TILE;
-  const int C = heads * D, stride = 3 * C;
-  const int lane = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * 16;
-  const int t = lane & 3, qa = r0 + (lane >> 2), qb = qa + 8;
-  const bf16* base = qkv + (size_t)b * n * stride + head * D;
-  const size_t row = ((size_t)b * heads + head) * n + q0;
-  const int nq = min(TILE, n - q0);
-
-  load_tile_async(Qs, base, stride, q0, n);
-  load_tile_async(Gs, g + (size_t)b * n * C + head * D, C, q0, n);
-  load_factors(Rh, rel_h + row * H, H, nq);
-  load_factors(Rw, rel_w + row * W, W, nq);
-  load_tile_async(Ks, base + C, stride, 0, n);
-  load_tile_async(Vs, base + 2 * C, stride, 0, n);
-  cp_commit();
-  if (!ROW_TILE) {
-    for (int i = threadIdx.x; i < TILE * (H + W); i += NT) dRh[i] = 0.f;
-  }
-
-  // L (in log2 units) and D of the lane's two query rows
-  const int ql[2] = {qa, qb};
-  bool live[2];
-  float Lb[2], Dq[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    live[r] = ql[r] < nq;
-    Lb[r] = live[r] ? lse[row + ql[r]] * LOG2E : 0.f;
-    Dq[r] = live[r] ? dvec[row + ql[r]] : 0.f;
-  }
-
-  float dq[D / 8][4] = {}, dw[ROW_TILE ? TILE / 8 : 1][4] = {};
-  uint32_t rwp[ROW_TILE ? TILE / 8 : 1][2];  // ROW_TILE: Rw as bf16 pairs
-  const int ntiles = (n + TILE - 1) / TILE;
-  for (int it = 0; it < ntiles; ++it) {
-    const int k0 = it * TILE;
-    const bf16* Kc = Ks + (it & 1) * TILE_ELEMS;
-    const bf16* Vc = Vs + (it & 1) * TILE_ELEMS;
-    if (it + 1 < ntiles) {
-      load_tile_async(Ks + ((it + 1) & 1) * TILE_ELEMS, base + C, stride,
-                      k0 + TILE, n);
-      load_tile_async(Vs + ((it + 1) & 1) * TILE_ELEMS, base + 2 * C, stride,
-                      k0 + TILE, n);
-    }
-    cp_commit();
-    cp_wait<1>();
-    __syncthreads();
-    if (ROW_TILE && it == 0) {
-#pragma unroll
-      for (int j = 0; j < TILE / 8; ++j)
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-          rwp[ROW_TILE ? j : 0][r] = *reinterpret_cast<const uint32_t*>(
-              Rw + ql[r] * ldw + 8 * j + 2 * t);
-    }
-
-    // ROW_TILE: s starts at 8 x the bias (exact), the product adds q.k,
-    // and the 1/8 scale then applies to both (exact): the same scores as
-    // q.k / 8 + bias up to the order of the f32 sum
-    float s[TILE / 8][4], dp[TILE / 8][4] = {};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float rh =
-          ROW_TILE ? __bfloat162float(Rh[ql[r] * ldh + it]) : 0.f;
-#pragma unroll
-      for (int j = 0; j < TILE / 8; ++j) {
-        const float2 rw =
-            ROW_TILE ? __bfloat1622float2(
-                           *reinterpret_cast<const __nv_bfloat162*>(
-                               &rwp[ROW_TILE ? j : 0][r]))
-                     : make_float2(0.f, 0.f);
-        s[j][2 * r] = 8.f * (rh + rw.x);
-        s[j][2 * r + 1] = 8.f * (rh + rw.y);
-      }
-    }
-    product_nk<1>(&s, Qs, r0, Kc, lane);   // q.k^T
-    product_nk<1>(&dp, Gs, r0, Vc, lane);  // dO.v^T
-    // then p in f32 and ds = bf16(p * (dp - D)); 0 past n
-    if (ROW_TILE) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int j = 0; j < TILE / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float& x = s[j][2 * r + e];
-            const float p =
-                exp2_approx(fmaf(x, 0.125f * LOG2E, -Lb[r]));  // f32 p
-            x = live[r] ? round_bf16(p * (dp[j][2 * r + e] - Dq[r])) : 0.f;
-          }
-    } else {
-      KeyWalk key(k0 + 2 * t, W);
-#pragma unroll
-      for (int j = 0; j < TILE / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const bool kv = k0 + 8 * j + 2 * t + e < n;
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            // computed for every slot, then selected (no branch around the
-            // loads; a key past n reads in-bounds shared memory, discarded)
-            const float sv = fmaf(s[j][2 * r + e], 0.125f,
-                                  __bfloat162float(Rh[ql[r] * ldh + key.r]) +
-                                      __bfloat162float(Rw[ql[r] * ldw + key.c]));
-            const float p = exp2_approx(fmaf(sv, LOG2E, -Lb[r]));
-            const float ds = round_bf16(p * (dp[j][2 * r + e] - Dq[r]));
-            s[j][2 * r + e] = kv && live[r] ? ds : 0.f;
-          }
-          key.step(e);
-        }
-    }
-    uint32_t pk[TILE / 8][2];
-#pragma unroll
-    for (int j = 0; j < TILE / 8; ++j) {
-      pk[j][0] = pack_bf16(s[j][0], s[j][1]);  // exact: ds is rounded
-      pk[j][1] = pack_bf16(s[j][2], s[j][3]);
-    }
-    product_kn<1>(&dq, &pk, Kc, lane);  // dq += ds.k
-
-    if (ROW_TILE) {
-      // drel_h[q][k0 / 64] is this tile's row sum: the lane's 16 values,
-      // then the quad, in a fixed order; drel_w[q][c] gathers column c of
-      // every tile in the lane's own register
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < TILE / 8; ++j) {
-          sum += s[j][2 * r] + s[j][2 * r + 1];
-          dw[ROW_TILE ? j : 0][2 * r] += s[j][2 * r];
-          dw[ROW_TILE ? j : 0][2 * r + 1] += s[j][2 * r + 1];
-        }
-        sum = quad_sum(sum);
-        if (t == 0 && live[r])
-          drel_h[(row + ql[r]) * H + it] = __float2bfloat16(sum);
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < TILE / 8; ++j)
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          Ss[ql[r] * SLD + 8 * j + 2 * t] = s[j][2 * r];
-          Ss[ql[r] * SLD + 8 * j + 2 * t + 1] = s[j][2 * r + 1];
-        }
-      __syncthreads();
-      // each (query, grid row) and (query, grid column) slot of this tile
-      // is summed by one thread, in key order
-      const int kend = min(k0 + TILE, n);
-      const int rr0 = k0 / W, nr = (kend - 1) / W - rr0 + 1;
-      for (int x = threadIdx.x; x < TILE * nr; x += NT) {
-        const int q = x / nr, rr = rr0 + x % nr;
-        const int lo = max(rr * W, k0) - k0, hi = min((rr + 1) * W, kend) - k0;
-        float sum = 0.f;
-        for (int kl = lo; kl < hi; ++kl) sum += Ss[q * SLD + kl];
-        dRh[q * H + rr] += sum;
-      }
-      for (int x = threadIdx.x; x < TILE * W; x += NT) {
-        const int q = x / W, c = x % W;
-        float sum = 0.f;
-        for (int kl = (c - k0 % W + W) % W; kl < kend - k0; kl += W)
-          sum += Ss[q * SLD + kl];
-        dRw[x] += sum;
-      }
-    }
-    __syncthreads();  // every warp is done with this stage (and Ss)
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (!live[r]) continue;
-    bf16* dst = dqkv + ((size_t)b * n + q0 + ql[r]) * stride + head * D + 2 * t;
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn)
-      *reinterpret_cast<uint32_t*>(dst + 8 * dn) =
-          pack_bf16(dq[dn][2 * r] * 0.125f, dq[dn][2 * r + 1] * 0.125f);
-    if (ROW_TILE) {
-      bf16* dw_row = drel_w + (row + ql[r]) * W + 2 * t;
-#pragma unroll
-      for (int j = 0; j < TILE / 8; ++j)
-        *reinterpret_cast<uint32_t*>(dw_row + 8 * j) = pack_bf16(
-            dw[ROW_TILE ? j : 0][2 * r], dw[ROW_TILE ? j : 0][2 * r + 1]);
-    }
-  }
-  if (!ROW_TILE) {
-    for (int x = threadIdx.x; x < nq * H; x += NT)
-      drel_h[row * H + x] = __float2bfloat16(dRh[x]);
-    for (int x = threadIdx.x; x < nq * W; x += NT)
-      drel_w[row * W + x] = __float2bfloat16(dRw[x]);
   }
 }
 
@@ -1228,6 +994,575 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (wgi == 0) named_sync(TURN, CONSUMERS);  // warpgroup 1's last arrive
 }
 
+// ------------------------------------------- dq / drel, bf16, wgmma + TMA ----
+// attn_bwd_dq_wgmma_kernel<MODE, NK>: persistent blocks over units of
+// (batch, head, 128 queries), 384 threads: two consumer warpgroups and a
+// producer warp (of a warpgroup that gives its registers back); warpgroup
+// w owns queries 64 w.. of a unit, which owns their dq, drel_h and drel_w
+// rows: no atomics, a fixed summation order.
+//   producer: per unit, Q and dO (TMA, 128 rows each, rows past N zero),
+//     L, D (cp.async, 4 bytes a query, zero past N) and the rows' bias
+//     factors (cp.async, 16-byte pieces of the contiguous (N, H) / (N, W)
+//     block) into a ring of u_stages unit stages; per key tile of NK key
+//     slots, K and V (TMA) into a ring of kv_stages stages, running ahead
+//     across units. Each stage has a full and an empty mbarrier.
+//   consumers: per key tile, S = Q . K^T and dP = dO . V^T as two wgmma
+//     m64nNKk16 chains (both operands K-major in shared memory, queries the
+//     accumulator rows); on the accumulators s = S / 8 + rel_h + rel_w,
+//     p = exp(s - L) in f32, ds = bf16(p (dP - D)), each pair of key
+//     columns rounded and packed by one conversion into the A fragment word
+//     of dQ += ds . K (wgmma m64n64k16, K the MN-major B through the
+//     transpose bit: the same swizzled K tile serves both products). A
+//     tile's S and dP go out with the previous tile's dQ product, whose
+//     run hides behind this tile's elementwise work; the two warpgroups
+//     issue as they come (taking turns, as K6 and the dk/dv kernel do, was
+//     slower here: the elementwise work, not the products, bounds this
+//     kernel). dq = bf16(dQ / 8) after the f32 sum; drel sums the bf16 ds
+//     in f32 and rounds once.
+// How a tile's key slots map to keys, and drel, by MODE:
+//   ROW_TILE (W == 64, every ViT global layer; NK = 64): a tile is one grid
+//     row, so rel_h is one value a query, the lane holds its rel_w columns
+//     in registers for the unit, drel_h[q][r] is the tile's row sum (the
+//     lane's 16 values, then the quad) and drel_w[q][c] gathers column c of
+//     every tile in the lane's own accumulator.
+//   GRID (a window of H <= 14, W <= 16: the windowed layers; NK = 112): K
+//     and V come through a 4-D view (cols, W, H, B) in boxes of 16 x 7 grid
+//     cells, so slot 16 kr + kc holds key (kr, kc) of the tile's 7 grid
+//     rows and the slots past W (and past H) are zero rows, masked (their
+//     bias -inf). Column 8 j + 2 t + e of a lane is grid row j / 2, grid
+//     column 8 (j % 2) + 2 t + e: drel_h of a grid row is the lane's 4
+//     values plus the quad, drel_w sums the lane's 8 columns over the
+//     tiles, all in registers.
+//   GENERIC (the other grids; NK = 64): slot k0 + c is key k0 + c, each
+//     column finds its grid (row, column) by a multiply-high and reads both
+//     factors from device memory (L1); drel through the warpgroup's shared
+//     ds tile (bf16, exact), each (query, grid row) and (query, grid
+//     column) slot summed by one thread in key order into f32 rows.
+namespace dq {
+
+using mma::bf16;
+
+constexpr int QROWS = 128;                 // query rows of a unit
+constexpr int ROWS_BYTES = QROWS * D * 2;  // a unit's Q (or dO), 16 KB
+constexpr int CONSUMERS = 256, NTH = CONSUMERS + 128;
+// registers a thread: 168 at launch (64K over 384 threads, in steps of 8);
+// the producer's warpgroup gives back all but 24, the consumers take them
+// (128 x 24 + 256 x 240 = 384 x 168): a consumer holds S, dP (NK / 2 f32
+// each) and dQ (32), ds as NK / 4 packed words, its drel_w sums and rel_w
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+constexpr int MAX_KV_STAGES = 4, MAX_U_STAGES = 2;
+// named barriers 1, 2: a warpgroup's own (GENERIC: its ds tile written,
+// summed)
+constexpr int SUMS = 1;
+constexpr int SMEM_FIXED = 1024 + 128;  // alignment slack, mbarriers
+// elements of slack a unit's bias block takes (its copy starts and ends on
+// 16-byte boundaries around the block)
+constexpr int REL_PAD = 16;
+constexpr int SLD = 64 + 8;  // GENERIC: a bf16 row of the ds tile
+enum Mode { GENERIC, ROW_TILE, GRID };
+constexpr int GRID_W = 16, GRID_ROWS = 7, GRID_NK = GRID_W * GRID_ROWS;
+constexpr int GRID_H = 14;  // GRID: a window of at most 14 x 16
+
+__host__ __device__ constexpr int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
+
+// The shared memory of a launch, from a 1024-aligned base: the K / V
+// stages (kv bytes each; K then V), the unit stages (unit bytes each: Q |
+// dO | L | D | but for GENERIC rel_h rows | rel_w rows), GENERIC the two
+// warpgroups' sums (sums bytes each: the bf16 ds tile, dRh and dRw in
+// f32), the mbarriers; SMEM_FIXED + u_stages * unit + kv_stages * kv + 2
+// sums in all (ops/attention.py: dq_plan)
+__host__ __device__ constexpr int rel_bytes(int len, bool generic) {
+  return generic ? 0 : round_up(2 * (QROWS * len + REL_PAD), 16);
+}
+struct Layout {
+  int l, d, rel_h, rel_w, unit, kv, sums;
+  __host__ __device__ Layout(int nk, int h, int w, bool generic)
+      : l(2 * ROWS_BYTES),
+        d(l + 4 * QROWS),
+        rel_h(d + 4 * QROWS),
+        rel_w(rel_h + rel_bytes(h, generic)),
+        unit(round_up(rel_w + rel_bytes(w, generic), 1024)),
+        kv(2 * nk * D * 2),
+        sums(generic ? 2 * 64 * SLD + 4 * 64 * (h + w) : 0) {}
+  __host__ __device__ size_t smem(int u_stages, int kv_stages) const {
+    return SMEM_FIXED + (size_t)u_stages * unit + (size_t)kv_stages * kv +
+           2 * (size_t)sums;
+  }
+};
+
+struct Args {
+  const bf16* rel_h;
+  const bf16* rel_w;
+  const float* lse;
+  const float* dvec;
+  bf16* dqkv;
+  bf16* drel_h;
+  bf16* drel_w;
+  long long rel_h_len, rel_w_len;  // elements of rel_h, rel_w
+  int n, heads, H, W, qblocks, units, ntiles, kv_stages, u_stages;
+  unsigned w_magic;  // floor(2^32 / W) + 1: key / W = umulhi(key, w_magic)
+};
+
+// a ring of `stages` stages walked in order: the current stage and the
+// parity of its phase (a division-free it % stages, it / stages & 1)
+struct Ring {
+  int stages, stage = 0;
+  uint32_t phase = 0;
+  __device__ explicit Ring(int n) : stages(n) {}
+  __device__ void next() {
+    if (++stage == stages) stage = 0, phase ^= 1;
+  }
+};
+
+// elements [e0, e0 + cnt) of src (len elements) -> dst, element e0 at
+// dst[e0 % 8]: cp.async 16-byte pieces from e0 rounded down to 8, zero past
+// len; by the 32 lanes of a warp
+__device__ __forceinline__ void copy_run(unsigned char* dst, const bf16* src,
+                                         long long e0, int cnt, long long len,
+                                         int lane) {
+  const long long a0 = e0 & ~7LL;
+  const int pieces = (int)((e0 + cnt - a0 + 7) >> 3);
+  for (int i = lane; i < pieces; i += 32) {
+    const long long e = a0 + 8LL * i;
+    const int bytes = e >= len ? 0 : (int)min(16LL, 2 * (len - e));
+    hop::cp_async16_fill(dst + 16 * i, src + (bytes ? e : 0), bytes);
+  }
+}
+
+}  // namespace dq
+
+template <dq::Mode MODE, int NK>
+__global__ void __launch_bounds__(dq::NTH, 1)
+attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_g,
+                         const __grid_constant__ CUtensorMap tm_kv,
+                         const dq::Args a) {
+  using namespace hop;
+  using namespace dq;
+  using mma::exp2_approx;
+  using mma::LOG2E;
+  using mma::pack_bf16;
+  using mma::quad_sum;
+  constexpr int KSTEPS = NK / 16;
+  static_assert(NK % 16 == 0 && (MODE == GRID) == (NK == GRID_NK) &&
+                    (MODE == GRID || NK == 64),
+                "key tile");
+  const Layout L(NK, a.H, a.W, MODE == GENERIC);
+  extern __shared__ __align__(16) unsigned char smem_tma[];
+  // 1024-aligned, by an offset from the shared array: every access below
+  // stays a shared-memory one
+  unsigned char* base = smem_tma + ((1024 - (smem(smem_tma) & 1023)) & 1023);
+  unsigned char* kvbase = base;
+  unsigned char* ubase = kvbase + a.kv_stages * L.kv;
+  unsigned char* sums = ubase + a.u_stages * L.unit;
+  uint64_t* ufull = reinterpret_cast<uint64_t*>(sums + 2 * L.sums);
+  uint64_t* uempty = ufull + MAX_U_STAGES;
+  uint64_t* kvfull = uempty + MAX_U_STAGES;
+  uint64_t* kvempty = kvfull + MAX_KV_STAGES;
+  const int C = a.heads * D;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < a.u_stages; ++i) {
+      mbar_init(ufull + i, 33);  // the TMA lane's arrive + 32 cp.async ones
+      mbar_init(uempty + i, CONSUMERS / 32);  // a lane of each warp
+    }
+    for (int i = 0; i < a.kv_stages; ++i) {
+      mbar_init(kvfull + i, 1);
+      mbar_init(kvempty + i, CONSUMERS / 32);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // this warp is done with a stage (its products waited on): one arrive
+  auto release = [&](uint64_t* bar) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+  if (warp >= CONSUMERS / 32) {  // ----------------------------- producer ----
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp > CONSUMERS / 32) return;  // one warp loads
+    Ring uring(a.u_stages), kvring(a.kv_stages);
+    for (int u = blockIdx.x; u < a.units; u += gridDim.x, uring.next()) {
+      const int qb = u % a.qblocks, bh = u / a.qblocks;
+      const int head = bh % a.heads, b = bh / a.heads, q0 = qb * QROWS;
+      const int us = uring.stage;
+      unsigned char* ust = ubase + us * L.unit;
+      mbar_wait(uempty + us, uring.phase ^ 1);
+      if (lane == 0) {
+        mbar_expect_tx(ufull + us, 2 * ROWS_BYTES);
+        tma_load_3d(ust, &tm_q, ufull + us, head * D, q0, b);
+        tma_load_3d(ust + ROWS_BYTES, &tm_g, ufull + us, head * D, q0, b);
+      }
+      const int nq = min(QROWS, a.n - q0);
+      const long long row = (long long)bh * a.n + q0;
+      float* ls = reinterpret_cast<float*>(ust + L.l);
+      float* dsv = reinterpret_cast<float*>(ust + L.d);
+      for (int i = lane; i < QROWS; i += 32) {
+        const bool ok = i < nq;
+        mma::cp_async4(ls + i, a.lse + row + (ok ? i : 0), ok);
+        mma::cp_async4(dsv + i, a.dvec + row + (ok ? i : 0), ok);
+      }
+      if constexpr (MODE != GENERIC) {
+        copy_run(ust + L.rel_h, a.rel_h, row * a.H, nq * a.H, a.rel_h_len,
+                 lane);
+        copy_run(ust + L.rel_w, a.rel_w, row * a.W, nq * a.W, a.rel_w_len,
+                 lane);
+      }
+      mbar_arrive_cp_async(ufull + us);
+      for (int tile = 0; tile < a.ntiles; ++tile, kvring.next()) {
+        const int ks = kvring.stage;
+        unsigned char* kst = kvbase + ks * L.kv;
+        mbar_wait(kvempty + ks, kvring.phase ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(kvfull + ks, L.kv);
+          if constexpr (MODE == GRID) {
+            tma_load_4d(kst, &tm_kv, kvfull + ks, C + head * D, 0,
+                        GRID_ROWS * tile, b);
+            tma_load_4d(kst + L.kv / 2, &tm_kv, kvfull + ks,
+                        2 * C + head * D, 0, GRID_ROWS * tile, b);
+          } else {
+            tma_load_3d(kst, &tm_kv, kvfull + ks, C + head * D, tile * NK, b);
+            tma_load_3d(kst + L.kv / 2, &tm_kv, kvfull + ks,
+                        2 * C + head * D, tile * NK, b);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // --------------------------------------------------------- consumers ----
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int wgi = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int wt = threadIdx.x & 127;  // the thread's index in its warpgroup
+  const int r0 = 64 * wgi + 16 * (warp & 3) + g;  // the lane's rows r0, r0 + 8
+  // GENERIC: the warpgroup's ds tile (64 x SLD bf16), dRh (64 x H), dRw
+  // (64 x W)
+  bf16* Ss = reinterpret_cast<bf16*>(sums + wgi * L.sums);
+  float* dRh = reinterpret_cast<float*>(Ss + 64 * SLD);
+  float* dRw = dRh + 64 * a.H;
+  if constexpr (MODE == GENERIC)
+    for (int i = wt; i < 64 * (a.H + a.W); i += 128) dRh[i] = 0.f;
+  // the f32 value of half e of a bf16 pair
+  auto half = [](uint32_t w, int e) {
+    return __uint_as_float(e ? w & 0xffff0000u : w << 16);
+  };
+  Ring uring(a.u_stages), kvring(a.kv_stages);
+  for (int u = blockIdx.x; u < a.units; u += gridDim.x, uring.next()) {
+    const int qb = u % a.qblocks, bh = u / a.qblocks;
+    const int head = bh % a.heads, b = bh / a.heads, q0 = qb * QROWS;
+    const int us = uring.stage;
+    const unsigned char* ust = ubase + us * L.unit;
+    const long long row = (long long)bh * a.n + q0;
+    const int nq = min(QROWS, a.n - q0);
+    // the unit's bias rows: staged in the unit stage, GENERIC in device
+    // memory
+    const bf16* Rh =
+        MODE == GENERIC
+            ? a.rel_h + row * a.H
+            : reinterpret_cast<const bf16*>(ust + L.rel_h) + ((row * a.H) & 7);
+    const bf16* Rw =
+        MODE == GENERIC
+            ? a.rel_w + row * a.W
+            : reinterpret_cast<const bf16*>(ust + L.rel_w) + ((row * a.W) & 7);
+    mbar_wait(ufull + us, uring.phase);
+    // L (in log2 units) and D of the lane's rows. A row past N takes L =
+    // +inf: its p is 0 and its ds +-0 (its Q and dO rows are zero, so are S,
+    // dP and D), with no select in the loop; its outputs are not stored
+    bool live[2];
+    float Lb[2], Dq[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int q = r0 + 8 * r;
+      live[r] = q < nq;
+      Lb[r] = live[r] ? reinterpret_cast<const float*>(ust + L.l)[q] * LOG2E
+                      : INFINITY;
+      Dq[r] = reinterpret_cast<const float*>(ust + L.d)[q];
+    }
+    // the lane's rel_w values for the unit: ROW_TILE its columns 8 j + 2 t
+    // + e of a grid row times log2 e, in f32 (rwl[r][2 j + e]); GRID its
+    // grid columns 8 h + 2 t, + 1 as bf16 pairs (low half first), -inf past
+    // W (the slot is empty)
+    float rwl[2][MODE == ROW_TILE ? 16 : 1];
+    uint32_t rw2[2][MODE == GRID ? 2 : 1];
+    if constexpr (MODE == ROW_TILE) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const uint32_t w = *reinterpret_cast<const uint32_t*>(
+              Rw + (r0 + 8 * r) * 64 + 8 * j + 2 * t);
+          rwl[r][2 * j] = half(w, 0) * LOG2E;
+          rwl[r][2 * j + 1] = half(w, 1) * LOG2E;
+        }
+    } else if constexpr (MODE == GRID) {
+      const unsigned short* rw_bits =
+          reinterpret_cast<const unsigned short*>(Rw);
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          uint32_t w = 0;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int kc = 8 * h + 2 * t + e;
+            const uint32_t bits =
+                kc < a.W ? rw_bits[(r0 + 8 * r) * a.W + kc] : 0xff80u;
+            w |= bits << (16 * e);
+          }
+          rw2[r][h] = w;
+        }
+    }
+    // drel_w sums of the lane: ROW_TILE its 32 accumulator columns, GRID
+    // its 8 (grid column 8 h + 2 t + e of row r at 4 h + 2 r + e)
+    float dw[MODE == ROW_TILE ? NK / 2 : MODE == GRID ? 8 : 1] = {};
+    float dqa[D / 2];            // dQ: first written by the first product
+    uint32_t pds[KSTEPS][4];     // the previous tile's ds: its A fragments
+
+    // ds of key tile `tile` from S (s) and dP (dp): each pair of key
+    // columns rounded to bf16 and packed at once; the word of A fragment
+    // k16-step k, register i goes to s[8 k + i], a slot read before. Then
+    // this tile's share of drel.
+    bf16* dh = a.drel_h + (row + r0) * a.H;  // the lane's drel_h rows
+    auto grads = [&](float* s, const float* dp, int tile) {
+      // the part of each row's exponent that is constant over a grid row of
+      // keys: rel_h log2 e - L (GRID: -inf past H, empty slots); ROW_TILE
+      // the tile's one grid row, GRID the grid row of the current pair of
+      // column groups
+      auto row_part = [&](int r, int row_k) {
+        return row_k < a.H
+                   ? fmaf(__bfloat162float(Rh[(r0 + 8 * r) * a.H + row_k]),
+                          LOG2E, -Lb[r])
+                   : -INFINITY;
+      };
+      float c0[2] = {0.f, 0.f}, rs[2] = {0.f, 0.f};  // rs: drel_h partials
+      if constexpr (MODE == ROW_TILE) {
+        c0[0] = row_part(0, tile);
+        c0[1] = row_part(1, tile);
+      }
+      const int k0 = tile * NK;
+#pragma unroll
+      for (int j = 0; j < NK / 8; ++j) {
+        // GRID: column groups j = 2 kr, 2 kr + 1 are the tile's grid row kr
+        const int row_k = GRID_ROWS * tile + (j >> 1);
+        if constexpr (MODE == GRID) {
+          if ((j & 1) == 0) {
+            c0[0] = row_part(0, row_k);
+            c0[1] = row_part(1, row_k);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float p[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float x = s[4 * j + 2 * r + e];
+            float y;  // log2 of p: (S / 8 + rel_h + rel_w) log2 e - L
+            if constexpr (MODE == ROW_TILE) {
+              y = fmaf(x, 0.125f * LOG2E, rwl[r][2 * j + e] + c0[r]);
+            } else if constexpr (MODE == GRID) {
+              y = fmaf(x, 0.125f * LOG2E,
+                       fmaf(half(rw2[r][j & 1], e), LOG2E, c0[r]));
+            } else {
+              // key k0 + 8 j + 2 t + e at grid (kr, kc), clamped in bounds
+              // past N (its p is 0); a row past N reads row 0
+              const int key = k0 + 8 * j + 2 * t + e;
+              const int kr = min((int)__umulhi(key, a.w_magic), a.H - 1);
+              const int kc = min(key - kr * a.W, a.W - 1);
+              const int q = live[r] ? r0 + 8 * r : 0;
+              const float sv =
+                  fmaf(x, 0.125f,
+                       __bfloat162float(Rh[q * a.H + kr]) +
+                           __bfloat162float(Rw[q * a.W + kc]));
+              y = key < a.n ? fmaf(sv, LOG2E, -Lb[r]) : -INFINITY;
+            }
+            p[e] = exp2_approx(y);  // f32 p
+          }
+          // ds = bf16(p (dp - D)), both columns rounded at once
+          const uint32_t w = pack_bf16(p[0] * (dp[4 * j + 2 * r] - Dq[r]),
+                                       p[1] * (dp[4 * j + 2 * r + 1] - Dq[r]));
+          if constexpr (MODE == GENERIC) {
+            *reinterpret_cast<uint32_t*>(Ss + (r0 - 64 * wgi + 8 * r) * SLD +
+                                         8 * j + 2 * t) = w;
+          } else {
+            const float d0 = half(w, 0), d1 = half(w, 1);
+            rs[r] += d0 + d1;
+            const int i = (MODE == ROW_TILE ? 4 * j : 4 * (j & 1)) + 2 * r;
+            dw[i] += d0;
+            dw[i + 1] += d1;
+          }
+          s[8 * (j >> 1) + 2 * (j & 1) + r] = __uint_as_float(w);
+        }
+        // drel_h of a finished grid row: the lane's sums, then the quad
+        const bool row_done =
+            MODE == GRID ? (j & 1) == 1 : MODE == ROW_TILE && j == NK / 8 - 1;
+        if (row_done) {
+          const int rk = MODE == GRID ? row_k : tile;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float sum = quad_sum(rs[r]);
+            rs[r] = 0.f;
+            if (t == 0 && live[r] && rk < a.H)
+              dh[8 * r * a.H + rk] = __float2bfloat16(sum);
+          }
+        }
+      }
+      if constexpr (MODE == GENERIC) {
+        // each (query, grid row) and (query, grid column) slot of this tile
+        // is summed by one thread of the warpgroup, in key order
+        named_sync(SUMS + wgi, 128);
+        const int kend = min(k0 + NK, a.n);
+        const int rr0 = k0 / a.W, nr = (kend - 1) / a.W - rr0 + 1;
+        for (int x = wt; x < 64 * nr; x += 128) {
+          const int q = x / nr, rr = rr0 + x % nr;
+          const int lo = max(rr * a.W, k0) - k0;
+          const int hi = min((rr + 1) * a.W, kend) - k0;
+          float sum = 0.f;
+          for (int kl = lo; kl < hi; ++kl)
+            sum += __bfloat162float(Ss[q * SLD + kl]);
+          dRh[q * a.H + rr] += sum;
+        }
+        for (int x = wt; x < 64 * a.W; x += 128) {
+          const int q = x / a.W, c = x % a.W;
+          float sum = 0.f;
+          for (int kl = (c - k0 % a.W + a.W) % a.W; kl < kend - k0;
+               kl += a.W)
+            sum += __bfloat162float(Ss[q * SLD + kl]);
+          dRw[x] += sum;
+        }
+        named_sync(SUMS + wgi, 128);  // the tile is summed: Ss is free
+      }
+    };
+    // the A fragments of k16-step k: the words grads left in s
+    auto pack = [&](const float* s) {
+#pragma unroll
+      for (int k = 0; k < KSTEPS; ++k)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) pds[k][i] = __float_as_uint(s[8 * k + i]);
+    };
+    // the descriptors of the warpgroup's Q and dO rows; a k16 step moves
+    // one by 32 bytes (2 in its address field, which never carries: shared
+    // addresses stay below 2^18)
+    const uint64_t dq_desc =
+        desc(ust + wgi * (ROWS_BYTES / 2), 16, 1024, LAYOUT_SW128);
+    const uint64_t dg_desc = dq_desc + (ROWS_BYTES >> 4);
+    // S = Q . K^T and dP = dO . V^T over the tile in K / V stage kst
+    auto scores = [&](float* s, float* dp, const unsigned char* kst) {
+      const uint64_t dk = desc(kst, 16, 1024, LAYOUT_SW128);
+      const uint64_t dv = dk + (L.kv >> 5);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        mma_bf16_ss<NK>(s, dq_desc + 2 * kk, dk + 2 * kk, kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        mma_bf16_ss<NK>(dp, dg_desc + 2 * kk, dv + 2 * kk, kk > 0);
+    };
+    // dQ += ds . K over the tile in K / V stage kst (a k16 step: 16 rows of
+    // 128 bytes, 128 in the address field)
+    auto dq_product = [&](const unsigned char* kst, bool acc) {
+      const uint64_t dk = desc(kst, 16, 1024, LAYOUT_SW128);
+#pragma unroll
+      for (int k = 0; k < KSTEPS; ++k)
+        mma_bf16_rs_mn<D>(dqa, pds[k], dk + 128 * k, acc || k > 0);
+    };
+
+    int ks = kvring.stage;
+    const unsigned char* kst = kvbase + ks * L.kv;
+    {  // the first tile: its scores alone
+      float s[NK / 2], dp[NK / 2];
+      mbar_wait(kvfull + ks, kvring.phase);
+      wgmma_fence();
+      scores(s, dp, kst);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(s);
+      fence_operands(dp);
+      grads(s, dp, 0);
+      pack(s);
+    }
+    // each further tile: its scores go out with the previous tile's dQ
+    // product; its ds is formed while that product runs
+    for (int tile = 1; tile < a.ntiles; ++tile) {
+      const int ks_prev = ks;
+      const unsigned char* kst_prev = kst;
+      kvring.next();
+      ks = kvring.stage;
+      kst = kvbase + ks * L.kv;
+      float s[NK / 2], dp[NK / 2];
+      mbar_wait(kvfull + ks, kvring.phase);
+      fence_operands(pds);
+      fence_operands(dqa);
+      wgmma_fence();
+      scores(s, dp, kst);
+      wgmma_commit();
+      dq_product(kst_prev, tile > 1);
+      wgmma_commit();
+      wgmma_wait<1>();  // the scores are in; the product may still run
+      fence_operands(s);
+      fence_operands(dp);
+      grads(s, dp, tile);
+      wgmma_wait<0>();  // the previous tile's product is done
+      fence_operands(pds);  // read by it until here
+      release(kvempty + ks_prev);
+      pack(s);
+    }
+    release(uempty + us);  // Q, dO, L, D and the bias rows are read
+    // the last tile's dQ product
+    fence_operands(pds);
+    fence_operands(dqa);
+    wgmma_fence();
+    dq_product(kst, a.ntiles > 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(dqa);
+    release(kvempty + ks);
+    kvring.next();
+
+    // dq = bf16(dQ / 8) (the scale after the f32 sum, exact) and drel_w
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (!live[r]) continue;
+      const int q = r0 + 8 * r;
+      bf16* dst = a.dqkv + ((size_t)b * a.n + q0 + q) * 3 * C + head * D +
+                  2 * t;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+            pack_bf16(dqa[4 * j + 2 * r] * 0.125f,
+                      dqa[4 * j + 2 * r + 1] * 0.125f);
+      bf16* dw_row = a.drel_w + (row + q) * a.W + 2 * t;
+      if constexpr (MODE == ROW_TILE) {
+#pragma unroll
+        for (int j = 0; j < NK / 8; ++j)
+          *reinterpret_cast<uint32_t*>(dw_row + 8 * j) =
+              pack_bf16(dw[4 * j + 2 * r], dw[4 * j + 2 * r + 1]);
+      } else if constexpr (MODE == GRID) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (8 * h + 2 * t + e < a.W)
+              dw_row[8 * h + e] = __float2bfloat16(dw[4 * h + 2 * r + e]);
+      }
+    }
+    if constexpr (MODE == GENERIC) {
+      // the warpgroup's rows of drel (all tiles summed: the last named
+      // barrier of grads), then zero for the next unit
+      const int nw = max(0, min(64, nq - 64 * wgi));
+      const long long row_w = row + 64 * wgi;
+      for (int x = wt; x < nw * a.H; x += 128)
+        a.drel_h[row_w * a.H + x] = __float2bfloat16(dRh[x]);
+      for (int x = wt; x < nw * a.W; x += 128)
+        a.drel_w[row_w * a.W + x] = __float2bfloat16(dRw[x]);
+      named_sync(SUMS + wgi, 128);
+      for (int i = wt; i < 64 * (a.H + a.W); i += 128) dRh[i] = 0.f;
+    }
+  }
+}
+
 int launch_dq_f32(const void* qkv, const void* rel_h, const void* rel_w,
                   const void* g, const float* lse, const float* dvec,
                   void* dqkv, void* drel_h, void* drel_w, int batch, int n,
@@ -1272,25 +1607,84 @@ int launch_dkv_f32(const void* qkv, const void* rel_h, const void* rel_w,
   return (int)cudaGetLastError();
 }
 
-int launch_dq_bf16(const void* qkv, const void* rel_h, const void* rel_w,
-                   const void* g, const float* lse, const float* dvec,
-                   void* dqkv, void* drel_h, void* drel_w, int batch, int n,
-                   int heads, int h, int w, cudaStream_t stream) {
-  using mma::bf16;
-  const size_t smem = dq_mma_smem_bytes(h, w);
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
-  auto kernel = w == mma::TILE ? attn_bwd_dq_mma_kernel<true>
-                               : attn_bwd_dq_mma_kernel<false>;
+template <dq::Mode MODE, int NK>
+int launch_dq_inst(const CUtensorMap (&maps)[3], const dq::Args& a,
+                   size_t smem, int blocks, cudaStream_t stream) {
+  auto kernel = attn_bwd_dq_wgmma_kernel<MODE, NK>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((n + mma::TILE - 1) / mma::TILE, heads, batch);
-  kernel<<<grid, mma::NT, smem, stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(rel_h),
-      static_cast<const bf16*>(rel_w), static_cast<const bf16*>(g), lse, dvec,
-      static_cast<bf16*>(dqkv), static_cast<bf16*>(drel_h),
-      static_cast<bf16*>(drel_w), n, heads, h, w);
+  kernel<<<blocks, dq::NTH, smem, stream>>>(maps[0], maps[1], maps[2], a);
   return (int)cudaGetLastError();
+}
+
+// The launch plan (ops/attention.py: dq_plan): nk the key tile (112: GRID,
+// a window of at most 14 x 16 grid cells in tiles of 7 grid rows; 64:
+// ROW_TILE where W = 64, else GENERIC), kv_stages (2 at least where a unit
+// has more than one tile) / u_stages the ring depths, blocks the
+// persistent blocks
+int launch_dq_bf16(const void* qkv, const void* rel_h, const void* rel_w,
+                   const void* g, const float* lse, const float* dvec,
+                   void* dqkv, void* drel_h, void* drel_w, int batch, int n,
+                   int heads, int h, int w, int nk, int kv_stages,
+                   int u_stages, int blocks, cudaStream_t stream) {
+  using mma::bf16;
+  const bool grid = nk == dq::GRID_NK && h <= dq::GRID_H && w <= dq::GRID_W;
+  const bool row_tile = nk == 64 && w == 64;
+  const int ntiles = grid ? (h + dq::GRID_ROWS - 1) / dq::GRID_ROWS
+                          : (n + nk - 1) / nk;
+  if (n < 1 || n != h * w || !(grid || nk == 64) ||
+      kv_stages < (ntiles > 1 ? 2 : 1) || kv_stages > dq::MAX_KV_STAGES ||
+      u_stages < 1 || u_stages > dq::MAX_U_STAGES || blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  const dq::Layout L(nk, h, w, !grid && !row_tile);
+  const size_t smem = L.smem(u_stages, kv_stages);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  // qkv as (3C, N, B): boxes of one head's 64 columns x 128 query rows (Q)
+  // or x NK key rows (K, V; GRID: the 4-D view (3C, W, H, B), boxes of 16
+  // x 7 grid cells); g as (C, N, B), boxes of 64 x 128
+  const int c = heads * attn::D;
+  CUtensorMap maps[3] = {};
+  const cuuint64_t dq3[3] = {(cuuint64_t)(3 * c), (cuuint64_t)n,
+                             (cuuint64_t)batch};
+  const cuuint64_t sq3[2] = {6ull * c, 6ull * c * n};
+  const cuuint64_t dq4[4] = {(cuuint64_t)(3 * c), (cuuint64_t)w,
+                             (cuuint64_t)h, (cuuint64_t)batch};
+  const cuuint64_t sq4[3] = {6ull * c, 6ull * c * w, 6ull * c * n};
+  const cuuint64_t dg[3] = {(cuuint64_t)c, (cuuint64_t)n, (cuuint64_t)batch};
+  const cuuint64_t sg[2] = {2ull * c, 2ull * c * n};
+  const cuuint32_t box_q[3] = {attn::D, dq::QROWS, 1};
+  const cuuint32_t box_kv[3] = {attn::D, (cuuint32_t)nk, 1};
+  const cuuint32_t box_grid[4] = {attn::D, dq::GRID_W, dq::GRID_ROWS, 1};
+  const auto bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  if (!hop::tensor_map(maps, bf, 3, qkv, dq3, sq3, box_q, sw) ||
+      !hop::tensor_map(maps + 1, bf, 3, g, dg, sg, box_q, sw) ||
+      !(grid ? hop::tensor_map(maps + 2, bf, 4, qkv, dq4, sq4, box_grid, sw)
+             : hop::tensor_map(maps + 2, bf, 3, qkv, dq3, sq3, box_kv, sw)))
+    return (int)cudaErrorInvalidValue;
+  dq::Args a;
+  a.rel_h = static_cast<const bf16*>(rel_h);
+  a.rel_w = static_cast<const bf16*>(rel_w);
+  a.lse = lse, a.dvec = dvec;
+  a.dqkv = static_cast<bf16*>(dqkv);
+  a.drel_h = static_cast<bf16*>(drel_h);
+  a.drel_w = static_cast<bf16*>(drel_w);
+  a.rel_h_len = (long long)batch * heads * n * h;
+  a.rel_w_len = (long long)batch * heads * n * w;
+  a.n = n, a.heads = heads, a.H = h, a.W = w;
+  a.qblocks = (n + dq::QROWS - 1) / dq::QROWS;
+  a.units = batch * heads * a.qblocks;
+  a.ntiles = ntiles;
+  a.kv_stages = kv_stages, a.u_stages = u_stages;
+  a.w_magic = (unsigned)(0x100000000ull / (unsigned)w) + 1u;
+  blocks = min(blocks, a.units);
+  if (grid)
+    return launch_dq_inst<dq::GRID, dq::GRID_NK>(maps, a, smem, blocks,
+                                                 stream);
+  if (row_tile)
+    return launch_dq_inst<dq::ROW_TILE, 64>(maps, a, smem, blocks, stream);
+  return launch_dq_inst<dq::GENERIC, 64>(maps, a, smem, blocks, stream);
 }
 
 // `blocks` persistent blocks (one an SM) over the units; the query ring
@@ -1361,17 +1755,21 @@ int launch_dkv_bf16(const void* qkv, const void* rel_h, const void* rel_w,
 // (0 = success); the caller raises on non-zero.
 extern "C" {
 
+// nk, kv_stages, u_stages, blocks: the bf16 kernel's plan (launch_dq_bf16);
+// the f32 kernel ignores them
 int dhoct_attn_bwd_dq(const void* qkv, const void* rel_h, const void* rel_w,
                       const void* g, const void* lse, const void* dvec,
                       void* dqkv, void* drel_h, void* drel_w, int batch,
-                      int n, int heads, int h, int w, int dtype,
+                      int n, int heads, int h, int w, int dtype, int nk,
+                      int kv_stages, int u_stages, int blocks,
                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dv = static_cast<const float*>(dvec);
   if (dtype == 1)
     return launch_dq_bf16(qkv, rel_h, rel_w, g, l, dv, dqkv, drel_h, drel_w,
-                          batch, n, heads, h, w, s);
+                          batch, n, heads, h, w, nk, kv_stages, u_stages,
+                          blocks, s);
   return launch_dq_f32(qkv, rel_h, rel_w, g, l, dv, dqkv, drel_h, drel_w,
                        batch, n, heads, h, w, s);
 }

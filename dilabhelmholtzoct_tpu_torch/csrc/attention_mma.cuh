@@ -1,13 +1,14 @@
 // Tensor-core building blocks of the bf16 encoder attention kernels on
-// mma.sync: the forward K1 (attention.cu, attn_global_mma_kernel), K5's
-// dq kernel (attention_bwd.cu, attn_bwd_dq_mma_kernel; its dk/dv kernel
-// runs on wgmma) and the windowed body shared by K2
-// (attention.cu, attn_windowed_mma_kernel) and K7 (attention_winimg.cu,
-// attn_winimg_mma_kernel): window_tile_mma. (The bf16 K6 on wgmma,
-// attention_relpos_wgmma.cu, takes its softmax helpers from here.)
+// mma.sync: the windowed body shared by K2 (attention.cu,
+// attn_windowed_mma_kernel) and K7 (attention_winimg.cu,
+// attn_winimg_mma_kernel), window_tile_mma, and the fragment loads the bf16
+// K3 / K4 kernels share (decoder_mma.cuh). The wgmma kernels (the bf16 K1 /
+// K6, attention_relpos_wgmma.cu; K5's bf16 kernels, attention_bwd.cu) take
+// their softmax and packing helpers from here, the f32 kernels
+// (attention_tf32.cuh) the copies and KeyWalk.
 //
 // Every tile holds rows of one head in bf16 in shared memory. At head dim
-// 64 (K1, K2, K5, K7) rows are padded to LDS = 72 elements (144 bytes): the
+// 64 (K2, K7) rows are padded to LDS = 72 elements (144 bytes): the
 // eight 16-byte rows that one ldmatrix phase reads then start on eight
 // different bank groups, so the loads are free of bank conflicts. The
 // fragment loads take the row length (LD) as a template argument whose
@@ -20,8 +21,8 @@
 // (c2, c3), columns 2t and 2t + 1. The A operand of a 16 x 16 step is
 // a0 (row g, cols 2t..), a1 (row g + 8), a2 (row g, cols 2t + 8..),
 // a3 (row g + 8, cols 2t + 8..): two neighbouring accumulator n-tiles,
-// packed to bf16 pairs, are an A fragment, so p (or ds) goes from one
-// product into the next without a trip through shared memory.
+// packed to bf16 pairs, are an A fragment, so p goes from one product into
+// the next without a trip through shared memory.
 
 #pragma once
 
@@ -34,7 +35,6 @@ constexpr int TILE = 64;      // rows of a query or key tile
 constexpr int LDS = D + 8;    // padded shared row (bf16 elements; D = 64)
 constexpr int WARPS = 4;      // a warp owns 16 rows of the tile
 constexpr int NT = 32 * WARPS;
-constexpr int TILE_ELEMS = TILE * LDS;
 constexpr float LOG2E = 1.4426950408889634f;
 
 using bf16 = __nv_bfloat16;
@@ -136,56 +136,6 @@ __device__ __forceinline__ void load_b_kn(uint32_t* b, const bf16* tile,
                    (lane >> 4) * 8);
 }
 
-// acc[m][16][64] += A_m . B^T for M m-tiles of 16 rows, A_m the rows
-// r0 + 16 m.. of a row-major shared tile, B a [64][D] tile stored [n][k]:
-// the score product q.k^T (or dO.v^T, k.q^T, v.dO^T). Every B fragment
-// loaded serves all M m-tiles.
-template <int M>
-__device__ __forceinline__ void product_nk(float (*acc)[TILE / 8][4],
-                                                const bf16* a_tile, int r0,
-                                                const bf16* b_tile, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[M][4];
-#pragma unroll
-    for (int m = 0; m < M; ++m)
-      load_a(a[m], a_tile, r0 + 16 * m, 16 * kk, lane);
-#pragma unroll
-    for (int np = 0; np < TILE / 16; ++np) {
-      uint32_t b[4];
-      load_b_nk(b, b_tile, 16 * np, 16 * kk, lane);
-#pragma unroll
-      for (int m = 0; m < M; ++m) {
-        mma16816(acc[m][2 * np], a[m], b[0], b[1]);
-        mma16816(acc[m][2 * np + 1], a[m], b[2], b[3]);
-      }
-    }
-  }
-}
-
-// acc[m][16][D] += P_m[16][64 keys] . B[64 keys][D] for M m-tiles, P_m
-// given as its 8 accumulator n-tiles packed to bf16 (pk[m][n-tile][0] rows
-// g, [1] rows g + 8), B a tile stored [k][n]: p.v, ds.k, p^T.dO, ds^T.q.
-template <int M>
-__device__ __forceinline__ void product_kn(float (*acc)[D / 8][4],
-                                           const uint32_t (*pk)[TILE / 8][2],
-                                           const bf16* b_tile, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < TILE / 16; ++kk)
-#pragma unroll
-    for (int np = 0; np < D / 16; ++np) {
-      uint32_t b[4];
-      load_b_kn(b, b_tile, 16 * kk, 16 * np, lane);
-#pragma unroll
-      for (int m = 0; m < M; ++m) {
-        const uint32_t a[4] = {pk[m][2 * kk][0], pk[m][2 * kk][1],
-                               pk[m][2 * kk + 1][0], pk[m][2 * kk + 1][1]};
-        mma16816(acc[m][2 * np], a, b[0], b[1]);
-        mma16816(acc[m][2 * np + 1], a, b[2], b[3]);
-      }
-    }
-}
-
 // rows [row0, row0 + rows) x 64 columns (`stride` elements per row) ->
 // shared tile, asynchronously, by a block of NTH threads; rows at or past n
 // are zero-filled
@@ -198,43 +148,6 @@ __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src,
     const bool ok = row0 + r < n;
     cp_async16(dst + r * LDS + c, src + (size_t)(ok ? row0 + r : 0) * stride + c,
                ok);
-  }
-}
-
-// Shared row length of a tile's bias factors (`len` values per query): a
-// multiple of 8 is padded by 8 bf16 (16 bytes), so the 8 rows a warp reads
-// at once start on different banks (64 -> 72: rows 36 words apart); any
-// other length is left as it is (14 -> 7 words apart, already apart)
-__host__ __device__ __forceinline__ int factor_ld(int len) {
-  return len % 8 ? len : len + 8;
-}
-
-// A tile's bias factors, `rows` rows (a multiple of 8) of `len` values,
-// `nrows` of them real and the rest zero, from src (row-major, `len` per
-// row) -> shared rows of factor_ld(len), by a block of NTH threads:
-// asynchronously in 16-byte pieces where src is 16-byte aligned (every ViT
-// shape), else by plain loads
-template <int NTH = NT>
-__device__ __forceinline__ void load_factors(bf16* dst, const bf16* src,
-                                             int len, int nrows,
-                                             int rows = TILE) {
-  const int ld = factor_ld(len), valid = nrows * len;
-  const bool aligned = (reinterpret_cast<uintptr_t>(src) & 15) == 0;
-  if (aligned && ld != len) {  // padded rows, len % 8 == 0
-    const int chunks = len / 8;
-    for (int i = threadIdx.x; i < rows * chunks; i += NTH) {
-      const int r = i / chunks, c = (i - r * chunks) * 8;
-      const bool ok = r < nrows;
-      cp_async16(dst + r * ld + c, src + (ok ? r * len + c : 0), ok);
-    }
-  } else if (aligned && valid % 8 == 0) {  // one contiguous run
-    for (int i = threadIdx.x * 8; i < rows * len; i += NTH * 8)
-      cp_async16(dst + i, src + (i < valid ? i : 0), i < valid);
-  } else {
-    for (int i = threadIdx.x; i < rows * len; i += NTH) {
-      const int r = i / len, c = i - r * len;
-      dst[r * ld + c] = i < valid ? src[i] : __float2bfloat16(0.f);
-    }
   }
 }
 
@@ -270,7 +183,7 @@ __device__ __forceinline__ float quad_sum(float x) {
 
 // rows x 64 bf16 of a shared tile (leading dim LDS) times 1/8 in place, by
 // a block of NTH threads: exact (a power of two), the TPU kernels' q * sc at
-// head dim 64 (K1 scales q, the windowed body k)
+// head dim 64 (the windowed body scales k)
 template <int NTH = NT>
 __device__ __forceinline__ void scale_eighth(bf16* tile, int rows) {
   const __nv_bfloat162 eighth = __float2bfloat162_rn(0.125f);

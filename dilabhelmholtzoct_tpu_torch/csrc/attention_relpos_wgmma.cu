@@ -4,6 +4,13 @@
 // the bf16 encoder of every model whose head dim is not 64: ViT-H's 16
 // heads of 80, in the precompute of its decoder fine-tuning (32 launches an
 // image: 4 global layers, N = 4096, and 28 windowed, 25 windows of 196).
+// It is also the bf16 K1: the global layers (N > 256) of ViT-B and ViT-L
+// (12 / 16 heads of 64) in their precompute, full fine-tune and uncached
+// training steps, where it writes the rows' logsumexp for K5 as well
+// (`lse`, a null pointer for K6). At head dim 64 the two TPU kernels'
+// functions are the same bits in bf16: K1's q / 8 before the product and
+// K6's score / 8 after it are one exact power-of-two scale, and both round
+// the un-normalised p and divide last.
 //
 //   qkv   (B, N, 3C) bf16  feature order (3, heads, d); where d is no
 //                          multiple of 16, each head padded to DP columns
@@ -15,16 +22,19 @@
 //   out[q]  = (sum_k rnd(exp(s[q, k] - m)) v[k]) / sum_k exp(s[q, k] - m)
 //
 // It replaces dilabhelmholtzoct_tpu/ops/attention.py flash_attention_relpos
-// (_flash_kernel, pallas_call at :132) in bf16, with that kernel's rounding
-// points (relpos_attention_plain): the scale multiplies the f32 score after
-// the product, the bias is added in f32, the un-normalised p is rounded to
-// bf16 for the p.v product while the denominator sums the f32 p, and the
-// division comes last with one rounding of the output.
+// (_flash_kernel, pallas_call at :132) and, as K1, flash_attention_packed's
+// global branch (_packed_kernel, pallas_call at :819) in bf16, with their
+// rounding points (relpos_attention_plain): the scale multiplies the f32
+// score after the product, the bias is added in f32, the un-normalised p is
+// rounded to bf16 for the p.v product while the denominator sums the f32
+// p, and the division comes last with one rounding of the output.
 //
 // Bound on an H100 SXM (700 W), ViT-H, B = 1: the global layer 85.9 GFLOP
 // over 989 TFLOP/s = 0.087 ms against 0.018 ms of bytes (operation-bound);
 // the windowed layer (25 x 196) 4.9 GFLOP = 0.005 ms against 55 MB of
-// qkv, bias and output = 0.016 ms (byte-bound). What this design does
+// qkv, bias and output = 0.016 ms (byte-bound); as K1, ViT-B's global
+// layer (12 heads of 64, B = 1) 51.5 GFLOP = 0.052 ms against 0.011 ms of
+// bytes (operation-bound). What this design does
 // about it: both products on wgmma (the only way to the tensor cores' full
 // rate), their operands landed by TMA with no thread spending registers or
 // instructions on the copies, a producer warp keeping the next unit's Q and
@@ -175,6 +185,7 @@ struct Args {
   const bf16* rel_h;
   const bf16* rel_w;
   bf16* out;
+  float* lse;  // null, or (B, heads, N): the rows' logsumexp m + log(l)
   long long rel_h_len, rel_w_len;  // elements of rel_h, rel_w
   int n, heads, d, hs, H, W, qblocks, units, ntiles, kv_stages, u_stages;
   unsigned w_magic;  // floor(2^32 / W) + 1: key / W = umulhi(key, w_magic)
@@ -545,6 +556,10 @@ attn_relpos_wgmma_kernel(const __grid_constant__ Maps maps, const Args a) {
       const float lr = quad_sum(l[r]), rl = __frcp_rn(lr);
       const int q = q0 + r0 + 8 * r;
       if (q >= a.n) continue;
+      // the scaled scores' logsumexp in natural-log units (m is the max of
+      // s itself), which K5 reads
+      if (a.lse != nullptr && t == 0)
+        a.lse[row + r0 + 8 * r] = m[r] + logf(lr);
       bf16* dst =
           a.out + ((size_t)b * a.n + q) * a.heads * a.d + head * a.d + 2 * t;
       auto div = [&](float x) {
@@ -587,8 +602,9 @@ int launch_dp(int nk, const wg::Maps& maps, const wg::Args& a, size_t smem,
 }
 
 int launch(const void* qkv, const void* rel_h, const void* rel_w, void* out,
-           int batch, int n, int heads, int d, int h, int w, int hs, int nk,
-           int kv_stages, int u_stages, int blocks, cudaStream_t stream) {
+           float* lse, int batch, int n, int heads, int d, int h, int w,
+           int hs, int nk, int kv_stages, int u_stages, int blocks,
+           cudaStream_t stream) {
   const int dp = (d + 15) / 16 * 16, ld = 3 * heads * hs;
   // the key tile: GRID (224 or 112 slots) a window of at most 14 x 16,
   // 128 (ROW_TILE) two grid rows of 64, else 64
@@ -637,6 +653,7 @@ int launch(const void* qkv, const void* rel_h, const void* rel_w, void* out,
   a.rel_h = static_cast<const bf16*>(rel_h);
   a.rel_w = static_cast<const bf16*>(rel_w);
   a.out = static_cast<bf16*>(out);
+  a.lse = lse;
   a.rel_h_len = (long long)batch * heads * n * h;
   a.rel_w_len = (long long)batch * heads * n * w;
   a.n = n, a.heads = heads, a.d = d, a.hs = hs, a.H = h, a.W = w;
@@ -665,17 +682,19 @@ int launch(const void* qkv, const void* rel_h, const void* rel_w, void* out,
 // 64), kv_stages (2 at least where a unit has more than one tile) /
 // u_stages the ring depths, blocks the persistent blocks; hs the columns of
 // a head in qkv's rows (d, or d rounded up to 16 where the wrapper padded
-// each head with zeros). Returns the cudaError_t of the launch
-// (0 = success); the caller raises on non-zero.
+// each head with zeros); lse null, or (B, heads, N) f32 to receive the
+// rows' logsumexp (the bf16 K1's rows for K5). Returns the cudaError_t of
+// the launch (0 = success); the caller raises on non-zero.
 extern "C" {
 
 int dhoct_attn_relpos_bf16(const void* qkv, const void* rel_h,
-                           const void* rel_w, void* out, int batch, int n,
-                           int heads, int d, int h, int w, int hs, int nk,
-                           int kv_stages, int u_stages, int blocks,
+                           const void* rel_w, void* out, void* lse, int batch,
+                           int n, int heads, int d, int h, int w, int hs,
+                           int nk, int kv_stages, int u_stages, int blocks,
                            void* stream) {
-  return launch(qkv, rel_h, rel_w, out, batch, n, heads, d, h, w, hs, nk,
-                kv_stages, u_stages, blocks, static_cast<cudaStream_t>(stream));
+  return launch(qkv, rel_h, rel_w, out, static_cast<float*>(lse), batch, n,
+                heads, d, h, w, hs, nk, kv_stages, u_stages, blocks,
+                static_cast<cudaStream_t>(stream));
 }
 
 const char* dhoct_error_string(int code) {

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks of the port's wgmma + TMA kernels: the
-// bf16 K6 (attention_relpos_wgmma.cu, attn_relpos_wgmma_kernel), the bf16
-// K5 dk/dv kernel (attention_bwd.cu, attn_bwd_dkv_wgmma_kernel) and the K4
-// weight pass in both types (decoder_attn.cu, i2t_bwd_dw_wgmma_kernel and
-// i2t_bwd_dw_tf32_kernel).
+// bf16 K6 and K1 (attention_relpos_wgmma.cu, attn_relpos_wgmma_kernel), the
+// bf16 K5 kernels (attention_bwd.cu, attn_bwd_dq_wgmma_kernel and
+// attn_bwd_dkv_wgmma_kernel) and the K4 weight pass in both types
+// (decoder_attn.cu, i2t_bwd_dw_wgmma_kernel and i2t_bwd_dw_tf32_kernel).
 //
 // * mbarriers: init, arrive, arrive with an expected transaction count,
 //   a wait on a phase's parity, and the arrive that fires when a thread's
@@ -20,7 +20,7 @@
 //     mma_bf16_ss_mn<256>  bf16, both operands in shared memory, MN-major
 //       (the K4 weight pass: X^T . Y with K the row index of both);
 //     mma_bf16_rs_mn<16 | 32 | 64>  bf16, A in registers, B MN-major (K6's
-//       p . v, K5's p^T . dO and ds^T . q);
+//       p . v, K5's ds . k, p^T . dO and ds^T . q);
 //     mma_tf32_rs<256>  TF32, A in registers, B K-major (the f32 K4 weight
 //       pass).
 //

@@ -10,18 +10,21 @@ too, without the head-major copies around it. It reads the raw qkv
 projection (B, N, 3C) and writes token-order (B, N, C). On a CUDA tensor it
 launches hand-written kernels:
 
-  * K1 ``attn_global_tf32_kernel`` / ``attn_global_mma_kernel`` (f32 /
-    bf16, ``csrc/attention.cu``) for the global layers
+  * K1 ``attn_global_tf32_kernel`` (f32, ``csrc/attention.cu``) /
+    ``attn_relpos_wgmma_kernel`` (bf16, the bf16 K6's kernel below, which
+    at head dim 64 computes the same function) for the global layers
     (N > WINDOW_MAX_TOKENS; N = 4096 at ViT-B), replacing the TPU
     ``_packed_kernel``;
   * K2 ``attn_windowed_kernel`` (same file) for the windowed layers
     (N <= 256; 14x14 windows at ViT-B), replacing the TPU
     ``_windowed_group_kernel``. With a gradient to take, K1 / K2 also write
     the rows' logsumexp (the TPU kernels' ``return_lse``);
-  * K5 ``attn_bwd_dq_kernel`` and ``attn_bwd_dkv_kernel``
-    (``csrc/attention_bwd.cu``) for the backward of either, replacing the
-    TPU ``_flash_packed_bwd`` (``_packed_bwd_dq_kernel``,
-    ``_packed_bwd_dkv_kernel``);
+  * K5's dq and dk/dv kernels (``csrc/attention_bwd.cu``: f32
+    ``attn_bwd_dq_tf32_kernel`` / ``attn_bwd_dkv_tf32_kernel``, bf16
+    ``attn_bwd_dq_wgmma_kernel`` on the plan of ``dq_plan`` /
+    ``attn_bwd_dkv_wgmma_kernel``, on wgmma and TMA) for the backward of
+    either, replacing the TPU ``_flash_packed_bwd``
+    (``_packed_bwd_dq_kernel``, ``_packed_bwd_dkv_kernel``);
   * K6 ``attn_relpos_tf32_kernel`` (f32, ``csrc/attention_relpos.cu``) /
     ``attn_relpos_wgmma_kernel`` (bf16, on wgmma and TMA,
     ``csrc/attention_relpos_wgmma.cu``, launched on the plan of
@@ -108,6 +111,16 @@ def _relpos_stage_bytes(dp, nk, h, w):
     return tile(128) + rel, 2 * tile(nk)
 
 
+def _ring_depths(tiles):
+    """(unit stages, K / V stages) of the wgmma attention kernels' rings, in
+    the order a plan tries them: a unit of one tile double-buffers units; a
+    unit of several tiles issues a tile's scores before it releases the
+    tile before, so it wants three K / V stages (two at least) to keep a
+    load in flight."""
+    return (((2, 2), (2, 1), (1, 1)) if tiles == 1 else
+            ((2, 4), (2, 3), (1, 4), (1, 3), (2, 2), (1, 2)))
+
+
 @functools.lru_cache(maxsize=None)
 def relpos_plan(d: int, n: int, hw) -> RelposPlan:
     """The bf16 K6's plan for head dim ``d`` over an ``hw`` grid of ``n``
@@ -131,12 +144,7 @@ def relpos_plan(d: int, n: int, hw) -> RelposPlan:
     else:
         nk, tiles = 64, -(-n // 64)
     unit, kv = _relpos_stage_bytes(dp, nk, h, w)
-    # a unit of one tile double-buffers units; a unit of several tiles
-    # issues a tile's S before it releases the tile before, so it wants
-    # three K / V stages (two at least) to keep a load in flight
-    depths = (((2, 2), (2, 1), (1, 1)) if tiles == 1 else
-              ((2, 4), (2, 3), (1, 4), (1, 3), (2, 2), (1, 2)))
-    for u_stages, kv_stages in depths:
+    for u_stages, kv_stages in _ring_depths(tiles):
         smem = RELPOS_SMEM_FIXED + u_stages * unit + kv_stages * kv
         if smem <= SMEM_MAX:
             return RelposPlan(
@@ -146,6 +154,62 @@ def relpos_plan(d: int, n: int, hw) -> RelposPlan:
         f"K6 bf16: no plan fits in shared memory for head_dim {d} over a "
         f"{hw} grid (one stage takes {RELPOS_SMEM_FIXED + unit + kv} "
         "bytes)")
+
+
+@dataclasses.dataclass(frozen=True)
+class DqPlan:
+    """The launch plan of K5's bf16 dq kernel (``attn_bwd_dq_wgmma_kernel``):
+    ``mode`` "row_tile" (W = 64: a 64-key tile is one grid row), "grid" (a
+    window of at most 14 x 16 cells: tiles of 7 grid rows, 112 key slots)
+    or "generic" (64 keys a tile, drel through a shared tile), the key tile
+    (``nk``), the tiles per unit of 128 query rows, the depths of the K / V
+    ring and of the unit (Q, dO, L, D and bias rows) ring, and the shared
+    memory of a block in bytes."""
+    mode: str
+    nk: int
+    tiles: int
+    kv_stages: int
+    u_stages: int
+    smem: int
+
+
+DQ_SMEM_FIXED = 1024 + 128  # dq::SMEM_FIXED: alignment slack, mbarriers
+
+
+def _dq_stage_bytes(nk, h, w, generic):
+    """(unit stage, K / V stage, both warpgroups' sums) bytes:
+    ``dq::Layout`` of csrc/attention_bwd.cu (a unit stage's Q and dO of 128
+    rows, its L and D and, but for GENERIC, its bias rows; K and V of NK key
+    slots; GENERIC a warpgroup's bf16 ds tile of 64 x 72 and its f32 dRh
+    and dRw)."""
+    up = lambda x, m: -(-x // m) * m
+    rows = 2 * 128 * HEAD_DIM * 2 + 2 * 4 * 128
+    rel = 0 if generic else (up(2 * (128 * h + 16), 16)
+                             + up(2 * (128 * w + 16), 16))
+    sums = 2 * (2 * 64 * 72 + 4 * 64 * (h + w)) if generic else 0
+    return up(rows + rel, 1024), 2 * nk * HEAD_DIM * 2, sums
+
+
+@functools.lru_cache(maxsize=None)
+def dq_plan(n: int, hw) -> DqPlan:
+    """K5's bf16 dq kernel's plan over an ``hw`` grid of ``n`` tokens: the
+    deepest rings that fit in a block's shared memory (``_ring_depths``).
+    Raises where none fits."""
+    h, w = hw
+    if w == 64:
+        mode, nk, tiles = "row_tile", 64, h
+    elif h <= 14 and w <= 16:
+        mode, nk, tiles = "grid", 112, -(-h // 7)
+    else:
+        mode, nk, tiles = "generic", 64, -(-n // 64)
+    unit, kv, sums = _dq_stage_bytes(nk, h, w, mode == "generic")
+    for u_stages, kv_stages in _ring_depths(tiles):
+        smem = DQ_SMEM_FIXED + u_stages * unit + kv_stages * kv + sums
+        if smem <= SMEM_MAX:
+            return DqPlan(mode, nk, tiles, kv_stages, u_stages, smem)
+    raise NotImplementedError(
+        f"K5 bf16 dq: no plan fits in shared memory over a {hw} grid (one "
+        f"stage takes {DQ_SMEM_FIXED + unit + kv + sums} bytes)")
 
 
 def reset_launch_counts() -> None:
@@ -386,11 +450,11 @@ def _bind(name):
         elif name == "attention_relpos":
             fns = [(lib.dhoct_attn_relpos, [p] * 4 + [i] * 6 + [p])]
         elif name == "attention_relpos_wgmma":
-            fns = [(lib.dhoct_attn_relpos_bf16, [p] * 4 + [i] * 11 + [p])]
+            fns = [(lib.dhoct_attn_relpos_bf16, [p] * 5 + [i] * 11 + [p])]
         elif name == "attention_winimg":
             fns = [(lib.dhoct_attn_windowed_image, [p] * 4 + [i] * 6 + [p])]
         else:
-            fns = [(lib.dhoct_attn_bwd_dq, [p] * 9 + [i] * 6 + [p]),
+            fns = [(lib.dhoct_attn_bwd_dq, [p] * 9 + [i] * 10 + [p]),
                    (lib.dhoct_attn_bwd_dkv, [p] * 7 + [i] * 7 + [p])]
         for fn, sig in fns:
             fn.argtypes = sig
@@ -423,36 +487,67 @@ def _kernel_dims(qkv, num_heads):
 def attention_fwd_cuda(qkv, rel_h, rel_w, *, hw, num_heads: int,
                        return_lse: bool = False):
     """Launch K1 (N > WINDOW_MAX_TOKENS) or K2; same contract as
-    ``packed_attention_plain``."""
+    ``packed_attention_plain``. The bf16 K1 is the bf16 K6's kernel
+    (``attn_relpos_wgmma_kernel`` on ``relpos_plan(64, n, hw)``), which at
+    head dim 64 computes the same function with the same rounding points,
+    and writes the logsumexp rows too; its launches count as
+    ``attn_global``."""
     _check(qkv, rel_h, rel_w, hw, num_heads)
     b, n, c3 = qkv.shape
     _kernel_dims(qkv, num_heads)
     kernels.check_operands("attention", (qkv, rel_h, rel_w), (qkv.dtype,) * 3)
-    lib = _bind("attention")
     name = "attn_windowed" if n <= WINDOW_MAX_TOKENS else "attn_global"
-    fn = getattr(lib, f"dhoct_{name}")
     out = torch.empty((b, n, c3 // 3), dtype=qkv.dtype, device=qkv.device)
     lse = (torch.empty((b, num_heads, n), dtype=torch.float32,
                        device=qkv.device) if return_lse else None)
-    stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    with torch.cuda.device(qkv.device):
-        err = fn(qkv.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
-                 out.data_ptr(), lse.data_ptr() if return_lse else None, b, n,
-                 num_heads, hw[0], hw[1], kernels.DTYPE_CODE[qkv.dtype],
-                 stream)
+    if name == "attn_global" and qkv.dtype == torch.bfloat16:
+        lib, err = _launch_relpos_bf16(qkv, rel_h, rel_w, out, lse, hw,
+                                       num_heads)
+    else:
+        lib = _bind("attention")
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        with torch.cuda.device(qkv.device):
+            err = getattr(lib, f"dhoct_{name}")(
+                qkv.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
+                out.data_ptr(), lse.data_ptr() if return_lse else None, b, n,
+                num_heads, hw[0], hw[1], kernels.DTYPE_CODE[qkv.dtype],
+                stream)
     kernels.raise_on_error(err, lib.dhoct_error_string, name)
     LAUNCHES[name] += 1
     return (out, lse) if return_lse else out
 
 
+def _launch_relpos_bf16(qkv, rel_h, rel_w, out, lse, hw, num_heads):
+    """Launch ``attn_relpos_wgmma_kernel`` on the plan of ``relpos_plan``,
+    one persistent block per SM at most, writing ``out`` and, where ``lse``
+    is not None, the rows' logsumexp; returns (the library, its error code).
+    The kernel reads each head in slabs of 16 columns: where the head dim is
+    no multiple of 16, qkv is first copied with each head padded to ``dp``
+    columns of zeros, for the same kernel (no ViT's head: 64 and 80 are
+    multiples)."""
+    b, n, c3 = qkv.shape
+    d = c3 // 3 // num_heads
+    plan = relpos_plan(d, n, tuple(hw))
+    src = qkv if d == plan.dp else torch.nn.functional.pad(
+        qkv.view(b, n, 3 * num_heads, d), (0, plan.dp - d)).view(
+            b, n, 3 * num_heads * plan.dp)
+    units = b * num_heads * -(-n // 128)
+    lib = _bind("attention_relpos_wgmma")
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    with kernels.on_device(qkv.device):
+        err = lib.dhoct_attn_relpos_bf16(
+            src.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
+            out.data_ptr(), None if lse is None else lse.data_ptr(), b, n,
+            num_heads, d, hw[0], hw[1], src.shape[2] // (3 * num_heads),
+            plan.nk, plan.kv_stages, plan.u_stages,
+            min(units, kernels.sm_count(qkv.device)), stream)
+    return lib, err
+
+
 def attention_relpos_cuda(qkv, rel_h, rel_w, *, hw, num_heads: int):
     """Launch K6 (f32 ``attn_relpos_tf32_kernel``, bf16
-    ``attn_relpos_wgmma_kernel`` on the plan of ``relpos_plan``, one
-    persistent block per SM at most); same contract as
-    ``relpos_attention_plain``. The bf16 kernel reads each head in slabs of
-    16 columns: where the head dim is no multiple of 16, qkv is first
-    copied with each head padded to ``dp`` columns of zeros, for the same
-    kernel (no ViT's head: 64 and 80 are multiples)."""
+    ``attn_relpos_wgmma_kernel``: ``_launch_relpos_bf16``); same contract
+    as ``relpos_attention_plain``."""
     _check(qkv, rel_h, rel_w, hw, num_heads)
     b, n, c3 = qkv.shape
     d = c3 // 3 // num_heads
@@ -463,26 +558,16 @@ def attention_relpos_cuda(qkv, rel_h, rel_w, *, hw, num_heads: int):
     kernels.check_operands("attn_relpos", (qkv, rel_h, rel_w),
                            (qkv.dtype,) * 3)
     out = torch.empty((b, n, c3 // 3), dtype=qkv.dtype, device=qkv.device)
-    stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    with kernels.on_device(qkv.device):
-        if qkv.dtype == torch.float32:
-            lib = _bind("attention_relpos")
+    if qkv.dtype == torch.float32:
+        lib = _bind("attention_relpos")
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        with kernels.on_device(qkv.device):
             err = lib.dhoct_attn_relpos(
                 qkv.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
                 out.data_ptr(), b, n, num_heads, d, hw[0], hw[1], stream)
-        else:
-            plan = relpos_plan(d, n, tuple(hw))
-            src = qkv if d == plan.dp else torch.nn.functional.pad(
-                qkv.view(b, n, 3 * num_heads, d), (0, plan.dp - d)).view(
-                    b, n, 3 * num_heads * plan.dp)
-            units = b * num_heads * -(-n // 128)
-            lib = _bind("attention_relpos_wgmma")
-            err = lib.dhoct_attn_relpos_bf16(
-                src.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
-                out.data_ptr(), b, n, num_heads, d, hw[0], hw[1],
-                src.shape[2] // (3 * num_heads), plan.nk, plan.kv_stages,
-                plan.u_stages, min(units, kernels.sm_count(qkv.device)),
-                stream)
+    else:
+        lib, err = _launch_relpos_bf16(qkv, rel_h, rel_w, out, None, hw,
+                                       num_heads)
     kernels.raise_on_error(err, lib.dhoct_error_string, "attn_relpos")
     LAUNCHES["attn_relpos"] += 1
     return out
@@ -534,13 +619,22 @@ def _bwd_operands(qkv, rel_h, rel_w, g_out, lse, dvec, dqkv, hw,
 def attention_bwd_dq_cuda(qkv, rel_h, rel_w, g_out, lse, dvec, dqkv, *, hw,
                           num_heads: int):
     """Launch K5's dq kernel: writes dq into the q columns of ``dqkv``
-    (B, N, 3C) and returns (drel_h, drel_w)."""
+    (B, N, 3C) and returns (drel_h, drel_w). bf16
+    ``attn_bwd_dq_wgmma_kernel`` on the plan of ``dq_plan``, one persistent
+    block per SM at most; f32 ``attn_bwd_dq_tf32_kernel``."""
     lib, ptrs, dims, stream = _bwd_operands(qkv, rel_h, rel_w, g_out, lse,
                                             dvec, dqkv, hw, num_heads)
     drel_h, drel_w = torch.empty_like(rel_h), torch.empty_like(rel_w)
+    plan = (0, 0, 0, 0)
+    if qkv.dtype == torch.bfloat16:
+        b, n = qkv.shape[:2]
+        p = dq_plan(n, tuple(hw))
+        units = b * num_heads * -(-n // 128)
+        plan = (p.nk, p.kv_stages, p.u_stages,
+                min(units, kernels.sm_count(qkv.device)))
     with torch.cuda.device(qkv.device):
         err = lib.dhoct_attn_bwd_dq(*ptrs, drel_h.data_ptr(),
-                                    drel_w.data_ptr(), *dims, stream)
+                                    drel_w.data_ptr(), *dims, *plan, stream)
     kernels.raise_on_error(err, lib.dhoct_error_string, "attn_bwd_dq")
     LAUNCHES["attn_bwd_dq"] += 1
     return drel_h, drel_w

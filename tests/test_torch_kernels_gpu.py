@@ -5,8 +5,9 @@ image-layout windowed forward K7, the upscaler K3 and the image->token
 attention K4 (their forwards on the tensor cores, bf16 and f32 in split
 TF32; the backwards of both as their two launches, the row pass and the
 weight pass, each against its plain twin; the kernels on wgmma and TMA --
-the bf16 K6, K5's bf16 dk/dv kernel, both K4 weight passes -- on their
-own plans); the topological loss's pairing
+the bf16 K6 and K1 (K6's kernel with the logsumexp rows), K5's bf16 dq
+kernel in each of its modes and its dk/dv kernel, both K4 weight passes --
+on their own plans); the topological loss's pairing
 T1 (on its shared-memory route and, for grids past one block's shared
 memory, its global one) and matching T2 against their numpy twins and the
 host library; one
@@ -188,6 +189,87 @@ def test_attention_dkv_wgmma_on_card(cuda_device, b, nh, hw):
         _rel_close(got[..., cols], want[..., cols], K34_TOL[torch.bfloat16],
                    name)
     assert torch.equal(got, dkv())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,nh,hw", ATTN_SHAPES + [
+    (2, 2, (3, 64)),    # ROW_TILE at an odd grid height
+    (4, 2, (4, 16)),    # GRID: a window of one tile, W = 16
+    (1, 2, (8, 32))])   # GENERIC: W = 32, 256 tokens in 4 key tiles
+def test_attention_dq_wgmma_on_card(cuda_device, b, nh, hw):
+    """K5's bf16 dq kernel on wgmma and TMA (``attn_bwd_dq_wgmma_kernel``)
+    alone, in each of its modes (``dq_plan``: ROW_TILE at W = 64, GRID on a
+    window in tiles of 7 grid rows, GENERIC through the shared ds tile,
+    the ragged 63 / 300 / 1020-token grids among them): the q columns of
+    dqkv, drel_h and drel_w against ``packed_attention_bwd_plain``
+    (``K34_TOL`` of max |plain|), the k and v columns untouched, one
+    launch, and the same bits on a second run."""
+    qkv, rel_h, rel_w, g = _attn_inputs(cuda_device, torch.bfloat16, b, nh,
+                                        hw, seed=6)
+    kw = dict(hw=hw, num_heads=nh)
+    n = hw[0] * hw[1]
+    mode = port_attn.dq_plan(n, hw).mode
+    assert mode == ("row_tile" if hw[1] == 64 else "grid"
+                    if hw[0] <= 14 and hw[1] <= 16 else "generic")
+    out, lse = port_attn.packed_attention_plain(qkv, rel_h, rel_w,
+                                                return_lse=True, **kw)
+    dvec = port_attn.bwd_dvec(g, out, nh)
+
+    def dq():
+        dqkv = torch.full_like(qkv, 7.0)
+        drel = port_attn.attention_bwd_dq_cuda(qkv, rel_h, rel_w, g, lse,
+                                               dvec, dqkv, **kw)
+        return (dqkv,) + tuple(drel)
+
+    before = port_attn.LAUNCHES["attn_bwd_dq"]
+    got = dq()
+    torch.cuda.synchronize()
+    assert port_attn.LAUNCHES["attn_bwd_dq"] == before + 1
+    want = port_attn.packed_attention_bwd_plain(qkv, rel_h, rel_w, g, lse,
+                                                dvec, **kw)
+    c = nh * 64
+    assert bool((got[0][..., c:] == 7.0).all())
+    for name, x, w in (("dq", got[0][..., :c], want[0][..., :c]),
+                       ("drel_h", got[1], want[1]),
+                       ("drel_w", got[2], want[2])):
+        assert x.dtype == torch.bfloat16 and x.shape == w.shape, name
+        assert bool(torch.isfinite(x.float()).all()), name
+        _rel_close(x, w, K34_TOL[torch.bfloat16], f"{mode} {name}")
+    for x, y in zip(got, dq()):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,nh,hw", [s for s in ATTN_SHAPES
+                                     if s[2][0] * s[2][1] > 256])
+def test_k1_bf16_on_the_wgmma_body_on_card(cuda_device, b, nh, hw):
+    """The bf16 K1 is the bf16 K6's kernel (``attn_relpos_wgmma_kernel``,
+    on ``relpos_plan(64, n, hw)``) with its logsumexp rows: the output
+    against ``packed_attention_plain`` (two bf16 ulps of the output scale)
+    and L against its f32 logsumexp (atol 2e-4), counted as one K1 launch
+    and no K6 launch, and the same bits of both on a second run."""
+    qkv, rel_h, rel_w, _ = _attn_inputs(cuda_device, torch.bfloat16, b, nh,
+                                        hw, seed=7)
+    kw = dict(hw=hw, num_heads=nh)
+    before = dict(port_attn.LAUNCHES)
+    out, lse = port_attn.attention_fwd_cuda(qkv, rel_h, rel_w,
+                                            return_lse=True, **kw)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in port_attn.LAUNCHES.items()
+                if v != before[k]}
+    assert launched == {"attn_global": 1}, launched
+    want_out, want_lse = port_attn.packed_attention_plain(
+        qkv, rel_h, rel_w, return_lse=True, **kw)
+    assert_forward_close(out, want_out)
+    assert lse.dtype == torch.float32 and lse.shape == want_lse.shape
+    np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(),
+                               atol=2e-4, rtol=1e-5)
+    out2, lse2 = port_attn.attention_fwd_cuda(qkv, rel_h, rel_w,
+                                              return_lse=True, **kw)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    # without the rows, the same output (K6's own instance)
+    assert torch.equal(out, port_attn.attention_relpos_cuda(
+        qkv, rel_h, rel_w, **kw))
 
 
 @pytest.mark.gpu

@@ -256,3 +256,21 @@ def test_bf16_precompute_vith_shaped_matches_jax(rng, monkeypatch):
     ulp = BF16_ULP * np.abs(want).max()
     np.testing.assert_allclose(got, want, rtol=0, atol=4 * ulp)
     assert np.abs(got - want).mean() <= 0.5 * ulp
+
+
+@pytest.mark.parametrize("b,nh,hw", [(2, 2, (20, 15)),   # 300 tokens
+                                     (1, 2, (30, 34)),   # W != 64
+                                     (1, 2, (64, 64))])  # ViT's global grid
+def test_packed_bf16_global_equals_relpos_plain_bitwise(rng, b, nh, hw):
+    """At head dim 64 in bf16, past WINDOW_MAX_TOKENS, the packed route's
+    plain version (K1's: q times 1/8 before the product) gives the same
+    bits as K6's (the score times 1/8 after it): the scale is a power of
+    two, and both round the un-normalised p and divide last. This is why
+    the bf16 K1 runs on K6's kernel (``attention_fwd_cuda``)."""
+    arrays = _inputs(rng, b, nh, 64, hw)
+    args = [torch.tensor(a, dtype=torch.bfloat16) for a in arrays]
+    assert hw[0] * hw[1] > port_attn.WINDOW_MAX_TOKENS
+    packed = port_attn.packed_attention_plain(*args, hw=hw, num_heads=nh)
+    relpos = port_attn.relpos_attention_plain(*args, hw=hw, num_heads=nh)
+    assert packed.dtype == relpos.dtype == torch.bfloat16
+    assert torch.equal(packed, relpos)

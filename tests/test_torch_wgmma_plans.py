@@ -1,7 +1,9 @@
 """The launch plans of the kernels on wgmma and TMA, as pure functions
-pinned on the CPU: ``ops.attention.relpos_plan`` (the bf16 K6,
+pinned on the CPU: ``ops.attention.relpos_plan`` (the bf16 K6 and K1,
 ``csrc/attention_relpos_wgmma.cu``: key tile, ring depths and shared
-memory) and ``ops.decoder_attn.dw_plan_f32`` / ``dw_plan_bf16`` (the K4
+memory), ``ops.attention.dq_plan`` (K5's bf16 dq kernel,
+``csrc/attention_bwd.cu``: mode, key tile, ring depths and shared memory)
+and ``ops.decoder_attn.dw_plan_f32`` / ``dw_plan_bf16`` (the K4
 weight pass in both types: its row chunks and blocks), with the order in
 which the weight pass's plain twin sums those chunks. The kernels
 themselves run only on the card (``tests/test_torch_kernels_gpu.py``)."""
@@ -77,6 +79,66 @@ def test_relpos_plan_pinned(d, hw, want):
     p = port_attn.relpos_plan(d, hw[0] * hw[1], hw)
     assert (p.route, p.dp, p.nk, p.tiles, p.kv_stages, p.u_stages,
             p.smem) == want
+
+
+def _dq_stage_bytes(nk, h, w, generic):
+    """``dq::Layout`` written out: a unit stage holds Q and dO (128 rows of
+    64 bf16 each), L and D (128 f32 each) and, but for GENERIC (which reads
+    the factors from device memory), 128 rows of each bias factor (+ 16
+    elements of slack), padded to 1 KB; a K / V stage K and V of nk slots;
+    GENERIC each warpgroup's bf16 ds tile (64 x 72), f32 dRh and dRw."""
+    up = lambda x, m: -(-x // m) * m
+    rel = 0 if generic else (up(2 * (128 * h + 16), 16)
+                             + up(2 * (128 * w + 16), 16))
+    sums = 2 * (64 * 72 * 2 + 4 * 64 * (h + w)) if generic else 0
+    return up(2 * 16384 + 2 * 512 + rel, 1024), 2 * nk * 128, sums
+
+
+def test_dq_plan_modes_and_bytes():
+    """K5's bf16 dq kernel has a plan on every grid of N <= 256 tokens and
+    on the global grids below: W = 64 a 64-key tile per grid row
+    (ROW_TILE, any H); a window of at most 14 x 16 cells tiles of 7 grid
+    rows of 16 slots (GRID, 112); else tiles of 64 keys (GENERIC). Two K /
+    V stages at least where a unit has more than one tile, the rings in
+    227 KB, and the shared memory the layout's own sum."""
+    for h, w in GRIDS_UP_TO_256 + [(64, 64), (32, 64), (3, 64), (30, 34),
+                                   (48, 48), (16, 100), (125, 125)]:
+        n = h * w
+        plan = port_attn.dq_plan(n, (h, w))
+        if w == 64:
+            want = ("row_tile", 64, h)
+        elif h <= 14 and w <= 16:
+            want = ("grid", 112, -(-h // 7))
+        else:
+            want = ("generic", 64, -(-n // 64))
+        assert (plan.mode, plan.nk, plan.tiles) == want, (h, w)
+        unit, kv, sums = _dq_stage_bytes(plan.nk, h, w,
+                                         plan.mode == "generic")
+        assert plan.smem == (1152 + plan.u_stages * unit
+                             + plan.kv_stages * kv + sums), (h, w)
+        assert plan.smem <= port_attn.SMEM_MAX, (h, w)
+        assert plan.kv_stages >= 2 or plan.tiles == 1, (h, w)
+        assert 1 <= plan.kv_stages <= 4 and 1 <= plan.u_stages <= 2
+
+
+@pytest.mark.parametrize("hw,want", [
+    # ViT-B / ViT-L: the global layer (64 tiles a unit, four K / V stages)
+    # and the 14 x 14 window (two tiles of 7 grid rows)
+    ((64, 64), ("row_tile", 64, 64, 4, 2, 201856)),
+    ((14, 14), ("grid", 112, 2, 4, 2, 199808)),
+    # the ragged test grids: 63 tokens in a window's two tiles, 300 and
+    # 1020 tokens through the shared ds tile
+    ((9, 7), ("grid", 112, 2, 4, 2, 193664)),
+    ((20, 15), ("generic", 64, 5, 4, 2, 170624)),
+    ((30, 34), ("generic", 64, 16, 4, 2, 185472)),
+    # the widest grid of N <= 256: one unit stage, two K / V stages
+    ((1, 256), ("generic", 64, 4, 2, 1, 217728)),
+])
+def test_dq_plan_pinned(hw, want):
+    """The plans of the main path's and the test shapes, pinned: mode, key
+    tile, tiles per unit, K / V and unit stages, bytes."""
+    p = port_attn.dq_plan(hw[0] * hw[1], hw)
+    assert (p.mode, p.nk, p.tiles, p.kv_stages, p.u_stages, p.smem) == want
 
 
 def test_relpos_plan_row_tile_needs_an_even_grid_height():
