@@ -10,13 +10,13 @@
 //   s[q, k] = (q . k) / 8 + rel_h[q, k / W] + rel_w[q, k % W]
 //   out[q]  = softmax_k(s[q, :]) . v
 //
-// Two kernels. K2 has an f32 instance (the serving and f32 fine-tune
-// paths) and a bf16 one (the precompute and full fine-tune paths); K1 here
-// is f32 only: the bf16 K1 is the bf16 K6 on wgmma and TMA
-// (attention_relpos_wgmma.cu), which computes the same function at head
-// dim 64 (ops/attention.py: attention_fwd_cuda). All on the tensor cores:
-// the f32 ones in split TF32 (attention_tf32.cuh), every sum in f32; the
-// bf16 K2 on mma.sync m16n8k16. Given a non-null `lse` (B, heads, N) f32,
+// Two kernels, both f32 (the serving and f32 fine-tune paths): the bf16
+// K1 and K2 (the precompute and full fine-tune paths) are the bf16 K6 on
+// wgmma and TMA (attention_relpos_wgmma.cu), which computes the same
+// function at head dim 64, K2 at the JAX route's rounding point
+// (ops/attention.py: attention_fwd_cuda, normalised_rounding). Both on
+// the tensor cores in split TF32 (attention_tf32.cuh), every sum in f32.
+// Given a non-null `lse` (B, heads, N) f32,
 // each also writes the row's logsumexp m + log(l) in the scaled-score
 // domain (the TPU kernel's return_lse), which the backward K5
 // (attention_bwd.cu) reads; with a null pointer nothing more is written.
@@ -36,7 +36,7 @@
 // K2 replaces the same function's _windowed_group_kernel branch (the 8
 //    windowed layers, 25 windows of 14x14 = 196 tokens per image), with a
 //    one-pass softmax over all keys of a window.
-//    Both types: one block per (window, head) loads the window's k and v
+//    One block per (window, head) loads the window's k and v
 //    once, and its warps take the 13 m16 query tiles in turn, each staging
 //    its tile's q rows: q.k^T, then the bias as a second product (the
 //    query rows' factors times a one-hot over the keys, which also masks
@@ -47,9 +47,6 @@
 //    factors staged beside its q rows; split TF32 (hi.hi + hi.lo + lo.hi,
 //    two products for the bias, whose one-hot is exact); p in f32, o / l
 //    last.
-//    bf16, attn_windowed_mma_kernel: 4 warps (attention_mma.cuh
-//    window_tiles_mma); p / l rounded to bf16 before p.v (the TPU kernel's
-//    rounding point).
 //
 // Bound on an H100 SXM (700 W), one layer at B = 1:
 //    K1: 4 * 4096^2 * 64 * 12 = 51.5 GFLOP; f32 over the split-TF32 rate
@@ -58,19 +55,15 @@
 //        0.022 ms. Compute-bound.
 //    K2: 2.95 GFLOP -> 0.018 ms in f32 over the split-TF32 rate (495 / 3
 //        = 165 TFLOP/s; 0.044 ms over the CUDA cores' 67), against 67 MB
-//        -> 0.020 ms (bound by bytes); in bf16 0.003 ms of products against
-//        33.5 MB -> 0.010 ms (bound by bytes).
-// What this design does about it: every kernel keeps the operands of its
-// inner loops in shared memory and registers and reads each qkv byte from
-// device memory once per query tile (the bf16 K2 once per window and head),
-// and runs its products on the tensor cores. What stays on the CUDA cores
-// per score is the bias, the exponential and the max / sum, and in f32 the
-// split of each operand as its fragment is loaded (each value once per
-// warp). In K1 the
-// next K / V tile's copy overlaps the current tile's work; in the bf16 K2
-// the next query tile's, and the two blocks an SM holds overlap one's loads
-// with the other's products (the f32 K2's 8 warps, one block per SM, stage
-// their tiles in turn). K2 on wgmma with TMA is later work.
+//        -> 0.020 ms (bound by bytes).
+// What this design does about it: both kernels keep the operands of their
+// inner loops in shared memory and registers, read each qkv byte from
+// device memory once per query tile, and run their products on the tensor
+// cores. What stays on the CUDA cores per score is the bias, the
+// exponential and the max / sum, and the split of each operand as its
+// fragment is loaded (each value once per warp). In K1 the next K / V
+// tile's copy overlaps the current tile's work; K2's 8 warps, one block
+// per SM, stage their tiles in turn.
 //
 // Not carried over from the TPU kernel (Mosaic-only workarounds): head-pair
 // packing into 128 lanes, one-hot selector matmuls that expand the bias,
@@ -183,95 +176,6 @@ attn_windowed_tf32_kernel(const float* __restrict__ qkv,
                                     store);
 }
 
-// ----------------------------------------------------------- K2 bf16 ----
-// grid (1, heads, windows), 32 WIN_WARPS threads: one block per (window,
-// head) loads the window's k and v (NK = N rounded up to 16 rows, zero
-// past N), the query rows' bias factors F and the one-hot E of the bias
-// product, and its warps take the NK / 16 m16 query tiles in turn (warp w:
-// tiles w, w + WIN_WARPS, ...), each tile's q rows staged by the warp
-// (attention_mma.cuh window_tiles_mma / window_tile_mma). Shared (bf16):
-//   Ks | Vs NK x LDS | F NK x (FK + 8) | E (uint4) | Qw WIN_WARPS x 2 x 16 x LDS
-// NJ bounds NK / 16 at compile time: the EXACT instance takes NK = 208
-// (the SAM windows of 14 x 14: 13 tiles, no guarded product), the other
-// any NK up to KMAX.
-constexpr int WIN_WARPS = 4;
-
-template <int NJ, bool EXACT>
-__global__ void __launch_bounds__(32 * WIN_WARPS, 2)
-attn_windowed_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
-                         const __nv_bfloat16* __restrict__ rel_h,
-                         const __nv_bfloat16* __restrict__ rel_w,
-                         __nv_bfloat16* __restrict__ out,
-                         float* __restrict__ lse, int n, int heads, int H,
-                         int W) {
-  using namespace mma;
-  constexpr int NTH = 32 * WIN_WARPS;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int nj = (n + 15) / 16, nk = 16 * nj;
-  const int fk16 = win_fk16(H, W), fk = 16 * fk16, fld = fk + 8;
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + nk * LDS;
-  bf16* F = Vs + nk * LDS;
-  uint4* E = reinterpret_cast<uint4*>(F + nk * fld);
-  bf16* Qw = reinterpret_cast<bf16*>(E + fk16 * nj * 32);
-
-  const int head = blockIdx.y, b = blockIdx.z;
-  const int C = heads * D, stride = 3 * C;
-  const int t = (threadIdx.x & 31) & 3, g = (threadIdx.x & 31) >> 2;
-  const bf16* base = qkv + (size_t)b * n * stride + head * D;
-  const size_t rel_row = ((size_t)b * heads + head) * n;
-
-  load_tile_async<NTH>(Ks, base + C, stride, 0, n, nk);
-  load_tile_async<NTH>(Vs, base + 2 * C, stride, 0, n, nk);
-  // F's factor columns: [rel_h | rel_w] of each query row, zero past n; by
-  // 4-byte copies where both rows are whole words (H, W even: every SAM
-  // window), else by plain loads
-  const bf16* fh = rel_h + rel_row * H;
-  const bf16* fw = rel_w + rel_row * W;
-  if (H % 2 == 0 && W % 2 == 0) {
-    const int words = (H + W) / 2;
-    for (int i = threadIdx.x; i < nk * words; i += NTH) {
-      const int r = i / words, f = 2 * (i - r * words);
-      const bool ok = r < n;
-      cp_async4(F + r * fld + f,
-                ok ? (f < H ? fh + r * H + f : fw + r * W + f - H) : fh, ok);
-    }
-  } else {
-    for (int i = threadIdx.x; i < nk * (H + W); i += NTH) {
-      const int r = i / (H + W), f = i - r * (H + W);
-      F[r * fld + f] = r >= n ? __float2bfloat16(0.f)
-                       : f < H ? fh[r * H + f] : fw[r * W + f - H];
-    }
-  }
-  cp_commit();
-  fill_mask_columns<NTH>(F, fld, nk, H + W, fk);
-  build_onehot<NTH>(E, n, nj, H, W);
-
-  auto stage_q = [&](bf16* dst, int row0) {
-    for (int i = threadIdx.x & 31; i < 16 * (D / 8); i += 32) {
-      const int r = i >> 3, c = (i & 7) * 8;
-      const bool ok = row0 + r < n;
-      cp_async16(dst + r * LDS + c,
-                 base + (ok ? (size_t)(row0 + r) * stride + c : 0), ok);
-    }
-  };
-  auto store = [&](int row0, float (*o)[4], const float* m, const float* l) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int q = row0 + g + 8 * r;
-      if (q >= n) continue;
-      if (lse != nullptr && t == 0) lse[rel_row + q] = m[r] + logf(l[r]);
-      bf16* dst = out + ((size_t)b * n + q) * C + head * D + 2 * t;
-#pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn)
-        *reinterpret_cast<uint32_t*>(dst + 8 * dn) =
-            pack_bf16(o[dn][2 * r], o[dn][2 * r + 1]);
-    }
-  };
-  window_tiles_mma<NJ, EXACT, NTH>(Qw, Ks, Vs, F, fld, E, fk16, nj, stage_q,
-                                   store);
-}
-
 template <bool ROW_TILE>
 int launch_global_tf32(const void* qkv, const void* rel_h, const void* rel_w,
                        void* out, float* lse, int batch, int n, int heads,
@@ -321,26 +225,6 @@ int launch_windowed_f32(const void* qkv, const void* rel_h,
   return (int)cudaGetLastError();
 }
 
-int launch_windowed_bf16(const void* qkv, const void* rel_h,
-                         const void* rel_w, void* out, float* lse, int batch,
-                         int n, int heads, int h, int w, cudaStream_t stream) {
-  using namespace mma;
-  if (n > KMAX) return (int)cudaErrorInvalidValue;
-  const int nk = (n + 15) / 16 * 16;
-  const size_t smem = window_smem(n, h, w, WIN_WARPS);
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
-  auto kernel = nk == 208 ? attn_windowed_mma_kernel<13, true>
-                          : attn_windowed_mma_kernel<KMAX / 16, false>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  kernel<<<dim3(1, heads, batch), 32 * WIN_WARPS, smem, stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(rel_h),
-      static_cast<const bf16*>(rel_w), static_cast<bf16*>(out), lse, n,
-      heads, h, w);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // C interface (ctypes). dtype: 0 = float32, 1 = bfloat16; lse: null, or
@@ -359,15 +243,15 @@ int dhoct_attn_global(const void* qkv, const void* rel_h, const void* rel_w,
                            static_cast<cudaStream_t>(stream));
 }
 
+// f32 only: the bf16 K2 is attention_relpos_wgmma.cu's kernel too, at the
+// JAX route's rounding point
 int dhoct_attn_windowed(const void* qkv, const void* rel_h, const void* rel_w,
                         void* out, void* lse, int batch, int n, int heads,
                         int h, int w, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* l = static_cast<float*>(lse);
-  return dtype == 1 ? launch_windowed_bf16(qkv, rel_h, rel_w, out, l, batch,
-                                           n, heads, h, w, s)
-                    : launch_windowed_f32(qkv, rel_h, rel_w, out, l, batch, n,
-                                          heads, h, w, s);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  return launch_windowed_f32(qkv, rel_h, rel_w, out, static_cast<float*>(lse),
+                             batch, n, heads, h, w,
+                             static_cast<cudaStream_t>(stream));
 }
 
 const char* dhoct_error_string(int code) {

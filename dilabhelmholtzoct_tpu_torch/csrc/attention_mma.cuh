@@ -1,14 +1,13 @@
 // Tensor-core building blocks of the bf16 encoder attention kernels on
-// mma.sync: the windowed body shared by K2 (attention.cu,
-// attn_windowed_mma_kernel) and K7 (attention_winimg.cu,
+// mma.sync: the windowed body of K7 (attention_winimg.cu,
 // attn_winimg_mma_kernel), window_tile_mma, and the fragment loads the bf16
 // K3 / K4 kernels share (decoder_mma.cuh). The wgmma kernels (the bf16 K1 /
-// K6, attention_relpos_wgmma.cu; K5's bf16 kernels, attention_bwd.cu) take
+// K2 / K6, attention_relpos_wgmma.cu; K5's bf16 kernels, attention_bwd.cu) take
 // their softmax and packing helpers from here, the f32 kernels
 // (attention_tf32.cuh) the copies and KeyWalk.
 //
 // Every tile holds rows of one head in bf16 in shared memory. At head dim
-// 64 (K2, K7) rows are padded to LDS = 72 elements (144 bytes): the
+// 64 (K7) rows are padded to LDS = 72 elements (144 bytes): the
 // eight 16-byte rows that one ldmatrix phase reads then start on eight
 // different bank groups, so the loads are free of bank conflicts. The
 // fragment loads take the row length (LD) as a template argument whose
@@ -136,21 +135,6 @@ __device__ __forceinline__ void load_b_kn(uint32_t* b, const bf16* tile,
                    (lane >> 4) * 8);
 }
 
-// rows [row0, row0 + rows) x 64 columns (`stride` elements per row) ->
-// shared tile, asynchronously, by a block of NTH threads; rows at or past n
-// are zero-filled
-template <int NTH = NT>
-__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src,
-                                                int stride, int row0, int n,
-                                                int rows = TILE) {
-  for (int i = threadIdx.x; i < rows * (D / 8); i += NTH) {
-    const int r = i >> 3, c = (i & 7) * 8;
-    const bool ok = row0 + r < n;
-    cp_async16(dst + r * LDS + c, src + (size_t)(ok ? row0 + r : 0) * stride + c,
-               ok);
-  }
-}
-
 // The grid row r and column c of the keys k0 + 8 j + 2 t + e (j < 8,
 // e < 2) whose scores a lane holds in its accumulator columns, walked in
 // that order: one division, then steps with wrap-around (W may be < 8).
@@ -195,7 +179,7 @@ __device__ __forceinline__ void scale_eighth(bf16* tile, int rows) {
 }
 
 // ------------------------------------------------ the windowed body ----
-// The bf16 body of the windowed kernels K2 and K7: a block per (window,
+// The bf16 body of the windowed kernel K7: a block per (window,
 // head) holds the window's keys and values (NK = N rounded up to 16 rows,
 // zero past N; K pre-scaled by 1/8, exact) and its warps take the NK / 16
 // m16 query tiles in turn. The bias s += rel_h[q, k / W] + rel_w[q, k % W]

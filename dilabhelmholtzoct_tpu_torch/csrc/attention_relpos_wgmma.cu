@@ -10,7 +10,13 @@
 // (`lse`, a null pointer for K6). At head dim 64 the two TPU kernels'
 // functions are the same bits in bf16: K1's q / 8 before the product and
 // K6's score / 8 after it are one exact power-of-two scale, and both round
-// the un-normalised p and divide last.
+// the un-normalised p and divide last. And it is the bf16 K2: the windowed
+// layers (N <= 256) of ViT-B and ViT-L, with the LSE rows, at the rounding
+// point of the JAX route (ops/attention.py: normalised_rounding): on
+// SAM's windows (B * 25 of them) and wherever the TPU took its grouped
+// window kernel, the NORM instances round the normalised p / l before
+// p . v and round the output as it comes (out[q] = sum_k rnd(p / l) v[k]);
+// on the other windowed shapes K6's rounding, as the TPU's _packed_kernel.
 //
 //   qkv   (B, N, 3C) bf16  feature order (3, heads, d); where d is no
 //                          multiple of 16, each head padded to DP columns
@@ -23,8 +29,10 @@
 //
 // It replaces dilabhelmholtzoct_tpu/ops/attention.py flash_attention_relpos
 // (_flash_kernel, pallas_call at :132) and, as K1, flash_attention_packed's
-// global branch (_packed_kernel, pallas_call at :819) in bf16, with their
-// rounding points (relpos_attention_plain): the scale multiplies the f32
+// global branch (_packed_kernel, pallas_call at :819) in bf16, as K2 its
+// windowed branch (_windowed_group_kernel, pallas_call at :770), with their
+// rounding points (relpos_attention_plain, packed_attention_plain): the
+// scale multiplies the f32
 // score after the product, the bias is added in f32, the un-normalised p is
 // rounded to bf16 for the p.v product while the denominator sums the f32
 // p, and the division comes last with one rounding of the output.
@@ -34,7 +42,8 @@
 // the windowed layer (25 x 196) 4.9 GFLOP = 0.005 ms against 55 MB of
 // qkv, bias and output = 0.016 ms (byte-bound); as K1, ViT-B's global
 // layer (12 heads of 64, B = 1) 51.5 GFLOP = 0.052 ms against 0.011 ms of
-// bytes (operation-bound). What this design does
+// bytes (operation-bound); as K2, ViT-B's windowed layer (25 x 196, B = 1)
+// 33.5 MB = 0.010 ms against 2.9 GFLOP (byte-bound). What this design does
 // about it: both products on wgmma (the only way to the tensor cores' full
 // rate), their operands landed by TMA with no thread spending registers or
 // instructions on the copies, a producer warp keeping the next unit's Q and
@@ -45,7 +54,11 @@
 // a second block re-reading K and V for the window's last 68 rows of 128;
 // here a unit of 128 rows reads K and V once), and its bias comes from
 // registers but for one rel_h value per grid row. What stays on the CUDA cores per
-// score: the scale and the bias, the exponential, the max and the sum.
+// score: the scale and the bias, the exponential, the max and the sum. As
+// K2 (d = 64) a 196-token window takes two units of 128 query rows, the
+// second with 68 live ones, each over one 224-slot tile: 256 x 224 =
+// 57344 score slots paid for 196 x 196 = 38416 (1.49x), and K and V read
+// twice.
 //
 
 #include "attention_mma.cuh"
@@ -58,7 +71,8 @@ using mma::bf16;
 
 constexpr int MAX_D = 128;  // head dim: a multiple of 4 up to this
 
-// attn_relpos_wgmma_kernel<DP, NK, MODE>: warp-specialised, persistent. A
+// attn_relpos_wgmma_kernel<DP, NK, MODE, NORM>: warp-specialised,
+// persistent. A
 // unit is 128 query rows of one (batch, head); a block walks units
 // blockIdx.x, + gridDim.x, ... with a producer warp and two consumer
 // warpgroups of 64 rows each.
@@ -98,6 +112,15 @@ constexpr int MAX_D = 128;  // head dim: a multiple of 4 up to this
 // A head dim that is no multiple of 16 comes in rows whose heads the
 // wrapper padded to DP columns with zeros (hs = DP): a slab never reaches
 // the next head's columns, and the zero columns add nothing to q . k.
+// NORM (K2's rounding point; DP = 64 alone): p / l = exp(s - m) * (1 / l)
+// is formed in f32 from the row's final m and l and rounded once into the
+// A fragments; o is rounded with no division at the end, L = m + log(l).
+// A unit of one tile (GRID's whole window) knows m and l once its scores
+// are in. A unit of several tiles (ragged grids) makes two passes
+// (`passes`, from the plan): the first issues S alone over its key tiles
+// (the producer brings their K, not V) for the rows' m and l; the second
+// is the loop below with m fixed, no rescale, and p / l for p . v. No
+// online variant: p / l is exact to the rounding, as the TPU's one block.
 namespace wg {
 
 constexpr int QROWS = 128;            // query rows of a unit
@@ -188,6 +211,7 @@ struct Args {
   float* lse;  // null, or (B, heads, N): the rows' logsumexp m + log(l)
   long long rel_h_len, rel_w_len;  // elements of rel_h, rel_w
   int n, heads, d, hs, H, W, qblocks, units, ntiles, kv_stages, u_stages;
+  int passes;  // NORM: 2 where a unit has several key tiles, else 1
   unsigned w_magic;  // floor(2^32 / W) + 1: key / W = umulhi(key, w_magic)
   float scale;
 };
@@ -244,7 +268,7 @@ __device__ __forceinline__ void pv_slabs(float* o, const uint32_t (*p)[4],
   }
 }
 
-template <int DP, int NK, Mode MODE>
+template <int DP, int NK, Mode MODE, bool NORM>
 __global__ void __launch_bounds__(NTH, 1)
 attn_relpos_wgmma_kernel(const __grid_constant__ Maps maps, const Args a) {
   using namespace hop;
@@ -308,12 +332,16 @@ attn_relpos_wgmma_kernel(const __grid_constant__ Maps maps, const Args a) {
       copy_block(rst + L.rel_w, a.rel_w, row * a.W, nq * a.W, a.rel_w_len,
                  lane);
       mbar_arrive_cp_async(ufull + us);
-      for (int tile = 0; tile < a.ntiles; ++tile, ++it) {
+      // NORM over several tiles: the first pass's tiles bring K alone
+      const int issued = NORM ? a.passes * a.ntiles : a.ntiles;
+      for (int i = 0; i < issued; ++i, ++it) {
+        const bool k_only = NORM && i < issued - a.ntiles;
+        const int tile = k_only || !NORM ? i : i - (issued - a.ntiles);
         const int ks = it % a.kv_stages;
         unsigned char* kst = kvbase + ks * L.kv_bytes;
         mbar_wait(kvempty + ks, ((it / a.kv_stages) & 1) ^ 1);
         if (lane == 0) {
-          mbar_expect_tx(kvfull + ks, 2 * NK * DP * 2);
+          mbar_expect_tx(kvfull + ks, (k_only ? 1 : 2) * NK * DP * 2);
 #pragma unroll
           for (int s = 0; s < NS; ++s) {
             const CUtensorMap* m = &maps.kv[width_class(slab_width(DP, s))];
@@ -322,12 +350,14 @@ attn_relpos_wgmma_kernel(const __grid_constant__ Maps maps, const Args a) {
             if constexpr (MODE == GRID) {
               const int kr0 = tile * (NK / GRID_W);
               tma_load_4d(kd, m, kvfull + ks, C + col, 0, kr0, b);
-              tma_load_4d(kd + L.k_bytes, m, kvfull + ks, 2 * C + col, 0,
-                          kr0, b);
+              if (!k_only)
+                tma_load_4d(kd + L.k_bytes, m, kvfull + ks, 2 * C + col, 0,
+                            kr0, b);
             } else {
               tma_load_3d(kd, m, kvfull + ks, C + col, tile * NK, b);
-              tma_load_3d(kd + L.k_bytes, m, kvfull + ks, 2 * C + col,
-                          tile * NK, b);
+              if (!k_only)
+                tma_load_3d(kd + L.k_bytes, m, kvfull + ks, 2 * C + col,
+                            tile * NK, b);
             }
           }
         }
@@ -396,10 +426,8 @@ attn_relpos_wgmma_kernel(const __grid_constant__ Maps maps, const Args a) {
     float o[DP / 2], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
     uint32_t p[KSTEPS][4];  // the previous tile's p: the A fragments of p . v
 
-    // s = S * d^-1/2 + bias of the tile, then p = exp(s - m) in place (in
-    // f32) against the row's new running max m; alpha rescales what was
-    // summed before, rs sums this tile's p
-    auto bias_softmax = [&](float* s, int tile, float* alpha, float* rs) {
+    // s = S * d^-1/2 + bias of the tile
+    auto add_bias = [&](float* s, int tile) {
       if constexpr (MODE == ROW_TILE) {  // grid rows 2 tile, 2 tile + 1
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
@@ -453,6 +481,12 @@ attn_relpos_wgmma_kernel(const __grid_constant__ Maps maps, const Args a) {
             }
           }
       }
+    };
+    // add_bias, then p = exp(s - m) in place (in f32) against the row's new
+    // running max m; alpha rescales what was summed before, rs sums this
+    // tile's p
+    auto bias_softmax = [&](float* s, int tile, float* alpha, float* rs) {
+      add_bias(s, tile);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         float mx = -INFINITY;
@@ -475,10 +509,25 @@ attn_relpos_wgmma_kernel(const __grid_constant__ Maps maps, const Args a) {
           }
       }
     };
+    // NORM's second pass: add_bias, then p / l = exp(s - m) * (1 / l) in
+    // f32 against the row's final max m and sum l, from the first pass
+    auto bias_exp_norm = [&](float* s, int tile, const float* rl) {
+      add_bias(s, tile);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float mb = m[r] * LOG2E;
+#pragma unroll
+        for (int j = 0; j < NK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[4 * j + 2 * r + e];
+            x = exp2_approx(fmaf(x, LOG2E, -mb)) * rl[r];
+          }
+      }
+    };
     // o (past the first tile) and l rescaled by alpha, this tile's p
-    // added to l and rounded to bf16 for p . v
-    auto fold = [&](const float* s, const float* alpha, const float* rs,
-                    bool first) {
+    // added to l
+    auto rescale = [&](const float* alpha, const float* rs, bool first) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         l[r] = l[r] * alpha[r] + rs[r];  // the lane's share; quad sum last
@@ -489,6 +538,10 @@ attn_relpos_wgmma_kernel(const __grid_constant__ Maps maps, const Args a) {
             o[4 * j + 2 * r + 1] *= alpha[r];
           }
       }
+    };
+    // the tile's p (or p / l) rounded once to bf16: the A fragments of
+    // p . v
+    auto pack = [&](const float* s) {
 #pragma unroll
       for (int j = 0; j < NK / 8; ++j)
 #pragma unroll
@@ -496,6 +549,29 @@ attn_relpos_wgmma_kernel(const __grid_constant__ Maps maps, const Args a) {
           p[j >> 1][r + 2 * (j & 1)] =
               pack_bf16(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]);
     };
+    // NORM over several tiles: a first pass of S alone over the unit's key
+    // tiles (their K; the producer brings no V) finds each row's m and l,
+    // so that the second pass rounds the normalised p before any p . v
+    float rl[2] = {1.f, 1.f};
+    if (NORM && a.passes == 2) {
+      for (int tile = 0; tile < a.ntiles; ++tile, ++it) {
+        const int ks1 = it % a.kv_stages;
+        mbar_wait(kvfull + ks1, (it / a.kv_stages) & 1);
+        float s[NK / 2], alpha[2], rs[2];
+        named_sync(TURN + wgi, CONSUMERS);
+        wgmma_fence();
+        qk_slabs<DP, NK, 0>(s, ust, kvbase + ks1 * L.kv_bytes, wgi);
+        wgmma_commit();
+        named_arrive(TURN + (wgi ^ 1), CONSUMERS);
+        wgmma_wait<0>();
+        fence_operands(s);
+        mbar_arrive(kvempty + ks1);  // its K is read
+        bias_softmax(s, tile, alpha, rs);
+        rescale(alpha, rs, true);  // l alone: o is not written yet
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) rl[r] = __frcp_rn(quad_sum(l[r]));
+    }
 
     // the first tile: S alone
     int ks = it % a.kv_stages;
@@ -509,8 +585,24 @@ attn_relpos_wgmma_kernel(const __grid_constant__ Maps maps, const Args a) {
       wgmma_commit();
       named_arrive(TURN + (wgi ^ 1), CONSUMERS);
       wgmma_wait<0>();
-      bias_softmax(s, 0, alpha, rs);
-      fold(s, alpha, rs, true);
+      if (NORM && a.passes == 2) {
+        bias_exp_norm(s, 0, rl);
+      } else {
+        bias_softmax(s, 0, alpha, rs);
+        rescale(alpha, rs, true);
+        if constexpr (NORM) {  // one tile: the row's m and l are final
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            rl[r] = __frcp_rn(quad_sum(l[r]));
+#pragma unroll
+            for (int j = 0; j < NK / 8; ++j) {
+              s[4 * j + 2 * r] *= rl[r];
+              s[4 * j + 2 * r + 1] *= rl[r];
+            }
+          }
+        }
+      }
+      pack(s);
     }
     // each further tile: one turn issues its S and the previous tile's
     // p . v; its bias and softmax run while that p . v does. A GRID tile of
@@ -533,10 +625,14 @@ attn_relpos_wgmma_kernel(const __grid_constant__ Maps maps, const Args a) {
       wgmma_commit();
       named_arrive(TURN + (wgi ^ 1), CONSUMERS);
       wgmma_wait<1>();  // S is in; the previous p . v may still run
-      bias_softmax(s, tile, alpha, rs);
+      if constexpr (NORM)
+        bias_exp_norm(s, tile, rl);
+      else
+        bias_softmax(s, tile, alpha, rs);
       wgmma_wait<0>();              // the previous p . v is done
       mbar_arrive(kvempty + ks_prev);  // its K / V stage is read
-      fold(s, alpha, rs, false);
+      if constexpr (!NORM) rescale(alpha, rs, false);
+      pack(s);
     }
     // the last tile's p . v
     named_sync(TURN + wgi, CONSUMERS);
@@ -550,10 +646,11 @@ attn_relpos_wgmma_kernel(const __grid_constant__ Maps maps, const Args a) {
     mbar_arrive(uempty + us);  // Q and the bias rows are read
 
     // out = o / l to the nearest f32 (o q ~ o / l, one correction on the
-    // residual), rounded once to bf16
+    // residual), rounded once to bf16; NORM's o, of the normalised p, is
+    // rounded as it is
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const float lr = quad_sum(l[r]), rl = __frcp_rn(lr);
+      const float lr = quad_sum(l[r]), q_l = __frcp_rn(lr);
       const int q = q0 + r0 + 8 * r;
       if (q >= a.n) continue;
       // the scaled scores' logsumexp in natural-log units (m is the max of
@@ -563,8 +660,12 @@ attn_relpos_wgmma_kernel(const __grid_constant__ Maps maps, const Args a) {
       bf16* dst =
           a.out + ((size_t)b * a.n + q) * a.heads * a.d + head * a.d + 2 * t;
       auto div = [&](float x) {
-        const float y = x * rl;
-        return fmaf(fmaf(-lr, y, x), rl, y);
+        if constexpr (NORM) {
+          return x;
+        } else {
+          const float y = x * q_l;
+          return fmaf(fmaf(-lr, y, x), q_l, y);
+        }
       };
 #pragma unroll
       for (int j = 0; j < DP / 8; ++j)
@@ -578,10 +679,10 @@ attn_relpos_wgmma_kernel(const __grid_constant__ Maps maps, const Args a) {
 
 }  // namespace wg
 
-template <int DP, int NK, wg::Mode MODE>
+template <int DP, int NK, wg::Mode MODE, bool NORM>
 int launch_inst(const wg::Maps& maps, const wg::Args& a, size_t smem,
                 int blocks, cudaStream_t stream) {
-  auto kernel = wg::attn_relpos_wgmma_kernel<DP, NK, MODE>;
+  auto kernel = wg::attn_relpos_wgmma_kernel<DP, NK, MODE, NORM>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -589,22 +690,35 @@ int launch_inst(const wg::Maps& maps, const wg::Args& a, size_t smem,
   return (int)cudaGetLastError();
 }
 
-template <int DP>
-int launch_dp(int nk, const wg::Maps& maps, const wg::Args& a, size_t smem,
-              int blocks, cudaStream_t stream) {
+template <int DP, bool NORM>
+int launch_mode(int nk, const wg::Maps& maps, const wg::Args& a, size_t smem,
+                int blocks, cudaStream_t stream) {
   using wg::GENERIC, wg::ROW_TILE, wg::GRID;
   if (nk == wg::grid_nk(DP))
-    return launch_inst<DP, wg::grid_nk(DP), GRID>(maps, a, smem, blocks,
-                                                  stream);
+    return launch_inst<DP, wg::grid_nk(DP), GRID, NORM>(maps, a, smem,
+                                                        blocks, stream);
   if (nk == 128)
-    return launch_inst<DP, 128, ROW_TILE>(maps, a, smem, blocks, stream);
-  return launch_inst<DP, 64, GENERIC>(maps, a, smem, blocks, stream);
+    return launch_inst<DP, 128, ROW_TILE, NORM>(maps, a, smem, blocks,
+                                                stream);
+  return launch_inst<DP, 64, GENERIC, NORM>(maps, a, smem, blocks, stream);
+}
+
+// the NORM instances (K2's rounding point) exist at head dim 64 alone: the
+// packed route's, the only one that rounds there
+template <int DP>
+int launch_dp(int nk, bool norm, const wg::Maps& maps, const wg::Args& a,
+              size_t smem, int blocks, cudaStream_t stream) {
+  if constexpr (DP == 64) {
+    if (norm) return launch_mode<DP, true>(nk, maps, a, smem, blocks, stream);
+  }
+  if (norm) return (int)cudaErrorInvalidValue;
+  return launch_mode<DP, false>(nk, maps, a, smem, blocks, stream);
 }
 
 int launch(const void* qkv, const void* rel_h, const void* rel_w, void* out,
            float* lse, int batch, int n, int heads, int d, int h, int w,
-           int hs, int nk, int kv_stages, int u_stages, int blocks,
-           cudaStream_t stream) {
+           int hs, int nk, int kv_stages, int u_stages, int passes, int norm,
+           int blocks, cudaStream_t stream) {
   const int dp = (d + 15) / 16 * 16, ld = 3 * heads * hs;
   // the key tile: GRID (224 or 112 slots) a window of at most 14 x 16,
   // 128 (ROW_TILE) two grid rows of 64, else 64
@@ -615,7 +729,9 @@ int launch(const void* qkv, const void* rel_h, const void* rel_w, void* out,
                           : (n + nk - 1) / nk;
   if (d < 4 || d % 4 || d > MAX_D || n < 1 || n != h * w ||
       (hs != d && hs != dp) || ld % 8 || !(grid || row_tile || nk == 64) ||
-      kv_stages < (ntiles > 1 ? 2 : 1) || kv_stages > wg::MAX_KV_STAGES ||
+      (norm != 0 && norm != 1) || passes != (norm && ntiles > 1 ? 2 : 1) ||
+      kv_stages < (passes * ntiles > 1 ? 2 : 1) ||
+      kv_stages > wg::MAX_KV_STAGES ||
       u_stages < 1 ||
       u_stages > wg::MAX_U_STAGES || blocks < 1)
     return (int)cudaErrorInvalidValue;
@@ -660,13 +776,13 @@ int launch(const void* qkv, const void* rel_h, const void* rel_w, void* out,
   a.qblocks = (n + wg::QROWS - 1) / wg::QROWS;
   a.units = batch * heads * a.qblocks;
   a.ntiles = ntiles;
-  a.kv_stages = kv_stages, a.u_stages = u_stages;
+  a.kv_stages = kv_stages, a.u_stages = u_stages, a.passes = passes;
   a.w_magic = (unsigned)(0x100000000ull / (unsigned)w) + 1u;
   a.scale = 1.f / sqrtf((float)d);
   switch (dp / 16) {
 #define DHOCT_ND(ND)                                                       \
   case ND:                                                                 \
-    return launch_dp<16 * ND>(nk, maps, a, smem, blocks, stream);
+    return launch_dp<16 * ND>(nk, norm, maps, a, smem, blocks, stream);
     DHOCT_ND(1) DHOCT_ND(2) DHOCT_ND(3) DHOCT_ND(4)
     DHOCT_ND(5) DHOCT_ND(6) DHOCT_ND(7) DHOCT_ND(8)
 #undef DHOCT_ND
@@ -679,8 +795,11 @@ int launch(const void* qkv, const void* rel_h, const void* rel_w, void* out,
 // C interface (ctypes). The launch plan (ops/attention.py: relpos_plan):
 // nk the key tile (224, or 112 past DP = 80: a window of at most 14 x 16
 // grid cells, 14 or 7 grid rows a tile; 128: two grid rows of 64; else
-// 64), kv_stages (2 at least where a unit has more than one tile) /
-// u_stages the ring depths, blocks the persistent blocks; hs the columns of
+// 64), kv_stages (2 at least where a unit issues more than one tile) /
+// u_stages the ring depths, passes over a unit's key tiles (2 for norm
+// over several tiles, else 1), norm 1 for K2's rounding point (the
+// normalised p rounded before p . v; head dim 64), 0 for K6's, blocks the
+// persistent blocks; hs the columns of
 // a head in qkv's rows (d, or d rounded up to 16 where the wrapper padded
 // each head with zeros); lse null, or (B, heads, N) f32 to receive the
 // rows' logsumexp (the bf16 K1's rows for K5). Returns the cudaError_t of
@@ -690,11 +809,11 @@ extern "C" {
 int dhoct_attn_relpos_bf16(const void* qkv, const void* rel_h,
                            const void* rel_w, void* out, void* lse, int batch,
                            int n, int heads, int d, int h, int w, int hs,
-                           int nk, int kv_stages, int u_stages, int blocks,
-                           void* stream) {
+                           int nk, int kv_stages, int u_stages, int passes,
+                           int norm, int blocks, void* stream) {
   return launch(qkv, rel_h, rel_w, out, static_cast<float*>(lse), batch, n,
-                heads, d, h, w, hs, nk, kv_stages, u_stages, blocks,
-                static_cast<cudaStream_t>(stream));
+                heads, d, h, w, hs, nk, kv_stages, u_stages, passes, norm,
+                blocks, static_cast<cudaStream_t>(stream));
 }
 
 const char* dhoct_error_string(int code) {

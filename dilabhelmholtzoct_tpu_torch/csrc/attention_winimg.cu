@@ -27,13 +27,15 @@
 // (window, head) first writes the window's token table (each token's image
 // position, or that it is a pad token), then gathers the window's queries
 // and all its keys and values by it from the image (or from the bias row)
-// into shared memory, and from there on runs K2's body,
-// so a real token's output is bit-equal to K2's on the partitioned windows:
-//    f32, attn_winimg_tf32_kernel: 8 warps per (window, head), K2's
-//    attention_tf32.cuh window_tiles_tf32 in split TF32 on the tensor
-//    cores;
-//    bf16, attn_winimg_mma_kernel: 4 warps per (window, head), K2's
-//    attention_mma.cuh window_tile_mma on the tensor cores.
+// into shared memory, and from there on runs a windowed body:
+//    f32, attn_winimg_tf32_kernel: 8 warps per (window, head), the f32
+//    K2's attention_tf32.cuh window_tiles_tf32 in split TF32 on the tensor
+//    cores, so a real token's output is bit-equal to the f32 K2's on the
+//    partitioned windows;
+//    bf16, attn_winimg_mma_kernel: 4 warps per (window, head),
+//    attention_mma.cuh window_tile_mma on mma.sync (the bf16 K2 runs on
+//    attention_relpos_wgmma.cu; both round the normalised p on SAM's
+//    windows, and agree within two bf16 ulps).
 // Only real positions are written.
 //
 // Bound on an H100 SXM (700 W): K2's -- the same products on the same bytes
@@ -71,9 +73,9 @@ __device__ void token_table(int* tok, int count, int wi, int nwx, int ws,
 }
 
 // ----------------------------------------------------------------- bf16 ----
-// grid (1, heads, B * windows), 32 WIN_WARPS threads: K2's bf16 block
-// (attention.cu attn_windowed_mma_kernel) with the rows gathered by the
-// token table: shared memory as K2's with H = W = ws, then Tok (NK ints).
+// grid (1, heads, B * windows), 32 WIN_WARPS threads: a block of
+// attention_mma.cuh's windowed body with the rows gathered by the token
+// table: shared memory window_smem with H = W = ws, then Tok (NK ints).
 constexpr int WIN_WARPS = 4;
 
 template <int NJ, bool EXACT>
@@ -270,7 +272,7 @@ int launch_bf16(const void* qkv, const void* rel, const void* bias, void* out,
   const int nk = (ws * ws + 15) / 16 * 16;
   const size_t smem = window_smem(ws * ws, ws, ws, WIN_WARPS) + sizeof(int) * nk;
   if (smem > 232448) return (int)cudaErrorInvalidValue;
-  // the instance K2 takes for the same window (attention.cu launch_windowed_bf16)
+  // SAM's 14 x 14 window (13 m16 tiles, no guarded product), or any other
   auto kernel = nk == 208 ? attn_winimg_mma_kernel<13, true>
                           : attn_winimg_mma_kernel<KMAX / 16, false>;
   cudaError_t e = cudaFuncSetAttribute(

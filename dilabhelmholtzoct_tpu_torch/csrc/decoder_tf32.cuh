@@ -1,8 +1,7 @@
 // Split-TF32 building blocks of the f32 decoder kernels on the tensor cores:
 // the image->token attention K4 (decoder_attn.cu, i2t_fwd_tf32_kernel,
 // i2t_bwd_rows_tf32_kernel) and the upscaler K3
-// (upscaler.cu, upscale_fwd_tf32_kernel, upscale_bwd_rows_tf32_kernel,
-// upscale_bwd_dw_tf32_kernel).
+// (upscaler.cu, upscale_fwd_tf32_kernel, upscale_bwd_rows_tf32_kernel).
 //
 // Every product is hi.hi + hi.lo + lo.hi on mma.sync m16n8k8 TF32 with f32
 // accumulators (split_tf32.cuh). In f32 a layer's weights take 256 KB (K4's
@@ -17,11 +16,9 @@
 // A fragment, row g col t, hits bank 4g + t). Stages hold rows of N + 8
 // floats (8 mod 32: a B fragment, row t col g, hits bank 8t + g).
 //
-// K3's f32 weight pass (dw_stage_tf32) is the bf16 one's split-K product
-// over row chunks (decoder_mma.cuh: dw_ring), each warp a 32 x 64 tile of
-// one 128 x 128 output block (64 f32 accumulators), A = X^T read from the
-// row-major chunk (bank 8t + g at rows of 128 + 8 floats). (K4's f32
-// weight pass runs on wgmma: decoder_attn.cu, i2t_bwd_dw_tf32_kernel.)
+// The f32 weight passes of both run on TF32 wgmma with TMA loads
+// (decoder_attn.cu, i2t_bwd_dw_tf32_kernel; upscaler.cu,
+// upscale_bwd_dw_tf32_kernel).
 
 #pragma once
 
@@ -119,64 +116,6 @@ __device__ __forceinline__ float2 ld2(const float* p) {
 
 __device__ __forceinline__ void st2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-
-// ------------------------------------------------------ weight pass ----
-// acc[mi][nj] (32 x 64: m-tiles mi < 2, n8 tiles nj < 8) += X[:, a0 + m]^T
-// . Y[:, b0 + n] over the DW_SR rows of one stage, X stored [rows][LDX], Y
-// [rows][LDY] (both 8 mod 32 floats). A B fragment is split once for both
-// m-tiles. The tensor cores add into their f32 accumulators without
-// rounding to nearest, an error that grows with the chain: one accumulator
-// summed over a chunk of thousands of rows came near the f32 limit (1e-4
-// of max |dW|). So each stage's 32 rows go into fresh accumulators, added
-// to acc in f32.
-template <int LDX, int LDY>
-__device__ __forceinline__ void dw_stage_tf32(float (*acc)[8][4],
-                                              const float* xs, int a0,
-                                              const float* ys, int b0,
-                                              int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  float part[2][8][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) zero<8>(part[mi]);
-#pragma unroll
-  for (int kk = 0; kk < dec::DW_SR / 8; ++kk) {
-    const float* x = xs + (8 * kk + t) * LDX + a0 + g;
-    Frag a[2];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-      split_frag(a[mi], x[16 * mi], x[16 * mi + 8], x[4 * LDX + 16 * mi],
-                 x[4 * LDX + 16 * mi + 8]);
-    const float* y = ys + (8 * kk + t) * LDY + b0 + g;
-#pragma unroll
-    for (int nj = 0; nj < 8; ++nj) {
-      uint32_t h0, l0, h1, l1;
-      split(y[8 * nj], h0, l0);
-      split(y[4 * LDY + 8 * nj], h1, l1);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) mma3s(part[mi][nj], a[mi], h0, l0, h1, l1);
-    }
-  }
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < 8; ++nj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][nj][e] += part[mi][nj][e];
-}
-
-// a warp's 32 x 64 accumulators -> out[m * ld + n]
-__device__ __forceinline__ void dw_store32(float* out, int ld,
-                                           float (*acc)[8][4], int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < 8; ++nj)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        st2(out + (size_t)(16 * mi + g + 8 * h) * ld + 8 * nj + 2 * t,
-            acc[mi][nj][2 * h], acc[mi][nj][2 * h + 1]);
 }
 
 }  // namespace dec32

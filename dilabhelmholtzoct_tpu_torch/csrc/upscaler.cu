@@ -37,8 +37,9 @@
 //    * bf16: upscale_bwd_rows_kernel (W1 and W2 in shared memory, a warp
 //      pair per 16-row tile) and upscale_bwd_dw_kernel (decoder_mma.cuh).
 //    * f32: upscale_bwd_rows_tf32_kernel (super-tiles of 64 rows streaming
-//      W1 and W1^T) and upscale_bwd_dw_tf32_kernel, in split TF32; rnd() is
-//      the identity, so the scratch rows are f32.
+//      W1 and W1^T) and upscale_bwd_dw_tf32_kernel (on TF32 wgmma, its rows
+//      landed by TMA; see the kernel), in split TF32; rnd() is the
+//      identity, so the scratch rows are f32.
 //
 // Bound on an H100 SXM (700 W) at the training shapes (64 pairs x 4096 rows):
 //    forward 198 kFLOP/row = 51.8 GFLOP, over 989 TFLOP/s (bf16) = 0.052 ms,
@@ -62,7 +63,13 @@
 //    not as the TPU's 256 x 512 Kronecker expansion; LayerNorm reduces its
 //    64 lanes with shuffles, not selector matmuls. In f32, W1 (256 KB)
 //    does not fit in shared memory; streaming it per 64-row super-tile
-//    reads each byte from L2 once for 64 rows.
+//    reads each byte from L2 once for 64 rows. The f32 weight pass (dW1,
+//    dW2: 51.5 GFLOP at 64 pairs x 4096 rows, 155 with the split, 0.312
+//    ms at split TF32's rate, against 1.34 GB of rows read once: 0.401 ms;
+//    byte-bound) runs on TF32 wgmma m64n256k8 / m64n128k8 with TMA loads
+//    into an mbarrier ring, each element split once; its four units of a
+//    chunk read 6 KB a row, of which the second read of rnd(d_u1pre), 1
+//    KB, is meant to come from L2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,6 +79,7 @@
 #include <type_traits>
 
 #include "decoder_tf32.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -1191,74 +1199,225 @@ __global__ void __launch_bounds__(dec32::THREADS, 1)
   }
 }
 
-// The f32 weight pass: block (chunk, kind) sums over the chunk's rows
-//   kind 0-3: dW1 [C][L1] rows 128 (kind / 2).., columns 128 (kind % 2).. =
-//             up[:, rows]^T . rnd(d_u1pre)[:, columns]
-//   kind 4, 5: dW2 [4][C1][LQ] of the (d, e) blocks 2 (kind - 4), + 1:
-//             dW2[de] = u1g[de]^T . rnd(d_u2pre)[de]
-// into part[chunk] = [dW1 | dW2]; warp w owns a 32 x 64 tile of the block
-constexpr int DW32_LDX = 128 + 8, DW32_LDY = 256 + 8;
-constexpr int DW32_STAGE = dec::DW_SR * (DW32_LDX + DW32_LDY);
-constexpr size_t DW32_SMEM = sizeof(float) * (size_t)dec::DW_STAGES * DW32_STAGE;
+// The f32 weight pass on TF32 wgmma and TMA: block units (chunk, kind)
+// sum over the chunk's rows
+//   kind 0, 1: dW1 [C][L1] rows 128 kind.. = up[:, 128 kind..]^T .
+//              rnd(d_u1pre), all 256 columns
+//   kind 2, 3: dW2 [4][C1][LQ] blocks de = 2 (kind - 2) + w, w < 2:
+//              dW2[de] = u1g[de]^T . rnd(d_u2pre)[de]
+// into part[chunk] = [dW1 | dW2]. Every unit reads X = 128 columns of up or
+// u1g and Y = 256 columns of rnd(d_u1pre) or rnd(d_u2pre) a row: 1.5 KB, 6
+// KB a row over the four units against the 5 KB of the rows themselves.
+// The two dW1 units of a chunk run in the same wave (units u = 4 chunk +
+// kind, one block each), so that the second read of a chunk's rnd(d_u1pre)
+// comes from L2 (ops/upscaler.py: upscale_dw_plan_f32). Persistent blocks
+// walk the units with a producer warp (of a warpgroup that gives its
+// registers to the consumers) and two consumer warpgroups;
+// warpgroup w owns X columns 64 w.. of the unit: in dW1 a 64 x 256 block
+// (128 f32 accumulators a thread), in dW2 the 64 x 128 block of its de.
+//   producer: per stage of dwu::KR = 16 rows, the X rows (16 x 128 f32) and
+//     the Y rows (16 x 256) by TMA into a ring of `stages` stages (the
+//     plan's; at most dwu::MAX_STAGES), against full / empty mbarriers.
+//   consumers: TF32 wgmma reads shared operands K-major only, and K (the
+//     row index) is the slow one in both operands. So Y is split once per
+//     element into hi and lo and written transposed, K-major without
+//     swizzle, into one of two B buffers by the 256 consumer threads (a
+//     thread a column, 16-byte stores of 4 rows); X is the register A
+//     operand, each element loaded and split by the one thread whose
+//     fragment holds it. Per k-step of 8 rows, wgmma m64nNk8 (N = 256 in
+//     dW1, 128 in dW2) three times (lo.hi, hi.lo, hi.hi) into the one f32
+//     accumulator; the next stage's transpose runs while the products are
+//     in flight. Rows past the chunk enter as zero A values (a chunk's end
+//     is not the tensor's: the Y rows there are the next chunk's, finite).
+// The partials are summed by the wrapper in a fixed order: no atomics, the
+// same bits every run. This is K4's f32 weight pass (decoder_attn.cu,
+// dw32) on K3's operands, with no keys + pe to add.
+namespace dwu {
 
-__global__ void __launch_bounds__(dec::DW_THREADS, 1)
-    upscale_bwd_dw_tf32_kernel(const float* up, const float* u1g_rows,
-                               const float* d2_rows, const float* du1_rows,
-                               float* part, int rows, int chunk) {
-  using attn::mma::cp_async16;
-  extern __shared__ __align__(16) float smem32[];
-  const int kind = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int lo = blockIdx.x * chunk, hi = min(rows, lo + chunk);
-  float acc[2][8][4];
+constexpr int KR = 16;                     // rows of a stage: two k-steps
+constexpr int MAX_STAGES = 6;
+constexpr int CONSUMERS = 256;
+constexpr int NTH = CONSUMERS + 128;  // and the producer's warpgroup
+// registers a thread: 168 at launch (64K over 384 threads); the producer's
+// warpgroup gives back all but 24, the consumers take them (240 each:
+// 128 x 24 + 256 x 240 = 384 x 168), for a dW1 unit's 128 accumulators
+// beside its split A fragments (at 168 ptxas serialized the wgmma)
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+constexpr int XW = 128, YW = 256;          // a unit's X and Y columns
+constexpr int X_BYTES = KR * XW * 4;       // 8 KB
+constexpr int Y_BYTES = KR * YW * 4;       // 16 KB
+constexpr int STAGE_BYTES = X_BYTES + Y_BYTES;
+constexpr int KSTEP_BYTES = YW * 8 * 4;    // one k-step of Y^T, hi or lo
+constexpr int B_BYTES = 2 * (KR / 8) * KSTEP_BYTES;  // a stage's hi and lo
+// alignment slack and the mbarriers, the ring, the two B buffers
+__host__ __device__ constexpr size_t smem(int stages) {
+  return 2048 + (size_t)stages * STAGE_BYTES + 2 * B_BYTES;
+}
+static_assert(smem(MAX_STAGES) <= 232448, "shared memory of the pass");
+
+// rows 0..15 of a stage's Y -> its B buffer: split into TF32 hi and lo,
+// K-major without swizzle (core matrices of 8 columns x 4 rows, 128 bytes;
+// LBO 128 between the two row halves of a k-step, SBO 256 between
+// 8-column groups), hi then lo per k-step. Thread c of the 256 consumers
+// takes column c.
+__device__ __forceinline__ void transpose_split(const unsigned char* stage,
+                                               unsigned char* bbuf, int c) {
+  const float* y = reinterpret_cast<const float*>(stage + X_BYTES);
 #pragma unroll
-  for (int a = 0; a < 2; ++a) dec32::zero<8>(acc[a]);
+  for (int q = 0; q < KR / 4; ++q) {
+    uint32_t h[4], l[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) stf32::split(y[(4 * q + k) * YW + c], h[k], l[k]);
+    unsigned char* dst = bbuf + (q >> 1) * 2 * KSTEP_BYTES + (c >> 3) * 256 +
+                         (q & 1) * 128 + (c & 7) * 16;
+    *reinterpret_cast<uint4*>(dst) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(dst + KSTEP_BYTES) =
+        make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
 
-  // X: 128 columns of up or u1g; Y: 128 columns of rnd(d_u1pre) or 256 of
-  // rnd(d_u2pre)
-  const bool w2k = kind >= 4;
-  const int yw = w2k ? 2 * LQ : L1 / 2;
-  const float* xsrc = w2k ? u1g_rows + 2 * C1 * (kind - 4) : up + 128 * (kind >> 1);
-  const int xstride = w2k ? L1 : C;
-  const float* ysrc = w2k ? d2_rows + 2 * LQ * (kind - 4) : du1_rows + 128 * (kind & 1);
-  const int ystride = w2k ? 4 * LQ : L1;
-  auto load = [&](int st, int r0) {
-    float* xs = smem32 + st * DW32_STAGE;
-    float* ys = xs + dec::DW_SR * DW32_LDX;
-    for (int i = threadIdx.x; i < dec::DW_SR * 32; i += dec::DW_THREADS) {
-      const int r = i / 32, c = (i - r * 32) * 4;
-      const bool ok = r0 + r < hi;
-      cp_async16(xs + r * DW32_LDX + c,
-                 xsrc + (ok ? (size_t)(r0 + r) * xstride + c : 0), ok);
+// One unit's sum by the consumers, N = 256 (dW1) or 128 (dW2): warpgroup
+// wgi's B columns start at b_col; its 64 x N partial goes to `out` (row
+// i0 of the block, `ld` floats a row). `it` counts the ring's stages.
+template <int N>
+__device__ __forceinline__ void consume_unit(
+    unsigned char* stages, unsigned char* bbufs, uint64_t* full,
+    uint64_t* empty, int nstages, int& it, int lo, int hi, int b_col,
+    int xcol, float* out, int ld) {
+  using namespace hop;
+  const int ct = threadIdx.x, lane = ct & 31, warp = ct >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int nst = (hi - lo + KR - 1) / KR;
+  float acc[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  mbar_wait(full + it % nstages, (it / nstages) & 1);
+  transpose_split(stages + (it % nstages) * STAGE_BYTES, bbufs, ct);
+  fence_proxy_async();
+  named_sync(1, CONSUMERS);
+  for (int s = 0; s < nst; ++s, ++it) {
+    const int st = it % nstages;
+    const float* x =
+        reinterpret_cast<const float*>(stages + st * STAGE_BYTES);
+    uint32_t ah[KR / 8][4], al[KR / 8][4];  // split A fragments of X^T
+#pragma unroll
+    for (int kk = 0; kk < KR / 8; ++kk)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int r = 8 * kk + t + 4 * (q >> 1);
+        const int col = xcol + 16 * (warp & 3) + g + 8 * (q & 1);
+        const float v = lo + s * KR + r < hi ? x[r * XW + col] : 0.f;
+        stf32::split(v, ah[kk][q], al[kk][q]);
+      }
+    mbar_arrive(empty + st);  // X in registers, Y already transposed
+    const unsigned char* b = bbufs + (s & 1) * B_BYTES + (b_col >> 3) * 256;
+    fence_operands(ah);
+    fence_operands(al);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KR / 8; ++kk) {
+      const uint64_t bh = desc(b + 2 * kk * KSTEP_BYTES, 128, 256,
+                               LAYOUT_NONE);
+      const uint64_t bl = desc(b + (2 * kk + 1) * KSTEP_BYTES, 128, 256,
+                               LAYOUT_NONE);
+      mma_tf32_rs<N>(acc, al[kk], bh, 1);  // the small terms first
+      mma_tf32_rs<N>(acc, ah[kk], bl, 1);
+      mma_tf32_rs<N>(acc, ah[kk], bh, 1);
     }
-    for (int i = threadIdx.x; i < dec::DW_SR * (yw / 4); i += dec::DW_THREADS) {
-      const int r = i / (yw / 4), c = (i - r * (yw / 4)) * 4;
-      const bool ok = r0 + r < hi;
-      cp_async16(ys + r * DW32_LDY + c,
-                 ysrc + (ok ? (size_t)(r0 + r) * ystride + c : 0), ok);
+    wgmma_commit();
+    if (s + 1 < nst) {  // the next stage's B while these run
+      const int nx = it + 1;
+      mbar_wait(full + nx % nstages, (nx / nstages) & 1);
+      transpose_split(stages + (nx % nstages) * STAGE_BYTES,
+                      bbufs + ((s + 1) & 1) * B_BYTES, ct);
+      fence_proxy_async();
     }
-  };
-  auto prep = [](int) { return false; };
-  // dW1: rows 32 (w / 2).., columns 64 (w % 2)..; dW2: block de = w / 4,
-  // rows 32 ((w / 2) % 2).. of its C1, columns 64 (w % 2).. of its LQ
-  const int mrow = w2k ? 32 * ((warp >> 1) & 1) : 32 * (warp >> 1);
-  const int a0 = w2k ? C1 * (warp >> 2) + mrow : mrow;
-  const int b0 = w2k ? LQ * (warp >> 2) + 64 * (warp & 1) : 64 * (warp & 1);
-  auto mma = [&](int st) {
-    const float* xs = smem32 + st * DW32_STAGE;
-    dec32::dw_stage_tf32<DW32_LDX, DW32_LDY>(acc, xs, a0,
-                                             xs + dec::DW_SR * DW32_LDX, b0,
-                                             lane);
-  };
-  dec::dw_ring(lo, hi, load, prep, mma);
-  float* out = part + (size_t)blockIdx.x * DW_PART;
-  if (w2k)
-    dec32::dw_store32(out + C * L1 + (size_t)(2 * (kind - 4) + (warp >> 2)) * C1 * LQ +
-                          mrow * LQ + 64 * (warp & 1),
-                      LQ, acc, lane);
-  else
-    dec32::dw_store32(out + (size_t)(128 * (kind >> 1) + mrow) * L1 +
-                          128 * (kind & 1) + b0,
-                      L1, acc, lane);
+    wgmma_wait<0>();
+    fence_operands(acc);
+    named_sync(1, CONSUMERS);  // B written, both buffers' products done
+  }
+  const int i0 = 16 * (warp & 3) + g;  // the lane's rows i0, i0 + 8
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      dec32::st2(out + (size_t)(i0 + 8 * h) * ld + 8 * j + 2 * t,
+                 acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+}
+
+}  // namespace dwu
+
+__global__ void __launch_bounds__(dwu::NTH, 1)
+    upscale_bwd_dw_tf32_kernel(const __grid_constant__ CUtensorMap tm_up,
+                               const __grid_constant__ CUtensorMap tm_u1g,
+                               const __grid_constant__ CUtensorMap tm_d2,
+                               const __grid_constant__ CUtensorMap tm_du1,
+                               float* part, int rows, int chunk, int nchunks,
+                               int nstages) {
+  using namespace hop;
+  using namespace dwu;
+  extern __shared__ __align__(16) unsigned char smem_tma[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_tma) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(base);
+  uint64_t* empty = full + MAX_STAGES;
+  unsigned char* stages = base + 1024;
+  unsigned char* bbufs = stages + nstages * STAGE_BYTES;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < nstages; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, CONSUMERS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int units = 4 * nchunks;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (warp >= CONSUMERS / 32) {  // -------------------------- producer ----
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp > CONSUMERS / 32) return;  // one warp loads
+    int it = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const int kind = u & 3, lo = (u >> 2) * chunk;
+      const int hi = min(rows, lo + chunk);
+      const bool w1 = kind < 2;
+      const CUtensorMap* xm = w1 ? &tm_up : &tm_u1g;
+      const CUtensorMap* ym = w1 ? &tm_du1 : &tm_d2;
+      const int xc = XW * (kind & 1), yc = w1 ? 0 : YW * (kind & 1);
+      for (int r0 = lo; r0 < hi; r0 += KR, ++it) {
+        const int st = it % nstages;
+        unsigned char* x = stages + st * STAGE_BYTES;
+        mbar_wait(empty + st, ((it / nstages) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(full + st, X_BYTES + Y_BYTES);
+          tma_load_2d(x, xm, full + st, xc, r0);
+          tma_load_2d(x + X_BYTES, ym, full + st, yc, r0);
+        }
+        __syncwarp();
+      }
+    }
+    return;
+  }
+
+  // --------------------------------------------------------- consumers ----
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int wgi = threadIdx.x >> 7;
+  int it = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int kind = u & 3, chunk_i = u >> 2, lo = chunk_i * chunk;
+    const int hi = min(rows, lo + chunk);
+    float* out = part + (size_t)chunk_i * DW_PART;
+    if (kind < 2)  // dW1 rows 128 kind + 64 wgi.., all 256 columns
+      consume_unit<256>(stages, bbufs, full, empty, nstages, it, lo, hi, 0,
+                        64 * wgi, out + (size_t)(XW * kind + 64 * wgi) * L1,
+                        L1);
+    else  // dW2[de], de = 2 (kind - 2) + wgi: its 64 x 128 block
+      consume_unit<LQ>(stages, bbufs, full, empty, nstages, it, lo, hi,
+                       LQ * wgi, 64 * wgi,
+                       out + C * L1 + (size_t)(2 * (kind - 2) + wgi) * C1 * LQ,
+                       LQ);
+  }
 }
 
 int launch_fwd_tf32(const void* up, const void* w1, const void* b1,
@@ -1299,19 +1458,32 @@ int launch_bwd_rows_tf32(void* const* a, int bp, int m, int n_out,
 }
 
 int launch_bwd_dw_tf32(void* const* a, int rows, int chunk, int nchunks,
-                       cudaStream_t stream) {
-  if (chunk < 1 || chunk % dec::DW_SR || nchunks < 1 ||
-      (nchunks - 1) * chunk >= rows || nchunks * chunk < rows)
+                       int stages, int blocks, cudaStream_t stream) {
+  if (chunk < 1 || chunk % dwu::KR || nchunks < 1 ||
+      (nchunks - 1) * chunk >= rows || nchunks * chunk < rows ||
+      stages < 2 || stages > dwu::MAX_STAGES || blocks < 1)
     return (int)cudaErrorInvalidValue;
+  // row-major (rows, width) f32, boxes of dwu::KR rows x a unit's X (128)
+  // or Y (256) columns: up, u1g, rnd(d_u2pre), rnd(d_u1pre)
+  CUtensorMap maps[4];
+  const int widths[4] = {C, L1, 4 * LQ, L1};
+  const int boxes[4] = {dwu::XW, dwu::XW, dwu::YW, dwu::YW};
+  for (int i = 0; i < 4; ++i) {
+    const cuuint64_t dims[2] = {(cuuint64_t)widths[i], (cuuint64_t)rows};
+    const cuuint64_t strides[1] = {4ull * widths[i]};
+    const cuuint32_t box[2] = {(cuuint32_t)boxes[i], (cuuint32_t)dwu::KR};
+    if (!hop::tensor_map(maps + i, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, a[i],
+                         dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE))
+      return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = dwu::smem(stages);
   cudaError_t e = cudaFuncSetAttribute(
       upscale_bwd_dw_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)DW32_SMEM);
+      (int)smem);
   if (e != cudaSuccess) return (int)e;
-  upscale_bwd_dw_tf32_kernel<<<dim3(nchunks, 6), dec::DW_THREADS, DW32_SMEM,
-                               stream>>>(
-      static_cast<const float*>(a[0]), static_cast<const float*>(a[1]),
-      static_cast<const float*>(a[2]), static_cast<const float*>(a[3]),
-      static_cast<float*>(a[4]), rows, chunk);
+  upscale_bwd_dw_tf32_kernel<<<blocks, dwu::NTH, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<float*>(a[4]), rows,
+      chunk, nchunks, stages);
   return (int)cudaGetLastError();
 }
 
@@ -1348,15 +1520,17 @@ int dhoct_upscale_bwd_rows(void* const* a, int bp, int m, int n_out,
                     : launch_bwd_rows_tf32(a, bp, m, n_out, blocks, eps, s);
 }
 
-// The weight pass (bf16 upscale_bwd_dw_kernel, f32
-// upscale_bwd_dw_tf32_kernel). a[5]: up, u1g, rnd(d_u2pre) and
-// rnd(d_u1pre) rows, and the partials [nchunks][dW1 | dW2] of row chunks
-// of `chunk` rows.
+// The weight pass (bf16 upscale_bwd_dw_kernel, one block per (chunk,
+// tile); f32 upscale_bwd_dw_tf32_kernel on `blocks` persistent blocks and a
+// ring of `stages`, the plan of ops/upscaler.py::upscale_dw_plan_f32).
+// a[5]: up, u1g, rnd(d_u2pre) and rnd(d_u1pre) rows, and the partials
+// [nchunks][dW1 | dW2] of row chunks of `chunk` rows.
 int dhoct_upscale_bwd_dw(void* const* a, int rows, int chunk, int nchunks,
-                         int dtype, void* stream) {
+                         int stages, int blocks, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 1 ? launch_bwd_dw(a, rows, chunk, nchunks, s)
-                    : launch_bwd_dw_tf32(a, rows, chunk, nchunks, s);
+  return dtype == 1
+             ? launch_bwd_dw(a, rows, chunk, nchunks, s)
+             : launch_bwd_dw_tf32(a, rows, chunk, nchunks, stages, blocks, s);
 }
 
 const char* dhoct_upscale_error_string(int code) {

@@ -15,10 +15,12 @@ launches hand-written kernels:
     at head dim 64 computes the same function) for the global layers
     (N > WINDOW_MAX_TOKENS; N = 4096 at ViT-B), replacing the TPU
     ``_packed_kernel``;
-  * K2 ``attn_windowed_kernel`` (same file) for the windowed layers
-    (N <= 256; 14x14 windows at ViT-B), replacing the TPU
-    ``_windowed_group_kernel``. With a gradient to take, K1 / K2 also write
-    the rows' logsumexp (the TPU kernels' ``return_lse``);
+  * K2 ``attn_windowed_tf32_kernel`` (f32, same file) /
+    ``attn_relpos_wgmma_kernel`` (bf16, at the rounding point of the JAX
+    route: ``normalised_rounding``) for the windowed layers (N <= 256;
+    14x14 windows at ViT-B), replacing the TPU ``_windowed_group_kernel``.
+    With a gradient to take, K1 / K2 also write the rows' logsumexp (the
+    TPU kernels' ``return_lse``);
   * K5's dq and dk/dv kernels (``csrc/attention_bwd.cu``: f32
     ``attn_bwd_dq_tf32_kernel`` / ``attn_bwd_dkv_tf32_kernel``, bf16
     ``attn_bwd_dq_wgmma_kernel`` on the plan of ``dq_plan`` /
@@ -83,8 +85,14 @@ class RelposPlan:
     window of at most 14 x 16 grid cells, or 112 its first or last 7 grid
     rows past dp = 80; 128 two grid rows of 64; else 64), the tiles per
     unit of 128 query rows, the depths of the K / V ring
-    and of the unit (Q and bias rows) ring, and the shared memory of a
-    block in bytes."""
+    and of the unit (Q and bias rows) ring, the shared memory of a
+    block in bytes, the rounding point (``norm``: the normalised p rounded
+    before p.v, the JAX ``_windowed_group_kernel``'s, which the bf16 K2
+    takes; else the un-normalised p, K6's and K1's) and the passes a unit
+    makes over its key tiles (2 for ``norm`` over several tiles: the first
+    finds each row's max and sum from the scores alone, the second rounds
+    p / l for p.v; else 1). The producer issues ``passes * tiles`` key
+    tiles a unit, the first pass's without V."""
     route: str
     dp: int
     nk: int
@@ -92,6 +100,8 @@ class RelposPlan:
     kv_stages: int
     u_stages: int
     smem: int
+    norm: bool = False
+    passes: int = 1
 
 
 def _relpos_slabs(dp):
@@ -122,18 +132,23 @@ def _ring_depths(tiles):
 
 
 @functools.lru_cache(maxsize=None)
-def relpos_plan(d: int, n: int, hw) -> RelposPlan:
+def relpos_plan(d: int, n: int, hw, norm: bool = False) -> RelposPlan:
     """The bf16 K6's plan for head dim ``d`` over an ``hw`` grid of ``n``
-    tokens: the deepest rings that fit in a block's shared memory. A unit
-    of one tile (a window) takes two unit and two K / V stages where they
-    fit (the next unit loads while this one computes); a unit of several
-    tiles up to four K / V stages, three at least where they fit, two at
-    the least (it issues a tile's S before it releases the tile before).
-    Raises where none fits."""
+    tokens, rounding p where ``norm`` says (``RelposPlan``; ``norm`` at
+    head dim 64 alone): the deepest rings that fit in a block's shared
+    memory. A unit that issues one tile (a window) takes two unit and two
+    K / V stages where they fit (the next unit loads while this one
+    computes); a unit of several tiles up to four K / V stages, three at
+    least where they fit, two at the least (it issues a tile's S before it
+    releases the tile before). Raises where none fits."""
     if d < 4 or d % 4 or d > RELPOS_MAX_HEAD_DIM:
         raise NotImplementedError(
             f"K6 (attn_relpos) takes a head_dim that is a multiple of 4 up "
             f"to {RELPOS_MAX_HEAD_DIM}, got {d}")
+    if norm and d != HEAD_DIM:
+        raise NotImplementedError(
+            f"the normalised rounding point (K2's) is built for head_dim "
+            f"{HEAD_DIM} alone, got {d}")
     dp = -(-d // 16) * 16
     h, w = hw
     if h <= 14 and w <= 16:  # a window: 14 grid rows a tile, 7 past DP 80
@@ -143,13 +158,14 @@ def relpos_plan(d: int, n: int, hw) -> RelposPlan:
         nk, tiles = 128, n // 128
     else:
         nk, tiles = 64, -(-n // 64)
+    passes = 2 if norm and tiles > 1 else 1
     unit, kv = _relpos_stage_bytes(dp, nk, h, w)
-    for u_stages, kv_stages in _ring_depths(tiles):
+    for u_stages, kv_stages in _ring_depths(passes * tiles):
         smem = RELPOS_SMEM_FIXED + u_stages * unit + kv_stages * kv
         if smem <= SMEM_MAX:
             return RelposPlan(
                 "windowed" if n <= WINDOW_MAX_TOKENS else "global", dp, nk,
-                tiles, kv_stages, u_stages, smem)
+                tiles, kv_stages, u_stages, smem, norm, passes)
     raise NotImplementedError(
         f"K6 bf16: no plan fits in shared memory for head_dim {d} over a "
         f"{hw} grid (one stage takes {RELPOS_SMEM_FIXED + unit + kv} "
@@ -260,27 +276,43 @@ def _scores(qkv, rel_h, rel_w, hw, num_heads):
     return q, k, v, s.add_(bias.reshape(b, num_heads, n, n))
 
 
+def normalised_rounding(b: int, n: int) -> bool:
+    """True where the JAX package's ``flash_attention_packed`` takes its
+    grouped-window kernel (``_windowed_group_kernel``), which rounds the
+    normalised p / l to the input dtype before the p.v product: one query
+    and one key block (N <= 512 with the default tiles) and a batch of
+    windows that ``_window_group`` groups (b divisible by 2 or 5). Every
+    other call takes ``_packed_kernel``, which rounds the un-normalised p
+    and divides last. This copy of the rule imports nothing of the JAX
+    package."""
+    return n <= 512 and (b % 2 == 0 or b % 5 == 0)
+
+
 def packed_attention_plain(qkv, rel_h, rel_w, *, hw, num_heads: int,
-                           return_lse: bool = False):
+                           return_lse: bool = False, normalised=None):
     """Plain PyTorch version: materialised (N, N) bias, f32 softmax, the
     output cast back to the input dtype (``attention_reference`` math on the
     packed qkv). ``return_lse=True`` also returns the rows' logsumexp of the
     scaled scores, (B, heads, N) f32, as K1 / K2 write it.
 
-    In bf16 the probabilities are rounded where the TPU kernels round them
-    before the p.v product: the global route (N > WINDOW_MAX_TOKENS,
-    ``_packed_kernel``) rounds the un-normalised p = exp(s - max) and divides
-    the f32 product by the f32 denominator last; the windowed route
-    (``_windowed_group_kernel``, and ``_windowed_image_kernel`` through
-    ``windowed_image_attention_plain``) rounds the normalised p / l."""
+    In bf16 the probabilities are rounded where the TPU kernel of the JAX
+    package's route rounds them before the p.v product
+    (``normalised_rounding(B, N)``, unless ``normalised`` says which):
+    ``_windowed_group_kernel`` rounds the normalised p / l;
+    ``_packed_kernel`` (every other B and N) rounds the un-normalised p =
+    exp(s - max) and divides the f32 product by the f32 denominator last.
+    ``windowed_image_attention_plain`` asks for p / l, the rounding of the
+    TPU ``_windowed_image_kernel``."""
     _check(qkv, rel_h, rel_w, hw, num_heads)
     _, _, v, s = _scores(qkv, rel_h, rel_w, hw, num_heads)
     if qkv.dtype == torch.float32:
         out = torch.matmul(torch.softmax(s, dim=-1), v)
     else:
+        if normalised is None:
+            normalised = normalised_rounding(qkv.shape[0], qkv.shape[1])
         p = (s - s.amax(dim=-1, keepdim=True)).exp_()
         denom = p.sum(dim=-1, keepdim=True)
-        if s.shape[-1] <= WINDOW_MAX_TOKENS:
+        if normalised:
             out = torch.matmul(_rnd(p.div_(denom), qkv.dtype), v)
         else:
             out = torch.matmul(_rnd(p, qkv.dtype), v).div_(denom)
@@ -385,7 +417,7 @@ def windowed_image_attention_plain(qkv_img, rel, qkv_bias, *, ws: int,
     win, rel_h, rel_w, padded_hw = partition_image_operands(qkv_img, rel,
                                                             qkv_bias, ws)
     out = packed_attention_plain(win, rel_h, rel_w, hw=(ws, ws),
-                                 num_heads=num_heads)
+                                 num_heads=num_heads, normalised=True)
     return window_unpartition(out.reshape(-1, ws, ws, c3 // 3), ws,
                               padded_hw, (h, w)).contiguous()
 
@@ -450,7 +482,7 @@ def _bind(name):
         elif name == "attention_relpos":
             fns = [(lib.dhoct_attn_relpos, [p] * 4 + [i] * 6 + [p])]
         elif name == "attention_relpos_wgmma":
-            fns = [(lib.dhoct_attn_relpos_bf16, [p] * 5 + [i] * 11 + [p])]
+            fns = [(lib.dhoct_attn_relpos_bf16, [p] * 5 + [i] * 13 + [p])]
         elif name == "attention_winimg":
             fns = [(lib.dhoct_attn_windowed_image, [p] * 4 + [i] * 6 + [p])]
         else:
@@ -487,11 +519,13 @@ def _kernel_dims(qkv, num_heads):
 def attention_fwd_cuda(qkv, rel_h, rel_w, *, hw, num_heads: int,
                        return_lse: bool = False):
     """Launch K1 (N > WINDOW_MAX_TOKENS) or K2; same contract as
-    ``packed_attention_plain``. The bf16 K1 is the bf16 K6's kernel
-    (``attn_relpos_wgmma_kernel`` on ``relpos_plan(64, n, hw)``), which at
-    head dim 64 computes the same function with the same rounding points,
-    and writes the logsumexp rows too; its launches count as
-    ``attn_global``."""
+    ``packed_attention_plain``. In bf16 both are the bf16 K6's kernel
+    (``attn_relpos_wgmma_kernel`` on ``relpos_plan(64, n, hw, norm)``), with
+    the logsumexp rows, at the rounding point of the JAX route
+    (``normalised_rounding(B, N)``: the normalised p, K2's on SAM's
+    windows, or the un-normalised p divided last, K6's and K1's); at head
+    dim 64 it computes the same function. Its launches count as
+    ``attn_windowed`` (N <= WINDOW_MAX_TOKENS) or ``attn_global``."""
     _check(qkv, rel_h, rel_w, hw, num_heads)
     b, n, c3 = qkv.shape
     _kernel_dims(qkv, num_heads)
@@ -500,9 +534,9 @@ def attention_fwd_cuda(qkv, rel_h, rel_w, *, hw, num_heads: int,
     out = torch.empty((b, n, c3 // 3), dtype=qkv.dtype, device=qkv.device)
     lse = (torch.empty((b, num_heads, n), dtype=torch.float32,
                        device=qkv.device) if return_lse else None)
-    if name == "attn_global" and qkv.dtype == torch.bfloat16:
+    if qkv.dtype == torch.bfloat16:
         lib, err = _launch_relpos_bf16(qkv, rel_h, rel_w, out, lse, hw,
-                                       num_heads)
+                                       num_heads, normalised_rounding(b, n))
     else:
         lib = _bind("attention")
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
@@ -517,17 +551,19 @@ def attention_fwd_cuda(qkv, rel_h, rel_w, *, hw, num_heads: int,
     return (out, lse) if return_lse else out
 
 
-def _launch_relpos_bf16(qkv, rel_h, rel_w, out, lse, hw, num_heads):
+def _launch_relpos_bf16(qkv, rel_h, rel_w, out, lse, hw, num_heads,
+                        norm=False):
     """Launch ``attn_relpos_wgmma_kernel`` on the plan of ``relpos_plan``,
     one persistent block per SM at most, writing ``out`` and, where ``lse``
-    is not None, the rows' logsumexp; returns (the library, its error code).
+    is not None, the rows' logsumexp, with p rounded where ``norm`` says
+    (``RelposPlan``); returns (the library, its error code).
     The kernel reads each head in slabs of 16 columns: where the head dim is
     no multiple of 16, qkv is first copied with each head padded to ``dp``
     columns of zeros, for the same kernel (no ViT's head: 64 and 80 are
     multiples)."""
     b, n, c3 = qkv.shape
     d = c3 // 3 // num_heads
-    plan = relpos_plan(d, n, tuple(hw))
+    plan = relpos_plan(d, n, tuple(hw), norm)
     src = qkv if d == plan.dp else torch.nn.functional.pad(
         qkv.view(b, n, 3 * num_heads, d), (0, plan.dp - d)).view(
             b, n, 3 * num_heads * plan.dp)
@@ -539,8 +575,8 @@ def _launch_relpos_bf16(qkv, rel_h, rel_w, out, lse, hw, num_heads):
             src.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
             out.data_ptr(), None if lse is None else lse.data_ptr(), b, n,
             num_heads, d, hw[0], hw[1], src.shape[2] // (3 * num_heads),
-            plan.nk, plan.kv_stages, plan.u_stages,
-            min(units, kernels.sm_count(qkv.device)), stream)
+            plan.nk, plan.kv_stages, plan.u_stages, plan.passes,
+            int(plan.norm), min(units, kernels.sm_count(qkv.device)), stream)
     return lib, err
 
 

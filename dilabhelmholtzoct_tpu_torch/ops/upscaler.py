@@ -20,7 +20,9 @@ hand-written kernels of ``csrc/upscaler.cu``:
     and in f32 (split TF32): ``upscale_bwd_rows`` (the row pass; it also
     writes u1g, rnd(d_u2pre) and rnd(d_u1pre) per row as scratch in the
     input dtype) and ``upscale_bwd_dw`` (the weight pass: dW1 and dW2 as
-    split-K products over row chunks).
+    split-K products over row chunks; in f32 on TF32 wgmma and TMA,
+    ``upscale_bwd_dw_tf32_kernel`` on the plan of ``upscale_dw_plan_f32``,
+    whose four units of a chunk read 6 KB a row against the rows' 5 KB).
 
 The JAX package routes here only in bf16 unless
 ``set_fused_upscaler('interpret')`` forces it (``models/sam.py``); the f32
@@ -49,6 +51,8 @@ for f32.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
 
 import torch
@@ -62,7 +66,9 @@ CHANNELS = 256     # the only decoder width the CUDA kernels take (every SAM)
 MAX_OUT = 4        # mask tokens per pair the kernels take
 ROW_SLOTS = 4      # 16-row tiles in flight per block, a warp pair each
 F32_ROWS = 64      # rows of an f32 super-tile (dec32::ROWS)
-DW_ROWS = 32       # rows per stage of the weight pass (dec::DW_SR)
+DW_ROWS = 32       # rows per stage of the bf16 weight pass (dec::DW_SR)
+DW32_ROWS = 16     # rows per stage of the f32 weight pass (dwu::KR)
+DW32_STAGES = 6    # its ring (dwu::MAX_STAGES: 6 x 24 KB beside 64 KB of B)
 
 _BOUND = False
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
@@ -178,17 +184,54 @@ def upscale_bwd_rows_plain(up, dm, w1, b1, g, bt, w2, b2, hyper,
     return tuple(x.to(up.dtype) for x in rows) + sums
 
 
+@dataclasses.dataclass(frozen=True)
+class DwPlanF32:
+    """The launch plan of the f32 weight pass (``upscale_bwd_dw_tf32_kernel``):
+    the row chunks (one partial of dW1 and dW2 each, added up in this
+    order), the nominal chunk in rows (a multiple of ``DW32_ROWS``; a lone
+    chunk may be shorter), the units (chunk index, kind) in the order the
+    blocks take them (block b: units b, b + blocks, ...; kinds 0 and 1 the
+    dW1 halves of 128 output rows, 2 and 3 the dW2 pairs of (d, e) blocks),
+    the ring's stages and the persistent blocks."""
+    chunks: tuple
+    chunk: int
+    units: tuple
+    stages: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=None)
+def upscale_dw_plan_f32(rows: int, sm_count: int) -> DwPlanF32:
+    """The f32 weight pass's plan over ``rows`` rows: about sm_count / 2
+    chunks aligned to its 16-row stage (each chunk one accumulator chain
+    per output element, as long as the f32 K4 weight pass's: the tensor
+    cores' f32 sums do not round to nearest, and their error grows with
+    the chain), four units a chunk in (chunk, kind) order, one persistent
+    block per SM at most. A chunk's two dW1 units are neighbours in that
+    order, so they run in the same wave of blocks and the second read of
+    the chunk's rnd(d_u1pre) rows comes from L2."""
+    chunks = tuple(kernels.row_chunks(rows, max(1, sm_count // 2),
+                                      DW32_ROWS))
+    size = -(-chunks[0][1] // DW32_ROWS) * DW32_ROWS
+    units = tuple((c, kind) for c in range(len(chunks)) for kind in range(4))
+    return DwPlanF32(chunks, size, units, DW32_STAGES,
+                     min(len(units), sm_count))
+
+
 def upscale_bwd_dw_plain(up, u1g_rows, d2_rows, du1_rows, *, parts: int = 1):
     """Plain PyTorch twin of the weight pass ``upscale_bwd_dw``: dW1 (C,
     4*C1) = sum_r up^T rnd(d_u1pre) and dW2 (4, C1, 4*C2), dW2[de] = sum_r
     u1g[de]^T rnd(d_u2pre)[de], in f32, summed over ``parts`` row chunks in
-    the kernel's order (``kernels.row_chunks``)."""
+    the kernel's order (``kernels.row_chunks``, aligned to the stage of the
+    weight pass of up's dtype: ``DW32_ROWS`` in f32, the chunks of
+    ``upscale_dw_plan_f32``, ``DW_ROWS`` in bf16)."""
     bp, m, c = up.shape
     n = bp * m
     x1, y1 = up.float().reshape(n, c), du1_rows.float().reshape(n, -1)
     x2 = u1g_rows.float().reshape(n, 4, -1)
     y2 = d2_rows.float().reshape(n, 4, -1)
-    chunks = kernels.row_chunks(n, parts, DW_ROWS)
+    align = DW32_ROWS if up.dtype == torch.float32 else DW_ROWS
+    chunks = kernels.row_chunks(n, parts, align)
     dw1 = sum(x1[lo:hi].T @ y1[lo:hi] for lo, hi in chunks)
     dw2 = sum(torch.einsum("rsc,rsq->scq", x2[lo:hi], y2[lo:hi])
               for lo, hi in chunks)
@@ -222,7 +265,7 @@ def _bind():
                                                             p]
         lib.dhoct_upscale_bwd_rows.argtypes = [p] + [i] * 5 + [
             ctypes.c_float, p]
-        lib.dhoct_upscale_bwd_dw.argtypes = [p] + [i] * 4 + [p]
+        lib.dhoct_upscale_bwd_dw.argtypes = [p] + [i] * 6 + [p]
         for fn in (lib.dhoct_upscale_fwd, lib.dhoct_upscale_bwd_rows,
                    lib.dhoct_upscale_bwd_dw):
             fn.restype = ctypes.c_int
@@ -320,11 +363,12 @@ def upscale_bwd_rows_cuda(up, dm, w1, b1, g, bt, w2, b2, hyper,
 
 
 def upscale_bwd_dw_cuda(up, u1g_rows, d2_rows, du1_rows):
-    """Launch the weight pass ``upscale_bwd_dw`` (csrc/upscaler.cu): one
-    block per (row chunk, output tile) -- 3 tiles of the weight gradients
-    in bf16, 6 in f32 --, about one per SM; same contract as
-    ``upscale_bwd_dw_plain``. The per-chunk partials are summed here in a
-    fixed order."""
+    """Launch the weight pass ``upscale_bwd_dw`` (csrc/upscaler.cu): in bf16
+    ``upscale_bwd_dw_kernel``, one block per (row chunk, output tile), 3
+    tiles of the weight gradients, about one per SM; in f32
+    ``upscale_bwd_dw_tf32_kernel`` on TF32 wgmma and TMA, on the plan of
+    ``upscale_dw_plan_f32``. Same contract as ``upscale_bwd_dw_plain``. The
+    per-chunk partials are summed here in a fixed order."""
     bp, m, c = up.shape
     dt = up.dtype
     args = (up, u1g_rows, d2_rows, du1_rows)
@@ -336,18 +380,24 @@ def upscale_bwd_dw_cuda(up, u1g_rows, d2_rows, du1_rows):
                          "256), rnd(d_u2pre) (BP, M, 512)")
     lib = _bind()
     dev = up.device
-    with torch.cuda.device(dev):
-        per_chunk = 3 if dt == torch.bfloat16 else 6  # blocks of a chunk
-        chunks = kernels.row_chunks(
-            bp * m, max(1, kernels.sm_count(dev) // per_chunk), DW_ROWS)
+    with kernels.on_device(dev):
+        sms = kernels.sm_count(dev)
+        if dt == torch.bfloat16:  # three blocks a chunk
+            chunks = kernels.row_chunks(bp * m, max(1, sms // 3), DW_ROWS)
+            # the nominal chunk, a multiple of DW_ROWS (a lone chunk may be
+            # shorter: fewer than DW_ROWS rows in all)
+            size = -(-chunks[0][1] // DW_ROWS) * DW_ROWS
+            stages = blocks = 0
+        else:
+            plan = upscale_dw_plan_f32(bp * m, sms)
+            chunks, size = plan.chunks, plan.chunk
+            stages, blocks = plan.stages, plan.blocks
         part = torch.empty((len(chunks), c * c + c * c // 2),
                            dtype=torch.float32, device=dev)
-        # the nominal chunk, a multiple of DW_ROWS (a lone chunk may be
-        # shorter: fewer than DW_ROWS rows in all)
-        size = -(-chunks[0][1] // DW_ROWS) * DW_ROWS
         err = lib.dhoct_upscale_bwd_dw(
             kernels.pointers(args + (part,)), bp * m, size, len(chunks),
-            kernels.DTYPE_CODE[dt], torch.cuda.current_stream(dev).cuda_stream)
+            stages, blocks, kernels.DTYPE_CODE[dt],
+            torch.cuda.current_stream(dev).cuda_stream)
     kernels.raise_on_error(err, lib.dhoct_upscale_error_string,
                            "upscale_bwd_dw")
     LAUNCHES["upscale_bwd_dw"] += 1

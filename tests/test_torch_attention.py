@@ -16,6 +16,7 @@ import torch
 import jax.numpy as jnp
 
 from dilabhelmholtzoct_tpu.ops.attention import (
+    _window_group,
     attention_reference,
     flash_attention_packed as jax_packed,
 )
@@ -119,12 +120,20 @@ def _rounded_at(qkv, rel_h, rel_w, hw, nh, point):
 @pytest.mark.parametrize("b,hw,point,wrong", [
     (1, (32, 32), "unnorm", ("f32", "norm")),  # global: _packed_kernel
     (25, (14, 14), "norm", ("f32", "unnorm")),  # 25 windows: grouped kernel
+    # one block, but no window group (b has no factor 2 or 5): _packed_kernel
+    (1, (14, 14), "unnorm", ("f32", "norm")),
+    (3, (9, 7), "unnorm", ("f32", "norm")),
+    # past 256 tokens, one block of N <= 512 and an even b: grouped kernel
+    (2, (20, 15), "norm", ("f32", "unnorm")),
+    (4, (16, 32), "norm", ("f32", "unnorm")),
 ])
 def test_plain_bf16_rounding_points(rng, b, hw, point, wrong):
-    """bf16: the plain version rounds p where the TPU kernel of its route
-    rounds it (global: un-normalised, divided last; windowed: normalised),
-    so nearly every output is bit-equal to the interpret-mode Pallas
-    kernel; the f32 softmax or the other route's point are not."""
+    """bf16: the plain version rounds p where the TPU kernel of the JAX
+    route rounds it (``_packed_kernel``: un-normalised, divided last;
+    ``_windowed_group_kernel``, taken for one block of N <= 512 and a b
+    divisible by 2 or 5: normalised), so nearly every output is bit-equal
+    to the interpret-mode Pallas kernel; the f32 softmax or the other
+    kernel's point are not."""
     qkv, rel_h, rel_w = _inputs(rng, b, 2, hw, scale=0.5)
     want = jax_packed(*(jnp.asarray(a, dtype=jnp.bfloat16)
                         for a in (qkv, rel_h, rel_w)),
@@ -143,6 +152,16 @@ def test_plain_bf16_rounding_points(rng, b, hw, point, wrong):
     for other in wrong:
         bad = _rounded_at(*tensors, hw, 2, other).float().numpy()
         assert (bad == want).mean() < 0.9, other
+
+
+def test_normalised_rounding_is_the_jax_route():
+    """``normalised_rounding`` is the JAX package's condition for its
+    grouped-window kernel at the default tiles: one query block and one key
+    block (N <= 512) and ``_window_group(b) > 1``."""
+    for b in range(1, 31):
+        for n in (63, 196, 256, 300, 512, 513, 4096):
+            want = n <= 512 and _window_group(b) > 1
+            assert port_attn.normalised_rounding(b, n) == want, (b, n)
 
 
 def test_wrapper_rejects_bad_shapes(rng):

@@ -244,10 +244,12 @@ def test_attention_dq_wgmma_on_card(cuda_device, b, nh, hw):
                                      if s[2][0] * s[2][1] > 256])
 def test_k1_bf16_on_the_wgmma_body_on_card(cuda_device, b, nh, hw):
     """The bf16 K1 is the bf16 K6's kernel (``attn_relpos_wgmma_kernel``,
-    on ``relpos_plan(64, n, hw)``) with its logsumexp rows: the output
+    on ``relpos_plan(64, n, hw, norm)``) with its logsumexp rows: the output
     against ``packed_attention_plain`` (two bf16 ulps of the output scale)
     and L against its f32 logsumexp (atol 2e-4), counted as one K1 launch
-    and no K6 launch, and the same bits of both on a second run."""
+    and no K6 launch, and the same bits of both on a second run; where the
+    JAX route rounds the un-normalised p (``normalised_rounding`` false),
+    the bits of K6's own instance."""
     qkv, rel_h, rel_w, _ = _attn_inputs(cuda_device, torch.bfloat16, b, nh,
                                         hw, seed=7)
     kw = dict(hw=hw, num_heads=nh)
@@ -268,8 +270,50 @@ def test_k1_bf16_on_the_wgmma_body_on_card(cuda_device, b, nh, hw):
                                               return_lse=True, **kw)
     assert torch.equal(out, out2) and torch.equal(lse, lse2)
     # without the rows, the same output (K6's own instance)
-    assert torch.equal(out, port_attn.attention_relpos_cuda(
-        qkv, rel_h, rel_w, **kw))
+    if not port_attn.normalised_rounding(b, hw[0] * hw[1]):
+        assert torch.equal(out, port_attn.attention_relpos_cuda(
+            qkv, rel_h, rel_w, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,nh,hw", [s for s in ATTN_SHAPES
+                                     if s[2][0] * s[2][1] <= 512] + [
+    (1, 2, (14, 14)),   # one window: K6's rounding in one tile
+    (4, 2, (16, 32)),   # 512 tokens, normalised: two passes of 8 tiles
+    (2, 2, (8, 32)),    # windowed, W > 16: two passes over 64-key tiles
+    (2, 2, (4, 64))])   # windowed, two grid rows of 64: two passes
+def test_k2_bf16_on_the_wgmma_body_on_card(cuda_device, b, nh, hw):
+    """The bf16 K2 is the bf16 K6's kernel (``attn_relpos_wgmma_kernel`` on
+    ``relpos_plan(64, n, hw, norm)``) at the JAX route's rounding point
+    (``normalised_rounding``: the normalised p in one tile or in two passes
+    over several, else K6's): the output against the repaired
+    ``packed_attention_plain`` (two bf16 ulps of the output scale) and L
+    against its f32 logsumexp (atol 2e-4), counted as one K2 launch (one K1
+    past 256 tokens), and the same bits of both on a second run."""
+    qkv, rel_h, rel_w, _ = _attn_inputs(cuda_device, torch.bfloat16, b, nh,
+                                        hw, seed=9)
+    n = hw[0] * hw[1]
+    kw = dict(hw=hw, num_heads=nh)
+    kind = ("attn_windowed" if n <= port_attn.WINDOW_MAX_TOKENS
+            else "attn_global")
+    before = dict(port_attn.LAUNCHES)
+    out, lse = port_attn.attention_fwd_cuda(qkv, rel_h, rel_w,
+                                            return_lse=True, **kw)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in port_attn.LAUNCHES.items()
+                if v != before[k]}
+    assert launched == {kind: 1}, launched
+    want_out, want_lse = port_attn.packed_attention_plain(
+        qkv, rel_h, rel_w, return_lse=True, **kw)
+    assert_forward_close(out, want_out)
+    np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(),
+                               atol=2e-4, rtol=1e-5)
+    out2, lse2 = port_attn.attention_fwd_cuda(qkv, rel_h, rel_w,
+                                              return_lse=True, **kw)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    if not port_attn.normalised_rounding(b, n):  # K6's rounding: its bits
+        assert torch.equal(out, port_attn.attention_relpos_cuda(
+            qkv, rel_h, rel_w, **kw))
 
 
 @pytest.mark.gpu
@@ -515,10 +559,11 @@ def test_i2t_dw_bf16_wgmma_on_card(cuda_device, bp, m, pb):
                                      (3, 2, (16, 16)),    # 256 keys, 16 tiles
                                      (2, 2, (9, 7))])     # 63 keys
 def test_windowed_mma_kernel_on_card(cuda_device, b, nh, hw):
-    """The bf16 K2 on the tensor cores (one block per window and head)
-    against ``packed_attention_plain``: output within two bf16 ulps of its
-    scale and the logsumexp rows within atol 2e-4; the LSE changes nothing,
-    and a second run gives the same bits."""
+    """The bf16 K2 on the tensor cores (on wgmma and TMA since it became an
+    instance of ``attn_relpos_wgmma_kernel``) against
+    ``packed_attention_plain``: output within two bf16 ulps of its scale
+    and the logsumexp rows within atol 2e-4; the LSE changes nothing, and
+    a second run gives the same bits."""
     qkv, rel_h, rel_w, _ = _attn_inputs(cuda_device, torch.bfloat16, b, nh,
                                         hw)
     kw = dict(hw=hw, num_heads=nh)
@@ -566,8 +611,11 @@ def _winimg_inputs(dev, dtype, b, nh, hw, ws, seed=0):
 def test_winimg_kernel_matches_plain_and_k2_on_card(cuda_device, dtype, b,
                                                     nh, hw, ws):
     """K7 against its plain version (the partitioned route on plain
-    attention), and bit-equal to K2 on the partitioned windows of the same
-    qkv: both run the same code once their rows are in shared memory."""
+    attention), and against K2 on the partitioned windows of the same qkv:
+    in f32 bit-equal (both run the same code once their rows are in shared
+    memory); in bf16 within two bf16 ulps of the output scale (the bf16 K2
+    runs on the wgmma body, K7 on mma.sync; both round the normalised p on
+    these windows)."""
     qkv, rel, bias = _winimg_inputs(cuda_device, dtype, b, nh, hw, ws)
     before = dict(port_attn.LAUNCHES)
     got = port_attn.flash_attention_windowed_image(qkv, rel, bias, ws=ws,
@@ -587,7 +635,11 @@ def test_winimg_kernel_matches_plain_and_k2_on_card(cuda_device, dtype, b,
                                       num_heads=nh)
     k2 = port_attn.window_unpartition(k2.reshape(-1, ws, ws, nh * 64), ws,
                                       padded, hw)
-    assert torch.equal(got, k2)
+    if dtype == torch.float32:
+        assert torch.equal(got, k2)
+    else:
+        assert port_attn.normalised_rounding(win.shape[0], ws * ws)
+        assert_forward_close(got, k2.contiguous())
 
 
 # the f32 kernels on the tensor cores in split TF32: library -> kernels
@@ -989,6 +1041,39 @@ def test_upscale_tf32_launches_on_card(cuda_device, bp, m, n_out):
     assert torch.equal(out, up_op.upscale_fwd_cuda(*args))
     assert _same_bits(rows, up_op.upscale_bwd_rows_cuda(*bw))
     assert _same_bits(dw, up_op.upscale_bwd_dw_cuda(*scratch))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bp,m", [(8, 37),      # 296 rows: 16-row chunks
+                                  (1, 15),      # a lone chunk of 15 rows
+                                  (3, 100),     # 300 rows, a short last one
+                                  (16, 521),    # 8336 rows, 66 chunks
+                                  (4, 4096)])   # 16384 rows, the pairs' m
+def test_upscale_dw_tf32_wgmma_on_card(cuda_device, bp, m):
+    """The f32 K3 weight pass on TF32 wgmma and TMA
+    (``upscale_bwd_dw_tf32_kernel``) against ``upscale_bwd_dw_plain`` on
+    the chunks of ``upscale_dw_plan_f32`` (1e-4 of max |plain|), on row
+    counts that are no multiple of its 16-row stage and a lone chunk
+    shorter than one stage; one launch, and the same bits on a second
+    call."""
+    from dilabhelmholtzoct_tpu_torch import kernels
+    from dilabhelmholtzoct_tpu_torch.device import full_fp32
+    from dilabhelmholtzoct_tpu_torch.ops import upscaler as up_op
+
+    gen = torch.Generator(device=cuda_device).manual_seed(19)
+    r = lambda *s: torch.randn(s, generator=gen, device=cuda_device)
+    scratch = (r(bp, m, 256), r(bp, m, 256), r(bp, m, 512), r(bp, m, 256))
+    plan = up_op.upscale_dw_plan_f32(bp * m, kernels.sm_count(cuda_device))
+    with full_fp32():
+        before = up_op.LAUNCHES["upscale_bwd_dw"]
+        got = up_op.upscale_bwd_dw_cuda(*scratch)
+        torch.cuda.synchronize()
+        assert up_op.LAUNCHES["upscale_bwd_dw"] == before + 1
+        want = up_op.upscale_bwd_dw_plain(*scratch, parts=len(plan.chunks))
+        for name, a, w in zip(("dW1", "dW2"), got, want):
+            assert a.shape == w.shape and a.dtype == w.dtype, name
+            _rel_close(a, w, K34_TOL[torch.float32], name)
+        assert _same_bits(got, up_op.upscale_bwd_dw_cuda(*scratch))
 
 
 # ---------------------------------------------------------------------------

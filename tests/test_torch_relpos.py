@@ -262,15 +262,23 @@ def test_bf16_precompute_vith_shaped_matches_jax(rng, monkeypatch):
                                      (1, 2, (30, 34)),   # W != 64
                                      (1, 2, (64, 64))])  # ViT's global grid
 def test_packed_bf16_global_equals_relpos_plain_bitwise(rng, b, nh, hw):
-    """At head dim 64 in bf16, past WINDOW_MAX_TOKENS, the packed route's
-    plain version (K1's: q times 1/8 before the product) gives the same
-    bits as K6's (the score times 1/8 after it): the scale is a power of
-    two, and both round the un-normalised p and divide last. This is why
-    the bf16 K1 runs on K6's kernel (``attention_fwd_cuda``)."""
+    """At head dim 64 in bf16, past WINDOW_MAX_TOKENS, where the JAX route
+    takes ``_packed_kernel`` (``normalised_rounding`` false), the packed
+    route's plain version (K1's: q times 1/8 before the product) gives the
+    same bits as K6's (the score times 1/8 after it): the scale is a power
+    of two, and both round the un-normalised p and divide last. This is
+    why the bf16 K1 runs on K6's kernel (``attention_fwd_cuda``). Where it
+    takes the grouped-window kernel (300 tokens at an even b), the packed
+    plain version is K6's arithmetic with p / l rounded instead, the same
+    bits as K6's score with that rounding point."""
     arrays = _inputs(rng, b, nh, 64, hw)
     args = [torch.tensor(a, dtype=torch.bfloat16) for a in arrays]
     assert hw[0] * hw[1] > port_attn.WINDOW_MAX_TOKENS
     packed = port_attn.packed_attention_plain(*args, hw=hw, num_heads=nh)
     relpos = port_attn.relpos_attention_plain(*args, hw=hw, num_heads=nh)
     assert packed.dtype == relpos.dtype == torch.bfloat16
-    assert torch.equal(packed, relpos)
+    if port_attn.normalised_rounding(b, hw[0] * hw[1]):
+        assert torch.equal(packed, _wrong_rounding(*args, hw, nh, "norm"))
+        assert not torch.equal(packed, relpos)
+    else:
+        assert torch.equal(packed, relpos)

@@ -23,6 +23,8 @@ and which grows with the number of k steps summed into one accumulator
 (the card's K5 error at a 4096-key layer, ``chip_smoke.py``, is above this
 test's bound though within the card's). Runs without a card."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -420,21 +422,6 @@ def test_split_tf32_k3_chain_error(n_out):
                 names)
 
 
-def emulated_dw(x, y, parts, mm):
-    """K3's weight pass's split-K sum x^T . y over rows: the row chunks of
-    ``kernels.row_chunks``, each summed stage by stage (32 rows into fresh
-    accumulators, added in f32, as ``dw_stage_tf32``), the chunks' partials
-    added in order."""
-    total = 0.0
-    for lo, hi in kernels.row_chunks(x.shape[0], parts, port_up.DW_ROWS):
-        acc = 0.0
-        for s in range(lo, hi, port_up.DW_ROWS):
-            e = min(hi, s + port_up.DW_ROWS)
-            acc = acc + mm(x[s:e].T, y[s:e])
-        total = total + acc
-    return total
-
-
 def chain_split(acc, a, b):
     """acc + a . b as the f32 K4 weight pass adds one TF32 k-step into its
     accumulator: lo.hi, then hi.lo, then hi.hi, each added in f32."""
@@ -447,14 +434,13 @@ def chain_single(acc, a, b):
     return acc + tf32_rna(a) @ tf32_rna(b)
 
 
-def emulated_dw_chain(x, y, parts, chain):
-    """The f32 K4 weight pass's split-K sum x^T . y over rows: the row
-    chunks of ``kernels.row_chunks`` aligned to its stage
-    (``DW32_ROWS``), each chunk one accumulator chain of 8-row k-steps
-    (``chain``), the chunks' partials added in order."""
+def emulated_dw_chain(x, y, parts, chain, align):
+    """The f32 K3 / K4 weight passes' split-K sum x^T . y over rows: the
+    row chunks of ``kernels.row_chunks`` aligned to the pass's stage
+    (``align``: ``DW32_ROWS``), each chunk one accumulator chain of 8-row
+    k-steps (``chain``), the chunks' partials added in order."""
     total = 0.0
-    for lo, hi in kernels.row_chunks(x.shape[0], parts,
-                                     port_i2t.DW32_ROWS):
+    for lo, hi in kernels.row_chunks(x.shape[0], parts, align):
         acc = torch.zeros(x.shape[1], y.shape[1])
         for s in range(lo, hi, 8):
             acc = chain(acc, x[s:min(hi, s + 8)].T, y[s:min(hi, s + 8)])
@@ -465,8 +451,8 @@ def emulated_dw_chain(x, y, parts, chain):
 @pytest.mark.parametrize("op,parts", [("k4", 1), ("k4", 3), ("k3", 1),
                                       ("k3", 3)])
 def test_split_tf32_weight_pass_error(op, parts):
-    """The weight passes (K4: dWq, dWo, one accumulator chain of TF32
-    k-steps per chunk as the f32 K4 weight pass on wgmma; K3: dW1, dW2) as
+    """The weight passes (K4: dWq, dWo; K3: dW1, dW2; each one accumulator
+    chain of TF32 k-steps per chunk, as both f32 weight passes on wgmma) as
     split-K sums over the kernels' row chunks in split TF32, on the row
     pass's own scratch rows, against ``i2t_bwd_dw_plain`` /
     ``upscale_bwd_dw_plain`` (one product over all rows): 2 x 37 and 3 x
@@ -485,9 +471,11 @@ def test_split_tf32_weight_pass_error(op, parts):
 
         def run(mm):
             chain = chain_split if mm is mm_split else chain_single
-            return (emulated_dw_chain(flat(dqpre), qin, parts, chain).T,
+            align = port_i2t.DW32_ROWS
+            return (emulated_dw_chain(flat(dqpre), qin, parts, chain,
+                                      align).T,
                     emulated_dw_chain(flat(out_rows), flat(dres), parts,
-                                      chain))
+                                      chain, align))
     else:
         args, dm = _k3_case(rng, 3, 37, 2)
         rows = port_up.upscale_bwd_rows_plain(args[0], dm, *args[1:])
@@ -497,9 +485,11 @@ def test_split_tf32_weight_pass_error(op, parts):
         x2, y2 = u1g.reshape(n, 4, -1), d2.reshape(n, 4, -1)
 
         def run(mm):
-            return (emulated_dw(up.reshape(n, -1), du1.reshape(n, -1), parts,
-                                mm),
-                    torch.stack([emulated_dw(x2[:, de], y2[:, de], parts, mm)
+            chain = chain_split if mm is mm_split else chain_single
+            dw = functools.partial(emulated_dw_chain, parts=parts,
+                                   chain=chain, align=port_up.DW32_ROWS)
+            return (dw(up.reshape(n, -1), du1.reshape(n, -1)),
+                    torch.stack([dw(x2[:, de], y2[:, de])
                                  for de in range(4)]))
     _assert_k34(_errors(run(mm_split), want), _errors(run(mm_single), want),
                 ("dW_a", "dW_b"))

@@ -1,12 +1,14 @@
 """The launch plans of the kernels on wgmma and TMA, as pure functions
-pinned on the CPU: ``ops.attention.relpos_plan`` (the bf16 K6 and K1,
-``csrc/attention_relpos_wgmma.cu``: key tile, ring depths and shared
-memory), ``ops.attention.dq_plan`` (K5's bf16 dq kernel,
-``csrc/attention_bwd.cu``: mode, key tile, ring depths and shared memory)
-and ``ops.decoder_attn.dw_plan_f32`` / ``dw_plan_bf16`` (the K4
-weight pass in both types: its row chunks and blocks), with the order in
-which the weight pass's plain twin sums those chunks. The kernels
-themselves run only on the card (``tests/test_torch_kernels_gpu.py``)."""
+pinned on the CPU: ``ops.attention.relpos_plan`` (the bf16 K6, K1 and K2,
+``csrc/attention_relpos_wgmma.cu``: key tile, ring depths, shared memory,
+rounding point and passes), ``ops.attention.dq_plan`` (K5's bf16 dq
+kernel, ``csrc/attention_bwd.cu``: mode, key tile, ring depths and shared
+memory), ``ops.decoder_attn.dw_plan_f32`` / ``dw_plan_bf16`` (the K4
+weight pass in both types: its row chunks and blocks) and
+``ops.upscaler.upscale_dw_plan_f32`` (the f32 K3 weight pass: chunks,
+units and their order, ring and blocks), with the order in which the
+weight passes' plain twins sum those chunks. The kernels themselves run
+only on the card (``tests/test_torch_kernels_gpu.py``)."""
 
 import pytest
 import torch
@@ -14,6 +16,7 @@ import torch
 from dilabhelmholtzoct_tpu_torch import kernels
 from dilabhelmholtzoct_tpu_torch.ops import attention as port_attn
 from dilabhelmholtzoct_tpu_torch.ops import decoder_attn as port_i2t
+from dilabhelmholtzoct_tpu_torch.ops import upscaler as port_up
 
 GRIDS_UP_TO_256 = [(h, w) for h in range(1, 257) for w in range(1, 257)
                    if h * w <= 256]
@@ -312,3 +315,126 @@ def test_dw_plain_bf16_sums_the_plan_in_order(bp, m, pb, sms):
                                 for lo, hi in chunks[0]))
     assert torch.equal(dwq, sum(x[lo:hi].T @ y[lo:hi]
                                 for lo, hi in chunks[1]).T)
+
+
+def test_relpos_plan_norm_takes_two_passes_over_several_tiles():
+    """K2's rounding point (``norm``, head dim 64): on every grid of N <=
+    512 tokens the plan is the one without it but for the flag and the
+    passes, 2 where a unit has several key tiles (the first pass finds
+    each row's max and sum, the producer issuing ``passes * tiles`` tiles a
+    unit), 1 where one tile holds all keys (SAM's windows); another head
+    dim raises."""
+    for h, w in GRIDS_UP_TO_256 + [(20, 15), (16, 32), (8, 64), (2, 256),
+                                   (22, 23), (1, 512)]:
+        n = h * w
+        plain = port_attn.relpos_plan(64, n, (h, w))
+        plan = port_attn.relpos_plan(64, n, (h, w), True)
+        assert plan.norm and not plain.norm and plain.passes == 1
+        assert plan.passes == (2 if plan.tiles > 1 else 1), (h, w)
+        assert (plan.route, plan.dp, plan.nk, plan.tiles, plan.kv_stages,
+                plan.u_stages, plan.smem) == (
+                    plain.route, plain.dp, plain.nk, plain.tiles,
+                    plain.kv_stages, plain.u_stages, plain.smem), (h, w)
+        assert plan.kv_stages >= 2 or plan.passes * plan.tiles == 1
+    with pytest.raises(NotImplementedError, match="head_dim 64"):
+        port_attn.relpos_plan(80, 196, (14, 14), True)
+
+
+@pytest.mark.parametrize("b,hw,want", [
+    # SAM's windows (B * 25 of them): one 224-slot tile, one pass
+    (25, (14, 14), (True, 224, 1, 1, 2, 2)),
+    (1, (14, 14), (False, 224, 1, 1, 2, 2)),
+    # the ragged test grids: 63 tokens (b has no factor 2 or 5), 300 and
+    # 512 tokens in two passes over 64-key tiles, two grid rows of 64
+    (3, (9, 7), (False, 224, 1, 1, 2, 2)),
+    (2, (20, 15), (True, 64, 5, 2, 4, 2)),
+    (4, (16, 32), (True, 64, 8, 2, 4, 2)),
+    (2, (4, 64), (True, 128, 2, 2, 4, 2)),
+    # past 512 tokens or an odd count of a window's group: K1's rounding
+    (2, (30, 34), (False, 64, 16, 1, 4, 2)),
+    (1, (64, 64), (False, 128, 32, 1, 4, 2)),
+])
+def test_relpos_plan_of_the_bf16_k1_k2_route(b, hw, want):
+    """The plan ``attention_fwd_cuda`` launches in bf16: the rounding point
+    is ``normalised_rounding(B, N)``; pinned: the flag, key tile, tiles,
+    passes, K / V and unit stages."""
+    n = hw[0] * hw[1]
+    p = port_attn.relpos_plan(64, n, hw, port_attn.normalised_rounding(b, n))
+    assert (p.norm, p.nk, p.tiles, p.passes, p.kv_stages,
+            p.u_stages) == want
+
+
+def _dw32_smem(stages):
+    """``dwu::smem`` written out: 2 KB of alignment slack and mbarriers,
+    stages of 16 rows of X (128 f32) and Y (256 f32), two B buffers of a
+    stage's split Y^T (hi and lo)."""
+    return 2048 + stages * 16 * (128 + 256) * 4 + 2 * 2 * 256 * 16 * 4
+
+
+@pytest.mark.parametrize("rows,sms", [(64 * 4096, 132), (64 * 4096, 114),
+                                      (8 * 4096, 132), (296, 132),
+                                      (15, 132), (1000, 7), (185, 1)])
+def test_upscale_dw_plan_f32_units_in_order(rows, sms):
+    """The f32 K3 weight pass's plan: about sm / 2 chunks (accumulator
+    chains as long as the f32 K4 weight pass's) covering the rows once, in
+    order, each a multiple of the 16-row stage but the last; four units a
+    chunk in (chunk, kind) order, so that a chunk's two dW1 units (kinds 0
+    and 1, which read the same rnd(d_u1pre) rows) are neighbours and run
+    in the same wave of blocks where the blocks are even in number; one
+    block per SM at most; the ring of 6
+    stages in a block's shared memory."""
+    p = port_up.upscale_dw_plan_f32(rows, sms)
+    assert port_up.DW32_ROWS == 16
+    assert p.chunks[0][0] == 0 and p.chunks[-1][1] == rows
+    assert all(a[1] == b[0] for a, b in zip(p.chunks, p.chunks[1:]))
+    assert all((hi - lo) % 16 == 0 for lo, hi in p.chunks[:-1])
+    assert all(hi - lo <= p.chunk for lo, hi in p.chunks)
+    assert p.chunk % 16 == 0 and len(p.chunks) <= max(1, sms // 2)
+    assert list(p.chunks) == kernels.row_chunks(rows, max(1, sms // 2), 16)
+    assert p.units == tuple((c, k) for c in range(len(p.chunks))
+                            for k in range(4))
+    assert p.blocks == min(len(p.units), sms)
+    for u, (c, kind) in enumerate(p.units):
+        if kind == 0:  # its dW1 twin: the next unit, in the same wave
+            assert p.units[u + 1] == (c, 1)
+            # wherever the blocks are even in number (an H100's 132 SMs) or
+            # take every unit at once
+            if p.blocks % 2 == 0 or p.blocks == len(p.units):
+                assert u // p.blocks == (u + 1) // p.blocks
+    assert p.stages == port_up.DW32_STAGES == 6
+    assert _dw32_smem(p.stages) <= port_attn.SMEM_MAX < _dw32_smem(7)
+
+
+def test_upscale_dw_plan_f32_pinned():
+    """The main path's plan (64 pairs x 4096 rows on 132 SMs): 66 chunks of
+    3984 rows (the last 2560), 264 units on 132 blocks, two each."""
+    p = port_up.upscale_dw_plan_f32(64 * 4096, 132)
+    assert (len(p.chunks), p.chunk, len(p.units), p.stages,
+            p.blocks) == (66, 3984, 264, 6, 132)
+    assert p.chunks[-1] == (65 * 3984, 64 * 4096)
+
+
+@pytest.mark.parametrize("bp,m,sms", [(5, 37, 8), (3, 100, 132), (1, 15, 4)])
+def test_upscale_dw_plain_f32_sums_the_plan_in_order(bp, m, sms):
+    """``upscale_bwd_dw_plain`` on f32 rows with the plan's chunk count sums
+    the plan's chunks' products in its order, bit for bit, as the wrapper
+    adds the kernel's partials; one chunk or several agree to f32
+    rounding."""
+    g = torch.Generator().manual_seed(bp * 100 + m)
+    r = lambda *s: torch.randn(s, generator=g)
+    up, u1g, du1 = r(bp, m, 256), r(bp, m, 256), r(bp, m, 256)
+    d2 = r(bp, m, 512)
+    plan = port_up.upscale_dw_plan_f32(bp * m, sms)
+    dw1, dw2 = port_up.upscale_bwd_dw_plain(up, u1g, d2, du1,
+                                            parts=len(plan.chunks))
+    n = bp * m
+    x1, y1 = up.reshape(n, 256), du1.reshape(n, 256)
+    x2, y2 = u1g.reshape(n, 4, 64), d2.reshape(n, 4, 128)
+    assert torch.equal(dw1, sum(x1[lo:hi].T @ y1[lo:hi]
+                                for lo, hi in plan.chunks))
+    assert torch.equal(dw2, sum(torch.einsum("rsc,rsq->scq", x2[lo:hi],
+                                             y2[lo:hi])
+                                for lo, hi in plan.chunks))
+    one = port_up.upscale_bwd_dw_plain(up, u1g, d2, du1)
+    for a, b in zip(one, (dw1, dw2)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4)

@@ -145,7 +145,8 @@ def test_windowed_image_plain_is_the_partitioned_attention(rng, dtype):
     r = r.reshape(1, heads, WS * WS, 2 * WS)
     want = port_attn.packed_attention_plain(
         win.reshape(1, WS * WS, 3 * c), r[..., :WS].contiguous(),
-        r[..., WS:].contiguous(), hw=(WS, WS), num_heads=heads)
+        r[..., WS:].contiguous(), hw=(WS, WS), num_heads=heads,
+        normalised=True)
     want = want.reshape(WS, WS, c)[:6, :3]
     assert torch.equal(got[1, 14:, 14:], want)
     other = port_attn.flash_attention_windowed_image(
