@@ -270,6 +270,9 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_TF32X3_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12
 F32_ATOL = 1e-4    # kernel vs plain, f32: summation order over <= 4096 keys
+F32_REL = 1e-4     # the f32 K1 / K6 (split TF32 on wgmma) vs plain, of max
+#                    |plain|: summation order, and 2^-20 of each product
+#                    that the split drops
 PROB_ATOL = 1e-3   # card engine vs CPU engine, probabilities (ViT-B, f32)
 BF16_ULPS = 2      # attention forward vs plain, bf16: ulps of the output scale
 # K3/K4 kernel vs plain, max |diff| / max |plain| per output: f32 summation
@@ -306,6 +309,12 @@ def kernel_tol(ref):
     if ref.dtype == torch.float32:
         return F32_ATOL
     return BF16_ULPS * 2.0 ** -8 * ref.float().abs().max().item()
+
+
+def f32_rel_tol(ref):
+    """The limit of the f32 K1 / K6 kernel (split TF32 on wgmma) against its
+    plain twin: ``F32_REL`` of max |plain|, its LSE rows included."""
+    return F32_REL * ref.float().abs().max().item()
 
 
 def cuda_ms(fn, iters, warmup=3):
@@ -382,11 +391,11 @@ MMA_KERNELS = {"attention_bwd": ("attn_bwd_dq_wgmma_kernel",
                             "upscale_bwd_dw_kernel"),
                "decoder_attn": ("i2t_fwd_mma_kernel", "i2t_bwd_rows_kernel",
                                 "i2t_bwd_dw_wgmma_kernel")}
-TF32_KERNELS = {"attention": ("attn_global_tf32_kernel",
-                              "attn_windowed_tf32_kernel"),
+TF32_KERNELS = {"attention": ("attn_windowed_tf32_kernel",),
                 "attention_bwd": ("attn_bwd_dq_tf32_kernel",
                                   "attn_bwd_dkv_tf32_kernel"),
-                "attention_relpos": ("attn_relpos_tf32_kernel",),
+                "attention_relpos_wgmma_tf32": (
+                    "attn_relpos_wgmma_tf32_kernel",),
                 "attention_winimg": ("attn_winimg_tf32_kernel",),
                 "upscaler": ("upscale_fwd_tf32_kernel",
                              "upscale_bwd_rows_tf32_kernel",
@@ -395,13 +404,26 @@ TF32_KERNELS = {"attention": ("attn_global_tf32_kernel",
                                  "i2t_bwd_rows_tf32_kernel",
                                  "i2t_bwd_dw_tf32_kernel")}
 # the kernels on wgmma with TMA loads: HGMMA and UTMALDG in their SASS (the
-# bf16 K1 and K2 are instances of attn_relpos_wgmma_kernel)
+# bf16 K1 and K2 are instances of attn_relpos_wgmma_kernel, the f32 K1 of
+# attn_relpos_wgmma_tf32_kernel)
 WGMMA_KERNELS = {"attention_relpos_wgmma": ("attn_relpos_wgmma_kernel",),
+                 "attention_relpos_wgmma_tf32": (
+                     "attn_relpos_wgmma_tf32_kernel",),
                  "attention_bwd": ("attn_bwd_dq_wgmma_kernel",
                                    "attn_bwd_dkv_wgmma_kernel"),
                  "decoder_attn": ("i2t_bwd_dw_tf32_kernel",
                                   "i2t_bwd_dw_wgmma_kernel"),
                  "upscaler": ("upscale_bwd_dw_tf32_kernel",)}
+# the kernels whose every product is on wgmma: no HMMA (mma.sync) in their
+# SASS
+NO_HMMA_KERNELS = ("attn_relpos_wgmma_tf32_kernel",)
+# instances whose wgmma ptxas must not serialize (C7511 / C7512: they then
+# run at half their speed or less): the f32 K6 / K1 of the main path,
+# ViT-H's global (DP 80, ROW_TILE) and windowed (GRID) layers and ViT-B /
+# L's K1 (DP 64, ROW_TILE), by their mangled template arguments
+PIPELINED = {"attention_relpos_wgmma_tf32": ("ILi80ELNS0_4ModeE1E",
+                                             "ILi80ELNS0_4ModeE2E",
+                                             "ILi64ELNS0_4ModeE1E")}
 
 
 def _ptxas_by_function(log):
@@ -424,8 +446,11 @@ def tensor_core_check(kernels):
     K1 / K2 / K5 / K6 / K7 in split TF32 -- holds tensor-core
     instructions (HMMA from mma.sync, HGMMA from wgmma; TF32 ones for the
     f32 kernels), the wgmma kernels (``WGMMA_KERNELS``) HGMMA and TMA loads
-    (UTMALDG), and its ptxas report shows no spills; print the counts of
-    each instance beside its registers and spills."""
+    (UTMALDG), those of ``NO_HMMA_KERNELS`` no HMMA, and its ptxas report
+    shows no spills; print the counts of each instance beside its
+    registers and spills, every ptxas warning and every wgmma ptxas
+    serialized (its C7511 / C7512 notes), and fail where it serialized an
+    instance of ``PIPELINED``."""
     cuobjdump = kernels.cuda_tool("cuobjdump")
     for lib in sorted(set(MMA_KERNELS) | set(TF32_KERNELS)):
         sass = subprocess.run(
@@ -442,6 +467,18 @@ def tensor_core_check(kernels):
                 for op in ("HMMA", "HGMMA", "UTMALDG"):
                     c[op] += op in line
                 c["TF32"] += ("MMA" in line) and ("TF32" in line)
+        serialized = set()
+        for line in kernels.BUILD_LOG.get(lib, "").splitlines():
+            if "warning" in line.lower():
+                print(f"ptxas {lib}: {line.strip()}")
+            if "(C751" in line and "function '" in line:
+                serialized.add(line.split("function '")[1].split("'")[0])
+        for f in sorted(serialized):
+            print(f"ptxas {lib}: wgmma serialized in {f}")
+        for pat in PIPELINED.get(lib, ()):
+            check(not any(pat in f for f in serialized),
+                  f"{lib}: ptxas serialized the wgmma of the main path's "
+                  f"instance {pat}")
         report = _ptxas_by_function(kernels.BUILD_LOG.get(lib, ""))
         for name in MMA_KERNELS.get(lib, ()) + TF32_KERNELS.get(lib, ()):
             tf32 = name in TF32_KERNELS.get(lib, ())
@@ -457,6 +494,8 @@ def tensor_core_check(kernels):
                 check(not wgmma or (c["HGMMA"] > 0 and c["UTMALDG"] > 0),
                       f"{f}: no HGMMA (wgmma) or no UTMALDG (TMA load) in "
                       "its SASS")
+                check(name not in NO_HMMA_KERNELS or c["HMMA"] == 0,
+                      f"{f}: {c['HMMA']} HMMA (mma.sync) in its SASS")
                 rep = report.get(f, "not rebuilt in this run")
                 check(f not in report or ("0 bytes spill stores" in rep
                                           and "0 bytes spill loads" in rep),
@@ -480,11 +519,12 @@ def _cuda_core_bound(row, ms, split, bound):
 
 def kernel_phase(torch, attn):
     """K1 / K2 vs their plain versions at ViT-B shapes, and the same bits on
-    a second run; returns the numbers of each kernel for the result line:
-    f32 (the serving path's type) under its name, bf16 (the tensor-core
-    kernels of the precompute and full fine-tune paths) as
-    ``<name>_bf16``, and the f32 K1 at B = 4 (the f32 full fine-tune's
-    shape) as ``attn_global_b4``."""
+    a second run (the f32 K1, the f32 K6's kernel on wgmma, within
+    ``F32_REL`` of max |plain|, its LSE rows too); returns the numbers of
+    each kernel for the result line: f32 (the serving path's type) under
+    its name, bf16 (the tensor-core kernels of the precompute and full
+    fine-tune paths) as ``<name>_bf16``, and the f32 K1 at B = 4 (the f32
+    full fine-tune's shape) as ``attn_global_b4``."""
     from dilabhelmholtzoct_tpu_torch.device import full_fp32
 
     dev = torch.device("cuda")
@@ -522,13 +562,27 @@ def kernel_phase(torch, attn):
                 ref = attn.packed_attention_plain(*args, **kw)
                 torch.cuda.synchronize()
                 err = (out.float() - ref.float()).abs().max().item()
-                tol = kernel_tol(ref)
+                wgmma_f32 = dtype == torch.float32 and name == "attn_global"
+                tol = f32_rel_tol(ref) if wgmma_f32 else kernel_tol(ref)
                 check(out.dtype == dtype and bool(torch.isfinite(out).all()),
                       f"{name} {dtype}: bad output")
                 check(err <= tol, f"{name} {dtype}: max |kernel - plain| "
                                   f"{err:.3g} > {tol:.3g}")
                 check(torch.equal(out, attn.flash_attention_packed(*args, **kw)),
                       f"{name} {dtype}: a second run gave other bits")
+                lse_note = ""
+                if wgmma_f32:  # the LSE rows K5 reads, and the same output
+                    out_l, lse = attn.attention_fwd_cuda(
+                        *args, return_lse=True, **kw)
+                    _, want_lse = attn.packed_attention_plain(
+                        *args, return_lse=True, **kw)
+                    lse_err = (lse - want_lse).abs().max().item()
+                    lse_tol = f32_rel_tol(want_lse)
+                    check(lse_err <= lse_tol and torch.equal(out_l, out),
+                          f"{name} f32 B={b}: LSE max |kernel - plain| "
+                          f"{lse_err:.3g} > {lse_tol:.3g}, or another output")
+                    lse_note = f" lse_err={lse_err:.3g} (limit {lse_tol:.3g})"
+                    del out_l, lse, want_lse
                 iters = 20 if name == "attn_global" else 50
                 ms = cuda_ms(lambda: attn.flash_attention_packed(*args, **kw),
                              iters)
@@ -542,8 +596,11 @@ def kernel_phase(torch, attn):
                                                  qkv.element_size(), peak)
             tname = "f32" if split else "bf16"
             key = f32_key if split else f"{name}_bf16"
-            # the bf16 K1 and K2 are the bf16 K6's kernel
-            src = "attention.cu" if split else "attention_relpos_wgmma.cu"
+            # the K1s are the K6 kernels of their type; the f32 K2 is
+            # attention.cu's
+            src = ("attention_relpos_wgmma.cu" if not split else
+                   "attention_relpos_wgmma_tf32.cu" if name == "attn_global"
+                   else "attention.cu")
             rows[key] = {
                 "name": key, "route": "cuda",
                 "source": f"dilabhelmholtzoct_tpu_torch/csrc/{src}",
@@ -552,7 +609,8 @@ def kernel_phase(torch, attn):
                 "library_ms": lib_ms,
             }
             print(f"kernel {name} {tname} B={b} N={n} heads={heads}: "
-                  f"max_abs_err={err:.3g} (limit {tol:.3g}) ms={ms:.4f} "
+                  f"max_abs_err={err:.3g} (limit {tol:.3g}){lse_note} "
+                  f"ms={ms:.4f} "
                   f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
                   f"bound_ms={bound:.4f} ({bound_by}"
                   f"{', split TF32' if split else ''}) "
@@ -2451,11 +2509,12 @@ def finetune_epoch_loop(torch, tr, sd_host):
 
 def k6_kernel_phase(torch, attn):
     """K6 against its plain version at ViT-H shapes, at the test-size
-    model's and at head dims whose rows the kernels pad (20: padded to 24
-    in f32, to 32 in bf16 with 8-byte copies; 48), f32 and bf16, and the
-    same bits on a second run, timed beside its bound, the plain version
-    and SDPA; returns the result-line rows of the ViT-H global and windowed
-    layers: f32 (serving's type) and bf16 (the precompute's)."""
+    model's and at head dims whose rows the kernels pad (20: padded to 32
+    with zeros by the wrapper; 48), f32 (within ``F32_REL`` of max |plain|)
+    and bf16, and the same bits on a second run, timed beside its bound,
+    the plain version and SDPA; returns the result-line rows of the ViT-H
+    global and windowed layers: f32 (serving's type) and bf16 (the
+    precompute's)."""
     from dilabhelmholtzoct_tpu_torch.device import full_fp32
 
     dev = torch.device("cuda")
@@ -2490,7 +2549,7 @@ def k6_kernel_phase(torch, attn):
                 ref = attn.relpos_attention_plain(*args, **kw)
                 torch.cuda.synchronize()
                 err = (out.float() - ref.float()).abs().max().item()
-                tol = kernel_tol(ref)
+                tol = f32_rel_tol(ref) if f32 else kernel_tol(ref)
                 check(out.dtype == dtype and out.shape == (b, n, heads * d)
                       and bool(torch.isfinite(out).all()),
                       f"attn_relpos {label} {tname}: bad output")
@@ -2515,9 +2574,9 @@ def k6_kernel_phase(torch, attn):
                 else None
             row = {"name": key, "route": "cuda",
                    "source": "dilabhelmholtzoct_tpu_torch/csrc/"
-                             + ("attention_relpos.cu" if f32 else
+                             + ("attention_relpos_wgmma_tf32.cu" if f32 else
                                 "attention_relpos_wgmma.cu"),
-                   "kernel": ("attn_relpos_tf32_kernel" if f32 else
+                   "kernel": ("attn_relpos_wgmma_tf32_kernel" if f32 else
                               "attn_relpos_wgmma_kernel"),
                    "replaces": "dilabhelmholtzoct_tpu/ops/attention.py:132",
                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -3622,11 +3681,17 @@ def redesign_times(torch):
     of 196), by CUDA events and, as ``*_device``, by the profiler's device
     time of its kernel (the mma.sync ``attn_windowed_mma_kernel`` of older
     trees or ``attn_relpos_wgmma_kernel``; None where the profiler saw
-    neither); the f32 K3 weight pass at 64 pairs x 4096 rows. Returns
-    {"ms": {case: ms}, "bits": {case: a digest of its outputs}}: the bf16
-    K6 and K1's outputs (K1's with its logsumexp rows), on inputs drawn in
-    the same order from one seed in every tree, so that two trees' digests
-    say whether the kernels give the same bits."""
+    neither); the f32 K3 weight pass at 64 pairs x 4096 rows; the f32 K1
+    with its logsumexp rows at ViT-B's global layer, B = 1 and 4, and the
+    f32 K6 at ViT-H's global and windowed layers, each also as the
+    profiler's device time of its kernel (``*_device``: the ``mma.sync``
+    kernels of older trees, ``attn_global_tf32_kernel`` /
+    ``attn_relpos_tf32_kernel``, or ``attn_relpos_wgmma_tf32_kernel``).
+    Returns {"ms": {case: ms}, "bits": {case: a digest of its outputs}}:
+    the bf16 K6 and K1's outputs (K1's with its logsumexp rows) and the f32
+    K1's and K6's, on inputs drawn in the same order from one seed in every
+    tree, so that two trees' digests say whether the kernels give the same
+    bits."""
     from dilabhelmholtzoct_tpu_torch.device import full_fp32
     from dilabhelmholtzoct_tpu_torch.ops import attention as attn
     from dilabhelmholtzoct_tpu_torch.ops import decoder_attn as i2t
@@ -3717,6 +3782,30 @@ def redesign_times(torch):
         out["k3_dw_f32"] = cuda_ms(lambda: up_op.upscale_bwd_dw_cuda(*args),
                                    20)
         del args
+    # the f32 K1 (with its LSE rows) and K6: events and device time
+    f32_names = ("attn_global_tf32_kernel", "attn_relpos_tf32_kernel",
+                 "attn_relpos_wgmma_tf32_kernel")
+    for case, b, hw, heads, d in (("k1_f32_global_b1", 1, (64, 64), 12, 64),
+                                  ("k1_f32_global_b4", 4, (64, 64), 12, 64),
+                                  ("k6_f32_global", 1, (64, 64), 16, 80),
+                                  ("k6_f32_windowed", 25, (14, 14), 16, 80)):
+        n = hw[0] * hw[1]
+        qkv = rnd(b, n, 3 * heads * d, k=0.5)
+        rel_h = rnd(b, heads, n, hw[0], k=0.3)
+        rel_w = rnd(b, heads, n, hw[1], k=0.3)
+        kw = dict(hw=hw, num_heads=heads)
+        if case.startswith("k1"):
+            fn = lambda: attn.attention_fwd_cuda(qkv, rel_h, rel_w,
+                                                 return_lse=True, **kw)
+        else:
+            fn = lambda: attn.attention_relpos_cuda(qkv, rel_h, rel_w, **kw)
+        out[case] = cuda_ms(fn, 20 if n > 1000 else 50)
+        dev_ms = [v for v in device_ms_by_kernel(fn, f32_names).values()
+                  if v is not None]
+        out[f"{case}_device"] = sum(dev_ms) if dev_ms else None
+        got = fn()
+        bits[case] = digest(*(got if isinstance(got, tuple) else (got,)))
+        del qkv, rel_h, rel_w, got
     return {"ms": out, "bits": bits}
 
 
@@ -3726,7 +3815,8 @@ def redesign_ab(other_root):
     card, in turns A B B A, each turn a fresh process that imports the
     package from its tree (``--redesign-times ROOT``) and builds its
     kernels there. Prints each turn's times and each side's mean, and
-    whether the two sides' bf16 K6 and K1 gave the same bits."""
+    whether the two sides' bf16 K6 and K1 and f32 K1 and K6 gave the same
+    bits."""
     here = os.path.dirname(os.path.abspath(__file__))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,5 +1,6 @@
-// SAM encoder self-attention with decomposed relative-position bias, read
-// straight from the fused qkv projection.
+// K2 in f32: SAM encoder self-attention over the windowed layers, with
+// decomposed relative-position bias, read straight from the fused qkv
+// projection.
 //
 //   qkv   (B, N, 3C)  feature order (3, heads, 64): q of head h at columns
 //                     h*64, k at C + h*64, v at 2C + h*64
@@ -10,59 +11,41 @@
 //   s[q, k] = (q . k) / 8 + rel_h[q, k / W] + rel_w[q, k % W]
 //   out[q]  = softmax_k(s[q, :]) . v
 //
-// Two kernels, both f32 (the serving and f32 fine-tune paths): the bf16
-// K1 and K2 (the precompute and full fine-tune paths) are the bf16 K6 on
-// wgmma and TMA (attention_relpos_wgmma.cu), which computes the same
-// function at head dim 64, K2 at the JAX route's rounding point
-// (ops/attention.py: attention_fwd_cuda, normalised_rounding). Both on
-// the tensor cores in split TF32 (attention_tf32.cuh), every sum in f32.
-// Given a non-null `lse` (B, heads, N) f32,
-// each also writes the row's logsumexp m + log(l) in the scaled-score
+// One kernel, f32 (the serving and f32 fine-tune paths), on the tensor
+// cores in split TF32 (attention_tf32.cuh), every sum in f32. The other
+// instances of this function are the wgmma kernels: the f32 K1 (the
+// global layers) is attention_relpos_wgmma_tf32.cu's kernel, the bf16 K1
+// and K2 attention_relpos_wgmma.cu's (K2 at the JAX route's rounding point:
+// ops/attention.py attention_fwd_cuda, normalised_rounding); each computes
+// the same function at head dim 64. Given a non-null `lse` (B, heads, N)
+// f32, K2 also writes the row's logsumexp m + log(l) in the scaled-score
 // domain (the TPU kernel's return_lse), which the backward K5
 // (attention_bwd.cu) reads; with a null pointer nothing more is written.
 //
-// K1 replaces dilabhelmholtzoct_tpu/ops/attention.py flash_attention_packed,
-//    _packed_kernel branch (the 4 global layers, N = 4096 at ViT-B). One
-//    block per (batch, head, query tile) loops over 64-key tiles with an
-//    online softmax (running max, denominator and output accumulator in
-//    registers).
-//    f32, attn_global_tf32_kernel: the flash body K6 shares
-//    (attention_tf32.cuh flash_tf32): 8 warps of one m16 query tile (128
-//    rows; 4 on ragged grids); K / V tiles through a 2-stage cp.async ring
-//    in f32 rows of 68 floats, q.k^T and p.v in split TF32 with each
-//    fragment split as it is loaded; s = acc / 8 + bias on the
-//    accumulators (the same bits as q / 8); the online softmax on the
-//    fragments, p in f32 fed to p.v from registers; o / l last.
-// K2 replaces the same function's _windowed_group_kernel branch (the 8
-//    windowed layers, 25 windows of 14x14 = 196 tokens per image), with a
-//    one-pass softmax over all keys of a window.
-//    One block per (window, head) loads the window's k and v
+// K2 replaces dilabhelmholtzoct_tpu/ops/attention.py flash_attention_packed,
+//    _windowed_group_kernel branch (the 8 windowed layers, 25 windows of
+//    14x14 = 196 tokens per image), with a one-pass softmax over all keys
+//    of a window. One block per (window, head) loads the window's k and v
 //    once, and its warps take the 13 m16 query tiles in turn, each staging
 //    its tile's q rows: q.k^T, then the bias as a second product (the
 //    query rows' factors times a one-hot over the keys, which also masks
 //    the keys past N) onto the same 26 n8 score tiles in registers; the
 //    row max and sum over the lane quad; every product on mma.sync.
-//    f32, attn_windowed_tf32_kernel: 8 warps (attention_tf32.cuh
+//    attn_windowed_tf32_kernel: 8 warps (attention_tf32.cuh
 //    window_tiles_tf32), k and v in f32 in shared memory, each tile's
 //    factors staged beside its q rows; split TF32 (hi.hi + hi.lo + lo.hi,
 //    two products for the bias, whose one-hot is exact); p in f32, o / l
 //    last.
 //
-// Bound on an H100 SXM (700 W), one layer at B = 1:
-//    K1: 4 * 4096^2 * 64 * 12 = 51.5 GFLOP; f32 over the split-TF32 rate
-//        (495 / 3 = 165 TFLOP/s) = 0.31 ms (over the CUDA cores' 67: 0.77);
-//        bytes (qkv 37.7 MB + rel 25.2 MB + out 12.6 MB) over 3.35 TB/s =
-//        0.022 ms. Compute-bound.
-//    K2: 2.95 GFLOP -> 0.018 ms in f32 over the split-TF32 rate (495 / 3
-//        = 165 TFLOP/s; 0.044 ms over the CUDA cores' 67), against 67 MB
-//        -> 0.020 ms (bound by bytes).
-// What this design does about it: both kernels keep the operands of their
-// inner loops in shared memory and registers, read each qkv byte from
-// device memory once per query tile, and run their products on the tensor
+// Bound on an H100 SXM (700 W), one layer at B = 1 (ViT-B): 2.95 GFLOP ->
+// 0.018 ms in f32 over the split-TF32 rate (495 / 3 = 165 TFLOP/s; 0.044
+// ms over the CUDA cores' 67), against 67 MB -> 0.020 ms (bound by bytes).
+// What this design does about it: the kernel keeps the operands of its
+// inner loops in shared memory and registers, reads each qkv byte from
+// device memory once per window, and runs its products on the tensor
 // cores. What stays on the CUDA cores per score is the bias, the
 // exponential and the max / sum, and the split of each operand as its
-// fragment is loaded (each value once per warp). In K1 the next K / V
-// tile's copy overlaps the current tile's work; K2's 8 warps, one block
+// fragment is loaded (each value once per warp). The 8 warps, one block
 // per SM, stage their tiles in turn.
 //
 // Not carried over from the TPU kernel (Mosaic-only workarounds): head-pair
@@ -75,31 +58,6 @@
 namespace {
 
 using namespace attn;
-
-// ------------------------------------------------------------ K1 f32 ----
-// grid (ceil(N / ROWS), heads, B), 32 WARPS threads: the flash body of
-// attention_tf32.cuh (flash_tf32) at d = 64 with scale 1/8 and the LSE
-// rows. A block of 8 warps (128 query rows) shares each K / V tile where a
-// key tile is one grid row (every ViT global layer); the ragged grids,
-// whose N is small, take 4 (more blocks).
-template <bool ROW_TILE>
-using K1F = tf32::Flash<D, ROW_TILE ? 8 : 4>;
-
-template <bool ROW_TILE>
-__global__ void __launch_bounds__(K1F<ROW_TILE>::NTH, 1)
-attn_global_tf32_kernel(const float* __restrict__ qkv,
-                        const float* __restrict__ rel_h,
-                        const float* __restrict__ rel_w,
-                        float* __restrict__ out, float* __restrict__ lse,
-                        int n, int heads, int H, int W) {
-  extern __shared__ __align__(16) float smem[];
-  const int head = blockIdx.y, b = blockIdx.z, C = heads * D;
-  const size_t row = (size_t)b * heads + head;  // (batch, head)
-  tf32::flash_tf32<K1F<ROW_TILE>, ROW_TILE>(
-      smem, qkv + (size_t)b * n * 3 * C + head * D, C, rel_h + row * n * H,
-      rel_w + row * n * W, out + (size_t)b * n * C + head * D,
-      lse != nullptr ? lse + row * n : nullptr, n, D, H, W, 0.125f);
-}
 
 // ------------------------------------------------------------ K2 f32 ----
 // grid (1, heads, windows), 32 win_warps(EXACT) threads: one block per
@@ -176,35 +134,6 @@ attn_windowed_tf32_kernel(const float* __restrict__ qkv,
                                     store);
 }
 
-template <bool ROW_TILE>
-int launch_global_tf32(const void* qkv, const void* rel_h, const void* rel_w,
-                       void* out, float* lse, int batch, int n, int heads,
-                       int h, int w, cudaStream_t stream) {
-  using F = K1F<ROW_TILE>;
-  const size_t smem = F::smem(h, w);
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
-  auto kernel = attn_global_tf32_kernel<ROW_TILE>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((n + F::ROWS - 1) / F::ROWS, heads, batch);
-  kernel<<<grid, F::NTH, smem, stream>>>(
-      static_cast<const float*>(qkv), static_cast<const float*>(rel_h),
-      static_cast<const float*>(rel_w), static_cast<float*>(out), lse, n,
-      heads, h, w);
-  return (int)cudaGetLastError();
-}
-
-int launch_global_f32(const void* qkv, const void* rel_h, const void* rel_w,
-                      void* out, float* lse, int batch, int n, int heads,
-                      int h, int w, cudaStream_t stream) {
-  return w == mma::TILE
-             ? launch_global_tf32<true>(qkv, rel_h, rel_w, out, lse, batch, n,
-                                        heads, h, w, stream)
-             : launch_global_tf32<false>(qkv, rel_h, rel_w, out, lse, batch,
-                                         n, heads, h, w, stream);
-}
-
 int launch_windowed_f32(const void* qkv, const void* rel_h,
                         const void* rel_w, void* out, float* lse, int batch,
                         int n, int heads, int h, int w, cudaStream_t stream) {
@@ -231,17 +160,6 @@ int launch_windowed_f32(const void* qkv, const void* rel_h,
 // (B, heads, N) f32 to receive the row logsumexps. Returns the cudaError_t
 // of the launch (0 = success); the caller raises on non-zero.
 extern "C" {
-
-// f32 only: the bf16 K1 is attention_relpos_wgmma.cu's kernel
-// (dhoct_attn_relpos_bf16 with its lse rows)
-int dhoct_attn_global(const void* qkv, const void* rel_h, const void* rel_w,
-                      void* out, void* lse, int batch, int n, int heads,
-                      int h, int w, int dtype, void* stream) {
-  if (dtype != 0) return (int)cudaErrorInvalidValue;
-  return launch_global_f32(qkv, rel_h, rel_w, out, static_cast<float*>(lse),
-                           batch, n, heads, h, w,
-                           static_cast<cudaStream_t>(stream));
-}
 
 // f32 only: the bf16 K2 is attention_relpos_wgmma.cu's kernel too, at the
 // JAX route's rounding point

@@ -1,5 +1,6 @@
-// K5: the flash backward of the encoder attention K1 / K2 (attention.cu),
-// from the logsumexp rows the forward saved.
+// K5: the flash backward of the encoder attention K1 / K2 (K1 the K6
+// kernels' instances at head dim 64, attention_relpos_wgmma{,_tf32}.cu; the
+// f32 K2 attention.cu), from the logsumexp rows the forward saved.
 //
 //   qkv   (B, N, 3C)      feature order (3, heads, 64), as the forward
 //   rel_h (B, heads, N, H), rel_w (B, heads, N, W)   bias factors

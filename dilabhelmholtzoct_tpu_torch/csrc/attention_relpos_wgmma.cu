@@ -1,6 +1,7 @@
 // K6 in bf16 on Hopper's wgmma and TMA: SAM encoder self-attention with
 // decomposed relative-position bias for any head dim, read straight from
-// the fused qkv projection (the f32 K6 is attention_relpos.cu). It serves
+// the fused qkv projection (the f32 K6, and the f32 K1, are
+// attention_relpos_wgmma_tf32.cu: the same design in split TF32). It serves
 // the bf16 encoder of every model whose head dim is not 64: ViT-H's 16
 // heads of 80, in the precompute of its decoder fine-tuning (32 launches an
 // image: 4 global layers, N = 4096, and 28 windowed, 25 windows of 196).

@@ -1,11 +1,10 @@
-// Split-TF32 building blocks of the f32 encoder attention kernels on the
-// tensor cores: the backward K5 (attention_bwd.cu, attn_bwd_dq_tf32_kernel /
-// attn_bwd_dkv_tf32_kernel), the flash body shared by K1 (attention.cu,
-// attn_global_tf32_kernel) and K6 (attention_relpos.cu,
-// attn_relpos_tf32_kernel): flash_tf32, and the windowed body shared by K2
+// Split-TF32 building blocks of the f32 encoder attention kernels on
+// mma.sync: the backward K5 (attention_bwd.cu, attn_bwd_dq_tf32_kernel /
+// attn_bwd_dkv_tf32_kernel) and the windowed body shared by K2
 // (attention.cu, attn_windowed_tf32_kernel) and K7 (attention_winimg.cu,
 // attn_winimg_tf32_kernel): window_tiles_tf32. The shape-independent
 // primitives (split, mma1688, Frag, mma3, load_a, acc_a) are split_tf32.cuh's.
+// (The f32 K1 and K6 are on wgmma: attention_relpos_wgmma_tf32.cu.)
 //
 // f32 has no tensor-core type of its own, and TF32 keeps 10 mantissa bits
 // (about three digits). Each f32 operand x is split as hi = tf32(x)
@@ -19,7 +18,7 @@
 // ulps; tests/test_torch_split_tf32.py emulates this arithmetic on the CPU.
 //
 // Tiles hold f32 rows of 64 values (one head) in shared memory, LDF = 68
-// floats per row (the flash body: any head dim, rows of DP + 4). Fragment
+// floats per row. Fragment
 // layout (PTX ISA, "Matrix Fragments for mma.m16n8k8", .tf32), lane =
 // 4 g + t:
 //   A 16 x 8: a0 (row g, col t), a1 (g + 8, t), a2 (g, t + 4),
@@ -126,19 +125,18 @@ __device__ __forceinline__ void product_kn2(float (*acc0)[4],
   }
 }
 
-// rows [row0, row0 + rows) x DP columns of a row-major f32 matrix (`stride`
-// floats per row; d <= DP of them real, d a multiple of 4) -> shared rows of
-// DP + 4 floats, asynchronously, by a block of NTH threads; rows at or past
-// n and columns at or past d are zero-filled
-template <int NTH, int DP = D>
+// rows [row0, row0 + rows) x 64 columns of a row-major f32 matrix
+// (`stride` floats per row) -> shared rows of LDF floats, asynchronously,
+// by a block of NTH threads; rows at or past n are zero-filled
+template <int NTH>
 __device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           int stride, int row0, int n,
-                                          int rows = TILE, int d = DP) {
-  constexpr int CH = DP / 4;
+                                          int rows = TILE) {
+  constexpr int CH = D / 4;
   for (int i = threadIdx.x; i < rows * CH; i += NTH) {
     const int r = i / CH, c = (i - r * CH) * 4;
-    const bool ok = row0 + r < n && c < d;
-    mma::cp_async16(dst + r * (DP + 4) + c,
+    const bool ok = row0 + r < n;
+    mma::cp_async16(dst + r * LDF + c,
                     src + (size_t)(ok ? row0 + r : 0) * stride + c, ok);
   }
 }
@@ -171,208 +169,6 @@ __device__ __forceinline__ void load_factors(float* dst, const float* src,
       const bool ok = r < nrows;
       mma::cp_async4(dst + r * ld + c, src + (ok ? i : 0), ok);
     }
-  }
-}
-
-// --------------------------------------------------- the flash body ----
-// The f32 body of the streaming forwards K1 (attention.cu,
-// attn_global_tf32_kernel) and K6 (attention_relpos.cu,
-// attn_relpos_tf32_kernel). In f32 the two compute one function: K6's
-// rounding of the un-normalised p to the input type is the identity, and
-// its d^-1/2 on the f32 score equals K1's 1/8 on q at d = 64 (a power of
-// two scales every term exactly: 1/8 on q or on the accumulator gives the
-// same bits), so both take s = scale * (q . k) + bias with the scale on the
-// accumulator.
-//
-// A block of WARPS warps owns ROWS = 16 WARPS query rows of one (batch,
-// head), warp w the m16 tile from row 16 w, and streams 64-key tiles
-// through a 2-stage cp.async ring with an online softmax, every product in
-// split TF32:
-//   s = q . k^T   A = q (split per k step, for all 8 n tiles), B = the key
-//                 rows stored [n][k]
-//   s = fma(s, scale, rel_h[q, k / W] + rel_w[q, k % W]), -inf past N
-//   row max and sum over the lane quad; p = exp(s - m) in f32, never rounded
-//   o = o * alpha + p . v   A = the score accumulators (acc_a, k permuted),
-//                           B = the value rows stored [k][n]
-//   o / l once at the end, and with `lse` the row's m + log l.
-// Head dims: DP = d rounded up to 8 columns, the ones past d zero (nothing
-// added to q . k; never stored), rows of LD = DP + 4 floats. DP + 4 = 8a + 4
-// puts the rows g of a fragment load on banks 4 g (2a + 1) + t: 32 banks for
-// every DP, as for 68 (the note at the top), and the p.v B rows 2t, 2t + 1
-// on banks 8t + g (a even) or 24t + g (a odd): 32 banks again.
-// The bias: ROW_TILE (W = 64, every ViT global layer: a 64-key tile is one
-// grid row, no key past N) one Rh value per row and tile plus Rw over the
-// tile's columns; otherwise a KeyWalk lookup per slot, keys past N masked.
-// Both factor tiles sit in shared memory in f32 (factor_ld rows).
-// Every warp splits the B fragments it loads, each value once per warp: a
-// K / V tile split once per block into hi / lo planes (4 planes x 2 stages
-// fit at DP = 64; at DP = 80 with the factors only with a single lo stage)
-// doubles the shared-memory bytes per product and adds a pass and a
-// barrier per tile, and was slower on the H100 at every shape tried (K1 at
-// B = 1 and 4, K6's ViT-H global and windowed layers). Two m16 tiles per
-// warp (each B fragment serving both) were no faster at B = 1 and fill the
-// register file (spills at DP = 80).
-template <int DP_, int WARPS_>
-struct Flash {
-  static constexpr int DP = DP_, WARPS = WARPS_;
-  static constexpr int LD = DP + 4, NTH = 32 * WARPS, ROWS = 16 * WARPS;
-  static constexpr int KV = TILE * LD;  // one K or V tile (floats)
-  // Q | K stage 0, 1 | V stage 0, 1
-  static constexpr int FLOATS = ROWS * LD + 4 * KV;
-  // bytes of shared memory with the bias factor tiles of an H x W grid
-  static size_t smem(int H, int W) {
-    return sizeof(float) *
-           ((size_t)FLOATS + (size_t)ROWS * (factor_ld(H) + factor_ld(W)));
-  }
-};
-
-// The block's work (see above). q: the (batch, head)'s q columns (row 0;
-// k at q + C, v at q + 2C, 3C floats per row); fh, fw: its bias factor rows
-// (query 0); out: its output columns (row 0, C floats per row); lse: its N
-// logsumexp rows, or null. Every thread of the block must call it.
-template <class F, bool ROW_TILE>
-__device__ __forceinline__ void flash_tf32(float* smem, const float* q, int C,
-                                           const float* fh, const float* fw,
-                                           float* out, float* lse, int n,
-                                           int d, int H, int W, float scale) {
-  constexpr int DP = F::DP, NTH = F::NTH, ROWS = F::ROWS, LD = F::LD,
-                KV = F::KV;
-  const int ldh = factor_ld(H), ldw = factor_ld(W);
-  float* Qs = smem;
-  float* Ks = Qs + ROWS * LD;  // stages 0, 1
-  float* Vs = Ks + 2 * KV;
-  float* Rh = smem + F::FLOATS;
-  float* Rw = Rh + ROWS * ldh;
-
-  const int stride = 3 * C, q0 = blockIdx.x * ROWS;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = (threadIdx.x >> 5) * 16;
-  const int nq = min(ROWS, n - q0);
-
-  load_tile<NTH, DP>(Qs, q, stride, q0, n, ROWS, d);
-  load_factors<NTH>(Rh, fh + (size_t)q0 * H, H, nq, ROWS);
-  load_factors<NTH>(Rw, fw + (size_t)q0 * W, W, nq, ROWS);
-  load_tile<NTH, DP>(Ks, q + C, stride, 0, n, TILE, d);
-  load_tile<NTH, DP>(Vs, q + 2 * C, stride, 0, n, TILE, d);
-  mma::cp_commit();
-
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, o[DP / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < DP / 8; ++dn) o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
-
-  const int ntiles = (n + TILE - 1) / TILE;
-  for (int it = 0; it < ntiles; ++it) {
-    const int k0 = it * TILE;
-    const float* Kc = Ks + (it & 1) * KV;
-    const float* Vc = Vs + (it & 1) * KV;
-    if (it + 1 < ntiles) {  // the stage consumed in the previous iteration
-      load_tile<NTH, DP>(Ks + ((it + 1) & 1) * KV, q + C, stride, k0 + TILE,
-                         n, TILE, d);
-      load_tile<NTH, DP>(Vs + ((it + 1) & 1) * KV, q + 2 * C, stride,
-                         k0 + TILE, n, TILE, d);
-    }
-    mma::cp_commit();
-    mma::cp_wait<1>();  // this tile (and q, the factors) have landed
-    __syncthreads();
-
-    float s[TILE / 8][4];
-#pragma unroll
-    for (int j = 0; j < TILE / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DP / 8; ++kk) {
-      Frag a;
-      load_a(a, Qs, LD, r0, 8 * kk, lane);
-#pragma unroll
-      for (int j = 0; j < TILE / 8; ++j) {
-        const float* b = Kc + (8 * j + g) * LD + 8 * kk + t;
-        mma3(s[j], a, b[0], b[4]);
-      }
-    }
-
-    if (ROW_TILE) {  // no key past n: n = 64 H
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int qr = r0 + g + 8 * r;
-        const float rh = Rh[qr * ldh + it];
-#pragma unroll
-        for (int j = 0; j < TILE / 8; ++j) {
-          const float2 rw =
-              *reinterpret_cast<const float2*>(Rw + qr * ldw + 8 * j + 2 * t);
-          s[j][2 * r] = fmaf(s[j][2 * r], scale, rh + rw.x);
-          s[j][2 * r + 1] = fmaf(s[j][2 * r + 1], scale, rh + rw.y);
-        }
-      }
-    } else {
-      mma::KeyWalk key(k0 + 2 * t, W);
-#pragma unroll
-      for (int j = 0; j < TILE / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const bool kv = k0 + 8 * j + 2 * t + e < n;
-          const int kr = min(key.r, H - 1);  // in bounds past n, discarded
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const int qr = r0 + g + 8 * r;
-            const float bias = Rh[qr * ldh + kr] + Rw[qr * ldw + key.c];
-            float& x = s[j][2 * r + e];
-            x = kv ? fmaf(x, scale, bias) : -INFINITY;
-          }
-          key.step(e);
-        }
-    }
-
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < TILE / 8; ++j)
-        mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
-      // key 0 of the first tile is real: m_new is finite from there on
-      const float m_new = fmaxf(m[r], mma::quad_max(mx));
-      const float alpha = mma::exp2_approx((m[r] - m_new) * mma::LOG2E);
-      const float mb = m_new * mma::LOG2E;
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < TILE / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = s[j][2 * r + e];
-          x = mma::exp2_approx(fmaf(x, mma::LOG2E, -mb));
-          rs += x;
-        }
-      l[r] = l[r] * alpha + rs;  // the lane's share; quad sum last
-      m[r] = m_new;
-#pragma unroll
-      for (int dn = 0; dn < DP / 8; ++dn) {
-        o[dn][2 * r] *= alpha;
-        o[dn][2 * r + 1] *= alpha;
-      }
-    }
-
-#pragma unroll
-    for (int j = 0; j < TILE / 8; ++j) {
-      Frag a;
-      acc_a(a, s[j]);
-      const float* b = Vc + (8 * j + 2 * t) * LD + g;
-#pragma unroll
-      for (int dn = 0; dn < DP / 8; ++dn)
-        mma3(o[dn], a, b[8 * dn], b[LD + 8 * dn]);
-    }
-    __syncthreads();  // every warp is done with this stage
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float lr = mma::quad_sum(l[r]);
-    const int qg = q0 + r0 + g + 8 * r;
-    if (qg >= n) continue;
-    if (lse != nullptr && t == 0) lse[qg] = m[r] + logf(lr);
-    float* dst = out + (size_t)qg * C + 2 * t;
-#pragma unroll
-    for (int dn = 0; dn < DP / 8; ++dn)
-      if (8 * dn + 2 * t < d)  // d % 4 == 0: both columns or neither
-        *reinterpret_cast<float2*>(dst + 8 * dn) =
-            make_float2(o[dn][2 * r] / lr, o[dn][2 * r + 1] / lr);
   }
 }
 

@@ -38,6 +38,15 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
+// x = trunc(x) + lo: trunc(x) is x with its 13 low bits cleared, which is
+// what the tensor cores read of a .tf32 operand, so a raw f32 serves as its
+// own hi (the wgmma kernels' split: no hi copy in registers or shared
+// memory); lo is the exact f32 remainder, of x's sign and below one TF32
+// ulp of x
+__device__ __forceinline__ float lo_trunc(float x) {
+  return x - __uint_as_float(__float_as_uint(x) & 0xffffe000u);
+}
+
 // c += a . b on the tensor cores (16 x 8 += 16 x 8 . 8 x 8, TF32 in)
 __device__ __forceinline__ void mma1688(float* c, const uint32_t* a,
                                         uint32_t b0, uint32_t b1) {

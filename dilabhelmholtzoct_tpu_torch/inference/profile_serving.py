@@ -10,8 +10,9 @@ Runs the seeded serving workload (``inference/synthetic.py``) through
 so one-time start-up costs stay outside the window) and ten cached
 prompt-to-mask requests. For each window it prints the host wall time, the
 device time summed over kernels and copies, the busy share (device time /
-wall), the time by kind (K1, K2, K6, K7, matrix products, convolutions,
-copies, other kernels) and the top kernels by device time. Needs a card.
+wall), the time by kind (K1 and K6, whose kernels are one; K2, K7, matrix
+products, convolutions, copies, other kernels) and the top kernels by
+device time. Needs a card.
 """
 
 from __future__ import annotations
@@ -35,8 +36,8 @@ def _kind(name: str) -> str:
         return "K7 attn_windowed_image"
     if "attn_windowed" in low:
         return "K2 attn_windowed"
-    if "attn_relpos" in low:
-        return "K6 attn_relpos"
+    if "attn_relpos" in low:  # the K6 kernels are the K1 (and bf16 K2) too
+        return "K1 / K6 attn_relpos"
     if "attn_bwd" in low:
         return "K5 attn_bwd"
     if "upscale_" in low:

@@ -26,8 +26,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 # one shared library per source; headers (*.cuh, and the *.h shared with the
 # host library) are hashed into every library
 SOURCES = {"attention": "attention.cu", "attention_bwd": "attention_bwd.cu",
-           "attention_relpos": "attention_relpos.cu",
            "attention_relpos_wgmma": "attention_relpos_wgmma.cu",
+           "attention_relpos_wgmma_tf32": "attention_relpos_wgmma_tf32.cu",
            "attention_winimg": "attention_winimg.cu",
            "upscaler": "upscaler.cu", "decoder_attn": "decoder_attn.cu",
            "topology": "topology.cu"}

@@ -10,11 +10,11 @@ too, without the head-major copies around it. It reads the raw qkv
 projection (B, N, 3C) and writes token-order (B, N, C). On a CUDA tensor it
 launches hand-written kernels:
 
-  * K1 ``attn_global_tf32_kernel`` (f32, ``csrc/attention.cu``) /
-    ``attn_relpos_wgmma_kernel`` (bf16, the bf16 K6's kernel below, which
-    at head dim 64 computes the same function) for the global layers
-    (N > WINDOW_MAX_TOKENS; N = 4096 at ViT-B), replacing the TPU
-    ``_packed_kernel``;
+  * K1 ``attn_relpos_wgmma_tf32_kernel`` (f32) /
+    ``attn_relpos_wgmma_kernel`` (bf16): the K6 kernels below, which at
+    head dim 64 compute the same function, with the rows' logsumexp, for
+    the global layers (N > WINDOW_MAX_TOKENS; N = 4096 at ViT-B), replacing
+    the TPU ``_packed_kernel``;
   * K2 ``attn_windowed_tf32_kernel`` (f32, same file) /
     ``attn_relpos_wgmma_kernel`` (bf16, at the rounding point of the JAX
     route: ``normalised_rounding``) for the windowed layers (N <= 256;
@@ -27,9 +27,10 @@ launches hand-written kernels:
     ``attn_bwd_dkv_wgmma_kernel``, on wgmma and TMA) for the backward of
     either, replacing the TPU ``_flash_packed_bwd``
     (``_packed_bwd_dq_kernel``, ``_packed_bwd_dkv_kernel``);
-  * K6 ``attn_relpos_tf32_kernel`` (f32, ``csrc/attention_relpos.cu``) /
-    ``attn_relpos_wgmma_kernel`` (bf16, on wgmma and TMA,
-    ``csrc/attention_relpos_wgmma.cu``, launched on the plan of
+  * K6 ``attn_relpos_wgmma_tf32_kernel`` (f32, split TF32 on wgmma and
+    TMA, ``csrc/attention_relpos_wgmma_tf32.cu``, launched on the plan of
+    ``relpos_plan_f32``) / ``attn_relpos_wgmma_kernel`` (bf16, on wgmma and
+    TMA, ``csrc/attention_relpos_wgmma.cu``, on the plan of
     ``relpos_plan``) for every layer of a model off the packed route
     (ViT-H: 16 heads of 80), replacing the TPU ``_flash_kernel``. Forward
     only, as there.
@@ -71,8 +72,8 @@ HEAD_DIM = 64            # K1 / K2 / K5 / K7
 RELPOS_MAX_HEAD_DIM = 128  # K6 takes every multiple of 4 up to this
 
 _BOUND = {"attention": False, "attention_bwd": False,
-          "attention_relpos": False, "attention_relpos_wgmma": False,
-          "attention_winimg": False}
+          "attention_relpos_wgmma": False,
+          "attention_relpos_wgmma_tf32": False, "attention_winimg": False}
 SMEM_MAX = 232448  # shared memory a block may use on an H100
 RELPOS_SMEM_FIXED = 1024 + 128  # wg::SMEM_FIXED: alignment slack, mbarriers
 
@@ -141,10 +142,7 @@ def relpos_plan(d: int, n: int, hw, norm: bool = False) -> RelposPlan:
     computes); a unit of several tiles up to four K / V stages, three at
     least where they fit, two at the least (it issues a tile's S before it
     releases the tile before). Raises where none fits."""
-    if d < 4 or d % 4 or d > RELPOS_MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"K6 (attn_relpos) takes a head_dim that is a multiple of 4 up "
-            f"to {RELPOS_MAX_HEAD_DIM}, got {d}")
+    _check_relpos_head_dim(d)
     if norm and d != HEAD_DIM:
         raise NotImplementedError(
             f"the normalised rounding point (K2's) is built for head_dim "
@@ -170,6 +168,75 @@ def relpos_plan(d: int, n: int, hw, norm: bool = False) -> RelposPlan:
         f"K6 bf16: no plan fits in shared memory for head_dim {d} over a "
         f"{hw} grid (one stage takes {RELPOS_SMEM_FIXED + unit + kv} "
         "bytes)")
+
+
+@dataclasses.dataclass(frozen=True)
+class RelposPlanF32:
+    """The launch plan of the f32 K6 and K1 (``attn_relpos_wgmma_tf32_kernel``,
+    ``csrc/attention_relpos_wgmma_tf32.cu``): ``mode`` "grid" (a window of
+    at most 16 x 16 cells: tiles of 2 grid rows of 16 key slots),
+    "row_tile" (W = 64: a tile is half a grid row) or "generic" (32 keys a
+    tile), the head dim rounded up to 16 columns (``dp``), the tiles of
+    ``RELPOS_F32_NK`` key slots per unit of 128 query rows, the depths of
+    the K / V stage ring, of the unit (Q, and for "row_tile" rel_w) ring and
+    of the V landing slots, and the shared memory of a block in bytes."""
+    mode: str
+    dp: int
+    tiles: int
+    kv_stages: int
+    u_stages: int
+    v_slots: int
+    smem: int
+
+
+RELPOS_F32_SMEM_FIXED = 1024 + 256  # wt::SMEM_FIXED: alignment slack, mbarriers
+RELPOS_F32_NK = 32  # wt::NK
+
+
+def _check_relpos_head_dim(d):
+    if d < 4 or d % 4 or d > RELPOS_MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"K6 (attn_relpos) takes a head_dim that is a multiple of 4 up "
+            f"to {RELPOS_MAX_HEAD_DIM}, got {d}")
+
+
+def _f32_rings(tiles):
+    """(K / V stages, unit stages, V slots) of the f32 K6 in the order its
+    plan tries them: a short unit (a window: fewer than 16 tiles) wants the
+    next unit's Q landing while it computes, two unit stages beside at least
+    two K / V stages; a long one the deepest K / V ring."""
+    deep = [(kv, 1, v) for kv in (4, 3, 2, 1) for v in (2, 1)]
+    if tiles >= 16:
+        return deep
+    return [(kv, 2, v) for kv in (3, 2) for v in (2, 1)] + deep
+
+
+@functools.lru_cache(maxsize=None)
+def relpos_plan_f32(d: int, n: int, hw) -> RelposPlanF32:
+    """The f32 K6's (and K1's) plan for head dim ``d`` over an ``hw`` grid
+    of ``n`` tokens (``RelposPlanF32``): a stage of the K / V ring holds K,
+    its lo part and V^T's hi and lo parts (16 nk dp bytes), a unit stage Q
+    (512 dp) and for "row_tile" the unit's rel_w rows (32 KB), a V landing
+    slot 4 nk dp; the first rings of ``_f32_rings`` that fit in a block's
+    shared memory. Raises where none fits."""
+    _check_relpos_head_dim(d)
+    dp = -(-d // 16) * 16
+    h, w = hw
+    mode = ("grid" if h <= 16 and w <= 16 else
+            "row_tile" if w == 64 else "generic")
+    nk = RELPOS_F32_NK
+    tiles = -(-h // (nk // 16)) if mode == "grid" else -(-n // nk)
+    unit = 128 * dp * 4 + (128 * 64 * 4 if mode == "row_tile" else 0)
+    stage, slot = 16 * nk * dp, 4 * nk * dp
+    for kv_stages, u_stages, v_slots in _f32_rings(tiles):
+        smem = (RELPOS_F32_SMEM_FIXED + u_stages * unit + kv_stages * stage
+                + v_slots * slot)
+        if smem <= SMEM_MAX:
+            return RelposPlanF32(mode, dp, tiles, kv_stages, u_stages,
+                                 v_slots, smem)
+    raise NotImplementedError(
+        f"K6 f32: no plan fits in shared memory for head_dim {d} over a "
+        f"{hw} grid")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -295,40 +362,40 @@ def packed_attention_plain(qkv, rel_h, rel_w, *, hw, num_heads: int,
     packed qkv). ``return_lse=True`` also returns the rows' logsumexp of the
     scaled scores, (B, heads, N) f32, as K1 / K2 write it.
 
-    In bf16 the probabilities are rounded where the TPU kernel of the JAX
-    package's route rounds them before the p.v product
-    (``normalised_rounding(B, N)``, unless ``normalised`` says which):
-    ``_windowed_group_kernel`` rounds the normalised p / l;
-    ``_packed_kernel`` (every other B and N) rounds the un-normalised p =
-    exp(s - max) and divides the f32 product by the f32 denominator last.
+    The probabilities enter the p.v product where the TPU kernel of the JAX
+    package's route takes them (``normalised_rounding(B, N)``, unless
+    ``normalised`` says which), rounded to the input dtype (in f32 nothing
+    is rounded): ``_windowed_group_kernel`` the normalised p / l;
+    ``_packed_kernel`` (every other B and N) the un-normalised p =
+    exp(s - max), the f32 product divided by the f32 denominator last.
     ``windowed_image_attention_plain`` asks for p / l, the rounding of the
     TPU ``_windowed_image_kernel``."""
     _check(qkv, rel_h, rel_w, hw, num_heads)
     _, _, v, s = _scores(qkv, rel_h, rel_w, hw, num_heads)
-    if qkv.dtype == torch.float32:
-        out = torch.matmul(torch.softmax(s, dim=-1), v)
+    if normalised is None:
+        normalised = normalised_rounding(qkv.shape[0], qkv.shape[1])
+    p = (s - s.amax(dim=-1, keepdim=True)).exp_()
+    denom = p.sum(dim=-1, keepdim=True)
+    if normalised:  # out of place: autograd keeps exp's output
+        out = torch.matmul(_rnd(p / denom, qkv.dtype), v)
     else:
-        if normalised is None:
-            normalised = normalised_rounding(qkv.shape[0], qkv.shape[1])
-        p = (s - s.amax(dim=-1, keepdim=True)).exp_()
-        denom = p.sum(dim=-1, keepdim=True)
-        if normalised:
-            out = torch.matmul(_rnd(p.div_(denom), qkv.dtype), v)
-        else:
-            out = torch.matmul(_rnd(p, qkv.dtype), v).div_(denom)
-        del p
+        out = torch.matmul(_rnd(p, qkv.dtype), v).div_(denom)
+    del p
     out = _merge_heads(out).to(qkv.dtype)
     if return_lse:
         return out, torch.logsumexp(s, dim=-1)
     return out
 
 
-def relpos_attention_plain(qkv, rel_h, rel_w, *, hw, num_heads: int):
+def relpos_attention_plain(qkv, rel_h, rel_w, *, hw, num_heads: int,
+                           return_lse: bool = False):
     """Plain PyTorch version of K6, rounding where the TPU ``_flash_kernel``
     rounds: the scale multiplies the f32 score after the q.k product (not q
     before it), the un-normalised p = exp(s - max) is rounded to qkv's dtype
     for the p.v product while the denominator sums the f32 p, and the
-    division comes last with one rounding of the output. Any head dim."""
+    division comes last with one rounding of the output. Any head dim.
+    ``return_lse=True`` also returns the rows' logsumexp of the scaled
+    scores, (B, heads, N) f32, as the f32 K1 (this kernel) writes it."""
     _check(qkv, rel_h, rel_w, hw, num_heads)
     b, n, _ = qkv.shape
     q, k, v = _split_heads(qkv, num_heads)
@@ -336,10 +403,12 @@ def relpos_attention_plain(qkv, rel_h, rel_w, *, hw, num_heads: int):
             + rel_w.float().reshape(b, num_heads, n, 1, hw[1]))
     s = torch.matmul(q, k.transpose(-1, -2)) * q.shape[-1] ** -0.5
     s.add_(bias.reshape(b, num_heads, n, n))
+    lse = torch.logsumexp(s, dim=-1) if return_lse else None
     p = s.sub_(s.amax(dim=-1, keepdim=True)).exp_()
     denom = p.sum(dim=-1, keepdim=True)
     out = torch.matmul(_rnd(p, qkv.dtype), v) / denom
-    return _merge_heads(out).to(qkv.dtype)
+    out = _merge_heads(out).to(qkv.dtype)
+    return (out, lse) if return_lse else out
 
 
 def window_partition(x, window_size: int):
@@ -477,10 +546,9 @@ def _bind(name):
     if not _BOUND[name]:
         p, i = ctypes.c_void_p, ctypes.c_int
         if name == "attention":
-            fns = [(lib.dhoct_attn_global, [p] * 5 + [i] * 6 + [p]),
-                   (lib.dhoct_attn_windowed, [p] * 5 + [i] * 6 + [p])]
-        elif name == "attention_relpos":
-            fns = [(lib.dhoct_attn_relpos, [p] * 4 + [i] * 6 + [p])]
+            fns = [(lib.dhoct_attn_windowed, [p] * 5 + [i] * 6 + [p])]
+        elif name == "attention_relpos_wgmma_tf32":
+            fns = [(lib.dhoct_attn_relpos_f32, [p] * 5 + [i] * 11 + [p])]
         elif name == "attention_relpos_wgmma":
             fns = [(lib.dhoct_attn_relpos_bf16, [p] * 5 + [i] * 13 + [p])]
         elif name == "attention_winimg":
@@ -524,7 +592,9 @@ def attention_fwd_cuda(qkv, rel_h, rel_w, *, hw, num_heads: int,
     the logsumexp rows, at the rounding point of the JAX route
     (``normalised_rounding(B, N)``: the normalised p, K2's on SAM's
     windows, or the un-normalised p divided last, K6's and K1's); at head
-    dim 64 it computes the same function. Its launches count as
+    dim 64 it computes the same function. In f32 K1 is the f32 K6's kernel
+    (``attn_relpos_wgmma_tf32_kernel`` on ``relpos_plan_f32``) with the
+    logsumexp rows, K2 ``attn_windowed_tf32_kernel``. Its launches count as
     ``attn_windowed`` (N <= WINDOW_MAX_TOKENS) or ``attn_global``."""
     _check(qkv, rel_h, rel_w, hw, num_heads)
     b, n, c3 = qkv.shape
@@ -537,11 +607,14 @@ def attention_fwd_cuda(qkv, rel_h, rel_w, *, hw, num_heads: int,
     if qkv.dtype == torch.bfloat16:
         lib, err = _launch_relpos_bf16(qkv, rel_h, rel_w, out, lse, hw,
                                        num_heads, normalised_rounding(b, n))
+    elif name == "attn_global":
+        lib, err = _launch_relpos_f32(qkv, rel_h, rel_w, out, lse, hw,
+                                      num_heads)
     else:
         lib = _bind("attention")
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         with torch.cuda.device(qkv.device):
-            err = getattr(lib, f"dhoct_{name}")(
+            err = lib.dhoct_attn_windowed(
                 qkv.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
                 out.data_ptr(), lse.data_ptr() if return_lse else None, b, n,
                 num_heads, hw[0], hw[1], kernels.DTYPE_CODE[qkv.dtype],
@@ -549,6 +622,41 @@ def attention_fwd_cuda(qkv, rel_h, rel_w, *, hw, num_heads: int,
     kernels.raise_on_error(err, lib.dhoct_error_string, name)
     LAUNCHES[name] += 1
     return (out, lse) if return_lse else out
+
+
+def _padded_heads(qkv, num_heads, dp):
+    """qkv with each head padded to ``dp`` columns of zeros, (B, N, 3 heads
+    dp); qkv itself where its heads have ``dp`` columns already."""
+    b, n, c3 = qkv.shape
+    d = c3 // 3 // num_heads
+    if d == dp:
+        return qkv
+    return torch.nn.functional.pad(qkv.view(b, n, 3 * num_heads, d),
+                                   (0, dp - d)).view(b, n, 3 * num_heads * dp)
+
+
+def _launch_relpos_f32(qkv, rel_h, rel_w, out, lse, hw, num_heads):
+    """Launch ``attn_relpos_wgmma_tf32_kernel`` on the plan of
+    ``relpos_plan_f32``, one persistent block per SM at most, writing
+    ``out`` and, where ``lse`` is not None, the rows' logsumexp; returns
+    (the library, its error code). Where the head dim is no multiple of 16
+    qkv is first copied with each head padded to ``dp`` columns of zeros (no
+    ViT's head: 64 and 80 are multiples)."""
+    b, n, c3 = qkv.shape
+    d = c3 // 3 // num_heads
+    plan = relpos_plan_f32(d, n, tuple(hw))
+    src = _padded_heads(qkv, num_heads, plan.dp)
+    units = b * num_heads * -(-n // 128)
+    lib = _bind("attention_relpos_wgmma_tf32")
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    with kernels.on_device(qkv.device):
+        err = lib.dhoct_attn_relpos_f32(
+            src.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
+            out.data_ptr(), None if lse is None else lse.data_ptr(), b, n,
+            num_heads, d, hw[0], hw[1], src.shape[2] // (3 * num_heads),
+            plan.kv_stages, plan.v_slots, plan.u_stages,
+            min(units, kernels.sm_count(qkv.device)), stream)
+    return lib, err
 
 
 def _launch_relpos_bf16(qkv, rel_h, rel_w, out, lse, hw, num_heads,
@@ -564,9 +672,7 @@ def _launch_relpos_bf16(qkv, rel_h, rel_w, out, lse, hw, num_heads,
     b, n, c3 = qkv.shape
     d = c3 // 3 // num_heads
     plan = relpos_plan(d, n, tuple(hw), norm)
-    src = qkv if d == plan.dp else torch.nn.functional.pad(
-        qkv.view(b, n, 3 * num_heads, d), (0, plan.dp - d)).view(
-            b, n, 3 * num_heads * plan.dp)
+    src = _padded_heads(qkv, num_heads, plan.dp)
     units = b * num_heads * -(-n // 128)
     lib = _bind("attention_relpos_wgmma")
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
@@ -581,26 +687,18 @@ def _launch_relpos_bf16(qkv, rel_h, rel_w, out, lse, hw, num_heads,
 
 
 def attention_relpos_cuda(qkv, rel_h, rel_w, *, hw, num_heads: int):
-    """Launch K6 (f32 ``attn_relpos_tf32_kernel``, bf16
-    ``attn_relpos_wgmma_kernel``: ``_launch_relpos_bf16``); same contract
-    as ``relpos_attention_plain``."""
+    """Launch K6 (f32 ``attn_relpos_wgmma_tf32_kernel``:
+    ``_launch_relpos_f32``, bf16 ``attn_relpos_wgmma_kernel``:
+    ``_launch_relpos_bf16``); same contract as ``relpos_attention_plain``."""
     _check(qkv, rel_h, rel_w, hw, num_heads)
     b, n, c3 = qkv.shape
-    d = c3 // 3 // num_heads
-    if d % 4 or d > RELPOS_MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"K6 (attn_relpos) takes a head_dim that is a multiple of 4 up "
-            f"to {RELPOS_MAX_HEAD_DIM}, got {d}")
+    _check_relpos_head_dim(c3 // 3 // num_heads)
     kernels.check_operands("attn_relpos", (qkv, rel_h, rel_w),
                            (qkv.dtype,) * 3)
     out = torch.empty((b, n, c3 // 3), dtype=qkv.dtype, device=qkv.device)
     if qkv.dtype == torch.float32:
-        lib = _bind("attention_relpos")
-        stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        with kernels.on_device(qkv.device):
-            err = lib.dhoct_attn_relpos(
-                qkv.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
-                out.data_ptr(), b, n, num_heads, d, hw[0], hw[1], stream)
+        lib, err = _launch_relpos_f32(qkv, rel_h, rel_w, out, None, hw,
+                                      num_heads)
     else:
         lib, err = _launch_relpos_bf16(qkv, rel_h, rel_w, out, None, hw,
                                        num_heads)

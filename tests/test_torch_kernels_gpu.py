@@ -5,9 +5,10 @@ image-layout windowed forward K7, the upscaler K3 and the image->token
 attention K4 (their forwards on the tensor cores, bf16 and f32 in split
 TF32; the backwards of both as their two launches, the row pass and the
 weight pass, each against its plain twin; the kernels on wgmma and TMA --
-the bf16 K6 and K1 (K6's kernel with the logsumexp rows), K5's bf16 dq
-kernel in each of its modes and its dk/dv kernel, both K4 weight passes --
-on their own plans); the topological loss's pairing
+the bf16 K6 and K1 (K6's kernel with the logsumexp rows), the f32 K6 and
+K1 in split TF32 (likewise one kernel), K5's bf16 dq kernel in each of its
+modes and its dk/dv kernel, both K4 weight passes -- on their own plans);
+the topological loss's pairing
 T1 (on its shared-memory route and, for grids past one block's shared
 memory, its global one) and matching T2 against their numpy twins and the
 host library; one
@@ -404,10 +405,10 @@ def test_kernels_refuse_other_head_dims(cuda_device):
 def test_relpos_kernel_matches_plain_on_card(cuda_device, dtype, b, nh, d,
                                              hw):
     """K6 against ``relpos_attention_plain`` through the public entry, and
-    the same bits on a second run (f32: the split-TF32 flash body, bf16:
-    the mma kernel). bf16: the kernel rounds p against the running maximum
-    of its key tiles, the plain version against the row maximum, so single
-    roundings differ."""
+    the same bits on a second run (f32: the split-TF32 wgmma kernel, bf16:
+    the bf16 wgmma kernel). bf16: the kernel rounds p against the running
+    maximum of its key tiles, the plain version against the row maximum,
+    so single roundings differ."""
     rng = np.random.default_rng(0)
     n = hw[0] * hw[1]
     arrays = (rng.normal(size=(b, n, 3 * nh * d)) * 0.5,
@@ -486,6 +487,102 @@ def test_relpos_wgmma_kernel_on_card(cuda_device, d, b, nh, hw):
         *args, hw=hw, num_heads=nh))
     assert torch.equal(got, port_attn.attention_relpos_cuda(
         *args, hw=hw, num_heads=nh))
+
+
+def assert_f32_close(got, want, what="out"):
+    """An f32 output of the split-TF32 wgmma kernel against its plain twin:
+    within 1e-4 of max |plain| (``chip_smoke.py``'s f32 limit)."""
+    assert got.dtype == want.dtype == torch.float32
+    assert got.shape == want.shape
+    assert bool(torch.isfinite(got).all()), what
+    limit = 1e-4 * want.abs().max().item()
+    err = (got - want).abs().max().item()
+    assert err <= limit, f"{what}: max |kernel - plain| {err:.3g} > {limit:.3g}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,nh,hw", [
+    (1, 12, (64, 64)),   # ViT-B's global layer, serving
+    (4, 12, (64, 64)),   # ... in the f32 full fine-tune, B = 4
+    (1, 16, (64, 64)),   # ViT-L's 16 heads
+    (2, 2, (30, 34)),    # a ragged global grid, W != 64
+    (3, 2, (20, 15)),    # 300 tokens, odd B: _packed_kernel's rounding
+    (1, 2, (63, 65))])   # ragged N = 4095
+def test_k1_f32_on_the_wgmma_tf32_kernel_on_card(cuda_device, b, nh, hw):
+    """The f32 K1 is the f32 K6's kernel (``attn_relpos_wgmma_tf32_kernel``
+    on ``relpos_plan_f32``) with its logsumexp rows: the output and L
+    against ``packed_attention_plain`` within 1e-4 of max |plain|, one K1
+    launch and no K6 launch, the same bits of both on a second run, and,
+    without the rows, the bits of K6's own launch."""
+    qkv, rel_h, rel_w, _ = _attn_inputs(cuda_device, torch.float32, b, nh,
+                                        hw, seed=5)
+    kw = dict(hw=hw, num_heads=nh)
+    before = dict(port_attn.LAUNCHES)
+    out, lse = port_attn.attention_fwd_cuda(qkv, rel_h, rel_w,
+                                            return_lse=True, **kw)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in port_attn.LAUNCHES.items()
+                if v != before[k]}
+    assert launched == {"attn_global": 1}, launched
+    want_out, want_lse = port_attn.packed_attention_plain(
+        qkv, rel_h, rel_w, return_lse=True, **kw)
+    assert_f32_close(out, want_out)
+    assert_f32_close(lse, want_lse, "lse")
+    out2, lse2 = port_attn.attention_fwd_cuda(qkv, rel_h, rel_w,
+                                              return_lse=True, **kw)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    assert torch.equal(out, port_attn.attention_relpos_cuda(
+        qkv, rel_h, rel_w, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 32, 48, 80, 128])
+@pytest.mark.parametrize("b,nh,hw", [(1, 2, (64, 64)),   # global, W = 64
+                                     (4, 2, (14, 14)),   # windows, 196 keys
+                                     (8, 2, (4, 4)),     # windows of 16
+                                     (1, 3, (30, 34)),   # a non-SAM grid
+                                     (2, 2, (10, 20)),   # ragged N = 200
+                                     (1, 2, (63, 65))])  # ragged N = 4095
+def test_relpos_wgmma_tf32_kernel_on_card(cuda_device, d, b, nh, hw):
+    """The f32 K6 on wgmma and TMA (``attn_relpos_wgmma_tf32_kernel``) in
+    each of its modes -- "row_tile" (W = 64), "grid" (windows up to 16 x
+    16), "generic" (any other grid, keys masked past N) -- at head dims of
+    one slab of 16 columns, of 32, 48 = 32 + 16, ViT-H's 80 = 32 + 32 + 16
+    and 128 (one K / V stage on a global grid), against
+    ``relpos_attention_plain`` within 1e-4 of max |plain|, one launch, and
+    twice with identical bits."""
+    n = hw[0] * hw[1]
+    plan = port_attn.relpos_plan_f32(d, n, hw)
+    assert plan.mode == ("grid" if max(hw) <= 16 else
+                         "row_tile" if hw[1] == 64 else "generic")
+    args = _relpos_inputs(cuda_device, torch.float32, b, nh, d, hw, seed=4)
+    before = port_attn.LAUNCHES["attn_relpos"]
+    got = port_attn.attention_relpos_cuda(*args, hw=hw, num_heads=nh)
+    torch.cuda.synchronize()
+    assert port_attn.LAUNCHES["attn_relpos"] == before + 1
+    assert_f32_close(got, port_attn.relpos_attention_plain(
+        *args, hw=hw, num_heads=nh))
+    assert torch.equal(got, port_attn.attention_relpos_cuda(
+        *args, hw=hw, num_heads=nh))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,hw", [(1, (64, 64)),    # ViT-H's global layer
+                                  (25, (14, 14))])  # its windows of one image
+def test_relpos_wgmma_tf32_vith_on_card(cuda_device, b, hw):
+    """The f32 K6 at ViT-H's full width (16 heads of 80) in serving's
+    layers, through the public entry: one launch, within 1e-4 of max
+    |plain|, the same bits on a second run."""
+    args = _relpos_inputs(cuda_device, torch.float32, b, 16, 80, hw, seed=6)
+    kw = dict(hw=hw, num_heads=16)
+    before = dict(port_attn.LAUNCHES)
+    got = port_attn.flash_attention_packed(*args, **kw)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in port_attn.LAUNCHES.items()
+                if v != before[k]}
+    assert launched == {"attn_relpos": 1}, launched
+    assert_f32_close(got, port_attn.relpos_attention_plain(*args, **kw))
+    assert torch.equal(got, port_attn.flash_attention_packed(*args, **kw))
 
 
 @pytest.mark.gpu
@@ -643,11 +740,11 @@ def test_winimg_kernel_matches_plain_and_k2_on_card(cuda_device, dtype, b,
 
 
 # the f32 kernels on the tensor cores in split TF32: library -> kernels
-TF32_KERNELS = {"attention": ("attn_global_tf32_kernel",
-                              "attn_windowed_tf32_kernel"),
+TF32_KERNELS = {"attention": ("attn_windowed_tf32_kernel",),
                 "attention_bwd": ("attn_bwd_dq_tf32_kernel",
                                   "attn_bwd_dkv_tf32_kernel"),
-                "attention_relpos": ("attn_relpos_tf32_kernel",),
+                "attention_relpos_wgmma_tf32": (
+                    "attn_relpos_wgmma_tf32_kernel",),
                 "attention_winimg": ("attn_winimg_tf32_kernel",),
                 "upscaler": ("upscale_fwd_tf32_kernel",
                              "upscale_bwd_rows_tf32_kernel",
@@ -661,9 +758,10 @@ TF32_KERNELS = {"attention": ("attn_global_tf32_kernel",
 @pytest.mark.parametrize("lib", sorted(TF32_KERNELS))
 def test_f32_kernels_on_tf32_tensor_cores(cuda_device, lib):
     """The f32 K1, K2, K3, K4, K5, K6 and K7 kernels hold TF32 tensor-core
-    instructions (HMMA.1688.F32.TF32 from mma.sync; HGMMA on TF32 in the K4
-    weight pass on wgmma) in their SASS and use no local memory (no spills,
-    no stack), from ``cuobjdump`` on the built library."""
+    instructions (HMMA.1688.F32.TF32 from mma.sync; HGMMA on TF32 in the
+    kernels on wgmma: the K3 / K4 weight passes, the K1 / K6 kernel, which
+    holds no HMMA) in their SASS and use no local memory (no spills, no
+    stack), from ``cuobjdump`` on the built library."""
     import subprocess
 
     from dilabhelmholtzoct_tpu_torch import kernels
@@ -675,19 +773,22 @@ def test_f32_kernels_on_tf32_tensor_cores(cuda_device, lib):
                           text=True, check=True, timeout=300).stdout
     usage = subprocess.run([tool, "-res-usage", path], capture_output=True,
                            text=True, check=True, timeout=300).stdout
-    tf32, fn = {}, None
+    tf32, hmma, fn = {}, {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            tf32[fn] = 0
+            tf32[fn] = hmma[fn] = 0
         elif fn and "MMA" in line and "TF32" in line:  # HMMA or HGMMA
             tf32[fn] += 1
+            hmma[fn] += "HMMA" in line
     lines = usage.splitlines()
     for name in TF32_KERNELS[lib]:
         found = [f for f in tf32 if name in f]
         assert found, f"{name} is not in the SASS of {lib}"
         for f in found:
             assert tf32[f] > 0, f"{f}: no TF32 tensor-core instruction"
+            if "wgmma" in name:  # HGMMA alone, no mma.sync
+                assert hmma[f] == 0, f"{f}: {hmma[f]} HMMA"
             # the resource line follows the function's name
             res = next(lines[i + 1] for i, x in enumerate(lines)
                        if f in x and i + 1 < len(lines))

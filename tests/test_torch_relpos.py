@@ -282,3 +282,28 @@ def test_packed_bf16_global_equals_relpos_plain_bitwise(rng, b, nh, hw):
         assert not torch.equal(packed, relpos)
     else:
         assert torch.equal(packed, relpos)
+
+
+@pytest.mark.parametrize("b,nh,hw", [(3, 2, (20, 15)),   # 300 tokens, odd b
+                                     (1, 2, (30, 34)),   # W != 64
+                                     (1, 2, (64, 64))])  # ViT's global grid
+def test_packed_f32_global_equals_relpos_plain_bitwise(rng, b, nh, hw):
+    """At head dim 64 in f32, where the JAX route takes ``_packed_kernel``
+    (``normalised_rounding`` false), the packed route's plain version (K1's:
+    q times 1/8 before the product) gives the same bits as K6's (the score
+    times 1/8 after it), the output and the logsumexp rows: the scale is a
+    power of two, and both divide last. This is why the f32 K1 runs on the
+    f32 K6's kernel with its LSE rows (``attention_fwd_cuda``)."""
+    arrays = _inputs(rng, b, nh, 64, hw)
+    args = [torch.tensor(a) for a in arrays]
+    n = hw[0] * hw[1]
+    assert n > port_attn.WINDOW_MAX_TOKENS
+    assert not port_attn.normalised_rounding(b, n)
+    packed, lse_p = port_attn.packed_attention_plain(
+        *args, hw=hw, num_heads=nh, return_lse=True)
+    relpos, lse_r = port_attn.relpos_attention_plain(
+        *args, hw=hw, num_heads=nh, return_lse=True)
+    assert packed.dtype == relpos.dtype == torch.float32
+    assert lse_p.shape == lse_r.shape == (b, nh, n)
+    assert torch.equal(packed, relpos)
+    assert torch.equal(lse_p, lse_r)

@@ -1,16 +1,18 @@
 """The error of the split-TF32 products of the f32 encoder attention kernels
-on the tensor cores (``csrc/attention_tf32.cuh``: K5's backward, the
-windowed body of K2 / K7 and the flash body of K1 / K6), emulated on the
-CPU.
+on the tensor cores (``csrc/attention_tf32.cuh``: K5's backward and the
+windowed body of K2 / K7; ``csrc/attention_relpos_wgmma_tf32.cu``: K1 and
+K6 on wgmma), emulated on the CPU.
 
-A kernel splits each f32 operand x as hi = tf32(x) (rounded as
+A kernel on mma.sync splits each f32 operand x as hi = tf32(x) (rounded as
 ``cvt.rna.tf32.f32`` rounds: to nearest on the 13 low mantissa bits, ties
 away from zero; the kernels add half a TF32 ulp to the bits and clear the 13
 low ones, as ``tf32_rna`` below) and lo = x - hi, whose top 19 bits the
 tensor cores read (truncation, emulated as such), and takes a product a.b as
-lo_a.hi_b + hi_a.lo_b + hi_a.hi_b with f32 accumulation. Products of TF32
-values are exact in f32, so an f32 matmul of the split operands on the CPU
-emulates the tensor cores up to the order of the f32 sums.
+lo_a.hi_b + hi_a.lo_b + hi_a.hi_b with f32 accumulation. The wgmma kernel of
+K1 / K6 splits by truncation (``split_trunc``): the raw f32 is its own hi,
+since the tensor cores read its top 19 bits, and lo = x - trunc(x). Products
+of TF32 values are exact in f32, so an f32 matmul of the split operands on
+the CPU emulates the tensor cores up to the order of the f32 sums.
 
 Each test holds the emulated kernel arithmetic against the port's plain f32
 version on the same inputs (numpy-seeded, as the card tests make them):
@@ -65,6 +67,26 @@ def mm_split(a, b):
 
 def mm_single(a, b):
     return tf32_rna(a) @ tf32_rna(b)
+
+
+def split_trunc(x):
+    """The wgmma kernels' split: hi = trunc(x) (the raw f32 as the tensor
+    cores read it), lo = x - hi (exact in f32) as they read it."""
+    hi = tf32_trunc(x)
+    return hi, tf32_trunc(x - hi)
+
+
+def mm_split_trunc(a, b):
+    """a @ b in split TF32 with the truncation split: the small terms
+    first, f32 sums."""
+    ah, al = split_trunc(a)
+    bh, bl = split_trunc(b)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def mm_single_trunc(a, b):
+    """What the tensor cores make of raw f32 operands: one TF32 product."""
+    return tf32_trunc(a) @ tf32_trunc(b)
 
 
 def _inputs(b, nh, hw, seed=0, d=64):
@@ -173,6 +195,23 @@ def test_tf32_rounding_is_rna():
     assert float(((hi + lo - r).abs() / r.abs()).max()) <= 2.0 ** -20
 
 
+def test_tf32_trunc_split_recovers_x():
+    """The wgmma kernels' split (``split_tf32.cuh::lo_trunc``): hi the top
+    19 bits of x, lo = x - hi exact in f32 and of x's sign, below one TF32
+    ulp of x; hi + trunc(lo) recovers x to 2^-21 of it, and hi alone only
+    to 2^-10."""
+    r = torch.tensor(np.random.default_rng(2).normal(size=1000) * 3.0,
+                     dtype=torch.float32)
+    hi, lo = split_trunc(r)
+    exact = r - tf32_trunc(r)
+    assert bool((tf32_trunc(hi) == hi).all())
+    assert bool(((exact == 0) | (torch.sign(exact) == torch.sign(r))).all())
+    assert bool((exact.abs() < 2.0 ** -10 * hi.abs() * 2).all())
+    rel = ((hi + lo - r).abs() / r.abs()).max()
+    assert float(rel) <= 2.0 ** -21
+    assert float(((hi - r).abs() / r.abs()).max()) > 2.0 ** -13
+
+
 @pytest.mark.parametrize("b,nh,hw", [(1, 2, (64, 64)),   # a global layer
                                      (4, 2, (14, 14))],  # 4 windows
                          ids=["global_64x64", "windows_14x14"])
@@ -209,64 +248,76 @@ def test_split_tf32_windowed_forward_error(b, nh, hw):
     _assert_split_beats_single(split_err, single_err, ("out", "lse"))
 
 
-def emulated_flash_fwd(qkv, rel_h, rel_w, nh, mm, scale, tile=64):
-    """The flash body of K1 and K6 (``attention_tf32.cuh::flash_tf32``):
-    the head dim zero-padded to a multiple of 8, 64-key tiles, each tile's
-    s = scale * (q . k^T) + bias through ``mm`` (the last tile ends at N:
-    the kernel's -inf past N gives those keys p = 0), an
-    online softmax (running max m, the denominator l and the output rescaled
-    by exp(m_old - m_new)), p in f32 into p.v through ``mm``, and o / l
-    last. Returns (out, lse)."""
+def emulated_flash_fwd(qkv, rel_h, rel_w, nh, mm, scale, keys):
+    """The f32 K1 and K6 on wgmma (``attn_relpos_wgmma_tf32_kernel``): the
+    head dim zero-padded to a multiple of 16, tiles of ``keys`` keys (the
+    plan's key tile, or for a window its nk / 16 grid rows of W keys: the
+    kernel's slots past W and past H hold p = 0), each tile's s = scale *
+    (q . k^T) + bias through ``mm`` (the last tile ends at N: the kernel's
+    -inf past N gives those keys p = 0), an online softmax (running max m,
+    the denominator l and the output rescaled by exp(m_old - m_new)), p in
+    f32 into p.v through ``mm``, and o / l last. Returns (out, lse)."""
     q, k, v = (_heads(t, nh) for t in qkv.chunk(3, dim=-1))
     d = q.shape[-1]
-    pad = (0, -d % 8)
+    pad = (0, -d % 16)
     q, k, v = (torch.nn.functional.pad(t, pad) for t in (q, k, v))
     bias = _bias(rel_h, rel_w)
     n = q.shape[2]
     m = torch.full(q.shape[:-1] + (1,), -torch.inf)
     l = torch.zeros_like(m)
     o = torch.zeros_like(q)
-    for k0 in range(0, n, tile):
-        s = mm(q, k[..., k0:k0 + tile, :].transpose(-1, -2)) * scale
-        s = s + bias[..., k0:k0 + tile]
+    for k0 in range(0, n, keys):
+        s = mm(q, k[..., k0:k0 + keys, :].transpose(-1, -2)) * scale
+        s = s + bias[..., k0:k0 + keys]
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new)
         l = l * alpha + p.sum(-1, keepdim=True)
-        o = o * alpha + mm(p, v[..., k0:k0 + tile, :])
+        o = o * alpha + mm(p, v[..., k0:k0 + keys, :])
         m = m_new
     return _merge(o[..., :d] / l), (m + torch.log(l))[..., 0]
+
+
+def _flash_keys(d, hw):
+    """Keys of a tile of the f32 K1 / K6 on ``relpos_plan_f32``."""
+    plan = port_attn.relpos_plan_f32(d, hw[0] * hw[1], hw)
+    nk = port_attn.RELPOS_F32_NK
+    return nk // 16 * hw[1] if plan.mode == "grid" else nk
 
 
 @pytest.mark.parametrize("b,nh,d,hw", [(1, 2, 64, (64, 64)),   # K1 global
                                        (1, 2, 80, (64, 64)),   # K6 ViT-H
                                        (4, 2, 80, (14, 14)),   # K6 windows
-                                       (2, 2, 20, (12, 10))],  # d padded to 24
+                                       (2, 2, 20, (12, 10))],  # d padded to 32
                          ids=["k1_global_64x64_d64", "k6_global_64x64_d80",
                               "k6_windows_14x14_d80", "k6_grid_12x10_d20"])
 def test_split_tf32_flash_forward_error(b, nh, d, hw):
-    """The flash body (K1 f32, K6 f32) in split TF32 against the plain f32
-    versions: K1 (d = 64) the output and the logsumexp rows of
+    """The f32 K1 and K6 on wgmma, in split TF32 by truncation, against the
+    plain f32 versions: K1 (d = 64) the output and the logsumexp rows of
     ``packed_attention_plain``, q scaled by 1/8 (exact: the same bits as
     the kernel's 1/8 on the accumulator); K6 the output of
-    ``relpos_attention_plain``, d^-1/2 on the accumulator. The windows'
-    last tile holds 196 - 192 = 4 keys, the 12 x 10 grid's 120 - 64 = 56."""
+    ``relpos_attention_plain``, d^-1/2 on the accumulator. One TF32 product
+    of the raw operands is the single-TF32 yardstick. Tiles of 32 keys (K1,
+    ViT-H's global layer), of 2 grid rows of 14 keys (its windows) and of 2
+    grid rows of 10 (the 12 x 10 grid)."""
     qkv, rel_h, rel_w, _ = _inputs(b, nh, hw, d=d)
     kw = dict(hw=hw, num_heads=nh)
     args = (qkv, rel_h, rel_w, nh)
+    keys = _flash_keys(d, hw)
     if d == 64:
         want = port_attn.packed_attention_plain(*args[:3], return_lse=True,
                                                 **kw)
         q8 = qkv.clone()
         q8[..., :nh * d] *= 0.125
-        run = lambda mm: emulated_flash_fwd(q8, rel_h, rel_w, nh, mm, 1.0)
+        run = lambda mm: emulated_flash_fwd(q8, rel_h, rel_w, nh, mm, 1.0,
+                                            keys)
         names = ("out", "lse")
     else:
         want = (port_attn.relpos_attention_plain(*args[:3], **kw),)
-        run = lambda mm: emulated_flash_fwd(*args, mm, d ** -0.5)[:1]
+        run = lambda mm: emulated_flash_fwd(*args, mm, d ** -0.5, keys)[:1]
         names = ("out",)
-    split_err = _errors(run(mm_split), want)
-    single_err = _errors(run(mm_single), want)
+    split_err = _errors(run(mm_split_trunc), want)
+    single_err = _errors(run(mm_single_trunc), want)
     _assert_split_beats_single(split_err, single_err, names)
 
 

@@ -1,7 +1,9 @@
 """The launch plans of the kernels on wgmma and TMA, as pure functions
 pinned on the CPU: ``ops.attention.relpos_plan`` (the bf16 K6, K1 and K2,
 ``csrc/attention_relpos_wgmma.cu``: key tile, ring depths, shared memory,
-rounding point and passes), ``ops.attention.dq_plan`` (K5's bf16 dq
+rounding point and passes), ``ops.attention.relpos_plan_f32`` (the f32 K6
+and K1, ``csrc/attention_relpos_wgmma_tf32.cu``: mode, key tile, ring
+depths, shared memory), ``ops.attention.dq_plan`` (K5's bf16 dq
 kernel, ``csrc/attention_bwd.cu``: mode, key tile, ring depths and shared
 memory), ``ops.decoder_attn.dw_plan_f32`` / ``dw_plan_bf16`` (the K4
 weight pass in both types: its row chunks and blocks) and
@@ -82,6 +84,94 @@ def test_relpos_plan_pinned(d, hw, want):
     p = port_attn.relpos_plan(d, hw[0] * hw[1], hw)
     assert (p.route, p.dp, p.nk, p.tiles, p.kv_stages, p.u_stages,
             p.smem) == want
+
+
+# the main path's grids and the test shapes: ViT-B / L / H global and
+# windowed, ragged N (200 = 10 x 20, 4095 = 63 x 65), a non-SAM grid, the
+# test-size model's
+F32_GRIDS = [(64, 64), (14, 14), (10, 20), (63, 65), (30, 34), (8, 8),
+             (4, 4), (12, 10), (32, 64), (3, 64), (16, 16), (1, 256)]
+
+
+def _f32_bytes(dp, mode):
+    """``wt::Layout`` written out: (unit stage, K / V stage, V slot) bytes:
+    Q of 128 rows (and for "row_tile" the unit's 128 rel_w rows of 64); K,
+    its lo part and V^T's hi and lo parts of 32 key slots; V of 32 rows,
+    f32 each."""
+    return (128 * dp * 4 + (128 * 64 * 4 if mode == "row_tile" else 0),
+            4 * 4 * 32 * dp, 4 * 32 * dp)
+
+
+@pytest.mark.parametrize("d", range(4, 129, 4))
+def test_relpos_plan_f32_every_head_dim(d):
+    """Every head dim K6 takes (multiples of 4 up to 128) has an f32 plan on
+    every grid of the main path and of the tests and on every grid of N <=
+    256 tokens: "grid" where the grid fits 16 x 16 cells (tiles of 2 grid
+    rows of 16 slots), "row_tile" where W = 64 (tiles of half a grid row),
+    else "generic" (32 keys a tile); the rings fit in 227 KB, and the
+    shared memory is the layout's own sum. A unit of fewer than 16 tiles (a
+    window) takes two unit stages beside at least two K / V stages where
+    they fit; a longer one the deepest K / V ring, one unit stage."""
+    dp = -(-d // 16) * 16
+    for h, w in F32_GRIDS + GRIDS_UP_TO_256:
+        n = h * w
+        plan = port_attn.relpos_plan_f32(d, n, (h, w))
+        mode = ("grid" if h <= 16 and w <= 16 else
+                "row_tile" if w == 64 else "generic")
+        tiles = -(-h // 2) if mode == "grid" else -(-n // 32)
+        assert (plan.mode, plan.dp, plan.tiles) == (mode, dp, tiles), (
+            d, h, w)
+        unit, stage, slot = _f32_bytes(dp, mode)
+        assert plan.smem == (1280 + plan.u_stages * unit
+                             + plan.kv_stages * stage
+                             + plan.v_slots * slot), (d, h, w)
+        assert plan.smem <= port_attn.SMEM_MAX
+        assert 1 <= plan.kv_stages <= 4 and 1 <= plan.v_slots <= 2
+        assert plan.kv_stages >= 2 or dp == 128, (d, h, w)
+        if tiles >= 16:
+            assert plan.u_stages == 1
+            if plan.kv_stages < 4:  # a deeper ring would not fit
+                assert (plan.smem + stage - (plan.v_slots - 1) * slot
+                        > port_attn.SMEM_MAX), (d, h, w)
+        elif plan.u_stages == 1:  # two unit stages would not fit
+            assert (1280 + 2 * unit + 2 * stage + slot
+                    > port_attn.SMEM_MAX), (d, h, w)
+
+
+@pytest.mark.parametrize("d,hw,want", [
+    # ViT-H: the global layer (three K / V stages beside the unit's Q and
+    # rel_w rows) and the 14 x 14 window (seven tiles of 2 grid rows, the
+    # next unit's Q landing beside)
+    (80, (64, 64), ("row_tile", 80, 128, 3, 1, 2, 218368)),
+    (80, (14, 14), ("grid", 80, 7, 3, 2, 2, 226560)),
+    # ViT-B / ViT-L's K1: four K / V stages
+    (64, (64, 64), ("row_tile", 64, 128, 4, 1, 2, 214272)),
+    # the widest head: one K / V stage on the global grid, two on a window
+    (128, (64, 64), ("row_tile", 128, 128, 1, 1, 2, 197888)),
+    (128, (14, 14), ("grid", 128, 7, 2, 1, 2, 230656)),
+    # padded heads, ragged N, a non-SAM grid, the test-size model's layers
+    (20, (64, 64), ("row_tile", 32, 128, 4, 1, 2, 124160)),
+    (48, (14, 14), ("grid", 48, 7, 3, 2, 2, 136448)),
+    (32, (10, 20), ("generic", 32, 7, 3, 2, 2, 91392)),
+    (64, (63, 65), ("generic", 64, 128, 4, 1, 2, 181504)),
+    (112, (63, 65), ("generic", 112, 128, 2, 1, 2, 201984)),
+    (80, (30, 34), ("generic", 80, 32, 4, 1, 2, 226560)),
+    (16, (8, 8), ("grid", 16, 4, 3, 2, 2, 46336)),
+    (16, (4, 4), ("grid", 16, 2, 3, 2, 2, 46336)),
+])
+def test_relpos_plan_f32_pinned(d, hw, want):
+    """The f32 plans of the main path's and the test shapes, pinned: mode,
+    columns, tiles per unit, K / V stages, unit stages, V slots, bytes."""
+    p = port_attn.relpos_plan_f32(d, hw[0] * hw[1], hw)
+    assert (p.mode, p.dp, p.tiles, p.kv_stages, p.u_stages, p.v_slots,
+            p.smem) == want
+
+
+def test_relpos_plan_f32_refuses_other_head_dims():
+    """A head dim K6 does not take raises, in f32 as in bf16."""
+    for d in (2, 6, 130, 132):
+        with pytest.raises(NotImplementedError, match="K6"):
+            port_attn.relpos_plan_f32(d, 196, (14, 14))
 
 
 def _dq_stage_bytes(nk, h, w, generic):
