@@ -15,11 +15,14 @@ prints no result line):
    libraries) must hold tensor-core instructions (HMMA, or HGMMA), the f32
    K1-K7 kernels' (split TF32) TF32 ones (HMMA.1688.F32.TF32), the
    kernels on wgmma and TMA (``WGMMA_KERNELS``: the bf16 K6, K1 and K2
-   ``attn_relpos_wgmma_kernel``, K5's bf16 ``attn_bwd_dq_wgmma_kernel``
-   and ``attn_bwd_dkv_wgmma_kernel``, both K4 weight passes, the f32 K3
-   weight pass) HGMMA (TF32 in the f32 weight passes) and TMA loads
-   (UTMALDG), and their ptxas
-   reports no spills,
+   ``attn_relpos_wgmma_kernel``, the f32 K6 and K1
+   ``attn_relpos_wgmma_tf32_kernel``, K5's bf16 ``attn_bwd_dq_wgmma_kernel``
+   and ``attn_bwd_dkv_wgmma_kernel`` and f32
+   ``attn_bwd_dq_wgmma_tf32_kernel`` and ``attn_bwd_dkv_wgmma_tf32_kernel``,
+   both K4 weight passes, the f32 K3 weight pass) HGMMA (TF32 in the f32
+   ones, which hold no HMMA where ``NO_HMMA_KERNELS`` names them) and TMA
+   loads (UTMALDG), ptxas serializes no wgmma of a main-path instance
+   (``PIPELINED``), and their ptxas reports no spills,
    printed per kernel beside its registers and its counts of HMMA, HGMMA
    and UTMALDG.
 2b. The component engine of prompt extraction (``components_phase``; the
@@ -341,6 +344,12 @@ def device_ms_by_kernel(fn, names, reps=20):
 
     fn()
     torch.cuda.synchronize()
+    # a first session, discarded: after another phase's trace the first
+    # one has come back without device time
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]):
+        fn()
+        torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
@@ -392,8 +401,8 @@ MMA_KERNELS = {"attention_bwd": ("attn_bwd_dq_wgmma_kernel",
                "decoder_attn": ("i2t_fwd_mma_kernel", "i2t_bwd_rows_kernel",
                                 "i2t_bwd_dw_wgmma_kernel")}
 TF32_KERNELS = {"attention": ("attn_windowed_tf32_kernel",),
-                "attention_bwd": ("attn_bwd_dq_tf32_kernel",
-                                  "attn_bwd_dkv_tf32_kernel"),
+                "attention_bwd_wgmma_tf32": ("attn_bwd_dq_wgmma_tf32_kernel",
+                                             "attn_bwd_dkv_wgmma_tf32_kernel"),
                 "attention_relpos_wgmma_tf32": (
                     "attn_relpos_wgmma_tf32_kernel",),
                 "attention_winimg": ("attn_winimg_tf32_kernel",),
@@ -411,19 +420,31 @@ WGMMA_KERNELS = {"attention_relpos_wgmma": ("attn_relpos_wgmma_kernel",),
                      "attn_relpos_wgmma_tf32_kernel",),
                  "attention_bwd": ("attn_bwd_dq_wgmma_kernel",
                                    "attn_bwd_dkv_wgmma_kernel"),
+                 "attention_bwd_wgmma_tf32": (
+                     "attn_bwd_dq_wgmma_tf32_kernel",
+                     "attn_bwd_dkv_wgmma_tf32_kernel"),
                  "decoder_attn": ("i2t_bwd_dw_tf32_kernel",
                                   "i2t_bwd_dw_wgmma_kernel"),
                  "upscaler": ("upscale_bwd_dw_tf32_kernel",)}
 # the kernels whose every product is on wgmma: no HMMA (mma.sync) in their
 # SASS
-NO_HMMA_KERNELS = ("attn_relpos_wgmma_tf32_kernel",)
+NO_HMMA_KERNELS = ("attn_relpos_wgmma_tf32_kernel",
+                   "attn_bwd_dq_wgmma_tf32_kernel",
+                   "attn_bwd_dkv_wgmma_tf32_kernel")
 # instances whose wgmma ptxas must not serialize (C7511 / C7512: they then
 # run at half their speed or less): the f32 K6 / K1 of the main path,
 # ViT-H's global (DP 80, ROW_TILE) and windowed (GRID) layers and ViT-B /
-# L's K1 (DP 64, ROW_TILE), by their mangled template arguments
+# L's K1 (DP 64, ROW_TILE), by their mangled template arguments; K5's f32
+# kernels at ViT-B / L's global layer (dq ROW, two tiles a grid row: <2>;
+# dk/dv ROW_TILE: <true>) and windows (dq GRID: <0>; dk/dv <false>)
 PIPELINED = {"attention_relpos_wgmma_tf32": ("ILi80ELNS0_4ModeE1E",
                                              "ILi80ELNS0_4ModeE2E",
-                                             "ILi64ELNS0_4ModeE1E")}
+                                             "ILi64ELNS0_4ModeE1E"),
+             "attention_bwd_wgmma_tf32": (
+                 "attn_bwd_dq_wgmma_tf32_kernelILi2E",
+                 "attn_bwd_dq_wgmma_tf32_kernelILi0E",
+                 "attn_bwd_dkv_wgmma_tf32_kernelILb1E",
+                 "attn_bwd_dkv_wgmma_tf32_kernelILb0E")}
 
 
 def _ptxas_by_function(log):
@@ -2191,14 +2212,18 @@ def k5_kernel_phase(torch, attn):
     each K5 kernel timed with CUDA events at the training shapes (global
     B = 4, 100 windows) beside the bound, the plain version and the
     backward of ``scaled_dot_product_attention`` with a materialised bias
-    that requires grad. Returns the result-line rows of the global layer:
-    bf16 under the kernels' names (the full fine-tune path), f32 (split TF32
-    on the tensor cores) as ``attn_bwd_dq_f32`` / ``attn_bwd_dkv_f32``."""
+    that requires grad (the f32 kernels' time includes their pre-pass,
+    whose device time and the kernel's the profiler gives beside it).
+    Returns the result-line rows of the global layer: bf16 under the
+    kernels' names (the full fine-tune path), f32 (split TF32 on wgmma) as
+    ``attn_bwd_dq_f32`` / ``attn_bwd_dkv_f32``."""
     from dilabhelmholtzoct_tpu_torch.device import full_fp32
 
     gen = torch.Generator(device=torch.device("cuda")).manual_seed(3)
     heads, rows = 12, {}
-    src = "dilabhelmholtzoct_tpu_torch/csrc/attention_bwd.cu"
+    src = {"bf16": "dilabhelmholtzoct_tpu_torch/csrc/attention_bwd.cu",
+           "f32": "dilabhelmholtzoct_tpu_torch/csrc/"
+                  "attention_bwd_wgmma_tf32.cu"}
     replaces = {"dq": "dilabhelmholtzoct_tpu/ops/attention.py:1096",
                 "dkv": "dilabhelmholtzoct_tpu/ops/attention.py:1147"}
     for kind, b_chk, b_time, hw in (("global", 1, 4, (64, 64)),
@@ -2258,6 +2283,18 @@ def k5_kernel_phase(torch, attn):
                           *args, **kw), iters),
                       "dkv": cuda_ms(lambda: attn.attention_bwd_dkv_cuda(
                           *args, **kw), iters)}
+                if f32:  # device time: each kernel and its pre-pass
+                    for k, fn in (("dq", attn.attention_bwd_dq_cuda),
+                                  ("dkv", attn.attention_bwd_dkv_cuda)):
+                        dev = device_ms_by_kernel(
+                            lambda: fn(*args, **kw),
+                            (f"attn_bwd_{k}_wgmma_tf32_kernel",
+                             f"{k}_images_kernel"), reps=iters)
+                        print(f"kernel attn_bwd_{k} {kind} f32 B={b_time}: "
+                              "device ms " + ", ".join(
+                                  f"{n} {v:.4f}" if v is not None else
+                                  f"{n} not measured"
+                                  for n, v in dev.items()))
                 plain_ms = cuda_ms(lambda: attn.packed_attention_bwd_plain(
                     *args[:6], **kw), 2)
                 lib_ms = _sdpa_bwd_ms(torch, qkv, rel_h, rel_w, g, hw, heads)
@@ -2265,7 +2302,7 @@ def k5_kernel_phase(torch, attn):
                 bound, bound_by = k5_bound_ms(k, b_time, hw[0] * hw[1], heads,
                                               hw, qkv.element_size(), peak)
                 row = {"name": f"attn_bwd_{k}" + ("_f32" if f32 else ""),
-                       "route": "cuda", "source": src,
+                       "route": "cuda", "source": src[tname],
                        "replaces": replaces[k], "max_abs_err": err,
                        "ms": ms[k], "plain_ms": plain_ms, "bound_ms": bound,
                        "bound_by": bound_by, "library_ms": lib_ms}
@@ -3687,11 +3724,16 @@ def redesign_times(torch):
     profiler's device time of its kernel (``*_device``: the ``mma.sync``
     kernels of older trees, ``attn_global_tf32_kernel`` /
     ``attn_relpos_tf32_kernel``, or ``attn_relpos_wgmma_tf32_kernel``).
+    K5's f32 dq and dk/dv kernels at ViT-B's global layer (B = 4) and 100
+    windows, each also as the profiler's device time of the mma.sync
+    kernels of older trees (``attn_bwd_dq_tf32_kernel``, ...) or of the
+    split-TF32 wgmma kernel with its pre-pass (``*_device``; the pre-pass
+    alone ``*_prepass_device``).
     Returns {"ms": {case: ms}, "bits": {case: a digest of its outputs}}:
-    the bf16 K6 and K1's outputs (K1's with its logsumexp rows) and the f32
-    K1's and K6's, on inputs drawn in the same order from one seed in every
-    tree, so that two trees' digests say whether the kernels give the same
-    bits."""
+    the bf16 K6 and K1's outputs (K1's with its logsumexp rows), the f32
+    K1's and K6's, and K5's (dqkv, drel_h, drel_w) in bf16 and in f32, on
+    inputs drawn in the same order from one seed in every tree, so that two
+    trees' digests say whether the kernels give the same bits."""
     from dilabhelmholtzoct_tpu_torch.device import full_fp32
     from dilabhelmholtzoct_tpu_torch.ops import attention as attn
     from dilabhelmholtzoct_tpu_torch.ops import decoder_attn as i2t
@@ -3750,6 +3792,9 @@ def redesign_times(torch):
             lambda: attn.attention_bwd_dkv_cuda(*args, **kw), iters)
         out[f"k5_dq_{case}"] = cuda_ms(
             lambda: attn.attention_bwd_dq_cuda(*args, **kw), iters)
+        drel = attn.attention_bwd_dq_cuda(*args, **kw)
+        attn.attention_bwd_dkv_cuda(*args, **kw)
+        bits[f"k5_{case}"] = digest(args[6], *drel)
         if case == "bf16_global":  # the bf16 K1 with its LSE rows, B = 4
             out["k1_bf16_global_b4"] = cuda_ms(
                 lambda: attn.attention_fwd_cuda(
@@ -3806,6 +3851,39 @@ def redesign_times(torch):
         got = fn()
         bits[case] = digest(*(got if isinstance(got, tuple) else (got,)))
         del qkv, rel_h, rel_w, got
+    # K5's f32 kernels at ViT-B's global layer (B = 4) and 100 windows, from
+    # the f32 forward's LSE rows: events, and the device time of the
+    # mma.sync kernels of older trees or of the split-TF32 wgmma kernel and
+    # its pre-pass (also alone, ``*_prepass_device``)
+    k5_names = {k: (f"attn_bwd_{k}_tf32_kernel",
+                    f"attn_bwd_{k}_wgmma_tf32_kernel", f"{k}_images_kernel")
+                for k in ("dq", "dkv")}
+    with full_fp32():
+        for case, b, hw, iters in (("global", 4, (64, 64), 5),
+                                   ("windowed", 100, (14, 14), 20)):
+            n, heads = hw[0] * hw[1], 12
+            kw = dict(hw=hw, num_heads=heads)
+            qkv = rnd(b, n, 3 * heads * 64, k=0.5)
+            rel_h = rnd(b, heads, n, hw[0], k=0.3)
+            rel_w = rnd(b, heads, n, hw[1], k=0.3)
+            g = rnd(b, n, heads * 64)
+            o, lse = attn.attention_fwd_cuda(qkv, rel_h, rel_w,
+                                             return_lse=True, **kw)
+            args = (qkv, rel_h, rel_w, g, lse, attn.bwd_dvec(g, o, heads),
+                    torch.empty_like(qkv))
+            for k, f in (("dq", attn.attention_bwd_dq_cuda),
+                         ("dkv", attn.attention_bwd_dkv_cuda)):
+                fn = lambda: f(*args, **kw)
+                c = f"k5_{k}_f32_{case}"
+                out[c] = cuda_ms(fn, iters)
+                by_name = device_ms_by_kernel(fn, k5_names[k], reps=iters)
+                ran = [v for v in by_name.values() if v is not None]
+                out[f"{c}_device"] = sum(ran) if ran else None
+                out[f"{c}_prepass_device"] = by_name[k5_names[k][2]]
+            drel = attn.attention_bwd_dq_cuda(*args, **kw)
+            attn.attention_bwd_dkv_cuda(*args, **kw)
+            bits[f"k5_f32_{case}"] = digest(args[6], *drel)
+            del qkv, rel_h, rel_w, g, o, lse, args, drel
     return {"ms": out, "bits": bits}
 
 
@@ -3815,8 +3893,8 @@ def redesign_ab(other_root):
     card, in turns A B B A, each turn a fresh process that imports the
     package from its tree (``--redesign-times ROOT``) and builds its
     kernels there. Prints each turn's times and each side's mean, and
-    whether the two sides' bf16 K6 and K1 and f32 K1 and K6 gave the same
-    bits."""
+    whether the two sides' bf16 K6, K1 and K5 and f32 K1, K6 and K5 gave
+    the same bits."""
     here = os.path.dirname(os.path.abspath(__file__))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

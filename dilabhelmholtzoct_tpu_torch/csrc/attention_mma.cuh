@@ -4,7 +4,7 @@
 // K3 / K4 kernels share (decoder_mma.cuh). The wgmma kernels (the bf16 K1 /
 // K2 / K6, attention_relpos_wgmma.cu; K5's bf16 kernels, attention_bwd.cu) take
 // their softmax and packing helpers from here, the f32 kernels
-// (attention_tf32.cuh) the copies and KeyWalk.
+// (attention_tf32.cuh) the copies.
 //
 // Every tile holds rows of one head in bf16 in shared memory. At head dim
 // 64 (K7) rows are padded to LDS = 72 elements (144 bytes): the
@@ -134,26 +134,6 @@ __device__ __forceinline__ void load_b_kn(uint32_t* b, const bf16* tile,
   ldsm_x4_t(b, tile + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + n0 +
                    (lane >> 4) * 8);
 }
-
-// The grid row r and column c of the keys k0 + 8 j + 2 t + e (j < 8,
-// e < 2) whose scores a lane holds in its accumulator columns, walked in
-// that order: one division, then steps with wrap-around (W may be < 8).
-struct KeyWalk {
-  int r, c, W;
-  __device__ __forceinline__ KeyWalk(int key, int w) : W(w) {
-    r = key / w;
-    c = key - r * w;
-  }
-  // on to the lane's next key: + 1 after e = 0, + 7 after e = 1 (the next
-  // j's e = 0)
-  __device__ __forceinline__ void step(int e) {
-    c += e ? 7 : 1;
-    while (c >= W) {
-      c -= W;
-      ++r;
-    }
-  }
-};
 
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));

@@ -1,10 +1,11 @@
 // Split-TF32 building blocks of the f32 encoder attention kernels on
-// mma.sync: the backward K5 (attention_bwd.cu, attn_bwd_dq_tf32_kernel /
-// attn_bwd_dkv_tf32_kernel) and the windowed body shared by K2
-// (attention.cu, attn_windowed_tf32_kernel) and K7 (attention_winimg.cu,
-// attn_winimg_tf32_kernel): window_tiles_tf32. The shape-independent
-// primitives (split, mma1688, Frag, mma3, load_a, acc_a) are split_tf32.cuh's.
-// (The f32 K1 and K6 are on wgmma: attention_relpos_wgmma_tf32.cu.)
+// mma.sync: the windowed body shared by K2 (attention.cu,
+// attn_windowed_tf32_kernel) and K7 (attention_winimg.cu,
+// attn_winimg_tf32_kernel), window_tiles_tf32, and its tile copy. The
+// shape-independent primitives (split, mma1688, Frag, mma3, load_a, acc_a)
+// are split_tf32.cuh's. (The f32 K1 and K6 are on wgmma:
+// attention_relpos_wgmma_tf32.cu; the f32 K5 too:
+// attention_bwd_wgmma_tf32.cu.)
 //
 // f32 has no tensor-core type of its own, and TF32 keeps 10 mantissa bits
 // (about three digits). Each f32 operand x is split as hi = tf32(x)
@@ -30,8 +31,8 @@
 // An accumulator tile is an A fragment once the 8 k indices of the next
 // product are permuted (logical t <-> 2t, t + 4 <-> 2t + 1): a = {c0, c2,
 // c1, c3}; its B fragment then takes rows 2t and 2t + 1 of a tile stored
-// [k][n] (b0 row 2t, col g: bank 8t + g, again 32 banks). So p (or ds)
-// goes from one product into the next without a trip through shared memory.
+// [k][n] (b0 row 2t, col g: bank 8t + g, again 32 banks). So p goes from
+// one product into the next without a trip through shared memory.
 
 #pragma once
 
@@ -43,7 +44,6 @@ namespace tf32 {
 
 using mma::TILE;
 constexpr int LDF = D + 4;  // padded shared row (floats)
-constexpr int TILE_FLOATS = TILE * LDF;
 constexpr uint32_t TF32_ONE = 0x3F800000u;  // 1.0f, exact in TF32
 
 // the shape-independent primitives (split_tf32.cuh)
@@ -54,76 +54,6 @@ using stf32::mma1688;
 using stf32::mma3;
 using stf32::split;
 using stf32::split_frag;
-
-// acc[dn][16][64] += P . B: P the NT accumulator tiles p[j] (16 x 8 NT, k
-// permuted), B a [8 NT][64] tile stored [k][n] -- p.v, ds.k, p^T.dO, ds^T.q
-template <int NT>
-__device__ __forceinline__ void product_kn(float (*acc)[4],
-                                           const float (*p)[4],
-                                           const float* b_tile, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    Frag a;
-    acc_a(a, p[j]);
-    const float* b = b_tile + (8 * j + 2 * t) * LDF + g;
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn)
-      mma3(acc[dn], a, b[8 * dn], b[LDF + 8 * dn]);
-  }
-}
-
-// acc0[j] += A0 . B0^T and acc1[j] += A1 . B1^T for the NT n8 tiles j of
-// B0 and B1, in one k loop (twice the accumulator chains in flight): A0 and
-// A1 the 16 rows r0.. of row-major [row][64] tiles, B0 and B1 [8 NT][64]
-// tiles stored [n][k] -- the score products q.k^T with dO.v^T, k.q^T with
-// v.dO^T. KU of the 8 k steps are unrolled (it bounds the loads in flight).
-template <int NT, int KU = D / 8>
-__device__ __forceinline__ void product_nk2(float (*acc0)[4],
-                                            const float* a0_tile,
-                                            const float* b0_tile,
-                                            float (*acc1)[4],
-                                            const float* a1_tile,
-                                            const float* b1_tile, int r0,
-                                            int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll (KU)
-  for (int kk = 0; kk < D / 8; ++kk) {
-    Frag a0, a1;
-    load_a(a0, a0_tile, LDF, r0, 8 * kk, lane);
-    load_a(a1, a1_tile, LDF, r0, 8 * kk, lane);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int o = (8 * j + g) * LDF + 8 * kk + t;
-      mma3(acc0[j], a0, b0_tile[o], b0_tile[o + 4]);
-      mma3(acc1[j], a1, b1_tile[o], b1_tile[o + 4]);
-    }
-  }
-}
-
-// Two independent products of product_kn's kind in one loop (acc0 += P0 .
-// B0, acc1 += P1 . B1)
-template <int NT>
-__device__ __forceinline__ void product_kn2(float (*acc0)[4],
-                                            const float (*p0)[4],
-                                            const float* b0_tile,
-                                            float (*acc1)[4],
-                                            const float (*p1)[4],
-                                            const float* b1_tile, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    Frag a0, a1;
-    acc_a(a0, p0[j]);
-    acc_a(a1, p1[j]);
-    const int o = (8 * j + 2 * t) * LDF + g;
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      mma3(acc0[dn], a0, b0_tile[o + 8 * dn], b0_tile[o + LDF + 8 * dn]);
-      mma3(acc1[dn], a1, b1_tile[o + 8 * dn], b1_tile[o + LDF + 8 * dn]);
-    }
-  }
-}
 
 // rows [row0, row0 + rows) x 64 columns of a row-major f32 matrix
 // (`stride` floats per row) -> shared rows of LDF floats, asynchronously,
@@ -138,37 +68,6 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src,
     const bool ok = row0 + r < n;
     mma::cp_async16(dst + r * LDF + c,
                     src + (size_t)(ok ? row0 + r : 0) * stride + c, ok);
-  }
-}
-
-// Shared row length of bias factors (`len` floats per query): a multiple of
-// 8 is padded by 4 floats (64 -> 68: eight rows on eight bank groups), any
-// other length left as it is
-__host__ __device__ __forceinline__ int factor_ld(int len) {
-  return len % 8 ? len : len + 4;
-}
-
-// `rows` rows of `len` factors, the first `nrows` from src (row-major) and
-// the rest zero -> shared rows of factor_ld(len), asynchronously, by a
-// block of NTH threads: in 16-byte pieces where the rows allow it (every
-// ViT global layer), else in 4-byte ones
-template <int NTH>
-__device__ __forceinline__ void load_factors(float* dst, const float* src,
-                                             int len, int nrows, int rows) {
-  const int ld = factor_ld(len);
-  if (len % 4 == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    const int chunks = len / 4;
-    for (int i = threadIdx.x; i < rows * chunks; i += NTH) {
-      const int r = i / chunks, c = (i - r * chunks) * 4;
-      const bool ok = r < nrows;
-      mma::cp_async16(dst + r * ld + c, src + (ok ? r * len + c : 0), ok);
-    }
-  } else {
-    for (int i = threadIdx.x; i < rows * len; i += NTH) {
-      const int r = i / len, c = i - r * len;
-      const bool ok = r < nrows;
-      mma::cp_async4(dst + r * ld + c, src + (ok ? i : 0), ok);
-    }
   }
 }
 

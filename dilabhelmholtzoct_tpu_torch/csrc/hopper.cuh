@@ -3,7 +3,9 @@
 // the f32 K6 and K1 (attention_relpos_wgmma_tf32.cu,
 // attn_relpos_wgmma_tf32_kernel), the
 // bf16 K5 kernels (attention_bwd.cu, attn_bwd_dq_wgmma_kernel and
-// attn_bwd_dkv_wgmma_kernel), the K4 weight pass in both types
+// attn_bwd_dkv_wgmma_kernel), the f32 K5 kernels
+// (attention_bwd_wgmma_tf32.cu, attn_bwd_dq_wgmma_tf32_kernel and
+// attn_bwd_dkv_wgmma_tf32_kernel), the K4 weight pass in both types
 // (decoder_attn.cu, i2t_bwd_dw_wgmma_kernel and i2t_bwd_dw_tf32_kernel) and
 // the f32 K3 weight pass (upscaler.cu, upscale_bwd_dw_tf32_kernel).
 //
@@ -27,9 +29,11 @@
 //     mma_tf32_rs<16 | 32 | 48 | 64 | 80 | 96 | 112 | 128 | 256>  TF32, A
 //       in registers, B K-major (the f32 K3 and K4 weight passes at 128 /
 //       256; the f32 K6's q . k^T over its key tile and p . v over its
-//       head);
+//       head; the f32 K5's lo . tile^T score terms at 32 and its gradient
+//       products at 64);
 //     mma_tf32_ss<32>  TF32, both operands in shared memory, K-major (the
-//       f32 K6's q_hi . k where q_hi stays in shared memory).
+//       f32 K6's q_hi . k where q_hi stays in shared memory; the f32 K5's
+//       score terms of the unit's raw rows).
 //
 // Accumulator layout of a wgmma m64nN f32 tile (PTX ISA, "Register
 // fragment: wgmma .m64nNk*"): warp w of the warpgroup, lane = 4 g + t,

@@ -38,7 +38,7 @@ def _kind(name: str) -> str:
         return "K2 attn_windowed"
     if "attn_relpos" in low:  # the K6 kernels are the K1 (and bf16 K2) too
         return "K1 / K6 attn_relpos"
-    if "attn_bwd" in low:
+    if "attn_bwd" in low or "_images_kernel" in low:  # K5's f32 pre-passes
         return "K5 attn_bwd"
     if "upscale_" in low:
         return "K3 upscaler"

@@ -21,12 +21,14 @@ launches hand-written kernels:
     14x14 windows at ViT-B), replacing the TPU ``_windowed_group_kernel``.
     With a gradient to take, K1 / K2 also write the rows' logsumexp (the
     TPU kernels' ``return_lse``);
-  * K5's dq and dk/dv kernels (``csrc/attention_bwd.cu``: f32
-    ``attn_bwd_dq_tf32_kernel`` / ``attn_bwd_dkv_tf32_kernel``, bf16
-    ``attn_bwd_dq_wgmma_kernel`` on the plan of ``dq_plan`` /
-    ``attn_bwd_dkv_wgmma_kernel``, on wgmma and TMA) for the backward of
+  * K5's dq and dk/dv kernels, on wgmma and TMA, for the backward of
     either, replacing the TPU ``_flash_packed_bwd``
-    (``_packed_bwd_dq_kernel``, ``_packed_bwd_dkv_kernel``);
+    (``_packed_bwd_dq_kernel``, ``_packed_bwd_dkv_kernel``): f32
+    ``attn_bwd_dq_wgmma_tf32_kernel`` / ``attn_bwd_dkv_wgmma_tf32_kernel``
+    in split TF32 (``csrc/attention_bwd_wgmma_tf32.cu``, on the plans of
+    ``dq_plan_f32`` / ``dkv_plan_f32``), bf16 ``attn_bwd_dq_wgmma_kernel``
+    on the plan of ``dq_plan`` / ``attn_bwd_dkv_wgmma_kernel``
+    (``csrc/attention_bwd.cu``);
   * K6 ``attn_relpos_wgmma_tf32_kernel`` (f32, split TF32 on wgmma and
     TMA, ``csrc/attention_relpos_wgmma_tf32.cu``, launched on the plan of
     ``relpos_plan_f32``) / ``attn_relpos_wgmma_kernel`` (bf16, on wgmma and
@@ -72,7 +74,7 @@ HEAD_DIM = 64            # K1 / K2 / K5 / K7
 RELPOS_MAX_HEAD_DIM = 128  # K6 takes every multiple of 4 up to this
 
 _BOUND = {"attention": False, "attention_bwd": False,
-          "attention_relpos_wgmma": False,
+          "attention_bwd_wgmma_tf32": False, "attention_relpos_wgmma": False,
           "attention_relpos_wgmma_tf32": False, "attention_winimg": False}
 SMEM_MAX = 232448  # shared memory a block may use on an H100
 RELPOS_SMEM_FIXED = 1024 + 128  # wg::SMEM_FIXED: alignment slack, mbarriers
@@ -293,6 +295,116 @@ def dq_plan(n: int, hw) -> DqPlan:
     raise NotImplementedError(
         f"K5 bf16 dq: no plan fits in shared memory over a {hw} grid (one "
         f"stage takes {DQ_SMEM_FIXED + unit + kv + sums} bytes)")
+
+
+@dataclasses.dataclass(frozen=True)
+class DqPlanF32:
+    """The launch plan of K5's f32 dq kernel (``attn_bwd_dq_wgmma_tf32_kernel``,
+    ``csrc/attention_bwd_wgmma_tf32.cu``): ``mode`` "grid" (W <= 16: a tile
+    is two grid rows of 16 key slots) or "row_tile" (16 < W <= 64: a grid
+    row is ``tpr`` tiles of 32 slots; 2 at W = 64), ``tpr`` (0 for "grid"),
+    the key tiles, the bytes of a key tile's image in the scratch tensor
+    (K^T raw and lo, and for "row_tile" K's and V's lo rows: "grid" has the
+    kernel write those), the depths of the K / V ring and of the unit (Q,
+    dO and for "row_tile" L, D and rel_w rows of 128 queries) ring, and the
+    shared memory of a block in bytes."""
+    mode: str
+    tpr: int
+    tiles: int
+    image: int
+    kv_stages: int
+    u_stages: int
+    smem: int
+
+
+@dataclasses.dataclass(frozen=True)
+class DkvPlanF32:
+    """The launch plan of K5's f32 dk/dv kernel
+    (``attn_bwd_dkv_wgmma_tf32_kernel``): ``mode`` "row_tile" (W = 64 and an
+    even H: a warpgroup's 64 keys are one grid row) or "generic", the query
+    tiles of 32, the bytes of a query tile's image in the scratch tensor
+    (Q's and dO's lo rows and transposes, raw and lo, L, D and bias rows),
+    the depth of the ring of query stages, and the shared memory of a block
+    in bytes."""
+    mode: str
+    qtiles: int
+    image: int
+    stages: int
+    smem: int
+
+
+BWD_F32_SMEM_FIXED = 1024 + 128  # bt::SMEM_FIXED: alignment slack, mbarriers
+BWD_F32_PART = 32 * HEAD_DIM * 4  # bt::PART: one 32 x 64 f32 part of an image
+BWD_F32_RAW = 2 * BWD_F32_PART  # bt::RAW: a stage's raw rows, landed by TMA
+BWD_F32_KV_STAGE = 6 * BWD_F32_PART  # bt::KV_STAGE: the dq kernel's K / V stage
+BWD_F32_UNIT_KV = 4 * 128 * 128  # bt::UNIT_KV: a dk/dv unit's K and V
+
+
+def _up(x, m):
+    return -(-x // m) * m
+
+
+def _factor_pitch(length):
+    """bt::pitch: a staged bias row of the dk/dv image, padded by 4 floats
+    where its length is a multiple of 8."""
+    return length if length % 8 else length + 4
+
+
+@functools.lru_cache(maxsize=None)
+def dq_plan_f32(n: int, hw) -> DqPlanF32:
+    """K5's f32 dq kernel's plan over an ``hw`` grid of ``n`` tokens: a unit
+    stage holds Q and dO (2 x 32 KB) and for "row_tile" L and D (1 KB) and
+    the unit's rel_w rows (128 x (32 tpr + 8) f32, 1 KB-aligned), a K / V
+    stage a key tile's K and V rows (16 KB, TMA), their lo parts (16 KB:
+    "grid" writes them in the kernel, "row_tile" lands them with the image)
+    and K^T's raw and lo parts (16 KB, the image); the deepest rings that
+    fit in a block's shared memory, with two K / V stages at least where a
+    unit has more than one tile. Raises where none fits (W > 64)."""
+    h, w = hw
+    if w > 64:
+        raise NotImplementedError(
+            f"K5 f32 dq: no plan for a {hw} grid (a grid row takes at most "
+            "64 keys)")
+    tpr = 0 if w <= 16 else -(-w // 32)
+    tiles = h * tpr if tpr else -(-h // 2)
+    unit = (_up(2 * 2 * 128 * 128 + 2 * 4 * 128 + 4 * 128 * (32 * tpr + 8),
+                1024) if tpr else 2 * 2 * 128 * 128)
+    for u_stages, kv_stages in ((2, 3), (2, 2), (1, 4), (1, 3), (1, 2),
+                                (1, 1)):
+        smem = (BWD_F32_SMEM_FIXED + u_stages * unit
+                + kv_stages * BWD_F32_KV_STAGE)
+        if smem <= SMEM_MAX and (kv_stages > 1 or tiles == 1):
+            # the stage past the raw rows ("row_tile") or past their lo
+            # parts too ("grid")
+            image = BWD_F32_KV_STAGE - (1 if tpr else 2) * BWD_F32_RAW
+            return DqPlanF32("row_tile" if tpr else "grid", tpr, tiles,
+                             image, kv_stages, u_stages, smem)
+    raise NotImplementedError(
+        f"K5 f32 dq: no plan fits in shared memory over a {hw} grid")
+
+
+@functools.lru_cache(maxsize=None)
+def dkv_plan_f32(n: int, hw) -> DkvPlanF32:
+    """K5's f32 dk/dv kernel's plan over an ``hw`` grid of ``n`` tokens: a
+    unit's K and V (64 KB) beside a ring of query stages, each a query
+    tile's Q and dO rows (16 KB, TMA) and its image (6 parts of 8 KB, L and
+    D, 32 rel_w rows and, but for "row_tile", 32 rel_h rows of
+    ``_factor_pitch`` f32; the stage 1 KB-aligned); the deepest ring of up
+    to three stages that fits (one only where a bias row is ~100 wide or
+    more: no SAM grid). Raises where none fits."""
+    h, w = hw
+    row_tile = w == 64 and h % 2 == 0
+    stage = _up(8 * BWD_F32_PART + 2 * 4 * 32 + 4 * 32 * _factor_pitch(w)
+                + (0 if row_tile else 4 * 32 * _factor_pitch(h)), 1024)
+    image = stage - BWD_F32_RAW
+    for stages in (3, 2, 1):
+        smem = BWD_F32_SMEM_FIXED + BWD_F32_UNIT_KV + stages * stage
+        if smem <= SMEM_MAX:
+            return DkvPlanF32("row_tile" if row_tile else "generic",
+                              -(-n // 32), image, stages, smem)
+    raise NotImplementedError(
+        f"K5 f32 dk/dv: no plan fits in shared memory over a {hw} grid (a "
+        f"query tile's image takes {image} bytes)")
 
 
 def reset_launch_counts() -> None:
@@ -553,9 +665,12 @@ def _bind(name):
             fns = [(lib.dhoct_attn_relpos_bf16, [p] * 5 + [i] * 13 + [p])]
         elif name == "attention_winimg":
             fns = [(lib.dhoct_attn_windowed_image, [p] * 4 + [i] * 6 + [p])]
+        elif name == "attention_bwd_wgmma_tf32":
+            fns = [(lib.dhoct_attn_bwd_dq_f32, [p] * 10 + [i] * 10 + [p]),
+                   (lib.dhoct_attn_bwd_dkv_f32, [p] * 8 + [i] * 8 + [p])]
         else:
-            fns = [(lib.dhoct_attn_bwd_dq, [p] * 9 + [i] * 10 + [p]),
-                   (lib.dhoct_attn_bwd_dkv, [p] * 7 + [i] * 7 + [p])]
+            fns = [(lib.dhoct_attn_bwd_dq, [p] * 9 + [i] * 9 + [p]),
+                   (lib.dhoct_attn_bwd_dkv, [p] * 7 + [i] * 6 + [p])]
         for fn, sig in fns:
             fn.argtypes = sig
             fn.restype = ctypes.c_int
@@ -732,7 +847,8 @@ def attention_windowed_image_cuda(qkv_img, rel, qkv_bias, *, ws: int,
 
 def _bwd_operands(qkv, rel_h, rel_w, g_out, lse, dvec, dqkv, hw,
                   num_heads):
-    """Check K5's operands; returns (the library, operand pointers, dims)."""
+    """Check K5's operands; returns (the library of qkv's dtype, operand
+    pointers, (B, N, heads, H, W), the stream)."""
     _check(qkv, rel_h, rel_w, hw, num_heads)
     _kernel_dims(qkv, num_heads)
     b, n, c3 = qkv.shape
@@ -745,30 +861,46 @@ def _bwd_operands(qkv, rel_h, rel_w, g_out, lse, dvec, dqkv, hw,
                          f"{(b, num_heads, n)}, dqkv {tuple(qkv.shape)}; got "
                          f"{tuple(g_out.shape)}, {tuple(lse.shape)}, "
                          f"{tuple(dvec.shape)}, {tuple(dqkv.shape)}")
-    dims = (b, n, num_heads, hw[0], hw[1], kernels.DTYPE_CODE[dt])
-    return (_bind("attention_bwd"), [t.data_ptr() for t in args], dims,
+    lib = _bind("attention_bwd_wgmma_tf32" if dt == f32 else "attention_bwd")
+    return (lib, [t.data_ptr() for t in args],
+            (b, n, num_heads, hw[0], hw[1]),
             torch.cuda.current_stream(qkv.device).cuda_stream)
+
+
+def _blocks(qkv, num_heads):
+    """Persistent blocks of a K5 launch over units of 128 rows: one an SM
+    at most."""
+    b, n = qkv.shape[:2]
+    return min(b * num_heads * -(-n // 128), kernels.sm_count(qkv.device))
 
 
 def attention_bwd_dq_cuda(qkv, rel_h, rel_w, g_out, lse, dvec, dqkv, *, hw,
                           num_heads: int):
     """Launch K5's dq kernel: writes dq into the q columns of ``dqkv``
     (B, N, 3C) and returns (drel_h, drel_w). bf16
-    ``attn_bwd_dq_wgmma_kernel`` on the plan of ``dq_plan``, one persistent
-    block per SM at most; f32 ``attn_bwd_dq_tf32_kernel``."""
+    ``attn_bwd_dq_wgmma_kernel`` on the plan of ``dq_plan``; f32
+    ``attn_bwd_dq_wgmma_tf32_kernel`` on the plan of ``dq_plan_f32``, after
+    its pre-pass writes the key tiles' images into a scratch tensor; one
+    persistent block per SM at most."""
     lib, ptrs, dims, stream = _bwd_operands(qkv, rel_h, rel_w, g_out, lse,
                                             dvec, dqkv, hw, num_heads)
     drel_h, drel_w = torch.empty_like(rel_h), torch.empty_like(rel_w)
-    plan = (0, 0, 0, 0)
-    if qkv.dtype == torch.bfloat16:
-        b, n = qkv.shape[:2]
-        p = dq_plan(n, tuple(hw))
-        units = b * num_heads * -(-n // 128)
-        plan = (p.nk, p.kv_stages, p.u_stages,
-                min(units, kernels.sm_count(qkv.device)))
-    with torch.cuda.device(qkv.device):
-        err = lib.dhoct_attn_bwd_dq(*ptrs, drel_h.data_ptr(),
-                                    drel_w.data_ptr(), *dims, *plan, stream)
+    b, n = qkv.shape[:2]
+    blocks = _blocks(qkv, num_heads)
+    with kernels.on_device(qkv.device):
+        if qkv.dtype == torch.float32:
+            p = dq_plan_f32(n, tuple(hw))
+            img = torch.empty(b * num_heads * p.tiles * p.image,
+                              dtype=torch.uint8, device=qkv.device)
+            err = lib.dhoct_attn_bwd_dq_f32(
+                *ptrs, drel_h.data_ptr(), drel_w.data_ptr(), img.data_ptr(),
+                *dims, p.tpr, p.tiles, p.kv_stages, p.u_stages, blocks,
+                stream)
+        else:
+            p = dq_plan(n, tuple(hw))
+            err = lib.dhoct_attn_bwd_dq(
+                *ptrs, drel_h.data_ptr(), drel_w.data_ptr(), *dims, p.nk,
+                p.kv_stages, p.u_stages, blocks, stream)
     kernels.raise_on_error(err, lib.dhoct_error_string, "attn_bwd_dq")
     LAUNCHES["attn_bwd_dq"] += 1
     return drel_h, drel_w
@@ -777,15 +909,25 @@ def attention_bwd_dq_cuda(qkv, rel_h, rel_w, g_out, lse, dvec, dqkv, *, hw,
 def attention_bwd_dkv_cuda(qkv, rel_h, rel_w, g_out, lse, dvec, dqkv, *, hw,
                            num_heads: int):
     """Launch K5's dk/dv kernel: writes dk and dv into the k and v columns
-    of ``dqkv`` (B, N, 3C). bf16 ``attn_bwd_dkv_wgmma_kernel`` on one
-    persistent block an SM (the library sizes its ring of query stages),
-    f32 ``attn_bwd_dkv_tf32_kernel``."""
+    of ``dqkv`` (B, N, 3C). bf16 ``attn_bwd_dkv_wgmma_kernel`` (the library
+    sizes its ring of query stages); f32 ``attn_bwd_dkv_wgmma_tf32_kernel``
+    on the plan of ``dkv_plan_f32``, after its pre-pass writes the query
+    tiles' images into a scratch tensor; one persistent block per SM at
+    most."""
     lib, ptrs, dims, stream = _bwd_operands(qkv, rel_h, rel_w, g_out, lse,
                                             dvec, dqkv, hw, num_heads)
-    blocks = (kernels.sm_count(qkv.device) if qkv.dtype == torch.bfloat16
-              else 0)
-    with torch.cuda.device(qkv.device):
-        err = lib.dhoct_attn_bwd_dkv(*ptrs, *dims, blocks, stream)
+    b, n = qkv.shape[:2]
+    blocks = _blocks(qkv, num_heads)
+    with kernels.on_device(qkv.device):
+        if qkv.dtype == torch.float32:
+            p = dkv_plan_f32(n, tuple(hw))
+            img = torch.empty(b * num_heads * p.qtiles * p.image,
+                              dtype=torch.uint8, device=qkv.device)
+            err = lib.dhoct_attn_bwd_dkv_f32(*ptrs, img.data_ptr(), *dims,
+                                             p.image, p.stages, blocks,
+                                             stream)
+        else:
+            err = lib.dhoct_attn_bwd_dkv(*ptrs, *dims, blocks, stream)
     kernels.raise_on_error(err, lib.dhoct_error_string, "attn_bwd_dkv")
     LAUNCHES["attn_bwd_dkv"] += 1
 

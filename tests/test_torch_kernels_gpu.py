@@ -7,7 +7,8 @@ TF32; the backwards of both as their two launches, the row pass and the
 weight pass, each against its plain twin; the kernels on wgmma and TMA --
 the bf16 K6 and K1 (K6's kernel with the logsumexp rows), the f32 K6 and
 K1 in split TF32 (likewise one kernel), K5's bf16 dq kernel in each of its
-modes and its dk/dv kernel, both K4 weight passes -- on their own plans);
+modes and its dk/dv kernel, K5's f32 kernels in split TF32, both K4 weight
+passes -- on their own plans);
 the topological loss's pairing
 T1 (on its shared-memory route and, for grids past one block's shared
 memory, its global one) and matching T2 against their numpy twins and the
@@ -128,8 +129,9 @@ def test_kernel_lse_matches_plain_on_card(cuda_device, dtype, b, nh, hw):
 @pytest.mark.parametrize("b,nh,hw", ATTN_SHAPES)
 def test_attention_bwd_kernels_match_plain_on_card(cuda_device, dtype, b, nh,
                                                    hw):
-    """K5 (both kernels) against ``packed_attention_bwd_plain`` on the same
-    (qkv, rel, dO, L, D), each output relative to its max |plain|."""
+    """K5 (both kernels: in f32 the split-TF32 wgmma kernels, in bf16 the
+    wgmma kernels) against ``packed_attention_bwd_plain`` on the same (qkv,
+    rel, dO, L, D), each output relative to its max |plain|."""
     qkv, rel_h, rel_w, g = _attn_inputs(cuda_device, dtype, b, nh, hw)
     kw = dict(hw=hw, num_heads=nh)
     out, lse = port_attn.packed_attention_plain(qkv, rel_h, rel_w,
@@ -150,6 +152,11 @@ def test_attention_bwd_kernels_match_plain_on_card(cuda_device, dtype, b, nh,
     again = port_attn.attention_bwd_cuda(qkv, rel_h, rel_w, g, lse, dvec, **kw)
     for name, a, bb in zip(("dqkv", "drel_h", "drel_w"), got, again):
         assert torch.equal(a, bb), name
+    if dtype == torch.float32:
+        ran = _device_kernels(lambda: port_attn.attention_bwd_cuda(
+            qkv, rel_h, rel_w, g, lse, dvec, **kw))
+        assert any("attn_bwd_dq_wgmma_tf32_kernel" in k for k in ran), ran
+        assert any("attn_bwd_dkv_wgmma_tf32_kernel" in k for k in ran), ran
 
 
 @pytest.mark.gpu
@@ -238,6 +245,85 @@ def test_attention_dq_wgmma_on_card(cuda_device, b, nh, hw):
         _rel_close(x, w, K34_TOL[torch.bfloat16], f"{mode} {name}")
     for x, y in zip(got, dq()):
         assert torch.equal(x, y)
+
+
+def _device_kernels(fn):
+    """The names of the device kernels one call of ``fn`` ran, from
+    ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages()
+            if (getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0)) > 0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,nh,hw", [
+    (1, 12, (64, 64)),   # ViT-B global layer: dq "row_tile", dk/dv "row_tile"
+    (25, 12, (14, 14)),  # ViT-B windows of one image: dq "grid"
+    (2, 2, (9, 7)),      # ragged: one 63-token query tile, 5 key tiles
+    (1, 2, (20, 24))])   # generic: dq "row_tile" at W = 24, one tile a row
+def test_attention_bwd_f32_wgmma_on_card(cuda_device, b, nh, hw):
+    """K5's f32 kernels on split-TF32 wgmma and TMA
+    (``attn_bwd_dq_wgmma_tf32_kernel`` on ``dq_plan_f32``,
+    ``attn_bwd_dkv_wgmma_tf32_kernel`` on ``dkv_plan_f32``), each alone:
+    its columns of dqkv (and drel) against ``packed_attention_bwd_plain``
+    within 1e-4 of max |plain|, the other columns untouched, one launch,
+    the new kernels (and no other attention backward) on the card, and the
+    same bits on a second run."""
+    qkv, rel_h, rel_w, g = _attn_inputs(cuda_device, torch.float32, b, nh,
+                                        hw, seed=8)
+    kw = dict(hw=hw, num_heads=nh)
+    n = hw[0] * hw[1]
+    assert port_attn.dq_plan_f32(n, hw).mode == (
+        "grid" if hw[1] <= 16 else "row_tile")
+    assert port_attn.dkv_plan_f32(n, hw).mode == (
+        "row_tile" if hw[1] == 64 and hw[0] % 2 == 0 else "generic")
+    out, lse = port_attn.packed_attention_plain(qkv, rel_h, rel_w,
+                                                return_lse=True, **kw)
+    dvec = port_attn.bwd_dvec(g, out, nh)
+    want = port_attn.packed_attention_bwd_plain(qkv, rel_h, rel_w, g, lse,
+                                                dvec, **kw)
+    c = nh * 64
+
+    def dq():
+        dqkv = torch.full_like(qkv, 7.0)
+        drel = port_attn.attention_bwd_dq_cuda(qkv, rel_h, rel_w, g, lse,
+                                               dvec, dqkv, **kw)
+        return (dqkv,) + tuple(drel)
+
+    def dkv():
+        dqkv = torch.full_like(qkv, 7.0)
+        port_attn.attention_bwd_dkv_cuda(qkv, rel_h, rel_w, g, lse, dvec,
+                                         dqkv, **kw)
+        return dqkv
+
+    before = dict(port_attn.LAUNCHES)
+    got_q, got_kv = dq(), dkv()
+    torch.cuda.synchronize()
+    assert port_attn.LAUNCHES["attn_bwd_dq"] == before["attn_bwd_dq"] + 1
+    assert port_attn.LAUNCHES["attn_bwd_dkv"] == before["attn_bwd_dkv"] + 1
+    assert bool((got_q[0][..., c:] == 7.0).all())
+    assert bool((got_kv[..., :c] == 7.0).all())
+    for name, x, w in (("dq", got_q[0][..., :c], want[0][..., :c]),
+                       ("drel_h", got_q[1], want[1]),
+                       ("drel_w", got_q[2], want[2]),
+                       ("dk", got_kv[..., c:2 * c], want[0][..., c:2 * c]),
+                       ("dv", got_kv[..., 2 * c:], want[0][..., 2 * c:])):
+        assert x.dtype == torch.float32 and x.shape == w.shape, name
+        assert bool(torch.isfinite(x).all()), name
+        _rel_close(x, w, K34_TOL[torch.float32], name)
+    for x, y in zip(got_q, dq()):
+        assert torch.equal(x, y)
+    assert torch.equal(got_kv, dkv())
+    ran = _device_kernels(lambda: (dq(), dkv()))
+    for name in ("attn_bwd_dq_wgmma_tf32_kernel",
+                 "attn_bwd_dkv_wgmma_tf32_kernel"):
+        assert any(name in k for k in ran), (name, ran)
+    assert not any("attn_bwd_d" in k and "tf32" not in k for k in ran), ran
 
 
 @pytest.mark.gpu
@@ -339,6 +425,13 @@ def test_attention_autograd_runs_k5_on_card(cuda_device):
                             "attn_windowed_image": 0}, launched
     for name, a, bb in zip(("dqkv", "drel_h", "drel_w"), *grads):
         _rel_close(a, bb, K34_TOL[torch.float32], name)
+    # the f32 route: K5's split-TF32 wgmma kernels
+    args = [x.clone().requires_grad_(True) for x in (qkv, rel_h, rel_w)]
+    ran = _device_kernels(lambda: (port_attn.flash_attention_packed(
+        *args, hw=(20, 15), num_heads=2) * t).sum().backward())
+    for name in ("attn_bwd_dq_wgmma_tf32_kernel",
+                 "attn_bwd_dkv_wgmma_tf32_kernel"):
+        assert any(name in k for k in ran), (name, ran)
 
 
 @pytest.mark.gpu
@@ -741,8 +834,8 @@ def test_winimg_kernel_matches_plain_and_k2_on_card(cuda_device, dtype, b,
 
 # the f32 kernels on the tensor cores in split TF32: library -> kernels
 TF32_KERNELS = {"attention": ("attn_windowed_tf32_kernel",),
-                "attention_bwd": ("attn_bwd_dq_tf32_kernel",
-                                  "attn_bwd_dkv_tf32_kernel"),
+                "attention_bwd_wgmma_tf32": ("attn_bwd_dq_wgmma_tf32_kernel",
+                                             "attn_bwd_dkv_wgmma_tf32_kernel"),
                 "attention_relpos_wgmma_tf32": (
                     "attn_relpos_wgmma_tf32_kernel",),
                 "attention_winimg": ("attn_winimg_tf32_kernel",),
@@ -759,9 +852,10 @@ TF32_KERNELS = {"attention": ("attn_windowed_tf32_kernel",),
 def test_f32_kernels_on_tf32_tensor_cores(cuda_device, lib):
     """The f32 K1, K2, K3, K4, K5, K6 and K7 kernels hold TF32 tensor-core
     instructions (HMMA.1688.F32.TF32 from mma.sync; HGMMA on TF32 in the
-    kernels on wgmma: the K3 / K4 weight passes, the K1 / K6 kernel, which
-    holds no HMMA) in their SASS and use no local memory (no spills, no
-    stack), from ``cuobjdump`` on the built library."""
+    kernels on wgmma: the K3 / K4 weight passes, the K1 / K6 kernel and
+    K5's two kernels, which hold no HMMA) in their SASS and use no local
+    memory (no spills, no stack), from ``cuobjdump`` on the built
+    library."""
     import subprocess
 
     from dilabhelmholtzoct_tpu_torch import kernels

@@ -1,15 +1,16 @@
 """The error of the split-TF32 products of the f32 encoder attention kernels
-on the tensor cores (``csrc/attention_tf32.cuh``: K5's backward and the
-windowed body of K2 / K7; ``csrc/attention_relpos_wgmma_tf32.cu``: K1 and
-K6 on wgmma), emulated on the CPU.
+on the tensor cores (``csrc/attention_tf32.cuh``: the windowed body of K2 /
+K7; ``csrc/attention_relpos_wgmma_tf32.cu``: K1 and K6 on wgmma;
+``csrc/attention_bwd_wgmma_tf32.cu``: K5's backward on wgmma), emulated on
+the CPU.
 
 A kernel on mma.sync splits each f32 operand x as hi = tf32(x) (rounded as
 ``cvt.rna.tf32.f32`` rounds: to nearest on the 13 low mantissa bits, ties
 away from zero; the kernels add half a TF32 ulp to the bits and clear the 13
 low ones, as ``tf32_rna`` below) and lo = x - hi, whose top 19 bits the
 tensor cores read (truncation, emulated as such), and takes a product a.b as
-lo_a.hi_b + hi_a.lo_b + hi_a.hi_b with f32 accumulation. The wgmma kernel of
-K1 / K6 splits by truncation (``split_trunc``): the raw f32 is its own hi,
+lo_a.hi_b + hi_a.lo_b + hi_a.hi_b with f32 accumulation. The wgmma kernels of
+K1 / K6 and K5 split by truncation (``split_trunc``): the raw f32 is its own hi,
 since the tensor cores read its top 19 bits, and lo = x - trunc(x). Products
 of TF32 values are exact in f32, so an f32 matmul of the split operands on
 the CPU emulates the tensor cores up to the order of the f32 sums.
@@ -216,8 +217,10 @@ def test_tf32_trunc_split_recovers_x():
                                      (4, 2, (14, 14))],  # 4 windows
                          ids=["global_64x64", "windows_14x14"])
 def test_split_tf32_k5_backward_error(b, nh, hw):
-    """K5's products in split TF32 against ``packed_attention_bwd_plain``
-    in f32, from the plain forward's L and D."""
+    """K5's products in split TF32 by rounding (``mm_split``, the mma.sync
+    kernels' split) over whole rows, against ``packed_attention_bwd_plain``
+    in f32, from the plain forward's L and D; the wgmma kernels' own
+    arithmetic: ``test_split_tf32_k5_wgmma_error``."""
     qkv, rel_h, rel_w, g = _inputs(b, nh, hw)
     kw = dict(hw=hw, num_heads=nh)
     out, lse = port_attn.packed_attention_plain(qkv, rel_h, rel_w,
@@ -228,6 +231,112 @@ def test_split_tf32_k5_backward_error(b, nh, hw):
     args = (qkv, rel_h, rel_w, g, lse, dvec, nh)
     split_err = _errors(emulated_bwd(*args, mm_split), want)
     single_err = _errors(emulated_bwd(*args, mm_single), want)
+    _assert_split_beats_single(split_err, single_err,
+                               ("dqkv", "drel_h", "drel_w"))
+
+
+def _dq_tiles(hw):
+    """The key tiles of K5's f32 dq kernel on ``dq_plan_f32``: per tile its
+    32 slots' keys (-1: an empty slot), grid rows and grid columns. GRID (W
+    <= 16) two grid rows of 16 slots a tile, else 32-slot parts of a grid
+    row, ``tpr`` a row."""
+    h, w = hw
+    plan = port_attn.dq_plan_f32(h * w, hw)
+    s = np.arange(32)
+    tiles = []
+    for t in range(plan.tiles):
+        if plan.tpr == 0:
+            kr, kc = 2 * t + s // 16, s % 16
+        else:
+            kr, kc = np.full(32, t // plan.tpr), 32 * (t % plan.tpr) + s
+        ok = (kr < h) & (kc < w)
+        tiles.append((torch.tensor(np.where(ok, kr * w + kc, -1)), kr, kc))
+    return tiles
+
+
+def _lane_then_quad(parts):
+    """A drel_h sum as the kernel takes it: each lane of a quad (t = slot %
+    8 // 2) sums its slots' values in slot order, then the quad's four sums
+    as ``quad_sum`` adds them, (t0 + t1) + (t2 + t3). ``parts``: (slot,
+    value) in the order the kernel meets them."""
+    lane = [0.0] * 4
+    for slot, x in parts:
+        t = slot % 8 // 2
+        lane[t] = lane[t] + x
+    return (lane[0] + lane[1]) + (lane[2] + lane[3])
+
+
+def emulated_bwd_wgmma(qkv, rel_h, rel_w, g, lse, dvec, nh, hw, mm):
+    """K5's f32 kernels on wgmma (``attn_bwd_dq_wgmma_tf32_kernel``,
+    ``attn_bwd_dkv_wgmma_tf32_kernel``), every product through ``mm``:
+    the dq kernel walks the key tiles of ``dq_plan_f32`` (empty slots: zero
+    rows of K and V, bias -inf, p = 0) and sums dq over them in tile order,
+    drel_w of each grid column over the grid rows in order, drel_h of each
+    grid row lane by lane then over the quad (``_lane_then_quad``); the
+    dk/dv kernel walks query tiles of 32 with the keys as rows (S^T = K .
+    Q^T), p and ds in f32, dv += p^T . dO and dk += ds^T . Q a tile at a
+    time; the 1/8 after the sums (exact)."""
+    q, k, v = (_heads(t, nh) for t in qkv.chunk(3, dim=-1))
+    go = _heads(g, nh)
+    bias = _bias(rel_h, rel_w)
+    h, w = hw
+    n = h * w
+    lse_, dvec_ = lse[..., None], dvec[..., None]
+    dq = torch.zeros_like(q)
+    drel_h = torch.zeros_like(rel_h)
+    drel_w = torch.zeros_like(rel_w)
+    row_parts = {kr: [] for kr in range(h)}
+    for keys, kr, kc in _dq_tiles(hw):
+        ok = keys >= 0
+        idx = keys.clamp(min=0)
+        kt = k[..., idx, :] * ok[:, None]
+        vt = v[..., idx, :] * ok[:, None]
+        bt = torch.where(ok, bias[..., idx], torch.tensor(-torch.inf))
+        p = torch.exp(mm(q, kt.transpose(-1, -2)) * 0.125 + bt - lse_)
+        ds = p * (mm(go, vt.transpose(-1, -2)) - dvec_)
+        dq = dq + mm(ds, kt)
+        for slot in range(32):
+            if ok[slot]:
+                drel_w[..., kc[slot]] += ds[..., slot]
+                row_parts[int(kr[slot])].append((slot, ds[..., slot]))
+    for kr, parts in row_parts.items():
+        drel_h[..., kr] = _lane_then_quad(parts)
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for q0 in range(0, n, 32):
+        qs = slice(q0, min(q0 + 32, n))
+        p = torch.exp(mm(k, q[..., qs, :].transpose(-1, -2)) * 0.125
+                      + bias[..., qs, :].transpose(-1, -2)
+                      - lse[..., None, qs])
+        ds = p * (mm(v, go[..., qs, :].transpose(-1, -2)) - dvec[..., None, qs])
+        dv = dv + mm(p, go[..., qs, :])
+        dk = dk + mm(ds, q[..., qs, :])
+    dqkv = torch.cat([_merge(dq * 0.125), _merge(dk * 0.125), _merge(dv)],
+                     dim=-1)
+    return dqkv, drel_h, drel_w
+
+
+@pytest.mark.parametrize("b,nh,hw", [(1, 2, (64, 64)),   # a global layer
+                                     (4, 2, (14, 14)),   # 4 windows
+                                     (3, 2, (9, 7)),     # ragged: 63 keys
+                                     (1, 2, (20, 24))],  # W = 24: one tile a row
+                         ids=["global_64x64", "windows_14x14", "ragged_9x7",
+                              "grid_20x24"])
+def test_split_tf32_k5_wgmma_error(b, nh, hw):
+    """K5's f32 wgmma kernels' own arithmetic (``emulated_bwd_wgmma``: the
+    truncation split, the plans' tiles, the drel summation order) against
+    ``packed_attention_bwd_plain`` in f32, from the plain forward's L and
+    D; one TF32 product of the raw operands is the single-TF32
+    yardstick."""
+    qkv, rel_h, rel_w, g = _inputs(b, nh, hw)
+    kw = dict(hw=hw, num_heads=nh)
+    out, lse = port_attn.packed_attention_plain(qkv, rel_h, rel_w,
+                                                return_lse=True, **kw)
+    dvec = port_attn.bwd_dvec(g, out, nh)
+    want = port_attn.packed_attention_bwd_plain(qkv, rel_h, rel_w, g, lse,
+                                                dvec, **kw)
+    args = (qkv, rel_h, rel_w, g, lse, dvec, nh, hw)
+    split_err = _errors(emulated_bwd_wgmma(*args, mm_split_trunc), want)
+    single_err = _errors(emulated_bwd_wgmma(*args, mm_single_trunc), want)
     _assert_split_beats_single(split_err, single_err,
                                ("dqkv", "drel_h", "drel_w"))
 

@@ -5,7 +5,9 @@ rounding point and passes), ``ops.attention.relpos_plan_f32`` (the f32 K6
 and K1, ``csrc/attention_relpos_wgmma_tf32.cu``: mode, key tile, ring
 depths, shared memory), ``ops.attention.dq_plan`` (K5's bf16 dq
 kernel, ``csrc/attention_bwd.cu``: mode, key tile, ring depths and shared
-memory), ``ops.decoder_attn.dw_plan_f32`` / ``dw_plan_bf16`` (the K4
+memory), ``ops.attention.dq_plan_f32`` / ``dkv_plan_f32`` (K5's f32
+kernels, ``csrc/attention_bwd_wgmma_tf32.cu``: mode, tiles, ring depths,
+image and shared-memory bytes), ``ops.decoder_attn.dw_plan_f32`` / ``dw_plan_bf16`` (the K4
 weight pass in both types: its row chunks and blocks) and
 ``ops.upscaler.upscale_dw_plan_f32`` (the f32 K3 weight pass: chunks,
 units and their order, ring and blocks), with the order in which the
@@ -232,6 +234,127 @@ def test_dq_plan_pinned(hw, want):
     tile, tiles per unit, K / V and unit stages, bytes."""
     p = port_attn.dq_plan(hw[0] * hw[1], hw)
     assert (p.mode, p.nk, p.tiles, p.kv_stages, p.u_stages, p.smem) == want
+
+
+def _bwd_f32_bytes(h, w):
+    """``bt::QUnit`` / ``bt::QImage`` of csrc/attention_bwd_wgmma_tf32.cu
+    written out: (the dq unit stage, the dk/dv query stage). The dq unit:
+    Q and dO, 2 x 32 KB, and where W > 16 L and D (2 x 512 bytes) and 128
+    rel_w rows of 32 ceil(W / 32) + 8 f32, rounded up to 1 KB. The dk/dv
+    stage: 8 parts of 32 x 64 f32 (Q and dO raw by TMA, the rest the
+    image), L and D (2 x 128 bytes), 32 rel_w rows and, but for W = 64 at
+    an even H, 32 rel_h rows, each padded by 4 floats where its length is a
+    multiple of 8, rounded up to 1 KB."""
+    up = lambda x, m: -(-x // m) * m
+    pitch = lambda x: x if x % 8 else x + 4
+    tpr = 0 if w <= 16 else -(-w // 32)
+    unit = (up(65536 + 1024 + 512 * (32 * tpr + 8), 1024) if tpr
+            else 65536)
+    row_tile = w == 64 and h % 2 == 0
+    stage = up(8 * 8192 + 256 + 128 * pitch(w)
+               + (0 if row_tile else 128 * pitch(h)), 1024)
+    return unit, stage
+
+
+BWD_F32_GRIDS = GRIDS_UP_TO_256 + [(64, 64), (32, 64), (3, 64), (30, 34),
+                                   (48, 48), (125, 64), (7, 17), (20, 24)]
+
+
+def test_dq_plan_f32_modes_and_bytes():
+    """K5's f32 dq kernel has a plan on every grid of W <= 64 among the
+    grids of N <= 256 tokens and the global ones below: W <= 16 a tile of
+    two grid rows of 16 slots (GRID, ceil(H / 2) tiles), else 32-slot tiles
+    of one grid row, ceil(W / 32) a row (ROW, H of them each); the K / V
+    ring of stages of 48 KB (its K and V rows and its image), two at least
+    where a unit has more than one tile; the rings in 227 KB, the shared
+    memory the layout's own sum. Past W = 64 it raises."""
+    for h, w in BWD_F32_GRIDS:
+        n = h * w
+        if w > 64:
+            with pytest.raises(NotImplementedError, match="K5 f32 dq"):
+                port_attn.dq_plan_f32(n, (h, w))
+            continue
+        plan = port_attn.dq_plan_f32(n, (h, w))
+        tpr = 0 if w <= 16 else -(-w // 32)
+        want = (("grid", 0, -(-h // 2)) if w <= 16
+                else ("row_tile", tpr, h * tpr))
+        assert (plan.mode, plan.tpr, plan.tiles) == want, (h, w)
+        unit, _ = _bwd_f32_bytes(h, w)
+        assert plan.smem == (1152 + plan.u_stages * unit
+                             + plan.kv_stages * 49152), (h, w)
+        assert plan.smem <= port_attn.SMEM_MAX, (h, w)
+        assert plan.kv_stages >= 2 or plan.tiles == 1, (h, w)
+        assert 1 <= plan.kv_stages <= 4 and 1 <= plan.u_stages <= 2
+        # the image: K^T raw and lo, and for ROW K's and V's lo rows
+        assert plan.image == (4 if tpr else 2) * 8192, (h, w)
+
+
+def test_dkv_plan_f32_modes_and_bytes():
+    """K5's f32 dk/dv kernel has a plan on every grid of N <= 256 tokens and
+    on the global ones: "row_tile" where W = 64 and H is even, else
+    "generic"; ceil(N / 32) query tiles; the deepest ring of up to three
+    query stages beside the unit's 64 KB of K and V, two on every SAM grid
+    (one only where a bias row is ~100 wide or more); the image (what the
+    pre-pass writes a tile) the stage but for its 16 KB of raw Q and dO;
+    the shared memory the layout's own sum, in 227 KB."""
+    for h, w in BWD_F32_GRIDS:
+        n = h * w
+        plan = port_attn.dkv_plan_f32(n, (h, w))
+        assert plan.mode == ("row_tile" if w == 64 and h % 2 == 0
+                             else "generic"), (h, w)
+        assert plan.qtiles == -(-n // 32)
+        _, stage = _bwd_f32_bytes(h, w)
+        assert plan.image == stage - 16384, (h, w)
+        assert plan.smem == 1152 + 65536 + plan.stages * stage, (h, w)
+        assert plan.smem <= port_attn.SMEM_MAX, (h, w)
+        assert 1 <= plan.stages <= 3
+        if plan.stages < 3:  # the next stage would not fit
+            assert plan.smem + stage > port_attn.SMEM_MAX, (h, w)
+        if max(h, w) <= 64:
+            assert plan.stages >= 2, (h, w)
+
+
+@pytest.mark.parametrize("cfg", ["sam_vit_base", "sam_vit_large",
+                                 "sam_vit_huge", "sam_tiny"])
+def test_bwd_f32_plans_fit_every_sam_grid(cfg):
+    """Every grid a SAM encoder attends over -- its global layers' (image /
+    patch)^2 grid and its windows -- has an f32 K5 plan of each kernel, with
+    two stages of each ring where a unit has more than one tile."""
+    from dilabhelmholtzoct_tpu_torch.models import configs
+
+    v = getattr(configs, cfg)().vision
+    for hw in ((v.grid_size, v.grid_size), (v.window_size, v.window_size)):
+        n = hw[0] * hw[1]
+        dq, dkv = port_attn.dq_plan_f32(n, hw), port_attn.dkv_plan_f32(n, hw)
+        assert dq.smem <= port_attn.SMEM_MAX and dkv.smem <= port_attn.SMEM_MAX
+        assert dq.kv_stages >= 2 or dq.tiles == 1
+        assert dkv.stages >= 2
+
+
+@pytest.mark.parametrize("hw,want_dq,want_dkv", [
+    # ViT-B / L / H: the global layer (two 32-slot tiles a grid row; 128
+    # query tiles of 73 KB stages, K / V of one unit) and the 14 x 14 window
+    # (tiles of two grid rows: 7; two unit stages of 64 KB)
+    ((64, 64), ("row_tile", 2, 128, 32768, 2, 1, 202880),
+     ("row_tile", 128, 58368, 2, 216192)),
+    ((14, 14), ("grid", 0, 7, 16384, 2, 2, 230528),
+     ("generic", 7, 53248, 2, 205952)),
+    # the card tests' ragged (9, 7) and generic (20, 24) grids
+    ((9, 7), ("grid", 0, 5, 16384, 2, 2, 230528),
+     ("generic", 2, 52224, 2, 203904)),
+    ((20, 24), ("row_tile", 1, 20, 32768, 2, 1, 186496),
+     ("generic", 15, 56320, 2, 212096)),
+])
+def test_bwd_f32_plans_pinned(hw, want_dq, want_dkv):
+    """The f32 K5 plans of the main path's and the card tests' shapes,
+    pinned: dq mode, tiles a grid row, tiles, image bytes, K / V and unit
+    stages, bytes; dk/dv mode, query tiles, image bytes, stages, bytes."""
+    n = hw[0] * hw[1]
+    q = port_attn.dq_plan_f32(n, hw)
+    kv = port_attn.dkv_plan_f32(n, hw)
+    assert (q.mode, q.tpr, q.tiles, q.image, q.kv_stages, q.u_stages,
+            q.smem) == want_dq
+    assert (kv.mode, kv.qtiles, kv.image, kv.stages, kv.smem) == want_dkv
 
 
 def test_relpos_plan_row_tile_needs_an_even_grid_height():
