@@ -15,12 +15,13 @@ prints no result line):
    libraries) must hold tensor-core instructions (HMMA, or HGMMA), the f32
    K1-K7 kernels' (split TF32) TF32 ones (HMMA.1688.F32.TF32), the
    kernels on wgmma and TMA (``WGMMA_KERNELS``: the bf16 K6, K1 and K2
-   ``attn_relpos_wgmma_kernel``, the f32 K6 and K1
+   ``attn_relpos_wgmma_kernel``, the f32 K6, K1 and K2
    ``attn_relpos_wgmma_tf32_kernel``, K5's bf16 ``attn_bwd_dq_wgmma_kernel``
    and ``attn_bwd_dkv_wgmma_kernel`` and f32
    ``attn_bwd_dq_wgmma_tf32_kernel`` and ``attn_bwd_dkv_wgmma_tf32_kernel``,
-   both K4 weight passes, the f32 K3 weight pass) HGMMA (TF32 in the f32
-   ones, which hold no HMMA where ``NO_HMMA_KERNELS`` names them) and TMA
+   the bf16 K4 row pass ``i2t_bwd_rows_wgmma_kernel``, both K4 weight
+   passes, the f32 K3 weight pass) HGMMA (TF32 in the f32 ones; no HMMA
+   where ``NO_HMMA_KERNELS`` names them) and TMA
    loads (UTMALDG), ptxas serializes no wgmma of a main-path instance
    (``PIPELINED``), and their ptxas reports no spills,
    printed per kernel beside its registers and its counts of HMMA, HGMMA
@@ -189,8 +190,9 @@ prints no result line):
 14. K7, the image-layout windowed attention, at ViT-B (B = 1, 12 heads,
    64x64, windows of 14) and on a ragged 28x20 grid, in f32 and bf16: held
    against its plain version and against K2 on the partitioned windows of
-   the same qkv (f32 bit for bit; bf16, K2 on the wgmma body, within the
-   bf16 limit); timed beside K2's bound. Then one ViT-B layer's
+   the same qkv (K2 on the wgmma bodies, K7 on mma.sync: within the limit
+   against plain, ``kernel_tol``, in both types); timed beside K2's
+   bound. Then one ViT-B layer's
    windowed attention (LayerNorm output to projected output) through the
    image-layout route and through the partitioned route (pad, partition,
    qkv, K2, projection, un-partition, crop): agreement and both times.
@@ -257,6 +259,7 @@ import hashlib
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -398,10 +401,10 @@ MMA_KERNELS = {"attention_bwd": ("attn_bwd_dq_wgmma_kernel",
                "attention_winimg": ("attn_winimg_mma_kernel",),
                "upscaler": ("upscale_fwd_mma_kernel", "upscale_bwd_rows_kernel",
                             "upscale_bwd_dw_kernel"),
-               "decoder_attn": ("i2t_fwd_mma_kernel", "i2t_bwd_rows_kernel",
+               "decoder_attn": ("i2t_fwd_mma_kernel",
+                                "i2t_bwd_rows_wgmma_kernel",
                                 "i2t_bwd_dw_wgmma_kernel")}
-TF32_KERNELS = {"attention": ("attn_windowed_tf32_kernel",),
-                "attention_bwd_wgmma_tf32": ("attn_bwd_dq_wgmma_tf32_kernel",
+TF32_KERNELS = {"attention_bwd_wgmma_tf32": ("attn_bwd_dq_wgmma_tf32_kernel",
                                              "attn_bwd_dkv_wgmma_tf32_kernel"),
                 "attention_relpos_wgmma_tf32": (
                     "attn_relpos_wgmma_tf32_kernel",),
@@ -413,8 +416,8 @@ TF32_KERNELS = {"attention": ("attn_windowed_tf32_kernel",),
                                  "i2t_bwd_rows_tf32_kernel",
                                  "i2t_bwd_dw_tf32_kernel")}
 # the kernels on wgmma with TMA loads: HGMMA and UTMALDG in their SASS (the
-# bf16 K1 and K2 are instances of attn_relpos_wgmma_kernel, the f32 K1 of
-# attn_relpos_wgmma_tf32_kernel)
+# bf16 K1 and K2 are instances of attn_relpos_wgmma_kernel, the f32 K1 and
+# K2 of attn_relpos_wgmma_tf32_kernel)
 WGMMA_KERNELS = {"attention_relpos_wgmma": ("attn_relpos_wgmma_kernel",),
                  "attention_relpos_wgmma_tf32": (
                      "attn_relpos_wgmma_tf32_kernel",),
@@ -424,22 +427,27 @@ WGMMA_KERNELS = {"attention_relpos_wgmma": ("attn_relpos_wgmma_kernel",),
                      "attn_bwd_dq_wgmma_tf32_kernel",
                      "attn_bwd_dkv_wgmma_tf32_kernel"),
                  "decoder_attn": ("i2t_bwd_dw_tf32_kernel",
+                                  "i2t_bwd_rows_wgmma_kernel",
                                   "i2t_bwd_dw_wgmma_kernel"),
                  "upscaler": ("upscale_bwd_dw_tf32_kernel",)}
 # the kernels whose every product is on wgmma: no HMMA (mma.sync) in their
 # SASS
 NO_HMMA_KERNELS = ("attn_relpos_wgmma_tf32_kernel",
                    "attn_bwd_dq_wgmma_tf32_kernel",
-                   "attn_bwd_dkv_wgmma_tf32_kernel")
+                   "attn_bwd_dkv_wgmma_tf32_kernel",
+                   "i2t_bwd_rows_wgmma_kernel")
 # instances whose wgmma ptxas must not serialize (C7511 / C7512: they then
-# run at half their speed or less): the f32 K6 / K1 of the main path,
-# ViT-H's global (DP 80, ROW_TILE) and windowed (GRID) layers and ViT-B /
-# L's K1 (DP 64, ROW_TILE), by their mangled template arguments; K5's f32
-# kernels at ViT-B / L's global layer (dq ROW, two tiles a grid row: <2>;
-# dk/dv ROW_TILE: <true>) and windows (dq GRID: <0>; dk/dv <false>)
+# run at half their speed or less): the f32 K6 / K1 / K2 of the main path,
+# ViT-H's global (DP 80, ROW_TILE) and windowed (GRID) layers, ViT-B / L's
+# K1 (DP 64, ROW_TILE) and K2 (DP 64, GRID), by their mangled template
+# arguments; K5's f32 kernels at ViT-B / L's global layer (dq ROW, two
+# tiles a grid row: <2>; dk/dv ROW_TILE: <true>) and windows (dq GRID: <0>;
+# dk/dv <false>); K4's bf16 row pass
 PIPELINED = {"attention_relpos_wgmma_tf32": ("ILi80ELNS0_4ModeE1E",
                                              "ILi80ELNS0_4ModeE2E",
-                                             "ILi64ELNS0_4ModeE1E"),
+                                             "ILi64ELNS0_4ModeE1E",
+                                             "ILi64ELNS0_4ModeE2E"),
+             "decoder_attn": ("i2t_bwd_rows_wgmma_kernel",),
              "attention_bwd_wgmma_tf32": (
                  "attn_bwd_dq_wgmma_tf32_kernelILi2E",
                  "attn_bwd_dq_wgmma_tf32_kernelILi0E",
@@ -518,8 +526,10 @@ def tensor_core_check(kernels):
                 check(name not in NO_HMMA_KERNELS or c["HMMA"] == 0,
                       f"{f}: {c['HMMA']} HMMA (mma.sync) in its SASS")
                 rep = report.get(f, "not rebuilt in this run")
-                check(f not in report or ("0 bytes spill stores" in rep
-                                          and "0 bytes spill loads" in rep),
+                # (a count that merely ends in 0, "960 bytes", is a spill)
+                check(f not in report or (
+                    re.search(r"(^|\D)0 bytes spill stores", rep)
+                    and re.search(r"(^|\D)0 bytes spill loads", rep)),
                       f"{f} spills: {rep}")
                 on_tf32 = f" ({c['TF32']} on TF32)" if tf32 else ""
                 print(f"sass {f}: HMMA {c['HMMA']}, HGMMA {c['HGMMA']}"
@@ -540,8 +550,9 @@ def _cuda_core_bound(row, ms, split, bound):
 
 def kernel_phase(torch, attn):
     """K1 / K2 vs their plain versions at ViT-B shapes, and the same bits on
-    a second run (the f32 K1, the f32 K6's kernel on wgmma, within
-    ``F32_REL`` of max |plain|, its LSE rows too); returns the numbers of
+    a second run (the f32 K1 and K2 are the f32 K6's kernel on wgmma: K1
+    within ``F32_REL`` of max |plain|, K2 within ``F32_ATOL``, their LSE
+    rows too); returns the numbers of
     each kernel for the result line: f32 (the serving path's type) under
     its name, bf16 (the tensor-core kernels of the precompute and full
     fine-tune paths) as ``<name>_bf16``, and the f32 K1 at B = 4 (the f32
@@ -583,8 +594,11 @@ def kernel_phase(torch, attn):
                 ref = attn.packed_attention_plain(*args, **kw)
                 torch.cuda.synchronize()
                 err = (out.float() - ref.float()).abs().max().item()
-                wgmma_f32 = dtype == torch.float32 and name == "attn_global"
-                tol = f32_rel_tol(ref) if wgmma_f32 else kernel_tol(ref)
+                # the f32 K1 and K2 on the split-TF32 wgmma kernel: K1 (4096
+                # keys) within F32_REL of max |plain|, K2 within F32_ATOL
+                wgmma_f32 = dtype == torch.float32
+                tol = (f32_rel_tol(ref) if wgmma_f32 and name == "attn_global"
+                       else kernel_tol(ref))
                 check(out.dtype == dtype and bool(torch.isfinite(out).all()),
                       f"{name} {dtype}: bad output")
                 check(err <= tol, f"{name} {dtype}: max |kernel - plain| "
@@ -598,7 +612,8 @@ def kernel_phase(torch, attn):
                     _, want_lse = attn.packed_attention_plain(
                         *args, return_lse=True, **kw)
                     lse_err = (lse - want_lse).abs().max().item()
-                    lse_tol = f32_rel_tol(want_lse)
+                    lse_tol = (f32_rel_tol(want_lse) if name == "attn_global"
+                               else F32_ATOL)
                     check(lse_err <= lse_tol and torch.equal(out_l, out),
                           f"{name} f32 B={b}: LSE max |kernel - plain| "
                           f"{lse_err:.3g} > {lse_tol:.3g}, or another output")
@@ -617,11 +632,9 @@ def kernel_phase(torch, attn):
                                                  qkv.element_size(), peak)
             tname = "f32" if split else "bf16"
             key = f32_key if split else f"{name}_bf16"
-            # the K1s are the K6 kernels of their type; the f32 K2 is
-            # attention.cu's
+            # the K1s and K2s are the K6 kernels of their type
             src = ("attention_relpos_wgmma.cu" if not split else
-                   "attention_relpos_wgmma_tf32.cu" if name == "attn_global"
-                   else "attention.cu")
+                   "attention_relpos_wgmma_tf32.cu")
             rows[key] = {
                 "name": key, "route": "cuda",
                 "source": f"dilabhelmholtzoct_tpu_torch/csrc/{src}",
@@ -890,7 +903,7 @@ def k34_kernel_phase(torch):
                          "upscale_bwd_dw_tf32_kernel"), f"{k3[1]}:329"
     k4_fwd = k4[0], names("i2t_fwd_mma_kernel",
                           "i2t_fwd_tf32_kernel"), f"{k4[1]}:264"
-    k4_bwd = k4[0], names("i2t_bwd_rows_kernel",
+    k4_bwd = k4[0], names("i2t_bwd_rows_wgmma_kernel",
                           "i2t_bwd_rows_tf32_kernel"), f"{k4[1]}:287"
     k4_dw = k4[0], names("i2t_bwd_dw_wgmma_kernel",
                          "i2t_bwd_dw_tf32_kernel"), f"{k4[1]}:287"
@@ -2638,8 +2651,8 @@ def k6_kernel_phase(torch, attn):
 
 def k7_kernel_phase(torch, attn):
     """K7 against its plain version and against K2 on the partitioned
-    windows (in f32 bit for bit; in bf16, where K2 runs on the wgmma body
-    and K7 on mma.sync, within the kernels' bf16 tolerance) at ViT-B and on
+    windows (K2 runs on the wgmma bodies and K7 on mma.sync: within the
+    kernels' tolerance, ``kernel_tol``, in both types) at ViT-B and on
     a ragged grid, f32 and bf16, timed beside K2's bound; then one ViT-B
     layer's windowed attention through both routes. Returns the
     result-line row (ViT-B, f32)."""
@@ -2686,10 +2699,10 @@ def k7_kernel_phase(torch, attn):
                                             num_heads=heads).reshape(
                                                 -1, ws, ws, c), ws, padded, hw)
                 k2_err = (out.float() - k2.float()).abs().max().item()
-                check(bool(torch.equal(out, k2)) if f32 else k2_err <= tol,
-                      f"attn_windowed_image {label} {tname} is not "
-                      f"{'bit-equal' if f32 else 'close'} to K2 on the "
-                      f"partitioned windows (max |K7 - K2| {k2_err:.3g})")
+                check(k2_err <= tol,
+                      f"attn_windowed_image {label} {tname} is not close to "
+                      f"K2 on the partitioned windows (max |K7 - K2| "
+                      f"{k2_err:.3g} > {tol:.3g})")
                 ms = cuda_ms(lambda: attn.flash_attention_windowed_image(
                     qkv, rel, bias, **kw), 50)
                 plain_ms = cuda_ms(
@@ -3728,10 +3741,16 @@ def redesign_times(torch):
     windows, each also as the profiler's device time of the mma.sync
     kernels of older trees (``attn_bwd_dq_tf32_kernel``, ...) or of the
     split-TF32 wgmma kernel with its pre-pass (``*_device``; the pre-pass
-    alone ``*_prepass_device``).
+    alone ``*_prepass_device``). The f32 K2 with its logsumexp rows at
+    ViT-B's windowed layer, B = 1 and 4 (25 and 100 windows of 196, 12
+    heads), also as the device time of ``attn_windowed_tf32_kernel`` (older
+    trees) or ``attn_relpos_wgmma_tf32_kernel``; the bf16 K4 row pass at 64
+    pairs x 4096 rows, pb 1 and 8, also as the device time of
+    ``i2t_bwd_rows_kernel`` (older trees) or ``i2t_bwd_rows_wgmma_kernel``.
     Returns {"ms": {case: ms}, "bits": {case: a digest of its outputs}}:
     the bf16 K6 and K1's outputs (K1's with its logsumexp rows), the f32
-    K1's and K6's, and K5's (dqkv, drel_h, drel_w) in bf16 and in f32, on
+    K1's, K2's and K6's, K5's (dqkv, drel_h, drel_w) in bf16 and in f32,
+    and the bf16 K4 row pass's, on
     inputs drawn in the same order from one seed in every tree, so that two
     trees' digests say whether the kernels give the same bits."""
     from dilabhelmholtzoct_tpu_torch.device import full_fp32
@@ -3851,6 +3870,43 @@ def redesign_times(torch):
         got = fn()
         bits[case] = digest(*(got if isinstance(got, tuple) else (got,)))
         del qkv, rel_h, rel_w, got
+    # the f32 K2 with its LSE rows: events and device time
+    k2_names = ("attn_windowed_tf32_kernel", "attn_relpos_wgmma_tf32_kernel")
+    with full_fp32():
+        for case, b in (("k2_f32_windowed_b1", 25),
+                        ("k2_f32_windowed_b4", 100)):
+            hw, heads = (14, 14), 12
+            n = hw[0] * hw[1]
+            qkv = rnd(b, n, 3 * heads * 64, k=0.5)
+            rel_h = rnd(b, heads, n, hw[0], k=0.3)
+            rel_w = rnd(b, heads, n, hw[1], k=0.3)
+            fn = lambda: attn.attention_fwd_cuda(
+                qkv, rel_h, rel_w, hw=hw, num_heads=heads, return_lse=True)
+            out[case] = cuda_ms(fn, 50)
+            dev_ms = [v for v in device_ms_by_kernel(fn, k2_names).values()
+                      if v is not None]
+            out[f"{case}_device"] = sum(dev_ms) if dev_ms else None
+            bits[case] = digest(*fn())
+            del qkv, rel_h, rel_w
+    # the bf16 K4 row pass at the training shape: events and device time
+    rows_names = ("i2t_bwd_rows_kernel", "i2t_bwd_rows_wgmma_kernel")
+    for pb in (1, 8):
+        bf = torch.bfloat16
+        args = (rnd(bp // pb, m, 256).to(bf), rnd(1, m, 256).to(bf),
+                rnd(bp, 7, 128).to(bf), rnd(bp, 7, 128).to(bf),
+                rnd(256, 128, k=0.06).to(bf), rnd(128, k=0.1),
+                rnd(128, 256, k=0.09).to(bf), rnd(256, k=0.1),
+                1 + rnd(256, k=0.1), rnd(256, k=0.1))
+        dy = rnd(bp, m, 256).to(bf)
+        fn = lambda: i2t.i2t_bwd_rows_cuda(*args, dy, nh=8, pb=pb, eps=1e-6)
+        case = f"k4_rows_bf16_pb{pb}"
+        out[case] = cuda_ms(fn, 10)
+        dev_ms = [v for v in device_ms_by_kernel(fn, rows_names,
+                                                 reps=10).values()
+                  if v is not None]
+        out[f"{case}_device"] = sum(dev_ms) if dev_ms else None
+        bits[case] = digest(*fn())
+        del args, dy
     # K5's f32 kernels at ViT-B's global layer (B = 4) and 100 windows, from
     # the f32 forward's LSE rows: events, and the device time of the
     # mma.sync kernels of older trees or of the split-TF32 wgmma kernel and
@@ -3893,8 +3949,8 @@ def redesign_ab(other_root):
     card, in turns A B B A, each turn a fresh process that imports the
     package from its tree (``--redesign-times ROOT``) and builds its
     kernels there. Prints each turn's times and each side's mean, and
-    whether the two sides' bf16 K6, K1 and K5 and f32 K1, K6 and K5 gave
-    the same bits."""
+    whether the two sides' bf16 K6, K1, K5 and K4 row pass and f32 K1, K2,
+    K6 and K5 gave the same bits."""
     here = os.path.dirname(os.path.abspath(__file__))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,7 +1,7 @@
 // K5 in f32 on Hopper's wgmma and TMA, every product in split TF32: the
 // backward of the encoder attention K1 / K2 from the logsumexp rows the
-// forward saved (the f32 K1 is attention_relpos_wgmma_tf32.cu's kernel at
-// head dim 64, the f32 K2 attention.cu's attn_windowed_tf32_kernel). The
+// forward saved (the f32 K1 and K2 are attention_relpos_wgmma_tf32.cu's
+// kernel at head dim 64). The
 // bf16 twin, with the operands and the math spelled out, is
 // attention_bwd.cu:
 //

@@ -10,8 +10,10 @@
 // K6). In f32 the two TPU kernels compute one function: K1's q / 8 before
 // the product and K6's score * d^-1/2 after it are one exact power-of-two
 // scale at d = 64, and K6's rounding of the un-normalised p to the input
-// type is the identity. (The f32 K2, the windowed layers of ViT-B / L, is
-// attention.cu's attn_windowed_tf32_kernel.)
+// type is the identity. It is the f32 K2 too: the windowed layers (N <=
+// 256) of ViT-B and ViT-L (25 windows of 196 an image, 12 / 16 heads of
+// 64; 8 launches an encode, 16 a full fine-tune step), with the LSE rows,
+// where the JAX route's normalised rounding point is again the identity.
 //
 //   qkv   (B, N, 3C) f32   feature order (3, heads, d); where d is no
 //                          multiple of 16, each head padded to DP columns
@@ -23,9 +25,10 @@
 //   out[q]  = (sum_k exp(s[q, k] - m) v[k]) / sum_k exp(s[q, k] - m)
 //
 // It replaces dilabhelmholtzoct_tpu/ops/attention.py flash_attention_relpos
-// (_flash_kernel, pallas_call at :132) and, as K1, flash_attention_packed's
-// global branch (_packed_kernel, pallas_call at :819) in f32: every sum in
-// f32, p never rounded, the division last.
+// (_flash_kernel, pallas_call at :132) and, as K1 and K2,
+// flash_attention_packed's global and windowed branches (_packed_kernel,
+// pallas_call at :819; _windowed_group_kernel, pallas_call at :770) in f32:
+// every sum in f32, p never rounded, the division last.
 //
 // Split TF32. f32 has no tensor-core type of its own: each operand x is
 // split as x = hi + lo with hi = trunc(x), x with its 13 low bits cleared,
@@ -41,7 +44,9 @@
 // = 165 TFLOP/s): ViT-H's global layer 85.9 GFLOP = 0.52 ms against 0.035
 // ms of bytes; its windowed layer (25 x 196) 4.9 GFLOP = 0.030 ms against
 // 0.033 ms of bytes; as K1, ViT-B's global layer (12 heads of 64) 51.5 GFLOP
-// = 0.31 ms against 0.022 ms of bytes. Operation-bound but for the windows.
+// = 0.31 ms against 0.022 ms of bytes; as K2, ViT-B's windowed layer (25 x
+// 196, 12 heads) 2.95 GFLOP = 0.018 ms against 0.020 ms of bytes.
+// Operation-bound but for the windows.
 // What this design does about it: both products on wgmma, its operands
 // landed by TMA and split once per block, not once per warp (the mma.sync
 // kernel before it split every K and V fragment in each of its 4-8 warps);
@@ -105,7 +110,8 @@ constexpr int MAX_D = 128;  // head dim: a multiple of 4 up to this
 //     kc holds key (kr, kc), and the slots past W (and past H) are zero
 //     rows, masked by a -inf rel_w (rel_h). Column 8 j + 2 t + e of a lane
 //     is grid row j / 2 of the tile, grid column 8 (j % 2) + 2 t + e: the
-//     lane's four rel_w values a row in registers for the unit.
+//     lane's four rel_w values a row, in registers for the unit (DP 80) or
+//     loaded per tile while its score products run (DP 64: rw_per_tile).
 //   GENERIC: slot k0 + c is key k0 + c; each score finds its grid (row,
 //     col) by a multiply-high and reads both factors.
 // Registers and shared-memory bandwidth bound the design. ptxas
@@ -115,7 +121,10 @@ constexpr int MAX_D = 128;  // head dim: a multiple of 4 up to this
 // on an H100; key tiles of 64 (32 more registers for s, 32 for p's lo), a
 // turn around p . v as well as around S, __ldg in GENERIC's bias, q_hi in
 // registers beside the turns (ROW_TILE) or beside GRID's bias registers
-// each tipped the main path's instances (DP = 80, 64) into it. q_hi read
+// each tipped the main path's instances (DP = 80, 64) into it, and GRID's
+// bias registers alone the f32 K2's (DP 64: 0.142 ms at B = 1 serialized,
+// 0.066 with its rel_w per tile and q_hi in registers, NVIDIA H100 80GB
+// HBM3 at 700 W, utils/kernel_variants.py). q_hi read
 // from shared memory, though, costs each score product's A operand there
 // (2 KB a wgmma), the largest of the bytes a tile moves through it.
 // A head dim that is no multiple of 16 comes in rows whose heads the
@@ -148,12 +157,18 @@ constexpr int GH = NK / GRID_W;  // GRID: grid rows of a tile
 
 // q_hi in registers too (all three score products RS, no A operand read
 // from shared memory), and no turns: ROW_TILE up to DP = 80, the global
-// layers of the main path (ViT-H's K6, ViT-B / L's K1); elsewhere q_hi is
-// read by wgmma from the unit's Q stage and the warpgroups take turns
-// issuing their score products. Each the fastest configuration of its
-// instances that ptxas does not serialize (the note below).
+// layers of the main path (ViT-H's K6, ViT-B / L's K1), and GRID up to DP =
+// 64 (ViT-B / L's K2); elsewhere q_hi is read by wgmma from the unit's Q
+// stage and the warpgroups take turns issuing their score products. GRID's
+// rel_w values of a lane: held in registers for the unit, or up to DP = 64
+// loaded per tile while its score products run. Each the fastest
+// configuration of its instances that ptxas does not serialize (the note
+// below; utils/kernel_variants.py times the alternatives).
 __host__ __device__ constexpr bool q_hi_in_regs(int dp, Mode mode) {
-  return mode == ROW_TILE && dp <= 80;
+  return (mode == ROW_TILE && dp <= 80) || (mode == GRID && dp <= 64);
+}
+__host__ __device__ constexpr bool rw_per_tile(int dp, Mode mode) {
+  return mode == GRID && dp <= 64;
 }
 
 // the column slabs of DP (a multiple of 16) f32 columns: DP / 32 of 32,
@@ -274,6 +289,7 @@ attn_relpos_wgmma_tf32_kernel(const __grid_constant__ Maps maps,
   using stf32::lo_trunc;
   constexpr int NS = slab_count(DP), KSTEPS = NK / 8, DSTEPS = DP / 8;
   constexpr bool QHR = q_hi_in_regs(DP, MODE), TURNS = !QHR;
+  constexpr bool RWT = rw_per_tile(DP, MODE);
   static_assert(DP % 16 == 0, "head columns");
   const Layout L(DP, MODE);
   extern __shared__ __align__(16) unsigned char smem_tma[];
@@ -430,11 +446,10 @@ attn_relpos_wgmma_tf32_kernel(const __grid_constant__ Maps maps,
       rh_row[r] = qr * a.H;
       rw_row[r] = qr * a.W;
     }
-    // GRID: the lane's rel_w values for the unit, its grid columns 8 h +
-    // 2 t + e (-inf past W: the slot is empty); ROW_TILE reads them from
-    // the unit stage's rel_w rows
-    float rw[2][MODE == GRID ? 4 : 1];
-    if constexpr (MODE == GRID)
+    // GRID: the lane's rel_w values, its grid columns 8 h + 2 t + e (-inf
+    // past W: the slot is empty), for the unit or (RWT) per tile; ROW_TILE
+    // reads them from the unit stage's rel_w rows
+    auto load_rw = [&](float (&rw)[2][4]) {
 #pragma unroll
       for (int r = 0; r < 2; ++r)
 #pragma unroll
@@ -442,6 +457,9 @@ attn_relpos_wgmma_tf32_kernel(const __grid_constant__ Maps maps,
           const int kc = 8 * (i >> 1) + 2 * t + (i & 1);
           rw[r][i] = kc < a.W ? __ldg(a.rel_w + rw_row[r] + kc) : -INFINITY;
         }
+    };
+    float rwu[2][4];
+    if constexpr (MODE == GRID && !RWT) load_rw(rwu);
     mbar_wait(ufull + us, (uu / a.u_stages) & 1);
     // q_lo's (and QHR q_hi's: the raw f32) A fragments: a0 (row g, k t),
     // a1 (row g + 8, k t), a2 (row g, k t + 4), a3 (row g + 8, k t + 4) of
@@ -471,9 +489,12 @@ attn_relpos_wgmma_tf32_kernel(const __grid_constant__ Maps maps,
       qk_slabs<DP, QHR, 0>(s, ql, qh, ust, kst, kst + L.k_bytes, wgi);
       wgmma_commit();
       if constexpr (TURNS) named_arrive(TURN + (wgi ^ 1), CONSUMERS);
-      // the tile's rel_h values, loaded while S runs: ROW_TILE one a row
-      // (grid row tile / 2), GRID one a row and grid row (-inf past H)
+      // the tile's bias values, loaded while S runs: rel_h, ROW_TILE one a
+      // row (grid row tile / 2), GRID one a row and grid row (-inf past
+      // H); GRID's rel_w where RWT
       float rh[2][MODE == GRID ? GH : 1];
+      float rwt[2][4];
+      if constexpr (RWT) load_rw(rwt);
       if constexpr (MODE == ROW_TILE) {
 #pragma unroll
         for (int r = 0; r < 2; ++r)
@@ -507,7 +528,10 @@ attn_relpos_wgmma_tf32_kernel(const __grid_constant__ Maps maps,
             if constexpr (MODE == ROW_TILE) {
               bias = rh[r][0] + (e ? w2.y : w2.x);
             } else if constexpr (MODE == GRID) {
-              bias = rh[r][j >> 1] + rw[r][2 * (j & 1) + e];
+              if constexpr (RWT)
+                bias = rh[r][j >> 1] + rwt[r][2 * (j & 1) + e];
+              else
+                bias = rh[r][j >> 1] + rwu[r][2 * (j & 1) + e];
             } else {
               // GENERIC: key k0 + 8 j + 2 t + e at grid (kr, kc), clamped in
               // bounds past N (its score is discarded)

@@ -1,9 +1,8 @@
 // Split-TF32 building blocks of the f32 encoder attention kernels on
-// mma.sync: the windowed body shared by K2 (attention.cu,
-// attn_windowed_tf32_kernel) and K7 (attention_winimg.cu,
+// mma.sync: K7's windowed body (attention_winimg.cu,
 // attn_winimg_tf32_kernel), window_tiles_tf32, and its tile copy. The
 // shape-independent primitives (split, mma1688, Frag, mma3, load_a, acc_a)
-// are split_tf32.cuh's. (The f32 K1 and K6 are on wgmma:
+// are split_tf32.cuh's. (The f32 K1, K2 and K6 are on wgmma:
 // attention_relpos_wgmma_tf32.cu; the f32 K5 too:
 // attention_bwd_wgmma_tf32.cu.)
 //
@@ -72,7 +71,7 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src,
 }
 
 // ------------------------------------------------ the windowed body ----
-// The f32 body of the windowed kernels K2 and K7: a block per (window,
+// The f32 body of the windowed kernel K7: a block per (window,
 // head) holds the window's keys and values in f32 (NK = N rounded up to 16
 // rows, zero past N), and its warps take the NK / 16 m16 query tiles in
 // turn, each staging its tile's q rows and their bias factors. As in the

@@ -28,10 +28,10 @@
 // position, or that it is a pad token), then gathers the window's queries
 // and all its keys and values by it from the image (or from the bias row)
 // into shared memory, and from there on runs a windowed body:
-//    f32, attn_winimg_tf32_kernel: 8 warps per (window, head), the f32
-//    K2's attention_tf32.cuh window_tiles_tf32 in split TF32 on the tensor
-//    cores, so a real token's output is bit-equal to the f32 K2's on the
-//    partitioned windows;
+//    f32, attn_winimg_tf32_kernel: 8 warps per (window, head),
+//    attention_tf32.cuh window_tiles_tf32 in split TF32 on the tensor
+//    cores (a real token's output within the f32 limit of the f32 K2's on
+//    the partitioned windows, which runs on wgmma);
 //    bf16, attn_winimg_mma_kernel: 4 warps per (window, head),
 //    attention_mma.cuh window_tile_mma on mma.sync (the bf16 K2 runs on
 //    attention_relpos_wgmma.cu; both round the normalised p on SAM's
@@ -158,10 +158,10 @@ attn_winimg_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
 }
 
 // ------------------------------------------------------------------ f32 ----
-// grid (1, heads, B * windows), 32 win_warps(EXACT) threads: K2's f32
-// block (attention.cu attn_windowed_tf32_kernel) with the rows gathered by
-// the token table: shared memory as K2's with H = W = ws, then Tok (NK
-// ints).
+// grid (1, heads, B * windows), 32 win_warps(EXACT) threads: a block per
+// (window, head) on window_tiles_tf32 (the f32 K2's body until it moved to
+// wgmma) with the rows gathered by the token table: shared memory as
+// window_smem's with H = W = ws, then Tok (NK ints).
 template <int NJ, bool EXACT>
 __global__ void __launch_bounds__(32 * tf32::win_warps(EXACT), 1)
 attn_winimg_tf32_kernel(const float* __restrict__ qkv,
@@ -209,7 +209,7 @@ attn_winimg_tf32_kernel(const float* __restrict__ qkv,
 
   // the warp's 16 q rows, and the query tokens' 2 ws factors (zero for pad
   // queries, never written out, and past the window's tokens) by 4-byte
-  // copies, as K2 stages them
+  // copies, as window_tiles_tf32 stages them
   auto stage = [&](float* qt, float* ft, int row0) {
     for (int i = lane; i < 16 * (D / 4); i += 32) {
       const int r = i >> 4, c = (i & 15) * 4;
@@ -244,8 +244,8 @@ int launch_f32(const void* qkv, const void* rel, const void* bias, void* out,
                int batch, int h, int w, int heads, int ws,
                cudaStream_t stream) {
   const int nk = (ws * ws + 15) / 16 * 16;
-  // the instance K2 takes for the same window (attention.cu
-  // launch_windowed_f32)
+  // the 13-tile instance for SAM's 14 x 14 windows, any window up to KMAX
+  // the other
   const bool exact = nk == 208;
   const size_t smem =
       tf32::window_smem(ws * ws, ws, ws, tf32::win_warps(exact)) +

@@ -33,12 +33,13 @@
 //    rnd(d_res) and dWq^T = sum_r rnd(d_qpre)^T rnd(keys + pe), split-K over
 //    row chunks. The JAX kernel carries dW in one output block across its
 //    sequential grid; here blocks run in parallel, so every sum over rows is
-//    one partial per slot (or chunk), added up in a fixed order (by the
+//    one partial per warp, slot or chunk, added up in a fixed order (by the
 //    wrapper, or for the bf16 weight pass by i2t_dw_sum_kernel in the same
 //    call) -- no atomics, so the gradients repeat bit for bit.
-//    * bf16: i2t_bwd_rows_kernel (Wq and Wo in shared memory, a warp pair
-//      per 16-row tile) and i2t_bwd_dw_wgmma_kernel (on bf16 wgmma, both
-//      operands landed by TMA, see the kernel).
+//    * bf16: i2t_bwd_rows_wgmma_kernel (on bf16 wgmma, its rows landed by
+//      TMA into a ring beside Wq and Wo, see the kernel) and
+//      i2t_bwd_dw_wgmma_kernel (on bf16 wgmma, both operands landed by
+//      TMA, see the kernel).
 //    * f32: i2t_bwd_rows_tf32_kernel (super-tiles of 64 rows streaming Wq,
 //      Wo, Wo^T and Wq^T) and i2t_bwd_dw_tf32_kernel (on TF32 wgmma, its
 //      rows landed by TMA), in split TF32; rnd() is the identity, so the
@@ -62,7 +63,9 @@
 //    over the 8 tokens; the backward adds d_out = d_res . Wo^T, d_keys =
 //    d_qpre . Wq^T + d_res, d_p = d_out . v^T and d_score . k. bf16 runs
 //    them as mma.sync bf16 -> f32 (each operand a rounding point of the
-//    JAX kernel, so each term is exact); f32 as hi.hi + hi.lo + lo.hi on
+//    JAX kernel, so each term is exact), its row pass the four projections
+//    on wgmma and the per-head products on the CUDA cores; f32 as hi.hi +
+//    hi.lo + lo.hi on
 //    m16n8k8 TF32, the per-head products too (4 of every 270 kFLOP of a
 //    row: splitting them costs less than a second path through FMAs). The
 //    softmax over <= 8 tokens, the LayerNorm and their backwards run in f32
@@ -80,7 +83,11 @@
 //    in 24-40 KB stages, straight into the layout bf16 wgmma reads (no
 //    thread touches an operand but for kind 1's keys + pe), and its blocks
 //    are split between the two weights by the bytes each reads, so that
-//    one wave of blocks ends together.
+//    one wave of blocks ends together. The bf16 row pass (69 GFLOP: 0.069
+//    ms; 805 MB at pb 1: 0.241 ms, 688 MB at pb 8: 0.206 ms; byte-bound)
+//    lands a unit's rows by TMA while the consumer warpgroups take turns,
+//    and chains its four projections on wgmma with the weights read once
+//    a block (see the kernel).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -110,9 +117,6 @@ constexpr int RT = 64 * SLOTS;     // threads per row-pass block
 constexpr int LDI = I + 8;         // shared row of a slot's [16][I] tile
 constexpr int SLOT_BF16 = 2 * 16 * LDO + 16 * LDI;
 constexpr size_t WEIGHTS_BF16 = (size_t)C * LDQ + (size_t)I * LDO;
-constexpr size_t ROWS_SMEM =
-    sizeof(bf16) * (WEIGHTS_BF16 + SLOTS * SLOT_BF16) +
-    sizeof(float) * (size_t)SLOTS * 6 * 2 * 16;
 constexpr size_t FWD_MMA_SMEM =
     sizeof(bf16) * (WEIGHTS_BF16 + SLOTS * SLOT_BF16) +
     sizeof(float) * (size_t)SLOTS * 2 * 2 * 16;
@@ -413,349 +417,737 @@ __global__ void __launch_bounds__(RT, 1)
   }
 }
 
-// The row pass. A pair of warps shares each 16-row tile (a slot): warp
-// `sub` of the pair takes the heads 4 sub.. (the I lanes 64 sub..) and the
-// C columns 128 sub.., so a block holds 8 warps on 4 slots. Shared memory:
-// Wq [C][LDQ] and Wo [I][LDO] (k by n for the forward products, n by k for
-// the backward ones); per slot its tile's keys, then res (bf16: a rounding
-// point), then rnd(d_res) [16][LDO]; pe, then p (f32 [16][NH * TP]) in a
-// second [16][LDO]; rnd(out), then rnd(d_qpre) [16][LDI], the operands
-// that cross the pair's halves; and the row statistics the two warps add
-// up (the LayerNorm sums). Lane = 4 g + t holds rows g and g + 8 of every
-// accumulator n-tile, columns 2t, 2t + 1. No accumulator is wider than 64
-// registers.
-__global__ void __launch_bounds__(RT, 1)
-    i2t_bwd_rows_kernel(const bf16* keys, const bf16* pe, const bf16* tok_k,
-                        const bf16* tok_v, const bf16* wq, const float* bq,
-                        const bf16* wo, const float* bo, const float* g,
-                        const float* bt, const bf16* dy, bf16* dkeys,
-                        bf16* dqpre, bf16* p_out, bf16* ds_out, bf16* dout,
-                        bf16* out_rows, bf16* dres_rows, float* dbq_p,
-                        float* dbo_p, float* dg_p, float* dbt_p, int bp,
-                        int m, int pb, int n_tok, float eps) {
-  using namespace dec;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* wq_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* wo_s = wq_s + C * LDQ;
+// The row pass on wgmma and TMA (i2t_bwd_rows_wgmma_kernel). A unit is 64
+// rows (one m64 tile) of one pair: u = pair * tpp + tile, tpp = ceil(m /
+// 64); block b takes units b, b + G, b + 2 G, ... (G blocks), and its two
+// consumer warpgroups take them in turns, each a whole unit, so that one
+// warpgroup's products run beside the other's CUDA-core work. A warpgroup
+// owns whole rows: every product's N is all of C or I, so the row
+// statistics reduce over a lane quad alone and each product's output is
+// the next one's A fragments where its K is this one's N.
+//   producer warpgroup (one lane of it): Wq and Wo once per block; per
+//     unit two fills of a ring of three 32 KB slots, the keys (of the
+//     pair's image) and the dy rows, as boxes of 64 columns x 64 rows in
+//     the 128-byte swizzle (rows past M land as zero); fill f goes to slot
+//     f % 3 once fill f - 3 is read.
+//   consumers, per unit:
+//     qin = rnd(keys + pe) into the q projection's A fragments, pe read
+//       from device memory (2 MB, in L2), qpre = qin . Wq (16 wgmma
+//       m64n128k16, Wq MN-major), q_s to the scratch;
+//     per head (a rolled loop, two heads a step) on the CUDA cores (16 x
+//       <= 8, the tokens through L1): the scores, a quad's partial sums
+//       reduce-scattered so that lane t holds tokens 2t, 2t + 1 of its
+//       rows; the softmax in f32; rnd(p) . v; p and rnd(out) to the
+//       scratch;
+//     proj = rnd(out) . Wo in two halves of 128 columns (wgmma m64n128k16,
+//       A in registers, Wo MN-major), res = rnd(keys + rnd(proj + bo))
+//       written over the keys in their slot;
+//     the LayerNorm and its backward in f32: one pass over a row's res
+//       and dy (a lane quad) for its variance and the backward's row sums,
+//       to the scratch; then one over the unit's rows (lane tid: columns 2
+//       tid, 2 tid + 1) for d_res, rnd(d_res) over dy in its slot (stored
+//       from there to its rows by TMA) and the column sums dg, dbt, dbo;
+//       the keys slot given back;
+//     d_out = rnd(d_res) . Wo^T (16 wgmma m64n128k16 from shared memory, Wo
+//       read K-major through the same copy), to the scratch;
+//     per head (rolled), the softmax backward and d_qpre on the CUDA
+//       cores, rnd(d_qpre) to the scratch; d_keys = rnd(d_res) +
+//       rnd(d_qpre) . Wq^T (two halves of 128 columns, 8 wgmma m64n128k16
+//       each, Wq read K-major, the accumulators first set to rnd(d_res)
+//       from the slot), written over it and stored by TMA; the dy slot
+//       given back once the store has read it.
+//   The other rows leave registers as 16-byte row segments (store_quad) or,
+//   p and d_score, as 4-byte words. dbq's column sums reduce over a warp's
+//   16 rows by group_sum8 and over its units in registers (one partial per
+//   consumer warp), dg, dbt and dbo's over a unit's rows in the pass above
+//   (one partial per consumer warpgroup); the wrapper sums the partials in
+//   a fixed order. (Each part costs about as much as each other:
+//   utils/kernel_variants.py --target k4_rows times the kernel without
+//   each.)
+// Registers are the scarce resource, and the instruction cache: a version
+// that held res in registers and unrolled every loop over heads and
+// columns was 23 K instructions, spilled and ran at 2.7 ms (64 pairs x
+// 4096 rows, NVIDIA H100 80GB HBM3 at 700 W, utils/kernel_variants.py);
+// so no row of values stays in registers across a phase: they go through
+// the slots and a per-warpgroup scratch in device memory (p_scratch, SCR
+// f32, reused every unit, so it stays in L2), and the per-head and
+// per-column loops are rolled. The scratch costs 18-20% of the kernel
+// (0.90 -> 0.72 ms without its traffic at pb 1, NVIDIA H100 80GB HBM3
+// at 700 W, kernel_variants.py no_scratch): shared memory and registers
+// have no room for it.
+// Shared memory: Wq (2 slabs of C rows x 64 columns) and Wo (4 slabs of I
+// rows x 64 columns) in bf16, 128 KB, each slab as TMA lands it in the
+// 128-byte swizzle: read MN-major (the forward products) and K-major (the
+// backward ones) through the descriptors' transpose bits. A unit's keys, pe
+// and dy would take 96 KB, so two units' stages do not fit beside the
+// weights (227 KB a block): pe comes from L2 into registers, and the ring
+// holds three slots for the two warpgroups' units' keys and dy. 128 KB + 3
+// x 32 KB + 1 KB of alignment and barriers = 225.1 KB.
+namespace rwb {
+
+using attn::mma::pack_bf16;
+
+constexpr int RR = 64;                      // rows of a unit
+constexpr int BOX = RR * 128;               // 64 bf16 columns x RR rows
+constexpr int SLOT = (C / 64) * BOX;        // one tensor's unit rows: 32 KB
+constexpr int RING = 3;                     // slots: keys and dy fills
+constexpr int WQ_SLAB = C * 128;            // C rows x 64 columns of Wq
+constexpr int WO_SLAB = I * 128;            // I rows x 64 columns of Wo
+constexpr int WEIGHTS = 2 * WQ_SLAB + 4 * WO_SLAB;
+constexpr int CONSUMERS = 256, NTH = CONSUMERS + 128;
+constexpr int WARPS = CONSUMERS / 32;       // partials a block
+// registers a thread: 168 at launch (64K over 384 threads, in steps of 8);
+// the producer's warpgroup gives back all but 40, the consumers take 232
+// (128 x 40 + 256 x 232 <= 64K)
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+constexpr size_t SMEM = 1024 + (size_t)RING * SLOT + WEIGHTS + 128;
+static_assert(SMEM <= 232448, "shared memory of the bf16 row pass");
+constexpr float SCALE = 0.25f;              // rnd(1 / sqrt(16)), exact
+// a consumer warpgroup's scratch in device memory (f32 words): three areas
+// of a 16-byte value per head and lane, then the row statistics
+constexpr int AREA = NH * 128 * 4;
+constexpr int SCR = 3 * AREA + RR * 4;
+
+// byte offset of element (row, col) of a unit's C-wide rows in a slot
+__device__ __forceinline__ int tile_off(int row, int col) {
+  return (col >> 6) * BOX + row * 128 + ((((col >> 3) & 7) ^ (row & 7)) << 4) +
+         (col & 7) * 2;
+}
+
+__device__ __forceinline__ float2 up2(uint32_t x) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
+}
+
+// Loads kept where they stand (volatile): the compiler would otherwise
+// keep a value loaded once for a second use far away (a head's token rows
+// from the forward heads for the backward ones, g and dy from the
+// LayerNorm backward's first pass for its second) and run short of the
+// registers the rest needs. Read-only data through the non-coherent path.
+__device__ __forceinline__ float2 ldg_bf2(const bf16* p) {
+  uint32_t v;
+  asm volatile("ld.global.nc.u32 %0, [%1];\n" : "=r"(v) : "l"(p));
+  return up2(v);
+}
+__device__ __forceinline__ float2 ldg_f2(const float* p) {
+  float2 v;
+  asm volatile("ld.global.nc.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "l"(p));
+  return v;
+}
+__device__ __forceinline__ uint32_t lds_u32(const unsigned char* p) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(hop::smem(p)));
+  return v;
+}
+
+// a packed word to a row output where ok
+__device__ __forceinline__ void store_word(bf16* at, bool ok, uint32_t w) {
+  if (ok) *reinterpret_cast<uint32_t*>(at) = w;
+}
+
+// Four packed words of a row, n-tiles j0..j0 + 3 (columns 8 j + 2t, + 1
+// each), to the row's columns 8 j0.. as one 16-byte segment a lane (n-tile
+// j0 + t), by a 4 x 4 transpose over the lane quad: a warp writes whole
+// 64-byte runs of 8 rows instead of 16-byte pieces, which cost the memory
+// system a partial sector each. Every lane of the quad takes part; `ok`
+// guards the store alone.
+__device__ __forceinline__ void store_quad(bf16* row, bool ok,
+                                           uint32_t (&w)[4], int t) {
+  dec::quad_transpose(w, t);
+  if (ok)
+    *reinterpret_cast<uint4*>(row + 8 * t) = make_uint4(w[0], w[1], w[2],
+                                                        w[3]);
+}
+
+// The scores (or d_p) of one head: part[r][tt] is the lane's share (its
+// four head dims) of row r, token tt; reduce-scattered over the lane quad
+// so that lane t ends with the sums of tokens 2t, 2t + 1 (t's bit 1 picks
+// a half of the tokens, then bit 0 a quarter).
+__device__ __forceinline__ void quad_tokens(const float (&part)[2][TP],
+                                            float (&s)[2][2], int t) {
+  const bool b1 = t & 2, b0 = t & 1;
+  float w[2][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      w[r][i] = (b1 ? part[r][4 + i] : part[r][i]) +
+                __shfl_xor_sync(0xffffffffu, b1 ? part[r][i] : part[r][4 + i],
+                                2);
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      s[r][e] = (b0 ? w[r][2 + e] : w[r][e]) +
+                __shfl_xor_sync(0xffffffffu, b0 ? w[r][e] : w[r][2 + e], 1);
+}
+
+// The lane's four values (rows g, g + 8; head dims 2t, 2t + 1, 8 + 2t,
+// 9 + 2t) of a head from its packed A fragment a0..a3
+__device__ __forceinline__ void unpack_head(const uint32_t (&a)[4],
+                                            float (&x)[2][4]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float2 lo = up2(a[r]), hi = up2(a[2 + r]);
+    x[r][0] = lo.x, x[r][1] = lo.y, x[r][2] = hi.x, x[r][3] = hi.y;
+  }
+}
+
+// sum over the lane's four head dims of x[r] . row[tt] for every token
+// (zero past n_tok): row = tok + 16 h + 2t, the token rows I apart
+__device__ __forceinline__ void head_dots(float (&part)[2][TP],
+                                          const float (&x)[2][4],
+                                          const bf16* row, int n_tok) {
+#pragma unroll
+  for (int tt = 0; tt < TP; ++tt) {
+    float2 a = make_float2(0.f, 0.f), b = a;
+    if (tt < n_tok) {
+      a = ldg_bf2(row + tt * I);
+      b = ldg_bf2(row + tt * I + 8);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      part[r][tt] = fmaf(x[r][3], b.y,
+                         fmaf(x[r][2], b.x, fmaf(x[r][1], a.y, x[r][0] * a.x)));
+  }
+}
+
+// y[r][k] = sum over tokens of w(r, token) row[token][k], the lane's four
+// head dims; w packed as two bf16 (tokens 2t, 2t + 1) per row in each lane
+// of the quad, gathered lane by lane
+__device__ __forceinline__ void head_mix(float (&y)[2][4],
+                                         const uint32_t (&w)[2],
+                                         const bf16* row, int n_tok,
+                                         int lane) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) y[r][0] = y[r][1] = y[r][2] = y[r][3] = 0.f;
+#pragma unroll
+  for (int tq = 0; tq < 4; ++tq) {
+    const int src = (lane & ~3) | tq;
+    const float2 w0 = up2(__shfl_sync(0xffffffffu, w[0], src));
+    const float2 w1 = up2(__shfl_sync(0xffffffffu, w[1], src));
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int tt = 2 * tq + e;
+      if (tt >= n_tok) continue;
+      const float2 a = ldg_bf2(row + tt * I), b = ldg_bf2(row + tt * I + 8);
+      const float v[4] = {a.x, a.y, b.x, b.y};
+      const float c0 = e ? w0.y : w0.x, c1 = e ? w1.y : w1.x;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        y[0][k] = fmaf(c0, v[k], y[0][k]);
+        y[1][k] = fmaf(c1, v[k], y[1][k]);
+      }
+    }
+  }
+}
+
+// the packed A fragment of a head (rows g, g + 8; dims 2t.., 8 + 2t..)
+// from the lane's four f32 values a row, each rounded to bf16
+__device__ __forceinline__ void pack_head(uint32_t (&a)[4],
+                                          const float (&y)[2][4]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    a[r] = pack_bf16(y[r][0], y[r][1]);
+    a[2 + r] = pack_bf16(y[r][2], y[r][3]);
+  }
+}
+
+// two heads' packed values (h - 1 and h: A fragments a, b) to rows r0 and
+// r1 (each where ok) of a row array of I columns, at columns 16 (h - 1)..
+__device__ __forceinline__ void store_heads(bf16* rows, size_t r0, size_t r1,
+                                            bool ok0, bool ok1, int h,
+                                            const uint32_t (&a)[4],
+                                            const uint32_t (&b)[4], int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    uint32_t w[4] = {a[r], a[2 + r], b[r], b[2 + r]};
+    store_quad(rows + (r ? r1 : r0) * I + 16 * (h - 1), r ? ok1 : ok0, w, t);
+  }
+}
+
+}  // namespace rwb
+
+__global__ void __launch_bounds__(rwb::NTH, 1)
+    i2t_bwd_rows_wgmma_kernel(
+        const __grid_constant__ CUtensorMap tm_keys,
+        const __grid_constant__ CUtensorMap tm_dy,
+        const __grid_constant__ CUtensorMap tm_wq,
+        const __grid_constant__ CUtensorMap tm_wo,
+        const __grid_constant__ CUtensorMap tm_dres,
+        const __grid_constant__ CUtensorMap tm_dkeys, const bf16* pe,
+        const bf16* tok_k,
+        const bf16* tok_v, const float* bq, const float* bo, const float* g,
+        bf16* dqpre, bf16* p_out, bf16* ds_out, bf16* dout, bf16* out_rows,
+        float* dbq_p, float* dbo_p,
+        float* dg_p, float* dbt_p, float* p_scratch, int bp, int m, int pb,
+        int n_tok, float eps) {
+  using namespace hop;
+  using namespace rwb;
+  using attn::mma::pack_bf16;
+  using attn::mma::quad_max;
+  using attn::mma::quad_sum;
+  using attn::mma::round_bf16;
+  using dec::group_col;
+  using dec::group_sum8;
+  extern __shared__ __align__(16) unsigned char smem_tma[];
+  // 1024-aligned, by an offset from the shared array (shared accesses)
+  unsigned char* base = smem_tma + ((1024 - (smem(smem_tma) & 1023)) & 1023);
+  unsigned char* ring = base;  // RING slots of a unit's C-wide rows
+  unsigned char* wq_s = ring + RING * SLOT;
+  unsigned char* wo_s = wq_s + 2 * WQ_SLAB;
+  // full[s]: slot s landed; empty[s]: slot s read
+  uint64_t* full = reinterpret_cast<uint64_t*>(wo_s + 4 * WO_SLAB);
+  uint64_t* empty = full + RING;
+  uint64_t* wbar = empty + RING;
+  const int tpp = (m + RR - 1) / RR, units = bp * tpp;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < RING; ++i) mbar_init(full + i, 1);
+    for (int i = 0; i < RING; ++i) mbar_init(empty + i, 4);  // a lane a warp
+    mbar_init(wbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int slot = warp >> 1, sub = warp & 1, pl = 32 * sub + lane;
-  const int gq = lane >> 2, tq = lane & 3;
-  bf16* x_s = wo_s + I * LDO + slot * SLOT_BF16;
-  bf16* e_s = x_s + 16 * LDO;
-  bf16* o_s = e_s + 16 * LDO;
-  float* p_s = reinterpret_cast<float*>(e_s);
-  float* st_s = reinterpret_cast<float*>(wo_s + I * LDO + SLOTS * SLOT_BF16) +
-                slot * 6 * 2 * 16;  // [quantity][sub][row]
-  auto pair_sync = [&] {  // the pair's own barrier (0 is __syncthreads)
-    asm volatile("bar.sync %0, 64;\n" ::"r"(1 + slot) : "memory");
+
+  if (warp >= WARPS) {  // ---------------------------- producer warpgroup ----
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp > WARPS || lane != 0) return;
+    mbar_expect_tx(wbar, WEIGHTS);
+    for (int s = 0; s < 2; ++s)
+      tma_load_2d(wq_s + s * WQ_SLAB, &tm_wq, wbar, 64 * s, 0);
+    for (int s = 0; s < 4; ++s)
+      tma_load_2d(wo_s + s * WO_SLAB, &tm_wo, wbar, 64 * s, 0);
+    // fills 2 k and 2 k + 1 of the ring, the k-th unit's keys and dy, into
+    // slot f % RING once its fill f - RING is read
+    int f = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const int pair = u / tpp, r0 = (u - pair * tpp) * RR;
+#pragma unroll
+      for (int j = 0; j < 2; ++j, ++f) {
+        const int sl = f % RING;
+        mbar_wait(empty + sl, ((f / RING) & 1) ^ 1);
+        mbar_expect_tx(full + sl, SLOT);
+#pragma unroll
+        for (int b = 0; b < C / 64; ++b)
+          tma_load_3d(ring + sl * SLOT + b * BOX, j ? &tm_dy : &tm_keys,
+                      full + sl, 64 * b, r0, j ? pair : pair / pb);
+      }
+    }
+    return;
+  }
+
+  // --------------------------------------------------------- consumers ----
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int wgi = warp >> 2, g8 = lane >> 2, t = lane & 3;
+  const int R0 = 16 * (warp & 3) + g8;  // the lane's rows R0, R0 + 8
+  const int tid = threadIdx.x & 127, bar = 1 + wgi;
+  auto release = [&](int j) {  // this warp has read slot j
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + j);
   };
-  // the two warps' sums (each quad-reduced over its columns) of two
-  // quantities q, q + 1 of rows g, g + 8, added in a fixed order
-  auto pair_sums = [&](int q, float (&v)[2][2]) {
-    if (tq == 0)
+  // the warpgroup's scratch (SCR f32 in device memory, reused each unit, so
+  // it stays in L2): per head and lane a 16-byte value of each area, q_s
+  // (then d_out), rnd(out) (then rnd(d_qpre)), f32 p; and the unit's row
+  // statistics (mu, rstd, mean dyn, mean dyn yn) by row
+  float* scr = p_scratch + (size_t)(blockIdx.x * 2 + wgi) * SCR;
+  uint4* qsv = reinterpret_cast<uint4*>(scr) + tid;
+  uint4* ofv = reinterpret_cast<uint4*>(scr + AREA) + tid;
+  float4* pv = reinterpret_cast<float4*>(scr + 2 * AREA) + tid;
+  float4* rowst = reinterpret_cast<float4*>(scr + 3 * AREA);
+  // the column sums: dbq per warp (group_sum8 over its 16 rows, then its
+  // units), dg, dbt and dbo of columns 2 tid, 2 tid + 1 per warpgroup
+  float a_dbq[4] = {0.f, 0.f, 0.f, 0.f};
+  // (the column pass: lane 16 h + i of warp w takes columns 4 c.., c = 16
+  // w + i, of rows 32 h..; the halves are added at the end)
+  float4 a_dg = make_float4(0.f, 0.f, 0.f, 0.f), a_dbt = a_dg, a_dbo = a_dg;
+  const int c4 = 4 * (16 * (warp & 3) + (lane & 15)), rh = 32 * (lane >> 4);
+  const float2 g2[2] = {ldg_f2(g + c4), ldg_f2(g + c4 + 2)};
+  // the weights' wgmma descriptors: MN-major (q and out projections) and
+  // K-major (d_out, d_keys); a k or column step moves the address field
+  // (bytes / 16) alone
+  const uint64_t d_wq_mn = desc(wq_s, WQ_SLAB, 1024, LAYOUT_SW128);
+  const uint64_t d_wo_mn = desc(wo_s, WO_SLAB, 1024, LAYOUT_SW128);
+  const uint64_t d_wq_k = desc(wq_s, 16, 1024, LAYOUT_SW128);
+  const uint64_t d_wo_k = desc(wo_s, 16, 1024, LAYOUT_SW128);
+  mbar_wait(wbar, 0);
+
+  int n = 0;  // this warpgroup's units so far
+  for (int u = blockIdx.x + wgi * gridDim.x; u < units;
+       u += 2 * gridDim.x, ++n) {
+    // the unit is the block's k-th: its keys are fill 2 k of the ring, its
+    // dy fill 2 k + 1
+    const int fk = 2 * (2 * n + wgi), fd = fk + 1;
+    unsigned char* ks = ring + (fk % RING) * SLOT;  // keys, then res
+    unsigned char* ys = ring + (fd % RING) * SLOT;  // dy, then rnd(d_res)
+    const uint64_t d_ys = desc(ys, 16, 1024, LAYOUT_SW128);
+    const int pair = u / tpp, r0 = (u - pair * tpp) * RR;
+    const bool ok0 = r0 + R0 < m, ok1 = r0 + R0 + 8 < m;
+    const size_t row0 = (size_t)pair * m + r0 + R0, row1 = row0 + 8;
+    const bf16* tk = tok_k + (size_t)pair * n_tok * I + 2 * t;
+    const bf16* tv = tok_v + (size_t)pair * n_tok * I + 2 * t;
+
+    // qin = rnd(keys + pe) as the q projection's A fragments: the keys
+    // from their slot, pe from device memory (2 MB: it stays in L2; a row
+    // past M reads row M - 1, its keys are zero and its dy too, so it adds
+    // nothing to any sum), then qpre = qin . Wq -> qs = rnd(rnd(qpre + bq)
+    // * rnd(1/4)), a head's A fragment to the scratch
+    mbar_wait(full + fk % RING, (fk / RING) & 1);
+    {
+      const bf16* per[2] = {pe + (size_t)min(r0 + R0, m - 1) * C,
+                            pe + (size_t)min(r0 + R0 + 8, m - 1) * C};
+      uint32_t qa[C / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < C / 16; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = i & 1, col = 16 * kk + 8 * (i >> 1) + 2 * t;
+          const float2 x = up2(lds_u32(ks + tile_off(R0 + 8 * r, col)));
+          const float2 z = up2(__ldg(reinterpret_cast<const unsigned int*>(
+              per[r] + col)));
+          qa[kk][i] = pack_bf16(x.x + z.x, x.y + z.y);
+        }
+      float acc[64];
+      fence_operands(qa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < C / 16; ++kk)
+        mma_bf16_rs_mn<128>(
+            acc, qa[kk], d_wq_mn + 128 * kk,
+            kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(acc);
+#pragma unroll
+      for (int h = 0; h < NH; ++h) {
+        uint32_t q[4];
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+          const int j = 2 * h + e2;
+          const float2 b = ldg_f2(bq + 8 * j + 2 * t);
+          q[2 * e2] = pack_bf16(round_bf16(acc[4 * j] + b.x) * SCALE,
+                                round_bf16(acc[4 * j + 1] + b.y) * SCALE);
+          q[2 * e2 + 1] = pack_bf16(round_bf16(acc[4 * j + 2] + b.x) * SCALE,
+                                    round_bf16(acc[4 * j + 3] + b.y) * SCALE);
+        }
+        qsv[h * 128] = make_uint4(q[0], q[1], q[2], q[3]);
+      }
+    }
+
+    // per head (two a step): scores, softmax (f32 p to the scratch),
+    // rnd(out) = rnd(rnd(p) . v), the out projection's A fragment, to the
+    // scratch and to the rows
+#pragma unroll 1
+    for (int h2 = 0; h2 < NH; h2 += 2) {
+      uint32_t of[2][4];
+      const uint4 qv2[2] = {qsv[h2 * 128], qsv[(h2 + 1) * 128]};
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        st_s[((q + i) * 2 + sub) * 16 + gq] = v[i][0];
-        st_s[((q + i) * 2 + sub) * 16 + gq + 8] = v[i][1];
+        const int h = h2 + i;
+        const uint4 qv = qv2[i];
+        const uint32_t q[4] = {qv.x, qv.y, qv.z, qv.w};
+        float x[2][4], part[2][TP], s[2][2], p[4];
+        unpack_head(q, x);
+        head_dots(part, x, tk + 16 * h, n_tok);
+        quad_tokens(part, s, t);
+        const bool v0 = 2 * t < n_tok, v1 = 2 * t + 1 < n_tok;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float x0 = v0 ? s[r][0] : -INFINITY, x1 = v1 ? s[r][1] : -INFINITY;
+          const float mx = quad_max(fmaxf(x0, x1));  // token 0 is real
+          x0 = v0 ? expf(x0 - mx) : 0.f;
+          x1 = v1 ? expf(x1 - mx) : 0.f;
+          const float inv = 1.f / quad_sum(x0 + x1);
+          p[2 * r] = x0 * inv;
+          p[2 * r + 1] = x1 * inv;
+        }
+        pv[h * 128] = make_float4(p[0], p[1], p[2], p[3]);
+        const uint32_t pr[2] = {pack_bf16(p[0], p[1]),
+                                pack_bf16(p[2], p[3])};
+        store_word(p_out + row0 * (NH * TP) + TP * h + 2 * t, ok0, pr[0]);
+        store_word(p_out + row1 * (NH * TP) + TP * h + 2 * t, ok1, pr[1]);
+        float y[2][4];
+        head_mix(y, pr, tv + 16 * h, n_tok, lane);
+        pack_head(of[i], y);
+        ofv[h * 128] = make_uint4(of[i][0], of[i][1], of[i][2], of[i][3]);
       }
-    pair_sync();
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-        v[i][r] = st_s[((q + i) * 2) * 16 + gq + 8 * r] +
-                  st_s[((q + i) * 2 + 1) * 16 + gq + 8 * r];
-  };
+      store_heads(out_rows, row0, row1, ok0, ok1, h2 + 1, of[0], of[1], t);
+    }
 
-  block_weights_async<C, I, LDQ, RT>(wq_s, wq);
-  block_weights_async<I, C, LDO, RT>(wo_s, wo);
-  cp_commit();
-  cp_wait<0>();
-  __syncthreads();
-
-  const float scale_f32 = 1.f / sqrtf((float)HD);
-  const int tpp = (m + 15) / 16, ntiles = bp * tpp;
-  const int c0 = 128 * sub, i0 = 64 * sub;  // this warp's columns of C, I
-  const bf16 zero = __float2bfloat16(0.f);
-  // per-column sums over the slot's tiles (group_sum8 layout), this warp's
-  // columns: groups 4 sub.. of C, 2 sub.. of I
-  float a_dg[4], a_dbt[4], a_dbo[4], a_dbq[2];
+    // res = rnd(keys + rnd(rnd(out) . Wo + bo)) over the keys in their
+    // slot (each lane reads and writes its own elements), which the
+    // LayerNorm and its backward read back; the out projection in two
+    // halves of 128 columns
+    float sum[2] = {0.f, 0.f};
+    {
+      uint32_t of[NH][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) a_dg[i] = a_dbt[i] = a_dbo[i] = 0.f;
-  a_dbq[0] = a_dbq[1] = 0.f;
-
-  for (int tile = blockIdx.x * SLOTS + slot; tile < ntiles;
-       tile += gridDim.x * SLOTS) {
-    const RowTile tl(tile, tpp, m);
-    const int valid = min(16, m - tl.row0);
-    const bool ok0 = gq < valid, ok1 = gq + 8 < valid;
-    const size_t r0 = tl.prow0 + gq, r1 = r0 + 8;  // the lane's two rows
-    const bf16* keys_t = keys + ((size_t)(tl.pair / pb) * m + tl.row0) * C;
-    const bf16* pe_t = pe + (size_t)tl.row0 * C;
-    slot_rows_async<C, LDO>(x_s, keys_t, valid, pl);
-    slot_rows_async<C, LDO>(e_s, pe_t, valid, pl);
-    cp_commit();
-    cp_wait<0>();
-    pair_sync();
-
-    // q projection, this warp's 64 lanes -> qs as per-head A fragments
-    uint32_t qf[4][4];
-    q_heads(qf, x_s, e_s, wq_s, bq, i0, lane);
-    pair_sync();  // pe is read by both warps: e_s holds p from here on
-
-    // per head: scores, softmax (p kept in f32), out = rnd(rnd(p) . v) ->
-    // o_s and the scratch rows
-    const bf16* tk = tok_k + (size_t)tl.pair * n_tok * I;
-    const bf16* tv = tok_v + (size_t)tl.pair * n_tok * I;
-    const bool tg = gq < n_tok, t0 = 2 * tq < n_tok, t1 = 2 * tq + 1 < n_tok;
+      for (int h = 0; h < NH; ++h) {
+        const uint4 v = ofv[h * 128];
+        of[h][0] = v.x, of[h][1] = v.y, of[h][2] = v.z, of[h][3] = v.w;
+      }
 #pragma unroll
-    for (int hh = 0; hh < 4; ++hh) {
-      const int h = 4 * sub + hh;
-      float p[4];
-      head_softmax(p, qf[hh], tk, h, n_tok, lane);
-      *reinterpret_cast<float2*>(p_s + gq * NH * TP + h * TP + 2 * tq) =
-          make_float2(p[0], p[1]);
-      *reinterpret_cast<float2*>(p_s + (gq + 8) * NH * TP + h * TP + 2 * tq) =
-          make_float2(p[2], p[3]);
-      if (ok0) st_bf2(p_out + r0 * (NH * TP) + h * TP + 2 * tq, p[0], p[1]);
-      if (ok1) st_bf2(p_out + r1 * (NH * TP) + h * TP + 2 * tq, p[2], p[3]);
-      uint32_t w[2][2];
-      head_out(w, p, tv, h, n_tok, lane);
+      for (int hn = 0; hn < 2; ++hn) {
+        float acc[64];
+        fence_operands(of);
+        wgmma_fence();
 #pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        const int col = 16 * h + 8 * n + 2 * tq;
-        *reinterpret_cast<uint32_t*>(o_s + gq * LDI + col) = w[n][0];
-        *reinterpret_cast<uint32_t*>(o_s + (gq + 8) * LDI + col) = w[n][1];
-        if (ok0) *reinterpret_cast<uint32_t*>(out_rows + r0 * I + col) = w[n][0];
-        if (ok1) *reinterpret_cast<uint32_t*>(out_rows + r1 * I + col) = w[n][1];
+        for (int h = 0; h < NH; ++h)
+          mma_bf16_rs_mn<128>(acc, of[h],
+                              d_wo_mn + 2048 * hn + 128 * h,
+                              h > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operands(acc);
+#pragma unroll
+        for (int jj = 0; jj < 16; ++jj) {
+          const int col = 128 * hn + 8 * jj + 2 * t;
+          const float2 b = ldg_f2(bo + col);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            unsigned char* at = ks + tile_off(R0 + 8 * r, col);
+            const float2 kv = up2(lds_u32(at));
+            const float x0 =
+                round_bf16(kv.x + round_bf16(acc[4 * jj + 2 * r] + b.x));
+            const float x1 =
+                round_bf16(kv.y + round_bf16(acc[4 * jj + 2 * r + 1] + b.y));
+            // exact: both are bf16 values
+            *reinterpret_cast<uint32_t*>(at) = pack_bf16(x0, x1);
+            sum[r] += x0 + x1;
+          }
+        }
       }
     }
-    pair_sync();  // o_s holds rnd(out) of all heads
 
-    // out projection, this warp's 128 columns; res = rnd(keys + rnd(proj +
-    // bo)) over its keys in x_s, and its part of the row sums
-    float acc[16][4];
-    out_product(acc, o_s, wo_s, c0, lane);
-    float st[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+    // the LayerNorm of rows g, g + 8 over the quad (the mean from the sums
+    // above), and in one pass over res and dy its centred variance and its
+    // backward's row sums of dyn = dy g and dyn (res - mu): mean dyn yn =
+    // rstd mean(dyn (res - mu))
+    mbar_wait(full + fd % RING, (fd / RING) & 1);  // dy landed
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int col = c0 + 8 * j + 2 * tq;
-      bf16* x0 = x_s + gq * LDO + col;
-      bf16* x1 = x_s + (gq + 8) * LDO + col;
-      const float2 k0 = ld_bf2(x0), k1 = ld_bf2(x1);
-      const float b0 = bo[col], b1 = bo[col + 1];
-      const __nv_bfloat162 v0 = __floats2bfloat162_rn(
-          k0.x + round_bf16(acc[j][0] + b0), k0.y + round_bf16(acc[j][1] + b1));
-      const __nv_bfloat162 v1 = __floats2bfloat162_rn(
-          k1.x + round_bf16(acc[j][2] + b0), k1.y + round_bf16(acc[j][3] + b1));
-      *reinterpret_cast<__nv_bfloat162*>(x0) = v0;
-      *reinterpret_cast<__nv_bfloat162*>(x1) = v1;
-      const float2 f0 = __bfloat1622float2(v0), f1 = __bfloat1622float2(v1);
-      acc[j][0] = f0.x;
-      acc[j][1] = f0.y;
-      acc[j][2] = f1.x;
-      acc[j][3] = f1.y;
-      st[0][0] += f0.x + f0.y;
-      st[0][1] += f1.x + f1.y;
-    }
-    // LayerNorm of rows g, g + 8: a quad holds the warp's half of a row
-    st[0][0] = quad_sum(st[0][0]);
-    st[0][1] = quad_sum(st[0][1]);
-    pair_sums(0, st);
-    const float mu0 = st[0][0] * (1.f / C), mu1 = st[0][1] * (1.f / C);
-    st[0][0] = st[0][1] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {  // res -> centred res in acc
-      acc[j][0] -= mu0;
-      acc[j][1] -= mu0;
-      acc[j][2] -= mu1;
-      acc[j][3] -= mu1;
-      st[0][0] = fmaf(acc[j][0], acc[j][0], fmaf(acc[j][1], acc[j][1], st[0][0]));
-      st[0][1] = fmaf(acc[j][2], acc[j][2], fmaf(acc[j][3], acc[j][3], st[0][1]));
-    }
-    st[0][0] = quad_sum(st[0][0]);
-    st[0][1] = quad_sum(st[0][1]);
-    pair_sums(2, st);
-    const float rs0 = rsqrtf(st[0][0] * (1.f / C) + eps);
-    const float rs1 = rsqrtf(st[0][1] * (1.f / C) + eps);
-    const bf16* dy0 = dy + r0 * C;
-    const bf16* dy1 = dy + r1 * C;
-    float sm[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // sum dyn, sum dyn yn
-#pragma unroll
-    for (int gg = 0; gg < 4; ++gg) {
-      float vg[8], vb[8];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int j = 4 * gg + jj, col = c0 + 8 * j + 2 * tq;
-        acc[j][0] *= rs0;  // yn
-        acc[j][1] *= rs0;
-        acc[j][2] *= rs1;
-        acc[j][3] *= rs1;
-        const float2 d0 = ok0 ? ld_bf2(dy0 + col) : make_float2(0.f, 0.f);
-        const float2 d1 = ok1 ? ld_bf2(dy1 + col) : make_float2(0.f, 0.f);
-        const float g0 = g[col], g1 = g[col + 1];
-        vg[2 * jj] = d0.x * acc[j][0] + d1.x * acc[j][2];
-        vg[2 * jj + 1] = d0.y * acc[j][1] + d1.y * acc[j][3];
-        vb[2 * jj] = d0.x + d1.x;
-        vb[2 * jj + 1] = d0.y + d1.y;
-        sm[0][0] += d0.x * g0 + d0.y * g1;
-        sm[1][0] = fmaf(d0.x * g0, acc[j][0], fmaf(d0.y * g1, acc[j][1], sm[1][0]));
-        sm[0][1] += d1.x * g0 + d1.y * g1;
-        sm[1][1] = fmaf(d1.x * g0, acc[j][2], fmaf(d1.y * g1, acc[j][3], sm[1][1]));
-      }
-      a_dg[gg] += group_sum8(vg, lane);
-      a_dbt[gg] += group_sum8(vb, lane);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      sm[i][0] = quad_sum(sm[i][0]);
-      sm[i][1] = quad_sum(sm[i][1]);
-    }
-    pair_sums(4, sm);
-    const float mdy0 = sm[0][0] * (1.f / C), mdyy0 = sm[1][0] * (1.f / C);
-    const float mdy1 = sm[0][1] * (1.f / C), mdyy1 = sm[1][1] * (1.f / C);
-    // d_res = rstd (dyn - mean dyn - yn mean(dyn yn)); rnd(d_res) over res
-    // in x_s and to the scratch rows
-#pragma unroll
-    for (int gg = 0; gg < 4; ++gg) {
-      float vo[8];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int j = 4 * gg + jj, col = c0 + 8 * j + 2 * tq;
-        const float2 d0 = ok0 ? ld_bf2(dy0 + col) : make_float2(0.f, 0.f);
-        const float2 d1 = ok1 ? ld_bf2(dy1 + col) : make_float2(0.f, 0.f);
-        const float g0 = g[col], g1 = g[col + 1];
-        const float e0 = rs0 * (d0.x * g0 - mdy0 - acc[j][0] * mdyy0);
-        const float e1 = rs0 * (d0.y * g1 - mdy0 - acc[j][1] * mdyy0);
-        const float e2 = rs1 * (d1.x * g0 - mdy1 - acc[j][2] * mdyy1);
-        const float e3 = rs1 * (d1.y * g1 - mdy1 - acc[j][3] * mdyy1);
-        vo[2 * jj] = e0 + e2;
-        vo[2 * jj + 1] = e1 + e3;
-        st_bf2(x_s + gq * LDO + col, e0, e1);
-        st_bf2(x_s + (gq + 8) * LDO + col, e2, e3);
-        if (ok0) st_bf2(dres_rows + r0 * C + col, e0, e1);
-        if (ok1) st_bf2(dres_rows + r1 * C + col, e2, e3);
-      }
-      a_dbo[gg] += group_sum8(vo, lane);
-    }
-    pair_sync();  // x_s holds rnd(d_res) of all columns
-
-    // d_out = rnd(d_res) . Wo^T, this warp's 64 lanes -> rnd, the per-head
-    // A fragments of d_p
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    for (int r = 0; r < 2; ++r) {
+      const float mu = quad_sum(sum[r]) * (1.f / C);
+      float v = 0.f, s1 = 0.f, s2 = 0.f;
 #pragma unroll 4
-    for (int kk = 0; kk < C / 16; ++kk) {
-      uint32_t a[4];
-      load_a<LDO>(a, x_s, 0, 16 * kk, lane);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t b[4];
-        load_b_nk<LDO>(b, wo_s, i0 + 16 * np, 16 * kk, lane);
-        mma16816(acc[2 * np], a, b[0], b[1]);
-        mma16816(acc[2 * np + 1], a, b[2], b[3]);
+      for (int j = 0; j < C / 8; ++j) {
+        const int off = tile_off(R0 + 8 * r, 8 * j + 2 * t);
+        const float2 gg = ldg_f2(g + 8 * j + 2 * t);
+        const float2 d = up2(lds_u32(ys + off)), x = up2(lds_u32(ks + off));
+        const float a0 = x.x - mu, a1 = x.y - mu;
+        const float n0 = d.x * gg.x, n1 = d.y * gg.y;
+        v = fmaf(a0, a0, fmaf(a1, a1, v));
+        s1 += n0 + n1;
+        s2 = fmaf(n0, a0, fmaf(n1, a1, s2));
       }
+      const float rstd = rsqrtf(quad_sum(v) * (1.f / C) + eps);
+      const float mdy = quad_sum(s1) * (1.f / C);
+      const float mdyy = rstd * quad_sum(s2) * (1.f / C);
+      if (t == 0) rowst[R0 + 8 * r] = make_float4(mu, rstd, mdy, mdyy);
     }
-    uint32_t df[4][4];
+    named_sync(bar, 128);  // every row's statistics are in the scratch
+
+    // a pass over the unit's rows, the lane's four columns of half of
+    // them: d_res = rstd (dy g - mean dyn - yn mean(dyn yn)), rnd(d_res)
+    // over dy in its slot (from there by TMA to the scratch rows), and the
+    // column sums dg = sum dy yn, dbt = sum dy, dbo = sum d_res (f32)
+#pragma unroll 4
+    for (int R = rh; R < rh + RR / 2; ++R) {
+      const float4 st = rowst[R];  // mu, rstd, mean dyn, mean dyn yn
+      const int off = tile_off(R, c4);
+      const uint2 dv = *reinterpret_cast<const uint2*>(ys + off);
+      const uint2 xv = *reinterpret_cast<const uint2*>(ks + off);
+      uint32_t w[2];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = i0 + 8 * j + 2 * tq;
-      df[j / 2][(j & 1) * 2] = pack_bf16(acc[j][0], acc[j][1]);
-      df[j / 2][(j & 1) * 2 + 1] = pack_bf16(acc[j][2], acc[j][3]);
-      if (ok0) *reinterpret_cast<uint32_t*>(dout + r0 * I + col) = df[j / 2][(j & 1) * 2];
-      if (ok1) *reinterpret_cast<uint32_t*>(dout + r1 * I + col) = df[j / 2][(j & 1) * 2 + 1];
+      for (int h = 0; h < 2; ++h) {
+        const float2 d = up2(h ? dv.y : dv.x), x = up2(h ? xv.y : xv.x);
+        const float y0 = (x.x - st.x) * st.y, y1 = (x.y - st.x) * st.y;
+        const float e0 = st.y * (d.x * g2[h].x - st.z - y0 * st.w);
+        const float e1 = st.y * (d.y * g2[h].y - st.z - y1 * st.w);
+        w[h] = pack_bf16(e0, e1);
+        if (h == 0) {
+          a_dg.x = fmaf(d.x, y0, a_dg.x);
+          a_dg.y = fmaf(d.y, y1, a_dg.y);
+          a_dbt.x += d.x;
+          a_dbt.y += d.y;
+          a_dbo.x += e0;
+          a_dbo.y += e1;
+        } else {
+          a_dg.z = fmaf(d.x, y0, a_dg.z);
+          a_dg.w = fmaf(d.y, y1, a_dg.w);
+          a_dbt.z += d.x;
+          a_dbt.w += d.y;
+          a_dbo.z += e0;
+          a_dbo.w += e1;
+        }
+      }
+      *reinterpret_cast<uint2*>(ys + off) = make_uint2(w[0], w[1]);
+    }
+    release(fk % RING);  // res read
+    fence_proxy_async();
+    named_sync(bar, 128);  // the slot holds rnd(d_res) of all 64 rows
+    if (tid == 0) {  // (rows past M are not written)
+#pragma unroll
+      for (int b = 0; b < C / 64; ++b)
+        tma_store_3d(&tm_dres, ys + b * BOX, 64 * b, r0, pair);
+      bulk_commit();
     }
 
-    // per head: d_p = d_out . v^T, the softmax backward, d_qpre = rnd(
-    // (d_score . k) / 4) -> o_s and the rows
-    float vq[8];
+    // d_out = rnd(rnd(d_res) . Wo^T): a head's A fragment to the scratch
+    // and to the rows
+    {
+      float acc[64];
+      wgmma_fence();
 #pragma unroll
-    for (int hh = 0; hh < 4; ++hh) {
-      const int h = 4 * sub + hh;
-      float dp[4] = {0.f, 0.f, 0.f, 0.f};
-      mma16816(dp, df[hh], tg ? ld_u32(tv + gq * I + 16 * h + 2 * tq) : 0u,
-               tg ? ld_u32(tv + gq * I + 16 * h + 8 + 2 * tq) : 0u);
-      const float2 pa = *reinterpret_cast<const float2*>(
-          p_s + gq * NH * TP + h * TP + 2 * tq);
-      const float2 pc = *reinterpret_cast<const float2*>(
-          p_s + (gq + 8) * NH * TP + h * TP + 2 * tq);
-      const float p[4] = {pa.x, pa.y, pc.x, pc.y};
-      float ds[4];
+      for (int kk = 0; kk < C / 16; ++kk)
+        mma_bf16_ss<128>(
+            acc, d_ys + 512 * (kk >> 2) + 2 * (kk & 3),
+            d_wo_k + 1024 * (kk >> 2) + 2 * (kk & 3),
+            kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(acc);
+      uint32_t df[2][4];
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float x0 = p[2 * r] * dp[2 * r], x1 = p[2 * r + 1] * dp[2 * r + 1];
-        const float sum = quad_sum(x0 + x1);
-        ds[2 * r] = round_bf16(x0 - p[2 * r] * sum);  // p == 0 past n_tok
-        ds[2 * r + 1] = round_bf16(x1 - p[2 * r + 1] * sum);
+      for (int h = 0; h < NH; ++h) {
+        uint32_t* d = df[h & 1];
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+          const int j = 2 * h + e2;
+          d[2 * e2] = pack_bf16(acc[4 * j], acc[4 * j + 1]);
+          d[2 * e2 + 1] = pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+        }
+        qsv[h * 128] = make_uint4(d[0], d[1], d[2], d[3]);
+        if (h & 1)
+          store_heads(dout, row0, row1, ok0, ok1, h, df[0], df[1], t);
       }
-      if (ok0) st_bf2(ds_out + r0 * (NH * TP) + h * TP + 2 * tq, ds[0], ds[1]);
-      if (ok1) st_bf2(ds_out + r1 * (NH * TP) + h * TP + 2 * tq, ds[2], ds[3]);
-      const uint32_t da0 = pack_bf16(ds[0], ds[1]), da1 = pack_bf16(ds[2], ds[3]);
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        const int d = 16 * h + 8 * n + gq;
-        float q[4] = {0.f, 0.f, 0.f, 0.f};
-        mma1688(q, da0, da1,
-                pack_raw(t0 ? tk[2 * tq * I + d] : zero,
-                         t1 ? tk[(2 * tq + 1) * I + d] : zero));
-#pragma unroll
-        for (int e = 0; e < 4; ++e) q[e] *= scale_f32;
-        vq[(hh & 1) * 4 + 2 * n] = q[0] + q[2];
-        vq[(hh & 1) * 4 + 2 * n + 1] = q[1] + q[3];
-        const uint32_t w0 = pack_bf16(q[0], q[1]), w1 = pack_bf16(q[2], q[3]);
-        const int col = 16 * h + 8 * n + 2 * tq;
-        *reinterpret_cast<uint32_t*>(o_s + gq * LDI + col) = w0;
-        *reinterpret_cast<uint32_t*>(o_s + (gq + 8) * LDI + col) = w1;
-        if (ok0) *reinterpret_cast<uint32_t*>(dqpre + r0 * I + col) = w0;
-        if (ok1) *reinterpret_cast<uint32_t*>(dqpre + r1 * I + col) = w1;
-      }
-      if (hh & 1) a_dbq[hh / 2] += group_sum8(vq, lane);
     }
-    pair_sync();  // o_s holds rnd(d_qpre) of all heads
 
-    // d_keys = rnd(d_res) + rnd(d_qpre) . Wq^T, this warp's 128 columns
+    // per head (two a step): d_p = d_out . v^T, d_score = rnd(p d_p - p
+    // sum(p d_p)), d_qpre = rnd((d_score . k) / 4), the A fragment of
+    // d_keys, to the scratch and the rows; dbq's f32 sums
+#pragma unroll 1
+    for (int h2 = 0; h2 < NH; h2 += 2) {
+      uint32_t qd[2][4];
+      float vq[8];
+      const uint4 dv2[2] = {qsv[h2 * 128], qsv[(h2 + 1) * 128]};
+      const float4 p42[2] = {pv[h2 * 128], pv[(h2 + 1) * 128]};
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int col = c0 + 8 * j + 2 * tq;
-      const float2 e0 = ld_bf2(x_s + gq * LDO + col);
-      const float2 e1 = ld_bf2(x_s + (gq + 8) * LDO + col);
-      acc[j][0] = e0.x;
-      acc[j][1] = e0.y;
-      acc[j][2] = e1.x;
-      acc[j][3] = e1.y;
+      for (int i = 0; i < 2; ++i) {
+        const int h = h2 + i;
+        const uint4 dv = dv2[i];
+        const float4 p4 = p42[i];
+        const uint32_t df[4] = {dv.x, dv.y, dv.z, dv.w};
+        const float p[4] = {p4.x, p4.y, p4.z, p4.w};
+        float x[2][4], part[2][TP], dp[2][2];
+        unpack_head(df, x);
+        head_dots(part, x, tv + 16 * h, n_tok);
+        quad_tokens(part, dp, t);
+        uint32_t dsp[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float x0 = p[2 * r] * dp[r][0];
+          const float x1 = p[2 * r + 1] * dp[r][1];
+          const float sm = quad_sum(x0 + x1);
+          // p == 0 past n_tok
+          dsp[r] = pack_bf16(x0 - p[2 * r] * sm, x1 - p[2 * r + 1] * sm);
+        }
+        store_word(ds_out + row0 * (NH * TP) + TP * h + 2 * t, ok0, dsp[0]);
+        store_word(ds_out + row1 * (NH * TP) + TP * h + 2 * t, ok1, dsp[1]);
+        float y[2][4];
+        head_mix(y, dsp, tk + 16 * h, n_tok, lane);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          y[0][k] *= SCALE;
+          y[1][k] *= SCALE;
+          vq[4 * i + k] = y[0][k] + y[1][k];
+        }
+        pack_head(qd[i], y);
+        ofv[h * 128] = make_uint4(qd[i][0], qd[i][1], qd[i][2], qd[i][3]);
+      }
+      a_dbq[h2 >> 1] += group_sum8(vq, lane);
+      store_heads(dqpre, row0, row1, ok0, ok1, h2 + 1, qd[0], qd[1], t);
     }
-#pragma unroll 2
-    for (int kk = 0; kk < I / 16; ++kk) {
-      uint32_t a[4];
-      load_a<LDI>(a, o_s, 0, 16 * kk, lane);
+
+    // d_keys = rnd(d_res) + rnd(d_qpre) . Wq^T, in two halves of 128
+    // columns, the accumulators first set to rnd(d_res) from the slot;
+    // rnd(d_keys) over it once the TMA store of rnd(d_res) has read it,
+    // then stored from there by TMA
+    if (tid == 0) bulk_wait_read();
+    named_sync(bar, 128);
+    {
+      uint32_t qd[NH][4];
 #pragma unroll
-      for (int np = 0; np < 8; ++np) {
-        uint32_t b[4];
-        load_b_nk<LDQ>(b, wq_s, c0 + 16 * np, 16 * kk, lane);
-        mma16816(acc[2 * np], a, b[0], b[1]);
-        mma16816(acc[2 * np + 1], a, b[2], b[3]);
+      for (int h = 0; h < NH; ++h) {
+        const uint4 v = ofv[h * 128];
+        qd[h][0] = v.x, qd[h][1] = v.y, qd[h][2] = v.z, qd[h][3] = v.w;
+      }
+#pragma unroll
+      for (int hn = 0; hn < 2; ++hn) {
+        float acc[64];
+#pragma unroll
+        for (int jj = 0; jj < 16; ++jj)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float2 x = up2(
+                lds_u32(ys + tile_off(R0 + 8 * r, 128 * hn + 8 * jj + 2 * t)));
+            acc[4 * jj + 2 * r] = x.x;
+            acc[4 * jj + 2 * r + 1] = x.y;
+          }
+        fence_operands(qd);
+        fence_operands(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int h = 0; h < NH; ++h)
+          mma_bf16_rs<128>(acc, qd[h],
+                           d_wq_k + 2048 * (h >> 2) + 1024 * hn +
+                               2 * (h & 3),
+                           1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operands(acc);
+#pragma unroll
+        for (int jj = 0; jj < 16; ++jj)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            *reinterpret_cast<uint32_t*>(
+                ys + tile_off(R0 + 8 * r, 128 * hn + 8 * jj + 2 * t)) =
+                pack_bf16(acc[4 * jj + 2 * r], acc[4 * jj + 2 * r + 1]);
       }
     }
+    fence_proxy_async();
+    named_sync(bar, 128);  // the slot holds rnd(d_keys) of all 64 rows
+    if (tid == 0) {
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int col = c0 + 8 * j + 2 * tq;
-      if (ok0) st_bf2(dkeys + r0 * C + col, acc[j][0], acc[j][1]);
-      if (ok1) st_bf2(dkeys + r1 * C + col, acc[j][2], acc[j][3]);
+      for (int b = 0; b < C / 64; ++b)
+        tma_store_3d(&tm_dkeys, ys + b * BOX, 64 * b, r0, pair);
+      bulk_commit();
+      bulk_wait_read();
     }
-    pair_sync();  // the slot's tiles are refilled by the next tile
+    release(fd % RING);  // (warp 0 after the store has read the slot)
   }
 
-  const size_t wg = (size_t)blockIdx.x * SLOTS + slot;
-#pragma unroll
-  for (int gg = 0; gg < 4; ++gg) {
-    const int col = group_col(4 * sub + gg, lane);
-    dg_p[wg * C + col] = a_dg[gg];
-    dbt_p[wg * C + col] = a_dbt[gg];
-    dbo_p[wg * C + col] = a_dbo[gg];
+  if (tid == 0) bulk_wait();  // the last TMA stores are done
+  const size_t pg = (size_t)blockIdx.x * 2 + wgi;  // the warpgroup's row
+  auto halves = [&](float4 v) {  // rows 0..31, then rows 32..63
+    v.x += __shfl_xor_sync(0xffffffffu, v.x, 16);
+    v.y += __shfl_xor_sync(0xffffffffu, v.y, 16);
+    v.z += __shfl_xor_sync(0xffffffffu, v.z, 16);
+    v.w += __shfl_xor_sync(0xffffffffu, v.w, 16);
+    return v;
+  };
+  a_dg = halves(a_dg);
+  a_dbt = halves(a_dbt);
+  a_dbo = halves(a_dbo);
+  if (rh == 0) {
+    *reinterpret_cast<float4*>(dg_p + pg * C + c4) = a_dg;
+    *reinterpret_cast<float4*>(dbt_p + pg * C + c4) = a_dbt;
+    *reinterpret_cast<float4*>(dbo_p + pg * C + c4) = a_dbo;
   }
+  const size_t pw = (size_t)blockIdx.x * WARPS + warp;  // the warp's row
 #pragma unroll
-  for (int gg = 0; gg < 2; ++gg)
-    dbq_p[wg * I + group_col(2 * sub + gg, lane)] = a_dbq[gg];
+  for (int grp = 0; grp < 4; ++grp)
+    dbq_p[pw * I + group_col(grp, lane)] = a_dbq[grp];
 }
 
 // The bf16 weight pass on wgmma and TMA (i2t_bwd_dw_wgmma_kernel): block u
@@ -923,21 +1315,54 @@ __global__ void __launch_bounds__(dwb::NTH, 1)
                  acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
 }
 
+// a: keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, dy; d_keys, d_qpre, p,
+// d_score, d_out, rnd(out), rnd(d_res); the partials of dbq, dbo, dg, dbt
+// (blocks x rwb::WARPS rows each); the scratch of p, blocks x 2 x 8 x 512
+// f32. The rows land through tensor maps over
+// (C, M, images or pairs) bf16, boxes of 64 columns x 64 rows, the weights
+// through maps over Wq (I, C) and Wo (C, I), boxes of 64 columns x all rows,
+// all in the 128-byte swizzle.
 int launch_bwd_rows(void* const* a, int bp, int m, int pb, int n_tok,
                     int blocks, float eps, cudaStream_t stream) {
   if (n_tok < 1 || n_tok > TP || pb < 1 || bp % pb || blocks < 1 || m < 1)
     return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[6];
+  // keys and dy, then the rows stored from the slots: d_res, d_keys
+  const void* srcs[4] = {a[0], a[10], a[17], a[11]};
+  const int planes[4] = {bp / pb, bp, bp, bp};
+  for (int i = 0; i < 4; ++i) {
+    const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)m,
+                                (cuuint64_t)planes[i]};
+    const cuuint64_t strides[2] = {2ull * C, 2ull * C * m};
+    const cuuint32_t box[3] = {64, (cuuint32_t)rwb::RR, 1};
+    if (!hop::tensor_map(maps + i, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                         srcs[i], dims, strides, box,
+                         CU_TENSOR_MAP_SWIZZLE_128B))
+      return (int)cudaErrorInvalidValue;
+  }
+  const int wdims[2][2] = {{I, C}, {C, I}};  // Wq (C, I), Wo (I, C)
+  const void* wsrc[2] = {a[4], a[6]};
+  for (int i = 0; i < 2; ++i) {
+    const cuuint64_t dims[2] = {(cuuint64_t)wdims[i][0],
+                                (cuuint64_t)wdims[i][1]};
+    const cuuint64_t strides[1] = {2ull * wdims[i][0]};
+    const cuuint32_t box[2] = {64, (cuuint32_t)wdims[i][1]};
+    if (!hop::tensor_map(maps + 4 + i, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                         wsrc[i], dims, strides, box,
+                         CU_TENSOR_MAP_SWIZZLE_128B))
+      return (int)cudaErrorInvalidValue;
+  }
   cudaError_t e = cudaFuncSetAttribute(
-      i2t_bwd_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)ROWS_SMEM);
+      i2t_bwd_rows_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)rwb::SMEM);
   if (e != cudaSuccess) return (int)e;
   auto in = [&](int i) { return static_cast<const bf16*>(a[i]); };
   auto out = [&](int i) { return static_cast<bf16*>(a[i]); };
   auto f = [&](int i) { return static_cast<float*>(a[i]); };
-  i2t_bwd_rows_kernel<<<blocks, RT, ROWS_SMEM, stream>>>(
-      in(0), in(1), in(2), in(3), in(4), f(5), in(6), f(7), f(8), f(9),
-      in(10), out(11), out(12), out(13), out(14), out(15), out(16), out(17),
-      f(18), f(19), f(20), f(21), bp, m, pb, n_tok, eps);
+  i2t_bwd_rows_wgmma_kernel<<<blocks, rwb::NTH, rwb::SMEM, stream>>>(
+      maps[0], maps[1], maps[4], maps[5], maps[2], maps[3], in(1), in(2),
+      in(3), f(5), f(7), f(8), out(12), out(13), out(14), out(15), out(16),
+      f(18), f(19), f(20), f(21), f(22), bp, m, pb, n_tok, eps);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,9 @@
-// Tensor-core building blocks of the bf16 decoder backward kernels: the
-// image->token attention K4 (decoder_attn.cu, i2t_bwd_rows_kernel; its
-// weight pass runs on wgmma, i2t_bwd_dw_wgmma_kernel) and the upscaler K3
-// (upscaler.cu, upscale_bwd_rows_kernel / upscale_bwd_dw_kernel).
+// Tensor-core building blocks of the bf16 decoder kernels on mma.sync: the
+// image->token attention K4's forward (decoder_attn.cu, i2t_fwd_mma_kernel;
+// its backward runs on wgmma, i2t_bwd_rows_wgmma_kernel and
+// i2t_bwd_dw_wgmma_kernel, which take group_sum8 and the row helpers from
+// here) and the upscaler K3 (upscaler.cu, upscale_bwd_rows_kernel /
+// upscale_bwd_dw_kernel).
 //
 // Each backward is two launches:
 //   * a row pass: persistent blocks of 8 warps (one block per SM) hold the

@@ -6,8 +6,9 @@
 // attn_bwd_dkv_wgmma_kernel), the f32 K5 kernels
 // (attention_bwd_wgmma_tf32.cu, attn_bwd_dq_wgmma_tf32_kernel and
 // attn_bwd_dkv_wgmma_tf32_kernel), the K4 weight pass in both types
-// (decoder_attn.cu, i2t_bwd_dw_wgmma_kernel and i2t_bwd_dw_tf32_kernel) and
-// the f32 K3 weight pass (upscaler.cu, upscale_bwd_dw_tf32_kernel).
+// (decoder_attn.cu, i2t_bwd_dw_wgmma_kernel and i2t_bwd_dw_tf32_kernel),
+// the bf16 K4 row pass (i2t_bwd_rows_wgmma_kernel) and the f32 K3 weight
+// pass (upscaler.cu, upscale_bwd_dw_tf32_kernel).
 //
 // * mbarriers: init, arrive, arrive with an expected transaction count,
 //   a wait on a phase's parity, and the arrive that fires when a thread's
@@ -15,17 +16,22 @@
 // * TMA: cp.async.bulk.tensor loads of a tile described by a CUtensorMap
 //   (encoded on the host, passed to the kernel as a __grid_constant__
 //   parameter) and cp.async.bulk row copies, each completing bytes on an
-//   mbarrier; the host encoder is looked up at run time
+//   mbarrier, and tensor stores in bulk groups; the host encoder is looked
+//   up at run time
 //   (cudaGetDriverEntryPoint), so no library links against libcuda.
 // * wgmma: shared-memory matrix descriptors, fence / commit / wait, and the
 //   instruction shapes the kernels issue, each an asm block listing its
 //   N / 2 f32 accumulators:
 //     mma_bf16_ss<64 | 112 | 128 | 224>  bf16, both operands in shared
-//       memory, K-major (K6's and K5's score products);
+//       memory, K-major (K6's and K5's score products; the K4 row pass's
+//       d_out = rnd(d_res) . Wo^T at 128);
 //     mma_bf16_ss_mn<256>  bf16, both operands in shared memory, MN-major
 //       (the K4 weight pass: X^T . Y with K the row index of both);
-//     mma_bf16_rs_mn<16 | 32 | 64>  bf16, A in registers, B MN-major (K6's
-//       p . v, K5's ds . k, p^T . dO and ds^T . q);
+//     mma_bf16_rs_mn<16 | 32 | 64 | 128>  bf16, A in registers, B MN-major
+//       (K6's p . v, K5's ds . k, p^T . dO and ds^T . q; the K4 row pass's
+//       q and out projections, qin . Wq and rnd(out) . Wo, at 128);
+//     mma_bf16_rs<128>  bf16, A in registers, B K-major (the K4 row pass's
+//       d_keys: rnd(d_qpre) . Wq^T);
 //     mma_tf32_rs<16 | 32 | 48 | 64 | 80 | 96 | 112 | 128 | 256>  TF32, A
 //       in registers, B K-major (the f32 K3 and K4 weight passes at 128 /
 //       256; the f32 K6's q . k^T over its key tile and p . v over its
@@ -215,6 +221,31 @@ __device__ __forceinline__ void cp_async16_fill(void* dst, const void* src,
                : "memory");
 }
 
+// TMA store: the box of `map` at coordinates (c0, c1, c2) <- src (shared
+// memory in the box's layout; elements past the tensor's ends are not
+// written), in the thread's current bulk group
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.tile.bulk_group "
+      "[%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+// close the thread's bulk group; then wait until its groups have read
+// their shared-memory sources (the memory may be written again)
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// wait until the thread's bulk groups are complete (their writes done)
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
 // generic-proxy writes to shared memory -> visible to TMA / wgmma reads
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -306,6 +337,10 @@ __device__ void mma_bf16_ss_mn(float* d, uint64_t da, uint64_t db, int acc);
 template <int N>
 __device__ void mma_bf16_rs_mn(float* d, const uint32_t (&a)[4], uint64_t db,
                                int acc);
+// bf16, A from registers, B K-major
+template <int N>
+__device__ void mma_bf16_rs(float* d, const uint32_t (&a)[4], uint64_t db,
+                            int acc);
 // TF32, A from registers, B K-major
 template <int N>
 __device__ void mma_tf32_rs(float* d, const uint32_t (&a)[4], uint64_t db,
@@ -851,6 +886,78 @@ __device__ __forceinline__ void mma_tf32_rs<256>(float* d,
       "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
       "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
       "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void mma_bf16_rs_mn<128>(float* d,
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void mma_bf16_rs<128>(float* d,
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
 }
 

@@ -10,7 +10,8 @@ Runs the seeded serving workload (``inference/synthetic.py``) through
 so one-time start-up costs stay outside the window) and ten cached
 prompt-to-mask requests. For each window it prints the host wall time, the
 device time summed over kernels and copies, the busy share (device time /
-wall), the time by kind (K1 and K6, whose kernels are one; K2, K7, matrix
+wall), the time by kind (K1 and K6, whose kernels are one, apart from
+their windowed (GRID) instances, K2 and K6's windows; K7, matrix
 products, convolutions, copies, other kernels) and the top kernels by
 device time. Needs a card.
 """
@@ -18,6 +19,7 @@ device time. Needs a card.
 from __future__ import annotations
 
 import argparse
+import re
 import time
 
 import torch
@@ -36,7 +38,10 @@ def _kind(name: str) -> str:
         return "K7 attn_windowed_image"
     if "attn_windowed" in low:
         return "K2 attn_windowed"
-    if "attn_relpos" in low:  # the K6 kernels are the K1 (and bf16 K2) too
+    if "attn_relpos" in low:  # the K6 kernels are the K1 and K2 too
+        # their GRID instances (template argument Mode 2): the windows
+        if re.search(r"mode\)2[,>]", low):
+            return "K2 / K6 windowed"
         return "K1 / K6 attn_relpos"
     if "attn_bwd" in low or "_images_kernel" in low:  # K5's f32 pre-passes
         return "K5 attn_bwd"

@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 # one shared library per source; headers (*.cuh, and the *.h shared with the
 # host library) are hashed into every library
-SOURCES = {"attention": "attention.cu", "attention_bwd": "attention_bwd.cu",
+SOURCES = {"attention_bwd": "attention_bwd.cu",
            "attention_bwd_wgmma_tf32": "attention_bwd_wgmma_tf32.cu",
            "attention_relpos_wgmma": "attention_relpos_wgmma.cu",
            "attention_relpos_wgmma_tf32": "attention_relpos_wgmma_tf32.cu",

@@ -15,10 +15,10 @@ launches hand-written kernels:
     head dim 64 compute the same function, with the rows' logsumexp, for
     the global layers (N > WINDOW_MAX_TOKENS; N = 4096 at ViT-B), replacing
     the TPU ``_packed_kernel``;
-  * K2 ``attn_windowed_tf32_kernel`` (f32, same file) /
-    ``attn_relpos_wgmma_kernel`` (bf16, at the rounding point of the JAX
-    route: ``normalised_rounding``) for the windowed layers (N <= 256;
-    14x14 windows at ViT-B), replacing the TPU ``_windowed_group_kernel``.
+  * K2, the same two kernels (bf16 at the rounding point of the JAX route:
+    ``normalised_rounding``; in f32 nothing is rounded, so both points are
+    one function) for the windowed layers (N <= 256; 14x14 windows at
+    ViT-B), replacing the TPU ``_windowed_group_kernel``.
     With a gradient to take, K1 / K2 also write the rows' logsumexp (the
     TPU kernels' ``return_lse``);
   * K5's dq and dk/dv kernels, on wgmma and TMA, for the backward of
@@ -73,7 +73,7 @@ WINDOW_MAX_TOKENS = 256  # K2 / K7 hold all keys of a window in shared memory
 HEAD_DIM = 64            # K1 / K2 / K5 / K7
 RELPOS_MAX_HEAD_DIM = 128  # K6 takes every multiple of 4 up to this
 
-_BOUND = {"attention": False, "attention_bwd": False,
+_BOUND = {"attention_bwd": False,
           "attention_bwd_wgmma_tf32": False, "attention_relpos_wgmma": False,
           "attention_relpos_wgmma_tf32": False, "attention_winimg": False}
 SMEM_MAX = 232448  # shared memory a block may use on an H100
@@ -657,9 +657,7 @@ def _bind(name):
     lib = kernels.library(name)
     if not _BOUND[name]:
         p, i = ctypes.c_void_p, ctypes.c_int
-        if name == "attention":
-            fns = [(lib.dhoct_attn_windowed, [p] * 5 + [i] * 6 + [p])]
-        elif name == "attention_relpos_wgmma_tf32":
+        if name == "attention_relpos_wgmma_tf32":
             fns = [(lib.dhoct_attn_relpos_f32, [p] * 5 + [i] * 11 + [p])]
         elif name == "attention_relpos_wgmma":
             fns = [(lib.dhoct_attn_relpos_bf16, [p] * 5 + [i] * 13 + [p])]
@@ -707,10 +705,10 @@ def attention_fwd_cuda(qkv, rel_h, rel_w, *, hw, num_heads: int,
     the logsumexp rows, at the rounding point of the JAX route
     (``normalised_rounding(B, N)``: the normalised p, K2's on SAM's
     windows, or the un-normalised p divided last, K6's and K1's); at head
-    dim 64 it computes the same function. In f32 K1 is the f32 K6's kernel
-    (``attn_relpos_wgmma_tf32_kernel`` on ``relpos_plan_f32``) with the
-    logsumexp rows, K2 ``attn_windowed_tf32_kernel``. Its launches count as
-    ``attn_windowed`` (N <= WINDOW_MAX_TOKENS) or ``attn_global``."""
+    dim 64 it computes the same function. In f32 both are the f32 K6's
+    kernel (``attn_relpos_wgmma_tf32_kernel`` on ``relpos_plan_f32``) with
+    the logsumexp rows. Its launches count as ``attn_windowed`` (N <=
+    WINDOW_MAX_TOKENS) or ``attn_global``."""
     _check(qkv, rel_h, rel_w, hw, num_heads)
     b, n, c3 = qkv.shape
     _kernel_dims(qkv, num_heads)
@@ -722,18 +720,9 @@ def attention_fwd_cuda(qkv, rel_h, rel_w, *, hw, num_heads: int,
     if qkv.dtype == torch.bfloat16:
         lib, err = _launch_relpos_bf16(qkv, rel_h, rel_w, out, lse, hw,
                                        num_heads, normalised_rounding(b, n))
-    elif name == "attn_global":
+    else:
         lib, err = _launch_relpos_f32(qkv, rel_h, rel_w, out, lse, hw,
                                       num_heads)
-    else:
-        lib = _bind("attention")
-        stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        with torch.cuda.device(qkv.device):
-            err = lib.dhoct_attn_windowed(
-                qkv.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
-                out.data_ptr(), lse.data_ptr() if return_lse else None, b, n,
-                num_heads, hw[0], hw[1], kernels.DTYPE_CODE[qkv.dtype],
-                stream)
     kernels.raise_on_error(err, lib.dhoct_error_string, name)
     LAUNCHES[name] += 1
     return (out, lse) if return_lse else out
@@ -750,6 +739,12 @@ def _padded_heads(qkv, num_heads, dp):
                                    (0, dp - d)).view(b, n, 3 * num_heads * dp)
 
 
+def relpos_blocks(b: int, num_heads: int, n: int, sm_count: int) -> int:
+    """Persistent blocks of a K6 launch (either type) over its units of 128
+    query rows of one (batch, head): one an SM at most."""
+    return min(b * num_heads * -(-n // 128), sm_count)
+
+
 def _launch_relpos_f32(qkv, rel_h, rel_w, out, lse, hw, num_heads):
     """Launch ``attn_relpos_wgmma_tf32_kernel`` on the plan of
     ``relpos_plan_f32``, one persistent block per SM at most, writing
@@ -761,7 +756,6 @@ def _launch_relpos_f32(qkv, rel_h, rel_w, out, lse, hw, num_heads):
     d = c3 // 3 // num_heads
     plan = relpos_plan_f32(d, n, tuple(hw))
     src = _padded_heads(qkv, num_heads, plan.dp)
-    units = b * num_heads * -(-n // 128)
     lib = _bind("attention_relpos_wgmma_tf32")
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     with kernels.on_device(qkv.device):
@@ -770,7 +764,8 @@ def _launch_relpos_f32(qkv, rel_h, rel_w, out, lse, hw, num_heads):
             out.data_ptr(), None if lse is None else lse.data_ptr(), b, n,
             num_heads, d, hw[0], hw[1], src.shape[2] // (3 * num_heads),
             plan.kv_stages, plan.v_slots, plan.u_stages,
-            min(units, kernels.sm_count(qkv.device)), stream)
+            relpos_blocks(b, num_heads, n, kernels.sm_count(qkv.device)),
+            stream)
     return lib, err
 
 
@@ -788,7 +783,6 @@ def _launch_relpos_bf16(qkv, rel_h, rel_w, out, lse, hw, num_heads,
     d = c3 // 3 // num_heads
     plan = relpos_plan(d, n, tuple(hw), norm)
     src = _padded_heads(qkv, num_heads, plan.dp)
-    units = b * num_heads * -(-n // 128)
     lib = _bind("attention_relpos_wgmma")
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     with kernels.on_device(qkv.device):
@@ -797,7 +791,9 @@ def _launch_relpos_bf16(qkv, rel_h, rel_w, out, lse, hw, num_heads,
             out.data_ptr(), None if lse is None else lse.data_ptr(), b, n,
             num_heads, d, hw[0], hw[1], src.shape[2] // (3 * num_heads),
             plan.nk, plan.kv_stages, plan.u_stages, plan.passes,
-            int(plan.norm), min(units, kernels.sm_count(qkv.device)), stream)
+            int(plan.norm),
+            relpos_blocks(b, num_heads, n, kernels.sm_count(qkv.device)),
+            stream)
     return lib, err
 
 

@@ -23,7 +23,9 @@ kernels of ``csrc/decoder_attn.cu``:
     as the JAX package leaves them to XLA (``decoder_attn.py:320-347``).
     It is two launches on the tensor cores, in bf16 and in f32 (split
     TF32): ``i2t_bwd_rows`` (the row pass; it also writes rnd(out) and
-    rnd(d_res) per row as scratch in the input dtype) and ``i2t_bwd_dw``
+    rnd(d_res) per row as scratch in the input dtype; in bf16
+    ``i2t_bwd_rows_wgmma_kernel`` on wgmma with TMA loads, ``rows_plan_bf16``,
+    in f32 ``i2t_bwd_rows_tf32_kernel``) and ``i2t_bwd_dw``
     (the weight pass: dWo and dWq as split-K products over row chunks,
     ``dw_plan_bf16`` / ``dw_plan_f32``; on Hopper's wgmma with TMA loads,
     in bf16 ``i2t_bwd_dw_wgmma_kernel``, in f32 ``i2t_bwd_dw_tf32_kernel``).
@@ -49,6 +51,7 @@ maximum was a Mosaic workaround; softmax is shift-invariant).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -69,6 +72,17 @@ DW32_ROWS = 16     # rows per stage of the f32 weight pass (dw32::KR)
 # the bytes a row of each bf16 weight pass reads: dWo rnd(out) and
 # rnd(d_res), 256 + 512; dWq^T d_qpre, keys and pe, 256 + 512 + 512
 DW_ROW_BYTES = (768, 1280)
+# the bf16 row pass (rwb:: in csrc/decoder_attn.cu): units of 64 rows of a
+# pair, a ring of 3 slots of a unit's C-wide rows (its keys, then its dy:
+# 32 KB each) beside Wq and Wo (128 KB), two consumer warpgroups of 4
+# warps; one partial of dbq per consumer warp, of dbo, dg and dbt per
+# warpgroup; a scratch of ROWS_SCRATCH f32 per warpgroup (rwb::SCR)
+ROWS_RR = 64
+ROWS_RING = 3
+ROWS_WARPS = 8
+ROWS_SMEM = 1024 + ROWS_RING * (ROWS_RR * 2 * CHANNELS) + 2 * 2 * (
+    CHANNELS * INTERNAL) + 128
+ROWS_SCRATCH = 3 * HEADS * 128 * 4 + ROWS_RR * 4
 
 _BOUND = False
 
@@ -175,6 +189,29 @@ def i2t_bwd_rows_plain(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, dy, *,
     rows, sums = _bwd_rows(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, dy,
                            nh=nh, pb=pb, eps=eps)
     return tuple(x.to(keys.dtype) for x in rows) + sums
+
+
+@dataclasses.dataclass(frozen=True)
+class RowsPlan:
+    """The launch plan of the bf16 row pass (``i2t_bwd_rows_wgmma_kernel``):
+    units of ``rows`` rows of one pair, ``stages`` ring slots (each unit's
+    keys, then its dy), the ``units``, the persistent ``blocks`` and the
+    block's shared memory in bytes."""
+    rows: int
+    stages: int
+    units: int
+    blocks: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def rows_plan_bf16(bp: int, m: int, sm_count: int) -> RowsPlan:
+    """The bf16 row pass's plan over ``bp`` pairs of ``m`` rows (``RowsPlan``):
+    units of 64 rows, one block an SM at most and no more than half the
+    units (a block's two consumer warpgroups take its units in turns)."""
+    units = bp * -(-m // ROWS_RR)
+    blocks = max(1, min(sm_count, -(-units // 2)))
+    return RowsPlan(ROWS_RR, ROWS_RING, units, blocks, ROWS_SMEM)
 
 
 def dw_stage_chunks(bp: int, m: int, parts: int):
@@ -307,9 +344,9 @@ def _kernel_widths(c, internal, nh):
 
 
 def _blocks(dev, dt, pairs, m):
-    """Persistent blocks of a K4 row kernel: one per SM, at most one per
-    ROW_SLOTS 16-row tiles (bf16) or per 64-row super-tile (f32) of
-    ``pairs`` pairs (or images)."""
+    """Persistent blocks of the K4 forward and the f32 row pass: one per
+    SM, at most one per ROW_SLOTS 16-row tiles (bf16) or per 64-row
+    super-tile (f32) of ``pairs`` pairs (or images)."""
     if dt == torch.bfloat16:
         work = -(-pairs * -(-m // 16) // ROW_SLOTS)
     else:
@@ -344,11 +381,15 @@ def i2t_fwd_cuda(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, *, nh: int,
 
 def i2t_bwd_rows_cuda(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, dy, *,
                       nh: int, pb: int, eps: float):
-    """Launch the row pass ``i2t_bwd_rows`` (csrc/decoder_attn.cu) on one
-    persistent block per SM (``_blocks``); same contract as
-    ``i2t_bwd_rows_plain``. The kernel writes one partial of each per-lane
-    sum per slot (a warp pair); they are summed here in a fixed order. The
-    f32 kernel also reads Wq^T and Wo^T, made here."""
+    """Launch the row pass ``i2t_bwd_rows`` (csrc/decoder_attn.cu): bf16
+    ``i2t_bwd_rows_wgmma_kernel`` on the plan of ``rows_plan_bf16``, f32
+    ``i2t_bwd_rows_tf32_kernel`` on one persistent block per SM
+    (``_blocks``); same contract as ``i2t_bwd_rows_plain``. The kernel
+    writes one partial of each per-lane sum per slot (f32), or of dbq per
+    consumer warp and of dbo, dg and dbt per consumer warpgroup (bf16);
+    they are summed here in a fixed order. The bf16 kernel keeps each consumer
+    warpgroup's per-head values in a scratch allocated here (``rwb::SCR``
+    f32 each), the f32 kernel reads Wq^T and Wo^T, made here."""
     bimg, m, c, bp, n_tok, internal = _check_args(
         keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, nh, pb)
     _kernel_widths(c, internal, nh)
@@ -361,16 +402,23 @@ def i2t_bwd_rows_cuda(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, dy, *,
     lib = _bind()
     dev = keys.device
     with torch.cuda.device(dev):
-        blocks = _blocks(dev, dt, bp, m)
-        nw = blocks * ROW_SLOTS
+        if dt == torch.bfloat16:
+            plan = rows_plan_bf16(bp, m, kernels.sm_count(dev))
+            blocks = plan.blocks
+            nw = (blocks * ROWS_WARPS,) + (blocks * 2,) * 3
+        else:
+            blocks = _blocks(dev, dt, bp, m)
+            nw = (blocks * ROW_SLOTS,) * 4
         rows = (bp, m)
         outs = tuple(torch.empty(rows + (w,), dtype=dt, device=dev)
                      for w in (c, internal, nh * T_PAD, nh * T_PAD, internal,
                                internal, c))
-        sums = tuple(torch.empty((nw, w), dtype=f32, device=dev)
-                     for w in (internal, c, c, c))
-        wts = () if dt == torch.bfloat16 else (wq.t().contiguous(),
-                                                wo.t().contiguous())
+        sums = tuple(torch.empty((k, w), dtype=f32, device=dev)
+                     for k, w in zip(nw, (internal, c, c, c)))
+        # bf16: each consumer warpgroup's scratch; f32: Wq^T and Wo^T
+        wts = ((torch.empty(blocks * 2 * ROWS_SCRATCH, dtype=f32,
+                            device=dev),) if dt == torch.bfloat16 else
+               (wq.t().contiguous(), wo.t().contiguous()))
         err = lib.dhoct_i2t_bwd_rows(
             kernels.pointers(args + outs + sums + wts), bp, m, pb, n_tok,
             blocks, kernels.DTYPE_CODE[dt], eps,

@@ -57,6 +57,7 @@ def _from_jax_rows(x):
 @pytest.mark.parametrize("b,nh,hw,tiles", [
     (2, 2, (8, 8), dict(tq=16, tk=16)),  # _packed_kernel, 4 key blocks
     (5, 2, (14, 14), {}),                # _windowed_group_kernel
+    (4, 2, (9, 7), {}),                  # the same, a ragged window
 ])
 def test_plain_lse_matches_jax_interpret(rng, b, nh, hw, tiles):
     qkv, rel_h, rel_w, _ = _inputs(rng, b, nh, hw)

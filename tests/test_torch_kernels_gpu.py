@@ -629,6 +629,43 @@ def test_k1_f32_on_the_wgmma_tf32_kernel_on_card(cuda_device, b, nh, hw):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,nh,hw", [(25, 12, (14, 14)),  # ViT-B windows
+                                     (100, 12, (14, 14)),  # ... at B = 4
+                                     (6, 2, (3, 3)),      # 9 keys of 16
+                                     (5, 3, (4, 4)),      # one key tile
+                                     (3, 2, (16, 16)),    # 256 keys
+                                     (2, 2, (9, 7))])     # 63 keys
+def test_k2_f32_on_the_wgmma_tf32_kernel_on_card(cuda_device, b, nh, hw):
+    """The f32 K2 is the f32 K6's kernel in its GRID mode
+    (``attn_relpos_wgmma_tf32_kernel`` on ``relpos_plan_f32``) with its
+    logsumexp rows, at the bf16 K2's shapes and ViT-B's B = 4: the output
+    and L against ``packed_attention_plain`` within atol 1e-4, one K2
+    launch and nothing else, the same bits of both on a second run, and,
+    without the rows, the bits of K6's own launch."""
+    qkv, rel_h, rel_w, _ = _attn_inputs(cuda_device, torch.float32, b, nh,
+                                        hw, seed=6)
+    kw = dict(hw=hw, num_heads=nh)
+    assert port_attn.relpos_plan_f32(64, hw[0] * hw[1], hw).mode == "grid"
+    before = dict(port_attn.LAUNCHES)
+    out, lse = port_attn.attention_fwd_cuda(qkv, rel_h, rel_w,
+                                            return_lse=True, **kw)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in port_attn.LAUNCHES.items()
+                if v != before[k]}
+    assert launched == {"attn_windowed": 1}, launched
+    want_out, want_lse = port_attn.packed_attention_plain(
+        qkv, rel_h, rel_w, return_lse=True, **kw)
+    assert_forward_close(out, want_out)
+    np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(),
+                               atol=1e-4, rtol=0)
+    out2, lse2 = port_attn.attention_fwd_cuda(qkv, rel_h, rel_w,
+                                              return_lse=True, **kw)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    assert torch.equal(out, port_attn.attention_relpos_cuda(
+        qkv, rel_h, rel_w, **kw))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("d", [16, 32, 48, 80, 128])
 @pytest.mark.parametrize("b,nh,hw", [(1, 2, (64, 64)),   # global, W = 64
                                      (4, 2, (14, 14)),   # windows, 196 keys
@@ -825,16 +862,15 @@ def test_winimg_kernel_matches_plain_and_k2_on_card(cuda_device, dtype, b,
                                       num_heads=nh)
     k2 = port_attn.window_unpartition(k2.reshape(-1, ws, ws, nh * 64), ws,
                                       padded, hw)
-    if dtype == torch.float32:
-        assert torch.equal(got, k2)
-    else:
+    # K2 runs on the wgmma bodies, K7 on mma.sync: the two agree within
+    # the forward's limit against plain, in both types
+    if dtype == torch.bfloat16:
         assert port_attn.normalised_rounding(win.shape[0], ws * ws)
-        assert_forward_close(got, k2.contiguous())
+    assert_forward_close(got, k2.contiguous())
 
 
 # the f32 kernels on the tensor cores in split TF32: library -> kernels
-TF32_KERNELS = {"attention": ("attn_windowed_tf32_kernel",),
-                "attention_bwd_wgmma_tf32": ("attn_bwd_dq_wgmma_tf32_kernel",
+TF32_KERNELS = {"attention_bwd_wgmma_tf32": ("attn_bwd_dq_wgmma_tf32_kernel",
                                              "attn_bwd_dkv_wgmma_tf32_kernel"),
                 "attention_relpos_wgmma_tf32": (
                     "attn_relpos_wgmma_tf32_kernel",),
@@ -852,8 +888,8 @@ TF32_KERNELS = {"attention": ("attn_windowed_tf32_kernel",),
 def test_f32_kernels_on_tf32_tensor_cores(cuda_device, lib):
     """The f32 K1, K2, K3, K4, K5, K6 and K7 kernels hold TF32 tensor-core
     instructions (HMMA.1688.F32.TF32 from mma.sync; HGMMA on TF32 in the
-    kernels on wgmma: the K3 / K4 weight passes, the K1 / K6 kernel and
-    K5's two kernels, which hold no HMMA) in their SASS and use no local
+    kernels on wgmma: the K3 / K4 weight passes, the K1 / K2 / K6 kernel
+    and K5's two kernels, which hold no HMMA) in their SASS and use no local
     memory (no spills, no stack), from ``cuobjdump`` on the built
     library."""
     import subprocess
@@ -1095,6 +1131,47 @@ def test_i2t_bwd_mma_passes_on_card(cuda_device, pb, n_tok, m):
         _rel_close(a, w, K34_TOL[f32], name)
     assert _same_bits(rows, i2t.i2t_bwd_rows_cuda(*args, dy, **kw))
     assert _same_bits(dw, i2t.i2t_bwd_dw_cuda(*scratch, pb=pb))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pb,n_tok,m", [(1, 7, 4096), (8, 7, 4096),
+                                        (1, 1, 100), (8, 8, 37),
+                                        (2, 3, 64), (1, 5, 129)])
+def test_i2t_bwd_rows_wgmma_on_card(cuda_device, pb, n_tok, m):
+    """The bf16 row pass on wgmma and TMA (``i2t_bwd_rows_wgmma_kernel``)
+    against ``i2t_bwd_rows_plain`` at 16 pairs of the training shape (64
+    rows a unit: 1024 units) and on small ragged shapes, pb 1 and 8, 1-8
+    tokens: every output within ``K34_TOL`` (bf16) of its scale (the
+    column sums against the twin's own), at least 99.5% of each
+    bf16 row output bit-equal to the twin's (as the K4 forward's), and the
+    same bits on a second call."""
+    from dilabhelmholtzoct_tpu_torch.ops import decoder_attn as i2t
+
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    bf, f32 = torch.bfloat16, torch.float32
+    r = lambda *s, k=0.2, dt=bf: (torch.randn(
+        s, generator=gen, device=cuda_device) * k).to(dt)
+    bp = 16 if m == 4096 else 8
+    args = (r(bp // pb, m, 256, k=1.0), r(1, m, 256, k=1.0),
+            r(bp, n_tok, 128, k=1.0), r(bp, n_tok, 128, k=1.0),
+            r(256, 128, k=0.06), r(128, dt=f32), r(128, 256, k=0.09),
+            r(256, dt=f32), 1 + r(256, k=0.1, dt=f32), r(256, dt=f32))
+    dy = r(bp, m, 256, k=1.0)
+    kw = dict(nh=8, pb=pb, eps=1e-6)
+    before = i2t.LAUNCHES["i2t_bwd"]
+    rows = i2t.i2t_bwd_rows_cuda(*args, dy, **kw)
+    torch.cuda.synchronize()
+    assert i2t.LAUNCHES["i2t_bwd"] == before + 1
+    want = i2t.i2t_bwd_rows_plain(*args, dy, **kw)
+    names = ("d_keys", "d_qpre", "p", "d_score", "d_out", "out_rows",
+             "dres_rows", "dbq", "dbo", "dg", "dbt")
+    for name, a, w in zip(names, rows, want):
+        assert a.shape == w.shape and a.dtype == w.dtype, name
+        _rel_close(a, w, K34_TOL[bf], name)
+        if a.dtype == bf:
+            same = float((a == w).float().mean())
+            assert same >= 0.995, f"{name}: {same:.4f} bit-equal"
+    assert _same_bits(rows, i2t.i2t_bwd_rows_cuda(*args, dy, **kw))
 
 
 @pytest.mark.gpu

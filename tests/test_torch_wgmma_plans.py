@@ -1,8 +1,8 @@
 """The launch plans of the kernels on wgmma and TMA, as pure functions
 pinned on the CPU: ``ops.attention.relpos_plan`` (the bf16 K6, K1 and K2,
 ``csrc/attention_relpos_wgmma.cu``: key tile, ring depths, shared memory,
-rounding point and passes), ``ops.attention.relpos_plan_f32`` (the f32 K6
-and K1, ``csrc/attention_relpos_wgmma_tf32.cu``: mode, key tile, ring
+rounding point and passes), ``ops.attention.relpos_plan_f32`` (the f32 K6,
+K1 and K2, ``csrc/attention_relpos_wgmma_tf32.cu``: mode, key tile, ring
 depths, shared memory), ``ops.attention.dq_plan`` (K5's bf16 dq
 kernel, ``csrc/attention_bwd.cu``: mode, key tile, ring depths and shared
 memory), ``ops.attention.dq_plan_f32`` / ``dkv_plan_f32`` (K5's f32
@@ -11,7 +11,9 @@ image and shared-memory bytes), ``ops.decoder_attn.dw_plan_f32`` / ``dw_plan_bf1
 weight pass in both types: its row chunks and blocks) and
 ``ops.upscaler.upscale_dw_plan_f32`` (the f32 K3 weight pass: chunks,
 units and their order, ring and blocks), with the order in which the
-weight passes' plain twins sum those chunks. The kernels themselves run
+weight passes' plain twins sum those chunks, and
+``ops.decoder_attn.rows_plan_bf16`` (the bf16 K4 row pass: units, ring,
+blocks) with the column sums taken over its partials. The kernels themselves run
 only on the card (``tests/test_torch_kernels_gpu.py``)."""
 
 import pytest
@@ -167,6 +169,32 @@ def test_relpos_plan_f32_pinned(d, hw, want):
     p = port_attn.relpos_plan_f32(d, hw[0] * hw[1], hw)
     assert (p.mode, p.dp, p.tiles, p.kv_stages, p.u_stages, p.v_slots,
             p.smem) == want
+
+
+@pytest.mark.parametrize("b,hw,want", [
+    # ViT-B / L's windowed layers (25 windows of 14 x 14 an image) at B = 1
+    # and the f32 full fine-tune's B = 4: seven tiles of 2 grid rows, three
+    # K / V stages beside two unit stages; 2 units a (window, head)
+    (25, (14, 14), ("grid", 64, 7, 3, 2, 2, 181504, 600)),
+    (100, (14, 14), ("grid", 64, 7, 3, 2, 2, 181504, 2400)),
+    # ragged windows: 9 keys in one tile, 9 x 7 in five, 16 x 16 in eight
+    (6, (3, 3), ("grid", 64, 2, 3, 2, 2, 181504, 12)),
+    (2, (9, 7), ("grid", 64, 5, 3, 2, 2, 181504, 4)),
+    (3, (16, 16), ("grid", 64, 8, 3, 2, 2, 181504, 12)),
+])
+def test_relpos_plan_f32_of_the_k2_route(b, hw, want):
+    """The f32 K2 runs on the f32 K6's kernel in its GRID mode: the plan of
+    head dim 64 over SAM's window (B = 1 and 4: 25 and 100 windows, 12
+    heads) and ragged windows, pinned (mode, columns, tiles, K / V stages,
+    unit stages, V slots, bytes within 227 KB), and its units of 128 query
+    rows, one persistent block an SM at most (132 on an H100)."""
+    n, heads = hw[0] * hw[1], 12 if b >= 25 else 2
+    p = port_attn.relpos_plan_f32(64, n, hw)
+    units = b * heads * -(-n // 128)
+    assert (p.mode, p.dp, p.tiles, p.kv_stages, p.u_stages, p.v_slots,
+            p.smem, units) == want
+    assert p.smem <= port_attn.SMEM_MAX == 232448
+    assert port_attn.relpos_blocks(b, heads, n, 132) == min(units, 132)
 
 
 def test_relpos_plan_f32_refuses_other_head_dims():
@@ -505,6 +533,78 @@ def test_dw_plan_bf16_on_every_card(bp, m, sms):
         assert len(ch) == -(-bp * spp // per)
     assert blocks == len(c0) + len(c1) <= max(2, sms)
     assert len(c1) >= len(c0)
+
+
+@pytest.mark.parametrize("bp,m,sms,want", [
+    # the training shape: 64 pairs x 4096 rows (pb 1 and 8 alike: a unit
+    # is 64 rows of one pair), 4096 units on 132 blocks
+    (64, 4096, 132, (64, 3, 4096, 132, 230528)),
+    # ragged m: 129 rows in three units a pair, the last of one row
+    (8, 129, 132, (64, 3, 24, 12, 230528)),
+    (3, 37, 2, (64, 3, 3, 2, 230528)),
+])
+def test_rows_plan_bf16_pinned(bp, m, sms, want):
+    """The bf16 row pass's plan, pinned: rows a unit, ring slots, units,
+    blocks (one an SM, at most half the units: two consumer warpgroups
+    a block) and shared memory (Wq and Wo, 128 KB, three 32 KB slots, 1 KB
+    of alignment and barriers) within 227 KB."""
+    p = port_i2t.rows_plan_bf16(bp, m, sms)
+    assert (p.rows, p.stages, p.units, p.blocks, p.smem) == want
+    assert p.smem <= port_attn.SMEM_MAX
+
+
+@pytest.mark.parametrize("bp,m,pb,sms", [(4, 37, 2, 3), (8, 100, 8, 5),
+                                         (2, 129, 1, 132)])
+def test_rows_plain_bf16_sums_the_plan_in_order(bp, m, pb, sms):
+    """The bf16 row pass's column sums as the kernel and the wrapper take
+    them on the plan ``rows_plan_bf16`` gives: block b takes units b, b +
+    G, ... (u = pair * tpp + row // 64), its two consumer warpgroups take
+    them in turns, warp w of a warpgroup rows 16 w.. of a unit; dbq has a
+    partial a consumer warp (``ROWS_WARPS`` a block), dbo, dg and dbt one a
+    consumer warpgroup. Each row lands in one partial, and the partials
+    (each the plain twin's sums over its rows) added as the wrapper adds
+    them equal the twin's sums over all rows to f32 summation order."""
+    g = torch.Generator().manual_seed(bp * 100 + m)
+    r = lambda *s, k=1.0: k * torch.randn(s, generator=g)
+    bf = torch.bfloat16
+    keys, pe = r(bp // pb, m, 256).to(bf), r(1, m, 256).to(bf)
+    tok_k, tok_v = r(bp, 7, 128).to(bf), r(bp, 7, 128).to(bf)
+    wts = (r(256, 128, k=0.06).to(bf), r(128, k=0.1),
+           r(128, 256, k=0.09).to(bf), r(256, k=0.1), 1 + r(256, k=0.1),
+           r(256, k=0.1))
+    dy = r(bp, m, 256).to(bf)
+    kw = dict(nh=8, eps=1e-6)
+    plan = port_i2t.rows_plan_bf16(bp, m, sms)
+    tpp, nw = -(-m // plan.rows), port_i2t.ROWS_WARPS
+    assert plan.units == bp * tpp
+    dbq = torch.zeros(plan.blocks * nw, 128)
+    per_wg = torch.zeros(3, plan.blocks * 2, 256)
+    taken = torch.zeros(bp, m, dtype=torch.long)
+    for blk in range(plan.blocks):
+        for k, u in enumerate(range(blk, plan.units, plan.blocks)):
+            pair, r0 = divmod(u, tpp)
+            wg = blk * 2 + k % 2
+            for w in range(4):
+                lo = plan.rows * r0 + 16 * w
+                hi = min(m, lo + 16)
+                if lo >= hi:
+                    continue
+                taken[pair, lo:hi] += 1
+                part = port_i2t.i2t_bwd_rows_plain(
+                    keys[pair // pb:pair // pb + 1, lo:hi], pe[:, lo:hi],
+                    tok_k[pair:pair + 1], tok_v[pair:pair + 1], *wts,
+                    dy[pair:pair + 1, lo:hi], pb=1, **kw)[7:]
+                dbq[wg * 4 + w] += part[0]
+                for i in range(3):
+                    per_wg[i, wg] += part[1 + i]
+    assert torch.equal(taken, torch.ones_like(taken))
+    got = (dbq.sum(0),) + tuple(x.sum(0) for x in per_wg)
+    want = port_i2t.i2t_bwd_rows_plain(keys, pe, tok_k, tok_v, *wts, dy,
+                                       pb=pb, **kw)[7:]
+    for a, b in zip(want, got):
+        assert a.dtype == b.dtype == torch.float32
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-5 * float(
+            a.abs().max()))
 
 
 @pytest.mark.parametrize("bp,m,pb,sms", [(4, 37, 2, 7), (8, 43, 8, 13),
