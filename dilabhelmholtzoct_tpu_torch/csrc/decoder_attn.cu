@@ -16,10 +16,11 @@
 //
 // The forward replaces dilabhelmholtzoct_tpu/ops/decoder_attn.py
 //    _fused_fwd (:264, body _fwd_kernel :120-130, math _chain :86-117):
-//    persistent 8-warp blocks; a warp pair walks units of image rows and
-//    the pb pairs of each image (the q projection once per image tile).
-//    * bf16 (the training path): i2t_fwd_mma_kernel on the tensor cores,
-//      Wq and Wo in shared memory, units of 16 rows.
+//    persistent blocks walk units of image rows and the pb pairs of each
+//    image (the q projection once per image tile).
+//    * bf16 (the training path): i2t_fwd_wgmma_kernel, its products on
+//      wgmma (the per-head ones on mma.sync), its keys landed by TMA into
+//      a ring beside Wq and Wo, units of 64 rows (see the kernel).
 //    * f32 (reached with set_fused_i2t('on')): i2t_fwd_tf32_kernel in split
 //      TF32 (decoder_tf32.cuh), units of 64 rows whose 4 slots stream Wq and
 //      Wo through a shared cp.async ring.
@@ -107,85 +108,52 @@ constexpr int TP = 8;             // token capacity
 
 // ------------------------------- bf16 forward and backward, tensor cores ----
 using dec::bf16;
-using dec::ld_bf2;
-using dec::st_bf2;
 
-constexpr int LDQ = I + 8;   // shared row of Wq [C][I]
-constexpr int LDO = C + 8;   // shared row of Wo [I][C] and of a warp's tile
-constexpr int SLOTS = 4;          // tiles in flight per block: a warp pair each
-constexpr int RT = 64 * SLOTS;     // threads per row-pass block
-constexpr int LDI = I + 8;         // shared row of a slot's [16][I] tile
-constexpr int SLOT_BF16 = 2 * 16 * LDO + 16 * LDI;
-constexpr size_t WEIGHTS_BF16 = (size_t)C * LDQ + (size_t)I * LDO;
-constexpr size_t FWD_MMA_SMEM =
-    sizeof(bf16) * (WEIGHTS_BF16 + SLOTS * SLOT_BF16) +
-    sizeof(float) * (size_t)SLOTS * 2 * 2 * 16;
+// The per-head pieces of the bf16 forward (i2t_fwd_wgmma_kernel), on a
+// warp's 16 rows: lane = 4 g + t holds rows g and g + 8 of every
+// accumulator n-tile, columns 2t, 2t + 1 (mma.sync's layout and that of a
+// wgmma accumulator's warp).
 
-// The forward chain's pieces that the forward kernel and the backward's row
-// pass share. A warp pair owns a 16-row tile; warp `sub` takes the heads
-// 4 sub.. (I lanes i0 = 64 sub..) and the C columns c0 = 128 sub... Lane =
-// 4 g + t holds rows g and g + 8 of every accumulator n-tile, columns 2t,
-// 2t + 1.
+// A pair's token rows as the per-head products' B fragments, zero past
+// n_tok: k[h] (token g; head dims 16 h + 2t, + 1 and + 8..) for the scores,
+// v[h][n] (tokens 2t, 2t + 1 of head dim 16 h + 8 n + g) for p . v. Loaded
+// a pair ahead, so that their latency hides behind a pair's products.
+struct TokenFrags {
+  uint32_t k[NH][2], v[NH][2];
+};
 
-// q projection of the warp's 64 lanes, qin = rnd(keys + pe) formed in the A
-// fragments (keys x_s, pe e_s, [16][LDO]); qs = rnd(rnd(qpre + bq) *
-// rnd(1/4)) returned as A fragments, one k16 step per head
-__device__ __forceinline__ void q_heads(uint32_t (&qf)[4][4], const bf16* x_s,
-                                        const bf16* e_s, const bf16* wq_s,
-                                        const float* bq, int i0, int lane) {
-  using namespace dec;
-  const int tq = lane & 3;
-  const float scale_in = round_bf16(1.f / sqrtf((float)HD));
-  float acc[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll 4
-  for (int kk = 0; kk < C / 16; ++kk) {
-    uint32_t a[4], e[4];
-    load_a<LDO>(a, x_s, 0, 16 * kk, lane);
-    load_a<LDO>(e, e_s, 0, 16 * kk, lane);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 kf = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(&a[j]));
-      const float2 pf = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(&e[j]));
-      a[j] = pack_bf16(kf.x + pf.x, kf.y + pf.y);
-    }
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t b[4];
-      load_b_kn<LDQ>(b, wq_s, 16 * kk, i0 + 16 * np, lane);
-      mma16816(acc[2 * np], a, b[0], b[1]);
-      mma16816(acc[2 * np + 1], a, b[2], b[3]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int col = i0 + 8 * j + 2 * tq;
-    const float b0 = bq[col], b1 = bq[col + 1];
-    qf[j / 2][(j & 1) * 2] =
-        pack_bf16(round_bf16(acc[j][0] + b0) * scale_in,
-                  round_bf16(acc[j][1] + b1) * scale_in);
-    qf[j / 2][(j & 1) * 2 + 1] =
-        pack_bf16(round_bf16(acc[j][2] + b0) * scale_in,
-                  round_bf16(acc[j][3] + b1) * scale_in);
-  }
-}
-
-// head h: scores of qs (its A fragment qh) against the pair's tokens tk
-// (one m16n8k16: head dim 16 x 8 tokens) and their softmax in f32 over a
-// lane quad, -inf past n_tok: p[0..1] row g, p[2..3] row g + 8, tokens 2t,
-// 2t + 1
-__device__ __forceinline__ void head_softmax(float (&p)[4], const uint32_t* qh,
-                                             const bf16* tk, int h, int n_tok,
-                                             int lane) {
+__device__ __forceinline__ void token_frags(TokenFrags& f, const bf16* tk,
+                                            const bf16* tv, int n_tok,
+                                            int lane) {
   using namespace dec;
   const int gq = lane >> 2, tq = lane & 3;
   const bool tg = gq < n_tok, t0 = 2 * tq < n_tok, t1 = 2 * tq + 1 < n_tok;
+  const bf16 zero = __float2bfloat16(0.f);
+#pragma unroll
+  for (int h = 0; h < NH; ++h) {
+    f.k[h][0] = tg ? ld_u32(tk + gq * I + 16 * h + 2 * tq) : 0u;
+    f.k[h][1] = tg ? ld_u32(tk + gq * I + 16 * h + 8 + 2 * tq) : 0u;
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const int d = 16 * h + 8 * n + gq;
+      f.v[h][n] = pack_raw(t0 ? tv[2 * tq * I + d] : zero,
+                           t1 ? tv[(2 * tq + 1) * I + d] : zero);
+    }
+  }
+}
+
+// head h: scores of qs (its A fragment qh) against the pair's tokens (one
+// m16n8k16: head dim 16 x 8 tokens) and their softmax in f32 over a lane
+// quad, -inf past n_tok: p[0..1] row g, p[2..3] row g + 8, tokens 2t,
+// 2t + 1
+__device__ __forceinline__ void head_softmax(float (&p)[4], const uint32_t* qh,
+                                             const uint32_t (&kb)[2],
+                                             int n_tok, int lane) {
+  using namespace dec;
+  const int tq = lane & 3;
+  const bool t0 = 2 * tq < n_tok, t1 = 2 * tq + 1 < n_tok;
   float sc[4] = {0.f, 0.f, 0.f, 0.f};
-  mma16816(sc, qh, tg ? ld_u32(tk + gq * I + 16 * h + 2 * tq) : 0u,
-           tg ? ld_u32(tk + gq * I + 16 * h + 8 + 2 * tq) : 0u);
+  mma16816(sc, qh, kb[0], kb[1]);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float x0 = t0 ? sc[2 * r] : -INFINITY, x1 = t1 ? sc[2 * r + 1] : -INFINITY;
@@ -198,222 +166,19 @@ __device__ __forceinline__ void head_softmax(float (&p)[4], const uint32_t* qh,
   }
 }
 
-// head h: rnd(out) = rnd(rnd(p) . v) over the pair's tokens tv (m16n8k8),
-// the head's 16 lanes as packed bf16 pairs: w[n][r] rows g (r = 0), g + 8,
-// lanes 16 h + 8 n + 2t, + 1
-__device__ __forceinline__ void head_out(uint32_t (&w)[2][2],
-                                         const float (&p)[4], const bf16* tv,
-                                         int h, int n_tok, int lane) {
+// head h: rnd(out) = rnd(rnd(p) . v) over the pair's tokens (m16n8k8) as
+// the out projection's A fragment of k-step h: rows g, g + 8 of head dims
+// 16 h + 2t.. (a[0], a[1]) and 16 h + 8 + 2t.. (a[2], a[3])
+__device__ __forceinline__ void head_out(uint32_t (&a)[4], const float (&p)[4],
+                                         const uint32_t (&vb)[2]) {
   using namespace dec;
-  const int gq = lane >> 2, tq = lane & 3;
-  const bool t0 = 2 * tq < n_tok, t1 = 2 * tq + 1 < n_tok;
-  const bf16 zero = __float2bfloat16(0.f);
   const uint32_t pa0 = pack_bf16(p[0], p[1]), pa1 = pack_bf16(p[2], p[3]);
 #pragma unroll
   for (int n = 0; n < 2; ++n) {
-    const int d = 16 * h + 8 * n + gq;
     float o[4] = {0.f, 0.f, 0.f, 0.f};
-    mma1688(o, pa0, pa1,
-            pack_raw(t0 ? tv[2 * tq * I + d] : zero,
-                     t1 ? tv[(2 * tq + 1) * I + d] : zero));
-    w[n][0] = pack_bf16(o[0], o[1]);
-    w[n][1] = pack_bf16(o[2], o[3]);
-  }
-}
-
-// acc (16 rows x the warp's 128 columns c0..) = rnd(out) . Wo, rnd(out) of
-// all heads in o_s [16][LDI]
-__device__ __forceinline__ void out_product(float (&acc)[16][4],
-                                            const bf16* o_s, const bf16* wo_s,
-                                            int c0, int lane) {
-  using namespace dec;
-#pragma unroll
-  for (int j = 0; j < 16; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll 2
-  for (int kk = 0; kk < I / 16; ++kk) {
-    uint32_t a[4];
-    load_a<LDI>(a, o_s, 0, 16 * kk, lane);
-#pragma unroll
-    for (int np = 0; np < 8; ++np) {
-      uint32_t b[4];
-      load_b_kn<LDO>(b, wo_s, 16 * kk, c0 + 16 * np, lane);
-      mma16816(acc[2 * np], a, b[0], b[1]);
-      mma16816(acc[2 * np + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// The bf16 forward. Persistent blocks of SLOTS warp pairs (one block per
-// SM) hold Wq [C][LDQ] and Wo [I][LDO] in shared memory. A pair walks units
-// of 16 image rows: unit u is row tile u % tpp of image u / tpp, and the pb
-// pairs of that image share its keys, pe, qin and qs, so the unit loads its
-// keys and pe rows once and computes the q projection once (qs stays in
-// registers), then runs the attention, out projection, residual and
-// LayerNorm for each of the pb pairs. Per slot: the unit's keys [16][LDO]
-// (the residual reads them for every pair), its pe [16][LDO] (free after
-// the q projection: the next unit's pe is copied in while this unit's
-// pairs run; the next keys follow once the last pair has read them), the
-// rnd(out) rows [16][LDI] that cross the pair's halves, and the two warps'
-// LayerNorm sums. y leaves registers as 16-byte row segments: a quad
-// transpose gives each lane 8 neighbouring columns of a row.
-__global__ void __launch_bounds__(RT, 1)
-    i2t_fwd_mma_kernel(const bf16* keys, const bf16* pe, const bf16* tok_k,
-                       const bf16* tok_v, const bf16* wq, const float* bq,
-                       const bf16* wo, const float* bo, const float* g,
-                       const float* bt, bf16* out, int bp, int m, int pb,
-                       int n_tok, float eps) {
-  using namespace dec;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* wq_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* wo_s = wq_s + C * LDQ;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int slot = warp >> 1, sub = warp & 1, pl = 32 * sub + lane;
-  const int gq = lane >> 2, tq = lane & 3;
-  bf16* x_s = wo_s + I * LDO + slot * SLOT_BF16;
-  bf16* e_s = x_s + 16 * LDO;
-  bf16* o_s = e_s + 16 * LDO;
-  float* st_s = reinterpret_cast<float*>(wo_s + I * LDO + SLOTS * SLOT_BF16) +
-                slot * 2 * 2 * 16;  // [quantity][sub][row]
-  auto pair_sync = [&] {  // the pair's own barrier (0 is __syncthreads)
-    asm volatile("bar.sync %0, 64;\n" ::"r"(1 + slot) : "memory");
-  };
-  // the sum of quantity q of rows g, g + 8 over the pair's two warps (each
-  // already quad-reduced over its columns), added in a fixed order
-  auto pair_sum = [&](int q, float (&v)[2]) {
-    if (tq == 0) {
-      st_s[(q * 2 + sub) * 16 + gq] = v[0];
-      st_s[(q * 2 + sub) * 16 + gq + 8] = v[1];
-    }
-    pair_sync();
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      v[r] = st_s[(q * 2) * 16 + gq + 8 * r] + st_s[(q * 2 + 1) * 16 + gq + 8 * r];
-  };
-
-  const int tpp = (m + 15) / 16, units = (bp / pb) * tpp;
-  const int stride = gridDim.x * SLOTS;
-  const int i0 = 64 * sub, c0 = 128 * sub;
-  auto load_keys = [&](int u) {
-    const int img = u / tpp, row0 = (u - img * tpp) * 16;
-    slot_rows_async<C, LDO>(x_s, keys + ((size_t)img * m + row0) * C,
-                            min(16, m - row0), pl);
-  };
-  auto load_pe = [&](int u) {
-    const int row0 = (u % tpp) * 16;
-    slot_rows_async<C, LDO>(e_s, pe + (size_t)row0 * C, min(16, m - row0), pl);
-  };
-
-  int unit = blockIdx.x * SLOTS + slot;
-  block_weights_async<C, I, LDQ, RT>(wq_s, wq);
-  block_weights_async<I, C, LDO, RT>(wo_s, wo);
-  if (unit < units) {
-    load_keys(unit);
-    load_pe(unit);
-  }
-  cp_commit();
-  cp_wait<0>();
-  __syncthreads();
-
-  for (; unit < units; unit += stride) {
-    cp_wait<0>();
-    pair_sync();  // the unit's keys and pe rows landed
-    const int img = unit / tpp, row0 = (unit - img * tpp) * 16;
-    const int valid = min(16, m - row0);
-    const bool ok0 = gq < valid, ok1 = gq + 8 < valid;
-    const int next = unit + stride;
-    uint32_t qf[4][4];
-    q_heads(qf, x_s, e_s, wq_s, bq, i0, lane);
-    pair_sync();  // both warps are done with pe
-    if (next < units) load_pe(next);
-    cp_commit();
-
-    for (int j = 0; j < pb; ++j) {
-      const int pair = img * pb + j;
-      const bf16* tk = tok_k + (size_t)pair * n_tok * I;
-      const bf16* tv = tok_v + (size_t)pair * n_tok * I;
-      // per head: softmax, rnd(out) -> o_s
-#pragma unroll
-      for (int hh = 0; hh < 4; ++hh) {
-        const int h = 4 * sub + hh;
-        float p[4];
-        head_softmax(p, qf[hh], tk, h, n_tok, lane);
-        uint32_t w[2][2];
-        head_out(w, p, tv, h, n_tok, lane);
-#pragma unroll
-        for (int n = 0; n < 2; ++n) {
-          const int col = 16 * h + 8 * n + 2 * tq;
-          *reinterpret_cast<uint32_t*>(o_s + gq * LDI + col) = w[n][0];
-          *reinterpret_cast<uint32_t*>(o_s + (gq + 8) * LDI + col) = w[n][1];
-        }
-      }
-      pair_sync();  // o_s holds rnd(out) of all heads
-
-      // res = rnd(keys + rnd(rnd(out) . Wo + bo)), this warp's columns
-      float acc[16][4];
-      out_product(acc, o_s, wo_s, c0, lane);
-      float s[2] = {0.f, 0.f};
-#pragma unroll
-      for (int jn = 0; jn < 16; ++jn) {
-        const int col = c0 + 8 * jn + 2 * tq;
-        const float2 k0 = ld_bf2(x_s + gq * LDO + col);
-        const float2 k1 = ld_bf2(x_s + (gq + 8) * LDO + col);
-        const float b0 = bo[col], b1 = bo[col + 1];
-        acc[jn][0] = round_bf16(k0.x + round_bf16(acc[jn][0] + b0));
-        acc[jn][1] = round_bf16(k0.y + round_bf16(acc[jn][1] + b1));
-        acc[jn][2] = round_bf16(k1.x + round_bf16(acc[jn][2] + b0));
-        acc[jn][3] = round_bf16(k1.y + round_bf16(acc[jn][3] + b1));
-        s[0] += acc[jn][0] + acc[jn][1];
-        s[1] += acc[jn][2] + acc[jn][3];
-      }
-      // LayerNorm over the 256 columns of rows g, g + 8 (f32): mean, then
-      // the centred variance
-      s[0] = quad_sum(s[0]);
-      s[1] = quad_sum(s[1]);
-      pair_sum(0, s);  // also: both warps have read the keys
-      if (j == pb - 1) {
-        if (next < units) load_keys(next);
-        cp_commit();
-      }
-      const float mu0 = s[0] * (1.f / C), mu1 = s[1] * (1.f / C);
-      s[0] = s[1] = 0.f;
-#pragma unroll
-      for (int jn = 0; jn < 16; ++jn) {
-        acc[jn][0] -= mu0;
-        acc[jn][1] -= mu0;
-        acc[jn][2] -= mu1;
-        acc[jn][3] -= mu1;
-        s[0] = fmaf(acc[jn][0], acc[jn][0], fmaf(acc[jn][1], acc[jn][1], s[0]));
-        s[1] = fmaf(acc[jn][2], acc[jn][2], fmaf(acc[jn][3], acc[jn][3], s[1]));
-      }
-      s[0] = quad_sum(s[0]);
-      s[1] = quad_sum(s[1]);
-      pair_sum(1, s);
-      const float rs0 = rsqrtf(s[0] * (1.f / C) + eps);
-      const float rs1 = rsqrtf(s[1] * (1.f / C) + eps);
-      // y = rnd(yn g + bt) (a product and a sum, each rounded, as the plain
-      // version); four n-tiles per 16-byte segment of each row
-      bf16* y0 = out + ((size_t)pair * m + row0 + gq) * C;
-      bf16* y1 = y0 + 8 * C;
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        uint32_t w0[4], w1[4];
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const int jn = 4 * a + jj, col = c0 + 8 * jn + 2 * tq;
-          const float g0 = g[col], g1 = g[col + 1];
-          const float t0 = bt[col], t1 = bt[col + 1];
-          w0[jj] = pack_bf16(__fadd_rn(__fmul_rn(__fmul_rn(acc[jn][0], rs0), g0), t0),
-                             __fadd_rn(__fmul_rn(__fmul_rn(acc[jn][1], rs0), g1), t1));
-          w1[jj] = pack_bf16(__fadd_rn(__fmul_rn(__fmul_rn(acc[jn][2], rs1), g0), t0),
-                             __fadd_rn(__fmul_rn(__fmul_rn(acc[jn][3], rs1), g1), t1));
-        }
-        quad_transpose(w0, tq);
-        quad_transpose(w1, tq);
-        const int col = c0 + 32 * a + 8 * tq;
-        if (ok0) *reinterpret_cast<uint4*>(y0 + col) = make_uint4(w0[0], w0[1], w0[2], w0[3]);
-        if (ok1) *reinterpret_cast<uint4*>(y1 + col) = make_uint4(w1[0], w1[1], w1[2], w1[3]);
-      }
-    }
+    mma1688(o, pa0, pa1, vb[n]);
+    a[2 * n] = pack_bf16(o[0], o[1]);
+    a[2 * n + 1] = pack_bf16(o[2], o[3]);
   }
 }
 
@@ -510,13 +275,12 @@ constexpr int SCR = 3 * AREA + RR * 4;
 
 // byte offset of element (row, col) of a unit's C-wide rows in a slot
 __device__ __forceinline__ int tile_off(int row, int col) {
-  return (col >> 6) * BOX + row * 128 + ((((col >> 3) & 7) ^ (row & 7)) << 4) +
-         (col & 7) * 2;
+  return hop::sw128_off<RR>(row, col);
 }
 
-__device__ __forceinline__ float2 up2(uint32_t x) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
-}
+using dec::store_quad;
+using dec::up2;
+using hop::lds_u32;
 
 // Loads kept where they stand (volatile): the compiler would otherwise
 // keep a value loaded once for a second use far away (a head's token rows
@@ -535,29 +299,10 @@ __device__ __forceinline__ float2 ldg_f2(const float* p) {
                : "l"(p));
   return v;
 }
-__device__ __forceinline__ uint32_t lds_u32(const unsigned char* p) {
-  uint32_t v;
-  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(hop::smem(p)));
-  return v;
-}
 
 // a packed word to a row output where ok
 __device__ __forceinline__ void store_word(bf16* at, bool ok, uint32_t w) {
   if (ok) *reinterpret_cast<uint32_t*>(at) = w;
-}
-
-// Four packed words of a row, n-tiles j0..j0 + 3 (columns 8 j + 2t, + 1
-// each), to the row's columns 8 j0.. as one 16-byte segment a lane (n-tile
-// j0 + t), by a 4 x 4 transpose over the lane quad: a warp writes whole
-// 64-byte runs of 8 rows instead of 16-byte pieces, which cost the memory
-// system a partial sector each. Every lane of the quad takes part; `ok`
-// guards the store alone.
-__device__ __forceinline__ void store_quad(bf16* row, bool ok,
-                                           uint32_t (&w)[4], int t) {
-  dec::quad_transpose(w, t);
-  if (ok)
-    *reinterpret_cast<uint4*>(row + 8 * t) = make_uint4(w[0], w[1], w[2],
-                                                        w[3]);
 }
 
 // The scores (or d_p) of one head: part[r][tt] is the lane's share (its
@@ -1150,6 +895,302 @@ __global__ void __launch_bounds__(rwb::NTH, 1)
     dbq_p[pw * I + group_col(grp, lane)] = a_dbq[grp];
 }
 
+// The forward on wgmma and TMA (i2t_fwd_wgmma_kernel). A unit is 64 image
+// rows (one m64 tile) of one image: u = img * tpp + tile, tpp = ceil(m /
+// 64); block b takes units b, b + G, b + 2 G, ... (G blocks), and its two
+// warpgroups take them in turns, each a whole unit with all of its
+// image's pb pairs, so that one warpgroup's products run beside the
+// other's CUDA-core work. The pb pairs share the unit's keys, pe, qin and
+// qs: the q projection runs once a unit. A warpgroup owns whole rows, and
+// each of its warps 16 of them: every product's N is all of I or half of
+// C, so the LayerNorm's row statistics reduce over a lane quad alone and
+// no barrier joins two warps but the stores'.
+//   loads: Wq and Wo once per block, as the row pass lands them (thread
+//     0); a unit's keys into its warpgroup's 32 KB slot as boxes of 64
+//     columns x 64 rows in the 128-byte swizzle (rows past M land as
+//     zero), issued by the warpgroup's first thread once its last unit's
+//     keys are read (while that unit's y is formed and stored).
+//   per unit: qin = rnd(keys + pe) into the q projection's A
+//     fragments (pe from device memory: 2 MB, in L2), qpre = qin . Wq (16
+//     wgmma m64n128k16, Wq MN-major), qs = rnd(rnd(qpre + bq) * rnd(1/4))
+//     kept as a head's A fragment each (32 registers); then per pair:
+//       per head the scores (one m16n8k16 of qs against the pair's token
+//       rows, head dim 16 x 8 tokens), the softmax in f32 over the lane
+//       quad and rnd(out) = rnd(rnd(p) . v) (two m16n8k8): straight from
+//       the accumulator fragments into the out projection's A fragments,
+//       the token rows read through L1 (a pair's 4 KB serve all its
+//       rows);
+//       proj = rnd(out) . Wo in two halves of 128 columns (wgmma
+//       m64n128k16, A in registers, Wo MN-major), res = rnd(keys +
+//       rnd(proj + bo)) packed in registers (bf16 values: 64 words);
+//       the LayerNorm over the lane quad (mean, then the centred
+//       variance), y = rnd(yn g + bt) by halves of 128 columns into the
+//       warp's 4 KB of its warpgroup's stage (16-byte row segments after a
+//       quad transpose), stored from there by TMA, a warp its own 16 rows
+//       (rows past M are not written), so no barrier joins the warps: y's
+//       stores from registers cost the mma.sync kernel 0.06-0.08 ms and a
+//       first version of this one 0.11-0.14 (NVIDIA H100 80GB HBM3 at
+//       700 W, utils/kernel_variants.py --target k4_fwd). A half's values
+//       are formed before the warp waits for its last store to read the
+//       stage.
+// Registers: qs 32, rnd(out) 32, an accumulator half 64 and res 64 at the
+// widest point: more than a producer warpgroup's block leaves (168; 232
+// after setmaxnreg still spilled), so there is none and each thread may
+// take 255. Shared memory: Wq and Wo as the row pass holds them (128 KB),
+// a keys slot and a y stage a warpgroup (2 x 48 KB): 225.1 KB.
+namespace fwb {
+
+using rwb::BOX;
+using rwb::RR;
+using rwb::SLOT;
+using rwb::WEIGHTS;
+using rwb::WO_SLAB;
+using rwb::WQ_SLAB;
+
+constexpr int RING = 2;                     // slots of a unit's keys
+constexpr int STAGE = 2 * BOX;              // a warpgroup's y stage: 16 KB
+constexpr int WROWS = 16;                   // a warp's rows: its y boxes
+constexpr int NTH = 256;                    // two warpgroups
+constexpr size_t SMEM =
+    1024 + RING * (size_t)SLOT + 2 * (size_t)STAGE + WEIGHTS + 128;
+static_assert(SMEM <= 232448, "shared memory of the bf16 forward");
+
+}  // namespace fwb
+
+__global__ void __launch_bounds__(fwb::NTH, 1)
+    i2t_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_keys,
+                         const __grid_constant__ CUtensorMap tm_wq,
+                         const __grid_constant__ CUtensorMap tm_wo,
+                         const __grid_constant__ CUtensorMap tm_y,
+                         const bf16* pe, const bf16* tok_k, const bf16* tok_v,
+                         const float* bq, const float* bo, const float* g,
+                         const float* bt, int bp, int m, int pb, int n_tok,
+                         float eps) {
+  using namespace hop;
+  using namespace fwb;
+  using attn::mma::pack_bf16;
+  using attn::mma::quad_sum;
+  using attn::mma::round_bf16;
+  using dec::quad_transpose;
+  using rwb::ldg_f2;
+  using rwb::lds_u32;
+  using rwb::tile_off;
+  using rwb::up2;
+  extern __shared__ __align__(16) unsigned char smem_tma[];
+  // 1024-aligned, by an offset from the shared array (shared accesses)
+  unsigned char* base = smem_tma + ((1024 - (smem(smem_tma) & 1023)) & 1023);
+  unsigned char* ring = base;  // RING slots of a unit's keys
+  unsigned char* stage = ring + RING * SLOT;  // the warpgroups' y stages
+  unsigned char* wq_s = stage + 2 * STAGE;
+  unsigned char* wo_s = wq_s + 2 * WQ_SLAB;
+  // full[s]: slot s landed
+  uint64_t* full = reinterpret_cast<uint64_t*>(wo_s + 4 * WO_SLAB);
+  uint64_t* wbar = full + RING;
+  const int tpp = (m + RR - 1) / RR, units = (bp / pb) * tpp;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wgi = warp >> 2, t = lane & 3;
+  const int tid = threadIdx.x & 127, bar = 1 + wgi;
+  const int R0 = 16 * (warp & 3) + (lane >> 2);  // the lane's rows R0, R0 + 8
+  // the warp's rows of its warpgroup's stage: 2 KB of each 64-column box
+  unsigned char* ys = stage + wgi * STAGE + (warp & 3) * WROWS * 128;
+  // fill f: the keys of the block's f-th unit into slot f % RING, issued
+  // where they are (a unit's first thread) once fill f - RING is read
+  auto load_keys = [&](int f) {
+    const int u = blockIdx.x + f * gridDim.x;
+    if (u >= units) return;
+    const int img = u / tpp, r0 = (u - img * tpp) * RR, sl = f % RING;
+    mbar_expect_tx(full + sl, SLOT);
+#pragma unroll
+    for (int b = 0; b < C / 64; ++b)
+      tma_load_3d(ring + sl * SLOT + b * BOX, &tm_keys, full + sl, 64 * b,
+                  r0, img);
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < RING; ++i) mbar_init(full + i, 1);
+    mbar_init(wbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(wbar, WEIGHTS);
+    for (int s = 0; s < 2; ++s)
+      tma_load_2d(wq_s + s * WQ_SLAB, &tm_wq, wbar, 64 * s, 0);
+    for (int s = 0; s < 4; ++s)
+      tma_load_2d(wo_s + s * WO_SLAB, &tm_wo, wbar, 64 * s, 0);
+    for (int f = 0; f < RING; ++f) load_keys(f);
+  }
+
+  const uint64_t d_wq_mn = desc(wq_s, WQ_SLAB, 1024, LAYOUT_SW128);
+  const uint64_t d_wo_mn = desc(wo_s, WO_SLAB, 1024, LAYOUT_SW128);
+  mbar_wait(wbar, 0);
+
+  int n = 0;  // this warpgroup's units so far
+  for (int u = blockIdx.x + wgi * gridDim.x; u < units;
+       u += 2 * gridDim.x, ++n) {
+    const int img = u / tpp, r0 = (u - img * tpp) * RR;
+    const int f = 2 * n + wgi;  // the block's f-th unit
+    unsigned char* ks = ring + (f % RING) * SLOT;
+
+    // qin = rnd(keys + pe) as the q projection's A fragments (a row past
+    // M reads pe row M - 1; its keys are zero and its y is not stored),
+    // qpre = qin . Wq, qs = rnd(rnd(qpre + bq) * rnd(1/4)) as a head's A
+    // fragment each
+    mbar_wait(full + f % RING, (f / RING) & 1);
+    uint32_t qf[NH][4];
+    {
+      const bf16* per[2] = {pe + (size_t)min(r0 + R0, m - 1) * C,
+                            pe + (size_t)min(r0 + R0 + 8, m - 1) * C};
+      uint32_t qa[C / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < C / 16; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = i & 1, col = 16 * kk + 8 * (i >> 1) + 2 * t;
+          const float2 x = up2(lds_u32(ks + tile_off(R0 + 8 * r, col)));
+          const float2 z = up2(__ldg(reinterpret_cast<const unsigned int*>(
+              per[r] + col)));
+          qa[kk][i] = pack_bf16(x.x + z.x, x.y + z.y);
+        }
+      float acc[64];
+      fence_operands(qa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < C / 16; ++kk)
+        mma_bf16_rs_mn<128>(acc, qa[kk], d_wq_mn + 128 * kk, kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(acc);
+      const float scale = round_bf16(1.f / sqrtf((float)HD));
+#pragma unroll
+      for (int h = 0; h < NH; ++h)
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+          const int j = 2 * h + e2;
+          const float2 b = ldg_f2(bq + 8 * j + 2 * t);
+          qf[h][2 * e2] = pack_bf16(round_bf16(acc[4 * j] + b.x) * scale,
+                                    round_bf16(acc[4 * j + 1] + b.y) * scale);
+          qf[h][2 * e2 + 1] =
+              pack_bf16(round_bf16(acc[4 * j + 2] + b.x) * scale,
+                        round_bf16(acc[4 * j + 3] + b.y) * scale);
+        }
+    }
+
+    TokenFrags tf;  // the pair's token rows, loaded a pair ahead
+    token_frags(tf, tok_k + (size_t)img * pb * n_tok * I,
+                tok_v + (size_t)img * pb * n_tok * I, n_tok, lane);
+#pragma unroll 1
+    for (int j = 0; j < pb; ++j) {
+      const int pair = img * pb + j;
+      // per head: softmax, rnd(out) as the out projection's A fragment of
+      // k-step h
+      uint32_t of[NH][4];
+#pragma unroll
+      for (int h = 0; h < NH; ++h) {
+        float p[4];
+        head_softmax(p, qf[h], tf.k[h], n_tok, lane);
+        head_out(of[h], p, tf.v[h]);
+      }
+      if (j + 1 < pb)  // the next pair's token rows, in flight meanwhile
+        token_frags(tf, tok_k + (size_t)(pair + 1) * n_tok * I,
+                    tok_v + (size_t)(pair + 1) * n_tok * I, n_tok, lane);
+      // res = rnd(keys + rnd(rnd(out) . Wo + bo)), packed: res[r][jn] the
+      // lane's columns 8 jn + 2t, + 1 of row R0 + 8 r
+      uint32_t res[2][C / 8];
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int hn = 0; hn < 2; ++hn) {
+        float acc[64];
+        fence_operands(of);
+        wgmma_fence();
+#pragma unroll
+        for (int h = 0; h < NH; ++h)
+          mma_bf16_rs_mn<128>(acc, of[h], d_wo_mn + 2048 * hn + 128 * h,
+                              h > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operands(acc);
+#pragma unroll
+        for (int jj = 0; jj < 16; ++jj) {
+          const int col = 128 * hn + 8 * jj + 2 * t;
+          const float2 b = ldg_f2(bo + col);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float2 kv = up2(lds_u32(ks + tile_off(R0 + 8 * r, col)));
+            const float x0 =
+                round_bf16(kv.x + round_bf16(acc[4 * jj + 2 * r] + b.x));
+            const float x1 =
+                round_bf16(kv.y + round_bf16(acc[4 * jj + 2 * r + 1] + b.y));
+            res[r][16 * hn + jj] = pack_bf16(x0, x1);  // exact
+            sum[r] += x0 + x1;
+          }
+        }
+      }
+      // the LayerNorm of rows R0, R0 + 8 over the quad (f32: the mean,
+      // then the centred variance)
+      float mu[2], rs[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mu[r] = quad_sum(sum[r]) * (1.f / C);
+        float v = 0.f;
+#pragma unroll
+        for (int jn = 0; jn < C / 8; ++jn) {
+          const float2 x = up2(res[r][jn]);
+          const float a0 = x.x - mu[r], a1 = x.y - mu[r];
+          v = fmaf(a0, a0, fmaf(a1, a1, v));
+        }
+        rs[r] = rsqrtf(quad_sum(v) * (1.f / C) + eps);
+      }
+      if (j == pb - 1) {
+        named_sync(bar, 128);  // the unit's keys are read
+        if (tid == 0) load_keys(f + RING);
+      }
+      // y = rnd(yn g + bt) (a product and a sum, each rounded, as the plain
+      // version) by halves of 128 columns into the warp's rows of the
+      // stage, four n-tiles a 16-byte segment of a row (a quad transpose),
+      // then to the rows by TMA once the warp's last store has read them
+#pragma unroll
+      for (int hn = 0; hn < 2; ++hn) {
+        uint32_t w[2][4][4];
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) {
+              const int jn = 16 * hn + 4 * a + jj, col = 8 * jn + 2 * t;
+              const float2 x = up2(res[r][jn]);
+              const float2 gg = ldg_f2(g + col), tt = ldg_f2(bt + col);
+              w[r][a][jj] = pack_bf16(
+                  __fadd_rn(__fmul_rn(__fmul_rn(x.x - mu[r], rs[r]), gg.x),
+                            tt.x),
+                  __fadd_rn(__fmul_rn(__fmul_rn(x.y - mu[r], rs[r]), gg.y),
+                            tt.y));
+            }
+            quad_transpose(w[r][a], t);
+          }
+        if (lane == 0) bulk_wait_read();
+        __syncwarp();  // the warp's rows of the stage are free
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int a = 0; a < 4; ++a)
+            *reinterpret_cast<uint4*>(
+                ys + sw128_off<RR>(lane / 4 + 8 * r, 32 * a + 8 * t)) =
+                make_uint4(w[r][a][0], w[r][a][1], w[r][a][2], w[r][a][3]);
+        fence_proxy_async();
+        __syncwarp();  // the stage holds y of the warp's rows
+        if (lane == 0) {
+          tma_store_3d(&tm_y, ys, 128 * hn, r0 + WROWS * (warp & 3), pair);
+          tma_store_3d(&tm_y, ys + BOX, 128 * hn + 64,
+                       r0 + WROWS * (warp & 3), pair);
+          bulk_commit();
+        }
+      }
+    }
+  }
+  if (lane == 0) bulk_wait();  // the warp's last TMA stores are done
+}
+
 // The bf16 weight pass on wgmma and TMA (i2t_bwd_dw_wgmma_kernel): block u
 // sums, over the rows of its unit (a run of stages of one weight),
 //   kind 0: dWo   [I][C] = rnd(out)^T . rnd(d_res)
@@ -1322,6 +1363,37 @@ __global__ void __launch_bounds__(dwb::NTH, 1)
 // (C, M, images or pairs) bf16, boxes of 64 columns x 64 rows, the weights
 // through maps over Wq (I, C) and Wo (C, I), boxes of 64 columns x all rows,
 // all in the 128-byte swizzle.
+// A (C, m, planes) bf16 row tensor as a 3-D tensor map: boxes of 64
+// columns x `rows` rows in the 128-byte swizzle, what the wgmma kernels'
+// slots hold (rows past m read as zero, and are not written by a store).
+bool row_map(CUtensorMap* map, const void* src, int m, int planes,
+             int rows = rwb::RR) {
+  const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)m,
+                              (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {2ull * C, 2ull * C * m};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  return hop::tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, src, dims,
+                         strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// Wq (C, I) and Wo (I, C) as 2-D tensor maps: boxes of 64 columns x all
+// rows in the 128-byte swizzle (the wgmma kernels' weight slabs)
+bool weight_maps(CUtensorMap* maps, const void* wq, const void* wo) {
+  const int wdims[2][2] = {{I, C}, {C, I}};
+  const void* wsrc[2] = {wq, wo};
+  for (int i = 0; i < 2; ++i) {
+    const cuuint64_t dims[2] = {(cuuint64_t)wdims[i][0],
+                                (cuuint64_t)wdims[i][1]};
+    const cuuint64_t strides[1] = {2ull * wdims[i][0]};
+    const cuuint32_t box[2] = {64, (cuuint32_t)wdims[i][1]};
+    if (!hop::tensor_map(maps + i, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                         wsrc[i], dims, strides, box,
+                         CU_TENSOR_MAP_SWIZZLE_128B))
+      return false;
+  }
+  return true;
+}
+
 int launch_bwd_rows(void* const* a, int bp, int m, int pb, int n_tok,
                     int blocks, float eps, cudaStream_t stream) {
   if (n_tok < 1 || n_tok > TP || pb < 1 || bp % pb || blocks < 1 || m < 1)
@@ -1330,28 +1402,10 @@ int launch_bwd_rows(void* const* a, int bp, int m, int pb, int n_tok,
   // keys and dy, then the rows stored from the slots: d_res, d_keys
   const void* srcs[4] = {a[0], a[10], a[17], a[11]};
   const int planes[4] = {bp / pb, bp, bp, bp};
-  for (int i = 0; i < 4; ++i) {
-    const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)m,
-                                (cuuint64_t)planes[i]};
-    const cuuint64_t strides[2] = {2ull * C, 2ull * C * m};
-    const cuuint32_t box[3] = {64, (cuuint32_t)rwb::RR, 1};
-    if (!hop::tensor_map(maps + i, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                         srcs[i], dims, strides, box,
-                         CU_TENSOR_MAP_SWIZZLE_128B))
+  for (int i = 0; i < 4; ++i)
+    if (!row_map(maps + i, srcs[i], m, planes[i]))
       return (int)cudaErrorInvalidValue;
-  }
-  const int wdims[2][2] = {{I, C}, {C, I}};  // Wq (C, I), Wo (I, C)
-  const void* wsrc[2] = {a[4], a[6]};
-  for (int i = 0; i < 2; ++i) {
-    const cuuint64_t dims[2] = {(cuuint64_t)wdims[i][0],
-                                (cuuint64_t)wdims[i][1]};
-    const cuuint64_t strides[1] = {2ull * wdims[i][0]};
-    const cuuint32_t box[2] = {64, (cuuint32_t)wdims[i][1]};
-    if (!hop::tensor_map(maps + 4 + i, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                         wsrc[i], dims, strides, box,
-                         CU_TENSOR_MAP_SWIZZLE_128B))
-      return (int)cudaErrorInvalidValue;
-  }
+  if (!weight_maps(maps + 4, a[4], a[6])) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       i2t_bwd_rows_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)rwb::SMEM);
@@ -1445,23 +1499,26 @@ int launch_bwd_dw(void* const* a, int bp, int m, int pb, int chunk0,
   return (int)cudaGetLastError();
 }
 
-int launch_fwd_mma(const void* keys, const void* pe, const void* tok_k,
-                   const void* tok_v, const void* wq, const void* bq,
-                   const void* wo, const void* bo, const void* g,
-                   const void* bt, void* out, int bp, int m, int pb,
-                   int n_tok, int blocks, float eps, cudaStream_t stream) {
+int launch_fwd_wgmma(const void* keys, const void* pe, const void* tok_k,
+                     const void* tok_v, const void* wq, const void* bq,
+                     const void* wo, const void* bo, const void* g,
+                     const void* bt, void* out, int bp, int m, int pb,
+                     int n_tok, int blocks, float eps, cudaStream_t stream) {
   if (blocks < 1) return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[4];  // keys, Wq, Wo, y (in boxes of a warp's rows)
+  if (!row_map(maps, keys, m, bp / pb) || !weight_maps(maps + 1, wq, wo) ||
+      !row_map(maps + 3, out, m, bp, fwb::WROWS))
+    return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      i2t_fwd_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)FWD_MMA_SMEM);
+      i2t_fwd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)fwb::SMEM);
   if (e != cudaSuccess) return (int)e;
-  i2t_fwd_mma_kernel<<<blocks, RT, FWD_MMA_SMEM, stream>>>(
-      static_cast<const bf16*>(keys), static_cast<const bf16*>(pe),
+  i2t_fwd_wgmma_kernel<<<blocks, fwb::NTH, fwb::SMEM, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const bf16*>(pe),
       static_cast<const bf16*>(tok_k), static_cast<const bf16*>(tok_v),
-      static_cast<const bf16*>(wq), static_cast<const float*>(bq),
-      static_cast<const bf16*>(wo), static_cast<const float*>(bo),
-      static_cast<const float*>(g), static_cast<const float*>(bt),
-      static_cast<bf16*>(out), bp, m, pb, n_tok, eps);
+      static_cast<const float*>(bq), static_cast<const float*>(bo),
+      static_cast<const float*>(g), static_cast<const float*>(bt), bp, m, pb,
+      n_tok, eps);
   return (int)cudaGetLastError();
 }
 
@@ -2276,8 +2333,8 @@ int launch_bwd_dw_tf32(void* const* a, int bp, int m, int pb, int chunk,
 // cudaError_t of the launch (0 = success); the caller raises on non-zero.
 extern "C" {
 
-// The forward on `blocks` persistent blocks: bf16 i2t_fwd_mma_kernel, f32
-// i2t_fwd_tf32_kernel.
+// The forward on `blocks` persistent blocks: bf16 i2t_fwd_wgmma_kernel (the
+// plan of ops/decoder_attn.py::fwd_plan_bf16), f32 i2t_fwd_tf32_kernel.
 int dhoct_i2t_fwd(const void* keys, const void* pe, const void* tok_k,
                   const void* tok_v, const void* wq, const void* bq,
                   const void* wo, const void* bo, const void* g,
@@ -2287,13 +2344,13 @@ int dhoct_i2t_fwd(const void* keys, const void* pe, const void* tok_k,
   if (n_tok < 1 || n_tok > TP || pb < 1 || bp % pb || m < 1)
     return (int)cudaErrorInvalidValue;
   return dtype == 1
-             ? launch_fwd_mma(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt,
-                              out, bp, m, pb, n_tok, blocks, eps, s)
+             ? launch_fwd_wgmma(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g,
+                                bt, out, bp, m, pb, n_tok, blocks, eps, s)
              : launch_fwd_tf32(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt,
                                out, bp, m, pb, n_tok, blocks, eps, s);
 }
 
-// The row pass on `blocks` persistent blocks (bf16 i2t_bwd_rows_kernel, f32
+// The row pass on `blocks` persistent blocks (bf16 i2t_bwd_rows_wgmma_kernel, f32
 // i2t_bwd_rows_tf32_kernel). a: keys, pe, tok_k, tok_v, wq, bq, wo, bo, g,
 // bt, dy; outputs d_keys, d_qpre, p, d_score, d_out, the rnd(out) and
 // rnd(d_res) scratch rows, and per-slot partials of dbq, dbo, dg, dbt; f32

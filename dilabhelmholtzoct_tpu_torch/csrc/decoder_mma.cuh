@@ -145,6 +145,24 @@ __device__ __forceinline__ void quad_transpose(uint32_t (&x)[4], int t) {
   }
 }
 
+__device__ __forceinline__ float2 up2(uint32_t x) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
+}
+
+// Four packed words of a row, n-tiles j0..j0 + 3 (columns 8 j + 2t, + 1
+// each), to the row's columns 8 j0.. as one 16-byte segment a lane (n-tile
+// j0 + t), by a 4 x 4 transpose over the lane quad: a warp writes whole
+// 64-byte runs of 8 rows instead of 4-byte pieces, which cost the memory
+// system a partial sector each. Every lane of the quad takes part; `ok`
+// guards the store alone.
+__device__ __forceinline__ void store_quad(bf16* row, bool ok,
+                                           uint32_t (&w)[4], int t) {
+  quad_transpose(w, t);
+  if (ok)
+    *reinterpret_cast<uint4*>(row + 8 * t) = make_uint4(w[0], w[1], w[2],
+                                                        w[3]);
+}
+
 // The tiles of the row pass: 16-row tiles of each pair's m rows, pair-major;
 // slot s of the grid (a warp pair) takes tiles s, s + (slots of the grid), ...
 struct RowTile {

@@ -7,8 +7,10 @@
 // (attention_bwd_wgmma_tf32.cu, attn_bwd_dq_wgmma_tf32_kernel and
 // attn_bwd_dkv_wgmma_tf32_kernel), the K4 weight pass in both types
 // (decoder_attn.cu, i2t_bwd_dw_wgmma_kernel and i2t_bwd_dw_tf32_kernel),
-// the bf16 K4 row pass (i2t_bwd_rows_wgmma_kernel) and the f32 K3 weight
-// pass (upscaler.cu, upscale_bwd_dw_tf32_kernel).
+// the bf16 K4 row pass and forward (i2t_bwd_rows_wgmma_kernel,
+// i2t_fwd_wgmma_kernel), the f32 K3 weight pass (upscaler.cu,
+// upscale_bwd_dw_tf32_kernel) and the bf16 K3 row pass
+// (upscale_bwd_rows_wgmma_kernel).
 //
 // * mbarriers: init, arrive, arrive with an expected transaction count,
 //   a wait on a phase's parity, and the arrive that fires when a thread's
@@ -27,11 +29,15 @@
 //       d_out = rnd(d_res) . Wo^T at 128);
 //     mma_bf16_ss_mn<256>  bf16, both operands in shared memory, MN-major
 //       (the K4 weight pass: X^T . Y with K the row index of both);
+//     mma_bf16_ss_bmn<64>  bf16, both operands in shared memory, A K-major,
+//       B MN-major (the K3 row pass's first product, up . W1 per (d, e)
+//       block);
 //     mma_bf16_rs_mn<16 | 32 | 64 | 128>  bf16, A in registers, B MN-major
 //       (K6's p . v, K5's ds . k, p^T . dO and ds^T . q; the K4 row pass's
 //       q and out projections, qin . Wq and rnd(out) . Wo, at 128);
-//     mma_bf16_rs<128>  bf16, A in registers, B K-major (the K4 row pass's
-//       d_keys: rnd(d_qpre) . Wq^T);
+//     mma_bf16_rs<64 | 128>  bf16, A in registers, B K-major (the K3 row
+//       pass's d_u1g = rnd(d_u2pre) . W2^T at 64; the K4 row pass's d_keys:
+//       rnd(d_qpre) . Wq^T at 128);
 //     mma_tf32_rs<16 | 32 | 48 | 64 | 80 | 96 | 112 | 128 | 256>  TF32, A
 //       in registers, B K-major (the f32 K3 and K4 weight passes at 128 /
 //       256; the f32 K6's q . k^T over its key tile and p . v over its
@@ -273,6 +279,23 @@ __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
+// byte offset of bf16 element (row, col) of a tile of C-wide rows landed
+// by TMA as boxes of 64 columns x ROWS rows in the 128-byte swizzle, box
+// after box (the tile 1024-byte aligned): what the wgmma kernels' slots
+// hold, and K-major operands of bf16 wgmma read them as they are
+template <int ROWS>
+__device__ __forceinline__ int sw128_off(int row, int col) {
+  return (col >> 6) * (ROWS * 128) + row * 128 +
+         ((((col >> 3) & 7) ^ (row & 7)) << 4) + (col & 7) * 2;
+}
+
+// a 32-bit shared load kept where it stands (volatile)
+__device__ __forceinline__ uint32_t lds_u32(const void* p) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(smem(p)));
+  return v;
+}
+
 // a wgmma shared-memory matrix descriptor: start address, LBO, SBO (bytes)
 // and the layout: no swizzle, or the 128-, 64- or 32-byte swizzle
 constexpr uint32_t LAYOUT_NONE = 0, LAYOUT_SW128 = 1, LAYOUT_SW64 = 2,
@@ -333,6 +356,9 @@ __device__ void mma_bf16_ss(float* d, uint64_t da, uint64_t db, int acc);
 // bf16, both operands MN-major (transposed): A stored [K][M], B [K][N]
 template <int N>
 __device__ void mma_bf16_ss_mn(float* d, uint64_t da, uint64_t db, int acc);
+// bf16, A K-major, B MN-major (transposed): A stored [M][K], B [K][N]
+template <int N>
+__device__ void mma_bf16_ss_bmn(float* d, uint64_t da, uint64_t db, int acc);
 // bf16, A from registers, B MN-major (transposed)
 template <int N>
 __device__ void mma_bf16_rs_mn(float* d, const uint32_t (&a)[4], uint64_t db,
@@ -958,6 +984,53 @@ __device__ __forceinline__ void mma_bf16_rs<128>(float* d,
       "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
       "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
       "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void mma_bf16_ss_bmn<64>(float* d, uint64_t da,
+                                                   uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void mma_bf16_rs<64>(float* d,
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
 }
 

@@ -34,8 +34,9 @@
 //    parallel, so every sum over rows is one partial per slot, tile or
 //    chunk, added up by the wrapper in a fixed order -- no atomics, so the
 //    gradients repeat bit for bit from run to run.
-//    * bf16: upscale_bwd_rows_kernel (W1 and W2 in shared memory, a warp
-//      pair per 16-row tile) and upscale_bwd_dw_kernel (decoder_mma.cuh).
+//    * bf16: upscale_bwd_rows_wgmma_kernel (on bf16 wgmma, its up rows
+//      landed by TMA beside W1 and W2, see the kernel) and
+//      upscale_bwd_dw_kernel (decoder_mma.cuh).
 //    * f32: upscale_bwd_rows_tf32_kernel (super-tiles of 64 rows streaming
 //      W1 and W1^T) and upscale_bwd_dw_tf32_kernel (on TF32 wgmma, its rows
 //      landed by TMA; see the kernel), in split TF32; rnd() is the
@@ -55,8 +56,9 @@
 //    cores: the first and second products per (d, e) block (the second by
 //    halves of 64 lanes), the hypernetwork sum over c2 against hyper^T, and
 //    in the backward d_u1g = rnd(d_u2pre) . W2^T and d_up = rnd(d_u1pre) .
-//    W1^T; bf16 as mma.sync bf16 -> f32 (each operand a bf16 rounding point
-//    of the JAX kernel, so each term is exact), f32 as hi.hi + hi.lo + lo.hi
+//    W1^T; bf16 as mma.sync bf16 -> f32 (the forward; the row pass on
+//    wgmma) (each operand a bf16 rounding point of the JAX kernel, so each
+//    term is exact), f32 as hi.hi + hi.lo + lo.hi
 //    on m16n8k8 TF32 with the GELU in its erf form and exact derivative.
 //    The LayerNorms, GELUs and their backwards run in f32 registers over a
 //    lane quad. The second product runs per (d, e) block of W2 (64 x 128),
@@ -69,7 +71,12 @@
 //    byte-bound) runs on TF32 wgmma m64n256k8 / m64n128k8 with TMA loads
 //    into an mbarrier ring, each element split once; its four units of a
 //    chunk read 6 KB a row, of which the second read of rnd(d_u1pre), 1
-//    KB, is meant to come from L2.
+//    KB, is meant to come from L2. The bf16 row pass (155 GFLOP with the
+//    recompute, 0.10 ms of wgmma; 822 MB of rows in and out at n_out 1:
+//    0.245 ms; byte-bound) leaves every row as 16-byte segments (its
+//    mma.sync predecessor's 4-byte stores cost it 0.37 ms) and keeps its
+//    CUDA-core work -- the GELUs (1024 tanh a row), LayerNorms and their
+//    backwards, ~35 K instructions a row -- beside its products on wgmma.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -122,29 +129,8 @@ constexpr int LD2 = LQ + 8;   // shared row of W2 [C1][LQ]
 constexpr int SLOTS = 4;          // tiles in flight per block: a warp pair each
 constexpr int RT = 64 * SLOTS;     // threads per row-pass block
 constexpr int CS = 4 * LQ + L1;    // a slot's per-column sums: db2, db1
-constexpr size_t ROWS_SMEM =
-    sizeof(bf16) * (size_t)(C * LD1 + C1 * LD2 + SLOTS * 2 * 16 * LD1) +
-    sizeof(float) * (size_t)SLOTS * CS;
 constexpr size_t FWD_MMA_SMEM =
     sizeof(bf16) * (size_t)(C * LD1 + C1 * LD2 + SLOTS * 2 * 16 * LD1);
-
-// gelu (tanh form) of x and its derivative from one tanh
-__device__ __forceinline__ float gelu_and_grad(float x, float* grad) {
-  const float t = tanhf(kSqrt2OverPi * (x + kKappa * x * x * x));
-  *grad = 0.5f * (1.f + t) +
-          0.5f * x * (1.f - t * t) * (kSqrt2OverPi * (1.f + 3.f * kKappa * x * x));
-  return 0.5f * x * (1.f + t);
-}
-
-// acc[(de) block] += v where de is known only at run time: a select per
-// block, so the accumulators stay in registers
-template <int N>
-__device__ __forceinline__ void add_at(float (&acc)[4 * N], int de, int i,
-                                       float v) {
-#pragma unroll
-  for (int d = 0; d < 4; ++d)
-    if (d == de) acc[d * N + i] += v;
-}
 
 // The forward chain's pieces that the forward kernel and the backward's row
 // pass share. Lane = 4 g + t holds rows g and g + 8 of every accumulator
@@ -356,253 +342,550 @@ __global__ void __launch_bounds__(RT, 1)
   }
 }
 
-// The row pass. A pair of warps shares each 16-row tile (a slot): warp
-// `sub` of the pair takes the (d, e) blocks 2 sub, 2 sub + 1 and the d_up
-// channels 128 sub.., so a block holds 8 warps on 4 slots. Shared memory:
-// W1 [C][LD1] and W2 [C1][LD2] (k by n for the forward products, n by k
-// for the backward ones), per slot its tile's up rows and rnd(d_u1pre)
-// rows [16][LD1] each, and its per-column sums of db2 and db1 (group_sum8
-// layout, each entry owned by one lane; dg and dbt in registers). Per
-// (d, e) block: the 64 lanes of the first product, their LayerNorm and
-// GELU, the second product by halves of 64 lanes (two (f, g)), its GELU,
-// the hypernetwork terms, d_u2pre and its share of d_u1g; then back to
-// rnd(d_u1pre). No accumulator is wider than 64 registers. Lane = 4 g + t
-// holds rows g and g + 8 of every accumulator n-tile, columns 2t, 2t + 1.
-__global__ void __launch_bounds__(RT, 1)
-    upscale_bwd_rows_kernel(const bf16* up, const float* dm, const bf16* w1,
-                            const float* b1, const float* g, const float* bt,
-                            const bf16* w2, const float* b2, const bf16* hyper,
-                            bf16* d_up, bf16* u1g_rows, bf16* d2_rows,
-                            bf16* du1_rows, float* db1_p, float* dg_p,
-                            float* dbt_p, float* db2_p, float* dht_t, int bp,
-                            int m, int n_out, float eps) {
-  using namespace dec;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* w1_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* w2_s = w1_s + C * LD1;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int slot = warp >> 1, sub = warp & 1, pl = 32 * sub + lane;
-  const int gq = lane >> 2, tq = lane & 3;
-  bf16* u_s = w2_s + C1 * LD2 + slot * 2 * 16 * LD1;
-  bf16* d_s = u_s + 16 * LD1;
-  float* cs0 = reinterpret_cast<float*>(w2_s + C1 * LD2 + SLOTS * 2 * 16 * LD1);
-  float* cs = cs0 + slot * CS;  // db2 [4 LQ], db1 [L1]
-  // the pair's own barrier (0 is __syncthreads)
-  auto pair_sync = [&] {
-    asm volatile("bar.sync %0, 64;\n" ::"r"(1 + slot) : "memory");
-  };
+// The row pass on wgmma and TMA (upscale_bwd_rows_wgmma_kernel). A unit is
+// 64 rows (one m64 tile) of one pair: u = pair * tpp + tile, tpp = ceil(m
+// / 64); block b takes units b, b + G, b + 2 G, ... (G blocks). Both
+// warpgroups work on the block's unit, warpgroup w on the (d, e)
+// blocks 2 w and 2 w + 1 (their whole chain, so a (d, e) block's
+// LayerNorms reduce over a lane quad alone) and on d_up's channels 128
+// w..: so the unit's up rows and rnd(d_u1pre) rows are one slot each (in
+// turns, each warpgroup would need both: 272 KB beside the weights).
+//   loads (thread 0): W1 (four slabs of 64 lanes x C rows) and W2 (two
+//     slabs of 64 lanes x C1 rows) once per block; a unit's up rows as
+//     boxes of 64 columns x 64 rows in the 128-byte swizzle (rows past M
+//     land as zero), the next unit's once both warpgroups are done with
+//     this one's first products (they land while d_up is formed).
+//   per (d, e) block:
+//     u1pre = up . W1[:, de] (16 wgmma m64n64k16, up K-major, W1 MN-major),
+//       its LayerNorm over the 64 lanes (f32, quad shuffles), u1g =
+//       rnd(gelu(rnd(y g + bt))) into the next product's A fragments and
+//       the block's box of the rnd(d_u1pre) slot, stored from there to its
+//       rows by TMA while that product runs;
+//     u2pre = u1g . W2 (4 wgmma m64n128k16, A in registers, W2 MN-major),
+//       per (f, g) group of 32 lanes: u2g = rnd(gelu(rnd(u2pre + b2))) and
+//       d_u2pre = (dm . hyper) gelu'(...) in f32 (dm from device memory, the
+//       pair's hyper in registers), db2's column sums, d_hyper's (each
+//       warp's into shared memory, then the warpgroup's added there in warp
+//       order: one partial a unit); rnd(d_u2pre) to its rows and into the
+//       next product's A fragments;
+//     d_u1g = rnd(d_u2pre) . W2^T (8 wgmma m64n64k16, A in registers, W2
+//       K-major: the same copy), the GELU and LayerNorm backward in f32,
+//       dg, dbt and db1's column sums; rnd(d_u1pre) into the block's box
+//       (K-major for the last product).
+//   then, both warpgroups' blocks in the slot: rnd(d_u1pre) from there to
+//     its rows by TMA; d_up = rnd(d_u1pre) . W1^T (16 wgmma m64n128k16,
+//     both K-major: W1 through the same copy), the warpgroup's 128
+//     channels staged over the slot and stored by TMA.
+// rnd(d_u2pre) of the second (d, e) block is staged over the warpgroup's
+// half of the up slot, free by then, and stored by TMA; that of the first
+// (no room is left to stage it) leaves registers as 16-byte row segments
+// (store_quad: a warp writes 64-byte runs of 8 rows): the
+// mma.sync kernel's 4-byte row stores cost it 0.37 ms, and a first version
+// of this one with all rows leaving as 16-byte segments lost 0.25 ms to
+// them (NVIDIA H100 80GB HBM3 at 700 W, utils/kernel_variants.py --target
+// k3_rows). The column sums reduce over a
+// warp's 16 rows by group_sum8 and over its units in registers: one
+// partial a block and warp index (the two warpgroups' warps w hold
+// disjoint (d, e) blocks); d_hyper one partial a unit. The wrapper adds
+// the partials in a fixed order: no atomics, the same bits every run.
+// Shared memory: W1 (128 KB) and W2 (16 KB) as TMA lands them, the up and
+// rnd(d_u1pre) slots (32 KB each), each warpgroup's d_hyper sums (4 warps
+// x MAXT tokens x 128 lanes f32, 8 KB), barriers: 225.1 KB. No producer
+// warp: the loads are few, and a block of two warpgroups lets a thread
+// take 255 registers (the chain of a (d, e) block spilled at 168, and at
+// 232 after setmaxnreg, with one).
+namespace rwu {
 
-  block_weights_async<C, L1, LD1, RT>(w1_s, w1);
-  block_weights_async<C1, LQ, LD2, RT>(w2_s, w2);
-  cp_commit();
-  for (int i = threadIdx.x; i < SLOTS * CS; i += RT) cs0[i] = 0.f;
-  cp_wait<0>();
-  __syncthreads();
+constexpr int RR = 64;                      // rows of a unit
+constexpr int BOX = RR * 128;               // 64 bf16 columns x RR rows
+constexpr int SLOT = (C / 64) * BOX;        // a unit's C-wide rows: 32 KB
+constexpr int W1_SLAB = C * 128;            // 64 lanes x C rows of W1
+constexpr int W2_SLAB = C1 * 128;           // 64 lanes x C1 rows of W2
+constexpr int WEIGHTS = 4 * W1_SLAB + 2 * W2_SLAB;
+constexpr int DH = 4 * MAXT * LQ;           // a warpgroup's d_hyper sums
+constexpr int NTH = 256;                    // two warpgroups
+constexpr size_t SMEM = 1024 + WEIGHTS + 2 * (size_t)SLOT +
+                        sizeof(float) * 2 * DH + 2 * MAXT * C2 * 2 + 64;
+static_assert(SMEM <= 232448, "shared memory of the bf16 row pass");
 
-  const int tpp = (m + 15) / 16, ntiles = bp * tpp, lanes = n_out * 16;
-  float a_dg[8], a_dbt[8];  // per (d, e) two groups (group_sum8 layout)
+// tanh as 1 - 2 / (e^{2x} + 1) from ex2.approx and rcp.approx: within
+// ~1e-7 of tanhf (absolute; ample for values rounded to bf16 next or
+// scaled by a bf16-rounded gradient) in 6 instructions against tanhf's
+// ~20 (1024 of them a row); e^{2x} = inf past x ~ 44 gives 1, 0 below
+// x ~ -44 gives -1
+__device__ __forceinline__ float tanh_fast(float x) {
+  return 1.f - __fdividef(2.f, attn::mma::exp2_approx(2.8853900817779268f * x) +
+                                   1.f);
+}
+
+// gelu (tanh form) of x, and with its derivative, on tanh_fast
+__device__ __forceinline__ float gelu_fast(float x) {
+  return 0.5f * x * (1.f + tanh_fast(kSqrt2OverPi * (x + kKappa * x * x * x)));
+}
+__device__ __forceinline__ float gelu_and_grad_fast(float x, float* grad) {
+  const float t = tanh_fast(kSqrt2OverPi * (x + kKappa * x * x * x));
+  *grad = 0.5f * (1.f + t) +
+          0.5f * x * (1.f - t * t) * (kSqrt2OverPi * (1.f + 3.f * kKappa * x * x));
+  return 0.5f * x * (1.f + t);
+}
+__device__ __forceinline__ float gelu_grad_fast(float x) {
+  float grad;
+  gelu_and_grad_fast(x, &grad);
+  return grad;
+}
+
+// acc[b * N + i] += v for the block b (0 or 1) known only at run time: a
+// select, so the accumulators stay in registers
+template <int N>
+__device__ __forceinline__ void add_at(float (&acc)[2 * N], int b, int i,
+                                       float v) {
+  if (b == 0)
+    acc[i] += v;
+  else
+    acc[N + i] += v;
+}
+
+}  // namespace rwu
+
+__global__ void __launch_bounds__(rwu::NTH, 1)
+    upscale_bwd_rows_wgmma_kernel(
+        const __grid_constant__ CUtensorMap tm_up,
+        const __grid_constant__ CUtensorMap tm_w1,
+        const __grid_constant__ CUtensorMap tm_w2,
+        const __grid_constant__ CUtensorMap tm_dup,
+        const __grid_constant__ CUtensorMap tm_u1g,
+        const __grid_constant__ CUtensorMap tm_du1,
+        const __grid_constant__ CUtensorMap tm_d2, const float* dm,
+        const float* b1, const float* g, const float* bt, const float* b2,
+        const bf16* hyper, bf16* d2_rows, float* db1_p, float* dg_p,
+        float* dbt_p, float* db2_p, float* dht_u, int bp, int m, int n_out,
+        float eps) {
+  using namespace hop;
+  using namespace rwu;
+  using dec::group_col;
+  using dec::group_sum8;
+  using dec::pack_bf16;
+  using dec::quad_sum;
+  using dec::round_bf16;
+  using dec::store_quad;
+  using dec::up2;
+  extern __shared__ __align__(16) unsigned char smem_tma[];
+  // 1024-aligned, by an offset from the shared array (shared accesses)
+  unsigned char* base = smem_tma + ((1024 - (smem(smem_tma) & 1023)) & 1023);
+  unsigned char* w1_s = base;                // slab s: lanes 64 s.., C rows
+  unsigned char* w2_s = w1_s + 4 * W1_SLAB;  // slab s: lanes 64 s.., C1 rows
+  unsigned char* up_s = w2_s + 2 * W2_SLAB;  // the unit's up rows
+  unsigned char* du_s = up_s + SLOT;         // the unit's rnd(d_u1pre) rows
+  float* dh_s = reinterpret_cast<float*>(du_s + SLOT);  // [wg][warp][t][LQ]
+  // the unit's pair's hyper, double-buffered by unit: [2][MAXT][C2] bf16
+  uint32_t* hy_s = reinterpret_cast<uint32_t*>(dh_s + 2 * DH);
+  uint64_t* up_full = reinterpret_cast<uint64_t*>(hy_s + MAXT * C2);
+  uint64_t* wbar = up_full + 1;
+  const int tpp = (m + RR - 1) / RR, units = bp * tpp, lanes = n_out * 16;
+  // the up rows of unit u into the slot (thread 0)
+  auto load_up = [&](int u) {
+    const int pair = u / tpp, r0 = (u - pair * tpp) * RR;
+    mbar_expect_tx(up_full, SLOT);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) a_dg[i] = a_dbt[i] = 0.f;
+    for (int b = 0; b < C / 64; ++b)
+      tma_load_3d(up_s + b * BOX, &tm_up, up_full, 64 * b, r0, pair);
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(up_full, 1);
+    mbar_init(wbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(wbar, WEIGHTS);
+    for (int s = 0; s < 4; ++s)
+      tma_load_2d(w1_s + s * W1_SLAB, &tm_w1, wbar, 64 * s, 0);
+    for (int s = 0; s < 2; ++s)
+      tma_load_2d(w2_s + s * W2_SLAB, &tm_w2, wbar, 64 * s, 0);
+    if (blockIdx.x < units) load_up(blockIdx.x);
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  for (int tile = blockIdx.x * SLOTS + slot; tile < ntiles;
-       tile += gridDim.x * SLOTS) {
-    const RowTile tl(tile, tpp, m);
-    const int valid = min(16, m - tl.row0);
-    const bool ok0 = gq < valid, ok1 = gq + 8 < valid;
-    const size_t r0 = tl.prow0 + gq, r1 = r0 + 8;  // the lane's two rows
-    slot_rows_async<C, LD1>(u_s, up + tl.prow0 * C, valid, pl);
-    cp_commit();
-    cp_wait<0>();
-    pair_sync();
-    const bf16* hy = hyper + (size_t)tl.pair * n_out * C2;
-    const float* dm0 = dm + r0 * lanes;
-    const float* dm1 = dm + r1 * lanes;
+  const int wgi = warp >> 2, wq = warp & 3, t = lane & 3;
+  const int tid = threadIdx.x & 127;
+  const int R0 = 16 * wq + (lane >> 2);  // the lane's rows R0, R0 + 8
+  float* dhw = dh_s + (wgi * 4 + wq) * MAXT * LQ;  // this warp's d_hyper sums
+  const float* dhg = dh_s + wgi * DH;              // its warpgroup's
+  // the operands' wgmma descriptors: a k step moves the address field
+  // (bytes / 16) alone
+  const uint64_t d_ups = desc(up_s, 16, 1024, LAYOUT_SW128);      // K-major
+  const uint64_t d_dus = desc(du_s, 16, 1024, LAYOUT_SW128);      // K-major
+  const uint64_t d_w1_mn = desc(w1_s, W1_SLAB, 1024, LAYOUT_SW128);
+  const uint64_t d_w1_k = desc(w1_s, 16, 1024, LAYOUT_SW128);
+  const uint64_t d_w2_mn = desc(w2_s, W2_SLAB, 1024, LAYOUT_SW128);
+  const uint64_t d_w2_k = desc(w2_s, 16, 1024, LAYOUT_SW128);
+  // the column sums of the warpgroup's (d, e) blocks 2 wgi + d, in
+  // group_sum8's layout (lane -> column group_col)
+  float a_db2[8], a_db1[4], a_dg[4], a_dbt[4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) a_db2[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) a_db1[i] = a_dg[i] = a_dbt[i] = 0.f;
+  mbar_wait(wbar, 0);
+
+  int k = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x, ++k) {
+    const int pair = u / tpp, r0 = (u - pair * tpp) * RR;
+    const bool ok0 = r0 + R0 < m, ok1 = r0 + R0 + 8 < m;
+    const size_t row0 = (size_t)pair * m + r0 + R0, row1 = row0 + 8;
+    // the pair's hyper into this unit's buffer (zero past n_out), read
+    // after the barrier below
+    uint32_t* hyb = hy_s + (k & 1) * (MAXT * C2 / 2);
+    if (threadIdx.x < MAXT * C2 / 2) {
+      const int tt = threadIdx.x / (C2 / 2);
+      hyb[threadIdx.x] = tt < n_out
+                             ? __ldg(reinterpret_cast<const unsigned int*>(
+                                         hyper + (size_t)pair * n_out * C2) +
+                                     threadIdx.x)
+                             : 0u;
+    }
+    if (tid == 0) bulk_wait_read();
+    named_sync(1, NTH);  // the last unit's slot and sums are read
+    mbar_wait(up_full, k & 1);
 
 #pragma unroll 1
-    for (int de = 2 * sub; de < 2 * sub + 2; ++de) {
-      // first product, the 64 lanes (de, c1), its LayerNorm (y in a1) and
-      // u1g as the second product's A fragments; u1g to the scratch rows
-      float a1[8][4], rs[2];
-      uint32_t ua[4][4];
-      first_block(a1, rs, ua, u_s, w1_s, b1, g, bt, de, eps, lane);
-      const float rs0 = rs[0], rs1 = rs[1];
+    for (int d = 0; d < 2; ++d) {
+      const int de = 2 * wgi + d;
+      // the block's dm (lanes (t, de, fg)): a float4 of the four (f, g) a
+      // row and token, loaded while the first product runs
+      float4 dmq[2][MAXT];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = 8 * j + 2 * tq;
-        if (ok0) *reinterpret_cast<uint32_t*>(u1g_rows + r0 * L1 + C1 * de + c) = ua[j / 2][(j & 1) * 2];
-        if (ok1) *reinterpret_cast<uint32_t*>(u1g_rows + r1 * L1 + C1 * de + c) = ua[j / 2][(j & 1) * 2 + 1];
+      for (int tt = 0; tt < MAXT; ++tt) {
+        const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+        const int l = tt * 16 + de * 4;
+        dmq[0][tt] = (tt < n_out && ok0) ? __ldg(reinterpret_cast<const float4*>(
+                                               dm + row0 * lanes + l))
+                                         : z;
+        dmq[1][tt] = (tt < n_out && ok1) ? __ldg(reinterpret_cast<const float4*>(
+                                               dm + row1 * lanes + l))
+                                         : z;
       }
-      // the second product by halves of 64 lanes (f, g, c2); per half: its
-      // GELU, the hypernetwork terms, d_u2pre, and d_u1g += rnd(d_u2pre) .
-      // W2^T over those lanes
-      float a3[8][4];
+      // u1pre = up . W1[:, de] + b1, its LayerNorm (f32: the mean, then the
+      // centred variance), y in a1
+      float a1[32];
+      wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < 8; ++j) a3[j][0] = a3[j][1] = a3[j][2] = a3[j][3] = 0.f;
+      for (int kk = 0; kk < C / 16; ++kk)
+        mma_bf16_ss_bmn<64>(a1, d_ups + 512 * (kk >> 2) + 2 * (kk & 3),
+                            d_w1_mn + 2048 * de + 128 * kk, kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(a1);
+      float rs[2];
+      {
+        float su[2] = {0.f, 0.f}, v[2] = {0.f, 0.f};
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        float a2[8][4];
-        second_half(a2, ua, w2_s, half, lane);
-        uint32_t da[4][4];  // rnd(d_u2pre): A fragments, k16 steps of q
+        for (int j = 0; j < 8; ++j) {
+          const float2 b = __ldg(reinterpret_cast<const float2*>(b1 + 8 * j +
+                                                                 2 * t));
+          a1[4 * j] += b.x, a1[4 * j + 1] += b.y;
+          a1[4 * j + 2] += b.x, a1[4 * j + 3] += b.y;
+          su[0] += a1[4 * j] + a1[4 * j + 1];
+          su[1] += a1[4 * j + 2] + a1[4 * j + 3];
+        }
+        const float mu0 = quad_sum(su[0]) * (1.f / C1);
+        const float mu1 = quad_sum(su[1]) * (1.f / C1);
 #pragma unroll
-        for (int hg = 0; hg < 2; ++hg) {  // a group of 4 n-tiles is one (f, g)
-          const int fg = 2 * half + hg;
-          float dmv[2][MAXT];
-#pragma unroll
-          for (int t = 0; t < MAXT; ++t) {
-            const int l = t * 16 + de * 4 + fg;
-            dmv[0][t] = (t < n_out && ok0) ? dm0[l] : 0.f;
-            dmv[1][t] = (t < n_out && ok1) ? dm1[l] : 0.f;
-          }
-          float ug[4][4], vb2[8];
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {
-            const int j = 4 * hg + jj, c2 = 8 * jj + 2 * tq;
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {  // rows g (e < 2), g + 8; column e & 1
-              const float u2r = round_bf16(a2[j][e] + b2[c2 + (e & 1)]);
-              float grad;
-              ug[jj][e] = round_bf16(gelu_and_grad(u2r, &grad));
-              float du = 0.f;
-#pragma unroll
-              for (int t = 0; t < MAXT; ++t)
-                if (t < n_out)
-                  du = fmaf(dmv[e >> 1][t],
-                            __bfloat162float(hy[t * C2 + c2 + (e & 1)]), du);
-              a2[j][e] = du * grad;  // d_u2pre, f32
-            }
-            vb2[2 * jj] = a2[j][0] + a2[j][2];
-            vb2[2 * jj + 1] = a2[j][1] + a2[j][3];
-            da[j / 2][(j & 1) * 2] = pack_bf16(a2[j][0], a2[j][1]);
-            da[j / 2][(j & 1) * 2 + 1] = pack_bf16(a2[j][2], a2[j][3]);
-            const int q = LQ * de + 64 * half + 8 * j + 2 * tq;
-            if (ok0) *reinterpret_cast<uint32_t*>(d2_rows + r0 * 4 * LQ + q) = da[j / 2][(j & 1) * 2];
-            if (ok1) *reinterpret_cast<uint32_t*>(d2_rows + r1 * 4 * LQ + q) = da[j / 2][(j & 1) * 2 + 1];
-          }
-          cs[LQ * de + 32 * fg + group_col(0, lane)] += group_sum8(vb2, lane);
-          // d_hyper of this tile: sum over its rows of dm * u2g
-          float* ht = dht_t + (size_t)tile * n_out * 4 * LQ + LQ * de +
-                      32 * fg + group_col(0, lane);
-#pragma unroll
-          for (int t = 0; t < MAXT; ++t)
-            if (t < n_out) {
-              float vh[8];
-#pragma unroll
-              for (int jj = 0; jj < 4; ++jj) {
-                vh[2 * jj] = dmv[0][t] * ug[jj][0] + dmv[1][t] * ug[jj][2];
-                vh[2 * jj + 1] = dmv[0][t] * ug[jj][1] + dmv[1][t] * ug[jj][3];
-              }
-              ht[(size_t)t * 4 * LQ] = group_sum8(vh, lane);
-            }
+        for (int j = 0; j < 8; ++j) {
+          a1[4 * j] -= mu0, a1[4 * j + 1] -= mu0;
+          a1[4 * j + 2] -= mu1, a1[4 * j + 3] -= mu1;
+          v[0] = fmaf(a1[4 * j], a1[4 * j], fmaf(a1[4 * j + 1], a1[4 * j + 1], v[0]));
+          v[1] = fmaf(a1[4 * j + 2], a1[4 * j + 2], fmaf(a1[4 * j + 3], a1[4 * j + 3], v[1]));
         }
 #pragma unroll
-        for (int kq = 0; kq < 4; ++kq)
+        for (int r = 0; r < 2; ++r)
+          rs[r] = rsqrtf(quad_sum(v[r]) * (1.f / C1) + eps);
 #pragma unroll
-          for (int np = 0; np < C1 / 16; ++np) {
-            uint32_t b[4];
-            load_b_nk<LD2>(b, w2_s, 16 * np, 64 * half + 16 * kq, lane);
-            mma16816(a3[2 * np], da[kq], b[0], b[1]);
-            mma16816(a3[2 * np + 1], da[kq], b[2], b[3]);
+        for (int e = 0; e < 32; ++e) a1[e] *= rs[(e >> 1) & 1];
+      }
+      // u1g = rnd(gelu(rnd(y g + bt))): the next product's A fragments
+      // (one k16 step per two n-tiles) and the scratch rows (staged in the
+      // block's box of the slot, stored from there by TMA while the next
+      // product runs)
+      uint32_t ua[4][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * t;
+        const float2 gg = __ldg(reinterpret_cast<const float2*>(g + c));
+        const float2 tb = __ldg(reinterpret_cast<const float2*>(bt + c));
+        ua[j / 2][(j & 1) * 2] =
+            pack_bf16(gelu_fast(round_bf16(a1[4 * j] * gg.x + tb.x)),
+                      gelu_fast(round_bf16(a1[4 * j + 1] * gg.y + tb.y)));
+        ua[j / 2][(j & 1) * 2 + 1] =
+            pack_bf16(gelu_fast(round_bf16(a1[4 * j + 2] * gg.x + tb.x)),
+                      gelu_fast(round_bf16(a1[4 * j + 3] * gg.y + tb.y)));
+      }
+
+      // u2pre = u1g . W2 over the 128 lanes (f, g, c2)
+      float a2[64];
+      fence_operands(ua);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < C1 / 16; ++kk)
+        mma_bf16_rs_mn<128>(a2, ua[kk], d_w2_mn + 128 * kk, kk > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = C1 * de + 8 * j + 2 * t;
+        *reinterpret_cast<uint32_t*>(du_s + sw128_off<RR>(R0, c)) =
+            ua[j / 2][(j & 1) * 2];
+        *reinterpret_cast<uint32_t*>(du_s + sw128_off<RR>(R0 + 8, c)) =
+            ua[j / 2][(j & 1) * 2 + 1];
+      }
+      fence_proxy_async();
+      named_sync(2 + wgi, 128);  // the box holds u1g of the unit's rows
+      if (tid == 0) {
+        tma_store_3d(&tm_u1g, du_s + de * BOX, C1 * de, r0, pair);
+        bulk_commit();
+      }
+      wgmma_wait<0>();
+      fence_operands(a2);
+      if (d == 1) named_sync(2 + wgi, 128);  // d = 0's d_hyper sums are read
+      // per (f, g) group of four n-tiles (32 lanes c2): u2g = rnd(gelu(
+      // rnd(u2pre + b2))), d_u2pre = (sum_t dm hyper) gelu'(..) in f32 over
+      // u2pre in a2; db2's and d_hyper's column sums
+#pragma unroll
+      for (int fg = 0; fg < 4; ++fg) {
+        float dmv[2][MAXT];
+#pragma unroll
+        for (int tt = 0; tt < MAXT; ++tt)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            dmv[r][tt] = fg == 0   ? dmq[r][tt].x
+                         : fg == 1 ? dmq[r][tt].y
+                         : fg == 2 ? dmq[r][tt].z
+                                   : dmq[r][tt].w;
+        float ug[4][4], vb2[8];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int j = 4 * fg + jj, c2 = 8 * jj + 2 * t;
+          const float2 bb = __ldg(reinterpret_cast<const float2*>(b2 + c2));
+          float2 hy[MAXT];
+#pragma unroll
+          for (int tt = 0; tt < MAXT; ++tt)
+            hy[tt] = up2(hyb[tt * (C2 / 2) + 4 * jj + t]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {  // rows R0 (e < 2), R0 + 8; column e & 1
+            const float u2r = round_bf16(a2[4 * j + e] + ((e & 1) ? bb.y : bb.x));
+            float grad;
+            ug[jj][e] = round_bf16(gelu_and_grad_fast(u2r, &grad));
+            float du = 0.f;
+#pragma unroll
+            for (int tt = 0; tt < MAXT; ++tt)
+              if (tt < n_out)
+                du = fmaf(dmv[e >> 1][tt], (e & 1) ? hy[tt].y : hy[tt].x, du);
+            a2[4 * j + e] = du * grad;  // d_u2pre, f32
+          }
+          vb2[2 * jj] = a2[4 * j] + a2[4 * j + 2];
+          vb2[2 * jj + 1] = a2[4 * j + 1] + a2[4 * j + 3];
+        }
+        add_at<4>(a_db2, d, fg, group_sum8(vb2, lane));
+        // d_hyper: the warp's sums over its rows of dm * u2g
+#pragma unroll
+        for (int tt = 0; tt < MAXT; ++tt)
+          if (tt < n_out) {
+            float vh[8];
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) {
+              vh[2 * jj] = dmv[0][tt] * ug[jj][0] + dmv[1][tt] * ug[jj][2];
+              vh[2 * jj + 1] = dmv[0][tt] * ug[jj][1] + dmv[1][tt] * ug[jj][3];
+            }
+            dhw[tt * LQ + 32 * fg + group_col(0, lane)] = group_sum8(vh, lane);
           }
       }
-      // GELU and LayerNorm-affine backward: d_out1 in place
-      float sa0 = 0.f, sb0 = 0.f, sa1 = 0.f, sb1 = 0.f;
+      named_sync(2 + wgi, 128);  // the warpgroup's d_hyper sums are in
+      // d_hyper of the unit, this (d, e) block: the four warps' sums added
+      // in warp order, a lane a column
+      for (int tt = 0; tt < n_out; ++tt)
+        dht_u[((size_t)u * n_out + tt) * 4 * LQ + LQ * de + tid] =
+            dhg[tt * LQ + tid] + dhg[(MAXT + tt) * LQ + tid] +
+            dhg[(2 * MAXT + tt) * LQ + tid] + dhg[(3 * MAXT + tt) * LQ + tid];
+
+      // rnd(d_u2pre): the next product's A fragments and the scratch rows
+      uint32_t da[8][4];
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          da[kk][i] = pack_bf16(a2[8 * kk + 2 * i], a2[8 * kk + 2 * i + 1]);
+      if (d == 0) {  // the up rows are still read: from registers
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          uint32_t w0[4], w1[4];
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const int j = 4 * a + jj;
+            w0[jj] = da[j / 2][(j & 1) * 2];
+            w1[jj] = da[j / 2][(j & 1) * 2 + 1];
+          }
+          store_quad(d2_rows + row0 * 4 * LQ + LQ * de + 32 * a, ok0, w0, t);
+          store_quad(d2_rows + row1 * 4 * LQ + LQ * de + 32 * a, ok1, w1, t);
+        }
+      } else {  // staged over the warpgroup's half of the up slot, by TMA
+        named_sync(1, NTH);  // both warpgroups' products have read up
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int c = 128 * wgi + 8 * j + 2 * t;
+          *reinterpret_cast<uint32_t*>(up_s + sw128_off<RR>(R0, c)) =
+              da[j / 2][(j & 1) * 2];
+          *reinterpret_cast<uint32_t*>(up_s + sw128_off<RR>(R0 + 8, c)) =
+              da[j / 2][(j & 1) * 2 + 1];
+        }
+        fence_proxy_async();
+        named_sync(2 + wgi, 128);  // the boxes hold the block's d_u2pre
+        if (tid == 0) {
+#pragma unroll
+          for (int b = 0; b < 2; ++b)
+            tma_store_3d(&tm_d2, up_s + (2 * wgi + b) * BOX,
+                         LQ * de + 64 * b, r0, pair);
+          bulk_commit();
+        }
+      }
+
+      // d_u1g = rnd(d_u2pre) . W2^T over the block's 64 lanes
+      float a3[32];
+      fence_operands(da);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < LQ / 16; ++kk)
+        mma_bf16_rs<64>(a3, da[kk], d_w2_k + 512 * (kk >> 2) + 2 * (kk & 3),
+                        kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(a3);
+      // the GELU and LayerNorm-affine backward (d_out1 in a3), dg, dbt
+      float sa[2] = {0.f, 0.f}, sb[2] = {0.f, 0.f};
 #pragma unroll
       for (int grp = 0; grp < 2; ++grp) {
         float vg[8], vt[8];
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) {
-          const int j = 4 * grp + jj, c = 8 * j + 2 * tq;
+          const int j = 4 * grp + jj, c = 8 * j + 2 * t;
+          const float2 gg = __ldg(reinterpret_cast<const float2*>(g + c));
+          const float2 tb = __ldg(reinterpret_cast<const float2*>(bt + c));
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const float gc = g[c + (e & 1)];
-            const float y = a1[j][e];
-            const float d1 = a3[j][e] * gelu_grad<bf16>(round_bf16(y * gc + bt[c + (e & 1)]));
-            a3[j][e] = d1;
+            const float gc = (e & 1) ? gg.y : gg.x;
+            const float y = a1[4 * j + e];
+            const float d1 =
+                a3[4 * j + e] *
+                gelu_grad_fast(round_bf16(y * gc + ((e & 1) ? tb.y : tb.x)));
+            a3[4 * j + e] = d1;
             const float dyv = d1 * gc;
-            if (e < 2) {
-              sa0 += dyv;
-              sb0 = fmaf(dyv, y, sb0);
-            } else {
-              sa1 += dyv;
-              sb1 = fmaf(dyv, y, sb1);
-            }
+            sa[e >> 1] += dyv;
+            sb[e >> 1] = fmaf(dyv, y, sb[e >> 1]);
           }
-          vg[2 * jj] = a3[j][0] * a1[j][0] + a3[j][2] * a1[j][2];
-          vg[2 * jj + 1] = a3[j][1] * a1[j][1] + a3[j][3] * a1[j][3];
-          vt[2 * jj] = a3[j][0] + a3[j][2];
-          vt[2 * jj + 1] = a3[j][1] + a3[j][3];
+          vg[2 * jj] = a3[4 * j] * a1[4 * j] + a3[4 * j + 2] * a1[4 * j + 2];
+          vg[2 * jj + 1] =
+              a3[4 * j + 1] * a1[4 * j + 1] + a3[4 * j + 3] * a1[4 * j + 3];
+          vt[2 * jj] = a3[4 * j] + a3[4 * j + 2];
+          vt[2 * jj + 1] = a3[4 * j + 1] + a3[4 * j + 3];
         }
-        add_at<2>(a_dg, de, grp, group_sum8(vg, lane));
-        add_at<2>(a_dbt, de, grp, group_sum8(vt, lane));
+        add_at<2>(a_dg, d, grp, group_sum8(vg, lane));
+        add_at<2>(a_dbt, d, grp, group_sum8(vt, lane));
       }
-      const float m10 = quad_sum(sa0) * (1.f / C1), m20 = quad_sum(sb0) * (1.f / C1);
-      const float m11 = quad_sum(sa1) * (1.f / C1), m21 = quad_sum(sb1) * (1.f / C1);
-      // d_u1pre = rstd (d_y - mean d_y - y mean(d_y y)) -> rnd: d_s and the
-      // scratch rows
+      float m1[2], m2[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        m1[r] = quad_sum(sa[r]) * (1.f / C1);
+        m2[r] = quad_sum(sb[r]) * (1.f / C1);
+      }
+      // d_u1pre = rstd (d_y - mean d_y - y mean(d_y y)), db1 (f32); rnd
+      // into the slot, over u1g once its store has read it
+      if (tid == 0) bulk_wait_read();
+      named_sync(2 + wgi, 128);
 #pragma unroll
       for (int grp = 0; grp < 2; ++grp) {
         float vd[8];
+        uint32_t w0[4], w1[4];
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) {
-          const int j = 4 * grp + jj, c = 8 * j + 2 * tq;
-          const float g0 = g[c], g1 = g[c + 1];
-          const float e0 = rs0 * (a3[j][0] * g0 - m10 - a1[j][0] * m20);
-          const float e1 = rs0 * (a3[j][1] * g1 - m10 - a1[j][1] * m20);
-          const float e2 = rs1 * (a3[j][2] * g0 - m11 - a1[j][2] * m21);
-          const float e3 = rs1 * (a3[j][3] * g1 - m11 - a1[j][3] * m21);
+          const int j = 4 * grp + jj, c = 8 * j + 2 * t;
+          const float2 gg = __ldg(reinterpret_cast<const float2*>(g + c));
+          const float e0 = rs[0] * (a3[4 * j] * gg.x - m1[0] - a1[4 * j] * m2[0]);
+          const float e1 = rs[0] * (a3[4 * j + 1] * gg.y - m1[0] - a1[4 * j + 1] * m2[0]);
+          const float e2 = rs[1] * (a3[4 * j + 2] * gg.x - m1[1] - a1[4 * j + 2] * m2[1]);
+          const float e3 = rs[1] * (a3[4 * j + 3] * gg.y - m1[1] - a1[4 * j + 3] * m2[1]);
           vd[2 * jj] = e0 + e2;
           vd[2 * jj + 1] = e1 + e3;
-          st_bf2(d_s + gq * LD1 + C1 * de + c, e0, e1);
-          st_bf2(d_s + (gq + 8) * LD1 + C1 * de + c, e2, e3);
-          if (ok0) st_bf2(du1_rows + r0 * L1 + C1 * de + c, e0, e1);
-          if (ok1) st_bf2(du1_rows + r1 * L1 + C1 * de + c, e2, e3);
+          w0[jj] = pack_bf16(e0, e1);
+          w1[jj] = pack_bf16(e2, e3);
+          *reinterpret_cast<uint32_t*>(du_s + sw128_off<RR>(R0, C1 * de + c)) = w0[jj];
+          *reinterpret_cast<uint32_t*>(du_s + sw128_off<RR>(R0 + 8, C1 * de + c)) = w1[jj];
         }
-        cs[4 * LQ + C1 * de + 32 * grp + group_col(0, lane)] += group_sum8(vd, lane);
+        add_at<2>(a_db1, d, grp, group_sum8(vd, lane));
       }
     }
-    pair_sync();  // d_s holds all four (d, e) blocks
 
-    // d_up = rnd(d_u1pre) . W1^T, this warp's 128 channels
+    // d_up = rnd(d_u1pre) . W1^T, the warpgroup's 128 channels
+    fence_proxy_async();       // the slot's writes -> TMA's and wgmma's
+    if (tid == 0) bulk_wait_read();  // (the up slot's stores too)
+    named_sync(1, NTH);  // the slot holds all four (d, e) blocks
+    if (threadIdx.x == 0) {    // rnd(d_u1pre) to its rows (not past M)
+#pragma unroll
+      for (int b = 0; b < C / 64; ++b)
+        tma_store_3d(&tm_du1, du_s + b * BOX, 64 * b, r0, pair);
+      bulk_commit();
+      if (u + (int)gridDim.x < units) load_up(u + gridDim.x);  // up is read
+    }
     {
-      const int half = sub;
-      float a4[16][4];
+      float a4[64];
+      wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < 16; ++j) a4[j][0] = a4[j][1] = a4[j][2] = a4[j][3] = 0.f;
-#pragma unroll 2
-      for (int kk = 0; kk < L1 / 16; ++kk) {
-        uint32_t a[4];
-        load_a<LD1>(a, d_s, 0, 16 * kk, lane);
-#pragma unroll
-        for (int np = 0; np < 8; ++np) {
-          uint32_t b[4];
-          load_b_nk<LD1>(b, w1_s, 128 * half + 16 * np, 16 * kk, lane);
-          mma16816(a4[2 * np], a, b[0], b[1]);
-          mma16816(a4[2 * np + 1], a, b[2], b[3]);
-        }
-      }
+      for (int kk = 0; kk < L1 / 16; ++kk)
+        mma_bf16_ss<128>(a4, d_dus + 512 * (kk >> 2) + 2 * (kk & 3),
+                         d_w1_k + 1024 * wgi + 2048 * (kk >> 2) + 2 * (kk & 3),
+                         kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(a4);
+      // d_up staged over the slot once both products and the store of
+      // rnd(d_u1pre) have read it, stored from there by TMA
+      if (threadIdx.x == 0) bulk_wait_read();
+      named_sync(1, NTH);
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
-        const int c = 128 * half + 8 * j + 2 * tq;
-        if (ok0) st_bf2(d_up + r0 * C + c, a4[j][0], a4[j][1]);
-        if (ok1) st_bf2(d_up + r1 * C + c, a4[j][2], a4[j][3]);
+        const int c = 128 * wgi + 8 * j + 2 * t;
+        *reinterpret_cast<uint32_t*>(du_s + sw128_off<RR>(R0, c)) =
+            pack_bf16(a4[4 * j], a4[4 * j + 1]);
+        *reinterpret_cast<uint32_t*>(du_s + sw128_off<RR>(R0 + 8, c)) =
+            pack_bf16(a4[4 * j + 2], a4[4 * j + 3]);
+      }
+      fence_proxy_async();
+      named_sync(2 + wgi, 128);  // the boxes hold the warpgroup's d_up
+      if (tid == 0) {
+#pragma unroll
+        for (int b = 0; b < 2; ++b)
+          tma_store_3d(&tm_dup, du_s + (2 * wgi + b) * BOX,
+                       128 * wgi + 64 * b, r0, pair);
+        bulk_commit();
       }
     }
-    pair_sync();  // u_s and d_s are refilled by the next tile
   }
 
-  pair_sync();
-  const size_t wg = (size_t)blockIdx.x * SLOTS + slot;
+  if (tid == 0) bulk_wait();  // the last TMA stores are done
+  // the column sums: one partial a block and warp index, the warpgroup's
+  // (d, e) blocks
+  const size_t pw = (size_t)blockIdx.x * 4 + wq;
 #pragma unroll
-  for (int de = 0; de < 4; ++de)
-    if (de >> 1 == sub)
+  for (int d = 0; d < 2; ++d) {
+    const int de = 2 * wgi + d;
 #pragma unroll
-      for (int grp = 0; grp < 2; ++grp) {
-        const int col = C1 * de + group_col(grp, lane);
-        dg_p[wg * L1 + col] = a_dg[de * 2 + grp];
-        dbt_p[wg * L1 + col] = a_dbt[de * 2 + grp];
-      }
-  for (int i = pl; i < 4 * LQ; i += 64) db2_p[wg * 4 * LQ + i] = cs[i];
-  for (int i = pl; i < L1; i += 64) db1_p[wg * L1 + i] = cs[4 * LQ + i];
+    for (int grp = 0; grp < 2; ++grp) {
+      const int col = C1 * de + group_col(grp, lane);
+      db1_p[pw * L1 + col] = a_db1[2 * d + grp];
+      dg_p[pw * L1 + col] = a_dg[2 * d + grp];
+      dbt_p[pw * L1 + col] = a_dbt[2 * d + grp];
+    }
+#pragma unroll
+    for (int fg = 0; fg < 4; ++fg)
+      db2_p[pw * 4 * LQ + LQ * de + group_col(fg, lane)] = a_db2[4 * d + fg];
+  }
 }
 
 // The weight pass: block (chunk, kind) sums over the chunk's rows
@@ -670,16 +953,48 @@ int launch_bwd_rows(void* const* a, int bp, int m, int n_out, int blocks,
                     float eps, cudaStream_t stream) {
   if (n_out < 1 || n_out > MAXT || blocks < 1 || m < 1)
     return (int)cudaErrorInvalidValue;
+  // up, d_up, u1g and rnd(d_u1pre) (C, m, bp) and rnd(d_u2pre) (4 LQ, m,
+  // bp) in boxes of 64 columns x rwu::RR rows; W1 [C][L1] and W2 [C1][LQ]
+  // in slabs of 64 lanes x all rows; all in the 128-byte swizzle
+  CUtensorMap maps[7];
+  const cuuint64_t up_dims[3] = {(cuuint64_t)C, (cuuint64_t)m,
+                                 (cuuint64_t)bp};
+  const cuuint64_t up_strides[2] = {2ull * C, 2ull * C * m};
+  const cuuint32_t up_box[3] = {64, (cuuint32_t)rwu::RR, 1};
+  const cuuint64_t d2_dims[3] = {(cuuint64_t)(4 * LQ), (cuuint64_t)m,
+                                 (cuuint64_t)bp};
+  const cuuint64_t d2_strides[2] = {8ull * LQ, 8ull * LQ * m};
+  const cuuint64_t w1_dims[2] = {(cuuint64_t)L1, (cuuint64_t)C};
+  const cuuint64_t w1_strides[1] = {2ull * L1};
+  const cuuint32_t w1_box[2] = {64, (cuuint32_t)C};
+  const cuuint64_t w2_dims[2] = {(cuuint64_t)LQ, (cuuint64_t)C1};
+  const cuuint64_t w2_strides[1] = {2ull * LQ};
+  const cuuint32_t w2_box[2] = {64, (cuuint32_t)C1};
+  const auto bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  if (!hop::tensor_map(maps, bf, 3, a[0], up_dims, up_strides, up_box, sw) ||
+      !hop::tensor_map(maps + 1, bf, 2, a[2], w1_dims, w1_strides, w1_box,
+                       sw) ||
+      !hop::tensor_map(maps + 2, bf, 2, a[6], w2_dims, w2_strides, w2_box,
+                       sw) ||
+      !hop::tensor_map(maps + 3, bf, 3, a[9], up_dims, up_strides, up_box,
+                       sw) ||
+      !hop::tensor_map(maps + 4, bf, 3, a[10], up_dims, up_strides, up_box,
+                       sw) ||
+      !hop::tensor_map(maps + 5, bf, 3, a[12], up_dims, up_strides, up_box,
+                       sw) ||
+      !hop::tensor_map(maps + 6, bf, 3, a[11], d2_dims, d2_strides, up_box,
+                       sw))
+    return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      upscale_bwd_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)ROWS_SMEM);
+      upscale_bwd_rows_wgmma_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rwu::SMEM);
   if (e != cudaSuccess) return (int)e;
-  auto in = [&](int i) { return static_cast<const bf16*>(a[i]); };
-  auto out = [&](int i) { return static_cast<bf16*>(a[i]); };
   auto f = [&](int i) { return static_cast<float*>(a[i]); };
-  upscale_bwd_rows_kernel<<<blocks, RT, ROWS_SMEM, stream>>>(
-      in(0), f(1), in(2), f(3), f(4), f(5), in(6), f(7), in(8), out(9),
-      out(10), out(11), out(12), f(13), f(14), f(15), f(16), f(17), bp, m,
+  upscale_bwd_rows_wgmma_kernel<<<blocks, rwu::NTH, rwu::SMEM, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], maps[6], f(1),
+      f(3), f(4), f(5), f(7), static_cast<const bf16*>(a[8]),
+      static_cast<bf16*>(a[11]), f(13), f(14), f(15), f(16), f(17), bp, m,
       n_out, eps);
   return (int)cudaGetLastError();
 }
@@ -1508,11 +1823,13 @@ int dhoct_upscale_fwd(const void* up, const void* w1, const void* b1,
                                       bp, m, n_out, blocks, eps, s);
 }
 
-// The row pass on `blocks` persistent blocks (bf16 upscale_bwd_rows_kernel,
-// f32 upscale_bwd_rows_tf32_kernel). a: up, dm, w1, b1, g, bt, w2, b2,
-// hyper; outputs d_up, the u1g, rnd(d_u2pre) and rnd(d_u1pre) scratch rows,
-// per-slot partials of db1, dg, dbt, db2, and per-16-row-tile partials of
-// d_hyper; f32 also takes W1^T [L1][C] (a[18]).
+// The row pass on `blocks` persistent blocks (bf16
+// upscale_bwd_rows_wgmma_kernel, the plan of ops/upscaler.py::
+// rows_plan_bf16; f32 upscale_bwd_rows_tf32_kernel). a: up, dm, w1, b1, g,
+// bt, w2, b2, hyper; outputs d_up, the u1g, rnd(d_u2pre) and rnd(d_u1pre)
+// scratch rows, partials of db1, dg, dbt, db2 (bf16: per block and warp
+// index; f32: per slot) and of d_hyper (bf16: per 64-row unit; f32: per
+// 16-row tile); f32 also takes W1^T [L1][C] (a[18]).
 int dhoct_upscale_bwd_rows(void* const* a, int bp, int m, int n_out,
                            int blocks, int dtype, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);

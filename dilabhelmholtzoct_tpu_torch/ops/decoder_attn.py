@@ -12,9 +12,9 @@ kernels of ``csrc/decoder_attn.cu``:
 
   * ``i2t_fwd`` replacing the TPU ``_fused_fwd`` (``_fwd_kernel``), one
     persistent block per SM, the pb pairs of an image sharing one q
-    projection: in bf16 ``i2t_fwd_mma_kernel``, in f32
-    ``i2t_fwd_tf32_kernel`` (split TF32: hi.hi + hi.lo + lo.hi on the TF32
-    tensor cores, f32 accuracy);
+    projection: in bf16 ``i2t_fwd_wgmma_kernel`` on wgmma with TMA loads
+    (``fwd_plan_bf16``), in f32 ``i2t_fwd_tf32_kernel`` (split TF32: hi.hi
+    + hi.lo + lo.hi on the TF32 tensor cores, f32 accuracy);
   * the backward replacing the TPU ``_fused_bwd`` (``_bwd_kernel``): it
     recomputes the chain per row, returns d_keys per row, the q/out
     projection and LayerNorm gradients summed over all rows, and the per-row
@@ -64,7 +64,7 @@ T_PAD = 8          # token capacity per head (the training paths use 7)
 CHANNELS = 256     # the widths the CUDA kernels take (every SAM decoder)
 INTERNAL = 128
 HEADS = 8
-ROW_SLOTS = 4      # 16-row tiles in flight per block, a warp pair each
+ROW_SLOTS = 4      # the f32 row pass's slots a block, a warp pair each
 F32_ROWS = 64      # rows of an f32 super-tile (dec32::ROWS)
 DW_ROWS = 32       # rows per stage of the bf16 weight pass (dwb::SR), a
                    # pair's rows cut into stages from its first row
@@ -83,6 +83,12 @@ ROWS_WARPS = 8
 ROWS_SMEM = 1024 + ROWS_RING * (ROWS_RR * 2 * CHANNELS) + 2 * 2 * (
     CHANNELS * INTERNAL) + 128
 ROWS_SCRATCH = 3 * HEADS * 128 * 4 + ROWS_RR * 4
+# the bf16 forward (fwb:: in csrc/decoder_attn.cu): units of 64 image rows,
+# a slot of a unit's keys (32 KB) and a stage of its y by halves (16 KB)
+# for each of the block's two warpgroups, beside Wq and Wo
+FWD_SLOTS = 2
+FWD_SMEM = 1024 + FWD_SLOTS * (ROWS_RR * 2 * CHANNELS) + FWD_SLOTS * (
+    ROWS_RR * CHANNELS) + 2 * 2 * (CHANNELS * INTERNAL) + 128
 
 _BOUND = False
 
@@ -214,6 +220,19 @@ def rows_plan_bf16(bp: int, m: int, sm_count: int) -> RowsPlan:
     return RowsPlan(ROWS_RR, ROWS_RING, units, blocks, ROWS_SMEM)
 
 
+@functools.lru_cache(maxsize=None)
+def fwd_plan_bf16(bimg: int, m: int, sm_count: int) -> RowsPlan:
+    """The bf16 forward's plan over ``bimg`` images of ``m`` rows
+    (``RowsPlan``): units of 64 image rows, each with all of its image's pb
+    pairs (unit u: image u // tpp, rows 64 (u % tpp).., tpp = ceil(m /
+    64)), a keys slot for each of a block's two warpgroups (``stages``),
+    one block an SM at most and no more than half the units (the
+    warpgroups take the block's units in turns)."""
+    units = bimg * -(-m // ROWS_RR)
+    blocks = max(1, min(sm_count, -(-units // 2)))
+    return RowsPlan(ROWS_RR, FWD_SLOTS, units, blocks, FWD_SMEM)
+
+
 def dw_stage_chunks(bp: int, m: int, parts: int):
     """The bf16 weight pass's chunks over ``bp`` pairs of ``m`` rows: the
     rows of each pair cut into stages of ``DW_ROWS`` from its first row
@@ -343,21 +362,18 @@ def _kernel_widths(c, internal, nh):
             f"got C={c}, I={internal}, {nh} heads")
 
 
-def _blocks(dev, dt, pairs, m):
-    """Persistent blocks of the K4 forward and the f32 row pass: one per
-    SM, at most one per ROW_SLOTS 16-row tiles (bf16) or per 64-row
-    super-tile (f32) of ``pairs`` pairs (or images)."""
-    if dt == torch.bfloat16:
-        work = -(-pairs * -(-m // 16) // ROW_SLOTS)
-    else:
-        work = pairs * -(-m // F32_ROWS)
-    return min(kernels.sm_count(dev), work)
+def _blocks(dev, pairs, m):
+    """Persistent blocks of the f32 K4 forward and row pass: one per SM, at
+    most one per 64-row super-tile of ``pairs`` pairs (or images)."""
+    return min(kernels.sm_count(dev), pairs * -(-m // F32_ROWS))
 
 
 def i2t_fwd_cuda(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, *, nh: int,
                  pb: int, eps: float):
     """Launch ``i2t_fwd`` (csrc/decoder_attn.cu); same contract as
-    ``i2t_fwd_plain``, on one persistent block per SM (``_blocks``)."""
+    ``i2t_fwd_plain``: bf16 ``i2t_fwd_wgmma_kernel`` on the plan of
+    ``fwd_plan_bf16``, f32 ``i2t_fwd_tf32_kernel`` on one persistent block
+    per SM (``_blocks``)."""
     bimg, m, c, bp, n_tok, internal = _check_args(
         keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, nh, pb)
     _kernel_widths(c, internal, nh)
@@ -369,7 +385,8 @@ def i2t_fwd_cuda(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, *, nh: int,
     dev = keys.device
     out = torch.empty((bp, m, c), dtype=dt, device=dev)
     with torch.cuda.device(dev):
-        blocks = _blocks(dev, dt, bimg, m)
+        blocks = (fwd_plan_bf16(bimg, m, kernels.sm_count(dev)).blocks
+                  if dt == torch.bfloat16 else _blocks(dev, bimg, m))
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.dhoct_i2t_fwd(*(t.data_ptr() for t in args), out.data_ptr(),
                                 bp, m, pb, n_tok, blocks,
@@ -407,7 +424,7 @@ def i2t_bwd_rows_cuda(keys, pe, tok_k, tok_v, wq, bq, wo, bo, g, bt, dy, *,
             blocks = plan.blocks
             nw = (blocks * ROWS_WARPS,) + (blocks * 2,) * 3
         else:
-            blocks = _blocks(dev, dt, bp, m)
+            blocks = _blocks(dev, bp, m)
             nw = (blocks * ROW_SLOTS,) * 4
         rows = (bp, m)
         outs = tuple(torch.empty(rows + (w,), dtype=dt, device=dev)

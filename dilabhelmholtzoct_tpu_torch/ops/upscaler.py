@@ -19,7 +19,9 @@ hand-written kernels of ``csrc/upscaler.cu``:
     hypernetwork gradient. It is two launches on the tensor cores, in bf16
     and in f32 (split TF32): ``upscale_bwd_rows`` (the row pass; it also
     writes u1g, rnd(d_u2pre) and rnd(d_u1pre) per row as scratch in the
-    input dtype) and ``upscale_bwd_dw`` (the weight pass: dW1 and dW2 as
+    input dtype; in bf16 ``upscale_bwd_rows_wgmma_kernel`` on wgmma with
+    TMA loads, ``rows_plan_bf16``) and ``upscale_bwd_dw`` (the weight pass:
+    dW1 and dW2 as
     split-K products over row chunks; in f32 on TF32 wgmma and TMA,
     ``upscale_bwd_dw_tf32_kernel`` on the plan of ``upscale_dw_plan_f32``,
     whose four units of a chunk read 6 KB a row against the rows' 5 KB).
@@ -65,6 +67,18 @@ LAUNCHES = {"upscale_fwd": 0, "upscale_bwd": 0, "upscale_bwd_dw": 0}
 CHANNELS = 256     # the only decoder width the CUDA kernels take (every SAM)
 MAX_OUT = 4        # mask tokens per pair the kernels take
 ROW_SLOTS = 4      # 16-row tiles in flight per block, a warp pair each
+                   # (the bf16 forward and the f32 row pass)
+# the bf16 row pass (rwu:: in csrc/upscaler.cu): units of 64 rows of a
+# pair, both warpgroups on a unit, one slot of its up rows and one of its
+# rnd(d_u1pre) rows (32 KB each) beside W1 and W2 (144 KB), the
+# warpgroups' d_hyper sums (8 KB each) and the pair's hyper (two units'
+# 256 B); one partial of the column sums a
+# block and warp index (ROWS_PARTS a block), of d_hyper a unit
+ROWS_RR = 64
+ROWS_PARTS = 4
+ROWS_SMEM = 1024 + 2 * (ROWS_RR * 2 * CHANNELS) + 2 * (
+    CHANNELS * CHANNELS + (CHANNELS // 4) * (CHANNELS // 2)) + 2 * 4 * (
+    4 * MAX_OUT * 128) + 2 * 2 * MAX_OUT * (CHANNELS // 8) + 64
 F32_ROWS = 64      # rows of an f32 super-tile (dec32::ROWS)
 DW_ROWS = 32       # rows per stage of the bf16 weight pass (dec::DW_SR)
 DW32_ROWS = 16     # rows per stage of the f32 weight pass (dwu::KR)
@@ -171,6 +185,28 @@ def _bwd_rows(up, dm, w1, b1, g, bt, w2, b2, hyper, eps):
     rows = (d_up, u1g.reshape(bp, m, -1), d_u2pre_l.reshape(bp, m, -1),
             d_u1pre_l)
     return rows, (db1, dg, dbt, db2, d_ht)
+
+
+@dataclasses.dataclass(frozen=True)
+class RowsPlan:
+    """The launch plan of the bf16 row pass (``upscale_bwd_rows_wgmma_kernel``):
+    units of ``rows`` rows of one pair (unit u: pair u // tpp, rows
+    ``rows`` * (u % tpp).., tpp = ceil(m / rows)), the ``units``, the
+    persistent ``blocks`` (block b takes units b, b + blocks, ...) and the
+    block's shared memory in bytes."""
+    rows: int
+    units: int
+    blocks: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def rows_plan_bf16(bp: int, m: int, sm_count: int) -> RowsPlan:
+    """The bf16 row pass's plan over ``bp`` pairs of ``m`` rows: units of
+    64 rows, one block an SM at most (a block's two consumer warpgroups
+    share its unit)."""
+    units = bp * -(-m // ROWS_RR)
+    return RowsPlan(ROWS_RR, units, max(1, min(sm_count, units)), ROWS_SMEM)
 
 
 def upscale_bwd_rows_plain(up, dm, w1, b1, g, bt, w2, b2, hyper,
@@ -292,8 +328,9 @@ def _kernel_shapes(up, w1, w2, hyper):
 
 
 def _blocks(dev, dt, bp: int, m: int) -> int:
-    """Persistent blocks of a K3 row kernel: one per SM, at most one per
-    ROW_SLOTS 16-row tiles (bf16) or per 64-row super-tile (f32)."""
+    """Persistent blocks of the K3 forward and the f32 row pass: one per
+    SM, at most one per ROW_SLOTS 16-row tiles (bf16) or per 64-row
+    super-tile (f32)."""
     if dt == torch.bfloat16:
         work = -(-bp * -(-m // 16) // ROW_SLOTS)
     else:
@@ -325,12 +362,14 @@ def upscale_fwd_cuda(up, w1, b1, g, bt, w2, b2, hyper, eps: float = 1e-6):
 
 def upscale_bwd_rows_cuda(up, dm, w1, b1, g, bt, w2, b2, hyper,
                           eps: float = 1e-6):
-    """Launch the row pass ``upscale_bwd_rows`` (csrc/upscaler.cu) on one
-    persistent block per SM (``_blocks``); same contract as
-    ``upscale_bwd_rows_plain``. The kernel writes one partial of each
-    per-lane sum per slot (a warp pair) and of d_hyper per 16-row tile;
-    they are summed here in a fixed order. The f32 kernel also reads W1^T,
-    made here."""
+    """Launch the row pass ``upscale_bwd_rows`` (csrc/upscaler.cu): bf16
+    ``upscale_bwd_rows_wgmma_kernel`` on the plan of ``rows_plan_bf16``,
+    f32 ``upscale_bwd_rows_tf32_kernel`` on one persistent block per SM
+    (``_blocks``); same contract as ``upscale_bwd_rows_plain``. The kernel
+    writes partials of each per-lane sum (bf16: one a block and warp index,
+    ``ROWS_PARTS`` a block; f32: one a slot) and of d_hyper (bf16: one a
+    64-row unit; f32: one a 16-row tile); they are summed here in a fixed
+    order. The f32 kernel also reads W1^T, made here."""
     bp, m, c, n_out = _kernel_shapes(up, w1, w2, hyper)
     f32, dt = torch.float32, up.dtype
     args = (up, dm, w1, b1, g, bt, w2, b2, hyper)
@@ -342,14 +381,18 @@ def upscale_bwd_rows_cuda(up, dm, w1, b1, g, bt, w2, b2, hyper,
     lib = _bind()
     dev = up.device
     with torch.cuda.device(dev):
-        tpp = -(-m // 16)
-        blocks = _blocks(dev, dt, bp, m)
-        nw = blocks * ROW_SLOTS
+        if dt == torch.bfloat16:
+            plan = rows_plan_bf16(bp, m, kernels.sm_count(dev))
+            blocks, nw, tile = plan.blocks, plan.blocks * ROWS_PARTS, plan.rows
+        else:
+            blocks = _blocks(dev, dt, bp, m)
+            nw, tile = blocks * ROW_SLOTS, 16
         rows = tuple(torch.empty((bp, m, w), dtype=dt, device=dev)
                      for w in (c, c, 2 * c, c))  # d_up, u1g, d_u2pre, d_u1pre
         sums = tuple(torch.empty((nw, w), dtype=f32, device=dev)
                      for w in (c, c, c, 2 * c))  # db1, dg, dbt, db2
-        dht = torch.empty((bp, tpp, n_out, 2 * c), dtype=f32, device=dev)
+        dht = torch.empty((bp, -(-m // tile), n_out, 2 * c), dtype=f32,
+                          device=dev)
         wts = () if dt == torch.bfloat16 else (w1.reshape(c, c).t()
                                                 .contiguous(),)
         err = lib.dhoct_upscale_bwd_rows(

@@ -1,7 +1,8 @@
 """Where a kernel's time goes, by variants built from a copy of its source.
 
     python -m dilabhelmholtzoct_tpu_torch.utils.kernel_variants \
-        [--target k2 | k4_rows] [--only a,b] [--out build/variants.json]
+        [--target k2 | k4_rows | k3_rows | k4_fwd] [--only a,b]
+        [--out build/variants.json]
 
 Each variant is the kernel's source with a text patch: one part of the work
 taken out (its results are then wrong by design), or another configuration
@@ -51,6 +52,7 @@ from .. import kernels
 from ..device import full_fp32
 from ..ops import attention as attn
 from ..ops import decoder_attn as i2t
+from ..ops import upscaler as up_op
 
 # ------------------------------------------------------------------ k2 ----
 # the head dims built: 64 (ViT-B / L) and 80 (ViT-H)
@@ -192,8 +194,10 @@ K4_VARIANTS = {
          '               : "=f"(v.x), "=f"(v.y)\n'
          '               : "l"(p));',
          "  v = __ldg(reinterpret_cast<const float2*>(p));"),
-        ('  asm volatile("ld.shared.u32 %0, [%1];\\n" : "=r"(v) : "r"(hop::smem(p)));',
-         "  v = *reinterpret_cast<const uint32_t*>(p);"),
+        ("using hop::lds_u32;\n",
+         "__device__ __forceinline__ uint32_t lds_u32(const void* p) {\n"
+         "  return *reinterpret_cast<const uint32_t*>(p);\n"
+         "}\n"),
     ],
     # the per-head values not stored to the scratch (kept live, so that
     # no work that feeds them is dropped); its loads stay
@@ -203,8 +207,12 @@ K4_VARIANTS = {
     "no_scratch": _SCRATCH_STORES + _SCRATCH_LOADS,
     # no row outputs written (the scratch and the partials stay)
     "no_row_stores": [
-        ("  if (ok)\n    *reinterpret_cast<uint4*>(row + 8 * t)",
-         "  if (ok && false)\n    *reinterpret_cast<uint4*>(row + 8 * t)"),
+        ("using dec::store_quad;\n",
+         "__device__ __forceinline__ void store_quad(bf16* row, bool ok,\n"
+         "                                           uint32_t (&w)[4], int t)"
+         " {\n"
+         "  dec::store_quad(row, ok && false, w, t);\n"
+         "}\n"),
         ("  if (ok) *reinterpret_cast<uint32_t*>(at) = w;",
          "  if (ok && false) *reinterpret_cast<uint32_t*>(at) = w;"),
     ],
@@ -225,6 +233,134 @@ def _k4_cases(dev, gen):
                lambda: i2t.i2t_bwd_rows_cuda(*args, **kw),
                lambda: i2t.i2t_bwd_rows_plain(*args, **kw))
 
+# ------------------------------------------------------------- k3_rows ----
+_KEEP_K3 = ("// tanh as 1 - 2 / (e^{2x} + 1) from ex2.approx and rcp.approx: within\n",
+            "__device__ __forceinline__ void keep(float a) {\n"
+            '  asm volatile("" ::"f"(a));\n'
+            "}\n"
+            "// tanh as 1 - 2 / (e^{2x} + 1) from ex2.approx and rcp.approx: within\n")
+def _no_store(call):
+    """A store_quad of a row output whose store is switched off (the quad
+    transpose stays)."""
+    head, _, w, t = call.rsplit(", ", 3)
+    return (call, f"{head}, false, {w}, {t}")
+
+
+K3_VARIANTS = {
+    "base": [],
+    # u1g, rnd(d_u2pre) and rnd(d_u1pre) not written to their rows (each
+    # value also feeds a product, so no work is dropped)
+    "no_scratch_stores": [_no_store(
+        f"store_quad(d2_rows + {r} * 4 * LQ + LQ * de + 32 * a, {ok}, {v}, t)")
+        for r, ok, v in (("row0", "ok0", "w0"), ("row1", "ok1", "w1"))] + [
+        ("tma_store_3d(&tm_u1g, du_s + de * BOX, C1 * de, r0, pair);",
+         "(void)0;"),
+        ("tma_store_3d(&tm_du1, du_s + b * BOX, 64 * b, r0, pair);",
+         "(void)b;"),
+        ("            tma_store_3d(&tm_d2, up_s + (2 * wgi + b) * BOX,\n"
+         "                         LQ * de + 64 * b, r0, pair);",
+         "            (void)b;")],
+    # d_up not stored from its stage (the stage still written)
+    "no_dup_stores": [
+        ("          tma_store_3d(&tm_dup, du_s + (2 * wgi + b) * BOX,\n"
+         "                       128 * wgi + 64 * b, r0, pair);",
+         "          (void)b;")],
+    # the per-unit d_hyper partials not stored (their sums kept live)
+    "no_dht_stores": [_KEEP_K3, (
+        "        dht_u[((size_t)u * n_out + tt) * 4 * LQ + LQ * de + tid] =\n"
+        "            dhg[tt * LQ + tid] + dhg[(MAXT + tt) * LQ + tid] +\n"
+        "            dhg[(2 * MAXT + tt) * LQ + tid] + dhg[(3 * MAXT + tt) * LQ + tid];",
+        "        keep(dhg[tt * LQ + tid] + dhg[(MAXT + tt) * LQ + tid] +\n"
+        "             dhg[(2 * MAXT + tt) * LQ + tid] +\n"
+        "             dhg[(3 * MAXT + tt) * LQ + tid]);")],
+    # tanh (1024 a row, two MUFU operations each) made linear
+    "no_tanh": [
+        ("  return 1.f - __fdividef(2.f, attn::mma::exp2_approx(2.8853900817779268f * x) +\n"
+         "                                   1.f);",
+         "  return 0.25f * x;")],
+    # dm and hyper made up from indices instead of loaded
+    "made_up_dm_hyper": [
+        (f"dmq[{r}][tt] = (tt < n_out && ok{r}) ? __ldg(reinterpret_cast<const float4*>(\n"
+         f"                                               dm + row{r} * lanes + l))\n"
+         "                                         : z;",
+         f"dmq[{r}][tt] = (tt < n_out && ok{r}) ? make_float4(0.01f * l, 0.02f, "
+         f"0.03f, 0.04f * {r + 1})\n"
+         "                                         : z;") for r in (0, 1)] + [
+        ("hy[tt] = up2(hyb[tt * (C2 / 2) + 4 * jj + t]);",
+         "hy[tt] = make_float2(0.01f * (tt + jj), 0.02f * t);"),
+    ],
+}
+
+
+def _k3_cases(dev, gen):
+    bp, m, bf = 64, 4096, torch.bfloat16
+    r = lambda *s, k=1.0: k * torch.randn(s, generator=gen, device=dev)
+    for n_out in (1, 4):
+        args = (r(bp, m, 256).to(bf), r(bp, m, n_out * 16),
+                r(256, 2, 2, 64, k=0.06).to(bf), r(64, k=0.1),
+                1 + r(64, k=0.1), r(64, k=0.1),
+                r(64, 2, 2, 32, k=0.12).to(bf), r(32, k=0.1),
+                r(bp, n_out, 32).to(bf))
+        yield (f"k3_rows_n{n_out}",
+               lambda: up_op.upscale_bwd_rows_cuda(*args),
+               lambda: up_op.upscale_bwd_rows_plain(*args))
+
+
+# -------------------------------------------------------------- k4_fwd ----
+K4_FWD_VARIANTS = {
+    "base": [],
+    # no per-head scores, softmax or p . v: rnd(out) made from qs
+    "no_heads": [(
+        "        float p[4];\n"
+        "        head_softmax(p, qf[h], tf.k[h], n_tok, lane);\n"
+        "        head_out(of[h], p, tf.v[h]);\n",
+        "        of[h][0] = qf[h][0] ^ tf.k[h][0], of[h][1] = qf[h][1];\n"
+        "        of[h][2] = qf[h][2] ^ tf.v[h][0], of[h][3] = qf[h][3];\n")],
+
+    # each pair's token rows loaded as the pair starts, not a pair ahead
+    "tokens_per_pair": [
+        ("    TokenFrags tf;  // the pair's token rows, loaded a pair ahead\n"
+         "    token_frags(tf, tok_k + (size_t)img * pb * n_tok * I,\n"
+         "                tok_v + (size_t)img * pb * n_tok * I, n_tok, lane);\n",
+         ""),
+        ("      const int pair = img * pb + j;\n"
+         "      // per head: softmax, rnd(out) as the out projection's A fragment of\n",
+         "      const int pair = img * pb + j;\n"
+         "      TokenFrags tf;\n"
+         "      token_frags(tf, tok_k + (size_t)pair * n_tok * I,\n"
+         "                  tok_v + (size_t)pair * n_tok * I, n_tok, lane);\n"
+         "      // per head: softmax, rnd(out) as the out projection's A fragment of\n"),
+        ("      if (j + 1 < pb)  // the next pair's token rows, in flight meanwhile\n"
+         "        token_frags(tf, tok_k + (size_t)(pair + 1) * n_tok * I,\n"
+         "                    tok_v + (size_t)(pair + 1) * n_tok * I, n_tok, lane);\n",
+         ""),
+    ],
+    # the residual's keys not read from their slot
+    "no_res_loads": [
+        ("            const float2 kv = up2(lds_u32(ks + tile_off(R0 + 8 * r, col)));",
+         "            const float2 kv = make_float2(0.f, (float)col);")],
+    # y not stored from the stage to its rows (the stage still written)
+    "no_y_stores": [(
+        "          tma_store_3d(&tm_y, ys, 128 * hn, r0 + WROWS * (warp & 3), pair);\n"
+        "          tma_store_3d(&tm_y, ys + BOX, 128 * hn + 64,\n"
+        "                       r0 + WROWS * (warp & 3), pair);\n",
+        "")],
+}
+
+
+def _k4_fwd_cases(dev, gen):
+    bp, m, bf = 64, 4096, torch.bfloat16
+    r = lambda *s, k=1.0: k * torch.randn(s, generator=gen, device=dev)
+    for pb in (1, 8):
+        args = (r(bp // pb, m, 256).to(bf), r(1, m, 256).to(bf),
+                r(bp, 7, 128).to(bf), r(bp, 7, 128).to(bf),
+                r(256, 128, k=0.06).to(bf), r(128, k=0.1),
+                r(128, 256, k=0.09).to(bf), r(256, k=0.1),
+                1 + r(256, k=0.1), r(256, k=0.1))
+        kw = dict(nh=8, pb=pb, eps=1e-6)
+        yield (f"k4_fwd_pb{pb}", lambda: i2t.i2t_fwd_cuda(*args, **kw),
+               lambda: i2t.i2t_fwd_plain(*args, **kw))
+
 
 def _k2_dims(src):
     assert src.count(_ALL_DIMS) == 1, "the head-dim switch moved"
@@ -239,6 +375,10 @@ TARGETS = {
     "k4_rows": ("decoder_attn", "decoder_attn.cu",
                 "i2t_bwd_rows_wgmma_kernel", K4_VARIANTS, _k4_cases,
                 lambda s: s),
+    "k3_rows": ("upscaler", "upscaler.cu", "upscale_bwd_rows_wgmma_kernel",
+                K3_VARIANTS, _k3_cases, lambda s: s),
+    "k4_fwd": ("decoder_attn", "decoder_attn.cu", "i2t_fwd_wgmma_kernel",
+               K4_FWD_VARIANTS, _k4_fwd_cases, lambda s: s),
 }
 
 
@@ -288,6 +428,7 @@ def _use(library: str, path) -> None:
     if library in attn._BOUND:
         attn._BOUND[library] = False
     i2t._BOUND = False
+    up_op._BOUND = False
 
 
 def _device_ms(fn, kernel, reps=20):

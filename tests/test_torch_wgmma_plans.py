@@ -13,7 +13,11 @@ weight pass in both types: its row chunks and blocks) and
 units and their order, ring and blocks), with the order in which the
 weight passes' plain twins sum those chunks, and
 ``ops.decoder_attn.rows_plan_bf16`` (the bf16 K4 row pass: units, ring,
-blocks) with the column sums taken over its partials. The kernels themselves run
+blocks) with the column sums taken over its partials,
+``ops.decoder_attn.fwd_plan_bf16`` (the bf16 K4 forward: units of an
+image's rows with all of its pairs, ring, blocks) and
+``ops.upscaler.rows_plan_bf16`` (the bf16 K3 row pass: units, ring,
+blocks, shared memory) with its partials. The kernels themselves run
 only on the card (``tests/test_torch_kernels_gpu.py``)."""
 
 import pytest
@@ -751,3 +755,114 @@ def test_upscale_dw_plain_f32_sums_the_plan_in_order(bp, m, sms):
     one = port_up.upscale_bwd_dw_plain(up, u1g, d2, du1)
     for a, b in zip(one, (dw1, dw2)):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("bimg,m,pb,sms", [
+    (64, 4096, 1, 132), (8, 4096, 8, 132), (8, 4096, 8, 8),
+    (3, 129, 1, 132), (2, 37, 8, 8), (5, 100, 3, 132), (1, 1, 8, 132)])
+def test_fwd_plan_bf16_covers_every_row_once(bimg, m, pb, sms):
+    """The bf16 K4 forward's plan: unit u is rows 64 (u % tpp).. of image
+    u // tpp with all of its pb pairs; block b takes units b, b + G, ...,
+    its two consumer warpgroups in turns. Every (pair, row) is computed by
+    exactly one warpgroup, the blocks are at most one an SM and at most
+    half the units, and the shared memory fits a block."""
+    plan = port_i2t.fwd_plan_bf16(bimg, m, sms)
+    tpp = -(-m // plan.rows)
+    assert plan.rows == 64 and plan.stages == port_i2t.FWD_SLOTS == 2
+    assert plan.units == bimg * tpp
+    assert 1 <= plan.blocks <= min(sms, -(-plan.units // 2))
+    assert plan.smem <= port_attn.SMEM_MAX
+    taken = torch.zeros(bimg * pb, m, dtype=torch.long)
+    for blk in range(plan.blocks):
+        for u in range(blk, plan.units, plan.blocks):
+            img, tile = divmod(u, tpp)
+            lo = plan.rows * tile
+            taken[img * pb:(img + 1) * pb, lo:min(m, lo + plan.rows)] += 1
+    assert torch.equal(taken, torch.ones_like(taken))
+
+
+def test_fwd_plan_bf16_pinned():
+    """At the training shape (64 pairs of 4096 rows): pb 1, 4096 units on
+    132 blocks; pb 8 (8 images), 512 units; Wq and Wo (128 KB), a 32 KB
+    keys slot and a 16 KB y stage a warpgroup, 1 KB of alignment and
+    barriers."""
+    got = [port_i2t.fwd_plan_bf16(64 // pb, 4096, 132) for pb in (1, 8)]
+    assert [(p.units, p.blocks, p.smem) for p in got] == [
+        (4096, 132, 230528), (512, 132, 230528)]
+
+
+@pytest.mark.parametrize("bp,m,sms", [(64, 4096, 132), (64, 4096, 8),
+                                      (3, 129, 132), (5, 37, 8), (1, 1, 132),
+                                      (200, 64, 132)])
+def test_upscale_rows_plan_bf16_covers_every_row_once(bp, m, sms):
+    """The bf16 K3 row pass's plan: unit u is rows 64 (u % tpp).. of pair
+    u // tpp; block b takes units b, b + G, ..., both its consumer
+    warpgroups on each. Every row is in exactly one unit, the blocks are
+    at most one an SM and at most one a unit, and the shared memory (W1,
+    W2, the up and rnd(d_u1pre) slots, the d_hyper sums, two units' hyper)
+    fits a block."""
+    plan = port_up.rows_plan_bf16(bp, m, sms)
+    tpp = -(-m // plan.rows)
+    assert plan.rows == 64 and plan.units == bp * tpp
+    assert 1 <= plan.blocks <= min(sms, plan.units)
+    assert plan.smem == 230976 <= port_attn.SMEM_MAX
+    taken = torch.zeros(bp, m, dtype=torch.long)
+    for blk in range(plan.blocks):
+        for u in range(blk, plan.units, plan.blocks):
+            pair, tile = divmod(u, tpp)
+            taken[pair, plan.rows * tile:plan.rows * (tile + 1)] += 1
+    assert torch.equal(taken, torch.ones_like(taken))
+
+
+@pytest.mark.parametrize("bp,m,n_out,sms", [(3, 37, 1, 2), (2, 130, 4, 3),
+                                            (4, 64, 2, 132), (2, 100, 3, 1)])
+def test_upscale_rows_plain_bf16_sums_the_plan_in_order(bp, m, n_out, sms):
+    """The bf16 K3 row pass's sums as the kernel and the wrapper take them
+    on the plan ``rows_plan_bf16`` gives: block b takes units b, b + G, ...
+    (u = pair * tpp + row // 64); the column sums db1, dg, dbt and db2 have
+    a partial a block and warp index w (rows 16 w.. of each of the block's
+    units: the two warpgroups' warps w hold the unit's (d, e) blocks 0-1
+    and 2-3), d_hyper one a unit. Each row lands in one partial of each,
+    and the partials (each the plain twin's sums over its rows) added as
+    the wrapper adds them equal the twin's sums over all rows to f32
+    summation order."""
+    g = torch.Generator().manual_seed(bp * 100 + m + n_out)
+    r = lambda *s, k=1.0: k * torch.randn(s, generator=g)
+    bf = torch.bfloat16
+    up = r(bp, m, 256).to(bf)
+    dm = r(bp, m, n_out * 16)
+    wts = (r(256, 2, 2, 64, k=0.06).to(bf), r(64, k=0.1), 1 + r(64, k=0.1),
+           r(64, k=0.1), r(64, 2, 2, 32, k=0.12).to(bf), r(32, k=0.1))
+    hyper = r(bp, n_out, 32).to(bf)
+    plan = port_up.rows_plan_bf16(bp, m, sms)
+    tpp = -(-m // plan.rows)
+    cols = torch.zeros(4, plan.blocks * port_up.ROWS_PARTS, 512)
+    dht = torch.zeros(bp, tpp, n_out, 512)
+    taken = torch.zeros(2, bp, m, dtype=torch.long)
+    for blk in range(plan.blocks):
+        for u in range(blk, plan.units, plan.blocks):
+            pair, tile = divmod(u, tpp)
+            lo = plan.rows * tile
+            sl = slice(pair, pair + 1)
+            unit = port_up.upscale_bwd_rows_plain(
+                up[sl, lo:lo + plan.rows], dm[sl, lo:lo + plan.rows],
+                *wts, hyper[sl])
+            dht[pair, tile] = unit[8][0]
+            taken[1, pair, lo:lo + plan.rows] += 1
+            for w in range(port_up.ROWS_PARTS):
+                a, b = lo + 16 * w, min(m, lo + 16 * w + 16)
+                if a >= b:
+                    continue
+                taken[0, pair, a:b] += 1
+                part = port_up.upscale_bwd_rows_plain(
+                    up[sl, a:b], dm[sl, a:b], *wts, hyper[sl])[4:8]
+                for i, x in enumerate(part):
+                    cols[i, blk * port_up.ROWS_PARTS + w, :x.numel()] += x
+    assert torch.equal(taken, torch.ones_like(taken))
+    want = port_up.upscale_bwd_rows_plain(up, dm, *wts, hyper)[4:]
+    got = tuple(cols[i].sum(0)[:x.numel()] for i, x in enumerate(want[:4]))
+    got += (dht.sum(1),)
+    for a, b in zip(want, got):
+        assert a.dtype == b.dtype == torch.float32
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-5 * float(
+            a.abs().max()))
