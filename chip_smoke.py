@@ -20,7 +20,8 @@ prints no result line):
    and ``attn_bwd_dkv_wgmma_kernel`` and f32
    ``attn_bwd_dq_wgmma_tf32_kernel`` and ``attn_bwd_dkv_wgmma_tf32_kernel``,
    the bf16 K4 row pass ``i2t_bwd_rows_wgmma_kernel``, both K4 weight
-   passes, the f32 K3 weight pass) HGMMA (TF32 in the f32 ones; no HMMA
+   passes, the f32 K3 weight pass, the bf16 K3 forward
+   ``upscale_fwd_wgmma_kernel`` and row pass) HGMMA (TF32 in the f32 ones; no HMMA
    where ``NO_HMMA_KERNELS`` names them) and TMA
    loads (UTMALDG), ptxas serializes no wgmma of a main-path instance
    (``PIPELINED``), and their ptxas reports no spills,
@@ -403,7 +404,7 @@ MMA_KERNELS = {"attention_bwd": ("attn_bwd_dq_wgmma_kernel",
                                  "attn_bwd_dkv_wgmma_kernel"),
                "attention_relpos_wgmma": ("attn_relpos_wgmma_kernel",),
                "attention_winimg": ("attn_winimg_mma_kernel",),
-               "upscaler": ("upscale_fwd_mma_kernel",
+               "upscaler": ("upscale_fwd_wgmma_kernel",
                             "upscale_bwd_rows_wgmma_kernel",
                             "upscale_bwd_dw_kernel"),
                "decoder_attn": ("i2t_fwd_wgmma_kernel",
@@ -436,7 +437,8 @@ WGMMA_KERNELS = {"attention_relpos_wgmma": ("attn_relpos_wgmma_kernel",),
                                   "i2t_bwd_rows_wgmma_kernel",
                                   "i2t_bwd_dw_wgmma_kernel"),
                  "upscaler": ("upscale_bwd_dw_tf32_kernel",
-                              "upscale_bwd_rows_wgmma_kernel")}
+                              "upscale_bwd_rows_wgmma_kernel",
+                              "upscale_fwd_wgmma_kernel")}
 # the kernels whose every product is on wgmma: no HMMA (mma.sync) in their
 # SASS
 NO_HMMA_KERNELS = ("attn_relpos_wgmma_tf32_kernel",
@@ -450,14 +452,16 @@ NO_HMMA_KERNELS = ("attn_relpos_wgmma_tf32_kernel",
 # K1 (DP 64, ROW_TILE) and K2 (DP 64, GRID), by their mangled template
 # arguments; K5's f32 kernels at ViT-B / L's global layer (dq ROW, two
 # tiles a grid row: <2>; dk/dv ROW_TILE: <true>) and windows (dq GRID: <0>;
-# dk/dv <false>); K4's bf16 row pass and forward, K3's bf16 row pass
+# dk/dv <false>); K4's bf16 row pass and forward, K3's bf16 row pass and
+# forward
 PIPELINED = {"attention_relpos_wgmma_tf32": ("ILi80ELNS0_4ModeE1E",
                                              "ILi80ELNS0_4ModeE2E",
                                              "ILi64ELNS0_4ModeE1E",
                                              "ILi64ELNS0_4ModeE2E"),
              "decoder_attn": ("i2t_bwd_rows_wgmma_kernel",
                               "i2t_fwd_wgmma_kernel"),
-             "upscaler": ("upscale_bwd_rows_wgmma_kernel",),
+             "upscaler": ("upscale_bwd_rows_wgmma_kernel",
+                          "upscale_fwd_wgmma_kernel"),
              "attention_bwd_wgmma_tf32": (
                  "attn_bwd_dq_wgmma_tf32_kernelILi2E",
                  "attn_bwd_dq_wgmma_tf32_kernelILi0E",
@@ -829,9 +833,10 @@ def k34_kernel_phase(torch):
     its plain twin (the weight pass on the row pass's own scratch rows), the
     composed backward against ``*_bwd_plain`` and against itself on a second
     run (the same bits), and each launch is timed beside its bound (f32:
-    split TF32's rate, the CUDA cores' bound beside it). Returns the numbers
-    per launch for the result line: bf16 rows under the launch names, f32
-    rows under the names with ``_f32``."""
+    split TF32's rate, the CUDA cores' bound beside it). The bf16 forward
+    runs at n_out 4 too (tag ``_n4``, printed only).
+    Returns the numbers per launch for the result line: bf16 rows under the
+    launch names, f32 rows under the names with ``_f32``."""
     from dilabhelmholtzoct_tpu_torch.device import full_fp32
     from dilabhelmholtzoct_tpu_torch.ops import decoder_attn as i2t
     from dilabhelmholtzoct_tpu_torch.ops import upscaler as up_op
@@ -908,7 +913,7 @@ def k34_kernel_phase(torch):
     k3 = "upscaler.cu", "dilabhelmholtzoct_tpu/ops/upscaler.py"
     k4 = "decoder_attn.cu", "dilabhelmholtzoct_tpu/ops/decoder_attn.py"
     names = lambda bf, f: {"bf16": bf, "f32": f}
-    k3_fwd = k3[0], names("upscale_fwd_mma_kernel",
+    k3_fwd = k3[0], names("upscale_fwd_wgmma_kernel",
                           "upscale_fwd_tf32_kernel"), f"{k3[1]}:295"
     k3_bwd = k3[0], names("upscale_bwd_rows_wgmma_kernel",
                           "upscale_bwd_rows_tf32_kernel"), f"{k3[1]}:329"
@@ -931,8 +936,8 @@ def k34_kernel_phase(torch):
                 cores or None)"""
                 return fn(*a, peak), (None if bf else fn(*a, PEAK_F32_FLOPS))
 
-            def k3b(backward, part=None):
-                return bounds(lambda pk: k3_bound_ms(bp, m, n_out, isz, pk,
+            def k3b(backward, part=None, n=n_out):
+                return bounds(lambda pk: k3_bound_ms(bp, m, n, isz, pk,
                                                      backward, part))
 
             # K3 at 64 pairs x 4096 rows
@@ -978,6 +983,19 @@ def k34_kernel_phase(torch):
             print(f"K3 {tname} backward: {total:.4f} ms composed (row pass "
                   f"{t_rows:.4f} + weight pass {t_dw:.4f} timed alone)")
             del up_args, dm, bwd_args, scratch
+            if bf:  # the bf16 forward (on wgmma) at 4 mask tokens too
+                up_args = (rnd(bp, m, 256, dt=dt),
+                           rnd(256, 2, 2, 64, k=0.06, dt=dt), rnd(64, k=0.1),
+                           1 + rnd(64, k=0.1), rnd(64, k=0.1),
+                           rnd(64, 2, 2, 32, k=0.12, dt=dt), rnd(32, k=0.1),
+                           rnd(bp, 4, 32, dt=dt))
+                b, c = k3b(False, n=4)
+                run("upscale_fwd", tname,
+                    lambda: up_op.upscale_fwd_cuda(*up_args),
+                    lambda: up_op.upscale_fwd_plain(*up_args),
+                    up_op.LAUNCHES, b, k3_fwd, 10, "_n4", row="upscale_fwd",
+                    cores=c)
+                del up_args
             # K4 per-pair layer (pb = 1) and shared first layer (pb = 8)
             for pb in (1, 8):
                 args = (rnd(bp // pb, m, 256, dt=dt), rnd(1, m, 256, dt=dt),
@@ -1884,7 +1902,7 @@ DATA_OPS = ("hflip", "vflip", "brightness", "contrast", "gaussian_noise",
 # the port's bf16 kernels on the uncached step: one of them must appear in
 # the epoch-0 trace for it to be the card's
 TRACE_KERNELS = ("attn_relpos_wgmma_kernel", "i2t_fwd_wgmma_kernel",
-                 "upscale_fwd_mma_kernel")
+                 "upscale_fwd_wgmma_kernel")
 
 
 def _same_batches(built, ref, what):
@@ -3763,11 +3781,15 @@ def redesign_times(torch):
     the bf16 K3 row pass at 64 pairs x 4096 rows, n_out 1 and 4, and the
     bf16 K4 forward at pb 1 and 8, each also as the device time of the
     mma.sync kernel of older trees (``upscale_bwd_rows_kernel``,
-    ``i2t_fwd_mma_kernel``) or of the wgmma one (``*_wgmma_kernel``).
+    ``i2t_fwd_mma_kernel``) or of the wgmma one (``*_wgmma_kernel``); the
+    bf16 K3 forward at 64 pairs x 4096 rows, n_out 1 and 4, also as the
+    device time of ``upscale_fwd_mma_kernel`` (older trees) or
+    ``upscale_fwd_wgmma_kernel`` (``k3_fwd_bf16_n1[_device]``, ...).
     Returns {"ms": {case: ms}, "bits": {case: a digest of its outputs}}:
     the bf16 K6 and K1's outputs (K1's with its logsumexp rows), the f32
     K1's, K2's and K6's, K5's (dqkv, drel_h, drel_w) in bf16 and in f32,
-    and the bf16 K4 row pass's, K3 row pass's and K4 forward's, on
+    the bf16 K4 row pass's, K3 row pass's and K4 forward's, and the bf16
+    K3 forward's, on
     inputs drawn in the same order from one seed in every tree, so that two
     trees' digests say whether the kernels give the same bits."""
     from dilabhelmholtzoct_tpu_torch.device import full_fp32
@@ -3943,6 +3965,24 @@ def redesign_times(torch):
                   if v is not None]
         out[f"{case}_device"] = sum(dev_ms) if dev_ms else None
         bits[case] = digest(*fn())
+        del args
+    # the bf16 K3 forward at the training shape, n_out 1 and 4: events and
+    # the device time of the mma.sync kernel of older trees or of the wgmma
+    # one
+    k3f_names = ("upscale_fwd_mma_kernel", "upscale_fwd_wgmma_kernel")
+    for n_out in (1, 4):
+        bf = torch.bfloat16
+        args = (rnd(bp, m, 256).to(bf), rnd(256, 2, 2, 64, k=0.06).to(bf),
+                rnd(64, k=0.1), 1 + rnd(64, k=0.1), rnd(64, k=0.1),
+                rnd(64, 2, 2, 32, k=0.12).to(bf), rnd(32, k=0.1),
+                rnd(bp, n_out, 32).to(bf))
+        fn = lambda: up_op.upscale_fwd_cuda(*args)
+        case = f"k3_fwd_bf16_n{n_out}"
+        out[case] = cuda_ms(fn, 20)
+        dev_ms = [v for v in device_ms_by_kernel(fn, k3f_names).values()
+                  if v is not None]
+        out[f"{case}_device"] = sum(dev_ms) if dev_ms else None
+        bits[case] = digest(fn())
         del args
     fwd_names = ("i2t_fwd_mma_kernel", "i2t_fwd_wgmma_kernel")
     for pb in (1, 8):

@@ -1,34 +1,27 @@
-// Tensor-core building blocks of the bf16 decoder kernels on mma.sync: the
-// image->token attention K4's forward (decoder_attn.cu, i2t_fwd_mma_kernel;
-// its backward runs on wgmma, i2t_bwd_rows_wgmma_kernel and
-// i2t_bwd_dw_wgmma_kernel, which take group_sum8 and the row helpers from
-// here) and the upscaler K3 (upscaler.cu, upscale_bwd_rows_kernel /
-// upscale_bwd_dw_kernel).
+// Tensor-core building blocks of the bf16 decoder kernels on mma.sync and
+// the row helpers their wgmma kernels share: the image->token attention K4
+// (decoder_attn.cu: i2t_fwd_wgmma_kernel keeps its per-head products on
+// mma.sync; i2t_bwd_rows_wgmma_kernel and i2t_bwd_dw_wgmma_kernel take
+// group_sum8 and the row helpers from here) and the upscaler K3
+// (upscaler.cu: upscale_fwd_wgmma_kernel's hypernetwork sum on mma.sync,
+// upscale_bwd_rows_wgmma_kernel's column sums and row stores, and the bf16
+// weight pass upscale_bwd_dw_kernel).
 //
 // Each backward is two launches:
-//   * a row pass: persistent blocks of 8 warps (one block per SM) hold the
-//     layer's weights in shared memory (bf16, rows padded by 8 elements,
-//     read in both orientations with ldmatrix / ldmatrix.trans); a pair of
-//     warps walks 16-row tiles (RowTile), each warp owning the tile's rows
-//     across its share of the columns, so the LayerNorms reduce over a lane
-//     quad, the warp's own n-tiles and, where a row spans both warps, one
-//     exchange through shared memory. Every product is mma.sync m16n8k16
-//     (or m16n8k8 over <= 8 tokens) bf16 -> f32, chained from accumulator
-//     to A fragment where the operand is a rounding point of the JAX
-//     kernel. The small per-column gradients (biases, LayerNorm) are summed
-//     over a tile's 16 rows by group_sum8 and over the pair's tiles in
-//     registers or shared memory: one partial per pair, summed by the
-//     wrapper.
+//   * a row pass (on wgmma, see the kernels): it recomputes the chain per
+//     row and writes the operands of the weight gradients as bf16 rows; the
+//     small per-column gradients (biases, LayerNorm) are summed over a
+//     warp's 16 rows by group_sum8 and over its units in registers: one
+//     partial per block and warp, summed by the wrapper.
 //   * a weight pass (dw_* below, K3's): a split-K product over rows. A
 //     block of 8 warps owns a chunk of rows and one 128 x 256 output tile
 //     (64 x 64 per warp, 128 accumulator registers), streams the chunk
 //     through a cp.async ring of DW_STAGES stages of DW_SR rows and writes
 //     one f32 partial; the wrapper sums the partials in a fixed order. No
 //     atomics: the gradients repeat bit for bit.
-// The row pass writes the operands of the weight gradients as bf16 rows.
-// Each is a bf16 rounding point of the JAX kernel, so the bf16 scratch
-// loses nothing and every tensor-core term is exact; only the order of
-// the f32 sums differs from the plain versions.
+// Each scratch row is a bf16 rounding point of the JAX kernel, so the bf16
+// scratch loses nothing and every tensor-core term is exact; only the order
+// of the f32 sums differs from the plain versions.
 
 #pragma once
 
@@ -73,14 +66,6 @@ __device__ __forceinline__ void load_a_t(uint32_t* a, const bf16* tile,
                                          int m0, int k0, int lane) {
   ldsm_x4_t(a, tile + (k0 + (lane & 7) + (lane >> 4) * 8) * LD + m0 +
                    ((lane >> 3) & 1) * 8);
-}
-
-__device__ __forceinline__ float2 ld_bf2(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-__device__ __forceinline__ void st_bf2(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 __device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
@@ -161,42 +146,6 @@ __device__ __forceinline__ void store_quad(bf16* row, bool ok,
   if (ok)
     *reinterpret_cast<uint4*>(row + 8 * t) = make_uint4(w[0], w[1], w[2],
                                                         w[3]);
-}
-
-// The tiles of the row pass: 16-row tiles of each pair's m rows, pair-major;
-// slot s of the grid (a warp pair) takes tiles s, s + (slots of the grid), ...
-struct RowTile {
-  int pair, row0;
-  size_t prow0;  // the tile's first row in the (pairs x m) row arrays
-  __device__ __forceinline__ RowTile(int tile, int tpp, int m) {
-    pair = tile / tpp;
-    row0 = (tile - pair * tpp) * 16;
-    prow0 = (size_t)pair * m + row0;
-  }
-};
-
-// 16 rows x W columns (bf16, W elements per row) -> a slot's shared tile (LD
-// elements per row), by the slot's 64 threads (pl = 32 sub + lane),
-// asynchronously; rows at or past `valid` zero-filled
-template <int W, int LD>
-__device__ __forceinline__ void slot_rows_async(bf16* dst, const bf16* src,
-                                                int valid, int pl) {
-  for (int i = pl; i < 16 * (W / 8); i += 64) {
-    const int r = i / (W / 8), c = (i - r * (W / 8)) * 8;
-    const bool ok = r < valid;
-    cp_async16(dst + r * LD + c, src + (ok ? r * W + c : 0), ok);
-  }
-}
-
-// R x W bf16 (row-major, W per row) -> shared rows of LD, by a whole block
-// of NTH threads, asynchronously
-template <int R, int W, int LD, int NTH>
-__device__ __forceinline__ void block_weights_async(bf16* dst,
-                                                    const bf16* src) {
-  for (int i = threadIdx.x; i < R * (W / 8); i += NTH) {
-    const int r = i / (W / 8), c = (i - r * (W / 8)) * 8;
-    cp_async16(dst + r * LD + c, src + (size_t)r * W + c, true);
-  }
 }
 
 // ------------------------------------------------------ weight pass ----

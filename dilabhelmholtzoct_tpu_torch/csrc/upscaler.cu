@@ -15,15 +15,15 @@
 // (the JAX package's rounding points, ops/upscaler.py:77-138).
 //
 // The forward replaces dilabhelmholtzoct_tpu/ops/upscaler.py _fused_fwd
-//    (:295, body _fwd_kernel :119-138, math _chain_fwd :77-99): persistent
-//    8-warp blocks, a warp pair per 16-row slot.
-//    * bf16 (the training path): upscale_fwd_mma_kernel on the tensor
-//      cores, W1 and W2 in shared memory, the next tile's rows copied in
-//      while this one computes.
+//    (:295, body _fwd_kernel :119-138, math _chain_fwd :77-99), one
+//    persistent block per SM.
+//    * bf16 (the training path): upscale_fwd_wgmma_kernel on wgmma with
+//      TMA loads (see the kernel): 64-row units shared by its two
+//      warpgroups, W1 and W2 in shared memory.
 //    * f32 (reached with set_fused_upscaler('interpret')):
-//      upscale_fwd_tf32_kernel in split TF32 (decoder_tf32.cuh), super-tiles
-//      of 64 rows streaming W1 through a cp.async ring, W2 in the ring's
-//      space once the first product is done.
+//      upscale_fwd_tf32_kernel in split TF32 (decoder_tf32.cuh) on
+//      mma.sync, 8 warps, super-tiles of 64 rows streaming W1 through a
+//      cp.async ring, W2 in the ring's space once the first product is done.
 // The backward replaces the same file's _fused_bwd (:329, body _bwd_kernel
 //    :141-243) with two launches: a row pass recomputes the chain per row,
 //    writes d_up per row and the scratch rows u1g, rnd(d_u2pre) and
@@ -31,9 +31,9 @@
 //    forms dW1 = sum_r up^T rnd(d_u1pre) and dW2[de] = sum_r u1g[de]^T
 //    rnd(d_u2pre)[de], split-K over row chunks. The JAX kernel carries the
 //    sums in output blocks across its sequential grid; here blocks run in
-//    parallel, so every sum over rows is one partial per slot, tile or
-//    chunk, added up by the wrapper in a fixed order -- no atomics, so the
-//    gradients repeat bit for bit from run to run.
+//    parallel, so every sum over rows is one partial per block and warp,
+//    unit or chunk, added up by the wrapper in a fixed order -- no atomics,
+//    so the gradients repeat bit for bit from run to run.
 //    * bf16: upscale_bwd_rows_wgmma_kernel (on bf16 wgmma, its up rows
 //      landed by TMA beside W1 and W2, see the kernel) and
 //      upscale_bwd_dw_kernel (decoder_mma.cuh).
@@ -53,37 +53,35 @@
 //    (chip_smoke.py::k3_bound_ms bounds each launch with them).
 // What this design does about it: the 268 MB second upscale stays in shared
 //    memory and registers (as on the TPU). Every product runs on the tensor
-//    cores: the first and second products per (d, e) block (the second by
-//    halves of 64 lanes), the hypernetwork sum over c2 against hyper^T, and
-//    in the backward d_u1g = rnd(d_u2pre) . W2^T and d_up = rnd(d_u1pre) .
-//    W1^T; bf16 as mma.sync bf16 -> f32 (the forward; the row pass on
-//    wgmma) (each operand a bf16 rounding point of the JAX kernel, so each
-//    term is exact), f32 as hi.hi + hi.lo + lo.hi
-//    on m16n8k8 TF32 with the GELU in its erf form and exact derivative.
-//    The LayerNorms, GELUs and their backwards run in f32 registers over a
-//    lane quad. The second product runs per (d, e) block of W2 (64 x 128),
-//    not as the TPU's 256 x 512 Kronecker expansion; LayerNorm reduces its
-//    64 lanes with shuffles, not selector matmuls. In f32, W1 (256 KB)
-//    does not fit in shared memory; streaming it per 64-row super-tile
-//    reads each byte from L2 once for 64 rows. The f32 weight pass (dW1,
-//    dW2: 51.5 GFLOP at 64 pairs x 4096 rows, 155 with the split, 0.312
-//    ms at split TF32's rate, against 1.34 GB of rows read once: 0.401 ms;
-//    byte-bound) runs on TF32 wgmma m64n256k8 / m64n128k8 with TMA loads
-//    into an mbarrier ring, each element split once; its four units of a
-//    chunk read 6 KB a row, of which the second read of rnd(d_u1pre), 1
-//    KB, is meant to come from L2. The bf16 row pass (155 GFLOP with the
-//    recompute, 0.10 ms of wgmma; 822 MB of rows in and out at n_out 1:
-//    0.245 ms; byte-bound) leaves every row as 16-byte segments (its
-//    mma.sync predecessor's 4-byte stores cost it 0.37 ms) and keeps its
-//    CUDA-core work -- the GELUs (1024 tanh a row), LayerNorms and their
-//    backwards, ~35 K instructions a row -- beside its products on wgmma.
+//    cores: the first and second products per (d, e) block, the
+//    hypernetwork sum over c2 against hyper^T, and in the backward d_u1g =
+//    rnd(d_u2pre) . W2^T and d_up = rnd(d_u1pre) . W1^T; in bf16 on wgmma
+//    (the forward's hypernetwork sum on mma.sync, straight from the
+//    accumulators), each operand a bf16 rounding point of the JAX kernel,
+//    so each term is exact; in f32 as lo.hi + hi.lo + hi.hi on TF32 (the
+//    weight pass on wgmma, the forward and row pass on mma.sync m16n8k8)
+//    with the GELU in its erf form and exact derivative. The LayerNorms, GELUs and their backwards run in
+//    f32 registers over a lane quad. The second product runs per (d, e)
+//    block of W2 (64 x 128), not as the TPU's 256 x 512 Kronecker
+//    expansion; LayerNorm reduces its 64 lanes with shuffles, not selector
+//    matmuls. In f32, W1 (256 KB) does not fit in shared memory; streaming
+//    it per 64-row super-tile reads each byte from L2 once for 64 rows.
+//    The f32 weight pass (dW1, dW2: 51.5 GFLOP at 64 pairs x 4096 rows, 155
+//    with the split, 0.312 ms at split TF32's rate, against 1.34 GB of rows
+//    read once: 0.401 ms; byte-bound) runs on TF32 wgmma m64n256k8 /
+//    m64n128k8 with TMA loads into an mbarrier ring, each element split
+//    once; its four units of a chunk read 6 KB a row, of which the second
+//    read of rnd(d_u1pre), 1 KB, is meant to come from L2. The bf16 row
+//    pass (155 GFLOP with the recompute, 0.10 ms of wgmma; 822 MB of rows
+//    in and out at n_out 1: 0.245 ms; byte-bound) leaves every row as
+//    16-byte segments or by TMA and keeps its CUDA-core work -- the GELUs
+//    (1024 tanh a row), LayerNorms and their backwards, ~35 K instructions
+//    a row -- beside its products on wgmma.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "decoder_tf32.cuh"
 #include "hopper.cuh"
@@ -100,247 +98,19 @@ constexpr int MAXT = 4;         // mask tokens per pair
 constexpr float kSqrt2OverPi = 0.7978845608028654f;
 constexpr float kKappa = 0.044715f;
 
-template <typename T>
+// the f32 GELU (erf form) and its exact derivative; the bf16 kernels take
+// the tanh form on rwu::tanh_fast
 __device__ __forceinline__ float gelu(float x) {
-  if (std::is_same<T, __nv_bfloat16>::value)
-    return 0.5f * x * (1.f + tanhf(kSqrt2OverPi * (x + kKappa * x * x * x)));
   return 0.5f * x * (1.f + erff(x * 0.7071067811865476f));
 }
 
-template <typename T>
 __device__ __forceinline__ float gelu_grad(float x) {
-  if (std::is_same<T, __nv_bfloat16>::value) {
-    const float x2 = x * x;
-    const float t = tanhf(kSqrt2OverPi * (x + kKappa * x * x2));
-    const float di = kSqrt2OverPi * (1.f + 3.f * kKappa * x2);
-    return 0.5f * (1.f + t) + 0.5f * x * (1.f - t * t) * di;
-  }
   const float phi = expf(-0.5f * x * x) * 0.3989422804014327f;
   return 0.5f * (1.f + erff(x * 0.7071067811865476f)) + x * phi;
 }
 
 // ------------------------------------------ bf16 backward, two passes ----
 using dec::bf16;
-using dec::ld_bf2;
-using dec::st_bf2;
-
-constexpr int LD1 = L1 + 8;   // shared row of W1 [C][L1] and of a warp's tile
-constexpr int LD2 = LQ + 8;   // shared row of W2 [C1][LQ]
-constexpr int SLOTS = 4;          // tiles in flight per block: a warp pair each
-constexpr int RT = 64 * SLOTS;     // threads per row-pass block
-constexpr int CS = 4 * LQ + L1;    // a slot's per-column sums: db2, db1
-constexpr size_t FWD_MMA_SMEM =
-    sizeof(bf16) * (size_t)(C * LD1 + C1 * LD2 + SLOTS * 2 * 16 * LD1);
-
-// The forward chain's pieces that the forward kernel and the backward's row
-// pass share. Lane = 4 g + t holds rows g and g + 8 of every accumulator
-// n-tile, columns 2t, 2t + 1.
-
-// (d, e) block de of the first upscale for a 16-row tile: u1pre = up . W1
-// + b1 over its 64 lanes (up u_s [16][LD1], W1 w1_s), the LayerNorm over
-// them (mean, then the centred variance; f32): y in a1, 1/std of rows g,
-// g + 8 in rs; and u1g = rnd(gelu(rnd(y g + bt))) as the A fragments of
-// the second product (one k16 step per two n-tiles)
-__device__ __forceinline__ void first_block(float (&a1)[8][4], float (&rs)[2],
-                                            uint32_t (&ua)[4][4],
-                                            const bf16* u_s, const bf16* w1_s,
-                                            const float* b1, const float* g,
-                                            const float* bt, int de,
-                                            float eps, int lane) {
-  using namespace dec;
-  const int tq = lane & 3;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) a1[j][0] = a1[j][1] = a1[j][2] = a1[j][3] = 0.f;
-#pragma unroll 4
-  for (int kk = 0; kk < C / 16; ++kk) {
-    uint32_t a[4];
-    load_a<LD1>(a, u_s, 0, 16 * kk, lane);
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t b[4];
-      load_b_kn<LD1>(b, w1_s, 16 * kk, C1 * de + 16 * np, lane);
-      mma16816(a1[2 * np], a, b[0], b[1]);
-      mma16816(a1[2 * np + 1], a, b[2], b[3]);
-    }
-  }
-  float su0 = 0.f, su1 = 0.f;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int c = 8 * j + 2 * tq;
-    a1[j][0] += b1[c];
-    a1[j][1] += b1[c + 1];
-    a1[j][2] += b1[c];
-    a1[j][3] += b1[c + 1];
-    su0 += a1[j][0] + a1[j][1];
-    su1 += a1[j][2] + a1[j][3];
-  }
-  const float mu0 = quad_sum(su0) * (1.f / C1);
-  const float mu1 = quad_sum(su1) * (1.f / C1);
-  float v0 = 0.f, v1 = 0.f;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    a1[j][0] -= mu0;
-    a1[j][1] -= mu0;
-    a1[j][2] -= mu1;
-    a1[j][3] -= mu1;
-    v0 = fmaf(a1[j][0], a1[j][0], fmaf(a1[j][1], a1[j][1], v0));
-    v1 = fmaf(a1[j][2], a1[j][2], fmaf(a1[j][3], a1[j][3], v1));
-  }
-  rs[0] = rsqrtf(quad_sum(v0) * (1.f / C1) + eps);
-  rs[1] = rsqrtf(quad_sum(v1) * (1.f / C1) + eps);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int c = 8 * j + 2 * tq;
-    const float g0 = g[c], g1 = g[c + 1], t0 = bt[c], t1 = bt[c + 1];
-    a1[j][0] *= rs[0];
-    a1[j][1] *= rs[0];
-    a1[j][2] *= rs[1];
-    a1[j][3] *= rs[1];
-    ua[j / 2][(j & 1) * 2] =
-        pack_bf16(gelu<bf16>(round_bf16(a1[j][0] * g0 + t0)),
-                  gelu<bf16>(round_bf16(a1[j][1] * g1 + t1)));
-    ua[j / 2][(j & 1) * 2 + 1] =
-        pack_bf16(gelu<bf16>(round_bf16(a1[j][2] * g0 + t0)),
-                  gelu<bf16>(round_bf16(a1[j][3] * g1 + t1)));
-  }
-}
-
-// the second product of one (d, e) block by halves of 64 lanes (f, g, c2):
-// a2 = u1g . W2[:, 64 half..] (f32)
-__device__ __forceinline__ void second_half(float (&a2)[8][4],
-                                            const uint32_t (&ua)[4][4],
-                                            const bf16* w2_s, int half,
-                                            int lane) {
-  using namespace dec;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) a2[j][0] = a2[j][1] = a2[j][2] = a2[j][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < C1 / 16; ++kk)
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t b[4];
-      load_b_kn<LD2>(b, w2_s, 16 * kk, 64 * half + 16 * np, lane);
-      mma16816(a2[2 * np], ua[kk], b[0], b[1]);
-      mma16816(a2[2 * np + 1], ua[kk], b[2], b[3]);
-    }
-}
-
-// The bf16 forward. Persistent blocks of SLOTS warp pairs (one block per
-// SM) hold W1 [C][LD1] and W2 [C1][LD2] in shared memory; a pair walks
-// 16-row tiles, warp `sub` taking the (d, e) blocks 2 sub, 2 sub + 1. Per
-// slot two stages of up rows [16][LD1]: the next tile's rows are copied in
-// while this tile computes. Per (d, e) block: the first product, its
-// LayerNorm and GELU (u1g kept as A fragments); once both warps are done
-// with the up rows their stage holds the tile's output rows [16][n_out *
-// 16] (f32); then by halves of 64 lanes (two (f, g)): the second product,
-// u2g = rnd(gelu(rnd(u2pre + b2))), and the hypernetwork sum over c2 as
-// m16n8k16 products of u2g (16 rows x 32 c2 per (f, g)) against hyper^T
-// (32 c2 x 8 mask tokens, zero past n_out). The tile's output rows are
-// contiguous in device memory and leave in 16-byte stores.
-__global__ void __launch_bounds__(RT, 1)
-    upscale_fwd_mma_kernel(const bf16* up, const bf16* w1, const float* b1,
-                           const float* g, const float* bt, const bf16* w2,
-                           const float* b2, const bf16* hyper, float* out,
-                           int bp, int m, int n_out, float eps) {
-  using namespace dec;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* w1_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* w2_s = w1_s + C * LD1;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int slot = warp >> 1, sub = warp & 1, pl = 32 * sub + lane;
-  const int gq = lane >> 2, tq = lane & 3;
-  bf16* stage0 = w2_s + C1 * LD2 + slot * 2 * 16 * LD1;
-  auto pair_sync = [&] {  // the pair's own barrier (0 is __syncthreads)
-    asm volatile("bar.sync %0, 64;\n" ::"r"(1 + slot) : "memory");
-  };
-  const int tpp = (m + 15) / 16, ntiles = bp * tpp, lanes = n_out * 16;
-  const int stride = gridDim.x * SLOTS;
-  auto load = [&](int tile, bf16* dst) {
-    const RowTile tl(tile, tpp, m);
-    slot_rows_async<C, LD1>(dst, up + tl.prow0 * C, min(16, m - tl.row0), pl);
-  };
-
-  int tile = blockIdx.x * SLOTS + slot;
-  block_weights_async<C, L1, LD1, RT>(w1_s, w1);
-  block_weights_async<C1, LQ, LD2, RT>(w2_s, w2);
-  if (tile < ntiles) load(tile, stage0);
-  cp_commit();
-  cp_wait<0>();
-  __syncthreads();
-
-  for (int it = 0; tile < ntiles; tile += stride, ++it) {
-    bf16* u_s = stage0 + (it & 1) * 16 * LD1;
-    cp_wait<0>();
-    pair_sync();  // the tile's up rows landed; the other stage is free
-    if (tile + stride < ntiles)
-      load(tile + stride, stage0 + ((it + 1) & 1) * 16 * LD1);
-    cp_commit();
-    const RowTile tl(tile, tpp, m);
-    const int valid = min(16, m - tl.row0);
-
-    uint32_t ua[2][4][4];
-#pragma unroll
-    for (int d = 0; d < 2; ++d) {
-      float a1[8][4], rs[2];
-      first_block(a1, rs, ua[d], u_s, w1_s, b1, g, bt, 2 * sub + d, eps,
-                  lane);
-    }
-    // hyper^T as B fragments, one per k16 step of c2: column = mask token
-    const bf16* hy = hyper + ((size_t)tl.pair * n_out + gq) * C2;
-    const bool tok = gq < n_out;
-    uint32_t hb[2][2];
-#pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
-      hb[kk][0] = tok ? ld_u32(hy + 16 * kk + 2 * tq) : 0u;
-      hb[kk][1] = tok ? ld_u32(hy + 16 * kk + 8 + 2 * tq) : 0u;
-    }
-    pair_sync();  // both warps are done with the up rows
-    float* o_s = reinterpret_cast<float*>(u_s);  // [16][lanes]
-    const bool t0 = 2 * tq < n_out, t1 = 2 * tq + 1 < n_out;
-#pragma unroll
-    for (int d = 0; d < 2; ++d) {
-      const int de = 2 * sub + d;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        float a2[8][4];
-        second_half(a2, ua[d], w2_s, half, lane);
-#pragma unroll
-        for (int hg = 0; hg < 2; ++hg) {  // a group of 4 n-tiles is one (f, g)
-          const int fg = 2 * half + hg;
-          uint32_t ha[2][4];  // u2g of (f, g): A fragments, k16 steps of c2
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {
-            const int j = 4 * hg + jj, c2 = 8 * jj + 2 * tq;
-            const float b0 = b2[c2], b1v = b2[c2 + 1];
-            ha[jj / 2][(jj & 1) * 2] =
-                pack_bf16(gelu<bf16>(round_bf16(a2[j][0] + b0)),
-                          gelu<bf16>(round_bf16(a2[j][1] + b1v)));
-            ha[jj / 2][(jj & 1) * 2 + 1] =
-                pack_bf16(gelu<bf16>(round_bf16(a2[j][2] + b0)),
-                          gelu<bf16>(round_bf16(a2[j][3] + b1v)));
-          }
-          float o[4] = {0.f, 0.f, 0.f, 0.f};
-          mma16816(o, ha[0], hb[0][0], hb[0][1]);
-          mma16816(o, ha[1], hb[1][0], hb[1][1]);
-          // o: rows g (o[0..1]), g + 8 (o[2..3]); tokens 2t, 2t + 1
-          const int l = 2 * tq * 16 + de * 4 + fg;
-          if (t0) {
-            o_s[gq * lanes + l] = o[0];
-            o_s[(gq + 8) * lanes + l] = o[2];
-          }
-          if (t1) {
-            o_s[gq * lanes + l + 16] = o[1];
-            o_s[(gq + 8) * lanes + l + 16] = o[3];
-          }
-        }
-      }
-    }
-    pair_sync();  // o_s holds the tile's output rows
-    const float4* src = reinterpret_cast<const float4*>(o_s);
-    float4* dst = reinterpret_cast<float4*>(out + tl.prow0 * lanes);
-    for (int i = pl; i < valid * lanes / 4; i += 64) dst[i] = src[i];
-  }
-}
 
 // The row pass on wgmma and TMA (upscale_bwd_rows_wgmma_kernel). A unit is
 // 64 rows (one m64 tile) of one pair: u = pair * tpp + tile, tpp = ceil(m
@@ -443,6 +213,36 @@ __device__ __forceinline__ void add_at(float (&acc)[2 * N], int b, int i,
     acc[i] += v;
   else
     acc[N + i] += v;
+}
+
+// u1pre of one (d, e) block (a wgmma m64n64 accumulator tile) -> y in
+// place: + b1, the LayerNorm over the block's 64 lanes in f32 (the mean,
+// then the centred variance, each over a lane quad); rs: 1/std of the
+// lane's rows g, g + 8 (the bf16 forward)
+__device__ __forceinline__ void layer_norm(float (&a)[32], float (&rs)[2],
+                                           const float* b1, float eps,
+                                           int t) {
+  float su[2] = {0.f, 0.f}, v[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 b = __ldg(reinterpret_cast<const float2*>(b1 + 8 * j + 2 * t));
+    a[4 * j] += b.x, a[4 * j + 1] += b.y;
+    a[4 * j + 2] += b.x, a[4 * j + 3] += b.y;
+    su[0] += a[4 * j] + a[4 * j + 1];
+    su[1] += a[4 * j + 2] + a[4 * j + 3];
+  }
+  const float mu[2] = {dec::quad_sum(su[0]) * (1.f / C1),
+                       dec::quad_sum(su[1]) * (1.f / C1)};
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    a[e] -= mu[(e >> 1) & 1];
+    v[(e >> 1) & 1] = fmaf(a[e], a[e], v[(e >> 1) & 1]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    rs[r] = rsqrtf(dec::quad_sum(v[r]) * (1.f / C1) + eps);
+#pragma unroll
+  for (int e = 0; e < 32; ++e) a[e] *= rs[(e >> 1) & 1];
 }
 
 }  // namespace rwu
@@ -888,6 +688,197 @@ __global__ void __launch_bounds__(rwu::NTH, 1)
   }
 }
 
+// The bf16 forward on wgmma and TMA (upscale_fwd_wgmma_kernel). A unit is
+// 64 rows (one m64 tile) of one pair, as in the row pass: u = pair * tpp +
+// tile, tpp = ceil(m / 64); block b takes units b, b + G, ... (G blocks).
+// Both warpgroups work on the block's unit, warpgroup w on the (d, e)
+// blocks 2 w and 2 w + 1, so a (d, e) block's LayerNorm reduces over a
+// lane quad alone and the unit's up rows are one slot for both.
+//   loads (thread 0): W1 (four slabs of 64 lanes x C rows) and W2 (two
+//     slabs of 64 lanes x C1 rows) once per block, as the row pass lands
+//     them; a unit's up rows as boxes of 64 columns x 64 rows in the
+//     128-byte swizzle (rows past M land as zero) into one of two slots,
+//     the next unit's while this one computes.
+//   per (d, e) block:
+//     u1pre = up . W1[:, de] (16 wgmma m64n64k16, up K-major, W1 MN-major),
+//       its LayerNorm over the 64 lanes (f32, quad shuffles), u1g =
+//       rnd(gelu(rnd(y g + bt))) into the next product's A fragments;
+//     u2pre = u1g . W2 (4 wgmma m64n128k16, A in registers, W2 MN-major);
+//     per (f, g) group of 32 lanes c2: u2g = rnd(gelu(rnd(u2pre + b2))) as
+//       the A fragments of the hypernetwork sum, two mma.sync m16n8k16 per
+//       warp straight from the accumulators against hyper^T (the pair's
+//       n_out <= 4 tokens padded to 8, B fragments from device memory);
+//     the block's outputs leave registers as 16-byte segments: a lane holds
+//       the four (f, g) of its rows and tokens, contiguous in the row.
+// The GELUs run on rwu::gelu_fast, the row pass's recompute. No partial
+// sums, no barrier but one a unit (both warpgroups are done with the slot
+// the next unit's rows land in). Shared memory: W1 (128 KB), W2 (16 KB),
+// two up slots (32 KB each), barriers.
+namespace fwu {
+
+constexpr int RR = rwu::RR;    // rows of a unit
+constexpr int NTH = 256;       // two warpgroups
+constexpr size_t SMEM = 1024 + rwu::WEIGHTS + 2 * (size_t)rwu::SLOT + 64;
+static_assert(SMEM <= 232448, "shared memory of the bf16 forward");
+
+}  // namespace fwu
+
+__global__ void __launch_bounds__(fwu::NTH, 1)
+    upscale_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_up,
+                             const __grid_constant__ CUtensorMap tm_w1,
+                             const __grid_constant__ CUtensorMap tm_w2,
+                             const float* b1, const float* g, const float* bt,
+                             const float* b2, const bf16* hyper, float* out,
+                             int bp, int m, int n_out, float eps) {
+  using namespace hop;
+  using namespace rwu;
+  using dec::ld_u32;
+  using dec::mma16816;
+  using dec::pack_bf16;
+  using dec::round_bf16;
+  extern __shared__ __align__(16) unsigned char smem_tma[];
+  unsigned char* base = smem_tma + ((1024 - (smem(smem_tma) & 1023)) & 1023);
+  unsigned char* w1_s = base;                // slab s: lanes 64 s.., C rows
+  unsigned char* w2_s = w1_s + 4 * W1_SLAB;  // slab s: lanes 64 s.., C1 rows
+  unsigned char* up_s = w2_s + 2 * W2_SLAB;  // two slots: unit k in k & 1
+  uint64_t* full = reinterpret_cast<uint64_t*>(up_s + 2 * SLOT);  // [2]
+  uint64_t* wbar = full + 2;
+  const int tpp = (m + RR - 1) / RR, units = bp * tpp, lanes = n_out * 16;
+  // the up rows of unit u into slot s (thread 0)
+  auto load_up = [&](int u, int s) {
+    const int pair = u / tpp, r0 = (u - pair * tpp) * RR;
+    mbar_expect_tx(full + s, SLOT);
+#pragma unroll
+    for (int b = 0; b < C / 64; ++b)
+      tma_load_3d(up_s + s * SLOT + b * BOX, &tm_up, full + s, 64 * b, r0,
+                  pair);
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(full, 1);
+    mbar_init(full + 1, 1);
+    mbar_init(wbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(wbar, WEIGHTS);
+    for (int s = 0; s < 4; ++s)
+      tma_load_2d(w1_s + s * W1_SLAB, &tm_w1, wbar, 64 * s, 0);
+    for (int s = 0; s < 2; ++s)
+      tma_load_2d(w2_s + s * W2_SLAB, &tm_w2, wbar, 64 * s, 0);
+    if (blockIdx.x < units) load_up(blockIdx.x, 0);
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wgi = warp >> 2, wq = warp & 3, t = lane & 3, gq = lane >> 2;
+  const int R0 = 16 * wq + gq;  // the lane's rows R0, R0 + 8
+  const uint64_t d_w1_mn = desc(w1_s, W1_SLAB, 1024, LAYOUT_SW128);
+  const uint64_t d_w2_mn = desc(w2_s, W2_SLAB, 1024, LAYOUT_SW128);
+  mbar_wait(wbar, 0);
+
+  int k = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x, ++k) {
+    const int pair = u / tpp, r0 = (u - pair * tpp) * RR, s = k & 1;
+    const bool ok0 = r0 + R0 < m, ok1 = r0 + R0 + 8 < m;
+    float* row0 = out + ((size_t)pair * m + r0 + R0) * lanes;
+    float* row1 = row0 + 8 * lanes;
+    named_sync(1, NTH);  // both warpgroups are done with the other slot
+    if (threadIdx.x == 0 && u + (int)gridDim.x < units)
+      load_up(u + gridDim.x, s ^ 1);
+    // hyper^T as mma.sync B fragments, one per k16 step of c2: column =
+    // mask token gq (zero past n_out)
+    const bf16* hy = hyper + ((size_t)pair * n_out + gq) * C2;
+    const bool tok = gq < n_out;
+    uint32_t hb[2][2];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      hb[kk][0] = tok ? ld_u32(hy + 16 * kk + 2 * t) : 0u;
+      hb[kk][1] = tok ? ld_u32(hy + 16 * kk + 8 + 2 * t) : 0u;
+    }
+    const uint64_t d_ups = desc(up_s + s * SLOT, 16, 1024, LAYOUT_SW128);
+    mbar_wait(full + s, (k >> 1) & 1);
+
+#pragma unroll 1
+    for (int d = 0; d < 2; ++d) {
+      const int de = 2 * wgi + d;
+      // u1pre = up . W1[:, de] + b1, its LayerNorm (f32: the mean, then the
+      // centred variance), y in a1
+      float a1[32];
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < C / 16; ++ks)
+        mma_bf16_ss_bmn<64>(a1, d_ups + 512 * (ks >> 2) + 2 * (ks & 3),
+                            d_w1_mn + 2048 * de + 128 * ks, ks > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(a1);
+      float rs[2];
+      layer_norm(a1, rs, b1, eps, t);
+      // u1g = rnd(gelu(rnd(y g + bt))): the next product's A fragments
+      // (one k16 step per two n-tiles)
+      uint32_t ua[4][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * t;
+        const float2 gg = __ldg(reinterpret_cast<const float2*>(g + c));
+        const float2 tb = __ldg(reinterpret_cast<const float2*>(bt + c));
+        ua[j / 2][(j & 1) * 2] =
+            pack_bf16(gelu_fast(round_bf16(a1[4 * j] * gg.x + tb.x)),
+                      gelu_fast(round_bf16(a1[4 * j + 1] * gg.y + tb.y)));
+        ua[j / 2][(j & 1) * 2 + 1] =
+            pack_bf16(gelu_fast(round_bf16(a1[4 * j + 2] * gg.x + tb.x)),
+                      gelu_fast(round_bf16(a1[4 * j + 3] * gg.y + tb.y)));
+      }
+
+      // u2pre = u1g . W2 over the 128 lanes (f, g, c2)
+      float a2[64];
+      fence_operands(ua);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < C1 / 16; ++ks)
+        mma_bf16_rs_mn<128>(a2, ua[ks], d_w2_mn + 128 * ks, ks > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(a2);
+      // per (f, g): u2g = rnd(gelu(rnd(u2pre + b2))) as A fragments (k16
+      // steps of c2), out[t] = sum_c2 u2g hyper[t] on mma.sync: o[fg] rows
+      // R0 (o[fg][0..1]) and R0 + 8 (o[fg][2..3]), tokens 2t, 2t + 1
+      float o[4][4];
+#pragma unroll
+      for (int fg = 0; fg < 4; ++fg) {
+        uint32_t ha[2][4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int j = 4 * fg + jj;
+          const float2 bb = __ldg(reinterpret_cast<const float2*>(
+              b2 + 8 * jj + 2 * t));
+          ha[jj / 2][(jj & 1) * 2] =
+              pack_bf16(gelu_fast(round_bf16(a2[4 * j] + bb.x)),
+                        gelu_fast(round_bf16(a2[4 * j + 1] + bb.y)));
+          ha[jj / 2][(jj & 1) * 2 + 1] =
+              pack_bf16(gelu_fast(round_bf16(a2[4 * j + 2] + bb.x)),
+                        gelu_fast(round_bf16(a2[4 * j + 3] + bb.y)));
+        }
+        o[fg][0] = o[fg][1] = o[fg][2] = o[fg][3] = 0.f;
+        mma16816(o[fg], ha[0], hb[0][0], hb[0][1]);
+        mma16816(o[fg], ha[1], hb[1][0], hb[1][1]);
+      }
+      // the lane's outputs: lanes (t, de, fg) of a row, the four fg of a
+      // token contiguous (16 bytes)
+      const int l = 2 * t * 16 + de * 4;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (2 * t + h >= n_out) continue;
+        if (ok0)
+          *reinterpret_cast<float4*>(row0 + l + 16 * h) =
+              make_float4(o[0][h], o[1][h], o[2][h], o[3][h]);
+        if (ok1)
+          *reinterpret_cast<float4*>(row1 + l + 16 * h) =
+              make_float4(o[0][2 + h], o[1][2 + h], o[2][2 + h], o[3][2 + h]);
+      }
+    }
+  }
+}
+
 // The weight pass: block (chunk, kind) sums over the chunk's rows
 //   kind 0, 1: dW1 rows 128 kind.. [C][L1] = up[:, 128 kind..]^T . rnd(d_u1pre)
 //   kind 2:    dW2 [4][C1][LQ], dW2[de] = u1g[de]^T . rnd(d_u2pre)[de]
@@ -1016,24 +1007,6 @@ int launch_bwd_dw(void* const* a, int rows, int chunk, int nchunks,
   return (int)cudaGetLastError();
 }
 
-int launch_fwd_mma(const void* up, const void* w1, const void* b1,
-                   const void* g, const void* bt, const void* w2,
-                   const void* b2, const void* hyper, void* out, int bp, int m,
-                   int n_out, int blocks, float eps, cudaStream_t stream) {
-  if (blocks < 1) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      upscale_fwd_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)FWD_MMA_SMEM);
-  if (e != cudaSuccess) return (int)e;
-  upscale_fwd_mma_kernel<<<blocks, RT, FWD_MMA_SMEM, stream>>>(
-      static_cast<const bf16*>(up), static_cast<const bf16*>(w1),
-      static_cast<const float*>(b1), static_cast<const float*>(g),
-      static_cast<const float*>(bt), static_cast<const bf16*>(w2),
-      static_cast<const float*>(b2), static_cast<const bf16*>(hyper),
-      static_cast<float*>(out), bp, m, n_out, eps);
-  return (int)cudaGetLastError();
-}
-
 
 // ---------------------------- f32 forward and backward, split TF32 ----
 // The f32 kernels: super-tiles of 64 rows, a warp pair per 16-row slot,
@@ -1061,7 +1034,7 @@ constexpr int RING32 = dec32::STAGES * W1_KS * (L1 + 8);
 static_assert(RING32 >= C1 * LDW2F, "W2 fits in the ring's space");
 constexpr size_t FWD_TF32_SMEM =
     sizeof(float) * ((size_t)dec32::ROWS * (LDT + MAXT * 16) + RING32);
-constexpr int CS32 = CS + 2 * L1;  // a slot's sums: db2, db1, dg, dbt
+constexpr int CS32 = 4 * LQ + 3 * L1;  // a slot's sums: db2, db1, dg, dbt
 constexpr size_t ROWS_TF32_SMEM =
     sizeof(float) * ((size_t)dec32::ROWS * (LDT + LDY) + RING32 +
                      dec32::SLOTS * CS32);
@@ -1219,10 +1192,10 @@ __global__ void __launch_bounds__(dec32::THREADS, 1)
     for (int j = 0; j < 16; ++j) {
       const int c = 8 * (j & 7) + 2 * tq, col = 128 * sub + 8 * j + 2 * tq;
       const float g0 = g[c], g1 = g[c + 1], e0 = bt[c], e1 = bt[c + 1];
-      dec32::st2(ts + gq * LDT + col, gelu<float>(a[j][0] * g0 + e0),
-                 gelu<float>(a[j][1] * g1 + e1));
-      dec32::st2(ts + (gq + 8) * LDT + col, gelu<float>(a[j][2] * g0 + e0),
-                 gelu<float>(a[j][3] * g1 + e1));
+      dec32::st2(ts + gq * LDT + col, gelu(a[j][0] * g0 + e0),
+                 gelu(a[j][1] * g1 + e1));
+      dec32::st2(ts + (gq + 8) * LDT + col, gelu(a[j][2] * g0 + e0),
+                 gelu(a[j][3] * g1 + e1));
     }
     uint32_t hb[4][4];
     hyper_frags(hb, hyper + (size_t)pair * n_out * C2, n_out, lane);
@@ -1240,10 +1213,10 @@ __global__ void __launch_bounds__(dec32::THREADS, 1)
         for (int j = 0; j < 8; ++j) {
           const int c2 = 8 * (j & 3) + 2 * tq;
           const float b0 = b2[c2], b1v = b2[c2 + 1];
-          a2[j][0] = gelu<float>(a2[j][0] + b0);
-          a2[j][1] = gelu<float>(a2[j][1] + b1v);
-          a2[j][2] = gelu<float>(a2[j][2] + b0);
-          a2[j][3] = gelu<float>(a2[j][3] + b1v);
+          a2[j][0] = gelu(a2[j][0] + b0);
+          a2[j][1] = gelu(a2[j][1] + b1v);
+          a2[j][2] = gelu(a2[j][2] + b0);
+          a2[j][3] = gelu(a2[j][3] + b1v);
         }
 #pragma unroll
         for (int hg = 0; hg < 2; ++hg) {  // a group of 4 n-tiles is one (f, g)
@@ -1335,10 +1308,10 @@ __global__ void __launch_bounds__(dec32::THREADS, 1)
         const float g0 = g[c], g1 = g[c + 1], e0 = bt[c], e1 = bt[c + 1];
         dec32::st2(ys + gq * LDY + col, a[j][0], a[j][1]);
         dec32::st2(ys + (gq + 8) * LDY + col, a[j][2], a[j][3]);
-        const float u0 = gelu<float>(a[j][0] * g0 + e0);
-        const float u1 = gelu<float>(a[j][1] * g1 + e1);
-        const float u2 = gelu<float>(a[j][2] * g0 + e0);
-        const float u3 = gelu<float>(a[j][3] * g1 + e1);
+        const float u0 = gelu(a[j][0] * g0 + e0);
+        const float u1 = gelu(a[j][1] * g1 + e1);
+        const float u2 = gelu(a[j][2] * g0 + e0);
+        const float u3 = gelu(a[j][3] * g1 + e1);
         dec32::st2(ts + gq * LDT + col, u0, u1);
         dec32::st2(ts + (gq + 8) * LDT + col, u2, u3);
         if (ok0) dec32::st2(u1g_rows + r0 * L1 + col, u0, u1);
@@ -1380,13 +1353,13 @@ __global__ void __launch_bounds__(dec32::THREADS, 1)
 #pragma unroll
             for (int e = 0; e < 4; ++e) {  // rows g (e < 2), g + 8; column e & 1
               const float u2 = a2[j][e] + b2[c2 + (e & 1)];
-              ug[jj][e] = gelu<float>(u2);
+              ug[jj][e] = gelu(u2);
               float du = 0.f;
 #pragma unroll
               for (int t = 0; t < MAXT; ++t)
                 if (t < n_out)
                   du = fmaf(dmv[e >> 1][t], hy[t * C2 + c2 + (e & 1)], du);
-              a2[j][e] = du * gelu_grad<float>(u2);  // d_u2pre
+              a2[j][e] = du * gelu_grad(u2);  // d_u2pre
             }
             vb2[2 * jj] = a2[j][0] + a2[j][2];
             vb2[2 * jj + 1] = a2[j][1] + a2[j][3];
@@ -1442,7 +1415,7 @@ __global__ void __launch_bounds__(dec32::THREADS, 1)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const float gc = g[c + (e & 1)];
-            const float d1 = a3[j][e] * gelu_grad<float>(y[e] * gc + bt[c + (e & 1)]);
+            const float d1 = a3[j][e] * gelu_grad(y[e] * gc + bt[c + (e & 1)]);
             a3[j][e] = d1;
             const float dyv = d1 * gc;
             if (e < 2) {
@@ -1735,6 +1708,44 @@ __global__ void __launch_bounds__(dwu::NTH, 1)
   }
 }
 
+int launch_fwd_wgmma(const void* up, const void* w1, const void* b1,
+                     const void* g, const void* bt, const void* w2,
+                     const void* b2, const void* hyper, void* out, int bp,
+                     int m, int n_out, int blocks, float eps,
+                     cudaStream_t stream) {
+  if (blocks < 1) return (int)cudaErrorInvalidValue;
+  // up (C, m, bp) in boxes of 64 columns x fwu::RR rows; W1 [C][L1] and W2
+  // [C1][LQ] in slabs of 64 lanes x all rows; all in the 128-byte swizzle
+  CUtensorMap maps[3];
+  const cuuint64_t up_dims[3] = {(cuuint64_t)C, (cuuint64_t)m,
+                                 (cuuint64_t)bp};
+  const cuuint64_t up_strides[2] = {2ull * C, 2ull * C * m};
+  const cuuint32_t up_box[3] = {64, (cuuint32_t)fwu::RR, 1};
+  const cuuint64_t w1_dims[2] = {(cuuint64_t)L1, (cuuint64_t)C};
+  const cuuint64_t w1_strides[1] = {2ull * L1};
+  const cuuint32_t w1_box[2] = {64, (cuuint32_t)C};
+  const cuuint64_t w2_dims[2] = {(cuuint64_t)LQ, (cuuint64_t)C1};
+  const cuuint64_t w2_strides[1] = {2ull * LQ};
+  const cuuint32_t w2_box[2] = {64, (cuuint32_t)C1};
+  const auto bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  if (!hop::tensor_map(maps, bf, 3, up, up_dims, up_strides, up_box, sw) ||
+      !hop::tensor_map(maps + 1, bf, 2, w1, w1_dims, w1_strides, w1_box,
+                       sw) ||
+      !hop::tensor_map(maps + 2, bf, 2, w2, w2_dims, w2_strides, w2_box, sw))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      upscale_fwd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)fwu::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  upscale_fwd_wgmma_kernel<<<blocks, fwu::NTH, fwu::SMEM, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<const float*>(b1),
+      static_cast<const float*>(g), static_cast<const float*>(bt),
+      static_cast<const float*>(b2), static_cast<const bf16*>(hyper),
+      static_cast<float*>(out), bp, m, n_out, eps);
+  return (int)cudaGetLastError();
+}
+
 int launch_fwd_tf32(const void* up, const void* w1, const void* b1,
                     const void* g, const void* bt, const void* w2,
                     const void* b2, const void* hyper, void* out, int bp,
@@ -1808,8 +1819,9 @@ int launch_bwd_dw_tf32(void* const* a, int rows, int chunk, int nchunks,
 // cudaError_t of the launch (0 = success); the caller raises on non-zero.
 extern "C" {
 
-// The forward on `blocks` persistent blocks: bf16 upscale_fwd_mma_kernel,
-// f32 upscale_fwd_tf32_kernel.
+// The forward on `blocks` persistent blocks: bf16 upscale_fwd_wgmma_kernel
+// (the plan of ops/upscaler.py::upscale_fwd_plan_bf16), f32
+// upscale_fwd_tf32_kernel.
 int dhoct_upscale_fwd(const void* up, const void* w1, const void* b1,
                       const void* g, const void* bt, const void* w2,
                       const void* b2, const void* hyper, void* out, int bp,
@@ -1817,8 +1829,8 @@ int dhoct_upscale_fwd(const void* up, const void* w1, const void* b1,
                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_out < 1 || n_out > MAXT || m < 1) return (int)cudaErrorInvalidValue;
-  return dtype == 1 ? launch_fwd_mma(up, w1, b1, g, bt, w2, b2, hyper, out,
-                                     bp, m, n_out, blocks, eps, s)
+  return dtype == 1 ? launch_fwd_wgmma(up, w1, b1, g, bt, w2, b2, hyper,
+                                       out, bp, m, n_out, blocks, eps, s)
                     : launch_fwd_tf32(up, w1, b1, g, bt, w2, b2, hyper, out,
                                       bp, m, n_out, blocks, eps, s);
 }

@@ -10,7 +10,8 @@ upscale never exists in device memory. On a CUDA tensor it launches the
 hand-written kernels of ``csrc/upscaler.cu``:
 
   * ``upscale_fwd`` replacing the TPU ``_fused_fwd`` (``_fwd_kernel``), one
-    persistent block per SM: in bf16 ``upscale_fwd_mma_kernel``, in f32
+    persistent block per SM: in bf16 ``upscale_fwd_wgmma_kernel`` on wgmma
+    with TMA loads (``upscale_fwd_plan_bf16``), in f32
     ``upscale_fwd_tf32_kernel`` (split TF32: hi.hi + hi.lo + lo.hi on the
     TF32 tensor cores, f32 accuracy);
   * the backward replacing the TPU ``_fused_bwd`` (``_bwd_kernel``): it
@@ -66,8 +67,8 @@ from .. import kernels
 LAUNCHES = {"upscale_fwd": 0, "upscale_bwd": 0, "upscale_bwd_dw": 0}
 CHANNELS = 256     # the only decoder width the CUDA kernels take (every SAM)
 MAX_OUT = 4        # mask tokens per pair the kernels take
-ROW_SLOTS = 4      # 16-row tiles in flight per block, a warp pair each
-                   # (the bf16 forward and the f32 row pass)
+ROW_SLOTS = 4      # 16-row tiles in flight per block of the f32 row pass,
+                   # a warp pair each
 # the bf16 row pass (rwu:: in csrc/upscaler.cu): units of 64 rows of a
 # pair, both warpgroups on a unit, one slot of its up rows and one of its
 # rnd(d_u1pre) rows (32 KB each) beside W1 and W2 (144 KB), the
@@ -79,6 +80,10 @@ ROWS_PARTS = 4
 ROWS_SMEM = 1024 + 2 * (ROWS_RR * 2 * CHANNELS) + 2 * (
     CHANNELS * CHANNELS + (CHANNELS // 4) * (CHANNELS // 2)) + 2 * 4 * (
     4 * MAX_OUT * 128) + 2 * 2 * MAX_OUT * (CHANNELS // 8) + 64
+# the bf16 forward (fwu::): units of 64 rows of a pair shared by both
+# warpgroups, W1 and W2 (144 KB) beside two slots of up rows (32 KB each)
+FWD_SMEM = 1024 + 2 * (CHANNELS * CHANNELS + (CHANNELS // 4) * (
+    CHANNELS // 2)) + 2 * (ROWS_RR * 2 * CHANNELS) + 64
 F32_ROWS = 64      # rows of an f32 super-tile (dec32::ROWS)
 DW_ROWS = 32       # rows per stage of the bf16 weight pass (dec::DW_SR)
 DW32_ROWS = 16     # rows per stage of the f32 weight pass (dwu::KR)
@@ -189,15 +194,21 @@ def _bwd_rows(up, dm, w1, b1, g, bt, w2, b2, hyper, eps):
 
 @dataclasses.dataclass(frozen=True)
 class RowsPlan:
-    """The launch plan of the bf16 row pass (``upscale_bwd_rows_wgmma_kernel``):
-    units of ``rows`` rows of one pair (unit u: pair u // tpp, rows
-    ``rows`` * (u % tpp).., tpp = ceil(m / rows)), the ``units``, the
-    persistent ``blocks`` (block b takes units b, b + blocks, ...) and the
-    block's shared memory in bytes."""
+    """The launch plan of K3's bf16 kernels on units of rows (the row pass
+    ``upscale_bwd_rows_wgmma_kernel`` and the forward
+    ``upscale_fwd_wgmma_kernel``): units of ``rows`` rows of one pair (unit
+    u: pair u // tpp, rows ``rows`` * (u % tpp).., tpp = ceil(m / rows)),
+    the ``units``, the persistent ``blocks`` (block b takes units b, b +
+    blocks, ...) and the block's shared memory in bytes."""
     rows: int
     units: int
     blocks: int
     smem: int
+
+
+def _units_plan(bp, m, sm_count, smem):
+    units = bp * -(-m // ROWS_RR)
+    return RowsPlan(ROWS_RR, units, max(1, min(sm_count, units)), smem)
 
 
 @functools.lru_cache(maxsize=None)
@@ -205,8 +216,14 @@ def rows_plan_bf16(bp: int, m: int, sm_count: int) -> RowsPlan:
     """The bf16 row pass's plan over ``bp`` pairs of ``m`` rows: units of
     64 rows, one block an SM at most (a block's two consumer warpgroups
     share its unit)."""
-    units = bp * -(-m // ROWS_RR)
-    return RowsPlan(ROWS_RR, units, max(1, min(sm_count, units)), ROWS_SMEM)
+    return _units_plan(bp, m, sm_count, ROWS_SMEM)
+
+
+@functools.lru_cache(maxsize=None)
+def upscale_fwd_plan_bf16(bp: int, m: int, sm_count: int) -> RowsPlan:
+    """The bf16 forward's plan (``upscale_fwd_wgmma_kernel``): units of 64
+    rows of a pair, both warpgroups on a unit, one block an SM at most."""
+    return _units_plan(bp, m, sm_count, FWD_SMEM)
 
 
 def upscale_bwd_rows_plain(up, dm, w1, b1, g, bt, w2, b2, hyper,
@@ -329,13 +346,11 @@ def _kernel_shapes(up, w1, w2, hyper):
 
 def _blocks(dev, dt, bp: int, m: int) -> int:
     """Persistent blocks of the K3 forward and the f32 row pass: one per
-    SM, at most one per ROW_SLOTS 16-row tiles (bf16) or per 64-row
-    super-tile (f32)."""
+    SM, at most one per 64-row unit (bf16, ``upscale_fwd_plan_bf16``) or
+    per 64-row super-tile (f32)."""
     if dt == torch.bfloat16:
-        work = -(-bp * -(-m // 16) // ROW_SLOTS)
-    else:
-        work = bp * -(-m // F32_ROWS)
-    return min(kernels.sm_count(dev), work)
+        return upscale_fwd_plan_bf16(bp, m, kernels.sm_count(dev)).blocks
+    return min(kernels.sm_count(dev), bp * -(-m // F32_ROWS))
 
 
 def upscale_fwd_cuda(up, w1, b1, g, bt, w2, b2, hyper, eps: float = 1e-6):

@@ -1,7 +1,8 @@
 """Where a kernel's time goes, by variants built from a copy of its source.
 
     python -m dilabhelmholtzoct_tpu_torch.utils.kernel_variants \
-        [--target k2 | k4_rows | k3_rows | k4_fwd] [--only a,b]
+        [--target k2 | k4_rows | k3_rows | k4_fwd | k3_fwd | k3_rows_f32]
+        [--only a,b]
         [--out build/variants.json]
 
 Each variant is the kernel's source with a text patch: one part of the work
@@ -34,6 +35,22 @@ Targets:
   stores, or without the per-warpgroup scratch in device memory (its
   per-head stores alone, the values kept live in registers; or its
   per-head stores and loads, the loads' values made up in registers).
+* ``k3_rows``: the bf16 K3 row pass ``upscale_bwd_rows_wgmma_kernel``
+  (``csrc/upscaler.cu``) at 64 pairs x 4096 rows, n_out 1 and 4: without
+  its scratch-row, d_up or d_hyper stores, with tanh made linear, or with
+  dm and hyper made up.
+* ``k3_fwd``: the bf16 K3 forward ``upscale_fwd_wgmma_kernel`` at 64 pairs
+  x 4096 rows, n_out 1 and 4: its wgmma chains cut to one k-step each,
+  without the hypernetwork sums on mma.sync, the GELUs made linear, without
+  the LayerNorm's reductions, the up rows not loaded, the outputs not
+  stored; and the hypernetwork sums on wgmma m64n8k16 from a shared
+  hyper^T instead of mma.sync (``hyper_wgmma``).
+* ``k3_rows_f32``: the f32 K3 row pass ``upscale_bwd_rows_tf32_kernel``
+  (split TF32 on mma.sync) at 64 pairs x 4096 rows, n_out 1 and 4:
+  without its W2 products, its d_up product and W1^T's stream, its u1pre
+  product and W1's stream, the erf GELU and its derivative made linear,
+  without the LayerNorms' reductions, the up rows not loaded and dm made
+  up, without its scratch-row, d_up or per-16-row d_hyper stores.
 """
 
 from __future__ import annotations
@@ -362,6 +379,244 @@ def _k4_fwd_cases(dev, gen):
                lambda: i2t.i2t_fwd_plain(*args, **kw))
 
 
+# --------------------------------------------------- k3_fwd, k3_rows_f32 ----
+def _keep_fn(anchor):
+    """A patch that puts ``keep(float)`` (a value kept live, no work) before
+    ``anchor``."""
+    return (anchor, "__device__ __forceinline__ void keep(float a) {\n"
+                    '  asm volatile("" ::"f"(a));\n'
+                    "}\n" + anchor)
+
+
+_HYPER_WGMMA = [
+    ("namespace fwu {\n",
+     "namespace fwu {\n"
+     "// d (m64 x 8 f32) (+)= A . B, bf16, A from registers, B K-major\n"
+     "__device__ __forceinline__ void mma_n8(float* d, const uint32_t (&a)[4],\n"
+     "                                       uint64_t db, int acc) {\n"
+     "  asm volatile(\n"
+     '      "{\\n.reg .pred p;\\nsetp.ne.b32 p, %9, 0;\\n"\n'
+     '      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "\n'
+     '      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\\n}\\n"\n'
+     '      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])\n'
+     '      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));\n'
+     "}\n"),
+    ("constexpr size_t SMEM = 1024 + rwu::WEIGHTS + 2 * (size_t)rwu::SLOT + 64;",
+     "constexpr size_t SMEM = 1024 + rwu::WEIGHTS + 2 * (size_t)rwu::SLOT + 64 + 1024;"),
+    ("  uint64_t* wbar = full + 2;\n"
+     "  const int tpp = (m + RR - 1) / RR, units = bp * tpp, lanes = n_out * 16;\n"
+     "  // the up rows of unit u into slot s (thread 0)",
+     "  uint64_t* wbar = full + 2;\n"
+     "  unsigned char* hy_s = reinterpret_cast<unsigned char*>(full + 8);\n"
+     "  const int tpp = (m + RR - 1) / RR, units = bp * tpp, lanes = n_out * 16;\n"
+     "  // the up rows of unit u into slot s (thread 0)"),
+    ("    named_sync(1, NTH);  // both warpgroups are done with the other slot\n",
+     "    if (threadIdx.x < 64) {  // hyper^T: [k16 step][k half][token][8]\n"
+     "      const int n = threadIdx.x & 7, kh = (threadIdx.x >> 3) & 1,\n"
+     "                kq = threadIdx.x >> 4;\n"
+     "      *reinterpret_cast<uint4*>(hy_s + (k & 1) * 512 + 16 * threadIdx.x) =\n"
+     "          n < n_out ? *reinterpret_cast<const uint4*>(\n"
+     "                          hyper + ((size_t)pair * n_out + n) * C2 + 16 * kq + 8 * kh)\n"
+     "                    : make_uint4(0u, 0u, 0u, 0u);\n"
+     "    }\n"
+     "    fence_proxy_async();\n"
+     "    named_sync(1, NTH);  // both warpgroups are done with the other slot\n"
+     "    const uint64_t d_hy = desc(hy_s + (k & 1) * 512, 128, 256, LAYOUT_NONE);\n"),
+    ("      float o[4][4];\n"
+     "#pragma unroll\n"
+     "      for (int fg = 0; fg < 4; ++fg) {\n"
+     "        uint32_t ha[2][4];\n",
+     "      float o[4][4];\n"
+     "      uint32_t hall[4][2][4];\n"
+     "#pragma unroll\n"
+     "      for (int fg = 0; fg < 4; ++fg) {\n"
+     "        uint32_t (&ha)[2][4] = hall[fg];\n"),
+    ("        o[fg][0] = o[fg][1] = o[fg][2] = o[fg][3] = 0.f;\n"
+     "        mma16816(o[fg], ha[0], hb[0][0], hb[0][1]);\n"
+     "        mma16816(o[fg], ha[1], hb[1][0], hb[1][1]);\n"
+     "      }\n",
+     "      }\n"
+     "#pragma unroll\n"
+     "      for (int fg = 0; fg < 4; ++fg) fence_operands(hall[fg]);\n"
+     "      wgmma_fence();\n"
+     "#pragma unroll\n"
+     "      for (int fg = 0; fg < 4; ++fg) {\n"
+     "        fwu::mma_n8(o[fg], hall[fg][0], d_hy, 0);\n"
+     "        fwu::mma_n8(o[fg], hall[fg][1], d_hy + 16, 1);\n"
+     "      }\n"
+     "      wgmma_commit();\n"
+     "      wgmma_wait<0>();\n"
+     "#pragma unroll\n"
+     "      for (int fg = 0; fg < 4; ++fg) fence_operands(o[fg]);\n"
+     "      (void)hb;\n"),
+]
+
+K3_FWD_VARIANTS = {
+    "base": [],
+    # the two wgmma chains cut to one k-step each (u1pre: 1 of 16, u2pre: 1
+    # of 4)
+    "no_products": [
+        ("      for (int ks = 0; ks < C / 16; ++ks)",
+         "      for (int ks = 0; ks < 1; ++ks)"),
+        ("      for (int ks = 0; ks < C1 / 16; ++ks)",
+         "      for (int ks = 0; ks < 1; ++ks)")],
+    # the hypernetwork sums on mma.sync as adds of their operands
+    "no_hyper_mma": [
+        ("        mma16816(o[fg], ha[0], hb[0][0], hb[0][1]);\n"
+         "        mma16816(o[fg], ha[1], hb[1][0], hb[1][1]);",
+         "        o[fg][0] = __uint_as_float(ha[0][0] ^ ha[1][1] ^ hb[0][0]);\n"
+         "        o[fg][1] = __uint_as_float(ha[0][2] ^ ha[1][3] ^ hb[1][1]);\n"
+         "        o[fg][2] = __uint_as_float(ha[0][1] ^ hb[0][1]);\n"
+         "        o[fg][3] = __uint_as_float(ha[1][0] ^ hb[1][0]);")],
+    # the hypernetwork sums on wgmma m64n8k16 instead (A: u2g from
+    # registers, B: the pair's hyper^T, tokens padded to 8, K-major in
+    # shared memory; a unit's copy written by 64 threads, double-buffered
+    # by unit): all four (f, g) of a block issued, then one wait
+    "hyper_wgmma": _HYPER_WGMMA,
+    # the GELUs (768 a row) made linear
+    "no_gelu": [
+        ("  return 1.f - __fdividef(2.f, attn::mma::exp2_approx(2.8853900817779268f * x) +\n"
+         "                                   1.f);",
+         "  return 0.25f * x;")],
+    # the LayerNorm's quad reductions and rsqrt taken out (rwu::layer_norm)
+    "no_ln_sums": [
+        ("  const float mu[2] = {dec::quad_sum(su[0]) * (1.f / C1),\n"
+         "                       dec::quad_sum(su[1]) * (1.f / C1)};",
+         "  const float mu[2] = {su[0] * (1.f / C1), su[1] * (1.f / C1)};"),
+        ("    rs[r] = rsqrtf(dec::quad_sum(v[r]) * (1.f / C1) + eps);",
+         "    rs[r] = v[r] * (1.f / C1) + eps;")],
+    # tanh as one MUFU operation (tanh.approx.f32) instead of ex2 and rcp
+    "tanh_approx": [
+        ("  return 1.f - __fdividef(2.f, attn::mma::exp2_approx(2.8853900817779268f * x) +\n"
+         "                                   1.f);",
+         "  float y;\n"
+         '  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));\n'
+         "  return y;")],
+    # the up rows not loaded (the barrier completed without bytes)
+    "no_row_loads": [
+        ("    mbar_expect_tx(full + s, SLOT);\n"
+         "#pragma unroll\n"
+         "    for (int b = 0; b < C / 64; ++b)\n"
+         "      tma_load_3d(up_s + s * SLOT + b * BOX, &tm_up, full + s, 64 * b, r0,\n"
+         "                  pair);",
+         "    mbar_arrive(full + s);\n"
+         "    (void)r0;")],
+    # the output rows not stored (their values kept live)
+    "no_out_stores": [
+        _keep_fn("namespace fwu {\n"),
+        ("        if (ok0)\n"
+         "          *reinterpret_cast<float4*>(row0 + l + 16 * h) =\n"
+         "              make_float4(o[0][h], o[1][h], o[2][h], o[3][h]);\n"
+         "        if (ok1)\n"
+         "          *reinterpret_cast<float4*>(row1 + l + 16 * h) =\n"
+         "              make_float4(o[0][2 + h], o[1][2 + h], o[2][2 + h], o[3][2 + h]);",
+         "        keep(o[0][h] + o[1][h] + o[2][h] + o[3][h] + o[0][2 + h] +\n"
+         "             o[1][2 + h] + o[2][2 + h] + o[3][2 + h]);")],
+}
+
+K3_ROWS_F32_VARIANTS = {
+    "base": [],
+    # the two W2 products (u2pre, d_u1g) as adds of their operands
+    "no_w2_products": [
+        ("    for (int j = 0; j < 8; ++j) mma3(a2[j], a, b[8 * j], b[4 * LDW2F + 8 * j]);",
+         "    for (int j = 0; j < 8; ++j) a2[j][0] += a.lo[0] + b[8 * j] + b[4 * LDW2F + 8 * j];"),
+        ("            mma3(a3[jn], a, v.x, v.y);",
+         "            a3[jn][0] += a.lo[0] + v.x + v.y;")],
+    # no d_up product and no stream of W1^T
+    "no_dup_product": [
+        ("    dec32::stream_product<L1, C, W1_KS, 16>(\n"
+         "        a4, w1t, ring, 128 * sub,\n"
+         "        [&](Frag& f, int k0) { load_a(f, ts, LDT, 0, k0, lane); }, lane);",
+         "    a4[0][0] = ts[lane];")],
+    # no u1pre product and no stream of W1 (u1pre = up's own values)
+    "no_u1pre_product": [
+        ("  dec32::stream_product<C, L1, W1_KS, 16>(\n"
+         "      a, w1, ring, 128 * sub,\n"
+         "      [&](Frag& f, int k0) { load_a(f, ts, LDT, 0, k0, lane); }, lane);",
+         "  for (int j = 0; j < 16; ++j) a[j][0] = ts[j * 4 + lane];\n"
+         "  __syncthreads();")],
+    # the erf GELU and its derivative made linear
+    "no_gelu": [
+        ("  return 0.5f * x * (1.f + erff(x * 0.7071067811865476f));\n}",
+         "  return 0.5f * x;\n}"),
+        ("  const float phi = expf(-0.5f * x * x) * 0.3989422804014327f;\n"
+         "  return 0.5f * (1.f + erff(x * 0.7071067811865476f)) + x * phi;",
+         "  return 0.5f + 0.25f * x;")],
+    # the LayerNorms' quad reductions (forward and backward) taken out
+    "no_ln_sums": [
+        ("    rs[d][0] = rsqrtf(quad_sum(v0) * (1.f / C1) + eps);\n"
+         "    rs[d][1] = rsqrtf(quad_sum(v1) * (1.f / C1) + eps);",
+         "    rs[d][0] = v0 * (1.f / C1) + eps;\n"
+         "    rs[d][1] = v1 * (1.f / C1) + eps;"),
+        ("    const float mu0 = quad_sum(su0) * (1.f / C1);\n"
+         "    const float mu1 = quad_sum(su1) * (1.f / C1);\n"
+         "    float v0 = 0.f, v1 = 0.f;",
+         "    const float mu0 = su0 * (1.f / C1);\n"
+         "    const float mu1 = su1 * (1.f / C1);\n"
+         "    float v0 = 0.f, v1 = 0.f;"),
+        ("      const float m10 = quad_sum(sa0) * (1.f / C1), m20 = quad_sum(sb0) * (1.f / C1);\n"
+         "      const float m11 = quad_sum(sa1) * (1.f / C1), m21 = quad_sum(sb1) * (1.f / C1);",
+         "      const float m10 = sa0 * (1.f / C1), m20 = sb0 * (1.f / C1);\n"
+         "      const float m11 = sa1 * (1.f / C1), m21 = sb1 * (1.f / C1);")],
+    # the up rows not copied in, dm made up from indices
+    "no_row_loads": [
+        ("    dec32::rows_async<C, LDT>(t_s, up + ((size_t)pair * m + srow0) * C,\n"
+         "                              m - srow0);",
+         "    (void)srow0;"),
+        ("            dmv[0][t] = (t < n_out && ok0) ? dm0[l] : 0.f;\n"
+         "            dmv[1][t] = (t < n_out && ok1) ? dm1[l] : 0.f;",
+         "            dmv[0][t] = (t < n_out && ok0) ? 0.01f * l : 0.f;\n"
+         "            dmv[1][t] = (t < n_out && ok1) ? 0.02f * l : 0.f;")],
+    # the scratch rows u1g, d_u2pre, d_u1pre not stored
+    "no_scratch_stores": [
+        ("        if (ok0) dec32::st2(u1g_rows + r0 * L1 + col, u0, u1);\n"
+         "        if (ok1) dec32::st2(u1g_rows + r1 * L1 + col, u2, u3);",
+         "        keep(u0 + u1 + u2 + u3);"),
+        ("            if (ok0) dec32::st2(d2_rows + r0 * 4 * LQ + q, a2[j][0], a2[j][1]);\n"
+         "            if (ok1) dec32::st2(d2_rows + r1 * 4 * LQ + q, a2[j][2], a2[j][3]);",
+         "            (void)q;"),
+        ("          if (ok0) dec32::st2(du1_rows + r0 * L1 + C1 * de + c, e0, e1);\n"
+         "          if (ok1) dec32::st2(du1_rows + r1 * L1 + C1 * de + c, e2, e3);",
+         ""),
+        _keep_fn("// W2 [C1][LQ] -> the ring's space, rows of LDW2F, asynchronously\n")],
+    # d_up not stored
+    "no_dup_stores": [
+        ("      if (ok0) dec32::st2(d_up + r0 * C + c, a4[j][0], a4[j][1]);\n"
+         "      if (ok1) dec32::st2(d_up + r1 * C + c, a4[j][2], a4[j][3]);",
+         "      keep(a4[j][0] + a4[j][1] + a4[j][2] + a4[j][3]);"),
+        _keep_fn("// W2 [C1][LQ] -> the ring's space, rows of LDW2F, asynchronously\n")],
+    # the per-16-row d_hyper partials not stored (their sums kept live)
+    "no_dht_stores": [
+        ("                ht[(size_t)t * 4 * LQ] = group_sum8(vh, lane);",
+         "                keep(group_sum8(vh, lane));"),
+        _keep_fn("// W2 [C1][LQ] -> the ring's space, rows of LDW2F, asynchronously\n")],
+}
+
+
+def _k3_fwd_cases(dev, gen):
+    bp, m, bf = 64, 4096, torch.bfloat16
+    r = lambda *s, k=1.0: k * torch.randn(s, generator=gen, device=dev)
+    for n_out in (1, 4):
+        args = (r(bp, m, 256).to(bf), r(256, 2, 2, 64, k=0.06).to(bf),
+                r(64, k=0.1), 1 + r(64, k=0.1), r(64, k=0.1),
+                r(64, 2, 2, 32, k=0.12).to(bf), r(32, k=0.1),
+                r(bp, n_out, 32).to(bf))
+        yield (f"k3_fwd_n{n_out}", lambda: up_op.upscale_fwd_cuda(*args),
+               lambda: up_op.upscale_fwd_plain(*args))
+
+
+def _k3_rows_f32_cases(dev, gen):
+    bp, m = 64, 4096
+    r = lambda *s, k=1.0: k * torch.randn(s, generator=gen, device=dev)
+    for n_out in (1, 4):
+        args = (r(bp, m, 256), r(bp, m, n_out * 16), r(256, 2, 2, 64, k=0.06),
+                r(64, k=0.1), 1 + r(64, k=0.1), r(64, k=0.1),
+                r(64, 2, 2, 32, k=0.12), r(32, k=0.1), r(bp, n_out, 32))
+        yield (f"k3_rows_f32_n{n_out}",
+               lambda: up_op.upscale_bwd_rows_cuda(*args),
+               lambda: up_op.upscale_bwd_rows_plain(*args))
+
+
 def _k2_dims(src):
     assert src.count(_ALL_DIMS) == 1, "the head-dim switch moved"
     return src.replace(_ALL_DIMS, _SOME_DIMS)
@@ -379,6 +634,10 @@ TARGETS = {
                 K3_VARIANTS, _k3_cases, lambda s: s),
     "k4_fwd": ("decoder_attn", "decoder_attn.cu", "i2t_fwd_wgmma_kernel",
                K4_FWD_VARIANTS, _k4_fwd_cases, lambda s: s),
+    "k3_fwd": ("upscaler", "upscaler.cu", "upscale_fwd_wgmma_kernel",
+               K3_FWD_VARIANTS, _k3_fwd_cases, lambda s: s),
+    "k3_rows_f32": ("upscaler", "upscaler.cu", "upscale_bwd_rows_tf32_kernel",
+                    K3_ROWS_F32_VARIANTS, _k3_rows_f32_cases, lambda s: s),
 }
 
 

@@ -1075,9 +1075,10 @@ def test_i2t_fwd_mma_on_card(cuda_device, pb, n_tok, m):
 @pytest.mark.gpu
 @pytest.mark.parametrize("bp,m,n_out", [(3, 100, 1), (2, 37, 4), (5, 64, 3)])
 def test_upscale_fwd_mma_on_card(cuda_device, bp, m, n_out):
-    """The bf16 K3 forward on the tensor cores (``upscale_fwd_mma_kernel``)
-    against ``upscale_fwd_plain`` (K34_TOL: 2e-2 of max |out|), on a ragged
-    m and 1-4 mask tokens; the same bits on a second call."""
+    """The bf16 K3 forward on the tensor cores (``upscale_fwd_wgmma_kernel``:
+    wgmma, and mma.sync for the hypernetwork sum) against
+    ``upscale_fwd_plain`` (K34_TOL: 2e-2 of max |out|), on a ragged m and
+    1-4 mask tokens; the same bits on a second call."""
     from dilabhelmholtzoct_tpu_torch.ops import upscaler as up_op
 
     gen = torch.Generator(device=cuda_device).manual_seed(6)
@@ -1325,6 +1326,35 @@ def test_upscale_tf32_launches_on_card(cuda_device, bp, m, n_out):
     assert torch.equal(out, up_op.upscale_fwd_cuda(*args))
     assert _same_bits(rows, up_op.upscale_bwd_rows_cuda(*bw))
     assert _same_bits(dw, up_op.upscale_bwd_dw_cuda(*scratch))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bp,m,n_out", [(3, 100, 1), (3, 100, 4),
+                                        (2, 100, 2), (2, 4096, 1),
+                                        (2, 4096, 3), (5, 4096, 4)])
+def test_upscale_fwd_wgmma_on_card(cuda_device, bp, m, n_out):
+    """The bf16 K3 forward on wgmma and TMA (``upscale_fwd_wgmma_kernel``, on
+    the units of ``upscale_fwd_plan_bf16``) against ``upscale_fwd_plain``
+    (K34_TOL: 2e-2 of max |out|) at M = 100 (a ragged last unit) and 4096,
+    1-4 mask tokens; one launch, and the same bits on a second call."""
+    from dilabhelmholtzoct_tpu_torch.ops import upscaler as up_op
+
+    gen = torch.Generator(device=cuda_device).manual_seed(25)
+    bf, f32 = torch.bfloat16, torch.float32
+    r = lambda *s, k=1.0, dt=bf: (torch.randn(
+        s, generator=gen, device=cuda_device) * k).to(dt)
+    args = (r(bp, m, 256), r(256, 2, 2, 64, k=0.06), r(64, k=0.1, dt=f32),
+            1 + r(64, k=0.1, dt=f32), r(64, k=0.1, dt=f32),
+            r(64, 2, 2, 32, k=0.12), r(32, k=0.1, dt=f32), r(bp, n_out, 32))
+    before = up_op.LAUNCHES["upscale_fwd"]
+    got = up_op.upscale_fwd_cuda(*args)
+    torch.cuda.synchronize()
+    assert up_op.LAUNCHES["upscale_fwd"] == before + 1
+    want = up_op.upscale_fwd_plain(*args)
+    assert got.shape == want.shape == (bp, m, n_out * 16)
+    assert got.dtype == want.dtype == f32
+    _rel_close(got, want, K34_TOL[bf], "masks")
+    assert torch.equal(got, up_op.upscale_fwd_cuda(*args))
 
 
 @pytest.mark.gpu

@@ -17,8 +17,10 @@ blocks) with the column sums taken over its partials,
 ``ops.decoder_attn.fwd_plan_bf16`` (the bf16 K4 forward: units of an
 image's rows with all of its pairs, ring, blocks) and
 ``ops.upscaler.rows_plan_bf16`` (the bf16 K3 row pass: units, ring,
-blocks, shared memory) with its partials. The kernels themselves run
-only on the card (``tests/test_torch_kernels_gpu.py``)."""
+blocks, shared memory) with its partials, and
+``ops.upscaler.upscale_fwd_plan_bf16`` (the bf16 K3 forward). The
+kernels themselves run only on the card
+(``tests/test_torch_kernels_gpu.py``)."""
 
 import pytest
 import torch
@@ -866,3 +868,33 @@ def test_upscale_rows_plain_bf16_sums_the_plan_in_order(bp, m, n_out, sms):
         assert a.dtype == b.dtype == torch.float32
         torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-5 * float(
             a.abs().max()))
+
+
+
+@pytest.mark.parametrize("bp,m,sms", [(64, 4096, 132), (64, 4096, 8),
+                                      (3, 129, 132), (5, 37, 8), (1, 1, 132),
+                                      (3, 100, 132), (200, 64, 132)])
+def test_upscale_fwd_plan_bf16_covers_every_row_once(bp, m, sms):
+    """The bf16 K3 forward's plan (``upscale_fwd_plan_bf16``): unit u is rows
+    64 (u % tpp).. of pair u // tpp, M need not be a multiple of 64; block
+    b takes units b, b + G, ..., both its warpgroups on each. Every row is
+    in exactly one unit, the blocks are at most one an SM and one a unit,
+    and the shared memory (W1, W2 and two up slots) fits a block."""
+    plan = port_up.upscale_fwd_plan_bf16(bp, m, sms)
+    tpp = -(-m // plan.rows)
+    assert plan.rows == 64 and plan.units == bp * tpp
+    assert 1 <= plan.blocks <= min(sms, plan.units)
+    assert plan.smem == 214080 <= port_attn.SMEM_MAX
+    taken = torch.zeros(bp, m, dtype=torch.long)
+    for blk in range(plan.blocks):
+        for u in range(blk, plan.units, plan.blocks):
+            pair, tile = divmod(u, tpp)
+            taken[pair, plan.rows * tile:plan.rows * (tile + 1)] += 1
+    assert torch.equal(taken, torch.ones_like(taken))
+
+
+def test_upscale_fwd_plan_bf16_pinned():
+    """At the training shape (64 pairs of 4096 rows, 132 SMs): 4096 units of
+    64 rows on 132 blocks (31 or 32 units a block)."""
+    p = port_up.upscale_fwd_plan_bf16(64, 4096, 132)
+    assert (p.rows, p.units, p.blocks) == (64, 4096, 132)
